@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``ops/csrc/*.cu`` source has a plain C interface. It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
+first use, keyed by a hash of the source and the flags, and loaded with
+``ctypes``. Nothing CUDA-specific happens at import: a machine without
+``nvcc`` imports this module and fails only when a kernel is asked for.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / 'csrc'
+#: ``build/kernels`` at the root of the source checkout
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
+
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+
+class KernelLibrary:
+    """A loaded kernel library: the ``ctypes`` handle, where it came from,
+    the build's wall seconds (0 when it was already built) and the
+    compiler's register/spill report."""
+
+    def __init__(self, lib, path, seconds, log):
+        self.lib = lib
+        self.path = path
+        self.seconds = seconds
+        self.log = log
+
+
+_loaded = {}
+
+
+def find_nvcc():
+    """Path of ``nvcc``: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
+    candidates = []
+    if os.environ.get('CUDA_HOME'):
+        candidates.append(Path(os.environ['CUDA_HOME']) / 'bin' / 'nvcc')
+    on_path = shutil.which('nvcc')
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path('/usr/local/cuda/bin/nvcc'))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        'nvcc not found (looked in $CUDA_HOME/bin, PATH and '
+        '/usr/local/cuda/bin); the CUDA kernels cannot be built here')
+
+
+def load(name):
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    if name not in _loaded:
+        _loaded[name] = build_library(CSRC / f'{name}.cu')
+    return _loaded[name]
+
+
+def build_library(src):
+    """Compile the CUDA source ``src`` with ``NVCC_FLAGS`` into
+    ``build/kernels/lib<stem>_<hash>.so`` unless that file exists (the
+    hash covers the source text and the flags), and load it."""
+    src = Path(src)
+    digest = hashlib.sha256(
+        src.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f'lib{src.stem}_{digest}.so'
+    log_path = out.with_suffix('.log')
+    seconds = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise RuntimeError(
+                f'nvcc failed ({r.returncode}) building {src}:\n'
+                f'{r.stdout}\n{r.stderr}')
+        log_path.write_text(r.stdout + r.stderr)
+        os.replace(tmp, out)
+    log = log_path.read_text() if log_path.exists() else ''
+    return KernelLibrary(ctypes.CDLL(str(out)), out, seconds, log)

@@ -1,0 +1,292 @@
+"""The kernel engine: one fused stream-and-collide CUDA kernel per step.
+
+Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
+``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
+(``PallasStep2D``, ``make_kernel_2d``) in their mask + in-kernel native-BC
+(``kbc``) modes. The kernel itself is ``csrc/lbm_step.cu``; this module
+classifies the nodes into kernel mask codes, builds the BC table, checks
+that a scene is eligible, and wraps the launch.
+
+Beside the wrapper lives ``step_reference``: the same function (state,
+mask codes, BC table in; next state out) as plain PyTorch. The tests use
+it on the CPU and ``chip_smoke.py`` holds the kernel against it on the
+card; the main path never calls it on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import namedtuple
+
+import numpy as np
+import torch
+
+from sailfish_tpu_torch import equilibrium as eq
+from sailfish_tpu_torch import node_type as nt
+from sailfish_tpu_torch.ops import step as st
+
+#: limits of the C parameter block (csrc/lbm_step.cu LBM_MAX_Q, LBM_MAX_BC)
+MAX_Q = 27
+MAX_BC = 16
+#: CUDA grid y/z extent limit (one block row per (y, z))
+MAX_GRID_YZ = 65535
+#: lattices the kernel is instantiated for
+KERNEL_GRIDS = ('D2Q9', 'D3Q19')
+#: kernel launches per kernel name over all ``KernelStep`` objects
+LAUNCHES = dict.fromkeys((f'lbm_step_{g.lower()}' for g in KERNEL_GRIDS), 0)
+
+
+def reset_launch_counts():
+    """Zero ``LAUNCHES`` (before a run whose launches are to be counted)."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+#: node type -> BC kind of csrc/lbm_step.cu (even: velocity, odd: density)
+BC_KINDS = {
+    nt.NTEquilibriumVelocity: 0, nt.NTEquilibriumDensity: 1,
+    nt.NTZouHeVelocity: 2, nt.NTZouHeDensity: 3,
+    nt.NTRegularizedVelocity: 4, nt.NTRegularizedDensity: 5,
+}
+
+#: one BC-table row: node type id, orientation code (1-based, into
+#: grid.orientation_vectors), prescribed density and velocity (x, y, z)
+BCRow = namedtuple('BCRow', ('type_id', 'orientation', 'rho', 'u'))
+
+
+def classify_nodes(maps):
+    """Mask codes for the kernel (``pallas_step.py:62-119``).
+
+    Returns (mask, instances, reasons): ``mask`` is uint8 (*S) with
+    0 = collide, 1 = reflect (``NTFullBBWall``), 2 = keep (excluded and
+    propagation-only nodes), 3+j = native-BC instance j; ``instances`` is
+    the list of (type_id, orientation, node selection) in code order;
+    ``reasons`` names every node class the kernel cannot take."""
+    tm = maps.type_map
+    mask = np.zeros(tm.shape, dtype=np.uint8)
+    instances = []
+    reasons = []
+    for tid in maps.present_types:
+        cls = nt.get_node_type(tid)
+        sel = tm == tid
+        if tid == nt._NTFluid.id:
+            continue
+        if cls is nt.NTFullBBWall:
+            mask[sel] = 1
+        elif cls.excluded or cls.propagation_only:
+            mask[sel] = 2
+        elif cls in BC_KINDS:
+            for k in np.unique(maps.orientation[sel]):
+                if k == 0:
+                    reasons.append(f'{cls.__name__} nodes without a '
+                                   'detected orientation')
+                    continue
+                instances.append(
+                    (tid, int(k), sel & (maps.orientation == int(k))))
+        else:
+            reasons.append(f'node type {cls.__name__}')
+    if len(instances) > MAX_BC:
+        reasons.append(f'{len(instances)} BC instances (the kernel takes '
+                       f'at most {MAX_BC})')
+    else:
+        for j, (_tid, _k, inst) in enumerate(instances):
+            mask[inst] = 3 + j
+    return mask, instances, reasons
+
+
+def bc_table(maps, instances):
+    """(rows, reasons): one ``BCRow`` per instance when its prescribed
+    parameters are uniform over its nodes (the ``kbc_instance_spec`` test,
+    ``pallas_step.py:2526-2549``); spatially varying ones are reasons."""
+    rows, reasons = [], []
+    for tid, k, sel in instances:
+        cls = nt.get_node_type(tid)
+        rho, vel = 1.0, [0.0, 0.0, 0.0]
+        if 'velocity' in cls.param_names:
+            for a in range(maps.param_vel.shape[0]):
+                vals = np.unique(maps.param_vel[a][sel])
+                if vals.size > 1:
+                    reasons.append(f'spatially varying {cls.__name__} '
+                                   'velocity')
+                vel[a] = float(vals[0])
+        else:
+            vals = np.unique(maps.param_rho[sel])
+            if vals.size > 1:
+                reasons.append(f'spatially varying {cls.__name__} density')
+            rho = float(vals[0])
+        rows.append(BCRow(tid, k, rho, tuple(vel)))
+    return rows, reasons
+
+
+def kernel_ineligibility(builder):
+    """Reasons the kernel cannot run ``builder``'s scene (empty when it
+    can). The torch ``StepBuilder`` already refuses non-BGK models, body
+    forces, Shan-Chen and dynamic BC parameters."""
+    reasons = []
+    if builder.grid.name not in KERNEL_GRIDS:
+        reasons.append(f'lattice {builder.grid.name} (the kernel is built '
+                       f'for {", ".join(KERNEL_GRIDS)})')
+    if builder.dtype != torch.float32:
+        reasons.append(f'{builder.dtype} (the kernel is fp32 only)')
+    if builder.incompressible:
+        reasons.append('incompressible equilibrium')
+    shape = builder.maps.type_map.shape
+    if any(s > MAX_GRID_YZ for s in shape[:-1]):
+        reasons.append(f'domain {shape}: y and z extents above '
+                       f'{MAX_GRID_YZ}')
+    _mask, instances, why = classify_nodes(builder.maps)
+    reasons += why
+    reasons += bc_table(builder.maps, instances)[1]
+    return reasons
+
+
+def step_reference(f, mask, table, grid, tau_inv):
+    """Plain PyTorch version of the kernel: one step of state ``f``
+    (Q, *S) under uint8 mask codes ``mask`` (*S) and BC table ``table``
+    (list of ``BCRow``), with relaxation rate ``tau_inv``."""
+    fs = st.gather(grid, f)
+    rho, u = eq.macroscopic(grid, fs)
+    ones = (1,) * (f.dim() - 1)
+    instances = []
+    for j, row in enumerate(table):
+        rho_bc = torch.tensor(row.rho, dtype=f.dtype,
+                              device=f.device).reshape(ones)
+        vel_bc = torch.tensor(row.u[:grid.dim], dtype=f.dtype,
+                              device=f.device).reshape((grid.dim,) + ones)
+        instances.append((nt.get_node_type(row.type_id), row.orientation,
+                          mask == 3 + j, rho_bc, vel_bc))
+    rho, u = st.solve_macro_bc(grid, instances, fs, rho, u)
+    fs2 = st.pre_collision_bc(grid, instances, fs, rho, u)
+    wet = (mask == 0) | (mask >= 3)
+    return st.collide_and_select(grid, fs2, rho, u, tau_inv, wet,
+                                 mask == 1)
+
+
+class _BC(ctypes.Structure):
+    _fields_ = [('kind', ctypes.c_int), ('axis', ctypes.c_int),
+                ('sign', ctypes.c_int), ('rho', ctypes.c_float),
+                ('u', ctypes.c_float * 3)]
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [('nx', ctypes.c_int), ('ny', ctypes.c_int),
+                ('nz', ctypes.c_int), ('nbc', ctypes.c_int),
+                ('tau_inv', ctypes.c_float),
+                ('c', (ctypes.c_int * 3) * MAX_Q),
+                ('w', ctypes.c_float * MAX_Q),
+                ('opp', ctypes.c_int * MAX_Q),
+                ('bc', _BC * MAX_BC)]
+
+
+def kernel_params(grid, shape, table, tau_inv):
+    """The kernel's by-value parameter block: domain extents, the lattice
+    tables of ``sailfish_tpu.lattice`` and the BC table."""
+    p = _Params()
+    nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
+    p.nx, p.ny, p.nz = nx, ny, nz
+    p.nbc = len(table)
+    p.tau_inv = tau_inv
+    for i in range(grid.Q):
+        for a in range(grid.dim):
+            p.c[i][a] = int(grid.basis[i][a])
+        p.w[i] = float(grid.weights[i])
+        p.opp[i] = int(grid.opposite[i])
+    for j, row in enumerate(table):
+        n = grid.orientation_vectors[row.orientation - 1]
+        axis = int(np.flatnonzero(n)[0])
+        p.bc[j].kind = BC_KINDS[nt.get_node_type(row.type_id)]
+        p.bc[j].axis = axis
+        p.bc[j].sign = int(n[axis])
+        p.bc[j].rho = row.rho
+        for a in range(3):
+            p.bc[j].u[a] = row.u[a]
+    return p
+
+
+def kernel_function(lib, name):
+    """The C entry ``name`` (``lbm_step_d2q9`` / ``lbm_step_d3q19``) of a
+    loaded ``csrc/lbm_step.cu`` library, typed for ``ctypes``, after
+    checking that the library's parameter block matches ``_Params``."""
+    lib.lbm_params_size.restype = ctypes.c_int
+    if lib.lbm_params_size() != ctypes.sizeof(_Params):
+        raise RuntimeError('LBMParams layout differs between '
+                           'csrc/lbm_step.cu and ops/lbm_step.py')
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class KernelStep:
+    """The kernel engine for one scene: two state buffers A and B swapped
+    every step, the uint8 mask, the BC table, and ``launches``, the number
+    of kernel launches this object has made."""
+
+    def __init__(self, builder):
+        reasons = kernel_ineligibility(builder)
+        if reasons:
+            raise NotImplementedError(
+                'the CUDA stream-and-collide kernel cannot run this scene: '
+                + '; '.join(reasons))
+        self.grid = builder.grid
+        self.tau_inv = builder.tau_inv
+        mask_np, instances, _ = classify_nodes(builder.maps)
+        self.table = bc_table(builder.maps, instances)[0]
+        self.shape = mask_np.shape
+        self.device = builder.device
+        self.mask = torch.as_tensor(mask_np, device=self.device)
+        full = (self.grid.Q,) + self.shape
+        self.a = torch.empty(full, dtype=torch.float32, device=self.device)
+        self.b = torch.empty_like(self.a)
+        self.params = kernel_params(self.grid, self.shape, self.table,
+                                    self.tau_inv)
+        self.name = f'lbm_step_{self.grid.name.lower()}'
+        self.launches = 0
+        self._fn = None
+
+    def step_into(self, src, dst):
+        """One step from ``src`` into ``dst`` (distinct (Q, *S) fp32
+        buffers on the mask's device). On a CUDA tensor this launches the
+        kernel; on a CPU tensor it runs ``step_reference``."""
+        full = (self.grid.Q,) + self.shape
+        for t in (src, dst):
+            if t.dtype != torch.float32 or tuple(t.shape) != full:
+                raise ValueError(f'expected float32 {full}, got '
+                                 f'{t.dtype} {tuple(t.shape)}')
+            if not t.is_contiguous():
+                raise ValueError('state buffers must be contiguous')
+            if t.device != self.mask.device:
+                raise ValueError(f'state on {t.device}, mask on '
+                                 f'{self.mask.device}')
+        if src.data_ptr() == dst.data_ptr():
+            raise ValueError('the pull step cannot run in place')
+        if src.device.type == 'cpu':
+            dst.copy_(step_reference(src, self.mask, self.table, self.grid,
+                                     self.tau_inv))
+            return
+        if src.device.type != 'cuda':
+            raise ValueError(f'no kernel for device {src.device}')
+        if self._fn is None:
+            from sailfish_tpu_torch.ops import build
+            self._fn = kernel_function(build.load('lbm_step').lib, self.name)
+        rc = self._fn(src.data_ptr(), dst.data_ptr(), self.mask.data_ptr(),
+                      ctypes.byref(self.params),
+                      torch.cuda.current_stream(src.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f'{self.name} launch failed: CUDA error {rc}')
+        self.launches += 1
+        LAUNCHES[self.name] += 1
+
+    def run(self, f, n):
+        """``n`` steps from state ``f``; returns the buffer (A or B) that
+        holds the result. A state that is not one of the two buffers is
+        copied into A first."""
+        if f is not self.a and f is not self.b:
+            self.a.copy_(f)
+            f = self.a
+        other = self.b if f is self.a else self.a
+        for _ in range(n):
+            self.step_into(f, other)
+            f, other = other, f
+        return f

@@ -1,0 +1,306 @@
+"""Simulation runner of the port: device state, the step engine and the
+main loop.
+
+Port of a subset of ``sailfish_tpu/runner.py`` (``SubdomainRunner``): one
+device, one whole-domain state tensor, a chunked main loop with the same
+MLUPS / ``TimingInfo`` accounting, npz output through the reused writers
+and checkpoints in the JAX package's npz layout (``dist0a``, ``state``,
+``sim_state``), so a JAX checkpoint restores here and back.
+
+Two engines run the step: ``torch`` (``ops/step.StepBuilder``, plain
+tensor code) and ``kernel`` (``ops/lbm_step.KernelStep``, the CUDA
+kernel). There is no silent fallback between them: a requested or
+defaulted kernel engine that cannot run a scene raises with the reasons.
+Device hooks, force objects, ``--init_iters``, meshes and
+``--profile_trace`` are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import pickle
+import signal
+import threading
+import time
+
+import numpy as np
+import torch
+
+from sailfish_tpu import io as sio
+from sailfish_tpu.profile import TimeProfile
+from sailfish_tpu_torch import util
+from sailfish_tpu_torch.state import state_from_numpy, state_to_numpy
+
+
+class SubdomainRunner:
+    """Runs one simulation on one device."""
+
+    def __init__(self, sim, geo, output=None, quit_event=None):
+        self.sim = sim
+        self.config = sim.config
+        self.geo = geo
+        self._output = output
+        self._quit_event = quit_event or util.SimpleEvent()
+        self.profile = TimeProfile(self)
+        self.kernel = None
+
+    # -- initialization ------------------------------------------------------
+
+    def _domain_shape(self):
+        cfg = self.config
+        if self.sim.dim == 2:
+            return (cfg.lat_ny, cfg.lat_nx)
+        return (cfg.lat_nz, cfg.lat_ny, cfg.lat_nx)
+
+    def _init_geometry(self):
+        shape = self._domain_shape()
+        spec = self.geo.subdomains()[0].__class__(
+            (0,) * self.sim.dim, tuple(reversed(shape)))
+        self._subdomain = self.sim.subdomain(
+            shape, spec, self.sim.grid, self.config)
+        self._subdomain.reset()
+        self.maps = self._subdomain.maps
+
+    def _init_fields(self):
+        self.sim.init_fields(self._domain_shape())
+        args = self._subdomain._get_mgrid()
+        self._subdomain.initial_conditions(self.sim, *args)
+
+    def _check_unported(self):
+        cfg = self.config
+        unported = []
+        if getattr(cfg, 'mesh', ''):
+            unported.append('--mesh (sharded runs)')
+        if getattr(cfg, 'init_iters', 0) > 0:
+            unported.append('--init_iters')
+        if getattr(cfg, 'profile_trace', ''):
+            unported.append('--profile_trace')
+        if self.sim.force_objects:
+            unported.append('force objects')
+        if unported:
+            raise NotImplementedError(
+                'not ported to sailfish_tpu_torch yet: ' + ', '.join(unported))
+
+    def _init_state(self):
+        self._check_unported()
+        cfg = self.config
+        self.device = cfg.device
+        dtype = cfg.dtype
+        self.builder = self.sim.make_step_builder(self.maps, dtype,
+                                                  self.device)
+        self.f = self.sim.make_initial_state(self.builder, dtype)
+        self.engine = self._select_engine()
+        if self.engine == 'kernel':
+            from sailfish_tpu_torch.ops.lbm_step import KernelStep
+            self.kernel = KernelStep(self.builder)
+            self._run_steps = self.kernel.run
+        else:
+            step = self.builder.build()
+
+            def run_steps(f, n):
+                for _ in range(n):
+                    f = step(f)
+                return f
+
+            self._run_steps = run_steps
+
+    def _select_engine(self):
+        """'kernel' = the CUDA stream-and-collide kernel; 'torch' = the
+        plain tensor step. ``auto`` picks the kernel on a CUDA device and
+        the torch step on the CPU; whether the kernel can run the scene is
+        checked when it is built, and a refusal raises."""
+        choice = getattr(self.config, 'engine', 'auto')
+        if choice == 'torch':
+            return 'torch'
+        if self.device.type == 'cuda':
+            return 'kernel'
+        if choice == 'kernel':
+            raise RuntimeError(
+                '--engine=kernel needs a CUDA device; this run is on '
+                f'{self.device}')
+        return 'torch'
+
+    # -- output & checkpoint -------------------------------------------------
+
+    def _fields_to_host(self):
+        with torch.no_grad():
+            macro = self.builder.macro_fields(self.f, self.sim.iteration)
+        self.sim.update_host_fields(macro)
+
+    def _output_fields(self):
+        self._fields_to_host()
+        if self._output is not None:
+            self._output.save(self.sim.iteration)
+
+    def save_checkpoint(self):
+        """Distributions + pickled sim state, in the JAX package's npz
+        layout (``sailfish_tpu/runner.py:503-521``)."""
+        fname = sio.checkpoint_filename(
+            self.config.checkpoint_file,
+            sio.filename_iter_digits(self.config.max_iters), 0,
+            self.sim.iteration)
+        np.savez(fname,
+                 state=np.array([self.sim.iteration], dtype=np.int64),
+                 sim_state=np.frombuffer(pickle.dumps(self.sim.get_state()),
+                                         dtype=np.uint8),
+                 dist0a=state_to_numpy(self.f))
+
+    def restore_checkpoint(self, fname):
+        """Restore a checkpoint written by either package. ``sim_state``
+        is unpickled: restore only checkpoints this program wrote."""
+        cpoint = np.load(fname, allow_pickle=False)
+        if 'sim_state' in cpoint:
+            self.sim.set_state(pickle.loads(cpoint['sim_state'].tobytes()))
+        else:
+            self.sim.iteration = int(cpoint['state'][0])
+        if not getattr(self.config, 'restore_time', True):
+            self.sim.iteration = 0
+        if any(k.startswith('hook') for k in cpoint.files):
+            raise NotImplementedError(
+                'checkpoints with device-hook state are not ported yet')
+        self.f = state_from_numpy(cpoint['dist0a'], self.device,
+                                  self.config.dtype)
+
+    # -- main loop -----------------------------------------------------------
+
+    def run(self):
+        self._init_geometry()
+        self._init_fields()
+        self._init_state()
+        if self._output is not None:
+            self._output.register_field(self.maps.type_map, 'node_type')
+            if getattr(self.config, 'debug_dump_node_type_map', False):
+                self._output.dump_node_type(self.maps.type_map)
+        if self.config.restore_from:
+            self.restore_checkpoint(
+                sio.resolve_checkpoint(self.config.restore_from))
+        self.sim.before_main_loop(self)
+        for hook in self.sim._mixin_before_main_loop:
+            hook(self.sim, self)
+        if self.sim._device_hooks:
+            raise NotImplementedError(
+                'device hooks (sim.add_device_hook) are not ported yet')
+        with torch.no_grad():
+            return self.main()
+
+    def _install_sighup_checkpoint(self):
+        """SIGHUP forces an on-demand checkpoint."""
+        if threading.current_thread() is not threading.main_thread():
+            return
+        if not self.config.checkpoint_file:
+            return
+
+        def handler(signum, frame):
+            self._checkpoint_requested = True
+
+        signal.signal(signal.SIGHUP, handler)
+
+    def _next_chunk(self):
+        """Steps until the next host interaction
+        (``sailfish_tpu/runner.py:703-731``)."""
+        cfg = self.config
+        sim = self.sim
+        remaining = cfg.max_iters - sim.iteration
+        chunk = cfg.every if cfg.every > 0 else remaining
+        if cfg.every > 0:
+            chunk = min(chunk, cfg.every - sim.iteration % cfg.every)
+        interval = getattr(sim, 'after_step_interval', None)
+        if interval:
+            chunk = min(chunk, interval - sim.iteration % interval)
+        if cfg.checkpoint_every > 0:
+            chunk = min(chunk, cfg.checkpoint_every
+                        - sim.iteration % cfg.checkpoint_every)
+        if cfg.mode == 'benchmark' and cfg.benchmark_minibatch > 0 \
+                and sim.iteration >= cfg.benchmark_sample_from:
+            chunk = min(chunk, cfg.benchmark_minibatch)
+        return max(1, min(chunk, remaining))
+
+    def main(self):
+        cfg = self.config
+        sim = self.sim
+        log = util.get_logger(cfg)
+        self._checkpoint_requested = False
+        self._install_sighup_checkpoint()
+        total_nodes = int(np.prod(self._domain_shape()))
+        bench_t0 = None
+        bench_iters0 = 0
+        bench_samples = []
+        t_start = time.time()
+        #: per-chunk MLUPS, each chunk timed between device synchronizations
+        self.mlups_history = []
+
+        while sim.iteration < cfg.max_iters:
+            if self._quit_event.is_set():
+                break
+            chunk = self._next_chunk()
+            util.synchronize(self.device)
+            t0 = time.perf_counter()
+            self.f = self._run_steps(self.f, chunk)
+            util.synchronize(self.device)
+            t1 = time.perf_counter()
+            self.profile.record(TimeProfile.COMP, t1 - t0)
+            sim.iteration += chunk
+            mlups = total_nodes * chunk / (t1 - t0) / 1e6
+            self.mlups_history.append(mlups)
+            if cfg.mode == 'benchmark' and \
+                    sim.iteration >= cfg.benchmark_sample_from:
+                if bench_t0 is None:
+                    bench_t0 = t1
+                    bench_iters0 = sim.iteration
+                else:
+                    bench_samples.append(mlups)
+            if cfg.check_invalid_results_gpu and \
+                    not bool(torch.isfinite(self.f).all()):
+                log.error('invalid results (NaN/Inf) on device at '
+                          'iteration %d; aborting', sim.iteration)
+                break
+            if not cfg.quiet and cfg.perf_stats_every > 0 and \
+                    (sim.iteration % cfg.perf_stats_every) < chunk:
+                log.info('iteration:%d speed:%.2f MLUPS',
+                         sim.iteration, mlups)
+            if sim.need_output():
+                with self.profile.phase(TimeProfile.SYNC):
+                    self._fields_to_host()
+                with self.profile.phase(TimeProfile.OUTPUT):
+                    if self._output is not None:
+                        self._output.save(sim.iteration)
+                        if getattr(cfg, 'debug_dump_dists', False):
+                            self._output.dump_dists(
+                                [state_to_numpy(self.f)], sim.iteration)
+                if cfg.check_invalid_results_host and \
+                        not np.all(np.isfinite(sim.rho)):
+                    log.error('invalid results (NaN/Inf) detected; '
+                              'aborting')
+                    break
+            sim.after_step(self)
+            for hook in sim._mixin_after_step:
+                hook(sim, self)
+            if sim.need_checkpoint() or self._checkpoint_requested:
+                self._checkpoint_requested = False
+                with self.profile.phase(TimeProfile.CHECKPOINT):
+                    self.save_checkpoint()
+
+        if cfg.mode == 'benchmark':
+            self.profile.summary(total_nodes, sim.iteration, log)
+            if len(bench_samples) > 1:
+                log.info('MLUPS minibatches: mean=%.1f std=%.1f n=%d',
+                         float(np.mean(bench_samples)),
+                         float(np.std(bench_samples)), len(bench_samples))
+        if cfg.final_checkpoint and cfg.checkpoint_file:
+            self.save_checkpoint()
+        if cfg.output and cfg.every <= 0:
+            self._output_fields()
+        if self._output is not None:
+            self._output.close()
+        elapsed = time.time() - t_start
+        hist = self.mlups_history
+        result = util.TimingInfo(
+            iters=sim.iteration, elapsed=elapsed,
+            mlups=np.mean(hist[1:]) if len(hist) > 1
+            else (hist[0] if hist else 0.0))
+        if bench_t0 is not None and sim.iteration > bench_iters0:
+            result = util.TimingInfo(
+                iters=sim.iteration, elapsed=elapsed,
+                mlups=total_nodes * (sim.iteration - bench_iters0)
+                / (time.perf_counter() - bench_t0) / 1e6)
+        self.timing = result
+        return result

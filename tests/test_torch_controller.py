@@ -1,0 +1,125 @@
+"""The port's controller end to end on the CPU.
+
+* The torch twins of the LDC examples against the stored goldens at the
+  golden harness's tolerance (rtol 1e-5, atol 5e-7;
+  tests/examples_harness.py:149), with the harness's flags.
+* A JAX checkpoint restored by the port continues the JAX run: JAX 10
+  steps + port 10 steps == JAX 20 steps within 1e-6 on wet nodes.
+* Engine/platform requests that cannot be met raise.
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from sailfish_tpu.controller import \
+    LBSimulationController as JaxController
+from sailfish_tpu_torch.controller import LBSimulationController
+from sailfish_tpu_torch.state import state_to_numpy
+from torch_scenes import REPO, load_example, twin, wet_map
+
+torch.set_num_threads(1)
+
+GOLDEN_FLAGS = {
+    'ldc_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
+    'ldc_2d': dict(lat_nx=32, lat_ny=32),
+}
+
+
+@pytest.mark.parametrize('scene', sorted(GOLDEN_FLAGS))
+def test_matches_golden(scene, tmp_path):
+    out = str(tmp_path / scene)
+    ctrl = LBSimulationController(twin(scene), default_config=dict(
+        platform='cpu', max_iters=20, every=20, seed=1234, quiet=True,
+        output=out, **GOLDEN_FLAGS[scene]))
+    ctrl.run(ignore_cmdline=True)
+    assert ctrl._runner.engine == 'torch'
+    data = np.load(f'{out}.0.0000020.npz')
+    ref = np.load(os.path.join(REPO, 'tests', 'goldens', f'{scene}.npz'))
+    assert sorted(data.files) == sorted(ref.files)
+    for k in ref.files:
+        np.testing.assert_allclose(data[k], ref[k], rtol=1e-5, atol=5e-7,
+                                   err_msg=f'{scene}:{k}')
+
+
+def test_jax_checkpoint_continues_in_the_port(tmp_path):
+    cfg = dict(lat_nx=16, lat_ny=16, lat_nz=16, quiet=True)
+    jax_sim = load_example('ldc_3d.py', 'jax_ldc_3d').LDCSim
+
+    def jax_run(iters, **extra):
+        c = JaxController(jax_sim, default_config=dict(
+            max_iters=iters, every=iters, platform='cpu', **cfg, **extra))
+        c.run(ignore_cmdline=True)
+        return c._runner
+
+    base = str(tmp_path / 'cp')
+    jax_run(10, checkpoint_file=base, final_checkpoint=True)
+    (cpoint,) = glob.glob(base + '*.cpoint.npz')
+    ref = jax_run(20)
+
+    ctrl = LBSimulationController(twin('ldc_3d'), default_config=dict(
+        platform='cpu', max_iters=20, every=20, restore_from=cpoint,
+        checkpoint_file=str(tmp_path / 'port'), final_checkpoint=True,
+        **cfg))
+    ctrl.run(ignore_cmdline=True)
+    r = ctrl._runner
+    assert r.sim.iteration == 20
+    wet = wet_map(r.maps)
+    f_ref = np.asarray(ref.f)
+    f_port = state_to_numpy(r.f)
+    assert np.max(np.abs(f_port[:, wet] - f_ref[:, wet])) <= 1e-6
+    # the port writes the same layout back
+    saved = np.load(glob.glob(str(tmp_path / 'port') + '*.cpoint.npz')[0])
+    assert saved['state'][0] == 20
+    np.testing.assert_array_equal(saved['dist0a'], f_port)
+
+
+def test_engine_auto_is_torch_on_cpu():
+    ctrl = LBSimulationController(twin('ldc_2d'), default_config=dict(
+        platform='cpu', max_iters=2, every=2, quiet=True, lat_nx=8,
+        lat_ny=8))
+    ctrl.run(ignore_cmdline=True)
+    assert ctrl._runner.engine == 'torch'
+    assert ctrl._runner.kernel is None
+
+
+def test_kernel_engine_on_cpu_raises():
+    ctrl = LBSimulationController(twin('ldc_2d'), default_config=dict(
+        platform='cpu', engine='kernel', max_iters=2, quiet=True,
+        lat_nx=8, lat_ny=8))
+    with pytest.raises(RuntimeError, match='needs a CUDA device'):
+        ctrl.run(ignore_cmdline=True)
+
+
+def test_cuda_platform_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    ctrl = LBSimulationController(twin('ldc_2d'), default_config=dict(
+        platform='cuda', max_iters=2, quiet=True, lat_nx=8, lat_ny=8))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ctrl.run(ignore_cmdline=True)
+
+
+def test_default_platform_without_cuda_is_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    ctrl = LBSimulationController(twin('ldc_2d'), default_config=dict(
+        max_iters=2, every=2, quiet=True, lat_nx=8, lat_ny=8))
+    ctrl.run(ignore_cmdline=True)
+    assert ctrl._runner.device.type == 'cpu'
+    assert ctrl._runner.engine == 'torch'
+
+
+@pytest.mark.parametrize('cfg,match', [
+    (dict(init_iters=5), '--init_iters'),
+    (dict(mesh='2'), '--mesh'),
+    (dict(mode='visualization'), 'visualization'),
+    (dict(precision='mixed'), 'storage'),
+])
+def test_unported_flags_raise(cfg, match):
+    ctrl = LBSimulationController(twin('ldc_2d'), default_config=dict(
+        platform='cpu', max_iters=2, quiet=True, lat_nx=8, lat_ny=8,
+        **cfg))
+    with pytest.raises(NotImplementedError, match=match):
+        ctrl.run(ignore_cmdline=True)

@@ -1,0 +1,86 @@
+"""The CUDA kernel on the card (marker ``cuda``; skips without a device).
+
+Imports no jax, so it also runs where jax is absent:
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The kernel is held against ``step_reference``, its plain PyTorch version,
+from one random state (numpy seed) over a mask holding every code 0/1/2/3+:
+the LDC scenes (regularized velocity lid, normal -z / -y) and channels
+with velocity/density faces of each BC pair normal to x and to z.
+Tolerance: wet-node max |df| <= 1e-5 after 50 steps (fp32; FMA
+contraction and summation order differ between the two).
+"""
+
+import pytest
+import torch
+
+from sailfish_tpu_torch.ops import lbm_step as ls
+from torch_scenes import (BC_PAIRS, channel_sim, random_feq, run, twin,
+                          with_keep_block)
+
+SIZES = {
+    'ldc_3d': dict(lat_nx=48, lat_ny=40, lat_nz=32),
+    'ldc_2d': dict(lat_nx=300, lat_ny=200),
+}
+CHANNEL = dict(lat_nx=40, lat_ny=24, lat_nz=32)
+SCENES = {scene: (lambda s=scene: twin(s), SIZES[scene]) for scene in SIZES}
+for _pair in BC_PAIRS:
+    for _axis in 'xz':
+        SCENES[f'channel_{_axis}_{_pair}'] = (
+            lambda p=_pair, a=_axis: channel_sim(p, a), CHANNEL)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(SCENES))
+def test_kernel_matches_step_reference(cuda, scene):
+    make_sim, size = SCENES[scene]
+    r = run(with_keep_block(make_sim()), platform='cuda', engine='kernel',
+            max_iters=0, **size)
+    ks = r.kernel
+    codes = sorted(torch.unique(ks.mask).tolist())
+    assert codes[:3] == [0, 1, 2] and codes[-1] >= 3, codes
+    grid = r.sim.grid
+    f0 = random_feq(grid, ks.shape, seed=3, device='cuda')
+    fk = ks.run(f0, 50)
+    fr = f0
+    for _ in range(50):
+        fr = ls.step_reference(fr, ks.mask, ks.table, grid, ks.tau_inv)
+    torch.cuda.synchronize()
+    assert ks.launches == 50
+    wet = (ks.mask == 0) | (ks.mask >= 3)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(SIZES))
+def test_default_engine_on_cuda_is_the_kernel(cuda, scene):
+    ls.reset_launch_counts()
+    r = run(twin(scene), max_iters=30, every=10, **SIZES[scene])
+    assert r.engine == 'kernel'
+    assert r.kernel.launches == ls.LAUNCHES[r.kernel.name] == 30
+    assert bool(torch.isfinite(r.f).all())
+    ref = run(twin(scene), engine='torch', max_iters=30, every=10,
+              **SIZES[scene])
+    assert ref.engine == 'torch' and ref.kernel is None
+    assert float((r.f - ref.f).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_bad_buffers(cuda):
+    r = run(twin('ldc_2d'), platform='cuda', engine='kernel', max_iters=0,
+            lat_nx=64, lat_ny=32)
+    ks = r.kernel
+    with pytest.raises(ValueError, match='in place'):
+        ks.step_into(ks.a, ks.a)
+    with pytest.raises(ValueError, match='state on cpu'):
+        ks.step_into(ks.a.cpu(), ks.b)
+    with pytest.raises(ValueError, match='contiguous'):
+        ks.step_into(ks.a.transpose(1, 2).contiguous().transpose(1, 2),
+                     ks.b)
+    assert ks.launches == 0

@@ -1,0 +1,121 @@
+"""Scenes and runner helpers shared by the port's tests and chip_smoke.py.
+
+Imports the port and never jax, so ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` can use it where jax is absent. The torch
+twins of the LDC examples are loaded by path: the JAX examples of the same
+file names may already be imported as ``ldc_2d`` / ``ldc_3d``.
+"""
+
+import importlib.util
+import os
+
+import numpy as np
+import torch
+
+from sailfish_tpu_torch import equilibrium as teq
+from sailfish_tpu_torch import node_type as nt
+from sailfish_tpu_torch.controller import LBSimulationController
+from sailfish_tpu_torch.models.single import LBFluidSim
+from sailfish_tpu_torch.subdomain import Subdomain3D
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: velocity/density BC pairs of tests/test_sharded_pallas.py:616-713
+BC_PAIRS = {
+    'equilibrium': (nt.NTEquilibriumVelocity, nt.NTEquilibriumDensity),
+    'zouhe': (nt.NTZouHeVelocity, nt.NTZouHeDensity),
+    'regularized': (nt.NTRegularizedVelocity, nt.NTRegularizedDensity),
+}
+
+
+def load_example(rel, name):
+    """The module ``examples/<rel>``, loaded by path under ``name``."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, 'examples', rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twin(scene):
+    """``LDCSim`` of ``examples/torch/<scene>.py``."""
+    return load_example(f'torch/{scene}.py', f'torch_{scene}').LDCSim
+
+
+def run(sim_cls, **cfg):
+    """The port's runner after ``LBSimulationController.run`` with the
+    config ``cfg`` (quiet, no command line)."""
+    ctrl = LBSimulationController(sim_cls, default_config=dict(
+        quiet=True, **cfg))
+    ctrl.run(ignore_cmdline=True)
+    return ctrl._runner
+
+
+def cpu_runner(sim_cls, **cfg):
+    """The port's runner after initialization only (no steps), on the
+    CPU."""
+    return run(sim_cls, **{'platform': 'cpu', 'max_iters': 0, **cfg})
+
+
+def channel_sim(pair, axis='z'):
+    """Velocity inlet at the low face normal to ``axis`` ('x' or 'z'),
+    density outlet at the high face, bounce-back walls normal to y
+    (tests/test_sharded_pallas.py:616-675 for z, :696-713 for x)."""
+    vel_cls, den_cls = BC_PAIRS[pair]
+    a = 'xyz'.index(axis)
+    u_in = tuple(0.03 if i == a else 0.0 for i in range(3))
+
+    class Channel(Subdomain3D):
+        def boundary_conditions(self, hx, hy, hz):
+            h, n = (hx, hy, hz)[a], (self.gx, self.gy, self.gz)[a]
+            walls = (hy == 0) | (hy == self.gy - 1)
+            self.set_node(walls, nt.NTFullBBWall)
+            self.set_node((h == 0) & ~walls, vel_cls(u_in))
+            self.set_node((h == n - 1) & ~walls, den_cls(1.0))
+
+        def initial_conditions(self, sim, hx, hy, hz):
+            sim.rho[:] = 1.0
+            getattr(sim, f'v{axis}')[:] = 0.01
+
+    class Sim(LBFluidSim):
+        subdomain = Channel
+
+    return Sim
+
+
+def with_keep_block(sim_cls):
+    """``sim_cls`` with a block of 4 nodes per axis of excluded (kernel
+    mask code 2) nodes a third of the way into the domain, so a kernel
+    comparison covers every mask code."""
+    block = sim_cls.subdomain
+
+    class Keep(block):
+        def boundary_conditions(self, *h):
+            super().boundary_conditions(*h)
+            sel = np.ones(self.shape, dtype=bool)
+            for a, hh in enumerate(h):
+                n = self.shape[-1 - a]
+                sel &= (hh >= n // 3) & (hh < n // 3 + 4)
+            self.update_node(sel, nt._NTUnused)
+
+    class Sim(sim_cls):
+        subdomain = Keep
+
+    return Sim
+
+
+def random_feq(grid, shape, seed, device):
+    """fp32 equilibrium state of random density (1 +- 0.01) and velocity
+    (0.02 rms) fields drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    rho = torch.tensor(1.0 + 0.01 * rng.standard_normal(shape),
+                       dtype=torch.float32, device=device)
+    u = torch.tensor(0.02 * rng.standard_normal((grid.dim,) + shape),
+                     dtype=torch.float32, device=device)
+    return teq.bgk_equilibrium(grid, rho, u).contiguous()
+
+
+def wet_map(maps):
+    """Nodes of the scene that collide (fluid and wet BC nodes)."""
+    return np.isin(maps.type_map, [t for t in maps.present_types
+                                   if nt.get_node_type(t).wet_node])

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Device-idle share of the port's main loop, read from a profiler trace.
+
+    python3 tools/trace_main_path.py [--chunk 500] [--out DIR]
+
+Needs one CUDA GPU. For the lid-driven cavities of ``examples/torch`` at
+the benchmark sizes (D3Q19 256^3, D2Q9 4096^2) it runs the controller with
+the default (kernel) engine for one chunk (kernel build, warm-up), then
+traces one more chunk of ``SubdomainRunner.main`` with ``torch.profiler``
+(CPU and CUDA activities) and reads the exported Chrome trace:
+
+* ``window``: the ``main`` chunk on the host, a ``record_function`` span;
+* ``busy``: the union of the device's kernel, memcpy and memset intervals
+  inside the window;
+* ``idle share`` = 1 - busy / window; ``gaps`` = the idle time between the
+  first kernel's start and the last one's end.
+
+Prints one line per scene and a JSON line; the traces are written to
+``DIR`` (default ``chiprun_out/traces``).
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, 'tests'))
+from torch_scenes import run, twin  # noqa: E402
+
+SCENES = (('ldc_3d', (256, 256, 256)), ('ldc_2d', (4096, 4096)))
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+
+
+def union_length(intervals):
+    """Total length covered by (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def trace_chunk(scene, size, chunk, out_dir):
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    r = run(twin(scene), max_iters=chunk, every=chunk, **cfg)
+    assert r.engine == 'kernel', r.engine
+    r.config.max_iters += chunk
+    launches0 = r.kernel.launches
+    with torch.no_grad(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function('main_chunk'):
+            t0 = time.perf_counter()
+            r.main()
+            host_s = time.perf_counter() - t0
+    assert r.kernel.launches - launches0 == chunk
+    path = os.path.join(out_dir, f'{scene}_main_chunk.json')
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)['traceEvents']
+    wins = [e for e in events if e.get('name') == 'main_chunk'
+            and e.get('ph') == 'X' and e.get('cat') == 'user_annotation']
+    if len(wins) != 1:
+        raise RuntimeError(f'{scene}: {len(wins)} main_chunk spans in the '
+                           'trace')
+    win = wins[0]
+    w0, w1 = win['ts'], win['ts'] + win['dur']
+    dev = [(max(e['ts'], w0), min(e['ts'] + e['dur'], w1)) for e in events
+           if e.get('cat') in DEVICE_CATS and e.get('ph') == 'X'
+           and e['ts'] < w1 and e['ts'] + e['dur'] > w0]
+    kernels = [e for e in events if e.get('cat') == 'kernel'
+               and 'lbm_step_kernel' in e.get('name', '')]
+    if not kernels:
+        raise RuntimeError(f'{scene}: the trace holds no device kernels')
+    busy = union_length(dev)
+    k0 = min(e['ts'] for e in kernels)
+    k1 = max(e['ts'] + e['dur'] for e in kernels)
+    res = dict(scene=scene, size=list(size), chunk=chunk,
+               kernels=len(kernels), window_us=win['dur'], busy_us=busy,
+               idle_share=1.0 - busy / win['dur'],
+               gaps_us=(k1 - k0) - union_length(
+                   [(e['ts'], e['ts'] + e['dur']) for e in kernels]),
+               kernel_mean_us=sum(e['dur'] for e in kernels) / len(kernels),
+               host_s=host_s, trace=os.path.relpath(path, REPO))
+    del r
+    torch.cuda.empty_cache()
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--chunk', type=int, default=500)
+    ap.add_argument('--out', default=os.path.join(REPO, 'chiprun_out',
+                                                  'traces'))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit('trace_main_path: torch sees no CUDA device')
+    os.makedirs(args.out, exist_ok=True)
+    results = []
+    for scene, size in SCENES:
+        res = trace_chunk(scene, size, args.chunk, args.out)
+        print(f'{scene} {"x".join(map(str, size))}: {res["kernels"]} kernels '
+              f'in the trace, mean {res["kernel_mean_us"]:.2f} us; window '
+              f'{res["window_us"]:.1f} us, device busy {res["busy_us"]:.1f} '
+              f'us, idle share {res["idle_share"]:.5f}; gaps between the '
+              f'first and last kernel {res["gaps_us"]:.1f} us', flush=True)
+        results.append(res)
+    print(json.dumps({'device': torch.cuda.get_device_name(0),
+                      'trace_main_path': results}))
+
+
+if __name__ == '__main__':
+    main()
