@@ -3,16 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from ``sailfish_tpu_torch/ops/csrc``, holds it
-against its plain PyTorch version (``ops/lbm_step.step_reference``) on the
-card from seeded random states (lid-driven cavities, and ducts with
-x-normal velocity/density faces of each native BC pair), runs the port's
-lid-driven cavity examples through the controller at the benchmark sizes
-(D3Q19 256^3, D2Q9 4096^2), checks the results, and prints the
-measurements. Every
-phase raises on failure, so the exit code is 0 only when all of them
-passed; without a CUDA device it exits non-zero before printing a result.
-The last line is ``{"ok": true, "device": {...}}``.
+Builds the CUDA kernels from ``sailfish_tpu_torch/ops/csrc`` (one
+``nvcc`` per source, in parallel) and holds each against its plain PyTorch
+version on the card from seeded random states:
+
+* the single-fluid stream-and-collide kernel (``ops/lbm_step``) against
+  ``step_reference`` on lid-driven cavities and on ducts with x-normal
+  velocity/density faces of each native BC pair;
+* the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
+  against ``rho_reference`` and ``sc_multi_reference`` on the binary
+  separation scenes (periodic 2D and 3D, and the walled 3D box).
+
+Then it runs each model's main path through the controller with the
+default engine and the launch counts zeroed just before: the lid-driven
+cavities (D3Q19 256^3, D2Q9 4096^2) and the binary Shan-Chen separations
+(D3Q19 256^3, D2Q9 4096^2), checks the results, times every kernel against
+its plain version, and prints the measurements. Every phase raises on
+failure, so the exit code is 0 only when all of them passed; without a
+CUDA device it exits non-zero before printing a result. The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -25,28 +34,55 @@ import tempfile
 import numpy as np
 import torch
 
+from sailfish_tpu_torch import state as st
 from sailfish_tpu_torch import util
 from sailfish_tpu_torch.ops import build
 from sailfish_tpu_torch.ops import lbm_step as ls
+from sailfish_tpu_torch.ops import sc_multi as sm
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, 'tests'))
-from torch_scenes import (channel_sim, random_feq, run,  # noqa: E402
-                          twin, with_keep_block)
+from torch_scenes import (binary_twin, channel_sim,  # noqa: E402
+                          random_binary_state, random_feq, run, twin,
+                          with_keep_block)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
+SEP_2D = binary_twin('sc_separation_2d')
+SEP_3D = binary_twin('sc_separation_3d')
+SEP_3D_WALLS = binary_twin('sc_separation_3d_walls')
 
 #: kernel-vs-plain tolerance: wet-node max |df| after 200 steps (fp32,
 #: FMA contraction and summation order differ between the two)
 TOL = 1e-5
+#: density pre-pass vs rho_reference, max |d rho| (fp32 summation order)
+RHO_TOL = 1e-6
+#: relative drift of a component's total mass over a binary main path.
+#: fp32 BGK does not conserve mass exactly: the fp32 lattice weights sum
+#: to 1 + 7.5e-9 (D2Q9) / 1 + 1.5e-8 (D3Q19), and each step at tau = 1
+#: adds about that much plus rounding (1.8e-5 after 1600 steps of the
+#: plain torch engine at 96^2 on the CPU), so 2000 steps drift by a few
+#: 1e-5; a lost or doubled population would drift by far more
+MASS_TOL = 1e-4
 #: bytes moved per node per step: Q floats read + Q written + 1 mask byte
 BYTES = {'D3Q19': 2 * 19 * 4 + 1, 'D2Q9': 2 * 9 * 4 + 1}
+#: bytes moved per node per step by the binary (K = 2) path: the pre-pass
+#: reads K*Q floats and writes K; the step reads K*Q floats, writes K*Q,
+#: reads K densities and the mask byte
+SC_BYTES = {'D3Q19': 2 * (19 * 4 + 4) + 2 * (2 * 19 * 4 + 4) + 1,
+            'D2Q9': 2 * (9 * 4 + 4) + 2 * (2 * 9 * 4 + 4) + 1}
+#: kernel name -> (source, the TPU kernel it replaces)
 KERNELS = {
-    'D3Q19': ('lbm_step_d3q19', 'sailfish_tpu/ops/pallas_step.py:812'),
-    'D2Q9': ('lbm_step_d2q9', 'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'lbm_step_d3q19': ('lbm_step.cu', 'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_d2q9': ('lbm_step.cu', 'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'rho_poststream_d3q19': ('sc_multi.cu',
+                             'sailfish_tpu/ops/pallas_step.py:2409'),
+    'rho_poststream_d2q9': ('sc_multi.cu',
+                            'sailfish_tpu/ops/pallas_step2d.py:1069'),
+    'sc_multi_d3q19': ('sc_multi.cu', 'sailfish_tpu/ops/pallas_multi3d.py:57'),
+    'sc_multi_d2q9': ('sc_multi.cu', 'sailfish_tpu/ops/pallas_multi2d.py:91'),
 }
-SOURCE = 'sailfish_tpu_torch/ops/csrc/lbm_step.cu'
+CSRC = 'sailfish_tpu_torch/ops/csrc/'
 DEVICE = 'cuda'
 
 
@@ -77,24 +113,78 @@ def compare(name, sim_cls, steps=200, **cfg):
     return r.sim.grid.name, err
 
 
-def golden(scene, sim_cls, **cfg):
+def golden(scene, sim_cls, golden_name=None, **cfg):
     """The kernel engine on the golden harness's small scene (20 steps,
     seed 1234) against tests/goldens at the harness tolerance."""
+    golden_name = golden_name or scene
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, scene)
         r = run(sim_cls, platform=DEVICE, max_iters=20, every=20,
                 seed=1234, output=out, **cfg)
-        assert r.engine == 'kernel' and r.kernel.launches == 20
+        assert r.engine == 'kernel', r.engine
+        launches = r.kernel.launches
+        assert set(launches.values() if isinstance(launches, dict)
+                   else [launches]) == {20}, launches
         data = np.load(f'{out}.0.0000020.npz')
         ref = np.load(os.path.join(REPO, 'tests', 'goldens',
-                                   f'{scene}.npz'))
+                                   f'{golden_name}.npz'))
         worst = 0.0
         for k in ref.files:
             np.testing.assert_allclose(data[k], ref[k], rtol=1e-5,
                                        atol=5e-7, err_msg=f'{scene}:{k}')
             worst = max(worst, float(np.max(np.abs(data[k] - ref[k]))))
-    say(f'golden {scene}: kernel engine matches tests/goldens '
+    say(f'golden {golden_name}: kernel engine matches tests/goldens '
         f'(max |d| = {worst:.3e}; rtol 1e-5, atol 5e-7)')
+
+
+def sc_reference_step(ks, grid, fs):
+    """One step of the plain versions: the pre-pass, then the coupled
+    step."""
+    rhos = [sm.rho_reference(f, grid) for f in fs]
+    return sm.sc_multi_reference(fs, rhos, ks.mask, grid, ks.taus,
+                                 ks.couplings, ks.potential)
+
+
+def sc_errors(ks, grid, f0, steps):
+    """(pre-pass max |d rho|, wet-node max |d f| after ``steps`` steps)
+    of the Shan-Chen kernels against their plain versions from the
+    K-tuple ``f0``."""
+    rho = torch.empty_like(ks.rho)
+    ks.density_into(torch.stack(f0), rho)
+    rho_ref = torch.stack([sm.rho_reference(f, grid) for f in f0])
+    rho_err = float((rho - rho_ref).abs().max())
+    del rho, rho_ref
+    fk = ks.run(f0, steps)
+    fr = f0
+    for _ in range(steps):
+        fr = sc_reference_step(ks, grid, fr)
+    util.synchronize(DEVICE)
+    wet = ks.mask == 0
+    err = max(float((a - b)[:, wet].abs().max()) for a, b in zip(fk, fr))
+    assert np.isfinite(rho_err) and rho_err <= RHO_TOL, rho_err
+    assert np.isfinite(err) and err <= TOL, err
+    return rho_err, err
+
+
+def sc_compare(name, sim_cls, steps=20, **cfg):
+    """The Shan-Chen kernels vs their plain versions on the card from one
+    seeded near-uniform two-component state (rho, phi = 1 + U(0, 1e-3),
+    as the separation scenes start), with a block of excluded nodes."""
+    r = run(with_keep_block(sim_cls), platform=DEVICE, engine='kernel',
+            max_iters=0, **cfg)
+    ks = r.kernel
+    grid = r.sim.grid
+    codes = sorted(torch.unique(ks.mask).tolist())
+    f0 = tuple(random_binary_state(grid, ks.shape, seed=1234,
+                                   device=DEVICE))
+    rho_err, err = sc_errors(ks, grid, f0, steps)
+    assert ks.launches == {ks.rho_name: steps + 1, ks.name: steps}
+    say(f'compare {name}: {grid.name} K={ks.K} {ks.shape} {ks.potential}, '
+        f'mask codes {codes}: pre-pass max|drho| = {rho_err:.3e} (tol '
+        f'{RHO_TOL:g}); {steps} steps wet max|df| = {err:.3e} (tol {TOL:g})')
+    del r, ks, f0
+    torch.cuda.empty_cache()
+    return grid.name, rho_err, err
 
 
 def copy_bandwidth():
@@ -168,13 +258,95 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     return grid, result
 
 
+def sc_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
+    """A binary Shan-Chen scene through the controller with the default
+    engine: the main path of the mixtures. The launch counts are zeroed
+    just before the controller runs and read just after. Checks: finite
+    fields, each component's mass (float64 sums) within ``MASS_TOL``,
+    demixing by the criteria of tests/test_binary.py:41-43, and 10 steps
+    from the final state against the plain versions; then each kernel is
+    timed alone against its plain version."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    steps = chunk * chunks
+
+    class Sim(sim_cls):
+        def make_initial_state(self, builder, dtype):
+            state = super().make_initial_state(builder, dtype)
+            self.mass0 = [float(torch.sum(f, dtype=torch.float64))
+                          for f in state]
+            return state
+
+    sm.reset_launch_counts()
+    r = run(Sim, max_iters=steps, every=chunk, seed=1, **cfg)
+    counts = dict(sm.LAUNCHES)
+    assert r.engine == 'kernel', r.engine
+    ks = r.kernel
+    assert counts[ks.name] == counts[ks.rho_name] == steps \
+        == r.sim.iteration, (counts, steps)
+    assert sum(counts.values()) == 2 * steps, counts
+    assert ks.launches == {ks.rho_name: steps, ks.name: steps}
+    assert st.is_finite(r.f)
+    mass = [float(torch.sum(f, dtype=torch.float64)) for f in r.f]
+    drift = max(abs(m - m0) / m0 for m, m0 in zip(mass, r.sim.mass0))
+    assert drift <= MASS_TOL, (mass, r.sim.mass0)
+    r._fields_to_host()
+    rho, phi = r.sim.rho, r.sim.phi
+    shape = tuple(reversed(size))
+    for name, arr in (('rho', rho), ('phi', phi), ('vx', r.sim.vx)):
+        assert arr.shape == shape and np.all(np.isfinite(arr)), name
+    contrast = float(np.ptp(rho))
+    corr = float(np.corrcoef(rho.ravel(), phi.ravel())[0, 1])
+    assert contrast > 0.5 and corr < -0.9, (contrast, corr)
+    grid = r.sim.grid
+    mlups = statistics.median(r.mlups_history[1:])
+    eff = mlups * 1e6 * SC_BYTES[grid.name]
+    say(f'main path {scene} {"x".join(map(str, size))} ({grid.name}, K='
+        f'{ks.K}, engine {r.engine}): {counts[ks.rho_name]} '
+        f'{ks.rho_name} + {counts[ks.name]} {ks.name} launches; MLUPS per '
+        f'{chunk}-step chunk {[round(m, 1) for m in r.mlups_history]}; '
+        f'median {mlups:.1f} MLUPS; {eff / 1e9:.1f} GB/s effective '
+        f'({SC_BYTES[grid.name]} B/node), {eff / copy_bw:.3f} of the copy '
+        f'bandwidth; mass drift {drift:.2e}; rho contrast {contrast:.3f}, '
+        f'corr(rho, phi) {corr:.4f}')
+    del rho, phi
+    # the kernels against their plain versions on the main path's own
+    # state and shapes (10 steps), then each timed alone
+    rho_err, err = sc_errors(ks, grid, tuple(f.clone() for f in r.f), 10)
+    say(f'compare main path {scene}: pre-pass max|drho| = {rho_err:.3e}; '
+        f'10 steps from the state after {steps}, wet max|df| = {err:.3e} '
+        f'(tol {TOL:g})')
+    a, b, rb = ks.a, ks.b, ks.rho
+    rho_ms = util.cuda_time_ms(lambda: ks.density_into(a, rb), 50, warmup=5)
+    ms = util.cuda_time_ms(lambda: ks.collide_into(a, rb, b), 50, warmup=5)
+    plain_rho_ms = util.cuda_time_ms(
+        lambda: [sm.rho_reference(f, grid) for f in a], 5)
+    plain_ms = util.cuda_time_ms(
+        lambda: sm.sc_multi_reference(a.unbind(0), rb.unbind(0), ks.mask,
+                                      grid, ks.taus, ks.couplings,
+                                      ks.potential), 5)
+    say(f'kernel {ks.rho_name} at {"x".join(map(str, size))}: {rho_ms:.4f} '
+        f'ms per launch (K={ks.K}); rho_reference {plain_rho_ms:.3f} ms')
+    say(f'kernel {ks.name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
+        f'launch; sc_multi_reference {plain_ms:.3f} ms; the pre-pass is '
+        f'{rho_ms / (rho_ms + ms):.3f} of a step')
+    results = {
+        ks.rho_name: dict(launches=counts[ks.rho_name], ms=rho_ms,
+                          plain_ms=plain_rho_ms, err=rho_err),
+        ks.name: dict(launches=counts[ks.name], ms=ms, plain_ms=plain_ms,
+                      err=err),
+    }
+    del r, ks, a, b, rb
+    torch.cuda.empty_cache()
+    return results
+
+
 def plain_path(scene, sim_cls, size, chunk, chunks=4):
     """The same scene on the plain torch engine on the card."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
     r = run(sim_cls, engine='torch', max_iters=chunk * chunks,
             every=chunk, **cfg)
     assert r.engine == 'torch' and r.device.type == DEVICE
-    assert torch.isfinite(r.f).all()
+    assert st.is_finite(r.f)
     mlups = statistics.median(r.mlups_history[1:])
     say(f'plain torch engine {scene} {"x".join(map(str, size))}: MLUPS '
         f'per {chunk}-step chunk {[round(m, 2) for m in r.mlups_history]};'
@@ -195,13 +367,19 @@ def main():
     say(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
 
-    lib = build.load('lbm_step')
-    say(f'build: {lib.path.name} in {lib.seconds:.1f} s (0 = cached)')
-    for line in lib.log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            say('  ptxas:', line.strip())
+    for name, lib in build.load_all(['lbm_step', 'sc_multi']).items():
+        say(f'build {name}: {lib.path.name} in {lib.seconds:.1f} s '
+            '(0 = cached)')
+        for line in lib.log.splitlines():
+            if 'entry function' in line or 'registers' in line \
+                    or 'spill' in line:
+                say('  ptxas:', line.strip())
 
     errs = {}
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
     duct = dict(lat_nx=128, lat_ny=64, lat_nz=64)
     for name, sim_cls, cfg in (
             ('ldc_3d', LDC_3D, dict(lat_nx=128, lat_ny=128, lat_nz=128)),
@@ -210,9 +388,26 @@ def main():
             ('duct_regularized', channel_sim('regularized', 'x'), duct),
             ('ldc_2d', LDC_2D, dict(lat_nx=1024, lat_ny=1024))):
         grid, err = compare(name, sim_cls, **cfg)
-        errs[grid] = max(errs.get(grid, 0.0), err)
+        note(f'lbm_step_{grid.lower()}', err)
+    cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
+    for name, sim_cls, cfg in (
+            ('sc_separation_2d', SEP_2D, dict(lat_nx=1024, lat_ny=1024)),
+            ('sc_separation_3d', SEP_3D, cube),
+            ('sc_separation_3d_classic', SEP_3D,
+             dict(cube, sc_potential='classic')),
+            ('sc_separation_3d_walls', SEP_3D_WALLS, cube)):
+        grid, rho_err, err = sc_compare(name, sim_cls, **cfg)
+        note(f'rho_poststream_{grid.lower()}', rho_err)
+        note(f'sc_multi_{grid.lower()}', err)
     golden('ldc_3d', LDC_3D, lat_nx=16, lat_ny=16, lat_nz=16)
     golden('ldc_2d', LDC_2D, lat_nx=32, lat_ny=32)
+    golden('sc_separation_2d', SEP_2D, 'binary_fluid_sc_separation_2d',
+           lat_nx=32, lat_ny=32)
+    golden('sc_separation_3d', SEP_3D, 'binary_fluid_sc_separation_3d',
+           lat_nx=16, lat_ny=16, lat_nz=16)
+    golden('sc_separation_3d_walls', SEP_3D_WALLS,
+           'binary_fluid_sc_separation_3d_walls', lat_nx=24, lat_ny=24,
+           lat_nz=24)
 
     copy_bw = copy_bandwidth()
     say(f'device-to-device copy bandwidth (1 GiB): {copy_bw / 1e9:.1f} GB/s')
@@ -220,19 +415,26 @@ def main():
     for scene, sim_cls, size in (('ldc_3d', LDC_3D, (256, 256, 256)),
                                  ('ldc_2d', LDC_2D, (4096, 4096))):
         grid, res = main_path(scene, sim_cls, size, copy_bw)
-        results[grid] = res
+        results[f'lbm_step_{grid.lower()}'] = res
+    for scene, sim_cls, size in (('sc_separation_3d', SEP_3D,
+                                  (256, 256, 256)),
+                                 ('sc_separation_2d', SEP_2D, (4096, 4096))):
+        results.update(sc_main_path(scene, sim_cls, size, copy_bw))
     plain_path('ldc_3d', LDC_3D, (128, 128, 128), chunk=500)
     plain_path('ldc_3d', LDC_3D, (256, 256, 256), chunk=50)
     plain_path('ldc_2d', LDC_2D, (4096, 4096), chunk=100)
+    plain_path('sc_separation_3d', SEP_3D, (128, 128, 128), chunk=50)
+    plain_path('sc_separation_3d', SEP_3D, (256, 256, 256), chunk=10)
+    plain_path('sc_separation_2d', SEP_2D, (4096, 4096), chunk=20)
 
     kernels = []
-    for grid, (name, replaces) in KERNELS.items():
-        res = results[grid]
+    for name, (src, replaces) in KERNELS.items():
+        res = results[name]
         assert res['launches'] > 0, name
-        kernels.append(dict(name=name, route='cuda', source=SOURCE,
+        note(name, res['err'])
+        kernels.append(dict(name=name, route='cuda', source=CSRC + src,
                             replaces=replaces, launches=res['launches'],
-                            max_abs_err=max(errs[grid], res['err']),
-                            ms=res['ms'],
+                            max_abs_err=errs[name], ms=res['ms'],
                             plain_ms=res['plain_ms']))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {

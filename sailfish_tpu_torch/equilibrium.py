@@ -35,9 +35,14 @@ def momentum(grid, f):
                         for a in range(grid.dim)])
 
 
+def density(grid, f):
+    """rho (*S) from distributions f (Q, *S)."""
+    return torch.sum(f, dim=0)
+
+
 def macroscopic(grid, f):
     """rho (*S), u (dim, *S) from distributions f (Q, *S)."""
-    rho = torch.sum(f, dim=0)
+    rho = density(grid, f)
     u = momentum(grid, f) / rho[None]
     return rho, u
 

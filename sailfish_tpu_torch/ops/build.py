@@ -3,8 +3,9 @@
 Each ``ops/csrc/*.cu`` source has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 first use, keyed by a hash of the source and the flags, and loaded with
-``ctypes``. Nothing CUDA-specific happens at import: a machine without
-``nvcc`` imports this module and fails only when a kernel is asked for.
+``ctypes``; ``load_all`` compiles several sources in parallel. Nothing
+CUDA-specific happens at import: a machine without ``nvcc`` imports this
+module and fails only when a kernel is asked for.
 """
 
 from __future__ import annotations
@@ -59,33 +60,57 @@ def find_nvcc():
 
 def load(name):
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    if name not in _loaded:
-        _loaded[name] = build_library(CSRC / f'{name}.cu')
-    return _loaded[name]
+    return load_all([name])[name]
+
+
+def load_all(names):
+    """Build (if needed) and load ``csrc/<name>.cu`` for every name, with
+    one ``nvcc`` per source, all started together; returns {name:
+    KernelLibrary}. Cached per process."""
+    builds = {n: _start_build(CSRC / f'{n}.cu') for n in names
+              if n not in _loaded}
+    for n, pending in builds.items():
+        _loaded[n] = _finish_build(*pending)
+    return {n: _loaded[n] for n in names}
 
 
 def build_library(src):
     """Compile the CUDA source ``src`` with ``NVCC_FLAGS`` into
     ``build/kernels/lib<stem>_<hash>.so`` unless that file exists (the
     hash covers the source text and the flags), and load it."""
+    return _finish_build(*_start_build(src))
+
+
+def _start_build(src):
+    """(src, out, running nvcc process or None when built, start time)."""
     src = Path(src)
     digest = hashlib.sha256(
         src.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f'lib{src.stem}_{digest}.so'
+    if out.exists():
+        return src, out, None, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(_tmp_path(out)), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return src, out, proc, time.perf_counter()
+
+
+def _tmp_path(out):
+    return out.with_name(f'{out.name}.{os.getpid()}.tmp')
+
+
+def _finish_build(src, out, proc, t0):
     log_path = out.with_suffix('.log')
     seconds = 0.0
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-        cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
+    if proc is not None:
+        output, _ = proc.communicate()
         seconds = time.perf_counter() - t0
-        if r.returncode != 0:
+        if proc.returncode != 0:
             raise RuntimeError(
-                f'nvcc failed ({r.returncode}) building {src}:\n'
-                f'{r.stdout}\n{r.stderr}')
-        log_path.write_text(r.stdout + r.stderr)
-        os.replace(tmp, out)
+                f'nvcc failed ({proc.returncode}) building {src}:\n'
+                f'{output}')
+        log_path.write_text(output)
+        os.replace(_tmp_path(out), out)
     log = log_path.read_text() if log_path.exists() else ''
     return KernelLibrary(ctypes.CDLL(str(out)), out, seconds, log)

@@ -1,8 +1,11 @@
 """Collision operators on torch tensors (port of
-``sailfish_tpu/ops/collide.py``; BGK only so far -- MRT/TRT, ELBM, LES and
-the forcing terms are still to be ported)."""
+``sailfish_tpu/ops/collide.py``; BGK and the Shan-Chen pseudopotential
+force so far -- MRT/TRT, ELBM, LES and the body-force terms are still to
+be ported)."""
 
 from __future__ import annotations
+
+import torch
 
 from sailfish_tpu_torch import equilibrium as eq
 
@@ -11,3 +14,29 @@ def bgk_collide(grid, f, rho, u, tau_inv, *, incompressible=False):
     """f + (feq - f) / tau; ``tau_inv`` a scalar or a per-node field."""
     feq = eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible)
     return f + tau_inv * (feq - f)
+
+
+SHAN_CHEN_POTENTIALS = {
+    'linear': lambda rho: rho,
+    'classic': lambda rho: 1.0 - torch.exp(-rho),
+}
+
+
+def shan_chen_force(grid, rho_self, rho_other, coupling, potential='linear'):
+    """Pseudopotential interaction force
+    F(x) = -G psi(rho_self(x)) sum_i w_i psi(rho_other(x + c_i)) c_i
+    (``sailfish_tpu/ops/collide.py:95-112``, same accumulation order:
+    directions 1..Q-1, then axis). Returns (dim, *S)."""
+    from sailfish_tpu_torch.ops.step import sample
+    psi_fn = SHAN_CHEN_POTENTIALS[potential]
+    psi_other = psi_fn(rho_other)
+    acc = [torch.zeros_like(rho_self) for _ in range(grid.dim)]
+    for i in range(1, grid.Q):
+        psi_n = sample(psi_other, grid.basis[i])
+        w = float(grid.weights[i])
+        for a in range(grid.dim):
+            c = int(grid.basis[i][a])
+            if c:
+                acc[a] = acc[a] + (w * c) * psi_n
+    psi_self = psi_fn(rho_self)
+    return torch.stack([-coupling * psi_self * a for a in acc])

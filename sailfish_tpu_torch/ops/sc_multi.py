@@ -1,0 +1,291 @@
+"""The kernel engine of the K-component Shan-Chen mixtures: a density
+pre-pass and a coupled stream-and-collide step, two CUDA kernels per step.
+
+Counterpart of ``sailfish_tpu/ops/pallas_multi2d.py`` (``PallasStepSCMulti2D``,
+:1516-1585) and ``sailfish_tpu/ops/pallas_multi3d.py``
+(``PallasStepSCMulti3D``, :1623-1712), which run the TPU kernels B5/B6
+(``make_rho_kernel_3d`` / ``_2d``) and B7/B9 (``make_kernel_2d_sc_multi`` /
+``make_kernel_3d_sc_multi``). The kernels are ``csrc/sc_multi.cu``; this
+module checks that a scene is eligible, holds the per-component A/B
+buffers and the density buffer, and wraps the launches.
+
+Beside the wrapper live the kernels' plain PyTorch versions,
+``rho_reference`` and ``sc_multi_reference``. The tests use them on the
+CPU and ``chip_smoke.py`` holds the kernels against them on the card; the
+main path never calls them on a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sailfish_tpu_torch import equilibrium as eq
+from sailfish_tpu_torch import node_type as nt
+from sailfish_tpu_torch.ops import collide as co
+from sailfish_tpu_torch.ops import lbm_step as ls
+from sailfish_tpu_torch.ops import multigrid as mg
+from sailfish_tpu_torch.ops import step as st
+
+#: limits of the C parameter block (csrc/sc_multi.cu SC_MAX_Q, SC_MAX_K)
+MAX_Q = 27
+MAX_K = 4
+#: lattices and component counts the step kernel is instantiated for
+KERNEL_GRIDS = ('D2Q9', 'D3Q19')
+KERNEL_K = (2,)
+#: potential codes of csrc/sc_multi.cu
+POTENTIALS = {'linear': 0, 'classic': 1}
+#: kernel launches per kernel name over all ``SCMultiStep`` objects
+LAUNCHES = dict.fromkeys(
+    (f'{kind}_{g.lower()}' for kind in ('rho_poststream', 'sc_multi')
+     for g in KERNEL_GRIDS), 0)
+
+
+def reset_launch_counts():
+    """Zero ``LAUNCHES`` (before a run whose launches are to be counted)."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def rho_reference(f, grid):
+    """Plain PyTorch version of ``rho_poststream``: the post-stream
+    density rho(x) = sum_i f_i(x - c_i) of one component's (Q, *S) state,
+    at every node (walls included)."""
+    return eq.density(grid, st.gather(grid, f))
+
+
+def sc_multi_reference(fs, rhos, mask, grid, taus, couplings, potential):
+    """Plain PyTorch version of ``sc_multi_step``: one step of the
+    K-component state ``fs`` (K (Q, *S) tensors) given the pre-pass
+    densities ``rhos`` (K (*S) tensors), under uint8 mask codes ``mask``
+    (0 collide, 1 full bounce-back, 2 keep), relaxation times ``taus``,
+    couplings {(j, k): G_jk} and ``potential``. Returns the K next
+    states."""
+    fss = [st.gather(grid, f) for f in fs]
+    rho_s = [eq.density(grid, x) for x in fss]
+    u = mg.common_velocity(grid, fss, rho_s, taus)
+    forces = mg.sc_forces(grid, list(rhos), couplings, potential)
+    wet, fullbb = mask == 0, mask == 1
+    out = []
+    for x, rho, F, tau in zip(fss, rho_s, forces, taus):
+        fpost = co.bgk_collide(grid, x, rho,
+                               mg.shifted_velocity(u, F, tau, rho),
+                               1.0 / tau)
+        out.append(st.select_dry(grid, x, fpost, wet, fullbb))
+    return tuple(out)
+
+
+def kernel_ineligibility(builder):
+    """Reasons the kernels cannot run ``builder``'s scene (empty when they
+    can)."""
+    if not isinstance(builder, mg.ShanChenMultiStepBuilder):
+        return [f'{type(builder).__name__} scenes (the kernels run '
+                'Shan-Chen mixtures)']
+    reasons = []
+    grid = builder.grid
+    K = len(builder.taus)
+    if grid.name not in KERNEL_GRIDS:
+        reasons.append(f'lattice {grid.name} (the kernels are built for '
+                       f'{", ".join(KERNEL_GRIDS)})')
+    if K not in KERNEL_K:
+        reasons.append(f'{K} components (the step kernel is built for '
+                       f'K = {", ".join(map(str, KERNEL_K))})')
+    if builder.dtype != torch.float32:
+        reasons.append(f'{builder.dtype} (the kernels are fp32 only)')
+    if any(bf is not None for bf in builder.body_forces):
+        reasons.append('body forces (Guo forcing is not in the Shan-Chen '
+                       'kernel yet)')
+    for (j, k) in builder.couplings:
+        if not 0 <= j <= k < K:
+            reasons.append(f'coupling key {(j, k)} (the kernel takes '
+                           'j <= k < K, each pair once)')
+    shape = builder.maps.type_map.shape
+    if any(s > ls.MAX_GRID_YZ for s in shape[:-1]):
+        reasons.append(f'domain {shape}: y and z extents above '
+                       f'{ls.MAX_GRID_YZ}')
+    _mask, instances, why = ls.classify_nodes(builder.maps)
+    reasons += why
+    if instances:
+        names = sorted({nt.get_node_type(t).__name__
+                        for t, _k, _s in instances})
+        reasons.append(f'boundary conditions {", ".join(names)} (the '
+                       'Shan-Chen kernel takes fluid, walls and excluded '
+                       'nodes, mask codes 0/1/2)')
+    return reasons
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [('nx', ctypes.c_int), ('ny', ctypes.c_int),
+                ('nz', ctypes.c_int), ('potential', ctypes.c_int),
+                ('c', (ctypes.c_int * 3) * MAX_Q),
+                ('w', ctypes.c_float * MAX_Q),
+                ('opp', ctypes.c_int * MAX_Q),
+                ('tau', ctypes.c_float * MAX_K),
+                ('tau_inv', ctypes.c_float * MAX_K),
+                ('g', (ctypes.c_float * MAX_K) * MAX_K)]
+
+
+def kernel_params(grid, shape, taus, couplings, potential):
+    """The kernels' by-value parameter block: domain extents, the lattice
+    tables of ``sailfish_tpu.lattice``, the relaxation times and the
+    couplings."""
+    p = _Params()
+    nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
+    p.nx, p.ny, p.nz = nx, ny, nz
+    p.potential = POTENTIALS[potential]
+    for i in range(grid.Q):
+        for a in range(grid.dim):
+            p.c[i][a] = int(grid.basis[i][a])
+        p.w[i] = float(grid.weights[i])
+        p.opp[i] = int(grid.opposite[i])
+    for k, tau in enumerate(taus):
+        p.tau[k] = tau
+        p.tau_inv[k] = 1.0 / tau
+    for (j, k), G in couplings.items():
+        p.g[j][k] = G
+    return p
+
+
+def kernel_functions(lib, grid_name):
+    """The C entries (rho_poststream, sc_multi) for ``grid_name`` of a
+    loaded ``csrc/sc_multi.cu`` library, typed for ``ctypes``, after
+    checking that the library's parameter block matches ``_Params``."""
+    lib.sc_params_size.restype = ctypes.c_int
+    if lib.sc_params_size() != ctypes.sizeof(_Params):
+        raise RuntimeError('SCParams layout differs between '
+                           'csrc/sc_multi.cu and ops/sc_multi.py')
+    g = grid_name.lower()
+    rho_fn = getattr(lib, f'rho_poststream_{g}')
+    rho_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.POINTER(_Params), ctypes.c_void_p]
+    rho_fn.restype = ctypes.c_int
+    step_fn = getattr(lib, f'sc_multi_{g}')
+    step_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Params),
+                                                ctypes.c_void_p]
+    step_fn.restype = ctypes.c_int
+    return rho_fn, step_fn
+
+
+class SCMultiStep:
+    """The kernel engine for one Shan-Chen scene: the K components' A and
+    B buffers (one (K, Q, *S) tensor each, swapped every step), the (K,
+    *S) density buffer, the uint8 mask, and ``launches``, this object's
+    kernel launches by kernel name."""
+
+    def __init__(self, builder):
+        reasons = kernel_ineligibility(builder)
+        if reasons:
+            raise NotImplementedError(
+                'the CUDA Shan-Chen kernels cannot run this scene: '
+                + '; '.join(reasons))
+        self.grid = builder.grid
+        self.taus = list(builder.taus)
+        self.couplings = dict(builder.couplings)
+        self.potential = builder.potential
+        self.K = len(self.taus)
+        mask_np = ls.classify_nodes(builder.maps)[0]
+        self.shape = mask_np.shape
+        self.device = builder.device
+        self.mask = torch.as_tensor(mask_np, device=self.device)
+        full = (self.K, self.grid.Q) + self.shape
+        self.a = torch.empty(full, dtype=torch.float32, device=self.device)
+        self.b = torch.empty_like(self.a)
+        self.rho = torch.empty((self.K,) + self.shape, dtype=torch.float32,
+                               device=self.device)
+        self.params = kernel_params(self.grid, self.shape, self.taus,
+                                    self.couplings, self.potential)
+        g = self.grid.name.lower()
+        self.rho_name = f'rho_poststream_{g}'
+        self.name = f'sc_multi_{g}'
+        self.launches = {self.rho_name: 0, self.name: 0}
+        self._fns = None
+
+    def _check(self, *tensors):
+        for t, full in tensors:
+            if t.dtype != torch.float32 or tuple(t.shape) != full:
+                raise ValueError(f'expected float32 {full}, got '
+                                 f'{t.dtype} {tuple(t.shape)}')
+            if not t.is_contiguous():
+                raise ValueError('kernel buffers must be contiguous')
+            if t.device != self.mask.device:
+                raise ValueError(f'buffer on {t.device}, mask on '
+                                 f'{self.mask.device}')
+
+    def _launch(self, name, fn, *args):
+        if self._fns is None:
+            from sailfish_tpu_torch.ops import build
+            self._fns = kernel_functions(build.load('sc_multi').lib,
+                                         self.grid.name)
+        rc = self._fns[fn](*args, ctypes.byref(self.params),
+                           torch.cuda.current_stream(self.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
+        self.launches[name] += 1
+        LAUNCHES[name] += 1
+
+    def density_into(self, src, rho):
+        """Post-stream densities of the (K, Q, *S) state ``src`` into the
+        (K, *S) buffer ``rho``: the ``rho_poststream`` kernel on a CUDA
+        tensor, ``rho_reference`` on a CPU tensor."""
+        self._check((src, self.a.shape), (rho, self.rho.shape))
+        if src.device.type == 'cpu':
+            for k in range(self.K):
+                rho[k].copy_(rho_reference(src[k], self.grid))
+            return
+        if src.device.type != 'cuda':
+            raise ValueError(f'no kernel for device {src.device}')
+        self._launch(self.rho_name, 0, src.data_ptr(), rho.data_ptr(),
+                     self.K)
+
+    def collide_into(self, src, rho, dst):
+        """One coupled step from ``src`` into ``dst`` (distinct (K, Q, *S)
+        buffers) given the pre-pass densities ``rho``: the ``sc_multi_step``
+        kernel on a CUDA tensor, ``sc_multi_reference`` on a CPU tensor."""
+        self._check((src, self.a.shape), (rho, self.rho.shape),
+                    (dst, self.a.shape))
+        if src.data_ptr() == dst.data_ptr():
+            raise ValueError('the pull step cannot run in place')
+        if src.device.type == 'cpu':
+            out = sc_multi_reference(src.unbind(0), rho.unbind(0), self.mask,
+                                     self.grid, self.taus, self.couplings,
+                                     self.potential)
+            for k in range(self.K):
+                dst[k].copy_(out[k])
+            return
+        if src.device.type != 'cuda':
+            raise ValueError(f'no kernel for device {src.device}')
+        self._launch(self.name, 1, src.data_ptr(), rho.data_ptr(),
+                     dst.data_ptr(), self.mask.data_ptr())
+
+    def step_into(self, src, dst):
+        """One step: the density pre-pass into ``self.rho``, then the
+        coupled step from ``src`` into ``dst``."""
+        self.density_into(src, self.rho)
+        self.collide_into(src, self.rho, dst)
+
+    def _buffer_of(self, state):
+        for buf in (self.a, self.b):
+            if all(f.data_ptr() == buf[k].data_ptr()
+                   and f.shape == buf[k].shape
+                   for k, f in enumerate(state)):
+                return buf
+        return None
+
+    def run(self, state, n):
+        """``n`` steps from the K-tuple ``state``; returns the K-tuple of
+        views of the buffer (A or B) that holds the result. A state that
+        is not held by one of the two buffers is copied into A first."""
+        if len(state) != self.K:
+            raise ValueError(f'{len(state)} components, expected {self.K}')
+        src = self._buffer_of(state)
+        if src is None:
+            for k, f in enumerate(state):
+                self.a[k].copy_(f)
+            src = self.a
+        dst = self.b if src is self.a else self.a
+        for _ in range(n):
+            self.step_into(src, dst)
+            src, dst = dst, src
+        return tuple(src.unbind(0))
+

@@ -12,7 +12,10 @@ force, no subgrid model, no Shan-Chen, fp32 or fp64 storage, and the node
 types fluid, the excluded / propagation-only "keep" types,
 ``NTFullBBWall`` and the six elementwise ("native") BC types with static
 parameters. Anything else raises ``NotImplementedError`` when the builder
-is made, the way the JAX engine's ``_IMPLEMENTED_TYPES`` does.
+is made, the way the JAX engine's ``_IMPLEMENTED_TYPES`` does. The
+multi-component builders (``ops/multigrid.py``) run one ``StepBuilder``
+per component through its per-phase methods (``_solve_macro_bc`` ...
+``_post_collision``).
 
 The BC phases are module-level functions over an explicit instance list
 ``(cls, orientation, mask, rho_bc, vel_bc)`` so the kernel's plain
@@ -137,22 +140,32 @@ def pre_collision_bc(grid, instances, fs, rho, u, incompressible=False):
     return fs
 
 
+def bounce_back(grid, fs, fpost, fullbb):
+    """Full bounce-back walls store the arriving distributions reflected
+    (``sailfish_tpu/ops/step.py:753-770``, without slip). ``fullbb`` is a
+    boolean node map, or None when no wall is present."""
+    if fullbb is None:
+        return fpost
+    opp = torch.as_tensor(grid.opposite, dtype=torch.long, device=fs.device)
+    return torch.where(fullbb[None], fs[opp], fpost)
+
+
+def select_dry(grid, fs, fpost, wet, fullbb):
+    """The dry/keep select of ``sailfish_tpu/ops/step.py:819-822``: dry
+    nodes keep their post-stream values ``fs``, full bounce-back walls
+    store them reflected. ``wet`` is a boolean node map, or None when
+    every node is wet."""
+    if wet is not None:
+        fpost = torch.where(wet[None], fpost, fs)
+    return bounce_back(grid, fs, fpost, fullbb)
+
+
 def collide_and_select(grid, fs2, rho, u, tau_inv, wet, fullbb,
                        incompressible=False):
-    """BGK collide, then the dry/keep select of
-    ``sailfish_tpu/ops/step.py:819-822``: dry nodes keep their post-stream
-    values, full bounce-back walls store them reflected. ``wet`` /
-    ``fullbb`` are boolean node maps, or None when every node is wet /
-    no wall is present."""
+    """BGK collide, then ``select_dry``."""
     fpost = co.bgk_collide(grid, fs2, rho, u, tau_inv,
                            incompressible=incompressible)
-    if wet is not None:
-        fpost = torch.where(wet[None], fpost, fs2)
-    if fullbb is not None:
-        opp = torch.as_tensor(grid.opposite, dtype=torch.long,
-                              device=fs2.device)
-        fpost = torch.where(fullbb[None], fs2[opp], fpost)
-    return fpost
+    return select_dry(grid, fs2, fpost, wet, fullbb)
 
 
 class StepBuilder:
@@ -259,6 +272,31 @@ class StepBuilder:
                                self.incompressible)
         return collide_and_select(g, fs2, rho, u, self.tau_inv, self.wet,
                                   self.fullbb, self.incompressible)
+
+    # -- per-phase pieces for the multi-component builders -----------------
+    # (the names and semantics of ``sailfish_tpu/ops/step.py:584-770``)
+
+    @property
+    def has_dry(self):
+        return self.wet is not None
+
+    def _solve_macro_bc(self, fs, rho, u):
+        return solve_macro_bc(self.grid, self.bc_instances, fs, rho, u)
+
+    def _pre_collision_bc(self, fs, rho, u):
+        return pre_collision_bc(self.grid, self.bc_instances, fs, rho, u,
+                                self.incompressible)
+
+    def _collide(self, fs, rho, u, u_eq=None):
+        """BGK relaxation towards feq(rho, u_eq); ``u_eq`` (default ``u``)
+        is the shifted equilibrium velocity of the multi-component
+        couplings."""
+        return co.bgk_collide(self.grid, fs, rho, u if u_eq is None else u_eq,
+                              self.tau_inv,
+                              incompressible=self.incompressible)
+
+    def _post_collision(self, fs, fpost):
+        return bounce_back(self.grid, fs, fpost, self.fullbb)
 
     # -- public --------------------------------------------------------------
 

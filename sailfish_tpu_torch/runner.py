@@ -2,15 +2,19 @@
 main loop.
 
 Port of a subset of ``sailfish_tpu/runner.py`` (``SubdomainRunner``): one
-device, one whole-domain state tensor, a chunked main loop with the same
-MLUPS / ``TimingInfo`` accounting, npz output through the reused writers
-and checkpoints in the JAX package's npz layout (``dist0a``, ``state``,
-``sim_state``), so a JAX checkpoint restores here and back.
+device, one whole-domain state (a tensor, or a K-tuple of tensors for the
+multi-component models), a chunked main loop with the same MLUPS /
+``TimingInfo`` accounting, npz output through the reused writers and
+checkpoints in the JAX package's npz layout (``dist0a`` ...
+``dist{K-1}a``, ``state``, ``sim_state``), so a JAX checkpoint restores
+here and back.
 
-Two engines run the step: ``torch`` (``ops/step.StepBuilder``, plain
-tensor code) and ``kernel`` (``ops/lbm_step.KernelStep``, the CUDA
-kernel). There is no silent fallback between them: a requested or
-defaulted kernel engine that cannot run a scene raises with the reasons.
+Two engines run the step: ``torch`` (``ops/step.StepBuilder`` or
+``ops/multigrid.ShanChenMultiStepBuilder``, plain tensor code) and
+``kernel`` (the CUDA kernels: ``ops/lbm_step.KernelStep`` for a single
+fluid, ``ops/sc_multi.SCMultiStep`` for a Shan-Chen mixture). There is no
+silent fallback between them: a requested or defaulted kernel engine that
+cannot run a scene raises with the reasons.
 Device hooks, force objects, ``--init_iters``, meshes and
 ``--profile_trace`` are not ported yet and raise ``NotImplementedError``.
 """
@@ -28,7 +32,7 @@ import torch
 from sailfish_tpu import io as sio
 from sailfish_tpu.profile import TimeProfile
 from sailfish_tpu_torch import util
-from sailfish_tpu_torch.state import state_from_numpy, state_to_numpy
+from sailfish_tpu_torch import state as st
 
 
 class SubdomainRunner:
@@ -90,8 +94,7 @@ class SubdomainRunner:
         self.f = self.sim.make_initial_state(self.builder, dtype)
         self.engine = self._select_engine()
         if self.engine == 'kernel':
-            from sailfish_tpu_torch.ops.lbm_step import KernelStep
-            self.kernel = KernelStep(self.builder)
+            self.kernel = self._kernel_engine()
             self._run_steps = self.kernel.run
         else:
             step = self.builder.build()
@@ -103,9 +106,19 @@ class SubdomainRunner:
 
             self._run_steps = run_steps
 
+    def _kernel_engine(self):
+        """The kernel engine of the builder's model; it raises, naming
+        the reasons, when its kernel cannot run the scene."""
+        from sailfish_tpu_torch.ops.multigrid import ShanChenMultiStepBuilder
+        if isinstance(self.builder, ShanChenMultiStepBuilder):
+            from sailfish_tpu_torch.ops.sc_multi import SCMultiStep
+            return SCMultiStep(self.builder)
+        from sailfish_tpu_torch.ops.lbm_step import KernelStep
+        return KernelStep(self.builder)
+
     def _select_engine(self):
-        """'kernel' = the CUDA stream-and-collide kernel; 'torch' = the
-        plain tensor step. ``auto`` picks the kernel on a CUDA device and
+        """'kernel' = the model's CUDA kernels; 'torch' = the plain
+        tensor step. ``auto`` picks the kernel on a CUDA device and
         the torch step on the CPU; whether the kernel can run the scene is
         checked when it is built, and a refusal raises."""
         choice = getattr(self.config, 'engine', 'auto')
@@ -132,17 +145,20 @@ class SubdomainRunner:
             self._output.save(self.sim.iteration)
 
     def save_checkpoint(self):
-        """Distributions + pickled sim state, in the JAX package's npz
-        layout (``sailfish_tpu/runner.py:503-521``)."""
+        """Distributions (``dist{i}a``, one per state component) +
+        pickled sim state, in the JAX package's npz layout
+        (``sailfish_tpu/runner.py:503-521``)."""
         fname = sio.checkpoint_filename(
             self.config.checkpoint_file,
             sio.filename_iter_digits(self.config.max_iters), 0,
             self.sim.iteration)
+        dists = {f'dist{i}a': st.state_to_numpy(f)
+                 for i, f in enumerate(st.leaves(self.f))}
         np.savez(fname,
                  state=np.array([self.sim.iteration], dtype=np.int64),
                  sim_state=np.frombuffer(pickle.dumps(self.sim.get_state()),
                                          dtype=np.uint8),
-                 dist0a=state_to_numpy(self.f))
+                 **dists)
 
     def restore_checkpoint(self, fname):
         """Restore a checkpoint written by either package. ``sim_state``
@@ -157,8 +173,11 @@ class SubdomainRunner:
         if any(k.startswith('hook') for k in cpoint.files):
             raise NotImplementedError(
                 'checkpoints with device-hook state are not ported yet')
-        self.f = state_from_numpy(cpoint['dist0a'], self.device,
-                                  self.config.dtype)
+        n = sum(1 for k in cpoint.files
+                if k.startswith('dist') and k.endswith('a'))
+        self.f = st.from_leaves(self.f, [
+            st.state_from_numpy(cpoint[f'dist{i}a'], self.device,
+                                self.config.dtype) for i in range(n)])
 
     # -- main loop -----------------------------------------------------------
 
@@ -249,7 +268,7 @@ class SubdomainRunner:
                 else:
                     bench_samples.append(mlups)
             if cfg.check_invalid_results_gpu and \
-                    not bool(torch.isfinite(self.f).all()):
+                    not st.is_finite(self.f):
                 log.error('invalid results (NaN/Inf) on device at '
                           'iteration %d; aborting', sim.iteration)
                 break
@@ -265,7 +284,9 @@ class SubdomainRunner:
                         self._output.save(sim.iteration)
                         if getattr(cfg, 'debug_dump_dists', False):
                             self._output.dump_dists(
-                                [state_to_numpy(self.f)], sim.iteration)
+                                [st.state_to_numpy(f)
+                                 for f in st.leaves(self.f)],
+                                sim.iteration)
                 if cfg.check_invalid_results_host and \
                         not np.all(np.isfinite(sim.rho)):
                     log.error('invalid results (NaN/Inf) detected; '

@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card (marker ``cuda``; skips without a device).
+"""The CUDA kernels on the card (marker ``cuda``; skips without a device).
 
 Imports no jax, so it also runs where jax is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -9,13 +9,21 @@ the LDC scenes (regularized velocity lid, normal -z / -y) and channels
 with velocity/density faces of each BC pair normal to x and to z.
 Tolerance: wet-node max |df| <= 1e-5 after 50 steps (fp32; FMA
 contraction and summation order differ between the two).
+
+The Shan-Chen kernels (``ops/sc_multi``) are held against
+``rho_reference`` and ``sc_multi_reference`` on the three binary
+separation twins (a block of excluded nodes added), from seeded
+near-uniform two-component states: the density pre-pass after one launch
+(<= 1e-6) and the coupled step over 20 steps (wet-node max |df| <= 1e-5).
 """
 
 import pytest
 import torch
 
 from sailfish_tpu_torch.ops import lbm_step as ls
-from torch_scenes import (BC_PAIRS, channel_sim, random_feq, run, twin,
+from sailfish_tpu_torch.ops import sc_multi as sm
+from torch_scenes import (BC_PAIRS, BINARY_SCENES, binary_twin, channel_sim,
+                          random_binary_state, random_feq, run, twin,
                           with_keep_block)
 
 SIZES = {
@@ -84,3 +92,73 @@ def test_wrapper_refuses_bad_buffers(cuda):
         ks.step_into(ks.a.transpose(1, 2).contiguous().transpose(1, 2),
                      ks.b)
     assert ks.launches == 0
+
+
+BINARY_SIZES = {
+    'sc_separation_2d': dict(lat_nx=200, lat_ny=96),
+    'sc_separation_3d': dict(lat_nx=40, lat_ny=24, lat_nz=32),
+    'sc_separation_3d_walls': dict(lat_nx=40, lat_ny=24, lat_nz=32),
+}
+
+
+def _binary_engine(scene, **cfg):
+    r = run(with_keep_block(binary_twin(scene)), platform='cuda',
+            engine='kernel', max_iters=0, **BINARY_SIZES[scene], **cfg)
+    ks = r.kernel
+    assert isinstance(ks, sm.SCMultiStep)
+    return r, ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(BINARY_SCENES))
+def test_rho_poststream_matches_rho_reference(cuda, scene):
+    r, ks = _binary_engine(scene)
+    f = random_binary_state(r.sim.grid, ks.shape, seed=4, device='cuda',
+                            u_rms=0.02)
+    rho = torch.empty_like(ks.rho)
+    ks.density_into(f, rho)
+    torch.cuda.synchronize()
+    assert ks.launches[ks.rho_name] == 1
+    ref = torch.stack([sm.rho_reference(f[k], r.sim.grid)
+                       for k in range(ks.K)])
+    assert float((rho - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('potential', ['linear', 'classic'])
+@pytest.mark.parametrize('scene', sorted(BINARY_SCENES))
+def test_sc_multi_matches_reference(cuda, scene, potential):
+    r, ks = _binary_engine(scene, sc_potential=potential)
+    codes = sorted(torch.unique(ks.mask).tolist())
+    assert codes == ([0, 1, 2] if 'walls' in scene else [0, 2]), codes
+    grid = r.sim.grid
+    f0 = random_binary_state(grid, ks.shape, seed=5, device='cuda')
+    fk = ks.run(tuple(f0), 20)
+    fr = tuple(f0)
+    for _ in range(20):
+        rhos = [sm.rho_reference(f, grid) for f in fr]
+        fr = sm.sc_multi_reference(fr, rhos, ks.mask, grid, ks.taus,
+                                   ks.couplings, ks.potential)
+    torch.cuda.synchronize()
+    assert ks.launches == {ks.rho_name: 20, ks.name: 20}
+    wet = ks.mask == 0
+    err = float((torch.stack(fk) - torch.stack(fr))[:, :, wet].abs().max())
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(BINARY_SCENES))
+def test_default_engine_on_cuda_is_the_sc_kernel(cuda, scene):
+    sm.reset_launch_counts()
+    r = run(binary_twin(scene), max_iters=30, every=10, seed=2,
+            **BINARY_SIZES[scene])
+    assert r.engine == 'kernel' and isinstance(r.kernel, sm.SCMultiStep)
+    assert sm.LAUNCHES[r.kernel.name] == 30
+    assert sm.LAUNCHES[r.kernel.rho_name] == 30
+    ref = run(binary_twin(scene), engine='torch', max_iters=30, every=10,
+              seed=2, **BINARY_SIZES[scene])
+    assert ref.engine == 'torch' and ref.kernel is None
+    wet = r.kernel.mask == 0
+    for fk, ft in zip(r.f, ref.f):
+        assert bool(torch.isfinite(fk).all())
+        assert float((fk - ft)[:, wet].abs().max()) <= 1e-5

@@ -52,7 +52,7 @@ def test_importing_the_port_leaves_jax_out():
                        capture_output=True, text=True, env=env, cwd=REPO,
                        timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    assert int(r.stdout.split()[-1]) >= 18
 
 
 def test_no_jax_import_statements():
@@ -79,7 +79,16 @@ def test_port_modules_are_packaged():
     names = {m.name for m in pkgutil.walk_packages(
         sailfish_tpu_torch.__path__, 'sailfish_tpu_torch.')}
     assert {'sailfish_tpu_torch.ops.lbm_step', 'sailfish_tpu_torch.runner',
-            'sailfish_tpu_torch.controller'} <= names
-    assert os.path.exists(os.path.join(
-        os.path.dirname(sailfish_tpu_torch.__file__), 'ops', 'csrc',
-        'lbm_step.cu'))
+            'sailfish_tpu_torch.controller', 'sailfish_tpu_torch.ops.sc_multi',
+            'sailfish_tpu_torch.ops.multigrid',
+            'sailfish_tpu_torch.models.binary'} <= names
+    for src in ('lbm_step.cu', 'sc_multi.cu'):
+        assert os.path.exists(os.path.join(
+            os.path.dirname(sailfish_tpu_torch.__file__), 'ops', 'csrc', src))
+
+
+def test_binary_twins_are_checked():
+    twins = {os.path.basename(p) for p in _port_sources()
+             if os.sep + 'binary_fluid' + os.sep in p}
+    assert twins == {'sc_separation_2d.py', 'sc_separation_3d.py',
+                     'sc_separation_3d_walls.py'}

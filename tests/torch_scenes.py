@@ -2,8 +2,9 @@
 
 Imports the port and never jax, so ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` can use it where jax is absent. The torch
-twins of the LDC examples are loaded by path: the JAX examples of the same
-file names may already be imported as ``ldc_2d`` / ``ldc_3d``.
+twins of the examples are loaded by path: the JAX examples of the same
+file names (``ldc_2d``, ``sc_separation_2d``, ...) may already be
+imported under those names.
 """
 
 import importlib.util
@@ -40,6 +41,20 @@ def load_example(rel, name):
 def twin(scene):
     """``LDCSim`` of ``examples/torch/<scene>.py``."""
     return load_example(f'torch/{scene}.py', f'torch_{scene}').LDCSim
+
+
+#: binary Shan-Chen twins (examples/torch/binary_fluid) -> sim class name
+BINARY_SCENES = {
+    'sc_separation_2d': 'SeparationSCSim',
+    'sc_separation_3d': 'SeparationSCSim',
+    'sc_separation_3d_walls': 'WalledSeparationSim',
+}
+
+
+def binary_twin(scene):
+    """The sim class of ``examples/torch/binary_fluid/<scene>.py``."""
+    mod = load_example(f'torch/binary_fluid/{scene}.py', f'torch_{scene}')
+    return getattr(mod, BINARY_SCENES[scene])
 
 
 def run(sim_cls, **cfg):
@@ -113,6 +128,22 @@ def random_feq(grid, shape, seed, device):
     u = torch.tensor(0.02 * rng.standard_normal((grid.dim,) + shape),
                      dtype=torch.float32, device=device)
     return teq.bgk_equilibrium(grid, rho, u).contiguous()
+
+
+def random_binary_state(grid, shape, seed, device, u_rms=0.0):
+    """fp32 two-component equilibrium state (K, Q, *S): densities
+    rho, phi = 1 + U(0, 1e-3) as the separation scenes start, and a
+    velocity field of ``u_rms`` rms common to both, drawn with numpy from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    u = torch.tensor(u_rms * rng.standard_normal((grid.dim,) + shape),
+                     dtype=torch.float32, device=device)
+    comps = []
+    for _ in range(2):
+        rho = torch.tensor(1.0 + rng.random(shape) / 1000.0,
+                           dtype=torch.float32, device=device)
+        comps.append(teq.bgk_equilibrium(grid, rho, u))
+    return torch.stack(comps).contiguous()
 
 
 def wet_map(maps):

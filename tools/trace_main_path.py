@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Device-idle share of the port's main loop, read from a profiler trace.
 
-    python3 tools/trace_main_path.py [--chunk 500] [--out DIR]
+    python3 tools/trace_main_path.py [--chunk 500] [--scenes ldc_3d,...]
+                                     [--out DIR]
 
-Needs one CUDA GPU. For the lid-driven cavities of ``examples/torch`` at
-the benchmark sizes (D3Q19 256^3, D2Q9 4096^2) it runs the controller with
-the default (kernel) engine for one chunk (kernel build, warm-up), then
-traces one more chunk of ``SubdomainRunner.main`` with ``torch.profiler``
-(CPU and CUDA activities) and reads the exported Chrome trace:
+Needs one CUDA GPU. For the lid-driven cavities and the binary Shan-Chen
+separations of ``examples/torch`` at the benchmark sizes (D3Q19 256^3,
+D2Q9 4096^2) it runs the controller with the default (kernel) engine for
+one chunk (kernel build, warm-up), then traces one more chunk of
+``SubdomainRunner.main`` with ``torch.profiler`` (CPU and CUDA
+activities) and reads the exported Chrome trace:
 
 * ``window``: the ``main`` chunk on the host, a ``record_function`` span;
 * ``busy``: the union of the device's kernel, memcpy and memset intervals
   inside the window;
 * ``idle share`` = 1 - busy / window; ``gaps`` = the idle time between the
-  first kernel's start and the last one's end.
+  first kernel's start and the last one's end; the mean duration of each
+  of the port's kernels in the trace.
 
 Prints one line per scene and a JSON line; the traces are written to
 ``DIR`` (default ``chiprun_out/traces``).
@@ -31,10 +34,24 @@ from torch.profiler import ProfilerActivity, profile, record_function
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, 'tests'))
-from torch_scenes import run, twin  # noqa: E402
+from torch_scenes import binary_twin, run, twin  # noqa: E402
 
-SCENES = (('ldc_3d', (256, 256, 256)), ('ldc_2d', (4096, 4096)))
+SCENES = {
+    'ldc_3d': (twin, (256, 256, 256)),
+    'ldc_2d': (twin, (4096, 4096)),
+    'sc_separation_3d': (binary_twin, (256, 256, 256)),
+    'sc_separation_2d': (binary_twin, (4096, 4096)),
+}
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+#: the port's kernels, by their CUDA function names
+PORT_KERNELS = ('lbm_step_kernel', 'rho_poststream_kernel',
+                'sc_multi_kernel')
+
+
+def total_launches(kernel):
+    """All launches of a kernel engine (an int, or a dict by name)."""
+    n = kernel.launches
+    return sum(n.values()) if isinstance(n, dict) else n
 
 
 def union_length(intervals):
@@ -52,21 +69,34 @@ def union_length(intervals):
     return total
 
 
-def trace_chunk(scene, size, chunk, out_dir):
+def trace_chunk(scene, chunk, out_dir):
+    load, size = SCENES[scene]
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
-    r = run(twin(scene), max_iters=chunk, every=chunk, **cfg)
+    r = run(load(scene), max_iters=chunk, every=chunk, **cfg)
     assert r.engine == 'kernel', r.engine
     r.config.max_iters += chunk
-    launches0 = r.kernel.launches
+    launches0 = total_launches(r.kernel)
     with torch.no_grad(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function('main_chunk'):
             t0 = time.perf_counter()
             r.main()
             host_s = time.perf_counter() - t0
-    assert r.kernel.launches - launches0 == chunk
+    launched = total_launches(r.kernel) - launches0
+    assert launched % chunk == 0, launched
     path = os.path.join(out_dir, f'{scene}_main_chunk.json')
     prof.export_chrome_trace(path)
+    res = read_trace(path, scene)
+    res.update(size=list(size), chunk=chunk, launched=launched,
+               host_s=host_s, trace=os.path.relpath(path, REPO))
+    del r
+    torch.cuda.empty_cache()
+    return res
+
+
+def read_trace(path, scene):
+    """Idle share, gaps and per-kernel mean durations (us) of the
+    ``main_chunk`` window of an exported Chrome trace."""
     with open(path) as fh:
         events = json.load(fh)['traceEvents']
     wins = [e for e in events if e.get('name') == 'main_chunk'
@@ -80,27 +110,30 @@ def trace_chunk(scene, size, chunk, out_dir):
            if e.get('cat') in DEVICE_CATS and e.get('ph') == 'X'
            and e['ts'] < w1 and e['ts'] + e['dur'] > w0]
     kernels = [e for e in events if e.get('cat') == 'kernel'
-               and 'lbm_step_kernel' in e.get('name', '')]
+               and any(k in e.get('name', '') for k in PORT_KERNELS)]
     if not kernels:
-        raise RuntimeError(f'{scene}: the trace holds no device kernels')
+        raise RuntimeError(f'{scene}: the trace holds none of the port\'s '
+                           'kernels')
+    by_name = {}
+    for e in kernels:
+        name = next(k for k in PORT_KERNELS if k in e['name'])
+        by_name.setdefault(name, []).append(e['dur'])
     busy = union_length(dev)
     k0 = min(e['ts'] for e in kernels)
     k1 = max(e['ts'] + e['dur'] for e in kernels)
-    res = dict(scene=scene, size=list(size), chunk=chunk,
-               kernels=len(kernels), window_us=win['dur'], busy_us=busy,
-               idle_share=1.0 - busy / win['dur'],
-               gaps_us=(k1 - k0) - union_length(
-                   [(e['ts'], e['ts'] + e['dur']) for e in kernels]),
-               kernel_mean_us=sum(e['dur'] for e in kernels) / len(kernels),
-               host_s=host_s, trace=os.path.relpath(path, REPO))
-    del r
-    torch.cuda.empty_cache()
-    return res
+    return dict(scene=scene, kernels=len(kernels), window_us=win['dur'],
+                busy_us=busy, idle_share=1.0 - busy / win['dur'],
+                gaps_us=(k1 - k0) - union_length(
+                    [(e['ts'], e['ts'] + e['dur']) for e in kernels]),
+                kernel_mean_us={k: sum(v) / len(v)
+                                for k, v in by_name.items()})
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--chunk', type=int, default=500)
+    ap.add_argument('--scenes', default=','.join(SCENES),
+                    help='comma-separated, of ' + ', '.join(SCENES))
     ap.add_argument('--out', default=os.path.join(REPO, 'chiprun_out',
                                                   'traces'))
     args = ap.parse_args()
@@ -108,10 +141,13 @@ def main():
         sys.exit('trace_main_path: torch sees no CUDA device')
     os.makedirs(args.out, exist_ok=True)
     results = []
-    for scene, size in SCENES:
-        res = trace_chunk(scene, size, args.chunk, args.out)
-        print(f'{scene} {"x".join(map(str, size))}: {res["kernels"]} kernels '
-              f'in the trace, mean {res["kernel_mean_us"]:.2f} us; window '
+    for scene in args.scenes.split(','):
+        res = trace_chunk(scene, args.chunk, args.out)
+        means = ', '.join(f'{k} {v:.2f} us'
+                          for k, v in res['kernel_mean_us'].items())
+        print(f'{scene} {"x".join(map(str, res["size"]))}: {res["kernels"]} '
+              f'kernels in the trace ({res["launched"]} launched), mean '
+              f'{means}; window '
               f'{res["window_us"]:.1f} us, device busy {res["busy_us"]:.1f} '
               f'us, idle share {res["idle_share"]:.5f}; gaps between the '
               f'first and last kernel {res["gaps_us"]:.1f} us', flush=True)
