@@ -12,13 +12,18 @@ version on the card from seeded random states:
   velocity/density faces of each native BC pair;
 * the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
   against ``rho_reference`` and ``sc_multi_reference`` on the binary
-  separation scenes (periodic 2D and 3D, and the walled 3D box).
+  separation scenes (periodic 2D and 3D, and the walled 3D box);
+* the free-energy step (``ops/fe_step``, after the same pre-pass on the
+  order parameter) against ``fe_step_reference`` on the five free-energy
+  scenes (periodic separations with BGK and FE-MRT, walled channels with
+  wetting, body forces and equilibrium-velocity overrides).
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
-cavities (D3Q19 256^3, D2Q9 4096^2) and the binary Shan-Chen separations
-(D3Q19 256^3, D2Q9 4096^2), checks the results, times every kernel against
-its plain version, and prints the measurements. Every phase raises on
+cavities (D3Q19 256^3, D2Q9 4096^2), the binary Shan-Chen separations and
+the free-energy separations (each D3Q19 256^3, D2Q9 4096^2), checks the
+results, runs a free-energy demixing to its end, times every kernel
+against its plain version, and prints the measurements. Every phase raises on
 failure, so the exit code is 0 only when all of them passed; without a
 CUDA device it exits non-zero before printing a result. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -37,20 +42,24 @@ import torch
 from sailfish_tpu_torch import state as st
 from sailfish_tpu_torch import util
 from sailfish_tpu_torch.ops import build
+from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, 'tests'))
-from torch_scenes import (binary_twin, channel_sim,  # noqa: E402
-                          random_binary_state, random_feq, run, twin,
-                          with_keep_block)
+from torch_scenes import (FE_GOLDEN_FLAGS, binary_twin,  # noqa: E402
+                          channel_sim, random_binary_state, random_fe_state,
+                          random_feq, run, twin, with_keep_block)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
 SEP_2D = binary_twin('sc_separation_2d')
 SEP_3D = binary_twin('sc_separation_3d')
 SEP_3D_WALLS = binary_twin('sc_separation_3d_walls')
+FE_SCENES = ('fe_separation_2d', 'fe_separation_3d', 'fe_poiseuille_2d',
+             'fe_viscous_fingering', 'binary_microchannel')
+FE = {scene: binary_twin(scene) for scene in FE_SCENES}
 
 #: kernel-vs-plain tolerance: wet-node max |df| after 200 steps (fp32,
 #: FMA contraction and summation order differ between the two)
@@ -64,6 +73,14 @@ RHO_TOL = 1e-6
 #: plain torch engine at 96^2 on the CPU), so 2000 steps drift by a few
 #: 1e-5; a lost or doubled population would drift by far more
 MASS_TOL = 1e-4
+#: free-energy main path: relative drift of the total of rho, and drift of
+#: the total of phi per node, over 2000 steps. Both equilibria put the
+#: rest population at rho - sum_{i>0} feq_i, so only rounding moves the
+#: totals: the plain torch engine on the CPU drifts 6.0e-8 / 3.9e-11
+#: (fe_separation_2d 96^2) and 8.9e-8 / 3.4e-12 (fe_separation_3d 32^3)
+#: over 2000 steps
+FE_RHO_TOL = 1e-6
+FE_PHI_TOL = 1e-9
 #: bytes moved per node per step: Q floats read + Q written + 1 mask byte
 BYTES = {'D3Q19': 2 * 19 * 4 + 1, 'D2Q9': 2 * 9 * 4 + 1}
 #: bytes moved per node per step by the binary (K = 2) path: the pre-pass
@@ -71,6 +88,11 @@ BYTES = {'D3Q19': 2 * 19 * 4 + 1, 'D2Q9': 2 * 9 * 4 + 1}
 #: reads K densities and the mask byte
 SC_BYTES = {'D3Q19': 2 * (19 * 4 + 4) + 2 * (2 * 19 * 4 + 4) + 1,
             'D2Q9': 2 * (9 * 4 + 4) + 2 * (2 * 9 * 4 + 4) + 1}
+#: bytes moved per node per step by the free-energy path: the pre-pass
+#: reads Q floats and writes phi; the step reads 2*Q floats, writes 2*Q,
+#: reads phi and the mask byte (plus 1 orientation byte with walls)
+FE_BYTES = {'D3Q19': (19 * 4 + 4) + (2 * 2 * 19 * 4 + 4 + 1),
+            'D2Q9': (9 * 4 + 4) + (2 * 2 * 9 * 4 + 4 + 1)}
 #: kernel name -> (source, the TPU kernel it replaces)
 KERNELS = {
     'lbm_step_d3q19': ('lbm_step.cu', 'sailfish_tpu/ops/pallas_step.py:812'),
@@ -81,6 +103,8 @@ KERNELS = {
                             'sailfish_tpu/ops/pallas_step2d.py:1069'),
     'sc_multi_d3q19': ('sc_multi.cu', 'sailfish_tpu/ops/pallas_multi3d.py:57'),
     'sc_multi_d2q9': ('sc_multi.cu', 'sailfish_tpu/ops/pallas_multi2d.py:91'),
+    'fe_step_d3q19': ('fe_step.cu', 'sailfish_tpu/ops/pallas_multi3d.py:820'),
+    'fe_step_d2q9': ('fe_step.cu', 'sailfish_tpu/ops/pallas_multi2d.py:756'),
 }
 CSRC = 'sailfish_tpu_torch/ops/csrc/'
 DEVICE = 'cuda'
@@ -185,6 +209,52 @@ def sc_compare(name, sim_cls, steps=20, **cfg):
     del r, ks, f0
     torch.cuda.empty_cache()
     return grid.name, rho_err, err
+
+
+def fe_errors(ks, f0, steps):
+    """(pre-pass max |d phi|, wet-node max |d f| after ``steps`` steps) of
+    the free-energy kernels against their plain versions from the 2-tuple
+    ``f0``."""
+    grid = ks.grid
+    phi = torch.empty_like(ks.phi)
+    ks.phi_into(torch.stack(f0), phi)
+    phi_err = float((phi - sm.rho_reference(f0[1], grid)).abs().max())
+    del phi
+    fk = ks.run(f0, steps)
+    fr = f0
+    for _ in range(steps):
+        fr = fe.fe_step_reference(fr, sm.rho_reference(fr[1], grid),
+                                  ks.mask, ks.orient, ks.builder)
+    util.synchronize(DEVICE)
+    wet = ks.mask == 0
+    err = max(float((a - b)[:, wet].abs().max()) for a, b in zip(fk, fr))
+    assert np.isfinite(phi_err) and phi_err <= RHO_TOL, phi_err
+    assert np.isfinite(err) and err <= TOL, err
+    return phi_err, err
+
+
+def fe_compare(name, sim_cls, steps=20, **cfg):
+    """The free-energy kernels vs their plain versions on the card from one
+    seeded state with sharp interfaces (``random_fe_state``), with a block
+    of excluded nodes."""
+    r = run(with_keep_block(sim_cls), platform=DEVICE, engine='kernel',
+            max_iters=0, **cfg)
+    ks = r.kernel
+    assert isinstance(ks, fe.FEStep)
+    codes = sorted(torch.unique(ks.mask).tolist())
+    f0 = tuple(random_fe_state(ks.grid, ks.shape, seed=1234, device=DEVICE))
+    phi_err, err = fe_errors(ks, f0, steps)
+    assert ks.launches == {ks.rho_name: steps + 1, ks.name: steps}
+    b = ks.builder
+    say(f'compare {name}: {ks.grid.name} {ks.shape} {b.fe_model}, mask '
+        f'codes {codes}, wetting {ks.orient is not None} (wall_grad '
+        f'{b.wall_grad_phase:g}), body force {b.body_force is not None}, '
+        f'eq_force_map {b.eq_force_map}: pre-pass max|dphi| = '
+        f'{phi_err:.3e} (tol {RHO_TOL:g}); {steps} steps wet max|df| = '
+        f'{err:.3e} (tol {TOL:g})')
+    del r, ks, f0
+    torch.cuda.empty_cache()
+    return b.grid.name, phi_err, err
 
 
 def copy_bandwidth():
@@ -340,6 +410,126 @@ def sc_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     return results
 
 
+def fe_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
+    """A free-energy scene through the controller with the default engine:
+    the main path of the model. The launch counts are zeroed just before
+    the controller runs and read just after. Checks: finite fields, the
+    total of rho (float64 sums) within ``FE_RHO_TOL`` relative and the
+    total of phi within ``FE_PHI_TOL`` per node, and 10 steps from the
+    final state against the plain versions; then each kernel is timed
+    alone against its plain version."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    steps = chunk * chunks
+
+    class Sim(sim_cls):
+        def make_initial_state(self, builder, dtype):
+            state = super().make_initial_state(builder, dtype)
+            self.mass0 = [float(torch.sum(f, dtype=torch.float64))
+                          for f in state]
+            return state
+
+    sm.reset_launch_counts()
+    fe.reset_launch_counts()
+    r = run(Sim, max_iters=steps, every=chunk, seed=1, **cfg)
+    counts = {**sm.LAUNCHES, **fe.LAUNCHES}
+    assert r.engine == 'kernel', r.engine
+    ks = r.kernel
+    assert isinstance(ks, fe.FEStep)
+    assert counts[ks.name] == counts[ks.rho_name] == steps \
+        == r.sim.iteration, (counts, steps)
+    assert sum(counts.values()) == 2 * steps, counts
+    assert ks.launches == {ks.rho_name: steps, ks.name: steps}
+    assert st.is_finite(r.f)
+    nodes = int(np.prod(size))
+    mass = [float(torch.sum(f, dtype=torch.float64)) for f in r.f]
+    rho_drift = abs(mass[0] - r.sim.mass0[0]) / r.sim.mass0[0]
+    phi_drift = abs(mass[1] - r.sim.mass0[1]) / nodes
+    assert rho_drift <= FE_RHO_TOL, (mass, r.sim.mass0)
+    assert phi_drift <= FE_PHI_TOL, (mass, r.sim.mass0)
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    for name, arr in (('rho', r.sim.rho), ('phi', r.sim.phi),
+                      ('vx', r.sim.vx)):
+        assert arr.shape == shape and np.all(np.isfinite(arr)), name
+    phi_range = (float(r.sim.phi.min()), float(r.sim.phi.max()))
+    grid = ks.grid
+    mlups = statistics.median(r.mlups_history[1:])
+    eff = mlups * 1e6 * FE_BYTES[grid.name]
+    say(f'main path {scene} {"x".join(map(str, size))} ({grid.name}, '
+        f'{ks.builder.fe_model}, engine {r.engine}): {counts[ks.rho_name]} '
+        f'{ks.rho_name} + {counts[ks.name]} {ks.name} launches; MLUPS per '
+        f'{chunk}-step chunk {[round(m, 1) for m in r.mlups_history]}; '
+        f'median {mlups:.1f} MLUPS; {eff / 1e9:.1f} GB/s effective '
+        f'({FE_BYTES[grid.name]} B/node), {eff / copy_bw:.3f} of the copy '
+        f'bandwidth; rho drift {rho_drift:.2e} relative (tol '
+        f'{FE_RHO_TOL:g}), phi drift {phi_drift:.2e} per node (tol '
+        f'{FE_PHI_TOL:g}); phi range {phi_range[0]:.4f} .. '
+        f'{phi_range[1]:.4f}')
+    # the kernels against their plain versions on the main path's own
+    # state and shapes (10 steps), then each timed alone
+    phi_err, err = fe_errors(ks, tuple(f.clone() for f in r.f), 10)
+    say(f'compare main path {scene}: pre-pass max|dphi| = {phi_err:.3e}; '
+        f'10 steps from the state after {steps}, wet max|df| = {err:.3e} '
+        f'(tol {TOL:g})')
+    a, b, pb = ks.a, ks.b, ks.phi
+    rho_ms = util.cuda_time_ms(lambda: ks.phi_into(a, pb), 50, warmup=5)
+    ms = util.cuda_time_ms(lambda: ks.collide_into(a, pb, b), 50, warmup=5)
+    plain_rho_ms = util.cuda_time_ms(
+        lambda: sm.rho_reference(a[1], grid), 5)
+    plain_ms = util.cuda_time_ms(
+        lambda: fe.fe_step_reference(a.unbind(0), pb, ks.mask, ks.orient,
+                                     ks.builder), 5)
+    say(f'kernel {ks.rho_name} at {"x".join(map(str, size))}: {rho_ms:.4f} '
+        f'ms per launch (order parameter alone); rho_reference '
+        f'{plain_rho_ms:.3f} ms')
+    say(f'kernel {ks.name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
+        f'launch; fe_step_reference {plain_ms:.3f} ms; the pre-pass is '
+        f'{rho_ms / (rho_ms + ms):.3f} of a step')
+    results = {
+        ks.rho_name: dict(launches=counts[ks.rho_name], ms=rho_ms,
+                          plain_ms=plain_rho_ms, err=phi_err),
+        ks.name: dict(launches=counts[ks.name], ms=ms, plain_ms=plain_ms,
+                      err=err, mlups=mlups),
+    }
+    del r, ks, a, b, pb
+    torch.cuda.empty_cache()
+    return results
+
+
+def fe_demix(size=512, steps=2500):
+    """Free-energy demixing on the kernel engine with the parameters of
+    tests/test_binary.py:63-66 (kappa = A = 0.04, Gamma = 1, tau_a = 1,
+    tau_b = 0.8, phi = 0.1 (U(0, 1) - 0.5) from RandomState(11)): the
+    order parameter must reach past +-0.5 and the mean density stay 1."""
+    base = FE['fe_separation_2d']
+
+    class Noise(base.subdomain):
+        def initial_conditions(self, sim, hx, hy):
+            rng = np.random.RandomState(11)
+            sim.rho[:] = 1.0
+            sim.phi[:] = 0.1 * (rng.rand(*sim.phi.shape) - 0.5)
+
+    class Sim(base):
+        subdomain = Noise
+
+    r = run(Sim, max_iters=steps, every=steps, lat_nx=size, lat_ny=size,
+            kappa=0.04, Gamma=1.0, A=0.04, tau_a=1.0, tau_b=0.8,
+            tau_phi=1.0)
+    assert r.engine == 'kernel' and isinstance(r.kernel, fe.FEStep)
+    assert r.kernel.launches[r.kernel.name] == steps
+    r._fields_to_host()
+    phi, rho = r.sim.phi, r.sim.rho
+    assert np.all(np.isfinite(phi)) and np.all(np.isfinite(rho))
+    ok = phi.max() > 0.5 and phi.min() < -0.5
+    say(f'demixing fe_separation_2d {size}x{size}, {steps} steps (kernel '
+        f'engine): phi range {phi.min():.4f} .. {phi.max():.4f} (pass: '
+        f'beyond -0.5 and 0.5), mean rho {rho.mean():.6f}')
+    assert ok, (phi.min(), phi.max())
+    assert abs(rho.mean() - 1.0) < 1e-3, rho.mean()
+    del r
+    torch.cuda.empty_cache()
+
+
 def plain_path(scene, sim_cls, size, chunk, chunks=4):
     """The same scene on the plain torch engine on the card."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
@@ -367,7 +557,8 @@ def main():
     say(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
 
-    for name, lib in build.load_all(['lbm_step', 'sc_multi']).items():
+    sources = ['lbm_step', 'sc_multi', 'fe_step']
+    for name, lib in build.load_all(sources).items():
         say(f'build {name}: {lib.path.name} in {lib.seconds:.1f} s '
             '(0 = cached)')
         for line in lib.log.splitlines():
@@ -399,6 +590,21 @@ def main():
         grid, rho_err, err = sc_compare(name, sim_cls, **cfg)
         note(f'rho_poststream_{grid.lower()}', rho_err)
         note(f'sc_multi_{grid.lower()}', err)
+    fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
+    for name, scene, cfg in (
+            ('fe_separation_2d', 'fe_separation_2d',
+             dict(lat_nx=1024, lat_ny=1024)),
+            ('fe_separation_3d', 'fe_separation_3d', fe_cube),
+            ('fe_separation_3d_mrt', 'fe_separation_3d',
+             dict(fe_cube, model='mrt', tau_a=3.0, tau_b=0.8)),
+            ('fe_poiseuille_2d_wetting', 'fe_poiseuille_2d',
+             dict(lat_nx=1024, lat_ny=512, bc_wall_grad_phase=0.05)),
+            ('fe_viscous_fingering', 'fe_viscous_fingering',
+             dict(lat_nx=320, lat_ny=101, lat_nz=37)),
+            ('binary_microchannel', 'binary_microchannel', dict(H=51))):
+        grid, phi_err, err = fe_compare(name, FE[scene], **cfg)
+        note(f'rho_poststream_{grid.lower()}', phi_err)
+        note(f'fe_step_{grid.lower()}', err)
     golden('ldc_3d', LDC_3D, lat_nx=16, lat_ny=16, lat_nz=16)
     golden('ldc_2d', LDC_2D, lat_nx=32, lat_ny=32)
     golden('sc_separation_2d', SEP_2D, 'binary_fluid_sc_separation_2d',
@@ -408,6 +614,9 @@ def main():
     golden('sc_separation_3d_walls', SEP_3D_WALLS,
            'binary_fluid_sc_separation_3d_walls', lat_nx=24, lat_ny=24,
            lat_nz=24)
+    for scene in FE_SCENES:
+        golden(scene, FE[scene], f'binary_fluid_{scene}',
+               **FE_GOLDEN_FLAGS[scene])
 
     copy_bw = copy_bandwidth()
     say(f'device-to-device copy bandwidth (1 GiB): {copy_bw / 1e9:.1f} GB/s')
@@ -420,12 +629,29 @@ def main():
                                   (256, 256, 256)),
                                  ('sc_separation_2d', SEP_2D, (4096, 4096))):
         results.update(sc_main_path(scene, sim_cls, size, copy_bw))
+    for scene, size in (('fe_separation_3d', (256, 256, 256)),
+                        ('fe_separation_2d', (4096, 4096))):
+        for name, res in fe_main_path(scene, FE[scene], size,
+                                      copy_bw).items():
+            if name in results:
+                # the pre-pass: launches of both main paths; its time at
+                # the Shan-Chen path's K = 2 stays in the JSON line
+                res = dict(results[name],
+                           launches=results[name]['launches']
+                           + res['launches'],
+                           err=max(results[name]['err'], res['err']))
+            results[name] = res
+    fe_demix()
     plain_path('ldc_3d', LDC_3D, (128, 128, 128), chunk=500)
     plain_path('ldc_3d', LDC_3D, (256, 256, 256), chunk=50)
     plain_path('ldc_2d', LDC_2D, (4096, 4096), chunk=100)
     plain_path('sc_separation_3d', SEP_3D, (128, 128, 128), chunk=50)
     plain_path('sc_separation_3d', SEP_3D, (256, 256, 256), chunk=10)
     plain_path('sc_separation_2d', SEP_2D, (4096, 4096), chunk=20)
+    plain_path('fe_separation_3d', FE['fe_separation_3d'], (256, 256, 256),
+               chunk=10)
+    plain_path('fe_separation_2d', FE['fe_separation_2d'], (4096, 4096),
+               chunk=20)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

@@ -4,8 +4,7 @@ The JAX package's binary models (``sailfish_tpu/models/binary.py:18-152``)
 are numpy-only at import time: their options, fields and host-side field
 plumbing are reused by subclassing. The port replaces the three methods
 that touch device arrays: the initial state (a 2-tuple of distribution
-tensors), the device -> host field copy and the step builder. The
-free-energy model's step is not ported yet and raises.
+tensors), the device -> host field copy and the step builder.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import torch
 from sailfish_tpu import lattice
 from sailfish_tpu.models import binary as _binary
 from sailfish_tpu_torch import equilibrium as eq
+from sailfish_tpu_torch.models.base import LBForcedSim
 from sailfish_tpu_torch.ops import multigrid
 
 
@@ -48,11 +48,23 @@ class LBBinaryFluidBase(_binary.LBBinaryFluidBase):
 
 class LBBinaryFluidFreeEnergy(LBBinaryFluidBase,
                               _binary.LBBinaryFluidFreeEnergy):
-    """Binary free-energy mixture: options and fields only; its step
-    raises until the free-energy slice is ported."""
+    """Binary free-energy mixture (Landau functional)."""
 
     def make_step_builder(self, maps, dtype, device):
-        return multigrid.FreeEnergyStepBuilder()
+        cfg = self.config
+        body_force = None
+        if isinstance(self, LBForcedSim):
+            body_force = self.body_force(0)
+        return multigrid.FreeEnergyStepBuilder(
+            self.grid, maps,
+            tau_a=cfg.tau_a, tau_b=cfg.tau_b, tau_phi=cfg.tau_phi,
+            A=cfg.A, kappa=cfg.kappa, Gamma=cfg.Gamma,
+            wall_grad_phase=cfg.bc_wall_grad_phase,
+            body_force=body_force,
+            eq_force_map=getattr(self, '_eq_force_map', None),
+            model=getattr(cfg, 'model', 'bgk'),
+            force_model=getattr(cfg, 'force_implementation', 'guo'),
+            dtype=dtype, device=device)
 
 
 class LBBinaryFluidShanChen(LBBinaryFluidBase,

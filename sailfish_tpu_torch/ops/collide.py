@@ -1,7 +1,7 @@
 """Collision operators on torch tensors (port of
-``sailfish_tpu/ops/collide.py``; BGK and the Shan-Chen pseudopotential
-force so far -- MRT/TRT, ELBM, LES and the body-force terms are still to
-be ported)."""
+``sailfish_tpu/ops/collide.py``; BGK, the Guo forcing term and the
+Shan-Chen pseudopotential force so far -- MRT/TRT, ELBM, LES and the EDM
+forcing are still to be ported)."""
 
 from __future__ import annotations
 
@@ -14,6 +14,24 @@ def bgk_collide(grid, f, rho, u, tau_inv, *, incompressible=False):
     """f + (feq - f) / tau; ``tau_inv`` a scalar or a per-node field."""
     feq = eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible)
     return f + tau_inv * (feq - f)
+
+
+def guo_force_terms(grid, u, accel, tau_inv, rho=None):
+    """Guo (2002) forcing increment
+    S_i = w_i (1 - 1/(2 tau)) rho [3 (c_i - u) + 9 (c_i . u) c_i] . a
+    (``sailfish_tpu/ops/collide.py:65-86``). ``accel`` is an acceleration,
+    (dim, *S) or broadcastable; ``tau_inv`` a scalar or a per-node field.
+    Returns the (Q, *S) post-collision increment."""
+    cu = eq.dot_cu(grid, u)
+    cF = eq.dot_cu(grid, accel)
+    uF = torch.sum(u * accel, dim=0)
+    wq = torch.as_tensor(grid.weights, dtype=u.dtype, device=u.device)
+    wq = wq.reshape((grid.Q,) + (1,) * (cu.dim() - 1))
+    pref = 1.0 - 0.5 * tau_inv
+    out = pref * wq * (3.0 * (cF - uF[None]) + 9.0 * cu * cF)
+    if rho is not None:
+        out = out * rho[None]
+    return out
 
 
 SHAN_CHEN_POTENTIALS = {

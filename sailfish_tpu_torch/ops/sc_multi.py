@@ -167,7 +167,49 @@ def kernel_functions(lib, grid_name):
     return rho_fn, step_fn
 
 
-class SCMultiStep:
+class BufferedMultiStep:
+    """The A/B buffer handling shared by the K-component kernel engines:
+    ``a`` and ``b`` are (K, Q, *S) fp32 tensors swapped every step, and a
+    subclass's ``step_into(src, dst)`` makes one step between them."""
+
+    def _check(self, *tensors):
+        for t, full in tensors:
+            if t.dtype != torch.float32 or tuple(t.shape) != full:
+                raise ValueError(f'expected float32 {full}, got '
+                                 f'{t.dtype} {tuple(t.shape)}')
+            if not t.is_contiguous():
+                raise ValueError('kernel buffers must be contiguous')
+            if t.device != self.mask.device:
+                raise ValueError(f'buffer on {t.device}, mask on '
+                                 f'{self.mask.device}')
+
+    def _buffer_of(self, state):
+        for buf in (self.a, self.b):
+            if all(f.data_ptr() == buf[k].data_ptr()
+                   and f.shape == buf[k].shape
+                   for k, f in enumerate(state)):
+                return buf
+        return None
+
+    def run(self, state, n):
+        """``n`` steps from the K-tuple ``state``; returns the K-tuple of
+        views of the buffer (A or B) that holds the result. A state that
+        is not held by one of the two buffers is copied into A first."""
+        if len(state) != self.K:
+            raise ValueError(f'{len(state)} components, expected {self.K}')
+        src = self._buffer_of(state)
+        if src is None:
+            for k, f in enumerate(state):
+                self.a[k].copy_(f)
+            src = self.a
+        dst = self.b if src is self.a else self.a
+        for _ in range(n):
+            self.step_into(src, dst)
+            src, dst = dst, src
+        return tuple(src.unbind(0))
+
+
+class SCMultiStep(BufferedMultiStep):
     """The kernel engine for one Shan-Chen scene: the K components' A and
     B buffers (one (K, Q, *S) tensor each, swapped every step), the (K,
     *S) density buffer, the uint8 mask, and ``launches``, this object's
@@ -200,17 +242,6 @@ class SCMultiStep:
         self.name = f'sc_multi_{g}'
         self.launches = {self.rho_name: 0, self.name: 0}
         self._fns = None
-
-    def _check(self, *tensors):
-        for t, full in tensors:
-            if t.dtype != torch.float32 or tuple(t.shape) != full:
-                raise ValueError(f'expected float32 {full}, got '
-                                 f'{t.dtype} {tuple(t.shape)}')
-            if not t.is_contiguous():
-                raise ValueError('kernel buffers must be contiguous')
-            if t.device != self.mask.device:
-                raise ValueError(f'buffer on {t.device}, mask on '
-                                 f'{self.mask.device}')
 
     def _launch(self, name, fn, *args):
         if self._fns is None:
@@ -263,29 +294,3 @@ class SCMultiStep:
         coupled step from ``src`` into ``dst``."""
         self.density_into(src, self.rho)
         self.collide_into(src, self.rho, dst)
-
-    def _buffer_of(self, state):
-        for buf in (self.a, self.b):
-            if all(f.data_ptr() == buf[k].data_ptr()
-                   and f.shape == buf[k].shape
-                   for k, f in enumerate(state)):
-                return buf
-        return None
-
-    def run(self, state, n):
-        """``n`` steps from the K-tuple ``state``; returns the K-tuple of
-        views of the buffer (A or B) that holds the result. A state that
-        is not held by one of the two buffers is copied into A first."""
-        if len(state) != self.K:
-            raise ValueError(f'{len(state)} components, expected {self.K}')
-        src = self._buffer_of(state)
-        if src is None:
-            for k, f in enumerate(state):
-                self.a[k].copy_(f)
-            src = self.a
-        dst = self.b if src is self.a else self.a
-        for _ in range(n):
-            self.step_into(src, dst)
-            src, dst = dst, src
-        return tuple(src.unbind(0))
-

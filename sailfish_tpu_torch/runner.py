@@ -9,10 +9,11 @@ checkpoints in the JAX package's npz layout (``dist0a`` ...
 ``dist{K-1}a``, ``state``, ``sim_state``), so a JAX checkpoint restores
 here and back.
 
-Two engines run the step: ``torch`` (``ops/step.StepBuilder`` or
-``ops/multigrid.ShanChenMultiStepBuilder``, plain tensor code) and
-``kernel`` (the CUDA kernels: ``ops/lbm_step.KernelStep`` for a single
-fluid, ``ops/sc_multi.SCMultiStep`` for a Shan-Chen mixture). There is no
+Two engines run the step: ``torch`` (``ops/step.StepBuilder`` or the
+``ops/multigrid`` builders, plain tensor code) and ``kernel`` (the CUDA
+kernels: ``ops/lbm_step.KernelStep`` for a single fluid,
+``ops/sc_multi.SCMultiStep`` for a Shan-Chen mixture,
+``ops/fe_step.FEStep`` for the binary free-energy model). There is no
 silent fallback between them: a requested or defaulted kernel engine that
 cannot run a scene raises with the reasons.
 Device hooks, force objects, ``--init_iters``, meshes and
@@ -109,10 +110,14 @@ class SubdomainRunner:
     def _kernel_engine(self):
         """The kernel engine of the builder's model; it raises, naming
         the reasons, when its kernel cannot run the scene."""
-        from sailfish_tpu_torch.ops.multigrid import ShanChenMultiStepBuilder
+        from sailfish_tpu_torch.ops.multigrid import (
+            FreeEnergyStepBuilder, ShanChenMultiStepBuilder)
         if isinstance(self.builder, ShanChenMultiStepBuilder):
             from sailfish_tpu_torch.ops.sc_multi import SCMultiStep
             return SCMultiStep(self.builder)
+        if isinstance(self.builder, FreeEnergyStepBuilder):
+            from sailfish_tpu_torch.ops.fe_step import FEStep
+            return FEStep(self.builder)
         from sailfish_tpu_torch.ops.lbm_step import KernelStep
         return KernelStep(self.builder)
 

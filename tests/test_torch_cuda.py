@@ -15,16 +15,24 @@ The Shan-Chen kernels (``ops/sc_multi``) are held against
 separation twins (a block of excluded nodes added), from seeded
 near-uniform two-component states: the density pre-pass after one launch
 (<= 1e-6) and the coupled step over 20 steps (wet-node max |df| <= 1e-5).
+
+The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
+the order parameter, then ``fe_step``) are held against ``rho_reference``
+and ``fe_step_reference`` on the five free-energy twins (a block of
+excluded nodes added), BGK and FE-MRT, with and without a wetting
+gradient, from seeded states with sharp interfaces: the pre-pass after one
+launch (<= 1e-6) and 20 steps (wet-node max |df| <= 1e-5).
 """
 
 import pytest
 import torch
 
+from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
-from torch_scenes import (BC_PAIRS, BINARY_SCENES, binary_twin, channel_sim,
-                          random_binary_state, random_feq, run, twin,
-                          with_keep_block)
+from torch_scenes import (BC_PAIRS, BINARY_SCENES, FE_SCENES, binary_twin,
+                          channel_sim, random_binary_state, random_fe_state,
+                          random_feq, run, twin, with_keep_block)
 
 SIZES = {
     'ldc_3d': dict(lat_nx=48, lat_ny=40, lat_nz=32),
@@ -157,6 +165,86 @@ def test_default_engine_on_cuda_is_the_sc_kernel(cuda, scene):
     assert sm.LAUNCHES[r.kernel.rho_name] == 30
     ref = run(binary_twin(scene), engine='torch', max_iters=30, every=10,
               seed=2, **BINARY_SIZES[scene])
+    assert ref.engine == 'torch' and ref.kernel is None
+    wet = r.kernel.mask == 0
+    for fk, ft in zip(r.f, ref.f):
+        assert bool(torch.isfinite(fk).all())
+        assert float((fk - ft)[:, wet].abs().max()) <= 1e-5
+
+
+FE_SIZES = {
+    'fe_separation_2d': dict(lat_nx=200, lat_ny=96),
+    'fe_separation_3d': dict(lat_nx=40, lat_ny=24, lat_nz=32),
+    'fe_poiseuille_2d': dict(lat_nx=200, lat_ny=96),
+    'fe_viscous_fingering': dict(lat_nx=160, lat_ny=24, lat_nz=16),
+    'binary_microchannel': dict(H=17),
+}
+#: (scene, flags): each scene with its defaults, FE-MRT on the periodic
+#: ones and a wetting gradient on the walled ones
+FE_CASES = [(scene, {}) for scene in sorted(FE_SCENES)] + [
+    ('fe_separation_2d', dict(model='mrt')),
+    ('fe_separation_3d', dict(model='mrt', tau_a=3.0, tau_b=0.8)),
+    ('fe_poiseuille_2d', dict(bc_wall_grad_phase=0.05)),
+    ('fe_viscous_fingering', dict(bc_wall_grad_phase=-0.03)),
+    ('binary_microchannel', dict(bc_wall_grad_phase=0.04, model='mrt')),
+]
+
+
+def _fe_engine(scene, **cfg):
+    r = run(with_keep_block(binary_twin(scene)), platform='cuda',
+            engine='kernel', max_iters=0, **FE_SIZES[scene], **cfg)
+    ks = r.kernel
+    assert isinstance(ks, fe.FEStep)
+    return r, ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(FE_SCENES))
+def test_fe_prepass_matches_rho_reference(cuda, scene):
+    r, ks = _fe_engine(scene)
+    f = random_fe_state(r.sim.grid, ks.shape, seed=4, device='cuda')
+    phi = torch.empty_like(ks.phi)
+    ks.phi_into(f, phi)
+    torch.cuda.synchronize()
+    assert ks.launches[ks.rho_name] == 1
+    ref = sm.rho_reference(f[1], r.sim.grid)
+    assert float((phi - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', range(len(FE_CASES)))
+def test_fe_step_matches_reference(cuda, case):
+    scene, cfg = FE_CASES[case]
+    r, ks = _fe_engine(scene, **cfg)
+    codes = sorted(torch.unique(ks.mask).tolist())
+    walls = scene not in ('fe_separation_2d', 'fe_separation_3d')
+    assert codes == ([0, 1, 2] if walls else [0, 2]), codes
+    grid = r.sim.grid
+    f0 = random_fe_state(grid, ks.shape, seed=5, device='cuda')
+    fk = ks.run(tuple(f0), 20)
+    fr = tuple(f0)
+    for _ in range(20):
+        phi = sm.rho_reference(fr[1], grid)
+        fr = fe.fe_step_reference(fr, phi, ks.mask, ks.orient, ks.builder)
+    torch.cuda.synchronize()
+    assert ks.launches == {ks.rho_name: 20, ks.name: 20}
+    wet = ks.mask == 0
+    err = float((torch.stack(fk) - torch.stack(fr))[:, :, wet].abs().max())
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(FE_SCENES))
+def test_default_engine_on_cuda_is_the_fe_kernel(cuda, scene):
+    sm.reset_launch_counts()
+    fe.reset_launch_counts()
+    r = run(binary_twin(scene), max_iters=30, every=10, seed=2,
+            **FE_SIZES[scene])
+    assert r.engine == 'kernel' and isinstance(r.kernel, fe.FEStep)
+    assert fe.LAUNCHES[r.kernel.name] == 30
+    assert sm.LAUNCHES[r.kernel.rho_name] == 30
+    ref = run(binary_twin(scene), engine='torch', max_iters=30, every=10,
+              seed=2, **FE_SIZES[scene])
     assert ref.engine == 'torch' and ref.kernel is None
     wet = r.kernel.mask == 0
     for fk, ft in zip(r.f, ref.f):

@@ -81,8 +81,10 @@ def test_port_modules_are_packaged():
     assert {'sailfish_tpu_torch.ops.lbm_step', 'sailfish_tpu_torch.runner',
             'sailfish_tpu_torch.controller', 'sailfish_tpu_torch.ops.sc_multi',
             'sailfish_tpu_torch.ops.multigrid',
+            'sailfish_tpu_torch.ops.fe_step',
+            'sailfish_tpu_torch.models.base',
             'sailfish_tpu_torch.models.binary'} <= names
-    for src in ('lbm_step.cu', 'sc_multi.cu'):
+    for src in ('lbm_step.cu', 'sc_multi.cu', 'fe_step.cu'):
         assert os.path.exists(os.path.join(
             os.path.dirname(sailfish_tpu_torch.__file__), 'ops', 'csrc', src))
 
@@ -91,4 +93,6 @@ def test_binary_twins_are_checked():
     twins = {os.path.basename(p) for p in _port_sources()
              if os.sep + 'binary_fluid' + os.sep in p}
     assert twins == {'sc_separation_2d.py', 'sc_separation_3d.py',
-                     'sc_separation_3d_walls.py'}
+                     'sc_separation_3d_walls.py', 'fe_separation_2d.py',
+                     'fe_separation_3d.py', 'fe_poiseuille_2d.py',
+                     'fe_viscous_fingering.py', 'binary_microchannel.py'}

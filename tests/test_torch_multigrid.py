@@ -13,7 +13,8 @@
 * Binary checkpoints carry between the packages (``dist0a``, ``dist1a``,
   ``sim_state``): JAX 10 steps + port 10 steps == JAX 20 steps, and the
   reverse, within 5e-6 on wet nodes.
-* What is not ported raises.
+* What is not ported raises; the free-energy model runs (its own tests
+  are tests/test_torch_free_energy.py and tests/test_torch_fe_step.py).
 """
 
 import glob
@@ -176,14 +177,17 @@ class _Empty(Subdomain2D):
         sim.phi[:] = 0.0
 
 
-def test_free_energy_is_not_ported_yet():
+def test_free_energy_model_runs():
     class Sim(LBBinaryFluidFreeEnergy):
         subdomain = _Empty
 
-    with pytest.raises(NotImplementedError, match='free-energy'):
-        run_port(Sim, max_iters=2, lat_nx=8, lat_ny=8)
-    with pytest.raises(NotImplementedError, match='free-energy'):
-        mg.laplacian_and_grad(torch.zeros(4, 4), 2)
+    r = run_port(Sim, max_iters=2, lat_nx=8, lat_ny=8)
+    assert r.sim.iteration == 2 and r.engine == 'torch'
+    assert isinstance(r.builder, mg.FreeEnergyStepBuilder)
+    assert r.builder.components[0].tau == 1.0   # (tau_a + tau_b) / 2
+    assert all(bool(torch.isfinite(f).all()) for f in r.f)
+    lap, grad = mg.laplacian_and_grad(torch.zeros(4, 4), 2)
+    assert lap.shape == (4, 4) and grad.shape == (2, 4, 4)
 
 
 def test_unported_forcing_raises():

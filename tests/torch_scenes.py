@@ -49,12 +49,29 @@ BINARY_SCENES = {
     'sc_separation_3d': 'SeparationSCSim',
     'sc_separation_3d_walls': 'WalledSeparationSim',
 }
+#: binary free-energy twins (examples/torch/binary_fluid) -> sim class name
+FE_SCENES = {
+    'fe_separation_2d': 'SeparationFESim',
+    'fe_separation_3d': 'SeparationFESim3D',
+    'fe_poiseuille_2d': 'FEPoiseuilleSim',
+    'fe_viscous_fingering': 'FingeringFESim',
+    'binary_microchannel': 'MicrochannelSim',
+}
+#: the golden harness's flags for the free-energy scenes
+#: (tests/examples_harness.py:40, :48, :70-75)
+FE_GOLDEN_FLAGS = {
+    'fe_separation_2d': dict(lat_nx=32, lat_ny=32),
+    'fe_separation_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
+    'fe_poiseuille_2d': dict(lat_nx=32, lat_ny=32),
+    'fe_viscous_fingering': dict(lat_nx=160, lat_ny=32, lat_nz=16),
+    'binary_microchannel': dict(H=17),
+}
 
 
 def binary_twin(scene):
     """The sim class of ``examples/torch/binary_fluid/<scene>.py``."""
     mod = load_example(f'torch/binary_fluid/{scene}.py', f'torch_{scene}')
-    return getattr(mod, BINARY_SCENES[scene])
+    return getattr(mod, {**BINARY_SCENES, **FE_SCENES}[scene])
 
 
 def run(sim_cls, **cfg):
@@ -144,6 +161,26 @@ def random_binary_state(grid, shape, seed, device, u_rms=0.0):
                            dtype=torch.float32, device=device)
         comps.append(teq.bgk_equilibrium(grid, rho, u))
     return torch.stack(comps).contiguous()
+
+
+def random_fe_state(grid, shape, seed, device, u_rms=0.02):
+    """fp32 free-energy state (2, Q, *S): the equilibria of a density
+    1 + 0.01 N(0, 1), an order parameter drawn uniformly from [-1, 1] over
+    blocks of 4 nodes per axis (sharp interfaces between them) and a
+    velocity field of ``u_rms`` rms common to both, drawn with numpy from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    rho = torch.tensor(1.0 + 0.01 * rng.standard_normal(shape),
+                       dtype=torch.float32, device=device)
+    coarse = rng.uniform(-1.0, 1.0, tuple(-(-n // 4) for n in shape))
+    for a in range(len(shape)):
+        coarse = np.repeat(coarse, 4, axis=a)
+    phi = torch.tensor(coarse[tuple(slice(0, n) for n in shape)],
+                       dtype=torch.float32, device=device)
+    u = torch.tensor(u_rms * rng.standard_normal((grid.dim,) + shape),
+                     dtype=torch.float32, device=device)
+    return torch.stack([teq.bgk_equilibrium(grid, rho, u),
+                        teq.bgk_equilibrium(grid, phi, u)]).contiguous()
 
 
 def wet_map(maps):

@@ -4,12 +4,13 @@
     python3 tools/trace_main_path.py [--chunk 500] [--scenes ldc_3d,...]
                                      [--out DIR]
 
-Needs one CUDA GPU. For the lid-driven cavities and the binary Shan-Chen
-separations of ``examples/torch`` at the benchmark sizes (D3Q19 256^3,
-D2Q9 4096^2) it runs the controller with the default (kernel) engine for
-one chunk (kernel build, warm-up), then traces one more chunk of
-``SubdomainRunner.main`` with ``torch.profiler`` (CPU and CUDA
-activities) and reads the exported Chrome trace:
+Needs one CUDA GPU. For the lid-driven cavities, the binary Shan-Chen
+separations and the binary free-energy separations of ``examples/torch``
+at the benchmark sizes (D3Q19 256^3, D2Q9 4096^2) it runs the controller
+with the default (kernel) engine for one chunk (kernel build, warm-up),
+then traces one more chunk of ``SubdomainRunner.main`` with
+``torch.profiler`` (CPU and CUDA activities) and reads the exported
+Chrome trace:
 
 * ``window``: the ``main`` chunk on the host, a ``record_function`` span;
 * ``busy``: the union of the device's kernel, memcpy and memset intervals
@@ -41,11 +42,13 @@ SCENES = {
     'ldc_2d': (twin, (4096, 4096)),
     'sc_separation_3d': (binary_twin, (256, 256, 256)),
     'sc_separation_2d': (binary_twin, (4096, 4096)),
+    'fe_separation_3d': (binary_twin, (256, 256, 256)),
+    'fe_separation_2d': (binary_twin, (4096, 4096)),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
 PORT_KERNELS = ('lbm_step_kernel', 'rho_poststream_kernel',
-                'sc_multi_kernel')
+                'sc_multi_kernel', 'fe_step_kernel')
 
 
 def total_launches(kernel):
