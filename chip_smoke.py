@@ -10,6 +10,10 @@ version on the card from seeded random states:
 * the single-fluid stream-and-collide kernel (``ops/lbm_step``) against
   ``step_reference`` on lid-driven cavities and on ducts with x-normal
   velocity/density faces of each native BC pair;
+* the same kernel followed by the patch-row kernel (``ops/bc_patch``)
+  against ``step_reference`` + ``bc_patch_reference`` on channels whose
+  velocity inlet carries a parabolic profile, for each native BC pair
+  (D3Q19 128x64x64 and D2Q9 1024^2, 200 steps);
 * the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
   against ``rho_reference`` and ``sc_multi_reference`` on the binary
   separation scenes (periodic 2D and 3D, and the walled 3D box);
@@ -20,10 +24,12 @@ version on the card from seeded random states:
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
-cavities (D3Q19 256^3, D2Q9 4096^2), the binary Shan-Chen separations and
-the free-energy separations (each D3Q19 256^3, D2Q9 4096^2), checks the
-results, runs a free-energy demixing to its end, times every kernel
-against its plain version, and prints the measurements. Every phase raises on
+cavities (D3Q19 256^3, D2Q9 4096^2), the parabolic-inlet channels
+(``parabolic_inlet_3d`` 256^3 and ``parabolic_inlet_2d`` 4096^2, two
+launches per step), the binary Shan-Chen separations and the free-energy
+separations (each D3Q19 256^3, D2Q9 4096^2), checks the results, runs a
+free-energy demixing to its end, times every kernel against its plain
+version and its bound, and prints the measurements. Every phase raises on
 failure, so the exit code is 0 only when all of them passed; without a
 CUDA device it exits non-zero before printing a result. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -41,6 +47,7 @@ import torch
 
 from sailfish_tpu_torch import state as st
 from sailfish_tpu_torch import util
+from sailfish_tpu_torch.ops import bc_patch as bp
 from sailfish_tpu_torch.ops import build
 from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
@@ -48,9 +55,11 @@ from sailfish_tpu_torch.ops import sc_multi as sm
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, 'tests'))
-from torch_scenes import (FE_GOLDEN_FLAGS, binary_twin,  # noqa: E402
-                          channel_sim, random_binary_state, random_fe_state,
-                          random_feq, run, twin, with_keep_block)
+from torch_scenes import (BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
+                          binary_twin, channel_sim, channel_sim_2d,
+                          parabolic_profile, random_binary_state,
+                          random_fe_state, random_feq, run, twin, wet_map,
+                          with_keep_block, with_patch_row_mix)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
@@ -93,6 +102,39 @@ SC_BYTES = {'D3Q19': 2 * (19 * 4 + 4) + 2 * (2 * 19 * 4 + 4) + 1,
 #: reads phi and the mask byte (plus 1 orientation byte with walls)
 FE_BYTES = {'D3Q19': (19 * 4 + 4) + (2 * 2 * 19 * 4 + 4 + 1),
             'D2Q9': (9 * 4 + 4) + (2 * 2 * 9 * 4 + 4 + 1)}
+#: bytes each kernel must move per node of its main-path call, each input
+#: read once and each output written once (``bc_patch``: the state read and
+#: written, the mask byte and the 1 + dim parameter floats; the pre-pass at
+#: the Shan-Chen path's K = 2, whose time the JSON line carries)
+NODE_BYTES = {
+    'lbm_step_d3q19': BYTES['D3Q19'], 'lbm_step_d2q9': BYTES['D2Q9'],
+    'bc_patch_d3q19': 2 * 19 * 4 + 1 + 4 * 4,
+    'bc_patch_d2q9': 2 * 9 * 4 + 1 + 3 * 4,
+    'rho_poststream_d3q19': 2 * (19 * 4 + 4),
+    'rho_poststream_d2q9': 2 * (9 * 4 + 4),
+    'sc_multi_d3q19': 2 * 2 * 19 * 4 + 2 * 4 + 1,
+    'sc_multi_d2q9': 2 * 2 * 9 * 4 + 2 * 4 + 1,
+    'fe_step_d3q19': 2 * 2 * 19 * 4 + 4 + 1,
+    'fe_step_d2q9': 2 * 2 * 9 * 4 + 4 + 1,
+}
+#: fp32 operations per node, an upper estimate read off each kernel's
+#: source (BGK: ~23 per direction for the moments, feq and relaxation; the
+#: native-BC chain ~60 per direction; the pre-pass one add per direction
+#: and component; Shan-Chen two BGK components plus the force stencil; the
+#: free-energy step ~40 per direction and component). Against 67 TFLOP/s
+#: each stays below 0.4 of its kernel's byte time: the bytes bound every
+#: kernel.
+NODE_OPS = {
+    'lbm_step_d3q19': 23 * 19, 'lbm_step_d2q9': 23 * 9,
+    'bc_patch_d3q19': 60 * 19, 'bc_patch_d2q9': 60 * 9,
+    'rho_poststream_d3q19': 2 * 19, 'rho_poststream_d2q9': 2 * 9,
+    'sc_multi_d3q19': 2 * (23 * 19 + 6 * 19),
+    'sc_multi_d2q9': 2 * (23 * 9 + 4 * 9),
+    'fe_step_d3q19': 2 * 40 * 19, 'fe_step_d2q9': 2 * 40 * 9,
+}
+#: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
 #: kernel name -> (source, the TPU kernel it replaces)
 KERNELS = {
     'lbm_step_d3q19': ('lbm_step.cu', 'sailfish_tpu/ops/pallas_step.py:812'),
@@ -105,7 +147,17 @@ KERNELS = {
     'sc_multi_d2q9': ('sc_multi.cu', 'sailfish_tpu/ops/pallas_multi2d.py:91'),
     'fe_step_d3q19': ('fe_step.cu', 'sailfish_tpu/ops/pallas_multi3d.py:820'),
     'fe_step_d2q9': ('fe_step.cu', 'sailfish_tpu/ops/pallas_multi2d.py:756'),
+    'bc_patch_d3q19': ('bc_patch.cu', 'sailfish_tpu/ops/pallas_step.py:2197'),
+    'bc_patch_d2q9': ('bc_patch.cu',
+                      'sailfish_tpu/ops/pallas_step2d.py:900'),
 }
+#: the parabolic-inlet channels (regularized velocity inlet, density
+#: outlet): the main paths of the patch kernel
+CHANNEL_3D = channel_sim('regularized', profile='parabolic')
+CHANNEL_2D = channel_sim_2d('regularized')
+#: inlet macro velocity vs the prescribed profile (the BC sets it; fp32
+#: rounding of the profile is ~2e-9)
+INLET_TOL = 1e-6
 CSRC = 'sailfish_tpu_torch/ops/csrc/'
 DEVICE = 'cuda'
 
@@ -135,6 +187,57 @@ def compare(name, sim_cls, steps=200, **cfg):
         f'mask codes {codes}, wet max|df| = {err:.3e} (tol {TOL:g})')
     assert np.isfinite(err) and err <= TOL, err
     return r.sim.grid.name, err
+
+
+def patch_reference_step(ks, f):
+    """One step of the plain versions: ``step_reference``, then the patch
+    rows from ``bc_patch_reference``."""
+    out = ls.step_reference(f, ks.mask, ks.table, ks.grid, ks.tau_inv)
+    out[:, ks.patch.rows.long()] = ks.patch.reference(f)
+    return out
+
+
+def patch_wet(ks):
+    """Wet nodes of a scene with patch rows: the main mask's codes 0 and
+    3+, and on the patch rows the patch mask's."""
+    wet = (ks.mask == 0) | (ks.mask >= 3)
+    m = ks.patch.mask_rows
+    wet[ks.patch.rows.long()] = (m == 0) | (m >= 3)
+    return wet
+
+
+def patch_errors(ks, f0, steps):
+    """Wet-node max |df| of ``lbm_step`` + ``bc_patch`` against their plain
+    versions after ``steps`` steps from ``f0``."""
+    fk = ks.run(f0, steps)
+    fr = f0
+    for _ in range(steps):
+        fr = patch_reference_step(ks, fr)
+    util.synchronize(DEVICE)
+    err = float((fk - fr)[:, patch_wet(ks)].abs().max())
+    assert np.isfinite(err) and err <= TOL, err
+    return err
+
+
+def patch_compare(name, sim_cls, steps=200, **cfg):
+    """The two kernels vs their plain versions on the card from one random
+    state, on a channel with a block of excluded nodes and a thinned
+    patch row (every mask code in both kernels)."""
+    r = run(with_patch_row_mix(with_keep_block(sim_cls)), platform=DEVICE,
+            engine='kernel', max_iters=0, **cfg)
+    ks = r.kernel
+    codes = sorted(torch.unique(ks.patch.mask_rows).tolist())
+    assert codes[:4] == [0, 1, 2, 3], codes
+    f0 = random_feq(ks.grid, ks.shape, seed=1234, device=DEVICE)
+    err = patch_errors(ks, f0, steps)
+    assert ks.launches == ks.patch.launches == steps
+    grid = ks.grid.name
+    say(f'compare {name}: {grid} {ks.shape}, patch rows '
+        f'{ks.patch.rows.tolist()} with codes {codes}, {steps} steps of '
+        f'lbm_step + bc_patch, wet max|df| = {err:.3e} (tol {TOL:g})')
+    del r, ks, f0
+    torch.cuda.empty_cache()
+    return grid, err
 
 
 def golden(scene, sim_cls, golden_name=None, **cfg):
@@ -326,6 +429,97 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     del r, ks, a, b
     torch.cuda.empty_cache()
     return grid, result
+
+
+def channel_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
+    """A parabolic-inlet channel through the controller with the default
+    engine: the main path of the patch kernel, two launches per step. The
+    launch counts are zeroed just before the controller runs and read just
+    after. Checks: finite fields, the inlet macro velocity equal to the
+    prescribed profile, the mean wet density within 1 % of 1 and no wet
+    speed above 0.1, and 10 steps from the final state against the plain
+    versions; then ``bc_patch`` is timed alone against its plain version,
+    and a whole step against ``lbm_step`` alone (the patch kernel and its
+    launch gap)."""
+    dim = len(size)
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    if dim == 3:
+        cfg['periodic_x'] = True
+    steps = chunk * chunks
+    ls.reset_launch_counts()
+    bp.reset_launch_counts()
+    r = run(sim_cls, max_iters=steps, every=chunk, **cfg)
+    counts = {**ls.LAUNCHES, **bp.LAUNCHES}
+    assert r.engine == 'kernel', r.engine
+    ks, patch = r.kernel, r.kernel.patch
+    assert counts[ks.name] == counts[patch.name] == steps \
+        == r.sim.iteration, (counts, steps)
+    assert sum(counts.values()) == 2 * steps, counts
+    assert ks.launches == patch.launches == steps
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    comps = r.sim.velocity_components()
+    for name, arr in [('rho', r.sim.rho)] + list(zip('xyz', comps)):
+        assert arr.shape == shape and np.all(np.isfinite(arr)), name
+    # the inlet: the low face of the flow axis (z in 3D, y in 2D), the
+    # profile across y (3D) or x (2D)
+    tm = r.maps.type_map
+    inlet = tm == patch.table[0].type_id
+    cross = np.indices(shape)[-2 if dim == 3 else -1]
+    prof = parabolic_profile(cross, shape[-2 if dim == 3 else -1])
+    inlet_err = max(float(np.abs(comps[dim - 1][inlet] - prof[inlet]).max()),
+                    max(float(np.abs(c[inlet]).max())
+                        for c in comps[:dim - 1]))
+    assert inlet_err <= INLET_TOL, inlet_err
+    wet = wet_map(r.maps)
+    mean_rho = float(np.mean(r.sim.rho[wet]))
+    speed = float(np.sqrt(sum(c[wet] ** 2 for c in comps)).max())
+    assert abs(mean_rho - 1.0) < 0.01, mean_rho
+    assert speed <= 0.1, speed
+    grid = ks.grid.name
+    mlups = statistics.median(r.mlups_history[1:])
+    eff = mlups * 1e6 * BYTES[grid]
+    say(f'main path {scene} {"x".join(map(str, size))} ({grid}, engine '
+        f'{r.engine}): {counts[ks.name]} {ks.name} + {counts[patch.name]} '
+        f'{patch.name} launches, patch rows {patch.rows.tolist()}; MLUPS per '
+        f'{chunk}-step chunk {[round(m, 1) for m in r.mlups_history]}; '
+        f'median {mlups:.1f} MLUPS; {eff / 1e9:.1f} GB/s effective '
+        f'({BYTES[grid]} B/node), {eff / copy_bw:.3f} of the copy '
+        f'bandwidth; inlet max|u - profile| = {inlet_err:.2e} (tol '
+        f'{INLET_TOL:g}), mean wet rho {mean_rho:.6f}, max wet |u| '
+        f'{speed:.4f}')
+    err = patch_errors(ks, r.f.clone(), 10)
+    say(f'compare main path {scene}: 10 steps from the state after '
+        f'{steps}, wet max|df| = {err:.3e} (tol {TOL:g})')
+    a, b = ks.a, ks.b
+    ms = util.cuda_time_ms(lambda: patch.step_into(a, b), 200, warmup=10)
+    plain_ms = util.cuda_time_ms(lambda: patch.reference(a), 10)
+    step_ms = util.cuda_time_ms(lambda: ks.step_into(a, b), 100, warmup=5)
+    lbm_ms = util.cuda_time_ms(lambda: ks._launch(a, b), 100, warmup=5)
+    share = (step_ms - lbm_ms) / step_ms
+    nodes = int(patch.mask_rows.numel())
+    say(f'kernel {patch.name} at {len(patch.rows)} row(s) of '
+        f'{"x".join(map(str, size))} ({nodes} nodes): {ms:.4f} ms per '
+        f'launch; bc_patch_reference {plain_ms:.3f} ms; a whole step '
+        f'{step_ms:.4f} ms, lbm_step alone {lbm_ms:.4f} ms: the patch kernel '
+        f'and its launch gap are {share:.4f} of a step')
+    result = dict(launches=counts[patch.name], ms=ms, plain_ms=plain_ms,
+                  err=err, nodes=nodes, extra_bytes=4 * len(patch.rows),
+                  mlups=mlups, step_ms=step_ms, lbm_ms=lbm_ms,
+                  lbm_launches=counts[ks.name])
+    del r, ks, patch, a, b
+    torch.cuda.empty_cache()
+    return grid, result
+
+
+def bound_ms(name, nodes, extra_bytes=0):
+    """(least milliseconds the card could take for the kernel's work on
+    ``nodes`` nodes, 'bytes' or 'operations'): the larger of the bytes
+    over the HBM rate and the fp32 operations over the fp32 peak."""
+    t_bytes = (nodes * NODE_BYTES[name] + extra_bytes) / PEAK_BYTES
+    t_ops = nodes * NODE_OPS[name] / PEAK_FP32
+    return (1e3 * max(t_bytes, t_ops),
+            'bytes' if t_bytes >= t_ops else 'operations')
 
 
 def sc_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
@@ -557,7 +751,7 @@ def main():
     say(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
 
-    sources = ['lbm_step', 'sc_multi', 'fe_step']
+    sources = ['lbm_step', 'bc_patch', 'sc_multi', 'fe_step']
     for name, lib in build.load_all(sources).items():
         say(f'build {name}: {lib.path.name} in {lib.seconds:.1f} s '
             '(0 = cached)')
@@ -580,6 +774,15 @@ def main():
             ('ldc_2d', LDC_2D, dict(lat_nx=1024, lat_ny=1024))):
         grid, err = compare(name, sim_cls, **cfg)
         note(f'lbm_step_{grid.lower()}', err)
+    for pair in sorted(BC_PAIRS):
+        for dim, sim_cls, cfg in (
+                (3, channel_sim(pair, profile='parabolic'),
+                 dict(lat_nx=128, lat_ny=64, lat_nz=64, periodic_x=True)),
+                (2, channel_sim_2d(pair), dict(lat_nx=1024, lat_ny=1024))):
+            grid, err = patch_compare(f'parabolic_{pair}_{dim}d', sim_cls,
+                                      **cfg)
+            note(f'lbm_step_{grid.lower()}', err)
+            note(f'bc_patch_{grid.lower()}', err)
     cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, sim_cls, cfg in (
             ('sc_separation_2d', SEP_2D, dict(lat_nx=1024, lat_ny=1024)),
@@ -625,6 +828,18 @@ def main():
                                  ('ldc_2d', LDC_2D, (4096, 4096))):
         grid, res = main_path(scene, sim_cls, size, copy_bw)
         results[f'lbm_step_{grid.lower()}'] = res
+    for scene, sim_cls, size in (
+            ('parabolic_inlet_3d', CHANNEL_3D, (256, 256, 256)),
+            ('parabolic_inlet_2d', CHANNEL_2D, (4096, 4096))):
+        grid, res = channel_main_path(scene, sim_cls, size, copy_bw)
+        name = f'lbm_step_{grid.lower()}'
+        results[name] = dict(results[name], launches=results[name][
+            'launches'] + res['lbm_launches'])
+        results[f'bc_patch_{grid.lower()}'] = res
+        ldc = results[name]['mlups']
+        say(f'{scene}: {res["mlups"]:.1f} MLUPS against {ldc:.1f} on the '
+            f'lid-driven cavity of the same size: '
+            f'{res["mlups"] / ldc - 1.0:+.4f}')
     for scene, sim_cls, size in (('sc_separation_3d', SEP_3D,
                                   (256, 256, 256)),
                                  ('sc_separation_2d', SEP_2D, (4096, 4096))):
@@ -658,10 +873,15 @@ def main():
         res = results[name]
         assert res['launches'] > 0, name
         note(name, res['err'])
+        nodes = res.get('nodes', 256 ** 3 if 'd3q19' in name else 4096 ** 2)
+        bound, bound_by = bound_ms(name, nodes, res.get('extra_bytes', 0))
+        say(f'kernel {name}: {res["ms"]:.4f} ms against a bound of '
+            f'{bound:.4f} ms ({bound_by}): {bound / res["ms"]:.3f} of it')
         kernels.append(dict(name=name, route='cuda', source=CSRC + src,
                             replaces=replaces, launches=res['launches'],
                             max_abs_err=errs[name], ms=res['ms'],
-                            plain_ms=res['plain_ms']))
+                            plain_ms=res['plain_ms'], bound_ms=bound,
+                            bound_by=bound_by, library_ms=None))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -7,11 +7,11 @@ PyTorch tensor code (the "torch" engine, the port's semantics reference on
 every device) or through hand-written CUDA kernels for Hopper (the
 "kernel" engine, ``ops/lbm_step.py``).
 
-The numpy-only scene modules of the JAX package (``lattice``,
-``node_type``, ``subdomain``, ``geo``, ``io``, ``profile``,
-``models/base``) are imported, not copied, so both packages share one
-node-type catalog, one lattice direction order and one output format.
-Nothing here imports jax.
+The scene modules (``lattice``, ``node_type``, ``subdomain``, ``geo``,
+``config``, ``io``, ``util``, ``profile``, ``models/*``) are the port's
+own copies of the JAX package's: the node-type ids, the lattice direction
+order and the output and checkpoint formats are the same in both
+packages, but nothing here imports jax or the JAX package.
 """
 
 __version__ = '0.1.0'

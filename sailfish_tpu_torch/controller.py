@@ -3,7 +3,8 @@
 Port of ``sailfish_tpu/controller.py:40-276`` with the same flags and the
 same override order (rc files -> class ``update_defaults`` -> script
 ``default_config`` -> command line). ``--engine`` takes auto|torch|kernel
-and ``--platform`` cpu|cuda (empty: CUDA when torch sees a device). The
+and ``--platform`` cpu|cuda (empty: CUDA; without a visible CUDA device
+that raises and names ``--platform=cpu``). The
 JAX-specific set-up (jax config, x64, compile cache, ``--cluster``
 bootstrap) has no counterpart; ``--cluster`` and ``--mode=visualization``
 raise until they are ported.
@@ -15,7 +16,7 @@ import sys
 
 import numpy as np
 
-from sailfish_tpu import geo as geo_mod
+from sailfish_tpu_torch import geo as geo_mod
 from sailfish_tpu_torch import io as sio
 from sailfish_tpu_torch import util
 from sailfish_tpu_torch.config import LBConfigParser
@@ -103,8 +104,8 @@ class LBSimulationController:
                            'on the CPU')
         group.add_argument('--platform', type=str, default='',
                            choices=['', 'cpu', 'cuda'],
-                           help='device to run on; empty = CUDA when '
-                           'torch sees a device, else the CPU')
+                           help='device to run on; empty = CUDA (the '
+                           'CPU runs only when asked for)')
 
         group = self.config_parser.add_group('Cluster')
         group.add_argument('--cluster', action='store_true', default=False,

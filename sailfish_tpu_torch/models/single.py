@@ -1,11 +1,11 @@
 """Single-fluid models of the port (``LBFluidSim``).
 
-The JAX package's ``LBFluidSim`` (``sailfish_tpu/models/single.py:17-153``)
-is numpy-only at import time: its options, fields and host-side field
-plumbing are reused by subclassing. The port replaces the three methods
-that touch device arrays: the initial state, the device -> host field copy
-and the step builder. The other sim classes (entropic, free surface, IBM,
-Shan-Chen) are still to be ported.
+The host-side code of the JAX package's ``LBFluidSim``
+(``sailfish_tpu/models/single.py:17-153``: options, fields, host field
+plumbing) merged with the three methods that touch device arrays: the
+initial state, the device -> host field copy and the step builder. The
+other sim classes (entropic, free surface, IBM, Shan-Chen) are still to
+be ported.
 """
 
 from __future__ import annotations
@@ -13,12 +13,94 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sailfish_tpu.models import single as _single
-from sailfish_tpu.models.base import LBForcedSim
+from sailfish_tpu_torch import lattice
+from sailfish_tpu_torch.models.base import LBForcedSim, LBSim, \
+    ScalarField, VectorField
 
 
-class LBFluidSim(_single.LBFluidSim):
-    """Single-phase fluid on torch tensors."""
+class LBFluidSim(LBSim):
+    """Single-phase fluid on torch tensors (reference
+    lb_single.py:14-200)."""
+
+    kernel_id = 'fluid'
+
+    @classmethod
+    def add_options(cls, group, dim):
+        group.add_argument('--visc', type=float, default=1.0 / 6.0,
+                           help='numerical viscosity')
+        group.add_argument('--model', type=str, default='bgk',
+                           choices=['bgk', 'mrt', 'trt', 'elbm'],
+                           help='relaxation model')
+        group.add_argument('--subgrid', type=str, default=None,
+                           choices=[None, 'none', 'les-smagorinsky'],
+                           help='subgrid turbulence model')
+        group.add_argument('--smagorinsky_const', type=float, default=0.03,
+                           help='Smagorinsky constant')
+        group.add_argument('--regularized', action='store_true',
+                           default=False,
+                           help='regularized dynamics (filter ghost moments)')
+        group.add_argument('--incompressible', action='store_true',
+                           default=False,
+                           help='incompressible (rho0=1) equilibrium')
+        group.add_argument('--minimize_roundoff', action='store_true',
+                           default=False,
+                           help='store f - w (shifted populations)')
+        group.add_argument('--entropic_equilibrium', action='store_true',
+                           default=False,
+                           help='use the product-form (entropic) '
+                           'equilibrium instead of the standard LBGK '
+                           'one (reference lb_single.py:31-34)')
+        group.add_argument('--entropy_tolerance', type=float,
+                           default=0.0,
+                           help='ELBM: entropy changes below this are '
+                           'treated as constant (Newton stop); 0.0 '
+                           'selects a precision-dependent default '
+                           '(1e-6 single / 1e-10 double)')
+        group.add_argument('--alpha_tolerance', type=float,
+                           default=1e-10,
+                           help='ELBM: alpha stagnation tolerance '
+                           'ending the Newton iteration')
+
+    @classmethod
+    def fields(cls):
+        return [ScalarField('rho'), VectorField('v')]
+
+    def __init__(self, config):
+        super().__init__(config)
+        grid_name = getattr(config, 'grid', None) or \
+            ('D2Q9' if self.dim == 2 else 'D3Q19')
+        self.grid = lattice.get_grid(grid_name)
+        assert self.grid.dim == self.dim, \
+            f'grid {grid_name} does not match dim {self.dim}'
+        self.grids = [self.grid]
+
+    @property
+    def dim(self):
+        return self.subdomain.dim
+
+    # -- field plumbing (runner attaches numpy arrays) -----------------------
+
+    def init_fields(self, shape):
+        """Allocate host-side field arrays for initial_conditions.
+
+        shape: (gy, gx) or (gz, gy, gx). Exposes sim.rho / sim.vx / sim.vy
+        (/ sim.vz) exactly like the reference (lb_base.py:139)."""
+        self.rho = np.ones(shape, dtype=np.float64)
+        self.vx = np.zeros(shape, dtype=np.float64)
+        self.vy = np.zeros(shape, dtype=np.float64)
+        if self.dim == 3:
+            self.vz = np.zeros(shape, dtype=np.float64)
+
+    def velocity_components(self):
+        comps = [self.vx, self.vy]
+        if self.dim == 3:
+            comps.append(self.vz)
+        return comps
+
+    def host_fields(self):
+        """Name -> host array (or component list for vectors); the output
+        writer's field registry."""
+        return {'rho': self.rho, 'v': self.velocity_components()}
 
     def make_initial_state(self, builder, dtype):
         """Equilibrium at the user-set (rho, u), on the builder's device."""
@@ -34,6 +116,10 @@ class LBFluidSim(_single.LBFluidSim):
         comps = self.velocity_components()
         for a in range(self.dim):
             comps[a][...] = u[a].detach().cpu().numpy().astype(np.float64)
+
+    def step_builder_kwargs(self):
+        """Extra StepBuilder arguments contributed by model subclasses."""
+        return {}
 
     def make_step_builder(self, maps, dtype, device):
         from sailfish_tpu_torch.ops.step import StepBuilder

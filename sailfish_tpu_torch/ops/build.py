@@ -2,10 +2,10 @@
 
 Each ``ops/csrc/*.cu`` source has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
-first use, keyed by a hash of the source and the flags, and loaded with
-``ctypes``; ``load_all`` compiles several sources in parallel. Nothing
-CUDA-specific happens at import: a machine without ``nvcc`` imports this
-module and fails only when a kernel is asked for.
+first use, keyed by a hash of the source, its headers and the flags, and
+loaded with ``ctypes``; ``load_all`` compiles several sources in parallel.
+Nothing CUDA-specific happens at import: a machine without ``nvcc``
+imports this module and fails only when a kernel is asked for.
 """
 
 from __future__ import annotations
@@ -77,15 +77,21 @@ def load_all(names):
 def build_library(src):
     """Compile the CUDA source ``src`` with ``NVCC_FLAGS`` into
     ``build/kernels/lib<stem>_<hash>.so`` unless that file exists (the
-    hash covers the source text and the flags), and load it."""
+    hash covers the source text, the headers beside it and the flags), and
+    load it."""
     return _finish_build(*_start_build(src))
 
 
 def _start_build(src):
-    """(src, out, running nvcc process or None when built, start time)."""
+    """(src, out, running nvcc process or None when built, start time).
+    The build key hashes the source, every header beside it (``*.cuh``,
+    which a source may include) and the flags."""
     src = Path(src)
+    headers = b''.join(h.read_bytes()
+                       for h in sorted(src.parent.glob('*.cuh')))
     digest = hashlib.sha256(
-        src.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers
+        + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f'lib{src.stem}_{digest}.so'
     if out.exists():
         return src, out, None, 0.0

@@ -38,7 +38,7 @@
 // every step.
 //
 // State layout: (2, Q, nz, ny, nx) fp32, standard direction order of
-// sailfish_tpu.lattice; phi (nz, ny, nx) fp32; mask and orientation maps
+// sailfish_tpu_torch.lattice; phi (nz, ny, nx) fp32; mask and orientation maps
 // (nz, ny, nx) uint8. Lattice tables, free-energy weights, the MRT rows of
 // M and columns of M^-1, relaxation times and forces arrive by value in
 // FEParams, filled from the Python side, so the direction order has a

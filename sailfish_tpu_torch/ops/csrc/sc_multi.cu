@@ -35,7 +35,7 @@
 // wrapper's path with emit_rho off, pallas_multi3d.py:1696-1698).
 //
 // State layout: (K, Q, nz, ny, nx) fp32, standard direction order of
-// sailfish_tpu.lattice; densities (K, nz, ny, nx). Lattice tables,
+// sailfish_tpu_torch.lattice; densities (K, nz, ny, nx). Lattice tables,
 // relaxation times and couplings arrive by value in SCParams, filled from
 // the Python lattice, so the direction order has a single source. The
 // host swaps A and B every step (a pull step in place would race).

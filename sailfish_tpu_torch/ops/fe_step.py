@@ -123,7 +123,7 @@ class _Params(ctypes.Structure):
 
 def kernel_params(builder, shape, wetting):
     """The step kernel's by-value parameter block: domain extents, the
-    lattice tables of ``sailfish_tpu.lattice``, the free-energy weights,
+    lattice tables of ``sailfish_tpu_torch.lattice``, the free-energy weights,
     the FE-MRT rows of M and columns of M^-1, and the builder's
     constants, body force and equilibrium-velocity offsets."""
     g = builder.grid

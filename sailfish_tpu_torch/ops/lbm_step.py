@@ -1,11 +1,14 @@
-"""The kernel engine: one fused stream-and-collide CUDA kernel per step.
+"""The kernel engine: one fused stream-and-collide CUDA kernel per step,
+and a patch-row kernel after it where native BCs have spatially varying
+parameters.
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
 (``PallasStep2D``, ``make_kernel_2d``) in their mask + in-kernel native-BC
 (``kbc``) modes. The kernel itself is ``csrc/lbm_step.cu``; this module
-classifies the nodes into kernel mask codes, builds the BC table, checks
-that a scene is eligible, and wraps the launch.
+classifies the nodes into kernel mask codes, routes the native-BC
+instances between its BC table and the patch kernel (``ops/bc_patch.py``),
+checks that a scene is eligible, and wraps the launches.
 
 Beside the wrapper lives ``step_reference``: the same function (state,
 mask codes, BC table in; next state out) as plain PyTorch. The tests use
@@ -23,9 +26,11 @@ import torch
 
 from sailfish_tpu_torch import equilibrium as eq
 from sailfish_tpu_torch import node_type as nt
+from sailfish_tpu_torch.ops import bc_patch
 from sailfish_tpu_torch.ops import step as st
 
-#: limits of the C parameter block (csrc/lbm_step.cu LBM_MAX_Q, LBM_MAX_BC)
+#: limits of the C parameter block (csrc/lbm_common.cuh LBM_MAX_Q,
+#: LBM_MAX_BC)
 MAX_Q = 27
 MAX_BC = 16
 #: CUDA grid y/z extent limit (one block row per (y, z))
@@ -42,7 +47,8 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-#: node type -> BC kind of csrc/lbm_step.cu (even: velocity, odd: density)
+#: node type -> BC kind of csrc/lbm_common.cuh (even: velocity, odd:
+#: density)
 BC_KINDS = {
     nt.NTEquilibriumVelocity: 0, nt.NTEquilibriumDensity: 1,
     nt.NTZouHeVelocity: 2, nt.NTZouHeDensity: 3,
@@ -95,27 +101,20 @@ def classify_nodes(maps):
 
 
 def bc_table(maps, instances):
-    """(rows, reasons): one ``BCRow`` per instance when its prescribed
-    parameters are uniform over its nodes (the ``kbc_instance_spec`` test,
-    ``pallas_step.py:2526-2549``); spatially varying ones are reasons."""
-    rows, reasons = [], []
+    """One ``BCRow`` per instance, holding its prescribed parameters at its
+    first node: the parameters of a uniform instance (``bc_patch.route``
+    sends the others to the patch kernel, which reads them per node)."""
+    rows = []
     for tid, k, sel in instances:
         cls = nt.get_node_type(tid)
         rho, vel = 1.0, [0.0, 0.0, 0.0]
         if 'velocity' in cls.param_names:
             for a in range(maps.param_vel.shape[0]):
-                vals = np.unique(maps.param_vel[a][sel])
-                if vals.size > 1:
-                    reasons.append(f'spatially varying {cls.__name__} '
-                                   'velocity')
-                vel[a] = float(vals[0])
+                vel[a] = float(maps.param_vel[a][sel][0])
         else:
-            vals = np.unique(maps.param_rho[sel])
-            if vals.size > 1:
-                reasons.append(f'spatially varying {cls.__name__} density')
-            rho = float(vals[0])
+            rho = float(maps.param_rho[sel][0])
         rows.append(BCRow(tid, k, rho, tuple(vel)))
-    return rows, reasons
+    return rows
 
 
 def kernel_ineligibility(builder):
@@ -134,9 +133,10 @@ def kernel_ineligibility(builder):
     if any(s > MAX_GRID_YZ for s in shape[:-1]):
         reasons.append(f'domain {shape}: y and z extents above '
                        f'{MAX_GRID_YZ}')
-    _mask, instances, why = classify_nodes(builder.maps)
+    mask, instances, why = classify_nodes(builder.maps)
     reasons += why
-    reasons += bc_table(builder.maps, instances)[1]
+    if not why:
+        reasons += bc_patch.route(builder.maps, mask, instances).reasons
     return reasons
 
 
@@ -180,7 +180,7 @@ class _Params(ctypes.Structure):
 
 def kernel_params(grid, shape, table, tau_inv):
     """The kernel's by-value parameter block: domain extents, the lattice
-    tables of ``sailfish_tpu.lattice`` and the BC table."""
+    tables of ``sailfish_tpu_torch.lattice`` and the BC table."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
     p.nx, p.ny, p.nz = nx, ny, nz
@@ -210,7 +210,7 @@ def kernel_function(lib, name):
     lib.lbm_params_size.restype = ctypes.c_int
     if lib.lbm_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError('LBMParams layout differs between '
-                           'csrc/lbm_step.cu and ops/lbm_step.py')
+                           'csrc/lbm_common.cuh and ops/lbm_step.py')
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.POINTER(_Params), ctypes.c_void_p]
@@ -220,8 +220,10 @@ def kernel_function(lib, name):
 
 class KernelStep:
     """The kernel engine for one scene: two state buffers A and B swapped
-    every step, the uint8 mask, the BC table, and ``launches``, the number
-    of kernel launches this object has made."""
+    every step, the uint8 mask, the BC table of the uniform native-BC
+    instances, ``patch`` (a ``bc_patch.BCPatch`` for the rows of the
+    spatially varying ones, or None) and ``launches``, the number of
+    ``lbm_step`` launches this object has made."""
 
     def __init__(self, builder):
         reasons = kernel_ineligibility(builder)
@@ -231,11 +233,22 @@ class KernelStep:
                 + '; '.join(reasons))
         self.grid = builder.grid
         self.tau_inv = builder.tau_inv
-        mask_np, instances, _ = classify_nodes(builder.maps)
-        self.table = bc_table(builder.maps, instances)[0]
+        maps = builder.maps
+        mask_np, instances, _ = classify_nodes(maps)
+        route = bc_patch.route(maps, mask_np, instances)
+        self.table = bc_table(maps, [instances[j] for j in route.uniform])
         self.shape = mask_np.shape
         self.device = builder.device
-        self.mask = torch.as_tensor(mask_np, device=self.device)
+        self.mask = torch.as_tensor(route.mask, device=self.device)
+        self.patch = None
+        if route.patch:
+            table = bc_table(maps, [instances[j] for j in route.patch])
+            self.patch = bc_patch.BCPatch(
+                self.grid, route,
+                bc_patch.param_planes(maps, route.rows, self.grid.dim),
+                table, kernel_params(self.grid, self.shape, table,
+                                     self.tau_inv),
+                self.tau_inv, self.device)
         full = (self.grid.Q,) + self.shape
         self.a = torch.empty(full, dtype=torch.float32, device=self.device)
         self.b = torch.empty_like(self.a)
@@ -248,7 +261,8 @@ class KernelStep:
     def step_into(self, src, dst):
         """One step from ``src`` into ``dst`` (distinct (Q, *S) fp32
         buffers on the mask's device). On a CUDA tensor this launches the
-        kernel; on a CPU tensor it runs ``step_reference``."""
+        kernel, then the patch kernel on the same stream; on a CPU tensor
+        it runs ``step_reference``, then ``bc_patch_reference``."""
         full = (self.grid.Q,) + self.shape
         for t in (src, dst):
             if t.dtype != torch.float32 or tuple(t.shape) != full:
@@ -264,7 +278,12 @@ class KernelStep:
         if src.device.type == 'cpu':
             dst.copy_(step_reference(src, self.mask, self.table, self.grid,
                                      self.tau_inv))
-            return
+        else:
+            self._launch(src, dst)
+        if self.patch is not None:
+            self.patch.step_into(src, dst)
+
+    def _launch(self, src, dst):
         if src.device.type != 'cuda':
             raise ValueError(f'no kernel for device {src.device}')
         if self._fn is None:

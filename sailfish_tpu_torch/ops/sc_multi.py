@@ -128,7 +128,7 @@ class _Params(ctypes.Structure):
 
 def kernel_params(grid, shape, taus, couplings, potential):
     """The kernels' by-value parameter block: domain extents, the lattice
-    tables of ``sailfish_tpu.lattice``, the relaxation times and the
+    tables of ``sailfish_tpu_torch.lattice``, the relaxation times and the
     couplings."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)

@@ -4,7 +4,7 @@ main loop.
 Port of a subset of ``sailfish_tpu/runner.py`` (``SubdomainRunner``): one
 device, one whole-domain state (a tensor, or a K-tuple of tensors for the
 multi-component models), a chunked main loop with the same MLUPS /
-``TimingInfo`` accounting, npz output through the reused writers and
+``TimingInfo`` accounting, npz output through the port's writers and
 checkpoints in the JAX package's npz layout (``dist0a`` ...
 ``dist{K-1}a``, ``state``, ``sim_state``), so a JAX checkpoint restores
 here and back.
@@ -30,10 +30,10 @@ import time
 import numpy as np
 import torch
 
-from sailfish_tpu import io as sio
-from sailfish_tpu.profile import TimeProfile
-from sailfish_tpu_torch import util
+from sailfish_tpu_torch import io as sio
 from sailfish_tpu_torch import state as st
+from sailfish_tpu_torch import util
+from sailfish_tpu_torch.profile import TimeProfile
 
 
 class SubdomainRunner:

@@ -2,11 +2,12 @@
 the port.
 
 Both sides use the (Q, *S) layout in the standard direction order of
-``sailfish_tpu.lattice``, so a state from a JAX run or checkpoint carries
-over unchanged: this is how the tests hand a JAX state to the port. A
-single-fluid state is one tensor; a K-component state is a K-tuple of
-them, stored in checkpoints as ``dist0a`` ... ``dist{K-1}a`` in component
-order, exactly as the JAX runner stores its state's pytree leaves.
+``lattice`` (identical in both packages), so a state from a JAX run or
+checkpoint carries over unchanged: this is how the tests hand a JAX state
+to the port. A single-fluid state is one tensor; a K-component state is
+a K-tuple of them, stored in checkpoints as ``dist0a`` ...
+``dist{K-1}a`` in component order, exactly as the JAX runner stores its
+state's pytree leaves.
 """
 
 from __future__ import annotations

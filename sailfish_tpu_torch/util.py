@@ -1,18 +1,73 @@
 """Logging, timing and device helpers of the port.
 
-The logger, quit event and timing record are the JAX package's own
-(``sailfish_tpu.util`` is numpy-only at import time). What changes is how
-a device computation is waited for: PyTorch launches asynchronously, so a
-host clock measures the work only after ``torch.cuda.synchronize()``, and
-a kernel's own time comes from CUDA events.
+The logger, quit event and timing record are copies of the numpy parts of
+``sailfish_tpu/util.py``. What changes is how a device computation is
+waited for: PyTorch launches asynchronously, so a host clock measures the
+work only after ``torch.cuda.synchronize()``, and a kernel's own time
+comes from CUDA events.
 """
 
 from __future__ import annotations
 
+import logging
+from collections import namedtuple
+
 import torch
 
-from sailfish_tpu.util import (  # noqa: F401  (re-exported)
-    SimpleEvent, TimingInfo, get_logger, reset_logger)
+TimingInfo = namedtuple('TimingInfo', ('iters', 'elapsed', 'mlups'))
+
+
+class SimpleEvent:
+    """Single-process stand-in for multiprocessing.Event (the reference's
+    quit_event; master.py:94-97)."""
+
+    def __init__(self):
+        self._flag = False
+
+    def set(self):
+        self._flag = True
+
+    def is_set(self):
+        return self._flag
+
+    def clear(self):
+        self._flag = False
+
+
+_logger = None
+
+
+def get_logger(config=None):
+    """Console+file logger (reference util.py:187-213)."""
+    global _logger
+    if _logger is not None:
+        return _logger
+    logger = logging.getLogger('sailfish_tpu_torch')
+    logger.setLevel(logging.DEBUG)
+    if not logger.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter(
+            '[%(relativeCreated)6.0f %(levelname)5s] %(message)s'))
+        logger.addHandler(handler)
+        if config is not None and getattr(config, 'log', None):
+            fh = logging.FileHandler(config.log)
+            logger.addHandler(fh)
+    if config is not None:
+        if getattr(config, 'silent', False):
+            logger.setLevel(logging.ERROR)
+        elif getattr(config, 'quiet', False):
+            logger.setLevel(logging.WARNING)
+        elif getattr(config, 'verbose', False):
+            logger.setLevel(logging.DEBUG)
+        else:
+            logger.setLevel(logging.INFO)
+    _logger = logger
+    return logger
+
+
+def reset_logger():
+    global _logger
+    _logger = None
 
 
 def synchronize(device):

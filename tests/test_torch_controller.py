@@ -5,6 +5,7 @@
   tests/examples_harness.py:149), with the harness's flags.
 * A JAX checkpoint restored by the port continues the JAX run: JAX 10
   steps + port 10 steps == JAX 20 steps within 1e-6 on wet nodes.
+  And back: a port checkpoint restored by the JAX package.
 * Engine/platform requests that cannot be met raise.
 """
 
@@ -77,6 +78,33 @@ def test_jax_checkpoint_continues_in_the_port(tmp_path):
     np.testing.assert_array_equal(saved['dist0a'], f_port)
 
 
+def test_port_checkpoint_continues_in_the_jax_package(tmp_path):
+    """The port's own checkpoint format (``io``/``runner`` copies) is the
+    JAX package's: port 10 steps + JAX 10 steps == JAX 20 steps within
+    1e-6 on wet nodes."""
+    cfg = dict(lat_nx=16, lat_ny=16, lat_nz=16, quiet=True)
+    ctrl = LBSimulationController(twin('ldc_3d'), default_config=dict(
+        platform='cpu', max_iters=10, every=10,
+        checkpoint_file=str(tmp_path / 'port'), final_checkpoint=True,
+        **cfg))
+    ctrl.run(ignore_cmdline=True)
+    (cpoint,) = glob.glob(str(tmp_path / 'port') + '*.cpoint.npz')
+    jax_sim = load_example('ldc_3d.py', 'jax_ldc_3d').LDCSim
+
+    def jax_run(**extra):
+        c = JaxController(jax_sim, default_config=dict(
+            max_iters=20, every=20, platform='cpu', **cfg, **extra))
+        c.run(ignore_cmdline=True)
+        return c._runner
+
+    restored = jax_run(restore_from=cpoint)
+    ref = jax_run()
+    assert restored.sim.iteration == 20
+    wet = wet_map(ctrl._runner.maps)
+    f, f_ref = np.asarray(restored.f), np.asarray(ref.f)
+    assert np.max(np.abs(f[:, wet] - f_ref[:, wet])) <= 1e-6
+
+
 def test_engine_auto_is_torch_on_cpu():
     ctrl = LBSimulationController(twin('ldc_2d'), default_config=dict(
         platform='cpu', max_iters=2, every=2, quiet=True, lat_nx=8,
@@ -103,9 +131,16 @@ def test_cuda_platform_without_cuda_raises(monkeypatch):
 
 
 def test_default_platform_without_cuda_is_cpu(monkeypatch):
+    """An unset --platform means CUDA: without a device it raises and
+    names --platform=cpu, and the CPU runs only when asked for."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     ctrl = LBSimulationController(twin('ldc_2d'), default_config=dict(
         max_iters=2, every=2, quiet=True, lat_nx=8, lat_ny=8))
+    with pytest.raises(RuntimeError, match='--platform=cpu'):
+        ctrl.run(ignore_cmdline=True)
+    ctrl = LBSimulationController(twin('ldc_2d'), default_config=dict(
+        platform='cpu', max_iters=2, every=2, quiet=True, lat_nx=8,
+        lat_ny=8))
     ctrl.run(ignore_cmdline=True)
     assert ctrl._runner.device.type == 'cpu'
     assert ctrl._runner.engine == 'torch'

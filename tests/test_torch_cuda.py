@@ -16,6 +16,14 @@ separation twins (a block of excluded nodes added), from seeded
 near-uniform two-component states: the density pre-pass after one launch
 (<= 1e-6) and the coupled step over 20 steps (wet-node max |df| <= 1e-5).
 
+The patch-row kernel (``ops/bc_patch``) is held against
+``bc_patch_reference`` on parabolic-inlet channels of each BC pair, 3D and
+2D (the patch row thinned so it holds every mask code): one launch into the
+rows (<= 1e-6), and 50 steps of ``lbm_step`` + ``bc_patch`` against
+``step_reference`` + ``bc_patch_reference`` (wet-node max |df| <= 1e-5).
+The channels run through the controller on the kernel engine and on the
+torch engine for 30 steps (<= 1e-5).
+
 The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
 the order parameter, then ``fe_step``) are held against ``rho_reference``
 and ``fe_step_reference`` on the five free-energy twins (a block of
@@ -27,12 +35,14 @@ launch (<= 1e-6) and 20 steps (wet-node max |df| <= 1e-5).
 import pytest
 import torch
 
+from sailfish_tpu_torch.ops import bc_patch as bp
 from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
 from torch_scenes import (BC_PAIRS, BINARY_SCENES, FE_SCENES, binary_twin,
-                          channel_sim, random_binary_state, random_fe_state,
-                          random_feq, run, twin, with_keep_block)
+                          channel_sim, channel_sim_2d, random_binary_state,
+                          random_fe_state, random_feq, run, twin,
+                          with_keep_block, with_patch_row_mix)
 
 SIZES = {
     'ldc_3d': dict(lat_nx=48, lat_ny=40, lat_nz=32),
@@ -100,6 +110,67 @@ def test_wrapper_refuses_bad_buffers(cuda):
         ks.step_into(ks.a.transpose(1, 2).contiguous().transpose(1, 2),
                      ks.b)
     assert ks.launches == 0
+
+
+PATCH_SIZES = {3: dict(lat_nx=40, lat_ny=24, lat_nz=32, periodic_x=True),
+               2: dict(lat_nx=300, lat_ny=200)}
+
+
+def _parabolic(pair, dim):
+    return (channel_sim(pair, profile='parabolic') if dim == 3
+            else channel_sim_2d(pair))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dim', [3, 2])
+@pytest.mark.parametrize('pair', sorted(BC_PAIRS))
+def test_bc_patch_matches_reference(cuda, pair, dim):
+    r = run(with_patch_row_mix(with_keep_block(_parabolic(pair, dim))),
+            platform='cuda', engine='kernel', max_iters=0,
+            **PATCH_SIZES[dim])
+    ks = r.kernel
+    patch = ks.patch
+    assert sorted(torch.unique(patch.mask_rows).tolist())[:4] == [0, 1, 2, 3]
+    grid = r.sim.grid
+    f0 = random_feq(grid, ks.shape, seed=6, device='cuda')
+    out = torch.zeros_like(f0)
+    patch.step_into(f0, out)
+    torch.cuda.synchronize()
+    assert patch.launches == 1
+    rows = patch.rows.long()
+    err = float((out[:, rows] - patch.reference(f0)).abs().max())
+    assert err <= 1e-6
+    fk = ks.run(f0, 50)
+    fr = f0
+    for _ in range(50):
+        fn = ls.step_reference(fr, ks.mask, ks.table, grid, ks.tau_inv)
+        fn[:, rows] = patch.reference(fr)
+        fr = fn
+    torch.cuda.synchronize()
+    assert ks.launches == 50 and patch.launches == 51
+    wet = (ks.mask == 0) | (ks.mask >= 3)
+    wet[rows] = (patch.mask_rows == 0) | (patch.mask_rows >= 3)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dim', [3, 2])
+def test_default_engine_on_cuda_runs_the_patch_kernel(cuda, dim):
+    ls.reset_launch_counts()
+    bp.reset_launch_counts()
+    r = run(_parabolic('regularized', dim), max_iters=30, every=10,
+            **PATCH_SIZES[dim])
+    assert r.engine == 'kernel'
+    assert ls.LAUNCHES[r.kernel.name] == bp.LAUNCHES[r.kernel.patch.name] \
+        == 30
+    ref = run(_parabolic('regularized', dim), engine='torch', max_iters=30,
+              every=10, **PATCH_SIZES[dim])
+    assert ref.engine == 'torch'
+    assert bool(torch.isfinite(r.f).all())
+    mask, patch = r.kernel.mask, r.kernel.patch
+    wet = (mask == 0) | (mask >= 3)
+    wet[patch.rows.long()] = (patch.mask_rows == 0) | (patch.mask_rows >= 3)
+    assert float((r.f - ref.f)[:, wet].abs().max()) <= 1e-5
 
 
 BINARY_SIZES = {

@@ -1,7 +1,11 @@
-"""The port imports torch and never jax.
+"""The port stands alone: it imports torch and never jax, and nothing of
+the JAX package ``sailfish_tpu``.
 
-The check runs in a subprocess: this test session has jax imported
-already (tests/conftest.py).
+The import check runs in a subprocess: the pytest process has jax and the
+JAX package imported already (tests/conftest.py). The port's own copies of
+the JAX package's scene modules keep its node-type ids, lattice tables and
+lazy parameter evaluators; the last tests hold them against the JAX
+package's.
 """
 
 import os
@@ -9,6 +13,15 @@ import pkgutil
 import re
 import subprocess
 import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sailfish_tpu import lattice as jlattice
+from sailfish_tpu import node_type as jnt
+from sailfish_tpu_torch import lattice
+from sailfish_tpu_torch import node_type as nt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,8 +53,9 @@ def test_importing_the_port_leaves_jax_out():
         'for i, path in enumerate(sys.argv[1:]):',
         "    spec = importlib.util.spec_from_file_location(f'm{i}', path)",
         '    spec.loader.exec_module(importlib.util.module_from_spec(spec))',
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-        "if m.startswith('jax'))",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'sailfish_tpu'))",
+        'assert bad == [], bad',
         'print(len(names))',
     ])
     scripts = [p for p in _port_sources()
@@ -63,14 +77,13 @@ def test_no_jax_import_statements():
 
 
 def test_scripts_reach_the_jax_package_only_through_the_port():
-    """Outside ``sailfish_tpu_torch`` itself, the port's scripts import the
-    shared numpy-only modules (node types, geometry) from the port's
-    re-exports, never from ``sailfish_tpu``."""
+    """No file of the port -- the package, its examples, tools and scripts
+    -- imports ``sailfish_tpu`` (the port keeps its own copies of the
+    scene modules)."""
     pattern = re.compile(r'^\s*(from|import)\s+sailfish_tpu(?!_torch)\b',
                          re.M)
-    port = os.path.join(REPO, 'sailfish_tpu_torch')
-    offenders = [p for p in _port_sources() if not p.startswith(port)
-                 and pattern.search(open(p).read())]
+    offenders = [p for p in _port_sources()
+                 if pattern.search(open(p).read())]
     assert offenders == []
 
 
@@ -83,8 +96,11 @@ def test_port_modules_are_packaged():
             'sailfish_tpu_torch.ops.multigrid',
             'sailfish_tpu_torch.ops.fe_step',
             'sailfish_tpu_torch.models.base',
-            'sailfish_tpu_torch.models.binary'} <= names
-    for src in ('lbm_step.cu', 'sc_multi.cu', 'fe_step.cu'):
+            'sailfish_tpu_torch.models.binary',
+            'sailfish_tpu_torch.ops.bc_patch', 'sailfish_tpu_torch.lattice',
+            'sailfish_tpu_torch.geo', 'sailfish_tpu_torch.profile'} <= names
+    for src in ('lbm_common.cuh', 'lbm_step.cu', 'bc_patch.cu',
+                'sc_multi.cu', 'fe_step.cu'):
         assert os.path.exists(os.path.join(
             os.path.dirname(sailfish_tpu_torch.__file__), 'ops', 'csrc', src))
 
@@ -96,3 +112,61 @@ def test_binary_twins_are_checked():
                      'sc_separation_3d_walls.py', 'fe_separation_2d.py',
                      'fe_separation_3d.py', 'fe_poiseuille_2d.py',
                      'fe_viscous_fingering.py', 'binary_microchannel.py'}
+
+
+def test_node_type_ids_match_the_jax_package():
+    """Node-type ids are part of the checkpoint format: the port's copy
+    registers the same classes under the same ids."""
+    ours = {i: c.__name__ for i, c in nt._NODE_TYPES.items()}
+    theirs = {i: c.__name__ for i, c in jnt._NODE_TYPES.items()}
+    assert ours == theirs
+    for i, c in nt._NODE_TYPES.items():
+        j = jnt.get_node_type(i)
+        for attr in ('wet_node', 'excluded', 'propagation_only',
+                     'needs_orientation', 'link_tags', 'param_names'):
+            assert getattr(c, attr) == getattr(j, attr), (c, attr)
+
+
+@pytest.mark.parametrize('name', sorted(jlattice.KNOWN_GRIDS))
+def test_lattice_tables_match_the_jax_package(name):
+    g, j = lattice.get_grid(name), jlattice.get_grid(name)
+    assert g.name == j.name and (g.dim, g.Q) == (j.dim, j.Q)
+    np.testing.assert_array_equal(g.basis, j.basis)
+    np.testing.assert_array_equal(g.weights, j.weights)
+    np.testing.assert_array_equal(g.opposite, j.opposite)
+    np.testing.assert_array_equal(g.orientation_vectors,
+                                  j.orientation_vectors)
+    for n in g.orientation_vectors:
+        np.testing.assert_array_equal(g.unknown_mask(n), j.unknown_mask(n))
+
+
+def test_spatial_array_matches_the_jax_package():
+    rng = np.random.default_rng(5)
+    hz, hy, hx = np.mgrid[0:3, 0:4, 0:5]
+    for values, index in ((rng.random((3, 4, 5)), 'x'),
+                          (rng.random((4, 5)), 'x'),
+                          (rng.random(4), 'y'), (rng.random(3), 'z')):
+        ours = nt.SpatialArray(values, index=index)
+        theirs = jnt.SpatialArray(values, index=index)
+        args = (2, hx, hy, hz) if ours._dyn_arity == 4 else (2, hx, hy)
+        got = ours(*args)
+        assert isinstance(got, torch.Tensor)
+        # the JAX evaluators run in fp32, the port's in fp64
+        np.testing.assert_allclose(got.numpy(), np.asarray(theirs(*args)),
+                                   rtol=1e-7)
+        ramp = (lambda t: 0.5 * t)
+        np.testing.assert_allclose(np.asarray((ours * ramp)(*args)),
+                                   np.asarray((theirs * ramp)(*args)),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(np.asarray((1.0 - ours)(*args)),
+                                   np.asarray((1.0 - theirs)(*args)),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_time_series_matches_the_jax_package():
+    data = np.array([0.0, 1.0, 4.0, 2.0])
+    ours = nt.LinearlyInterpolatedTimeSeries(data, step_size=3)
+    theirs = jnt.LinearlyInterpolatedTimeSeries(data, step_size=3)
+    for t in (0, 1, 2.5, 7, 11, 12, 13.5):
+        (fo,), (fj,) = tuple(ours), tuple(theirs)
+        np.testing.assert_allclose(float(fo(t)), float(fj(t)), rtol=1e-6)

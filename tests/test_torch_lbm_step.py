@@ -22,6 +22,7 @@ from sailfish_tpu.controller import \
     LBSimulationController as JaxController
 from sailfish_tpu.subdomain import Subdomain2D
 from sailfish_tpu_torch.models.single import LBFluidSim
+from sailfish_tpu_torch.ops import bc_patch as bp
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.state import state_to_numpy
 from torch_scenes import (BC_PAIRS, channel_sim, cpu_runner, load_example,
@@ -52,8 +53,8 @@ def test_step_reference_matches_jax_pallas_engine(scene):
     r = cpu_runner(twin(scene), **cfg)
     mask_np, instances, reasons = ls.classify_nodes(r.maps)
     assert reasons == []
-    table, reasons = ls.bc_table(r.maps, instances)
-    assert reasons == []
+    assert ls.kernel_ineligibility(r.builder) == []
+    table = ls.bc_table(r.maps, instances)
     mask = torch.from_numpy(mask_np)
     f = r.f
     for _ in range(8):
@@ -71,7 +72,7 @@ def test_ldc_classification_and_table():
     tm = r.maps.type_map
     assert np.array_equal(mask == 1, tm == nt.NTFullBBWall.id)
     assert np.array_equal(mask == 3, tm == nt.NTRegularizedVelocity.id)
-    table, reasons = ls.bc_table(r.maps, instances)
+    table = ls.bc_table(r.maps, instances)
     # lid: inward normal -z (orientation 6), u = (0.05, 0, 0)
     assert table == [ls.BCRow(nt.NTRegularizedVelocity.id, 6, 1.0,
                               (0.05, 0.0, 0.0))]
@@ -98,10 +99,15 @@ def test_keep_codes_and_uniformity():
     r = cpu_runner(Sim, lat_nx=8, lat_ny=8)
     mask, instances, reasons = ls.classify_nodes(r.maps)
     assert sorted(np.unique(mask)) == [0, 1, 2, 3]
-    _table, reasons = ls.bc_table(r.maps, instances)
-    assert reasons == ['spatially varying NTZouHeVelocity velocity']
-    with pytest.raises(NotImplementedError, match='spatially varying'):
-        ls.KernelStep(r.builder)
+    (tid, _k, sel), = instances
+    assert bp.varying_params(r.maps, tid, sel) == [
+        'spatially varying NTZouHeVelocity velocity']
+    # the varying instance runs on the patch kernel (its row, y = 7);
+    # the main kernel keeps its nodes (code 2) and has no BC table
+    ks = ls.KernelStep(r.builder)
+    assert ks.table == [] and ks.patch.rows.tolist() == [7]
+    assert sorted(np.unique(ks.mask.numpy())) == [0, 1, 2]
+    assert np.array_equal(ks.patch.mask_rows.numpy()[0], mask[7])
 
 
 @pytest.mark.parametrize('cfg,match', [
@@ -144,8 +150,9 @@ def test_step_reference_matches_torch_engine(pair, axis):
                    lat_ny=12, lat_nz=12)
     mask_np, instances, reasons = ls.classify_nodes(r.maps)
     assert reasons == [] and sorted(np.unique(mask_np)) == [0, 1, 2, 3, 4]
-    table, reasons = ls.bc_table(r.maps, instances)
-    assert reasons == []
+    assert not any(bp.varying_params(r.maps, t, sel)
+                   for t, _k, sel in instances)
+    table = ls.bc_table(r.maps, instances)
     mask = torch.from_numpy(mask_np)
     f = ft = random_feq(r.sim.grid, mask_np.shape, seed=7, device='cpu')
     step = r.builder.build()

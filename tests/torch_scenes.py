@@ -17,7 +17,7 @@ from sailfish_tpu_torch import equilibrium as teq
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.controller import LBSimulationController
 from sailfish_tpu_torch.models.single import LBFluidSim
-from sailfish_tpu_torch.subdomain import Subdomain3D
+from sailfish_tpu_torch.subdomain import Subdomain2D, Subdomain3D
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -89,25 +89,70 @@ def cpu_runner(sim_cls, **cfg):
     return run(sim_cls, **{'platform': 'cpu', 'max_iters': 0, **cfg})
 
 
-def channel_sim(pair, axis='z'):
+#: peak inlet velocity of the parabolic channels
+U_INLET = 0.03
+
+
+def parabolic_profile(s, n, u_max=U_INLET):
+    """Plane-Poiseuille inlet velocity at cross-channel coordinate ``s`` of
+    an extent ``n`` whose first and last nodes are full bounce-back walls
+    (effective walls half a node inside, at s = 0.5 and n - 1.5):
+    4 U (s - 0.5) (n - 1.5 - s) / (n - 2)^2, peak U at the centre."""
+    s = np.asarray(s, dtype=np.float64)
+    return 4.0 * u_max * (s - 0.5) * (n - 1.5 - s) / float(n - 2) ** 2
+
+
+def channel_sim(pair, axis='z', profile=None):
     """Velocity inlet at the low face normal to ``axis`` ('x' or 'z'),
-    density outlet at the high face, bounce-back walls normal to y
-    (tests/test_sharded_pallas.py:616-675 for z, :696-713 for x)."""
+    density outlet (rho = 1) at the high face, bounce-back walls normal to
+    y (tests/test_sharded_pallas.py:616-675 for z, :696-713 for x). The
+    inlet velocity is uniform (0.03), or with ``profile='parabolic'`` the
+    ``parabolic_profile`` across y (a full-shape parameter array)."""
     vel_cls, den_cls = BC_PAIRS[pair]
     a = 'xyz'.index(axis)
-    u_in = tuple(0.03 if i == a else 0.0 for i in range(3))
 
     class Channel(Subdomain3D):
         def boundary_conditions(self, hx, hy, hz):
             h, n = (hx, hy, hz)[a], (self.gx, self.gy, self.gz)[a]
             walls = (hy == 0) | (hy == self.gy - 1)
             self.set_node(walls, nt.NTFullBBWall)
+            un = U_INLET
+            if profile == 'parabolic':
+                un = parabolic_profile(hy, self.gy)
+            u_in = tuple(un if i == a else 0.0 for i in range(3))
             self.set_node((h == 0) & ~walls, vel_cls(u_in))
             self.set_node((h == n - 1) & ~walls, den_cls(1.0))
 
         def initial_conditions(self, sim, hx, hy, hz):
             sim.rho[:] = 1.0
             getattr(sim, f'v{axis}')[:] = 0.01
+
+    class Sim(LBFluidSim):
+        subdomain = Channel
+
+    return Sim
+
+
+def channel_sim_2d(pair, profile='parabolic'):
+    """The 2D twin of ``channel_sim``: bounce-back walls normal to x, the
+    velocity inlet (``parabolic_profile`` across x, or uniform 0.03 with
+    ``profile=None``) at y = 0 and the density outlet (rho = 1) at the
+    top row."""
+    vel_cls, den_cls = BC_PAIRS[pair]
+
+    class Channel(Subdomain2D):
+        def boundary_conditions(self, hx, hy):
+            walls = (hx == 0) | (hx == self.gx - 1)
+            self.set_node(walls, nt.NTFullBBWall)
+            un = U_INLET
+            if profile == 'parabolic':
+                un = parabolic_profile(hx, self.gx)
+            self.set_node((hy == 0) & ~walls, vel_cls((0.0, un)))
+            self.set_node((hy == self.gy - 1) & ~walls, den_cls(1.0))
+
+        def initial_conditions(self, sim, hx, hy):
+            sim.rho[:] = 1.0
+            sim.vy[:] = 0.01
 
     class Sim(LBFluidSim):
         subdomain = Channel
@@ -132,6 +177,30 @@ def with_keep_block(sim_cls):
 
     class Sim(sim_cls):
         subdomain = Keep
+
+    return Sim
+
+
+def with_patch_row_mix(sim_cls):
+    """``sim_cls`` with the BC nodes of its first row along the array's
+    axis 0 (the z = 0 plane in 3D, the y = 0 row in 2D) thinned: every
+    eighth one along x made plain fluid and every eighth (offset by four)
+    excluded, so the patch kernel's rows hold mask codes 0, 1, 2 and 3+ (the
+    BC nodes next to the fluid ones detect x-normal orientations: more
+    patch instances)."""
+    block = sim_cls.subdomain
+
+    class Mix(block):
+        def boundary_conditions(self, *h):
+            super().boundary_conditions(*h)
+            hx = h[0]
+            tm = self.maps.type_map
+            bc = (h[-1] == 0) & (tm != nt.NTFullBBWall.id) & (tm != 0)
+            self.update_node(bc & (hx % 8 == 1), nt._NTFluid)
+            self.update_node(bc & (hx % 8 == 5), nt._NTUnused)
+
+    class Sim(sim_cls):
+        subdomain = Mix
 
     return Sim
 

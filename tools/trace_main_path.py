@@ -4,9 +4,11 @@
     python3 tools/trace_main_path.py [--chunk 500] [--scenes ldc_3d,...]
                                      [--out DIR]
 
-Needs one CUDA GPU. For the lid-driven cavities, the binary Shan-Chen
-separations and the binary free-energy separations of ``examples/torch``
-at the benchmark sizes (D3Q19 256^3, D2Q9 4096^2) it runs the controller
+Needs one CUDA GPU. For the lid-driven cavities, the parabolic-inlet
+channels (``tests/torch_scenes``: ``lbm_step`` + ``bc_patch`` each step),
+the binary Shan-Chen separations and the binary free-energy separations of
+``examples/torch`` at the benchmark sizes (D3Q19 256^3, D2Q9 4096^2) it
+runs the controller
 with the default (kernel) engine for one chunk (kernel build, warm-up),
 then traces one more chunk of ``SubdomainRunner.main`` with
 ``torch.profiler`` (CPU and CUDA activities) and reads the exported
@@ -35,20 +37,32 @@ from torch.profiler import ProfilerActivity, profile, record_function
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, 'tests'))
-from torch_scenes import binary_twin, run, twin  # noqa: E402
+from torch_scenes import (binary_twin, channel_sim,  # noqa: E402
+                          channel_sim_2d, run, twin)
 
+
+def channel(scene):
+    """The regularized parabolic-inlet channel of ``scene``."""
+    if scene.endswith('3d'):
+        return channel_sim('regularized', profile='parabolic')
+    return channel_sim_2d('regularized')
+
+
+#: scene -> (sim class loader, size, extra flags)
 SCENES = {
-    'ldc_3d': (twin, (256, 256, 256)),
-    'ldc_2d': (twin, (4096, 4096)),
-    'sc_separation_3d': (binary_twin, (256, 256, 256)),
-    'sc_separation_2d': (binary_twin, (4096, 4096)),
-    'fe_separation_3d': (binary_twin, (256, 256, 256)),
-    'fe_separation_2d': (binary_twin, (4096, 4096)),
+    'ldc_3d': (twin, (256, 256, 256), {}),
+    'ldc_2d': (twin, (4096, 4096), {}),
+    'parabolic_inlet_3d': (channel, (256, 256, 256), {'periodic_x': True}),
+    'parabolic_inlet_2d': (channel, (4096, 4096), {}),
+    'sc_separation_3d': (binary_twin, (256, 256, 256), {}),
+    'sc_separation_2d': (binary_twin, (4096, 4096), {}),
+    'fe_separation_3d': (binary_twin, (256, 256, 256), {}),
+    'fe_separation_2d': (binary_twin, (4096, 4096), {}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
-PORT_KERNELS = ('lbm_step_kernel', 'rho_poststream_kernel',
-                'sc_multi_kernel', 'fe_step_kernel')
+PORT_KERNELS = ('lbm_step_kernel', 'bc_patch_kernel',
+                'rho_poststream_kernel', 'sc_multi_kernel', 'fe_step_kernel')
 
 
 def total_launches(kernel):
@@ -73,8 +87,8 @@ def union_length(intervals):
 
 
 def trace_chunk(scene, chunk, out_dir):
-    load, size = SCENES[scene]
-    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    load, size, extra = SCENES[scene]
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size), **extra)
     r = run(load(scene), max_iters=chunk, every=chunk, **cfg)
     assert r.engine == 'kernel', r.engine
     r.config.max_iters += chunk
