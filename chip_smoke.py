@@ -27,9 +27,11 @@ default engine and the launch counts zeroed just before: the lid-driven
 cavities (D3Q19 256^3, D2Q9 4096^2), the parabolic-inlet channels
 (``parabolic_inlet_3d`` 256^3 and ``parabolic_inlet_2d`` 4096^2, two
 launches per step), the binary Shan-Chen separations and the free-energy
-separations (each D3Q19 256^3, D2Q9 4096^2), checks the results, runs a
-free-energy demixing to its end, times every kernel against its plain
-version and its bound, and prints the measurements. Every phase raises on
+separations (each D3Q19 256^3, D2Q9 4096^2), checks the results, times
+the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
+path's BGK one (with its tile and ptxas registers), runs a free-energy
+demixing to its end, times every kernel against its plain version and its
+bound, and prints the measurements. Every phase raises on
 failure, so the exit code is 0 only when all of them passed; without a
 CUDA device it exits non-zero before printing a result. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -676,9 +678,13 @@ def fe_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     say(f'kernel {ks.rho_name} at {"x".join(map(str, size))}: {rho_ms:.4f} '
         f'ms per launch (order parameter alone); rho_reference '
         f'{plain_rho_ms:.3f} ms')
-    say(f'kernel {ks.name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
-        f'launch; fe_step_reference {plain_ms:.3f} ms; the pre-pass is '
-        f'{rho_ms / (rho_ms + ms):.3f} of a step')
+    tile = '' if ks.tile is None else (
+        f' (tile {ks.tile.tx}x{ks.tile.ty} threads, {ks.tile.kz} z-planes '
+        f'per block, grid {ks.tile.grid}, {ks.tile.smem_bytes} B shared)')
+    say(f'kernel {ks.name} at {"x".join(map(str, size))}{tile}: {ms:.4f} ms '
+        f'per launch ({ks.builder.fe_model}); fe_step_reference '
+        f'{plain_ms:.3f} ms; the pre-pass is {rho_ms / (rho_ms + ms):.3f} of '
+        f'a step')
     results = {
         ks.rho_name: dict(launches=counts[ks.rho_name], ms=rho_ms,
                           plain_ms=plain_rho_ms, err=phi_err),
@@ -688,6 +694,27 @@ def fe_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     del r, ks, a, b, pb
     torch.cuda.empty_cache()
     return results
+
+
+def fe_mrt_time(size=256, steps=20):
+    """The FE-MRT instantiation of the 3D free-energy kernel timed at
+    size^3 beside the main path's BGK one: ``fe_separation_3d`` with
+    ``--model=mrt`` on the kernel engine, 20 steps from its initial state,
+    then ``fe_step`` alone; the result must stay finite."""
+    r = run(FE['fe_separation_3d'], max_iters=0, lat_nx=size, lat_ny=size,
+            lat_nz=size, model='mrt', tau_a=3.0, tau_b=0.8)
+    ks = r.kernel
+    assert isinstance(ks, fe.FEStep) and ks.mrt
+    out = ks.run(r.f, steps)
+    assert all(bool(torch.isfinite(f).all()) for f in out)
+    a, b, pb = ks.b, ks.a, ks.phi
+    ks.phi_into(a, pb)
+    ms = util.cuda_time_ms(lambda: ks.collide_into(a, pb, b), 50, warmup=5)
+    say(f'kernel {ks.name} at {size}^3 (mrt, tile {ks.tile.tx}x{ks.tile.ty}'
+        f'x{ks.tile.kz}): {ms:.4f} ms per launch after {steps} steps')
+    del r, ks, out, a, b, pb
+    torch.cuda.empty_cache()
+    return ms
 
 
 def fe_demix(size=512, steps=2500):
@@ -759,6 +786,14 @@ def main():
             if 'entry function' in line or 'registers' in line \
                     or 'spill' in line:
                 say('  ptxas:', line.strip())
+        if name == 'fe_step':
+            for fn, use in sorted(build.ptxas_usage(lib.log).items()):
+                if 'fe3_kernel' in fn and 'registers' in use:
+                    say(f'fe_step_d3q19 {fn}: {use["registers"]} registers,'
+                        f' spill stores {use.get("spill_stores")} B, spill '
+                        f'loads {use.get("spill_loads")} B')
+    say(f'fe_step_d3q19 tile: {fe.TILE_3D[0]}x{fe.TILE_3D[1]} threads over '
+        f'(x, y), {fe.TILE_3D[2]} z-planes per block')
 
     errs = {}
 
@@ -856,6 +891,7 @@ def main():
                            + res['launches'],
                            err=max(results[name]['err'], res['err']))
             results[name] = res
+    fe_mrt_time()
     fe_demix()
     plain_path('ldc_3d', LDC_3D, (128, 128, 128), chunk=500)
     plain_path('ldc_3d', LDC_3D, (256, 256, 256), chunk=50)

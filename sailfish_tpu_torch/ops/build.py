@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -100,6 +101,27 @@ def _start_build(src):
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return src, out, proc, time.perf_counter()
+
+
+def ptxas_usage(log):
+    """{mangled function: {'registers': n, 'spill_stores': bytes,
+    'spill_loads': bytes}} from an ``nvcc -Xptxas -v`` log."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, {})
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and fn:
+            usage[fn]['spill_stores'] = int(m.group(1))
+            usage[fn]['spill_loads'] = int(m.group(2))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and fn:
+            usage[fn]['registers'] = int(m.group(1))
+    return usage
 
 
 def _tmp_path(out):

@@ -5,11 +5,17 @@ step.
 Counterpart of ``sailfish_tpu/ops/pallas_multi2d.py`` (``PallasStepFE2D``,
 :1451-1513) and ``sailfish_tpu/ops/pallas_multi3d.py`` (``PallasStepFE3D``,
 :1715-1799), which run the TPU kernels B8 ``make_kernel_2d_fe`` and B10
-``make_kernel_3d_fe``. The step kernel is ``csrc/fe_step.cu``; the
+``make_kernel_3d_fe``. The step kernels are in ``csrc/fe_step.cu``:
+``fe_step_kernel`` (D2Q9, one x-row per block) and ``fe3_kernel`` (D3Q19,
+a tile of threads in (x, y) that marches over z-planes with the order
+parameter's stencil in shared memory and compile-time lattice tables); the
 pre-pass is ``rho_poststream`` of ``csrc/sc_multi.cu`` on the order
 parameter's distributions alone. This module checks that a scene is
-eligible, holds the A/B buffers, the phi buffer and the node maps, and
-wraps the launches.
+eligible, computes the 3D kernel's launch geometry (``tile_geometry``),
+checks the 3D kernel's compile-time tables against ``lattice`` and
+``multigrid.fe_weights`` when it loads the library (``check_tables``),
+holds the A/B buffers, the phi buffer and the node maps, and wraps the
+launches.
 
 Beside the wrapper live the kernels' plain PyTorch versions,
 ``sc_multi.rho_reference`` (the pre-pass) and ``fe_step_reference``. The
@@ -20,11 +26,13 @@ them on the card; the main path never calls them on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from sailfish_tpu_torch import equilibrium as eq
+from sailfish_tpu_torch import lattice
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import multigrid as mg
@@ -36,6 +44,14 @@ MAX_Q = 19
 MAX_MOM = 9
 #: lattices the step kernel is instantiated for
 KERNEL_GRIDS = ('D2Q9', 'D3Q19')
+#: the 3D kernel's tile: threads in x and y, z-planes per block (the sweep
+#: of tools/fe_tile_sweep.py on the card, PERF.md)
+TILE_3D = (128, 2, 8)
+#: limits of the 3D kernel (csrc/fe_step.cu FE3_THREADS, FE3_MAX_FILL)
+MAX_TILE_THREADS = 256
+MAX_FILL = 4
+#: shared memory a block may use without opting in
+SMEM_LIMIT = 48 * 1024
 #: step-kernel launches per kernel name over all ``FEStep`` objects (the
 #: pre-pass counts in ``sc_multi.LAUNCHES``, beside its Shan-Chen use)
 LAUNCHES = dict.fromkeys((f'fe_step_{g.lower()}' for g in KERNEL_GRIDS), 0)
@@ -165,18 +181,124 @@ def kernel_params(builder, shape, wetting):
     return p
 
 
+class _Tile(ctypes.Structure):
+    _fields_ = [('tx', ctypes.c_int), ('ty', ctypes.c_int),
+                ('kz', ctypes.c_int), ('grid', ctypes.c_int * 3),
+                ('smem_bytes', ctypes.c_int)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile3D:
+    """Launch geometry of the 3D kernel: blocks of ``tx`` x ``ty`` threads
+    over (x, y), each marching over ``kz`` z-planes; ``grid`` (blocks
+    along x, y, z); ``halo`` of the staged order-parameter planes (2 with
+    wetting, whose mirror reaches one node further, else 1);
+    ``smem_bytes`` of dynamic shared memory per block."""
+    tx: int
+    ty: int
+    kz: int
+    grid: tuple
+    halo: int
+    smem_bytes: int
+
+    def params(self):
+        """The by-value ``FETile`` block of the launch."""
+        t = _Tile(self.tx, self.ty, self.kz)
+        t.grid[:] = self.grid
+        t.smem_bytes = self.smem_bytes
+        return t
+
+
+def tile_geometry(shape, wetting, tile=TILE_3D):
+    """``Tile3D`` for the (nz, ny, nx) domain ``shape`` and the tile (tx,
+    ty, kz). Shared memory (``csrc/fe_step.cu`` fe3_smem_bytes): a ring of
+    raw phi planes of (ty + 2 halo) x (tx + 2 halo) floats, four without
+    wetting; with wetting three, plus three phi_w planes of halo 1 and one
+    orientation byte per raw entry. Raises ValueError on a tile the kernel
+    does not take."""
+    nz, ny, nx = shape
+    tx, ty, kz = tile
+    halo = 2 if wetting else 1
+    plane = (tx + 2 * halo) * (ty + 2 * halo)
+    if wetting:
+        smem = 4 * 3 * plane + 4 * 3 * (tx + 2) * (ty + 2) + plane
+    else:
+        smem = 4 * 4 * plane
+    threads = tx * ty
+    if min(tile) < 1 or threads > MAX_TILE_THREADS:
+        raise ValueError(f'tile {tile}: 1 to {MAX_TILE_THREADS} threads '
+                         'and at least one z-plane')
+    if -(-plane // threads) > MAX_FILL:
+        raise ValueError(f'tile {tile}: a staged plane of {plane} entries '
+                         f'needs more than {MAX_FILL} per thread')
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'tile {tile}: {smem} B of shared memory')
+    if nx * ny * nz >= 2 ** 31:
+        raise ValueError(f'domain {shape}: 2^31 nodes or more')
+    grid = (-(-nx // tx), -(-ny // ty), -(-nz // kz))
+    return Tile3D(tx, ty, kz, grid, halo, smem)
+
+
+class _Tables(ctypes.Structure):
+    _fields_ = [('c', (ctypes.c_int * 3) * 19), ('opp', ctypes.c_int * 19),
+                ('ov', (ctypes.c_int * 3) * 6)] + [
+        (name, ctypes.c_float * 19)
+        for name in ('w', 'wi', 'wxx', 'wyy', 'wzz', 'wxy', 'wyz', 'wxz')]
+
+
+def lattice_tables(grid=lattice.D3Q19):
+    """``_Tables`` filled from ``sailfish_tpu_torch.lattice`` and
+    ``multigrid.fe_weights``: what ``fe_d3q19_tables`` must copy out."""
+    t = _Tables()
+    for i in range(grid.Q):
+        t.c[i][:] = [int(v) for v in grid.basis[i]]
+        t.opp[i] = int(grid.opposite[i])
+        t.w[i] = float(grid.weights[i])
+    for k, vec in enumerate(grid.orientation_vectors):
+        t.ov[k][:] = [int(v) for v in vec]
+    for name, vals in mg.fe_weights(grid).items():
+        getattr(t, name)[:] = [float(v) for v in vals]
+    return t
+
+
+def check_tables(tables, grid=lattice.D3Q19):
+    """Raise RuntimeError unless the ``_Tables`` ``tables`` (the 3D
+    kernel's compile-time tables) equal ``lattice_tables(grid)``, every
+    integer exactly and every weight to the last bit of its float32."""
+    ref = lattice_tables(grid)
+    bad = [name for name, _ in _Tables._fields_
+           if not np.array_equal(np.ctypeslib.as_array(getattr(tables, name)),
+                                 np.ctypeslib.as_array(getattr(ref, name)))]
+    if bad:
+        raise RuntimeError(
+            f'the compile-time {grid.name} tables of csrc/fe_step.cu differ '
+            f'from sailfish_tpu_torch.lattice / multigrid.fe_weights in '
+            f'{", ".join(bad)}')
+
+
 def kernel_function(lib, grid_name):
     """The C entry ``fe_step_<grid>`` of a loaded ``csrc/fe_step.cu``
     library, typed for ``ctypes``, after checking that the library's
-    parameter block matches ``_Params``."""
+    parameter block matches ``_Params`` and, for D3Q19, that the 3D
+    kernel's compile-time tables match the lattice (``check_tables``)."""
     lib.fe_params_size.restype = ctypes.c_int
     if lib.fe_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError('FEParams layout differs between '
                            'csrc/fe_step.cu and ops/fe_step.py')
     fn = getattr(lib, f'fe_step_{grid_name.lower()}')
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
-                                           ctypes.POINTER(_Params),
-                                           ctypes.c_void_p]
+    args = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.POINTER(_Params)]
+    if grid_name == 'D3Q19':
+        lib.fe_tables_size.restype = ctypes.c_int
+        if lib.fe_tables_size() != ctypes.sizeof(_Tables):
+            raise RuntimeError('FETables layout differs between '
+                               'csrc/fe_step.cu and ops/fe_step.py')
+        tables = _Tables()
+        lib.fe_d3q19_tables.argtypes = [ctypes.POINTER(_Tables)]
+        lib.fe_d3q19_tables.restype = None
+        lib.fe_d3q19_tables(ctypes.byref(tables))
+        check_tables(tables, lattice.D3Q19)
+        args.append(ctypes.POINTER(_Tile))
+    fn.argtypes = args + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -214,11 +336,21 @@ class FEStep(sm.BufferedMultiStep):
                                            'linear')
         self.params = kernel_params(builder, self.shape,
                                     self.orient is not None)
+        self.tile = None
+        self._tile_args = ()
+        if self.grid.name == 'D3Q19':
+            self.set_tile(TILE_3D)
         g = self.grid.name.lower()
         self.rho_name = f'rho_poststream_{g}'
         self.name = f'fe_step_{g}'
         self.launches = {self.rho_name: 0, self.name: 0}
         self._fns = None
+
+    def set_tile(self, tile):
+        """Launch the 3D kernel with the tile (tx, ty, kz) from now on."""
+        self.tile = tile_geometry(self.shape, self.orient is not None, tile)
+        self._tile_params = self.tile.params()
+        self._tile_args = (ctypes.byref(self._tile_params),)
 
     def _kernels(self):
         if self._fns is None:
@@ -273,7 +405,7 @@ class FEStep(sm.BufferedMultiStep):
         rc = self._kernels()[1](src.data_ptr(), phi.data_ptr(),
                                 dst.data_ptr(), self.mask.data_ptr(), orient,
                                 int(self.mrt), ctypes.byref(self.params),
-                                self._stream())
+                                *self._tile_args, self._stream())
         if rc != 0:
             raise RuntimeError(f'{self.name} launch failed: CUDA error {rc}')
         self.launches[self.name] += 1

@@ -29,13 +29,20 @@ the order parameter, then ``fe_step``) are held against ``rho_reference``
 and ``fe_step_reference`` on the five free-energy twins (a block of
 excluded nodes added), BGK and FE-MRT, with and without a wetting
 gradient, from seeded states with sharp interfaces: the pre-pass after one
-launch (<= 1e-6) and 20 steps (wet-node max |df| <= 1e-5).
+launch (<= 1e-6) and 20 steps (wet-node max |df| <= 1e-5). The 3D kernel's
+tile is stressed on ragged shapes (``FE_TILE_CASES``: odd x and y, fewer
+z-planes than a block marches over, the reach-2 wetting mirror wrapping
+on small periodic extents), other tiles must give the same bits, and its
+compile-time tables must equal ``lattice``'s.
 """
+
+import ctypes
 
 import pytest
 import torch
 
 from sailfish_tpu_torch.ops import bc_patch as bp
+from sailfish_tpu_torch.ops import build
 from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
@@ -321,3 +328,73 @@ def test_default_engine_on_cuda_is_the_fe_kernel(cuda, scene):
     for fk, ft in zip(r.f, ref.f):
         assert bool(torch.isfinite(fk).all())
         assert float((fk - ft)[:, wet].abs().max()) <= 1e-5
+
+
+#: (scene, size, flags, with a block of excluded nodes): ragged shapes for
+#: the 3D kernel's tile (32 x 8 threads, 16 z-planes by default)
+FE_TILE_CASES = [
+    ('fe_separation_3d', dict(lat_nx=37, lat_ny=13, lat_nz=5), {}, False),
+    ('fe_separation_3d', dict(lat_nx=37, lat_ny=13, lat_nz=5),
+     dict(model='mrt', tau_a=3.0, tau_b=0.8), False),
+    ('fe_separation_3d', dict(lat_nx=37, lat_ny=13, lat_nz=5), {}, True),
+    ('fe_viscous_fingering', dict(lat_nx=45, lat_ny=11, lat_nz=6),
+     dict(bc_wall_grad_phase=-0.03), True),
+    ('fe_viscous_fingering', dict(lat_nx=45, lat_ny=11, lat_nz=6),
+     dict(bc_wall_grad_phase=-0.03, model='bgk'), True),
+]
+
+
+def _fe_tile_engine(case):
+    scene, size, cfg, keep = FE_TILE_CASES[case]
+    sim = binary_twin(scene)
+    r = run(with_keep_block(sim) if keep else sim, platform='cuda',
+            engine='kernel', max_iters=0, **size, **cfg)
+    assert isinstance(r.kernel, fe.FEStep)
+    return r, r.kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', range(len(FE_TILE_CASES)))
+def test_fe3_tile_on_ragged_shapes(cuda, case):
+    r, ks = _fe_tile_engine(case)
+    assert ks.tile.grid[2] * ks.tile.kz >= ks.shape[0]
+    assert ks.tile.halo == (2 if ks.orient is not None else 1)
+    grid = r.sim.grid
+    f0 = random_fe_state(grid, ks.shape, seed=7, device='cuda')
+    fk = ks.run(tuple(f0), 20)
+    fr = tuple(f0)
+    for _ in range(20):
+        phi = sm.rho_reference(fr[1], grid)
+        fr = fe.fe_step_reference(fr, phi, ks.mask, ks.orient, ks.builder)
+    torch.cuda.synchronize()
+    assert ks.launches == {ks.rho_name: 20, ks.name: 20}
+    wet = ks.mask == 0
+    err = float((torch.stack(fk) - torch.stack(fr))[:, :, wet].abs().max())
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', [0, 3])
+def test_fe3_tiles_give_the_same_bits(cuda, case):
+    """Each node runs the same arithmetic whatever the tile."""
+    _r, ks = _fe_tile_engine(case)
+    f0 = tuple(random_fe_state(ks.grid, ks.shape, seed=8, device='cuda'))
+    outs = []
+    for tile in (fe.TILE_3D, (64, 4, 3), (16, 8, 2), (8, 4, 7)):
+        ks.set_tile(tile)
+        outs.append(torch.stack(ks.run(f0, 3)).clone())
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.cuda
+def test_fe3_tables_equal_the_lattice(cuda):
+    lib = build.load('fe_step').lib
+    fe.kernel_function(lib, 'D3Q19')    # raises on any difference
+    tables = fe._Tables()
+    lib.fe_d3q19_tables(ctypes.byref(tables))
+    ref = fe.lattice_tables()
+    for name, _ in fe._Tables._fields_:
+        assert bytes(getattr(tables, name)) == bytes(getattr(ref, name)), \
+            name

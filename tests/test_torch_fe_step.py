@@ -9,11 +9,16 @@ block, buffers, and the kernels' plain PyTorch versions.
   engine step for step; it launches nothing; its refusals name their
   reasons.
 * The ``ctypes`` parameter block holds what ``csrc/fe_step.cu`` reads.
+* The 3D kernel's launch geometry (``tile_geometry``) on ragged shapes,
+  and the check of its compile-time lattice tables (``check_tables``),
+  fed the lattice's own tables and perturbed copies; the tables written
+  in the CUDA source equal the lattice's.
 
 The CUDA kernels themselves run only on a card (tests/test_torch_cuda.py).
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -224,3 +229,90 @@ def test_params_layout_matches_the_c_struct():
     # float mom_row[9][19]; float minv[19][9]
     assert ctypes.sizeof(fe._Params) == 4 * (
         6 + 19 * 3 + 19 + 18 + 8 * 19 + 7 + 9 + 9 + 2 * 9 * 19)
+
+
+@pytest.mark.parametrize('wetting', [False, True])
+@pytest.mark.parametrize('shape', [(5, 13, 37), (37, 101, 320),
+                                   (256, 256, 256), (1, 1, 1)])
+def test_tile_geometry_covers_ragged_domains(shape, wetting):
+    t = fe.tile_geometry(shape, wetting)
+    nz, ny, nx = shape
+    assert (t.tx, t.ty, t.kz) == fe.TILE_3D
+    # the grid covers the domain and no block is wholly outside it
+    assert t.grid[0] * t.tx >= nx > (t.grid[0] - 1) * t.tx
+    assert t.grid[1] * t.ty >= ny > (t.grid[1] - 1) * t.ty
+    assert t.grid[2] * t.kz >= nz > (t.grid[2] - 1) * t.kz
+    assert t.halo == (2 if wetting else 1)
+    plane = (t.tx + 2 * t.halo) * (t.ty + 2 * t.halo)
+    nraw = 3 if wetting else 4
+    assert t.smem_bytes >= 4 * nraw * plane
+    assert t.smem_bytes < 48 * 1024
+    p = t.params()
+    assert (p.tx, p.ty, p.kz, tuple(p.grid), p.smem_bytes) == (
+        t.tx, t.ty, t.kz, t.grid, t.smem_bytes)
+    assert ctypes.sizeof(p) == 4 * 7
+
+
+@pytest.mark.parametrize('tile, why', [
+    ((32, 16, 4), '1 to 256 threads'),
+    ((0, 8, 4), '1 to 256 threads'),
+    ((32, 8, 0), 'at least one z-plane'),
+    ((1, 1, 4), 'more than 4 per thread'),
+])
+def test_tile_geometry_refuses_what_the_kernel_does_not_take(tile, why):
+    with pytest.raises(ValueError, match=why):
+        fe.tile_geometry((8, 8, 8), True, tile)
+
+
+def test_fe_step_3d_has_a_tile_and_2d_none():
+    r3, ks3 = _engine('fe_viscous_fingering')
+    assert ks3.tile == fe.tile_geometry(ks3.shape, True)
+    ks3.set_tile((64, 4, 3))
+    assert (ks3.tile.tx, ks3.tile.ty, ks3.tile.kz) == (64, 4, 3)
+    assert ks3._tile_params.grid[2] == -(-ks3.shape[0] // 3)
+    _r2, ks2 = _engine('fe_poiseuille_2d')
+    assert ks2.tile is None and ks2._tile_args == ()
+
+
+def test_check_tables_accepts_the_lattice():
+    fe.check_tables(fe.lattice_tables(lattice.D3Q19))
+    t = fe.lattice_tables(lattice.D3Q19)
+    grid = lattice.D3Q19
+    assert np.ctypeslib.as_array(t.c).tolist() == grid.basis.tolist()
+    assert list(t.opp) == grid.opposite.tolist()
+    assert np.ctypeslib.as_array(t.ov).tolist() == \
+        grid.orientation_vectors.tolist()
+    np.testing.assert_array_equal(np.ctypeslib.as_array(t.w),
+                                  grid.weights.astype(np.float32))
+    for name, vals in mg.fe_weights(grid).items():
+        np.testing.assert_array_equal(np.ctypeslib.as_array(getattr(t, name)),
+                                      np.float32(vals))
+
+
+@pytest.mark.parametrize('field', [name for name, _ in fe._Tables._fields_])
+def test_check_tables_raises_on_a_perturbed_copy(field):
+    t = fe.lattice_tables(lattice.D3Q19)
+    arr = np.ctypeslib.as_array(getattr(t, field)).reshape(-1)
+    if arr.dtype == np.float32:
+        # one ulp off in the last entry
+        arr[-1] = np.nextafter(arr[-1], np.float32(np.inf))
+    else:
+        arr[-1] += 1
+    with pytest.raises(RuntimeError, match=f'differ .* in {field}$'):
+        fe.check_tables(t)
+
+
+def _source_table(text, decl):
+    body = re.search(re.escape(decl) + r'\s*=\s*\{(.*?)\};', text, re.S)
+    return [int(v) for v in re.findall(r'-?\d+', body.group(1))]
+
+
+def test_cuda_source_tables_equal_the_lattice():
+    """The literal D3Q19 tables in csrc/fe_step.cu (struct D3Q19)."""
+    from sailfish_tpu_torch.ops import build
+    text = (build.CSRC / 'fe_step.cu').read_text()
+    grid = lattice.D3Q19
+    assert _source_table(text, 'constexpr int t[19][3]') == \
+        grid.basis.reshape(-1).tolist()
+    assert _source_table(text, 'constexpr int t[19]') == \
+        grid.opposite.tolist()

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""What the compiler made of the port's CUDA kernels.
+
+    python3 tools/kernel_report.py [--sources fe_step sc_multi lbm_step]
+                                   [--match fe_step_kernel ...]
+
+Builds the named ``sailfish_tpu_torch/ops/csrc`` sources (``ops/build``),
+and for every kernel function whose mangled name contains one of the
+``--match`` strings (default: all) prints
+
+* the registers and spill bytes that ``ptxas -v`` reports;
+* the SASS instruction count of its body (``cuobjdump -sass`` of the built
+  library, NOPs left out), and its mix by opcode class: global loads and
+  stores, shared loads and stores, ``cp.async`` (LDGSTS), fp32 arithmetic,
+  integer arithmetic, conversions, uniform-datapath and control
+  instructions;
+* whether ``ncu`` is on the PATH or under the toolkit.
+
+Ends with one JSON line. Needs ``nvcc`` and ``cuobjdump`` (the CUDA
+toolkit), not a GPU.
+"""
+
+import argparse
+import collections
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from sailfish_tpu_torch.ops import build  # noqa: E402
+
+#: opcode (before the first '.') -> class
+CLASSES = {
+    'LDG': 'global_load', 'STG': 'global_store',
+    'LDS': 'shared_load', 'STS': 'shared_store', 'LDGSTS': 'cp_async',
+    'LDL': 'local', 'STL': 'local', 'LDC': 'const_load',
+    'FFMA': 'fp32', 'FADD': 'fp32', 'FMUL': 'fp32', 'FMNMX': 'fp32',
+    'FSEL': 'fp32', 'FSETP': 'fp32', 'MUFU': 'mufu', 'FCHK': 'fp32',
+    'IMAD': 'int', 'IADD3': 'int', 'LEA': 'int', 'ISETP': 'int',
+    'IABS': 'int', 'LOP3': 'int', 'SHF': 'int', 'SEL': 'int',
+    'IMNMX': 'int', 'VIMNMX': 'int', 'PRMT': 'int', 'MOV': 'move',
+    'I2F': 'convert', 'F2I': 'convert', 'I2FP': 'convert', 'F2F': 'convert',
+    'BAR': 'barrier', 'DEPBAR': 'barrier', 'LDGDEPBAR': 'barrier',
+}
+
+
+def find_tool(name):
+    """``name`` beside ``nvcc``, else on the PATH, else None."""
+    beside = Path(build.find_nvcc()).parent / name
+    if beside.is_file():
+        return str(beside)
+    return shutil.which(name)
+
+
+def sass_counts(so_path, cuobjdump):
+    """{mangled function: Counter(opcode class -> n, 'total' -> n)}."""
+    out = subprocess.run([cuobjdump, '-sass', str(so_path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = collections.Counter()
+            continue
+        m = re.search(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)',
+                      line)
+        if not (m and fn):
+            continue
+        op = m.group(1).split('.')[0]
+        if op == 'NOP':
+            continue
+        cls = CLASSES.get(op)
+        if cls is None:
+            if op.startswith('U'):
+                cls = 'uniform'
+            elif op in ('BRA', 'EXIT', 'BSSY', 'BSYNC', 'RET', 'CALL',
+                        'WARPSYNC', 'BMOV', 'YIELD'):
+                cls = 'control'
+            else:
+                cls = 'other'
+        counts[fn][cls] += 1
+        counts[fn]['total'] += 1
+    return counts
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--sources', nargs='+',
+                    default=['fe_step', 'sc_multi', 'lbm_step'])
+    ap.add_argument('--match', nargs='*', default=[])
+    args = ap.parse_args()
+    cuobjdump = find_tool('cuobjdump')
+    ncu = find_tool('ncu')
+    print(f'cuobjdump: {cuobjdump}; ncu: {ncu}', flush=True)
+    report = {}
+    for src, lib in build.load_all(args.sources).items():
+        usage = build.ptxas_usage(lib.log)
+        sass = sass_counts(lib.path, cuobjdump) if cuobjdump else {}
+        for fn in sorted(set(usage) | set(sass)):
+            if args.match and not any(k in fn for k in args.match):
+                continue
+            if fn not in sass and 'registers' not in usage.get(fn, {}):
+                continue
+            row = dict(usage.get(fn, {}), sass=dict(sass.get(fn, {})))
+            report[fn] = dict(source=src, **row)
+            mix = ', '.join(f'{k} {v}' for k, v in sorted(
+                row['sass'].items(), key=lambda kv: -kv[1]))
+            print(f'{src}: {fn}: {row.get("registers")} registers, spill '
+                  f'{row.get("spill_stores")} / {row.get("spill_loads")} B; '
+                  f'SASS {mix}', flush=True)
+    print(json.dumps({'ncu': ncu, 'kernels': report}))
+
+
+if __name__ == '__main__':
+    main()

@@ -27,7 +27,6 @@ and a JSON line.
 import argparse
 import json
 import os
-import re
 import sys
 
 import torch
@@ -63,27 +62,6 @@ def build_variants(out_dir):
             fh.write(src.replace(BOUNDS, bounds))
         libs[name] = build.build_library(path)
     return libs
-
-
-def ptxas_usage(log):
-    """{mangled function: {'registers': n, 'spill_stores': bytes,
-    'spill_loads': bytes}} from an ``nvcc -Xptxas -v`` log."""
-    usage, fn = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([\w$]+)'?", line)
-        if m:
-            fn = m.group(1)
-            usage.setdefault(fn, {})
-        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
-                      line)
-        if m and fn:
-            usage[fn]['spill_stores'] = int(m.group(1))
-            usage[fn]['spill_loads'] = int(m.group(2))
-        m = re.search(r'Used (\d+) registers', line)
-        if m and fn:
-            usage[fn]['registers'] = int(m.group(1))
-    return usage
 
 
 def probe_scene(scene, size, libs, steps, iters):
@@ -127,7 +105,7 @@ def main():
     libs = build_variants(os.path.join(REPO, 'build', 'probe'))
     usage = {}
     for name, lib in libs.items():
-        usage[name] = {fn: u for fn, u in ptxas_usage(lib.log).items()
+        usage[name] = {fn: u for fn, u in build.ptxas_usage(lib.log).items()
                        if 'lbm_step_kernel' in fn or 'bc_node' in fn}
         for fn, u in sorted(usage[name].items()):
             print(f'ptxas {name}: {fn}: {u}', flush=True)
