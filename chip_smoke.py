@@ -10,10 +10,13 @@ version on the card from seeded random states:
 * the single-fluid stream-and-collide kernel (``ops/lbm_step``) against
   ``step_reference`` on lid-driven cavities and on ducts with x-normal
   velocity/density faces of each native BC pair;
-* the same kernel followed by the patch-row kernel (``ops/bc_patch``)
-  against ``step_reference`` + ``bc_patch_reference`` on channels whose
-  velocity inlet carries a parabolic profile, for each native BC pair
-  (D3Q19 128x64x64 and D2Q9 1024^2, 200 steps);
+* the same kernel with varying BC rows (native BCs that read each node's
+  own rho and u from the parameter array of ``ops/bc_patch``; launches
+  counted as ``lbm_step_vary_<grid>``) against
+  ``step_reference`` on channels whose velocity inlet carries a parabolic
+  profile, for each native BC pair and inlet normal to z and x (D3Q19
+  128x64x64) and to y and x (D2Q9 1024^2), the inlet face thinned so it
+  has holes, 200 steps;
 * the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
   against ``rho_reference`` and ``sc_multi_reference`` on the binary
   separation scenes (periodic 2D and 3D, and the walled 3D box);
@@ -25,18 +28,21 @@ version on the card from seeded random states:
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
 cavities (D3Q19 256^3, D2Q9 4096^2), the parabolic-inlet channels
-(``parabolic_inlet_3d`` 256^3 and ``parabolic_inlet_2d`` 4096^2, two
-launches per step), the binary Shan-Chen separations and the free-energy
+(``parabolic_inlet_3d`` / ``parabolic_inlet_x_3d`` 256^3 and
+``parabolic_inlet_2d`` / ``parabolic_inlet_x_2d`` 4096^2, one launch per
+step, each timed against the same channel with a uniform inlet), the
+binary Shan-Chen separations and the free-energy
 separations (each D3Q19 256^3, D2Q9 4096^2), checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
 demixing to its end, times every kernel against its plain version and its
-bound, and prints the measurements. Every phase raises on
+bound and an empty kernel launch, and prints the measurements. Every phase raises on
 failure, so the exit code is 0 only when all of them passed; without a
 CUDA device it exits non-zero before printing a result. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import json
 import os
 import statistics
@@ -49,7 +55,6 @@ import torch
 
 from sailfish_tpu_torch import state as st
 from sailfish_tpu_torch import util
-from sailfish_tpu_torch.ops import bc_patch as bp
 from sailfish_tpu_torch.ops import build
 from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
@@ -105,13 +110,14 @@ SC_BYTES = {'D3Q19': 2 * (19 * 4 + 4) + 2 * (2 * 19 * 4 + 4) + 1,
 FE_BYTES = {'D3Q19': (19 * 4 + 4) + (2 * 2 * 19 * 4 + 4 + 1),
             'D2Q9': (9 * 4 + 4) + (2 * 2 * 9 * 4 + 4 + 1)}
 #: bytes each kernel must move per node of its main-path call, each input
-#: read once and each output written once (``bc_patch``: the state read and
-#: written, the mask byte and the 1 + dim parameter floats; the pre-pass at
-#: the Shan-Chen path's K = 2, whose time the JSON line carries)
+#: read once and each output written once (``lbm_step_vary``: the step's
+#: bytes; the 4 (1 + dim) parameter bytes of each node of a varying BC
+#: are added per run; the pre-pass at the Shan-Chen path's K = 2, whose
+#: time the JSON line carries)
 NODE_BYTES = {
     'lbm_step_d3q19': BYTES['D3Q19'], 'lbm_step_d2q9': BYTES['D2Q9'],
-    'bc_patch_d3q19': 2 * 19 * 4 + 1 + 4 * 4,
-    'bc_patch_d2q9': 2 * 9 * 4 + 1 + 3 * 4,
+    'lbm_step_vary_d3q19': BYTES['D3Q19'],
+    'lbm_step_vary_d2q9': BYTES['D2Q9'],
     'rho_poststream_d3q19': 2 * (19 * 4 + 4),
     'rho_poststream_d2q9': 2 * (9 * 4 + 4),
     'sc_multi_d3q19': 2 * 2 * 19 * 4 + 2 * 4 + 1,
@@ -121,14 +127,14 @@ NODE_BYTES = {
 }
 #: fp32 operations per node, an upper estimate read off each kernel's
 #: source (BGK: ~23 per direction for the moments, feq and relaxation; the
-#: native-BC chain ~60 per direction; the pre-pass one add per direction
+#: native-BC chain ~60 per direction, on BC nodes only; the pre-pass one add per direction
 #: and component; Shan-Chen two BGK components plus the force stencil; the
 #: free-energy step ~40 per direction and component). Against 67 TFLOP/s
 #: each stays below 0.4 of its kernel's byte time: the bytes bound every
 #: kernel.
 NODE_OPS = {
     'lbm_step_d3q19': 23 * 19, 'lbm_step_d2q9': 23 * 9,
-    'bc_patch_d3q19': 60 * 19, 'bc_patch_d2q9': 60 * 9,
+    'lbm_step_vary_d3q19': 23 * 19, 'lbm_step_vary_d2q9': 23 * 9,
     'rho_poststream_d3q19': 2 * 19, 'rho_poststream_d2q9': 2 * 9,
     'sc_multi_d3q19': 2 * (23 * 19 + 6 * 19),
     'sc_multi_d2q9': 2 * (23 * 9 + 4 * 9),
@@ -149,14 +155,20 @@ KERNELS = {
     'sc_multi_d2q9': ('sc_multi.cu', 'sailfish_tpu/ops/pallas_multi2d.py:91'),
     'fe_step_d3q19': ('fe_step.cu', 'sailfish_tpu/ops/pallas_multi3d.py:820'),
     'fe_step_d2q9': ('fe_step.cu', 'sailfish_tpu/ops/pallas_multi2d.py:756'),
-    'bc_patch_d3q19': ('bc_patch.cu', 'sailfish_tpu/ops/pallas_step.py:2197'),
-    'bc_patch_d2q9': ('bc_patch.cu',
-                      'sailfish_tpu/ops/pallas_step2d.py:900'),
+    'lbm_step_vary_d3q19': ('lbm_step.cu',
+                            'sailfish_tpu/ops/pallas_step.py:2197'),
+    'lbm_step_vary_d2q9': ('lbm_step.cu',
+                           'sailfish_tpu/ops/pallas_step2d.py:900'),
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
-#: outlet): the main paths of the patch kernel
-CHANNEL_3D = channel_sim('regularized', profile='parabolic')
-CHANNEL_2D = channel_sim_2d('regularized')
+#: outlet), the main paths of the varying BC rows: scene -> (inlet
+#: axis, size, extra flags)
+CHANNELS = {
+    'parabolic_inlet_3d': ('z', (256, 256, 256), dict(periodic_x=True)),
+    'parabolic_inlet_x_3d': ('x', (256, 256, 256), dict(periodic_z=True)),
+    'parabolic_inlet_2d': ('y', (4096, 4096), {}),
+    'parabolic_inlet_x_2d': ('x', (4096, 4096), {}),
+}
 #: inlet macro velocity vs the prescribed profile (the BC sets it; fp32
 #: rounding of the profile is ~2e-9)
 INLET_TOL = 1e-6
@@ -179,64 +191,60 @@ def compare(name, sim_cls, steps=200, **cfg):
     fk = ks.run(f0, steps)
     fr = f0
     for _ in range(steps):
-        fr = ls.step_reference(fr, ks.mask, ks.table, r.sim.grid,
-                               ks.tau_inv)
+        fr = ks.reference(fr)
     util.synchronize(DEVICE)
-    assert ks.launches == steps
-    wet = (ks.mask == 0) | (ks.mask >= 3)
-    err = float((fk - fr)[:, wet].abs().max())
+    assert ks.launches == steps and not ks.vary
+    err = float((fk - fr)[:, wet_mask(ks)].abs().max())
     say(f'compare {name}: {r.sim.grid.name} {ks.shape} {steps} steps, '
         f'mask codes {codes}, wet max|df| = {err:.3e} (tol {TOL:g})')
     assert np.isfinite(err) and err <= TOL, err
     return r.sim.grid.name, err
 
 
-def patch_reference_step(ks, f):
-    """One step of the plain versions: ``step_reference``, then the patch
-    rows from ``bc_patch_reference``."""
-    out = ls.step_reference(f, ks.mask, ks.table, ks.grid, ks.tau_inv)
-    out[:, ks.patch.rows.long()] = ks.patch.reference(f)
-    return out
+def channel(dim, axis, pair='regularized', profile='parabolic'):
+    """The channel of ``dim`` dimensions flowing along ``axis``."""
+    if dim == 3:
+        return channel_sim(pair, axis, profile=profile)
+    return channel_sim_2d(pair, profile=profile, axis=axis)
 
 
-def patch_wet(ks):
-    """Wet nodes of a scene with patch rows: the main mask's codes 0 and
-    3+, and on the patch rows the patch mask's."""
-    wet = (ks.mask == 0) | (ks.mask >= 3)
-    m = ks.patch.mask_rows
-    wet[ks.patch.rows.long()] = (m == 0) | (m >= 3)
-    return wet
+def wet_mask(ks):
+    return (ks.mask == 0) | (ks.mask >= 3)
 
 
-def patch_errors(ks, f0, steps):
-    """Wet-node max |df| of ``lbm_step`` + ``bc_patch`` against their plain
-    versions after ``steps`` steps from ``f0``."""
+def vary_errors(ks, f0, steps):
+    """Wet-node max |df| of the kernel with varying BC rows against
+    ``step_reference`` after ``steps`` steps from ``f0``."""
     fk = ks.run(f0, steps)
     fr = f0
     for _ in range(steps):
-        fr = patch_reference_step(ks, fr)
+        fr = ks.reference(fr)
     util.synchronize(DEVICE)
-    err = float((fk - fr)[:, patch_wet(ks)].abs().max())
+    err = float((fk - fr)[:, wet_mask(ks)].abs().max())
     assert np.isfinite(err) and err <= TOL, err
     return err
 
 
-def patch_compare(name, sim_cls, steps=200, **cfg):
-    """The two kernels vs their plain versions on the card from one random
-    state, on a channel with a block of excluded nodes and a thinned
-    patch row (every mask code in both kernels)."""
-    r = run(with_patch_row_mix(with_keep_block(sim_cls)), platform=DEVICE,
-            engine='kernel', max_iters=0, **cfg)
+def vary_compare(name, dim, axis, pair, steps=200, **cfg):
+    """The kernel with varying BC rows vs ``step_reference`` on the card from
+    one random state, on a parabolic-inlet channel with a block of
+    excluded nodes and a thinned inlet face (every mask code, a face with
+    holes, several varying instances)."""
+    sim_cls = with_patch_row_mix(
+        with_keep_block(channel(dim, axis, pair)), axis)
+    r = run(sim_cls, platform=DEVICE, engine='kernel', max_iters=0, **cfg)
     ks = r.kernel
-    codes = sorted(torch.unique(ks.patch.mask_rows).tolist())
-    assert codes[:4] == [0, 1, 2, 3], codes
+    codes = sorted(torch.unique(ks.mask).tolist())
+    varying = [j for j, row in enumerate(ks.table) if row.box is not None]
+    assert ks.vary and varying and codes[:4] == [0, 1, 2, 3], codes
     f0 = random_feq(ks.grid, ks.shape, seed=1234, device=DEVICE)
-    err = patch_errors(ks, f0, steps)
-    assert ks.launches == ks.patch.launches == steps
+    err = vary_errors(ks, f0, steps)
+    assert ks.launches == steps
     grid = ks.grid.name
-    say(f'compare {name}: {grid} {ks.shape}, patch rows '
-        f'{ks.patch.rows.tolist()} with codes {codes}, {steps} steps of '
-        f'lbm_step + bc_patch, wet max|df| = {err:.3e} (tol {TOL:g})')
+    say(f'compare {name}: {grid} {ks.shape}, inlet normal to {axis}, mask '
+        f'codes {codes}, varying instances {varying} ({ks.bcp.numel()} '
+        f'parameter floats), {steps} steps of {ks.name}, wet max|df| = '
+        f'{err:.3e} (tol {TOL:g})')
     del r, ks, f0
     torch.cuda.empty_cache()
     return grid, err
@@ -411,8 +419,7 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     fk = ks.run(f0, 10)
     fr = f0
     for _ in range(10):
-        fr = ls.step_reference(fr, ks.mask, ks.table, r.sim.grid,
-                               ks.tau_inv)
+        fr = ks.reference(fr)
     wet_t = torch.as_tensor(wet, device=DEVICE)
     err = float((fk - fr)[:, wet_t].abs().max())
     say(f'compare main path {scene}: 10 steps from the state after '
@@ -421,9 +428,7 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     del f0, fk, fr, wet_t
     a, b = ks.a, ks.b
     ms = util.cuda_time_ms(lambda: ks.step_into(a, b), 50, warmup=5)
-    plain_ms = util.cuda_time_ms(
-        lambda: ls.step_reference(a, ks.mask, ks.table, r.sim.grid,
-                                  ks.tau_inv), 5)
+    plain_ms = util.cuda_time_ms(lambda: ks.reference(a), 5)
     say(f'kernel {ks.name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
         f'launch; step_reference {plain_ms:.3f} ms')
     result = dict(launches=launches, mlups=mlups, ms=ms,
@@ -433,45 +438,46 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     return grid, result
 
 
-def channel_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
-    """A parabolic-inlet channel through the controller with the default
-    engine: the main path of the patch kernel, two launches per step. The
-    launch counts are zeroed just before the controller runs and read just
-    after. Checks: finite fields, the inlet macro velocity equal to the
-    prescribed profile, the mean wet density within 1 % of 1 and no wet
-    speed above 0.1, and 10 steps from the final state against the plain
-    versions; then ``bc_patch`` is timed alone against its plain version,
-    and a whole step against ``lbm_step`` alone (the patch kernel and its
-    launch gap)."""
+def channel_main_path(scene, copy_bw, chunk=500, chunks=4):
+    """A parabolic-inlet channel of ``CHANNELS`` through the controller
+    with the default engine: a main path of the varying BC rows,
+    ONE launch per step. The launch counts are zeroed just before the
+    controller runs and read just after. Checks: finite fields, the inlet
+    macro velocity equal to the prescribed profile, the mean wet density
+    within 1 % of 1 and no wet speed above 0.1, and 10 steps from the
+    final state against ``step_reference``; then the kernel is timed
+    against its plain version, and against the same channel with a
+    uniform inlet (every BC row on its scalars) in turns, on the same state
+    buffers and mask (two allocations of one size differ by ~0.5 % by
+    themselves): what the per-node parameters cost a step."""
+    axis, size, extra = CHANNELS[scene]
     dim = len(size)
-    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
-    if dim == 3:
-        cfg['periodic_x'] = True
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size), **extra)
     steps = chunk * chunks
     ls.reset_launch_counts()
-    bp.reset_launch_counts()
-    r = run(sim_cls, max_iters=steps, every=chunk, **cfg)
-    counts = {**ls.LAUNCHES, **bp.LAUNCHES}
+    r = run(channel(dim, axis), max_iters=steps, every=chunk, **cfg)
+    counts = dict(ls.LAUNCHES)
     assert r.engine == 'kernel', r.engine
-    ks, patch = r.kernel, r.kernel.patch
-    assert counts[ks.name] == counts[patch.name] == steps \
-        == r.sim.iteration, (counts, steps)
-    assert sum(counts.values()) == 2 * steps, counts
-    assert ks.launches == patch.launches == steps
+    ks = r.kernel
+    assert ks.vary and ks.name == f'lbm_step_vary_{ks.grid.name.lower()}'
+    assert counts[ks.name] == steps == r.sim.iteration == ks.launches, \
+        (counts, steps)
+    assert sum(counts.values()) == steps, counts       # one launch per step
     r._fields_to_host()
     shape = tuple(reversed(size))
     comps = r.sim.velocity_components()
     for name, arr in [('rho', r.sim.rho)] + list(zip('xyz', comps)):
         assert arr.shape == shape and np.all(np.isfinite(arr)), name
-    # the inlet: the low face of the flow axis (z in 3D, y in 2D), the
-    # profile across y (3D) or x (2D)
-    tm = r.maps.type_map
-    inlet = tm == patch.table[0].type_id
-    cross = np.indices(shape)[-2 if dim == 3 else -1]
-    prof = parabolic_profile(cross, shape[-2 if dim == 3 else -1])
-    inlet_err = max(float(np.abs(comps[dim - 1][inlet] - prof[inlet]).max()),
+    # the inlet: the low face of the flow axis; the profile runs across
+    # the walls' axis (y, or x in the 2D channel flowing along y)
+    inlet_row, = (row for row in ks.table if row.box is not None)
+    inlet = r.maps.type_map == inlet_row.type_id
+    flow = 'xyz'.index(axis)
+    across = -2 if dim == 3 or axis == 'x' else -1
+    prof = parabolic_profile(np.indices(shape)[across], shape[across])
+    inlet_err = max(float(np.abs(comps[flow][inlet] - prof[inlet]).max()),
                     max(float(np.abs(c[inlet]).max())
-                        for c in comps[:dim - 1]))
+                        for a, c in enumerate(comps) if a != flow))
     assert inlet_err <= INLET_TOL, inlet_err
     wet = wet_map(r.maps)
     mean_rho = float(np.mean(r.sim.rho[wet]))
@@ -479,39 +485,67 @@ def channel_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     assert abs(mean_rho - 1.0) < 0.01, mean_rho
     assert speed <= 0.1, speed
     grid = ks.grid.name
+    nodes = int(inlet.sum())
     mlups = statistics.median(r.mlups_history[1:])
     eff = mlups * 1e6 * BYTES[grid]
     say(f'main path {scene} {"x".join(map(str, size))} ({grid}, engine '
-        f'{r.engine}): {counts[ks.name]} {ks.name} + {counts[patch.name]} '
-        f'{patch.name} launches, patch rows {patch.rows.tolist()}; MLUPS per '
+        f'{r.engine}, inlet normal to {axis}): {counts[ks.name]} {ks.name} '
+        f'launches and no other, {nodes} nodes with their own parameters '
+        f'(box {inlet_row.box.ext}, {ks.bcp.numel()} floats); MLUPS per '
         f'{chunk}-step chunk {[round(m, 1) for m in r.mlups_history]}; '
         f'median {mlups:.1f} MLUPS; {eff / 1e9:.1f} GB/s effective '
         f'({BYTES[grid]} B/node), {eff / copy_bw:.3f} of the copy '
         f'bandwidth; inlet max|u - profile| = {inlet_err:.2e} (tol '
         f'{INLET_TOL:g}), mean wet rho {mean_rho:.6f}, max wet |u| '
         f'{speed:.4f}')
-    err = patch_errors(ks, r.f.clone(), 10)
+    err = vary_errors(ks, r.f.clone(), 10)
     say(f'compare main path {scene}: 10 steps from the state after '
         f'{steps}, wet max|df| = {err:.3e} (tol {TOL:g})')
     a, b = ks.a, ks.b
-    ms = util.cuda_time_ms(lambda: patch.step_into(a, b), 200, warmup=10)
-    plain_ms = util.cuda_time_ms(lambda: patch.reference(a), 10)
-    step_ms = util.cuda_time_ms(lambda: ks.step_into(a, b), 100, warmup=5)
-    lbm_ms = util.cuda_time_ms(lambda: ks._launch(a, b), 100, warmup=5)
-    share = (step_ms - lbm_ms) / step_ms
-    nodes = int(patch.mask_rows.numel())
-    say(f'kernel {patch.name} at {len(patch.rows)} row(s) of '
-        f'{"x".join(map(str, size))} ({nodes} nodes): {ms:.4f} ms per '
-        f'launch; bc_patch_reference {plain_ms:.3f} ms; a whole step '
-        f'{step_ms:.4f} ms, lbm_step alone {lbm_ms:.4f} ms: the patch kernel '
-        f'and its launch gap are {share:.4f} of a step')
-    result = dict(launches=counts[patch.name], ms=ms, plain_ms=plain_ms,
-                  err=err, nodes=nodes, extra_bytes=4 * len(patch.rows),
-                  mlups=mlups, step_ms=step_ms, lbm_ms=lbm_ms,
-                  lbm_launches=counts[ks.name])
-    del r, ks, patch, a, b
+    plain_ms = util.cuda_time_ms(lambda: ks.reference(a), 5)
+    ru = run(channel(dim, axis, profile=None), max_iters=0, **cfg)
+    ku = ru.kernel
+    assert not ku.vary and torch.equal(ku.mask, ks.mask)
+    ku.a = ku.b = None
+    ku.mask = ks.mask
+    torch.cuda.empty_cache()
+    turns = {'varying': [], 'uniform': []}
+    for which in ('varying', 'uniform', 'uniform', 'varying'):
+        k = ks if which == 'varying' else ku
+        turns[which].append(util.cuda_time_ms(
+            lambda: k.step_into(a, b), 100, warmup=50))
+    ms, uniform_ms = (statistics.mean(turns[w])
+                      for w in ('varying', 'uniform'))
+    share = (ms - uniform_ms) / ms
+    say(f'kernel {ks.name} at {"x".join(map(str, size))}, inlet normal to '
+        f'{axis}: {ms:.4f} ms per launch {turns["varying"]}; step_reference '
+        f'{plain_ms:.3f} ms; the same channel with a uniform inlet '
+        f'({ku.name}) {uniform_ms:.4f} ms {turns["uniform"]}: (varying - '
+        f'uniform) / varying = {share:+.4f} of a step')
+    result = dict(launches=counts[ks.name], ms=ms, plain_ms=plain_ms,
+                  err=err, extra_bytes=4 * (1 + dim) * nodes, mlups=mlups,
+                  uniform_ms=uniform_ms, share=share)
+    del r, ks, ru, ku, a, b
     torch.cuda.empty_cache()
     return grid, result
+
+
+def empty_launch_ms(iters=2000):
+    """Device milliseconds per launch of an empty one-block kernel
+    (``lbm_empty_launch`` of ``csrc/lbm_step.cu``), CUDA events around
+    ``iters`` back-to-back launches: the floor under any kernel's time in
+    a stream of launches, to read a bound smaller than it against."""
+    fn = build.load('lbm_step').lib.lbm_empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = fn(stream)
+        if rc != 0:
+            raise RuntimeError(f'empty launch failed: CUDA error {rc}')
+
+    return util.cuda_time_ms(launch, iters, warmup=10)
 
 
 def bound_ms(name, nodes, extra_bytes=0):
@@ -778,7 +812,7 @@ def main():
     say(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
 
-    sources = ['lbm_step', 'bc_patch', 'sc_multi', 'fe_step']
+    sources = ['lbm_step', 'sc_multi', 'fe_step']
     for name, lib in build.load_all(sources).items():
         say(f'build {name}: {lib.path.name} in {lib.seconds:.1f} s '
             '(0 = cached)')
@@ -810,14 +844,14 @@ def main():
         grid, err = compare(name, sim_cls, **cfg)
         note(f'lbm_step_{grid.lower()}', err)
     for pair in sorted(BC_PAIRS):
-        for dim, sim_cls, cfg in (
-                (3, channel_sim(pair, profile='parabolic'),
-                 dict(lat_nx=128, lat_ny=64, lat_nz=64, periodic_x=True)),
-                (2, channel_sim_2d(pair), dict(lat_nx=1024, lat_ny=1024))):
-            grid, err = patch_compare(f'parabolic_{pair}_{dim}d', sim_cls,
-                                      **cfg)
-            note(f'lbm_step_{grid.lower()}', err)
-            note(f'bc_patch_{grid.lower()}', err)
+        for dim, axis, cfg in (
+                (3, 'z', dict(duct, periodic_x=True)),
+                (3, 'x', dict(duct, periodic_z=True)),
+                (2, 'y', dict(lat_nx=1024, lat_ny=1024)),
+                (2, 'x', dict(lat_nx=1024, lat_ny=1024))):
+            grid, err = vary_compare(f'parabolic_{pair}_{dim}d_{axis}', dim,
+                                     axis, pair, **cfg)
+            note(f'lbm_step_vary_{grid.lower()}', err)
     cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, sim_cls, cfg in (
             ('sc_separation_2d', SEP_2D, dict(lat_nx=1024, lat_ny=1024)),
@@ -863,18 +897,20 @@ def main():
                                  ('ldc_2d', LDC_2D, (4096, 4096))):
         grid, res = main_path(scene, sim_cls, size, copy_bw)
         results[f'lbm_step_{grid.lower()}'] = res
-    for scene, sim_cls, size in (
-            ('parabolic_inlet_3d', CHANNEL_3D, (256, 256, 256)),
-            ('parabolic_inlet_2d', CHANNEL_2D, (4096, 4096))):
-        grid, res = channel_main_path(scene, sim_cls, size, copy_bw)
-        name = f'lbm_step_{grid.lower()}'
-        results[name] = dict(results[name], launches=results[name][
-            'launches'] + res['lbm_launches'])
-        results[f'bc_patch_{grid.lower()}'] = res
-        ldc = results[name]['mlups']
+    for scene in CHANNELS:
+        grid, res = channel_main_path(scene, copy_bw)
+        ldc = results[f'lbm_step_{grid.lower()}']['mlups']
         say(f'{scene}: {res["mlups"]:.1f} MLUPS against {ldc:.1f} on the '
             f'lid-driven cavity of the same size: '
             f'{res["mlups"] / ldc - 1.0:+.4f}')
+        name = f'lbm_step_vary_{grid.lower()}'
+        if name in results:
+            # the x-normal channel: launches of both main paths; the time
+            # and bound of the z- / y-normal one stay in the JSON line
+            res = dict(results[name],
+                       launches=results[name]['launches'] + res['launches'],
+                       err=max(results[name]['err'], res['err']))
+        results[name] = res
     for scene, sim_cls, size in (('sc_separation_3d', SEP_3D,
                                   (256, 256, 256)),
                                  ('sc_separation_2d', SEP_2D, (4096, 4096))):
@@ -904,12 +940,16 @@ def main():
     plain_path('fe_separation_2d', FE['fe_separation_2d'], (4096, 4096),
                chunk=20)
 
+    empty_ms = empty_launch_ms()
+    say(f'empty kernel launch: {empty_ms:.5f} ms per launch (2000 '
+        'back-to-back launches of one empty block, CUDA events): no '
+        'kernel in a stream of launches takes less, whatever its bound')
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         res = results[name]
         assert res['launches'] > 0, name
         note(name, res['err'])
-        nodes = res.get('nodes', 256 ** 3 if 'd3q19' in name else 4096 ** 2)
+        nodes = 256 ** 3 if 'd3q19' in name else 4096 ** 2
         bound, bound_by = bound_ms(name, nodes, res.get('extra_bytes', 0))
         say(f'kernel {name}: {res["ms"]:.4f} ms against a bound of '
             f'{bound:.4f} ms ({bound_by}): {bound / res["ms"]:.3f} of it')

@@ -97,7 +97,10 @@ def _start_build(src):
     if out.exists():
         return src, out, None, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(_tmp_path(out)), str(src)]
+    # -I: a variant source written elsewhere (tools/) still finds the
+    # headers of csrc; a source's own directory is searched first
+    cmd = [find_nvcc(), *NVCC_FLAGS, '-I', str(CSRC), '-o',
+           str(_tmp_path(out)), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return src, out, proc, time.perf_counter()

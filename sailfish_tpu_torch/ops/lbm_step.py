@@ -1,19 +1,22 @@
-"""The kernel engine: one fused stream-and-collide CUDA kernel per step,
-and a patch-row kernel after it where native BCs have spatially varying
-parameters.
+"""The kernel engine: one fused stream-and-collide CUDA kernel launch per
+step, native BCs with spatially varying parameters included.
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
 (``PallasStep2D``, ``make_kernel_2d``) in their mask + in-kernel native-BC
-(``kbc``) modes. The kernel itself is ``csrc/lbm_step.cu``; this module
-classifies the nodes into kernel mask codes, routes the native-BC
-instances between its BC table and the patch kernel (``ops/bc_patch.py``),
-checks that a scene is eligible, and wraps the launches.
+(``kbc``) modes, and of their patch kernels ``make_bc_patch_kernel_3d`` /
+``_2d`` (see ``ops/bc_patch.py``). The kernel itself is
+``csrc/lbm_step.cu``; this module classifies the nodes into kernel mask
+codes, puts every native-BC instance into one BC table (uniform instances
+with their scalars, varying ones with the address of their per-node
+parameters in the array of ``ops/bc_patch.py``), checks that a scene is
+eligible, and wraps the launch.
 
 Beside the wrapper lives ``step_reference``: the same function (state,
-mask codes, BC table in; next state out) as plain PyTorch. The tests use
-it on the CPU and ``chip_smoke.py`` holds the kernel against it on the
-card; the main path never calls it on a CUDA tensor.
+mask codes, BC table and parameter array in; next state out) as plain
+PyTorch. The tests use it on the CPU and ``chip_smoke.py`` holds the
+kernel against it on the card, on uniform and on varying scenes; the main
+path never calls it on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -37,8 +40,14 @@ MAX_BC = 16
 MAX_GRID_YZ = 65535
 #: lattices the kernel is instantiated for
 KERNEL_GRIDS = ('D2Q9', 'D3Q19')
-#: kernel launches per kernel name over all ``KernelStep`` objects
-LAUNCHES = dict.fromkeys((f'lbm_step_{g.lower()}' for g in KERNEL_GRIDS), 0)
+#: kernel launches over all ``KernelStep`` objects, counted apart by what
+#: the launch computes: ``lbm_step_<grid>`` (every BC instance uniform)
+#: and ``lbm_step_vary_<grid>`` (some instance reads per-node parameters:
+#: the work of the JAX package's patch kernels); one C entry,
+#: ``lbm_step_<grid>``, serves both
+LAUNCHES = dict.fromkeys(
+    (f'lbm_step_{v}{g.lower()}' for v in ('', 'vary_') for g in KERNEL_GRIDS),
+    0)
 
 
 def reset_launch_counts():
@@ -56,8 +65,13 @@ BC_KINDS = {
 }
 
 #: one BC-table row: node type id, orientation code (1-based, into
-#: grid.orientation_vectors), prescribed density and velocity (x, y, z)
-BCRow = namedtuple('BCRow', ('type_id', 'orientation', 'rho', 'u'))
+#: grid.orientation_vectors), prescribed density and velocity (x, y, z),
+#: and for an instance whose parameters vary from node to node the
+#: ``bc_patch.Box`` of its block in the parameter array (else None; the
+#: scalars then hold the values at the instance's first node and are not
+#: read)
+BCRow = namedtuple('BCRow', ('type_id', 'orientation', 'rho', 'u', 'box'),
+                   defaults=(None,))
 
 
 def classify_nodes(maps):
@@ -100,12 +114,13 @@ def classify_nodes(maps):
     return mask, instances, reasons
 
 
-def bc_table(maps, instances):
+def bc_table(maps, instances, boxes=None):
     """One ``BCRow`` per instance, holding its prescribed parameters at its
-    first node: the parameters of a uniform instance (``bc_patch.route``
-    sends the others to the patch kernel, which reads them per node)."""
+    first node (the parameters of a uniform instance) and its entry of
+    ``boxes`` (``bc_patch.instance_boxes``; default: all uniform)."""
     rows = []
-    for tid, k, sel in instances:
+    boxes = boxes or [None] * len(instances)
+    for (tid, k, sel), box in zip(instances, boxes):
         cls = nt.get_node_type(tid)
         rho, vel = 1.0, [0.0, 0.0, 0.0]
         if 'velocity' in cls.param_names:
@@ -113,13 +128,14 @@ def bc_table(maps, instances):
                 vel[a] = float(maps.param_vel[a][sel][0])
         else:
             rho = float(maps.param_rho[sel][0])
-        rows.append(BCRow(tid, k, rho, tuple(vel)))
+        rows.append(BCRow(tid, k, rho, tuple(vel), box))
     return rows
 
 
-def kernel_ineligibility(builder):
+def kernel_ineligibility(builder, nodes=None):
     """Reasons the kernel cannot run ``builder``'s scene (empty when it
-    can). The torch ``StepBuilder`` already refuses non-BGK models, body
+    can); ``nodes`` is ``classify_nodes`` of its maps when the caller has
+    it. The torch ``StepBuilder`` already refuses non-BGK models, body
     forces, Shan-Chen and dynamic BC parameters."""
     reasons = []
     if builder.grid.name not in KERNEL_GRIDS:
@@ -133,26 +149,48 @@ def kernel_ineligibility(builder):
     if any(s > MAX_GRID_YZ for s in shape[:-1]):
         reasons.append(f'domain {shape}: y and z extents above '
                        f'{MAX_GRID_YZ}')
-    mask, instances, why = classify_nodes(builder.maps)
+    _mask, instances, why = nodes or classify_nodes(builder.maps)
     reasons += why
     if not why:
-        reasons += bc_patch.route(builder.maps, mask, instances).reasons
+        reasons += bc_patch.instance_boxes(builder.maps, instances)[1]
     return reasons
 
 
-def step_reference(f, mask, table, grid, tau_inv):
-    """Plain PyTorch version of the kernel: one step of state ``f``
-    (Q, *S) under uint8 mask codes ``mask`` (*S) and BC table ``table``
-    (list of ``BCRow``), with relaxation rate ``tau_inv``."""
+def box_params(row, bcp, shape):
+    """Full-shape prescribed fields (rho (*S), u (dim, *S)) of the varying
+    table row ``row``: its block of the parameter array ``bcp`` inside its
+    box, rho = 1 and u = 0 elsewhere (no node of the instance lies
+    there)."""
+    dim = len(shape)
+    ext = tuple(reversed(row.box.ext[:dim]))
+    n = (1 + dim) * int(np.prod(ext))
+    block = bcp[row.box.offset:row.box.offset + n].reshape((1 + dim,) + ext)
+    full = torch.zeros((1 + dim,) + tuple(shape), dtype=bcp.dtype,
+                       device=bcp.device)
+    full[0] = 1.0
+    full[(slice(None),) + bc_patch.box_slices(row.box, dim)] = block
+    return full[0], full[1:]
+
+
+def step_reference(f, mask, table, grid, tau_inv, bcp=None):
+    """Plain PyTorch version of the kernel: one step
+    of state ``f`` (Q, *S) under uint8 mask codes ``mask`` (*S) and BC
+    table ``table`` (list of ``BCRow``), with relaxation rate ``tau_inv``.
+    A row with a box takes each node's rho and u from the fp32 parameter
+    array ``bcp`` (``bc_patch.param_array``)."""
     fs = st.gather(grid, f)
     rho, u = eq.macroscopic(grid, fs)
     ones = (1,) * (f.dim() - 1)
     instances = []
     for j, row in enumerate(table):
-        rho_bc = torch.tensor(row.rho, dtype=f.dtype,
-                              device=f.device).reshape(ones)
-        vel_bc = torch.tensor(row.u[:grid.dim], dtype=f.dtype,
-                              device=f.device).reshape((grid.dim,) + ones)
+        if row.box is not None:
+            rho_bc, vel_bc = box_params(row, bcp.to(f.dtype), mask.shape)
+        else:
+            rho_bc = torch.tensor(row.rho, dtype=f.dtype,
+                                  device=f.device).reshape(ones)
+            vel_bc = torch.tensor(row.u[:grid.dim], dtype=f.dtype,
+                                  device=f.device).reshape(
+                                      (grid.dim,) + ones)
         instances.append((nt.get_node_type(row.type_id), row.orientation,
                           mask == 3 + j, rho_bc, vel_bc))
     rho, u = st.solve_macro_bc(grid, instances, fs, rho, u)
@@ -168,6 +206,11 @@ class _BC(ctypes.Structure):
                 ('u', ctypes.c_float * 3)]
 
 
+class _Vary(ctypes.Structure):
+    _fields_ = [('varies', ctypes.c_int), ('lo', ctypes.c_int * 3),
+                ('ext', ctypes.c_int * 3), ('offset', ctypes.c_int)]
+
+
 class _Params(ctypes.Structure):
     _fields_ = [('nx', ctypes.c_int), ('ny', ctypes.c_int),
                 ('nz', ctypes.c_int), ('nbc', ctypes.c_int),
@@ -175,12 +218,13 @@ class _Params(ctypes.Structure):
                 ('c', (ctypes.c_int * 3) * MAX_Q),
                 ('w', ctypes.c_float * MAX_Q),
                 ('opp', ctypes.c_int * MAX_Q),
-                ('bc', _BC * MAX_BC)]
+                ('bc', _BC * MAX_BC), ('vary', _Vary * MAX_BC)]
 
 
 def kernel_params(grid, shape, table, tau_inv):
     """The kernel's by-value parameter block: domain extents, the lattice
-    tables of ``sailfish_tpu_torch.lattice`` and the BC table."""
+    tables of ``sailfish_tpu_torch.lattice``, the BC table and, behind
+    it, where each varying row's per-node parameters lie."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
     p.nx, p.ny, p.nz = nx, ny, nz
@@ -200,6 +244,12 @@ def kernel_params(grid, shape, table, tau_inv):
         p.bc[j].rho = row.rho
         for a in range(3):
             p.bc[j].u[a] = row.u[a]
+        if row.box is not None:
+            p.vary[j].varies = 1
+            p.vary[j].offset = row.box.offset
+            for a in range(3):
+                p.vary[j].lo[a] = row.box.lo[a]
+                p.vary[j].ext[a] = row.box.ext[a]
     return p
 
 
@@ -213,56 +263,55 @@ def kernel_function(lib, name):
                            'csrc/lbm_common.cuh and ops/lbm_step.py')
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.POINTER(_Params), ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 class KernelStep:
     """The kernel engine for one scene: two state buffers A and B swapped
-    every step, the uint8 mask, the BC table of the uniform native-BC
-    instances, ``patch`` (a ``bc_patch.BCPatch`` for the rows of the
-    spatially varying ones, or None) and ``launches``, the number of
-    ``lbm_step`` launches this object has made."""
+    every step, the uint8 mask, the BC table of every native-BC instance
+    (mask code 3 + its index), ``bcp`` (the fp32 per-node parameter array
+    of the varying instances), ``vary`` (whether any instance varies),
+    ``entry`` (the C entry, ``lbm_step_<grid>``), ``name`` (the key of
+    ``LAUNCHES`` its launches count under: ``lbm_step_vary_<grid>`` when
+    ``vary``) and ``launches``, the number of kernel launches this object
+    has made: one per step."""
 
     def __init__(self, builder):
-        reasons = kernel_ineligibility(builder)
+        maps = builder.maps
+        nodes = classify_nodes(maps)
+        reasons = kernel_ineligibility(builder, nodes)
         if reasons:
             raise NotImplementedError(
                 'the CUDA stream-and-collide kernel cannot run this scene: '
                 + '; '.join(reasons))
         self.grid = builder.grid
         self.tau_inv = builder.tau_inv
-        maps = builder.maps
-        mask_np, instances, _ = classify_nodes(maps)
-        route = bc_patch.route(maps, mask_np, instances)
-        self.table = bc_table(maps, [instances[j] for j in route.uniform])
+        mask_np, instances, _ = nodes
+        boxes, _ = bc_patch.instance_boxes(maps, instances)
+        self.table = bc_table(maps, instances, boxes)
+        self.vary = any(box is not None for box in boxes)
         self.shape = mask_np.shape
         self.device = builder.device
-        self.mask = torch.as_tensor(route.mask, device=self.device)
-        self.patch = None
-        if route.patch:
-            table = bc_table(maps, [instances[j] for j in route.patch])
-            self.patch = bc_patch.BCPatch(
-                self.grid, route,
-                bc_patch.param_planes(maps, route.rows, self.grid.dim),
-                table, kernel_params(self.grid, self.shape, table,
-                                     self.tau_inv),
-                self.tau_inv, self.device)
+        self.mask = torch.as_tensor(mask_np, device=self.device)
+        self.bcp = torch.as_tensor(bc_patch.param_array(maps, boxes),
+                                   device=self.device)
         full = (self.grid.Q,) + self.shape
         self.a = torch.empty(full, dtype=torch.float32, device=self.device)
         self.b = torch.empty_like(self.a)
         self.params = kernel_params(self.grid, self.shape, self.table,
                                     self.tau_inv)
-        self.name = f'lbm_step_{self.grid.name.lower()}'
+        self.entry = f'lbm_step_{self.grid.name.lower()}'
+        self.name = self.entry.replace('step_', 'step_vary_') \
+            if self.vary else self.entry
         self.launches = 0
         self._fn = None
 
     def step_into(self, src, dst):
         """One step from ``src`` into ``dst`` (distinct (Q, *S) fp32
         buffers on the mask's device). On a CUDA tensor this launches the
-        kernel, then the patch kernel on the same stream; on a CPU tensor
-        it runs ``step_reference``, then ``bc_patch_reference``."""
+        kernel once; on a CPU tensor it runs ``step_reference``."""
         full = (self.grid.Q,) + self.shape
         for t in (src, dst):
             if t.dtype != torch.float32 or tuple(t.shape) != full:
@@ -276,21 +325,24 @@ class KernelStep:
         if src.data_ptr() == dst.data_ptr():
             raise ValueError('the pull step cannot run in place')
         if src.device.type == 'cpu':
-            dst.copy_(step_reference(src, self.mask, self.table, self.grid,
-                                     self.tau_inv))
+            dst.copy_(self.reference(src))
         else:
             self._launch(src, dst)
-        if self.patch is not None:
-            self.patch.step_into(src, dst)
+
+    def reference(self, f):
+        """``step_reference`` of this scene on the state ``f``."""
+        return step_reference(f, self.mask, self.table, self.grid,
+                              self.tau_inv, self.bcp)
 
     def _launch(self, src, dst):
         if src.device.type != 'cuda':
             raise ValueError(f'no kernel for device {src.device}')
         if self._fn is None:
             from sailfish_tpu_torch.ops import build
-            self._fn = kernel_function(build.load('lbm_step').lib, self.name)
+            self._fn = kernel_function(build.load('lbm_step').lib,
+                                       self.entry)
         rc = self._fn(src.data_ptr(), dst.data_ptr(), self.mask.data_ptr(),
-                      ctypes.byref(self.params),
+                      self.bcp.data_ptr(), ctypes.byref(self.params),
                       torch.cuda.current_stream(src.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f'{self.name} launch failed: CUDA error {rc}')

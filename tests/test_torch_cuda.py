@@ -16,13 +16,15 @@ separation twins (a block of excluded nodes added), from seeded
 near-uniform two-component states: the density pre-pass after one launch
 (<= 1e-6) and the coupled step over 20 steps (wet-node max |df| <= 1e-5).
 
-The patch-row kernel (``ops/bc_patch``) is held against
-``bc_patch_reference`` on parabolic-inlet channels of each BC pair, 3D and
-2D (the patch row thinned so it holds every mask code): one launch into the
-rows (<= 1e-6), and 50 steps of ``lbm_step`` + ``bc_patch`` against
-``step_reference`` + ``bc_patch_reference`` (wet-node max |df| <= 1e-5).
-The channels run through the controller on the kernel engine and on the
-torch engine for 30 steps (<= 1e-5).
+The kernel with varying BC rows (launches counted as
+``lbm_step_vary_<grid>``: native BCs that read each node's own rho and u
+from the parameter array of ``ops/bc_patch``) is held against
+``step_reference`` on parabolic-inlet
+channels of each BC pair, 3D with the inlet normal to z and to x and 2D
+normal to y and to x (the inlet face thinned so it has holes and the mask
+holds every code): one launch (wet-node max |df| <= 1e-6) and 50 steps
+(<= 1e-5). The channels run through the controller on the kernel engine,
+one launch per step, and on the torch engine for 30 steps (<= 1e-5).
 
 The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
 the order parameter, then ``fe_step``) are held against ``rho_reference``
@@ -41,7 +43,6 @@ import ctypes
 import pytest
 import torch
 
-from sailfish_tpu_torch.ops import bc_patch as bp
 from sailfish_tpu_torch.ops import build
 from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
@@ -83,9 +84,9 @@ def test_kernel_matches_step_reference(cuda, scene):
     fk = ks.run(f0, 50)
     fr = f0
     for _ in range(50):
-        fr = ls.step_reference(fr, ks.mask, ks.table, grid, ks.tau_inv)
+        fr = ks.reference(fr)
     torch.cuda.synchronize()
-    assert ks.launches == 50
+    assert ks.launches == 50 and not ks.vary
     wet = (ks.mask == 0) | (ks.mask >= 3)
     assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
 
@@ -119,64 +120,62 @@ def test_wrapper_refuses_bad_buffers(cuda):
     assert ks.launches == 0
 
 
-PATCH_SIZES = {3: dict(lat_nx=40, lat_ny=24, lat_nz=32, periodic_x=True),
-               2: dict(lat_nx=300, lat_ny=200)}
+#: (dimension, inlet axis) -> size; the flow axis is the long one
+VARY_SIZES = {
+    (3, 'z'): dict(lat_nx=40, lat_ny=24, lat_nz=32, periodic_x=True),
+    (3, 'x'): dict(lat_nx=40, lat_ny=24, lat_nz=32, periodic_z=True),
+    (2, 'y'): dict(lat_nx=300, lat_ny=200),
+    (2, 'x'): dict(lat_nx=300, lat_ny=200),
+}
 
 
-def _parabolic(pair, dim):
-    return (channel_sim(pair, profile='parabolic') if dim == 3
-            else channel_sim_2d(pair))
+def _parabolic(pair, dim, axis):
+    return (channel_sim(pair, axis, profile='parabolic') if dim == 3
+            else channel_sim_2d(pair, axis=axis))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('dim', [3, 2])
+@pytest.mark.parametrize('dim,axis', sorted(VARY_SIZES))
 @pytest.mark.parametrize('pair', sorted(BC_PAIRS))
-def test_bc_patch_matches_reference(cuda, pair, dim):
-    r = run(with_patch_row_mix(with_keep_block(_parabolic(pair, dim))),
-            platform='cuda', engine='kernel', max_iters=0,
-            **PATCH_SIZES[dim])
+def test_varying_step_matches_reference(cuda, pair, dim, axis):
+    sim = with_patch_row_mix(with_keep_block(_parabolic(pair, dim, axis)),
+                             axis)
+    r = run(sim, platform='cuda', engine='kernel', max_iters=0,
+            **VARY_SIZES[dim, axis])
     ks = r.kernel
-    patch = ks.patch
-    assert sorted(torch.unique(patch.mask_rows).tolist())[:4] == [0, 1, 2, 3]
-    grid = r.sim.grid
-    f0 = random_feq(grid, ks.shape, seed=6, device='cuda')
+    assert ks.vary and ks.name == f'lbm_step_vary_{r.sim.grid.name.lower()}'
+    assert any(row.box is not None for row in ks.table)
+    assert sorted(torch.unique(ks.mask).tolist())[:4] == [0, 1, 2, 3]
+    f0 = random_feq(r.sim.grid, ks.shape, seed=6, device='cuda')
+    wet = (ks.mask == 0) | (ks.mask >= 3)
     out = torch.zeros_like(f0)
-    patch.step_into(f0, out)
+    ks.step_into(f0, out)
     torch.cuda.synchronize()
-    assert patch.launches == 1
-    rows = patch.rows.long()
-    err = float((out[:, rows] - patch.reference(f0)).abs().max())
-    assert err <= 1e-6
+    assert ks.launches == 1
+    assert float((out - ks.reference(f0))[:, wet].abs().max()) <= 1e-6
     fk = ks.run(f0, 50)
     fr = f0
     for _ in range(50):
-        fn = ls.step_reference(fr, ks.mask, ks.table, grid, ks.tau_inv)
-        fn[:, rows] = patch.reference(fr)
-        fr = fn
+        fr = ks.reference(fr)
     torch.cuda.synchronize()
-    assert ks.launches == 50 and patch.launches == 51
-    wet = (ks.mask == 0) | (ks.mask >= 3)
-    wet[rows] = (patch.mask_rows == 0) | (patch.mask_rows >= 3)
+    assert ks.launches == 51
     assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('dim', [3, 2])
-def test_default_engine_on_cuda_runs_the_patch_kernel(cuda, dim):
+@pytest.mark.parametrize('dim,axis', sorted(VARY_SIZES))
+def test_default_engine_on_cuda_makes_one_launch_per_step(cuda, dim, axis):
     ls.reset_launch_counts()
-    bp.reset_launch_counts()
-    r = run(_parabolic('regularized', dim), max_iters=30, every=10,
-            **PATCH_SIZES[dim])
-    assert r.engine == 'kernel'
-    assert ls.LAUNCHES[r.kernel.name] == bp.LAUNCHES[r.kernel.patch.name] \
-        == 30
-    ref = run(_parabolic('regularized', dim), engine='torch', max_iters=30,
-              every=10, **PATCH_SIZES[dim])
+    sim = _parabolic('regularized', dim, axis)
+    r = run(sim, max_iters=30, every=10, **VARY_SIZES[dim, axis])
+    assert r.engine == 'kernel' and r.kernel.vary
+    assert ls.LAUNCHES[r.kernel.name] == r.kernel.launches == 30
+    assert sum(ls.LAUNCHES.values()) == 30
+    ref = run(sim, engine='torch', max_iters=30, every=10,
+              **VARY_SIZES[dim, axis])
     assert ref.engine == 'torch'
     assert bool(torch.isfinite(r.f).all())
-    mask, patch = r.kernel.mask, r.kernel.patch
-    wet = (mask == 0) | (mask >= 3)
-    wet[patch.rows.long()] = (patch.mask_rows == 0) | (patch.mask_rows >= 3)
+    wet = (r.kernel.mask == 0) | (r.kernel.mask >= 3)
     assert float((r.f - ref.f)[:, wet].abs().max()) <= 1e-5
 
 

@@ -1,6 +1,6 @@
 """The kernel engine's Python side: node classification, BC table,
-eligibility, parameter block, and ``step_reference`` (the plain PyTorch
-version of the CUDA kernel).
+eligibility and its named refusals, parameter block, and
+``step_reference`` (the plain PyTorch version of the CUDA kernel).
 
 ``step_reference`` is held against the JAX Pallas engine run the way the
 JAX tests run it on the CPU (``engine='pallas'``, interpret mode): LDC 3D
@@ -21,12 +21,13 @@ from sailfish_tpu import node_type as nt
 from sailfish_tpu.controller import \
     LBSimulationController as JaxController
 from sailfish_tpu.subdomain import Subdomain2D
+from sailfish_tpu_torch import node_type as nt_torch
 from sailfish_tpu_torch.models.single import LBFluidSim
 from sailfish_tpu_torch.ops import bc_patch as bp
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.state import state_to_numpy
-from torch_scenes import (BC_PAIRS, channel_sim, cpu_runner, load_example,
-                          random_feq, twin, with_keep_block)
+from torch_scenes import (BC_PAIRS, channel_sim, channel_sim_2d, cpu_runner,
+                          load_example, random_feq, twin, with_keep_block)
 
 torch.set_num_threads(1)
 
@@ -102,12 +103,24 @@ def test_keep_codes_and_uniformity():
     (tid, _k, sel), = instances
     assert bp.varying_params(r.maps, tid, sel) == [
         'spatially varying NTZouHeVelocity velocity']
-    # the varying instance runs on the patch kernel (its row, y = 7);
-    # the main kernel keeps its nodes (code 2) and has no BC table
+    # the varying instance is a row of the one BC table (code 3) with
+    # the box of its nodes (x = 4..7 of the row y = 7); its per-node u_x
+    # and u_y follow rho in the parameter array
     ks = ls.KernelStep(r.builder)
-    assert ks.table == [] and ks.patch.rows.tolist() == [7]
-    assert sorted(np.unique(ks.mask.numpy())) == [0, 1, 2]
-    assert np.array_equal(ks.patch.mask_rows.numpy()[0], mask[7])
+    assert ks.vary and (ks.entry, ks.name) == ('lbm_step_d2q9',
+                                               'lbm_step_vary_d2q9')
+    assert [(t.type_id, t.box) for t in ks.table] == [
+        (tid, bp.Box(0, (4, 7, 0), (4, 1, 1)))]
+    assert np.array_equal(ks.mask.numpy(), mask)
+    np.testing.assert_array_equal(
+        ks.bcp.numpy().reshape(3, 4),
+        np.array([[1.0] * 4, [0.04, 0.05, 0.06, 0.07], [0.0] * 4],
+                 dtype=np.float32))
+    p = ks.params
+    assert (p.vary[0].varies, p.vary[0].offset) == (1, 0)
+    assert (list(p.vary[0].lo), list(p.vary[0].ext)) == ([4, 7, 0],
+                                                         [4, 1, 1])
+    assert p.vary[1].varies == 0
 
 
 @pytest.mark.parametrize('cfg,match', [
@@ -165,6 +178,161 @@ def test_step_reference_matches_torch_engine(pair, axis):
 
 def test_params_layout_matches_the_c_struct():
     # int nx, ny, nz, nbc; float tau_inv; int c[27][3]; float w[27];
-    # int opp[27]; LBMBC bc[16] with LBMBC = 4 ints/floats + float[3]
-    assert ctypes.sizeof(ls._Params) == 4 * (5 + 27 * 3 + 27 + 27
-                                             + 16 * 7)
+    # int opp[27]; LBMBC bc[16] with LBMBC = 4 ints/floats + float[3];
+    # then LBMVary vary[16] with LBMVary = int varies, lo[3], ext[3],
+    # offset: 32 B a row. The part up to the BC table is laid out as
+    # before the varying rows existed, the whole block stays well under
+    # the 4 KB of kernel parameters, and no member is wider than 4 bytes
+    # (an 8-byte one changes the block's alignment and slows the kernel)
+    assert ctypes.sizeof(ls._BC) == 28
+    assert ls._Params.vary.offset == 4 * (5 + 27 * 3 + 27 + 27 + 16 * 7) \
+        == 1008
+    assert ctypes.sizeof(ls._Vary) == 32
+    assert ctypes.sizeof(ls._Params) == 1008 + 16 * 32 == 1520
+    assert ctypes.alignment(ls._Params) == 4
+
+
+def test_kernel_function_checks_the_params_size():
+    """``kernel_function`` refuses a library whose ``LBMParams`` differs
+    from ``_Params``, and types the entry otherwise (parameter array
+    fourth, parameter block fifth)."""
+    class Entry:
+        argtypes = restype = None
+
+    class Lib:
+        def __init__(self, size):
+            self.lbm_params_size = lambda: size
+            self.lbm_step_d3q19 = Entry()
+
+    with pytest.raises(RuntimeError, match='LBMParams layout differs'):
+        ls.kernel_function(Lib(ctypes.sizeof(ls._Params) - 8),
+                           'lbm_step_d3q19')
+    fn = ls.kernel_function(Lib(ctypes.sizeof(ls._Params)), 'lbm_step_d3q19')
+    assert fn.argtypes[:4] == [ctypes.c_void_p] * 4
+    assert fn.argtypes[4] == ctypes.POINTER(ls._Params)
+    # launches are counted apart by what they compute; one entry serves
+    assert sorted(ls.LAUNCHES) == ['lbm_step_d2q9', 'lbm_step_d3q19',
+                                   'lbm_step_vary_d2q9',
+                                   'lbm_step_vary_d3q19']
+
+
+def _many_instances_sim():
+    """A 3D box whose six faces each carry Zou-He, equilibrium and
+    regularized velocity nodes in stripes: 6 orientations x 3 types = 18
+    native-BC instances, two more than the kernel's table holds."""
+    from sailfish_tpu_torch.subdomain import Subdomain3D
+
+    class Scene(Subdomain3D):
+        def boundary_conditions(self, hx, hy, hz):
+            h, g = (hx, hy, hz), (self.gx, self.gy, self.gz)
+            types = (nt_torch.NTZouHeVelocity, nt_torch.NTEquilibriumVelocity,
+                     nt_torch.NTRegularizedVelocity)
+            edge = np.zeros(self.shape, dtype=bool)
+            for a in range(3):
+                edge |= (h[a] == 0) | (h[a] == g[a] - 1)
+            self.set_node(edge, nt_torch.NTFullBBWall)
+            for a in range(3):
+                others = [k for k in range(3) if k != a]
+                inner = np.ones(self.shape, dtype=bool)
+                for k in others:
+                    inner &= (h[k] >= 2) & (h[k] < g[k] - 2)
+                stripe = h[others[0]] % 3
+                for face in (0, g[a] - 1):
+                    for t, cls in enumerate(types):
+                        self.update_node(
+                            (h[a] == face) & inner & (stripe == t),
+                            cls((0.0, 0.0, 0.0)))
+
+    class Sim(LBFluidSim):
+        subdomain = Scene
+
+    return Sim
+
+
+def _no_orientation_sim():
+    """A Zou-He velocity node buried in a wall three nodes thick: no wet
+    neighbour along any axis, no detected orientation."""
+    from sailfish_tpu_torch.subdomain import Subdomain2D as TorchSubdomain2D
+
+    class Scene(TorchSubdomain2D):
+        def boundary_conditions(self, hx, hy):
+            self.set_node(hx <= 2, nt_torch.NTFullBBWall)
+            self.update_node((hx == 1) & (hy == 4),
+                             nt_torch.NTZouHeVelocity((0.01, 0.0)))
+
+    class Sim(LBFluidSim):
+        subdomain = Scene
+
+    return Sim
+
+
+def _diagonal_sim():
+    """Two velocity nodes with different u on the x = 0 column, 32 rows
+    apart (a box of 1 x 33), the rest of the column a wall."""
+    from sailfish_tpu_torch.subdomain import Subdomain2D as TorchSubdomain2D
+
+    class Scene(TorchSubdomain2D):
+        def boundary_conditions(self, hx, hy):
+            self.set_node((hx == 0) & ~np.isin(hy, (8, 40)),
+                          nt_torch.NTFullBBWall)
+            self.set_node((hx == 0) & np.isin(hy, (8, 40)),
+                          nt_torch.NTZouHeVelocity((0.001 * hy, 0.0)))
+
+    class Sim(LBFluidSim):
+        subdomain = Scene
+
+    return Sim
+
+
+@pytest.mark.parametrize('make_sim,cfg,match', [
+    (_many_instances_sim, dict(lat_nx=12, lat_ny=12, lat_nz=12),
+     r'18 BC instances \(the kernel takes at most 16\)'),
+    (_no_orientation_sim, dict(lat_nx=8, lat_ny=8),
+     'NTZouHeVelocity nodes without a detected orientation'),
+    (_diagonal_sim, dict(lat_nx=16, lat_ny=48),
+     r'2 nodes with spatially varying parameters in a bounding box of 33 '
+     r'\(the parameter array takes at most 16 times the node count\)'),
+], ids=['too_many_instances', 'no_orientation', 'sparse_box'])
+def test_remaining_refusals_are_named(make_sim, cfg, match):
+    r = cpu_runner(make_sim(), **cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        ls.KernelStep(r.builder)
+
+
+@pytest.mark.parametrize('dim,axis', [(3, 'z'), (3, 'x'), (2, 'y'), (2, 'x')])
+@pytest.mark.parametrize('pair', sorted(BC_PAIRS))
+def test_step_reference_takes_per_node_parameters(pair, dim, axis):
+    """``step_reference`` with a varying row (parameters from the array)
+    against the torch engine's per-node parameter fields, with a block of
+    excluded nodes, from a random equilibrium state: 10 steps, wet-node
+    max |df| <= 1e-6; and the same table with the box dropped (the scalars
+    of the first node everywhere) must differ: the array is what is
+    read."""
+    if dim == 3:
+        sim = channel_sim(pair, axis, profile='parabolic')
+        cfg = dict(lat_nx=16, lat_ny=12, lat_nz=12)
+    else:
+        sim = channel_sim_2d(pair, axis=axis)
+        cfg = dict(lat_nx=24, lat_ny=20)
+    r = cpu_runner(with_keep_block(sim), **cfg)
+    mask_np, instances, reasons = ls.classify_nodes(r.maps)
+    assert reasons == [] and sorted(np.unique(mask_np)) == [0, 1, 2, 3, 4]
+    boxes, why = bp.instance_boxes(r.maps, instances)
+    assert why == [] and sum(b is not None for b in boxes) == 1
+    table = ls.bc_table(r.maps, instances, boxes)
+    bcp = torch.from_numpy(bp.param_array(r.maps, boxes))
+    mask = torch.from_numpy(mask_np)
+    f0 = random_feq(r.sim.grid, mask_np.shape, seed=8, device='cpu')
+    f = ft = f0
+    step = r.builder.build()
+    for _ in range(10):
+        f = ls.step_reference(f, mask, table, r.sim.grid, r.builder.tau_inv,
+                              bcp)
+        ft = step(ft)
+    wet = torch.from_numpy((mask_np == 0) | (mask_np >= 3))
+    assert float((f - ft)[:, wet].abs().max()) <= 1e-6
+    flat = [row._replace(box=None) for row in table]
+    fu = ls.step_reference(f0, mask, flat, r.sim.grid, r.builder.tau_inv)
+    fv = ls.step_reference(f0, mask, table, r.sim.grid, r.builder.tau_inv,
+                           bcp)
+    assert float((fu - fv)[:, wet].abs().max()) > 1e-4

@@ -133,26 +133,31 @@ def channel_sim(pair, axis='z', profile=None):
     return Sim
 
 
-def channel_sim_2d(pair, profile='parabolic'):
-    """The 2D twin of ``channel_sim``: bounce-back walls normal to x, the
-    velocity inlet (``parabolic_profile`` across x, or uniform 0.03 with
-    ``profile=None``) at y = 0 and the density outlet (rho = 1) at the
-    top row."""
+def channel_sim_2d(pair, profile='parabolic', axis='y'):
+    """The 2D twin of ``channel_sim``, flowing along ``axis``: bounce-back
+    walls normal to the other axis, the velocity inlet
+    (``parabolic_profile`` across the channel, or uniform 0.03 with
+    ``profile=None``) at the low face normal to ``axis`` (y = 0, or
+    x = 0) and the density outlet (rho = 1) at the high face."""
     vel_cls, den_cls = BC_PAIRS[pair]
+    a = 'xy'.index(axis)
 
     class Channel(Subdomain2D):
         def boundary_conditions(self, hx, hy):
-            walls = (hx == 0) | (hx == self.gx - 1)
+            h, n = (hx, hy)[a], (self.gx, self.gy)[a]
+            s, ns = (hx, hy)[1 - a], (self.gx, self.gy)[1 - a]
+            walls = (s == 0) | (s == ns - 1)
             self.set_node(walls, nt.NTFullBBWall)
             un = U_INLET
             if profile == 'parabolic':
-                un = parabolic_profile(hx, self.gx)
-            self.set_node((hy == 0) & ~walls, vel_cls((0.0, un)))
-            self.set_node((hy == self.gy - 1) & ~walls, den_cls(1.0))
+                un = parabolic_profile(s, ns)
+            u_in = tuple(un if i == a else 0.0 for i in range(2))
+            self.set_node((h == 0) & ~walls, vel_cls(u_in))
+            self.set_node((h == n - 1) & ~walls, den_cls(1.0))
 
         def initial_conditions(self, sim, hx, hy):
             sim.rho[:] = 1.0
-            sim.vy[:] = 0.01
+            getattr(sim, f'v{axis}')[:] = 0.01
 
     class Sim(LBFluidSim):
         subdomain = Channel
@@ -181,23 +186,24 @@ def with_keep_block(sim_cls):
     return Sim
 
 
-def with_patch_row_mix(sim_cls):
-    """``sim_cls`` with the BC nodes of its first row along the array's
-    axis 0 (the z = 0 plane in 3D, the y = 0 row in 2D) thinned: every
-    eighth one along x made plain fluid and every eighth (offset by four)
-    excluded, so the patch kernel's rows hold mask codes 0, 1, 2 and 3+ (the
-    BC nodes next to the fluid ones detect x-normal orientations: more
-    patch instances)."""
+def with_patch_row_mix(sim_cls, axis):
+    """``sim_cls`` with the BC nodes of its low face normal to ``axis``
+    ('x', 'y' or 'z') thinned: every eighth one along x (along y
+    on an x-normal face) made plain fluid and every eighth (offset by
+    four) excluded, so the face has holes and holds mask codes 0, 1, 2 and
+    3+ (the BC nodes next to the fluid ones detect tangential
+    orientations: more, sparser varying instances)."""
     block = sim_cls.subdomain
 
     class Mix(block):
         def boundary_conditions(self, *h):
             super().boundary_conditions(*h)
-            hx = h[0]
+            a = 'xyz'.index(axis)
+            along = h[1] if a == 0 else h[0]
             tm = self.maps.type_map
-            bc = (h[-1] == 0) & (tm != nt.NTFullBBWall.id) & (tm != 0)
-            self.update_node(bc & (hx % 8 == 1), nt._NTFluid)
-            self.update_node(bc & (hx % 8 == 5), nt._NTUnused)
+            bc = (h[a] == 0) & (tm != nt.NTFullBBWall.id) & (tm != 0)
+            self.update_node(bc & (along % 8 == 1), nt._NTFluid)
+            self.update_node(bc & (along % 8 == 5), nt._NTUnused)
 
     class Sim(sim_cls):
         subdomain = Mix

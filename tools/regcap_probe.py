@@ -2,6 +2,7 @@
 """Register-cap probe of the stream-and-collide kernel on one CUDA GPU.
 
     python3 tools/regcap_probe.py [--steps 2000] [--iters 50]
+                                  [--scenes ldc_3d,ldc_2d,...]
 
 Builds variants of ``sailfish_tpu_torch/ops/csrc/lbm_step.cu`` that differ
 from it only in the kernel's ``__launch_bounds__``: a minimum number of
@@ -15,7 +16,9 @@ resident 128-thread blocks per SM, which caps the registers per thread
   of 1 on D2Q9.
 
 Each variant is bound to the main path's ``KernelStep`` for the lid-driven
-cavities at 256^3 D3Q19 and 4096^2 D2Q9 (``examples/torch``). The base
+cavities at 256^3 D3Q19 and 4096^2 D2Q9 (``examples/torch``) and for the
+parabolic-inlet channels of the same sizes (``tests/torch_scenes``; BC
+nodes with per-node parameters). The base
 kernel first runs the scene for ``--steps`` steps from its initial state;
 from there each variant runs 10 steps and reports the max |difference|
 from the base kernel's result, then times ``--iters`` launches with CUDA
@@ -37,7 +40,7 @@ sys.path.insert(0, os.path.join(REPO, 'tests'))
 from sailfish_tpu_torch import util  # noqa: E402
 from sailfish_tpu_torch.ops import build  # noqa: E402
 from sailfish_tpu_torch.ops import lbm_step as ls  # noqa: E402
-from torch_scenes import run, twin  # noqa: E402
+from torch_scenes import channel_sim, channel_sim_2d, run, twin  # noqa: E402
 
 BOUNDS = '__launch_bounds__(LBM_BLOCK)'
 VARIANTS = {
@@ -46,7 +49,16 @@ VARIANTS = {
     'min4': '__launch_bounds__(LBM_BLOCK, 4)',
     'min4_3d': '__launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)',
 }
-SCENES = (('ldc_3d', (256, 256, 256)), ('ldc_2d', (4096, 4096)))
+#: scene -> (sim class loader, size, extra flags)
+SCENES = {
+    'ldc_3d': (lambda: twin('ldc_3d'), (256, 256, 256), {}),
+    'ldc_2d': (lambda: twin('ldc_2d'), (4096, 4096), {}),
+    'parabolic_inlet_3d': (
+        lambda: channel_sim('regularized', profile='parabolic'),
+        (256, 256, 256), {'periodic_x': True}),
+    'parabolic_inlet_2d': (lambda: channel_sim_2d('regularized'),
+                           (4096, 4096), {}),
+}
 
 
 def build_variants(out_dir):
@@ -64,11 +76,12 @@ def build_variants(out_dir):
     return libs
 
 
-def probe_scene(scene, size, libs, steps, iters):
-    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
-    r = run(twin(scene), max_iters=0, **cfg)
+def probe_scene(scene, libs, steps, iters):
+    load, size, extra = SCENES[scene]
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size), **extra)
+    r = run(load(), max_iters=0, **cfg)
     ks = r.kernel
-    fns = {name: ls.kernel_function(lib.lib, ks.name)
+    fns = {name: ls.kernel_function(lib.lib, ks.entry)
            for name, lib in libs.items()}
     ks._fn = fns['base']
     f0 = ks.run(r.f, steps).clone()
@@ -99,6 +112,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--steps', type=int, default=2000)
     ap.add_argument('--iters', type=int, default=50)
+    ap.add_argument('--scenes', default=','.join(SCENES),
+                    help='comma-separated, of ' + ', '.join(SCENES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('regcap_probe: torch sees no CUDA device')
@@ -109,8 +124,8 @@ def main():
                        if 'lbm_step_kernel' in fn or 'bc_node' in fn}
         for fn, u in sorted(usage[name].items()):
             print(f'ptxas {name}: {fn}: {u}', flush=True)
-    results = [probe_scene(scene, size, libs, args.steps, args.iters)
-               for scene, size in SCENES]
+    results = [probe_scene(scene, libs, args.steps, args.iters)
+               for scene in args.scenes.split(',')]
     print(json.dumps({'device': torch.cuda.get_device_name(0),
                       'ptxas': usage, 'regcap_probe': results}))
 

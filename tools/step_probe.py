@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Time of one single-fluid step on the kernel engine, scene by scene, and
+the same for another checkout of the repository in the same run.
+
+    python3 tools/step_probe.py [--iters 200] [--scenes ldc_3d,...]
+                                [--baseline DIR]
+
+Needs one CUDA GPU. For each scene (D3Q19 256^3, D2Q9 4096^2, fp32) it
+sets the scene up on the kernel engine (``KernelStep``), runs 100 steps
+from the initial state, then times ``KernelStep.step_into`` -- a whole
+step, every launch it makes -- with CUDA events over ``--iters`` steps
+after 5 warm-up steps, and counts the kernel launches of one step:
+
+* ``ldc_3d`` / ``ldc_2d``: the lid-driven cavities (uniform BCs);
+* ``parabolic_inlet_3d`` / ``_2d``: regularized velocity inlet with the
+  plane-Poiseuille profile at z = 0 / y = 0, density outlet;
+  ``parabolic_inlet_x_3d`` / ``_x_2d``: the same channels flowing along x;
+* ``uniform_inlet_*``: the four channels with a uniform inlet velocity.
+
+With ``--baseline DIR``, DIR holds another checkout (for example
+``git archive <commit> | tar -x -C build/parent``): every scene is timed in
+a process of its own per tree, in the order baseline, this tree, this tree,
+baseline, each building its own kernels. A scene a tree cannot set up
+(an older tree refuses an x-normal varying inlet) is reported with the
+reason instead of a time. Prints one line per timing, the card's name and
+power limit, and a JSON line.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCENES = ('ldc_3d', 'ldc_2d', 'parabolic_inlet_3d', 'parabolic_inlet_2d',
+          'uniform_inlet_3d', 'uniform_inlet_2d',
+          'parabolic_inlet_x_3d', 'parabolic_inlet_x_2d',
+          'uniform_inlet_x_3d', 'uniform_inlet_x_2d')
+SIZES = {3: (256, 256, 256), 2: (4096, 4096)}
+
+
+def scene_setup(scene, ts):
+    """(sim class, config flags) of ``scene`` from the tree's
+    ``torch_scenes`` module ``ts``."""
+    dim = 3 if '3d' in scene else 2
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), SIZES[dim]))
+    if scene.startswith('ldc'):
+        return ts.twin(f'ldc_{dim}d'), cfg
+    profile = 'parabolic' if scene.startswith('parabolic') else None
+    along_x = '_x_' in scene
+    if dim == 3:
+        cfg['periodic_z' if along_x else 'periodic_x'] = True
+        return ts.channel_sim('regularized', 'x' if along_x else 'z',
+                              profile=profile), cfg
+    if along_x:
+        return ts.channel_sim_2d('regularized', profile=profile,
+                                 axis='x'), cfg
+    return ts.channel_sim_2d('regularized', profile=profile), cfg
+
+
+def worker(tree, scenes, iters):
+    """Time the scenes with the package and scenes of ``tree``; one JSON
+    line {scene: {...}}."""
+    sys.path.insert(0, tree)
+    sys.path.insert(0, os.path.join(tree, 'tests'))
+    import torch
+    import torch_scenes as ts
+    from sailfish_tpu_torch import util
+    from sailfish_tpu_torch.ops import lbm_step as ls
+    try:
+        from sailfish_tpu_torch.ops.bc_patch import LAUNCHES as patch_counts
+    except ImportError:
+        patch_counts = {}
+
+    def launches():
+        return sum(ls.LAUNCHES.values()) + sum(patch_counts.values())
+
+    out = {}
+    for scene in scenes:
+        try:
+            sim_cls, cfg = scene_setup(scene, ts)
+            ks = ts.run(sim_cls, max_iters=0, **cfg).kernel
+        except (NotImplementedError, TypeError) as exc:
+            out[scene] = dict(refused=str(exc)[:200])
+            continue
+        f = ks.run(ks.a.copy_(ts.random_feq(ks.grid, ks.shape, 1, 'cuda')),
+                   100)
+        assert bool(torch.isfinite(f).all()), scene
+        n0 = launches()
+        ks.step_into(ks.a, ks.b)
+        per_step = launches() - n0
+        ms = util.cuda_time_ms(lambda: ks.step_into(ks.a, ks.b), iters,
+                               warmup=5)
+        out[scene] = dict(ms=ms, launches_per_step=per_step, kernel=ks.name)
+        del ks, f
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--iters', type=int, default=200)
+    ap.add_argument('--scenes', default=','.join(SCENES))
+    ap.add_argument('--baseline', default=None)
+    ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    scenes = args.scenes.split(',')
+    if args.tree:
+        worker(args.tree, scenes, args.iters)
+        return
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    trees = [('this tree', REPO)]
+    if args.baseline:
+        base = ('baseline', os.path.abspath(args.baseline))
+        trees = [base, trees[0], trees[0], base]
+    results = []
+    for label, tree in trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), '--tree', tree,
+             '--scenes', args.scenes, '--iters', str(args.iters)],
+            capture_output=True, text=True, cwd=tree, timeout=1500)
+        if proc.returncode != 0:
+            sys.exit(f'step_probe: {label} failed:\n{proc.stdout}\n'
+                     f'{proc.stderr}')
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        for scene, r in res.items():
+            if 'ms' in r:
+                print(f'{label}: {scene}: {r["ms"]:.4f} ms per step, '
+                      f'{r["launches_per_step"]} launch(es) ({r["kernel"]})',
+                      flush=True)
+            else:
+                print(f'{label}: {scene}: not run: {r["refused"]}',
+                      flush=True)
+        results.append(dict(tree=label, scenes=res))
+    print(json.dumps({'device': smi, 'iters': args.iters,
+                      'step_probe': results}))
+
+
+if __name__ == '__main__':
+    main()

@@ -5,8 +5,10 @@
                                      [--out DIR]
 
 Needs one CUDA GPU. For the lid-driven cavities, the parabolic-inlet
-channels (``tests/torch_scenes``: ``lbm_step`` + ``bc_patch`` each step),
-the binary Shan-Chen separations and the binary free-energy separations of
+channels (``tests/torch_scenes``: one ``lbm_step`` launch each step, its BC
+nodes reading per-node parameters; the inlet normal to z / y or to x), the
+binary
+Shan-Chen separations and the binary free-energy separations of
 ``examples/torch`` at the benchmark sizes (D3Q19 256^3, D2Q9 4096^2) it
 runs the controller
 with the default (kernel) engine for one chunk (kernel build, warm-up),
@@ -19,7 +21,8 @@ Chrome trace:
   inside the window;
 * ``idle share`` = 1 - busy / window; ``gaps`` = the idle time between the
   first kernel's start and the last one's end; the mean duration of each
-  of the port's kernels in the trace.
+  of the port's kernels in the trace, and the number of kernels per step
+  (1 for the single-fluid scenes, channels included; 2 for the mixtures).
 
 Prints one line per scene and a JSON line; the traces are written to
 ``DIR`` (default ``chiprun_out/traces``).
@@ -43,9 +46,11 @@ from torch_scenes import (binary_twin, channel_sim,  # noqa: E402
 
 def channel(scene):
     """The regularized parabolic-inlet channel of ``scene``."""
+    along_x = '_x_' in scene
     if scene.endswith('3d'):
-        return channel_sim('regularized', profile='parabolic')
-    return channel_sim_2d('regularized')
+        return channel_sim('regularized', 'x' if along_x else 'z',
+                           profile='parabolic')
+    return channel_sim_2d('regularized', axis='x' if along_x else 'y')
 
 
 #: scene -> (sim class loader, size, extra flags)
@@ -54,6 +59,8 @@ SCENES = {
     'ldc_2d': (twin, (4096, 4096), {}),
     'parabolic_inlet_3d': (channel, (256, 256, 256), {'periodic_x': True}),
     'parabolic_inlet_2d': (channel, (4096, 4096), {}),
+    'parabolic_inlet_x_3d': (channel, (256, 256, 256), {'periodic_z': True}),
+    'parabolic_inlet_x_2d': (channel, (4096, 4096), {}),
     'sc_separation_3d': (binary_twin, (256, 256, 256), {}),
     'sc_separation_2d': (binary_twin, (4096, 4096), {}),
     'fe_separation_3d': (binary_twin, (256, 256, 256), {}),
@@ -61,9 +68,8 @@ SCENES = {
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
-PORT_KERNELS = ('lbm_step_kernel', 'bc_patch_kernel',
-                'rho_poststream_kernel', 'sc_multi_kernel', 'fe_step_kernel',
-                'fe3_kernel')
+PORT_KERNELS = ('lbm_step_kernel', 'rho_poststream_kernel',
+                'sc_multi_kernel', 'fe_step_kernel', 'fe3_kernel')
 
 
 def total_launches(kernel):
@@ -105,7 +111,11 @@ def trace_chunk(scene, chunk, out_dir):
     path = os.path.join(out_dir, f'{scene}_main_chunk.json')
     prof.export_chrome_trace(path)
     res = read_trace(path, scene)
+    # the profiler may drop an event at an edge of its window
+    assert abs(res['kernels'] - launched) <= 0.01 * launched, \
+        (res['kernels'], launched)
     res.update(size=list(size), chunk=chunk, launched=launched,
+               kernels_per_step=launched // chunk,
                host_s=host_s, trace=os.path.relpath(path, REPO))
     del r
     torch.cuda.empty_cache()
@@ -164,7 +174,8 @@ def main():
         means = ', '.join(f'{k} {v:.2f} us'
                           for k, v in res['kernel_mean_us'].items())
         print(f'{scene} {"x".join(map(str, res["size"]))}: {res["kernels"]} '
-              f'kernels in the trace ({res["launched"]} launched), mean '
+              f'kernels in the trace ({res["launched"]} launched, '
+              f'{res["kernels_per_step"]} per step), mean '
               f'{means}; window '
               f'{res["window_us"]:.1f} us, device busy {res["busy_us"]:.1f} '
               f'us, idle share {res["idle_share"]:.5f}; gaps between the '
