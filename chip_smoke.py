@@ -14,9 +14,10 @@ version on the card from seeded random states:
   own rho and u from the parameter array of ``ops/bc_patch``; launches
   counted as ``lbm_step_vary_<grid>``) against
   ``step_reference`` on channels whose velocity inlet carries a parabolic
-  profile, for each native BC pair and inlet normal to z and x (D3Q19
+  profile, for each native BC pair and inlet normal to z, y and x (D3Q19
   128x64x64) and to y and x (D2Q9 1024^2), the inlet face thinned so it
-  has holes, 200 steps;
+  has holes, 200 steps: with the outlet at the other end, every face the
+  kernel's BC dispatch has a case for;
 * the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
   against ``rho_reference`` and ``sc_multi_reference`` on the binary
   separation scenes (periodic 2D and 3D, and the walled 3D box);
@@ -30,8 +31,9 @@ default engine and the launch counts zeroed just before: the lid-driven
 cavities (D3Q19 256^3, D2Q9 4096^2), the parabolic-inlet channels
 (``parabolic_inlet_3d`` / ``parabolic_inlet_x_3d`` 256^3 and
 ``parabolic_inlet_2d`` / ``parabolic_inlet_x_2d`` 4096^2, one launch per
-step, each timed against the same channel with a uniform inlet), the
-binary Shan-Chen separations and the free-energy
+step, each timed against the same channel with a uniform inlet, and the
+step of the channel flowing along x over that of the z- / y-normal one),
+the binary Shan-Chen separations and the free-energy
 separations (each D3Q19 256^3, D2Q9 4096^2), checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
@@ -820,6 +822,18 @@ def main():
             if 'entry function' in line or 'registers' in line \
                     or 'spill' in line:
                 say('  ptxas:', line.strip())
+        if name == 'lbm_step':
+            for fn, use in sorted(build.ptxas_usage(lib.log).items()):
+                if 'lbm_step_kernel' not in fn:
+                    continue
+                grid = 'd3q19' if 'Li3ELi19E' in fn else 'd2q9'
+                say(f'lbm_step_{grid} {fn}: {use["registers"]} registers, '
+                    f'stack frame {use["stack_frame"]} B, spill stores '
+                    f'{use["spill_stores"]} B, spill loads '
+                    f'{use["spill_loads"]} B')
+                # the BC chain runs in registers: no local memory
+                assert use['stack_frame'] == use['spill_stores'] \
+                    == use['spill_loads'] == 0, (fn, use)
         if name == 'fe_step':
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
                 if 'fe3_kernel' in fn and 'registers' in use:
@@ -846,6 +860,7 @@ def main():
     for pair in sorted(BC_PAIRS):
         for dim, axis, cfg in (
                 (3, 'z', dict(duct, periodic_x=True)),
+                (3, 'y', dict(duct, periodic_x=True)),
                 (3, 'x', dict(duct, periodic_z=True)),
                 (2, 'y', dict(lat_nx=1024, lat_ny=1024)),
                 (2, 'x', dict(lat_nx=1024, lat_ny=1024))):
@@ -897,8 +912,10 @@ def main():
                                  ('ldc_2d', LDC_2D, (4096, 4096))):
         grid, res = main_path(scene, sim_cls, size, copy_bw)
         results[f'lbm_step_{grid.lower()}'] = res
+    channel_ms = {}
     for scene in CHANNELS:
         grid, res = channel_main_path(scene, copy_bw)
+        channel_ms[scene] = res['ms']
         ldc = results[f'lbm_step_{grid.lower()}']['mlups']
         say(f'{scene}: {res["mlups"]:.1f} MLUPS against {ldc:.1f} on the '
             f'lid-driven cavity of the same size: '
@@ -907,10 +924,17 @@ def main():
         if name in results:
             # the x-normal channel: launches of both main paths; the time
             # and bound of the z- / y-normal one stay in the JSON line
-            res = dict(results[name],
+            res = dict(results[name], x_normal_ms=res['ms'],
                        launches=results[name]['launches'] + res['launches'],
                        err=max(results[name]['err'], res['err']))
         results[name] = res
+    for dim in (3, 2):
+        # a face normal to x puts one BC node at each end of every x-row,
+        # so one warp in four (3D) runs the BC chain with a single lane
+        along, across = (channel_ms[f'parabolic_inlet_{a}{dim}d']
+                         for a in ('x_', ''))
+        say(f'x-normal over {"z" if dim == 3 else "y"}-normal step, '
+            f'{dim}D: {along:.4f} / {across:.4f} ms = {along / across:.4f}')
     for scene, sim_cls, size in (('sc_separation_3d', SEP_3D,
                                   (256, 256, 256)),
                                  ('sc_separation_2d', SEP_2D, (4096, 4096))):
@@ -958,6 +982,8 @@ def main():
                             max_abs_err=errs[name], ms=res['ms'],
                             plain_ms=res['plain_ms'], bound_ms=bound,
                             bound_by=bound_by, library_ms=None))
+        if 'x_normal_ms' in res:
+            kernels[-1]['x_normal_ms'] = res['x_normal_ms']
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

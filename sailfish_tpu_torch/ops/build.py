@@ -107,8 +107,10 @@ def _start_build(src):
 
 
 def ptxas_usage(log):
-    """{mangled function: {'registers': n, 'spill_stores': bytes,
-    'spill_loads': bytes}} from an ``nvcc -Xptxas -v`` log."""
+    """{mangled function: {'registers': n, 'stack_frame': bytes,
+    'spill_stores': bytes, 'spill_loads': bytes}} from an ``nvcc -Xptxas
+    -v`` log; the stack frame is the function's local memory per thread
+    (arrays the compiler could not keep in registers, and spills)."""
     usage, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -116,11 +118,12 @@ def ptxas_usage(log):
         if m:
             fn = m.group(1)
             usage.setdefault(fn, {})
-        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
-                      line)
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
         if m and fn:
-            usage[fn]['spill_stores'] = int(m.group(1))
-            usage[fn]['spill_loads'] = int(m.group(2))
+            usage[fn]['stack_frame'] = int(m.group(1))
+            usage[fn]['spill_stores'] = int(m.group(2))
+            usage[fn]['spill_loads'] = int(m.group(3))
         m = re.search(r'Used (\d+) registers', line)
         if m and fn:
             usage[fn]['registers'] = int(m.group(1))

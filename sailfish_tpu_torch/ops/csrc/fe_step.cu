@@ -73,8 +73,9 @@
 //   need up to four boxes per plane, and the plane is a few KB, so
 //   per-thread cp.async of 4 B is the simpler copy.
 // - The D3Q19 tables (c, opp, orientation vectors, w, wi, wxx..wxz) are
-//   compile-time (struct D3Q19): zero terms and the c_i . u products fold
-//   away. fe_d3q19_tables copies them out, and ops/fe_step.py checks them
+//   compile-time (struct D3Q19 in lattice_tables.cuh, which lbm_step.cu
+//   shares): zero terms and the c_i . u products fold away.
+//   fe_d3q19_tables copies them out, and ops/fe_step.py checks them
 //   against sailfish_tpu_torch.lattice and multigrid.fe_weights at load.
 // - Addresses are 32-bit in-plane offsets from the wrapped x +- 1 and
 //   y +- 1 of the node, computed once per block, and three plane offsets
@@ -89,6 +90,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lattice_tables.cuh"
 
 #define FE_MAX_Q 19
 #define FE_MAX_MOM 9
@@ -322,52 +325,6 @@ fe_step_kernel(const float* __restrict__ a, const float* __restrict__ phi_pre,
 #define FE3_THREADS 256     // most threads of a block (tx * ty)
 #define FE3_MAX_FILL 4      // most staged-plane entries per thread
 
-// The D3Q19 tables at compile time, in the direction order of
-// sailfish_tpu_torch.lattice. Every entry is a constexpr function of the
-// index, so a compile-time index folds it into an immediate.
-struct D3Q19 {
-    static constexpr int Q = 19;
-    __host__ __device__ static constexpr int c(int i, int d) {
-        constexpr int t[19][3] = {
-            {0, 0, 0}, {-1, 0, 0}, {0, -1, 0}, {0, 0, -1}, {0, 0, 1},
-            {0, 1, 0}, {1, 0, 0}, {-1, -1, 0}, {-1, 0, -1}, {-1, 0, 1},
-            {-1, 1, 0}, {0, -1, -1}, {0, -1, 1}, {0, 1, -1}, {0, 1, 1},
-            {1, -1, 0}, {1, 0, -1}, {1, 0, 1}, {1, 1, 0}};
-        return t[i][d];
-    }
-    __host__ __device__ static constexpr int opp(int i) {
-        constexpr int t[19] = {0, 6, 5, 4, 3, 2, 1, 18, 17, 16,
-                               15, 14, 13, 12, 11, 10, 9, 8, 7};
-        return t[i];
-    }
-    // orientation vector of wall code k + 1: +x, -x, +y, -y, +z, -z
-    __host__ __device__ static constexpr int ov(int k, int d) {
-        return d == (k >> 1) ? ((k & 1) ? -1 : 1) : 0;
-    }
-    __host__ __device__ static constexpr int n2(int i) {
-        return c(i, 0) * c(i, 0) + c(i, 1) * c(i, 1) + c(i, 2) * c(i, 2);
-    }
-    // lattice weights (the Guo term)
-    __host__ __device__ static constexpr float w(int i) {
-        return n2(i) == 0 ? (float)(1.0 / 3.0)
-             : n2(i) == 1 ? (float)(1.0 / 18.0) : (float)(1.0 / 36.0);
-    }
-    // free-energy weights (ops/multigrid.py fe_weights)
-    __host__ __device__ static constexpr float wi(int i) {
-        return n2(i) == 0 ? 0.0f
-             : n2(i) == 1 ? (float)(1.0 / 6.0) : (float)(1.0 / 12.0);
-    }
-    __host__ __device__ static constexpr float wdd(int i, int d) {
-        return n2(i) == 0 ? 0.0f
-             : n2(i) == 1 ? (c(i, d) != 0 ? (float)(5.0 / 12.0)
-                                          : (float)(-1.0 / 3.0))
-             : (c(i, d) != 0 ? (float)(-1.0 / 24.0) : (float)(1.0 / 12.0));
-    }
-    __host__ __device__ static constexpr float wod(int i, int d, int e) {
-        return (float)(c(i, d) * c(i, e)) / 4.0f;
-    }
-};
-
 // The tables as fe_d3q19_tables copies them out (mirrored in ops/fe_step.py
 // _Tables).
 struct FETables {
@@ -385,22 +342,6 @@ struct FETile {
     int smem_bytes;     // dynamic shared memory of a block
 };
 
-// f(Int<i>()) for i = 0 .. N - 1 in order; i is a compile-time constant.
-template <int... I> struct Seq {};
-template <int N, int... I> struct MakeSeq : MakeSeq<N - 1, N - 1, I...> {};
-template <int... I> struct MakeSeq<0, I...> { using type = Seq<I...>; };
-template <int V> struct Int { static constexpr int value = V; };
-
-template <typename F, int... I>
-__device__ __forceinline__ void static_for_seq(F& f, Seq<I...>) {
-    (f(Int<I>()), ...);
-}
-
-template <int N, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-    static_for_seq(f, typename MakeSeq<N>::type());
-}
-
 __host__ __device__ __forceinline__ int pos_mod(int v, int n) {
     const int m = v % n;
     return m < 0 ? m + n : m;
@@ -416,21 +357,6 @@ __host__ __device__ __forceinline__ int fe3_smem_bytes(int tx, int ty,
     if (!wet)
         return 4 * 4 * plane;
     return 4 * 3 * plane + 4 * 3 * (tx + 2) * (ty + 2) + plane;
-}
-
-// c_i . v with the zero components left out: -0.0f + v folds to v, where
-// 0.0f * v would stay a multiply
-template <int I>
-__device__ __forceinline__ float cdot(float vx, float vy, float vz) {
-    using L = D3Q19;
-    float s = -0.0f;
-    if constexpr (L::c(I, 0) > 0) s += vx;
-    if constexpr (L::c(I, 0) < 0) s -= vx;
-    if constexpr (L::c(I, 1) > 0) s += vy;
-    if constexpr (L::c(I, 1) < 0) s -= vy;
-    if constexpr (L::c(I, 2) > 0) s += vz;
-    if constexpr (L::c(I, 2) < 0) s -= vz;
-    return s;
 }
 
 // One collide (or reflect, or keep) at the node whose wrapped source
@@ -548,7 +474,7 @@ __device__ __forceinline__ void fe3_node(
     static_for<Q>([&](auto I) {
         constexpr int i = decltype(I)::value;
         if constexpr (i > 0) {
-            const float cu1 = cdot<i>(u1x, u1y, u1z);
+            const float cu1 = cdot<L, i>(u1x, u1y, u1z);
             const float geq = L::wi(i) * (gbase
                                           + phi * cu1 * (1.0f + 1.5f * cu1));
             geq_sum += geq;
@@ -567,7 +493,7 @@ __device__ __forceinline__ void fe3_node(
     const float pref = MRT ? 0.5f : 1.0f - 0.5f * inv_tau0;
     auto feq_of = [&](auto I) {
         constexpr int i = decltype(I)::value;
-        const float cu = cdot<i>(u0x, u0y, u0z);
+        const float cu = cdot<L, i>(u0x, u0y, u0z);
         float sq = L::wdd(i, 0) * kxx + L::wdd(i, 1) * kyy
                    + L::wdd(i, 2) * kzz;
         if constexpr (L::wod(i, 0, 1) != 0.0f) sq += L::wod(i, 0, 1) * kxy;
@@ -577,8 +503,8 @@ __device__ __forceinline__ void fe3_node(
     };
     auto guo_of = [&](auto I) {
         constexpr int i = decltype(I)::value;
-        const float cu = cdot<i>(ux, uy, uz);
-        const float cF = cdot<i>(p.force[0], p.force[1], p.force[2]);
+        const float cu = cdot<L, i>(ux, uy, uz);
+        const float cF = cdot<L, i>(p.force[0], p.force[1], p.force[2]);
         return pref * L::w(i) * (3.0f * (cF - uF) + 9.0f * cu * cF) * rho;
     };
     if (!MRT) {

@@ -1,0 +1,119 @@
+// The lattice tables at compile time, and loops over compile-time indices.
+// Shared by lbm_step.cu (through lbm_common.cuh) and fe_step.cu, so the port
+// holds one copy of each table; ops/build.py hashes this header into every
+// source's build key.
+//
+// Direction order: that of sailfish_tpu_torch.lattice. Every entry is a
+// constexpr function of the index, so a compile-time index folds it into an
+// immediate: c_i . u becomes +- adds (cdot), a zero component vanishes, and
+// b[opp(i) * n + node] is a fixed offset. lbm_lattice_tables (lbm_step.cu)
+// and fe_d3q19_tables (fe_step.cu) copy the tables out, and the Python
+// wrappers check them against sailfish_tpu_torch.lattice when a library
+// loads.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+struct D3Q19 {
+    static constexpr int DIM = 3;
+    static constexpr int Q = 19;
+    __host__ __device__ static constexpr int c(int i, int d) {
+        constexpr int t[19][3] = {
+            {0, 0, 0}, {-1, 0, 0}, {0, -1, 0}, {0, 0, -1}, {0, 0, 1},
+            {0, 1, 0}, {1, 0, 0}, {-1, -1, 0}, {-1, 0, -1}, {-1, 0, 1},
+            {-1, 1, 0}, {0, -1, -1}, {0, -1, 1}, {0, 1, -1}, {0, 1, 1},
+            {1, -1, 0}, {1, 0, -1}, {1, 0, 1}, {1, 1, 0}};
+        return t[i][d];
+    }
+    __host__ __device__ static constexpr int opp(int i) {
+        constexpr int t[19] = {0, 6, 5, 4, 3, 2, 1, 18, 17, 16,
+                               15, 14, 13, 12, 11, 10, 9, 8, 7};
+        return t[i];
+    }
+    // orientation vector of wall code k + 1: +x, -x, +y, -y, +z, -z
+    __host__ __device__ static constexpr int ov(int k, int d) {
+        return d == (k >> 1) ? ((k & 1) ? -1 : 1) : 0;
+    }
+    __host__ __device__ static constexpr int n2(int i) {
+        return c(i, 0) * c(i, 0) + c(i, 1) * c(i, 1) + c(i, 2) * c(i, 2);
+    }
+    // lattice weights
+    __host__ __device__ static constexpr float w(int i) {
+        return n2(i) == 0 ? (float)(1.0 / 3.0)
+             : n2(i) == 1 ? (float)(1.0 / 18.0) : (float)(1.0 / 36.0);
+    }
+    // free-energy weights (ops/multigrid.py fe_weights)
+    __host__ __device__ static constexpr float wi(int i) {
+        return n2(i) == 0 ? 0.0f
+             : n2(i) == 1 ? (float)(1.0 / 6.0) : (float)(1.0 / 12.0);
+    }
+    __host__ __device__ static constexpr float wdd(int i, int d) {
+        return n2(i) == 0 ? 0.0f
+             : n2(i) == 1 ? (c(i, d) != 0 ? (float)(5.0 / 12.0)
+                                          : (float)(-1.0 / 3.0))
+             : (c(i, d) != 0 ? (float)(-1.0 / 24.0) : (float)(1.0 / 12.0));
+    }
+    __host__ __device__ static constexpr float wod(int i, int d, int e) {
+        return (float)(c(i, d) * c(i, e)) / 4.0f;
+    }
+};
+
+struct D2Q9 {
+    static constexpr int DIM = 2;
+    static constexpr int Q = 9;
+    // the z component (d = 2) of every direction is 0
+    __host__ __device__ static constexpr int c(int i, int d) {
+        constexpr int t[9][2] = {
+            {0, 0}, {-1, 0}, {0, -1}, {0, 1}, {1, 0},
+            {-1, -1}, {-1, 1}, {1, -1}, {1, 1}};
+        return d < 2 ? t[i][d] : 0;
+    }
+    __host__ __device__ static constexpr int opp(int i) {
+        constexpr int t[9] = {0, 4, 3, 2, 1, 8, 7, 6, 5};
+        return t[i];
+    }
+    __host__ __device__ static constexpr int n2(int i) {
+        return c(i, 0) * c(i, 0) + c(i, 1) * c(i, 1);
+    }
+    // lattice weights
+    __host__ __device__ static constexpr float w(int i) {
+        return n2(i) == 0 ? (float)(4.0 / 9.0)
+             : n2(i) == 1 ? (float)(1.0 / 9.0) : (float)(1.0 / 36.0);
+    }
+};
+
+// The lattice of a dimension: LatticeOf<2>::type is D2Q9, <3> D3Q19.
+template <int DIM> struct LatticeOf;
+template <> struct LatticeOf<2> { using type = D2Q9; };
+template <> struct LatticeOf<3> { using type = D3Q19; };
+
+// f(Int<i>()) for i = 0 .. N - 1 in order; i is a compile-time constant.
+template <int... I> struct Seq {};
+template <int N, int... I> struct MakeSeq : MakeSeq<N - 1, N - 1, I...> {};
+template <int... I> struct MakeSeq<0, I...> { using type = Seq<I...>; };
+template <int V> struct Int { static constexpr int value = V; };
+
+template <typename F, int... I>
+__device__ __forceinline__ void static_for_seq(F& f, Seq<I...>) {
+    (f(Int<I>()), ...);
+}
+
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+    static_for_seq(f, typename MakeSeq<N>::type());
+}
+
+// c_i . v on lattice L with the zero components left out: -0.0f + v folds
+// to v, where 0.0f * v would stay a multiply
+template <typename L, int I>
+__device__ __forceinline__ float cdot(float vx, float vy, float vz) {
+    float s = -0.0f;
+    if constexpr (L::c(I, 0) > 0) s += vx;
+    if constexpr (L::c(I, 0) < 0) s -= vx;
+    if constexpr (L::c(I, 1) > 0) s += vy;
+    if constexpr (L::c(I, 1) < 0) s -= vy;
+    if constexpr (L::c(I, 2) > 0) s += vz;
+    if constexpr (L::c(I, 2) < 0) s -= vz;
+    return s;
+}

@@ -32,67 +32,86 @@
 // runs in order; concurrent GPU blocks pulling in place would race.
 //
 // State layout, parameter block and the per-node pieces (pull, collide,
-// reflect, keep, the native-BC chain) are in lbm_common.cuh.
+// reflect, keep, the native-BC chain) are in lbm_common.cuh, the lattice
+// tables in lattice_tables.cuh.
 //
 // Bound: device-memory bandwidth. Each node reads Q floats, writes Q floats
 // and reads a 1-byte mask per step: 2*19*4 + 1 = 153 B for D3Q19, 73 B for
 // D2Q9, against ~1.1 flop per byte; a node of a varying BC reads 4 * (1 +
-// DIM) B more. One thread per node, x fastest, so the c_x = 0 loads and
-// every store coalesce. This simple design does nothing yet about the
-// x-shifted (+-1 element) loads, which straddle 32-byte sectors, or about
-// the in-place (AA-pattern) alternative that would halve the footprint;
-// both are later performance work.
-//
-// The per-node branches keep the bulk path's distributions in registers:
-// the reflection is a permuted store (no register-array indexing), and the
-// BC chain, which needs fs[opp(i)], runs in a non-inlined function on a
-// local copy that only BC nodes take. The parameter read sits in that
-// branch too, so only the nodes of a varying BC pay for it: a scene whose
-// BCs are all uniform runs the same kernel at the same speed (measured
-// against a build without the read: within 0.5 % at 256^3 and 4096^2), so
-// there is one instantiation per lattice.
+// DIM) B more. One thread per node, x fastest, blocks of 128 nodes of one
+// x-row, so the c_x = 0 loads and every store coalesce. A pull step reads
+// every value once, so nothing is staged in shared memory. What the design
+// does about the bound:
+// - Loads in flight. The card needs about 15 KB in flight per SM to cover
+//   its memory latency; a thread has 19 loads of 4 B. With runtime lattice
+//   tables the D3Q19 kernel took 225 registers, two blocks (eight warps,
+//   19 KB) per SM. With the tables compile-time the index arithmetic and
+//   the int-to-float conversions fold away, and
+//   __launch_bounds__(128, 4) holds D3Q19 to 128 registers: four blocks, 16
+//   warps, 38 KB in flight. D2Q9 needs far fewer registers and gets no cap.
+// - Addressing. The y and z wraps are computed once per block (they are
+//   uniform), the x wrap is a select that only the end lanes of a row take,
+//   and each load is a uniform 64-bit base plus a 32-bit in-plane offset
+//   (PullSources).
+// - Branches. The reflection is a permuted store at compile-time offsets.
+//   The BC chain is dispatched once per BC node on its face (axis, sign)
+//   into a body templated on them, so the incoming / tangential sets fold
+//   and t[opp(i)] is a register: no local memory anywhere. That matters on a
+//   face normal to x, where every x-row has one BC node at each end and one
+//   warp in four runs the chain with a single active lane: with runtime
+//   tables and a local-memory chain such a face cost 2.9 times a step.
+//   The read of a varying row's per-node parameters sits in the BC branch,
+//   so only those nodes pay for it and there is one instantiation per
+//   lattice.
+// Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
+// an in-place (AA-pattern) step would halve the footprint.
 
 #include "lbm_common.cuh"
 
 template <int DIM, int Q>
-__global__ void __launch_bounds__(LBM_BLOCK)
+__global__ void __launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)
 lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
                 const uint8_t* __restrict__ mask,
                 const __grid_constant__ LBMParams p,
                 const float* __restrict__ bcp) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    using L = typename LatticeOf<DIM>::type;
+    static_assert(L::Q == Q && L::DIM == DIM, "lattice of the dimension");
+    const int nx = p.nx, ny = p.ny;
+    const int x = blockIdx.x * LBM_BLOCK + threadIdx.x;
     const int y = blockIdx.y;
     const int z = blockIdx.z;
-    if (x >= p.nx) return;
-    const long long nxy = (long long)p.nx * p.ny;
-    const long long n = nxy * p.nz;
-    const long long node = z * nxy + (long long)y * p.nx + x;
+    if (x >= nx) return;
+    const int nxy = nx * ny;
+    const size_t n = (size_t)nxy * p.nz;
 
-    float fs[Q];
-    pull_node<DIM, Q>(p, a, x, y, z, fs);
-    const int m = mask[node];
-    if (!plain_node<DIM, Q>(p, m, fs, b, node, n)) {
-        float t[Q];
-#pragma unroll
-        for (int i = 0; i < Q; ++i) t[i] = fs[i];
-        if (p.vary[m - 3].varies) {
-            // this node's own rho and u, from its instance's box
-            const LBMVary& v = p.vary[m - 3];
-            const long long vol = (long long)v.ext[0] * v.ext[1] * v.ext[2];
-            const float* q = bcp + v.offset
-                + ((long long)(z - v.lo[2]) * v.ext[1] + (y - v.lo[1]))
-                      * v.ext[0]
-                + (x - v.lo[0]);
-            LBMBC bc = p.bc[m - 3];
-            bc.rho = q[0];
-#pragma unroll
-            for (int d = 0; d < 3; ++d)
-                bc.u[d] = d < DIM ? q[(1 + d) * vol] : 0.0f;
-            bc_node<DIM, Q>(p, bc, t, b, node, n);
-        } else {
-            bc_node<DIM, Q>(p, p.bc[m - 3], t, b, node, n);
-        }
+    PullSources s;
+    s.xs[0] = x + 1 == nx ? 0 : x + 1;
+    s.xs[1] = x;
+    s.xs[2] = x == 0 ? nx - 1 : x - 1;
+    s.ys[0] = (y + 1 == ny ? 0 : y + 1) * nx;
+    s.ys[1] = y * nx;
+    s.ys[2] = (y == 0 ? ny - 1 : y - 1) * nx;
+    if (DIM == 3) {
+        const int nz = p.nz;
+        s.zs[0] = (size_t)(z + 1 == nz ? 0 : z + 1) * nxy;
+        s.zs[1] = (size_t)z * nxy;
+        s.zs[2] = (size_t)(z == 0 ? nz - 1 : z - 1) * nxy;
+    } else {
+        s.zs[0] = s.zs[1] = s.zs[2] = 0;
     }
+    const size_t node = s.zs[1] + (s.ys[1] + x);
+
+    const int m = mask[node];
+    float fs[Q];
+    pull_node<L>(a, n, s, fs);
+    if (m == 0)
+        collide_node<L>(fs, p.tau_inv, b, n, node);
+    else if (m == 1)
+        reflect_node<L>(fs, b, n, node);
+    else if (m == 2)
+        keep_node<L>(fs, b, n, node);
+    else
+        bc_node<L>(p, m - 3, bcp, x, y, z, fs, b, n, node);
 }
 
 __global__ void lbm_empty_kernel() {}
@@ -104,6 +123,18 @@ static int launch(const float* a, float* b, const uint8_t* mask,
     lbm_step_kernel<DIM, Q><<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(
         a, b, mask, *p, bcp);
     return (int)cudaGetLastError();
+}
+
+template <typename L>
+static void copy_tables(LBMTables* out) {
+    *out = LBMTables();
+    out->q = L::Q;
+    out->dim = L::DIM;
+    for (int i = 0; i < L::Q; ++i) {
+        for (int d = 0; d < 3; ++d) out->c[i][d] = L::c(i, d);
+        out->w[i] = L::w(i);
+        out->opp[i] = L::opp(i);
+    }
 }
 
 extern "C" {
@@ -120,6 +151,18 @@ int lbm_step_d3q19(const float* a, float* b, const uint8_t* mask,
 }
 
 int lbm_params_size(void) { return (int)sizeof(LBMParams); }
+
+int lbm_tables_size(void) { return (int)sizeof(LBMTables); }
+
+// The compile-time tables of the dim-dimensional kernel's lattice, for the
+// check at load; entries beyond Q are 0. Returns 0, or 1 for a dimension
+// without a kernel.
+int lbm_lattice_tables(int dim, LBMTables* out) {
+    if (dim == 2) copy_tables<D2Q9>(out);
+    else if (dim == 3) copy_tables<D3Q19>(out);
+    else return 1;
+    return 0;
+}
 
 // One empty block: the per-launch floor a measurement reads bounds against.
 int lbm_empty_launch(void* stream) {

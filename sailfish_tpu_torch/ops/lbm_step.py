@@ -28,16 +28,19 @@ import numpy as np
 import torch
 
 from sailfish_tpu_torch import equilibrium as eq
+from sailfish_tpu_torch import lattice
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.ops import bc_patch
 from sailfish_tpu_torch.ops import step as st
 
-#: limits of the C parameter block (csrc/lbm_common.cuh LBM_MAX_Q,
-#: LBM_MAX_BC)
+#: limits of the C table and parameter blocks (csrc/lbm_common.cuh
+#: LBM_MAX_Q, LBM_MAX_BC)
 MAX_Q = 27
 MAX_BC = 16
 #: CUDA grid y/z extent limit (one block row per (y, z))
 MAX_GRID_YZ = 65535
+#: the kernel addresses a node inside its (y, x) plane with a 32-bit int
+MAX_PLANE_FLOATS = 2 ** 31 - 1
 #: lattices the kernel is instantiated for
 KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: kernel launches over all ``KernelStep`` objects, counted apart by what
@@ -149,6 +152,10 @@ def kernel_ineligibility(builder, nodes=None):
     if any(s > MAX_GRID_YZ for s in shape[:-1]):
         reasons.append(f'domain {shape}: y and z extents above '
                        f'{MAX_GRID_YZ}')
+    if shape[-1] * shape[-2] > MAX_PLANE_FLOATS:
+        reasons.append(f'domain {shape}: {shape[-1] * shape[-2]} nodes in '
+                       f'one (y, x) plane (the kernel indexes at most '
+                       f'{MAX_PLANE_FLOATS})')
     _mask, instances, why = nodes or classify_nodes(builder.maps)
     reasons += why
     if not why:
@@ -215,26 +222,56 @@ class _Params(ctypes.Structure):
     _fields_ = [('nx', ctypes.c_int), ('ny', ctypes.c_int),
                 ('nz', ctypes.c_int), ('nbc', ctypes.c_int),
                 ('tau_inv', ctypes.c_float),
-                ('c', (ctypes.c_int * 3) * MAX_Q),
-                ('w', ctypes.c_float * MAX_Q),
-                ('opp', ctypes.c_int * MAX_Q),
                 ('bc', _BC * MAX_BC), ('vary', _Vary * MAX_BC)]
 
 
+class _Tables(ctypes.Structure):
+    _fields_ = [('q', ctypes.c_int), ('dim', ctypes.c_int),
+                ('c', (ctypes.c_int * 3) * MAX_Q),
+                ('w', ctypes.c_float * MAX_Q),
+                ('opp', ctypes.c_int * MAX_Q)]
+
+
+def lattice_tables(grid):
+    """``_Tables`` filled from ``sailfish_tpu_torch.lattice``: what the
+    kernel's ``lbm_lattice_tables`` must copy out for ``grid`` (entries
+    beyond Q, and the z component in 2D, are 0)."""
+    t = _Tables()
+    t.q, t.dim = grid.Q, grid.dim
+    for i in range(grid.Q):
+        for a in range(grid.dim):
+            t.c[i][a] = int(grid.basis[i][a])
+        t.w[i] = float(grid.weights[i])
+        t.opp[i] = int(grid.opposite[i])
+    return t
+
+
+def check_tables(tables, grid):
+    """Raise RuntimeError unless the ``_Tables`` ``tables`` (the kernel's
+    compile-time tables of one lattice) equal ``lattice_tables(grid)``,
+    every integer exactly and every weight to the last bit of its
+    float32."""
+    ref = lattice_tables(grid)
+    bad = [name for name, _ in _Tables._fields_
+           if not np.array_equal(np.asarray(getattr(tables, name)),
+                                 np.asarray(getattr(ref, name)))]
+    if bad:
+        raise RuntimeError(
+            f'the compile-time {grid.name} tables of '
+            f'csrc/lattice_tables.cuh differ from '
+            f'sailfish_tpu_torch.lattice in {", ".join(bad)}')
+
+
 def kernel_params(grid, shape, table, tau_inv):
-    """The kernel's by-value parameter block: domain extents, the lattice
-    tables of ``sailfish_tpu_torch.lattice``, the BC table and, behind
-    it, where each varying row's per-node parameters lie."""
+    """The kernel's by-value parameter block: domain extents, relaxation
+    rate, the BC table and, behind it, where each varying row's per-node
+    parameters lie. The lattice tables are compile-time in the kernel
+    (``check_tables``)."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
     p.nx, p.ny, p.nz = nx, ny, nz
     p.nbc = len(table)
     p.tau_inv = tau_inv
-    for i in range(grid.Q):
-        for a in range(grid.dim):
-            p.c[i][a] = int(grid.basis[i][a])
-        p.w[i] = float(grid.weights[i])
-        p.opp[i] = int(grid.opposite[i])
     for j, row in enumerate(table):
         n = grid.orientation_vectors[row.orientation - 1]
         axis = int(np.flatnonzero(n)[0])
@@ -256,11 +293,25 @@ def kernel_params(grid, shape, table, tau_inv):
 def kernel_function(lib, name):
     """The C entry ``name`` (``lbm_step_d2q9`` / ``lbm_step_d3q19``) of a
     loaded ``csrc/lbm_step.cu`` library, typed for ``ctypes``, after
-    checking that the library's parameter block matches ``_Params``."""
+    checking that the library's parameter block matches ``_Params`` and
+    that the compile-time tables of the entry's lattice match
+    ``sailfish_tpu_torch.lattice`` (``check_tables``)."""
     lib.lbm_params_size.restype = ctypes.c_int
     if lib.lbm_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError('LBMParams layout differs between '
                            'csrc/lbm_common.cuh and ops/lbm_step.py')
+    lib.lbm_tables_size.restype = ctypes.c_int
+    if lib.lbm_tables_size() != ctypes.sizeof(_Tables):
+        raise RuntimeError('LBMTables layout differs between '
+                           'csrc/lbm_common.cuh and ops/lbm_step.py')
+    grid = lattice.get_grid(name.rsplit('_', 1)[1].upper())
+    tables = _Tables()
+    lib.lbm_lattice_tables.argtypes = [ctypes.c_int,
+                                       ctypes.POINTER(_Tables)]
+    lib.lbm_lattice_tables.restype = ctypes.c_int
+    if lib.lbm_lattice_tables(grid.dim, ctypes.byref(tables)) != 0:
+        raise RuntimeError(f'csrc/lbm_step.cu has no {grid.dim}D lattice')
+    check_tables(tables, grid)
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.POINTER(_Params), ctypes.c_void_p]

@@ -26,6 +26,15 @@ holds every code): one launch (wet-node max |df| <= 1e-6) and 50 steps
 (<= 1e-5). The channels run through the controller on the kernel engine,
 one launch per step, and on the torch engine for 30 steps (<= 1e-5).
 
+Every face the kernel's BC dispatch has a case for (``FACE_SIZES``: the
+inlet at the low end and the outlet at the high end of x, y and z in 3D, of
+x and y in 2D) is held against ``step_reference`` for each BC pair with
+uniform and with varying rows, the inlet face thinned, on domains whose x
+extent is more than one block and not a multiple of it: wet-node max |df|
+<= 1e-5 after 200 steps (fp32; FMA contraction and summation order differ
+between the two). One more case checks an x-row block that holds BC nodes
+of two instances.
+
 The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
 the order parameter, then ``fe_step``) are held against ``rho_reference``
 and ``fe_step_reference`` on the five free-energy twins (a block of
@@ -177,6 +186,88 @@ def test_default_engine_on_cuda_makes_one_launch_per_step(cuda, dim, axis):
     assert bool(torch.isfinite(r.f).all())
     wet = (r.kernel.mask == 0) | (r.kernel.mask >= 3)
     assert float((r.f - ref.f)[:, wet].abs().max()) <= 1e-5
+
+
+#: (dimension, face axis) -> size: x spans two blocks of 128, the second
+#: ragged
+FACE_SIZES = {
+    (3, 'x'): dict(lat_nx=200, lat_ny=12, lat_nz=10, periodic_z=True),
+    (3, 'y'): dict(lat_nx=200, lat_ny=12, lat_nz=10, periodic_x=True),
+    (3, 'z'): dict(lat_nx=200, lat_ny=12, lat_nz=10, periodic_x=True),
+    (2, 'x'): dict(lat_nx=300, lat_ny=40),
+    (2, 'y'): dict(lat_nx=300, lat_ny=40),
+}
+
+
+def face_case(pair, dim, axis, profile):
+    """The channel of BC pair ``pair`` flowing along ``axis`` (velocity
+    face of inward normal +axis at the low end, density face of inward
+    normal -axis at the high end), uniform or parabolic inlet, with a block
+    of excluded nodes and the inlet face thinned."""
+    sim = (channel_sim(pair, axis, profile=profile) if dim == 3
+           else channel_sim_2d(pair, profile=profile, axis=axis))
+    return with_patch_row_mix(with_keep_block(sim), axis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('profile', [None, 'parabolic'])
+@pytest.mark.parametrize('dim,axis', sorted(FACE_SIZES))
+@pytest.mark.parametrize('pair', sorted(BC_PAIRS))
+def test_kernel_matches_step_reference_on_every_face(cuda, pair, dim, axis,
+                                                     profile):
+    r = run(face_case(pair, dim, axis, profile), platform='cuda',
+            engine='kernel', max_iters=0, **FACE_SIZES[dim, axis])
+    ks = r.kernel
+    a = 'xyz'.index(axis)
+    faces = {(ks.params.bc[j].axis, ks.params.bc[j].sign)
+             for j in range(len(ks.table))}
+    assert {(a, 1), (a, -1)} <= faces
+    assert ks.vary == (profile is not None)
+    assert 128 < ks.shape[-1] and ks.shape[-1] % 128
+    assert sorted(torch.unique(ks.mask).tolist())[:4] == [0, 1, 2, 3]
+    f0 = random_feq(r.sim.grid, ks.shape, seed=9, device='cuda')
+    fk = ks.run(f0, 200)
+    fr = f0
+    for _ in range(200):
+        fr = ks.reference(fr)
+    torch.cuda.synchronize()
+    assert ks.launches == 200
+    wet = (ks.mask == 0) | (ks.mask >= 3)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_block_with_bc_nodes_of_two_instances(cuda):
+    """A thinned z-normal inlet: the BC nodes beside a hole detect another
+    orientation, so one x-row block holds nodes of several table rows."""
+    r = run(face_case('zouhe', 3, 'z', 'parabolic'), platform='cuda',
+            engine='kernel', max_iters=0, **FACE_SIZES[3, 'z'])
+    ks = r.kernel
+    rows = ks.mask.reshape(-1, ks.shape[-1])[:, :128]
+    per_block = [len(set(row[row >= 3].tolist())) for row in rows]
+    assert max(per_block) >= 2
+    f0 = random_feq(r.sim.grid, ks.shape, seed=10, device='cuda')
+    out = torch.zeros_like(f0)
+    ks.step_into(f0, out)
+    torch.cuda.synchronize()
+    wet = (ks.mask == 0) | (ks.mask >= 3)
+    assert float((out - ks.reference(f0))[:, wet].abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('grid_name', ['D2Q9', 'D3Q19'])
+def test_lbm_tables_equal_the_lattice(cuda, grid_name):
+    from sailfish_tpu_torch import lattice
+    lib = build.load('lbm_step').lib
+    ls.kernel_function(lib, f'lbm_step_{grid_name.lower()}')  # raises
+    grid = lattice.get_grid(grid_name)
+    tables = ls._Tables()
+    assert lib.lbm_lattice_tables(grid.dim, ctypes.byref(tables)) == 0
+    ref = ls.lattice_tables(grid)
+    for name, _ in ls._Tables._fields_[2:]:
+        assert bytes(getattr(tables, name)) == bytes(getattr(ref, name)), \
+            name
+    assert (tables.q, tables.dim) == (grid.Q, grid.dim)
 
 
 BINARY_SIZES = {

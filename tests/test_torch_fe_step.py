@@ -308,9 +308,12 @@ def _source_table(text, decl):
 
 
 def test_cuda_source_tables_equal_the_lattice():
-    """The literal D3Q19 tables in csrc/fe_step.cu (struct D3Q19)."""
+    """The literal D3Q19 tables that csrc/fe_step.cu includes (struct
+    D3Q19 in csrc/lattice_tables.cuh)."""
     from sailfish_tpu_torch.ops import build
-    text = (build.CSRC / 'fe_step.cu').read_text()
+    assert '#include "lattice_tables.cuh"' in \
+        (build.CSRC / 'fe_step.cu').read_text()
+    text = (build.CSRC / 'lattice_tables.cuh').read_text()
     grid = lattice.D3Q19
     assert _source_table(text, 'constexpr int t[19][3]') == \
         grid.basis.reshape(-1).tolist()

@@ -104,7 +104,8 @@ def test_port_modules_are_packaged():
     # every source, and no other: a source without a wrapper would be
     # dead code (the patch kernel went when lbm_step took over its work)
     assert sorted(os.listdir(csrc)) == [
-        'fe_step.cu', 'lbm_common.cuh', 'lbm_step.cu', 'sc_multi.cu']
+        'fe_step.cu', 'lattice_tables.cuh', 'lbm_common.cuh', 'lbm_step.cu',
+        'sc_multi.cu']
 
 
 def test_binary_twins_are_checked():

@@ -11,6 +11,7 @@ card (tests/test_torch_cuda.py).
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from sailfish_tpu import node_type as nt
 from sailfish_tpu.controller import \
     LBSimulationController as JaxController
 from sailfish_tpu.subdomain import Subdomain2D
+from sailfish_tpu_torch import lattice as lattice_torch
 from sailfish_tpu_torch import node_type as nt_torch
 from sailfish_tpu_torch.models.single import LBFluidSim
 from sailfish_tpu_torch.ops import bc_patch as bp
@@ -80,10 +82,13 @@ def test_ldc_classification_and_table():
     p = ls.kernel_params(r.sim.grid, mask.shape, table, r.builder.tau_inv)
     assert (p.nx, p.ny, p.nz, p.nbc) == (8, 8, 8, 1)
     assert (p.bc[0].kind, p.bc[0].axis, p.bc[0].sign) == (4, 2, -1)
+    # the lattice tables are compile-time in the kernel, not in the block
+    assert not {'c', 'w', 'opp'} & {name for name, _ in ls._Params._fields_}
     g = lattice.D3Q19
-    assert [list(p.c[i]) for i in range(g.Q)] == g.basis.tolist()
-    assert list(p.opp)[:g.Q] == g.opposite.tolist()
-    np.testing.assert_allclose(list(p.w)[:g.Q], g.weights, rtol=1e-7)
+    t = ls.lattice_tables(r.sim.grid)
+    assert [list(t.c[i]) for i in range(g.Q)] == g.basis.tolist()
+    assert list(t.opp)[:g.Q] == g.opposite.tolist()
+    np.testing.assert_allclose(list(t.w)[:g.Q], g.weights, rtol=1e-7)
 
 
 def test_keep_codes_and_uniformity():
@@ -177,37 +182,63 @@ def test_step_reference_matches_torch_engine(pair, axis):
 
 
 def test_params_layout_matches_the_c_struct():
-    # int nx, ny, nz, nbc; float tau_inv; int c[27][3]; float w[27];
-    # int opp[27]; LBMBC bc[16] with LBMBC = 4 ints/floats + float[3];
-    # then LBMVary vary[16] with LBMVary = int varies, lo[3], ext[3],
-    # offset: 32 B a row. The part up to the BC table is laid out as
-    # before the varying rows existed, the whole block stays well under
-    # the 4 KB of kernel parameters, and no member is wider than 4 bytes
-    # (an 8-byte one changes the block's alignment and slows the kernel)
+    # int nx, ny, nz, nbc; float tau_inv; LBMBC bc[16] with LBMBC = 4
+    # ints/floats + float[3]; then LBMVary vary[16] with LBMVary = int
+    # varies, lo[3], ext[3], offset: 32 B a row. No lattice table (the
+    # kernel's are compile-time: 540 B less than with c, w and opp), and
+    # no member is wider than 4 bytes (an 8-byte one changes the block's
+    # alignment, which once slowed the kernel by 20 %)
     assert ctypes.sizeof(ls._BC) == 28
-    assert ls._Params.vary.offset == 4 * (5 + 27 * 3 + 27 + 27 + 16 * 7) \
-        == 1008
+    assert ls._Params.bc.offset == 4 * 5
+    assert ls._Params.vary.offset == 4 * (5 + 16 * 7) == 468
     assert ctypes.sizeof(ls._Vary) == 32
-    assert ctypes.sizeof(ls._Params) == 1008 + 16 * 32 == 1520
+    assert ctypes.sizeof(ls._Params) == 468 + 16 * 32 == 980
     assert ctypes.alignment(ls._Params) == 4
+    # LBMTables: int q, dim; int c[27][3]; float w[27]; int opp[27]
+    assert ctypes.sizeof(ls._Tables) == 4 * (2 + 27 * 3 + 27 + 27)
 
 
-def test_kernel_function_checks_the_params_size():
-    """``kernel_function`` refuses a library whose ``LBMParams`` differs
-    from ``_Params``, and types the entry otherwise (parameter array
-    fourth, parameter block fifth)."""
+class _FakeLib:
+    """Stands for a loaded ``csrc/lbm_step.cu`` library: the sizes it
+    reports, and ``lbm_lattice_tables`` copying out the lattice's own
+    tables after ``spoil`` has changed them."""
+
     class Entry:
         argtypes = restype = None
 
-    class Lib:
-        def __init__(self, size):
-            self.lbm_params_size = lambda: size
-            self.lbm_step_d3q19 = Entry()
+    def __init__(self, params=None, tables=None, spoil=None):
+        self.lbm_params_size = lambda: (
+            ctypes.sizeof(ls._Params) if params is None else params)
+        self.lbm_tables_size = lambda: (
+            ctypes.sizeof(ls._Tables) if tables is None else tables)
+        self.lbm_step_d2q9 = self.Entry()
+        self.lbm_step_d3q19 = self.Entry()
 
+        def copy_out(dim, ref):
+            if dim not in (2, 3):
+                return 1
+            t = ls.lattice_tables({2: lattice_torch.D2Q9,
+                                   3: lattice_torch.D3Q19}[dim])
+            if spoil:
+                spoil(t)
+            ctypes.memmove(ref, ctypes.byref(t), ctypes.sizeof(t))
+            return 0
+
+        self.lbm_lattice_tables = copy_out
+        self.lbm_lattice_tables.argtypes = None
+
+
+def test_kernel_function_checks_the_params_size():
+    """``kernel_function`` refuses a library whose ``LBMParams`` or
+    ``LBMTables`` differs from ``_Params`` / ``_Tables``, and types the
+    entry otherwise (parameter array fourth, parameter block fifth)."""
     with pytest.raises(RuntimeError, match='LBMParams layout differs'):
-        ls.kernel_function(Lib(ctypes.sizeof(ls._Params) - 8),
+        ls.kernel_function(_FakeLib(params=ctypes.sizeof(ls._Params) - 8),
                            'lbm_step_d3q19')
-    fn = ls.kernel_function(Lib(ctypes.sizeof(ls._Params)), 'lbm_step_d3q19')
+    with pytest.raises(RuntimeError, match='LBMTables layout differs'):
+        ls.kernel_function(_FakeLib(tables=ctypes.sizeof(ls._Tables) + 4),
+                           'lbm_step_d3q19')
+    fn = ls.kernel_function(_FakeLib(), 'lbm_step_d3q19')
     assert fn.argtypes[:4] == [ctypes.c_void_p] * 4
     assert fn.argtypes[4] == ctypes.POINTER(ls._Params)
     # launches are counted apart by what they compute; one entry serves
@@ -336,3 +367,92 @@ def test_step_reference_takes_per_node_parameters(pair, dim, axis):
     fv = ls.step_reference(f0, mask, table, r.sim.grid, r.builder.tau_inv,
                            bcp)
     assert float((fu - fv)[:, wet].abs().max()) > 1e-4
+
+
+def _source_table(text, decl):
+    body = re.search(re.escape(decl) + r'\s*=\s*\{(.*?)\};', text, re.S)
+    return [int(v) for v in re.findall(r'-?\d+', body.group(1))]
+
+
+@pytest.mark.parametrize('name', ['D2Q9', 'D3Q19'])
+def test_cuda_source_tables_equal_the_lattice(name):
+    """The literal tables of ``struct D2Q9`` / ``struct D3Q19`` in
+    csrc/lattice_tables.cuh, the port's one copy: c and opp entry by entry
+    in the direction order of ``lattice``, w by its three shells."""
+    from sailfish_tpu_torch.ops import build
+    text = (build.CSRC / 'lattice_tables.cuh').read_text()
+    assert len(re.findall(r'^struct D3Q19 ', text, re.M)) == 1
+    for other in ('lbm_common.cuh', 'lbm_step.cu', 'fe_step.cu'):
+        assert not re.search(r'^struct D3Q19 ',
+                             (build.CSRC / other).read_text(), re.M)
+    grid = lattice_torch.get_grid(name)
+    assert grid.basis.tolist() == lattice.get_grid(name).basis.tolist()
+    q, dim = grid.Q, grid.dim
+    assert _source_table(text, f'constexpr int t[{q}][{dim}]') == \
+        grid.basis.reshape(-1).tolist()
+    assert _source_table(text, f'constexpr int t[{q}]') == \
+        grid.opposite.tolist()
+    struct = text[text.index(f'struct {name} '):]
+    w = re.search(r'static constexpr float w\(int i\) \{(.*?)\}', struct,
+                  re.S).group(1)
+    shells = [float(a) / float(b) for a, b in
+              re.findall(r'\(float\)\((\d+\.\d+) / (\d+\.\d+)\)', w)]
+    n2 = (grid.basis ** 2).sum(axis=1)
+    np.testing.assert_array_equal(np.float32([shells[k] for k in n2]),
+                                  grid.weights.astype(np.float32))
+
+
+@pytest.mark.parametrize('name', ['D2Q9', 'D3Q19'])
+def test_check_tables_accepts_the_lattice(name):
+    grid = lattice_torch.get_grid(name)
+    t = ls.lattice_tables(grid)
+    ls.check_tables(t, grid)
+    assert (t.q, t.dim) == (grid.Q, grid.dim)
+    c = np.ctypeslib.as_array(t.c)
+    assert c[:grid.Q, :grid.dim].tolist() == grid.basis.tolist()
+    assert not c[grid.Q:].any() and not c[:, grid.dim:].any()
+    assert list(t.opp)[:grid.Q] == grid.opposite.tolist()
+    np.testing.assert_array_equal(np.ctypeslib.as_array(t.w)[:grid.Q],
+                                  grid.weights.astype(np.float32))
+    # the check at load: a library whose tables are the lattice's passes
+    ls.kernel_function(_FakeLib(), f'lbm_step_{name.lower()}')
+
+
+@pytest.mark.parametrize('field', [f for f, _ in ls._Tables._fields_])
+@pytest.mark.parametrize('name', ['D2Q9', 'D3Q19'])
+def test_check_tables_raises_on_a_perturbed_copy(name, field):
+    grid = lattice_torch.get_grid(name)
+
+    def spoil(t):
+        if field in ('q', 'dim'):
+            setattr(t, field, getattr(t, field) + 1)
+            return
+        arr = np.ctypeslib.as_array(getattr(t, field)).reshape(-1)
+        if arr.dtype == np.float32:
+            # one ulp off in the first entry
+            arr[0] = np.nextafter(arr[0], np.float32(np.inf))
+        else:
+            arr[3] += 1
+
+    t = ls.lattice_tables(grid)
+    spoil(t)
+    with pytest.raises(RuntimeError, match=f'{name} tables .* in {field}$'):
+        ls.check_tables(t, grid)
+    # and through the check that runs when the library loads
+    with pytest.raises(RuntimeError, match=f'differ .* in {field}$'):
+        ls.kernel_function(_FakeLib(spoil=spoil),
+                           f'lbm_step_{name.lower()}')
+
+
+def test_plane_beyond_32_bit_offsets_is_refused(monkeypatch):
+    """The kernel addresses a node inside its (y, x) plane with an int: a
+    plane too large for it is refused by name."""
+    r = cpu_runner(twin('ldc_3d'), lat_nx=8, lat_ny=6, lat_nz=4)
+    assert ls.kernel_ineligibility(r.builder) == []
+    assert ls.MAX_PLANE_FLOATS == 2 ** 31 - 1
+    monkeypatch.setattr(ls, 'MAX_PLANE_FLOATS', 47)
+    assert ls.kernel_ineligibility(r.builder) == [
+        'domain (4, 6, 8): 48 nodes in one (y, x) plane (the kernel '
+        'indexes at most 47)']
+    with pytest.raises(NotImplementedError, match='one .y, x. plane'):
+        ls.KernelStep(r.builder)

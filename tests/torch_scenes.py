@@ -103,22 +103,26 @@ def parabolic_profile(s, n, u_max=U_INLET):
 
 
 def channel_sim(pair, axis='z', profile=None):
-    """Velocity inlet at the low face normal to ``axis`` ('x' or 'z'),
-    density outlet (rho = 1) at the high face, bounce-back walls normal to
-    y (tests/test_sharded_pallas.py:616-675 for z, :696-713 for x). The
+    """Velocity inlet at the low face normal to ``axis`` ('x', 'y' or
+    'z'), density outlet (rho = 1) at the high face, bounce-back walls
+    normal to y, or to z when the channel flows along y
+    (tests/test_sharded_pallas.py:616-675 for z, :696-713 for x). The
     inlet velocity is uniform (0.03), or with ``profile='parabolic'`` the
-    ``parabolic_profile`` across y (a full-shape parameter array)."""
+    ``parabolic_profile`` across the walls' axis (a full-shape parameter
+    array)."""
     vel_cls, den_cls = BC_PAIRS[pair]
     a = 'xyz'.index(axis)
+    wa = 2 if a == 1 else 1
 
     class Channel(Subdomain3D):
         def boundary_conditions(self, hx, hy, hz):
             h, n = (hx, hy, hz)[a], (self.gx, self.gy, self.gz)[a]
-            walls = (hy == 0) | (hy == self.gy - 1)
+            s, ns = (hx, hy, hz)[wa], (self.gx, self.gy, self.gz)[wa]
+            walls = (s == 0) | (s == ns - 1)
             self.set_node(walls, nt.NTFullBBWall)
             un = U_INLET
             if profile == 'parabolic':
-                un = parabolic_profile(hy, self.gy)
+                un = parabolic_profile(s, ns)
             u_in = tuple(un if i == a else 0.0 for i in range(3))
             self.set_node((h == 0) & ~walls, vel_cls(u_in))
             self.set_node((h == n - 1) & ~walls, den_cls(1.0))

@@ -8,7 +8,9 @@ Builds the named ``sailfish_tpu_torch/ops/csrc`` sources (``ops/build``),
 and for every kernel function whose mangled name contains one of the
 ``--match`` strings (default: all) prints
 
-* the registers and spill bytes that ``ptxas -v`` reports;
+* the registers, the stack frame (local-memory bytes per thread) and the
+  spill bytes that ``ptxas -v`` reports, also for a non-inlined device
+  function such as a BC chain;
 * the SASS instruction count of its body (``cuobjdump -sass`` of the built
   library, NOPs left out), and its mix by opcode class: global loads and
   stores, shared loads and stores, ``cp.async`` (LDGSTS), fp32 arithmetic,
@@ -106,13 +108,14 @@ def main():
         for fn in sorted(set(usage) | set(sass)):
             if args.match and not any(k in fn for k in args.match):
                 continue
-            if fn not in sass and 'registers' not in usage.get(fn, {}):
+            if fn not in sass and not usage.get(fn):
                 continue
             row = dict(usage.get(fn, {}), sass=dict(sass.get(fn, {})))
             report[fn] = dict(source=src, **row)
             mix = ', '.join(f'{k} {v}' for k, v in sorted(
                 row['sass'].items(), key=lambda kv: -kv[1]))
-            print(f'{src}: {fn}: {row.get("registers")} registers, spill '
+            print(f'{src}: {fn}: {row.get("registers")} registers, stack '
+                  f'frame {row.get("stack_frame")} B, spill '
                   f'{row.get("spill_stores")} / {row.get("spill_loads")} B; '
                   f'SASS {mix}', flush=True)
     print(json.dumps({'ncu': ncu, 'kernels': report}))

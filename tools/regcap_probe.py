@@ -9,16 +9,19 @@ from it only in the kernel's ``__launch_bounds__``: a minimum number of
 resident 128-thread blocks per SM, which caps the registers per thread
 (65536 / (128 * blocks), at most 255). The shipped kernel is not changed.
 
-* ``base``: the source as it is, ``__launch_bounds__(LBM_BLOCK)``;
-* ``min3`` / ``min4``: ``(LBM_BLOCK, 3)`` / ``(LBM_BLOCK, 4)`` on both
-  instantiations (D2Q9 and D3Q19);
-* ``min4_3d``: ``(LBM_BLOCK, DIM == 3 ? 4 : 1)``: 4 on D3Q19, a minimum
-  of 1 on D2Q9.
+* ``base``: the source as it is, ``__launch_bounds__(LBM_BLOCK, DIM == 3 ?
+  4 : 1)``: at least four blocks (at most 128 registers) on D3Q19, no cap
+  on D2Q9 (ptxas takes 72 and 48 registers);
+* ``nocap``: ``(LBM_BLOCK)`` on both instantiations;
+* ``min8_3d``: 8 blocks (64 registers) on D3Q19;
+* ``min4`` / ``min12_2d``: D3Q19 as shipped, 4 / 12 blocks (128 / 40
+  registers) on D2Q9.
 
 Each variant is bound to the main path's ``KernelStep`` for the lid-driven
 cavities at 256^3 D3Q19 and 4096^2 D2Q9 (``examples/torch``) and for the
 parabolic-inlet channels of the same sizes (``tests/torch_scenes``; BC
-nodes with per-node parameters). The base
+nodes with per-node parameters), with the inlet normal to z / y and normal
+to x (one BC node at each end of every x-row). The base
 kernel first runs the scene for ``--steps`` steps from its initial state;
 from there each variant runs 10 steps and reports the max |difference|
 from the base kernel's result, then times ``--iters`` launches with CUDA
@@ -42,12 +45,13 @@ from sailfish_tpu_torch.ops import build  # noqa: E402
 from sailfish_tpu_torch.ops import lbm_step as ls  # noqa: E402
 from torch_scenes import channel_sim, channel_sim_2d, run, twin  # noqa: E402
 
-BOUNDS = '__launch_bounds__(LBM_BLOCK)'
+BOUNDS = '__launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)'
 VARIANTS = {
     'base': BOUNDS,
-    'min3': '__launch_bounds__(LBM_BLOCK, 3)',
+    'nocap': '__launch_bounds__(LBM_BLOCK)',
+    'min8_3d': '__launch_bounds__(LBM_BLOCK, DIM == 3 ? 8 : 1)',
     'min4': '__launch_bounds__(LBM_BLOCK, 4)',
-    'min4_3d': '__launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)',
+    'min12_2d': '__launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 12)',
 }
 #: scene -> (sim class loader, size, extra flags)
 SCENES = {
@@ -58,6 +62,11 @@ SCENES = {
         (256, 256, 256), {'periodic_x': True}),
     'parabolic_inlet_2d': (lambda: channel_sim_2d('regularized'),
                            (4096, 4096), {}),
+    'parabolic_inlet_x_3d': (
+        lambda: channel_sim('regularized', 'x', profile='parabolic'),
+        (256, 256, 256), {'periodic_z': True}),
+    'parabolic_inlet_x_2d': (lambda: channel_sim_2d('regularized', axis='x'),
+                             (4096, 4096), {}),
 }
 
 
@@ -121,7 +130,7 @@ def main():
     usage = {}
     for name, lib in libs.items():
         usage[name] = {fn: u for fn, u in build.ptxas_usage(lib.log).items()
-                       if 'lbm_step_kernel' in fn or 'bc_node' in fn}
+                       if 'lbm_step_kernel' in fn or 'bc_' in fn}
         for fn, u in sorted(usage[name].items()):
             print(f'ptxas {name}: {fn}: {u}', flush=True)
     results = [probe_scene(scene, libs, args.steps, args.iters)

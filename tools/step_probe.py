@@ -3,7 +3,7 @@
 the same for another checkout of the repository in the same run.
 
     python3 tools/step_probe.py [--iters 200] [--scenes ldc_3d,...]
-                                [--baseline DIR]
+                                [--baseline DIR] [--diff-steps 200]
 
 Needs one CUDA GPU. For each scene (D3Q19 256^3, D2Q9 4096^2, fp32) it
 sets the scene up on the kernel engine (``KernelStep``), runs 100 steps
@@ -22,13 +22,18 @@ With ``--baseline DIR``, DIR holds another checkout (for example
 a process of its own per tree, in the order baseline, this tree, this tree,
 baseline, each building its own kernels. A scene a tree cannot set up
 (an older tree refuses an x-normal varying inlet) is reported with the
-reason instead of a time. Prints one line per timing, the card's name and
-power limit, and a JSON line.
+reason instead of a time. Each process also runs every scene at a quarter
+of the size per axis (64^3, 1024^2) for ``--diff-steps`` steps from one
+seeded state and keeps the result under ``build/probe_states``; the largest
+|difference| between the two trees' states, and between the two runs of
+this tree, is reported per scene (the files are removed at the end). Prints
+one line per timing, the card's name and power limit, and a JSON line.
 """
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -60,9 +65,20 @@ def scene_setup(scene, ts):
     return ts.channel_sim_2d('regularized', profile=profile), cfg
 
 
-def worker(tree, scenes, iters):
+def small_state(ts, scene, steps):
+    """The state of ``scene`` at a quarter of its size per axis after
+    ``steps`` kernel steps from a seeded state, as a CPU tensor."""
+    sim_cls, cfg = scene_setup(scene, ts)
+    cfg = {k: v // 4 if k.startswith('lat_') else v for k, v in cfg.items()}
+    ks = ts.run(sim_cls, max_iters=0, **cfg).kernel
+    f0 = ts.random_feq(ks.grid, ks.shape, 2, 'cuda')
+    return ks.run(ks.a.copy_(f0), steps).cpu()
+
+
+def worker(tree, scenes, iters, states, diff_steps):
     """Time the scenes with the package and scenes of ``tree``; one JSON
-    line {scene: {...}}."""
+    line {scene: {...}}. With ``states`` (a directory), also save each
+    scene's ``small_state`` there."""
     sys.path.insert(0, tree)
     sys.path.insert(0, os.path.join(tree, 'tests'))
     import torch
@@ -96,6 +112,10 @@ def worker(tree, scenes, iters):
         out[scene] = dict(ms=ms, launches_per_step=per_step, kernel=ks.name)
         del ks, f
         torch.cuda.empty_cache()
+        if states:
+            os.makedirs(states, exist_ok=True)
+            torch.save(small_state(ts, scene, diff_steps),
+                       os.path.join(states, f'{scene}.pt'))
     print(json.dumps(out), flush=True)
 
 
@@ -104,11 +124,13 @@ def main():
     ap.add_argument('--iters', type=int, default=200)
     ap.add_argument('--scenes', default=','.join(SCENES))
     ap.add_argument('--baseline', default=None)
+    ap.add_argument('--diff-steps', type=int, default=200)
     ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
+    ap.add_argument('--states', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     scenes = args.scenes.split(',')
     if args.tree:
-        worker(args.tree, scenes, args.iters)
+        worker(args.tree, scenes, args.iters, args.states, args.diff_steps)
         return
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -120,11 +142,17 @@ def main():
         base = ('baseline', os.path.abspath(args.baseline))
         trees = [base, trees[0], trees[0], base]
     results = []
-    for label, tree in trees:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), '--tree', tree,
-             '--scenes', args.scenes, '--iters', str(args.iters)],
-            capture_output=True, text=True, cwd=tree, timeout=1500)
+    states_root = os.path.join(REPO, 'build', 'probe_states')
+    states = []
+    for turn, (label, tree) in enumerate(trees):
+        cmd = [sys.executable, os.path.abspath(__file__), '--tree', tree,
+               '--scenes', args.scenes, '--iters', str(args.iters),
+               '--diff-steps', str(args.diff_steps)]
+        if args.baseline and turn < 3:
+            states.append(os.path.join(states_root, str(turn)))
+            cmd += ['--states', states[-1]]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=tree,
+                              timeout=1500)
         if proc.returncode != 0:
             sys.exit(f'step_probe: {label} failed:\n{proc.stdout}\n'
                      f'{proc.stderr}')
@@ -138,8 +166,25 @@ def main():
                 print(f'{label}: {scene}: not run: {r["refused"]}',
                       flush=True)
         results.append(dict(tree=label, scenes=res))
+    diffs = {}
+    if args.baseline:
+        import torch
+        for scene in scenes:
+            paths = [os.path.join(d, f'{scene}.pt') for d in states]
+            if not all(os.path.exists(p) for p in paths):
+                continue
+            base, new, again = (torch.load(p) for p in paths)
+            diffs[scene] = dict(
+                baseline_vs_tree=float((new - base).abs().max()),
+                tree_vs_tree=float((again - new).abs().max()))
+            print(f'{scene}: after {args.diff_steps} steps at a quarter of '
+                  f'the size, max |baseline - this tree| = '
+                  f'{diffs[scene]["baseline_vs_tree"]:.3e}, max |this tree '
+                  f'- this tree again| = '
+                  f'{diffs[scene]["tree_vs_tree"]:.3e}', flush=True)
+        shutil.rmtree(states_root, ignore_errors=True)
     print(json.dumps({'device': smi, 'iters': args.iters,
-                      'step_probe': results}))
+                      'step_probe': results, 'max_abs_diff': diffs}))
 
 
 if __name__ == '__main__':
