@@ -18,6 +18,14 @@ version on the card from seeded random states:
   128x64x64) and to y and x (D2Q9 1024^2), the inlet face thinned so it
   has holes, 200 steps: with the outlet at the other end, every face the
   kernel's BC dispatch has a case for;
+* the same kernel's forcing mode (a constant body force by the Guo,
+  exact-difference or velocity-shift model; launches counted as
+  ``lbm_step_force_<grid>``) against ``step_reference`` with the same
+  force, 200 steps: the force-driven flows past a sphere (D3Q19
+  128x64x64) and a cylinder (D2Q9 1024x512) for each model, the
+  force-driven pipe (poiseuille_3d 64^3), and channels under a force with
+  regularized and Zou-He faces normal to x, y and z, whose BC nodes take
+  the force;
 * the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
   against ``rho_reference`` and ``sc_multi_reference`` on the binary
   separation scenes (periodic 2D and 3D, and the walled 3D box);
@@ -33,7 +41,10 @@ cavities (D3Q19 256^3, D2Q9 4096^2), the parabolic-inlet channels
 ``parabolic_inlet_2d`` / ``parabolic_inlet_x_2d`` 4096^2, one launch per
 step, each timed against the same channel with a uniform inlet, and the
 step of the channel flowing along x over that of the z- / y-normal one),
-the binary Shan-Chen separations and the free-energy
+the force-driven flows past a sphere (``sphere_3d`` 256^3) and a cylinder
+(``cylinder`` 4096^2) with Guo forcing (one ``lbm_step_force`` launch per
+step; each force model then timed in turns against the same geometry
+without a force), the binary Shan-Chen separations and the free-energy
 separations (each D3Q19 256^3, D2Q9 4096^2), checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
@@ -61,14 +72,18 @@ from sailfish_tpu_torch.ops import build
 from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
+from sailfish_tpu_torch.ops.step import FORCE_MODELS
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, 'tests'))
 from torch_scenes import (BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
-                          binary_twin, channel_sim, channel_sim_2d,
+                          FORCED_SCENES, SC_FORCED_SCENES,
+                          SC_MORE_GOLDEN_FLAGS, SC_MORE_SCENES,
+                          SINGLE_GOLDEN_FLAGS, binary_twin, channel_sim,
+                          channel_sim_2d, forced_channel_sim,
                           parabolic_profile, random_binary_state,
-                          random_fe_state, random_feq, run, twin, wet_map,
-                          with_keep_block, with_patch_row_mix)
+                          random_fe_state, random_feq, run, twin, unforced,
+                          wet_map, with_keep_block, with_patch_row_mix)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
@@ -78,6 +93,10 @@ SEP_3D_WALLS = binary_twin('sc_separation_3d_walls')
 FE_SCENES = ('fe_separation_2d', 'fe_separation_3d', 'fe_poiseuille_2d',
              'fe_viscous_fingering', 'binary_microchannel')
 FE = {scene: binary_twin(scene) for scene in FE_SCENES}
+#: the force-driven main paths (Guo forcing): scene -> size
+FORCED_MAIN = {'sphere_3d': (256, 256, 256), 'cylinder': (4096, 4096)}
+#: their constant acceleration (examples/torch/sphere_3d.py, cylinder.py)
+FORCED_ACCEL = 1e-5
 
 #: kernel-vs-plain tolerance: wet-node max |df| after 200 steps (fp32,
 #: FMA contraction and summation order differ between the two)
@@ -120,6 +139,8 @@ NODE_BYTES = {
     'lbm_step_d3q19': BYTES['D3Q19'], 'lbm_step_d2q9': BYTES['D2Q9'],
     'lbm_step_vary_d3q19': BYTES['D3Q19'],
     'lbm_step_vary_d2q9': BYTES['D2Q9'],
+    'lbm_step_force_d3q19': BYTES['D3Q19'],
+    'lbm_step_force_d2q9': BYTES['D2Q9'],
     'rho_poststream_d3q19': 2 * (19 * 4 + 4),
     'rho_poststream_d2q9': 2 * (9 * 4 + 4),
     'sc_multi_d3q19': 2 * 2 * 19 * 4 + 2 * 4 + 1,
@@ -128,7 +149,8 @@ NODE_BYTES = {
     'fe_step_d2q9': 2 * 2 * 9 * 4 + 4 + 1,
 }
 #: fp32 operations per node, an upper estimate read off each kernel's
-#: source (BGK: ~23 per direction for the moments, feq and relaxation; the
+#: source (BGK: ~23 per direction for the moments, feq and relaxation,
+#: ~10 more for the Guo term of the forcing mode; the
 #: native-BC chain ~60 per direction, on BC nodes only; the pre-pass one add per direction
 #: and component; Shan-Chen two BGK components plus the force stencil; the
 #: free-energy step ~40 per direction and component). Against 67 TFLOP/s
@@ -137,6 +159,7 @@ NODE_BYTES = {
 NODE_OPS = {
     'lbm_step_d3q19': 23 * 19, 'lbm_step_d2q9': 23 * 9,
     'lbm_step_vary_d3q19': 23 * 19, 'lbm_step_vary_d2q9': 23 * 9,
+    'lbm_step_force_d3q19': 33 * 19, 'lbm_step_force_d2q9': 33 * 9,
     'rho_poststream_d3q19': 2 * 19, 'rho_poststream_d2q9': 2 * 9,
     'sc_multi_d3q19': 2 * (23 * 19 + 6 * 19),
     'sc_multi_d2q9': 2 * (23 * 9 + 4 * 9),
@@ -161,6 +184,17 @@ KERNELS = {
                             'sailfish_tpu/ops/pallas_step.py:2197'),
     'lbm_step_vary_d2q9': ('lbm_step.cu',
                            'sailfish_tpu/ops/pallas_step2d.py:900'),
+    # the forcing mode of make_kernel_3d / make_kernel_2d
+    'lbm_step_force_d3q19': ('lbm_step.cu',
+                             'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_force_d2q9': ('lbm_step.cu',
+                            'sailfish_tpu/ops/pallas_step2d.py:36'),
+}
+#: what of the TPU kernel a row stands for, where one TPU kernel has two
+MODES = {
+    'lbm_step_force_d3q19': 'make_kernel_3d, forcing mode (_moments, '
+                            '_force_term, _edm_prep, _edm_term)',
+    'lbm_step_force_d2q9': 'make_kernel_2d, forcing mode',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -182,13 +216,22 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def compare(name, sim_cls, steps=200, **cfg):
-    """Kernel vs step_reference on the card from one random state."""
+def compare(name, sim_cls, steps=200, force_model=None, bc=True, **cfg):
+    """Kernel vs step_reference on the card from one random state. With
+    ``force_model`` the scene has a body force and runs the kernel's
+    instantiation of that model; ``bc``: whether it has native-BC nodes
+    (mask codes 3+), which then take the force too."""
+    if force_model:
+        cfg['force_implementation'] = force_model
     r = run(with_keep_block(sim_cls), platform=DEVICE, engine='kernel',
             max_iters=0, **cfg)
     ks = r.kernel
+    grid = r.sim.grid.name
     codes = sorted(torch.unique(ks.mask).tolist())
-    assert codes[:3] == [0, 1, 2] and codes[-1] >= 3, codes
+    assert codes[:3] == [0, 1, 2] and (codes[-1] >= 3) == bc, codes
+    kind = 'force_' if force_model else ''
+    assert ks.name == f'lbm_step_{kind}{grid.lower()}', ks.name
+    assert ks.params.force.model == ls.FORCE_CODES.get(force_model, 0)
     f0 = random_feq(r.sim.grid, ks.shape, seed=1234, device=DEVICE)
     fk = ks.run(f0, steps)
     fr = f0
@@ -197,10 +240,24 @@ def compare(name, sim_cls, steps=200, **cfg):
     util.synchronize(DEVICE)
     assert ks.launches == steps and not ks.vary
     err = float((fk - fr)[:, wet_mask(ks)].abs().max())
-    say(f'compare {name}: {r.sim.grid.name} {ks.shape} {steps} steps, '
-        f'mask codes {codes}, wet max|df| = {err:.3e} (tol {TOL:g})')
+    forced_by = ''
+    if force_model:
+        # what the force moved: against the unforced plain version
+        fu = f0
+        for _ in range(steps):
+            fu = ls.step_reference(fu, ks.mask, ks.table, ks.grid,
+                                   ks.tau_inv)
+        moved = float((fk - fu)[:, wet_mask(ks)].abs().max())
+        assert moved > 10 * TOL, moved
+        forced_by = (f', force {ks.force} by {force_model} (moved the '
+                     f'state by {moved:.3e})')
+    say(f'compare {name}: {grid} {ks.shape} {steps} steps of {ks.name}, '
+        f'mask codes {codes}{forced_by}, wet max|df| = {err:.3e} (tol '
+        f'{TOL:g})')
     assert np.isfinite(err) and err <= TOL, err
-    return r.sim.grid.name, err
+    del r, ks, f0, fk, fr
+    torch.cuda.empty_cache()
+    return grid, err
 
 
 def channel(dim, axis, pair='regularized', profile='parabolic'):
@@ -252,18 +309,23 @@ def vary_compare(name, dim, axis, pair, steps=200, **cfg):
     return grid, err
 
 
-def golden(scene, sim_cls, golden_name=None, **cfg):
-    """The kernel engine on the golden harness's small scene (20 steps,
-    seed 1234) against tests/goldens at the harness tolerance."""
+def golden(scene, sim_cls, golden_name=None, engine='kernel', **cfg):
+    """The default engine on the card (the kernel engine; ``engine='torch'``
+    for a scene the kernels refuse by name) on the golden harness's small
+    scene (20 steps, seed 1234) against tests/goldens at the harness
+    tolerance."""
     golden_name = golden_name or scene
+    if engine != 'kernel':
+        cfg['engine'] = engine
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, scene)
         r = run(sim_cls, platform=DEVICE, max_iters=20, every=20,
                 seed=1234, output=out, **cfg)
-        assert r.engine == 'kernel', r.engine
-        launches = r.kernel.launches
-        assert set(launches.values() if isinstance(launches, dict)
-                   else [launches]) == {20}, launches
+        assert r.engine == engine and r.device.type == DEVICE, r.engine
+        if engine == 'kernel':
+            launches = r.kernel.launches
+            assert set(launches.values() if isinstance(launches, dict)
+                       else [launches]) == {20}, launches
         data = np.load(f'{out}.0.0000020.npz')
         ref = np.load(os.path.join(REPO, 'tests', 'goldens',
                                    f'{golden_name}.npz'))
@@ -272,7 +334,7 @@ def golden(scene, sim_cls, golden_name=None, **cfg):
             np.testing.assert_allclose(data[k], ref[k], rtol=1e-5,
                                        atol=5e-7, err_msg=f'{scene}:{k}')
             worst = max(worst, float(np.max(np.abs(data[k] - ref[k]))))
-    say(f'golden {golden_name}: kernel engine matches tests/goldens '
+    say(f'golden {golden_name}: {engine} engine matches tests/goldens '
         f'(max |d| = {worst:.3e}; rtol 1e-5, atol 5e-7)')
 
 
@@ -382,17 +444,22 @@ def copy_bandwidth():
     return 2 * n * 4 / (ms / 1e3)
 
 
-def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
+def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4,
+              accel=None):
     """The scene through the controller with the default engine: the
     main path. The kernels' launch counts are zeroed just before the
     controller runs and read just after. MLUPS = median of the chunks
-    after the first."""
+    after the first. ``accel``: the scene is driven from rest by this
+    constant acceleration along x (the forcing mode's main paths) and is
+    checked as such."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
     steps = chunk * chunks
     ls.reset_launch_counts()
     r = run(sim_cls, max_iters=steps, every=chunk, **cfg)
     counts = dict(ls.LAUNCHES)
     assert r.engine == 'kernel', r.engine
+    kind = 'force_' if accel else ''
+    assert r.kernel.name == f'lbm_step_{kind}{r.sim.grid.name.lower()}'
     launches = counts[r.kernel.name]
     assert launches == steps == r.sim.iteration == r.kernel.launches, \
         (counts, steps)
@@ -401,11 +468,31 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     shape = tuple(reversed(size))
     for name, arr in (('rho', r.sim.rho), ('vx', r.sim.vx)):
         assert arr.shape == shape and np.all(np.isfinite(arr)), name
-    # wet nodes: no faster than the lid, mass near its initial density
     mask = r.kernel.mask.cpu().numpy()
     wet = (mask == 0) | (mask >= 3)
-    assert np.abs(r.sim.vx[wet]).max() <= 1.01 * sim_cls.subdomain.max_v
-    assert abs(float(np.mean(r.sim.rho[wet])) - 1.0) < 0.01
+    mean_rho = float(np.mean(r.sim.rho[wet], dtype=np.float64))
+    checks = ''
+    if accel:
+        # from rest under the acceleration a: free fall is a (steps + 1/2);
+        # the flow round the body and through the gap it leaves gains a
+        # factor (2 at a cylinder's equator in potential flow, times the
+        # blockage), so no node passes 4x; the mean follows the force at
+        # more than a quarter of free fall (drag takes the rest); the mass
+        # per wet node stays within MASS_TOL of its start (rho = 1)
+        free = accel * (steps + 0.5)
+        vmax = float(np.abs(r.sim.vx[wet]).max())
+        vmean = float(np.mean(r.sim.vx[wet], dtype=np.float64))
+        assert vmax <= 4.0 * free, (vmax, free)
+        assert 0.25 * free <= vmean <= 1.01 * free, (vmean, free)
+        assert abs(mean_rho - 1.0) <= MASS_TOL, mean_rho
+        checks = (f'; mean wet vx {vmean:.6f}, max {vmax:.6f} (free '
+                  f'acceleration {free:.6f}), mean wet rho - 1 = '
+                  f'{mean_rho - 1.0:+.2e} (tol {MASS_TOL:g})')
+    else:
+        # wet nodes: no faster than the lid, mass near its initial density
+        assert np.abs(r.sim.vx[wet]).max() \
+            <= 1.01 * sim_cls.subdomain.max_v
+        assert abs(mean_rho - 1.0) < 0.01
     grid = r.sim.grid.name
     mlups = statistics.median(r.mlups_history[1:])
     eff = mlups * 1e6 * BYTES[grid]
@@ -413,7 +500,7 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
         f'{r.engine}): {launches} launches; MLUPS per {chunk}-step chunk '
         f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f} '
         f'MLUPS; {eff / 1e9:.1f} GB/s effective ({BYTES[grid]} B/node), '
-        f'{eff / copy_bw:.3f} of the copy bandwidth')
+        f'{eff / copy_bw:.3f} of the copy bandwidth{checks}')
     # the kernel against its plain version on the main path's own state
     # and shapes (10 steps), then each timed alone on the same tensors
     ks = r.kernel
@@ -435,9 +522,48 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
         f'launch; step_reference {plain_ms:.3f} ms')
     result = dict(launches=launches, mlups=mlups, ms=ms,
                   plain_ms=plain_ms, err=err)
+    if accel:
+        result['models_ms'] = force_models_ms(sim_cls, cfg, ks)
     del r, ks, a, b
     torch.cuda.empty_cache()
     return grid, result
+
+
+def force_models_ms(sim_cls, cfg, ks):
+    """ms per launch of each force model's instantiation and of the
+    unforced kernel on the geometry, mask and state buffers of the forced
+    main path's ``ks``, in turns (there and back): what the force costs a
+    step."""
+    steppers = {}
+    for model in FORCE_MODELS + (None,):
+        if model == ks.force_model:
+            steppers[model] = ks
+            continue
+        cls = sim_cls if model else unforced(sim_cls)
+        extra = dict(force_implementation=model) if model else {}
+        k = run(cls, max_iters=0, **cfg, **extra).kernel
+        assert torch.equal(k.mask, ks.mask)
+        assert k.params.force.model == ls.FORCE_CODES.get(model, 0)
+        k.a = k.b = None
+        k.mask = ks.mask
+        torch.cuda.empty_cache()
+        steppers[model] = k
+    a, b = ks.a, ks.b
+    order = list(steppers)
+    turns = {model: [] for model in order}
+    for model in order + order[::-1]:
+        k = steppers[model]
+        turns[model].append(util.cuda_time_ms(
+            lambda: k.step_into(a, b), 100, warmup=50))
+    ms = {str(model): statistics.mean(t) for model, t in turns.items()}
+    say(f'kernel lbm_step_{ks.grid.name.lower()} on the geometry of '
+        f'{sim_cls.__name__} {ks.shape}, ms per launch by force model, in '
+        f'turns: ' + ', '.join(
+            f'{model} {ms[str(model)]:.4f} {turns[model]}'
+            for model in order) + '; over the unforced kernel: '
+        + ', '.join(f'{model} {ms[model] / ms["None"]:.4f}'
+                    for model in FORCE_MODELS))
+    return ms
 
 
 def channel_main_path(scene, copy_bw, chunk=500, chunks=4):
@@ -787,7 +913,7 @@ def fe_demix(size=512, steps=2500):
     torch.cuda.empty_cache()
 
 
-def plain_path(scene, sim_cls, size, chunk, chunks=4):
+def plain_path(scene, sim_cls, size, chunk, chunks=3):
     """The same scene on the plain torch engine on the card."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
     r = run(sim_cls, engine='torch', max_iters=chunk * chunks,
@@ -823,17 +949,25 @@ def main():
                     or 'spill' in line:
                 say('  ptxas:', line.strip())
         if name == 'lbm_step':
+            n_inst = 0
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
                 if 'lbm_step_kernel' not in fn:
                     continue
                 grid = 'd3q19' if 'Li3ELi19E' in fn else 'd2q9'
-                say(f'lbm_step_{grid} {fn}: {use["registers"]} registers, '
+                code = int(fn.split('Li')[3].split('E')[0])
+                model = (('none',) + FORCE_MODELS)[code]
+                n_inst = n_inst + 1
+                say(f'lbm_step_{grid} force model {model} {fn}: '
+                    f'{use["registers"]} registers, '
                     f'stack frame {use["stack_frame"]} B, spill stores '
                     f'{use["spill_stores"]} B, spill loads '
                     f'{use["spill_loads"]} B')
                 # the BC chain runs in registers: no local memory
                 assert use['stack_frame'] == use['spill_stores'] \
                     == use['spill_loads'] == 0, (fn, use)
+                assert use['registers'] <= 128, (fn, use)
+            # two lattices x (no force + three force models)
+            assert n_inst == 2 * (1 + len(FORCE_MODELS)), n_inst
         if name == 'fe_step':
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
                 if 'fe3_kernel' in fn and 'registers' in use:
@@ -867,6 +1001,27 @@ def main():
             grid, err = vary_compare(f'parabolic_{pair}_{dim}d_{axis}', dim,
                                      axis, pair, **cfg)
             note(f'lbm_step_vary_{grid.lower()}', err)
+    forced_cases = [
+        (f'{scene}_{model}', twin(scene), model, False, cfg)
+        for scene, cfg in (('sphere_3d', duct),
+                           ('cylinder', dict(lat_nx=1024, lat_ny=512)))
+        for model in FORCE_MODELS]
+    forced_cases.append(('poiseuille_3d_guo', twin('poiseuille_3d'), 'guo',
+                         False, dict(lat_nx=64, lat_ny=64, lat_nz=64)))
+    # BC nodes take the force in bc_face: a face normal to each axis for
+    # the regularized and the Zou-He pair, the models in turn
+    faces = [(pair, axis) for pair in ('regularized', 'zouhe')
+             for axis in 'xyz']
+    for k, (pair, axis) in enumerate(faces):
+        model = FORCE_MODELS[k % len(FORCE_MODELS)]
+        periodic = 'periodic_z' if axis == 'x' else 'periodic_x'
+        forced_cases.append((
+            f'forced_channel_{pair}_{axis}_{model}',
+            forced_channel_sim(pair, axis), model, True,
+            dict(duct, **{periodic: True})))
+    for name, sim_cls, model, bc, cfg in forced_cases:
+        grid, err = compare(name, sim_cls, force_model=model, bc=bc, **cfg)
+        note(f'lbm_step_force_{grid.lower()}', err)
     cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, sim_cls, cfg in (
             ('sc_separation_2d', SEP_2D, dict(lat_nx=1024, lat_ny=1024)),
@@ -904,6 +1059,17 @@ def main():
     for scene in FE_SCENES:
         golden(scene, FE[scene], f'binary_fluid_{scene}',
                **FE_GOLDEN_FLAGS[scene])
+    # the force-driven twins on the forced kernel, the periodic vortex on
+    # the unforced one; a per-node force and a forced mixture are refused
+    # by the kernels by name and run on the torch engine on the card
+    for scene in FORCED_SCENES + ('taylor_green_2d',):
+        golden(scene, twin(scene), **SINGLE_GOLDEN_FLAGS[scene])
+    golden('four_rolls_mill', twin('four_rolls_mill'), engine='torch',
+           **SINGLE_GOLDEN_FLAGS['four_rolls_mill'])
+    for scene in SC_MORE_SCENES:
+        golden(scene, binary_twin(scene), f'binary_fluid_{scene}',
+               engine='torch' if scene in SC_FORCED_SCENES else 'kernel',
+               **SC_MORE_GOLDEN_FLAGS[scene])
 
     copy_bw = copy_bandwidth()
     say(f'device-to-device copy bandwidth (1 GiB): {copy_bw / 1e9:.1f} GB/s')
@@ -912,6 +1078,15 @@ def main():
                                  ('ldc_2d', LDC_2D, (4096, 4096))):
         grid, res = main_path(scene, sim_cls, size, copy_bw)
         results[f'lbm_step_{grid.lower()}'] = res
+    for scene, size in FORCED_MAIN.items():
+        grid, res = main_path(scene, twin(scene), size, copy_bw,
+                              accel=FORCED_ACCEL)
+        results[f'lbm_step_force_{grid.lower()}'] = res
+        ldc = results[f'lbm_step_{grid.lower()}']
+        say(f'{scene}: {res["mlups"]:.1f} MLUPS against {ldc["mlups"]:.1f} '
+            f'on the lid-driven cavity of the same size: '
+            f'{res["mlups"] / ldc["mlups"]:.4f} of it; {res["ms"]:.4f} '
+            f'against {ldc["ms"]:.4f} ms per launch')
     channel_ms = {}
     for scene in CHANNELS:
         grid, res = channel_main_path(scene, copy_bw)
@@ -984,6 +1159,8 @@ def main():
                             bound_by=bound_by, library_ms=None))
         if 'x_normal_ms' in res:
             kernels[-1]['x_normal_ms'] = res['x_normal_ms']
+        if name in MODES:
+            kernels[-1].update(mode=MODES[name], models_ms=res['models_ms'])
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

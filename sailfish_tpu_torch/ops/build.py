@@ -83,15 +83,21 @@ def build_library(src):
     return _finish_build(*_start_build(src))
 
 
+def hashed_files(src):
+    """The files a build of ``src`` reads and its key hashes: the source,
+    then every header beside it (``*.cuh``, which a source may include).
+    An installed package must carry them all (``package_data`` in
+    setup.py)."""
+    src = Path(src)
+    return [src] + sorted(src.parent.glob('*.cuh'))
+
+
 def _start_build(src):
     """(src, out, running nvcc process or None when built, start time).
-    The build key hashes the source, every header beside it (``*.cuh``,
-    which a source may include) and the flags."""
+    The build key hashes ``hashed_files(src)`` and the flags."""
     src = Path(src)
-    headers = b''.join(h.read_bytes()
-                       for h in sorted(src.parent.glob('*.cuh')))
     digest = hashlib.sha256(
-        src.read_bytes() + headers
+        b''.join(f.read_bytes() for f in hashed_files(src))
         + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f'lib{src.stem}_{digest}.so'
     if out.exists():

@@ -1,7 +1,7 @@
 """Collision operators on torch tensors (port of
-``sailfish_tpu/ops/collide.py``; BGK, the Guo forcing term and the
-Shan-Chen pseudopotential force so far -- MRT/TRT, ELBM, LES and the EDM
-forcing are still to be ported)."""
+``sailfish_tpu/ops/collide.py``; BGK, the Guo and exact-difference
+forcing terms and the Shan-Chen pseudopotential force so far -- MRT/TRT,
+ELBM and LES are still to be ported)."""
 
 from __future__ import annotations
 
@@ -32,6 +32,16 @@ def guo_force_terms(grid, u, accel, tau_inv, rho=None):
     if rho is not None:
         out = out * rho[None]
     return out
+
+
+def edm_shift(grid, rho, u, accel, *, incompressible=False):
+    """Exact-difference-method forcing increment
+    feq(rho, u + a) - feq(rho, u) with the bare velocity ``u``
+    (``sailfish_tpu/ops/collide.py:115-123``). ``accel`` is an
+    acceleration, (dim, *S) or broadcastable. Returns (Q, *S)."""
+    return (eq.bgk_equilibrium(grid, rho, u + accel,
+                               incompressible=incompressible)
+            - eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible))
 
 
 SHAN_CHEN_POTENTIALS = {

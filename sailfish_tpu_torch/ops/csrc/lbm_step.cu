@@ -5,7 +5,10 @@
 //   sailfish_tpu/ops/pallas_step.py   make_kernel_3d  (3D, modes has_mask + kbc)
 //   sailfish_tpu/ops/pallas_step2d.py make_kernel_2d  (2D, modes has_mask + kbc)
 // in the BGK / fp32 / single-device configuration that the lid-driven
-// cavity scenes run, and with them
+// cavity scenes run, in their forcing mode (a constant body force by the Guo,
+// exact-difference or velocity-shift model: pallas_step.py:_moments,
+// _force_term, _edm_prep, _edm_term) that the force-driven ducts, cylinders
+// and pipes run, and with them
 //   sailfish_tpu/ops/pallas_step.py   make_bc_patch_kernel_3d
 //   sailfish_tpu/ops/pallas_step2d.py make_bc_patch_kernel_2d
 // which recompute the z-planes / y-blocks that hold a native BC whose
@@ -16,13 +19,16 @@
 //
 // What it computes, for every node x of the (nz, ny, nx) domain:
 //   fs_i = A[i, x - c_i]                    pull streaming, periodic wrap
-//   mask 0     collide: fs + (feq(rho, u) - fs) / tau
+//   mask 0     collide: fs + (feq(rho, u) - fs) / tau, or with a body
+//              force the model's relaxation and post-collision term
+//              (relax_node in lbm_common.cuh)
 //   mask 1     full bounce-back wall: store fs reflected, out_opp(i) = fs_i
 //   mask 2     keep (excluded / propagation-only): store fs
 //   mask 3+j   native BC instance j of the BC table: macroscopic solve,
 //              equilibrium / Zou-He / regularized reconstruction, then BGK
-//              with the prescribed rho or u (the chain of
-//              pallas_step.py:_bc_row_values). The prescribed values are the
+//              with the prescribed rho or u, under the body force as a
+//              mask-0 node (the chain of pallas_step.py:_bc_row_values).
+//              The prescribed values are the
 //              row's scalars, or (rows with vary[j].varies = 1) the node's own
 //              entry of the parameter array bcp: per instance [rho, u_x,
 //              u_y(, u_z)], component-major over the instance's bounding
@@ -61,14 +67,18 @@
 //   warp in four runs the chain with a single active lane: with runtime
 //   tables and a local-memory chain such a face cost 2.9 times a step.
 //   The read of a varying row's per-node parameters sits in the BC branch,
-//   so only those nodes pay for it and there is one instantiation per
-//   lattice.
+//   so only those nodes pay for it.
+// - The force model is a template parameter: four instantiations per lattice,
+//   picked on the host from LBMParams::force.model, so the unforced kernel
+//   carries no force code and no branch. The force itself (acceleration,
+//   velocity shift, Guo prefactor) is in the parameter block: a forced step
+//   moves the same bytes as an unforced one.
 // Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
 // an in-place (AA-pattern) step would halve the footprint.
 
 #include "lbm_common.cuh"
 
-template <int DIM, int Q>
+template <int DIM, int Q, int FORCE>
 __global__ void __launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)
 lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
                 const uint8_t* __restrict__ mask,
@@ -105,24 +115,42 @@ lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
     float fs[Q];
     pull_node<L>(a, n, s, fs);
     if (m == 0)
-        collide_node<L>(fs, p.tau_inv, b, n, node);
+        collide_node<L, FORCE>(fs, p.tau_inv, p.force, b, n, node);
     else if (m == 1)
         reflect_node<L>(fs, b, n, node);
     else if (m == 2)
         keep_node<L>(fs, b, n, node);
     else
-        bc_node<L>(p, m - 3, bcp, x, y, z, fs, b, n, node);
+        bc_node<L, FORCE>(p, m - 3, bcp, x, y, z, fs, b, n, node);
 }
 
 __global__ void lbm_empty_kernel() {}
 
+template <int DIM, int Q, int FORCE>
+static int launch_model(const float* a, float* b, const uint8_t* mask,
+                        const float* bcp, const LBMParams* p, void* stream) {
+    const dim3 grid((p->nx + LBM_BLOCK - 1) / LBM_BLOCK, p->ny, p->nz);
+    lbm_step_kernel<DIM, Q, FORCE>
+        <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p, bcp);
+    return (int)cudaGetLastError();
+}
+
+// The instantiation of the block's force model.
 template <int DIM, int Q>
 static int launch(const float* a, float* b, const uint8_t* mask,
                   const float* bcp, const LBMParams* p, void* stream) {
-    const dim3 grid((p->nx + LBM_BLOCK - 1) / LBM_BLOCK, p->ny, p->nz);
-    lbm_step_kernel<DIM, Q><<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(
-        a, b, mask, *p, bcp);
-    return (int)cudaGetLastError();
+    switch (p->force.model) {
+    case FORCE_NONE:
+        return launch_model<DIM, Q, FORCE_NONE>(a, b, mask, bcp, p, stream);
+    case FORCE_GUO:
+        return launch_model<DIM, Q, FORCE_GUO>(a, b, mask, bcp, p, stream);
+    case FORCE_EDM:
+        return launch_model<DIM, Q, FORCE_EDM>(a, b, mask, bcp, p, stream);
+    case FORCE_VELOCITY_SHIFT:
+        return launch_model<DIM, Q, FORCE_VELOCITY_SHIFT>(a, b, mask, bcp, p,
+                                                          stream);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 template <typename L>

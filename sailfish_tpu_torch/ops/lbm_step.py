@@ -1,12 +1,14 @@
 """The kernel engine: one fused stream-and-collide CUDA kernel launch per
-step, native BCs with spatially varying parameters included.
+step, native BCs with spatially varying parameters and a constant body
+force included.
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
 (``PallasStep2D``, ``make_kernel_2d``) in their mask + in-kernel native-BC
-(``kbc``) modes, and of their patch kernels ``make_bc_patch_kernel_3d`` /
-``_2d`` (see ``ops/bc_patch.py``). The kernel itself is
-``csrc/lbm_step.cu``; this module classifies the nodes into kernel mask
+(``kbc``) modes with and without forcing (Guo, exact-difference and
+velocity-shift, ``pallas_step.py:246-341``), and of their patch kernels
+``make_bc_patch_kernel_3d`` / ``_2d`` (see ``ops/bc_patch.py``). The
+kernel itself is ``csrc/lbm_step.cu``; this module classifies the nodes into kernel mask
 codes, puts every native-BC instance into one BC table (uniform instances
 with their scalars, varying ones with the address of their per-node
 parameters in the array of ``ops/bc_patch.py``), checks that a scene is
@@ -44,13 +46,18 @@ MAX_PLANE_FLOATS = 2 ** 31 - 1
 #: lattices the kernel is instantiated for
 KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: kernel launches over all ``KernelStep`` objects, counted apart by what
-#: the launch computes: ``lbm_step_<grid>`` (every BC instance uniform)
-#: and ``lbm_step_vary_<grid>`` (some instance reads per-node parameters:
-#: the work of the JAX package's patch kernels); one C entry,
-#: ``lbm_step_<grid>``, serves both
+#: the launch computes: ``lbm_step_force_<grid>`` (a body force: the
+#: forcing mode of the JAX package's kernels, whatever the BC rows),
+#: ``lbm_step_vary_<grid>`` (no force, some instance reads per-node
+#: parameters: the work of the JAX package's patch kernels) and
+#: ``lbm_step_<grid>`` (no force, every BC instance uniform); one C entry,
+#: ``lbm_step_<grid>``, serves all three
 LAUNCHES = dict.fromkeys(
-    (f'lbm_step_{v}{g.lower()}' for v in ('', 'vary_') for g in KERNEL_GRIDS),
-    0)
+    (f'lbm_step_{v}{g.lower()}' for v in ('', 'vary_', 'force_')
+     for g in KERNEL_GRIDS), 0)
+#: force model -> its code in the kernel's parameter block
+#: (csrc/lbm_common.cuh FORCE_*); 0 is no force
+FORCE_CODES = {name: 1 + i for i, name in enumerate(st.FORCE_MODELS)}
 
 
 def reset_launch_counts():
@@ -138,9 +145,17 @@ def bc_table(maps, instances, boxes=None):
 def kernel_ineligibility(builder, nodes=None):
     """Reasons the kernel cannot run ``builder``'s scene (empty when it
     can); ``nodes`` is ``classify_nodes`` of its maps when the caller has
-    it. The torch ``StepBuilder`` already refuses non-BGK models, body
-    forces, Shan-Chen and dynamic BC parameters."""
+    it. The torch ``StepBuilder`` already refuses non-BGK models,
+    DynamicValue body forces, Shan-Chen and dynamic BC parameters. A body
+    force that varies from node to node runs on the torch engine only (the
+    JAX runner keeps it off its kernels too,
+    ``sailfish_tpu/runner.py:386-395``)."""
     reasons = []
+    if builder.body_force is not None \
+            and np.ndim(builder.body_force) > 1:
+        reasons.append('space-varying body force (the kernel takes one '
+                       'constant acceleration; --engine=torch runs a '
+                       'per-node field)')
     if builder.grid.name not in KERNEL_GRIDS:
         reasons.append(f'lattice {builder.grid.name} (the kernel is built '
                        f'for {", ".join(KERNEL_GRIDS)})')
@@ -179,12 +194,16 @@ def box_params(row, bcp, shape):
     return full[0], full[1:]
 
 
-def step_reference(f, mask, table, grid, tau_inv, bcp=None):
+def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
+                   force_model='guo'):
     """Plain PyTorch version of the kernel: one step
     of state ``f`` (Q, *S) under uint8 mask codes ``mask`` (*S) and BC
     table ``table`` (list of ``BCRow``), with relaxation rate ``tau_inv``.
     A row with a box takes each node's rho and u from the fp32 parameter
-    array ``bcp`` (``bc_patch.param_array``)."""
+    array ``bcp`` (``bc_patch.param_array``). ``force`` is a constant
+    acceleration (x, y[, z]) acting on every colliding node, BC nodes
+    included, by ``force_model`` (``step.forced_collide``, the code the
+    torch engine runs)."""
     fs = st.gather(grid, f)
     rho, u = eq.macroscopic(grid, fs)
     ones = (1,) * (f.dim() - 1)
@@ -203,8 +222,12 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None):
     rho, u = st.solve_macro_bc(grid, instances, fs, rho, u)
     fs2 = st.pre_collision_bc(grid, instances, fs, rho, u)
     wet = (mask == 0) | (mask >= 3)
+    if force is not None:
+        force = torch.tensor(force[:grid.dim], dtype=f.dtype,
+                             device=f.device).reshape((grid.dim,) + ones)
     return st.collide_and_select(grid, fs2, rho, u, tau_inv, wet,
-                                 mask == 1)
+                                 mask == 1, force=force,
+                                 force_model=force_model)
 
 
 class _BC(ctypes.Structure):
@@ -218,11 +241,17 @@ class _Vary(ctypes.Structure):
                 ('ext', ctypes.c_int * 3), ('offset', ctypes.c_int)]
 
 
+class _Force(ctypes.Structure):
+    _fields_ = [('model', ctypes.c_int), ('a', ctypes.c_float * 3),
+                ('shift', ctypes.c_float * 3), ('pref', ctypes.c_float)]
+
+
 class _Params(ctypes.Structure):
     _fields_ = [('nx', ctypes.c_int), ('ny', ctypes.c_int),
                 ('nz', ctypes.c_int), ('nbc', ctypes.c_int),
                 ('tau_inv', ctypes.c_float),
-                ('bc', _BC * MAX_BC), ('vary', _Vary * MAX_BC)]
+                ('bc', _BC * MAX_BC), ('vary', _Vary * MAX_BC),
+                ('force', _Force)]
 
 
 class _Tables(ctypes.Structure):
@@ -262,11 +291,16 @@ def check_tables(tables, grid):
             f'sailfish_tpu_torch.lattice in {", ".join(bad)}')
 
 
-def kernel_params(grid, shape, table, tau_inv):
+def kernel_params(grid, shape, table, tau_inv, force=None,
+                  force_model='guo'):
     """The kernel's by-value parameter block: domain extents, relaxation
-    rate, the BC table and, behind it, where each varying row's per-node
-    parameters lie. The lattice tables are compile-time in the kernel
-    (``check_tables``)."""
+    rate, the BC table, behind it where each varying row's per-node
+    parameters lie, and the body force: the model's code, the constant
+    acceleration ``force`` (x, y[, z]; None: code 0, no force), the
+    equilibrium-velocity shift s a (s = 1/2 for Guo, tau for the velocity
+    shift, 0 for the exact-difference method) and the Guo prefactor
+    1 - 1/(2 tau), each computed here in fp64. The lattice tables are
+    compile-time in the kernel (``check_tables``)."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
     p.nx, p.ny, p.nz = nx, ny, nz
@@ -287,6 +321,14 @@ def kernel_params(grid, shape, table, tau_inv):
             for a in range(3):
                 p.vary[j].lo[a] = row.box.lo[a]
                 p.vary[j].ext[a] = row.box.ext[a]
+    if force is not None:
+        s = {'guo': 0.5, 'velocity_shift': 1.0 / tau_inv,
+             'edm': 0.0}[force_model]
+        p.force.model = FORCE_CODES[force_model]
+        p.force.pref = 1.0 - 0.5 * tau_inv
+        for a in range(grid.dim):
+            p.force.a[a] = force[a]
+            p.force.shift[a] = s * force[a]
     return p
 
 
@@ -324,10 +366,13 @@ class KernelStep:
     every step, the uint8 mask, the BC table of every native-BC instance
     (mask code 3 + its index), ``bcp`` (the fp32 per-node parameter array
     of the varying instances), ``vary`` (whether any instance varies),
-    ``entry`` (the C entry, ``lbm_step_<grid>``), ``name`` (the key of
-    ``LAUNCHES`` its launches count under: ``lbm_step_vary_<grid>`` when
-    ``vary``) and ``launches``, the number of kernel launches this object
-    has made: one per step."""
+    ``force`` (the constant body force, an acceleration (x, y[, z]), or
+    None) with its ``force_model``, ``entry`` (the C entry,
+    ``lbm_step_<grid>``, which picks the kernel instantiation of the
+    block's force model), ``name`` (the key of ``LAUNCHES`` its launches
+    count under: ``lbm_step_force_<grid>`` with a force, else
+    ``lbm_step_vary_<grid>`` when ``vary``) and ``launches``, the number
+    of kernel launches this object has made: one per step."""
 
     def __init__(self, builder):
         maps = builder.maps
@@ -351,11 +396,16 @@ class KernelStep:
         full = (self.grid.Q,) + self.shape
         self.a = torch.empty(full, dtype=torch.float32, device=self.device)
         self.b = torch.empty_like(self.a)
+        self.force = None if builder.body_force is None else tuple(
+            float(a) for a in builder.body_force)
+        self.force_model = builder.force_model
         self.params = kernel_params(self.grid, self.shape, self.table,
-                                    self.tau_inv)
+                                    self.tau_inv, self.force,
+                                    self.force_model)
         self.entry = f'lbm_step_{self.grid.name.lower()}'
-        self.name = self.entry.replace('step_', 'step_vary_') \
-            if self.vary else self.entry
+        kind = 'force_' if self.force is not None else \
+            'vary_' if self.vary else ''
+        self.name = self.entry.replace('step_', f'step_{kind}')
         self.launches = 0
         self._fn = None
 
@@ -383,7 +433,8 @@ class KernelStep:
     def reference(self, f):
         """``step_reference`` of this scene on the state ``f``."""
         return step_reference(f, self.mask, self.table, self.grid,
-                              self.tau_inv, self.bcp)
+                              self.tau_inv, self.bcp, self.force,
+                              self.force_model)
 
     def _launch(self, src, dst):
         if src.device.type != 'cuda':

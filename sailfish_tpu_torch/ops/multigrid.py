@@ -19,7 +19,8 @@ import torch
 from sailfish_tpu_torch import equilibrium as eq
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.ops import collide as co
-from sailfish_tpu_torch.ops.step import StepBuilder, sample
+from sailfish_tpu_torch.ops.step import (StepBuilder, is_dynamic_force,
+                                         sample)
 
 
 def laplacian_and_grad(field, dim, boundary_mask=None):
@@ -127,16 +128,13 @@ class MultigridStepBuilder:
         if body_forces is None:
             body_forces = [body_force] + [None] * (len(self.taus) - 1)
         for bf in body_forces:
-            if bf is not None and (isinstance(bf, nt.DynamicValue)
-                                   or any(callable(c) for c in tuple(bf))):
+            if bf is not None and is_dynamic_force(bf):
                 raise NotImplementedError(
                     'DynamicValue body forces cover single-fluid models '
                     'only (StepBuilder.force_at); multi-component models '
                     'take constant per-component forces')
         self.body_forces = body_forces
         self.body_force = body_forces[0]
-        # the component builders refuse what the torch step does not
-        # implement yet (body forces among it)
         self.components = [
             StepBuilder(grid, maps, model='bgk', tau=tau,
                         body_force=(body_forces[k]

@@ -7,9 +7,10 @@ lattice's standard direction order; one step is gather (pull streaming)
 -> fix missing -> macro -> BC solve -> pre-collision BC -> collide ->
 dry-node handling, exactly the JAX phase sequence.
 
-The subset: BGK collision with the second-order equilibrium, no body
-force, no subgrid model, no Shan-Chen, fp32 or fp64 storage, and the node
-types fluid, the excluded / propagation-only "keep" types,
+The subset: BGK collision with the second-order equilibrium, a constant
+or per-node body force (Guo, exact-difference or velocity-shift forcing),
+no subgrid model, no Shan-Chen, fp32 or fp64 storage, and the node types
+fluid, the excluded / propagation-only "keep" types,
 ``NTFullBBWall`` and the six elementwise ("native") BC types with static
 parameters. Anything else raises ``NotImplementedError`` when the builder
 is made, the way the JAX engine's ``_IMPLEMENTED_TYPES`` does. The
@@ -160,10 +161,50 @@ def select_dry(grid, fs, fpost, wet, fullbb):
     return bounce_back(grid, fs, fpost, fullbb)
 
 
+FORCE_MODELS = ('guo', 'edm', 'velocity_shift')
+
+
+def is_dynamic_force(body_force):
+    """Whether ``body_force`` holds time or space callables (a
+    ``DynamicValue``, or a sequence with a callable component)."""
+    return isinstance(body_force, nt.DynamicValue) \
+        or any(callable(c) for c in tuple(body_force))
+
+
+def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
+                   u_eq=None, incompressible=False):
+    """BGK relaxation under the body force ``force`` (an acceleration,
+    (dim, *S) or broadcastable; None: no force), the BGK branch of
+    ``sailfish_tpu/ops/step.py:690-751``. ``guo`` relaxes towards
+    feq(rho, u_eq + a/2) and adds the Guo term; ``velocity_shift`` relaxes
+    towards feq(rho, u_eq + tau a) and adds nothing; ``edm`` relaxes
+    towards feq(rho, u_eq) and adds feq(rho, u + a) - feq(rho, u) with
+    the bare ``u``. ``u_eq`` (default ``u``) is the equilibrium velocity a
+    multi-component coupling has shifted already."""
+    if u_eq is None:
+        u_eq = u
+    if force is not None:
+        if force_model == 'guo':
+            u_eq = u_eq + 0.5 * force
+        elif force_model == 'velocity_shift':
+            u_eq = u_eq + (1.0 / tau_inv) * force
+    fpost = co.bgk_collide(grid, fs, rho, u_eq, tau_inv,
+                           incompressible=incompressible)
+    if force is not None:
+        if force_model == 'guo':
+            fpost = fpost + co.guo_force_terms(grid, u_eq, force, tau_inv,
+                                               rho)
+        elif force_model == 'edm':
+            fpost = fpost + co.edm_shift(grid, rho, u, force,
+                                         incompressible=incompressible)
+    return fpost
+
+
 def collide_and_select(grid, fs2, rho, u, tau_inv, wet, fullbb,
-                       incompressible=False):
-    """BGK collide, then ``select_dry``."""
-    fpost = co.bgk_collide(grid, fs2, rho, u, tau_inv,
+                       incompressible=False, force=None, force_model='guo'):
+    """``forced_collide`` on every node (BC nodes take the force with
+    their solved rho and u), then ``select_dry``."""
+    fpost = forced_collide(grid, fs2, rho, u, tau_inv, force, force_model,
                            incompressible=incompressible)
     return select_dry(grid, fs2, fpost, wet, fullbb)
 
@@ -176,7 +217,7 @@ class StepBuilder:
                  incompressible=False, smagorinsky=0.0, body_force=None,
                  force_model='guo', sc_coupling=0.0, equilibrium='bgk',
                  dtype=torch.float32, device='cpu', storage='fp'):
-        if force_model not in ('guo', 'edm', 'velocity_shift'):
+        if force_model not in FORCE_MODELS:
             raise ValueError(
                 f'force_model must be guo, edm or velocity_shift; '
                 f'got {force_model!r}')
@@ -185,8 +226,9 @@ class StepBuilder:
             unported.append(f'model={model}')
         if smagorinsky > 0.0:
             unported.append('the Smagorinsky subgrid model')
-        if body_force is not None:
-            unported.append('body forces')
+        if body_force is not None and is_dynamic_force(body_force):
+            unported.append('DynamicValue body forces (time- or '
+                            'space-dependent callables)')
         if sc_coupling != 0.0:
             unported.append('Shan-Chen coupling')
         if equilibrium != 'bgk':
@@ -207,6 +249,22 @@ class StepBuilder:
         self.incompressible = incompressible
         self.dtype = dtype
         self.device = torch.device(device)
+        #: the body force as given (an acceleration: a (dim,) vector or a
+        #: (dim, *S) field) and ``force``, the same baked for the device:
+        #: (dim, 1, ..., 1) or (dim, *S)
+        self.body_force = body_force
+        self.force_model = force_model
+        self.force = None
+        if body_force is not None:
+            shape = maps.type_map.shape
+            bf = np.asarray(body_force, dtype=np.float64)
+            if bf.shape not in ((grid.dim,), (grid.dim,) + shape):
+                raise ValueError(
+                    f'body force needs shape ({grid.dim},) or '
+                    f'{(grid.dim,) + shape}; got {bf.shape}')
+            if bf.ndim == 1:
+                bf = bf.reshape((grid.dim,) + (1,) * len(shape))
+            self.force = torch.as_tensor(bf, dtype=dtype, device=self.device)
         self._prepare_static()
 
     def _prepare_static(self):
@@ -271,7 +329,8 @@ class StepBuilder:
         fs2 = pre_collision_bc(g, self.bc_instances, fs, rho, u,
                                self.incompressible)
         return collide_and_select(g, fs2, rho, u, self.tau_inv, self.wet,
-                                  self.fullbb, self.incompressible)
+                                  self.fullbb, self.incompressible,
+                                  self.force, self.force_model)
 
     # -- per-phase pieces for the multi-component builders -----------------
     # (the names and semantics of ``sailfish_tpu/ops/step.py:584-770``)
@@ -288,11 +347,12 @@ class StepBuilder:
                                 self.incompressible)
 
     def _collide(self, fs, rho, u, u_eq=None):
-        """BGK relaxation towards feq(rho, u_eq); ``u_eq`` (default ``u``)
-        is the shifted equilibrium velocity of the multi-component
-        couplings."""
-        return co.bgk_collide(self.grid, fs, rho, u if u_eq is None else u_eq,
-                              self.tau_inv,
+        """``forced_collide`` with this builder's body force; ``u_eq``
+        (default ``u``) is the shifted equilibrium velocity of the
+        multi-component couplings, and the force's own shift is added to
+        it."""
+        return forced_collide(self.grid, fs, rho, u, self.tau_inv,
+                              self.force, self.force_model, u_eq=u_eq,
                               incompressible=self.incompressible)
 
     def _post_collision(self, fs, fpost):
@@ -304,10 +364,15 @@ class StepBuilder:
         return self.fix_missing(self.gather(f), f)
 
     def macro_fields(self, f, it=0):
-        """rho, u with BC overrides applied (output fields)."""
+        """rho, u with BC overrides applied (output fields); under a body
+        force of any model u is the force-corrected u + a/2
+        (``sailfish_tpu/ops/step.py:840-842``)."""
         fs = self.streamed(f)
         rho, u = eq.macroscopic(self.grid, fs)
-        return solve_macro_bc(self.grid, self.bc_instances, fs, rho, u)
+        rho, u = solve_macro_bc(self.grid, self.bc_instances, fs, rho, u)
+        if self.force is not None:
+            u = u + 0.5 * self.force
+        return rho, u
 
     def build(self):
         """step(f, it=0) -> f_next on post-collision states."""

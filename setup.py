@@ -9,6 +9,6 @@ setup(
     packages=find_packages(include=['sailfish_tpu', 'sailfish_tpu.*',
                                     'sailfish_tpu_torch',
                                     'sailfish_tpu_torch.*']),
-    package_data={'sailfish_tpu_torch': ['ops/csrc/*.cu']},
+    package_data={'sailfish_tpu_torch': ['ops/csrc/*.cu', 'ops/csrc/*.cuh']},
     python_requires='>=3.10',
 )

@@ -35,6 +35,17 @@ extent is more than one block and not a multiple of it: wet-node max |df|
 between the two). One more case checks an x-row block that holds BC nodes
 of two instances.
 
+The kernel's forcing mode (a constant body force by the Guo,
+exact-difference or velocity-shift model; launches counted as
+``lbm_step_force_<grid>``) is held against ``step_reference`` with the
+same force on the force-driven scenes (sphere_3d, cylinder, poiseuille_3d,
+a block of excluded nodes added; 50 steps, <= 1e-5, and a state that moves
+with the force) and on forced channels with native-BC faces normal to x, y
+and z, whose BC nodes take the force (``FACE_SIZES``, uniform and varying
+rows, 200 steps, <= 1e-5). The forced scenes run through the controller on
+the kernel engine and on the torch engine for 30 steps (<= 1e-5); a
+per-node force raises there and names the reason.
+
 The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
 the order parameter, then ``fe_step``) are held against ``rho_reference``
 and ``fe_step_reference`` on the five free-energy twins (a block of
@@ -56,8 +67,10 @@ from sailfish_tpu_torch.ops import build
 from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
+from sailfish_tpu_torch.ops.step import FORCE_MODELS
 from torch_scenes import (BC_PAIRS, BINARY_SCENES, FE_SCENES, binary_twin,
-                          channel_sim, channel_sim_2d, random_binary_state,
+                          channel_sim, channel_sim_2d, forced_channel_sim,
+                          forced_channel_sim_2d, random_binary_state,
                           random_fe_state, random_feq, run, twin,
                           with_keep_block, with_patch_row_mix)
 
@@ -252,6 +265,112 @@ def test_block_with_bc_nodes_of_two_instances(cuda):
     torch.cuda.synchronize()
     wet = (ks.mask == 0) | (ks.mask >= 3)
     assert float((out - ks.reference(f0))[:, wet].abs().max()) <= 1e-6
+
+
+#: force-driven scenes -> size (x ragged against the block of 128)
+FORCED_SIZES = {
+    'sphere_3d': dict(lat_nx=72, lat_ny=40, lat_nz=32),
+    'cylinder': dict(lat_nx=300, lat_ny=120),
+    'poiseuille_3d': dict(lat_nx=40, lat_ny=40, lat_nz=24),
+}
+
+
+def _wet(ks):
+    return (ks.mask == 0) | (ks.mask >= 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', FORCE_MODELS)
+@pytest.mark.parametrize('scene', sorted(FORCED_SIZES))
+def test_forced_kernel_matches_step_reference(cuda, scene, model):
+    r = run(with_keep_block(twin(scene)), platform='cuda', engine='kernel',
+            max_iters=0, force_implementation=model, **FORCED_SIZES[scene])
+    ks = r.kernel
+    grid = r.sim.grid
+    assert ks.force is not None and ks.force_model == model
+    assert ks.name == f'lbm_step_force_{grid.name.lower()}'
+    assert ks.params.force.model == ls.FORCE_CODES[model]
+    assert sorted(torch.unique(ks.mask).tolist()) == [0, 1, 2]
+    f0 = random_feq(grid, ks.shape, seed=11, device='cuda')
+    ls.reset_launch_counts()
+    fk = ks.run(f0, 50)
+    fr = fu = f0
+    for _ in range(50):
+        fr = ks.reference(fr)
+        fu = ls.step_reference(fu, ks.mask, ks.table, grid, ks.tau_inv)
+    torch.cuda.synchronize()
+    assert ks.launches == 50 == ls.LAUNCHES[ks.name]
+    assert sum(ls.LAUNCHES.values()) == 50
+    wet = _wet(ks)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+    # the force moves the state by far more than the tolerance
+    assert float((fk - fu)[:, wet].abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', FORCE_MODELS)
+@pytest.mark.parametrize('profile', [None, 'parabolic'])
+@pytest.mark.parametrize('dim,axis', sorted(FACE_SIZES))
+@pytest.mark.parametrize('pair', ['regularized', 'zouhe'])
+def test_forced_kernel_matches_step_reference_on_every_face(
+        cuda, pair, dim, axis, profile, model):
+    """BC nodes take the force in ``bc_face``: forced channels with the
+    inlet at the low and the outlet at the high end of each axis."""
+    sim = (forced_channel_sim(pair, axis, profile) if dim == 3
+           else forced_channel_sim_2d(pair, profile, axis))
+    sim = with_patch_row_mix(with_keep_block(sim), axis)
+    r = run(sim, platform='cuda', engine='kernel', max_iters=0,
+            force_implementation=model, **FACE_SIZES[dim, axis])
+    ks = r.kernel
+    assert ks.name == f'lbm_step_force_{r.sim.grid.name.lower()}'
+    assert ks.vary == (profile is not None)
+    assert sorted(torch.unique(ks.mask).tolist())[:4] == [0, 1, 2, 3]
+    f0 = random_feq(r.sim.grid, ks.shape, seed=12, device='cuda')
+    fk = ks.run(f0, 200)
+    fr = f0
+    for _ in range(200):
+        fr = ks.reference(fr)
+    fu = ls.step_reference(f0, ks.mask, ks.table, r.sim.grid, ks.tau_inv,
+                           ks.bcp)
+    out = torch.zeros_like(f0)
+    ks.step_into(f0, out)
+    torch.cuda.synchronize()
+    assert ks.launches == 201
+    assert float((fk - fr)[:, _wet(ks)].abs().max()) <= 1e-5
+    # after one step the BC nodes differ from the unforced step's by the
+    # force's size and from the forced plain version's by rounding
+    bc = ks.mask >= 3
+    assert float((out - fu)[:, bc].abs().max()) > 1e-7
+    assert float((out - ks.reference(f0))[:, bc].abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(FORCED_SIZES))
+def test_default_engine_on_cuda_is_the_forced_kernel(cuda, scene):
+    ls.reset_launch_counts()
+    r = run(twin(scene), max_iters=30, every=10, **FORCED_SIZES[scene])
+    assert r.engine == 'kernel'
+    name = f'lbm_step_force_{r.sim.grid.name.lower()}'
+    assert r.kernel.name == name
+    assert r.kernel.launches == ls.LAUNCHES[name] == 30
+    assert sum(ls.LAUNCHES.values()) == 30
+    assert bool(torch.isfinite(r.f).all())
+    ref = run(twin(scene), engine='torch', max_iters=30, every=10,
+              **FORCED_SIZES[scene])
+    assert ref.engine == 'torch' and ref.kernel is None
+    assert float((r.f - ref.f)[:, _wet(r.kernel)].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_per_node_force_raises_on_the_default_engine(cuda):
+    """No silent change of engine: the default engine on the card refuses
+    four_rolls_mill's per-node force by name; ``--engine=torch`` runs it."""
+    with pytest.raises(NotImplementedError,
+                       match='space-varying body force'):
+        run(twin('four_rolls_mill'), max_iters=0, lat_nx=64, lat_ny=64)
+    r = run(twin('four_rolls_mill'), engine='torch', max_iters=10, every=10,
+            lat_nx=64, lat_ny=64)
+    assert r.engine == 'torch' and bool(torch.isfinite(r.f).all())
 
 
 @pytest.mark.cuda

@@ -108,13 +108,51 @@ def test_port_modules_are_packaged():
         'sc_multi.cu']
 
 
+def test_package_data_carries_every_file_a_build_hashes():
+    """setup.py's ``package_data`` patterns match every file
+    ``ops/build.py`` reads for a build (each source and the headers
+    beside it): an installed package can build its kernels."""
+    import ast
+    import fnmatch
+
+    import sailfish_tpu_torch
+    from sailfish_tpu_torch.ops import build
+    tree = ast.parse(open(os.path.join(REPO, 'setup.py')).read())
+    (call,) = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+               and getattr(n.func, 'id', '') == 'setup']
+    (data,) = [ast.literal_eval(k.value) for k in call.keywords
+               if k.arg == 'package_data']
+    patterns = data['sailfish_tpu_torch']
+    root = os.path.dirname(sailfish_tpu_torch.__file__)
+    sources = sorted(build.CSRC.glob('*.cu'))
+    assert len(sources) == 3
+    files = {f for src in sources for f in build.hashed_files(src)}
+    assert {f.suffix for f in files} == {'.cu', '.cuh'}
+    for f in files:
+        rel = os.path.relpath(f, root).replace(os.sep, '/')
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
+
+
 def test_binary_twins_are_checked():
     twins = {os.path.basename(p) for p in _port_sources()
              if os.sep + 'binary_fluid' + os.sep in p}
     assert twins == {'sc_separation_2d.py', 'sc_separation_3d.py',
                      'sc_separation_3d_walls.py', 'fe_separation_2d.py',
                      'fe_separation_3d.py', 'fe_poiseuille_2d.py',
-                     'fe_viscous_fingering.py', 'binary_microchannel.py'}
+                     'fe_viscous_fingering.py', 'binary_microchannel.py',
+                     'sc_drop_2d.py', 'sc_laplace_2d.py',
+                     'sc_rayleigh_taylor_2d.py', 'sc_capillary.py'}
+
+
+def test_single_fluid_twins_are_checked():
+    """Every single-fluid twin is registered with its sim class and the
+    golden harness's flags (``torch_scenes.SINGLE_SCENES``)."""
+    from torch_scenes import SINGLE_GOLDEN_FLAGS, SINGLE_SCENES, twin
+    top = os.path.join(REPO, 'examples', 'torch')
+    twins = {n[:-3] for n in os.listdir(top) if n.endswith('.py')}
+    assert twins == set(SINGLE_SCENES) == set(SINGLE_GOLDEN_FLAGS)
+    for scene in SINGLE_SCENES:
+        assert twin(scene).__name__ == SINGLE_SCENES[scene]
 
 
 def test_node_type_ids_match_the_jax_package():

@@ -184,7 +184,8 @@ def test_step_reference_matches_torch_engine(pair, axis):
 def test_params_layout_matches_the_c_struct():
     # int nx, ny, nz, nbc; float tau_inv; LBMBC bc[16] with LBMBC = 4
     # ints/floats + float[3]; then LBMVary vary[16] with LBMVary = int
-    # varies, lo[3], ext[3], offset: 32 B a row. No lattice table (the
+    # varies, lo[3], ext[3], offset: 32 B a row; then LBMForce = int model,
+    # float a[3], shift[3], pref: 32 B. No lattice table (the
     # kernel's are compile-time: 540 B less than with c, w and opp), and
     # no member is wider than 4 bytes (an 8-byte one changes the block's
     # alignment, which once slowed the kernel by 20 %)
@@ -192,8 +193,36 @@ def test_params_layout_matches_the_c_struct():
     assert ls._Params.bc.offset == 4 * 5
     assert ls._Params.vary.offset == 4 * (5 + 16 * 7) == 468
     assert ctypes.sizeof(ls._Vary) == 32
-    assert ctypes.sizeof(ls._Params) == 468 + 16 * 32 == 980
-    assert ctypes.alignment(ls._Params) == 4
+    assert ls._Params.force.offset == 468 + 16 * 32 == 980
+    assert ctypes.sizeof(ls._Force) == 32
+    assert ctypes.sizeof(ls._Params) == 980 + 32 == 1012
+    for struct in (ls._BC, ls._Vary, ls._Force, ls._Params):
+        assert ctypes.alignment(struct) == 4
+
+
+@pytest.mark.parametrize('model,shift', [
+    ('guo', 0.5), ('edm', 0.0), ('velocity_shift', 0.8)])
+def test_kernel_params_carry_the_force(model, shift):
+    """The block holds the force model's code, the acceleration, the
+    equilibrium-velocity shift s a (s = 1/2, 0 or tau) and the Guo
+    prefactor 1 - 1/(2 tau), fp64 products cast to fp32; without a force
+    the code is 0 and every float of the force block 0."""
+    accel = (1e-5, -4e-6, 2.5e-6)
+    tau_inv = 1.0 / 0.8
+    for grid in (lattice_torch.D2Q9, lattice_torch.D3Q19):
+        shape = (4,) * grid.dim
+        p = ls.kernel_params(grid, shape, [], tau_inv, accel[:grid.dim],
+                             model)
+        assert p.force.model == ls.FORCE_CODES[model] > 0
+        want = np.zeros(3)
+        want[:grid.dim] = accel[:grid.dim]
+        assert list(p.force.a) == list(want.astype(np.float32))
+        assert list(p.force.shift) == list((shift * want).astype(np.float32))
+        assert p.force.pref == np.float32(1.0 - 0.5 * tau_inv)
+        bare = ls.kernel_params(grid, shape, [], tau_inv)
+        assert bare.force.model == 0
+        assert bytes(bare.force) == bytes(ctypes.sizeof(ls._Force))
+    assert ls.FORCE_CODES == {'guo': 1, 'edm': 2, 'velocity_shift': 3}
     # LBMTables: int q, dim; int c[27][3]; float w[27]; int opp[27]
     assert ctypes.sizeof(ls._Tables) == 4 * (2 + 27 * 3 + 27 + 27)
 
@@ -243,6 +272,8 @@ def test_kernel_function_checks_the_params_size():
     assert fn.argtypes[4] == ctypes.POINTER(ls._Params)
     # launches are counted apart by what they compute; one entry serves
     assert sorted(ls.LAUNCHES) == ['lbm_step_d2q9', 'lbm_step_d3q19',
+                                   'lbm_step_force_d2q9',
+                                   'lbm_step_force_d3q19',
                                    'lbm_step_vary_d2q9',
                                    'lbm_step_vary_d3q19']
 

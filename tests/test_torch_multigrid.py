@@ -198,8 +198,26 @@ def test_unported_forcing_raises():
             super().__init__(config)
             self.add_body_force((0.0, -1e-5), grid=1)
 
+    # a constant force on one component runs on the torch engine; the
+    # mixture kernel and a time-dependent force still refuse by name
+    r = run_port(Forced, max_iters=2, lat_nx=8, lat_ny=8)
+    assert r.engine == 'torch' and r.builder.components[0].force is None
+    assert r.builder.components[1].force.flatten().tolist() \
+        == pytest.approx([0.0, -1e-5])
+    from sailfish_tpu_torch.ops import sc_multi
+    assert any('body forces' in why
+               for why in sc_multi.kernel_ineligibility(r.builder))
     with pytest.raises(NotImplementedError, match='body forces'):
-        run_port(Forced, max_iters=2, lat_nx=8, lat_ny=8)
+        sc_multi.SCMultiStep(r.builder)
+
+    class Ramped(sim):
+        def __init__(self, config):
+            super().__init__(config)
+            self.add_body_force((0.0, lambda t: -1e-7 * t), grid=1)
+
+    with pytest.raises(NotImplementedError,
+                       match='DynamicValue body forces'):
+        run_port(Ramped, max_iters=2, lat_nx=8, lat_ny=8)
     with pytest.raises(NotImplementedError, match='Guo body forcing only'):
         run_port(sim, max_iters=2, lat_nx=8, lat_ny=8,
                  force_implementation='edm')

@@ -16,6 +16,7 @@ import torch
 from sailfish_tpu import node_type as nt
 from sailfish_tpu.ops.step import StepBuilder as JaxStepBuilder
 from sailfish_tpu.subdomain import Subdomain3D
+from sailfish_tpu_torch import node_type as tnt
 from sailfish_tpu_torch.models.single import LBFluidSim
 from sailfish_tpu_torch.ops.step import StepBuilder
 from sailfish_tpu_torch.state import state_to_numpy
@@ -74,7 +75,10 @@ def test_step_matches_jax_xla_engine(scene):
 @pytest.mark.parametrize('kwargs,match', [
     (dict(model='mrt'), 'model=mrt'),
     (dict(smagorinsky=0.03), 'Smagorinsky'),
-    (dict(body_force=np.array([1e-5, 0.0, 0.0])), 'body forces'),
+    (dict(body_force=tnt.DynamicValue(lambda t: 1e-6 * t, 0.0, 0.0)),
+     'DynamicValue body forces'),
+    (dict(body_force=(1e-5, lambda t: 1e-6 * t, 0.0)),
+     'DynamicValue body forces'),
     (dict(sc_coupling=-5.0), 'Shan-Chen'),
     (dict(equilibrium='elbm'), 'equilibrium=elbm'),
     (dict(storage='int16'), 'storage'),
@@ -84,6 +88,19 @@ def test_unported_options_raise(kwargs, match):
                     lat_nz=8)
     with pytest.raises(NotImplementedError, match=match):
         StepBuilder(r.sim.grid, r.maps, visc=0.1, **kwargs)
+
+
+def test_per_node_force_raises_on_the_kernel_engine():
+    """The torch engine takes a per-node force field; ``KernelStep`` refuses
+    it and names the reason."""
+    from sailfish_tpu_torch.ops.lbm_step import KernelStep
+    r = cpu_runner(twin('ldc_3d'), lat_nx=8, lat_ny=8, lat_nz=8)
+    field = np.full((3, 8, 8, 8), 1e-6)
+    builder = StepBuilder(r.sim.grid, r.maps, visc=0.1, body_force=field)
+    assert builder.force.shape == (3, 8, 8, 8)
+    with pytest.raises(NotImplementedError,
+                       match='space-varying body force'):
+        KernelStep(builder)
 
 
 def test_unported_node_type_raises():

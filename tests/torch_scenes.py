@@ -16,6 +16,7 @@ import torch
 from sailfish_tpu_torch import equilibrium as teq
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.controller import LBSimulationController
+from sailfish_tpu_torch.models.base import LBForcedSim
 from sailfish_tpu_torch.models.single import LBFluidSim
 from sailfish_tpu_torch.subdomain import Subdomain2D, Subdomain3D
 
@@ -38,9 +39,41 @@ def load_example(rel, name):
     return mod
 
 
+#: single-fluid twins (examples/torch) -> sim class name
+SINGLE_SCENES = {
+    'ldc_2d': 'LDCSim',
+    'ldc_3d': 'LDCSim',
+    'cylinder': 'CylinderSimulation',
+    'sphere_3d': 'SphereSimulation',
+    'square_cylinder_2d': 'SquareCylinderSim',
+    'external_geometry': 'ExternalSimulation',
+    'poiseuille_3d': 'PoiseuilleSim',
+    'taylor_green_2d': 'TaylorGreenSim',
+    'four_rolls_mill': 'FourRollsMill',
+}
+#: the golden harness's flags for the single-fluid scenes
+#: (tests/examples_harness.py:30-64)
+SINGLE_GOLDEN_FLAGS = {
+    'ldc_2d': dict(lat_nx=32, lat_ny=32),
+    'ldc_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
+    'cylinder': dict(lat_nx=64, lat_ny=32),
+    'sphere_3d': dict(lat_nx=32, lat_ny=16, lat_nz=16),
+    'square_cylinder_2d': dict(lat_nx=64, lat_ny=32),
+    'external_geometry': {},
+    'poiseuille_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
+    'taylor_green_2d': dict(lat_nx=32, lat_ny=32),
+    'four_rolls_mill': dict(lat_nx=32, lat_ny=32),
+}
+#: the single-fluid scenes driven by a constant body force (the kernel
+#: engine's forcing mode)
+FORCED_SCENES = ('cylinder', 'sphere_3d', 'square_cylinder_2d',
+                 'external_geometry', 'poiseuille_3d')
+
+
 def twin(scene):
-    """``LDCSim`` of ``examples/torch/<scene>.py``."""
-    return load_example(f'torch/{scene}.py', f'torch_{scene}').LDCSim
+    """The sim class of ``examples/torch/<scene>.py``."""
+    mod = load_example(f'torch/{scene}.py', f'torch_{scene}')
+    return getattr(mod, SINGLE_SCENES[scene])
 
 
 #: binary Shan-Chen twins (examples/torch/binary_fluid) -> sim class name
@@ -48,6 +81,24 @@ BINARY_SCENES = {
     'sc_separation_2d': 'SeparationSCSim',
     'sc_separation_3d': 'SeparationSCSim',
     'sc_separation_3d_walls': 'WalledSeparationSim',
+}
+#: more binary Shan-Chen twins (a drop held by the self-coupling G11, a
+#: Laplace-law drop, and two scenes under body forces) -> sim class name
+SC_MORE_SCENES = {
+    'sc_drop_2d': 'SCDropSim',
+    'sc_laplace_2d': 'LaplaceSim',
+    'sc_rayleigh_taylor_2d': 'RayleighTaylorSCSim',
+    'sc_capillary': 'CapillaryTaylorSim',
+}
+#: those of them with a body force: the torch engine runs them, the
+#: mixture kernels refuse a body force by name
+SC_FORCED_SCENES = ('sc_rayleigh_taylor_2d', 'sc_capillary')
+#: the golden harness's flags for them (tests/examples_harness.py:49-79)
+SC_MORE_GOLDEN_FLAGS = {
+    'sc_drop_2d': dict(lat_nx=64, lat_ny=64),
+    'sc_laplace_2d': dict(lat_nx=64, lat_ny=64),
+    'sc_rayleigh_taylor_2d': dict(lat_nx=32, lat_ny=32),
+    'sc_capillary': dict(lat_nx=96, lat_ny=32),
 }
 #: binary free-energy twins (examples/torch/binary_fluid) -> sim class name
 FE_SCENES = {
@@ -71,7 +122,8 @@ FE_GOLDEN_FLAGS = {
 def binary_twin(scene):
     """The sim class of ``examples/torch/binary_fluid/<scene>.py``."""
     mod = load_example(f'torch/binary_fluid/{scene}.py', f'torch_{scene}')
-    return getattr(mod, {**BINARY_SCENES, **FE_SCENES}[scene])
+    return getattr(mod, {**BINARY_SCENES, **SC_MORE_SCENES,
+                         **FE_SCENES}[scene])
 
 
 def run(sim_cls, **cfg):
@@ -167,6 +219,49 @@ def channel_sim_2d(pair, profile='parabolic', axis='y'):
         subdomain = Channel
 
     return Sim
+
+
+#: the body force of the forced channels: along the flow and, weaker,
+#: across it, so every component and both signs enter
+CHANNEL_ACCEL = (1e-5, -4e-6, 2.5e-6)
+
+
+def forced(sim_cls, accel):
+    """``sim_cls`` (an ``LBFluidSim``) with ``LBForcedSim`` mixed in and the
+    constant acceleration ``accel`` (x, y[, z]) as its body force;
+    ``--force_implementation`` picks the model."""
+
+    class Sim(sim_cls, LBForcedSim):
+        def __init__(self, config):
+            super().__init__(config)
+            self.add_body_force(accel)
+
+    return Sim
+
+
+def unforced(sim_cls):
+    """``sim_cls`` (a force-driven scene) without its body force: the same
+    geometry on the unforced step."""
+
+    class Sim(sim_cls):
+        def add_body_force(self, *args, **kwargs):
+            pass
+
+    return Sim
+
+
+def forced_channel_sim(pair, axis='z', profile=None, accel=CHANNEL_ACCEL):
+    """``channel_sim`` under the constant body force ``accel``: native-BC
+    faces normal to ``axis`` whose nodes take the force with the fluid. No
+    example has both (poiseuille_3d is driven by a force or by density
+    faces)."""
+    return forced(channel_sim(pair, axis, profile), accel)
+
+
+def forced_channel_sim_2d(pair, profile=None, axis='y',
+                          accel=CHANNEL_ACCEL[:2]):
+    """The 2D twin of ``forced_channel_sim``."""
+    return forced(channel_sim_2d(pair, profile, axis), accel)
 
 
 def with_keep_block(sim_cls):

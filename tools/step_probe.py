@@ -15,14 +15,19 @@ after 5 warm-up steps, and counts the kernel launches of one step:
 * ``parabolic_inlet_3d`` / ``_2d``: regularized velocity inlet with the
   plane-Poiseuille profile at z = 0 / y = 0, density outlet;
   ``parabolic_inlet_x_3d`` / ``_x_2d``: the same channels flowing along x;
-* ``uniform_inlet_*``: the four channels with a uniform inlet velocity.
+* ``uniform_inlet_*``: the four channels with a uniform inlet velocity;
+* ``sphere_3d`` / ``cylinder``: the force-driven flows past a sphere and a
+  cylinder (a constant body force, Guo forcing: the kernel's forcing
+  mode), and ``sphere_3d_unforced`` / ``cylinder_unforced``: the same
+  geometries without the force, so the forced step is timed beside the
+  unforced one.
 
 With ``--baseline DIR``, DIR holds another checkout (for example
 ``git archive <commit> | tar -x -C build/parent``): every scene is timed in
 a process of its own per tree, in the order baseline, this tree, this tree,
 baseline, each building its own kernels. A scene a tree cannot set up
-(an older tree refuses an x-normal varying inlet) is reported with the
-reason instead of a time. Each process also runs every scene at a quarter
+(an older tree refuses a body force, or has no twin of the scene) is
+reported with the reason instead of a time. Each process also runs every scene at a quarter
 of the size per axis (64^3, 1024^2) for ``--diff-steps`` steps from one
 seeded state and keeps the result under ``build/probe_states``; the largest
 |difference| between the two trees' states, and between the two runs of
@@ -42,15 +47,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = ('ldc_3d', 'ldc_2d', 'parabolic_inlet_3d', 'parabolic_inlet_2d',
           'uniform_inlet_3d', 'uniform_inlet_2d',
           'parabolic_inlet_x_3d', 'parabolic_inlet_x_2d',
-          'uniform_inlet_x_3d', 'uniform_inlet_x_2d')
+          'uniform_inlet_x_3d', 'uniform_inlet_x_2d',
+          'sphere_3d', 'sphere_3d_unforced', 'cylinder', 'cylinder_unforced')
+#: the force-driven scenes -> dimensions
+FORCED = {'sphere_3d': 3, 'cylinder': 2}
 SIZES = {3: (256, 256, 256), 2: (4096, 4096)}
 
 
 def scene_setup(scene, ts):
     """(sim class, config flags) of ``scene`` from the tree's
     ``torch_scenes`` module ``ts``."""
-    dim = 3 if '3d' in scene else 2
+    base = scene.replace('_unforced', '')
+    dim = FORCED.get(base) or (3 if '3d' in scene else 2)
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), SIZES[dim]))
+    if base in FORCED:
+        sim_cls = ts.twin(base)
+        return (sim_cls if base == scene else ts.unforced(sim_cls)), cfg
     if scene.startswith('ldc'):
         return ts.twin(f'ldc_{dim}d'), cfg
     profile = 'parabolic' if scene.startswith('parabolic') else None
@@ -98,7 +110,8 @@ def worker(tree, scenes, iters, states, diff_steps):
         try:
             sim_cls, cfg = scene_setup(scene, ts)
             ks = ts.run(sim_cls, max_iters=0, **cfg).kernel
-        except (NotImplementedError, TypeError) as exc:
+        except (NotImplementedError, TypeError, OSError,
+                AttributeError) as exc:
             out[scene] = dict(refused=str(exc)[:200])
             continue
         f = ks.run(ks.a.copy_(ts.random_feq(ks.grid, ks.shape, 1, 'cuda')),

@@ -4,7 +4,9 @@
     python3 tools/trace_main_path.py [--chunk 500] [--scenes ldc_3d,...]
                                      [--out DIR]
 
-Needs one CUDA GPU. For the lid-driven cavities, the parabolic-inlet
+Needs one CUDA GPU. For the lid-driven cavities, the force-driven flows
+past a sphere and a cylinder (Guo forcing inside the kernel), the
+parabolic-inlet
 channels (``tests/torch_scenes``: one ``lbm_step`` launch each step, its BC
 nodes reading per-node parameters; the inlet normal to z / y or to x), the
 binary
@@ -57,6 +59,8 @@ def channel(scene):
 SCENES = {
     'ldc_3d': (twin, (256, 256, 256), {}),
     'ldc_2d': (twin, (4096, 4096), {}),
+    'sphere_3d': (twin, (256, 256, 256), {}),
+    'cylinder': (twin, (4096, 4096), {}),
     'parabolic_inlet_3d': (channel, (256, 256, 256), {'periodic_x': True}),
     'parabolic_inlet_2d': (channel, (4096, 4096), {}),
     'parabolic_inlet_x_3d': (channel, (256, 256, 256), {'periodic_z': True}),
