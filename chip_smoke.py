@@ -26,6 +26,19 @@ version on the card from seeded random states:
   force-driven pipe (poiseuille_3d 64^3), and channels under a force with
   regularized and Zou-He faces normal to x, y and z, whose BC nodes take
   the force;
+* the same kernel's wall rows (launches counted as ``lbm_step_wall_<grid>``)
+  against ``step_reference``, 200 steps at 64^3 / 1024^2: half-way boxes
+  closed on every axis (edges, corners, a block of excluded nodes) without
+  a force and under each force model, TMS channels (the scene of
+  tests/test_bc_catalog.py:147), slip faces normal to each axis, half-way
+  walls beside a varying native inlet; each asserting the walls moved the
+  state away from full bounce-back;
+* its time-dependent rows (``lbm_step_dyn_<grid>``: values written before
+  each launch) from a nonzero iteration: time-only density rows
+  (womersley), a time series, a time-only force
+  (poiseuille_pulsatile --drive=force) and a space- and time-dependent
+  inlet rewritten into the parameter array (poiseuille_sa), each asserting
+  the state moved against the same steps at t = 0;
 * the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
   against ``rho_reference`` and ``sc_multi_reference`` on the binary
   separation scenes (periodic 2D and 3D, and the walled 3D box);
@@ -44,7 +57,11 @@ step of the channel flowing along x over that of the z- / y-normal one),
 the force-driven flows past a sphere (``sphere_3d`` 256^3) and a cylinder
 (``cylinder`` 4096^2) with Guo forcing (one ``lbm_step_force`` launch per
 step; each force model then timed in turns against the same geometry
-without a force), the binary Shan-Chen separations and the free-energy
+without a force), the half-way duct (``duct_flow`` 256^3, Guo), the
+Womersley pipe with time-dependent densities at its ends (``womersley``
+256^3) and the ramped SpatialArray inlet (``poiseuille_sa`` 4096^2), one
+launch per step each, with the share of a step that the per-step values
+cost, the binary Shan-Chen separations and the free-energy
 separations (each D3Q19 256^3, D2Q9 4096^2), checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
@@ -66,6 +83,7 @@ import tempfile
 import numpy as np
 import torch
 
+from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch import state as st
 from sailfish_tpu_torch import util
 from sailfish_tpu_torch.ops import build
@@ -76,13 +94,16 @@ from sailfish_tpu_torch.ops.step import FORCE_MODELS
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, 'tests'))
-from torch_scenes import (BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
+from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           FORCED_SCENES, SC_FORCED_SCENES,
                           SC_MORE_GOLDEN_FLAGS, SC_MORE_SCENES,
-                          SINGLE_GOLDEN_FLAGS, binary_twin, channel_sim,
+                          SINGLE_GOLDEN_FLAGS, WALL_DYNAMIC_SCENES, WALLS,
+                          binary_twin, box_cfg, box_sim, channel_sim,
                           channel_sim_2d, forced_channel_sim,
-                          parabolic_profile, random_binary_state,
-                          random_fe_state, random_feq, run, twin, unforced,
+                          halfbb_beside_parabolic_inlet, parabolic_profile,
+                          random_binary_state, random_fe_state, random_feq,
+                          run, slip_sim, time_series_density_sim,
+                          tms_channel_sim, twin, unforced, walls_moved,
                           wet_map, with_keep_block, with_patch_row_mix)
 
 LDC_3D = twin('ldc_3d')
@@ -141,6 +162,13 @@ NODE_BYTES = {
     'lbm_step_vary_d2q9': BYTES['D2Q9'],
     'lbm_step_force_d3q19': BYTES['D3Q19'],
     'lbm_step_force_d2q9': BYTES['D2Q9'],
+    # the wall rows: the step's bytes, and per wall node 4 B of tags and
+    # 4 B per bounced link, added per run
+    'lbm_step_wall_d3q19': BYTES['D3Q19'],
+    # per-step values: the step's bytes (the rewritten block of the
+    # parameter array is read as a varying row's, added per run)
+    'lbm_step_dyn_d3q19': BYTES['D3Q19'],
+    'lbm_step_dyn_d2q9': BYTES['D2Q9'],
     'rho_poststream_d3q19': 2 * (19 * 4 + 4),
     'rho_poststream_d2q9': 2 * (9 * 4 + 4),
     'sc_multi_d3q19': 2 * 2 * 19 * 4 + 2 * 4 + 1,
@@ -160,6 +188,8 @@ NODE_OPS = {
     'lbm_step_d3q19': 23 * 19, 'lbm_step_d2q9': 23 * 9,
     'lbm_step_vary_d3q19': 23 * 19, 'lbm_step_vary_d2q9': 23 * 9,
     'lbm_step_force_d3q19': 33 * 19, 'lbm_step_force_d2q9': 33 * 9,
+    'lbm_step_wall_d3q19': 33 * 19,
+    'lbm_step_dyn_d3q19': 23 * 19, 'lbm_step_dyn_d2q9': 23 * 9,
     'rho_poststream_d3q19': 2 * 19, 'rho_poststream_d2q9': 2 * 9,
     'sc_multi_d3q19': 2 * (23 * 19 + 6 * 19),
     'sc_multi_d2q9': 2 * (23 * 9 + 4 * 9),
@@ -189,12 +219,25 @@ KERNELS = {
                              'sailfish_tpu/ops/pallas_step.py:812'),
     'lbm_step_force_d2q9': ('lbm_step.cu',
                             'sailfish_tpu/ops/pallas_step2d.py:36'),
+    # the link-tagged, TMS, slip and dynamic families of the patch kernels
+    'lbm_step_wall_d3q19': ('lbm_step.cu',
+                            'sailfish_tpu/ops/pallas_step.py:2197'),
+    'lbm_step_dyn_d3q19': ('lbm_step.cu',
+                           'sailfish_tpu/ops/pallas_step.py:2197'),
+    'lbm_step_dyn_d2q9': ('lbm_step.cu',
+                          'sailfish_tpu/ops/pallas_step2d.py:900'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
     'lbm_step_force_d3q19': 'make_kernel_3d, forcing mode (_moments, '
                             '_force_term, _edm_prep, _edm_term)',
     'lbm_step_force_d2q9': 'make_kernel_2d, forcing mode',
+    'lbm_step_wall_d3q19': 'make_bc_patch_kernel_3d, link-tagged walls '
+                           '(half-way bounce-back under the Guo force)',
+    'lbm_step_dyn_d3q19': 'make_bc_patch_kernel_3d, dynamic families '
+                          '(time-only density rows)',
+    'lbm_step_dyn_d2q9': 'make_bc_patch_kernel_2d, dynamic families (a '
+                         'space- and time-dependent inlet)',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -307,6 +350,56 @@ def vary_compare(name, dim, axis, pair, steps=200, **cfg):
     del r, ks, f0
     torch.cuda.empty_cache()
     return grid, err
+
+
+def slice_compare(name, sim_cls, it0=0, steps=200, force_model=None, **cfg):
+    """The kernel with wall rows or per-step values vs ``step_reference`` on
+    the card from one random state, the reference given the values the
+    kernel was given before each launch (``set_iteration``), from iteration
+    ``it0``. Asserts what the new rows moved: for wall rows the wall nodes
+    after one step against full bounce-back walls, for per-step values the
+    state after ``steps`` against the same steps from iteration 0."""
+    if force_model:
+        cfg['force_implementation'] = force_model
+    r = run(sim_cls, platform=DEVICE, engine='kernel', max_iters=0, **cfg)
+    ks = r.kernel
+    dyn = bool(ks.dynamic) or ks.force_expr is not None
+    kind = 'dyn_' if dyn else 'wall_'
+    assert ks.name == f'lbm_step_{kind}{ks.grid.name.lower()}', ks.name
+    assert ks.params.force.model == ls.FORCE_CODES.get(
+        ks.force_model if ks.force else None, 0)
+    codes = sorted(torch.unique(ks.mask).tolist())
+    f0 = random_feq(ks.grid, ks.shape, seed=1234, device=DEVICE)
+    fk = ks.run(f0, steps, it0=it0).clone()
+    fr = f0
+    for i in range(steps):
+        ks.set_iteration(it0 + i)
+        fr = ks.reference(fr)
+    util.synchronize(DEVICE)
+    assert ks.launches == steps
+    wet = wet_mask(ks)
+    err = float((fk - fr)[:, wet].abs().max())
+    if dyn:
+        # a density swing of 1.5 dp = 1.6e-4 (womersley at 64^3) moves the
+        # distributions by ~5e-5 in 200 steps: well above the tolerance
+        moved = float((fk - ks.run(f0, steps))[:, wet].abs().max())
+        what = f'per-step values from iteration {it0}'
+        assert moved > TOL, moved
+    else:
+        moved = walls_moved(ks, f0)
+        what = 'wall rows against full bounce-back'
+        assert moved > 1e-4, moved
+    rows = ', '.join(f'{nt.get_node_type(row.type_id).__name__}'
+                     f'{"[box]" if row.box else ""}' for row in ks.table)
+    say(f'compare {name}: {ks.grid.name} {ks.shape} {steps} steps of '
+        f'{ks.name}, rows [{rows}], mask codes {codes}, force '
+        f'{ks.force_model if ks.force else None}; {what} moved the state by '
+        f'{moved:.3e}; wet max|df| = {err:.3e} (tol {TOL:g})')
+    assert np.isfinite(err) and err <= TOL, err
+    grid = ks.grid.name
+    del r, ks, f0, fk, fr
+    torch.cuda.empty_cache()
+    return f'lbm_step_{kind}{grid.lower()}', err
 
 
 def golden(scene, sim_cls, golden_name=None, engine='kernel', **cfg):
@@ -658,6 +751,162 @@ def channel_main_path(scene, copy_bw, chunk=500, chunks=4):
     return grid, result
 
 
+#: the main paths of the wall rows and per-step values: scene -> (size,
+#: extra flags)
+SLICE_MAIN = {
+    'duct_flow': ((256, 256, 256), {}),
+    'womersley': ((256, 256, 256), {}),
+    'poiseuille_sa': ((4096, 4096), dict(velocity='spatial_array')),
+}
+#: duct_flow: largest |vz - analytic| over the peak velocity after 2000
+#: steps from the analytic start (the half-way walls hold the series
+#: solution; its discrete steady state differs by the BGK wall slip)
+DUCT_TOL = 0.05
+
+
+def slice_checks(scene, r, ks, steps):
+    """The scene's own checks after its main path (raises on failure) and
+    the line that states them."""
+    r._fields_to_host()
+    shape = r.maps.type_map.shape
+    comps = r.sim.velocity_components()
+    for name, arr in [('rho', r.sim.rho)] + list(zip('xyz', comps)):
+        assert arr.shape == shape and np.all(np.isfinite(arr)), name
+    wet = wet_map(r.maps)
+    mean_rho = float(np.mean(r.sim.rho[wet], dtype=np.float64))
+    speed = float(np.sqrt(sum(c[wet] ** 2 for c in comps)).max())
+    assert speed <= 0.1, speed
+    rho_tol = 1e-4 if scene == 'duct_flow' else 0.01
+    assert abs(mean_rho - 1.0) <= rho_tol, mean_rho
+    line = (f'mean wet rho - 1 = {mean_rho - 1.0:+.3e} (tol {rho_tol:g}), '
+            f'max wet |u| {speed:.5f} (tol 0.1)')
+    h = np.indices(shape)[::-1]
+    if scene == 'duct_flow':
+        sub = r._subdomain
+        ana = sub.analytical(h[0], h[1])
+        err = float(np.abs(comps[2] - ana)[wet].max()) / sub.max_v
+        assert err <= DUCT_TOL, err
+        line += (f'; max |vz - analytic| / max_v = {err:.4e} (tol '
+                 f'{DUCT_TOL:g})')
+    elif scene == 'womersley':
+        # the ends' density at iteration `steps`, the value the BC set
+        dp = r._subdomain.pressure_delta
+        want = 1.5 * dp * np.sin(0.0005 * steps)
+        for row, sign in zip(ks.table, (1.0, -1.0)):
+            at = r.maps.type_map == row.type_id
+            at &= r.maps.orientation == row.orientation
+            got = r.sim.rho[at]
+            err = float(np.abs(got - (1.0 + sign * want)).max())
+            assert err <= INLET_TOL, (err, row)
+            line += (f'; end rho {float(got.mean()):.8f} against 1 '
+                     f'{"+" if sign > 0 else "-"} 1.5 dp sin(w t) = '
+                     f'{1.0 + sign * want:.8f} (max |d| {err:.1e})')
+    else:
+        inlet = (r.maps.type_map == nt.NTEquilibriumVelocity.id)
+        ny = shape[0]
+        radius = (ny - 2.0) / 2.0
+        ramp = min(steps / 5000.0, 1.0)
+        prof = 0.02 * (1.0 - (h[1] + 0.5 - radius) ** 2 / radius ** 2) \
+            * ramp
+        err = max(float(np.abs(comps[0] - prof)[inlet].max()),
+                  float(np.abs(comps[1][inlet]).max()))
+        assert err <= INLET_TOL, err
+        line += (f'; inlet max |u - ramped parabola| = {err:.2e} (ramp '
+                 f'{ramp:g}, tol {INLET_TOL:g})')
+    return line
+
+
+def slice_main_path(scene, copy_bw, chunk=500, chunks=4):
+    """A scene of the wall rows or the per-step values through the
+    controller with the default engine: ONE launch per step (plus, for a
+    space- and time-dependent row, a counted rewrite of its block of the
+    parameter array). The counts are zeroed just before the controller
+    runs and read just after. Then the scene's checks (``slice_checks``),
+    10 steps from the final state against ``step_reference`` with the
+    values of iterations 2000.., the kernel alone against its plain
+    version, and the dynamic share: a step with the per-step writes against
+    the launch alone on the same object and buffers, in turns."""
+    size, extra = SLICE_MAIN[scene]
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size), **extra)
+    steps = chunk * chunks
+    ls.reset_launch_counts()
+    r = run(twin(scene), max_iters=steps, every=chunk, **cfg)
+    counts, rewrites = dict(ls.LAUNCHES), dict(ls.BCP_REWRITES)
+    assert r.engine == 'kernel', r.engine
+    ks = r.kernel
+    assert counts[ks.name] == steps == r.sim.iteration == ks.launches, \
+        (counts, steps)
+    assert sum(counts.values()) == steps, counts     # one launch per step
+    blocks = [d for d in ks.dynamic if d.static is not None]
+    assert sum(rewrites.values()) == len(blocks) * steps, rewrites
+    checks = slice_checks(scene, r, ks, steps)
+    grid = ks.grid.name
+    mlups = statistics.median(r.mlups_history[1:])
+    eff = mlups * 1e6 * BYTES[grid]
+    say(f'main path {scene} {"x".join(map(str, size))} ({grid}, engine '
+        f'{r.engine}): {counts[ks.name]} {ks.name} launches and no other, '
+        f'{sum(rewrites.values())} parameter-block rewrites; MLUPS per '
+        f'{chunk}-step chunk {[round(m, 1) for m in r.mlups_history]}; '
+        f'median {mlups:.1f} MLUPS; {eff / 1e9:.1f} GB/s effective '
+        f'({BYTES[grid]} B/node), {eff / copy_bw:.3f} of the copy '
+        f'bandwidth; {checks}')
+    f0 = r.f.clone()
+    fk = ks.run(f0, 10, it0=steps)
+    fr = f0
+    for i in range(10):
+        ks.set_iteration(steps + i)
+        fr = ks.reference(fr)
+    wet = wet_mask(ks)
+    err = float((fk - fr)[:, wet].abs().max())
+    say(f'compare main path {scene}: 10 steps from the state after '
+        f'{steps}, wet max|df| = {err:.3e} (tol {TOL:g})')
+    assert np.isfinite(err) and err <= TOL, err
+    del f0, fk, fr
+    a, b = ks.a, ks.b
+    ms = util.cuda_time_ms(lambda: ks._launch(a, b), 50, warmup=5)
+    plain_ms = util.cuda_time_ms(lambda: ks.reference(a), 5)
+    result = dict(launches=counts[ks.name], ms=ms, plain_ms=plain_ms,
+                  err=err, mlups=mlups)
+    timing = ''
+    if ks.dynamic or ks.force_expr is not None:
+        it = [steps]
+
+        def stepped():
+            ks.step_into(a, b, it[0])
+            it[0] += 1
+
+        turns = {'per-step values': [], 'launch alone': []}
+        for which in ('per-step values', 'launch alone', 'launch alone',
+                      'per-step values'):
+            fn = stepped if which == 'per-step values' else \
+                (lambda: ks._launch(a, b))
+            turns[which].append(util.cuda_time_ms(fn, 100, warmup=20))
+        dyn_ms, alone_ms = (statistics.mean(turns[w]) for w in turns)
+        share = (dyn_ms - alone_ms) / dyn_ms
+        result.update(step_ms=dyn_ms, dynamic_share=share)
+        timing = (f'; a step with its per-step writes {dyn_ms:.4f} ms '
+                  f'{turns["per-step values"]} against the launch alone '
+                  f'{alone_ms:.4f} ms {turns["launch alone"]}: dynamic share '
+                  f'(dynamic - static) / dynamic = {share:+.4f}')
+    extra_bytes = 0
+    if ks.walls:
+        # 4 B of tags per wall node, 4 B per bounced link
+        tagged = ks.tags[ks.mask >= 3].cpu().numpy()
+        words, n = np.unique(tagged, return_counts=True)
+        links = int(sum(bin(int(w)).count('1') * int(c)
+                        for w, c in zip(words, n)))
+        extra_bytes = 4 * tagged.size + 4 * links
+    for d in blocks:
+        extra_bytes += 4 * int(d.static.numel())
+    result['extra_bytes'] = extra_bytes
+    say(f'kernel {ks.name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
+        f'launch; step_reference {plain_ms:.3f} ms; {extra_bytes} bytes a '
+        f'step beyond {BYTES[grid]} B per node{timing}')
+    del r, ks, a, b
+    torch.cuda.empty_cache()
+    return result
+
+
 def empty_launch_ms(iters=2000):
     """Device milliseconds per launch of an empty one-block kernel
     (``lbm_empty_launch`` of ``csrc/lbm_step.cu``), CUDA events around
@@ -956,18 +1205,21 @@ def main():
                 grid = 'd3q19' if 'Li3ELi19E' in fn else 'd2q9'
                 code = int(fn.split('Li')[3].split('E')[0])
                 model = (('none',) + FORCE_MODELS)[code]
+                walls = 'Lb1E' in fn
                 n_inst = n_inst + 1
-                say(f'lbm_step_{grid} force model {model} {fn}: '
-                    f'{use["registers"]} registers, '
+                say(f'lbm_step_{grid} force model {model}, wall rows '
+                    f'{walls} {fn}: {use["registers"]} registers, '
                     f'stack frame {use["stack_frame"]} B, spill stores '
                     f'{use["spill_stores"]} B, spill loads '
                     f'{use["spill_loads"]} B')
-                # the BC chain runs in registers: no local memory
+                # the BC chain and the walls run in registers: no local
+                # memory
                 assert use['stack_frame'] == use['spill_stores'] \
                     == use['spill_loads'] == 0, (fn, use)
                 assert use['registers'] <= 128, (fn, use)
-            # two lattices x (no force + three force models)
-            assert n_inst == 2 * (1 + len(FORCE_MODELS)), n_inst
+            # two lattices x (no force + three force models) x wall rows
+            # or not
+            assert n_inst == 2 * (1 + len(FORCE_MODELS)) * 2, n_inst
         if name == 'fe_step':
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
                 if 'fe3_kernel' in fn and 'registers' in use:
@@ -1022,6 +1274,51 @@ def main():
     for name, sim_cls, model, bc, cfg in forced_cases:
         grid, err = compare(name, sim_cls, force_model=model, bc=bc, **cfg)
         note(f'lbm_step_force_{grid.lower()}', err)
+    # the wall rows and the per-step values at 64^3 / 1024^2, 200 steps
+    cube64 = dict(lat_nx=64, lat_ny=64, lat_nz=64)
+    sq1024 = dict(lat_nx=1024, lat_ny=1024)
+    slice_cases = []
+    for dim in (3, 2):
+        axes = tuple(range(dim))
+        size = dict(box_cfg(dim, axes), **(cube64 if dim == 3 else sq1024))
+        for model in (None,) + FORCE_MODELS:
+            slice_cases.append((
+                f'halfbb_box_{dim}d_{model}',
+                box_sim(WALLS['halfbb'], dim, axes, ACCEL if model else None),
+                0, model, size))
+        periodic = dict(periodic_x=True, periodic_z=True)
+        slice_cases.append((f'tms_channel_{dim}d', tms_channel_sim(dim), 0,
+                            'guo', dict(cube64 if dim == 3 else sq1024,
+                                        **periodic)))
+        for a in range(dim):
+            slice_cases.append((
+                f'slip_{dim}d_{"xyz"[a]}', slip_sim(dim, a), 0, 'guo',
+                dict(cube64 if dim == 3 else sq1024,
+                     **{f'periodic_{"xyz"[b]}': b != a
+                        for b in range(dim)})))
+        slice_cases.append((f'halfbb_parabolic_inlet_{dim}d',
+                            halfbb_beside_parabolic_inlet(dim), 0, None,
+                            dict(cube64, periodic_x=True) if dim == 3
+                            else sq1024))
+    # poiseuille_pulsatile sizes its drive for the channel's width (a =
+    # 8 u_max nu / W^2): 1024 x 64, a 62-row channel, where 200 steps of it
+    # move the state well beyond the tolerance
+    pulsatile = dict(lat_nx=1024, lat_ny=64)
+    slice_cases += [
+        ('womersley_64', twin('womersley'), 3000, None, cube64),
+        ('pulsatile_force', twin('poiseuille_pulsatile'), 500, None,
+         dict(pulsatile, drive='force')),
+        ('pulsatile_pressure', twin('poiseuille_pulsatile'), 500, None,
+         pulsatile),
+        ('time_series_density', time_series_density_sim(), 60, None,
+         sq1024),
+        ('poiseuille_sa_1024', twin('poiseuille_sa'), 2500, None,
+         dict(sq1024, velocity='spatial_array')),
+    ]
+    for name, sim_cls, it0, model, cfg in slice_cases:
+        key, err = slice_compare(name, sim_cls, it0, force_model=model,
+                                 **cfg)
+        note(key, err)
     cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, sim_cls, cfg in (
             ('sc_separation_2d', SEP_2D, dict(lat_nx=1024, lat_ny=1024)),
@@ -1066,6 +1363,10 @@ def main():
         golden(scene, twin(scene), **SINGLE_GOLDEN_FLAGS[scene])
     golden('four_rolls_mill', twin('four_rolls_mill'), engine='torch',
            **SINGLE_GOLDEN_FLAGS['four_rolls_mill'])
+    # half-way walls, time-only densities and forces, a space- and
+    # time-dependent inlet: all on the kernel engine
+    for scene in WALL_DYNAMIC_SCENES:
+        golden(scene, twin(scene), **SINGLE_GOLDEN_FLAGS[scene])
     for scene in SC_MORE_SCENES:
         golden(scene, binary_twin(scene), f'binary_fluid_{scene}',
                engine='torch' if scene in SC_FORCED_SCENES else 'kernel',
@@ -1103,6 +1404,19 @@ def main():
                        launches=results[name]['launches'] + res['launches'],
                        err=max(results[name]['err'], res['err']))
         results[name] = res
+    for scene in SLICE_MAIN:
+        res = slice_main_path(scene, copy_bw)
+        grid = 'd2q9' if scene == 'poiseuille_sa' else 'd3q19'
+        name = 'lbm_step_wall_d3q19' if scene == 'duct_flow' else \
+            f'lbm_step_dyn_{grid}'
+        results[name] = res
+        ref = results[f'lbm_step_{"force_" if scene == "duct_flow" else ""}'
+                      f'{grid}']
+        say(f'{scene}: {res["mlups"]:.1f} MLUPS, {res["ms"]:.4f} ms per '
+            f'launch against {ref["mlups"]:.1f} MLUPS, {ref["ms"]:.4f} ms '
+            f'on {"sphere_3d (forced)" if scene == "duct_flow" else "the "
+                  "lid-driven cavity"} of the same size: '
+            f'{res["ms"] / ref["ms"]:.4f}')
     for dim in (3, 2):
         # a face normal to x puts one BC node at each end of every x-row,
         # so one warp in four (3D) runs the BC chain with a single lane
@@ -1157,10 +1471,11 @@ def main():
                             max_abs_err=errs[name], ms=res['ms'],
                             plain_ms=res['plain_ms'], bound_ms=bound,
                             bound_by=bound_by, library_ms=None))
-        if 'x_normal_ms' in res:
-            kernels[-1]['x_normal_ms'] = res['x_normal_ms']
+        for key in ('x_normal_ms', 'models_ms', 'step_ms', 'dynamic_share'):
+            if key in res:
+                kernels[-1][key] = res[key]
         if name in MODES:
-            kernels[-1].update(mode=MODES[name], models_ms=res['models_ms'])
+            kernels[-1]['mode'] = MODES[name]
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -128,7 +128,8 @@ class LBBinaryFluidFreeEnergy(LBBinaryFluidBase):
             eq_force_map=getattr(self, '_eq_force_map', None),
             model=getattr(cfg, 'model', 'bgk'),
             force_model=getattr(cfg, 'force_implementation', 'guo'),
-            dtype=dtype, device=device)
+            dtype=dtype, device=device,
+            time_unit=getattr(cfg, 'dt_per_lattice_time_unit', 1.0))
 
 
 class LBBinaryFluidShanChen(LBBinaryFluidBase, LBForcedSim):
@@ -155,4 +156,5 @@ class LBBinaryFluidShanChen(LBBinaryFluidBase, LBForcedSim):
             potential=cfg.sc_potential,
             body_forces=[self.body_force(0), self.body_force(1)],
             force_model=getattr(cfg, 'force_implementation', 'guo'),
-            dtype=dtype, device=device)
+            dtype=dtype, device=device,
+            time_unit=getattr(cfg, 'dt_per_lattice_time_unit', 1.0))

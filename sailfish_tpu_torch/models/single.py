@@ -146,4 +146,5 @@ class LBFluidSim(LBSim):
             force_model=force_model,
             dtype=dtype,
             device=device,
+            time_unit=getattr(cfg, 'dt_per_lattice_time_unit', 1.0),
             **kwargs)

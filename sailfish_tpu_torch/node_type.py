@@ -404,7 +404,12 @@ class SpatialArray:
     def __call__(self, t, hx, hy, hz=None):
         import torch
         device = getattr(hx, 'device', None)
-        v = torch.as_tensor(self.values, device=device)
+        # one copy per device, made at the first call: a time-dependent
+        # parameter is evaluated every step
+        cache = self.__dict__.setdefault('_on_device', {})
+        if device not in cache:
+            cache[device] = torch.as_tensor(self.values, device=device)
+        v = cache[device]
 
         def ix(c):
             return torch.as_tensor(c, device=device).long()

@@ -23,6 +23,15 @@ for each varying instance, ``[rho, u_x, u_y(, u_z)]`` component-major over
 the instance's bounding box (x fastest), and the ``Box`` (offset, origin,
 extents) that locates each block. A planar face costs 1 + dim planes of
 its own size; memory is proportional to the BC nodes, never to the domain.
+
+A native BC whose parameter is a ``DynamicValue`` (``maps.dynamic``) is a
+row whose values ``ops/lbm_step.KernelStep`` writes before every launch:
+a time-only value covering the whole instance is a pair of scalars of the
+row (``dynamic_kind`` 'time'); anything that depends on space, or covers
+part of an instance, is a varying row whose block of the array is
+recomputed on the device over the box, with the GLOBAL coordinates of its
+nodes (``dynamic_rows``, ``DynamicRow.write_block``) -- the work of the JAX
+package's dynamic patch planes (``pallas_step.py:2595-2607``).
 """
 
 from __future__ import annotations
@@ -30,8 +39,10 @@ from __future__ import annotations
 from collections import namedtuple
 
 import numpy as np
+import torch
 
 from sailfish_tpu_torch import node_type as nt
+from sailfish_tpu_torch.ops import step as st
 
 #: refuse a varying instance whose bounding box holds more than this many
 #: times its node count (a diagonal sheet of BC nodes through a 3D domain):
@@ -46,6 +57,38 @@ MAX_PARAM_FLOATS = 2 ** 31 - 1
 #: the parameter array (in floats), bounding-box origin ``lo`` and extents
 #: ``ext``, both in (x, y, z) order (z: 0 and 1 in 2D).
 Box = namedtuple('Box', ('offset', 'lo', 'ext'))
+
+
+def param_name(tid):
+    """The parameter a native BC type prescribes: 'velocity' or
+    'density' (None for a type without parameters)."""
+    names = nt.get_node_type(tid).param_names
+    if not names:
+        return None
+    return 'velocity' if 'velocity' in names else 'density'
+
+
+def dynamic_entries(maps, tid, sel):
+    """The (node mask, exprs) entries of ``maps.dynamic`` that set the
+    parameter of instance (``tid``, node selection ``sel``), in the order
+    they apply (a later one overrides an earlier one)."""
+    name = param_name(tid)
+    return [(mask, exprs) for mask, n, exprs in maps.dynamic
+            if n == name and (mask & sel).any()]
+
+
+def dynamic_kind(maps, tid, sel):
+    """None when the instance's parameters are static; 'time' when one
+    DynamicValue of time alone sets them at every node (two scalars of the
+    row, rewritten each step); 'space' otherwise (a block of the parameter
+    array, rewritten each step)."""
+    entries = dynamic_entries(maps, tid, sel)
+    if not entries:
+        return None
+    if len(entries) == 1 and entries[0][0][sel].all() \
+            and not st.is_space_dependent(entries[0][1]):
+        return 'time'
+    return 'space'
 
 
 def varying_params(maps, tid, sel):
@@ -66,13 +109,17 @@ def varying_params(maps, tid, sel):
 
 def instance_boxes(maps, instances):
     """(boxes, reasons) for ``lbm_step.classify_nodes``' ``instances``:
-    a ``Box`` per varying instance and None per uniform one, the offsets
+    a ``Box`` per varying instance (static parameters that vary, or a
+    ``dynamic_kind`` 'space') and None per uniform one, walls and
+    time-only rows included, the offsets
     laid end to end in instance order; ``reasons`` names each varying
     instance whose box exceeds ``MAX_BOX_FACTOR`` times its nodes."""
     dim = maps.type_map.ndim
     boxes, reasons, offset = [], [], 0
     for tid, k, sel in instances:
-        if not varying_params(maps, tid, sel):
+        kind = dynamic_kind(maps, tid, sel) if param_name(tid) else 'time'
+        if kind == 'time' or (kind is None
+                              and not varying_params(maps, tid, sel)):
             boxes.append(None)
             continue
         idx = np.nonzero(sel)
@@ -119,3 +166,88 @@ def param_array(maps, boxes):
     if not blocks:
         return np.zeros(1, dtype=np.float32)
     return np.concatenate(blocks)
+
+
+class DynamicRow(namedtuple('DynamicRow', ('row', 'name', 'entries',
+                                            'coords', 'static', 'live'))):
+    """A BC row (index ``row`` of the table) whose parameter ``name``
+    depends on time. ``entries``: its (node mask, exprs) in order, the
+    masks cut to the row's box (None for a time-only row, whose one entry
+    covers it); ``coords``: the global coordinates (hx, hy[, hz]) over the
+    box, as the whole-domain step hands them to a callable (int64, so an
+    index into a ``SpatialArray`` needs no cast each step); ``static``:
+    the box's block ((1 + dim, *ext)) with every component that no
+    callable sets already final; ``live``: the components a callable
+    sets, recomputed each step."""
+
+    def scalars_at(self, t, dim):
+        """(rho, (u_x, u_y, u_z)) of a time-only row at time ``t``: the
+        DynamicValue evaluated and cast to fp32, as the torch engine's
+        ``bc_params`` casts it to the StepBuilder's dtype."""
+        _mask, exprs = self.entries[0]
+        vals = [float(v) for v in st.dynamic_values(
+            exprs, t, (), (), torch.float32)]
+        if self.name == 'density':
+            return vals[0], (0.0, 0.0, 0.0)
+        return 1.0, tuple(vals[:dim]) + (0.0,) * (3 - len(vals[:dim]))
+
+    def write_block(self, t, block):
+        """Write the row's values at time ``t`` into ``block``, its
+        (1 + dim, *ext) view of the parameter array: each live component is
+        the static one with the entries applied in order (a later one
+        overriding an earlier one), as the torch engine's ``bc_params``
+        applies them."""
+        shape = block.shape[1:]
+        for c in self.live:
+            src = self.static[c]
+            for mask, exprs in self.entries:
+                e = exprs[0] if self.name == 'density' else exprs[c - 1]
+                val = e if not callable(e) else st.dynamic_values(
+                    [e], t, self.coords, shape, torch.float32,
+                    block.device)[0]
+                torch.where(mask, val, src, out=block[c])
+                src = block[c]
+
+
+def dynamic_rows(maps, instances, boxes, bcp):
+    """A ``DynamicRow`` for every instance whose parameters depend on
+    time (``boxes`` from ``instance_boxes``, ``bcp`` the parameter array as
+    a tensor on the kernel's device). The block of a space-dependent row
+    is written here with its components that no callable sets."""
+    dim = maps.type_map.ndim
+    rows = []
+    coords = None
+    for j, ((tid, _k, sel), box) in enumerate(zip(instances, boxes)):
+        if not param_name(tid):
+            continue
+        kind = dynamic_kind(maps, tid, sel)
+        if kind is None:
+            continue
+        name = param_name(tid)
+        entries = dynamic_entries(maps, tid, sel)
+        if kind == 'time':
+            rows.append(DynamicRow(j, name, entries, (), None, ()))
+            continue
+        if coords is None:
+            coords = [c.long() for c in st.global_coords(
+                maps.type_map.shape, bcp.device)]
+        sl = box_slices(box, dim)
+        ext = tuple(reversed(box.ext[:dim]))
+        n = (1 + dim) * int(np.prod(ext))
+        block = bcp[box.offset:box.offset + n].view((1 + dim,) + ext)
+        entries = [(torch.as_tensor(mask[sl], device=bcp.device), exprs)
+                   for mask, exprs in entries]
+        comps = [0] if name == 'density' else range(1, 1 + dim)
+        live = tuple(c for c in comps if any(
+            callable(ex[0] if name == 'density' else ex[c - 1])
+            for _m, ex in entries))
+        for c in comps:
+            if c in live:
+                continue
+            for mask, exprs in entries:
+                e = exprs[0] if name == 'density' else exprs[c - 1]
+                block[c] = torch.where(mask, e, block[c])
+        rows.append(DynamicRow(j, name, entries,
+                               tuple(c[sl] for c in coords), block.clone(),
+                               live))
+    return rows

@@ -88,6 +88,22 @@ template <int DIM> struct LatticeOf;
 template <> struct LatticeOf<2> { using type = D2Q9; };
 template <> struct LatticeOf<3> { using type = D3Q19; };
 
+// The direction of L whose velocity is c_i with its component along axis
+// reversed: the slip (specular) reflection of a wall normal to that axis
+// (sailfish_tpu_torch.lattice Grid.slip_swap).
+template <typename L>
+__host__ __device__ constexpr int slip_of(int i, int axis) {
+    for (int j = 0; j < L::Q; ++j) {
+        bool same = true;
+        for (int d = 0; d < 3; ++d) {
+            const int want = d == axis ? -L::c(i, d) : L::c(i, d);
+            if (L::c(j, d) != want) same = false;
+        }
+        if (same) return j;
+    }
+    return -1;
+}
+
 // f(Int<i>()) for i = 0 .. N - 1 in order; i is a compile-time constant.
 template <int... I> struct Seq {};
 template <int N, int... I> struct MakeSeq : MakeSeq<N - 1, N - 1, I...> {};

@@ -24,18 +24,29 @@
 //              (relax_node in lbm_common.cuh)
 //   mask 1     full bounce-back wall: store fs reflected, out_opp(i) = fs_i
 //   mask 2     keep (excluded / propagation-only): store fs
-//   mask 3+j   native BC instance j of the BC table: macroscopic solve,
-//              equilibrium / Zou-He / regularized reconstruction, then BGK
-//              with the prescribed rho or u, under the body force as a
-//              mask-0 node (the chain of pallas_step.py:_bc_row_values).
+//   mask 3+j   row j of the BC table. A native BC instance: macroscopic
+//              solve, equilibrium / Zou-He / regularized reconstruction,
+//              then BGK with the prescribed rho or u, under the body force
+//              as a mask-0 node (the chain of pallas_step.py:_bc_row_values).
 //              The prescribed values are the
 //              row's scalars, or (rows with vary[j].varies = 1) the node's own
 //              entry of the parameter array bcp: per instance [rho, u_x,
 //              u_y(, u_z)], component-major over the instance's bounding
-//              box, x fastest, so the lanes of a warp along x coalesce
+//              box, x fastest, so the lanes of a warp along x coalesce.
+//              A wall row (the JAX package's link-tagged, TMS and slip
+//              families, which on the TPU go through the patch kernels):
+//              half-way bounce-back fills the links marked in the node's
+//              word of the int32 map tags with A[opp(i), x], then collides;
+//              TMS fills them with the target equilibrium and adds
+//              feq(target) - feq(rho, u) after the collision; slip stores
+//              the streamed values with the normal component reversed
 // and writes the result to B. The host swaps A and B every step: the
 // Pallas kernels write in place, which is safe only because the TPU grid
 // runs in order; concurrent GPU blocks pulling in place would race.
+// Time-dependent values (a DynamicValue density or velocity, a time-only
+// body force: the rt_force mode of pallas_step.py:185-232) are written by
+// the host into LBMParams or into bcp before each launch; the kernel sees
+// constants.
 //
 // State layout, parameter block and the per-node pieces (pull, collide,
 // reflect, keep, the native-BC chain) are in lbm_common.cuh, the lattice
@@ -44,7 +55,8 @@
 // Bound: device-memory bandwidth. Each node reads Q floats, writes Q floats
 // and reads a 1-byte mask per step: 2*19*4 + 1 = 153 B for D3Q19, 73 B for
 // D2Q9, against ~1.1 flop per byte; a node of a varying BC reads 4 * (1 +
-// DIM) B more. One thread per node, x fastest, blocks of 128 nodes of one
+// DIM) B more, a half-way or TMS node 4 B of tags and 4 B per tagged link
+// (a TMS node reads its Q stores back). One thread per node, x fastest, blocks of 128 nodes of one
 // x-row, so the c_x = 0 loads and every store coalesce. A pull step reads
 // every value once, so nothing is staged in shared memory. What the design
 // does about the bound:
@@ -73,17 +85,23 @@
 //   carries no force code and no branch. The force itself (acceleration,
 //   velocity shift, Guo prefactor) is in the parameter block: a forced step
 //   moves the same bytes as an unforced one.
+// - The wall rows are behind a second template parameter, WALLS, picked on
+//   the host from the table's kinds: a scene without a wall row runs the
+//   instantiation without their code, the same as before they existed. In
+//   the wall rows every tag test is a compile-time bit of the tag word and
+//   the slip permutation a compile-time index, so nothing leaves registers.
 // Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
 // an in-place (AA-pattern) step would halve the footprint.
 
 #include "lbm_common.cuh"
 
-template <int DIM, int Q, int FORCE>
+template <int DIM, int Q, int FORCE, bool WALLS>
 __global__ void __launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)
 lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
                 const uint8_t* __restrict__ mask,
                 const __grid_constant__ LBMParams p,
-                const float* __restrict__ bcp) {
+                const float* __restrict__ bcp,
+                const int* __restrict__ tags) {
     using L = typename LatticeOf<DIM>::type;
     static_assert(L::Q == Q && L::DIM == DIM, "lattice of the dimension");
     const int nx = p.nx, ny = p.ny;
@@ -121,34 +139,57 @@ lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
     else if (m == 2)
         keep_node<L>(fs, b, n, node);
     else
-        bc_node<L, FORCE>(p, m - 3, bcp, x, y, z, fs, b, n, node);
+        bc_node<L, FORCE, WALLS>(p, m - 3, bcp, tags, a, x, y, z, fs, b, n,
+                                 node);
 }
 
 __global__ void lbm_empty_kernel() {}
 
+// Whether the table has a wall row (the WALLS instantiation), and whether
+// one of them reads the link tags.
+static bool has_kind(const LBMParams* p, int lo, int hi) {
+    for (int j = 0; j < p->nbc && j < LBM_MAX_BC; ++j)
+        if (p->bc[j].kind >= lo && p->bc[j].kind <= hi) return true;
+    return false;
+}
+
 template <int DIM, int Q, int FORCE>
 static int launch_model(const float* a, float* b, const uint8_t* mask,
-                        const float* bcp, const LBMParams* p, void* stream) {
+                        const float* bcp, const int* tags,
+                        const LBMParams* p, void* stream) {
     const dim3 grid((p->nx + LBM_BLOCK - 1) / LBM_BLOCK, p->ny, p->nz);
-    lbm_step_kernel<DIM, Q, FORCE>
-        <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p, bcp);
+    if (!has_kind(p, BC_HALFBB, BC_SLIP)) {
+        lbm_step_kernel<DIM, Q, FORCE, false>
+            <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p,
+                                                           bcp, tags);
+        return (int)cudaGetLastError();
+    }
+    if (tags == nullptr && has_kind(p, BC_HALFBB, BC_TMS))
+        return (int)cudaErrorInvalidValue;
+    lbm_step_kernel<DIM, Q, FORCE, true>
+        <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p, bcp,
+                                                       tags);
     return (int)cudaGetLastError();
 }
 
-// The instantiation of the block's force model.
+// The instantiation of the block's force model (and of its wall rows).
 template <int DIM, int Q>
 static int launch(const float* a, float* b, const uint8_t* mask,
-                  const float* bcp, const LBMParams* p, void* stream) {
+                  const float* bcp, const int* tags, const LBMParams* p,
+                  void* stream) {
     switch (p->force.model) {
     case FORCE_NONE:
-        return launch_model<DIM, Q, FORCE_NONE>(a, b, mask, bcp, p, stream);
+        return launch_model<DIM, Q, FORCE_NONE>(a, b, mask, bcp, tags, p,
+                                                stream);
     case FORCE_GUO:
-        return launch_model<DIM, Q, FORCE_GUO>(a, b, mask, bcp, p, stream);
+        return launch_model<DIM, Q, FORCE_GUO>(a, b, mask, bcp, tags, p,
+                                               stream);
     case FORCE_EDM:
-        return launch_model<DIM, Q, FORCE_EDM>(a, b, mask, bcp, p, stream);
+        return launch_model<DIM, Q, FORCE_EDM>(a, b, mask, bcp, tags, p,
+                                               stream);
     case FORCE_VELOCITY_SHIFT:
-        return launch_model<DIM, Q, FORCE_VELOCITY_SHIFT>(a, b, mask, bcp, p,
-                                                          stream);
+        return launch_model<DIM, Q, FORCE_VELOCITY_SHIFT>(a, b, mask, bcp,
+                                                          tags, p, stream);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -162,20 +203,25 @@ static void copy_tables(LBMTables* out) {
         for (int d = 0; d < 3; ++d) out->c[i][d] = L::c(i, d);
         out->w[i] = L::w(i);
         out->opp[i] = L::opp(i);
+        for (int d = 0; d < L::DIM; ++d) out->slip[d][i] = slip_of<L>(i, d);
     }
 }
 
 extern "C" {
 
-// bcp: the per-node parameter array (never read when no row varies).
+// bcp: the per-node parameter array (never read when no row varies);
+// tags: the int32 link-tag map, one word per node (read only by the nodes of
+// half-way and TMS rows; may be null when there is none).
 int lbm_step_d2q9(const float* a, float* b, const uint8_t* mask,
-                  const float* bcp, const LBMParams* p, void* stream) {
-    return launch<2, 9>(a, b, mask, bcp, p, stream);
+                  const float* bcp, const int* tags, const LBMParams* p,
+                  void* stream) {
+    return launch<2, 9>(a, b, mask, bcp, tags, p, stream);
 }
 
 int lbm_step_d3q19(const float* a, float* b, const uint8_t* mask,
-                   const float* bcp, const LBMParams* p, void* stream) {
-    return launch<3, 19>(a, b, mask, bcp, p, stream);
+                   const float* bcp, const int* tags, const LBMParams* p,
+                   void* stream) {
+    return launch<3, 19>(a, b, mask, bcp, tags, p, stream);
 }
 
 int lbm_params_size(void) { return (int)sizeof(LBMParams); }

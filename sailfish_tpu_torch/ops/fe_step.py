@@ -106,8 +106,11 @@ def kernel_ineligibility(builder):
         names = sorted({nt.get_node_type(t).__name__
                         for t, _k, _s in instances})
         reasons.append(f'boundary conditions {", ".join(names)} (the '
-                       'free-energy kernel takes fluid, walls and excluded '
-                       'nodes, mask codes 0/1/2)')
+                       'free-energy kernel takes fluid, full bounce-back '
+                       'walls and excluded nodes, mask codes 0/1/2)')
+    if builder.maps.dynamic:
+        reasons.append('DynamicValue BC parameters (the free-energy kernel '
+                       'takes no time-dependent value)')
     return reasons
 
 

@@ -1,24 +1,30 @@
 """The kernel engine: one fused stream-and-collide CUDA kernel launch per
-step, native BCs with spatially varying parameters and a constant body
-force included.
+step, with native BCs of static, varying or time-dependent parameters, the
+local walls (half-way bounce-back, Tamm-Mott-Smith, slip) and a constant
+or time-dependent uniform body force.
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
 (``PallasStep2D``, ``make_kernel_2d``) in their mask + in-kernel native-BC
 (``kbc``) modes with and without forcing (Guo, exact-difference and
-velocity-shift, ``pallas_step.py:246-341``), and of their patch kernels
-``make_bc_patch_kernel_3d`` / ``_2d`` (see ``ops/bc_patch.py``). The
-kernel itself is ``csrc/lbm_step.cu``; this module classifies the nodes into kernel mask
-codes, puts every native-BC instance into one BC table (uniform instances
-with their scalars, varying ones with the address of their per-node
-parameters in the array of ``ops/bc_patch.py``), checks that a scene is
-eligible, and wraps the launch.
+velocity-shift, ``pallas_step.py:246-341``; a time-only force is the
+runtime ``rt_force`` mode, :185-232), and of their patch kernels
+``make_bc_patch_kernel_3d`` / ``_2d`` (see ``ops/bc_patch.py``), which on
+the TPU also carry the link-tagged walls, TMS and the dynamic BC
+families. The kernel itself is ``csrc/lbm_step.cu``; this module
+classifies the nodes into kernel mask codes, puts every BC instance and
+local wall into one BC table (uniform instances with their scalars,
+varying ones with the address of their per-node parameters in the array
+of ``ops/bc_patch.py``; half-way and TMS walls one row per type, slip
+walls one row per normal axis), checks that a scene is eligible, writes
+the values of time-dependent rows and forces before each launch, and
+wraps the launch.
 
 Beside the wrapper lives ``step_reference``: the same function (state,
-mask codes, BC table and parameter array in; next state out) as plain
-PyTorch. The tests use it on the CPU and ``chip_smoke.py`` holds the
-kernel against it on the card, on uniform and on varying scenes; the main
-path never calls it on a CUDA tensor.
+mask codes, BC table, parameter array and link tags in; next state out)
+as plain PyTorch, built from the torch engine's phase functions. The tests
+use it on the CPU and ``chip_smoke.py`` holds the kernel against it on the
+card; the main path never calls it on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -29,7 +35,6 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from sailfish_tpu_torch import equilibrium as eq
 from sailfish_tpu_torch import lattice
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.ops import bc_patch
@@ -46,40 +51,58 @@ MAX_PLANE_FLOATS = 2 ** 31 - 1
 #: lattices the kernel is instantiated for
 KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: kernel launches over all ``KernelStep`` objects, counted apart by what
-#: the launch computes: ``lbm_step_force_<grid>`` (a body force: the
-#: forcing mode of the JAX package's kernels, whatever the BC rows),
-#: ``lbm_step_vary_<grid>`` (no force, some instance reads per-node
-#: parameters: the work of the JAX package's patch kernels) and
-#: ``lbm_step_<grid>`` (no force, every BC instance uniform); one C entry,
-#: ``lbm_step_<grid>``, serves all three
+#: the launch computes, the first that applies: ``lbm_step_dyn_<grid>``
+#: (a BC row or the body force takes values that change from step to step,
+#: written before the launch: the JAX package's dynamic patch planes and
+#: ``rt_force``), ``lbm_step_wall_<grid>`` (a half-way, TMS or slip wall
+#: row: the kernel instantiation with wall rows; the link-tagged families
+#: of the JAX patch kernels), ``lbm_step_force_<grid>`` (a constant body
+#: force: the forcing mode of the JAX package's kernels),
+#: ``lbm_step_vary_<grid>`` (some instance reads per-node parameters: the
+#: work of the JAX package's patch kernels) and ``lbm_step_<grid>`` (no
+#: force, every BC row uniform); one C entry, ``lbm_step_<grid>``, serves
+#: them all
 LAUNCHES = dict.fromkeys(
-    (f'lbm_step_{v}{g.lower()}' for v in ('', 'vary_', 'force_')
+    (f'lbm_step_{v}{g.lower()}'
+     for v in ('', 'vary_', 'force_', 'wall_', 'dyn_')
      for g in KERNEL_GRIDS), 0)
+#: rewrites of a block of the per-node parameter array before a launch (a
+#: space- and time-dependent BC row), over all ``KernelStep`` objects, per
+#: lattice: each is a few small PyTorch launches on the kernel's stream
+BCP_REWRITES = dict.fromkeys((f'bcp_{g.lower()}' for g in KERNEL_GRIDS), 0)
 #: force model -> its code in the kernel's parameter block
 #: (csrc/lbm_common.cuh FORCE_*); 0 is no force
 FORCE_CODES = {name: 1 + i for i, name in enumerate(st.FORCE_MODELS)}
 
 
 def reset_launch_counts():
-    """Zero ``LAUNCHES`` (before a run whose launches are to be counted)."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero ``LAUNCHES`` and ``BCP_REWRITES`` (before a run whose launches
+    are to be counted)."""
+    for counts in (LAUNCHES, BCP_REWRITES):
+        for name in counts:
+            counts[name] = 0
 
 
-#: node type -> BC kind of csrc/lbm_common.cuh (even: velocity, odd:
-#: density)
+#: node type -> BC kind of csrc/lbm_common.cuh (native BCs: even
+#: velocity, odd density; then the local walls)
 BC_KINDS = {
     nt.NTEquilibriumVelocity: 0, nt.NTEquilibriumDensity: 1,
     nt.NTZouHeVelocity: 2, nt.NTZouHeDensity: 3,
     nt.NTRegularizedVelocity: 4, nt.NTRegularizedDensity: 5,
+    nt.NTHalfBBWall: 6, nt.NTWallTMS: 7, nt.NTSlip: 8,
 }
+#: the wall kinds: rows that read the link-tag map (half-way, TMS) or
+#: store a slip reflection, served by the kernel instantiation with walls
+WALL_TYPES = st.LINK_TAG_TYPES + (nt.NTSlip,)
 
 #: one BC-table row: node type id, orientation code (1-based, into
-#: grid.orientation_vectors), prescribed density and velocity (x, y, z),
-#: and for an instance whose parameters vary from node to node the
-#: ``bc_patch.Box`` of its block in the parameter array (else None; the
-#: scalars then hold the values at the instance's first node and are not
-#: read)
+#: grid.orientation_vectors; 0 for the half-way and TMS rows, whose
+#: geometry is in each node's link tags; a slip row, which serves both
+#: orientations of one normal axis, holds the first), prescribed density
+#: and velocity (x, y, z), and for an instance whose parameters vary from
+#: node to node the ``bc_patch.Box`` of its block in the parameter array
+#: (else None; the scalars then hold the values at the instance's first
+#: node and are not read)
 BCRow = namedtuple('BCRow', ('type_id', 'orientation', 'rho', 'u', 'box'),
                    defaults=(None,))
 
@@ -89,9 +112,11 @@ def classify_nodes(maps):
 
     Returns (mask, instances, reasons): ``mask`` is uint8 (*S) with
     0 = collide, 1 = reflect (``NTFullBBWall``), 2 = keep (excluded and
-    propagation-only nodes), 3+j = native-BC instance j; ``instances`` is
-    the list of (type_id, orientation, node selection) in code order;
-    ``reasons`` names every node class the kernel cannot take."""
+    propagation-only nodes), 3+j = row j of the BC table; ``instances`` is
+    the list of (type_id, orientation, node selection) in code order: one
+    per native-BC (type, orientation), one per half-way / TMS wall type
+    (orientation 0) and one per slip normal axis; ``reasons`` names every
+    node class the kernel cannot take."""
     tm = maps.type_map
     mask = np.zeros(tm.shape, dtype=np.uint8)
     instances = []
@@ -105,14 +130,23 @@ def classify_nodes(maps):
             mask[sel] = 1
         elif cls.excluded or cls.propagation_only:
             mask[sel] = 2
+        elif cls in st.LINK_TAG_TYPES:
+            instances.append((tid, 0, sel))
         elif cls in BC_KINDS:
-            for k in np.unique(maps.orientation[sel]):
-                if k == 0:
-                    reasons.append(f'{cls.__name__} nodes without a '
-                                   'detected orientation')
-                    continue
-                instances.append(
-                    (tid, int(k), sel & (maps.orientation == int(k))))
+            ks = np.unique(maps.orientation[sel])
+            if 0 in ks:
+                reasons.append(f'{cls.__name__} nodes without a '
+                               'detected orientation')
+            if cls is nt.NTSlip:
+                for axis in sorted({(int(k) - 1) // 2 for k in ks if k}):
+                    pair = (2 * axis + 1, 2 * axis + 2)
+                    instances.append((tid, pair[0], sel & np.isin(
+                        maps.orientation, pair)))
+                continue
+            for k in ks:
+                if k:
+                    instances.append(
+                        (tid, int(k), sel & (maps.orientation == int(k))))
         else:
             reasons.append(f'node type {cls.__name__}')
     if len(instances) > MAX_BC:
@@ -133,7 +167,9 @@ def bc_table(maps, instances, boxes=None):
     for (tid, k, sel), box in zip(instances, boxes):
         cls = nt.get_node_type(tid)
         rho, vel = 1.0, [0.0, 0.0, 0.0]
-        if 'velocity' in cls.param_names:
+        if cls in WALL_TYPES:
+            pass
+        elif 'velocity' in cls.param_names:
             for a in range(maps.param_vel.shape[0]):
                 vel[a] = float(maps.param_vel[a][sel][0])
         else:
@@ -146,12 +182,18 @@ def kernel_ineligibility(builder, nodes=None):
     """Reasons the kernel cannot run ``builder``'s scene (empty when it
     can); ``nodes`` is ``classify_nodes`` of its maps when the caller has
     it. The torch ``StepBuilder`` already refuses non-BGK models,
-    DynamicValue body forces, Shan-Chen and dynamic BC parameters. A body
-    force that varies from node to node runs on the torch engine only (the
-    JAX runner keeps it off its kernels too,
-    ``sailfish_tpu/runner.py:386-395``)."""
+    Shan-Chen and the node types it lacks (the outflow family,
+    ``NTGuoDensity``, ``NTExtendedCopy``). A body force that varies from
+    node to node, constant or a DynamicValue of space, runs on the torch
+    engine only (the JAX runner keeps it off its kernels too,
+    ``sailfish_tpu/runner.py:386-395``, ``pallas_step.py:2608-2612``)."""
     reasons = []
-    if builder.body_force is not None \
+    if builder.force_expr is not None:
+        if st.is_space_dependent(builder.force_expr):
+            reasons.append('space-dependent DynamicValue body force (the '
+                           'kernel takes one acceleration per step; '
+                           '--engine=torch runs it)')
+    elif builder.body_force is not None \
             and np.ndim(builder.body_force) > 1:
         reasons.append('space-varying body force (the kernel takes one '
                        'constant acceleration; --engine=torch runs a '
@@ -195,20 +237,32 @@ def box_params(row, bcp, shape):
 
 
 def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
-                   force_model='guo'):
+                   force_model='guo', tags=None):
     """Plain PyTorch version of the kernel: one step
     of state ``f`` (Q, *S) under uint8 mask codes ``mask`` (*S) and BC
     table ``table`` (list of ``BCRow``), with relaxation rate ``tau_inv``.
     A row with a box takes each node's rho and u from the fp32 parameter
-    array ``bcp`` (``bc_patch.param_array``). ``force`` is a constant
-    acceleration (x, y[, z]) acting on every colliding node, BC nodes
-    included, by ``force_model`` (``step.forced_collide``, the code the
-    torch engine runs)."""
-    fs = st.gather(grid, f)
-    rho, u = eq.macroscopic(grid, fs)
+    array ``bcp`` (``bc_patch.param_array``). The nodes of a half-way or
+    TMS row fix the links that the int32 map ``tags`` (the node-type map's
+    ``link_tags``) marks as missing; slip rows are dry and store the
+    reflection of their axis. ``force`` is a uniform acceleration (x, y[,
+    z]) acting on every colliding node, BC nodes included, by
+    ``force_model``. The phases are the torch engine's
+    (``step.step_phases``)."""
     ones = (1,) * (f.dim() - 1)
-    instances = []
+    instances, slip = [], []
+    tagged = tms = None
     for j, row in enumerate(table):
+        cls = nt.get_node_type(row.type_id)
+        sel = mask == 3 + j
+        if cls in st.LINK_TAG_TYPES:
+            tagged = sel if tagged is None else tagged | sel
+            if cls is nt.NTWallTMS:
+                tms = sel if tms is None else tms | sel
+            continue
+        if cls is nt.NTSlip:
+            slip.append(((row.orientation - 1) // 2, sel))
+            continue
         if row.box is not None:
             rho_bc, vel_bc = box_params(row, bcp.to(f.dtype), mask.shape)
         else:
@@ -217,17 +271,19 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
             vel_bc = torch.tensor(row.u[:grid.dim], dtype=f.dtype,
                                   device=f.device).reshape(
                                       (grid.dim,) + ones)
-        instances.append((nt.get_node_type(row.type_id), row.orientation,
-                          mask == 3 + j, rho_bc, vel_bc))
-    rho, u = st.solve_macro_bc(grid, instances, fs, rho, u)
-    fs2 = st.pre_collision_bc(grid, instances, fs, rho, u)
+        instances.append((cls, row.orientation, sel, rho_bc, vel_bc))
+    planes = None
+    if tagged is not None:
+        planes = st.tag_planes(grid, tags, f.device) & tagged[None]
     wet = (mask == 0) | (mask >= 3)
+    for _axis, sel in slip:
+        wet = wet & ~sel
     if force is not None:
         force = torch.tensor(force[:grid.dim], dtype=f.dtype,
                              device=f.device).reshape((grid.dim,) + ones)
-    return st.collide_and_select(grid, fs2, rho, u, tau_inv, wet,
-                                 mask == 1, force=force,
-                                 force_model=force_model)
+    return st.step_phases(grid, st.gather(grid, f), f, tau_inv, instances,
+                          wet=wet, fullbb=mask == 1, slip=slip, tags=planes,
+                          tms=tms, force=force, force_model=force_model)
 
 
 class _BC(ctypes.Structure):
@@ -258,13 +314,15 @@ class _Tables(ctypes.Structure):
     _fields_ = [('q', ctypes.c_int), ('dim', ctypes.c_int),
                 ('c', (ctypes.c_int * 3) * MAX_Q),
                 ('w', ctypes.c_float * MAX_Q),
-                ('opp', ctypes.c_int * MAX_Q)]
+                ('opp', ctypes.c_int * MAX_Q),
+                ('slip', (ctypes.c_int * MAX_Q) * 3)]
 
 
 def lattice_tables(grid):
     """``_Tables`` filled from ``sailfish_tpu_torch.lattice``: what the
     kernel's ``lbm_lattice_tables`` must copy out for ``grid`` (entries
-    beyond Q, and the z component in 2D, are 0)."""
+    beyond Q, the z component in 2D and the slip permutation of the z axis
+    in 2D are 0)."""
     t = _Tables()
     t.q, t.dim = grid.Q, grid.dim
     for i in range(grid.Q):
@@ -272,6 +330,9 @@ def lattice_tables(grid):
             t.c[i][a] = int(grid.basis[i][a])
         t.w[i] = float(grid.weights[i])
         t.opp[i] = int(grid.opposite[i])
+    for a in range(grid.dim):
+        for i, j in enumerate(grid.slip_swap(a)):
+            t.slip[a][i] = int(j)
     return t
 
 
@@ -291,30 +352,50 @@ def check_tables(tables, grid):
             f'sailfish_tpu_torch.lattice in {", ".join(bad)}')
 
 
+def set_force(p, grid, force, force_model, tau_inv):
+    """Write the uniform acceleration ``force`` (x, y[, z]) into the block
+    ``p``: the model's code, the acceleration, the equilibrium-velocity
+    shift s a (s = 1/2 for Guo, tau for the velocity shift, 0 for the
+    exact-difference method) and the Guo prefactor 1 - 1/(2 tau), each
+    computed in fp64 and stored as fp32."""
+    s = {'guo': 0.5, 'velocity_shift': 1.0 / tau_inv,
+         'edm': 0.0}[force_model]
+    p.force.model = FORCE_CODES[force_model]
+    p.force.pref = 1.0 - 0.5 * tau_inv
+    for a in range(grid.dim):
+        p.force.a[a] = force[a]
+        p.force.shift[a] = s * force[a]
+
+
+def set_row(p, j, rho, u):
+    """Write the prescribed density and velocity (x, y, z) of BC row ``j``
+    into the block ``p``."""
+    p.bc[j].rho = rho
+    for a in range(3):
+        p.bc[j].u[a] = u[a]
+
+
 def kernel_params(grid, shape, table, tau_inv, force=None,
                   force_model='guo'):
     """The kernel's by-value parameter block: domain extents, relaxation
     rate, the BC table, behind it where each varying row's per-node
-    parameters lie, and the body force: the model's code, the constant
-    acceleration ``force`` (x, y[, z]; None: code 0, no force), the
-    equilibrium-velocity shift s a (s = 1/2 for Guo, tau for the velocity
-    shift, 0 for the exact-difference method) and the Guo prefactor
-    1 - 1/(2 tau), each computed here in fp64. The lattice tables are
-    compile-time in the kernel (``check_tables``)."""
+    parameters lie, and the body force (``set_force``; None: model code 0,
+    no force). A row's axis and sign are those of its orientation (0 for
+    the half-way and TMS rows). The lattice tables are compile-time in the
+    kernel (``check_tables``)."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
     p.nx, p.ny, p.nz = nx, ny, nz
     p.nbc = len(table)
     p.tau_inv = tau_inv
     for j, row in enumerate(table):
-        n = grid.orientation_vectors[row.orientation - 1]
-        axis = int(np.flatnonzero(n)[0])
         p.bc[j].kind = BC_KINDS[nt.get_node_type(row.type_id)]
-        p.bc[j].axis = axis
-        p.bc[j].sign = int(n[axis])
-        p.bc[j].rho = row.rho
-        for a in range(3):
-            p.bc[j].u[a] = row.u[a]
+        if row.orientation:
+            n = grid.orientation_vectors[row.orientation - 1]
+            axis = int(np.flatnonzero(n)[0])
+            p.bc[j].axis = axis
+            p.bc[j].sign = int(n[axis])
+        set_row(p, j, row.rho, row.u)
         if row.box is not None:
             p.vary[j].varies = 1
             p.vary[j].offset = row.box.offset
@@ -322,13 +403,7 @@ def kernel_params(grid, shape, table, tau_inv, force=None,
                 p.vary[j].lo[a] = row.box.lo[a]
                 p.vary[j].ext[a] = row.box.ext[a]
     if force is not None:
-        s = {'guo': 0.5, 'velocity_shift': 1.0 / tau_inv,
-             'edm': 0.0}[force_model]
-        p.force.model = FORCE_CODES[force_model]
-        p.force.pref = 1.0 - 0.5 * tau_inv
-        for a in range(grid.dim):
-            p.force.a[a] = force[a]
-            p.force.shift[a] = s * force[a]
+        set_force(p, grid, force, force_model, tau_inv)
     return p
 
 
@@ -356,23 +431,27 @@ def kernel_function(lib, name):
     check_tables(tables, grid)
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.POINTER(_Params), ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(_Params), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 class KernelStep:
     """The kernel engine for one scene: two state buffers A and B swapped
-    every step, the uint8 mask, the BC table of every native-BC instance
-    (mask code 3 + its index), ``bcp`` (the fp32 per-node parameter array
-    of the varying instances), ``vary`` (whether any instance varies),
-    ``force`` (the constant body force, an acceleration (x, y[, z]), or
-    None) with its ``force_model``, ``entry`` (the C entry,
+    every step, the uint8 mask, the BC table (mask code 3 + its index),
+    ``bcp`` (the fp32 per-node parameter array of the varying rows),
+    ``vary`` (whether any row varies), ``tags`` (the int32 link-tag map
+    when a half-way or TMS row exists, else None), ``walls`` (whether a
+    wall row exists), ``dynamic`` (the ``bc_patch.DynamicRow`` of each row
+    whose values depend on time), ``force`` (the body force of the last
+    launch, an acceleration (x, y[, z]), or None) with its
+    ``force_model``, ``force_expr`` (the components of a time-only
+    DynamicValue force, else None), ``entry`` (the C entry,
     ``lbm_step_<grid>``, which picks the kernel instantiation of the
-    block's force model), ``name`` (the key of ``LAUNCHES`` its launches
-    count under: ``lbm_step_force_<grid>`` with a force, else
-    ``lbm_step_vary_<grid>`` when ``vary``) and ``launches``, the number
-    of kernel launches this object has made: one per step."""
+    block's force model and of whether it has wall rows), ``name`` (the
+    key of ``LAUNCHES`` its launches count under) and ``launches``, the
+    number of kernel launches this object has made: one per step."""
 
     def __init__(self, builder):
         maps = builder.maps
@@ -384,6 +463,7 @@ class KernelStep:
                 + '; '.join(reasons))
         self.grid = builder.grid
         self.tau_inv = builder.tau_inv
+        self.time_unit = builder.time_unit
         mask_np, instances, _ = nodes
         boxes, _ = bc_patch.instance_boxes(maps, instances)
         self.table = bc_table(maps, instances, boxes)
@@ -393,24 +473,74 @@ class KernelStep:
         self.mask = torch.as_tensor(mask_np, device=self.device)
         self.bcp = torch.as_tensor(bc_patch.param_array(maps, boxes),
                                    device=self.device)
+        types = {nt.get_node_type(row.type_id) for row in self.table}
+        self.walls = bool(types & set(WALL_TYPES))
+        self.tags = (torch.as_tensor(maps.link_tags, device=self.device)
+                     if types & set(st.LINK_TAG_TYPES) else None)
+        self.dynamic = bc_patch.dynamic_rows(maps, instances, boxes,
+                                             self.bcp)
         full = (self.grid.Q,) + self.shape
         self.a = torch.empty(full, dtype=torch.float32, device=self.device)
         self.b = torch.empty_like(self.a)
-        self.force = None if builder.body_force is None else tuple(
-            float(a) for a in builder.body_force)
         self.force_model = builder.force_model
+        self.force_expr = builder.force_expr
+        self.force = None
+        if self.force_expr is not None:
+            self.force = self._force_at(self._time(0))
+        elif builder.body_force is not None:
+            self.force = tuple(float(a) for a in builder.body_force)
         self.params = kernel_params(self.grid, self.shape, self.table,
                                     self.tau_inv, self.force,
                                     self.force_model)
         self.entry = f'lbm_step_{self.grid.name.lower()}'
-        kind = 'force_' if self.force is not None else \
+        kind = 'dyn_' if self.dynamic or self.force_expr is not None else \
+            'wall_' if self.walls else \
+            'force_' if self.force is not None else \
             'vary_' if self.vary else ''
         self.name = self.entry.replace('step_', f'step_{kind}')
         self.launches = 0
         self._fn = None
 
-    def step_into(self, src, dst):
-        """One step from ``src`` into ``dst`` (distinct (Q, *S) fp32
+    def _time(self, it):
+        """t of iteration ``it``: a 0-d fp32 CPU tensor, so evaluating a
+        time-only value needs no device synchronization."""
+        return st.time_of(it, torch.float32, self.time_unit)
+
+    def _force_at(self, t):
+        """The time-only DynamicValue force at ``t``, each component cast
+        to fp32 (as the torch engine's ``force_at`` casts it)."""
+        return tuple(float(torch.as_tensor(
+            nt.DynamicValue.evaluate(e, t, ()), dtype=torch.float32))
+            for e in self.force_expr)
+
+    def set_iteration(self, it):
+        """Write the values of iteration ``it`` before its launch: the
+        scalars of the time-only rows into the table and the parameter
+        block, the block of each space-dependent row into ``bcp`` (on the
+        current stream, after the launches that read the old one), and a
+        time-only force into the block."""
+        if not self.dynamic and self.force_expr is None:
+            return
+        t = self._time(it)
+        dim = self.grid.dim
+        for d in self.dynamic:
+            if d.static is None:
+                rho, u = d.scalars_at(t, dim)
+                self.table[d.row] = self.table[d.row]._replace(rho=rho, u=u)
+                set_row(self.params, d.row, rho, u)
+                continue
+            box = self.table[d.row].box
+            n = d.static.numel()
+            d.write_block(t, self.bcp[box.offset:box.offset + n].view(
+                d.static.shape))
+            BCP_REWRITES[f'bcp_{self.grid.name.lower()}'] += 1
+        if self.force_expr is not None:
+            self.force = self._force_at(t)
+            set_force(self.params, self.grid, self.force, self.force_model,
+                      self.tau_inv)
+
+    def step_into(self, src, dst, it=0):
+        """Step ``it`` from ``src`` into ``dst`` (distinct (Q, *S) fp32
         buffers on the mask's device). On a CUDA tensor this launches the
         kernel once; on a CPU tensor it runs ``step_reference``."""
         full = (self.grid.Q,) + self.shape
@@ -425,16 +555,18 @@ class KernelStep:
                                  f'{self.mask.device}')
         if src.data_ptr() == dst.data_ptr():
             raise ValueError('the pull step cannot run in place')
+        self.set_iteration(it)
         if src.device.type == 'cpu':
             dst.copy_(self.reference(src))
         else:
             self._launch(src, dst)
 
     def reference(self, f):
-        """``step_reference`` of this scene on the state ``f``."""
+        """``step_reference`` of this scene on the state ``f``, with the
+        values of the last ``set_iteration``."""
         return step_reference(f, self.mask, self.table, self.grid,
                               self.tau_inv, self.bcp, self.force,
-                              self.force_model)
+                              self.force_model, self.tags)
 
     def _launch(self, src, dst):
         if src.device.type != 'cuda':
@@ -443,23 +575,24 @@ class KernelStep:
             from sailfish_tpu_torch.ops import build
             self._fn = kernel_function(build.load('lbm_step').lib,
                                        self.entry)
+        tags = None if self.tags is None else self.tags.data_ptr()
         rc = self._fn(src.data_ptr(), dst.data_ptr(), self.mask.data_ptr(),
-                      self.bcp.data_ptr(), ctypes.byref(self.params),
+                      self.bcp.data_ptr(), tags, ctypes.byref(self.params),
                       torch.cuda.current_stream(src.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f'{self.name} launch failed: CUDA error {rc}')
         self.launches += 1
         LAUNCHES[self.name] += 1
 
-    def run(self, f, n):
-        """``n`` steps from state ``f``; returns the buffer (A or B) that
-        holds the result. A state that is not one of the two buffers is
-        copied into A first."""
+    def run(self, f, n, it0=0):
+        """``n`` steps from state ``f``, the first computing iteration
+        ``it0``; returns the buffer (A or B) that holds the result. A state
+        that is not one of the two buffers is copied into A first."""
         if f is not self.a and f is not self.b:
             self.a.copy_(f)
             f = self.a
         other = self.b if f is self.a else self.a
-        for _ in range(n):
-            self.step_into(f, other)
+        for i in range(n):
+            self.step_into(f, other, it0 + i)
             f, other = other, f
         return f

@@ -109,7 +109,7 @@ class MultigridStepBuilder:
 
     def __init__(self, grid, maps, taus, *, body_force=None,
                  body_forces=None, force_model='guo',
-                 dtype=torch.float32, device='cpu'):
+                 dtype=torch.float32, device='cpu', time_unit=1.0):
         if force_model != 'guo':
             raise NotImplementedError(
                 'multi-component models implement Guo body forcing only '
@@ -139,7 +139,7 @@ class MultigridStepBuilder:
             StepBuilder(grid, maps, model='bgk', tau=tau,
                         body_force=(body_forces[k]
                                     if self.forces_in_components else None),
-                        dtype=dtype, device=device)
+                        dtype=dtype, device=device, time_unit=time_unit)
             for k, tau in enumerate(self.taus)]
         # all components share the node maps
         self.b0 = self.components[0]
@@ -161,8 +161,9 @@ class MultigridStepBuilder:
             fss = self._streamed_all(state)
             rhos = [eq.density(self.grid, fs) for fs in fss]
             u = self.common_velocity(fss, rhos)
-            # macroscopic BC overrides apply to the fluid component
-            rho0, u = self.b0._solve_macro_bc(fss[0], rhos[0], u)
+            # macroscopic BC overrides apply to the fluid component, with
+            # its parameters at this step's iteration
+            rho0, u = self.b0._solve_macro_bc(fss[0], rhos[0], u, it)
             rhos = [rho0] + rhos[1:]
             fss = [c._pre_collision_bc(fs, rho, u)
                    for c, fs, rho in zip(self.components, fss, rhos)]
@@ -182,7 +183,7 @@ class MultigridStepBuilder:
         fss = self._streamed_all(state)
         rhos = [eq.density(self.grid, fs) for fs in fss]
         u = self.common_velocity(fss, rhos)
-        rho0, u = self.b0._solve_macro_bc(fss[0], rhos[0], u)
+        rho0, u = self.b0._solve_macro_bc(fss[0], rhos[0], u, it)
         return ([rho0] + rhos[1:], u)
 
 
@@ -194,12 +195,12 @@ class ShanChenMultiStepBuilder(MultigridStepBuilder):
 
     def __init__(self, grid, maps, taus, couplings, *, potential='linear',
                  body_force=None, body_forces=None, force_model='guo',
-                 dtype=torch.float32, device='cpu'):
+                 dtype=torch.float32, device='cpu', time_unit=1.0):
         """couplings: dict {(j, k): G_jk} (symmetric; includes (k, k) for
         self-interaction)."""
         super().__init__(grid, maps, taus, body_force=body_force,
                          body_forces=body_forces, force_model=force_model,
-                         dtype=dtype, device=device)
+                         dtype=dtype, device=device, time_unit=time_unit)
         if potential not in co.SHAN_CHEN_POTENTIALS:
             raise ValueError(f'unknown Shan-Chen potential {potential!r}')
         self.couplings = dict(couplings)
@@ -350,10 +351,10 @@ class FreeEnergyStepBuilder(MultigridStepBuilder):
     def __init__(self, grid, maps, *, tau_a, tau_b, tau_phi, A, kappa,
                  Gamma, wall_grad_phase=0.0, body_force=None,
                  eq_force_map=None, model='bgk', force_model='guo',
-                 dtype=torch.float32, device='cpu'):
+                 dtype=torch.float32, device='cpu', time_unit=1.0):
         super().__init__(grid, maps, [(tau_a + tau_b) / 2.0, tau_phi],
                          body_force=body_force, force_model=force_model,
-                         dtype=dtype, device=device)
+                         dtype=dtype, device=device, time_unit=time_unit)
         if model not in ('bgk', 'mrt'):
             raise ValueError(f'free-energy model must be bgk or mrt, '
                              f'got {model!r}')

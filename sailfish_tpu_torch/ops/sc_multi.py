@@ -110,8 +110,11 @@ def kernel_ineligibility(builder):
         names = sorted({nt.get_node_type(t).__name__
                         for t, _k, _s in instances})
         reasons.append(f'boundary conditions {", ".join(names)} (the '
-                       'Shan-Chen kernel takes fluid, walls and excluded '
-                       'nodes, mask codes 0/1/2)')
+                       'Shan-Chen kernel takes fluid, full bounce-back walls '
+                       'and excluded nodes, mask codes 0/1/2)')
+    if builder.maps.dynamic:
+        reasons.append('DynamicValue BC parameters (the Shan-Chen kernel '
+                       'takes no time-dependent value)')
     return reasons
 
 
@@ -191,10 +194,13 @@ class BufferedMultiStep:
                 return buf
         return None
 
-    def run(self, state, n):
+    def run(self, state, n, it0=0):
         """``n`` steps from the K-tuple ``state``; returns the K-tuple of
         views of the buffer (A or B) that holds the result. A state that
-        is not held by one of the two buffers is copied into A first."""
+        is not held by one of the two buffers is copied into A first.
+        ``it0``, the first step's iteration, changes nothing: the mixture
+        kernels take no time-dependent value (``kernel_ineligibility``
+        refuses every BC row and body force)."""
         if len(state) != self.K:
             raise ValueError(f'{len(state)} components, expected {self.K}')
         src = self._buffer_of(state)

@@ -7,21 +7,28 @@ lattice's standard direction order; one step is gather (pull streaming)
 -> fix missing -> macro -> BC solve -> pre-collision BC -> collide ->
 dry-node handling, exactly the JAX phase sequence.
 
-The subset: BGK collision with the second-order equilibrium, a constant
-or per-node body force (Guo, exact-difference or velocity-shift forcing),
-no subgrid model, no Shan-Chen, fp32 or fp64 storage, and the node types
-fluid, the excluded / propagation-only "keep" types,
-``NTFullBBWall`` and the six elementwise ("native") BC types with static
-parameters. Anything else raises ``NotImplementedError`` when the builder
-is made, the way the JAX engine's ``_IMPLEMENTED_TYPES`` does. The
-multi-component builders (``ops/multigrid.py``) run one ``StepBuilder``
-per component through its per-phase methods (``_solve_macro_bc`` ...
-``_post_collision``).
+The subset: BGK collision with the second-order equilibrium, a body
+force (Guo, exact-difference or velocity-shift forcing) that is constant,
+per-node or a ``DynamicValue`` of time and space, no subgrid model, no
+Shan-Chen, fp32 or fp64 storage, and the node types fluid, the excluded /
+propagation-only "keep" types, the local walls (``NTFullBBWall``,
+``NTHalfBBWall``, ``NTWallTMS``, ``NTSlip``) and the six elementwise
+("native") BC types, whose parameters may be ``DynamicValue``s. Anything
+else raises ``NotImplementedError`` when the StepBuilder is made, the way the
+JAX engine's ``_IMPLEMENTED_TYPES`` does. The multi-component builders
+(``ops/multigrid.py``) run one ``StepBuilder`` per component through its
+per-phase methods (``_solve_macro_bc`` ... ``_post_collision``).
 
-The BC phases are module-level functions over an explicit instance list
-``(cls, orientation, mask, rho_bc, vel_bc)`` so the kernel's plain
-reference (``ops/lbm_step.step_reference``) runs the same code with its
-per-instance scalar parameters.
+Time-dependent values see t = iteration * ``time_unit``
+(``--dt_per_lattice_time_unit``), with t a tensor of the StepBuilder's dtype,
+as in ``sailfish_tpu/ops/step.py:563-582, :672-688``: the step is
+``step(f, it)``.
+
+The phases are module-level functions over explicit arguments -- the
+instance list ``(cls, orientation, mask, rho_bc, vel_bc)``, the tag planes,
+the TMS and slip masks -- and ``step_phases`` runs them in the JAX order,
+so the kernel's plain reference (``ops/lbm_step.step_reference``) runs the
+same code with its per-row parameters.
 """
 
 from __future__ import annotations
@@ -40,11 +47,45 @@ NATIVE_BC_TYPES = (nt.NTEquilibriumVelocity, nt.NTEquilibriumDensity,
                    nt.NTZouHeVelocity, nt.NTZouHeDensity,
                    nt.NTRegularizedVelocity, nt.NTRegularizedDensity)
 
+#: Walls that fix the links the node-type map tags as missing
+#: (``NodeMaps.link_tags``): half-way bounce-back and Tamm-Mott-Smith.
+LINK_TAG_TYPES = (nt.NTHalfBBWall, nt.NTWallTMS)
+
 #: Node types this engine implements; a present type outside the set
 #: raises at build time.
 _IMPLEMENTED_TYPES = (
     nt._NTFluid, nt._NTGhost, nt._NTUnused, nt._NTPropagationOnly,
-    nt.NTFullBBWall) + NATIVE_BC_TYPES
+    nt.NTFullBBWall, nt.NTSlip) + LINK_TAG_TYPES + NATIVE_BC_TYPES
+
+
+def global_coords(shape, device=None):
+    """Global coordinate tensors (hx, hy[, hz]), int32, of a spatial shape
+    in array order (.., z, y, x): what space-dependent ``DynamicValue``
+    callables receive (``sailfish_tpu/ops/step.py:51-56``)."""
+    grids = np.meshgrid(*[np.arange(n) for n in shape], indexing='ij')
+    return tuple(torch.as_tensor(grids[len(shape) - 1 - a], dtype=torch.int32,
+                                 device=device)
+                 for a in range(len(shape)))
+
+
+def time_of(it, dtype, time_unit, device=None):
+    """t = it * time_unit as a 0-d tensor of ``dtype``, rounded as the
+    JAX engine's ``jnp.asarray(it, dtype) * time_unit``."""
+    return torch.tensor(it, dtype=dtype, device=device) * time_unit
+
+
+def dynamic_values(exprs, t, coords, shape, dtype, device=None):
+    """The components of a ``DynamicValue`` evaluated at time ``t`` (and,
+    for space-dependent ones, at ``coords``), each cast to ``dtype`` and
+    broadcast to ``shape``."""
+    return [torch.broadcast_to(
+        torch.as_tensor(nt.DynamicValue.evaluate(e, t, coords), dtype=dtype,
+                        device=device), shape) for e in exprs]
+
+
+def is_space_dependent(exprs):
+    """Whether any component takes coordinates (arity above 1)."""
+    return any(nt.DynamicValue.arity(e) > 1 for e in exprs)
 
 
 def pull(arr, vec):
@@ -66,6 +107,44 @@ def sample(arr, vec):
 def gather(grid, f):
     """Pull streaming: fs_i(x) = f_i(x - c_i), periodic wrap."""
     return torch.stack([pull(f[i], grid.basis[i]) for i in range(grid.Q)])
+
+
+def tag_planes(grid, link_tags, device=None):
+    """(Q, *S) bool planes of a node-type map's ``link_tags`` words: plane
+    i marks the nodes whose incoming f_i is missing (bit 0 is unused)."""
+    t = torch.as_tensor(link_tags, dtype=torch.int32, device=device)
+    return torch.stack([((t >> i) & 1).bool() for i in range(grid.Q)])
+
+
+def fix_missing(grid, fs, f, tags=None, tms=None, incompressible=False):
+    """Replace the distributions whose pull source is not wet
+    (``sailfish_tpu/ops/step.py:436-456``). Tagged links (``tags``, the
+    (Q, *S) planes of ``tag_planes``, or None) take f_opp, the node's own
+    post-collision value: half-way bounce-back. At the TMS nodes (``tms``,
+    a node mask, or None) the target macros are then taken from the
+    bounce-filled distributions and the tagged links set to their
+    equilibrium. Returns (fs, target): target is (rho, u) of the TMS
+    nodes, None without them."""
+    if tags is not None:
+        opp = torch.as_tensor(grid.opposite, dtype=torch.long,
+                              device=fs.device)
+        fs = torch.where(tags, f[opp], fs)
+    if tms is None:
+        return fs, None
+    target = eq.macroscopic(grid, fs)
+    feq_tg = eq.bgk_equilibrium(grid, *target, incompressible=incompressible)
+    return torch.where(tms[None] & tags, feq_tg, fs), target
+
+
+def apply_tms(grid, fpost, rho, u, tms, target, incompressible=False):
+    """The post-collision part of the TMS wall
+    (``sailfish_tpu/ops/step.py:772-781``): TMS nodes add feq(target) -
+    feq(rho, u) to their relaxed distributions."""
+    if tms is None:
+        return fpost
+    corr = eq.bgk_equilibrium(grid, *target, incompressible=incompressible) \
+        - eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible)
+    return torch.where(tms[None], fpost + corr, fpost)
 
 
 def solve_macro_bc(grid, instances, fs, rho, u):
@@ -141,24 +220,32 @@ def pre_collision_bc(grid, instances, fs, rho, u, incompressible=False):
     return fs
 
 
-def bounce_back(grid, fs, fpost, fullbb):
-    """Full bounce-back walls store the arriving distributions reflected
-    (``sailfish_tpu/ops/step.py:753-770``, without slip). ``fullbb`` is a
-    boolean node map, or None when no wall is present."""
-    if fullbb is None:
-        return fpost
-    opp = torch.as_tensor(grid.opposite, dtype=torch.long, device=fs.device)
-    return torch.where(fullbb[None], fs[opp], fpost)
+def bounce_back(grid, fs, fpost, fullbb, slip=()):
+    """Dry-node walls (``sailfish_tpu/ops/step.py:753-770``): full
+    bounce-back nodes store the arriving distributions reflected, slip
+    nodes store them with the velocity component along their normal
+    reversed (``grid.slip_swap``). ``fullbb`` is a boolean node map, or
+    None when no such wall is present; ``slip`` a sequence of (axis, node
+    mask), one per normal axis."""
+    if fullbb is not None:
+        opp = torch.as_tensor(grid.opposite, dtype=torch.long,
+                              device=fs.device)
+        fpost = torch.where(fullbb[None], fs[opp], fpost)
+    for axis, mask in slip:
+        perm = torch.as_tensor(grid.slip_swap(axis), dtype=torch.long,
+                               device=fs.device)
+        fpost = torch.where(mask[None], fs[perm], fpost)
+    return fpost
 
 
-def select_dry(grid, fs, fpost, wet, fullbb):
+def select_dry(grid, fs, fpost, wet, fullbb, slip=()):
     """The dry/keep select of ``sailfish_tpu/ops/step.py:819-822``: dry
-    nodes keep their post-stream values ``fs``, full bounce-back walls
-    store them reflected. ``wet`` is a boolean node map, or None when
-    every node is wet."""
+    nodes keep their post-stream values ``fs``, full bounce-back and slip
+    walls store them reflected (``bounce_back``). ``wet`` is a boolean
+    node map, or None when every node is wet."""
     if wet is not None:
         fpost = torch.where(wet[None], fpost, fs)
-    return bounce_back(grid, fs, fpost, fullbb)
+    return bounce_back(grid, fs, fpost, fullbb, slip)
 
 
 FORCE_MODELS = ('guo', 'edm', 'velocity_shift')
@@ -200,23 +287,36 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
     return fpost
 
 
-def collide_and_select(grid, fs2, rho, u, tau_inv, wet, fullbb,
-                       incompressible=False, force=None, force_model='guo'):
-    """``forced_collide`` on every node (BC nodes take the force with
-    their solved rho and u), then ``select_dry``."""
+def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
+                fullbb=None, slip=(), tags=None, tms=None, force=None,
+                force_model='guo', incompressible=False):
+    """One step after the gather, in the JAX order
+    (``sailfish_tpu/ops/step.py:809-825``): fix missing -> macro -> BC
+    solves -> pre-collision BC -> ``forced_collide`` on every node (BC
+    nodes with their solved rho and u) -> dry select and dry walls -> the
+    TMS shift. ``fs``: the gathered distributions; ``f``: the state they
+    were pulled from; ``instances``: (cls, orientation, mask, rho_bc,
+    vel_bc) with the parameters of this step."""
+    fs, target = fix_missing(grid, fs, f, tags, tms, incompressible)
+    rho, u = eq.macroscopic(grid, fs)
+    rho, u = solve_macro_bc(grid, instances, fs, rho, u)
+    fs2 = pre_collision_bc(grid, instances, fs, rho, u, incompressible)
     fpost = forced_collide(grid, fs2, rho, u, tau_inv, force, force_model,
                            incompressible=incompressible)
-    return select_dry(grid, fs2, fpost, wet, fullbb)
+    fpost = select_dry(grid, fs2, fpost, wet, fullbb, slip)
+    return apply_tms(grid, fpost, rho, u, tms, target, incompressible)
 
 
 class StepBuilder:
     """Builds the single-device step function for a single-fluid BGK
-    model (the torch engine). Parameters mirror the JAX builder's."""
+    model (the torch engine). Parameters mirror the JAX builder's;
+    ``time_unit`` is ``--dt_per_lattice_time_unit``."""
 
     def __init__(self, grid, maps, *, model='bgk', visc=None, tau=None,
                  incompressible=False, smagorinsky=0.0, body_force=None,
                  force_model='guo', sc_coupling=0.0, equilibrium='bgk',
-                 dtype=torch.float32, device='cpu', storage='fp'):
+                 dtype=torch.float32, device='cpu', storage='fp',
+                 time_unit=1.0):
         if force_model not in FORCE_MODELS:
             raise ValueError(
                 f'force_model must be guo, edm or velocity_shift; '
@@ -226,18 +326,12 @@ class StepBuilder:
             unported.append(f'model={model}')
         if smagorinsky > 0.0:
             unported.append('the Smagorinsky subgrid model')
-        if body_force is not None and is_dynamic_force(body_force):
-            unported.append('DynamicValue body forces (time- or '
-                            'space-dependent callables)')
         if sc_coupling != 0.0:
             unported.append('Shan-Chen coupling')
         if equilibrium != 'bgk':
             unported.append(f'equilibrium={equilibrium}')
         if storage != 'fp':
             unported.append(f'{storage} storage (--precision=mixed)')
-        if maps.dynamic:
-            unported.append('DynamicValue BC parameters (SpatialArray, '
-                            'time series)')
         if unported:
             raise NotImplementedError(
                 'not ported to the torch engine yet: ' + ', '.join(unported))
@@ -249,13 +343,22 @@ class StepBuilder:
         self.incompressible = incompressible
         self.dtype = dtype
         self.device = torch.device(device)
-        #: the body force as given (an acceleration: a (dim,) vector or a
-        #: (dim, *S) field) and ``force``, the same baked for the device:
-        #: (dim, 1, ..., 1) or (dim, *S)
+        self.time_unit = float(time_unit)
+        #: the body force as given (an acceleration: a (dim,) vector, a
+        #: (dim, *S) field or a DynamicValue) and either ``force``, the
+        #: same baked for the device ((dim, 1, ..., 1) or (dim, *S)), or
+        #: ``force_expr``, the components of a DynamicValue force,
+        #: evaluated each step by ``force_at``
         self.body_force = body_force
         self.force_model = force_model
         self.force = None
-        if body_force is not None:
+        self.force_expr = None
+        if body_force is not None and is_dynamic_force(body_force):
+            self.force_expr = tuple(body_force)
+            if len(self.force_expr) != grid.dim:
+                raise ValueError(f'body force needs {grid.dim} components; '
+                                 f'got {len(self.force_expr)}')
+        elif body_force is not None:
             shape = maps.type_map.shape
             bf = np.asarray(body_force, dtype=np.float64)
             if bf.shape not in ((grid.dim,), (grid.dim,) + shape):
@@ -286,10 +389,26 @@ class StepBuilder:
         self.wet = None if wet.all() else dev(wet)
         self.fullbb = (dev(tm == nt.NTFullBBWall.id)
                        if nt.NTFullBBWall.id in present else None)
-        rho_bc = dev(m.param_rho, self.dtype)
-        vel_bc = dev(m.param_vel, self.dtype)
-        # (type, orientation) instances; orientation 0 (undetected) nodes
-        # get no BC, as in the JAX engine
+        tagged = [c.id for c in LINK_TAG_TYPES if c.id in present]
+        self.tags = (tag_planes(self.grid, m.link_tags, self.device)
+                     if tagged else None)
+        self.tms = (dev(tm == nt.NTWallTMS.id)
+                    if nt.NTWallTMS.id in present else None)
+        # slip walls: one mask per normal axis; orientation 0 (undetected)
+        # nodes keep their streamed values, as in the JAX engine
+        self.slip = []
+        if nt.NTSlip.id in present:
+            sel = tm == nt.NTSlip.id
+            axes = sorted({(int(k) - 1) // 2
+                           for k in np.unique(m.orientation[sel]) if k})
+            for axis in axes:
+                ks = (2 * axis + 1, 2 * axis + 2)
+                self.slip.append(
+                    (axis, dev(sel & np.isin(m.orientation, ks))))
+        self.rho_bc = dev(m.param_rho, self.dtype)
+        self.vel_bc = dev(m.param_vel, self.dtype)
+        # (type, orientation, mask) instances; orientation 0 (undetected)
+        # nodes get no BC, as in the JAX engine
         self.bc_instances = []
         for tid in present:
             cls = nt.get_node_type(tid)
@@ -300,8 +419,60 @@ class StepBuilder:
                 if k == 0:
                     continue
                 mask = sel & (m.orientation == int(k))
-                self.bc_instances.append(
-                    (cls, int(k), dev(mask), rho_bc, vel_bc))
+                self.bc_instances.append((cls, int(k), dev(mask)))
+        #: DynamicValue BC parameters: (node mask, parameter name, exprs)
+        self.dynamic = [(dev(mask), name, exprs)
+                        for mask, name, exprs in m.dynamic]
+        exprs = [e for _, _, ex in m.dynamic for e in ex]
+        self.coords = (global_coords(tm.shape, self.device)
+                       if is_space_dependent(exprs + list(
+                           self.force_expr or ())) else ())
+
+    # -- time-dependent values ------------------------------------------------
+
+    def time(self, it):
+        """t of iteration ``it``, a 0-d tensor on the StepBuilder's device."""
+        return time_of(it, self.dtype, self.time_unit, self.device)
+
+    def bc_params(self, it=0):
+        """(rho_bc, vel_bc) fields at iteration ``it``: the static
+        parameters with every DynamicValue evaluated over its nodes
+        (``sailfish_tpu/ops/step.py:563-582``)."""
+        rho_bc, vel_bc = self.rho_bc, self.vel_bc
+        if not self.dynamic:
+            return rho_bc, vel_bc
+        t = self.time(it)
+        for mask, name, exprs in self.dynamic:
+            vals = dynamic_values(exprs, t, self.coords, mask.shape,
+                                  self.dtype, self.device)
+            if name == 'velocity':
+                vel_bc = torch.where(mask[None], torch.stack(vals), vel_bc)
+            elif name == 'density':
+                rho_bc = torch.where(mask, vals[0], rho_bc)
+        return rho_bc, vel_bc
+
+    def instances_at(self, it=0):
+        """The BC instances with their parameters at iteration ``it``."""
+        rho_bc, vel_bc = self.bc_params(it)
+        return [(cls, k, mask, rho_bc, vel_bc)
+                for cls, k, mask in self.bc_instances]
+
+    def force_at(self, it=0):
+        """The body force at iteration ``it``: the baked constant or field,
+        or the DynamicValue evaluated (``sailfish_tpu/ops/step.py
+        :672-688``): (dim, 1, ..., 1) when every component is uniform,
+        else (dim, *S)."""
+        if self.force_expr is None:
+            return self.force
+        shape = self.maps.type_map.shape
+        vals = [torch.as_tensor(
+            nt.DynamicValue.evaluate(e, self.time(it), self.coords),
+            dtype=self.dtype, device=self.device) for e in self.force_expr]
+        if any(v.dim() for v in vals):
+            vals = [torch.broadcast_to(v, shape) for v in vals]
+        else:
+            vals = [v.reshape((1,) * len(shape)) for v in vals]
+        return torch.stack(vals)
 
     # -- phases --------------------------------------------------------------
 
@@ -313,24 +484,20 @@ class StepBuilder:
         return gather(self.grid, f)
 
     def fix_missing(self, fs, f):
-        """Replace distributions whose pull source was not wet. None of
-        the JAX engine's fix-missing branches (link-tagged walls, TMS,
-        extended copy, outflow families) belongs to the implemented
-        types, so this is the identity here."""
-        return fs
+        """Replace distributions whose pull source was not wet: half-way
+        bounce-back on tagged links, then the TMS target equilibrium."""
+        return fix_missing(self.grid, fs, f, self.tags, self.tms,
+                           self.incompressible)[0]
 
     def phases(self, fs, f, it=0):
-        """fix missing -> macro -> BC solves -> pre-collision BC ->
-        collide -> dry/post handling (``sailfish_tpu/ops/step.py:809``)."""
-        g = self.grid
-        fs = self.fix_missing(fs, f)
-        rho, u = eq.macroscopic(g, fs)
-        rho, u = solve_macro_bc(g, self.bc_instances, fs, rho, u)
-        fs2 = pre_collision_bc(g, self.bc_instances, fs, rho, u,
-                               self.incompressible)
-        return collide_and_select(g, fs2, rho, u, self.tau_inv, self.wet,
-                                  self.fullbb, self.incompressible,
-                                  self.force, self.force_model)
+        """``step_phases`` with this builder's maps, and parameters and
+        force at iteration ``it``."""
+        return step_phases(
+            self.grid, fs, f, self.tau_inv, self.instances_at(it),
+            wet=self.wet, fullbb=self.fullbb, slip=self.slip,
+            tags=self.tags, tms=self.tms, force=self.force_at(it),
+            force_model=self.force_model,
+            incompressible=self.incompressible)
 
     # -- per-phase pieces for the multi-component builders -----------------
     # (the names and semantics of ``sailfish_tpu/ops/step.py:584-770``)
@@ -339,12 +506,15 @@ class StepBuilder:
     def has_dry(self):
         return self.wet is not None
 
-    def _solve_macro_bc(self, fs, rho, u):
-        return solve_macro_bc(self.grid, self.bc_instances, fs, rho, u)
+    def _solve_macro_bc(self, fs, rho, u, it=0):
+        return solve_macro_bc(self.grid, self.instances_at(it), fs, rho, u)
 
     def _pre_collision_bc(self, fs, rho, u):
-        return pre_collision_bc(self.grid, self.bc_instances, fs, rho, u,
-                                self.incompressible)
+        # the reconstruction reads no prescribed parameter
+        return pre_collision_bc(
+            self.grid, [(cls, k, mask, None, None)
+                        for cls, k, mask in self.bc_instances],
+            fs, rho, u, self.incompressible)
 
     def _collide(self, fs, rho, u, u_eq=None):
         """``forced_collide`` with this builder's body force; ``u_eq``
@@ -356,7 +526,7 @@ class StepBuilder:
                               incompressible=self.incompressible)
 
     def _post_collision(self, fs, fpost):
-        return bounce_back(self.grid, fs, fpost, self.fullbb)
+        return bounce_back(self.grid, fs, fpost, self.fullbb, self.slip)
 
     # -- public --------------------------------------------------------------
 
@@ -364,18 +534,20 @@ class StepBuilder:
         return self.fix_missing(self.gather(f), f)
 
     def macro_fields(self, f, it=0):
-        """rho, u with BC overrides applied (output fields); under a body
-        force of any model u is the force-corrected u + a/2
-        (``sailfish_tpu/ops/step.py:840-842``)."""
+        """rho, u with BC overrides applied (output fields) at iteration
+        ``it``; under a body force of any model u is the force-corrected
+        u + a/2 (``sailfish_tpu/ops/step.py:834-843``)."""
         fs = self.streamed(f)
         rho, u = eq.macroscopic(self.grid, fs)
-        rho, u = solve_macro_bc(self.grid, self.bc_instances, fs, rho, u)
-        if self.force is not None:
-            u = u + 0.5 * self.force
+        rho, u = solve_macro_bc(self.grid, self.instances_at(it), fs, rho, u)
+        force = self.force_at(it)
+        if force is not None:
+            u = u + 0.5 * force
         return rho, u
 
     def build(self):
-        """step(f, it=0) -> f_next on post-collision states."""
+        """step(f, it=0) -> f_next on post-collision states; ``it`` is the
+        iteration the step computes (time-dependent values see it)."""
 
         def step(f, it=0):
             return self.phases(self.gather(f), f, it)

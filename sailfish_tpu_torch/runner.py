@@ -100,9 +100,11 @@ class SubdomainRunner:
         else:
             step = self.builder.build()
 
-            def run_steps(f, n):
-                for _ in range(n):
-                    f = step(f)
+            def run_steps(f, n, it0=0):
+                # step i of the chunk computes iteration it0 + i
+                # (sailfish_tpu/runner.py:191-209)
+                for i in range(n):
+                    f = step(f, it0 + i)
                 return f
 
             self._run_steps = run_steps
@@ -258,7 +260,7 @@ class SubdomainRunner:
             chunk = self._next_chunk()
             util.synchronize(self.device)
             t0 = time.perf_counter()
-            self.f = self._run_steps(self.f, chunk)
+            self.f = self._run_steps(self.f, chunk, sim.iteration)
             util.synchronize(self.device)
             t1 = time.perf_counter()
             self.profile.record(TimeProfile.COMP, t1 - t0)

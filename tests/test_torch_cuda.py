@@ -46,6 +46,19 @@ rows, 200 steps, <= 1e-5). The forced scenes run through the controller on
 the kernel engine and on the torch engine for 30 steps (<= 1e-5); a
 per-node force raises there and names the reason.
 
+The local walls (launches counted as ``lbm_step_wall_<grid>``: the
+instantiation with wall rows) are held against ``step_reference``:
+half-way and TMS boxes closed on every axis (edges, corners, a block of
+excluded nodes) unforced and under each force model, slip faces normal to
+each axis, half-way walls beside a varying native inlet; 100 steps, <=
+1e-5, and the walls moved the state away from full bounce-back. The
+time-dependent rows (``lbm_step_dyn_<grid>``: time-only density rows, a
+time series, a space- and time-dependent inlet rewritten into the
+parameter array, a time-only force) are held against it from a nonzero
+iteration with the values written before each launch, and the five twins
+of the slice run through the controller on the kernel engine, one launch
+per step, against the torch engine on the card.
+
 The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
 the order parameter, then ``fe_step``) are held against ``rho_reference``
 and ``fe_step_reference`` on the five free-energy twins (a block of
@@ -68,10 +81,14 @@ from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
 from sailfish_tpu_torch.ops.step import FORCE_MODELS
-from torch_scenes import (BC_PAIRS, BINARY_SCENES, FE_SCENES, binary_twin,
-                          channel_sim, channel_sim_2d, forced_channel_sim,
-                          forced_channel_sim_2d, random_binary_state,
-                          random_fe_state, random_feq, run, twin,
+from torch_scenes import (ACCEL, BC_PAIRS, BINARY_SCENES, FE_SCENES,
+                          SINGLE_GOLDEN_FLAGS, WALL_DYNAMIC_SCENES, WALLS,
+                          binary_twin, box_cfg, box_sim, channel_sim,
+                          channel_sim_2d, forced_channel_sim,
+                          forced_channel_sim_2d,
+                          halfbb_beside_parabolic_inlet, random_binary_state,
+                          random_fe_state, random_feq, run, slip_sim,
+                          time_series_density_sim, twin, walls_moved,
                           with_keep_block, with_patch_row_mix)
 
 SIZES = {
@@ -387,6 +404,126 @@ def test_lbm_tables_equal_the_lattice(cuda, grid_name):
         assert bytes(getattr(tables, name)) == bytes(getattr(ref, name)), \
             name
     assert (tables.q, tables.dim) == (grid.Q, grid.dim)
+
+
+#: wall scenes for the kernel: name -> (sim, size); 3D x ragged against the
+#: block of 128
+WALL_CASES = {}
+for _w in ('halfbb', 'tms'):
+    for _dim in (2, 3):
+        for _model in (None,) + FORCE_MODELS:
+            WALL_CASES[f'{_w}_{_dim}d_{_model}'] = (
+                lambda w=_w, d=_dim, m=_model: box_sim(
+                    WALLS[w], d, tuple(range(d)), ACCEL if m else None),
+                dict(box_cfg(_dim, tuple(range(_dim))),
+                     **(dict(lat_nx=72, lat_ny=40, lat_nz=24) if _dim == 3
+                        else dict(lat_nx=300, lat_ny=120))),
+                _model)
+for _dim, _axes in ((2, 'xy'), (3, 'xyz')):
+    for _a, _name in enumerate(_axes):
+        WALL_CASES[f'slip_{_dim}d_{_name}'] = (
+            lambda d=_dim, a=_a: slip_sim(d, a),
+            dict(lat_nx=72, lat_ny=40, lat_nz=24) if _dim == 3
+            else dict(lat_nx=300, lat_ny=120), 'guo')
+WALL_CASES['halfbb_inlet_3d'] = (lambda: halfbb_beside_parabolic_inlet(3),
+                                 dict(lat_nx=72, lat_ny=40, lat_nz=24,
+                                      periodic_x=True), None)
+WALL_CASES['halfbb_inlet_2d'] = (lambda: halfbb_beside_parabolic_inlet(2),
+                                 dict(lat_nx=300, lat_ny=120), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(WALL_CASES))
+def test_wall_kernel_matches_step_reference(cuda, case):
+    make_sim, size, model = WALL_CASES[case]
+    extra = dict(force_implementation=model) if model else {}
+    r = run(make_sim(), platform='cuda', engine='kernel', max_iters=0,
+            **size, **extra)
+    ks = r.kernel
+    assert ks.walls and ks.name == f'lbm_step_wall_{ks.grid.name.lower()}'
+    assert ks.params.force.model == ls.FORCE_CODES.get(model, 0)
+    f0 = random_feq(ks.grid, ks.shape, seed=21, device='cuda')
+    ls.reset_launch_counts()
+    fk = ks.run(f0, 100)
+    fr = f0
+    for _ in range(100):
+        fr = ks.reference(fr)
+    torch.cuda.synchronize()
+    assert ls.LAUNCHES[ks.name] == 100 == sum(ls.LAUNCHES.values())
+    assert float((fk - fr)[:, _wet(ks)].abs().max()) <= 1e-5
+    assert walls_moved(ks, f0) > 1e-4
+
+
+#: time-dependent scenes: name -> (sim, size, it0, what varies)
+DYN_CASES = {
+    'womersley': (lambda: twin('womersley'),
+                  dict(lat_nx=72, lat_ny=24, lat_nz=24), 3000, 'rows'),
+    'pulsatile_pressure': (lambda: twin('poiseuille_pulsatile'),
+                           dict(lat_nx=300, lat_ny=48), 500, 'rows'),
+    'pulsatile_force': (lambda: twin('poiseuille_pulsatile'),
+                        dict(lat_nx=300, lat_ny=48, drive='force'), 500,
+                        'force'),
+    'time_series': (time_series_density_sim, dict(lat_nx=300, lat_ny=48),
+                    60, 'rows'),
+    'sa_spatial_array': (lambda: twin('poiseuille_sa'),
+                         dict(lat_nx=300, lat_ny=96,
+                              velocity='spatial_array'), 2500, 'block'),
+    'sa_equation': (lambda: twin('poiseuille_sa'),
+                    dict(lat_nx=300, lat_ny=96, velocity='equation'), 2500,
+                    'block'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(DYN_CASES))
+def test_dynamic_kernel_matches_step_reference(cuda, case):
+    make_sim, size, it0, what = DYN_CASES[case]
+    r = run(make_sim(), platform='cuda', engine='kernel', max_iters=0,
+            **size)
+    ks = r.kernel
+    assert ks.name == f'lbm_step_dyn_{ks.grid.name.lower()}'
+    assert (ks.force_expr is not None) == (what == 'force')
+    assert any(d.static is not None for d in ks.dynamic) == (what == 'block')
+    f0 = random_feq(ks.grid, ks.shape, seed=22, device='cuda')
+    ls.reset_launch_counts()
+    fk = ks.run(f0, 100, it0=it0).clone()
+    fr = f0
+    for i in range(100):
+        ks.set_iteration(it0 + i)
+        fr = ks.reference(fr)
+    torch.cuda.synchronize()
+    assert ls.LAUNCHES[ks.name] == 100 == sum(ls.LAUNCHES.values())
+    assert ls.BCP_REWRITES[f'bcp_{ks.grid.name.lower()}'] == \
+        (200 if what == 'block' else 0)
+    wet = _wet(ks)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+    f_zero = ks.run(f0, 100)
+    assert float((fk - f_zero)[:, wet].abs().max()) > 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', WALL_DYNAMIC_SCENES)
+def test_default_engine_on_cuda_runs_the_slice_in_one_launch(cuda, scene):
+    ls.reset_launch_counts()
+    r = run(twin(scene), max_iters=30, every=10,
+            **SINGLE_GOLDEN_FLAGS[scene])
+    assert r.engine == 'kernel'
+    assert r.kernel.launches == ls.LAUNCHES[r.kernel.name] == 30
+    assert sum(ls.LAUNCHES.values()) == 30
+    assert bool(torch.isfinite(r.f).all())
+    ref = run(twin(scene), engine='torch', max_iters=30, every=10,
+              **SINGLE_GOLDEN_FLAGS[scene])
+    assert float((r.f - ref.f)[:, _wet(r.kernel)].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_wall_rows_need_the_tag_map(cuda):
+    r = run(twin('duct_flow'), platform='cuda', engine='kernel',
+            max_iters=0, lat_nx=16, lat_ny=16, lat_nz=8)
+    ks = r.kernel
+    ks.tags = None
+    with pytest.raises(RuntimeError, match='launch failed'):
+        ks.step_into(ks.a, ks.b)
 
 
 BINARY_SIZES = {

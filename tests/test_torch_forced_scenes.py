@@ -33,31 +33,13 @@ import torch
 from sailfish_tpu_torch.ops import lbm_step as ls
 from torch_scenes import (FORCED_SCENES, REPO, SC_FORCED_SCENES,
                           SC_MORE_GOLDEN_FLAGS, SC_MORE_SCENES,
-                          SINGLE_GOLDEN_FLAGS, binary_twin, cpu_runner, run,
-                          twin)
+                          SINGLE_GOLDEN_FLAGS, binary_twin, cpu_runner,
+                          golden_run, twin)
 
 torch.set_num_threads(1)
 
 NEW_SINGLE = ('cylinder', 'sphere_3d', 'square_cylinder_2d', 'poiseuille_3d',
               'taylor_green_2d', 'four_rolls_mill')
-
-
-def golden_run(sim_cls, golden_name, tmp_path, atol=None, **cfg):
-    """Run 20 steps as the harness does and compare every stored field;
-    ``atol`` maps a field to another absolute tolerance than 5e-7."""
-    out = str(tmp_path / golden_name)
-    r = run(sim_cls, platform='cpu', max_iters=20, every=20, seed=1234,
-            output=out, **cfg)
-    assert r.engine == 'torch'
-    data = np.load(f'{out}.0.0000020.npz')
-    ref = np.load(os.path.join(REPO, 'tests', 'goldens',
-                               f'{golden_name}.npz'))
-    assert sorted(data.files) == sorted(ref.files)
-    for k in ref.files:
-        np.testing.assert_allclose(
-            data[k], ref[k], rtol=1e-5, atol=(atol or {}).get(k, 5e-7),
-            err_msg=f'{golden_name}:{k}')
-    return r
 
 
 @pytest.mark.parametrize('scene', NEW_SINGLE)

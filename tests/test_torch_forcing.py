@@ -286,10 +286,15 @@ def test_poiseuille_steady_state(model):
 
 
 def test_dynamic_force_raises():
-    sim = forced(twin('ldc_2d'), nt.DynamicValue(lambda t: 1e-6 * t, 0.0))
+    """A DynamicValue force of space runs on the torch engine; the kernel
+    engine takes one acceleration per step and names it."""
+    sim = forced(twin('ldc_2d'),
+                 nt.DynamicValue(lambda t, hx, hy: 1e-6 * hy, 0.0))
+    r = cpu_runner(sim, lat_nx=8, lat_ny=8)
+    assert r.engine == 'torch' and r.builder.force_at(3).shape == (2, 8, 8)
     with pytest.raises(NotImplementedError,
-                       match='DynamicValue body forces'):
-        cpu_runner(sim, lat_nx=8, lat_ny=8)
+                       match='space-dependent DynamicValue body force'):
+        ls.KernelStep(r.builder)
 
 
 def test_per_node_force_is_refused_by_the_kernel_engine_by_name():

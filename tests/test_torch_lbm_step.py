@@ -223,8 +223,9 @@ def test_kernel_params_carry_the_force(model, shift):
         assert bare.force.model == 0
         assert bytes(bare.force) == bytes(ctypes.sizeof(ls._Force))
     assert ls.FORCE_CODES == {'guo': 1, 'edm': 2, 'velocity_shift': 3}
-    # LBMTables: int q, dim; int c[27][3]; float w[27]; int opp[27]
-    assert ctypes.sizeof(ls._Tables) == 4 * (2 + 27 * 3 + 27 + 27)
+    # LBMTables: int q, dim; int c[27][3]; float w[27]; int opp[27];
+    # int slip[3][27]
+    assert ctypes.sizeof(ls._Tables) == 4 * (2 + 27 * 3 + 27 + 27 + 3 * 27)
 
 
 class _FakeLib:
@@ -260,7 +261,8 @@ class _FakeLib:
 def test_kernel_function_checks_the_params_size():
     """``kernel_function`` refuses a library whose ``LBMParams`` or
     ``LBMTables`` differs from ``_Params`` / ``_Tables``, and types the
-    entry otherwise (parameter array fourth, parameter block fifth)."""
+    entry otherwise (parameter array fourth, link tags fifth, parameter
+    block sixth)."""
     with pytest.raises(RuntimeError, match='LBMParams layout differs'):
         ls.kernel_function(_FakeLib(params=ctypes.sizeof(ls._Params) - 8),
                            'lbm_step_d3q19')
@@ -268,14 +270,18 @@ def test_kernel_function_checks_the_params_size():
         ls.kernel_function(_FakeLib(tables=ctypes.sizeof(ls._Tables) + 4),
                            'lbm_step_d3q19')
     fn = ls.kernel_function(_FakeLib(), 'lbm_step_d3q19')
-    assert fn.argtypes[:4] == [ctypes.c_void_p] * 4
-    assert fn.argtypes[4] == ctypes.POINTER(ls._Params)
+    assert fn.argtypes[:5] == [ctypes.c_void_p] * 5
+    assert fn.argtypes[5] == ctypes.POINTER(ls._Params)
     # launches are counted apart by what they compute; one entry serves
     assert sorted(ls.LAUNCHES) == ['lbm_step_d2q9', 'lbm_step_d3q19',
+                                   'lbm_step_dyn_d2q9',
+                                   'lbm_step_dyn_d3q19',
                                    'lbm_step_force_d2q9',
                                    'lbm_step_force_d3q19',
                                    'lbm_step_vary_d2q9',
-                                   'lbm_step_vary_d3q19']
+                                   'lbm_step_vary_d3q19',
+                                   'lbm_step_wall_d2q9',
+                                   'lbm_step_wall_d3q19']
 
 
 def _many_instances_sim():

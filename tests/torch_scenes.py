@@ -50,6 +50,11 @@ SINGLE_SCENES = {
     'poiseuille_3d': 'PoiseuilleSim',
     'taylor_green_2d': 'TaylorGreenSim',
     'four_rolls_mill': 'FourRollsMill',
+    'poiseuille': 'PoiseuilleSim',
+    'duct_flow': 'DuctSim',
+    'womersley': 'WomersleySim',
+    'poiseuille_pulsatile': 'PulsatileSim',
+    'poiseuille_sa': 'RampedPoiseuilleSim',
 }
 #: the golden harness's flags for the single-fluid scenes
 #: (tests/examples_harness.py:30-64)
@@ -63,11 +68,23 @@ SINGLE_GOLDEN_FLAGS = {
     'poiseuille_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
     'taylor_green_2d': dict(lat_nx=32, lat_ny=32),
     'four_rolls_mill': dict(lat_nx=32, lat_ny=32),
+    'poiseuille': dict(lat_nx=32, lat_ny=32),
+    'duct_flow': dict(lat_nx=16, lat_ny=16, lat_nz=8),
+    'womersley': dict(lat_nx=32, lat_ny=12, lat_nz=12),
+    'poiseuille_pulsatile': dict(lat_nx=48, lat_ny=24),
+    'poiseuille_sa': dict(lat_nx=48, lat_ny=32, velocity='spatial_array'),
 }
 #: the single-fluid scenes driven by a constant body force (the kernel
 #: engine's forcing mode)
 FORCED_SCENES = ('cylinder', 'sphere_3d', 'square_cylinder_2d',
                  'external_geometry', 'poiseuille_3d')
+#: the scenes of the local walls and time-dependent parameters: half-way
+#: walls (duct_flow; poiseuille with --wall=halfbb), time-only density ends
+#: (womersley, poiseuille_pulsatile), a time-only force
+#: (poiseuille_pulsatile --drive=force) and a space- and time-dependent
+#: inlet (poiseuille_sa)
+WALL_DYNAMIC_SCENES = ('poiseuille', 'duct_flow', 'womersley',
+                       'poiseuille_pulsatile', 'poiseuille_sa')
 
 
 def twin(scene):
@@ -133,6 +150,27 @@ def run(sim_cls, **cfg):
         quiet=True, **cfg))
     ctrl.run(ignore_cmdline=True)
     return ctrl._runner
+
+
+def golden_run(sim_cls, golden_name, tmp_path, atol=None, **cfg):
+    """Run 20 steps on the CPU as the golden harness does
+    (tests/examples_harness.py: seed 1234, output at step 20) and hold
+    every stored field against ``tests/goldens/<golden_name>.npz`` at the
+    harness's tolerance (rtol 1e-5, atol 5e-7); ``atol`` maps a field to
+    another absolute tolerance. Returns the runner."""
+    out = os.path.join(str(tmp_path), golden_name)
+    r = run(sim_cls, platform='cpu', max_iters=20, every=20, seed=1234,
+            output=out, **cfg)
+    assert r.engine == 'torch'
+    data = np.load(f'{out}.0.0000020.npz')
+    ref = np.load(os.path.join(REPO, 'tests', 'goldens',
+                               f'{golden_name}.npz'))
+    assert sorted(data.files) == sorted(ref.files)
+    for k in ref.files:
+        np.testing.assert_allclose(
+            data[k], ref[k], rtol=1e-5, atol=(atol or {}).get(k, 5e-7),
+            err_msg=f'{golden_name}:{k}')
+    return r
 
 
 def cpu_runner(sim_cls, **cfg):
@@ -264,6 +302,150 @@ def forced_channel_sim_2d(pair, profile=None, axis='y',
     return forced(channel_sim_2d(pair, profile, axis), accel)
 
 
+#: the local walls of ``box_sim``
+WALLS = {'halfbb': nt.NTHalfBBWall, 'tms': nt.NTWallTMS, 'slip': nt.NTSlip}
+#: the Guo force of the forced wall scenes (every component, both signs)
+ACCEL = (1e-5, -4e-6, 2.5e-6)
+
+
+def box_sim(wall, dim, axes, accel=None, block=True):
+    """A box with ``wall`` nodes on both faces normal to each of ``axes``
+    (edges and corners where two meet), periodic along the other axes, and
+    with ``block`` a 3-node block of excluded nodes inside the fluid (walls
+    tagged against it)."""
+    base = Subdomain3D if dim == 3 else Subdomain2D
+
+    class Box(base):
+        def boundary_conditions(self, *h):
+            shape = self.shape[::-1]
+            walls = np.zeros(h[0].shape, dtype=bool)
+            for a in axes:
+                walls |= (h[a] == 0) | (h[a] == shape[a] - 1)
+            self.set_node(walls, wall)
+            if block:
+                sel = np.ones(h[0].shape, dtype=bool)
+                for a, hh in enumerate(h):
+                    sel &= (hh >= 4) & (hh < 7)
+                self.update_node(sel, nt._NTUnused)
+
+        def initial_conditions(self, sim, *h):
+            sim.rho[:] = 1.0
+
+    class Sim(LBFluidSim):
+        subdomain = Box
+
+    return Sim if accel is None else forced(Sim, accel[:dim])
+
+
+def box_cfg(dim, axes):
+    cfg = dict(lat_nx=14, lat_ny=12) if dim == 2 else \
+        dict(lat_nx=11, lat_ny=10, lat_nz=9)
+    for a in range(dim):
+        cfg[f'periodic_{"xyz"[a]}'] = a not in axes
+    return cfg
+
+
+def slip_faces_and_plate():
+    """Slip faces normal to x, and a slip plate normal to z across the
+    middle of the box (fluid on both sides), periodic along y and z: a slip
+    row for each of two axes, every slip node oriented."""
+
+    class Slip(Subdomain3D):
+        def boundary_conditions(self, hx, hy, hz):
+            self.set_node((hx == 0) | (hx == self.gx - 1), nt.NTSlip)
+            self.set_node((hz == self.gz // 2) & (hx > 2)
+                          & (hx < self.gx - 3), nt.NTSlip)
+
+        def initial_conditions(self, sim, hx, hy, hz):
+            sim.rho[:] = 1.0
+
+    class Sim(LBFluidSim):
+        subdomain = Slip
+
+    return forced(Sim, ACCEL)
+
+
+def tms_channel_sim(dim):
+    """The forced channel of tests/test_bc_catalog.py:_channel with TMS
+    walls (a = 1e-5 along x, walls normal to y; periodic x, and z in 3D)."""
+    base = Subdomain3D if dim == 3 else Subdomain2D
+
+    class Chan(base):
+        def boundary_conditions(self, *h):
+            self.set_node((h[1] == 0) | (h[1] == self.shape[-2] - 1),
+                          nt.NTWallTMS)
+
+        def initial_conditions(self, sim, *h):
+            sim.rho[:] = 1.0
+
+    class Sim(LBFluidSim):
+        subdomain = Chan
+
+    return forced(Sim, (1e-5,) + (0.0,) * (dim - 1))
+
+
+def slip_sim(dim, axis, accel=ACCEL):
+    """Slip faces normal to ``axis`` (0, 1 or 2), periodic along the other
+    axes, under the force ``accel``."""
+    base = Subdomain3D if dim == 3 else Subdomain2D
+
+    class Slip(base):
+        def boundary_conditions(self, *h):
+            n = self.shape[::-1][axis]
+            self.set_node((h[axis] == 0) | (h[axis] == n - 1), nt.NTSlip)
+
+        def initial_conditions(self, sim, *h):
+            sim.rho[:] = 1.0
+
+    class Sim(LBFluidSim):
+        subdomain = Slip
+
+    return forced(Sim, accel[:dim])
+
+
+def halfbb_beside_parabolic_inlet(dim):
+    """The parabolic-inlet channel of ``dim`` dimensions (a varying
+    regularized inlet at the low face normal to z, or y in 2D, a density
+    outlet) with half-way walls instead of full bounce-back."""
+    base = channel_sim('regularized', 'z', profile='parabolic') \
+        if dim == 3 else channel_sim_2d('regularized', 'parabolic', 'y')
+
+    class Walls(base.subdomain):
+        def boundary_conditions(self, *h):
+            super().boundary_conditions(*h)
+            self.update_node(self.maps.type_map == nt.NTFullBBWall.id,
+                             nt.NTHalfBBWall)
+
+    class Sim(base):
+        subdomain = Walls
+
+    return Sim
+
+
+def time_series_density_sim():
+    """A 2D channel along x between full bounce-back walls, a Zou-He
+    density inlet following a ``LinearlyInterpolatedTimeSeries`` (period
+    200 steps) and a constant Zou-He density outlet: a time-only BC row."""
+    series = nt.LinearlyInterpolatedTimeSeries(
+        [1.0, 1.004, 1.0, 0.996], step_size=50)
+
+    class Chan(Subdomain2D):
+        def boundary_conditions(self, hx, hy):
+            wall = (hy == 0) | (hy == self.gy - 1)
+            self.set_node(wall, nt.NTFullBBWall)
+            self.set_node(~wall & (hx == 0), nt.NTZouHeDensity(series))
+            self.set_node(~wall & (hx == self.gx - 1),
+                          nt.NTZouHeDensity(1.0))
+
+        def initial_conditions(self, sim, hx, hy):
+            sim.rho[:] = 1.0
+
+    class Sim(LBFluidSim):
+        subdomain = Chan
+
+    return Sim
+
+
 def with_keep_block(sim_cls):
     """``sim_cls`` with a block of 4 nodes per axis of excluded (kernel
     mask code 2) nodes a third of the way into the domain, so a kernel
@@ -355,6 +537,24 @@ def random_fe_state(grid, shape, seed, device, u_rms=0.02):
                      dtype=torch.float32, device=device)
     return torch.stack([teq.bgk_equilibrium(grid, rho, u),
                         teq.bgk_equilibrium(grid, phi, u)]).contiguous()
+
+
+def walls_moved(ks, f0):
+    """Largest change at the wall nodes of the ``ops/lbm_step.KernelStep``
+    ``ks`` after one step of its plain version from ``f0``, against the
+    same table with full bounce-back in place of every wall row: what the
+    wall rows do."""
+    from sailfish_tpu_torch.ops import lbm_step as ls
+    walls = torch.zeros_like(ks.mask, dtype=torch.bool)
+    table = []
+    for j, row in enumerate(ks.table):
+        if nt.get_node_type(row.type_id) in ls.WALL_TYPES:
+            walls |= ks.mask == 3 + j
+            row = row._replace(type_id=nt.NTFullBBWall.id, orientation=1)
+        table.append(row)
+    bb = ls.step_reference(f0, ks.mask, table, ks.grid, ks.tau_inv, ks.bcp,
+                           ks.force, ks.force_model)
+    return float((ks.reference(f0) - bb)[:, walls].abs().max())
 
 
 def wet_map(maps):

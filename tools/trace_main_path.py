@@ -6,6 +6,9 @@
 
 Needs one CUDA GPU. For the lid-driven cavities, the force-driven flows
 past a sphere and a cylinder (Guo forcing inside the kernel), the
+half-way duct (``duct_flow``), the pipe with time-dependent densities
+(``womersley``), the ramped SpatialArray inlet (``poiseuille_sa``, whose
+parameter block is rewritten by small PyTorch launches every step), the
 parabolic-inlet
 channels (``tests/torch_scenes``: one ``lbm_step`` launch each step, its BC
 nodes reading per-node parameters; the inlet normal to z / y or to x), the
@@ -24,7 +27,9 @@ Chrome trace:
 * ``idle share`` = 1 - busy / window; ``gaps`` = the idle time between the
   first kernel's start and the last one's end; the mean duration of each
   of the port's kernels in the trace, and the number of kernels per step
-  (1 for the single-fluid scenes, channels included; 2 for the mixtures).
+  (1 for the single-fluid scenes, channels included; 2 for the mixtures);
+  ``other kernels``: the device kernels in the window that are not the
+  port's (PyTorch's own, such as a parameter-block rewrite), per step.
 
 Prints one line per scene and a JSON line; the traces are written to
 ``DIR`` (default ``chiprun_out/traces``).
@@ -61,6 +66,9 @@ SCENES = {
     'ldc_2d': (twin, (4096, 4096), {}),
     'sphere_3d': (twin, (256, 256, 256), {}),
     'cylinder': (twin, (4096, 4096), {}),
+    'duct_flow': (twin, (256, 256, 256), {}),
+    'womersley': (twin, (256, 256, 256), {}),
+    'poiseuille_sa': (twin, (4096, 4096), {'velocity': 'spatial_array'}),
     'parabolic_inlet_3d': (channel, (256, 256, 256), {'periodic_x': True}),
     'parabolic_inlet_2d': (channel, (4096, 4096), {}),
     'parabolic_inlet_x_3d': (channel, (256, 256, 256), {'periodic_z': True}),
@@ -120,6 +128,7 @@ def trace_chunk(scene, chunk, out_dir):
         (res['kernels'], launched)
     res.update(size=list(size), chunk=chunk, launched=launched,
                kernels_per_step=launched // chunk,
+               other_kernels_per_step=res['other_kernels'] / chunk,
                host_s=host_s, trace=os.path.relpath(path, REPO))
     del r
     torch.cuda.empty_cache()
@@ -143,6 +152,9 @@ def read_trace(path, scene):
            and e['ts'] < w1 and e['ts'] + e['dur'] > w0]
     kernels = [e for e in events if e.get('cat') == 'kernel'
                and any(k in e.get('name', '') for k in PORT_KERNELS)]
+    others = [e for e in events if e.get('cat') == 'kernel'
+              and w0 <= e['ts'] < w1
+              and not any(k in e.get('name', '') for k in PORT_KERNELS)]
     if not kernels:
         raise RuntimeError(f'{scene}: the trace holds none of the port\'s '
                            'kernels')
@@ -153,7 +165,8 @@ def read_trace(path, scene):
     busy = union_length(dev)
     k0 = min(e['ts'] for e in kernels)
     k1 = max(e['ts'] + e['dur'] for e in kernels)
-    return dict(scene=scene, kernels=len(kernels), window_us=win['dur'],
+    return dict(scene=scene, kernels=len(kernels), other_kernels=len(others),
+                window_us=win['dur'],
                 busy_us=busy, idle_share=1.0 - busy / win['dur'],
                 gaps_us=(k1 - k0) - union_length(
                     [(e['ts'], e['ts'] + e['dur']) for e in kernels]),
@@ -179,7 +192,8 @@ def main():
                           for k, v in res['kernel_mean_us'].items())
         print(f'{scene} {"x".join(map(str, res["size"]))}: {res["kernels"]} '
               f'kernels in the trace ({res["launched"]} launched, '
-              f'{res["kernels_per_step"]} per step), mean '
+              f'{res["kernels_per_step"]} per step; other kernels '
+              f'{res["other_kernels_per_step"]:.2f} per step), mean '
               f'{means}; window '
               f'{res["window_us"]:.1f} us, device busy {res["busy_us"]:.1f} '
               f'us, idle share {res["idle_share"]:.5f}; gaps between the '
