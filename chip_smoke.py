@@ -39,6 +39,16 @@ version on the card from seeded random states:
   (poiseuille_pulsatile --drive=force) and a space- and time-dependent
   inlet rewritten into the parameter array (poiseuille_sa), each asserting
   the state moved against the same steps at t = 0;
+* its collision-model mode (MRT/TRT, BGK at the Smagorinsky LES rate, the
+  incompressible equilibrium; launches counted as ``lbm_step_mrt_<grid>``,
+  ``lbm_step_les_<grid>``, ``lbm_step_incomp_<grid>`` unless wall rows or
+  per-step values rank first) against ``step_reference`` with the same
+  model, 200 steps, every instantiation at least once: each model
+  unforced and under each force model on the forced sphere (128x64x64) and
+  cylinder (1024x512), on half-way and TMS boxes and slip faces, on
+  native-BC channels with faces normal to x, y and z, and with the
+  time-only rows of womersley 64^3; each asserting the model moved the
+  state away from BGK;
 * the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
   against ``rho_reference`` and ``sc_multi_reference`` on the binary
   separation scenes (periodic 2D and 3D, and the walled 3D box);
@@ -57,12 +67,17 @@ step of the channel flowing along x over that of the z- / y-normal one),
 the force-driven flows past a sphere (``sphere_3d`` 256^3) and a cylinder
 (``cylinder`` 4096^2) with Guo forcing (one ``lbm_step_force`` launch per
 step; each force model then timed in turns against the same geometry
-without a force), the half-way duct (``duct_flow`` 256^3, Guo), the
-Womersley pipe with time-dependent densities at its ends (``womersley``
-256^3) and the ramped SpatialArray inlet (``poiseuille_sa`` 4096^2), one
-launch per step each, with the share of a step that the per-step values
-cost, the binary Shan-Chen separations and the free-energy
-separations (each D3Q19 256^3, D2Q9 4096^2), checks the results, times
+without a force), the collision-model paths (``ldc_3d`` 256^3 under MRT,
+``sphere_3d`` 256^3 under the Smagorinsky model with Guo, ``cylinder``
+4096^2 under MRT with Guo; one launch per step under the model's key;
+MRT, LES and the incompressible equilibrium also timed in turns against
+BGK on the cavities' geometry and buffers), the half-way duct
+(``duct_flow`` 256^3, Guo), the Womersley pipe with time-dependent
+densities at its ends (``womersley`` 256^3) and the ramped SpatialArray
+inlet (``poiseuille_sa`` 4096^2), one launch per step each, with the share
+of a step that the per-step values cost, the binary Shan-Chen separations
+and the free-energy separations (each D3Q19 256^3, D2Q9 4096^2), checks
+the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
 demixing to its end, times every kernel against its plain version and its
@@ -118,6 +133,39 @@ FE = {scene: binary_twin(scene) for scene in FE_SCENES}
 FORCED_MAIN = {'sphere_3d': (256, 256, 256), 'cylinder': (4096, 4096)}
 #: their constant acceleration (examples/torch/sphere_3d.py, cylinder.py)
 FORCED_ACCEL = 1e-5
+#: the collision models of the kernel's collision-model mode, as flags
+#: (the Smagorinsky constant of the comparisons raised to 0.2, so the
+#: subgrid rate moves one step from a random state by ~1e-3)
+COLLISION = {
+    'mrt': dict(model='mrt'),
+    'trt': dict(model='trt'),
+    'les': dict(subgrid='les-smagorinsky', smagorinsky_const=0.2),
+    'mrt_les': dict(model='mrt', subgrid='les-smagorinsky',
+                    smagorinsky_const=0.2),
+    'incompressible': dict(incompressible=True),
+    'incompressible_mrt': dict(incompressible=True, model='mrt'),
+    'incompressible_les': dict(incompressible=True,
+                               subgrid='les-smagorinsky',
+                               smagorinsky_const=0.2),
+}
+#: the collision-model main paths: name -> (scene, size, flags, constant
+#: acceleration along x or None, launch key): the MRT cavity of bench.py's
+#: scene, the example's LES configuration of the sphere (its own
+#: Smagorinsky constant, 0.03) and the cylinder under MRT and the Guo
+#: force (the conserved-moment correction)
+COLLISION_MAIN = {
+    'ldc_3d_mrt': ('ldc_3d', (256, 256, 256), dict(model='mrt'), None,
+                   'mrt_'),
+    'sphere_3d_les': ('sphere_3d', (256, 256, 256),
+                      dict(subgrid='les-smagorinsky'), FORCED_ACCEL, 'les_'),
+    'cylinder_mrt': ('cylinder', (4096, 4096), dict(model='mrt'),
+                     FORCED_ACCEL, 'mrt_'),
+}
+#: the models timed in turns against BGK on the cavities' geometry and
+#: buffers (the main paths' flags)
+COLLISION_TIMED = {'mrt': dict(model='mrt'),
+                   'les': dict(subgrid='les-smagorinsky'),
+                   'incompressible': dict(incompressible=True)}
 
 #: kernel-vs-plain tolerance: wet-node max |df| after 200 steps (fp32,
 #: FMA contraction and summation order differ between the two)
@@ -169,6 +217,11 @@ NODE_BYTES = {
     # parameter array is read as a varying row's, added per run)
     'lbm_step_dyn_d3q19': BYTES['D3Q19'],
     'lbm_step_dyn_d2q9': BYTES['D2Q9'],
+    # the collision models: the step's bytes (rates and tau are in the
+    # parameter block)
+    'lbm_step_mrt_d3q19': BYTES['D3Q19'],
+    'lbm_step_les_d3q19': BYTES['D3Q19'],
+    'lbm_step_mrt_d2q9': BYTES['D2Q9'],
     'rho_poststream_d3q19': 2 * (19 * 4 + 4),
     'rho_poststream_d2q9': 2 * (9 * 4 + 4),
     'sc_multi_d3q19': 2 * 2 * 19 * 4 + 2 * 4 + 1,
@@ -178,7 +231,10 @@ NODE_BYTES = {
 }
 #: fp32 operations per node, an upper estimate read off each kernel's
 #: source (BGK: ~23 per direction for the moments, feq and relaxation,
-#: ~10 more for the Guo term of the forcing mode; the
+#: ~10 more for the Guo term of the forcing mode; MRT ~3 more per direction
+#: for the parity split and ~16 for the conserved-moment pass and
+#: correction, which runs with or without a force; LES a second Q-term pass for the
+#: stress, ~14 per direction, and ~20 per node for the rate; the
 #: native-BC chain ~60 per direction, on BC nodes only; the pre-pass one add per direction
 #: and component; Shan-Chen two BGK components plus the force stencil; the
 #: free-energy step ~40 per direction and component). Against 67 TFLOP/s
@@ -190,6 +246,11 @@ NODE_OPS = {
     'lbm_step_force_d3q19': 33 * 19, 'lbm_step_force_d2q9': 33 * 9,
     'lbm_step_wall_d3q19': 33 * 19,
     'lbm_step_dyn_d3q19': 23 * 19, 'lbm_step_dyn_d2q9': 23 * 9,
+    # ldc_3d under MRT (no force); the sphere under LES and Guo; the
+    # cylinder under MRT and Guo
+    'lbm_step_mrt_d3q19': (26 + 16) * 19,
+    'lbm_step_les_d3q19': (23 + 14 + 10) * 19 + 20,
+    'lbm_step_mrt_d2q9': (26 + 16 + 10) * 9,
     'rho_poststream_d3q19': 2 * 19, 'rho_poststream_d2q9': 2 * 9,
     'sc_multi_d3q19': 2 * (23 * 19 + 6 * 19),
     'sc_multi_d2q9': 2 * (23 * 9 + 4 * 9),
@@ -226,6 +287,13 @@ KERNELS = {
                            'sailfish_tpu/ops/pallas_step.py:2197'),
     'lbm_step_dyn_d2q9': ('lbm_step.cu',
                           'sailfish_tpu/ops/pallas_step2d.py:900'),
+    # the collision-model mode of make_kernel_3d / make_kernel_2d
+    'lbm_step_mrt_d3q19': ('lbm_step_mrt.cu',
+                           'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_les_d3q19': ('lbm_step_les.cu',
+                           'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_mrt_d2q9': ('lbm_step_mrt.cu',
+                          'sailfish_tpu/ops/pallas_step2d.py:36'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -238,6 +306,12 @@ MODES = {
                           '(time-only density rows)',
     'lbm_step_dyn_d2q9': 'make_bc_patch_kernel_2d, dynamic families (a '
                          'space- and time-dependent inlet)',
+    'lbm_step_mrt_d3q19': 'make_kernel_3d, collision-model mode: MRT/TRT '
+                          '(mrt_pair_rates, _collide_pair)',
+    'lbm_step_les_d3q19': 'make_kernel_3d, collision-model mode: the LES '
+                          'tau field (_collide_prepass) under Guo',
+    'lbm_step_mrt_d2q9': 'make_kernel_2d, collision-model mode: MRT with the '
+                         'conserved-moment correction (_mrt_corr) under Guo',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -402,6 +476,63 @@ def slice_compare(name, sim_cls, it0=0, steps=200, force_model=None, **cfg):
     return f'lbm_step_{kind}{grid.lower()}', err
 
 
+def model_compare(name, sim_cls, coll, force_model=None, it0=0, steps=200,
+                  **cfg):
+    """A collision model's instantiation (``COLLISION[coll]``) vs
+    ``step_reference`` on the card from one random state, from iteration
+    ``it0``, under ``force_model``: one launch (wet max |df| <= 1e-6) and
+    ``steps`` steps (<= ``TOL``). Asserts that the model moved one step
+    from that state away from BGK with the compressible equilibrium (the
+    same plain version without the model) by more than 10 ``TOL``: after
+    200 steps a closed box has nearly come to rest under either, so the
+    long comparison alone could miss a kernel that ignored the model."""
+    if force_model:
+        cfg['force_implementation'] = force_model
+    flags = COLLISION[coll]
+    r = run(sim_cls, platform=DEVICE, engine='kernel', max_iters=0,
+            **flags, **cfg)
+    ks = r.kernel
+    c = ks.params.coll
+    want = ls.MODEL_CODES[flags.get('model', 'les' if 'subgrid' in flags
+                                    else 'bgk')]
+    assert (c.model, bool(c.incompressible)) == (
+        want, flags.get('incompressible', False)), (c.model, want)
+    assert ks.params.force.model == ls.FORCE_CODES.get(force_model, 0)
+    codes = sorted(torch.unique(ks.mask).tolist())
+    f0 = random_feq(ks.grid, ks.shape, seed=1234, device=DEVICE)
+    wet = wet_mask(ks)
+    one = torch.empty_like(f0)
+    ks.step_into(f0, one, it0)
+    ref = ks.reference(f0)
+    bgk = ls.step_reference(f0, ks.mask, ks.table, ks.grid, ks.tau_inv,
+                            ks.bcp, ks.force, ks.force_model, ks.tags)
+    util.synchronize(DEVICE)
+    err1 = float((one - ref)[:, wet].abs().max())
+    moved = float((ref - bgk)[:, wet].abs().max())
+    del one, ref, bgk
+    fk = ks.run(f0, steps, it0=it0).clone()
+    fr = f0
+    for i in range(steps):
+        ks.set_iteration(it0 + i)
+        fr = ks.reference(fr)
+    util.synchronize(DEVICE)
+    assert ks.launches == steps + 1
+    err = float((fk - fr)[:, wet].abs().max())
+    say(f'compare {name}: {ks.grid.name} {ks.shape} {steps} steps of '
+        f'{ks.name} (model code {c.model}, incompressible '
+        f'{c.incompressible}, force {force_model}), mask codes {codes}; one '
+        f'step: the model moved the state from BGK by {moved:.3e}, wet '
+        f'max|df| = {err1:.3e} (tol 1e-06); {steps} steps: wet max|df| = '
+        f'{err:.3e} (tol {TOL:g})')
+    assert np.isfinite(err1) and err1 <= 1e-6, err1
+    assert np.isfinite(err) and err <= TOL, err
+    assert moved > 10 * TOL, moved
+    key = ks.name
+    del r, ks, f0, fk, fr
+    torch.cuda.empty_cache()
+    return key, err
+
+
 def golden(scene, sim_cls, golden_name=None, engine='kernel', **cfg):
     """The default engine on the card (the kernel engine; ``engine='torch'``
     for a scene the kernels refuse by name) on the golden harness's small
@@ -538,20 +669,26 @@ def copy_bandwidth():
 
 
 def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4,
-              accel=None):
+              accel=None, flags=None, kind=None, timed=None):
     """The scene through the controller with the default engine: the
     main path. The kernels' launch counts are zeroed just before the
     controller runs and read just after. MLUPS = median of the chunks
     after the first. ``accel``: the scene is driven from rest by this
     constant acceleration along x (the forcing mode's main paths) and is
-    checked as such."""
+    checked as such. ``flags``: more controller flags (a collision model),
+    whose launches count under the key of ``kind`` (default 'force_' with
+    ``accel``, else none). ``timed``: 'force' times each force model, and
+    'collision' each collision model of ``COLLISION_TIMED``, in turns
+    against the main path's own kernel on its geometry and buffers."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    flags = flags or {}
     steps = chunk * chunks
     ls.reset_launch_counts()
-    r = run(sim_cls, max_iters=steps, every=chunk, **cfg)
+    r = run(sim_cls, max_iters=steps, every=chunk, **cfg, **flags)
     counts = dict(ls.LAUNCHES)
     assert r.engine == 'kernel', r.engine
-    kind = 'force_' if accel else ''
+    if kind is None:
+        kind = 'force_' if accel else ''
     assert r.kernel.name == f'lbm_step_{kind}{r.sim.grid.name.lower()}'
     launches = counts[r.kernel.name]
     assert launches == steps == r.sim.iteration == r.kernel.launches, \
@@ -589,8 +726,11 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4,
     grid = r.sim.grid.name
     mlups = statistics.median(r.mlups_history[1:])
     eff = mlups * 1e6 * BYTES[grid]
+    model = ', '.join(f'--{k}={v}' for k, v in flags.items())
     say(f'main path {scene} {"x".join(map(str, size))} ({grid}, engine '
-        f'{r.engine}): {launches} launches; MLUPS per {chunk}-step chunk '
+        f'{r.engine}{", " + model if model else ""}): {launches} '
+        f'{r.kernel.name} '
+        f'launches; MLUPS per {chunk}-step chunk '
         f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f} '
         f'MLUPS; {eff / 1e9:.1f} GB/s effective ({BYTES[grid]} B/node), '
         f'{eff / copy_bw:.3f} of the copy bandwidth{checks}')
@@ -615,8 +755,10 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4,
         f'launch; step_reference {plain_ms:.3f} ms')
     result = dict(launches=launches, mlups=mlups, ms=ms,
                   plain_ms=plain_ms, err=err)
-    if accel:
+    if timed == 'force':
         result['models_ms'] = force_models_ms(sim_cls, cfg, ks)
+    elif timed == 'collision':
+        result['collision_ms'] = collision_models_ms(sim_cls, cfg, ks)
     del r, ks, a, b
     torch.cuda.empty_cache()
     return grid, result
@@ -656,6 +798,37 @@ def force_models_ms(sim_cls, cfg, ks):
             for model in order) + '; over the unforced kernel: '
         + ', '.join(f'{model} {ms[model] / ms["None"]:.4f}'
                     for model in FORCE_MODELS))
+    return ms
+
+
+def collision_models_ms(sim_cls, cfg, ks):
+    """ms per launch of the BGK kernel ``ks`` (a BGK main path's) and of
+    each collision model of ``COLLISION_TIMED`` on the same geometry, mask
+    and state buffers, in turns (there and back): what a model costs a
+    step."""
+    steppers = {'bgk': ks}
+    for model, flags in COLLISION_TIMED.items():
+        k = run(sim_cls, max_iters=0, **cfg, **flags).kernel
+        assert torch.equal(k.mask, ks.mask) and k.name != ks.name, k.name
+        k.a = k.b = None
+        k.mask = ks.mask
+        torch.cuda.empty_cache()
+        steppers[model] = k
+    a, b = ks.a, ks.b
+    order = list(steppers)
+    turns = {model: [] for model in order}
+    for model in order + order[::-1]:
+        k = steppers[model]
+        turns[model].append(util.cuda_time_ms(
+            lambda: k.step_into(a, b), 100, warmup=50))
+    ms = {model: statistics.mean(t) for model, t in turns.items()}
+    say(f'kernel {ks.name} on the geometry of {sim_cls.__name__} '
+        f'{ks.shape}, ms per launch by collision model, in turns: '
+        + ', '.join(f'{model} ({steppers[model].name}) {ms[model]:.4f} '
+                    f'{turns[model]}' for model in order)
+        + '; model over BGK: ' + ', '.join(
+            f'{model} {ms[model] / ms["bgk"]:.4f}'
+            for model in COLLISION_TIMED))
     return ms
 
 
@@ -1189,7 +1362,8 @@ def main():
     say(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
 
-    sources = ['lbm_step', 'sc_multi', 'fe_step']
+    sources = list(ls.LIBRARIES.values()) + ['sc_multi', 'fe_step']
+    kinds = set()
     for name, lib in build.load_all(sources).items():
         say(f'build {name}: {lib.path.name} in {lib.seconds:.1f} s '
             '(0 = cached)')
@@ -1197,35 +1371,35 @@ def main():
             if 'entry function' in line or 'registers' in line \
                     or 'spill' in line:
                 say('  ptxas:', line.strip())
-        if name == 'lbm_step':
-            n_inst = 0
+        if name in ls.LIBRARIES.values():
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
-                if 'lbm_step_kernel' not in fn:
+                inst = ls.instantiation(fn)
+                if inst is None:
                     continue
-                grid = 'd3q19' if 'Li3ELi19E' in fn else 'd2q9'
-                code = int(fn.split('Li')[3].split('E')[0])
-                model = (('none',) + FORCE_MODELS)[code]
-                walls = 'Lb1E' in fn
-                n_inst = n_inst + 1
-                say(f'lbm_step_{grid} force model {model}, wall rows '
-                    f'{walls} {fn}: {use["registers"]} registers, '
-                    f'stack frame {use["stack_frame"]} B, spill stores '
-                    f'{use["spill_stores"]} B, spill loads '
-                    f'{use["spill_loads"]} B')
-                # the BC chain and the walls run in registers: no local
-                # memory
+                kinds.add(tuple(inst.values()))
+                say(f'lbm_step d{inst["dim"]}q{inst["q"]} force '
+                    f'{inst["force"]}, walls {int(inst["walls"])}, model '
+                    f'{inst["model"]}, incompressible '
+                    f'{int(inst["incompressible"])}: {use["registers"]} '
+                    f'registers, stack frame {use["stack_frame"]} B, spill '
+                    f'{use["spill_stores"]} / {use["spill_loads"]} B')
+                # the BC chain, the walls and the collision models run in
+                # registers: no local memory
                 assert use['stack_frame'] == use['spill_stores'] \
                     == use['spill_loads'] == 0, (fn, use)
                 assert use['registers'] <= 128, (fn, use)
-            # two lattices x (no force + three force models) x wall rows
-            # or not
-            assert n_inst == 2 * (1 + len(FORCE_MODELS)) * 2, n_inst
+                # each library holds its collision model's instantiations
+                assert ls.LIBRARIES[ls.MODEL_CODES[inst['model']]] == name
+
         if name == 'fe_step':
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
                 if 'fe3_kernel' in fn and 'registers' in use:
                     say(f'fe_step_d3q19 {fn}: {use["registers"]} registers,'
                         f' spill stores {use.get("spill_stores")} B, spill '
                         f'loads {use.get("spill_loads")} B')
+    # two lattices x (no force + three force models) x wall rows or not x
+    # three collision models x two equilibria
+    assert len(kinds) == 2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2, len(kinds)
     say(f'fe_step_d3q19 tile: {fe.TILE_3D[0]}x{fe.TILE_3D[1]} threads over '
         f'(x, y), {fe.TILE_3D[2]} z-planes per block')
 
@@ -1319,6 +1493,69 @@ def main():
         key, err = slice_compare(name, sim_cls, it0, force_model=model,
                                  **cfg)
         note(key, err)
+    # the collision-model mode, 200 steps: every instantiation of a new
+    # model or equilibrium, without wall rows on the forced sphere and
+    # cylinder (unforced and under each force model; trt and mrt + les are
+    # mrt's instantiation), with them on half-way and TMS boxes, on
+    # native-BC faces normal to each axis, and with time-only rows
+    sq512 = dict(lat_nx=1024, lat_ny=512)
+    # tau = 0.65 where a scene has no viscosity of its own: at tau = 1 the
+    # odd MRT rate equals the even one (MRT is BGK) and BGK leaves no
+    # non-equilibrium stress for the subgrid rate
+    visc = dict(visc=0.05)
+    new_models = ('mrt', 'les', 'incompressible', 'incompressible_mrt',
+                  'incompressible_les')
+    model_cases = []
+    for scene, cfg in (('sphere_3d', duct), ('cylinder', sq512)):
+        for coll in new_models:
+            for force in (None,) + FORCE_MODELS:
+                sim = twin(scene) if force else unforced(twin(scene))
+                model_cases.append((f'{scene}_{coll}_{force}',
+                                    with_keep_block(sim), coll, force, 0,
+                                    cfg))
+        for coll in ('trt', 'mrt_les'):
+            model_cases.append((f'{scene}_{coll}_guo',
+                                with_keep_block(twin(scene)), coll, 'guo', 0,
+                                cfg))
+    for dim in (3, 2):
+        axes = tuple(range(dim))
+        size = dict(box_cfg(dim, axes), **(cube64 if dim == 3 else sq1024),
+                    **visc)
+        for k, coll in enumerate(new_models):
+            for j, force in enumerate((None,) + FORCE_MODELS):
+                wall = ('halfbb', 'tms')[(j + k) % 2]
+                model_cases.append((
+                    f'{wall}_box_{dim}d_{coll}_{force}',
+                    box_sim(WALLS[wall], dim, axes, ACCEL if force else None),
+                    coll, force, 0, size))
+        for a in range(dim):
+            coll = ('mrt', 'les')[a % 2]
+            model_cases.append((
+                f'slip_{dim}d_{"xyz"[a]}_{coll}', slip_sim(dim, a), coll,
+                'guo', 0, dict(cube64 if dim == 3 else sq1024, **visc,
+                               **{f'periodic_{"xyz"[b]}': b != a
+                                  for b in range(dim)})))
+    for k, axis in enumerate('xyz'):
+        pair = ('regularized', 'zouhe')[k % 2]
+        periodic = 'periodic_z' if axis == 'x' else 'periodic_x'
+        for coll in ('mrt', 'les'):
+            model_cases.append((
+                f'channel_{pair}_{axis}_{coll}',
+                with_patch_row_mix(with_keep_block(
+                    forced_channel_sim(pair, axis, 'parabolic')), axis),
+                coll, 'guo', 0, dict(duct, **visc, **{periodic: True})))
+    for axis in 'yx':
+        for coll in ('mrt', 'les'):
+            model_cases.append((
+                f'channel_2d_{axis}_{coll}',
+                with_patch_row_mix(with_keep_block(
+                    channel_sim_2d('zouhe', axis=axis)), axis),
+                coll, None, 0, dict(sq1024, **visc)))
+    model_cases.append(('womersley_64_mrt', twin('womersley'), 'mrt', None,
+                        3000, cube64))
+    for name, sim_cls, coll, force, it0, cfg in model_cases:
+        key, err = model_compare(name, sim_cls, coll, force, it0, **cfg)
+        note(key, err)
     cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, sim_cls, cfg in (
             ('sc_separation_2d', SEP_2D, dict(lat_nx=1024, lat_ny=1024)),
@@ -1377,17 +1614,27 @@ def main():
     results = {}
     for scene, sim_cls, size in (('ldc_3d', LDC_3D, (256, 256, 256)),
                                  ('ldc_2d', LDC_2D, (4096, 4096))):
-        grid, res = main_path(scene, sim_cls, size, copy_bw)
+        grid, res = main_path(scene, sim_cls, size, copy_bw,
+                              timed='collision')
         results[f'lbm_step_{grid.lower()}'] = res
     for scene, size in FORCED_MAIN.items():
         grid, res = main_path(scene, twin(scene), size, copy_bw,
-                              accel=FORCED_ACCEL)
+                              accel=FORCED_ACCEL, timed='force')
         results[f'lbm_step_force_{grid.lower()}'] = res
         ldc = results[f'lbm_step_{grid.lower()}']
         say(f'{scene}: {res["mlups"]:.1f} MLUPS against {ldc["mlups"]:.1f} '
             f'on the lid-driven cavity of the same size: '
             f'{res["mlups"] / ldc["mlups"]:.4f} of it; {res["ms"]:.4f} '
             f'against {ldc["ms"]:.4f} ms per launch')
+    for path, (scene, size, flags, accel, kind) in COLLISION_MAIN.items():
+        grid, res = main_path(path, twin(scene), size, copy_bw, accel=accel,
+                              flags=flags, kind=kind)
+        results[f'lbm_step_{kind}{grid.lower()}'] = res
+        ref = results[f'lbm_step_{"force_" if accel else ""}{grid.lower()}']
+        say(f'{path}: {res["mlups"]:.1f} MLUPS, {res["ms"]:.4f} ms per '
+            f'launch against {ref["mlups"]:.1f} MLUPS, {ref["ms"]:.4f} ms of '
+            f'the BGK main path on the same geometry: '
+            f'{res["ms"] / ref["ms"]:.4f}')
     channel_ms = {}
     for scene in CHANNELS:
         grid, res = channel_main_path(scene, copy_bw)
@@ -1471,7 +1718,8 @@ def main():
                             max_abs_err=errs[name], ms=res['ms'],
                             plain_ms=res['plain_ms'], bound_ms=bound,
                             bound_by=bound_by, library_ms=None))
-        for key in ('x_normal_ms', 'models_ms', 'step_ms', 'dynamic_share'):
+        for key in ('x_normal_ms', 'models_ms', 'collision_ms', 'step_ms',
+                    'dynamic_share'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:

@@ -85,11 +85,14 @@ def build_library(src):
 
 def hashed_files(src):
     """The files a build of ``src`` reads and its key hashes: the source,
-    then every header beside it (``*.cuh``, which a source may include).
-    An installed package must carry them all (``package_data`` in
-    setup.py)."""
+    every ``.cu`` source beside it that it includes (``lbm_step_mrt.cu``
+    builds ``lbm_step.cu`` with another collision model), then every header
+    beside it (``*.cuh``, which a source may include). An installed
+    package must carry them all (``package_data`` in setup.py)."""
     src = Path(src)
-    return [src] + sorted(src.parent.glob('*.cuh'))
+    included = re.findall(r'^#include "(\w+\.cu)"', src.read_text(), re.M)
+    return [src] + [src.parent / name for name in included] \
+        + sorted(src.parent.glob('*.cuh'))
 
 
 def _start_build(src):

@@ -1,10 +1,14 @@
 """Collision operators on torch tensors (port of
-``sailfish_tpu/ops/collide.py``; BGK, the Guo and exact-difference
-forcing terms and the Shan-Chen pseudopotential force so far -- MRT/TRT,
-ELBM and LES are still to be ported)."""
+``sailfish_tpu/ops/collide.py``): BGK, multiple-relaxation-time (MRT; TRT
+is MRT with the same rate vector), the Smagorinsky subgrid tau field, the
+Guo and exact-difference forcing terms and the Shan-Chen pseudopotential
+force. The entropic (ELBM) collision is still to be ported."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from sailfish_tpu_torch import equilibrium as eq
@@ -14,6 +18,58 @@ def bgk_collide(grid, f, rho, u, tau_inv, *, incompressible=False):
     """f + (feq - f) / tau; ``tau_inv`` a scalar or a per-node field."""
     feq = eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible)
     return f + tau_inv * (feq - f)
+
+
+def mrt_operator(grid, rates):
+    """R = M^-1 diag(s) M in float64 for the (Q,) rate vector ``rates``
+    (``Grid.mrt_relaxation_rates``), with the round-off entries of the
+    product (below 1e-12) set to 0."""
+    r = grid.mrt_inv @ np.diag(np.asarray(rates, dtype=np.float64)) \
+        @ grid.mrt_matrix
+    r[np.abs(r) < 1e-12] = 0.0
+    return r
+
+
+@functools.lru_cache(maxsize=32)
+def mrt_columns(grid, rates, dtype, device):
+    """The columns j of ``mrt_operator(grid, rates)`` that hold a nonzero
+    entry, as (j, (Q,) tensor of ``dtype`` on ``device``); ``rates`` a
+    tuple. Built once per rate vector, dtype and device, so a step copies
+    nothing from the host."""
+    r = mrt_operator(grid, rates)
+    return tuple((j, torch.as_tensor(r[:, j], dtype=dtype, device=device))
+                 for j in range(grid.Q) if r[:, j].any())
+
+
+def mrt_collide(grid, f, rho, u, rates, *, incompressible=False):
+    """Multiple-relaxation-time collision in its dense moment-space form
+    f + R (feq - f), R = M^-1 diag(s) M (``sailfish_tpu/ops/collide.py
+    :27-45``): equal to BGK when every rate is 1/tau. The Q-axis contraction
+    is an unrolled sum over the columns of R that hold a nonzero entry
+    (``mrt_columns``), each column times one (feq - f)_j plane (no matmul
+    or einsum, so no TF32 path touches it)."""
+    feq = eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible)
+    dneq = feq - f
+    shape = (grid.Q,) + (1,) * (f.dim() - 1)
+    acc = None
+    for j, col in mrt_columns(grid, tuple(float(s) for s in rates),
+                              f.dtype, f.device):
+        term = col.reshape(shape) * dneq[j]
+        acc = term if acc is None else acc + term
+    return f if acc is None else f + acc
+
+
+def smagorinsky_tau_inv(grid, f, feq, rho, tau, cs_smag):
+    """Effective 1/tau field of the Smagorinsky subgrid model
+    (``sailfish_tpu/ops/collide.py:48-61``; Yu, Girimaji & Luo 2005):
+    strain = sum_ab Pi_ab^2 over the non-equilibrium stress (off-diagonal
+    entries counted twice), tau_eff = tau + (sqrt(tau^2 + 36 C^2
+    sqrt(strain)) - tau) / 2. Returns (*S)."""
+    pi = eq.second_moment_noneq(grid, f, feq)
+    strain = torch.sum(pi * pi, dim=(0, 1))
+    tau_t = 0.5 * (torch.sqrt(tau * tau + 36.0 * (cs_smag ** 2)
+                              * torch.sqrt(strain)) - tau)
+    return 1.0 / (tau + tau_t)
 
 
 def guo_force_terms(grid, u, accel, tau_inv, rho=None):

@@ -104,6 +104,26 @@ __host__ __device__ constexpr int slip_of(int i, int axis) {
     return -1;
 }
 
+// The conserved-moment columns of M^-1 (the inverse of the MRT moment
+// matrix of sailfish_tpu_torch.lattice), column k = 0 for the density row
+// of M (all ones) and k = 1 + a for the momentum row along axis a (c_ia):
+// M^-1[i, 0] = 1 / Q and M^-1[i, 1 + a] = c_ia / sum_j c_ja^2. The MRT
+// relaxation of lbm_step restores the zero rate of these moments with them;
+// lbm_lattice_tables copies them out and ops/lbm_step.py check_tables holds
+// them against lattice.mrt_inv.
+template <typename L>
+__host__ __device__ constexpr float mrt_minv_axis(int a) {
+    int n = 0;
+    for (int j = 0; j < L::Q; ++j) n += L::c(j, a) * L::c(j, a);
+    return (float)(1.0 / n);
+}
+
+template <typename L>
+__host__ __device__ constexpr float mrt_minv_cons(int i, int k) {
+    return k == 0 ? (float)(1.0 / L::Q)
+                  : (float)L::c(i, k - 1) * mrt_minv_axis<L>(k - 1);
+}
+
 // f(Int<i>()) for i = 0 .. N - 1 in order; i is a compile-time constant.
 template <int... I> struct Seq {};
 template <int N, int... I> struct MakeSeq : MakeSeq<N - 1, N - 1, I...> {};

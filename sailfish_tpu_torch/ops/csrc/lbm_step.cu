@@ -8,7 +8,10 @@
 // cavity scenes run, in their forcing mode (a constant body force by the Guo,
 // exact-difference or velocity-shift model: pallas_step.py:_moments,
 // _force_term, _edm_prep, _edm_term) that the force-driven ducts, cylinders
-// and pipes run, and with them
+// and pipes run, in their collision-model mode (MRT/TRT with the parity-split
+// rates and the conserved-moment correction, BGK at the local Smagorinsky
+// LES rate, the incompressible He-Luo equilibrium: pallas_step.py:_feq_i,
+// mrt_pair_rates, _collide_prepass, _mrt_corr, _collide_pair), and with them
 //   sailfish_tpu/ops/pallas_step.py   make_bc_patch_kernel_3d
 //   sailfish_tpu/ops/pallas_step2d.py make_bc_patch_kernel_2d
 // which recompute the z-planes / y-blocks that hold a native BC whose
@@ -19,9 +22,9 @@
 //
 // What it computes, for every node x of the (nz, ny, nx) domain:
 //   fs_i = A[i, x - c_i]                    pull streaming, periodic wrap
-//   mask 0     collide: fs + (feq(rho, u) - fs) / tau, or with a body
-//              force the model's relaxation and post-collision term
-//              (relax_node in lbm_common.cuh)
+//   mask 0     collide: fs + (feq(rho, u) - fs) / tau, or the MRT or LES
+//              relaxation, with a body force the model's relaxation and
+//              post-collision term (relax_node in lbm_common.cuh)
 //   mask 1     full bounce-back wall: store fs reflected, out_opp(i) = fs_i
 //   mask 2     keep (excluded / propagation-only): store fs
 //   mask 3+j   row j of the BC table. A native BC instance: macroscopic
@@ -80,6 +83,19 @@
 //   tables and a local-memory chain such a face cost 2.9 times a step.
 //   The read of a varying row's per-node parameters sits in the BC branch,
 //   so only those nodes pay for it.
+// - The collision model (BGK, MRT, LES) and the equilibrium (compressible or
+//   incompressible) are two more template parameters, picked on the host
+//   from LBMParams::coll: six instantiations for each force model and wall
+//   switch, so the BGK kernels carry none of the other models' code. MRT
+//   relaxes each pair (i, opp(i)) at compile-time indices; LES sums the
+//   non-equilibrium stress over the node's distributions, which are in
+//   registers already. The rates, tau and 36 C^2 are in the parameter
+//   block: a step of any model moves the same bytes. This file builds the
+//   collision model LBM_MODEL (default BGK); lbm_step_mrt.cu and
+//   lbm_step_les.cu define it and include this file, so the 96
+//   instantiations compile as three libraries of 32, one nvcc each, in
+//   parallel (one library of 96 took 154.5 s), and the host loads the
+//   library of its model (ops/lbm_step.py LIBRARIES).
 // - The force model is a template parameter: four instantiations per lattice,
 //   picked on the host from LBMParams::force.model, so the unforced kernel
 //   carries no force code and no branch. The force itself (acceleration,
@@ -95,7 +111,11 @@
 
 #include "lbm_common.cuh"
 
-template <int DIM, int Q, int FORCE, bool WALLS>
+#ifndef LBM_MODEL
+#define LBM_MODEL MODEL_BGK
+#endif
+
+template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, bool INCOMP>
 __global__ void __launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)
 lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
                 const uint8_t* __restrict__ mask,
@@ -103,6 +123,7 @@ lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
                 const float* __restrict__ bcp,
                 const int* __restrict__ tags) {
     using L = typename LatticeOf<DIM>::type;
+    using P = Physics<FORCE, MODEL, INCOMP>;
     static_assert(L::Q == Q && L::DIM == DIM, "lattice of the dimension");
     const int nx = p.nx, ny = p.ny;
     const int x = blockIdx.x * LBM_BLOCK + threadIdx.x;
@@ -133,14 +154,14 @@ lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
     float fs[Q];
     pull_node<L>(a, n, s, fs);
     if (m == 0)
-        collide_node<L, FORCE>(fs, p.tau_inv, p.force, b, n, node);
+        collide_node<L, P>(fs, p.tau_inv, p.force, p.coll, b, n, node);
     else if (m == 1)
         reflect_node<L>(fs, b, n, node);
     else if (m == 2)
         keep_node<L>(fs, b, n, node);
     else
-        bc_node<L, FORCE, WALLS>(p, m - 3, bcp, tags, a, x, y, z, fs, b, n,
-                                 node);
+        bc_node<L, P, WALLS>(p, m - 3, bcp, tags, a, x, y, z, fs, b, n,
+                             node);
 }
 
 __global__ void lbm_empty_kernel() {}
@@ -153,26 +174,46 @@ static bool has_kind(const LBMParams* p, int lo, int hi) {
     return false;
 }
 
-template <int DIM, int Q, int FORCE>
-static int launch_model(const float* a, float* b, const uint8_t* mask,
-                        const float* bcp, const int* tags,
-                        const LBMParams* p, void* stream) {
+template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, bool INCOMP>
+static int launch_kernel(const float* a, float* b, const uint8_t* mask,
+                         const float* bcp, const int* tags,
+                         const LBMParams* p, void* stream) {
     const dim3 grid((p->nx + LBM_BLOCK - 1) / LBM_BLOCK, p->ny, p->nz);
-    if (!has_kind(p, BC_HALFBB, BC_SLIP)) {
-        lbm_step_kernel<DIM, Q, FORCE, false>
-            <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p,
-                                                           bcp, tags);
-        return (int)cudaGetLastError();
-    }
-    if (tags == nullptr && has_kind(p, BC_HALFBB, BC_TMS))
-        return (int)cudaErrorInvalidValue;
-    lbm_step_kernel<DIM, Q, FORCE, true>
+    lbm_step_kernel<DIM, Q, FORCE, WALLS, MODEL, INCOMP>
         <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p, bcp,
                                                        tags);
     return (int)cudaGetLastError();
 }
 
-// The instantiation of the block's force model (and of its wall rows).
+// The instantiation of the block's equilibrium; a block of another
+// collision model than this library's is refused.
+template <int DIM, int Q, int FORCE, bool WALLS>
+static int launch_coll(const float* a, float* b, const uint8_t* mask,
+                       const float* bcp, const int* tags, const LBMParams* p,
+                       void* stream) {
+    if (p->coll.model != LBM_MODEL) return (int)cudaErrorInvalidValue;
+    if (p->coll.incompressible)
+        return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, true>(
+            a, b, mask, bcp, tags, p, stream);
+    return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, false>(
+        a, b, mask, bcp, tags, p, stream);
+}
+
+// The instantiation of the table's wall rows (with or without).
+template <int DIM, int Q, int FORCE>
+static int launch_model(const float* a, float* b, const uint8_t* mask,
+                        const float* bcp, const int* tags,
+                        const LBMParams* p, void* stream) {
+    if (!has_kind(p, BC_HALFBB, BC_SLIP))
+        return launch_coll<DIM, Q, FORCE, false>(a, b, mask, bcp, tags, p,
+                                                 stream);
+    if (tags == nullptr && has_kind(p, BC_HALFBB, BC_TMS))
+        return (int)cudaErrorInvalidValue;
+    return launch_coll<DIM, Q, FORCE, true>(a, b, mask, bcp, tags, p,
+                                            stream);
+}
+
+// The instantiation of the block's force model.
 template <int DIM, int Q>
 static int launch(const float* a, float* b, const uint8_t* mask,
                   const float* bcp, const int* tags, const LBMParams* p,
@@ -204,6 +245,8 @@ static void copy_tables(LBMTables* out) {
         out->w[i] = L::w(i);
         out->opp[i] = L::opp(i);
         for (int d = 0; d < L::DIM; ++d) out->slip[d][i] = slip_of<L>(i, d);
+        for (int k = 0; k <= L::DIM; ++k)
+            out->minv[i][k] = mrt_minv_cons<L>(i, k);
     }
 }
 

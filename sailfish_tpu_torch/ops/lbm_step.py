@@ -1,14 +1,18 @@
 """The kernel engine: one fused stream-and-collide CUDA kernel launch per
 step, with native BCs of static, varying or time-dependent parameters, the
-local walls (half-way bounce-back, Tamm-Mott-Smith, slip) and a constant
-or time-dependent uniform body force.
+local walls (half-way bounce-back, Tamm-Mott-Smith, slip), a constant or
+time-dependent uniform body force, and the collision models BGK, MRT/TRT
+and Smagorinsky LES with the compressible or the incompressible
+equilibrium.
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
 (``PallasStep2D``, ``make_kernel_2d``) in their mask + in-kernel native-BC
 (``kbc``) modes with and without forcing (Guo, exact-difference and
 velocity-shift, ``pallas_step.py:246-341``; a time-only force is the
-runtime ``rt_force`` mode, :185-232), and of their patch kernels
+runtime ``rt_force`` mode, :185-232) and collision-model modes
+(``_feq_i`` :281, ``mrt_pair_rates`` :344, ``_collide_prepass`` :372,
+``_mrt_corr`` :452, ``_collide_pair`` :472), and of their patch kernels
 ``make_bc_patch_kernel_3d`` / ``_2d`` (see ``ops/bc_patch.py``), which on
 the TPU also carry the link-tagged walls, TMS and the dynamic BC
 families. The kernel itself is ``csrc/lbm_step.cu``; this module
@@ -30,6 +34,7 @@ card; the main path never calls it on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import re
 from collections import namedtuple
 
 import numpy as np
@@ -56,15 +61,19 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: written before the launch: the JAX package's dynamic patch planes and
 #: ``rt_force``), ``lbm_step_wall_<grid>`` (a half-way, TMS or slip wall
 #: row: the kernel instantiation with wall rows; the link-tagged families
-#: of the JAX patch kernels), ``lbm_step_force_<grid>`` (a constant body
-#: force: the forcing mode of the JAX package's kernels),
+#: of the JAX patch kernels), ``lbm_step_mrt_<grid>`` (the MRT/TRT
+#: relaxation), ``lbm_step_les_<grid>`` (BGK at the Smagorinsky rate),
+#: ``lbm_step_incomp_<grid>`` (the incompressible equilibrium; these three
+#: the collision-model mode of the JAX package's kernels),
+#: ``lbm_step_force_<grid>`` (a constant body force: the forcing mode),
 #: ``lbm_step_vary_<grid>`` (some instance reads per-node parameters: the
-#: work of the JAX package's patch kernels) and ``lbm_step_<grid>`` (no
-#: force, every BC row uniform); one C entry, ``lbm_step_<grid>``, serves
-#: them all
+#: work of the JAX package's patch kernels) and ``lbm_step_<grid>`` (BGK,
+#: compressible, no force, every BC row uniform); one C entry,
+#: ``lbm_step_<grid>``, serves them all
+LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'wall_',
+                'dyn_')
 LAUNCHES = dict.fromkeys(
-    (f'lbm_step_{v}{g.lower()}'
-     for v in ('', 'vary_', 'force_', 'wall_', 'dyn_')
+    (f'lbm_step_{v}{g.lower()}' for v in LAUNCH_KINDS
      for g in KERNEL_GRIDS), 0)
 #: rewrites of a block of the per-node parameter array before a launch (a
 #: space- and time-dependent BC row), over all ``KernelStep`` objects, per
@@ -73,6 +82,13 @@ BCP_REWRITES = dict.fromkeys((f'bcp_{g.lower()}' for g in KERNEL_GRIDS), 0)
 #: force model -> its code in the kernel's parameter block
 #: (csrc/lbm_common.cuh FORCE_*); 0 is no force
 FORCE_CODES = {name: 1 + i for i, name in enumerate(st.FORCE_MODELS)}
+#: collision model -> its code in the parameter block (csrc/lbm_common.cuh
+#: MODEL_*): TRT is MRT with the same rate vector
+MODEL_CODES = {'bgk': 0, 'mrt': 1, 'trt': 1, 'les': 2}
+#: model code -> the csrc source whose library holds its instantiations
+#: (each builds lbm_step.cu with one collision model, so the three compile
+#: in parallel)
+LIBRARIES = {0: 'lbm_step', 1: 'lbm_step_mrt', 2: 'lbm_step_les'}
 
 
 def reset_launch_counts():
@@ -181,12 +197,14 @@ def bc_table(maps, instances, boxes=None):
 def kernel_ineligibility(builder, nodes=None):
     """Reasons the kernel cannot run ``builder``'s scene (empty when it
     can); ``nodes`` is ``classify_nodes`` of its maps when the caller has
-    it. The torch ``StepBuilder`` already refuses non-BGK models,
-    Shan-Chen and the node types it lacks (the outflow family,
-    ``NTGuoDensity``, ``NTExtendedCopy``). A body force that varies from
-    node to node, constant or a DynamicValue of space, runs on the torch
-    engine only (the JAX runner keeps it off its kernels too,
-    ``sailfish_tpu/runner.py:386-395``, ``pallas_step.py:2608-2612``)."""
+    it. The torch ``StepBuilder`` already refuses ELBM, Shan-Chen and the
+    node types it lacks (the outflow family, ``NTGuoDensity``,
+    ``NTExtendedCopy``); an MRT rate vector that does not split into one
+    even and one odd rate (``mrt_pair_rates``) is refused here, and ELBM
+    by name. A body force that varies from node to node, constant or a
+    DynamicValue of space, runs on the torch engine only (the JAX runner
+    keeps it off its kernels too, ``sailfish_tpu/runner.py:386-395``,
+    ``pallas_step.py:2608-2612``)."""
     reasons = []
     if builder.force_expr is not None:
         if st.is_space_dependent(builder.force_expr):
@@ -203,8 +221,14 @@ def kernel_ineligibility(builder, nodes=None):
                        f'for {", ".join(KERNEL_GRIDS)})')
     if builder.dtype != torch.float32:
         reasons.append(f'{builder.dtype} (the kernel is fp32 only)')
-    if builder.incompressible:
-        reasons.append('incompressible equilibrium')
+    if builder.model == 'elbm':
+        reasons.append('model=elbm (the entropic ELBM collision is not in '
+                       'the kernel)')
+    if builder.mrt_rates is not None:
+        try:
+            mrt_pair_rates(builder.grid, builder.mrt_rates)
+        except NotImplementedError as exc:
+            reasons.append(str(exc))
     shape = builder.maps.type_map.shape
     if any(s > MAX_GRID_YZ for s in shape[:-1]):
         reasons.append(f'domain {shape}: y and z extents above '
@@ -237,7 +261,8 @@ def box_params(row, bcp, shape):
 
 
 def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
-                   force_model='guo', tags=None):
+                   force_model='guo', tags=None, rates=None,
+                   smagorinsky=0.0, incompressible=False):
     """Plain PyTorch version of the kernel: one step
     of state ``f`` (Q, *S) under uint8 mask codes ``mask`` (*S) and BC
     table ``table`` (list of ``BCRow``), with relaxation rate ``tau_inv``.
@@ -247,7 +272,10 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
     ``link_tags``) marks as missing; slip rows are dry and store the
     reflection of their axis. ``force`` is a uniform acceleration (x, y[,
     z]) acting on every colliding node, BC nodes included, by
-    ``force_model``. The phases are the torch engine's
+    ``force_model``. The collision is MRT with the rate vector ``rates``
+    when it is given, else BGK, at the local Smagorinsky rate when
+    ``smagorinsky`` > 0, with the incompressible equilibrium when
+    ``incompressible``. The phases are the torch engine's
     (``step.step_phases``)."""
     ones = (1,) * (f.dim() - 1)
     instances, slip = [], []
@@ -283,7 +311,9 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
                              device=f.device).reshape((grid.dim,) + ones)
     return st.step_phases(grid, st.gather(grid, f), f, tau_inv, instances,
                           wet=wet, fullbb=mask == 1, slip=slip, tags=planes,
-                          tms=tms, force=force, force_model=force_model)
+                          tms=tms, force=force, force_model=force_model,
+                          incompressible=incompressible, rates=rates,
+                          smagorinsky=smagorinsky)
 
 
 class _BC(ctypes.Structure):
@@ -302,12 +332,19 @@ class _Force(ctypes.Structure):
                 ('shift', ctypes.c_float * 3), ('pref', ctypes.c_float)]
 
 
+class _Collide(ctypes.Structure):
+    _fields_ = [('model', ctypes.c_int), ('incompressible', ctypes.c_int),
+                ('s_e', ctypes.c_float), ('s_o', ctypes.c_float),
+                ('tau', ctypes.c_float), ('tau2', ctypes.c_float),
+                ('les_c', ctypes.c_float)]
+
+
 class _Params(ctypes.Structure):
     _fields_ = [('nx', ctypes.c_int), ('ny', ctypes.c_int),
                 ('nz', ctypes.c_int), ('nbc', ctypes.c_int),
                 ('tau_inv', ctypes.c_float),
                 ('bc', _BC * MAX_BC), ('vary', _Vary * MAX_BC),
-                ('force', _Force)]
+                ('force', _Force), ('coll', _Collide)]
 
 
 class _Tables(ctypes.Structure):
@@ -315,21 +352,43 @@ class _Tables(ctypes.Structure):
                 ('c', (ctypes.c_int * 3) * MAX_Q),
                 ('w', ctypes.c_float * MAX_Q),
                 ('opp', ctypes.c_int * MAX_Q),
-                ('slip', (ctypes.c_int * MAX_Q) * 3)]
+                ('slip', (ctypes.c_int * MAX_Q) * 3),
+                ('minv', (ctypes.c_float * 4) * MAX_Q)]
+
+
+def mrt_conserved_columns(grid):
+    """(Q, 1 + dim) float64: the columns of ``grid.mrt_inv`` of the
+    conserved moments (density, then momentum along x, y[, z]), with the
+    round-off entries of the inversion (below 1e-12) set to 0. Raises
+    RuntimeError unless the conserved rows of ``grid.mrt_matrix`` are the
+    ones and c_a, which is what the kernel sums its moments with."""
+    cons = [int(k) for k in grid.mrt_conserved]
+    rows = np.vstack([np.ones(grid.Q)] + [grid.basis[:, a]
+                                          for a in range(grid.dim)])
+    if cons != list(range(1 + grid.dim)) or not np.array_equal(
+            grid.mrt_matrix[cons], rows):
+        raise RuntimeError(f'the conserved MRT moments of {grid.name} are '
+                           'not (1, c_x, c_y[, c_z])')
+    cols = grid.mrt_inv[:, cons].copy()
+    cols[np.abs(cols) < 1e-12] = 0.0
+    return cols
 
 
 def lattice_tables(grid):
     """``_Tables`` filled from ``sailfish_tpu_torch.lattice``: what the
     kernel's ``lbm_lattice_tables`` must copy out for ``grid`` (entries
-    beyond Q, the z component in 2D and the slip permutation of the z axis
-    in 2D are 0)."""
+    beyond Q, the z component in 2D, the slip permutation of the z axis in
+    2D and the M^-1 column of the z momentum in 2D are 0)."""
     t = _Tables()
     t.q, t.dim = grid.Q, grid.dim
+    minv = mrt_conserved_columns(grid)
     for i in range(grid.Q):
         for a in range(grid.dim):
             t.c[i][a] = int(grid.basis[i][a])
         t.w[i] = float(grid.weights[i])
         t.opp[i] = int(grid.opposite[i])
+        for k in range(1 + grid.dim):
+            t.minv[i][k] = float(minv[i, k])
     for a in range(grid.dim):
         for i, j in enumerate(grid.slip_swap(a)):
             t.slip[a][i] = int(j)
@@ -339,8 +398,8 @@ def lattice_tables(grid):
 def check_tables(tables, grid):
     """Raise RuntimeError unless the ``_Tables`` ``tables`` (the kernel's
     compile-time tables of one lattice) equal ``lattice_tables(grid)``,
-    every integer exactly and every weight to the last bit of its
-    float32."""
+    every integer exactly and every weight and M^-1 entry to the last bit
+    of its float32."""
     ref = lattice_tables(grid)
     bad = [name for name, _ in _Tables._fields_
            if not np.array_equal(np.asarray(getattr(tables, name)),
@@ -367,6 +426,48 @@ def set_force(p, grid, force, force_model, tau_inv):
         p.force.shift[a] = s * force[a]
 
 
+def mrt_pair_rates(grid, rates):
+    """(s_e, s_o): the one rate of the even and the one of the odd
+    non-conserved moments of the MRT rate vector ``rates``
+    (``pallas_step.py:344-369``), which the kernel's parity split relaxes
+    with. Raises NotImplementedError, naming it, for a vector with two
+    different rates of one parity; the Gram-Schmidt rates of
+    ``Grid.mrt_relaxation_rates`` always split."""
+    rates = np.asarray(rates, dtype=np.float64)
+    cons = set(int(k) for k in grid.mrt_conserved)
+    split = {}
+    for k in range(grid.Q):
+        if k in cons:
+            continue
+        parity = 'even' if grid.mrt_parity[k] > 0 else 'odd'
+        if abs(split.setdefault(parity, rates[k]) - rates[k]) > 1e-12:
+            raise NotImplementedError(
+                f'an MRT rate vector with more than one {parity} rate (the '
+                'kernel relaxes the parity-split TRT form; --engine=torch '
+                'runs any vector)')
+    return float(split['even']), float(split['odd'])
+
+
+def set_collision(p, grid, tau_inv, rates=None, smagorinsky=0.0,
+                  incompressible=False):
+    """Write the collision model into the block ``p``: MRT (code 1, its
+    even and odd rates from ``mrt_pair_rates``) when ``rates`` is given,
+    else LES (code 2: tau, tau^2 and 36 C^2, computed in fp64) when
+    ``smagorinsky`` > 0, else BGK (code 0); and the equilibrium."""
+    c = p.coll
+    c.incompressible = int(bool(incompressible))
+    if rates is not None:
+        c.model = MODEL_CODES['mrt']
+        c.s_e, c.s_o = mrt_pair_rates(grid, rates)
+    elif smagorinsky > 0.0:
+        c.model = MODEL_CODES['les']
+        tau = 1.0 / tau_inv
+        c.tau, c.tau2 = tau, tau * tau
+        c.les_c = 36.0 * smagorinsky ** 2
+    else:
+        c.model = MODEL_CODES['bgk']
+
+
 def set_row(p, j, rho, u):
     """Write the prescribed density and velocity (x, y, z) of BC row ``j``
     into the block ``p``."""
@@ -376,13 +477,15 @@ def set_row(p, j, rho, u):
 
 
 def kernel_params(grid, shape, table, tau_inv, force=None,
-                  force_model='guo'):
+                  force_model='guo', rates=None, smagorinsky=0.0,
+                  incompressible=False):
     """The kernel's by-value parameter block: domain extents, relaxation
     rate, the BC table, behind it where each varying row's per-node
-    parameters lie, and the body force (``set_force``; None: model code 0,
-    no force). A row's axis and sign are those of its orientation (0 for
-    the half-way and TMS rows). The lattice tables are compile-time in the
-    kernel (``check_tables``)."""
+    parameters lie, the body force (``set_force``; None: model code 0,
+    no force) and the collision model (``set_collision``). A row's axis
+    and sign are those of its orientation (0 for the half-way and TMS
+    rows). The lattice tables are compile-time in the kernel
+    (``check_tables``)."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
     p.nx, p.ny, p.nz = nx, ny, nz
@@ -404,7 +507,33 @@ def kernel_params(grid, shape, table, tau_inv, force=None,
                 p.vary[j].ext[a] = row.box.ext[a]
     if force is not None:
         set_force(p, grid, force, force_model, tau_inv)
+    set_collision(p, grid, tau_inv, rates, smagorinsky, incompressible)
     return p
+
+
+#: names of the template parameters of ``lbm_step_kernel``, in order
+INSTANCE_PARAMS = ('dim', 'q', 'force', 'walls', 'model', 'incompressible')
+
+
+def instantiation(fn):
+    """The template arguments of the ``lbm_step_kernel`` instantiation
+    whose mangled name is ``fn``, as {name of ``INSTANCE_PARAMS``: value}
+    (``force`` and ``model`` by their names, ``walls`` and
+    ``incompressible`` as bools), or None for another function. A name with
+    fewer arguments (an older build's) gets the ones it has."""
+    m = re.search(r'lbm_step_kernelI((?:L[ib]n?\d+E)+)E', fn)
+    if not m:
+        return None
+    vals = [(-1 if sign else 1) * int(num) for kind, sign, num in
+            re.findall(r'L([ib])(n?)(\d+)E', m.group(1))]
+    out = dict(zip(INSTANCE_PARAMS, vals))
+    out['force'] = (('none',) + st.FORCE_MODELS)[out['force']]
+    for key in ('walls', 'incompressible'):
+        if key in out:
+            out[key] = bool(out[key])
+    if 'model' in out:
+        out['model'] = ('bgk', 'mrt', 'les')[out['model']]
+    return out
 
 
 def kernel_function(lib, name):
@@ -447,11 +576,15 @@ class KernelStep:
     whose values depend on time), ``force`` (the body force of the last
     launch, an acceleration (x, y[, z]), or None) with its
     ``force_model``, ``force_expr`` (the components of a time-only
-    DynamicValue force, else None), ``entry`` (the C entry,
-    ``lbm_step_<grid>``, which picks the kernel instantiation of the
-    block's force model and of whether it has wall rows), ``name`` (the
-    key of ``LAUNCHES`` its launches count under) and ``launches``, the
-    number of kernel launches this object has made: one per step."""
+    DynamicValue force, else None), the collision model (``rates``: the
+    MRT rate vector or None, ``smagorinsky``: the LES constant, 0 without,
+    ``incompressible``), ``library`` (the csrc source of its collision
+    model, ``LIBRARIES``), ``entry`` (the C entry, ``lbm_step_<grid>``,
+    which picks the kernel instantiation of the block's force model and
+    equilibrium and of whether it has wall rows),
+    ``name`` (the key of ``LAUNCHES`` its launches count under) and
+    ``launches``, the number of kernel launches this object has made: one
+    per step."""
 
     def __init__(self, builder):
         maps = builder.maps
@@ -484,17 +617,25 @@ class KernelStep:
         self.b = torch.empty_like(self.a)
         self.force_model = builder.force_model
         self.force_expr = builder.force_expr
+        self.rates = builder.mrt_rates
+        self.smagorinsky = builder.smagorinsky
+        self.incompressible = builder.incompressible
         self.force = None
         if self.force_expr is not None:
             self.force = self._force_at(self._time(0))
         elif builder.body_force is not None:
             self.force = tuple(float(a) for a in builder.body_force)
-        self.params = kernel_params(self.grid, self.shape, self.table,
-                                    self.tau_inv, self.force,
-                                    self.force_model)
+        self.params = kernel_params(
+            self.grid, self.shape, self.table, self.tau_inv, self.force,
+            self.force_model, self.rates, self.smagorinsky,
+            self.incompressible)
+        self.library = LIBRARIES[self.params.coll.model]
         self.entry = f'lbm_step_{self.grid.name.lower()}'
         kind = 'dyn_' if self.dynamic or self.force_expr is not None else \
             'wall_' if self.walls else \
+            'mrt_' if self.rates is not None else \
+            'les_' if self.smagorinsky > 0.0 else \
+            'incomp_' if self.incompressible else \
             'force_' if self.force is not None else \
             'vary_' if self.vary else ''
         self.name = self.entry.replace('step_', f'step_{kind}')
@@ -566,14 +707,15 @@ class KernelStep:
         values of the last ``set_iteration``."""
         return step_reference(f, self.mask, self.table, self.grid,
                               self.tau_inv, self.bcp, self.force,
-                              self.force_model, self.tags)
+                              self.force_model, self.tags, self.rates,
+                              self.smagorinsky, self.incompressible)
 
     def _launch(self, src, dst):
         if src.device.type != 'cuda':
             raise ValueError(f'no kernel for device {src.device}')
         if self._fn is None:
             from sailfish_tpu_torch.ops import build
-            self._fn = kernel_function(build.load('lbm_step').lib,
+            self._fn = kernel_function(build.load(self.library).lib,
                                        self.entry)
         tags = None if self.tags is None else self.tags.data_ptr()
         rc = self._fn(src.data_ptr(), dst.data_ptr(), self.mask.data_ptr(),

@@ -7,13 +7,16 @@ lattice's standard direction order; one step is gather (pull streaming)
 -> fix missing -> macro -> BC solve -> pre-collision BC -> collide ->
 dry-node handling, exactly the JAX phase sequence.
 
-The subset: BGK collision with the second-order equilibrium, a body
-force (Guo, exact-difference or velocity-shift forcing) that is constant,
-per-node or a ``DynamicValue`` of time and space, no subgrid model, no
-Shan-Chen, fp32 or fp64 storage, and the node types fluid, the excluded /
-propagation-only "keep" types, the local walls (``NTFullBBWall``,
-``NTHalfBBWall``, ``NTWallTMS``, ``NTSlip``) and the six elementwise
-("native") BC types, whose parameters may be ``DynamicValue``s. Anything
+The subset: BGK, MRT or TRT collision (TRT is MRT with the same rate
+vector, ``sailfish_tpu/ops/step.py:271-272``), optionally with the
+Smagorinsky subgrid tau field, the second-order equilibrium (compressible
+or the incompressible He-Luo form), a body force (Guo, exact-difference or
+velocity-shift forcing) that is constant, per-node or a ``DynamicValue``
+of time and space, no Shan-Chen, fp32 or fp64 storage, and the node types
+fluid, the excluded / propagation-only "keep" types, the local walls
+(``NTFullBBWall``, ``NTHalfBBWall``, ``NTWallTMS``, ``NTSlip``) and the six
+elementwise ("native") BC types, whose parameters may be
+``DynamicValue``s. Anything
 else raises ``NotImplementedError`` when the StepBuilder is made, the way the
 JAX engine's ``_IMPLEMENTED_TYPES`` does. The multi-component builders
 (``ops/multigrid.py``) run one ``StepBuilder`` per component through its
@@ -259,15 +262,28 @@ def is_dynamic_force(body_force):
 
 
 def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
-                   u_eq=None, incompressible=False):
-    """BGK relaxation under the body force ``force`` (an acceleration,
-    (dim, *S) or broadcastable; None: no force), the BGK branch of
+                   u_eq=None, incompressible=False, rates=None,
+                   smagorinsky=0.0):
+    """The collision under the body force ``force`` (an acceleration,
+    (dim, *S) or broadcastable; None: no force), ``_collide`` of
     ``sailfish_tpu/ops/step.py:690-751``. ``guo`` relaxes towards
     feq(rho, u_eq + a/2) and adds the Guo term; ``velocity_shift`` relaxes
     towards feq(rho, u_eq + tau a) and adds nothing; ``edm`` relaxes
     towards feq(rho, u_eq) and adds feq(rho, u + a) - feq(rho, u) with
     the bare ``u``. ``u_eq`` (default ``u``) is the equilibrium velocity a
-    multi-component coupling has shifted already."""
+    multi-component coupling has shifted already.
+
+    The relaxation: MRT (``mrt_collide``) with the rate vector ``rates``
+    when it is given, else BGK at 1/tau = ``tau_inv``, or with
+    ``smagorinsky`` > 0 at the local Smagorinsky rate, whose strain comes
+    from feq(rho, u) at the unshifted velocity. The LES field sets only
+    the BGK relaxation: the Guo prefactor and the velocity shift keep the
+    base tau, and MRT ignores the field, as in the JAX engine."""
+    tau_eff = tau_inv
+    if smagorinsky > 0.0 and rates is None:
+        feq = eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible)
+        tau_eff = co.smagorinsky_tau_inv(grid, fs, feq, rho, 1.0 / tau_inv,
+                                         smagorinsky)[None]
     if u_eq is None:
         u_eq = u
     if force is not None:
@@ -275,8 +291,12 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
             u_eq = u_eq + 0.5 * force
         elif force_model == 'velocity_shift':
             u_eq = u_eq + (1.0 / tau_inv) * force
-    fpost = co.bgk_collide(grid, fs, rho, u_eq, tau_inv,
-                           incompressible=incompressible)
+    if rates is not None:
+        fpost = co.mrt_collide(grid, fs, rho, u_eq, rates,
+                               incompressible=incompressible)
+    else:
+        fpost = co.bgk_collide(grid, fs, rho, u_eq, tau_eff,
+                               incompressible=incompressible)
     if force is not None:
         if force_model == 'guo':
             fpost = fpost + co.guo_force_terms(grid, u_eq, force, tau_inv,
@@ -289,28 +309,39 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
 
 def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
                 fullbb=None, slip=(), tags=None, tms=None, force=None,
-                force_model='guo', incompressible=False):
+                force_model='guo', incompressible=False, rates=None,
+                smagorinsky=0.0):
     """One step after the gather, in the JAX order
     (``sailfish_tpu/ops/step.py:809-825``): fix missing -> macro -> BC
     solves -> pre-collision BC -> ``forced_collide`` on every node (BC
-    nodes with their solved rho and u) -> dry select and dry walls -> the
-    TMS shift. ``fs``: the gathered distributions; ``f``: the state they
-    were pulled from; ``instances``: (cls, orientation, mask, rho_bc,
-    vel_bc) with the parameters of this step."""
+    nodes with their solved rho and u; the collision model of ``rates``
+    and ``smagorinsky``) -> dry select and dry walls -> the TMS shift.
+    ``fs``: the gathered distributions; ``f``: the state they were pulled
+    from; ``instances``: (cls, orientation, mask, rho_bc, vel_bc) with the
+    parameters of this step."""
     fs, target = fix_missing(grid, fs, f, tags, tms, incompressible)
     rho, u = eq.macroscopic(grid, fs)
     rho, u = solve_macro_bc(grid, instances, fs, rho, u)
     fs2 = pre_collision_bc(grid, instances, fs, rho, u, incompressible)
     fpost = forced_collide(grid, fs2, rho, u, tau_inv, force, force_model,
-                           incompressible=incompressible)
+                           incompressible=incompressible, rates=rates,
+                           smagorinsky=smagorinsky)
     fpost = select_dry(grid, fs2, fpost, wet, fullbb, slip)
     return apply_tms(grid, fpost, rho, u, tms, target, incompressible)
 
 
+#: collision models of the torch engine (``--model``); 'elbm' is not
+#: ported yet
+MODELS = ('bgk', 'mrt', 'trt')
+
+
 class StepBuilder:
-    """Builds the single-device step function for a single-fluid BGK
-    model (the torch engine). Parameters mirror the JAX builder's;
-    ``time_unit`` is ``--dt_per_lattice_time_unit``."""
+    """Builds the single-device step function for a single-fluid model
+    (the torch engine). Parameters mirror the JAX builder's;
+    ``time_unit`` is ``--dt_per_lattice_time_unit``. ``model`` 'mrt' and
+    'trt' keep the rate vector ``mrt_rates``
+    (``sailfish_tpu/ops/step.py:271-272``: the same for both);
+    ``smagorinsky`` > 0 is the LES constant."""
 
     def __init__(self, grid, maps, *, model='bgk', visc=None, tau=None,
                  incompressible=False, smagorinsky=0.0, body_force=None,
@@ -322,10 +353,10 @@ class StepBuilder:
                 f'force_model must be guo, edm or velocity_shift; '
                 f'got {force_model!r}')
         unported = []
-        if model != 'bgk':
+        if model == 'elbm':
+            unported.append('model=elbm (the entropic ELBM collision)')
+        elif model not in MODELS:
             unported.append(f'model={model}')
-        if smagorinsky > 0.0:
-            unported.append('the Smagorinsky subgrid model')
         if sc_coupling != 0.0:
             unported.append('Shan-Chen coupling')
         if equilibrium != 'bgk':
@@ -340,6 +371,10 @@ class StepBuilder:
         self.tau = float(tau if tau is not None
                          else grid.relaxation_time(visc))
         self.tau_inv = 1.0 / self.tau
+        self.model = model
+        self.mrt_rates = (grid.mrt_relaxation_rates(self.tau)
+                          if model in ('mrt', 'trt') else None)
+        self.smagorinsky = float(smagorinsky)
         self.incompressible = incompressible
         self.dtype = dtype
         self.device = torch.device(device)
@@ -497,7 +532,8 @@ class StepBuilder:
             wet=self.wet, fullbb=self.fullbb, slip=self.slip,
             tags=self.tags, tms=self.tms, force=self.force_at(it),
             force_model=self.force_model,
-            incompressible=self.incompressible)
+            incompressible=self.incompressible, rates=self.mrt_rates,
+            smagorinsky=self.smagorinsky)
 
     # -- per-phase pieces for the multi-component builders -----------------
     # (the names and semantics of ``sailfish_tpu/ops/step.py:584-770``)
@@ -523,7 +559,9 @@ class StepBuilder:
         it."""
         return forced_collide(self.grid, fs, rho, u, self.tau_inv,
                               self.force, self.force_model, u_eq=u_eq,
-                              incompressible=self.incompressible)
+                              incompressible=self.incompressible,
+                              rates=self.mrt_rates,
+                              smagorinsky=self.smagorinsky)
 
     def _post_collision(self, fs, fpost):
         return bounce_back(self.grid, fs, fpost, self.fullbb, self.slip)

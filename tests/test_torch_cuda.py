@@ -59,6 +59,18 @@ iteration with the values written before each launch, and the five twins
 of the slice run through the controller on the kernel engine, one launch
 per step, against the torch engine on the card.
 
+The collision-model mode (MRT/TRT, BGK at the Smagorinsky LES rate, the
+incompressible equilibrium; launches counted as ``lbm_step_mrt_<grid>``,
+``lbm_step_les_<grid>``, ``lbm_step_incomp_<grid>`` below ``dyn_`` and
+``wall_``) is held against ``step_reference`` with the same model: every
+model unforced and under each force model on the forced sphere and the
+cylinder, on half-way and TMS boxes, and on native-BC faces normal to each
+axis (50 / 200 steps, <= 1e-5; one launch <= 1e-6, and the model moves one
+step from a random state away from BGK by more than 1e-4); the models run
+through the controller against the torch engine, and ptxas reports 0 B
+frame, no spills and at most 128 registers for all 96 ``lbm_step``
+instantiations.
+
 The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
 the order parameter, then ``fe_step``) are held against ``rho_reference``
 and ``fe_step_reference`` on the five free-energy twins (a block of
@@ -88,8 +100,8 @@ from torch_scenes import (ACCEL, BC_PAIRS, BINARY_SCENES, FE_SCENES,
                           forced_channel_sim_2d,
                           halfbb_beside_parabolic_inlet, random_binary_state,
                           random_fe_state, random_feq, run, slip_sim,
-                          time_series_density_sim, twin, walls_moved,
-                          with_keep_block, with_patch_row_mix)
+                          time_series_density_sim, twin, unforced,
+                          walls_moved, with_keep_block, with_patch_row_mix)
 
 SIZES = {
     'ldc_3d': dict(lat_nx=48, lat_ny=40, lat_nz=32),
@@ -394,16 +406,17 @@ def test_per_node_force_raises_on_the_default_engine(cuda):
 @pytest.mark.parametrize('grid_name', ['D2Q9', 'D3Q19'])
 def test_lbm_tables_equal_the_lattice(cuda, grid_name):
     from sailfish_tpu_torch import lattice
-    lib = build.load('lbm_step').lib
-    ls.kernel_function(lib, f'lbm_step_{grid_name.lower()}')  # raises
     grid = lattice.get_grid(grid_name)
-    tables = ls._Tables()
-    assert lib.lbm_lattice_tables(grid.dim, ctypes.byref(tables)) == 0
     ref = ls.lattice_tables(grid)
-    for name, _ in ls._Tables._fields_[2:]:
-        assert bytes(getattr(tables, name)) == bytes(getattr(ref, name)), \
-            name
-    assert (tables.q, tables.dim) == (grid.Q, grid.dim)
+    for library in ls.LIBRARIES.values():
+        lib = build.load(library).lib
+        ls.kernel_function(lib, f'lbm_step_{grid_name.lower()}')  # raises
+        tables = ls._Tables()
+        assert lib.lbm_lattice_tables(grid.dim, ctypes.byref(tables)) == 0
+        for name, _ in ls._Tables._fields_[2:]:
+            assert bytes(getattr(tables, name)) == \
+                bytes(getattr(ref, name)), (library, name)
+        assert (tables.q, tables.dim) == (grid.Q, grid.dim)
 
 
 #: wall scenes for the kernel: name -> (sim, size); 3D x ragged against the
@@ -524,6 +537,180 @@ def test_wall_rows_need_the_tag_map(cuda):
     ks.tags = None
     with pytest.raises(RuntimeError, match='launch failed'):
         ks.step_into(ks.a, ks.b)
+
+
+#: the collision models as controller flags
+COLLISION = {
+    'mrt': dict(model='mrt'),
+    'trt': dict(model='trt'),
+    'les': dict(subgrid='les-smagorinsky', smagorinsky_const=0.2),
+    'mrt_les': dict(model='mrt', subgrid='les-smagorinsky',
+                    smagorinsky_const=0.2),
+    'incompressible': dict(incompressible=True),
+    'incompressible_mrt': dict(incompressible=True, model='mrt'),
+    'incompressible_les': dict(incompressible=True,
+                               subgrid='les-smagorinsky',
+                               smagorinsky_const=0.2),
+}
+#: the launch key of each (its precedence below dyn_ and wall_)
+COLLISION_KEY = {'mrt': 'mrt_', 'trt': 'mrt_', 'les': 'les_',
+                 'mrt_les': 'mrt_', 'incompressible': 'incomp_',
+                 'incompressible_mrt': 'mrt_', 'incompressible_les': 'les_'}
+#: the collision-model scenes: the forced sphere at tau = 0.8 and the
+#: cylinder at tau = 0.56 (x ragged against the block of 128; at tau = 1
+#: the odd MRT rate equals the even one and MRT is BGK)
+COLLISION_SIZES = {
+    'sphere_3d': dict(lat_nx=72, lat_ny=40, lat_nz=32, visc=0.1),
+    'cylinder': dict(lat_nx=300, lat_ny=120, visc=0.02),
+}
+
+
+def _model_moved(ks, f0):
+    """Largest wet change the model of ``ks`` makes to one step of its
+    plain version from ``f0``, against BGK with the compressible
+    equilibrium (after 50 steps a closed box has nearly come to rest under
+    either), and the kernel's one launch from ``f0`` against the plain
+    version: (moved, error)."""
+    one = torch.empty_like(f0)
+    ks.step_into(f0, one)
+    ref = ks.reference(f0)
+    bgk = ls.step_reference(f0, ks.mask, ks.table, ks.grid, ks.tau_inv,
+                            ks.bcp, ks.force, ks.force_model, ks.tags)
+    wet = _wet(ks)
+    return (float((ref - bgk)[:, wet].abs().max()),
+            float((one - ref)[:, wet].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('force', (None,) + FORCE_MODELS)
+@pytest.mark.parametrize('model', sorted(COLLISION))
+@pytest.mark.parametrize('scene', sorted(COLLISION_SIZES))
+def test_collision_kernel_matches_step_reference(cuda, scene, model, force):
+    """Each collision model's instantiation (no wall rows) under each force
+    model against ``step_reference``: 50 steps, wet max |df| <= 1e-5, and
+    the model moved one step away from BGK (one launch within 1e-6)."""
+    sim = twin(scene) if force else unforced(twin(scene))
+    extra = dict(force_implementation=force) if force else {}
+    r = run(with_keep_block(sim), platform='cuda', engine='kernel',
+            max_iters=0, **COLLISION_SIZES[scene], **COLLISION[model],
+            **extra)
+    ks = r.kernel
+    grid = ks.grid.name.lower()
+    assert ks.name == f'lbm_step_{COLLISION_KEY[model]}{grid}'
+    assert ks.params.force.model == ls.FORCE_CODES.get(force, 0)
+    f0 = random_feq(ks.grid, ks.shape, seed=23, device='cuda')
+    ls.reset_launch_counts()
+    fk = ks.run(f0, 50)
+    fr = f0
+    for _ in range(50):
+        fr = ks.reference(fr)
+    torch.cuda.synchronize()
+    assert ls.LAUNCHES[ks.name] == 50 == sum(ls.LAUNCHES.values())
+    wet = _wet(ks)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+    moved, err = _model_moved(ks, f0)
+    assert moved > 1e-4 and err <= 1e-6, (moved, err)
+
+
+#: the wall rows under each collision model: (wall, dim)
+COLLISION_WALLS = [(w, d) for w in ('halfbb', 'tms') for d in (2, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('force', (None,) + FORCE_MODELS)
+@pytest.mark.parametrize('model', ['mrt', 'les', 'incompressible',
+                                   'incompressible_mrt',
+                                   'incompressible_les'])
+@pytest.mark.parametrize('wall,dim', COLLISION_WALLS)
+def test_collision_kernel_with_wall_rows(cuda, wall, dim, model, force):
+    """The wall instantiations of each collision model (half-way and TMS
+    boxes closed on every axis, a block of excluded nodes) under each force
+    model: 50 steps against ``step_reference``."""
+    axes = tuple(range(dim))
+    size = dict(box_cfg(dim, axes),
+                **(dict(lat_nx=72, lat_ny=40, lat_nz=24) if dim == 3
+                   else dict(lat_nx=300, lat_ny=120)))
+    extra = dict(force_implementation=force) if force else {}
+    r = run(box_sim(WALLS[wall], dim, axes, ACCEL if force else None),
+            platform='cuda', engine='kernel', max_iters=0, visc=0.1,
+            **size, **COLLISION[model], **extra)
+    ks = r.kernel
+    assert ks.name == f'lbm_step_wall_{ks.grid.name.lower()}'
+    f0 = random_feq(ks.grid, ks.shape, seed=24, device='cuda')
+    fk = ks.run(f0, 50)
+    fr = f0
+    for _ in range(50):
+        fr = ks.reference(fr)
+    torch.cuda.synchronize()
+    assert ks.launches == 50
+    wet = _wet(ks)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+    moved, err = _model_moved(ks, f0)
+    assert moved > 1e-4 and err <= 1e-6, (moved, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', ['mrt', 'les', 'incompressible'])
+@pytest.mark.parametrize('dim,axis', sorted(FACE_SIZES))
+def test_collision_kernel_on_every_face(cuda, dim, axis, model):
+    """Native-BC faces normal to each axis (regularized, parabolic inlet
+    thinned, Guo force) close with the model's collision in ``bc_face``:
+    200 steps against ``step_reference``."""
+    sim = (forced_channel_sim('regularized', axis, 'parabolic') if dim == 3
+           else forced_channel_sim_2d('regularized', 'parabolic', axis))
+    sim = with_patch_row_mix(with_keep_block(sim), axis)
+    r = run(sim, platform='cuda', engine='kernel', max_iters=0, visc=0.1,
+            **FACE_SIZES[dim, axis], **COLLISION[model])
+    ks = r.kernel
+    assert ks.vary and ks.params.coll.model == ls.MODEL_CODES.get(
+        COLLISION[model].get('model'),
+        2 if 'subgrid' in COLLISION[model] else 0)
+    f0 = random_feq(ks.grid, ks.shape, seed=25, device='cuda')
+    fk = ks.run(f0, 200)
+    fr = f0
+    for _ in range(200):
+        fr = ks.reference(fr)
+    torch.cuda.synchronize()
+    assert float((fk - fr)[:, _wet(ks)].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', sorted(COLLISION))
+def test_default_engine_on_cuda_runs_the_collision_model(cuda, model):
+    """Through the controller: one launch per step under the model's key,
+    and the torch engine's state within 1e-5 after 30 steps."""
+    ls.reset_launch_counts()
+    cfg = dict(SINGLE_GOLDEN_FLAGS['sphere_3d'], **COLLISION[model])
+    r = run(twin('sphere_3d'), max_iters=30, every=10, **cfg)
+    name = f'lbm_step_{COLLISION_KEY[model]}d3q19'
+    assert r.engine == 'kernel' and r.kernel.name == name
+    assert ls.LAUNCHES[name] == 30 == sum(ls.LAUNCHES.values())
+    ref = run(twin('sphere_3d'), engine='torch', max_iters=30, every=10,
+              **cfg)
+    assert bool(torch.isfinite(r.f).all())
+    assert float((r.f - ref.f)[:, _wet(r.kernel)].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_every_lbm_step_instantiation_runs_in_registers(cuda):
+    """ptxas: all 96 instantiations (2 lattices x 4 force models x wall
+    rows or not x 3 collision models x 2 equilibria), each collision
+    model's in its own library, with 0 B stack frame, no spills and at
+    most 128 registers."""
+    usage = {}
+    for code, name in ls.LIBRARIES.items():
+        lib = build.load(name)
+        for fn, use in build.ptxas_usage(lib.log).items():
+            inst = ls.instantiation(fn)
+            if inst:
+                assert ls.MODEL_CODES[inst['model']] == code, (name, fn)
+                usage[fn] = use
+    kinds = {tuple(ls.instantiation(fn).values()) for fn in usage}
+    assert len(usage) == len(kinds) == 2 * 4 * 2 * 3 * 2
+    for fn, use in usage.items():
+        assert use['stack_frame'] == use['spill_stores'] \
+            == use['spill_loads'] == 0, (fn, use)
+        assert use['registers'] <= 128, (fn, use)
 
 
 BINARY_SIZES = {

@@ -105,7 +105,7 @@ def test_port_modules_are_packaged():
     # dead code (the patch kernel went when lbm_step took over its work)
     assert sorted(os.listdir(csrc)) == [
         'fe_step.cu', 'lattice_tables.cuh', 'lbm_common.cuh', 'lbm_step.cu',
-        'sc_multi.cu']
+        'lbm_step_les.cu', 'lbm_step_mrt.cu', 'sc_multi.cu']
 
 
 def test_package_data_carries_every_file_a_build_hashes():
@@ -125,8 +125,12 @@ def test_package_data_carries_every_file_a_build_hashes():
     patterns = data['sailfish_tpu_torch']
     root = os.path.dirname(sailfish_tpu_torch.__file__)
     sources = sorted(build.CSRC.glob('*.cu'))
-    assert len(sources) == 3
+    assert len(sources) == 5
     files = {f for src in sources for f in build.hashed_files(src)}
+    # a source that builds lbm_step.cu with another collision model hashes
+    # it too
+    assert build.CSRC / 'lbm_step.cu' in build.hashed_files(
+        build.CSRC / 'lbm_step_mrt.cu')
     assert {f.suffix for f in files} == {'.cu', '.cuh'}
     for f in files:
         rel = os.path.relpath(f, root).replace(os.sep, '/')

@@ -130,10 +130,10 @@ def test_keep_codes_and_uniformity():
 
 @pytest.mark.parametrize('cfg,match', [
     (dict(precision='double'), 'fp32 only'),
-    (dict(incompressible=True), 'incompressible'),
+    (dict(lat_nx=4, lat_ny=70000), 'y and z extents above 65535'),
 ])
 def test_ineligible_configurations(cfg, match):
-    r = cpu_runner(twin('ldc_2d'), lat_nx=8, lat_ny=8, **cfg)
+    r = cpu_runner(twin('ldc_2d'), **{'lat_nx': 8, 'lat_ny': 8, **cfg})
     assert any(match in why for why in ls.kernel_ineligibility(r.builder))
 
 
@@ -185,7 +185,9 @@ def test_params_layout_matches_the_c_struct():
     # int nx, ny, nz, nbc; float tau_inv; LBMBC bc[16] with LBMBC = 4
     # ints/floats + float[3]; then LBMVary vary[16] with LBMVary = int
     # varies, lo[3], ext[3], offset: 32 B a row; then LBMForce = int model,
-    # float a[3], shift[3], pref: 32 B. No lattice table (the
+    # float a[3], shift[3], pref: 32 B; then LBMCollide = int model,
+    # incompressible, float s_e, s_o, tau, tau2, les_c: 28 B. No lattice
+    # table (the
     # kernel's are compile-time: 540 B less than with c, w and opp), and
     # no member is wider than 4 bytes (an 8-byte one changes the block's
     # alignment, which once slowed the kernel by 20 %)
@@ -195,8 +197,10 @@ def test_params_layout_matches_the_c_struct():
     assert ctypes.sizeof(ls._Vary) == 32
     assert ls._Params.force.offset == 468 + 16 * 32 == 980
     assert ctypes.sizeof(ls._Force) == 32
-    assert ctypes.sizeof(ls._Params) == 980 + 32 == 1012
-    for struct in (ls._BC, ls._Vary, ls._Force, ls._Params):
+    assert ls._Params.coll.offset == 980 + 32 == 1012
+    assert ctypes.sizeof(ls._Collide) == 28
+    assert ctypes.sizeof(ls._Params) == 1012 + 28 == 1040
+    for struct in (ls._BC, ls._Vary, ls._Force, ls._Collide, ls._Params):
         assert ctypes.alignment(struct) == 4
 
 
@@ -224,8 +228,9 @@ def test_kernel_params_carry_the_force(model, shift):
         assert bytes(bare.force) == bytes(ctypes.sizeof(ls._Force))
     assert ls.FORCE_CODES == {'guo': 1, 'edm': 2, 'velocity_shift': 3}
     # LBMTables: int q, dim; int c[27][3]; float w[27]; int opp[27];
-    # int slip[3][27]
-    assert ctypes.sizeof(ls._Tables) == 4 * (2 + 27 * 3 + 27 + 27 + 3 * 27)
+    # int slip[3][27]; float minv[27][4]
+    assert ctypes.sizeof(ls._Tables) == 4 * (2 + 27 * 3 + 27 + 27 + 3 * 27
+                                             + 27 * 4)
 
 
 class _FakeLib:
@@ -278,6 +283,12 @@ def test_kernel_function_checks_the_params_size():
                                    'lbm_step_dyn_d3q19',
                                    'lbm_step_force_d2q9',
                                    'lbm_step_force_d3q19',
+                                   'lbm_step_incomp_d2q9',
+                                   'lbm_step_incomp_d3q19',
+                                   'lbm_step_les_d2q9',
+                                   'lbm_step_les_d3q19',
+                                   'lbm_step_mrt_d2q9',
+                                   'lbm_step_mrt_d3q19',
                                    'lbm_step_vary_d2q9',
                                    'lbm_step_vary_d3q19',
                                    'lbm_step_wall_d2q9',

@@ -73,9 +73,9 @@ def test_step_matches_jax_xla_engine(scene):
 
 
 @pytest.mark.parametrize('kwargs,match', [
-    (dict(model='mrt'), 'model=mrt'),
-    (dict(smagorinsky=0.03), 'Smagorinsky'),
-    (dict(model='trt'), 'model=trt'),
+    (dict(model='elbm'), 'model=elbm \\(the entropic ELBM collision\\)'),
+    (dict(model='elbm', smagorinsky=0.03), 'ELBM'),
+    (dict(model='mrt', equilibrium='elbm'), 'equilibrium=elbm'),
     (dict(equilibrium='shallow_water'), 'equilibrium=shallow_water'),
     (dict(sc_coupling=-5.0), 'Shan-Chen'),
     (dict(equilibrium='elbm'), 'equilibrium=elbm'),

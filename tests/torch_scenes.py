@@ -553,7 +553,8 @@ def walls_moved(ks, f0):
             row = row._replace(type_id=nt.NTFullBBWall.id, orientation=1)
         table.append(row)
     bb = ls.step_reference(f0, ks.mask, table, ks.grid, ks.tau_inv, ks.bcp,
-                           ks.force, ks.force_model)
+                           ks.force, ks.force_model, None, ks.rates,
+                           ks.smagorinsky, ks.incompressible)
     return float((ks.reference(f0) - bb)[:, walls].abs().max())
 
 

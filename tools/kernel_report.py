@@ -3,6 +3,7 @@
 
     python3 tools/kernel_report.py [--sources fe_step sc_multi lbm_step]
                                    [--match fe_step_kernel ...]
+                                   [--baseline DIR]
 
 Builds the named ``sailfish_tpu_torch/ops/csrc`` sources (``ops/build``),
 and for every kernel function whose mangled name contains one of the
@@ -17,6 +18,15 @@ and for every kernel function whose mangled name contains one of the
   integer arithmetic, conversions, uniform-datapath and control
   instructions;
 * whether ``ncu`` is on the PATH or under the toolkit.
+
+With ``--baseline DIR`` (another checkout, for example ``git archive
+<commit> | tar -x -C build/parent``) it also builds DIR's
+``lbm_step.cu`` and sets each of its ``lbm_step_kernel`` instantiations
+beside this tree's instantiation of the same lattice, force model and wall
+switch with BGK and the compressible equilibrium (the template arguments
+``ops/lbm_step.instantiation`` reads from the mangled names): registers,
+stack frame, spills and the SASS count of every class, and whether all of
+them are the same.
 
 Ends with one JSON line. Needs ``nvcc`` and ``cuobjdump`` (the CUDA
 toolkit), not a GPU.
@@ -95,14 +105,18 @@ def sass_counts(so_path, cuobjdump):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--sources', nargs='+',
-                    default=['fe_step', 'sc_multi', 'lbm_step'])
+                    default=['fe_step', 'sc_multi', 'lbm_step',
+                             'lbm_step_mrt', 'lbm_step_les'])
     ap.add_argument('--match', nargs='*', default=[])
+    ap.add_argument('--baseline', default=None)
     args = ap.parse_args()
     cuobjdump = find_tool('cuobjdump')
     ncu = find_tool('ncu')
     print(f'cuobjdump: {cuobjdump}; ncu: {ncu}', flush=True)
     report = {}
     for src, lib in build.load_all(args.sources).items():
+        print(f'build {src}: {lib.path.name} in {lib.seconds:.1f} s (0 = '
+              'cached)', flush=True)
         usage = build.ptxas_usage(lib.log)
         sass = sass_counts(lib.path, cuobjdump) if cuobjdump else {}
         for fn in sorted(set(usage) | set(sass)):
@@ -118,7 +132,62 @@ def main():
                   f'frame {row.get("stack_frame")} B, spill '
                   f'{row.get("spill_stores")} / {row.get("spill_loads")} B; '
                   f'SASS {mix}', flush=True)
-    print(json.dumps({'ncu': ncu, 'kernels': report}))
+    out = {'ncu': ncu, 'kernels': report}
+    if args.baseline:
+        out['baseline'] = baseline_report(args.baseline, report, cuobjdump)
+    print(json.dumps(out))
+
+
+def baseline_report(tree, report, cuobjdump):
+    """Each ``lbm_step_kernel`` instantiation of ``tree``'s lbm_step.cu
+    beside this tree's of the same (lattice, force model, wall switch) with
+    BGK and the compressible equilibrium; prints one line each and returns
+    {'instantiations': [...], 'all_same': bool}."""
+    from sailfish_tpu_torch.ops import lbm_step as ls
+    src = Path(tree) / 'sailfish_tpu_torch' / 'ops' / 'csrc' / 'lbm_step.cu'
+    lib = build.build_library(src)
+    usage = build.ptxas_usage(lib.log)
+    sass = sass_counts(lib.path, cuobjdump) if cuobjdump else {}
+
+    def key(inst):
+        return inst['dim'], inst['force'], inst['walls']
+
+    mine = {}
+    for fn, row in report.items():
+        inst = ls.instantiation(fn)
+        if inst and inst.get('model', 'bgk') == 'bgk' \
+                and not inst.get('incompressible', False):
+            mine[key(inst)] = (fn, row)
+    rows, all_same = [], True
+    for fn in sorted(usage):
+        inst = ls.instantiation(fn)
+        if inst is None:
+            continue
+        base = dict(usage[fn], sass=dict(sass.get(fn, {})))
+        new_fn, new = mine.get(key(inst), (None, None))
+        fields = ('registers', 'stack_frame', 'spill_stores', 'spill_loads')
+        same = new is not None and all(
+            base.get(f) == new.get(f) for f in fields) \
+            and base['sass'] == new['sass']
+        all_same &= same
+        diff = '' if same or new is None else ', '.join(
+            f'{c} {base["sass"].get(c, 0)} -> {new["sass"].get(c, 0)}'
+            for c in sorted(set(base['sass']) | set(new['sass']))
+            if base['sass'].get(c, 0) != new['sass'].get(c, 0))
+        print(f'baseline {fn} (d{inst["dim"]}q{inst["q"]}, force '
+              f'{inst["force"]}, walls {int(inst["walls"])}): '
+              f'{base.get("registers")} registers, '
+              f'{base["sass"].get("total")} SASS; this tree {new_fn}: '
+              + ('not built' if new is None else
+                 f'{new.get("registers")} registers, '
+                 f'{new["sass"].get("total")} SASS')
+              + (': the same, class by class' if same else
+                 f': differs {diff}'), flush=True)
+        rows.append(dict(baseline=fn, tree=new_fn, same=same,
+                         baseline_usage=base, tree_usage=new))
+    print(f'baseline instantiations the same as this tree\'s, class by '
+          f'class: {all_same} ({len(rows)} instantiations)', flush=True)
+    return dict(instantiations=rows, all_same=all_same)
 
 
 if __name__ == '__main__':

@@ -20,7 +20,12 @@ after 5 warm-up steps, and counts the kernel launches of one step:
   cylinder (a constant body force, Guo forcing: the kernel's forcing
   mode), and ``sphere_3d_unforced`` / ``cylinder_unforced``: the same
   geometries without the force, so the forced step is timed beside the
-  unforced one.
+  unforced one;
+* the collision-model mode, a scene with a suffix: ``_mrt`` (``--model=mrt``),
+  ``_les`` (``--subgrid=les-smagorinsky``), ``_incomp``
+  (``--incompressible``): ``ldc_3d_mrt``, ``ldc_3d_les``,
+  ``ldc_3d_incomp``, ``ldc_2d_mrt``, ``sphere_3d_les`` and
+  ``cylinder_mrt``. A tree without the mode refuses them.
 
 With ``--baseline DIR``, DIR holds another checkout (for example
 ``git archive <commit> | tar -x -C build/parent``): every scene is timed in
@@ -48,7 +53,13 @@ SCENES = ('ldc_3d', 'ldc_2d', 'parabolic_inlet_3d', 'parabolic_inlet_2d',
           'uniform_inlet_3d', 'uniform_inlet_2d',
           'parabolic_inlet_x_3d', 'parabolic_inlet_x_2d',
           'uniform_inlet_x_3d', 'uniform_inlet_x_2d',
-          'sphere_3d', 'sphere_3d_unforced', 'cylinder', 'cylinder_unforced')
+          'sphere_3d', 'sphere_3d_unforced', 'cylinder', 'cylinder_unforced',
+          'ldc_3d_mrt', 'ldc_3d_les', 'ldc_3d_incomp', 'ldc_2d_mrt',
+          'sphere_3d_les', 'cylinder_mrt')
+#: scene suffix -> the collision model's flags
+COLLISION = {'_mrt': dict(model='mrt'),
+             '_les': dict(subgrid='les-smagorinsky'),
+             '_incomp': dict(incompressible=True)}
 #: the force-driven scenes -> dimensions
 FORCED = {'sphere_3d': 3, 'cylinder': 2}
 SIZES = {3: (256, 256, 256), 2: (4096, 4096)}
@@ -57,6 +68,10 @@ SIZES = {3: (256, 256, 256), 2: (4096, 4096)}
 def scene_setup(scene, ts):
     """(sim class, config flags) of ``scene`` from the tree's
     ``torch_scenes`` module ``ts``."""
+    for suffix, flags in COLLISION.items():
+        if scene.endswith(suffix):
+            sim_cls, cfg = scene_setup(scene[:-len(suffix)], ts)
+            return sim_cls, dict(cfg, **flags)
     base = scene.replace('_unforced', '')
     dim = FORCED.get(base) or (3 if '3d' in scene else 2)
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), SIZES[dim]))

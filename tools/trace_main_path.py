@@ -9,6 +9,8 @@ past a sphere and a cylinder (Guo forcing inside the kernel), the
 half-way duct (``duct_flow``), the pipe with time-dependent densities
 (``womersley``), the ramped SpatialArray inlet (``poiseuille_sa``, whose
 parameter block is rewritten by small PyTorch launches every step), the
+collision-model paths (``ldc_3d_mrt``, ``sphere_3d_les``,
+``cylinder_mrt``), the
 parabolic-inlet
 channels (``tests/torch_scenes``: one ``lbm_step`` launch each step, its BC
 nodes reading per-node parameters; the inlet normal to z / y or to x), the
@@ -77,6 +79,14 @@ SCENES = {
     'sc_separation_2d': (binary_twin, (4096, 4096), {}),
     'fe_separation_3d': (binary_twin, (256, 256, 256), {}),
     'fe_separation_2d': (binary_twin, (4096, 4096), {}),
+    # the collision-model mode: the MRT cavity, the sphere under the
+    # Smagorinsky model and the cylinder under MRT (both with Guo)
+    'ldc_3d_mrt': (lambda s: twin('ldc_3d'), (256, 256, 256),
+                   {'model': 'mrt'}),
+    'sphere_3d_les': (lambda s: twin('sphere_3d'), (256, 256, 256),
+                      {'subgrid': 'les-smagorinsky'}),
+    'cylinder_mrt': (lambda s: twin('cylinder'), (4096, 4096),
+                     {'model': 'mrt'}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
