@@ -51,7 +51,15 @@ version on the card from seeded random states:
   state away from BGK;
 * the Shan-Chen density pre-pass and K-component step (``ops/sc_multi``)
   against ``rho_reference`` and ``sc_multi_reference`` on the binary
-  separation scenes (periodic 2D and 3D, and the walled 3D box);
+  separation scenes (periodic 2D and 3D, and the walled 3D box), and in
+  every mode of the step (launches counted as ``sc_multi_force_<grid>``,
+  ``sc_multi_k3_<grid>``, ``sc_multi_k3_force_<grid>``): Rayleigh-Taylor
+  (a Guo force on one component), the walled 3D box with a Guo force on
+  each component, the ternary drops (K = 3, classic potential,
+  self-couplings), the ternary 3D separation under both potentials, and a
+  forced ternary mixture in 2D and in 3D; and the mixtures the kernels
+  cannot run (half-way walls, K = 4, a per-node or DynamicValue force)
+  raise on the default engine, naming the reason;
 * the free-energy step (``ops/fe_step``, after the same pre-pass on the
   order parameter) against ``fe_step_reference`` on the five free-energy
   scenes (periodic separations with BGK and FE-MRT, walled channels with
@@ -76,8 +84,14 @@ BGK on the cavities' geometry and buffers), the half-way duct
 densities at its ends (``womersley`` 256^3) and the ramped SpatialArray
 inlet (``poiseuille_sa`` 4096^2), one launch per step each, with the share
 of a step that the per-step values cost, the binary Shan-Chen separations
-and the free-energy separations (each D3Q19 256^3, D2Q9 4096^2), checks
-the results, times
+and the free-energy separations (each D3Q19 256^3, D2Q9 4096^2), the
+forced Rayleigh-Taylor mixture (``sc_rayleigh_taylor_2d`` 4096^2), the
+ternary drops (``ternary_sc_drop_2d`` 4096^2) and the ternary separation
+(``ternary_separation_3d`` 256^3), each with one pre-pass and one step
+launch per step under the mode's name, then the three forced modes
+without a main path of their own for 500 steps each at the same sizes
+(each forced kernel also timed in turns against the unforced one on the
+same buffers), checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
 demixing to its end, times every kernel against its plain version and its
@@ -94,6 +108,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -110,16 +125,18 @@ from sailfish_tpu_torch.ops.step import FORCE_MODELS
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, 'tests'))
 from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
-                          FORCED_SCENES, SC_FORCED_SCENES,
+                          FORCED_SCENES, MIX_ACCELS, SC_HALFWAY_SCENES,
                           SC_MORE_GOLDEN_FLAGS, SC_MORE_SCENES,
-                          SINGLE_GOLDEN_FLAGS, WALL_DYNAMIC_SCENES, WALLS,
-                          binary_twin, box_cfg, box_sim, channel_sim,
-                          channel_sim_2d, forced_channel_sim,
+                          SINGLE_GOLDEN_FLAGS, TERNARY_GOLDEN_FLAGS,
+                          WALL_DYNAMIC_SCENES, WALLS, binary_twin, box_cfg,
+                          box_sim, channel_sim, channel_sim_2d,
+                          forced_channel_sim, forced_mixture,
                           halfbb_beside_parabolic_inlet, parabolic_profile,
                           random_binary_state, random_fe_state, random_feq,
-                          run, slip_sim, time_series_density_sim,
-                          tms_channel_sim, twin, unforced, walls_moved,
-                          wet_map, with_keep_block, with_patch_row_mix)
+                          run, slip_sim, ternary_separation, ternary_twin,
+                          time_series_density_sim, tms_channel_sim, twin,
+                          unforced, walls_moved, wet_map, with_keep_block,
+                          with_patch_row_mix)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
@@ -129,6 +146,41 @@ SEP_3D_WALLS = binary_twin('sc_separation_3d_walls')
 FE_SCENES = ('fe_separation_2d', 'fe_separation_3d', 'fe_poiseuille_2d',
              'fe_viscous_fingering', 'binary_microchannel')
 FE = {scene: binary_twin(scene) for scene in FE_SCENES}
+RT_2D = binary_twin('sc_rayleigh_taylor_2d')
+DROP_3 = ternary_twin('sc_drop_2d')
+TERNARY_3D = ternary_separation(3)
+#: the accelerations of the forced mixture paths: ``MIX_ACCELS`` / 1000, so
+#: 2000 steps from rest stay below |u| = 0.01
+MAIN_ACCELS = tuple(tuple(1e-3 * c for c in a) for a in MIX_ACCELS)
+#: the Shan-Chen main paths: name -> (sim class, size, step launch name,
+#: demixing check: None, or the number of components, first to last, whose
+#: density contrast must pass 0.5). The binary separations demix (rho's
+#: contrast, and rho and phi anticorrelate); Rayleigh-Taylor starts
+#: separated under gravity; the ternary drops stay drops; the ternary
+#: separation demixes in all three (contrast 3.3-3.7 after 2000 steps of
+#: the torch engine at 32^3 on the CPU)
+SC_MAIN = {
+    'sc_separation_3d': (SEP_3D, (256, 256, 256), 'sc_multi_d3q19', 1),
+    'sc_separation_2d': (SEP_2D, (4096, 4096), 'sc_multi_d2q9', 1),
+    'sc_rayleigh_taylor_2d': (RT_2D, (4096, 4096), 'sc_multi_force_d2q9',
+                              None),
+    'ternary_sc_drop_2d': (DROP_3, (4096, 4096), 'sc_multi_k3_d2q9', None),
+    'ternary_separation_3d': (TERNARY_3D, (256, 256, 256),
+                              'sc_multi_k3_d3q19', 3),
+}
+#: the forced modes that no main path runs, driven through the controller
+#: at the main paths' sizes for 2 chunks of 250 steps: the binary
+#: separation, the ternary drops and the ternary separation with
+#: ``MAIN_ACCELS`` on every component
+SC_MODE_MAIN = {
+    'sc_separation_3d_forced': (forced_mixture(SEP_3D, MAIN_ACCELS),
+                                (256, 256, 256), 'sc_multi_force_d3q19'),
+    'ternary_sc_drop_2d_forced': (forced_mixture(DROP_3, MAIN_ACCELS),
+                                  (4096, 4096), 'sc_multi_k3_force_d2q9'),
+    'ternary_separation_3d_forced': (forced_mixture(TERNARY_3D, MAIN_ACCELS),
+                                     (256, 256, 256),
+                                     'sc_multi_k3_force_d3q19'),
+}
 #: the force-driven main paths (Guo forcing): scene -> size
 FORCED_MAIN = {'sphere_3d': (256, 256, 256), 'cylinder': (4096, 4096)}
 #: their constant acceleration (examples/torch/sphere_3d.py, cylinder.py)
@@ -189,11 +241,25 @@ FE_RHO_TOL = 1e-6
 FE_PHI_TOL = 1e-9
 #: bytes moved per node per step: Q floats read + Q written + 1 mask byte
 BYTES = {'D3Q19': 2 * 19 * 4 + 1, 'D2Q9': 2 * 9 * 4 + 1}
-#: bytes moved per node per step by the binary (K = 2) path: the pre-pass
-#: reads K*Q floats and writes K; the step reads K*Q floats, writes K*Q,
-#: reads K densities and the mask byte
-SC_BYTES = {'D3Q19': 2 * (19 * 4 + 4) + 2 * (2 * 19 * 4 + 4) + 1,
-            'D2Q9': 2 * (9 * 4 + 4) + 2 * (2 * 9 * 4 + 4) + 1}
+#: bytes moved per node by one K-component Shan-Chen pre-pass (K*Q floats
+#: read, K written) and by one step (K*Q floats read and written, K
+#: densities and the mask byte read); Q by lattice
+SC_Q = {'D3Q19': 19, 'D2Q9': 9}
+
+
+def sc_prepass_bytes(grid_name, K):
+    return K * (SC_Q[grid_name] * 4 + 4)
+
+
+def sc_step_bytes(grid_name, K):
+    return 2 * K * SC_Q[grid_name] * 4 + K * 4 + 1
+
+
+def sc_bytes(grid_name, K):
+    """Bytes per node and step of a Shan-Chen path: pre-pass + step (473 /
+    233 B for K = 2, 709 / 349 B for K = 3, D3Q19 / D2Q9)."""
+    return sc_prepass_bytes(grid_name, K) + sc_step_bytes(grid_name, K)
+
 #: bytes moved per node per step by the free-energy path: the pre-pass
 #: reads Q floats and writes phi; the step reads 2*Q floats, writes 2*Q,
 #: reads phi and the mask byte (plus 1 orientation byte with walls)
@@ -222,10 +288,21 @@ NODE_BYTES = {
     'lbm_step_mrt_d3q19': BYTES['D3Q19'],
     'lbm_step_les_d3q19': BYTES['D3Q19'],
     'lbm_step_mrt_d2q9': BYTES['D2Q9'],
-    'rho_poststream_d3q19': 2 * (19 * 4 + 4),
-    'rho_poststream_d2q9': 2 * (9 * 4 + 4),
-    'sc_multi_d3q19': 2 * 2 * 19 * 4 + 2 * 4 + 1,
-    'sc_multi_d2q9': 2 * 2 * 9 * 4 + 2 * 4 + 1,
+    'rho_poststream_d3q19': sc_prepass_bytes('D3Q19', 2),
+    'rho_poststream_d2q9': sc_prepass_bytes('D2Q9', 2),
+    'sc_multi_d3q19': sc_step_bytes('D3Q19', 2),
+    'sc_multi_d2q9': sc_step_bytes('D2Q9', 2),
+    # the Shan-Chen modes: the accelerations are in the parameter block;
+    # K = 3 reads and writes a third component (the pre-pass's K = 3 row
+    # times the launches of the ternary paths)
+    'sc_multi_force_d3q19': sc_step_bytes('D3Q19', 2),
+    'sc_multi_force_d2q9': sc_step_bytes('D2Q9', 2),
+    'sc_multi_k3_d3q19': sc_step_bytes('D3Q19', 3),
+    'sc_multi_k3_d2q9': sc_step_bytes('D2Q9', 3),
+    'sc_multi_k3_force_d3q19': sc_step_bytes('D3Q19', 3),
+    'sc_multi_k3_force_d2q9': sc_step_bytes('D2Q9', 3),
+    'rho_poststream_k3_d3q19': sc_prepass_bytes('D3Q19', 3),
+    'rho_poststream_k3_d2q9': sc_prepass_bytes('D2Q9', 3),
     'fe_step_d3q19': 2 * 2 * 19 * 4 + 4 + 1,
     'fe_step_d2q9': 2 * 2 * 9 * 4 + 4 + 1,
 }
@@ -236,7 +313,9 @@ NODE_BYTES = {
 #: correction, which runs with or without a force; LES a second Q-term pass for the
 #: stress, ~14 per direction, and ~20 per node for the rate; the
 #: native-BC chain ~60 per direction, on BC nodes only; the pre-pass one add per direction
-#: and component; Shan-Chen two BGK components plus the force stencil; the
+#: and component; Shan-Chen K BGK components plus the force stencil, ~6
+#: per direction and component, ~10 more per direction and component for
+#: the Guo term, ~4 more for the classic potential's exp; the
 #: free-energy step ~40 per direction and component). Against 67 TFLOP/s
 #: each stays below 0.4 of its kernel's byte time: the bytes bound every
 #: kernel.
@@ -254,6 +333,16 @@ NODE_OPS = {
     'rho_poststream_d3q19': 2 * 19, 'rho_poststream_d2q9': 2 * 9,
     'sc_multi_d3q19': 2 * (23 * 19 + 6 * 19),
     'sc_multi_d2q9': 2 * (23 * 9 + 4 * 9),
+    # the main paths: Rayleigh-Taylor and the forced separation (Guo), the
+    # ternary drops (classic), the ternary separation (linear), the forced
+    # ternary mixtures (classic drops, linear separation)
+    'sc_multi_force_d3q19': 2 * (33 * 19 + 6 * 19),
+    'sc_multi_force_d2q9': 2 * (33 * 9 + 4 * 9),
+    'sc_multi_k3_d3q19': 3 * (23 * 19 + 6 * 19),
+    'sc_multi_k3_d2q9': 3 * (23 * 9 + 8 * 9),
+    'sc_multi_k3_force_d3q19': 3 * (33 * 19 + 6 * 19),
+    'sc_multi_k3_force_d2q9': 3 * (33 * 9 + 8 * 9),
+    'rho_poststream_k3_d3q19': 3 * 19, 'rho_poststream_k3_d2q9': 3 * 9,
     'fe_step_d3q19': 2 * 40 * 19, 'fe_step_d2q9': 2 * 40 * 9,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
@@ -269,6 +358,24 @@ KERNELS = {
                             'sailfish_tpu/ops/pallas_step2d.py:1069'),
     'sc_multi_d3q19': ('sc_multi.cu', 'sailfish_tpu/ops/pallas_multi3d.py:57'),
     'sc_multi_d2q9': ('sc_multi.cu', 'sailfish_tpu/ops/pallas_multi2d.py:91'),
+    # the K = 3 and forced modes of make_kernel_3d_sc_multi /
+    # make_kernel_2d_sc_multi, and the K = 3 pre-pass
+    'sc_multi_force_d3q19': ('sc_multi.cu',
+                             'sailfish_tpu/ops/pallas_multi3d.py:57'),
+    'sc_multi_force_d2q9': ('sc_multi.cu',
+                            'sailfish_tpu/ops/pallas_multi2d.py:91'),
+    'sc_multi_k3_d3q19': ('sc_multi.cu',
+                          'sailfish_tpu/ops/pallas_multi3d.py:57'),
+    'sc_multi_k3_d2q9': ('sc_multi.cu',
+                         'sailfish_tpu/ops/pallas_multi2d.py:91'),
+    'sc_multi_k3_force_d3q19': ('sc_multi.cu',
+                                'sailfish_tpu/ops/pallas_multi3d.py:57'),
+    'sc_multi_k3_force_d2q9': ('sc_multi.cu',
+                               'sailfish_tpu/ops/pallas_multi2d.py:91'),
+    'rho_poststream_k3_d3q19': ('sc_multi.cu',
+                                'sailfish_tpu/ops/pallas_step.py:2409'),
+    'rho_poststream_k3_d2q9': ('sc_multi.cu',
+                               'sailfish_tpu/ops/pallas_step2d.py:1069'),
     'fe_step_d3q19': ('fe_step.cu', 'sailfish_tpu/ops/pallas_multi3d.py:820'),
     'fe_step_d2q9': ('fe_step.cu', 'sailfish_tpu/ops/pallas_multi2d.py:756'),
     'lbm_step_vary_d3q19': ('lbm_step.cu',
@@ -312,6 +419,18 @@ MODES = {
                           'tau field (_collide_prepass) under Guo',
     'lbm_step_mrt_d2q9': 'make_kernel_2d, collision-model mode: MRT with the '
                          'conserved-moment correction (_mrt_corr) under Guo',
+    'sc_multi_force_d3q19': 'make_kernel_3d_sc_multi, K = 2 with Guo forces '
+                            '(pallas_multi3d.py:548-575)',
+    'sc_multi_force_d2q9': 'make_kernel_2d_sc_multi, K = 2 with Guo forces '
+                           '(pallas_multi2d.py:521-545)',
+    'sc_multi_k3_d3q19': 'make_kernel_3d_sc_multi, K = 3',
+    'sc_multi_k3_d2q9': 'make_kernel_2d_sc_multi, K = 3',
+    'sc_multi_k3_force_d3q19': 'make_kernel_3d_sc_multi, K = 3 with Guo '
+                               'forces',
+    'sc_multi_k3_force_d2q9': 'make_kernel_2d_sc_multi, K = 3 with Guo '
+                              'forces',
+    'rho_poststream_k3_d3q19': 'make_rho_kernel_3d, K = 3',
+    'rho_poststream_k3_d2q9': 'make_rho_kernel_2d, K = 3',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -329,8 +448,16 @@ CSRC = 'sailfish_tpu_torch/ops/csrc/'
 DEVICE = 'cuda'
 
 
+T0 = time.perf_counter()
+
+
 def say(*parts):
     print(*parts, flush=True)
+
+
+def phase_done(what):
+    """Print the seconds since the script started, after ``what``."""
+    say(f'[{time.perf_counter() - T0:.1f} s] {what} done')
 
 
 def compare(name, sim_cls, steps=200, force_model=None, bc=True, **cfg):
@@ -565,9 +692,7 @@ def golden(scene, sim_cls, golden_name=None, engine='kernel', **cfg):
 def sc_reference_step(ks, grid, fs):
     """One step of the plain versions: the pre-pass, then the coupled
     step."""
-    rhos = [sm.rho_reference(f, grid) for f in fs]
-    return sm.sc_multi_reference(fs, rhos, ks.mask, grid, ks.taus,
-                                 ks.couplings, ks.potential)
+    return ks.reference(fs, [sm.rho_reference(f, grid) for f in fs])
 
 
 def sc_errors(ks, grid, f0, steps):
@@ -593,23 +718,85 @@ def sc_errors(ks, grid, f0, steps):
 
 def sc_compare(name, sim_cls, steps=20, **cfg):
     """The Shan-Chen kernels vs their plain versions on the card from one
-    seeded near-uniform two-component state (rho, phi = 1 + U(0, 1e-3),
-    as the separation scenes start), with a block of excluded nodes."""
+    seeded near-uniform K-component state (each density 1 + U(0, 1e-3), as
+    the separation scenes start), with a block of excluded nodes. Returns
+    (step launch name, pre-pass row name, pre-pass error, step error)."""
     r = run(with_keep_block(sim_cls), platform=DEVICE, engine='kernel',
             max_iters=0, **cfg)
     ks = r.kernel
     grid = r.sim.grid
     codes = sorted(torch.unique(ks.mask).tolist())
     f0 = tuple(random_binary_state(grid, ks.shape, seed=1234,
-                                   device=DEVICE))
+                                   device=DEVICE, K=ks.K))
     rho_err, err = sc_errors(ks, grid, f0, steps)
     assert ks.launches == {ks.rho_name: steps + 1, ks.name: steps}
-    say(f'compare {name}: {grid.name} K={ks.K} {ks.shape} {ks.potential}, '
-        f'mask codes {codes}: pre-pass max|drho| = {rho_err:.3e} (tol '
+    couplings = ', '.join(f'G{j + 1}{k + 1} {g:g}'
+                          for (j, k), g in ks.couplings.items() if g)
+    forces = ', '.join(f'a{k + 1} {tuple(float(x) for x in a)}'
+                       for k, a in enumerate(ks.accels) if a is not None)
+    say(f'compare {name}: {ks.name}, {grid.name} K={ks.K} {ks.shape} '
+        f'{ks.potential}, {couplings}{", " + forces if forces else ""}, mask '
+        f'codes {codes}: pre-pass max|drho| = {rho_err:.3e} (tol '
         f'{RHO_TOL:g}); {steps} steps wet max|df| = {err:.3e} (tol {TOL:g})')
+    names = ks.name, prepass_row(ks)
     del r, ks, f0
     torch.cuda.empty_cache()
-    return grid.name, rho_err, err
+    return names + (rho_err, err)
+
+
+def prepass_row(ks):
+    """The JSON row of ``ks``'s pre-pass: ``rho_poststream_<grid>`` at K =
+    2 (and nk = 1 for free energy), ``rho_poststream_k3_<grid>`` at K =
+    3."""
+    g = ks.grid.name.lower()
+    return f'rho_poststream_k3_{g}' if ks.K == 3 else ks.rho_name
+
+
+def sc_refusals():
+    """On the card, the default engine refuses by name the mixtures the
+    kernels cannot run, and changes no engine: half-way walls, a per-node
+    force, a DynamicValue force, K = 4."""
+    from sailfish_tpu_torch.ops.multigrid import ShanChenMultiStepBuilder
+    cases = []
+    flags = SC_MORE_GOLDEN_FLAGS['sc_poiseuille_2d']
+    cases.append(('half-way walls', lambda: run(
+        binary_twin('sc_poiseuille_2d'), max_iters=0, **flags),
+        'NTHalfBBWall'))
+
+    class PerNode(SEP_2D):
+        def __init__(self, config):
+            super().__init__(config)
+            self.add_body_force(np.full((2, 64, 64), 1e-6), grid=1)
+
+    class Ramped(SEP_2D):
+        def __init__(self, config):
+            super().__init__(config)
+            self.add_body_force((0.0, lambda t: -1e-9 * t), grid=1)
+
+    small = dict(lat_nx=64, lat_ny=64)
+    cases.append(('a per-node force', lambda: run(PerNode, max_iters=0,
+                                                   **small),
+                  'space-varying body force on component 1'))
+    cases.append(('a DynamicValue force', lambda: run(Ramped, max_iters=0,
+                                                       **small),
+                  'DynamicValue body forces'))
+    r = run(SEP_2D, engine='torch', max_iters=0, **small)
+
+    def four():
+        b = ShanChenMultiStepBuilder(r.sim.grid, r.maps, [1.0] * 4,
+                                     {(0, 1): 1.0}, device=DEVICE)
+        return sm.SCMultiStep(b)
+
+    cases.append(('K = 4', four, '4 components'))
+    for what, make, reason in cases:
+        try:
+            make()
+        except NotImplementedError as exc:
+            assert reason in str(exc), (what, str(exc))
+            say(f'refused on the default engine: a mixture with {what} '
+                f'({reason!r} in: {str(exc)[:160]})')
+            continue
+        raise AssertionError(f'a mixture with {what} was not refused')
 
 
 def fe_errors(ks, f0, steps):
@@ -1108,14 +1295,20 @@ def bound_ms(name, nodes, extra_bytes=0):
             'bytes' if t_bytes >= t_ops else 'operations')
 
 
-def sc_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
-    """A binary Shan-Chen scene through the controller with the default
-    engine: the main path of the mixtures. The launch counts are zeroed
-    just before the controller runs and read just after. Checks: finite
-    fields, each component's mass (float64 sums) within ``MASS_TOL``,
-    demixing by the criteria of tests/test_binary.py:41-43, and 10 steps
-    from the final state against the plain versions; then each kernel is
-    timed alone against its plain version."""
+def sc_main_path(scene, sim_cls, size, copy_bw, name, demix=None,
+                 chunk=500, chunks=4):
+    """A Shan-Chen scene through the controller with the default engine:
+    a main path of the mixtures, whose step launches count under ``name``.
+    The launch counts are zeroed just before the controller runs and read
+    just after: one pre-pass and one step launch per step, no other kernel.
+    Checks: finite fields, each component's mass (float64 sums) within
+    ``MASS_TOL`` (Guo forcing conserves it too), with ``demix`` = n the
+    demixing of tests/test_binary.py:41-43 (a density contrast above 0.5 in
+    each of the first n components; for K = 2 rho and phi anticorrelated
+    below -0.9), and 10 steps from the final state against the plain
+    versions; then each kernel is timed alone against its plain version,
+    and a forced kernel in turns against the same scene's unforced one.
+    Returns {JSON row: measurements}."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
     steps = chunk * chunks
 
@@ -1131,6 +1324,7 @@ def sc_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     counts = dict(sm.LAUNCHES)
     assert r.engine == 'kernel', r.engine
     ks = r.kernel
+    assert ks.name == name, (ks.name, name)
     assert counts[ks.name] == counts[ks.rho_name] == steps \
         == r.sim.iteration, (counts, steps)
     assert sum(counts.values()) == 2 * steps, counts
@@ -1140,25 +1334,37 @@ def sc_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     drift = max(abs(m - m0) / m0 for m, m0 in zip(mass, r.sim.mass0))
     assert drift <= MASS_TOL, (mass, r.sim.mass0)
     r._fields_to_host()
-    rho, phi = r.sim.rho, r.sim.phi
+    fields = ['rho', 'phi', 'theta'][:ks.K]
     shape = tuple(reversed(size))
-    for name, arr in (('rho', rho), ('phi', phi), ('vx', r.sim.vx)):
-        assert arr.shape == shape and np.all(np.isfinite(arr)), name
-    contrast = float(np.ptp(rho))
-    corr = float(np.corrcoef(rho.ravel(), phi.ravel())[0, 1])
-    assert contrast > 0.5 and corr < -0.9, (contrast, corr)
+    for fname in fields + ['vx']:
+        arr = getattr(r.sim, fname)
+        assert arr.shape == shape and np.all(np.isfinite(arr)), fname
+    contrast = [float(np.ptp(getattr(r.sim, fname))) for fname in fields]
+    checks = ''
+    if demix:
+        assert min(contrast[:demix]) > 0.5, contrast
+        checks = f'; density contrast {[round(c, 3) for c in contrast]}'
+        if ks.K == 2:
+            corr = float(np.corrcoef(r.sim.rho.ravel(),
+                                     r.sim.phi.ravel())[0, 1])
+            assert corr < -0.9, corr
+            checks += f', corr(rho, phi) {corr:.4f}'
+    vmax = float(max(np.abs(getattr(r.sim, f'v{a}')).max()
+                     for a in 'xyz'[:len(size)]))
     grid = r.sim.grid
     mlups = statistics.median(r.mlups_history[1:])
-    eff = mlups * 1e6 * SC_BYTES[grid.name]
+    node_bytes = sc_bytes(grid.name, ks.K)
+    eff = mlups * 1e6 * node_bytes
+    forces = ', '.join(f'a{k + 1} {tuple(float(x) for x in a)}'
+                       for k, a in enumerate(ks.accels) if a is not None)
     say(f'main path {scene} {"x".join(map(str, size))} ({grid.name}, K='
-        f'{ks.K}, engine {r.engine}): {counts[ks.rho_name]} '
-        f'{ks.rho_name} + {counts[ks.name]} {ks.name} launches; MLUPS per '
-        f'{chunk}-step chunk {[round(m, 1) for m in r.mlups_history]}; '
-        f'median {mlups:.1f} MLUPS; {eff / 1e9:.1f} GB/s effective '
-        f'({SC_BYTES[grid.name]} B/node), {eff / copy_bw:.3f} of the copy '
-        f'bandwidth; mass drift {drift:.2e}; rho contrast {contrast:.3f}, '
-        f'corr(rho, phi) {corr:.4f}')
-    del rho, phi
+        f'{ks.K}, {ks.potential}{", " + forces if forces else ""}, engine '
+        f'{r.engine}): {counts[ks.rho_name]} {ks.rho_name} + '
+        f'{counts[ks.name]} {ks.name} launches; MLUPS per {chunk}-step '
+        f'chunk {[round(m, 1) for m in r.mlups_history]}; median '
+        f'{mlups:.1f} MLUPS; {eff / 1e9:.1f} GB/s effective ({node_bytes} '
+        f'B/node), {eff / copy_bw:.3f} of the copy bandwidth; mass drift '
+        f'{drift:.2e} (tol {MASS_TOL:g}); max |u| {vmax:.3e}{checks}')
     # the kernels against their plain versions on the main path's own
     # state and shapes (10 steps), then each timed alone
     rho_err, err = sc_errors(ks, grid, tuple(f.clone() for f in r.f), 10)
@@ -1171,23 +1377,58 @@ def sc_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
     plain_rho_ms = util.cuda_time_ms(
         lambda: [sm.rho_reference(f, grid) for f in a], 5)
     plain_ms = util.cuda_time_ms(
-        lambda: sm.sc_multi_reference(a.unbind(0), rb.unbind(0), ks.mask,
-                                      grid, ks.taus, ks.couplings,
-                                      ks.potential), 5)
+        lambda: ks.reference(a.unbind(0), rb.unbind(0)), 5)
     say(f'kernel {ks.rho_name} at {"x".join(map(str, size))}: {rho_ms:.4f} '
         f'ms per launch (K={ks.K}); rho_reference {plain_rho_ms:.3f} ms')
     say(f'kernel {ks.name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
         f'launch; sc_multi_reference {plain_ms:.3f} ms; the pre-pass is '
         f'{rho_ms / (rho_ms + ms):.3f} of a step')
+    step = dict(launches=counts[ks.name], ms=ms, plain_ms=plain_ms, err=err,
+                mlups=mlups)
+    if ks.forced:
+        step['unforced_ms'] = sc_unforced_ms(scene, sim_cls, cfg, ks)
     results = {
-        ks.rho_name: dict(launches=counts[ks.rho_name], ms=rho_ms,
-                          plain_ms=plain_rho_ms, err=rho_err),
-        ks.name: dict(launches=counts[ks.name], ms=ms, plain_ms=plain_ms,
-                      err=err),
+        prepass_row(ks): dict(launches=counts[ks.rho_name], ms=rho_ms,
+                              plain_ms=plain_rho_ms, err=rho_err),
+        ks.name: step,
     }
     del r, ks, a, b, rb
     torch.cuda.empty_cache()
     return results
+
+
+def sc_unforced_ms(scene, sim_cls, cfg, ks):
+    """ms per launch of the forced step kernel ``ks`` and of the unforced
+    instantiation of the same K on the same scene without its forces, on
+    ``ks``'s mask, densities and state buffers, in turns (there and back):
+    what the Guo forces cost a step. Returns the unforced ms."""
+    k = run(unforced(sim_cls), max_iters=0, **cfg).kernel
+    assert not k.forced and k.K == ks.K and torch.equal(k.mask, ks.mask)
+    k.a, k.b, k.rho, k.mask = ks.a, ks.b, ks.rho, ks.mask
+    torch.cuda.empty_cache()
+    a, b, rb = ks.a, ks.b, ks.rho
+    turns = {ks.name: [], k.name: []}
+    for stepper in (ks, k, k, ks):
+        turns[stepper.name].append(util.cuda_time_ms(
+            lambda: stepper.collide_into(a, rb, b), 100, warmup=50))
+    ms = {name: statistics.mean(t) for name, t in turns.items()}
+    say(f'kernel {ks.name} on the buffers of {scene}, in turns: '
+        f'{ks.name} {ms[ks.name]:.4f} {turns[ks.name]}, {k.name} '
+        f'{ms[k.name]:.4f} {turns[k.name]}; forced over unforced '
+        f'{ms[ks.name] / ms[k.name]:.4f}')
+    return ms[k.name]
+
+
+def merge_rows(results, rows):
+    """Add ``rows`` ({JSON row: measurements}) to ``results``: a row there
+    already (the pre-pass of several paths) adds its launches and keeps
+    the larger error; its times stay the first path's."""
+    for name, res in rows.items():
+        if name in results:
+            res = dict(results[name],
+                       launches=results[name]['launches'] + res['launches'],
+                       err=max(results[name]['err'], res['err']))
+        results[name] = res
 
 
 def fe_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
@@ -1363,7 +1604,7 @@ def main():
         f'{torch.cuda.get_device_name(0)}')
 
     sources = list(ls.LIBRARIES.values()) + ['sc_multi', 'fe_step']
-    kinds = set()
+    kinds, sc_kinds = set(), set()
     for name, lib in build.load_all(sources).items():
         say(f'build {name}: {lib.path.name} in {lib.seconds:.1f} s '
             '(0 = cached)')
@@ -1391,6 +1632,16 @@ def main():
                 # each library holds its collision model's instantiations
                 assert ls.LIBRARIES[ls.MODEL_CODES[inst['model']]] == name
 
+        if name == 'sc_multi':
+            for fn, use in sorted(build.ptxas_usage(lib.log).items()):
+                inst = sm.instantiation(fn)
+                if inst is None or 'registers' not in use:
+                    continue
+                sc_kinds.add(tuple(inst.values()))
+                say(f'sc_multi d{inst["dim"]}q{inst["q"]} K={inst["k"]} '
+                    f'forced {int(inst["forced"])}: {use["registers"]} '
+                    f'registers, stack frame {use["stack_frame"]} B, spill '
+                    f'{use["spill_stores"]} / {use["spill_loads"]} B')
         if name == 'fe_step':
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
                 if 'fe3_kernel' in fn and 'registers' in use:
@@ -1400,9 +1651,12 @@ def main():
     # two lattices x (no force + three force models) x wall rows or not x
     # three collision models x two equilibria
     assert len(kinds) == 2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2, len(kinds)
+    # two lattices x K = 2, 3 x forced or not
+    assert len(sc_kinds) == 2 * 2 * 2, sc_kinds
     say(f'fe_step_d3q19 tile: {fe.TILE_3D[0]}x{fe.TILE_3D[1]} threads over '
         f'(x, y), {fe.TILE_3D[2]} z-planes per block')
 
+    phase_done('builds')
     errs = {}
 
     def note(name, err):
@@ -1557,15 +1811,32 @@ def main():
         key, err = model_compare(name, sim_cls, coll, force, it0, **cfg)
         note(key, err)
     cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
+    sq = dict(lat_nx=1024, lat_ny=1024)
     for name, sim_cls, cfg in (
-            ('sc_separation_2d', SEP_2D, dict(lat_nx=1024, lat_ny=1024)),
+            ('sc_separation_2d', SEP_2D, sq),
             ('sc_separation_3d', SEP_3D, cube),
             ('sc_separation_3d_classic', SEP_3D,
              dict(cube, sc_potential='classic')),
-            ('sc_separation_3d_walls', SEP_3D_WALLS, cube)):
-        grid, rho_err, err = sc_compare(name, sim_cls, **cfg)
-        note(f'rho_poststream_{grid.lower()}', rho_err)
-        note(f'sc_multi_{grid.lower()}', err)
+            ('sc_separation_3d_walls', SEP_3D_WALLS, cube),
+            # the forced and K = 3 modes: the Guo force with the
+            # pseudopotential force (a wrong order of the two velocity
+            # shifts shows only when both act)
+            ('sc_rayleigh_taylor_2d', RT_2D, sq),
+            ('sc_separation_3d_walls_forced',
+             forced_mixture(SEP_3D_WALLS), cube),
+            ('ternary_sc_drop_2d', DROP_3, sq),
+            ('ternary_separation_3d', TERNARY_3D, cube),
+            ('ternary_separation_3d_classic', TERNARY_3D,
+             dict(cube, sc_potential='classic', G11=-0.3, G33=0.2)),
+            ('ternary_sc_drop_2d_forced', forced_mixture(DROP_3), sq),
+            ('ternary_separation_3d_walls_forced',
+             forced_mixture(ternary_separation(3, walls=True)),
+             dict(cube, G22=-0.3))):
+        step_name, rho_name, rho_err, err = sc_compare(name, sim_cls, **cfg)
+        note(rho_name, rho_err)
+        note(step_name, err)
+    sc_refusals()
+    phase_done('kernel comparisons')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
             ('fe_separation_2d', 'fe_separation_2d',
@@ -1604,11 +1875,17 @@ def main():
     # time-dependent inlet: all on the kernel engine
     for scene in WALL_DYNAMIC_SCENES:
         golden(scene, twin(scene), **SINGLE_GOLDEN_FLAGS[scene])
+    # the forced mixtures on the forced mixture kernel; half-way walls in a
+    # mixture are refused by the kernels by name and run on the torch
+    # engine on the card
     for scene in SC_MORE_SCENES:
         golden(scene, binary_twin(scene), f'binary_fluid_{scene}',
-               engine='torch' if scene in SC_FORCED_SCENES else 'kernel',
+               engine='torch' if scene in SC_HALFWAY_SCENES else 'kernel',
                **SC_MORE_GOLDEN_FLAGS[scene])
+    golden('ternary_sc_drop_2d', DROP_3, 'ternary_fluid_sc_drop_2d',
+           **TERNARY_GOLDEN_FLAGS['sc_drop_2d'])
 
+    phase_done('goldens')
     copy_bw = copy_bandwidth()
     say(f'device-to-device copy bandwidth (1 GiB): {copy_bw / 1e9:.1f} GB/s')
     results = {}
@@ -1671,22 +1948,19 @@ def main():
                          for a in ('x_', ''))
         say(f'x-normal over {"z" if dim == 3 else "y"}-normal step, '
             f'{dim}D: {along:.4f} / {across:.4f} ms = {along / across:.4f}')
-    for scene, sim_cls, size in (('sc_separation_3d', SEP_3D,
-                                  (256, 256, 256)),
-                                 ('sc_separation_2d', SEP_2D, (4096, 4096))):
-        results.update(sc_main_path(scene, sim_cls, size, copy_bw))
+    phase_done('single-fluid main paths')
+    for scene, (sim_cls, size, name, demix) in SC_MAIN.items():
+        merge_rows(results, sc_main_path(scene, sim_cls, size, copy_bw,
+                                         name, demix))
+    for scene, (sim_cls, size, name) in SC_MODE_MAIN.items():
+        merge_rows(results, sc_main_path(scene, sim_cls, size, copy_bw,
+                                         name, chunk=250, chunks=2))
     for scene, size in (('fe_separation_3d', (256, 256, 256)),
                         ('fe_separation_2d', (4096, 4096))):
-        for name, res in fe_main_path(scene, FE[scene], size,
-                                      copy_bw).items():
-            if name in results:
-                # the pre-pass: launches of both main paths; its time at
-                # the Shan-Chen path's K = 2 stays in the JSON line
-                res = dict(results[name],
-                           launches=results[name]['launches']
-                           + res['launches'],
-                           err=max(results[name]['err'], res['err']))
-            results[name] = res
+        # the pre-pass: launches of every main path; its time at the
+        # Shan-Chen paths' K = 2 stays in the JSON line
+        merge_rows(results, fe_main_path(scene, FE[scene], size, copy_bw))
+    phase_done('main paths')
     fe_mrt_time()
     fe_demix()
     plain_path('ldc_3d', LDC_3D, (128, 128, 128), chunk=500)
@@ -1700,6 +1974,7 @@ def main():
     plain_path('fe_separation_2d', FE['fe_separation_2d'], (4096, 4096),
                chunk=20)
 
+    phase_done('plain paths')
     empty_ms = empty_launch_ms()
     say(f'empty kernel launch: {empty_ms:.5f} ms per launch (2000 '
         'back-to-back launches of one empty block, CUDA events): no '
@@ -1719,7 +1994,7 @@ def main():
                             plain_ms=res['plain_ms'], bound_ms=bound,
                             bound_by=bound_by, library_ms=None))
         for key in ('x_normal_ms', 'models_ms', 'collision_ms', 'step_ms',
-                    'dynamic_share'):
+                    'dynamic_share', 'unforced_ms'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:

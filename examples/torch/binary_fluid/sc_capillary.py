@@ -5,12 +5,12 @@ the PyTorch/CUDA port (twin of examples/binary_fluid/sc_capillary.py).
 A periodic 2D channel carries a long gas bubble (minority component)
 toward a nozzle-shaped throat formed by two trapezoidal wall wedges. A weak
 body force drives both components so the flow stays in the low Reynolds /
-capillary-dominated regime. The mixture kernels take no body force yet, so
-on a CUDA device pass --engine=torch.
+capillary-dominated regime. On a CUDA device the forced Shan-Chen kernels
+run it.
 
 Run from the repository root:
     PYTHONPATH=. python examples/torch/binary_fluid/sc_capillary.py \
-        --engine=torch --max_iters=1000
+        --max_iters=1000
 """
 
 import numpy as np

@@ -2,12 +2,11 @@
 """Rayleigh-Taylor instability on the PyTorch/CUDA port (twin of
 examples/binary_fluid/sc_rayleigh_taylor_2d.py): a heavy Shan-Chen
 component atop a light one under gravity, which acts on the heavy
-component only. The mixture kernels take no body force yet, so on a CUDA
-device pass --engine=torch.
+component only. On a CUDA device the forced Shan-Chen kernels run it.
 
 Run from the repository root:
     PYTHONPATH=. python examples/torch/binary_fluid/sc_rayleigh_taylor_2d.py \
-        --engine=torch --max_iters=1000
+        --max_iters=1000
 """
 
 import numpy as np

@@ -8,8 +8,8 @@
 //   sailfish_tpu/ops/pallas_multi2d.py make_kernel_2d_sc_multi  (B7)
 //   sailfish_tpu/ops/pallas_multi3d.py make_kernel_3d_sc_multi  (B9)
 // in the BGK / fp32 / single-device configuration with walls by mask
-// (codes 0 collide, 1 full bounce-back, 2 keep) that the binary Shan-Chen
-// separation scenes run.
+// (codes 0 collide, 1 full bounce-back, 2 keep), for K = 2 and 3
+// components, each with an optional constant Guo body force.
 //
 // rho_poststream<DIM, Q>: for every node x and component k,
 //   rho_k(x) = sum_i A_k[i, x - c_i]          (periodic wrap, no mask)
@@ -17,7 +17,7 @@
 // wet node next to a wall reads psi of the wall node's post-stream
 // density, as the XLA engine does.
 //
-// sc_multi_step<DIM, Q, K>: for every node x,
+// sc_multi_step<DIM, Q, K, FORCED>: for every node x,
 //   fs_k,i = A_k[i, x - c_i]                   pull streaming, periodic wrap
 //   mask 1  store fs reflected, B_k[opp(i), x] = fs_k,i
 //   mask 2  store fs
@@ -27,7 +27,15 @@
 //           F_j = -sum_{j<=k} G_jk psi(rho_j) S_k, and for j != k also
 //           F_k -= G_jk psi(rho_k) S_j (couplings used symmetrically, in
 //           the order of sailfish_tpu/ops/multigrid.py:186-199);
-//           B_k = fs_k + (feq(rho_k, u' + tau_k F_k / rho_k) - fs_k) / tau_k.
+//           u_k = u' + tau_k F_k / rho_k;
+//           B_k = fs_k + (feq(rho_k, u_k) - fs_k) / tau_k.
+//   FORCED: each component's constant acceleration a_k (zero for an
+//           unforced one) shifts the equilibrium velocity after the
+//           pseudopotential shift, u_k += a_k / 2, and adds the Guo term
+//           at that u_k: (1 - 1/(2 tau_k)) w_i rho_k
+//           (3 (c_i.a_k - u_k.a_k) + 9 (c_i.u_k)(c_i.a_k))
+//           (sailfish_tpu/ops/pallas_multi3d.py:548-575). a_k comes from
+//           the by-value block and adds no bytes per node.
 // The Pallas kernels emit next step's densities from the post-collision
 // planes they still hold (emit_rho): the TPU grid runs in order. A GPU
 // pull kernel cannot see its neighbours' post-collision values within one
@@ -36,14 +44,16 @@
 //
 // State layout: (K, Q, nz, ny, nx) fp32, standard direction order of
 // sailfish_tpu_torch.lattice; densities (K, nz, ny, nx). Lattice tables,
-// relaxation times and couplings arrive by value in SCParams, filled from
-// the Python lattice, so the direction order has a single source. The
-// host swaps A and B every step (a pull step in place would race).
+// relaxation times, couplings and accelerations arrive by value in
+// SCParams, filled from the Python lattice, so the direction order has a
+// single source. The host swaps A and B every step (a pull step in place
+// would race).
 //
 // Bound: device-memory bandwidth. Per node and step the pre-pass reads
 // K*Q*4 B and writes K*4 B; the step reads K*Q*4 B, writes K*Q*4 B and
 // reads K*4 B of density (the neighbours' densities come from cache) and
-// the 1-byte mask: 473 B for K = 2 D3Q19, 233 B for K = 2 D2Q9. One
+// the 1-byte mask: 473 B for K = 2 D3Q19, 233 B for K = 2 D2Q9, 709 / 349
+// B for K = 3. One
 // thread per node, x fastest, so the c_x = 0 loads and every store
 // coalesce. The K*Q pulled values stay in registers (no cap in this
 // version); the pre-pass is a second full read of the state, which
@@ -66,6 +76,7 @@ struct SCParams {
     float tau[SC_MAX_K];
     float tau_inv[SC_MAX_K];
     float g[SC_MAX_K][SC_MAX_K];    // G_jk for j <= k; 0 = no coupling
+    float force[SC_MAX_K][3];       // constant acceleration a_k (FORCED)
 };
 
 __device__ __forceinline__ float psi(const SCParams& p, float rho) {
@@ -114,7 +125,7 @@ rho_poststream_kernel(const float* __restrict__ a, float* __restrict__ rho,
     }
 }
 
-template <int DIM, int Q, int K>
+template <int DIM, int Q, int K, bool FORCED>
 __global__ void __launch_bounds__(SC_BLOCK)
 sc_multi_kernel(const float* __restrict__ a, const float* __restrict__ rho,
                 float* __restrict__ b, const uint8_t* __restrict__ mask,
@@ -209,7 +220,8 @@ sc_multi_kernel(const float* __restrict__ a, const float* __restrict__ rho,
             }
         }
 
-    // BGK of each component at its shifted equilibrium velocity
+    // BGK of each component at its shifted equilibrium velocity (the
+    // local force[] is the pseudopotential force, p.force the body force)
 #pragma unroll
     for (int k = 0; k < K; ++k) {
         float ue[3] = {0.0f, 0.0f, 0.0f};
@@ -217,7 +229,14 @@ sc_multi_kernel(const float* __restrict__ a, const float* __restrict__ rho,
 #pragma unroll
         for (int d = 0; d < DIM; ++d) {
             ue[d] = u[d] + p.tau[k] * force[k][d] / r[k];
+            if constexpr (FORCED) ue[d] += 0.5f * p.force[k][d];
             usq += ue[d] * ue[d];
+        }
+        float ua = 0.0f, pref = 0.0f;
+        if constexpr (FORCED) {
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) ua += ue[d] * p.force[k][d];
+            pref = (1.0f - 0.5f * p.tau_inv[k]) * r[k];
         }
 #pragma unroll
         for (int i = 0; i < Q; ++i) {
@@ -225,8 +244,14 @@ sc_multi_kernel(const float* __restrict__ a, const float* __restrict__ rho,
                              + p.c[i][2] * ue[2];
             const float poly = 3.0f * cu + 4.5f * cu * cu - 1.5f * usq;
             const float feq = p.w[i] * (r[k] + r[k] * poly);
-            b[((long long)k * Q + i) * n + node] =
-                fs[k][i] + p.tau_inv[k] * (feq - fs[k][i]);
+            float v = fs[k][i] + p.tau_inv[k] * (feq - fs[k][i]);
+            if constexpr (FORCED) {
+                float ca = 0.0f;
+#pragma unroll
+                for (int d = 0; d < DIM; ++d) ca += p.c[i][d] * p.force[k][d];
+                v += (pref * p.w[i]) * (3.0f * (ca - ua) + 9.0f * cu * ca);
+            }
+            b[((long long)k * Q + i) * n + node] = v;
         }
     }
 }
@@ -243,12 +268,27 @@ static int launch_rho(const float* a, float* rho, int nk, const SCParams* p,
     return (int)cudaGetLastError();
 }
 
-template <int DIM, int Q, int K>
+template <int DIM, int Q, int K, bool FORCED>
 static int launch_step(const float* a, const float* rho, float* b,
                        const uint8_t* mask, const SCParams* p, void* stream) {
-    sc_multi_kernel<DIM, Q, K><<<node_grid(p), SC_BLOCK, 0,
-                                 (cudaStream_t)stream>>>(a, rho, b, mask, *p);
+    sc_multi_kernel<DIM, Q, K, FORCED><<<node_grid(p), SC_BLOCK, 0,
+                                         (cudaStream_t)stream>>>(
+        a, rho, b, mask, *p);
     return (int)cudaGetLastError();
+}
+
+// The instantiation for nk components (2 or 3), forced or not.
+template <int DIM, int Q>
+static int dispatch_step(const float* a, const float* rho, float* b,
+                         const uint8_t* mask, int nk, int forced,
+                         const SCParams* p, void* stream) {
+    if (nk == 2)
+        return forced ? launch_step<DIM, Q, 2, true>(a, rho, b, mask, p, stream)
+                      : launch_step<DIM, Q, 2, false>(a, rho, b, mask, p, stream);
+    if (nk == 3)
+        return forced ? launch_step<DIM, Q, 3, true>(a, rho, b, mask, p, stream)
+                      : launch_step<DIM, Q, 3, false>(a, rho, b, mask, p, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
@@ -263,15 +303,18 @@ int rho_poststream_d3q19(const float* a, float* rho, int nk,
     return launch_rho<3, 19>(a, rho, nk, p, stream);
 }
 
-// K = 2 (binary mixtures)
+// nk = 2 (binary) or 3 (ternary) components; forced != 0: the body
+// forces of p->force
 int sc_multi_d2q9(const float* a, const float* rho, float* b,
-                  const uint8_t* mask, const SCParams* p, void* stream) {
-    return launch_step<2, 9, 2>(a, rho, b, mask, p, stream);
+                  const uint8_t* mask, int nk, int forced, const SCParams* p,
+                  void* stream) {
+    return dispatch_step<2, 9>(a, rho, b, mask, nk, forced, p, stream);
 }
 
 int sc_multi_d3q19(const float* a, const float* rho, float* b,
-                   const uint8_t* mask, const SCParams* p, void* stream) {
-    return launch_step<3, 19, 2>(a, rho, b, mask, p, stream);
+                   const uint8_t* mask, int nk, int forced,
+                   const SCParams* p, void* stream) {
+    return dispatch_step<3, 19>(a, rho, b, mask, nk, forced, p, stream);
 }
 
 int sc_params_size(void) { return (int)sizeof(SCParams); }

@@ -371,10 +371,11 @@ class FEStep(sm.BufferedMultiStep):
     def phi_into(self, src, phi):
         """Post-stream order parameter of the (2, Q, *S) state ``src``
         into the (*S) buffer ``phi``: the ``rho_poststream`` kernel on
-        component 1 of a CUDA tensor, ``rho_reference`` on a CPU tensor."""
+        component 1 of a CUDA tensor, ``sc_multi.torch_density`` on a CPU
+        tensor."""
         self._check((src, self.a.shape), (phi, self.phi.shape))
         if src.device.type == 'cpu':
-            phi.copy_(sm.rho_reference(src[1], self.grid))
+            phi.copy_(sm.torch_density(src[1], self.grid))
             return
         if src.device.type != 'cuda':
             raise ValueError(f'no kernel for device {src.device}')

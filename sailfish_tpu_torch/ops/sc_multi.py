@@ -5,9 +5,11 @@ Counterpart of ``sailfish_tpu/ops/pallas_multi2d.py`` (``PallasStepSCMulti2D``,
 :1516-1585) and ``sailfish_tpu/ops/pallas_multi3d.py``
 (``PallasStepSCMulti3D``, :1623-1712), which run the TPU kernels B5/B6
 (``make_rho_kernel_3d`` / ``_2d``) and B7/B9 (``make_kernel_2d_sc_multi`` /
-``make_kernel_3d_sc_multi``). The kernels are ``csrc/sc_multi.cu``; this
-module checks that a scene is eligible, holds the per-component A/B
-buffers and the density buffer, and wraps the launches.
+``make_kernel_3d_sc_multi``): K = 2 or 3 components, each with an optional
+constant Guo body force (an acceleration). The kernels are
+``csrc/sc_multi.cu``; this module checks that a scene is eligible, holds
+the per-component A/B buffers and the density buffer, and wraps the
+launches.
 
 Beside the wrapper live the kernels' plain PyTorch versions,
 ``rho_reference`` and ``sc_multi_reference``. The tests use them on the
@@ -18,7 +20,9 @@ main path never calls them on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import re
 
+import numpy as np
 import torch
 
 from sailfish_tpu_torch import equilibrium as eq
@@ -33,12 +37,18 @@ MAX_Q = 27
 MAX_K = 4
 #: lattices and component counts the step kernel is instantiated for
 KERNEL_GRIDS = ('D2Q9', 'D3Q19')
-KERNEL_K = (2,)
+KERNEL_K = (2, 3)
 #: potential codes of csrc/sc_multi.cu
 POTENTIALS = {'linear': 0, 'classic': 1}
+#: launch names of the step kernel's modes: ``sc_multi_<grid>`` (K = 2, no
+#: body force), ``sc_multi_force_<grid>`` (K = 2, a constant Guo force on
+#: some component), ``sc_multi_k3_<grid>`` and ``sc_multi_k3_force_<grid>``
+#: (K = 3); the pre-pass is ``rho_poststream_<grid>`` for every K
+STEP_MODES = ('sc_multi', 'sc_multi_force', 'sc_multi_k3',
+              'sc_multi_k3_force')
 #: kernel launches per kernel name over all ``SCMultiStep`` objects
 LAUNCHES = dict.fromkeys(
-    (f'{kind}_{g.lower()}' for kind in ('rho_poststream', 'sc_multi')
+    (f'{kind}_{g.lower()}' for kind in ('rho_poststream',) + STEP_MODES
      for g in KERNEL_GRIDS), 0)
 
 
@@ -51,29 +61,84 @@ def reset_launch_counts():
 def rho_reference(f, grid):
     """Plain PyTorch version of ``rho_poststream``: the post-stream
     density rho(x) = sum_i f_i(x - c_i) of one component's (Q, *S) state,
-    at every node (walls included)."""
+    at every node (walls included), summed in direction order as the
+    kernel and the Pallas kernels sum, on every device. (``torch.sum``
+    over the Q axis groups the 19 terms of D3Q19 otherwise, and
+    differently on the CPU and the card: at the densities of a demixed
+    state, up to 4, that alone moves the sum by a few ulps, above the
+    pre-pass tolerance of 1e-6.)"""
+    g = st.gather(grid, f)
+    rho = g[0]
+    for i in range(1, grid.Q):
+        rho = rho + g[i]
+    return rho
+
+
+def torch_density(f, grid):
+    """The torch engine's post-stream density of one component's (Q, *S)
+    state (``torch.sum`` over the gathered directions): what the kernel
+    engines compute on a CPU tensor, so that they equal the torch engine
+    bit for bit there."""
     return eq.density(grid, st.gather(grid, f))
 
 
-def sc_multi_reference(fs, rhos, mask, grid, taus, couplings, potential):
+def sc_multi_reference(fs, rhos, mask, grid, taus, couplings, potential,
+                       accels=None):
     """Plain PyTorch version of ``sc_multi_step``: one step of the
     K-component state ``fs`` (K (Q, *S) tensors) given the pre-pass
     densities ``rhos`` (K (*S) tensors), under uint8 mask codes ``mask``
     (0 collide, 1 full bounce-back, 2 keep), relaxation times ``taus``,
-    couplings {(j, k): G_jk} and ``potential``. Returns the K next
-    states."""
+    couplings {(j, k): G_jk}, ``potential`` and the constant Guo body
+    forces ``accels`` (K (dim,) accelerations or None; None: no force).
+    A forced component relaxes towards feq at u_eq = u' + tau F / rho +
+    a / 2 (the pseudopotential shift first, then half the acceleration)
+    and takes the Guo term at that u_eq
+    (``sailfish_tpu/ops/pallas_multi3d.py:548-575``), the torch engine's
+    ``forced_collide``. Returns the K next states."""
     fss = [st.gather(grid, f) for f in fs]
     rho_s = [eq.density(grid, x) for x in fss]
     u = mg.common_velocity(grid, fss, rho_s, taus)
     forces = mg.sc_forces(grid, list(rhos), couplings, potential)
+    accels = accels or [None] * len(fs)
     wet, fullbb = mask == 0, mask == 1
     out = []
-    for x, rho, F, tau in zip(fss, rho_s, forces, taus):
-        fpost = co.bgk_collide(grid, x, rho,
-                               mg.shifted_velocity(u, F, tau, rho),
-                               1.0 / tau)
+    for x, rho, F, tau, a in zip(fss, rho_s, forces, taus, accels):
+        u_eq = mg.shifted_velocity(u, F, tau, rho)
+        if a is None:
+            fpost = co.bgk_collide(grid, x, rho, u_eq, 1.0 / tau)
+        else:
+            a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+            fpost = st.forced_collide(
+                grid, x, rho, u, 1.0 / tau,
+                a.reshape((grid.dim,) + (1,) * (x.dim() - 1)), 'guo',
+                u_eq=u_eq)
         out.append(st.select_dry(grid, x, fpost, wet, fullbb))
     return tuple(out)
+
+
+def step_mode(K, forced):
+    """The launch-name prefix of the step kernel's mode for ``K``
+    components, with or without a body force (``STEP_MODES``)."""
+    return 'sc_multi' + ('_k3' if K == 3 else '') + \
+        ('_force' if forced else '')
+
+
+#: template parameters of ``sc_multi_kernel`` in csrc/sc_multi.cu
+INSTANCE_PARAMS = ('dim', 'q', 'k', 'forced')
+
+
+def instantiation(fn):
+    """The template arguments of the ``sc_multi_kernel`` instantiation
+    whose mangled name is ``fn``, as {name of ``INSTANCE_PARAMS``: value}
+    (``forced`` a bool, False for an older build's name without it), or
+    None for another function."""
+    m = re.search(r'sc_multi_kernelI((?:L[ib]n?\d+E)+)E', fn)
+    if not m:
+        return None
+    vals = [int(num) for num in re.findall(r'L[ib]n?(\d+)E', m.group(1))]
+    out = dict(zip(INSTANCE_PARAMS, vals))
+    out['forced'] = bool(out.get('forced', 0))
+    return out
 
 
 def kernel_ineligibility(builder):
@@ -93,9 +158,17 @@ def kernel_ineligibility(builder):
                        f'K = {", ".join(map(str, KERNEL_K))})')
     if builder.dtype != torch.float32:
         reasons.append(f'{builder.dtype} (the kernels are fp32 only)')
-    if any(bf is not None for bf in builder.body_forces):
-        reasons.append('body forces (Guo forcing is not in the Shan-Chen '
-                       'kernel yet)')
+    for k, bf in enumerate(builder.body_forces):
+        if bf is None:
+            continue
+        if st.is_dynamic_force(bf):
+            reasons.append(f'DynamicValue body force on component {k} '
+                           '(the kernel takes constant accelerations)')
+        elif np.ndim(bf) > 1:
+            reasons.append(f'space-varying body force on component {k} '
+                           '(the kernel takes one constant acceleration per '
+                           'component; --engine=torch runs a per-node '
+                           'field)')
     for (j, k) in builder.couplings:
         if not 0 <= j <= k < K:
             reasons.append(f'coupling key {(j, k)} (the kernel takes '
@@ -126,13 +199,15 @@ class _Params(ctypes.Structure):
                 ('opp', ctypes.c_int * MAX_Q),
                 ('tau', ctypes.c_float * MAX_K),
                 ('tau_inv', ctypes.c_float * MAX_K),
-                ('g', (ctypes.c_float * MAX_K) * MAX_K)]
+                ('g', (ctypes.c_float * MAX_K) * MAX_K),
+                ('force', (ctypes.c_float * 3) * MAX_K)]
 
 
-def kernel_params(grid, shape, taus, couplings, potential):
+def kernel_params(grid, shape, taus, couplings, potential, accels=None):
     """The kernels' by-value parameter block: domain extents, the lattice
-    tables of ``sailfish_tpu_torch.lattice``, the relaxation times and the
-    couplings."""
+    tables of ``sailfish_tpu_torch.lattice``, the relaxation times, the
+    couplings and each component's constant acceleration (``accels``: K
+    (dim,) vectors or None; zero where None)."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
     p.nx, p.ny, p.nz = nx, ny, nz
@@ -147,6 +222,10 @@ def kernel_params(grid, shape, taus, couplings, potential):
         p.tau_inv[k] = 1.0 / tau
     for (j, k), G in couplings.items():
         p.g[j][k] = G
+    for k, a in enumerate(accels or ()):
+        if a is not None:
+            for d, v in enumerate(a):
+                p.force[k][d] = float(v)
     return p
 
 
@@ -164,8 +243,8 @@ def kernel_functions(lib, grid_name):
                        ctypes.POINTER(_Params), ctypes.c_void_p]
     rho_fn.restype = ctypes.c_int
     step_fn = getattr(lib, f'sc_multi_{g}')
-    step_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Params),
-                                                ctypes.c_void_p]
+    step_fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Params), ctypes.c_void_p]
     step_fn.restype = ctypes.c_int
     return rho_fn, step_fn
 
@@ -200,7 +279,7 @@ class BufferedMultiStep:
         is not held by one of the two buffers is copied into A first.
         ``it0``, the first step's iteration, changes nothing: the mixture
         kernels take no time-dependent value (``kernel_ineligibility``
-        refuses every BC row and body force)."""
+        refuses every BC row and every force that is not constant)."""
         if len(state) != self.K:
             raise ValueError(f'{len(state)} components, expected {self.K}')
         src = self._buffer_of(state)
@@ -218,8 +297,9 @@ class BufferedMultiStep:
 class SCMultiStep(BufferedMultiStep):
     """The kernel engine for one Shan-Chen scene: the K components' A and
     B buffers (one (K, Q, *S) tensor each, swapped every step), the (K,
-    *S) density buffer, the uint8 mask, and ``launches``, this object's
-    kernel launches by kernel name."""
+    *S) density buffer, the uint8 mask, the components' constant
+    accelerations ``accels`` (None for an unforced one), and ``launches``,
+    this object's kernel launches by kernel name."""
 
     def __init__(self, builder):
         reasons = kernel_ineligibility(builder)
@@ -232,6 +312,10 @@ class SCMultiStep(BufferedMultiStep):
         self.couplings = dict(builder.couplings)
         self.potential = builder.potential
         self.K = len(self.taus)
+        self.accels = [None if bf is None else
+                       np.asarray(bf, dtype=np.float64)
+                       for bf in builder.body_forces]
+        self.forced = any(a is not None for a in self.accels)
         mask_np = ls.classify_nodes(builder.maps)[0]
         self.shape = mask_np.shape
         self.device = builder.device
@@ -242,10 +326,11 @@ class SCMultiStep(BufferedMultiStep):
         self.rho = torch.empty((self.K,) + self.shape, dtype=torch.float32,
                                device=self.device)
         self.params = kernel_params(self.grid, self.shape, self.taus,
-                                    self.couplings, self.potential)
+                                    self.couplings, self.potential,
+                                    self.accels)
         g = self.grid.name.lower()
         self.rho_name = f'rho_poststream_{g}'
-        self.name = f'sc_multi_{g}'
+        self.name = f'{step_mode(self.K, self.forced)}_{g}'
         self.launches = {self.rho_name: 0, self.name: 0}
         self._fns = None
 
@@ -264,11 +349,11 @@ class SCMultiStep(BufferedMultiStep):
     def density_into(self, src, rho):
         """Post-stream densities of the (K, Q, *S) state ``src`` into the
         (K, *S) buffer ``rho``: the ``rho_poststream`` kernel on a CUDA
-        tensor, ``rho_reference`` on a CPU tensor."""
+        tensor, ``torch_density`` on a CPU tensor."""
         self._check((src, self.a.shape), (rho, self.rho.shape))
         if src.device.type == 'cpu':
             for k in range(self.K):
-                rho[k].copy_(rho_reference(src[k], self.grid))
+                rho[k].copy_(torch_density(src[k], self.grid))
             return
         if src.device.type != 'cuda':
             raise ValueError(f'no kernel for device {src.device}')
@@ -284,16 +369,22 @@ class SCMultiStep(BufferedMultiStep):
         if src.data_ptr() == dst.data_ptr():
             raise ValueError('the pull step cannot run in place')
         if src.device.type == 'cpu':
-            out = sc_multi_reference(src.unbind(0), rho.unbind(0), self.mask,
-                                     self.grid, self.taus, self.couplings,
-                                     self.potential)
+            out = self.reference(src.unbind(0), rho.unbind(0))
             for k in range(self.K):
                 dst[k].copy_(out[k])
             return
         if src.device.type != 'cuda':
             raise ValueError(f'no kernel for device {src.device}')
         self._launch(self.name, 1, src.data_ptr(), rho.data_ptr(),
-                     dst.data_ptr(), self.mask.data_ptr())
+                     dst.data_ptr(), self.mask.data_ptr(), self.K,
+                     int(self.forced))
+
+    def reference(self, fs, rhos):
+        """``sc_multi_reference`` with this scene's parameters: one step
+        of the K-tuple ``fs`` given the pre-pass densities ``rhos``."""
+        return sc_multi_reference(fs, rhos, self.mask, self.grid, self.taus,
+                                  self.couplings, self.potential,
+                                  self.accels)
 
     def step_into(self, src, dst):
         """One step: the density pre-pass into ``self.rho``, then the

@@ -15,6 +15,13 @@ The Shan-Chen kernels (``ops/sc_multi``) are held against
 separation twins (a block of excluded nodes added), from seeded
 near-uniform two-component states: the density pre-pass after one launch
 (<= 1e-6) and the coupled step over 20 steps (wet-node max |df| <= 1e-5).
+So are the step kernel's other modes (``SC_MODE_CASES``: K = 3, and a
+constant Guo force on every component at K = 2 and 3, in 2D and 3D, with
+walls and self-couplings; launches counted as ``sc_multi_force_<grid>``,
+``sc_multi_k3_<grid>``, ``sc_multi_k3_force_<grid>``) and the pre-pass at
+K = 3; the forced, ternary and porous twins run through the controller on
+the kernel engine against the torch engine, and the mixtures the kernels
+cannot run (half-way walls, a per-node force) raise by name.
 
 The kernel with varying BC rows (launches counted as
 ``lbm_step_vary_<grid>``: native BCs that read each node's own rho and u
@@ -85,6 +92,7 @@ compile-time tables must equal ``lattice``'s.
 
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -94,12 +102,14 @@ from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
 from sailfish_tpu_torch.ops.step import FORCE_MODELS
 from torch_scenes import (ACCEL, BC_PAIRS, BINARY_SCENES, FE_SCENES,
-                          SINGLE_GOLDEN_FLAGS, WALL_DYNAMIC_SCENES, WALLS,
+                          SC_MORE_GOLDEN_FLAGS, SINGLE_GOLDEN_FLAGS,
+                          TERNARY_GOLDEN_FLAGS, WALL_DYNAMIC_SCENES, WALLS,
                           binary_twin, box_cfg, box_sim, channel_sim,
                           channel_sim_2d, forced_channel_sim,
-                          forced_channel_sim_2d,
+                          forced_channel_sim_2d, forced_mixture,
                           halfbb_beside_parabolic_inlet, random_binary_state,
                           random_fe_state, random_feq, run, slip_sim,
+                          ternary_separation, ternary_twin,
                           time_series_density_sim, twin, unforced,
                           walls_moved, with_keep_block, with_patch_row_mix)
 
@@ -781,6 +791,149 @@ def test_default_engine_on_cuda_is_the_sc_kernel(cuda, scene):
     for fk, ft in zip(r.f, ref.f):
         assert bool(torch.isfinite(fk).all())
         assert float((fk - ft)[:, wet].abs().max()) <= 1e-5
+
+
+#: the step kernel's modes beyond K = 2 unforced: case -> (scene, flags,
+#: launch name); self-couplings on, the forces (``MIX_ACCELS``) on every
+#: component
+SC_MODE_CASES = {
+    'k2_forced_2d': (lambda: forced_mixture(binary_twin('sc_separation_2d')),
+                     dict(BINARY_SIZES['sc_separation_2d'], G11=-0.3),
+                     'sc_multi_force_d2q9'),
+    'k2_forced_3d_walls': (
+        lambda: forced_mixture(binary_twin('sc_separation_3d_walls')),
+        dict(BINARY_SIZES['sc_separation_3d_walls'], G22=0.2,
+             sc_potential='classic'), 'sc_multi_force_d3q19'),
+    'k2_rayleigh_taylor': (lambda: binary_twin('sc_rayleigh_taylor_2d'),
+                           dict(lat_nx=200, lat_ny=96),
+                           'sc_multi_force_d2q9'),
+    'k3_drop_2d': (lambda: ternary_twin('sc_drop_2d'),
+                   dict(lat_nx=200, lat_ny=96), 'sc_multi_k3_d2q9'),
+    'k3_3d_walls': (lambda: ternary_separation(3, walls=True),
+                    dict(BINARY_SIZES['sc_separation_3d'], G11=-0.3,
+                         G33=0.2), 'sc_multi_k3_d3q19'),
+    'k3_3d_classic': (lambda: ternary_separation(3),
+                      dict(BINARY_SIZES['sc_separation_3d'], G22=-0.3,
+                           sc_potential='classic'), 'sc_multi_k3_d3q19'),
+    'k3_forced_2d_walls': (
+        lambda: forced_mixture(ternary_separation(2, walls=True)),
+        dict(BINARY_SIZES['sc_separation_2d'], G22=-0.3,
+             sc_potential='classic'), 'sc_multi_k3_force_d2q9'),
+    'k3_forced_3d': (lambda: forced_mixture(ternary_separation(3)),
+                     dict(BINARY_SIZES['sc_separation_3d'], G11=-0.3,
+                          G33=0.2), 'sc_multi_k3_force_d3q19'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(SC_MODE_CASES))
+def test_sc_multi_mode_matches_reference(cuda, case):
+    """Each mode against ``sc_multi_reference`` over 20 steps from a seeded
+    near-uniform K-component state (a block of excluded nodes added), its
+    launches under its own name, and the pre-pass at its K after one
+    launch."""
+    make_sim, cfg, name = SC_MODE_CASES[case]
+    r = run(with_keep_block(make_sim()), platform='cuda', engine='kernel',
+            max_iters=0, **cfg)
+    ks = r.kernel
+    assert isinstance(ks, sm.SCMultiStep) and ks.name == name
+    codes = sorted(torch.unique(ks.mask).tolist())
+    assert codes == ([0, 1, 2] if 'walls' in case or 'rayleigh' in case
+                     else [0, 2]), codes
+    grid = r.sim.grid
+    f0 = random_binary_state(grid, ks.shape, seed=6, device='cuda',
+                             u_rms=0.02, K=ks.K)
+    rho = torch.empty_like(ks.rho)
+    sm.reset_launch_counts()
+    ks.density_into(f0, rho)
+    ref = torch.stack([sm.rho_reference(f0[k], grid) for k in range(ks.K)])
+    assert float((rho - ref).abs().max()) <= 1e-6
+    fk = ks.run(tuple(f0), 20)
+    fr = tuple(f0)
+    for _ in range(20):
+        fr = ks.reference(fr, [sm.rho_reference(f, grid) for f in fr])
+    torch.cuda.synchronize()
+    assert ks.launches == {ks.rho_name: 21, ks.name: 20}
+    assert sm.LAUNCHES[name] == 20 and sm.LAUNCHES[ks.rho_name] == 21
+    assert sum(sm.LAUNCHES.values()) == 41
+    wet = ks.mask == 0
+    err = float((torch.stack(fk) - torch.stack(fr))[:, :, wet].abs().max())
+    assert err <= 1e-5
+
+
+#: twins of this slice through the controller on the card: scene -> (sim,
+#: flags, launch name)
+SC_TWINS = {
+    'sc_rayleigh_taylor_2d': (
+        lambda: binary_twin('sc_rayleigh_taylor_2d'),
+        SC_MORE_GOLDEN_FLAGS['sc_rayleigh_taylor_2d'], 'sc_multi_force_d2q9'),
+    'sc_capillary': (lambda: binary_twin('sc_capillary'),
+                     SC_MORE_GOLDEN_FLAGS['sc_capillary'],
+                     'sc_multi_force_d2q9'),
+    'ternary_sc_drop_2d': (lambda: ternary_twin('sc_drop_2d'),
+                           TERNARY_GOLDEN_FLAGS['sc_drop_2d'],
+                           'sc_multi_k3_d2q9'),
+    'ternary_separation_3d': (lambda: ternary_separation(3),
+                              dict(lat_nx=40, lat_ny=24, lat_nz=32),
+                              'sc_multi_k3_d3q19'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(SC_TWINS))
+def test_default_engine_on_cuda_runs_the_mixture_mode(cuda, scene):
+    make_sim, cfg, name = SC_TWINS[scene]
+    sm.reset_launch_counts()
+    r = run(make_sim(), max_iters=30, every=10, seed=2, **cfg)
+    assert r.engine == 'kernel' and r.kernel.name == name
+    assert sm.LAUNCHES[name] == sm.LAUNCHES[r.kernel.rho_name] == 30
+    assert sum(sm.LAUNCHES.values()) == 60
+    ref = run(make_sim(), engine='torch', max_iters=30, every=10, seed=2,
+              **cfg)
+    wet = r.kernel.mask == 0
+    for fk, ft in zip(r.f, ref.f):
+        assert bool(torch.isfinite(fk).all())
+        assert float((fk - ft)[:, wet].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_mixtures_the_kernel_cannot_run_raise_on_the_default_engine(cuda):
+    """No silent change of engine: half-way walls and a per-node force in a
+    mixture raise by name; ``--engine=torch`` runs them."""
+    with pytest.raises(NotImplementedError, match='NTHalfBBWall'):
+        run(binary_twin('sc_poiseuille_2d'), max_iters=0,
+            **SC_MORE_GOLDEN_FLAGS['sc_poiseuille_2d'])
+    r = run(binary_twin('sc_poiseuille_2d'), engine='torch', max_iters=10,
+            every=10, **SC_MORE_GOLDEN_FLAGS['sc_poiseuille_2d'])
+    assert r.engine == 'torch' and all(bool(torch.isfinite(f).all())
+                                       for f in r.f)
+    base = binary_twin('sc_separation_2d')
+
+    class PerNode(base):
+        def __init__(self, config):
+            super().__init__(config)
+            self.add_body_force(np.full((2, 32, 32), 1e-5), grid=1)
+
+    with pytest.raises(NotImplementedError,
+                       match='space-varying body force on component 1'):
+        run(PerNode, max_iters=0, lat_nx=32, lat_ny=32)
+
+
+@pytest.mark.cuda
+def test_porous_anisotropy_runs_the_forced_lbm_step(cuda):
+    """The random porous matrix (full bounce-back, one constant Guo force)
+    on the forcing mode of ``lbm_step``: one launch per step, and the torch
+    engine's state within 1e-5 after 30 steps."""
+    cfg = dict(lat_nx=48, lat_ny=40, lat_nz=32, porosity=0.75, seed=3)
+    ls.reset_launch_counts()
+    r = run(twin('porous_anisotropy'), max_iters=30, every=10, **cfg)
+    assert r.engine == 'kernel' and r.kernel.name == 'lbm_step_force_d3q19'
+    assert ls.LAUNCHES['lbm_step_force_d3q19'] == 30 \
+        == sum(ls.LAUNCHES.values())
+    ref = run(twin('porous_anisotropy'), engine='torch', max_iters=30,
+              every=10, **cfg)
+    assert bool(torch.isfinite(r.f).all())
+    assert float((r.f - ref.f)[:, _wet(r.kernel)].abs().max()) <= 1e-5
 
 
 FE_SIZES = {

@@ -7,11 +7,14 @@ the golden harness's flags (tests/examples_harness.py:26-94: 20 steps, seed
 harness's tolerance (rtol 1e-5, atol 5e-7):
 
 * single fluid under a constant body force (cylinder, sphere_3d,
-  square_cylinder_2d, poiseuille_3d), under a per-node force
-  (four_rolls_mill) and without one (taylor_green_2d);
+  square_cylinder_2d, poiseuille_3d, and the random porous matrix of
+  porous_anisotropy), under a per-node force (four_rolls_mill) and without
+  one (taylor_green_2d);
 * binary Shan-Chen: a drop (sc_drop_2d), the Laplace-law drop
-  (sc_laplace_2d) and two scenes whose components take Guo body forces
-  between full bounce-back walls (sc_rayleigh_taylor_2d, sc_capillary).
+  (sc_laplace_2d), two scenes whose components take Guo body forces
+  between full bounce-back walls (sc_rayleigh_taylor_2d, sc_capillary),
+  and two between half-way walls (sc_poiseuille_2d, forced, and
+  sc_capillary_wave_2d), which the mixture kernels refuse by name.
 
 external_geometry (41 x 41 x 128, visc 0.01, a uniform start): in fp64 the
 twin is within the harness's tolerance of the fp32 golden. In fp32 the
@@ -21,7 +24,8 @@ ends up to 5.8e-7 apart at 24 of 215,168 nodes: that run is held to the
 harness's tolerance on every field but vx, and vx to atol 6e-7.
 
 The forced scenes are also what the kernel engine's forcing mode runs: each
-must be eligible for it, with the force in the kernel's parameter block.
+must be eligible for it, with the force in the kernel's parameter block;
+the forced mixtures so for the mixture kernel's forcing mode.
 """
 
 import os
@@ -31,15 +35,16 @@ import pytest
 import torch
 
 from sailfish_tpu_torch.ops import lbm_step as ls
+from sailfish_tpu_torch.ops import sc_multi as sm
 from torch_scenes import (FORCED_SCENES, REPO, SC_FORCED_SCENES,
-                          SC_MORE_GOLDEN_FLAGS, SC_MORE_SCENES,
-                          SINGLE_GOLDEN_FLAGS, binary_twin, cpu_runner,
-                          golden_run, twin)
+                          SC_HALFWAY_SCENES, SC_MORE_GOLDEN_FLAGS,
+                          SC_MORE_SCENES, SINGLE_GOLDEN_FLAGS, binary_twin,
+                          cpu_runner, golden_run, twin)
 
 torch.set_num_threads(1)
 
 NEW_SINGLE = ('cylinder', 'sphere_3d', 'square_cylinder_2d', 'poiseuille_3d',
-              'taylor_green_2d', 'four_rolls_mill')
+              'taylor_green_2d', 'four_rolls_mill', 'porous_anisotropy')
 
 
 @pytest.mark.parametrize('scene', NEW_SINGLE)
@@ -82,3 +87,24 @@ def test_forced_scene_is_eligible_for_the_kernel_engine(scene):
     want[:r.sim.grid.dim] = r.builder.body_force
     assert list(ks.params.force.a) == list(want)
     assert list(ks.params.force.shift) == list(np.float32(0.5) * want)
+
+
+@pytest.mark.parametrize('scene', sorted(SC_MORE_SCENES))
+def test_mixture_twin_is_eligible_for_the_kernel_engine_or_refused(scene):
+    """The forced mixtures run on the mixture kernel's forcing mode, their
+    accelerations in its parameter block; the scenes with half-way walls
+    are refused by name."""
+    r = cpu_runner(binary_twin(scene), **SC_MORE_GOLDEN_FLAGS[scene])
+    reasons = sm.kernel_ineligibility(r.builder)
+    if scene in SC_HALFWAY_SCENES:
+        assert any('NTHalfBBWall' in why for why in reasons), reasons
+        return
+    assert reasons == []
+    ks = sm.SCMultiStep(r.builder)
+    forced = scene in SC_FORCED_SCENES
+    assert ks.name == ('sc_multi_force_d2q9' if forced else 'sc_multi_d2q9')
+    for k, bf in enumerate(r.builder.body_forces):
+        want = np.zeros(3, dtype=np.float32)
+        if bf is not None:
+            want[:2] = bf
+        assert list(ks.params.force[k]) == list(want)

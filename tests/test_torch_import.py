@@ -97,6 +97,7 @@ def test_port_modules_are_packaged():
             'sailfish_tpu_torch.ops.fe_step',
             'sailfish_tpu_torch.models.base',
             'sailfish_tpu_torch.models.binary',
+            'sailfish_tpu_torch.models.ternary',
             'sailfish_tpu_torch.ops.bc_patch', 'sailfish_tpu_torch.lattice',
             'sailfish_tpu_torch.geo', 'sailfish_tpu_torch.profile'} <= names
     csrc = os.path.join(os.path.dirname(sailfish_tpu_torch.__file__), 'ops',
@@ -145,7 +146,20 @@ def test_binary_twins_are_checked():
                      'fe_separation_3d.py', 'fe_poiseuille_2d.py',
                      'fe_viscous_fingering.py', 'binary_microchannel.py',
                      'sc_drop_2d.py', 'sc_laplace_2d.py',
-                     'sc_rayleigh_taylor_2d.py', 'sc_capillary.py'}
+                     'sc_rayleigh_taylor_2d.py', 'sc_capillary.py',
+                     'sc_poiseuille_2d.py', 'sc_capillary_wave_2d.py'}
+
+
+def test_ternary_twins_are_checked():
+    """Every ternary twin is registered with its sim class and the golden
+    harness's flags (``torch_scenes.TERNARY_SCENES``)."""
+    from torch_scenes import TERNARY_GOLDEN_FLAGS, TERNARY_SCENES, \
+        ternary_twin
+    top = os.path.join(REPO, 'examples', 'torch', 'ternary_fluid')
+    twins = {n[:-3] for n in os.listdir(top) if n.endswith('.py')}
+    assert twins == set(TERNARY_SCENES) == set(TERNARY_GOLDEN_FLAGS)
+    for scene in TERNARY_SCENES:
+        assert ternary_twin(scene).__name__ == TERNARY_SCENES[scene]
 
 
 def test_single_fluid_twins_are_checked():

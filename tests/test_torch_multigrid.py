@@ -198,16 +198,27 @@ def test_unported_forcing_raises():
             super().__init__(config)
             self.add_body_force((0.0, -1e-5), grid=1)
 
-    # a constant force on one component runs on the torch engine; the
-    # mixture kernel and a time-dependent force still refuse by name
+    # a constant force on one component runs on the torch engine and is
+    # the mixture kernel's forcing mode; a per-node force runs on the torch
+    # engine only, and the kernel refuses it by name; a time-dependent
+    # force is refused by both
     r = run_port(Forced, max_iters=2, lat_nx=8, lat_ny=8)
     assert r.engine == 'torch' and r.builder.components[0].force is None
     assert r.builder.components[1].force.flatten().tolist() \
         == pytest.approx([0.0, -1e-5])
     from sailfish_tpu_torch.ops import sc_multi
-    assert any('body forces' in why
-               for why in sc_multi.kernel_ineligibility(r.builder))
-    with pytest.raises(NotImplementedError, match='body forces'):
+    assert sc_multi.kernel_ineligibility(r.builder) == []
+    assert sc_multi.SCMultiStep(r.builder).name == 'sc_multi_force_d2q9'
+
+    class PerNode(sim):
+        def __init__(self, config):
+            super().__init__(config)
+            self.add_body_force(np.full((2, 8, 8), 1e-5), grid=1)
+
+    r = run_port(PerNode, max_iters=2, lat_nx=8, lat_ny=8)
+    assert r.engine == 'torch'
+    with pytest.raises(NotImplementedError,
+                       match='space-varying body force on component 1'):
         sc_multi.SCMultiStep(r.builder)
 
     class Ramped(sim):

@@ -55,6 +55,7 @@ SINGLE_SCENES = {
     'womersley': 'WomersleySim',
     'poiseuille_pulsatile': 'PulsatileSim',
     'poiseuille_sa': 'RampedPoiseuilleSim',
+    'porous_anisotropy': 'PorousSim',
 }
 #: the golden harness's flags for the single-fluid scenes
 #: (tests/examples_harness.py:30-64)
@@ -73,11 +74,13 @@ SINGLE_GOLDEN_FLAGS = {
     'womersley': dict(lat_nx=32, lat_ny=12, lat_nz=12),
     'poiseuille_pulsatile': dict(lat_nx=48, lat_ny=24),
     'poiseuille_sa': dict(lat_nx=48, lat_ny=32, velocity='spatial_array'),
+    'porous_anisotropy': dict(lat_nx=16, lat_ny=16, lat_nz=16,
+                              porosity=0.75),
 }
 #: the single-fluid scenes driven by a constant body force (the kernel
 #: engine's forcing mode)
 FORCED_SCENES = ('cylinder', 'sphere_3d', 'square_cylinder_2d',
-                 'external_geometry', 'poiseuille_3d')
+                 'external_geometry', 'poiseuille_3d', 'porous_anisotropy')
 #: the scenes of the local walls and time-dependent parameters: half-way
 #: walls (duct_flow; poiseuille with --wall=halfbb), time-only density ends
 #: (womersley, poiseuille_pulsatile), a time-only force
@@ -100,23 +103,37 @@ BINARY_SCENES = {
     'sc_separation_3d_walls': 'WalledSeparationSim',
 }
 #: more binary Shan-Chen twins (a drop held by the self-coupling G11, a
-#: Laplace-law drop, and two scenes under body forces) -> sim class name
+#: Laplace-law drop, three scenes under body forces and a capillary wave)
+#: -> sim class name
 SC_MORE_SCENES = {
     'sc_drop_2d': 'SCDropSim',
     'sc_laplace_2d': 'LaplaceSim',
     'sc_rayleigh_taylor_2d': 'RayleighTaylorSCSim',
     'sc_capillary': 'CapillaryTaylorSim',
+    'sc_poiseuille_2d': 'LayeredPoiseuilleSim',
+    'sc_capillary_wave_2d': 'SCCapillaryWaveSim',
 }
-#: those of them with a body force: the torch engine runs them, the
-#: mixture kernels refuse a body force by name
-SC_FORCED_SCENES = ('sc_rayleigh_taylor_2d', 'sc_capillary')
+#: those of them with a constant body force on a component (Guo forcing;
+#: the forced instantiations of the mixture kernels)
+SC_FORCED_SCENES = ('sc_rayleigh_taylor_2d', 'sc_capillary',
+                    'sc_poiseuille_2d')
+#: those of them closed by half-way walls: the JAX package runs these in a
+#: mixture on its XLA engine only, and the mixture kernels refuse them by
+#: name, so they run on the torch engine on a card too
+SC_HALFWAY_SCENES = ('sc_poiseuille_2d', 'sc_capillary_wave_2d')
 #: the golden harness's flags for them (tests/examples_harness.py:49-79)
 SC_MORE_GOLDEN_FLAGS = {
     'sc_drop_2d': dict(lat_nx=64, lat_ny=64),
     'sc_laplace_2d': dict(lat_nx=64, lat_ny=64),
     'sc_rayleigh_taylor_2d': dict(lat_nx=32, lat_ny=32),
     'sc_capillary': dict(lat_nx=96, lat_ny=32),
+    'sc_poiseuille_2d': dict(lat_nx=66, lat_ny=32),
+    'sc_capillary_wave_2d': dict(lat_nx=64, lat_ny=66),
 }
+#: ternary Shan-Chen twins (examples/torch/ternary_fluid) -> sim class name
+TERNARY_SCENES = {'sc_drop_2d': 'TernaryDropSim'}
+#: the golden harness's flags for them (tests/examples_harness.py:79)
+TERNARY_GOLDEN_FLAGS = {'sc_drop_2d': dict(lat_nx=64, lat_ny=64)}
 #: binary free-energy twins (examples/torch/binary_fluid) -> sim class name
 FE_SCENES = {
     'fe_separation_2d': 'SeparationFESim',
@@ -141,6 +158,78 @@ def binary_twin(scene):
     mod = load_example(f'torch/binary_fluid/{scene}.py', f'torch_{scene}')
     return getattr(mod, {**BINARY_SCENES, **SC_MORE_SCENES,
                          **FE_SCENES}[scene])
+
+
+def ternary_twin(scene):
+    """The sim class of ``examples/torch/ternary_fluid/<scene>.py``."""
+    mod = load_example(f'torch/ternary_fluid/{scene}.py',
+                       f'torch_ternary_{scene}')
+    return getattr(mod, TERNARY_SCENES[scene])
+
+
+def ternary_separation(dim=3, subdomain_cls=None, model_cls=None,
+                       walls=False):
+    """Three-component Shan-Chen demixing in a periodic box (D3Q19 for
+    ``dim`` 3, the ``ternary_separation_3d`` scene; D2Q9 for 2): the
+    pairwise repulsion G12 = G13 = G23 = 1.0, visc 1/6, and a near-uniform
+    start rho, phi, theta = 1 + U(0, 1e-3) drawn from the run's seed
+    (tests/test_binary.py:78-96, lifted to 3D). No example is a 3D ternary
+    scene; this one gives the K = 3 D3Q19 kernel a path. ``walls``: full
+    bounce-back walls on the two faces normal to y. ``subdomain_cls`` and
+    ``model_cls`` (default the port's ``Subdomain3D`` / ``Subdomain2D`` and
+    ``LBTernaryFluidShanChen``) let a test build the same scene from the
+    JAX package's classes."""
+    if subdomain_cls is None:
+        subdomain_cls = Subdomain3D if dim == 3 else Subdomain2D
+    if model_cls is None:
+        from sailfish_tpu_torch.models.ternary import LBTernaryFluidShanChen
+        model_cls = LBTernaryFluidShanChen
+
+    class Separation(subdomain_cls):
+        def boundary_conditions(self, *h):
+            if walls:
+                self.set_node((h[1] == 0) | (h[1] == self.gy - 1),
+                              nt.NTFullBBWall)
+
+        def initial_conditions(self, sim, *h):
+            for name in ('rho', 'phi', 'theta'):
+                fld = getattr(sim, name)
+                fld[:] = 1.0 + np.random.rand(*fld.shape) / 1000.0
+
+    class TernarySeparationSim(model_cls):
+        subdomain = Separation
+
+        @classmethod
+        def update_defaults(cls, defaults):
+            defaults.update({
+                'grid': 'D3Q19' if dim == 3 else 'D2Q9',
+                'G12': 1.0, 'G13': 1.0, 'G23': 1.0, 'visc': 1.0 / 6.0,
+                'periodic_x': True, 'periodic_y': True,
+                'periodic_z': True})
+
+    return TernarySeparationSim
+
+
+#: constant accelerations of the forced mixture comparisons, one per
+#: component: every axis, both signs, each component its own, strong
+#: enough that the Guo term moves 20 steps well beyond the tolerances
+MIX_ACCELS = ((1e-3, -5e-4, 2.5e-4), (-5e-4, 1.5e-3, -1e-3),
+              (7.5e-4, 5e-4, 1.25e-3))
+
+
+def forced_mixture(sim_cls, accels=MIX_ACCELS):
+    """The mixture ``sim_cls`` with the constant acceleration ``accels[k]``
+    (its first ``dim`` entries; None: none) added to component k's body
+    force."""
+
+    class Sim(sim_cls):
+        def __init__(self, config):
+            super().__init__(config)
+            for k, a in enumerate(accels[:len(self.grids)]):
+                if a is not None:
+                    self.add_body_force(tuple(a[:self.dim]), grid=k)
+
+    return Sim
 
 
 def run(sim_cls, **cfg):
@@ -503,16 +592,16 @@ def random_feq(grid, shape, seed, device):
     return teq.bgk_equilibrium(grid, rho, u).contiguous()
 
 
-def random_binary_state(grid, shape, seed, device, u_rms=0.0):
-    """fp32 two-component equilibrium state (K, Q, *S): densities
-    rho, phi = 1 + U(0, 1e-3) as the separation scenes start, and a
-    velocity field of ``u_rms`` rms common to both, drawn with numpy from
-    ``seed``."""
+def random_binary_state(grid, shape, seed, device, u_rms=0.0, K=2):
+    """fp32 ``K``-component equilibrium state (K, Q, *S): each density
+    1 + U(0, 1e-3) as the separation scenes start, and a velocity field of
+    ``u_rms`` rms common to all, drawn with numpy from ``seed`` (the first
+    two components are the same for every K)."""
     rng = np.random.default_rng(seed)
     u = torch.tensor(u_rms * rng.standard_normal((grid.dim,) + shape),
                      dtype=torch.float32, device=device)
     comps = []
-    for _ in range(2):
+    for _ in range(K):
         rho = torch.tensor(1.0 + rng.random(shape) / 1000.0,
                            dtype=torch.float32, device=device)
         comps.append(teq.bgk_equilibrium(grid, rho, u))

@@ -20,13 +20,16 @@ and for every kernel function whose mangled name contains one of the
 * whether ``ncu`` is on the PATH or under the toolkit.
 
 With ``--baseline DIR`` (another checkout, for example ``git archive
-<commit> | tar -x -C build/parent``) it also builds DIR's
-``lbm_step.cu`` and sets each of its ``lbm_step_kernel`` instantiations
-beside this tree's instantiation of the same lattice, force model and wall
-switch with BGK and the compressible equilibrium (the template arguments
-``ops/lbm_step.instantiation`` reads from the mangled names): registers,
-stack frame, spills and the SASS count of every class, and whether all of
-them are the same.
+<commit> | tar -x -C build/parent``) it also builds DIR's ``lbm_step.cu``
+and ``sc_multi.cu``, those of them in ``--sources``. It sets each of
+DIR's ``lbm_step_kernel`` instantiations beside this tree's of the same
+lattice, force model and wall switch with BGK and the compressible
+equilibrium (the template arguments ``ops/lbm_step.instantiation`` reads
+from the mangled names), and each of DIR's ``sc_multi_kernel``
+instantiations beside this tree's of the same lattice and component count
+without a body force (``ops/sc_multi.instantiation``): registers, stack
+frame, spills and the SASS count of every class, and whether all of them
+are the same.
 
 Ends with one JSON line. Needs ``nvcc`` and ``cuobjdump`` (the CUDA
 toolkit), not a GPU.
@@ -134,33 +137,51 @@ def main():
                   f'SASS {mix}', flush=True)
     out = {'ncu': ncu, 'kernels': report}
     if args.baseline:
-        out['baseline'] = baseline_report(args.baseline, report, cuobjdump)
+        out['baseline'] = {
+            src: baseline_report(args.baseline, report, cuobjdump, src)
+            for src in ('lbm_step', 'sc_multi') if src in args.sources}
     print(json.dumps(out))
 
 
-def baseline_report(tree, report, cuobjdump):
-    """Each ``lbm_step_kernel`` instantiation of ``tree``'s lbm_step.cu
-    beside this tree's of the same (lattice, force model, wall switch) with
-    BGK and the compressible equilibrium; prints one line each and returns
+def _lbm_key(inst):
+    """(lattice, force model, walls) of a BGK compressible
+    ``lbm_step_kernel`` instantiation, else None."""
+    if inst.get('model', 'bgk') != 'bgk' \
+            or inst.get('incompressible', False):
+        return None
+    return inst['dim'], inst['force'], inst['walls']
+
+
+def _sc_key(inst):
+    """(lattice, K) of an unforced ``sc_multi_kernel`` instantiation, else
+    None."""
+    return None if inst['forced'] else (inst['dim'], inst['k'])
+
+
+def baseline_report(tree, report, cuobjdump, source='lbm_step'):
+    """Each kernel instantiation of ``tree``'s ``source`` (lbm_step.cu:
+    ``lbm_step_kernel``; sc_multi.cu: ``sc_multi_kernel``) beside this
+    tree's of the same key (``_lbm_key``: lattice, force model and wall
+    switch, with BGK and the compressible equilibrium; ``_sc_key``: lattice
+    and K without a body force); prints one line each and returns
     {'instantiations': [...], 'all_same': bool}."""
     from sailfish_tpu_torch.ops import lbm_step as ls
-    src = Path(tree) / 'sailfish_tpu_torch' / 'ops' / 'csrc' / 'lbm_step.cu'
+    from sailfish_tpu_torch.ops import sc_multi as sm
+    parse, key = ((ls.instantiation, _lbm_key) if source == 'lbm_step'
+                  else (sm.instantiation, _sc_key))
+    src = Path(tree) / 'sailfish_tpu_torch' / 'ops' / 'csrc' / f'{source}.cu'
     lib = build.build_library(src)
     usage = build.ptxas_usage(lib.log)
     sass = sass_counts(lib.path, cuobjdump) if cuobjdump else {}
 
-    def key(inst):
-        return inst['dim'], inst['force'], inst['walls']
-
     mine = {}
     for fn, row in report.items():
-        inst = ls.instantiation(fn)
-        if inst and inst.get('model', 'bgk') == 'bgk' \
-                and not inst.get('incompressible', False):
+        inst = parse(fn)
+        if inst and key(inst) is not None:
             mine[key(inst)] = (fn, row)
     rows, all_same = [], True
     for fn in sorted(usage):
-        inst = ls.instantiation(fn)
+        inst = parse(fn)
         if inst is None:
             continue
         base = dict(usage[fn], sass=dict(sass.get(fn, {})))
@@ -174,8 +195,9 @@ def baseline_report(tree, report, cuobjdump):
             f'{c} {base["sass"].get(c, 0)} -> {new["sass"].get(c, 0)}'
             for c in sorted(set(base['sass']) | set(new['sass']))
             if base['sass'].get(c, 0) != new['sass'].get(c, 0))
-        print(f'baseline {fn} (d{inst["dim"]}q{inst["q"]}, force '
-              f'{inst["force"]}, walls {int(inst["walls"])}): '
+        what = (f'force {inst["force"]}, walls {int(inst["walls"])}'
+                if source == 'lbm_step' else f'K = {inst["k"]}')
+        print(f'baseline {fn} (d{inst["dim"]}q{inst["q"]}, {what}): '
               f'{base.get("registers")} registers, '
               f'{base["sass"].get("total")} SASS; this tree {new_fn}: '
               + ('not built' if new is None else
@@ -185,8 +207,9 @@ def baseline_report(tree, report, cuobjdump):
                  f': differs {diff}'), flush=True)
         rows.append(dict(baseline=fn, tree=new_fn, same=same,
                          baseline_usage=base, tree_usage=new))
-    print(f'baseline instantiations the same as this tree\'s, class by '
-          f'class: {all_same} ({len(rows)} instantiations)', flush=True)
+    print(f'baseline {source} instantiations the same as this tree\'s, '
+          f'class by class: {all_same} ({len(rows)} instantiations)',
+          flush=True)
     return dict(instantiations=rows, all_same=all_same)
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time of one single-fluid step on the kernel engine, scene by scene, and
-the same for another checkout of the repository in the same run.
+"""Time of one step on the kernel engine, scene by scene, and the same for
+another checkout of the repository in the same run.
 
     python3 tools/step_probe.py [--iters 200] [--scenes ldc_3d,...]
                                 [--baseline DIR] [--diff-steps 200]
@@ -25,7 +25,11 @@ after 5 warm-up steps, and counts the kernel launches of one step:
   ``_les`` (``--subgrid=les-smagorinsky``), ``_incomp``
   (``--incompressible``): ``ldc_3d_mrt``, ``ldc_3d_les``,
   ``ldc_3d_incomp``, ``ldc_2d_mrt``, ``sphere_3d_les`` and
-  ``cylinder_mrt``. A tree without the mode refuses them.
+  ``cylinder_mrt``. A tree without the mode refuses them;
+* ``sc_separation_3d`` / ``sc_separation_2d``: the binary Shan-Chen
+  separations (``SCMultiStep``: the density pre-pass and the K = 2 step,
+  two launches a step), timed from a seeded near-uniform two-component
+  state. They are not in the default list: pass them with ``--scenes``.
 
 With ``--baseline DIR``, DIR holds another checkout (for example
 ``git archive <commit> | tar -x -C build/parent``): every scene is timed in
@@ -62,6 +66,8 @@ COLLISION = {'_mrt': dict(model='mrt'),
              '_incomp': dict(incompressible=True)}
 #: the force-driven scenes -> dimensions
 FORCED = {'sphere_3d': 3, 'cylinder': 2}
+#: the binary Shan-Chen scenes (``--scenes`` only)
+MIXTURES = ('sc_separation_3d', 'sc_separation_2d')
 SIZES = {3: (256, 256, 256), 2: (4096, 4096)}
 
 
@@ -75,6 +81,8 @@ def scene_setup(scene, ts):
     base = scene.replace('_unforced', '')
     dim = FORCED.get(base) or (3 if '3d' in scene else 2)
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), SIZES[dim]))
+    if scene in MIXTURES:
+        return ts.binary_twin(scene), cfg
     if base in FORCED:
         sim_cls = ts.twin(base)
         return (sim_cls if base == scene else ts.unforced(sim_cls)), cfg
@@ -92,14 +100,25 @@ def scene_setup(scene, ts):
     return ts.channel_sim_2d('regularized', profile=profile), cfg
 
 
+def seeded_state(ts, scene, ks, seed):
+    """A seeded start for ``scene``'s kernel engine ``ks``: a random
+    equilibrium (single fluid) or a near-uniform K-component state, in
+    ``ks.a``; returns what ``ks.run`` takes."""
+    if scene in MIXTURES:
+        ks.a.copy_(ts.random_binary_state(ks.grid, ks.shape, seed, 'cuda'))
+        return tuple(ks.a.unbind(0))
+    return ks.a.copy_(ts.random_feq(ks.grid, ks.shape, seed, 'cuda'))
+
+
 def small_state(ts, scene, steps):
     """The state of ``scene`` at a quarter of its size per axis after
     ``steps`` kernel steps from a seeded state, as a CPU tensor."""
+    import torch
     sim_cls, cfg = scene_setup(scene, ts)
     cfg = {k: v // 4 if k.startswith('lat_') else v for k, v in cfg.items()}
     ks = ts.run(sim_cls, max_iters=0, **cfg).kernel
-    f0 = ts.random_feq(ks.grid, ks.shape, 2, 'cuda')
-    return ks.run(ks.a.copy_(f0), steps).cpu()
+    out = ks.run(seeded_state(ts, scene, ks, 2), steps)
+    return (torch.stack(out) if isinstance(out, tuple) else out).cpu()
 
 
 def worker(tree, scenes, iters, states, diff_steps):
@@ -112,13 +131,15 @@ def worker(tree, scenes, iters, states, diff_steps):
     import torch_scenes as ts
     from sailfish_tpu_torch import util
     from sailfish_tpu_torch.ops import lbm_step as ls
+    from sailfish_tpu_torch.ops import sc_multi as sm
     try:
         from sailfish_tpu_torch.ops.bc_patch import LAUNCHES as patch_counts
     except ImportError:
         patch_counts = {}
 
     def launches():
-        return sum(ls.LAUNCHES.values()) + sum(patch_counts.values())
+        return sum(ls.LAUNCHES.values()) + sum(patch_counts.values()) \
+            + sum(sm.LAUNCHES.values())
 
     out = {}
     for scene in scenes:
@@ -129,9 +150,9 @@ def worker(tree, scenes, iters, states, diff_steps):
                 AttributeError) as exc:
             out[scene] = dict(refused=str(exc)[:200])
             continue
-        f = ks.run(ks.a.copy_(ts.random_feq(ks.grid, ks.shape, 1, 'cuda')),
-                   100)
-        assert bool(torch.isfinite(f).all()), scene
+        f = ks.run(seeded_state(ts, scene, ks, 1), 100)
+        assert all(bool(torch.isfinite(x).all())
+                   for x in (f if isinstance(f, tuple) else (f,))), scene
         n0 = launches()
         ks.step_into(ks.a, ks.b)
         per_step = launches() - n0

@@ -15,8 +15,10 @@ parabolic-inlet
 channels (``tests/torch_scenes``: one ``lbm_step`` launch each step, its BC
 nodes reading per-node parameters; the inlet normal to z / y or to x), the
 binary
-Shan-Chen separations and the binary free-energy separations of
-``examples/torch`` at the benchmark sizes (D3Q19 256^3, D2Q9 4096^2) it
+Shan-Chen separations, the forced Rayleigh-Taylor mixture, the ternary
+drops and the ternary 3D separation, and the binary free-energy
+separations of ``examples/torch`` at the benchmark sizes (D3Q19 256^3,
+D2Q9 4096^2) it
 runs the controller
 with the default (kernel) engine for one chunk (kernel build, warm-up),
 then traces one more chunk of ``SubdomainRunner.main`` with
@@ -50,7 +52,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, 'tests'))
 from torch_scenes import (binary_twin, channel_sim,  # noqa: E402
-                          channel_sim_2d, run, twin)
+                          channel_sim_2d, run, ternary_separation,
+                          ternary_twin, twin)
 
 
 def channel(scene):
@@ -77,6 +80,12 @@ SCENES = {
     'parabolic_inlet_x_2d': (channel, (4096, 4096), {}),
     'sc_separation_3d': (binary_twin, (256, 256, 256), {}),
     'sc_separation_2d': (binary_twin, (4096, 4096), {}),
+    # the forced and K = 3 modes of the mixture step
+    'sc_rayleigh_taylor_2d': (binary_twin, (4096, 4096), {}),
+    'ternary_sc_drop_2d': (lambda s: ternary_twin('sc_drop_2d'),
+                           (4096, 4096), {}),
+    'ternary_separation_3d': (lambda s: ternary_separation(3),
+                              (256, 256, 256), {}),
     'fe_separation_3d': (binary_twin, (256, 256, 256), {}),
     'fe_separation_2d': (binary_twin, (4096, 4096), {}),
     # the collision-model mode: the MRT cavity, the sphere under the
