@@ -57,7 +57,10 @@ version on the card from seeded random states:
   (a Guo force on one component), the walled 3D box with a Guo force on
   each component, the ternary drops (K = 3, classic potential,
   self-couplings), the ternary 3D separation under both potentials, and a
-  forced ternary mixture in 2D and in 3D; and the mixtures the kernels
+  forced ternary mixture in 2D and in 3D; every instantiation of the
+  D3Q19 step's tile (``sc3_kernel``) also on shapes that are no multiple
+  of its tile and with fewer z-planes than a block marches over
+  (``SC3_RAGGED``); and the mixtures the kernels
   cannot run (half-way walls, K = 4, a per-node or DynamicValue force)
   raise on the default engine, naming the reason;
 * the free-energy step (``ops/fe_step``, after the same pre-pass on the
@@ -181,6 +184,34 @@ SC_MODE_MAIN = {
                                      (256, 256, 256),
                                      'sc_multi_k3_force_d3q19'),
 }
+#: the D3Q19 Shan-Chen step's tile on ragged shapes, every instantiation:
+#: (name, sim class, flags, tile or None for the default). 37 x 23 x 11 on
+#: a 32 x 8 x 16 tile is ragged in x, y and z and holds fewer z-planes
+#: than a block marches over; 37 x 23 x 5 on the default tile (256 x 1 x
+#: 8) is ragged in x and z, with fewer z-planes than a block's; the walled
+#: boxes hold mask codes 0, 1 and 2 (with the block of excluded nodes
+#: ``sc_compare`` adds), both potentials
+RAGGED_11 = dict(lat_nx=37, lat_ny=23, lat_nz=11)
+RAGGED_5 = dict(lat_nx=37, lat_ny=23, lat_nz=5)
+TILE_32x8 = (32, 8, 16)
+SC3_RAGGED = [
+    ('sc3_k2_walls_37x23x11', SEP_3D_WALLS, RAGGED_11, TILE_32x8),
+    ('sc3_k2_classic_37x23x5', SEP_3D,
+     dict(RAGGED_5, sc_potential='classic', G11=-0.3, G22=0.2), None),
+    ('sc3_k2_forced_walls_classic_37x23x11', forced_mixture(SEP_3D_WALLS),
+     dict(RAGGED_11, sc_potential='classic', G22=0.2), TILE_32x8),
+    ('sc3_k2_forced_37x23x5', forced_mixture(SEP_3D),
+     dict(RAGGED_5, G11=-0.3), None),
+    ('sc3_k3_walls_37x23x11', ternary_separation(3, walls=True),
+     dict(RAGGED_11, G11=-0.3, G33=0.2), TILE_32x8),
+    ('sc3_k3_classic_37x23x5', TERNARY_3D,
+     dict(RAGGED_5, sc_potential='classic', G22=-0.3), None),
+    ('sc3_k3_forced_walls_classic_37x23x11',
+     forced_mixture(ternary_separation(3, walls=True)),
+     dict(RAGGED_11, sc_potential='classic', G22=-0.3), TILE_32x8),
+    ('sc3_k3_forced_37x23x5', forced_mixture(TERNARY_3D),
+     dict(RAGGED_5, G11=-0.3, G33=0.2), None),
+]
 #: the force-driven main paths (Guo forcing): scene -> size
 FORCED_MAIN = {'sphere_3d': (256, 256, 256), 'cylinder': (4096, 4096)}
 #: their constant acceleration (examples/torch/sphere_3d.py, cylinder.py)
@@ -716,14 +747,17 @@ def sc_errors(ks, grid, f0, steps):
     return rho_err, err
 
 
-def sc_compare(name, sim_cls, steps=20, **cfg):
+def sc_compare(name, sim_cls, steps=20, tile=None, **cfg):
     """The Shan-Chen kernels vs their plain versions on the card from one
     seeded near-uniform K-component state (each density 1 + U(0, 1e-3), as
-    the separation scenes start), with a block of excluded nodes. Returns
-    (step launch name, pre-pass row name, pre-pass error, step error)."""
+    the separation scenes start), with a block of excluded nodes; a D3Q19
+    step on ``tile`` if given. Returns (step launch name, pre-pass row
+    name, pre-pass error, step error)."""
     r = run(with_keep_block(sim_cls), platform=DEVICE, engine='kernel',
             max_iters=0, **cfg)
     ks = r.kernel
+    if tile:
+        ks.set_tile(tile)
     grid = r.sim.grid
     codes = sorted(torch.unique(ks.mask).tolist())
     f0 = tuple(random_binary_state(grid, ks.shape, seed=1234,
@@ -734,7 +768,9 @@ def sc_compare(name, sim_cls, steps=20, **cfg):
                           for (j, k), g in ks.couplings.items() if g)
     forces = ', '.join(f'a{k + 1} {tuple(float(x) for x in a)}'
                        for k, a in enumerate(ks.accels) if a is not None)
-    say(f'compare {name}: {ks.name}, {grid.name} K={ks.K} {ks.shape} '
+    tiled = '' if ks.tile is None else \
+        f' tile {ks.tile.tx}x{ks.tile.ty}x{ks.tile.kz} grid {ks.tile.grid},'
+    say(f'compare {name}: {ks.name}, {grid.name} K={ks.K} {ks.shape}{tiled} '
         f'{ks.potential}, {couplings}{", " + forces if forces else ""}, mask '
         f'codes {codes}: pre-pass max|drho| = {rho_err:.3e} (tol '
         f'{RHO_TOL:g}); {steps} steps wet max|df| = {err:.3e} (tol {TOL:g})')
@@ -1642,6 +1678,12 @@ def main():
                     f'forced {int(inst["forced"])}: {use["registers"]} '
                     f'registers, stack frame {use["stack_frame"]} B, spill '
                     f'{use["spill_stores"]} / {use["spill_loads"]} B')
+                if inst['dim'] == 3:
+                    # the D3Q19 tile runs in registers, 16 warps per SM
+                    assert 'sc3_kernel' in fn, fn
+                    assert use['stack_frame'] == use['spill_stores'] \
+                        == use['spill_loads'] == 0, (fn, use)
+                    assert use['registers'] <= 128, (fn, use)
         if name == 'fe_step':
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
                 if 'fe3_kernel' in fn and 'registers' in use:
@@ -1653,8 +1695,10 @@ def main():
     assert len(kinds) == 2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2, len(kinds)
     # two lattices x K = 2, 3 x forced or not
     assert len(sc_kinds) == 2 * 2 * 2, sc_kinds
-    say(f'fe_step_d3q19 tile: {fe.TILE_3D[0]}x{fe.TILE_3D[1]} threads over '
-        f'(x, y), {fe.TILE_3D[2]} z-planes per block')
+    for name, tile in (('fe_step_d3q19', fe.TILE_3D),
+                       ('sc_multi D3Q19 step', sm.TILE_3D)):
+        say(f'{name} tile: {tile[0]}x{tile[1]} threads over (x, y), '
+            f'{tile[2]} z-planes per block')
 
     phase_done('builds')
     errs = {}
@@ -1833,6 +1877,11 @@ def main():
              forced_mixture(ternary_separation(3, walls=True)),
              dict(cube, G22=-0.3))):
         step_name, rho_name, rho_err, err = sc_compare(name, sim_cls, **cfg)
+        note(rho_name, rho_err)
+        note(step_name, err)
+    for name, sim_cls, cfg, tile in SC3_RAGGED:
+        step_name, rho_name, rho_err, err = sc_compare(name, sim_cls,
+                                                       tile=tile, **cfg)
         note(rho_name, rho_err)
         note(step_name, err)
     sc_refusals()

@@ -80,19 +80,30 @@ def build_library(src):
     ``build/kernels/lib<stem>_<hash>.so`` unless that file exists (the
     hash covers the source text, the headers beside it and the flags), and
     load it."""
-    return _finish_build(*_start_build(src))
+    return build_libraries([src])[0]
+
+
+def build_libraries(srcs):
+    """``build_library`` of every source of ``srcs``, one ``nvcc`` each,
+    all started together; returns the ``KernelLibrary`` list in order."""
+    pending = [_start_build(src) for src in srcs]
+    return [_finish_build(*p) for p in pending]
 
 
 def hashed_files(src):
     """The files a build of ``src`` reads and its key hashes: the source,
     every ``.cu`` source beside it that it includes (``lbm_step_mrt.cu``
     builds ``lbm_step.cu`` with another collision model), then every header
-    beside it (``*.cuh``, which a source may include). An installed
-    package must carry them all (``package_data`` in setup.py)."""
+    beside it and in ``CSRC`` (``*.cuh``, which a source may include; a
+    variant source written elsewhere finds them through ``-I``). An
+    installed package must carry them all (``package_data`` in
+    setup.py)."""
     src = Path(src)
     included = re.findall(r'^#include "(\w+\.cu)"', src.read_text(), re.M)
-    return [src] + [src.parent / name for name in included] \
-        + sorted(src.parent.glob('*.cuh'))
+    headers = sorted(src.parent.glob('*.cuh'))
+    if src.parent.resolve() != CSRC.resolve():
+        headers += sorted(CSRC.glob('*.cuh'))
+    return [src] + [src.parent / name for name in included] + headers
 
 
 def _start_build(src):

@@ -26,7 +26,6 @@ them on the card; the main path never calls them on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import numpy as np
 import torch
@@ -45,13 +44,9 @@ MAX_MOM = 9
 #: lattices the step kernel is instantiated for
 KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: the 3D kernel's tile: threads in x and y, z-planes per block (the sweep
-#: of tools/fe_tile_sweep.py on the card, PERF.md)
+#: of tools/fe_tile_sweep.py on the card, PERF.md); its limits are those of
+#: ``sc_multi.tile_launch``
 TILE_3D = (128, 2, 8)
-#: limits of the 3D kernel (csrc/fe_step.cu FE3_THREADS, FE3_MAX_FILL)
-MAX_TILE_THREADS = 256
-MAX_FILL = 4
-#: shared memory a block may use without opting in
-SMEM_LIMIT = 48 * 1024
 #: step-kernel launches per kernel name over all ``FEStep`` objects (the
 #: pre-pass counts in ``sc_multi.LAUNCHES``, beside its Shan-Chen use)
 LAUNCHES = dict.fromkeys((f'fe_step_{g.lower()}' for g in KERNEL_GRIDS), 0)
@@ -184,62 +179,21 @@ def kernel_params(builder, shape, wetting):
     return p
 
 
-class _Tile(ctypes.Structure):
-    _fields_ = [('tx', ctypes.c_int), ('ty', ctypes.c_int),
-                ('kz', ctypes.c_int), ('grid', ctypes.c_int * 3),
-                ('smem_bytes', ctypes.c_int)]
-
-
-@dataclasses.dataclass(frozen=True)
-class Tile3D:
-    """Launch geometry of the 3D kernel: blocks of ``tx`` x ``ty`` threads
-    over (x, y), each marching over ``kz`` z-planes; ``grid`` (blocks
-    along x, y, z); ``halo`` of the staged order-parameter planes (2 with
-    wetting, whose mirror reaches one node further, else 1);
-    ``smem_bytes`` of dynamic shared memory per block."""
-    tx: int
-    ty: int
-    kz: int
-    grid: tuple
-    halo: int
-    smem_bytes: int
-
-    def params(self):
-        """The by-value ``FETile`` block of the launch."""
-        t = _Tile(self.tx, self.ty, self.kz)
-        t.grid[:] = self.grid
-        t.smem_bytes = self.smem_bytes
-        return t
-
-
 def tile_geometry(shape, wetting, tile=TILE_3D):
-    """``Tile3D`` for the (nz, ny, nx) domain ``shape`` and the tile (tx,
-    ty, kz). Shared memory (``csrc/fe_step.cu`` fe3_smem_bytes): a ring of
-    raw phi planes of (ty + 2 halo) x (tx + 2 halo) floats, four without
-    wetting; with wetting three, plus three phi_w planes of halo 1 and one
-    orientation byte per raw entry. Raises ValueError on a tile the kernel
-    does not take."""
-    nz, ny, nx = shape
-    tx, ty, kz = tile
+    """``sc_multi.Tile3D`` for the (nz, ny, nx) domain ``shape`` and the
+    tile (tx, ty, kz). Shared memory (``csrc/fe_step.cu`` fe3_smem_bytes):
+    a ring of raw phi planes of (ty + 2 halo) x (tx + 2 halo) floats, four
+    without wetting; with wetting three, plus three phi_w planes of halo 1
+    and one orientation byte per raw entry. Raises ValueError on a tile
+    the kernel does not take."""
+    tx, ty, _kz = tile
     halo = 2 if wetting else 1
     plane = (tx + 2 * halo) * (ty + 2 * halo)
     if wetting:
         smem = 4 * 3 * plane + 4 * 3 * (tx + 2) * (ty + 2) + plane
     else:
         smem = 4 * 4 * plane
-    threads = tx * ty
-    if min(tile) < 1 or threads > MAX_TILE_THREADS:
-        raise ValueError(f'tile {tile}: 1 to {MAX_TILE_THREADS} threads '
-                         'and at least one z-plane')
-    if -(-plane // threads) > MAX_FILL:
-        raise ValueError(f'tile {tile}: a staged plane of {plane} entries '
-                         f'needs more than {MAX_FILL} per thread')
-    if smem > SMEM_LIMIT:
-        raise ValueError(f'tile {tile}: {smem} B of shared memory')
-    if nx * ny * nz >= 2 ** 31:
-        raise ValueError(f'domain {shape}: 2^31 nodes or more')
-    grid = (-(-nx // tx), -(-ny // ty), -(-nz // kz))
-    return Tile3D(tx, ty, kz, grid, halo, smem)
+    return sm.tile_launch(shape, tile, halo, smem)
 
 
 class _Tables(ctypes.Structure):
@@ -300,7 +254,7 @@ def kernel_function(lib, grid_name):
         lib.fe_d3q19_tables.restype = None
         lib.fe_d3q19_tables(ctypes.byref(tables))
         check_tables(tables, lattice.D3Q19)
-        args.append(ctypes.POINTER(_Tile))
+        args.append(ctypes.POINTER(sm._Tile))
     fn.argtypes = args + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

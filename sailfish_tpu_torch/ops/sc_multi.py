@@ -7,9 +7,15 @@ Counterpart of ``sailfish_tpu/ops/pallas_multi2d.py`` (``PallasStepSCMulti2D``,
 (``make_rho_kernel_3d`` / ``_2d``) and B7/B9 (``make_kernel_2d_sc_multi`` /
 ``make_kernel_3d_sc_multi``): K = 2 or 3 components, each with an optional
 constant Guo body force (an acceleration). The kernels are
-``csrc/sc_multi.cu``; this module checks that a scene is eligible, holds
-the per-component A/B buffers and the density buffer, and wraps the
-launches.
+``csrc/sc_multi.cu``: the density pre-pass ``rho_poststream``, the D2Q9 step
+``sc_multi_kernel`` (one x-row per block) and the D3Q19 step ``sc3_kernel``
+(a tile of threads in (x, y) that marches over z-planes, with psi of the
+densities staged in shared memory and compile-time lattice tables). This
+module checks that a scene is eligible, computes the 3D kernel's launch
+geometry (``tile_geometry``; ``Tile3D`` is shared with the free-energy
+kernel), checks its compile-time tables against ``lattice`` when it loads
+the library (``check_tables``), holds the per-component A/B buffers and the
+density buffer, and wraps the launches.
 
 Beside the wrapper live the kernels' plain PyTorch versions,
 ``rho_reference`` and ``sc_multi_reference``. The tests use them on the
@@ -20,12 +26,14 @@ main path never calls them on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import re
 
 import numpy as np
 import torch
 
 from sailfish_tpu_torch import equilibrium as eq
+from sailfish_tpu_torch import lattice
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.ops import collide as co
 from sailfish_tpu_torch.ops import lbm_step as ls
@@ -40,6 +48,17 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 KERNEL_K = (2, 3)
 #: potential codes of csrc/sc_multi.cu
 POTENTIALS = {'linear': 0, 'classic': 1}
+#: the 3D step kernel's tile: threads in x and y, z-planes per block (the
+#: sweep of tools/sc_tile_sweep.py on the card, PERF.md)
+TILE_3D = (256, 1, 8)
+#: limits of the z-marching tile kernels (csrc/sc_multi.cu SC3_THREADS,
+#: SC3_MAX_FILL; csrc/fe_step.cu FE3_THREADS, FE3_MAX_FILL)
+MAX_TILE_THREADS = 256
+MAX_FILL = 4
+#: shared memory a block may use without opting in
+SMEM_LIMIT = 48 * 1024
+#: the tile kernels' offsets are 32-bit: fewer nodes than this
+MAX_TILE_NODES = 2 ** 31
 #: launch names of the step kernel's modes: ``sc_multi_<grid>`` (K = 2, no
 #: body force), ``sc_multi_force_<grid>`` (K = 2, a constant Guo force on
 #: some component), ``sc_multi_k3_<grid>`` and ``sc_multi_k3_force_<grid>``
@@ -84,7 +103,7 @@ def torch_density(f, grid):
 
 def sc_multi_reference(fs, rhos, mask, grid, taus, couplings, potential,
                        accels=None):
-    """Plain PyTorch version of ``sc_multi_step``: one step of the
+    """Plain PyTorch version of the step kernels: one step of the
     K-component state ``fs`` (K (Q, *S) tensors) given the pre-pass
     densities ``rhos`` (K (*S) tensors), under uint8 mask codes ``mask``
     (0 collide, 1 full bounce-back, 2 keep), relaxation times ``taus``,
@@ -123,19 +142,23 @@ def step_mode(K, forced):
         ('_force' if forced else '')
 
 
-#: template parameters of ``sc_multi_kernel`` in csrc/sc_multi.cu
+#: template parameters of ``sc_multi_kernel`` in csrc/sc_multi.cu; the
+#: D3Q19 step ``sc3_kernel<K, FORCED>`` has the last two
 INSTANCE_PARAMS = ('dim', 'q', 'k', 'forced')
 
 
 def instantiation(fn):
-    """The template arguments of the ``sc_multi_kernel`` instantiation
-    whose mangled name is ``fn``, as {name of ``INSTANCE_PARAMS``: value}
-    (``forced`` a bool, False for an older build's name without it), or
-    None for another function."""
-    m = re.search(r'sc_multi_kernelI((?:L[ib]n?\d+E)+)E', fn)
+    """The template arguments of the step kernel instantiation whose
+    mangled name is ``fn`` (``sc_multi_kernel``, or ``sc3_kernel`` with dim
+    3 and q 19), as {name of ``INSTANCE_PARAMS``: value} (``forced`` a
+    bool, False for an older build's name without it), or None for
+    another function."""
+    m = re.search(r'(sc_multi_kernel|sc3_kernel)I((?:L[ib]n?\d+E)+)E', fn)
     if not m:
         return None
-    vals = [int(num) for num in re.findall(r'L[ib]n?(\d+)E', m.group(1))]
+    vals = [int(num) for num in re.findall(r'L[ib]n?(\d+)E', m.group(2))]
+    if m.group(1) == 'sc3_kernel':
+        vals = [3, 19] + vals
     out = dict(zip(INSTANCE_PARAMS, vals))
     out['forced'] = bool(out.get('forced', 0))
     return out
@@ -173,10 +196,7 @@ def kernel_ineligibility(builder):
         if not 0 <= j <= k < K:
             reasons.append(f'coupling key {(j, k)} (the kernel takes '
                            'j <= k < K, each pair once)')
-    shape = builder.maps.type_map.shape
-    if any(s > ls.MAX_GRID_YZ for s in shape[:-1]):
-        reasons.append(f'domain {shape}: y and z extents above '
-                       f'{ls.MAX_GRID_YZ}')
+    reasons += domain_reasons(grid.name, builder.maps.type_map.shape)
     _mask, instances, why = ls.classify_nodes(builder.maps)
     reasons += why
     if instances:
@@ -188,6 +208,20 @@ def kernel_ineligibility(builder):
     if builder.maps.dynamic:
         reasons.append('DynamicValue BC parameters (the Shan-Chen kernel '
                        'takes no time-dependent value)')
+    return reasons
+
+
+def domain_reasons(grid_name, shape):
+    """Reasons the kernels cannot run a ``grid_name`` domain of ``shape``
+    ((nz,) ny, nx): the pre-pass and the D2Q9 step launch one block per
+    (y, z) row, and the D3Q19 step's offsets are 32-bit."""
+    reasons = []
+    if any(s > ls.MAX_GRID_YZ for s in shape[:-1]):
+        reasons.append(f'domain {shape}: y and z extents above '
+                       f'{ls.MAX_GRID_YZ}')
+    if grid_name == 'D3Q19' and int(np.prod(shape)) >= MAX_TILE_NODES:
+        reasons.append(f'domain {shape}: 2^31 nodes or more (the D3Q19 '
+                       "step kernel's offsets are 32-bit)")
     return reasons
 
 
@@ -229,10 +263,104 @@ def kernel_params(grid, shape, taus, couplings, potential, accels=None):
     return p
 
 
+class _Tile(ctypes.Structure):
+    _fields_ = [('tx', ctypes.c_int), ('ty', ctypes.c_int),
+                ('kz', ctypes.c_int), ('grid', ctypes.c_int * 3),
+                ('smem_bytes', ctypes.c_int)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile3D:
+    """Launch geometry of a z-marching tile kernel (``sc3_kernel`` here,
+    ``fe3_kernel`` of ``ops/fe_step``): blocks of ``tx`` x ``ty`` threads
+    over (x, y), each marching over ``kz`` z-planes; ``grid`` (blocks along
+    x, y, z); ``halo`` of the staged planes; ``smem_bytes`` of dynamic
+    shared memory per block."""
+    tx: int
+    ty: int
+    kz: int
+    grid: tuple
+    halo: int
+    smem_bytes: int
+
+    def params(self):
+        """The by-value tile block of the launch (``SCTile`` /
+        ``FETile``, one layout)."""
+        t = _Tile(self.tx, self.ty, self.kz)
+        t.grid[:] = self.grid
+        t.smem_bytes = self.smem_bytes
+        return t
+
+
+def tile_launch(shape, tile, halo, smem):
+    """``Tile3D`` of a tile kernel for the (nz, ny, nx) domain ``shape``,
+    the tile (tx, ty, kz), staged planes of (ty + 2 halo) x (tx + 2 halo)
+    entries and ``smem`` shared bytes per block. Raises ValueError on what
+    the tile kernels do not take."""
+    nz, ny, nx = shape
+    tx, ty, kz = tile
+    plane = (tx + 2 * halo) * (ty + 2 * halo)
+    threads = tx * ty
+    if min(tile) < 1 or threads > MAX_TILE_THREADS:
+        raise ValueError(f'tile {tile}: 1 to {MAX_TILE_THREADS} threads '
+                         'and at least one z-plane')
+    if -(-plane // threads) > MAX_FILL:
+        raise ValueError(f'tile {tile}: a staged plane of {plane} entries '
+                         f'needs more than {MAX_FILL} per thread')
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'tile {tile}: {smem} B of shared memory')
+    if nx * ny * nz >= MAX_TILE_NODES:
+        raise ValueError(f'domain {shape}: 2^31 nodes or more (the tile '
+                         "kernels' offsets are 32-bit)")
+    grid = (-(-nx // tx), -(-ny // ty), -(-nz // kz))
+    return Tile3D(tx, ty, kz, grid, halo, smem)
+
+
+def tile_geometry(shape, K, tile=TILE_3D):
+    """``Tile3D`` of ``sc3_kernel`` for the (nz, ny, nx) domain ``shape``,
+    ``K`` components and the tile (tx, ty, kz). Shared memory
+    (``csrc/sc_multi.cu`` sc3_smem_bytes): per component a ring of four
+    density planes of (ty + 2) x (tx + 2) floats (halo 1). Raises
+    ValueError on a tile or domain the kernel does not take."""
+    tx, ty, _kz = tile
+    return tile_launch(shape, tile, 1, 4 * 4 * K * (tx + 2) * (ty + 2))
+
+
+class _Tables(ctypes.Structure):
+    _fields_ = [('c', (ctypes.c_int * 3) * 19), ('opp', ctypes.c_int * 19),
+                ('w', ctypes.c_float * 19)]
+
+
+def lattice_tables(grid=lattice.D3Q19):
+    """``_Tables`` filled from ``sailfish_tpu_torch.lattice``: what
+    ``sc_d3q19_tables`` must copy out."""
+    t = _Tables()
+    for i in range(grid.Q):
+        t.c[i][:] = [int(v) for v in grid.basis[i]]
+        t.opp[i] = int(grid.opposite[i])
+        t.w[i] = float(grid.weights[i])
+    return t
+
+
+def check_tables(tables, grid=lattice.D3Q19):
+    """Raise RuntimeError unless the ``_Tables`` ``tables`` (the 3D step
+    kernel's compile-time tables) equal ``lattice_tables(grid)``, every
+    integer exactly and every weight to the last bit of its float32."""
+    ref = lattice_tables(grid)
+    bad = [name for name, _ in _Tables._fields_
+           if bytes(getattr(tables, name)) != bytes(getattr(ref, name))]
+    if bad:
+        raise RuntimeError(
+            f'the compile-time {grid.name} tables of csrc/sc_multi.cu differ '
+            f'from sailfish_tpu_torch.lattice in {", ".join(bad)}')
+
+
 def kernel_functions(lib, grid_name):
     """The C entries (rho_poststream, sc_multi) for ``grid_name`` of a
     loaded ``csrc/sc_multi.cu`` library, typed for ``ctypes``, after
-    checking that the library's parameter block matches ``_Params``."""
+    checking that the library's parameter block matches ``_Params`` and,
+    for D3Q19, that the step kernel's compile-time tables match the
+    lattice (``check_tables``); the D3Q19 step also takes the ``_Tile``."""
     lib.sc_params_size.restype = ctypes.c_int
     if lib.sc_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError('SCParams layout differs between '
@@ -243,8 +371,20 @@ def kernel_functions(lib, grid_name):
                        ctypes.POINTER(_Params), ctypes.c_void_p]
     rho_fn.restype = ctypes.c_int
     step_fn = getattr(lib, f'sc_multi_{g}')
-    step_fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(_Params), ctypes.c_void_p]
+    args = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(_Params)]
+    if grid_name == 'D3Q19':
+        lib.sc_tables_size.restype = ctypes.c_int
+        if lib.sc_tables_size() != ctypes.sizeof(_Tables):
+            raise RuntimeError('SCTables layout differs between '
+                               'csrc/sc_multi.cu and ops/sc_multi.py')
+        tables = _Tables()
+        lib.sc_d3q19_tables.argtypes = [ctypes.POINTER(_Tables)]
+        lib.sc_d3q19_tables.restype = None
+        lib.sc_d3q19_tables(ctypes.byref(tables))
+        check_tables(tables, lattice.D3Q19)
+        args.append(ctypes.POINTER(_Tile))
+    step_fn.argtypes = args + [ctypes.c_void_p]
     step_fn.restype = ctypes.c_int
     return rho_fn, step_fn
 
@@ -298,8 +438,9 @@ class SCMultiStep(BufferedMultiStep):
     """The kernel engine for one Shan-Chen scene: the K components' A and
     B buffers (one (K, Q, *S) tensor each, swapped every step), the (K,
     *S) density buffer, the uint8 mask, the components' constant
-    accelerations ``accels`` (None for an unforced one), and ``launches``,
-    this object's kernel launches by kernel name."""
+    accelerations ``accels`` (None for an unforced one), the 3D step
+    kernel's ``tile`` (None in 2D, whose step takes one x-row per block),
+    and ``launches``, this object's kernel launches by kernel name."""
 
     def __init__(self, builder):
         reasons = kernel_ineligibility(builder)
@@ -328,18 +469,31 @@ class SCMultiStep(BufferedMultiStep):
         self.params = kernel_params(self.grid, self.shape, self.taus,
                                     self.couplings, self.potential,
                                     self.accels)
+        self.tile = None
+        self._tile_args = ()
+        if self.grid.name == 'D3Q19':
+            self.set_tile(TILE_3D)
         g = self.grid.name.lower()
         self.rho_name = f'rho_poststream_{g}'
         self.name = f'{step_mode(self.K, self.forced)}_{g}'
         self.launches = {self.rho_name: 0, self.name: 0}
         self._fns = None
 
-    def _launch(self, name, fn, *args):
+    def set_tile(self, tile):
+        """Launch the 3D step kernel with the tile (tx, ty, kz) from now
+        on."""
+        self.tile = tile_geometry(self.shape, self.K, tile)
+        self._tile_params = self.tile.params()
+        self._tile_args = (ctypes.byref(self._tile_params),)
+
+    def _launch(self, name, fn, *args, after=()):
+        """Launch C entry ``fn`` (0 pre-pass, 1 step) with ``args``, the
+        parameter block, ``after`` and the current stream."""
         if self._fns is None:
             from sailfish_tpu_torch.ops import build
             self._fns = kernel_functions(build.load('sc_multi').lib,
                                          self.grid.name)
-        rc = self._fns[fn](*args, ctypes.byref(self.params),
+        rc = self._fns[fn](*args, ctypes.byref(self.params), *after,
                            torch.cuda.current_stream(self.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
@@ -362,8 +516,9 @@ class SCMultiStep(BufferedMultiStep):
 
     def collide_into(self, src, rho, dst):
         """One coupled step from ``src`` into ``dst`` (distinct (K, Q, *S)
-        buffers) given the pre-pass densities ``rho``: the ``sc_multi_step``
-        kernel on a CUDA tensor, ``sc_multi_reference`` on a CPU tensor."""
+        buffers) given the pre-pass densities ``rho``: the step kernel
+        (``sc_multi_kernel`` in 2D, ``sc3_kernel`` in 3D) on a CUDA tensor,
+        ``sc_multi_reference`` on a CPU tensor."""
         self._check((src, self.a.shape), (rho, self.rho.shape),
                     (dst, self.a.shape))
         if src.data_ptr() == dst.data_ptr():
@@ -377,7 +532,7 @@ class SCMultiStep(BufferedMultiStep):
             raise ValueError(f'no kernel for device {src.device}')
         self._launch(self.name, 1, src.data_ptr(), rho.data_ptr(),
                      dst.data_ptr(), self.mask.data_ptr(), self.K,
-                     int(self.forced))
+                     int(self.forced), after=self._tile_args)
 
     def reference(self, fs, rhos):
         """``sc_multi_reference`` with this scene's parameters: one step

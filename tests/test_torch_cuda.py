@@ -21,7 +21,13 @@ walls and self-couplings; launches counted as ``sc_multi_force_<grid>``,
 ``sc_multi_k3_<grid>``, ``sc_multi_k3_force_<grid>``) and the pre-pass at
 K = 3; the forced, ternary and porous twins run through the controller on
 the kernel engine against the torch engine, and the mixtures the kernels
-cannot run (half-way walls, a per-node force) raise by name.
+cannot run (half-way walls, a per-node force) raise by name. The D3Q19
+step's tile (``SC3_CASES``: each of its four instantiations on shapes that
+are no multiple of the tile and with fewer z-planes than a block marches
+over, both potentials, mask codes 0, 1 and 2) is held against
+``sc_multi_reference`` for 20 steps (<= 1e-5); other tiles give the same
+bits, a wrong geometry is refused, ptxas reports no stack frame and no
+spill for the four, and its compile-time tables equal ``lattice``'s.
 
 The kernel with varying BC rows (launches counted as
 ``lbm_step_vary_<grid>``: native BCs that read each node's own rho and u
@@ -859,6 +865,133 @@ def test_sc_multi_mode_matches_reference(cuda, case):
     wet = ks.mask == 0
     err = float((torch.stack(fk) - torch.stack(fr))[:, :, wet].abs().max())
     assert err <= 1e-5
+
+
+#: the D3Q19 step's tile on ragged shapes: case -> (scene, flags, launch
+#: name), each run on the default tile and on 32 x 8 x 16
+#: (``SC3_TILES``): 37 x 23 x 11 and 37 x 23 x 5 are no multiple of
+#: either in x and z (nor of 32 x 8 in y), and hold fewer z-planes than a
+#: block of 32 x 8 x 16 marches over (37 x 23 x 5 than one of the default
+#: tile); the walled scenes hold mask codes 0, 1 and 2, the others 0 and 2
+SC3_RAGGED = dict(lat_nx=37, lat_ny=23, lat_nz=11)
+SC3_THIN = dict(lat_nx=37, lat_ny=23, lat_nz=5)
+SC3_CASES = {
+    'k2_walls': (lambda: binary_twin('sc_separation_3d_walls'),
+                 SC3_RAGGED, 'sc_multi_d3q19'),
+    'k2_thin_classic': (lambda: binary_twin('sc_separation_3d'),
+                        dict(SC3_THIN, sc_potential='classic', G11=-0.3,
+                             G22=0.2), 'sc_multi_d3q19'),
+    'k2_forced_walls_classic': (
+        lambda: forced_mixture(binary_twin('sc_separation_3d_walls')),
+        dict(SC3_RAGGED, sc_potential='classic', G22=0.2),
+        'sc_multi_force_d3q19'),
+    'k2_forced_thin': (lambda: forced_mixture(binary_twin('sc_separation_3d')),
+                       dict(SC3_THIN, G11=-0.3), 'sc_multi_force_d3q19'),
+    'k3_walls': (lambda: ternary_separation(3, walls=True),
+                 dict(SC3_RAGGED, G11=-0.3, G33=0.2), 'sc_multi_k3_d3q19'),
+    'k3_thin_classic': (lambda: ternary_separation(3),
+                        dict(SC3_THIN, sc_potential='classic', G22=-0.3),
+                        'sc_multi_k3_d3q19'),
+    'k3_forced_walls_classic': (
+        lambda: forced_mixture(ternary_separation(3, walls=True)),
+        dict(SC3_RAGGED, sc_potential='classic', G22=-0.3),
+        'sc_multi_k3_force_d3q19'),
+    'k3_forced_thin': (lambda: forced_mixture(ternary_separation(3)),
+                       dict(SC3_THIN, G11=-0.3, G33=0.2),
+                       'sc_multi_k3_force_d3q19'),
+}
+
+
+SC3_TILES = (sm.TILE_3D, (32, 8, 16))
+
+
+def _sc3_engine(case):
+    make_sim, cfg, name = SC3_CASES[case]
+    r = run(with_keep_block(make_sim()), platform='cuda', engine='kernel',
+            max_iters=0, **cfg)
+    ks = r.kernel
+    assert isinstance(ks, sm.SCMultiStep) and ks.name == name
+    return r, ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tile', SC3_TILES)
+@pytest.mark.parametrize('case', sorted(SC3_CASES))
+def test_sc3_tile_on_ragged_shapes(cuda, case, tile):
+    r, ks = _sc3_engine(case)
+    codes = sorted(torch.unique(ks.mask).tolist())
+    assert codes == ([0, 1, 2] if 'walls' in case else [0, 2]), codes
+    ks.set_tile(tile)
+    t = ks.tile
+    assert t.grid[0] * t.tx > ks.shape[2] and t.grid[2] * t.kz > ks.shape[0]
+    assert t.ty == 1 or t.grid[1] * t.ty > ks.shape[1]
+    grid = r.sim.grid
+    f0 = random_binary_state(grid, ks.shape, seed=9, device='cuda',
+                             u_rms=0.02, K=ks.K)
+    fk = ks.run(tuple(f0), 20)
+    fr = tuple(f0)
+    for _ in range(20):
+        fr = ks.reference(fr, [sm.rho_reference(f, grid) for f in fr])
+    torch.cuda.synchronize()
+    assert ks.launches == {ks.rho_name: 20, ks.name: 20}
+    wet = ks.mask == 0
+    err = float((torch.stack(fk) - torch.stack(fr))[:, :, wet].abs().max())
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['k2_forced_walls_classic',
+                                  'k3_forced_thin'])
+def test_sc3_tiles_give_the_same_bits(cuda, case):
+    """Each node runs the same arithmetic whatever the tile; a tile the C
+    side does not take is refused there and raises."""
+    _r, ks = _sc3_engine(case)
+    f0 = tuple(random_binary_state(ks.grid, ks.shape, seed=10,
+                                   device='cuda', u_rms=0.02, K=ks.K))
+    outs = []
+    for tile in (sm.TILE_3D, (64, 4, 3), (16, 8, 2), (8, 4, 7), (40, 6, 1)):
+        ks.set_tile(tile)
+        outs.append(torch.stack(ks.run(f0, 3)).clone())
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    ks._tile_params.smem_bytes -= 4
+    with pytest.raises(RuntimeError, match='launch failed: CUDA error'):
+        ks.collide_into(ks.a, ks.rho, ks.b)
+
+
+@pytest.mark.cuda
+def test_sc3_instantiations_run_in_registers(cuda):
+    """ptxas: the four D3Q19 step instantiations with 0 B stack frame, no
+    spills and at most 128 registers (16 resident warps per SM at 256
+    threads a block); the D2Q9 step keeps its four."""
+    usage = {fn: use for fn, use in build.ptxas_usage(
+        build.load('sc_multi').log).items() if 'registers' in use}
+    kinds = {}
+    for fn, use in usage.items():
+        inst = sm.instantiation(fn)
+        if inst:
+            kinds[(inst['dim'], inst['k'], inst['forced'])] = (fn, use)
+    assert sorted(kinds) == [(d, k, f) for d in (2, 3) for k in (2, 3)
+                             for f in (False, True)]
+    for (dim, _k, _f), (fn, use) in kinds.items():
+        assert ('sc3_kernel' in fn) == (dim == 3), fn
+        if dim == 3:
+            assert use['stack_frame'] == use['spill_stores'] \
+                == use['spill_loads'] == 0, (fn, use)
+            assert use['registers'] <= 128, (fn, use)
+
+
+@pytest.mark.cuda
+def test_sc3_tables_equal_the_lattice(cuda):
+    lib = build.load('sc_multi').lib
+    sm.kernel_functions(lib, 'D3Q19')    # raises on any difference
+    tables = sm._Tables()
+    lib.sc_d3q19_tables(ctypes.byref(tables))
+    ref = sm.lattice_tables()
+    for name, _ in sm._Tables._fields_:
+        assert bytes(getattr(tables, name)) == bytes(getattr(ref, name)), \
+            name
 
 
 #: twins of this slice through the controller on the card: scene -> (sim,

@@ -14,11 +14,21 @@ block, buffers, and the kernels' plain PyTorch versions.
 * ``SCMultiStep`` on CPU tensors runs the plain versions and launches
   nothing; each mode has its launch name; its refusals name their reasons
   (K = 4, a per-node or DynamicValue force, half-way walls, native BCs).
+* The D3Q19 step kernel's launch geometry (``tile_geometry``) on ragged
+  shapes for K = 2 and 3, its refusals (a domain of 2^31 nodes or more
+  among them), the Python mirror of its compile-time tables against
+  ``lattice``, the mangled names of both step kernels, and D2Q9 scenes on
+  the one-row launch (no tile).
+* The register-design variants of ``tools/sc_tile_sweep.py`` still find
+  what they edit in the shipped source, and a variant written outside
+  ``csrc`` keys its build on the headers of ``csrc`` too.
 
 The CUDA kernels themselves run only on a card (tests/test_torch_cuda.py).
 """
 
 import ctypes
+import importlib.util
+import os
 import types
 
 import jax.numpy as jnp
@@ -30,6 +40,7 @@ from sailfish_tpu import lattice
 from sailfish_tpu.ops.pallas_step import cz_groups, make_rho_kernel_3d
 from sailfish_tpu.ops.pallas_step2d import make_rho_kernel_2d
 from sailfish_tpu_torch import node_type as nt
+from sailfish_tpu_torch.ops import build
 from sailfish_tpu_torch.ops import sc_multi as sm
 from sailfish_tpu_torch.ops import lbm_step as ls
 from torch_scenes import (BINARY_SCENES, MIX_ACCELS, binary_twin,
@@ -289,3 +300,158 @@ def test_params_layout_matches_the_c_struct():
                                              + 16 + 12)
     assert ctypes.alignment(sm._Params) == 4
     assert sm._Params.force.offset == ctypes.sizeof(sm._Params) - 48
+
+
+@pytest.mark.parametrize('K', [2, 3])
+@pytest.mark.parametrize('shape', [(5, 13, 37), (11, 23, 37), (3, 1, 1),
+                                   (256, 256, 256), (1, 1, 1)])
+def test_tile_geometry_covers_ragged_domains(shape, K):
+    t = sm.tile_geometry(shape, K)
+    nz, ny, nx = shape
+    assert (t.tx, t.ty, t.kz) == sm.TILE_3D
+    # the grid covers the domain and no block is wholly outside it
+    assert t.grid[0] * t.tx >= nx > (t.grid[0] - 1) * t.tx
+    assert t.grid[1] * t.ty >= ny > (t.grid[1] - 1) * t.ty
+    assert t.grid[2] * t.kz >= nz > (t.grid[2] - 1) * t.kz
+    # per component four density planes of (ty + 2) x (tx + 2) floats
+    assert t.halo == 1
+    assert t.smem_bytes == 4 * 4 * K * (t.tx + 2) * (t.ty + 2)
+    assert t.smem_bytes <= sm.SMEM_LIMIT
+    p = t.params()
+    assert (p.tx, p.ty, p.kz, tuple(p.grid), p.smem_bytes) == (
+        t.tx, t.ty, t.kz, t.grid, t.smem_bytes)
+    # int tx, ty, kz, grid[3], smem_bytes (csrc/sc_multi.cu SCTile)
+    assert ctypes.sizeof(p) == 4 * 7
+
+
+def test_tile_geometry_at_the_sized_tile():
+    """At 32 x 8 and K = 3 a block stages 16,320 B: three components of
+    four 34 x 10 planes."""
+    assert sm.tile_geometry((64, 64, 64), 3, (32, 8, 16)).smem_bytes \
+        == 16320
+    assert sm.tile_geometry((64, 64, 64), 2, (32, 8, 16)).smem_bytes \
+        == 10880
+
+
+@pytest.mark.parametrize('shape, K, tile, why', [
+    ((8, 8, 8), 2, (32, 16, 4), '1 to 256 threads'),
+    ((8, 8, 8), 3, (0, 8, 4), '1 to 256 threads'),
+    ((8, 8, 8), 2, (32, 8, 0), 'at least one z-plane'),
+    ((8, 8, 8), 3, (1, 1, 4), 'more than 4 per thread'),
+    ((8, 8, 8), 2, (5, 1, 4), 'more than 4 per thread'),
+    ((2048, 1024, 1024), 2, sm.TILE_3D, '2\\^31 nodes'),
+    ((1024, 2048, 1024), 3, sm.TILE_3D, '2\\^31 nodes'),
+])
+def test_tile_geometry_refuses_what_the_kernel_does_not_take(shape, K, tile,
+                                                             why):
+    with pytest.raises(ValueError, match=why):
+        sm.tile_geometry(shape, K, tile)
+
+
+def test_domain_of_2_31_nodes_is_refused_by_name():
+    """The D3Q19 step's offsets are 32-bit: the wrapper refuses a domain of
+    2^31 nodes or more by name; one node fewer passes, and the D2Q9 step
+    (64-bit offsets) is not held to it."""
+    big = (2048, 1024, 1024)
+    assert any('2^31 nodes or more' in why
+               for why in sm.domain_reasons('D3Q19', big))
+    assert sm.domain_reasons('D3Q19', (2047, 1024, 1024)) == []
+    assert sm.domain_reasons('D2Q9', (32768, 65536)) == []
+    assert 'y and z extents' in sm.domain_reasons('D3Q19', (8, 70000, 8))[0]
+
+
+def test_d3q19_tables_mirror_the_lattice():
+    """``lattice_tables`` (what ``sc_d3q19_tables`` must copy out of the
+    kernel) holds the lattice's directions, opposites and float32 weights;
+    ``check_tables`` names a table that differs."""
+    grid = lattice.D3Q19
+    t = sm.lattice_tables()
+    # int c[19][3]; int opp[19]; float w[19] (csrc/sc_multi.cu SCTables)
+    assert ctypes.sizeof(sm._Tables) == 4 * (19 * 3 + 19 + 19)
+    assert [list(t.c[i]) for i in range(19)] == grid.basis.tolist()
+    assert list(t.opp) == grid.opposite.tolist()
+    assert np.array_equal(np.ctypeslib.as_array(t.w),
+                          grid.weights.astype(np.float32))
+    sm.check_tables(t)
+    t.w[7] = np.nextafter(np.float32(t.w[7]), np.float32(1))
+    t.opp[1] = 1
+    with pytest.raises(RuntimeError, match='differ .* in opp, w'):
+        sm.check_tables(t)
+
+
+@pytest.mark.parametrize('fn, inst', [
+    ('_Z15sc_multi_kernelILi2ELi9ELi3ELb1EEvPKfS1_PfPKh8SCParams',
+     dict(dim=2, q=9, k=3, forced=True)),
+    ('_Z15sc_multi_kernelILi3ELi19ELi2EEvPKfS1_PfPKh8SCParams',
+     dict(dim=3, q=19, k=2, forced=False)),
+    ('_Z10sc3_kernelILi3ELb0EEvPKfS1_PfPKh8SCParams6SCTile',
+     dict(dim=3, q=19, k=3, forced=False)),
+    ('_Z10sc3_kernelILi2ELb1EEvPKfS1_PfPKh8SCParams6SCTile',
+     dict(dim=3, q=19, k=2, forced=True)),
+    ('_Z21rho_poststream_kernelILi3ELi19EEvPKfPfi8SCParams', None),
+])
+def test_instantiation_reads_both_step_kernels(fn, inst):
+    assert sm.instantiation(fn) == inst
+
+
+@pytest.mark.parametrize('case', sorted(MODE_CASES))
+def test_d3q19_scenes_take_the_tile_and_d2q9_the_row(case):
+    """A D3Q19 engine launches the tile kernel with the geometry of its
+    shape and K (the tile argument after the parameter block); a D2Q9 one
+    keeps the one-row launch and passes no tile."""
+    make_sim, cfg, _name = MODE_CASES[case]
+    ks = sm.SCMultiStep(cpu_runner(make_sim(), **cfg).builder)
+    if ks.grid.name == 'D2Q9':
+        assert ks.tile is None and ks._tile_args == ()
+        return
+    assert ks.tile == sm.tile_geometry(ks.shape, ks.K)
+    assert ks._tile_args[0]._obj is ks._tile_params
+    ks.set_tile((8, 4, 3))
+    assert (ks.tile.tx, ks.tile.ty, ks.tile.kz) == (8, 4, 3)
+    assert ks._tile_params.grid[2] == -(-ks.shape[0] // 3)
+    assert ks.tile.smem_bytes == 16 * ks.K * 10 * 6
+
+
+def sweep_tool():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools', 'sc_tile_sweep.py')
+    spec = importlib.util.spec_from_file_location('sc_tile_sweep', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize('variant,held,bounds', [
+    ('repull', False, 2),
+    ('blocks=3', True, 3),
+    ('repull+blocks=4', False, 4),
+])
+def test_sweep_variants_edit_the_shipped_source(variant, held, bounds):
+    """Each variant applies to the shipped kernel exactly once: the shipped
+    source holds the K Q pulled values and __launch_bounds__(256, 2);
+    ``repull`` pulls again at every read, ``blocks=n`` plans for n
+    blocks."""
+    tool = sweep_tool()
+    text = (build.CSRC / 'sc_multi.cu').read_text()
+    assert text.count(tool.HELD) == 1 and text.count(tool.BOUNDS) == 1
+    out = tool.variant_source(variant, text)
+    assert (tool.HELD in out) == held
+    assert (tool.REPULLED in out) != held
+    assert out.count(f'__launch_bounds__(SC3_THREADS, {bounds})') == 1
+    with pytest.raises(ValueError, match='exactly once'):
+        tool.variant_source(variant, out)
+    with pytest.raises(ValueError, match='unknown variant'):
+        tool.variant_source('spill', text)
+
+
+def test_variant_source_outside_csrc_hashes_the_csrc_headers(tmp_path):
+    """A sweep variant under build/sweep includes lattice_tables.cuh
+    through -I: an edit of that header must change the variant's build
+    key, as it does the shipped source's."""
+    src = tmp_path / 'sc_multi_repull.cu'
+    src.write_text((build.CSRC / 'sc_multi.cu').read_text())
+    files = build.hashed_files(src)
+    assert build.CSRC / 'lattice_tables.cuh' in files
+    shipped = build.hashed_files(build.CSRC / 'sc_multi.cu')
+    assert shipped == [build.CSRC / 'sc_multi.cu'] + sorted(
+        build.CSRC.glob('*.cuh'))

@@ -25,11 +25,12 @@ and ``sc_multi.cu``, those of them in ``--sources``. It sets each of
 DIR's ``lbm_step_kernel`` instantiations beside this tree's of the same
 lattice, force model and wall switch with BGK and the compressible
 equilibrium (the template arguments ``ops/lbm_step.instantiation`` reads
-from the mangled names), and each of DIR's ``sc_multi_kernel``
-instantiations beside this tree's of the same lattice and component count
-without a body force (``ops/sc_multi.instantiation``): registers, stack
-frame, spills and the SASS count of every class, and whether all of them
-are the same.
+from the mangled names), DIR's density pre-pass beside this tree's, and
+each of DIR's Shan-Chen step instantiations beside this tree's of the
+same lattice, component count and force switch (``ops/sc_multi.
+instantiation``; the D3Q19 step is ``sc3_kernel`` here, a redesign shown
+side by side): registers, stack frame, spills and the SASS count of every
+class, and whether all those kept under their name are the same.
 
 Ends with one JSON line. Needs ``nvcc`` and ``cuobjdump`` (the CUDA
 toolkit), not a GPU.
@@ -143,32 +144,49 @@ def main():
     print(json.dumps(out))
 
 
-def _lbm_key(inst):
+def _lbm_key(fn):
     """(lattice, force model, walls) of a BGK compressible
     ``lbm_step_kernel`` instantiation, else None."""
-    if inst.get('model', 'bgk') != 'bgk' \
+    from sailfish_tpu_torch.ops import lbm_step as ls
+    inst = ls.instantiation(fn)
+    if inst is None or inst.get('model', 'bgk') != 'bgk' \
             or inst.get('incompressible', False):
         return None
     return inst['dim'], inst['force'], inst['walls']
 
 
-def _sc_key(inst):
-    """(lattice, K) of an unforced ``sc_multi_kernel`` instantiation, else
-    None."""
-    return None if inst['forced'] else (inst['dim'], inst['k'])
+def _sc_key(fn):
+    """(lattice, K, forced) of a Shan-Chen step kernel instantiation
+    (``sc_multi_kernel`` or the D3Q19 ``sc3_kernel``), the mangled name of
+    the density pre-pass, else None."""
+    from sailfish_tpu_torch.ops import sc_multi as sm
+    if 'rho_poststream_kernel' in fn:
+        return fn
+    inst = sm.instantiation(fn)
+    return None if inst is None else (inst['dim'], inst['k'],
+                                      inst['forced'])
+
+
+def _describe(key):
+    if isinstance(key, str):
+        return 'pre-pass'
+    if len(key) == 3 and isinstance(key[1], str):
+        return f'd{key[0]}, force {key[1]}, walls {int(key[2])}'
+    return f'd{key[0]}, K = {key[1]}, forced {int(key[2])}'
 
 
 def baseline_report(tree, report, cuobjdump, source='lbm_step'):
-    """Each kernel instantiation of ``tree``'s ``source`` (lbm_step.cu:
-    ``lbm_step_kernel``; sc_multi.cu: ``sc_multi_kernel``) beside this
+    """Each kernel instantiation of ``tree``'s ``source`` beside this
     tree's of the same key (``_lbm_key``: lattice, force model and wall
-    switch, with BGK and the compressible equilibrium; ``_sc_key``: lattice
-    and K without a body force); prints one line each and returns
-    {'instantiations': [...], 'all_same': bool}."""
-    from sailfish_tpu_torch.ops import lbm_step as ls
-    from sailfish_tpu_torch.ops import sc_multi as sm
-    parse, key = ((ls.instantiation, _lbm_key) if source == 'lbm_step'
-                  else (sm.instantiation, _sc_key))
+    switch of ``lbm_step_kernel`` with BGK and the compressible
+    equilibrium; ``_sc_key``: the pre-pass, and lattice, K and forced of
+    the Shan-Chen step). Where both trees have the same function (the same
+    mangled name) it must be the same, class by class; a key whose function
+    was renamed (``sc_multi_kernel<3, 19, ...>`` -> ``sc3_kernel``) is
+    a redesign, shown side by side. Prints one line each and returns
+    {'instantiations': [...], 'all_same': bool} (over the unrenamed
+    ones)."""
+    key = _lbm_key if source == 'lbm_step' else _sc_key
     src = Path(tree) / 'sailfish_tpu_torch' / 'ops' / 'csrc' / f'{source}.cu'
     lib = build.build_library(src)
     usage = build.ptxas_usage(lib.log)
@@ -176,39 +194,43 @@ def baseline_report(tree, report, cuobjdump, source='lbm_step'):
 
     mine = {}
     for fn, row in report.items():
-        inst = parse(fn)
-        if inst and key(inst) is not None:
-            mine[key(inst)] = (fn, row)
+        if row['source'] == source and key(fn) is not None:
+            mine[key(fn)] = (fn, row)
     rows, all_same = [], True
+    fields = ('registers', 'stack_frame', 'spill_stores', 'spill_loads')
     for fn in sorted(usage):
-        inst = parse(fn)
-        if inst is None:
+        k = key(fn)
+        if k is None or 'registers' not in usage[fn]:
             continue
         base = dict(usage[fn], sass=dict(sass.get(fn, {})))
-        new_fn, new = mine.get(key(inst), (None, None))
-        fields = ('registers', 'stack_frame', 'spill_stores', 'spill_loads')
+        new_fn, new = mine.get(k, (None, None))
+        renamed = new_fn is not None and new_fn != fn
         same = new is not None and all(
             base.get(f) == new.get(f) for f in fields) \
             and base['sass'] == new['sass']
-        all_same &= same
+        if not renamed:
+            all_same &= same
         diff = '' if same or new is None else ', '.join(
             f'{c} {base["sass"].get(c, 0)} -> {new["sass"].get(c, 0)}'
             for c in sorted(set(base['sass']) | set(new['sass']))
             if base['sass'].get(c, 0) != new['sass'].get(c, 0))
-        what = (f'force {inst["force"]}, walls {int(inst["walls"])}'
-                if source == 'lbm_step' else f'K = {inst["k"]}')
-        print(f'baseline {fn} (d{inst["dim"]}q{inst["q"]}, {what}): '
-              f'{base.get("registers")} registers, '
+        print(f'baseline {fn} ({_describe(k)}): '
+              f'{base.get("registers")} registers, frame '
+              f'{base.get("stack_frame")} B, '
               f'{base["sass"].get("total")} SASS; this tree {new_fn}: '
               + ('not built' if new is None else
-                 f'{new.get("registers")} registers, '
+                 f'{new.get("registers")} registers, frame '
+                 f'{new.get("stack_frame")} B, '
                  f'{new["sass"].get("total")} SASS')
               + (': the same, class by class' if same else
+                 f': redesigned, {diff}' if renamed else
                  f': differs {diff}'), flush=True)
         rows.append(dict(baseline=fn, tree=new_fn, same=same,
-                         baseline_usage=base, tree_usage=new))
+                         redesigned=renamed, baseline_usage=base,
+                         tree_usage=new))
     print(f'baseline {source} instantiations the same as this tree\'s, '
-          f'class by class: {all_same} ({len(rows)} instantiations)',
+          f'class by class: {all_same} ({sum(not r["redesigned"] for r in rows)}'
+          f' kept, {sum(r["redesigned"] for r in rows)} redesigned)',
           flush=True)
     return dict(instantiations=rows, all_same=all_same)
 

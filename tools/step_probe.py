@@ -26,10 +26,15 @@ after 5 warm-up steps, and counts the kernel launches of one step:
   (``--incompressible``): ``ldc_3d_mrt``, ``ldc_3d_les``,
   ``ldc_3d_incomp``, ``ldc_2d_mrt``, ``sphere_3d_les`` and
   ``cylinder_mrt``. A tree without the mode refuses them;
-* ``sc_separation_3d`` / ``sc_separation_2d``: the binary Shan-Chen
-  separations (``SCMultiStep``: the density pre-pass and the K = 2 step,
-  two launches a step), timed from a seeded near-uniform two-component
-  state. They are not in the default list: pass them with ``--scenes``.
+* the Shan-Chen mixtures (``SCMultiStep``: the density pre-pass and the
+  step, two launches a step), timed from a seeded near-uniform K-component
+  state: the binary separations ``sc_separation_3d`` / ``sc_separation_2d``
+  (K = 2), ``ternary_separation_3d`` (K = 3), and
+  ``sc_separation_3d_forced`` / ``ternary_separation_3d_forced`` with a
+  constant acceleration on every component (``ACCELS``, those of the
+  forced mixture paths of ``chip_smoke.py``): every instantiation of the
+  D3Q19 step. They are not in the default list: pass them with
+  ``--scenes``.
 
 With ``--baseline DIR``, DIR holds another checkout (for example
 ``git archive <commit> | tar -x -C build/parent``): every scene is timed in
@@ -66,8 +71,9 @@ COLLISION = {'_mrt': dict(model='mrt'),
              '_incomp': dict(incompressible=True)}
 #: the force-driven scenes -> dimensions
 FORCED = {'sphere_3d': 3, 'cylinder': 2}
-#: the binary Shan-Chen scenes (``--scenes`` only)
-MIXTURES = ('sc_separation_3d', 'sc_separation_2d')
+#: the Shan-Chen scenes (``--scenes`` only)
+MIXTURES = ('sc_separation_3d', 'sc_separation_2d', 'ternary_separation_3d',
+            'sc_separation_3d_forced', 'ternary_separation_3d_forced')
 SIZES = {3: (256, 256, 256), 2: (4096, 4096)}
 
 
@@ -82,7 +88,7 @@ def scene_setup(scene, ts):
     dim = FORCED.get(base) or (3 if '3d' in scene else 2)
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), SIZES[dim]))
     if scene in MIXTURES:
-        return ts.binary_twin(scene), cfg
+        return mixture(ts, scene), cfg
     if base in FORCED:
         sim_cls = ts.twin(base)
         return (sim_cls if base == scene else ts.unforced(sim_cls)), cfg
@@ -100,12 +106,27 @@ def scene_setup(scene, ts):
     return ts.channel_sim_2d('regularized', profile=profile), cfg
 
 
+def mixture(ts, scene):
+    """The sim class of the Shan-Chen scene ``scene`` from the tree's
+    ``torch_scenes`` module ``ts``; a ``_forced`` scene takes ``ACCELS``,
+    the accelerations of chip_smoke.py's forced mixture paths
+    (``MIX_ACCELS`` / 1000)."""
+    base = scene.replace('_forced', '')
+    sim = (ts.ternary_separation(3) if base == 'ternary_separation_3d'
+           else ts.binary_twin(base))
+    if base == scene:
+        return sim
+    accels = tuple(tuple(1e-3 * c for c in a) for a in ts.MIX_ACCELS)
+    return ts.forced_mixture(sim, accels)
+
+
 def seeded_state(ts, scene, ks, seed):
     """A seeded start for ``scene``'s kernel engine ``ks``: a random
     equilibrium (single fluid) or a near-uniform K-component state, in
     ``ks.a``; returns what ``ks.run`` takes."""
     if scene in MIXTURES:
-        ks.a.copy_(ts.random_binary_state(ks.grid, ks.shape, seed, 'cuda'))
+        ks.a.copy_(ts.random_binary_state(ks.grid, ks.shape, seed, 'cuda',
+                                          K=ks.K))
         return tuple(ks.a.unbind(0))
     return ks.a.copy_(ts.random_feq(ks.grid, ks.shape, seed, 'cuda'))
 

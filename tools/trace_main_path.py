@@ -100,7 +100,8 @@ SCENES = {
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
 PORT_KERNELS = ('lbm_step_kernel', 'rho_poststream_kernel',
-                'sc_multi_kernel', 'fe_step_kernel', 'fe3_kernel')
+                'sc_multi_kernel', 'sc3_kernel', 'fe_step_kernel',
+                'fe3_kernel')
 
 
 def total_launches(kernel):
