@@ -66,7 +66,23 @@ version on the card from seeded random states:
 * the free-energy step (``ops/fe_step``, after the same pre-pass on the
   order parameter) against ``fe_step_reference`` on the five free-energy
   scenes (periodic separations with BGK and FE-MRT, walled channels with
-  wetting, body forces and equilibrium-velocity overrides).
+  wetting, body forces and equilibrium-velocity overrides);
+* the stream-and-collide kernel's single-component Shan-Chen mode
+  (``lbm_step_sc_<grid>``, after the pre-pass at nk = 1 counted as
+  ``rho_poststream_nk1_<grid>``) and its shallow-water equilibrium
+  (``lbm_step_sw_d2q9``) against ``step_reference`` from each scene's own
+  seeded start, 20 steps (``SINGLE_MODE_CASES``; the shallow-water mode
+  also against the fp64 plain version, ``SW_FP64_FACTOR``): the spinodal
+  scenes at
+  1024^2 / 128^3 under the classic potential, the linear potential, Guo
+  forces and full bounce-back boxes with excluded nodes on 1000 x 600 /
+  100 x 60 x 40 (no multiple of the block), the Gaussian hump unforced,
+  under Guo and the velocity shift, and channels of each native BC pair
+  along y and x; each asserting the mode moved the state; and the scenes
+  the kernel refuses (Shan-Chen under MRT or LES, with an EDM,
+  velocity-shift or DynamicValue force, with native BCs, half-way or
+  slip walls, with the shallow-water equilibrium; shallow water under
+  MRT, LES or EDM) raise on the default engine, naming the reason.
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
@@ -94,7 +110,13 @@ ternary drops (``ternary_sc_drop_2d`` 4096^2) and the ternary separation
 launch per step under the mode's name, then the three forced modes
 without a main path of their own for 500 steps each at the same sizes
 (each forced kernel also timed in turns against the unforced one on the
-same buffers), checks the results, times
+same buffers), the single-component twins at full size with their own
+physics (``sc_phase_separation_3d`` 256^3 and ``sc_phase_separation``
+4096^2: G = -5, classic psi, rho = 0.693 + U(0, 0.01), one pre-pass and
+one ``lbm_step_sc`` launch per step, the phases separating, mass within
+``MASS_TOL``; ``fs_gaussian`` 4096^2: one ``lbm_step_sw`` launch per step,
+the hump's top falling, the mass drift the shallow-water equilibrium's
+own bounded), checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
 demixing to its end, times every kernel against its plain version and its
@@ -116,6 +138,7 @@ import time
 import numpy as np
 import torch
 
+from sailfish_tpu_torch import equilibrium as eq
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch import state as st
 from sailfish_tpu_torch import util
@@ -130,15 +153,17 @@ sys.path.insert(0, os.path.join(REPO, 'tests'))
 from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           FORCED_SCENES, MIX_ACCELS, SC_HALFWAY_SCENES,
                           SC_MORE_GOLDEN_FLAGS, SC_MORE_SCENES,
+                          SC_SINGLE_SCENES, SHALLOW_WATER_SCENES,
                           SINGLE_GOLDEN_FLAGS, TERNARY_GOLDEN_FLAGS,
                           WALL_DYNAMIC_SCENES, WALLS, binary_twin, box_cfg,
-                          box_sim, channel_sim, channel_sim_2d,
+                          box_sim, channel_sim, channel_sim_2d, forced,
                           forced_channel_sim, forced_mixture,
                           halfbb_beside_parabolic_inlet, parabolic_profile,
                           random_binary_state, random_fe_state, random_feq,
-                          run, slip_sim, ternary_separation, ternary_twin,
-                          time_series_density_sim, tms_channel_sim, twin,
-                          unforced, walls_moved, wet_map, with_keep_block,
+                          run, shallow_water, slip_sim, ternary_separation,
+                          ternary_twin, time_series_density_sim,
+                          tms_channel_sim, twin, unforced, walled,
+                          walls_moved, wet_map, with_keep_block,
                           with_patch_row_mix)
 
 LDC_3D = twin('ldc_3d')
@@ -212,6 +237,57 @@ SC3_RAGGED = [
     ('sc3_k3_forced_37x23x5', forced_mixture(TERNARY_3D),
      dict(RAGGED_5, G11=-0.3, G33=0.2), None),
 ]
+#: the single-component Shan-Chen and shallow-water main paths, each
+#: twin's own physics at full size: scene -> (size, step launch name)
+SINGLE_MODE_MAIN = {
+    'sc_phase_separation_3d': ((256, 256, 256), 'lbm_step_sc_d3q19'),
+    'sc_phase_separation': ((4096, 4096), 'lbm_step_sc_d2q9'),
+    'fs_gaussian': ((4096, 4096), 'lbm_step_sw_d2q9'),
+}
+SC_2D = twin('sc_phase_separation')
+SC_3D = twin('sc_phase_separation_3d')
+FS = twin('fs_gaussian')
+#: Shan-Chen with the linear potential: G = -1.6, just inside the spinodal
+#: at the scenes' rho ~ 0.693 (G = -5 blows up within 20 steps there)
+SC_LINEAR = dict(sc_potential='linear', G=-1.6)
+#: the accelerations of the forced comparisons: every component, both
+#: signs, strong enough that a wrong order of the two velocity shifts
+#: shows after 20 steps
+SC_ACCEL = (1e-3, -5e-4, 2.5e-4)
+SW_ACCEL = (2e-4, -1e-4)
+#: shallow-water channels with native BCs: g = 0.01 keeps the 0.03 inlet
+#: subcritical (Froude 0.3); the regularized pair is unstable there under
+#: the shallow-water equilibrium on both engines (and in JAX) unless
+#: tau = 1
+SW_CHANNEL = dict(visc=0.05, gravity=0.01)
+SW_CHANNEL_REG = dict(visc=1.0 / 6.0, gravity=0.01)
+#: the kernel-vs-plain cases of the two modes: (name, sim class, flags);
+#: 1000 x 600 and 100 x 60 x 40 are no multiple of the 128-node block
+RAGGED_2D = dict(lat_nx=1000, lat_ny=600)
+RAGGED_3D = dict(lat_nx=100, lat_ny=60, lat_nz=40)
+SINGLE_MODE_CASES = [
+    ('sc_phase_separation_2d', SC_2D, dict(lat_nx=1024, lat_ny=1024)),
+    ('sc_2d_linear_ragged', SC_2D, dict(RAGGED_2D, **SC_LINEAR)),
+    ('sc_2d_guo_box_ragged', with_keep_block(walled(forced(
+        SC_2D, SC_ACCEL[:2]))), RAGGED_2D),
+    ('sc_phase_separation_3d', SC_3D,
+     dict(lat_nx=128, lat_ny=128, lat_nz=128)),
+    ('sc_3d_linear_box_ragged', with_keep_block(walled(SC_3D)),
+     dict(RAGGED_3D, **SC_LINEAR)),
+    ('sc_3d_guo_ragged', forced(SC_3D, SC_ACCEL), RAGGED_3D),
+    ('sc_3d_linear_guo_box_ragged', walled(forced(SC_3D, SC_ACCEL)),
+     dict(RAGGED_3D, **SC_LINEAR)),
+    ('sw_hump', with_keep_block(FS), dict(lat_nx=1024, lat_ny=1024)),
+    ('sw_hump_guo_ragged', forced(FS, SW_ACCEL), RAGGED_2D),
+    ('sw_hump_velocity_shift_ragged', forced(FS, SW_ACCEL),
+     dict(RAGGED_2D, force_implementation='velocity_shift')),
+    ('sw_channel_equilibrium', with_keep_block(shallow_water(
+        channel_sim_2d('equilibrium'))), dict(RAGGED_2D, **SW_CHANNEL)),
+    ('sw_channel_zouhe_x', with_keep_block(shallow_water(
+        channel_sim_2d('zouhe', axis='x'))), dict(RAGGED_2D, **SW_CHANNEL)),
+    ('sw_channel_regularized', shallow_water(channel_sim_2d('regularized')),
+     dict(RAGGED_2D, **SW_CHANNEL_REG)),
+]
 #: the force-driven main paths (Guo forcing): scene -> size
 FORCED_MAIN = {'sphere_3d': (256, 256, 256), 'cylinder': (4096, 4096)}
 #: their constant acceleration (examples/torch/sphere_3d.py, cylinder.py)
@@ -253,6 +329,15 @@ COLLISION_TIMED = {'mrt': dict(model='mrt'),
 #: kernel-vs-plain tolerance: wet-node max |df| after 200 steps (fp32,
 #: FMA contraction and summation order differ between the two)
 TOL = 1e-5
+#: the shallow-water mode is held to the fp64 plain version instead: the
+#: examples' tau = 0.515 (relaxation rate 1.94) damps each step's fp32
+#: rounding by only 6 % a step, so two correct fp32 steps drift apart
+#: (the torch and the JAX XLA engines on the CPU: 4.6e-6 / 7.8e-6 from
+#: the fp64 torch engine after 20 steps of fs_gaussian at 256^2 /
+#: 1024^2, 2.9e-6 from each other at 1024^2). The kernel's distance to
+#: the fp64 plain version must stay within this many times the fp32
+#: plain version's (or within TOL)
+SW_FP64_FACTOR = 2.0
 #: density pre-pass vs rho_reference, max |d rho| (fp32 summation order)
 RHO_TOL = 1e-6
 #: relative drift of a component's total mass over a binary main path.
@@ -336,6 +421,14 @@ NODE_BYTES = {
     'rho_poststream_k3_d2q9': sc_prepass_bytes('D2Q9', 3),
     'fe_step_d3q19': 2 * 2 * 19 * 4 + 4 + 1,
     'fe_step_d2q9': 2 * 2 * 9 * 4 + 4 + 1,
+    # the single-component modes: the Shan-Chen step reads its own density
+    # once more (the neighbours' from cache), its pre-pass reads the state
+    # and writes one density; shallow water moves the step's bytes
+    'lbm_step_sc_d3q19': BYTES['D3Q19'] + 4,
+    'lbm_step_sc_d2q9': BYTES['D2Q9'] + 4,
+    'lbm_step_sw_d2q9': BYTES['D2Q9'],
+    'rho_poststream_nk1_d3q19': sc_prepass_bytes('D3Q19', 1),
+    'rho_poststream_nk1_d2q9': sc_prepass_bytes('D2Q9', 1),
 }
 #: fp32 operations per node, an upper estimate read off each kernel's
 #: source (BGK: ~23 per direction for the moments, feq and relaxation,
@@ -375,6 +468,11 @@ NODE_OPS = {
     'sc_multi_k3_force_d2q9': 3 * (33 * 9 + 8 * 9),
     'rho_poststream_k3_d3q19': 3 * 19, 'rho_poststream_k3_d2q9': 3 * 9,
     'fe_step_d3q19': 2 * 40 * 19, 'fe_step_d2q9': 2 * 40 * 9,
+    # BGK plus the force stencil under the classic potential (~14 per
+    # neighbour: its exp and the sums); shallow water ~2 more per direction
+    'lbm_step_sc_d3q19': (23 + 14) * 19, 'lbm_step_sc_d2q9': (23 + 14) * 9,
+    'lbm_step_sw_d2q9': 25 * 9,
+    'rho_poststream_nk1_d3q19': 19, 'rho_poststream_nk1_d2q9': 9,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
@@ -432,6 +530,18 @@ KERNELS = {
                            'sailfish_tpu/ops/pallas_step.py:812'),
     'lbm_step_mrt_d2q9': ('lbm_step_mrt.cu',
                           'sailfish_tpu/ops/pallas_step2d.py:36'),
+    # the sc and shallow-water modes of make_kernel_3d / make_kernel_2d,
+    # and their pre-pass at nk = 1
+    'lbm_step_sc_d3q19': ('lbm_step.cu',
+                          'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_sc_d2q9': ('lbm_step.cu',
+                         'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'lbm_step_sw_d2q9': ('lbm_step.cu',
+                         'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'rho_poststream_nk1_d3q19': ('sc_multi.cu',
+                                 'sailfish_tpu/ops/pallas_step.py:2409'),
+    'rho_poststream_nk1_d2q9': ('sc_multi.cu',
+                                'sailfish_tpu/ops/pallas_step2d.py:1069'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -462,6 +572,19 @@ MODES = {
                               'forces',
     'rho_poststream_k3_d3q19': 'make_rho_kernel_3d, K = 3',
     'rho_poststream_k3_d2q9': 'make_rho_kernel_2d, K = 3',
+    'lbm_step_sc_d3q19': 'make_kernel_3d, sc mode: the psi velocity shift '
+                         'u + tau F / rho (_sc_shift_moments, '
+                         'pallas_step.py:714-785) from the pre-pass '
+                         'density, classic potential',
+    'lbm_step_sc_d2q9': 'make_kernel_2d, sc mode (_sc_shift_moments; the '
+                        'sc argument, pallas_step2d.py:38, :491-536)',
+    'lbm_step_sw_d2q9': 'make_kernel_2d, the shallow-water equilibrium '
+                        '(the _feq_i branch, pallas_step.py:289-294) with '
+                        'gravity',
+    'rho_poststream_nk1_d3q19': 'make_rho_kernel_3d, nk = 1 (the '
+                                'single-component Shan-Chen pre-pass)',
+    'rho_poststream_nk1_d2q9': 'make_rho_kernel_2d, nk = 1 (the '
+                               'single-component Shan-Chen pre-pass)',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -653,7 +776,7 @@ def model_compare(name, sim_cls, coll, force_model=None, it0=0, steps=200,
     c = ks.params.coll
     want = ls.MODEL_CODES[flags.get('model', 'les' if 'subgrid' in flags
                                     else 'bgk')]
-    assert (c.model, bool(c.incompressible)) == (
+    assert (c.model, c.equilibrium == ls.EQ_CODES['incompressible']) == (
         want, flags.get('incompressible', False)), (c.model, want)
     assert ks.params.force.model == ls.FORCE_CODES.get(force_model, 0)
     codes = sorted(torch.unique(ks.mask).tolist())
@@ -677,8 +800,8 @@ def model_compare(name, sim_cls, coll, force_model=None, it0=0, steps=200,
     assert ks.launches == steps + 1
     err = float((fk - fr)[:, wet].abs().max())
     say(f'compare {name}: {ks.grid.name} {ks.shape} {steps} steps of '
-        f'{ks.name} (model code {c.model}, incompressible '
-        f'{c.incompressible}, force {force_model}), mask codes {codes}; one '
+        f'{ks.name} (model code {c.model}, equilibrium code '
+        f'{c.equilibrium}, force {force_model}), mask codes {codes}; one '
         f'step: the model moved the state from BGK by {moved:.3e}, wet '
         f'max|df| = {err1:.3e} (tol 1e-06); {steps} steps: wet max|df| = '
         f'{err:.3e} (tol {TOL:g})')
@@ -833,6 +956,164 @@ def sc_refusals():
                 f'({reason!r} in: {str(exc)[:160]})')
             continue
         raise AssertionError(f'a mixture with {what} was not refused')
+
+
+def fp64_check(ks, f0, fk, fr, steps, it0=0):
+    """The shallow-water mode's criterion (``SW_FP64_FACTOR``): ``steps``
+    steps of the fp64 plain version from ``f0``, and (kernel ``fk`` to it,
+    fp32 plain ``fr`` to it), wet-node max |df|; asserts the first within
+    the factor times the second, or within ``TOL``."""
+    f64 = f0.double()
+    for it in range(steps):
+        ks.set_iteration(it0 + it)
+        f64 = ks.reference(f64)
+    wet = wet_mask(ks)
+    k64 = float((fk.double() - f64)[:, wet].abs().max())
+    p64 = float((fr.double() - f64)[:, wet].abs().max())
+    del f64
+    assert np.isfinite(k64) and k64 <= max(TOL, SW_FP64_FACTOR * p64), \
+        (k64, p64)
+    return k64, p64
+
+
+def single_mode_compare(name, sim_cls, steps=20, **cfg):
+    """The kernel's Shan-Chen or shallow-water mode against
+    ``step_reference`` (in the Shan-Chen mode after ``rho_reference``) on
+    the card from the scene's own seeded start, ``steps`` steps; the
+    Shan-Chen pre-pass against ``rho_reference`` after one launch. Asserts
+    that the mode moved the state: against the same steps of the plain
+    version without it (no coupling; the second-order equilibrium).
+    Returns (step row, pre-pass row or None, step error, pre-pass
+    error)."""
+    r = run(sim_cls, platform=DEVICE, engine='kernel', max_iters=0,
+            seed=1234, **cfg)
+    ks = r.kernel
+    g = ks.grid.name.lower()
+    assert ks.name == f'lbm_step_{"sc" if ks.sc else "sw"}_{g}', ks.name
+    codes = sorted(torch.unique(ks.mask).tolist())
+    f0 = r.f.clone()
+    rho_err = None
+    if ks.sc:
+        rho = torch.empty_like(ks.rho)
+        ks.density_into(f0, rho)
+        rho_err = float((rho - sm.rho_reference(f0, ks.grid)).abs().max())
+        del rho
+        assert np.isfinite(rho_err) and rho_err <= RHO_TOL, rho_err
+    fk = ks.run(f0, steps)
+    fr = fb = f0
+    for it in range(steps):
+        ks.set_iteration(it)
+        fr = ks.reference(fr)
+        fb = ls.step_reference(fb, ks.mask, ks.table, ks.grid, ks.tau_inv,
+                               ks.bcp, ks.force, ks.force_model, ks.tags)
+    util.synchronize(DEVICE)
+    assert ks.launches == steps
+    assert ks.prepass_launches == (steps + 1 if ks.sc else 0)
+    wet = wet_mask(ks)
+    err = float((fk - fr)[:, wet].abs().max())
+    moved = float((fr - fb)[:, wet].abs().max())
+    mode = (f'G {ks.sc_coupling:g}, {ks.sc_potential} psi' if ks.sc else
+            f'gravity {ks.gravity:g}')
+    pre = '' if rho_err is None else \
+        f'pre-pass max|drho| = {rho_err:.3e} (tol {RHO_TOL:g}); '
+    if ks.sc:
+        held = f' (tol {TOL:g})'
+        assert np.isfinite(err) and err <= TOL, err
+    else:
+        k64, p64 = fp64_check(ks, f0, fk, fr, steps)
+        held = (f'; against the fp64 plain version kernel {k64:.3e}, fp32 '
+                f'plain {p64:.3e} (tol {SW_FP64_FACTOR:g}x that, or '
+                f'{TOL:g})')
+    say(f'compare {name}: {ks.grid.name} {ks.shape} {steps} steps of '
+        f'{ks.name} ({mode}, force {ks.force_model if ks.force else None}, '
+        f'tau {1.0 / ks.tau_inv:g}), mask codes {codes}: {pre}wet max|df| '
+        f'= {err:.3e}{held}; the mode moved the state by {moved:.3e}')
+    assert moved > 10 * TOL, moved
+    names = ks.name, ks.rho_name if ks.sc else None
+    del r, ks, f0, fk, fr, fb
+    torch.cuda.empty_cache()
+    return names + (err, rho_err)
+
+
+def single_mode_refusals():
+    """On the card, the default engine refuses by name the single-fluid
+    Shan-Chen and shallow-water scenes the kernel cannot run (what the
+    JAX router keeps off its kernels, ``sailfish_tpu/runner.py:355-385``)
+    and changes no engine."""
+    from sailfish_tpu_torch.models.base import LBForcedSim
+    from sailfish_tpu_torch.ops.step import StepBuilder
+    small = dict(lat_nx=64, lat_ny=64)
+
+    class Ramped(SC_2D, LBForcedSim):
+        def __init__(self, config):
+            super().__init__(config)
+            self.add_body_force((lambda t: 1e-6 * t, 0.0))
+
+    def with_rows(node_type):
+        class Scene(SC_2D.subdomain):
+            def boundary_conditions(self, hx, hy):
+                self.set_node((hy == 0) | (hy == self.gy - 1), node_type)
+
+        class Sim(SC_2D):
+            subdomain = Scene
+
+        return Sim
+
+    def builder(**kwargs):
+        r = run(FS, engine='torch', max_iters=0, **small)
+        return lambda: ls.KernelStep(StepBuilder(
+            r.sim.grid, r.maps, visc=0.1, device=DEVICE, **kwargs))
+
+    cases = [
+        ('Shan-Chen under MRT', lambda: run(SC_2D, max_iters=0, model='mrt',
+                                            **small),
+         'Shan-Chen with model=mrt'),
+        ('Shan-Chen under LES', lambda: run(
+            SC_2D, max_iters=0, subgrid='les-smagorinsky', **small),
+         'Shan-Chen with the Smagorinsky LES model'),
+        ('Shan-Chen with an EDM force', lambda: run(
+            forced(SC_2D, SW_ACCEL), max_iters=0,
+            force_implementation='edm', **small),
+         'Shan-Chen with the edm body force'),
+        ('Shan-Chen with a velocity-shift force', lambda: run(
+            forced(SC_2D, SW_ACCEL), max_iters=0,
+            force_implementation='velocity_shift', **small),
+         'Shan-Chen with the velocity_shift body force'),
+        ('Shan-Chen with a DynamicValue force', lambda: run(
+            Ramped, max_iters=0, **small),
+         'Shan-Chen with a DynamicValue body force'),
+        ('Shan-Chen with native BC rows', lambda: run(
+            with_rows(nt.NTZouHeDensity(1.0)), max_iters=0,
+            periodic_y=False, **small), 'Shan-Chen with BC rows'),
+        ('Shan-Chen with half-way walls', lambda: run(
+            with_rows(nt.NTHalfBBWall), max_iters=0, periodic_y=False,
+            **small), 'NTHalfBBWall'),
+        ('Shan-Chen with slip walls', lambda: run(
+            with_rows(nt.NTSlip), max_iters=0, periodic_y=False, **small),
+         'NTSlip'),
+        ('Shan-Chen with the shallow-water equilibrium', builder(
+            sc_coupling=-5.0, equilibrium='shallow_water', gravity=1e-3),
+         'Shan-Chen with the shallow-water equilibrium'),
+        ('shallow water under MRT', builder(
+            model='mrt', equilibrium='shallow_water', gravity=1e-3),
+         'shallow water with model=mrt'),
+        ('shallow water under LES', builder(
+            smagorinsky=0.1, equilibrium='shallow_water', gravity=1e-3),
+         'shallow water with the Smagorinsky LES model'),
+        ('shallow water with EDM', builder(
+            body_force=SW_ACCEL, force_model='edm',
+            equilibrium='shallow_water', gravity=1e-3),
+         'shallow water with the edm body force'),
+    ]
+    for what, make, reason in cases:
+        try:
+            make()
+        except NotImplementedError as exc:
+            assert reason in str(exc), (what, str(exc))
+            say(f'refused on the default engine: {what} ({reason!r} in: '
+                f'{str(exc)[:160]})')
+            continue
+        raise AssertionError(f'{what} was not refused')
 
 
 def fe_errors(ks, f0, steps):
@@ -1433,6 +1714,148 @@ def sc_main_path(scene, sim_cls, size, copy_bw, name, demix=None,
     return results
 
 
+def single_mode_main_path(scene, size, name, copy_bw, chunk=500,
+                          chunks=4):
+    """A single-component Shan-Chen or shallow-water twin through the
+    controller with the default engine at ``size``, its own physics: a
+    main path, whose step launches count under ``name``. The launch
+    counts of every kernel engine are zeroed just before the controller
+    runs and read just after: per step one ``lbm_step_sc`` launch after one
+    pre-pass (``rho_poststream_nk1``), or one ``lbm_step_sw`` launch, and
+    no other kernel. Checks: finite fields; Shan-Chen: the total mass
+    within ``MASS_TOL`` and the density spread grown from the start's 0.01
+    past 0.1 (the phases separate); shallow water: the hump's top falls
+    and stays finite, and the mass drift lies between -``MASS_TOL`` and
+    ``steps`` times the last step's gain plus ``MASS_TOL`` (the JAX
+    shallow-water equilibrium's zeroth moment is h (1 + 2 u.u), so BGK
+    adds 2 h u.u / tau per node and step, and |u| grows along the path);
+    then 20 steps from the final state against the plain versions, and
+    each kernel timed alone against its plain version. Returns {JSON row:
+    measurements}."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    steps = chunk * chunks
+
+    class Sim(twin(scene)):
+        def make_initial_state(self, builder, dtype):
+            f = super().make_initial_state(builder, dtype)
+            self.mass0 = float(torch.sum(f, dtype=torch.float64))
+            self.top0 = float(builder.macro_fields(f)[0].max())
+            return f
+
+    for engine in (ls, sm, fe):
+        engine.reset_launch_counts()
+    r = run(Sim, max_iters=steps, every=chunk, seed=1, **cfg)
+    counts = dict(ls.LAUNCHES)
+    others = sum(sm.LAUNCHES.values()) + sum(fe.LAUNCHES.values())
+    assert r.engine == 'kernel', r.engine
+    ks = r.kernel
+    assert ks.name == name, (ks.name, name)
+    assert counts[name] == steps == r.sim.iteration == ks.launches, counts
+    per_step = 2 if ks.sc else 1
+    if ks.sc:
+        assert counts[ks.rho_name] == steps == ks.prepass_launches, counts
+    assert sum(counts.values()) == per_step * steps and others == 0, \
+        (counts, others)
+    assert st.is_finite(r.f)
+    mass = float(torch.sum(r.f, dtype=torch.float64))
+    drift = (mass - r.sim.mass0) / r.sim.mass0
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    for fname in ('rho', 'vx', 'vy'):
+        arr = getattr(r.sim, fname)
+        assert arr.shape == shape and np.all(np.isfinite(arr)), fname
+    grid = ks.grid
+    spread = float(np.ptp(r.sim.rho))
+    top = float(r.sim.rho.max())
+    if ks.sc:
+        assert abs(drift) <= MASS_TOL, drift
+        assert spread > 0.1, spread
+        checks = (f'mass drift {drift:.2e} (tol {MASS_TOL:g}); rho spread '
+                  f'{spread:.4f} (start 0.01), min {r.sim.rho.min():.4f}, '
+                  f'max {top:.4f}')
+    else:
+        fs = r.builder.streamed(r.f)
+        h, u = eq.macroscopic(grid, fs)
+        gain = 2.0 * ks.tau_inv * float(torch.sum(
+            h.double() * (u.double() ** 2).sum(0))) / mass
+        del fs, h, u
+        assert -MASS_TOL <= drift <= steps * gain + MASS_TOL, (drift, gain)
+        assert top < r.sim.top0 - 0.01, (top, r.sim.top0)
+        checks = (f'mass drift {drift:.3e} (bound: -{MASS_TOL:g} to {steps} '
+                  f'x the last step\'s gain {gain:.3e} + {MASS_TOL:g}); '
+                  f'max h {r.sim.top0:.4f} -> {top:.4f}, min h '
+                  f'{r.sim.rho.min():.4f}')
+    vmax = float(max(np.abs(getattr(r.sim, f'v{a}')).max()
+                     for a in 'xyz'[:len(size)]))
+    mlups = statistics.median(r.mlups_history[1:])
+    node_bytes = NODE_BYTES[name] + (
+        NODE_BYTES[ks.rho_name] if ks.sc else 0)
+    eff = mlups * 1e6 * node_bytes
+    say(f'main path {scene} {"x".join(map(str, size))} ({grid.name}, '
+        f'{"G %g, %s psi" % (ks.sc_coupling, ks.sc_potential) if ks.sc else "gravity %g" % ks.gravity}, '
+        f'tau {1.0 / ks.tau_inv:g}, engine {r.engine}): '
+        + (f'{counts[ks.rho_name]} {ks.rho_name} + ' if ks.sc else '')
+        + f'{counts[name]} {name} launches; MLUPS per {chunk}-step chunk '
+        f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f} '
+        f'MLUPS; {eff / 1e9:.1f} GB/s effective ({node_bytes} B/node), '
+        f'{eff / copy_bw:.3f} of the copy bandwidth; {checks}; max |u| '
+        f'{vmax:.3e}')
+    # the kernels against their plain versions from the main path's own
+    # state (20 steps; the pre-pass after one launch), then each timed alone
+    f0 = r.f.clone()
+    rho_err = None
+    if ks.sc:
+        rho = torch.empty_like(ks.rho)
+        ks.density_into(f0, rho)
+        rho_err = float((rho - sm.rho_reference(f0, grid)).abs().max())
+        del rho
+        assert np.isfinite(rho_err) and rho_err <= RHO_TOL, rho_err
+    fk = ks.run(f0, 20, it0=steps)
+    fr = f0
+    for _ in range(20):
+        fr = ks.reference(fr)
+    wet = wet_mask(ks)
+    err = float((fk - fr)[:, wet].abs().max())
+    if ks.sc:
+        held = f' (tol {TOL:g})'
+        assert np.isfinite(err) and err <= TOL, err
+    else:
+        k64, p64 = fp64_check(ks, f0, fk, fr, 20, it0=steps)
+        held = (f'; against the fp64 plain version kernel {k64:.3e}, fp32 '
+                f'plain {p64:.3e} (tol {SW_FP64_FACTOR:g}x that, or '
+                f'{TOL:g})')
+    del f0, fk, fr
+    say(f'compare main path {scene}: '
+        + ('' if rho_err is None else
+           f'pre-pass max|drho| = {rho_err:.3e} (tol {RHO_TOL:g}); ')
+        + f'20 steps from the state after {steps}, wet max|df| = {err:.3e}'
+        f'{held}')
+    a, b = ks.a, ks.b
+    if ks.sc:
+        ks.density_into(a, ks.rho)
+    ms = util.cuda_time_ms(lambda: ks._launch(a, b), 50, warmup=5)
+    plain_ms = util.cuda_time_ms(lambda: ks.reference(a, ks.rho), 5)
+    say(f'kernel {name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
+        f'launch; step_reference {plain_ms:.3f} ms')
+    results = {name: dict(launches=counts[name], ms=ms, plain_ms=plain_ms,
+                          err=err, mlups=mlups)}
+    if ks.sc:
+        rb = ks.rho
+        rho_ms = util.cuda_time_ms(lambda: ks.density_into(a, rb), 50,
+                                   warmup=5)
+        plain_rho_ms = util.cuda_time_ms(
+            lambda: sm.rho_reference(a, grid), 5)
+        say(f'kernel {ks.rho_name} at {"x".join(map(str, size))}: '
+            f'{rho_ms:.4f} ms per launch; rho_reference {plain_rho_ms:.3f} '
+            f'ms; the pre-pass is {rho_ms / (rho_ms + ms):.3f} of a step')
+        results[ks.rho_name] = dict(launches=counts[ks.rho_name],
+                                    ms=rho_ms, plain_ms=plain_rho_ms,
+                                    err=rho_err, step_launch_ms=ms)
+    del r, ks, a, b
+    torch.cuda.empty_cache()
+    return results
+
+
 def sc_unforced_ms(scene, sim_cls, cfg, ks):
     """ms per launch of the forced step kernel ``ks`` and of the unforced
     instantiation of the same K on the same scene without its forces, on
@@ -1656,8 +2079,8 @@ def main():
                 kinds.add(tuple(inst.values()))
                 say(f'lbm_step d{inst["dim"]}q{inst["q"]} force '
                     f'{inst["force"]}, walls {int(inst["walls"])}, model '
-                    f'{inst["model"]}, incompressible '
-                    f'{int(inst["incompressible"])}: {use["registers"]} '
+                    f'{inst["model"]}, equilibrium {inst["equilibrium"]}, '
+                    f'sc {int(inst["sc"])}: {use["registers"]} '
                     f'registers, stack frame {use["stack_frame"]} B, spill '
                     f'{use["spill_stores"]} / {use["spill_loads"]} B')
                 # the BC chain, the walls and the collision models run in
@@ -1691,8 +2114,11 @@ def main():
                         f' spill stores {use.get("spill_stores")} B, spill '
                         f'loads {use.get("spill_loads")} B')
     # two lattices x (no force + three force models) x wall rows or not x
-    # three collision models x two equilibria
-    assert len(kinds) == 2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2, len(kinds)
+    # three collision models x two equilibria; the shallow-water
+    # equilibrium (D2Q9 BGK, three force models, wall rows or not) and the
+    # Shan-Chen mode (two lattices, no force or Guo)
+    assert len(kinds) == 2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2 + 6 + 4, \
+        len(kinds)
     # two lattices x K = 2, 3 x forced or not
     assert len(sc_kinds) == 2 * 2 * 2, sc_kinds
     for name, tile in (('fe_step_d3q19', fe.TILE_3D),
@@ -1885,6 +2311,14 @@ def main():
         note(rho_name, rho_err)
         note(step_name, err)
     sc_refusals()
+    # the single-component Shan-Chen and shallow-water modes, 20 steps
+    for name, sim_cls, cfg in SINGLE_MODE_CASES:
+        step_name, rho_name, err, rho_err = single_mode_compare(
+            name, sim_cls, **cfg)
+        note(step_name, err)
+        if rho_name:
+            note(rho_name, rho_err)
+    single_mode_refusals()
     phase_done('kernel comparisons')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
@@ -1933,6 +2367,9 @@ def main():
                **SC_MORE_GOLDEN_FLAGS[scene])
     golden('ternary_sc_drop_2d', DROP_3, 'ternary_fluid_sc_drop_2d',
            **TERNARY_GOLDEN_FLAGS['sc_drop_2d'])
+    # single-component Shan-Chen (pre-pass + the sc mode) and shallow water
+    for scene in SC_SINGLE_SCENES + SHALLOW_WATER_SCENES:
+        golden(scene, twin(scene), **SINGLE_GOLDEN_FLAGS[scene])
 
     phase_done('goldens')
     copy_bw = copy_bandwidth()
@@ -2004,6 +2441,9 @@ def main():
     for scene, (sim_cls, size, name) in SC_MODE_MAIN.items():
         merge_rows(results, sc_main_path(scene, sim_cls, size, copy_bw,
                                          name, chunk=250, chunks=2))
+    for scene, (size, name) in SINGLE_MODE_MAIN.items():
+        merge_rows(results, single_mode_main_path(scene, size, name,
+                                                  copy_bw))
     for scene, size in (('fe_separation_3d', (256, 256, 256)),
                         ('fe_separation_2d', (4096, 4096))):
         # the pre-pass: launches of every main path; its time at the
@@ -2043,7 +2483,7 @@ def main():
                             plain_ms=res['plain_ms'], bound_ms=bound,
                             bound_by=bound_by, library_ms=None))
         for key in ('x_normal_ms', 'models_ms', 'collision_ms', 'step_ms',
-                    'dynamic_share', 'unforced_ms'):
+                    'dynamic_share', 'unforced_ms', 'mlups'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:

@@ -71,6 +71,24 @@ def bgk_equilibrium(grid, rho, u, *, incompressible=False):
     return _weights(grid, rho) * (rho[None] + rho_m_poly)
 
 
+def shallow_water_equilibrium(grid, rho, u, gravity):
+    """Shallow-water equilibrium on D2Q9, rho the water height h
+    (``sailfish_tpu/equilibrium.py:87-104``):
+      f0 = h - w0 h (15/8 g h - 3 u.u)
+      fi = w_i h (3/2 g h + 3 c.u + 9/2 (c.u)^2 - 3/2 u.u)."""
+    assert grid.dim == 2 and grid.Q == 9, \
+        'shallow water equation requires the D2Q9 grid'
+    cu = dot_cu(grid, u)
+    usq = torch.sum(u * u, dim=0)
+    w = [float(x) for x in grid.weights]
+    out = [rho - w[0] * rho * ((15.0 / 8.0) * gravity * rho - 3.0 * usq)]
+    for i in range(1, grid.Q):
+        out.append(w[i] * rho * (
+            1.5 * gravity * rho + 3.0 * cu[i] + 4.5 * cu[i] * cu[i]
+            - 1.5 * usq))
+    return torch.stack(out)
+
+
 def second_moment_noneq(grid, f, feq):
     """Pi^(1)_ab = sum_i c_ia c_ib (f_i - feq_i), shape (dim, dim, *S)."""
     fneq = f - feq

@@ -3,9 +3,11 @@
 The host-side code of the JAX package's ``LBFluidSim``
 (``sailfish_tpu/models/single.py:17-153``: options, fields, host field
 plumbing) merged with the three methods that touch device arrays: the
-initial state, the device -> host field copy and the step builder. The
-other sim classes (entropic, free surface, IBM, Shan-Chen) are still to
-be ported.
+initial state, the device -> host field copy and the step builder; the
+shallow-water model ``LBFreeSurface`` and the single-component Shan-Chen
+model ``LBSingleFluidShanChen`` (:217-233, :299-317), which only add
+options and step-builder arguments. The entropic and IBM sim classes are
+still to be ported.
 """
 
 from __future__ import annotations
@@ -148,3 +150,41 @@ class LBFluidSim(LBSim):
             device=device,
             time_unit=getattr(cfg, 'dt_per_lattice_time_unit', 1.0),
             **kwargs)
+
+
+class LBFreeSurface(LBFluidSim):
+    """Shallow-water ("free surface") LB model
+    (reference lb_single.py:219-237): D2Q9, BGK, rho the water height."""
+
+    @classmethod
+    def modify_config(cls, config):
+        config.grid = 'D2Q9'
+        config.model = 'bgk'
+
+    @classmethod
+    def add_options(cls, group, dim):
+        group.add_argument('--gravity', type=float, default=0.001,
+                           help='gravitational acceleration')
+
+    def step_builder_kwargs(self):
+        return {'equilibrium': 'shallow_water',
+                'gravity': self.config.gravity}
+
+
+class LBSingleFluidShanChen(LBFluidSim, LBForcedSim):
+    """Single-component Shan-Chen pseudopotential multiphase model
+    (reference lb_single.py:239-320)."""
+
+    nonlocality = 1
+
+    @classmethod
+    def add_options(cls, group, dim):
+        group.add_argument('--G', type=float, default=1.0,
+                           help='Shan-Chen interaction strength constant')
+        group.add_argument('--sc_potential', type=str,
+                           choices=['linear', 'classic'], default='linear',
+                           help='Shan-Chen pseudopotential function')
+
+    def step_builder_kwargs(self):
+        return {'sc_coupling': self.config.G,
+                'sc_potential': self.config.sc_potential}

@@ -11,7 +11,10 @@
 // and pipes run, in their collision-model mode (MRT/TRT with the parity-split
 // rates and the conserved-moment correction, BGK at the local Smagorinsky
 // LES rate, the incompressible He-Luo equilibrium: pallas_step.py:_feq_i,
-// mrt_pair_rates, _collide_prepass, _mrt_corr, _collide_pair), and with them
+// mrt_pair_rates, _collide_prepass, _mrt_corr, _collide_pair), in the
+// shallow-water equilibrium (the D2Q9 branch of _feq_i, pallas_step.py
+// :289-294) and in the single-component Shan-Chen mode (sc:
+// _sc_shift_moments :714-785, the 2D kernel's sc argument), and with them
 //   sailfish_tpu/ops/pallas_step.py   make_bc_patch_kernel_3d
 //   sailfish_tpu/ops/pallas_step2d.py make_bc_patch_kernel_2d
 // which recompute the z-planes / y-blocks that hold a native BC whose
@@ -24,7 +27,11 @@
 //   fs_i = A[i, x - c_i]                    pull streaming, periodic wrap
 //   mask 0     collide: fs + (feq(rho, u) - fs) / tau, or the MRT or LES
 //              relaxation, with a body force the model's relaxation and
-//              post-collision term (relax_node in lbm_common.cuh)
+//              post-collision term (relax_node in lbm_common.cuh); in the
+//              Shan-Chen mode u is first shifted by tau F / rho, F the
+//              pseudopotential force from the post-stream densities of the
+//              node's neighbours, which the pre-pass rho_poststream
+//              (sc_multi.cu) wrote into rho_pre (sc_collide_node)
 //   mask 1     full bounce-back wall: store fs reflected, out_opp(i) = fs_i
 //   mask 2     keep (excluded / propagation-only): store fs
 //   mask 3+j   row j of the BC table. A native BC instance: macroscopic
@@ -83,18 +90,21 @@
 //   tables and a local-memory chain such a face cost 2.9 times a step.
 //   The read of a varying row's per-node parameters sits in the BC branch,
 //   so only those nodes pay for it.
-// - The collision model (BGK, MRT, LES) and the equilibrium (compressible or
-//   incompressible) are two more template parameters, picked on the host
-//   from LBMParams::coll: six instantiations for each force model and wall
-//   switch, so the BGK kernels carry none of the other models' code. MRT
+// - The collision model (BGK, MRT, LES) and the equilibrium (compressible,
+//   incompressible or, for D2Q9 BGK without EDM, shallow water) are two
+//   more template parameters, picked on the host from LBMParams::coll: six
+//   instantiations for each force model and wall switch, and the six
+//   shallow-water ones, so the BGK kernels carry none of the other models'
+//   code. MRT
 //   relaxes each pair (i, opp(i)) at compile-time indices; LES sums the
 //   non-equilibrium stress over the node's distributions, which are in
 //   registers already. The rates, tau and 36 C^2 are in the parameter
 //   block: a step of any model moves the same bytes. This file builds the
 //   collision model LBM_MODEL (default BGK); lbm_step_mrt.cu and
-//   lbm_step_les.cu define it and include this file, so the 96
-//   instantiations compile as three libraries of 32, one nvcc each, in
-//   parallel (one library of 96 took 154.5 s), and the host loads the
+//   lbm_step_les.cu define it and include this file, so the 106
+//   instantiations compile as three libraries (32 each for MRT and LES,
+//   42 with the shallow-water and Shan-Chen ones for BGK), one nvcc each,
+//   in parallel (one library of 96 took 154.5 s), and the host loads the
 //   library of its model (ops/lbm_step.py LIBRARIES).
 // - The force model is a template parameter: four instantiations per lattice,
 //   picked on the host from LBMParams::force.model, so the unforced kernel
@@ -106,6 +116,17 @@
 //   instantiation without their code, the same as before they existed. In
 //   the wall rows every tag test is a compile-time bit of the tag word and
 //   the slip permutation a compile-time index, so nothing leaves registers.
+// - The Shan-Chen mode is the last template parameter, SC, reached only
+//   through the entries lbm_step_sc_d2q9 / _d3q19: BGK, the compressible
+//   equilibrium, no force or a constant Guo force, no BC row (four
+//   instantiations). Its density buffer is a kernel argument of its own;
+//   the pre-pass reads the state once more (40 / 80 B per node), and a
+//   colliding node reads its own and its Q - 1 neighbours' densities, the
+//   neighbours' mostly from cache (4 B per node from memory). The
+//   potential (linear or classic) is a run-time, block-uniform branch.
+//   The Pallas kernel emits next step's densities itself (emit_rho), which
+//   relies on the TPU grid running in order; here the pre-pass runs before
+//   every step, as the mixtures' does.
 // Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
 // an in-place (AA-pattern) step would halve the footprint.
 
@@ -115,15 +136,16 @@
 #define LBM_MODEL MODEL_BGK
 #endif
 
-template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, bool INCOMP>
+template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, int EQ, bool SC>
 __global__ void __launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)
 lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
                 const uint8_t* __restrict__ mask,
                 const __grid_constant__ LBMParams p,
                 const float* __restrict__ bcp,
-                const int* __restrict__ tags) {
+                const int* __restrict__ tags,
+                const float* __restrict__ rho_pre) {
     using L = typename LatticeOf<DIM>::type;
-    using P = Physics<FORCE, MODEL, INCOMP>;
+    using P = Physics<FORCE, MODEL, EQ>;
     static_assert(L::Q == Q && L::DIM == DIM, "lattice of the dimension");
     const int nx = p.nx, ny = p.ny;
     const int x = blockIdx.x * LBM_BLOCK + threadIdx.x;
@@ -153,15 +175,20 @@ lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
     const int m = mask[node];
     float fs[Q];
     pull_node<L>(a, n, s, fs);
-    if (m == 0)
-        collide_node<L, P>(fs, p.tau_inv, p.force, p.coll, b, n, node);
-    else if (m == 1)
+    if (m == 0) {
+        if constexpr (SC)
+            sc_collide_node<L, P>(fs, p, rho_pre, s, b, n, node);
+        else
+            collide_node<L, P>(fs, p.tau_inv, p.force, p.coll, b, n, node);
+    } else if (m == 1) {
         reflect_node<L>(fs, b, n, node);
-    else if (m == 2)
+    } else if (m == 2) {
         keep_node<L>(fs, b, n, node);
-    else
+    } else if constexpr (!SC) {
+        // (the Shan-Chen mode has no BC row: its entries refuse a table)
         bc_node<L, P, WALLS>(p, m - 3, bcp, tags, a, x, y, z, fs, b, n,
                              node);
+    }
 }
 
 __global__ void lbm_empty_kernel() {}
@@ -174,29 +201,43 @@ static bool has_kind(const LBMParams* p, int lo, int hi) {
     return false;
 }
 
-template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, bool INCOMP>
+template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, int EQ,
+          bool SC = false>
 static int launch_kernel(const float* a, float* b, const uint8_t* mask,
                          const float* bcp, const int* tags,
-                         const LBMParams* p, void* stream) {
+                         const LBMParams* p, void* stream,
+                         const float* rho_pre = nullptr) {
     const dim3 grid((p->nx + LBM_BLOCK - 1) / LBM_BLOCK, p->ny, p->nz);
-    lbm_step_kernel<DIM, Q, FORCE, WALLS, MODEL, INCOMP>
+    lbm_step_kernel<DIM, Q, FORCE, WALLS, MODEL, EQ, SC>
         <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p, bcp,
-                                                       tags);
+                                                       tags, rho_pre);
     return (int)cudaGetLastError();
 }
 
 // The instantiation of the block's equilibrium; a block of another
-// collision model than this library's is refused.
+// collision model than this library's is refused, and so is the
+// shallow-water equilibrium outside D2Q9 BGK or under EDM.
 template <int DIM, int Q, int FORCE, bool WALLS>
 static int launch_coll(const float* a, float* b, const uint8_t* mask,
                        const float* bcp, const int* tags, const LBMParams* p,
                        void* stream) {
     if (p->coll.model != LBM_MODEL) return (int)cudaErrorInvalidValue;
-    if (p->coll.incompressible)
-        return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, true>(
+    switch (p->coll.equilibrium) {
+    case EQ_BGK:
+        return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, EQ_BGK>(
             a, b, mask, bcp, tags, p, stream);
-    return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, false>(
-        a, b, mask, bcp, tags, p, stream);
+    case EQ_INCOMP:
+        return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, EQ_INCOMP>(
+            a, b, mask, bcp, tags, p, stream);
+    case EQ_SHALLOW:
+        if constexpr (DIM == 2 && LBM_MODEL == MODEL_BGK
+                      && FORCE != FORCE_EDM)
+            return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL,
+                                 EQ_SHALLOW>(a, b, mask, bcp, tags, p,
+                                             stream);
+        break;
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 // The instantiation of the table's wall rows (with or without).
@@ -235,6 +276,29 @@ static int launch(const float* a, float* b, const uint8_t* mask,
     return (int)cudaErrorInvalidValue;
 }
 
+// The Shan-Chen mode (BGK, compressible, no BC row) of the block's force
+// model, none or Guo; built in the BGK library only.
+template <int DIM, int Q>
+static int launch_sc(const float* a, const float* rho_pre, float* b,
+                     const uint8_t* mask, const LBMParams* p, void* stream) {
+    if constexpr (LBM_MODEL != MODEL_BGK) {
+        return (int)cudaErrorInvalidValue;
+    } else {
+        if (p->coll.model != MODEL_BGK || p->coll.equilibrium != EQ_BGK
+            || p->nbc != 0 || rho_pre == nullptr)
+            return (int)cudaErrorInvalidValue;
+        if (p->force.model == FORCE_NONE)
+            return launch_kernel<DIM, Q, FORCE_NONE, false, MODEL_BGK,
+                                 EQ_BGK, true>(a, b, mask, nullptr, nullptr,
+                                               p, stream, rho_pre);
+        if (p->force.model == FORCE_GUO)
+            return launch_kernel<DIM, Q, FORCE_GUO, false, MODEL_BGK,
+                                 EQ_BGK, true>(a, b, mask, nullptr, nullptr,
+                                               p, stream, rho_pre);
+        return (int)cudaErrorInvalidValue;
+    }
+}
+
 template <typename L>
 static void copy_tables(LBMTables* out) {
     *out = LBMTables();
@@ -265,6 +329,19 @@ int lbm_step_d3q19(const float* a, float* b, const uint8_t* mask,
                    const float* bcp, const int* tags, const LBMParams* p,
                    void* stream) {
     return launch<3, 19>(a, b, mask, bcp, tags, p, stream);
+}
+
+// The Shan-Chen mode: rho_pre holds the post-stream density of every node
+// (the pre-pass rho_poststream of sc_multi.cu, run on a just before).
+int lbm_step_sc_d2q9(const float* a, const float* rho_pre, float* b,
+                     const uint8_t* mask, const LBMParams* p, void* stream) {
+    return launch_sc<2, 9>(a, rho_pre, b, mask, p, stream);
+}
+
+int lbm_step_sc_d3q19(const float* a, const float* rho_pre, float* b,
+                      const uint8_t* mask, const LBMParams* p,
+                      void* stream) {
+    return launch_sc<3, 19>(a, rho_pre, b, mask, p, stream);
 }
 
 int lbm_params_size(void) { return (int)sizeof(LBMParams); }

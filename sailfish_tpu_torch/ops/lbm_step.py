@@ -3,7 +3,9 @@ step, with native BCs of static, varying or time-dependent parameters, the
 local walls (half-way bounce-back, Tamm-Mott-Smith, slip), a constant or
 time-dependent uniform body force, and the collision models BGK, MRT/TRT
 and Smagorinsky LES with the compressible or the incompressible
-equilibrium.
+equilibrium; the D2Q9 shallow-water equilibrium; and the single-component
+Shan-Chen mode, two launches per step: the post-stream density pre-pass
+``rho_poststream`` of ``csrc/sc_multi.cu`` (at nk = 1), then the step.
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
@@ -12,7 +14,10 @@ Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 velocity-shift, ``pallas_step.py:246-341``; a time-only force is the
 runtime ``rt_force`` mode, :185-232) and collision-model modes
 (``_feq_i`` :281, ``mrt_pair_rates`` :344, ``_collide_prepass`` :372,
-``_mrt_corr`` :452, ``_collide_pair`` :472), and of their patch kernels
+``_mrt_corr`` :452, ``_collide_pair`` :472), shallow-water (the
+``_feq_i`` branch :289-294) and ``sc`` modes (``_sc_shift_moments``
+:714-785; its pre-pass ``make_rho_kernel_3d`` / ``_2d``, B5 / B6), and of
+their patch kernels
 ``make_bc_patch_kernel_3d`` / ``_2d`` (see ``ops/bc_patch.py``), which on
 the TPU also carry the link-tagged walls, TMS and the dynamic BC
 families. The kernel itself is ``csrc/lbm_step.cu``; this module
@@ -64,17 +69,22 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: of the JAX patch kernels), ``lbm_step_mrt_<grid>`` (the MRT/TRT
 #: relaxation), ``lbm_step_les_<grid>`` (BGK at the Smagorinsky rate),
 #: ``lbm_step_incomp_<grid>`` (the incompressible equilibrium; these three
-#: the collision-model mode of the JAX package's kernels),
+#: the collision-model mode of the JAX package's kernels), after
+#: ``lbm_step_sc_<grid>`` (the Shan-Chen mode; its C entry is
+#: ``lbm_step_sc_<grid>``) and ``lbm_step_sw_<grid>`` (the shallow-water
+#: equilibrium), which rank below the wall rows and above the models,
 #: ``lbm_step_force_<grid>`` (a constant body force: the forcing mode),
 #: ``lbm_step_vary_<grid>`` (some instance reads per-node parameters: the
 #: work of the JAX package's patch kernels) and ``lbm_step_<grid>`` (BGK,
 #: compressible, no force, every BC row uniform); one C entry,
-#: ``lbm_step_<grid>``, serves them all
-LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'wall_',
-                'dyn_')
+#: ``lbm_step_<grid>``, serves all but the Shan-Chen mode. The Shan-Chen
+#: mode's pre-pass counts as ``rho_poststream_nk1_<grid>``.
+LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'sw_',
+                'sc_', 'wall_', 'dyn_')
 LAUNCHES = dict.fromkeys(
-    (f'lbm_step_{v}{g.lower()}' for v in LAUNCH_KINDS
-     for g in KERNEL_GRIDS), 0)
+    [f'lbm_step_{v}{g.lower()}' for v in LAUNCH_KINDS
+     for g in KERNEL_GRIDS]
+    + [f'rho_poststream_nk1_{g.lower()}' for g in KERNEL_GRIDS], 0)
 #: rewrites of a block of the per-node parameter array before a launch (a
 #: space- and time-dependent BC row), over all ``KernelStep`` objects, per
 #: lattice: each is a few small PyTorch launches on the kernel's stream
@@ -85,6 +95,11 @@ FORCE_CODES = {name: 1 + i for i, name in enumerate(st.FORCE_MODELS)}
 #: collision model -> its code in the parameter block (csrc/lbm_common.cuh
 #: MODEL_*): TRT is MRT with the same rate vector
 MODEL_CODES = {'bgk': 0, 'mrt': 1, 'trt': 1, 'les': 2}
+#: equilibrium -> its code in the parameter block (csrc/lbm_common.cuh
+#: EQ_*)
+EQ_CODES = {'bgk': 0, 'incompressible': 1, 'shallow_water': 2}
+#: Shan-Chen potential -> its code (csrc/lbm_common.cuh SC_*)
+SC_POTENTIALS = {'linear': 0, 'classic': 1}
 #: model code -> the csrc source whose library holds its instantiations
 #: (each builds lbm_step.cu with one collision model, so the three compile
 #: in parallel)
@@ -204,7 +219,14 @@ def kernel_ineligibility(builder, nodes=None):
     by name. A body force that varies from node to node, constant or a
     DynamicValue of space, runs on the torch engine only (the JAX runner
     keeps it off its kernels too, ``sailfish_tpu/runner.py:386-395``,
-    ``pallas_step.py:2608-2612``)."""
+    ``pallas_step.py:2608-2612``). So do what the JAX runner keeps off its
+    Shan-Chen and shallow-water kernels (``sailfish_tpu/runner.py:355-385``,
+    ``pallas_step.py:2603-2608``, ``pallas_step2d.py:1313-1316``):
+    Shan-Chen with a model other than BGK, with a body force other than a
+    constant Guo one, with BC rows (native BCs, half-way, TMS or slip
+    walls: patch rows in JAX) or with the shallow-water equilibrium; the
+    shallow-water equilibrium with a model other than BGK (or the
+    incompressible flag, which has no shallow-water form) or with EDM."""
     reasons = []
     if builder.force_expr is not None:
         if st.is_space_dependent(builder.force_expr):
@@ -241,6 +263,59 @@ def kernel_ineligibility(builder, nodes=None):
     reasons += why
     if not why:
         reasons += bc_patch.instance_boxes(builder.maps, instances)[1]
+    reasons += _mode_reasons(builder, instances)
+    return reasons
+
+
+def _model_name(builder):
+    """The collision model of ``builder`` as the refusals name it."""
+    if builder.model == 'bgk' and builder.smagorinsky > 0.0:
+        return 'the Smagorinsky LES model'
+    return f'model={builder.model}'
+
+
+def _mode_reasons(builder, instances):
+    """The refusals of the Shan-Chen and shallow-water modes (see
+    ``kernel_ineligibility``); ``instances`` are the BC-table rows of
+    ``classify_nodes``."""
+    reasons = []
+    sw = builder.equilibrium == 'shallow_water'
+    fm = builder.force_model if builder.body_force is not None else None
+    if builder.sc_coupling != 0.0:
+        if builder.model != 'bgk' or builder.smagorinsky > 0.0:
+            reasons.append(f'Shan-Chen with {_model_name(builder)} (the '
+                           'kernel\'s Shan-Chen mode is BGK only; '
+                           '--engine=torch runs it)')
+        if builder.incompressible:
+            reasons.append('Shan-Chen with the incompressible equilibrium')
+        if sw:
+            reasons.append('Shan-Chen with the shallow-water equilibrium')
+        if builder.force_expr is not None:
+            reasons.append('Shan-Chen with a DynamicValue body force (the '
+                           'kernel\'s Shan-Chen mode takes a constant Guo '
+                           'force)')
+        elif fm is not None and fm != 'guo':
+            reasons.append(f'Shan-Chen with the {fm} body force (the '
+                           'kernel\'s Shan-Chen mode takes a constant Guo '
+                           'force)')
+        kinds = sorted({nt.get_node_type(tid).__name__
+                        for tid, _k, _sel in instances})
+        if kinds:
+            reasons.append(f'Shan-Chen with BC rows ({", ".join(kinds)}; '
+                           'the kernel\'s Shan-Chen mode takes full '
+                           'bounce-back walls only, --engine=torch runs '
+                           'them)')
+    if sw:
+        if builder.model != 'bgk' or builder.smagorinsky > 0.0:
+            reasons.append(f'shallow water with {_model_name(builder)} (the '
+                           'kernel\'s shallow-water equilibrium is BGK '
+                           'only; --engine=torch runs it)')
+        if builder.incompressible:
+            reasons.append('shallow water with --incompressible')
+        if fm == 'edm':
+            reasons.append('shallow water with the edm body force (EDM '
+                           'shifts the second-order equilibrium; '
+                           '--engine=torch runs it)')
     return reasons
 
 
@@ -262,7 +337,9 @@ def box_params(row, bcp, shape):
 
 def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
                    force_model='guo', tags=None, rates=None,
-                   smagorinsky=0.0, incompressible=False):
+                   smagorinsky=0.0, incompressible=False, equilibrium='bgk',
+                   gravity=0.0, sc_coupling=0.0, sc_potential='linear',
+                   sc_rho=None):
     """Plain PyTorch version of the kernel: one step
     of state ``f`` (Q, *S) under uint8 mask codes ``mask`` (*S) and BC
     table ``table`` (list of ``BCRow``), with relaxation rate ``tau_inv``.
@@ -275,8 +352,11 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
     ``force_model``. The collision is MRT with the rate vector ``rates``
     when it is given, else BGK, at the local Smagorinsky rate when
     ``smagorinsky`` > 0, with the incompressible equilibrium when
-    ``incompressible``. The phases are the torch engine's
-    (``step.step_phases``)."""
+    ``incompressible``, or with ``equilibrium`` 'shallow_water' the D2Q9
+    shallow-water one at ``gravity``. With ``sc_coupling`` G != 0 (the
+    Shan-Chen mode) the neighbours' psi comes from ``sc_rho``, the density
+    the pre-pass wrote (default: ``sc_multi.rho_reference`` of ``f``). The
+    phases are the torch engine's (``step.step_phases``)."""
     ones = (1,) * (f.dim() - 1)
     instances, slip = [], []
     tagged = tms = None
@@ -309,11 +389,16 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
     if force is not None:
         force = torch.tensor(force[:grid.dim], dtype=f.dtype,
                              device=f.device).reshape((grid.dim,) + ones)
-    return st.step_phases(grid, st.gather(grid, f), f, tau_inv, instances,
-                          wet=wet, fullbb=mask == 1, slip=slip, tags=planes,
-                          tms=tms, force=force, force_model=force_model,
-                          incompressible=incompressible, rates=rates,
-                          smagorinsky=smagorinsky)
+    if sc_coupling != 0.0 and sc_rho is None:
+        from sailfish_tpu_torch.ops import sc_multi
+        sc_rho = sc_multi.rho_reference(f, grid)
+    return st.step_phases(
+        grid, st.gather(grid, f), f, tau_inv, instances, wet=wet,
+        fullbb=mask == 1, slip=slip, tags=planes, tms=tms, force=force,
+        force_model=force_model, incompressible=incompressible, rates=rates,
+        smagorinsky=smagorinsky,
+        feq=st.equilibrium_fn(grid, incompressible, equilibrium, gravity),
+        sc_coupling=sc_coupling, sc_potential=sc_potential, sc_rho=sc_rho)
 
 
 class _BC(ctypes.Structure):
@@ -333,10 +418,15 @@ class _Force(ctypes.Structure):
 
 
 class _Collide(ctypes.Structure):
-    _fields_ = [('model', ctypes.c_int), ('incompressible', ctypes.c_int),
+    _fields_ = [('model', ctypes.c_int), ('equilibrium', ctypes.c_int),
                 ('s_e', ctypes.c_float), ('s_o', ctypes.c_float),
                 ('tau', ctypes.c_float), ('tau2', ctypes.c_float),
-                ('les_c', ctypes.c_float)]
+                ('les_c', ctypes.c_float), ('gravity', ctypes.c_float)]
+
+
+class _ShanChen(ctypes.Structure):
+    _fields_ = [('potential', ctypes.c_int), ('g', ctypes.c_float),
+                ('tau', ctypes.c_float)]
 
 
 class _Params(ctypes.Structure):
@@ -344,7 +434,7 @@ class _Params(ctypes.Structure):
                 ('nz', ctypes.c_int), ('nbc', ctypes.c_int),
                 ('tau_inv', ctypes.c_float),
                 ('bc', _BC * MAX_BC), ('vary', _Vary * MAX_BC),
-                ('force', _Force), ('coll', _Collide)]
+                ('force', _Force), ('coll', _Collide), ('sc', _ShanChen)]
 
 
 class _Tables(ctypes.Structure):
@@ -449,13 +539,20 @@ def mrt_pair_rates(grid, rates):
 
 
 def set_collision(p, grid, tau_inv, rates=None, smagorinsky=0.0,
-                  incompressible=False):
+                  incompressible=False, equilibrium='bgk', gravity=0.0):
     """Write the collision model into the block ``p``: MRT (code 1, its
     even and odd rates from ``mrt_pair_rates``) when ``rates`` is given,
     else LES (code 2: tau, tau^2 and 36 C^2, computed in fp64) when
-    ``smagorinsky`` > 0, else BGK (code 0); and the equilibrium."""
+    ``smagorinsky`` > 0, else BGK (code 0); and the equilibrium
+    (``EQ_CODES``: 'shallow_water' with its ``gravity``, else the
+    compressible or the incompressible one)."""
     c = p.coll
-    c.incompressible = int(bool(incompressible))
+    if equilibrium == 'shallow_water':
+        c.equilibrium = EQ_CODES['shallow_water']
+        c.gravity = gravity
+    else:
+        c.equilibrium = EQ_CODES['incompressible' if incompressible
+                                 else 'bgk']
     if rates is not None:
         c.model = MODEL_CODES['mrt']
         c.s_e, c.s_o = mrt_pair_rates(grid, rates)
@@ -478,14 +575,16 @@ def set_row(p, j, rho, u):
 
 def kernel_params(grid, shape, table, tau_inv, force=None,
                   force_model='guo', rates=None, smagorinsky=0.0,
-                  incompressible=False):
+                  incompressible=False, equilibrium='bgk', gravity=0.0,
+                  sc_coupling=0.0, sc_potential='linear'):
     """The kernel's by-value parameter block: domain extents, relaxation
     rate, the BC table, behind it where each varying row's per-node
     parameters lie, the body force (``set_force``; None: model code 0,
-    no force) and the collision model (``set_collision``). A row's axis
-    and sign are those of its orientation (0 for the half-way and TMS
-    rows). The lattice tables are compile-time in the kernel
-    (``check_tables``)."""
+    no force), the collision model and equilibrium (``set_collision``)
+    and the Shan-Chen mode's potential code, coupling and tau (read only
+    by that mode's instantiations). A row's axis and sign are those of its
+    orientation (0 for the half-way and TMS rows). The lattice tables are
+    compile-time in the kernel (``check_tables``)."""
     p = _Params()
     nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
     p.nx, p.ny, p.nz = nx, ny, nz
@@ -507,37 +606,49 @@ def kernel_params(grid, shape, table, tau_inv, force=None,
                 p.vary[j].ext[a] = row.box.ext[a]
     if force is not None:
         set_force(p, grid, force, force_model, tau_inv)
-    set_collision(p, grid, tau_inv, rates, smagorinsky, incompressible)
+    set_collision(p, grid, tau_inv, rates, smagorinsky, incompressible,
+                  equilibrium, gravity)
+    p.sc.potential = SC_POTENTIALS[sc_potential]
+    p.sc.g = sc_coupling
+    p.sc.tau = 1.0 / tau_inv
     return p
 
 
 #: names of the template parameters of ``lbm_step_kernel``, in order
-INSTANCE_PARAMS = ('dim', 'q', 'force', 'walls', 'model', 'incompressible')
+INSTANCE_PARAMS = ('dim', 'q', 'force', 'walls', 'model', 'equilibrium',
+                   'sc')
 
 
 def instantiation(fn):
     """The template arguments of the ``lbm_step_kernel`` instantiation
     whose mangled name is ``fn``, as {name of ``INSTANCE_PARAMS``: value}
-    (``force`` and ``model`` by their names, ``walls`` and
-    ``incompressible`` as bools), or None for another function. A name with
-    fewer arguments (an older build's) gets the ones it has."""
+    (``force``, ``model`` and ``equilibrium`` by their names, ``walls`` and
+    ``sc`` as bools), or None for another function. A name with fewer
+    arguments (an older build's) gets the ones it has; an older build's
+    sixth argument, the bool ``incompressible``, keeps that name."""
     m = re.search(r'lbm_step_kernelI((?:L[ib]n?\d+E)+)E', fn)
     if not m:
         return None
-    vals = [(-1 if sign else 1) * int(num) for kind, sign, num in
-            re.findall(r'L([ib])(n?)(\d+)E', m.group(1))]
+    args = re.findall(r'L([ib])(n?)(\d+)E', m.group(1))
+    vals = [(-1 if sign else 1) * int(num) for _kind, sign, num in args]
     out = dict(zip(INSTANCE_PARAMS, vals))
     out['force'] = (('none',) + st.FORCE_MODELS)[out['force']]
-    for key in ('walls', 'incompressible'):
+    for key in ('walls', 'sc'):
         if key in out:
             out[key] = bool(out[key])
     if 'model' in out:
         out['model'] = ('bgk', 'mrt', 'les')[out['model']]
+    if 'equilibrium' in out:
+        if args[5][0] == 'b':
+            out['incompressible'] = bool(out.pop('equilibrium'))
+        else:
+            out['equilibrium'] = tuple(EQ_CODES)[out['equilibrium']]
     return out
 
 
 def kernel_function(lib, name):
-    """The C entry ``name`` (``lbm_step_d2q9`` / ``lbm_step_d3q19``) of a
+    """The C entry ``name`` (``lbm_step_<grid>`` or, the Shan-Chen mode,
+    ``lbm_step_sc_<grid>``; grid ``d2q9`` / ``d3q19``) of a
     loaded ``csrc/lbm_step.cu`` library, typed for ``ctypes``, after
     checking that the library's parameter block matches ``_Params`` and
     that the compile-time tables of the entry's lattice match
@@ -559,9 +670,11 @@ def kernel_function(lib, name):
         raise RuntimeError(f'csrc/lbm_step.cu has no {grid.dim}D lattice')
     check_tables(tables, grid)
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.POINTER(_Params), ctypes.c_void_p]
+    # lbm_step_<grid>: (a, b, mask, bcp, tags, params, stream);
+    # lbm_step_sc_<grid>: (a, rho_pre, b, mask, params, stream)
+    n_ptr = 4 if name.startswith('lbm_step_sc_') else 5
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.POINTER(_Params),
+                                                ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -578,13 +691,17 @@ class KernelStep:
     ``force_model``, ``force_expr`` (the components of a time-only
     DynamicValue force, else None), the collision model (``rates``: the
     MRT rate vector or None, ``smagorinsky``: the LES constant, 0 without,
-    ``incompressible``), ``library`` (the csrc source of its collision
-    model, ``LIBRARIES``), ``entry`` (the C entry, ``lbm_step_<grid>``,
-    which picks the kernel instantiation of the block's force model and
-    equilibrium and of whether it has wall rows),
-    ``name`` (the key of ``LAUNCHES`` its launches count under) and
-    ``launches``, the number of kernel launches this object has made: one
-    per step."""
+    ``incompressible``, ``equilibrium`` and ``gravity``), ``sc_coupling``
+    and ``sc_potential`` (the Shan-Chen mode when the coupling is not 0:
+    ``rho``, the (*S) buffer of the pre-pass densities, and ``rho_name``,
+    the pre-pass's key of ``LAUNCHES``), ``library`` (the csrc source of its
+    collision model, ``LIBRARIES``), ``entry`` (the C entry,
+    ``lbm_step_<grid>``, which picks the kernel instantiation of the
+    block's force model and equilibrium and of whether it has wall rows, or
+    ``lbm_step_sc_<grid>``), ``name`` (the key of ``LAUNCHES`` its step
+    launches count under) and ``launches``, the number of step launches
+    this object has made: one per step (and as many pre-pass launches,
+    ``prepass_launches``, in the Shan-Chen mode)."""
 
     def __init__(self, builder):
         maps = builder.maps
@@ -620,6 +737,13 @@ class KernelStep:
         self.rates = builder.mrt_rates
         self.smagorinsky = builder.smagorinsky
         self.incompressible = builder.incompressible
+        self.equilibrium = builder.equilibrium
+        self.gravity = builder.gravity
+        self.sc_coupling = builder.sc_coupling
+        self.sc_potential = builder.sc_potential
+        self.sc = self.sc_coupling != 0.0
+        self.rho = (torch.empty(self.shape, dtype=torch.float32,
+                                device=self.device) if self.sc else None)
         self.force = None
         if self.force_expr is not None:
             self.force = self._force_at(self._time(0))
@@ -628,19 +752,27 @@ class KernelStep:
         self.params = kernel_params(
             self.grid, self.shape, self.table, self.tau_inv, self.force,
             self.force_model, self.rates, self.smagorinsky,
-            self.incompressible)
+            self.incompressible, self.equilibrium, self.gravity,
+            self.sc_coupling, self.sc_potential)
         self.library = LIBRARIES[self.params.coll.model]
-        self.entry = f'lbm_step_{self.grid.name.lower()}'
+        g = self.grid.name.lower()
+        self.entry = f'lbm_step_{"sc_" if self.sc else ""}{g}'
         kind = 'dyn_' if self.dynamic or self.force_expr is not None else \
             'wall_' if self.walls else \
+            'sc_' if self.sc else \
+            'sw_' if self.equilibrium == 'shallow_water' else \
             'mrt_' if self.rates is not None else \
             'les_' if self.smagorinsky > 0.0 else \
             'incomp_' if self.incompressible else \
             'force_' if self.force is not None else \
             'vary_' if self.vary else ''
-        self.name = self.entry.replace('step_', f'step_{kind}')
+        self.name = f'lbm_step_{kind}{g}'
+        self.rho_name = f'rho_poststream_nk1_{g}'
         self.launches = 0
+        self.prepass_launches = 0
         self._fn = None
+        self._rho_fn = None
+        self._rho_params = None
 
     def _time(self, it):
         """t of iteration ``it``: a 0-d fp32 CPU tensor, so evaluating a
@@ -683,7 +815,9 @@ class KernelStep:
     def step_into(self, src, dst, it=0):
         """Step ``it`` from ``src`` into ``dst`` (distinct (Q, *S) fp32
         buffers on the mask's device). On a CUDA tensor this launches the
-        kernel once; on a CPU tensor it runs ``step_reference``."""
+        kernel once (in the Shan-Chen mode after the pre-pass into
+        ``rho``); on a CPU tensor it runs ``step_reference`` (in the
+        Shan-Chen mode with ``density_into``'s densities)."""
         full = (self.grid.Q,) + self.shape
         for t in (src, dst):
             if t.dtype != torch.float32 or tuple(t.shape) != full:
@@ -697,30 +831,76 @@ class KernelStep:
         if src.data_ptr() == dst.data_ptr():
             raise ValueError('the pull step cannot run in place')
         self.set_iteration(it)
+        if self.sc:
+            self.density_into(src, self.rho)
         if src.device.type == 'cpu':
-            dst.copy_(self.reference(src))
+            dst.copy_(self.reference(src, self.rho))
         else:
             self._launch(src, dst)
 
-    def reference(self, f):
+    def reference(self, f, rho=None):
         """``step_reference`` of this scene on the state ``f``, with the
-        values of the last ``set_iteration``."""
+        values of the last ``set_iteration``; in the Shan-Chen mode with
+        the pre-pass densities ``rho`` (default ``sc_multi.rho_reference``
+        of ``f``)."""
         return step_reference(f, self.mask, self.table, self.grid,
                               self.tau_inv, self.bcp, self.force,
                               self.force_model, self.tags, self.rates,
-                              self.smagorinsky, self.incompressible)
+                              self.smagorinsky, self.incompressible,
+                              self.equilibrium, self.gravity,
+                              self.sc_coupling, self.sc_potential, rho)
+
+    def _stream(self, t):
+        return torch.cuda.current_stream(t.device).cuda_stream
+
+    def density_into(self, src, rho):
+        """The post-stream density of the (Q, *S) state ``src`` into the
+        (*S) fp32 buffer ``rho``: the ``rho_poststream`` kernel of
+        ``csrc/sc_multi.cu`` at nk = 1 on a CUDA tensor (counted as
+        ``rho_name``), ``sc_multi.torch_density`` on a CPU tensor (so that
+        the kernel engine equals the torch engine there)."""
+        from sailfish_tpu_torch.ops import sc_multi
+        if tuple(rho.shape) != self.shape or rho.dtype != torch.float32 \
+                or not rho.is_contiguous() or rho.device != src.device:
+            raise ValueError(f'expected a contiguous float32 {self.shape} '
+                             f'density on {src.device}')
+        if src.device.type == 'cpu':
+            rho.copy_(sc_multi.torch_density(src, self.grid))
+            return
+        if src.device.type != 'cuda':
+            raise ValueError(f'no kernel for device {src.device}')
+        if self._rho_fn is None:
+            from sailfish_tpu_torch.ops import build
+            lib = build.load_all(['sc_multi', self.library])['sc_multi'].lib
+            self._rho_fn = sc_multi.kernel_functions(lib, self.grid.name)[0]
+            self._rho_params = sc_multi.kernel_params(
+                self.grid, self.shape, [1.0], {}, 'linear')
+        rc = self._rho_fn(src.data_ptr(), rho.data_ptr(), 1,
+                          ctypes.byref(self._rho_params), self._stream(src))
+        if rc != 0:
+            raise RuntimeError(f'{self.rho_name} launch failed: CUDA error '
+                               f'{rc}')
+        self.prepass_launches += 1
+        LAUNCHES[self.rho_name] += 1
 
     def _launch(self, src, dst):
+        """The step kernel from ``src`` into ``dst``; in the Shan-Chen mode
+        it reads the densities in ``rho``."""
         if src.device.type != 'cuda':
             raise ValueError(f'no kernel for device {src.device}')
         if self._fn is None:
             from sailfish_tpu_torch.ops import build
             self._fn = kernel_function(build.load(self.library).lib,
                                        self.entry)
-        tags = None if self.tags is None else self.tags.data_ptr()
-        rc = self._fn(src.data_ptr(), dst.data_ptr(), self.mask.data_ptr(),
-                      self.bcp.data_ptr(), tags, ctypes.byref(self.params),
-                      torch.cuda.current_stream(src.device).cuda_stream)
+        if self.sc:
+            rc = self._fn(src.data_ptr(), self.rho.data_ptr(),
+                          dst.data_ptr(), self.mask.data_ptr(),
+                          ctypes.byref(self.params), self._stream(src))
+        else:
+            tags = None if self.tags is None else self.tags.data_ptr()
+            rc = self._fn(src.data_ptr(), dst.data_ptr(),
+                          self.mask.data_ptr(), self.bcp.data_ptr(), tags,
+                          ctypes.byref(self.params), self._stream(src))
         if rc != 0:
             raise RuntimeError(f'{self.name} launch failed: CUDA error {rc}')
         self.launches += 1

@@ -10,9 +10,10 @@ dry-node handling, exactly the JAX phase sequence.
 The subset: BGK, MRT or TRT collision (TRT is MRT with the same rate
 vector, ``sailfish_tpu/ops/step.py:271-272``), optionally with the
 Smagorinsky subgrid tau field, the second-order equilibrium (compressible
-or the incompressible He-Luo form), a body force (Guo, exact-difference or
-velocity-shift forcing) that is constant, per-node or a ``DynamicValue``
-of time and space, no Shan-Chen, fp32 or fp64 storage, and the node types
+or the incompressible He-Luo form) or the D2Q9 shallow-water one, a body
+force (Guo, exact-difference or velocity-shift forcing) that is constant,
+per-node or a ``DynamicValue`` of time and space, the single-component
+Shan-Chen velocity shift, fp32 or fp64 storage, and the node types
 fluid, the excluded / propagation-only "keep" types, the local walls
 (``NTFullBBWall``, ``NTHalfBBWall``, ``NTWallTMS``, ``NTSlip``) and the six
 elementwise ("native") BC types, whose parameters may be
@@ -35,6 +36,8 @@ same code with its per-row parameters.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -119,15 +122,29 @@ def tag_planes(grid, link_tags, device=None):
     return torch.stack([((t >> i) & 1).bool() for i in range(grid.Q)])
 
 
-def fix_missing(grid, fs, f, tags=None, tms=None, incompressible=False):
+def equilibrium_fn(grid, incompressible=False, equilibrium='bgk',
+                   gravity=0.0):
+    """The model's equilibrium as a function feq(rho, u) -> (Q, *S)
+    (``StepBuilder.feq`` of ``sailfish_tpu/ops/step.py:352-364``): the
+    second-order one (incompressible or not), or with ``equilibrium``
+    'shallow_water' the D2Q9 shallow-water one at ``gravity``."""
+    if equilibrium == 'shallow_water':
+        return functools.partial(eq.shallow_water_equilibrium, grid,
+                                 gravity=gravity)
+    return functools.partial(eq.bgk_equilibrium, grid,
+                             incompressible=incompressible)
+
+
+def fix_missing(grid, fs, f, tags=None, tms=None, feq=None):
     """Replace the distributions whose pull source is not wet
     (``sailfish_tpu/ops/step.py:436-456``). Tagged links (``tags``, the
     (Q, *S) planes of ``tag_planes``, or None) take f_opp, the node's own
     post-collision value: half-way bounce-back. At the TMS nodes (``tms``,
     a node mask, or None) the target macros are then taken from the
     bounce-filled distributions and the tagged links set to their
-    equilibrium. Returns (fs, target): target is (rho, u) of the TMS
-    nodes, None without them."""
+    equilibrium ``feq`` (``equilibrium_fn``; default the compressible
+    second-order one). Returns (fs, target): target is (rho, u) of the
+    TMS nodes, None without them."""
     if tags is not None:
         opp = torch.as_tensor(grid.opposite, dtype=torch.long,
                               device=fs.device)
@@ -135,18 +152,18 @@ def fix_missing(grid, fs, f, tags=None, tms=None, incompressible=False):
     if tms is None:
         return fs, None
     target = eq.macroscopic(grid, fs)
-    feq_tg = eq.bgk_equilibrium(grid, *target, incompressible=incompressible)
+    feq_tg = (feq or equilibrium_fn(grid))(*target)
     return torch.where(tms[None] & tags, feq_tg, fs), target
 
 
-def apply_tms(grid, fpost, rho, u, tms, target, incompressible=False):
+def apply_tms(grid, fpost, rho, u, tms, target, feq=None):
     """The post-collision part of the TMS wall
     (``sailfish_tpu/ops/step.py:772-781``): TMS nodes add feq(target) -
     feq(rho, u) to their relaxed distributions."""
     if tms is None:
         return fpost
-    corr = eq.bgk_equilibrium(grid, *target, incompressible=incompressible) \
-        - eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible)
+    feq = feq or equilibrium_fn(grid)
+    corr = feq(*target) - feq(rho, u)
     return torch.where(tms[None], fpost + corr, fpost)
 
 
@@ -186,18 +203,23 @@ def _noneq_bb(grid, fs, feq, unknown):
     return torch.stack(out)
 
 
-def pre_collision_bc(grid, instances, fs, rho, u, incompressible=False):
+def pre_collision_bc(grid, instances, fs, rho, u, incompressible=False,
+                     feq=None):
     """Distribution reconstruction at BC nodes
-    (``sailfish_tpu/ops/step.py:632-670``)."""
+    (``sailfish_tpu/ops/step.py:632-670``) with the model's equilibrium
+    ``feq`` (default ``equilibrium_fn(grid, incompressible)``). The
+    regularized reconstruction adds its stress term to the second-order
+    equilibrium whatever the model's, as the JAX engine's
+    ``regularized_f`` does."""
+    feq = feq or equilibrium_fn(grid, incompressible)
     for cls, k, mask, _rho_bc, _vel_bc in instances:
         n = grid.orientation_vectors[k - 1]
         unknown = grid.unknown_mask(n)
-        feq = eq.bgk_equilibrium(grid, rho, u,
-                                 incompressible=incompressible)
+        f_eq = feq(rho, u)
         if cls in (nt.NTEquilibriumVelocity, nt.NTEquilibriumDensity):
-            fs = torch.where(mask[None], feq, fs)
+            fs = torch.where(mask[None], f_eq, fs)
         elif cls in (nt.NTZouHeVelocity, nt.NTZouHeDensity):
-            fz = _noneq_bb(grid, fs, feq, unknown)
+            fz = _noneq_bb(grid, fs, f_eq, unknown)
             # tangential momentum fixup (reference sym.zouhe_fixup)
             mom = eq.momentum(grid, fz)
             naxis = (k - 1) // 2
@@ -215,8 +237,8 @@ def pre_collision_bc(grid, instances, fs, rho, u, incompressible=False):
                 fz = fz + corr
             fs = torch.where(mask[None], fz, fs)
         elif cls in (nt.NTRegularizedVelocity, nt.NTRegularizedDensity):
-            fnb = _noneq_bb(grid, fs, feq, unknown)
-            pi = eq.second_moment_noneq(grid, fnb, feq)
+            fnb = _noneq_bb(grid, fs, f_eq, unknown)
+            pi = eq.second_moment_noneq(grid, fnb, f_eq)
             freg = eq.regularized_f(grid, rho, u, pi,
                                     incompressible=incompressible)
             fs = torch.where(mask[None], freg, fs)
@@ -263,7 +285,8 @@ def is_dynamic_force(body_force):
 
 def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
                    u_eq=None, incompressible=False, rates=None,
-                   smagorinsky=0.0):
+                   smagorinsky=0.0, feq=None, sc_coupling=0.0,
+                   sc_potential='linear', sc_rho=None):
     """The collision under the body force ``force`` (an acceleration,
     (dim, *S) or broadcastable; None: no force), ``_collide`` of
     ``sailfish_tpu/ops/step.py:690-751``. ``guo`` relaxes towards
@@ -273,19 +296,30 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
     the bare ``u``. ``u_eq`` (default ``u``) is the equilibrium velocity a
     multi-component coupling has shifted already.
 
+    With ``sc_coupling`` G != 0 the single-component Shan-Chen force
+    F = -G psi(rho) sum_i w_i c_i psi(sc_rho(x + c_i)) shifts u_eq by
+    tau F / rho before the body force's shift (:705-721); ``sc_rho`` is the
+    density the neighbours' psi is taken from (default ``rho``; the
+    kernel's plain version passes the pre-pass density).
+
     The relaxation: MRT (``mrt_collide``) with the rate vector ``rates``
-    when it is given, else BGK at 1/tau = ``tau_inv``, or with
-    ``smagorinsky`` > 0 at the local Smagorinsky rate, whose strain comes
-    from feq(rho, u) at the unshifted velocity. The LES field sets only
-    the BGK relaxation: the Guo prefactor and the velocity shift keep the
-    base tau, and MRT ignores the field, as in the JAX engine."""
+    when it is given, else BGK towards ``feq`` (``equilibrium_fn``; default
+    the second-order one of ``incompressible``) at 1/tau = ``tau_inv``, or
+    with ``smagorinsky`` > 0 at the local Smagorinsky rate, whose strain
+    comes from feq(rho, u) at the unshifted velocity. The LES field sets
+    only the BGK relaxation: the Guo prefactor and the velocity shift keep
+    the base tau, and MRT ignores the field, as in the JAX engine."""
+    feq = feq or equilibrium_fn(grid, incompressible)
     tau_eff = tau_inv
     if smagorinsky > 0.0 and rates is None:
-        feq = eq.bgk_equilibrium(grid, rho, u, incompressible=incompressible)
-        tau_eff = co.smagorinsky_tau_inv(grid, fs, feq, rho, 1.0 / tau_inv,
-                                         smagorinsky)[None]
+        tau_eff = co.smagorinsky_tau_inv(grid, fs, feq(rho, u), rho,
+                                         1.0 / tau_inv, smagorinsky)[None]
     if u_eq is None:
         u_eq = u
+    if sc_coupling != 0.0:
+        F = co.shan_chen_force(grid, rho, rho if sc_rho is None else sc_rho,
+                               sc_coupling, sc_potential)
+        u_eq = u_eq + (1.0 / tau_inv) * F / rho[None]
     if force is not None:
         if force_model == 'guo':
             u_eq = u_eq + 0.5 * force
@@ -295,8 +329,7 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
         fpost = co.mrt_collide(grid, fs, rho, u_eq, rates,
                                incompressible=incompressible)
     else:
-        fpost = co.bgk_collide(grid, fs, rho, u_eq, tau_eff,
-                               incompressible=incompressible)
+        fpost = fs + tau_eff * (feq(rho, u_eq) - fs)
     if force is not None:
         if force_model == 'guo':
             fpost = fpost + co.guo_force_terms(grid, u_eq, force, tau_inv,
@@ -310,29 +343,37 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
 def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
                 fullbb=None, slip=(), tags=None, tms=None, force=None,
                 force_model='guo', incompressible=False, rates=None,
-                smagorinsky=0.0):
+                smagorinsky=0.0, feq=None, sc_coupling=0.0,
+                sc_potential='linear', sc_rho=None):
     """One step after the gather, in the JAX order
     (``sailfish_tpu/ops/step.py:809-825``): fix missing -> macro -> BC
     solves -> pre-collision BC -> ``forced_collide`` on every node (BC
     nodes with their solved rho and u; the collision model of ``rates``
-    and ``smagorinsky``) -> dry select and dry walls -> the TMS shift.
+    and ``smagorinsky``, the equilibrium ``feq`` and the Shan-Chen shift of
+    ``sc_coupling``) -> dry select and dry walls -> the TMS shift.
     ``fs``: the gathered distributions; ``f``: the state they were pulled
     from; ``instances``: (cls, orientation, mask, rho_bc, vel_bc) with the
     parameters of this step."""
-    fs, target = fix_missing(grid, fs, f, tags, tms, incompressible)
+    feq = feq or equilibrium_fn(grid, incompressible)
+    fs, target = fix_missing(grid, fs, f, tags, tms, feq)
     rho, u = eq.macroscopic(grid, fs)
     rho, u = solve_macro_bc(grid, instances, fs, rho, u)
-    fs2 = pre_collision_bc(grid, instances, fs, rho, u, incompressible)
+    fs2 = pre_collision_bc(grid, instances, fs, rho, u, incompressible, feq)
     fpost = forced_collide(grid, fs2, rho, u, tau_inv, force, force_model,
                            incompressible=incompressible, rates=rates,
-                           smagorinsky=smagorinsky)
+                           smagorinsky=smagorinsky, feq=feq,
+                           sc_coupling=sc_coupling,
+                           sc_potential=sc_potential, sc_rho=sc_rho)
     fpost = select_dry(grid, fs2, fpost, wet, fullbb, slip)
-    return apply_tms(grid, fpost, rho, u, tms, target, incompressible)
+    return apply_tms(grid, fpost, rho, u, tms, target, feq)
 
 
 #: collision models of the torch engine (``--model``); 'elbm' is not
 #: ported yet
 MODELS = ('bgk', 'mrt', 'trt')
+#: equilibria of the torch engine; 'elbm' (the product form) is not ported
+#: yet
+EQUILIBRIA = ('bgk', 'shallow_water')
 
 
 class StepBuilder:
@@ -341,31 +382,43 @@ class StepBuilder:
     ``time_unit`` is ``--dt_per_lattice_time_unit``. ``model`` 'mrt' and
     'trt' keep the rate vector ``mrt_rates``
     (``sailfish_tpu/ops/step.py:271-272``: the same for both);
-    ``smagorinsky`` > 0 is the LES constant."""
+    ``smagorinsky`` > 0 is the LES constant; ``sc_coupling`` G != 0 (with
+    ``sc_potential``) the single-component Shan-Chen force;
+    ``equilibrium`` 'shallow_water' the D2Q9 shallow-water equilibrium at
+    ``gravity`` (rho is the water height)."""
 
     def __init__(self, grid, maps, *, model='bgk', visc=None, tau=None,
                  incompressible=False, smagorinsky=0.0, body_force=None,
-                 force_model='guo', sc_coupling=0.0, equilibrium='bgk',
-                 dtype=torch.float32, device='cpu', storage='fp',
-                 time_unit=1.0):
+                 force_model='guo', sc_coupling=0.0, sc_potential='linear',
+                 equilibrium='bgk', gravity=0.0, dtype=torch.float32,
+                 device='cpu', storage='fp', time_unit=1.0):
         if force_model not in FORCE_MODELS:
             raise ValueError(
                 f'force_model must be guo, edm or velocity_shift; '
                 f'got {force_model!r}')
+        if sc_potential not in co.SHAN_CHEN_POTENTIALS:
+            raise ValueError(f'sc_potential must be linear or classic; '
+                             f'got {sc_potential!r}')
         unported = []
         if model == 'elbm':
             unported.append('model=elbm (the entropic ELBM collision)')
         elif model not in MODELS:
             unported.append(f'model={model}')
-        if sc_coupling != 0.0:
-            unported.append('Shan-Chen coupling')
-        if equilibrium != 'bgk':
+        if equilibrium not in EQUILIBRIA:
             unported.append(f'equilibrium={equilibrium}')
         if storage != 'fp':
             unported.append(f'{storage} storage (--precision=mixed)')
         if unported:
             raise NotImplementedError(
                 'not ported to the torch engine yet: ' + ', '.join(unported))
+        if equilibrium == 'shallow_water' and grid.name != 'D2Q9':
+            raise NotImplementedError(
+                'the shallow-water equilibrium is defined on D2Q9 only; '
+                f'got {grid.name}')
+        self.sc_coupling = float(sc_coupling)
+        self.sc_potential = sc_potential
+        self.equilibrium = equilibrium
+        self.gravity = float(gravity)
         self.grid = grid
         self.maps = maps
         self.tau = float(tau if tau is not None
@@ -376,6 +429,8 @@ class StepBuilder:
                           if model in ('mrt', 'trt') else None)
         self.smagorinsky = float(smagorinsky)
         self.incompressible = incompressible
+        self._feq = equilibrium_fn(grid, incompressible, equilibrium,
+                                   self.gravity)
         self.dtype = dtype
         self.device = torch.device(device)
         self.time_unit = float(time_unit)
@@ -512,8 +567,8 @@ class StepBuilder:
     # -- phases --------------------------------------------------------------
 
     def feq(self, rho, u):
-        return eq.bgk_equilibrium(self.grid, rho, u,
-                                  incompressible=self.incompressible)
+        """The model's equilibrium (``equilibrium_fn``)."""
+        return self._feq(rho, u)
 
     def gather(self, f):
         return gather(self.grid, f)
@@ -522,7 +577,7 @@ class StepBuilder:
         """Replace distributions whose pull source was not wet: half-way
         bounce-back on tagged links, then the TMS target equilibrium."""
         return fix_missing(self.grid, fs, f, self.tags, self.tms,
-                           self.incompressible)[0]
+                           self._feq)[0]
 
     def phases(self, fs, f, it=0):
         """``step_phases`` with this builder's maps, and parameters and
@@ -533,7 +588,8 @@ class StepBuilder:
             tags=self.tags, tms=self.tms, force=self.force_at(it),
             force_model=self.force_model,
             incompressible=self.incompressible, rates=self.mrt_rates,
-            smagorinsky=self.smagorinsky)
+            smagorinsky=self.smagorinsky, feq=self._feq,
+            sc_coupling=self.sc_coupling, sc_potential=self.sc_potential)
 
     # -- per-phase pieces for the multi-component builders -----------------
     # (the names and semantics of ``sailfish_tpu/ops/step.py:584-770``)
@@ -550,7 +606,7 @@ class StepBuilder:
         return pre_collision_bc(
             self.grid, [(cls, k, mask, None, None)
                         for cls, k, mask in self.bc_instances],
-            fs, rho, u, self.incompressible)
+            fs, rho, u, self.incompressible, self._feq)
 
     def _collide(self, fs, rho, u, u_eq=None):
         """``forced_collide`` with this builder's body force; ``u_eq``
@@ -561,7 +617,9 @@ class StepBuilder:
                               self.force, self.force_model, u_eq=u_eq,
                               incompressible=self.incompressible,
                               rates=self.mrt_rates,
-                              smagorinsky=self.smagorinsky)
+                              smagorinsky=self.smagorinsky, feq=self._feq,
+                              sc_coupling=self.sc_coupling,
+                              sc_potential=self.sc_potential)
 
     def _post_collision(self, fs, fpost):
         return bounce_back(self.grid, fs, fpost, self.fullbb, self.slip)
@@ -574,7 +632,8 @@ class StepBuilder:
     def macro_fields(self, f, it=0):
         """rho, u with BC overrides applied (output fields) at iteration
         ``it``; under a body force of any model u is the force-corrected
-        u + a/2 (``sailfish_tpu/ops/step.py:834-843``)."""
+        u + a/2 (``sailfish_tpu/ops/step.py:834-843``); the Shan-Chen force
+        is not added to it."""
         fs = self.streamed(f)
         rho, u = eq.macroscopic(self.grid, fs)
         rho, u = solve_macro_bc(self.grid, self.instances_at(it), fs, rho, u)

@@ -306,7 +306,8 @@ def test_kernel_parameter_block_carries_the_model(model, name, code):
     ks = ls.KernelStep(r.builder)
     c = ks.params.coll
     assert (ks.name, c.model) == (name, code)
-    assert c.incompressible == int(model == 'incompressible')
+    assert c.equilibrium == ls.EQ_CODES[
+        'incompressible' if model == 'incompressible' else 'bgk']
     tau = r.builder.tau
     if code == 1:
         # the even rate 1/tau, the odd one the TRT magic rate

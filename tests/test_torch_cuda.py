@@ -81,7 +81,7 @@ cylinder, on half-way and TMS boxes, and on native-BC faces normal to each
 axis (50 / 200 steps, <= 1e-5; one launch <= 1e-6, and the model moves one
 step from a random state away from BGK by more than 1e-4); the models run
 through the controller against the torch engine, and ptxas reports 0 B
-frame, no spills and at most 128 registers for all 96 ``lbm_step``
+frame, no spills and at most 128 registers for all 106 ``lbm_step``
 instantiations.
 
 The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
@@ -94,6 +94,19 @@ tile is stressed on ragged shapes (``FE_TILE_CASES``: odd x and y, fewer
 z-planes than a block marches over, the reach-2 wetting mirror wrapping
 on small periodic extents), other tiles must give the same bits, and its
 compile-time tables must equal ``lattice``'s.
+
+The single-component Shan-Chen mode (``lbm_step_sc_<grid>`` after the
+pre-pass ``rho_poststream_nk1_<grid>``) and the shallow-water equilibrium
+(``lbm_step_sw_d2q9``) are held against ``step_reference`` from each
+scene's own seeded start (``SINGLE_MODE_CUDA``: both potentials, Guo
+forces, full bounce-back boxes, excluded nodes, shapes that are no
+multiple of the block; shallow water unforced, under Guo and the velocity
+shift, and in channels of each native BC pair): the pre-pass after one
+launch (<= 1e-6) and 20 steps (wet-node max |df| <= 1e-5), and the mode
+moved the state; the four twins run through the controller on the kernel
+engine against the torch engine, one (or pre-pass + step) launch per step;
+the scenes the kernel refuses raise by name; ptxas reports 0 B frame, no
+spills and at most 128 registers for all 106 instantiations.
 """
 
 import ctypes
@@ -109,14 +122,15 @@ from sailfish_tpu_torch.ops import sc_multi as sm
 from sailfish_tpu_torch.ops.step import FORCE_MODELS
 from torch_scenes import (ACCEL, BC_PAIRS, BINARY_SCENES, FE_SCENES,
                           SC_MORE_GOLDEN_FLAGS, SINGLE_GOLDEN_FLAGS,
+                          SC_SINGLE_SCENES, SHALLOW_WATER_SCENES,
                           TERNARY_GOLDEN_FLAGS, WALL_DYNAMIC_SCENES, WALLS,
                           binary_twin, box_cfg, box_sim, channel_sim,
-                          channel_sim_2d, forced_channel_sim,
+                          channel_sim_2d, forced, forced_channel_sim,
                           forced_channel_sim_2d, forced_mixture,
                           halfbb_beside_parabolic_inlet, random_binary_state,
-                          random_fe_state, random_feq, run, slip_sim,
-                          ternary_separation, ternary_twin,
-                          time_series_density_sim, twin, unforced,
+                          random_fe_state, random_feq, run, shallow_water,
+                          slip_sim, ternary_separation, ternary_twin,
+                          time_series_density_sim, twin, unforced, walled,
                           walls_moved, with_keep_block, with_patch_row_mix)
 
 SIZES = {
@@ -709,10 +723,12 @@ def test_default_engine_on_cuda_runs_the_collision_model(cuda, model):
 
 @pytest.mark.cuda
 def test_every_lbm_step_instantiation_runs_in_registers(cuda):
-    """ptxas: all 96 instantiations (2 lattices x 4 force models x wall
-    rows or not x 3 collision models x 2 equilibria), each collision
-    model's in its own library, with 0 B stack frame, no spills and at
-    most 128 registers."""
+    """ptxas: all 106 instantiations (2 lattices x 4 force models x wall
+    rows or not x 3 collision models x 2 equilibria; the shallow-water
+    equilibrium of D2Q9 BGK under no force, Guo or the velocity shift, with
+    wall rows or not; the Shan-Chen mode of both lattices, unforced or
+    Guo), each collision model's in its own library, with 0 B stack frame,
+    no spills and at most 128 registers."""
     usage = {}
     for code, name in ls.LIBRARIES.items():
         lib = build.load(name)
@@ -722,7 +738,9 @@ def test_every_lbm_step_instantiation_runs_in_registers(cuda):
                 assert ls.MODEL_CODES[inst['model']] == code, (name, fn)
                 usage[fn] = use
     kinds = {tuple(ls.instantiation(fn).values()) for fn in usage}
-    assert len(usage) == len(kinds) == 2 * 4 * 2 * 3 * 2
+    assert len(usage) == len(kinds) == 2 * 4 * 2 * 3 * 2 + 6 + 4
+    assert sum(k[-1] for k in kinds) == 4
+    assert sum(k[5] == 'shallow_water' for k in kinds) == 6
     for fn, use in usage.items():
         assert use['stack_frame'] == use['spill_stores'] \
             == use['spill_loads'] == 0, (fn, use)
@@ -1217,3 +1235,94 @@ def test_fe3_tables_equal_the_lattice(cuda):
     for name, _ in fe._Tables._fields_:
         assert bytes(getattr(tables, name)) == bytes(getattr(ref, name)), \
             name
+
+
+#: the single-component Shan-Chen and shallow-water cases: name -> (sim
+#: class, flags); 200 x 96 and 40 x 24 x 20 are no multiple of the block
+SC_2D, SC_3D = twin('sc_phase_separation'), twin('sc_phase_separation_3d')
+FS = twin('fs_gaussian')
+SC_LINEAR = dict(sc_potential='linear', G=-1.6)
+RAGGED_2D = dict(lat_nx=200, lat_ny=96)
+RAGGED_3D = dict(lat_nx=40, lat_ny=24, lat_nz=20)
+SW_CHANNEL = dict(lat_nx=200, lat_ny=96, visc=0.05, gravity=0.01)
+SINGLE_MODE_CUDA = {
+    'sc_2d_classic': (SC_2D, RAGGED_2D),
+    'sc_2d_linear_box_keep': (with_keep_block(walled(SC_2D)),
+                              dict(RAGGED_2D, **SC_LINEAR)),
+    'sc_2d_guo': (forced(SC_2D, (1e-3, -5e-4)), RAGGED_2D),
+    'sc_3d_classic_box_keep': (with_keep_block(walled(SC_3D)), RAGGED_3D),
+    'sc_3d_linear': (SC_3D, dict(RAGGED_3D, **SC_LINEAR)),
+    'sc_3d_guo_box': (walled(forced(SC_3D, (1e-3, -5e-4, 2.5e-4))),
+                      RAGGED_3D),
+    'sw_hump_keep': (with_keep_block(FS), RAGGED_2D),
+    'sw_hump_guo': (forced(FS, (2e-4, -1e-4)), RAGGED_2D),
+    'sw_hump_velocity_shift': (forced(FS, (2e-4, -1e-4)), dict(
+        RAGGED_2D, force_implementation='velocity_shift')),
+    'sw_channel_equilibrium_keep': (with_keep_block(shallow_water(
+        channel_sim_2d('equilibrium'))), SW_CHANNEL),
+    'sw_channel_zouhe_x': (shallow_water(channel_sim_2d('zouhe', axis='x')),
+                           SW_CHANNEL),
+    'sw_channel_regularized': (shallow_water(channel_sim_2d('regularized')),
+                               dict(SW_CHANNEL, visc=1.0 / 6.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(SINGLE_MODE_CUDA))
+def test_single_mode_kernel_matches_step_reference(cuda, case):
+    sim_cls, cfg = SINGLE_MODE_CUDA[case]
+    r = run(sim_cls, platform='cuda', engine='kernel', max_iters=0,
+            seed=5, **cfg)
+    ks = r.kernel
+    g = ks.grid.name.lower()
+    assert ks.name == f'lbm_step_{"sc" if ks.sc else "sw"}_{g}'
+    f0 = r.f.clone()
+    if ks.sc:
+        rho = torch.empty_like(ks.rho)
+        ks.density_into(f0, rho)
+        torch.cuda.synchronize()
+        assert float((rho - sm.rho_reference(f0, ks.grid)).abs().max()) \
+            <= 1e-6
+    ls.reset_launch_counts()
+    fk = ks.run(f0, 20)
+    fr = fb = f0
+    for _ in range(20):
+        fr = ks.reference(fr)
+        fb = ls.step_reference(fb, ks.mask, ks.table, ks.grid, ks.tau_inv,
+                               ks.bcp, ks.force, ks.force_model, ks.tags)
+    torch.cuda.synchronize()
+    assert ls.LAUNCHES[ks.name] == ks.launches == 20
+    if ks.sc:
+        assert ls.LAUNCHES[ks.rho_name] == 20
+    wet = _wet(ks)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+    assert float((fr - fb)[:, wet].abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', SC_SINGLE_SCENES + SHALLOW_WATER_SCENES)
+def test_single_mode_twins_on_the_kernel_engine(cuda, scene):
+    """The twin through the controller on the default engine (the kernel)
+    against the torch engine on the card, 30 steps."""
+    cfg = dict(SINGLE_GOLDEN_FLAGS[scene], max_iters=30, every=10, seed=2)
+    ls.reset_launch_counts()
+    r = run(twin(scene), **cfg)
+    assert r.engine == 'kernel'
+    ks = r.kernel
+    per_step = 2 if ks.sc else 1
+    assert ls.LAUNCHES[ks.name] == 30
+    assert sum(ls.LAUNCHES.values()) == per_step * 30
+    ref = run(twin(scene), engine='torch', **cfg)
+    assert float((r.f - ref.f).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('flags,match', [
+    (dict(model='mrt'), 'Shan-Chen with model=mrt'),
+    (dict(force_implementation='edm'), 'Shan-Chen with the edm body force'),
+])
+def test_single_mode_refusals_on_the_default_engine(cuda, flags, match):
+    sim = forced(SC_2D, (1e-3, 0.0)) if 'force_implementation' in flags \
+        else SC_2D
+    with pytest.raises(NotImplementedError, match=match):
+        run(sim, max_iters=0, lat_nx=64, lat_ny=64, **flags)

@@ -186,7 +186,8 @@ def test_params_layout_matches_the_c_struct():
     # ints/floats + float[3]; then LBMVary vary[16] with LBMVary = int
     # varies, lo[3], ext[3], offset: 32 B a row; then LBMForce = int model,
     # float a[3], shift[3], pref: 32 B; then LBMCollide = int model,
-    # incompressible, float s_e, s_o, tau, tau2, les_c: 28 B. No lattice
+    # equilibrium, float s_e, s_o, tau, tau2, les_c, gravity: 32 B; then
+    # LBMShanChen = int potential, float g, tau: 12 B. No lattice
     # table (the
     # kernel's are compile-time: 540 B less than with c, w and opp), and
     # no member is wider than 4 bytes (an 8-byte one changes the block's
@@ -198,9 +199,12 @@ def test_params_layout_matches_the_c_struct():
     assert ls._Params.force.offset == 468 + 16 * 32 == 980
     assert ctypes.sizeof(ls._Force) == 32
     assert ls._Params.coll.offset == 980 + 32 == 1012
-    assert ctypes.sizeof(ls._Collide) == 28
-    assert ctypes.sizeof(ls._Params) == 1012 + 28 == 1040
-    for struct in (ls._BC, ls._Vary, ls._Force, ls._Collide, ls._Params):
+    assert ctypes.sizeof(ls._Collide) == 32
+    assert ls._Params.sc.offset == 1012 + 32 == 1044
+    assert ctypes.sizeof(ls._ShanChen) == 12
+    assert ctypes.sizeof(ls._Params) == 1044 + 12 == 1056
+    for struct in (ls._BC, ls._Vary, ls._Force, ls._Collide, ls._ShanChen,
+                   ls._Params):
         assert ctypes.alignment(struct) == 4
 
 
@@ -248,6 +252,8 @@ class _FakeLib:
             ctypes.sizeof(ls._Tables) if tables is None else tables)
         self.lbm_step_d2q9 = self.Entry()
         self.lbm_step_d3q19 = self.Entry()
+        self.lbm_step_sc_d2q9 = self.Entry()
+        self.lbm_step_sc_d3q19 = self.Entry()
 
         def copy_out(dim, ref):
             if dim not in (2, 3):
@@ -277,7 +283,12 @@ def test_kernel_function_checks_the_params_size():
     fn = ls.kernel_function(_FakeLib(), 'lbm_step_d3q19')
     assert fn.argtypes[:5] == [ctypes.c_void_p] * 5
     assert fn.argtypes[5] == ctypes.POINTER(ls._Params)
+    # the Shan-Chen entry: state, densities, output, mask, block, stream
+    fn = ls.kernel_function(_FakeLib(), 'lbm_step_sc_d3q19')
+    assert fn.argtypes[:4] == [ctypes.c_void_p] * 4
+    assert fn.argtypes[4] == ctypes.POINTER(ls._Params)
     # launches are counted apart by what they compute; one entry serves
+    # all but the Shan-Chen mode, whose pre-pass counts apart too
     assert sorted(ls.LAUNCHES) == ['lbm_step_d2q9', 'lbm_step_d3q19',
                                    'lbm_step_dyn_d2q9',
                                    'lbm_step_dyn_d3q19',
@@ -289,10 +300,16 @@ def test_kernel_function_checks_the_params_size():
                                    'lbm_step_les_d3q19',
                                    'lbm_step_mrt_d2q9',
                                    'lbm_step_mrt_d3q19',
+                                   'lbm_step_sc_d2q9',
+                                   'lbm_step_sc_d3q19',
+                                   'lbm_step_sw_d2q9',
+                                   'lbm_step_sw_d3q19',
                                    'lbm_step_vary_d2q9',
                                    'lbm_step_vary_d3q19',
                                    'lbm_step_wall_d2q9',
-                                   'lbm_step_wall_d3q19']
+                                   'lbm_step_wall_d3q19',
+                                   'rho_poststream_nk1_d2q9',
+                                   'rho_poststream_nk1_d3q19']
 
 
 def _many_instances_sim():

@@ -76,8 +76,9 @@ def test_step_matches_jax_xla_engine(scene):
     (dict(model='elbm'), 'model=elbm \\(the entropic ELBM collision\\)'),
     (dict(model='elbm', smagorinsky=0.03), 'ELBM'),
     (dict(model='mrt', equilibrium='elbm'), 'equilibrium=elbm'),
-    (dict(equilibrium='shallow_water'), 'equilibrium=shallow_water'),
-    (dict(sc_coupling=-5.0), 'Shan-Chen'),
+    (dict(equilibrium='shallow_water'), 'shallow-water equilibrium is '
+     'defined on D2Q9 only; got D3Q19'),
+    (dict(sc_coupling=-5.0, storage='int16'), 'int16 storage'),
     (dict(equilibrium='elbm'), 'equilibrium=elbm'),
     (dict(storage='int16'), 'storage'),
 ])

@@ -56,9 +56,13 @@ SINGLE_SCENES = {
     'poiseuille_pulsatile': 'PulsatileSim',
     'poiseuille_sa': 'RampedPoiseuilleSim',
     'porous_anisotropy': 'PorousSim',
+    'sc_drop': 'SCSim',
+    'sc_phase_separation': 'SCSim',
+    'sc_phase_separation_3d': 'SCSim3D',
+    'fs_gaussian': 'FSSim',
 }
 #: the golden harness's flags for the single-fluid scenes
-#: (tests/examples_harness.py:30-64)
+#: (tests/examples_harness.py:26-94)
 SINGLE_GOLDEN_FLAGS = {
     'ldc_2d': dict(lat_nx=32, lat_ny=32),
     'ldc_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
@@ -76,7 +80,17 @@ SINGLE_GOLDEN_FLAGS = {
     'poiseuille_sa': dict(lat_nx=48, lat_ny=32, velocity='spatial_array'),
     'porous_anisotropy': dict(lat_nx=16, lat_ny=16, lat_nz=16,
                               porosity=0.75),
+    'sc_drop': dict(lat_nx=48, lat_ny=48),
+    'sc_phase_separation': dict(lat_nx=32, lat_ny=32),
+    'sc_phase_separation_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
+    'fs_gaussian': dict(lat_nx=32, lat_ny=32),
 }
+#: the single-component Shan-Chen twins (the kernel engine's ``sc`` mode,
+#: after the density pre-pass) and the shallow-water twin (its
+#: shallow-water equilibrium)
+SC_SINGLE_SCENES = ('sc_drop', 'sc_phase_separation',
+                    'sc_phase_separation_3d')
+SHALLOW_WATER_SCENES = ('fs_gaussian',)
 #: the single-fluid scenes driven by a constant body force (the kernel
 #: engine's forcing mode)
 FORCED_SCENES = ('cylinder', 'sphere_3d', 'square_cylinder_2d',
@@ -531,6 +545,38 @@ def time_series_density_sim():
 
     class Sim(LBFluidSim):
         subdomain = Chan
+
+    return Sim
+
+
+def shallow_water(sim_cls):
+    """The 2D scene of ``sim_cls`` (its subdomain) on the shallow-water
+    model ``LBFreeSurface`` (D2Q9, BGK, its equilibrium at
+    ``--gravity``)."""
+    from sailfish_tpu_torch.models.single import LBFreeSurface
+
+    class Sim(LBFreeSurface):
+        subdomain = sim_cls.subdomain
+
+    return Sim
+
+
+def walled(sim_cls, axes=None):
+    """``sim_cls`` with full bounce-back walls on both faces normal to each
+    of ``axes`` (default: every axis), after its own boundary
+    conditions."""
+    block = sim_cls.subdomain
+
+    class Box(block):
+        def boundary_conditions(self, *h):
+            super().boundary_conditions(*h)
+            walls = np.zeros(h[0].shape, dtype=bool)
+            for a in (range(len(h)) if axes is None else axes):
+                walls |= (h[a] == 0) | (h[a] == self.shape[-1 - a] - 1)
+            self.set_node(walls, nt.NTFullBBWall)
+
+    class Sim(sim_cls):
+        subdomain = Box
 
     return Sim
 

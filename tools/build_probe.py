@@ -3,10 +3,10 @@
 
     python3 tools/build_probe.py [--out DIR]
 
-The 96 ``lbm_step_kernel`` instantiations are built as the three libraries
+The 106 ``lbm_step_kernel`` instantiations are built as the three libraries
 of ``ops/lbm_step.LIBRARIES`` (one ``nvcc`` per collision model, all
 started together, as ``ops/build.load_all`` builds them), then as one
-library of all 96 (``lbm_step.cu`` with the MRT and LES instantiations
+library of all 106 (``lbm_step.cu`` with the MRT and LES instantiations
 taken by address), with the shipped flags and with nvcc's
 ``--split-compile=0`` (the optimizer's passes in parallel on every core),
 also handed to ptxas. The variants run one after the other, so each has
@@ -50,13 +50,13 @@ def one_source(out):
     plus the address of every MRT and LES instantiation, which makes nvcc
     compile them into the same library."""
     rows = []
-    for (dim, q), force, walls, model, incomp in itertools.product(
+    for (dim, q), force, walls, model, eq in itertools.product(
             ((2, 9), (3, 19)),
             ('FORCE_NONE', 'FORCE_GUO', 'FORCE_EDM', 'FORCE_VELOCITY_SHIFT'),
             ('false', 'true'), ('MODEL_MRT', 'MODEL_LES'),
-            ('false', 'true')):
+            ('EQ_BGK', 'EQ_INCOMP')):
         rows.append(f'    (void*)lbm_step_kernel<{dim}, {q}, {force}, '
-                    f'{walls}, {model}, {incomp}>,')
+                    f'{walls}, {model}, {eq}, false>,')
     src = out / 'lbm_step_all.cu'
     src.write_text('#include "lbm_step.cu"\n\nvoid* lbm_probe_kernels[] = {\n'
                    + '\n'.join(rows) + '\n};\n')

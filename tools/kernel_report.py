@@ -23,9 +23,10 @@ With ``--baseline DIR`` (another checkout, for example ``git archive
 <commit> | tar -x -C build/parent``) it also builds DIR's ``lbm_step.cu``
 and ``sc_multi.cu``, those of them in ``--sources``. It sets each of
 DIR's ``lbm_step_kernel`` instantiations beside this tree's of the same
-lattice, force model and wall switch with BGK and the compressible
-equilibrium (the template arguments ``ops/lbm_step.instantiation`` reads
-from the mangled names), DIR's density pre-pass beside this tree's, and
+lattice, force model, wall switch and equilibrium (compressible or
+incompressible) with BGK (the template arguments
+``ops/lbm_step.instantiation`` reads from the mangled names), DIR's
+density pre-pass beside this tree's, and
 each of DIR's Shan-Chen step instantiations beside this tree's of the
 same lattice, component count and force switch (``ops/sc_multi.
 instantiation``; the D3Q19 step is ``sc3_kernel`` here, a redesign shown
@@ -145,14 +146,27 @@ def main():
 
 
 def _lbm_key(fn):
-    """(lattice, force model, walls) of a BGK compressible
-    ``lbm_step_kernel`` instantiation, else None."""
+    """(lattice, force model, walls, incompressible) of a BGK
+    ``lbm_step_kernel`` instantiation with the compressible or the
+    incompressible equilibrium and without the Shan-Chen mode (an older
+    build's, whose sixth template argument was the bool
+    ``incompressible``, or this one's), else None."""
     from sailfish_tpu_torch.ops import lbm_step as ls
     inst = ls.instantiation(fn)
     if inst is None or inst.get('model', 'bgk') != 'bgk' \
-            or inst.get('incompressible', False):
+            or inst.get('sc', False) \
+            or inst.get('equilibrium') == 'shallow_water':
         return None
-    return inst['dim'], inst['force'], inst['walls']
+    incomp = inst.get('incompressible',
+                      inst.get('equilibrium') == 'incompressible')
+    return inst['dim'], inst['force'], inst['walls'], incomp
+
+
+def _function_name(fn):
+    """The function identifier of the mangled name ``fn``
+    (``lbm_step_kernel``, ``sc3_kernel``, ...)."""
+    m = re.match(r'_Z(\d+)', fn)
+    return fn[m.end():m.end() + int(m.group(1))] if m else fn
 
 
 def _sc_key(fn):
@@ -170,20 +184,22 @@ def _sc_key(fn):
 def _describe(key):
     if isinstance(key, str):
         return 'pre-pass'
-    if len(key) == 3 and isinstance(key[1], str):
-        return f'd{key[0]}, force {key[1]}, walls {int(key[2])}'
+    if len(key) == 4:
+        return (f'd{key[0]}, force {key[1]}, walls {int(key[2])}, '
+                f'incompressible {int(key[3])}')
     return f'd{key[0]}, K = {key[1]}, forced {int(key[2])}'
 
 
 def baseline_report(tree, report, cuobjdump, source='lbm_step'):
     """Each kernel instantiation of ``tree``'s ``source`` beside this
     tree's of the same key (``_lbm_key``: lattice, force model and wall
-    switch of ``lbm_step_kernel`` with BGK and the compressible
-    equilibrium; ``_sc_key``: the pre-pass, and lattice, K and forced of
-    the Shan-Chen step). Where both trees have the same function (the same
-    mangled name) it must be the same, class by class; a key whose function
-    was renamed (``sc_multi_kernel<3, 19, ...>`` -> ``sc3_kernel``) is
-    a redesign, shown side by side. Prints one line each and returns
+    switch and equilibrium of ``lbm_step_kernel`` with BGK; ``_sc_key``:
+    the pre-pass, and lattice, K and forced of the Shan-Chen step). Where
+    both trees have the same function (the same identifier; the template
+    arguments and kernel parameters may be spelled otherwise, as after a
+    bool argument became an int) it must be the same, class by class; a
+    key whose function was renamed (``sc_multi_kernel<3, 19, ...>`` ->
+    ``sc3_kernel``) is a redesign, shown side by side. Prints one line each and returns
     {'instantiations': [...], 'all_same': bool} (over the unrenamed
     ones)."""
     key = _lbm_key if source == 'lbm_step' else _sc_key
@@ -204,7 +220,8 @@ def baseline_report(tree, report, cuobjdump, source='lbm_step'):
             continue
         base = dict(usage[fn], sass=dict(sass.get(fn, {})))
         new_fn, new = mine.get(k, (None, None))
-        renamed = new_fn is not None and new_fn != fn
+        renamed = new_fn is not None \
+            and _function_name(new_fn) != _function_name(fn)
         same = new is not None and all(
             base.get(f) == new.get(f) for f in fields) \
             and base['sass'] == new['sass']

@@ -16,7 +16,10 @@ channels (``tests/torch_scenes``: one ``lbm_step`` launch each step, its BC
 nodes reading per-node parameters; the inlet normal to z / y or to x), the
 binary
 Shan-Chen separations, the forced Rayleigh-Taylor mixture, the ternary
-drops and the ternary 3D separation, and the binary free-energy
+drops and the ternary 3D separation, the single-component Shan-Chen
+separations (``sc_phase_separation_3d`` / ``sc_phase_separation``: the
+pre-pass and the stream-and-collide kernel's Shan-Chen mode), the
+shallow-water hump (``fs_gaussian``), and the binary free-energy
 separations of ``examples/torch`` at the benchmark sizes (D3Q19 256^3,
 D2Q9 4096^2) it
 runs the controller
@@ -31,7 +34,8 @@ Chrome trace:
 * ``idle share`` = 1 - busy / window; ``gaps`` = the idle time between the
   first kernel's start and the last one's end; the mean duration of each
   of the port's kernels in the trace, and the number of kernels per step
-  (1 for the single-fluid scenes, channels included; 2 for the mixtures);
+  (1 for the single-fluid scenes, channels included; 2 for the mixtures
+  and the single-component Shan-Chen scenes);
   ``other kernels``: the device kernels in the window that are not the
   port's (PyTorch's own, such as a parameter-block rewrite), per step.
 
@@ -96,6 +100,10 @@ SCENES = {
                       {'subgrid': 'les-smagorinsky'}),
     'cylinder_mrt': (lambda s: twin('cylinder'), (4096, 4096),
                      {'model': 'mrt'}),
+    # single-component Shan-Chen (pre-pass + the sc mode) and shallow water
+    'sc_phase_separation_3d': (twin, (256, 256, 256), {}),
+    'sc_phase_separation': (twin, (4096, 4096), {}),
+    'fs_gaussian': (twin, (4096, 4096), {}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
@@ -105,9 +113,11 @@ PORT_KERNELS = ('lbm_step_kernel', 'rho_poststream_kernel',
 
 
 def total_launches(kernel):
-    """All launches of a kernel engine (an int, or a dict by name)."""
+    """All launches of a kernel engine (an int, or a dict by name; a
+    single-fluid engine's pre-pass launches apart)."""
     n = kernel.launches
-    return sum(n.values()) if isinstance(n, dict) else n
+    n = sum(n.values()) if isinstance(n, dict) else n
+    return n + getattr(kernel, 'prepass_launches', 0)
 
 
 def union_length(intervals):
