@@ -82,7 +82,16 @@ version on the card from seeded random states:
   the kernel refuses (Shan-Chen under MRT or LES, with an EDM,
   velocity-shift or DynamicValue force, with native BCs, half-way or
   slip walls, with the shallow-water equilibrium; shallow water under
-  MRT, LES or EDM) raise on the default engine, naming the reason.
+  MRT, LES or EDM) raise on the default engine, naming the reason;
+* the same kernel on int16 state buffers (``--precision=mixed``, launches
+  counted as ``lbm_step_mixed_<grid>``, built from ``lbm_step_mixed*.cu``)
+  against ``step_reference`` in codes (``MIXED_CASES``: the cavities, each
+  force model, MRT at tau != 1, LES, the incompressible equilibrium,
+  half-way, TMS and slip walls, varying inlets along z and x, time-only and
+  space-and-time rows, shapes that are no multiple of the block; 200
+  steps, the criterion of ``torch_scenes.mixed_errors``), every one of the
+  65,536 codes of every direction through the kernel's own conversions,
+  the shear-wave viscosity on it, and the scenes the mode refuses.
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
@@ -102,7 +111,12 @@ BGK on the cavities' geometry and buffers), the half-way duct
 (``duct_flow`` 256^3, Guo), the Womersley pipe with time-dependent
 densities at its ends (``womersley`` 256^3) and the ramped SpatialArray
 inlet (``poiseuille_sa`` 4096^2), one launch per step each, with the share
-of a step that the per-step values cost, the binary Shan-Chen separations
+of a step that the per-step values cost, the two cavities under
+``--precision=mixed`` (``ldc_3d_mixed`` 256^3, ``ldc_2d_mixed`` 4096^2:
+one ``lbm_step_mixed`` launch per step on int16 buffers, the mean density
+against the fp32 path's, timed in turns against the fp32 kernel, and the
+cost of the chunk's whole-state conversions), the binary Shan-Chen
+separations
 and the free-energy separations (each D3Q19 256^3, D2Q9 4096^2), the
 forced Rayleigh-Taylor mixture (``sc_rayleigh_taylor_2d`` 4096^2), the
 ternary drops (``ternary_sc_drop_2d`` 4096^2) and the ternary separation
@@ -164,7 +178,10 @@ from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           ternary_twin, time_series_density_sim,
                           tms_channel_sim, twin, unforced, walled,
                           walls_moved, wet_map, with_keep_block,
-                          with_patch_row_mix)
+                          with_patch_row_mix, MIXED_CODE_FLOOR,
+                          MIXED_FP64_FACTOR, MIXED_ONE_STEP, all_codes,
+                          code_distance, mixed_errors, periodic_box,
+                          shear_wave_viscosity)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
@@ -326,6 +343,55 @@ COLLISION_TIMED = {'mrt': dict(model='mrt'),
                    'les': dict(subgrid='les-smagorinsky'),
                    'incompressible': dict(incompressible=True)}
 
+#: --precision=mixed (int16 A/B buffers): the two main paths, bench.py's
+#: cavities with the default --mixed_range: path -> (scene, size)
+MIXED_MAIN = {'ldc_3d_mixed': ('ldc_3d', (256, 256, 256)),
+              'ldc_2d_mixed': ('ldc_2d', (4096, 4096))}
+MIXED_RANGE = 0.5
+#: the mixed mode's kernel-vs-plain cases, 200 steps each (criterion:
+#: ``torch_scenes.mixed_errors``): (name, sim class, flags, first
+#: iteration); 100 x 60 x 40 and 1000 x 600 are no multiple of the block
+MIXED_STEPS = 200
+MIXED_CUBE = dict(lat_nx=64, lat_ny=64, lat_nz=64)
+MIXED_SQ = dict(lat_nx=1024, lat_ny=512)
+MIXED_CASES = [
+    ('ldc_3d', with_keep_block(LDC_3D), MIXED_CUBE, 0),
+    ('ldc_2d', with_keep_block(LDC_2D), MIXED_SQ, 0),
+    ('ldc_3d_ragged', with_keep_block(LDC_3D), RAGGED_3D, 0),
+    ('ldc_2d_ragged', with_keep_block(LDC_2D), RAGGED_2D, 0),
+    ('sphere_3d_guo', with_keep_block(twin('sphere_3d')), MIXED_CUBE, 0),
+    ('sphere_3d_edm', twin('sphere_3d'),
+     dict(MIXED_CUBE, force_implementation='edm'), 0),
+    ('cylinder_velocity_shift', twin('cylinder'),
+     dict(MIXED_SQ, force_implementation='velocity_shift'), 0),
+    ('ldc_3d_mrt', LDC_3D, dict(MIXED_CUBE, model='mrt', visc=0.05), 0),
+    ('cylinder_mrt_guo', twin('cylinder'), dict(MIXED_SQ, model='mrt'), 0),
+    ('sphere_3d_les', twin('sphere_3d'), dict(
+        MIXED_CUBE, subgrid='les-smagorinsky', smagorinsky_const=0.2), 0),
+    ('ldc_2d_incompressible', LDC_2D, dict(MIXED_SQ, incompressible=True),
+     0),
+    ('halfbb_box_3d_guo', box_sim(WALLS['halfbb'], 3, (0, 1, 2), ACCEL),
+     dict(box_cfg(3, (0, 1, 2)), **MIXED_CUBE), 0),
+    ('tms_channel_3d', tms_channel_sim(3),
+     dict(MIXED_CUBE, periodic_x=True, periodic_z=True), 0),
+    ('tms_box_2d_mrt', box_sim(WALLS['tms'], 2, (0, 1)),
+     dict(box_cfg(2, (0, 1)), model='mrt', visc=0.05,
+          lat_nx=1024, lat_ny=1024), 0),
+    ('slip_3d_y', slip_sim(3, 1),
+     dict(MIXED_CUBE, periodic_x=True, periodic_z=True), 0),
+    ('parabolic_inlet_z', with_patch_row_mix(with_keep_block(channel_sim(
+        'regularized', 'z', profile='parabolic')), 'z'),
+     dict(MIXED_CUBE, periodic_x=True), 0),
+    ('parabolic_inlet_x_zouhe', channel_sim('zouhe', 'x',
+                                            profile='parabolic'),
+     dict(MIXED_CUBE, periodic_z=True), 0),
+    ('parabolic_inlet_2d_x', channel_sim_2d('equilibrium', axis='x'),
+     MIXED_SQ, 0),
+    ('womersley_64', twin('womersley'), MIXED_CUBE, 3000),
+    ('poiseuille_sa_1024', twin('poiseuille_sa'),
+     dict(lat_nx=1024, lat_ny=1024, velocity='spatial_array'), 2500),
+]
+
 #: kernel-vs-plain tolerance: wet-node max |df| after 200 steps (fp32,
 #: FMA contraction and summation order differ between the two)
 TOL = 1e-5
@@ -381,6 +447,9 @@ def sc_bytes(grid_name, K):
 #: reads phi and the mask byte (plus 1 orientation byte with walls)
 FE_BYTES = {'D3Q19': (19 * 4 + 4) + (2 * 2 * 19 * 4 + 4 + 1),
             'D2Q9': (9 * 4 + 4) + (2 * 2 * 9 * 4 + 4 + 1)}
+#: bytes moved per node per step on int16 state: Q codes read + Q written
+#: + 1 mask byte
+MIXED_BYTES = {'D3Q19': 2 * 19 * 2 + 1, 'D2Q9': 2 * 9 * 2 + 1}
 #: bytes each kernel must move per node of its main-path call, each input
 #: read once and each output written once (``lbm_step_vary``: the step's
 #: bytes; the 4 (1 + dim) parameter bytes of each node of a varying BC
@@ -429,6 +498,9 @@ NODE_BYTES = {
     'lbm_step_sw_d2q9': BYTES['D2Q9'],
     'rho_poststream_nk1_d3q19': sc_prepass_bytes('D3Q19', 1),
     'rho_poststream_nk1_d2q9': sc_prepass_bytes('D2Q9', 1),
+    # --precision=mixed: int16 codes in and out
+    'lbm_step_mixed_d3q19': MIXED_BYTES['D3Q19'],
+    'lbm_step_mixed_d2q9': MIXED_BYTES['D2Q9'],
 }
 #: fp32 operations per node, an upper estimate read off each kernel's
 #: source (BGK: ~23 per direction for the moments, feq and relaxation,
@@ -473,6 +545,11 @@ NODE_OPS = {
     'lbm_step_sc_d3q19': (23 + 14) * 19, 'lbm_step_sc_d2q9': (23 + 14) * 9,
     'lbm_step_sw_d2q9': 25 * 9,
     'rho_poststream_nk1_d3q19': 19, 'rho_poststream_nk1_d2q9': 9,
+    # BGK plus, per direction, the dequantize (int-to-float conversion,
+    # multiply, add) and the quantize (subtract, multiply, saturating
+    # float-to-int conversion), each conversion counted as one operation
+    'lbm_step_mixed_d3q19': (23 + 6) * 19,
+    'lbm_step_mixed_d2q9': (23 + 6) * 9,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
@@ -542,6 +619,11 @@ KERNELS = {
                                  'sailfish_tpu/ops/pallas_step.py:2409'),
     'rho_poststream_nk1_d2q9': ('sc_multi.cu',
                                 'sailfish_tpu/ops/pallas_step2d.py:1069'),
+    # the mixed (int16 storage) mode of make_kernel_3d / make_kernel_2d
+    'lbm_step_mixed_d3q19': ('lbm_step_mixed.cu',
+                             'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_mixed_d2q9': ('lbm_step_mixed.cu',
+                            'sailfish_tpu/ops/pallas_step2d.py:36'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -585,6 +667,14 @@ MODES = {
                                 'single-component Shan-Chen pre-pass)',
     'rho_poststream_nk1_d2q9': 'make_rho_kernel_2d, nk = 1 (the '
                                'single-component Shan-Chen pre-pass)',
+    'lbm_step_mixed_d3q19': 'make_kernel_3d, mixed mode: int16 codes '
+                            'dequantized and requantized in registers '
+                            '(pallas_step.py:961-978, dequant_i / quant_i '
+                            ':1574-1768), with the lid rows of '
+                            'make_bc_patch_kernel_3d (:2220-2271)',
+    'lbm_step_mixed_d2q9': 'make_kernel_2d, mixed mode (pallas_step2d.py'
+                           ':128-132, :455-622), with the lid rows of '
+                           'make_bc_patch_kernel_2d (:921-979)',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -1162,6 +1252,223 @@ def fe_compare(name, sim_cls, steps=20, **cfg):
     return b.grid.name, phi_err, err
 
 
+def mixed_compare(name, sim_cls, it0=0, steps=MIXED_STEPS, **cfg):
+    """The int16 kernel (``lbm_step_mixed_<grid>``) vs ``step_reference``
+    on the card in codes from one random state quantized, from iteration
+    ``it0`` (``torch_scenes.mixed_errors``: one launch within
+    ``MIXED_ONE_STEP`` code of the plain version; after ``steps`` steps
+    the kernel within ``MIXED_FP64_FACTOR`` times the fp32 plain version's
+    distance to the fp64 plain version, or within ``MIXED_CODE_FLOOR``
+    codes of it). Returns (launch key, wet max |df| of the kernel to the
+    fp32 plain version after ``steps``)."""
+    r = run(sim_cls, platform=DEVICE, engine='kernel', max_iters=0,
+            precision='mixed', mixed_range=MIXED_RANGE, **cfg)
+    ks = r.kernel
+    g = ks.grid.name.lower()
+    assert ks.name == ks.entry == f'lbm_step_mixed_{g}', ks.name
+    assert ks.a.dtype == ks.b.dtype == torch.int16
+    assert ks.library == ls.MIXED_LIBRARIES[ks.params.coll.model]
+    codes = sorted(torch.unique(ks.mask).tolist())
+    q0 = ks.mixed.quant(random_feq(ks.grid, ks.shape, seed=1234,
+                                   device=DEVICE))
+    e = mixed_errors(ks, q0, steps, it0)
+    util.synchronize(DEVICE)
+    assert ks.launches == steps + 1
+    rows = ', '.join(sorted({nt.get_node_type(row.type_id).__name__
+                             for row in ks.table}))
+    say(f'compare mixed {name}: {ks.grid.name} {ks.shape} {ks.name} '
+        f'({ks.library}, force {ks.force_model if ks.force else None}, '
+        f'model code {ks.params.coll.model}, equilibrium code '
+        f'{ks.params.coll.equilibrium}), rows [{rows}], mask codes {codes}; '
+        f'one launch max|dq| = {e["one"]} (tol {MIXED_ONE_STEP}); after '
+        f'{steps} steps from iteration {it0}: kernel to fp32 plain '
+        f'max|dq| {e["p32"][0]} ({e["p32"][1]:.4f} of codes differ, '
+        f'max|df| {e["df"]:.3e}), kernel to fp64 plain {e["k64"][0]} '
+        f'({e["k64"][1]:.4f}), fp32 plain to fp64 plain {e["p64"][0]} '
+        f'({e["p64"][1]:.4f}) (tol max({MIXED_CODE_FLOOR}, '
+        f'{MIXED_FP64_FACTOR:g} x {e["p64"][0]}))')
+    key = ks.name
+    del r, ks, q0
+    torch.cuda.empty_cache()
+    return key, e['df']
+
+
+def mixed_round_trip():
+    """Every one of the 65,536 int16 codes of every direction through the
+    kernel's own conversions: a periodic fluid box at 1/tau = 0 stores
+    f + 0 (feq - f) = f, so each code must come back, streamed, in both
+    lattices."""
+    from sailfish_tpu_torch.ops.step import pull
+    for dim, size in ((2, dict(lat_nx=256, lat_ny=256)),
+                      (3, dict(lat_nx=64, lat_ny=32, lat_nz=32))):
+        r = run(periodic_box(dim), platform=DEVICE, engine='kernel',
+                max_iters=0, precision='mixed', periodic_x=True,
+                periodic_y=True, periodic_z=True, **size)
+        ks = r.kernel
+        assert ks.table == [] and int(ks.mask.max()) == 0
+        ks.tau_inv = ks.params.tau_inv = 0.0
+        q = all_codes(ks.grid, ks.shape, DEVICE)
+        out = torch.empty_like(q)
+        ks.step_into(q, out)
+        want = torch.stack([pull(q[i], ks.grid.basis[i])
+                            for i in range(ks.grid.Q)])
+        util.synchronize(DEVICE)
+        same = int((out == want).sum())
+        say(f'mixed round trip {ks.grid.name} {ks.shape}: {same} of '
+            f'{want.numel()} codes ({ks.grid.Q} directions x 65,536 codes) '
+            f'came back unchanged through {ks.name}')
+        assert torch.equal(out, want)
+
+
+def mixed_shear_wave(n=64, visc=0.02, steps=400):
+    """Shear-wave decay on the int16 kernel (tests/test_mixed.py:141-176):
+    the viscosity measured from the first Fourier mode within 1.5 % of
+    the configured one."""
+    r = run(periodic_box(3), platform=DEVICE, engine='kernel', max_iters=0,
+            precision='mixed', periodic_x=True, periodic_y=True,
+            periodic_z=True, lat_nx=n, lat_ny=8, lat_nz=8, visc=visc)
+    ks = r.kernel
+    assert ks.a.dtype == torch.int16
+    nu = shear_wave_viscosity(ks, r.builder, n, visc, steps=steps)
+    assert ks.launches == 2 * steps
+    err = abs(nu - visc) / visc
+    say(f'mixed shear wave {n}x8x8 on {ks.name}: viscosity {nu:.6f} '
+        f'against {visc} ({err:.4%}; tol 1.5 %)')
+    assert err < 0.015, nu
+
+
+def mixed_refusals():
+    """Under --precision=mixed the default engine refuses by name what
+    the int16 storage cannot hold: fp64 compute, Shan-Chen (single
+    component and mixtures), the shallow-water equilibrium."""
+    from sailfish_tpu_torch.ops.step import StepBuilder
+    small = dict(lat_nx=64, lat_ny=64)
+    r = run(LDC_2D, engine='torch', max_iters=0, **small)
+    cases = [
+        ('fp64 compute', lambda: StepBuilder(
+            r.sim.grid, r.maps, visc=0.1, dtype=torch.float64,
+            storage='int16', device=DEVICE), 'requires fp32 compute'),
+        ('single-component Shan-Chen', lambda: run(
+            SC_2D, max_iters=0, precision='mixed', **small),
+         'does not cover Shan-Chen'),
+        ('shallow water', lambda: run(FS, max_iters=0, precision='mixed',
+                                      **small),
+         'standard equilibrium only'),
+        ('a Shan-Chen mixture', lambda: run(
+            SEP_2D, max_iters=0, precision='mixed', **small),
+         'covers single-fluid scenes only'),
+    ]
+    for what, make, reason in cases:
+        try:
+            make()
+        except NotImplementedError as exc:
+            assert reason in str(exc), (what, str(exc))
+            say(f'refused under --precision=mixed: {what} ({reason!r} in: '
+                f'{str(exc)[:120]})')
+            continue
+        raise AssertionError(f'{what} was not refused under mixed')
+
+
+def mixed_main_path(path, scene, size, copy_bw, fp32, chunk=500, chunks=4):
+    """bench.py's cavity ``scene`` through the controller with the default
+    engine under --precision=mixed: the int16 kernel, one launch per step
+    under ``lbm_step_mixed_<grid>``, on int16 A/B buffers. The launch
+    counts are zeroed just before the controller runs and read just
+    after; MLUPS = median of the chunks after the first. Checks the
+    fields, the mean wet density against that of the fp32 main path
+    ``fp32`` (within ``MASS_TOL``) and one launch from the final state
+    against the plain version (within ``MIXED_ONE_STEP`` code); times the
+    kernel, its plain version, the chunk's two conversions of the whole
+    state (quantize into A, dequantize the result) and, in turns on the
+    same geometry, the fp32 kernel."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    steps = chunk * chunks
+    ls.reset_launch_counts()
+    r = run(twin(scene), max_iters=steps, every=chunk, precision='mixed',
+            mixed_range=MIXED_RANGE, **cfg)
+    counts = dict(ls.LAUNCHES)
+    ks = r.kernel
+    grid = r.sim.grid.name
+    key = f'lbm_step_mixed_{grid.lower()}'
+    assert r.engine == 'kernel' and ks.name == key, ks.name
+    assert counts[key] == steps == r.sim.iteration == ks.launches, counts
+    assert sum(counts.values()) == steps, counts
+    nodes = int(np.prod(size))
+    state_bytes = ks.a.element_size() * ks.a.numel()
+    assert ks.a.dtype == ks.b.dtype == torch.int16
+    assert state_bytes == 2 * ks.grid.Q * nodes, state_bytes
+    assert torch.equal(ks.mixed.snap(r.f), r.f)
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    for name, arr in (('rho', r.sim.rho), ('vx', r.sim.vx)):
+        assert arr.shape == shape and np.all(np.isfinite(arr)), name
+    mask = ks.mask.cpu().numpy()
+    wet = (mask == 0) | (mask >= 3)
+    mean_rho = float(np.mean(r.sim.rho[wet], dtype=np.float64))
+    drift = mean_rho - fp32['mean_rho']
+    vmax = float(np.abs(r.sim.vx[wet]).max())
+    assert vmax <= 1.01 * twin(scene).subdomain.max_v, vmax
+    assert abs(mean_rho - 1.0) < 0.01 and abs(drift) <= MASS_TOL, \
+        (mean_rho, fp32['mean_rho'])
+    mlups = statistics.median(r.mlups_history[1:])
+    eff = mlups * 1e6 * MIXED_BYTES[grid]
+    say(f'main path {path} {"x".join(map(str, size))} ({grid}, engine '
+        f'{r.engine}, --precision=mixed --mixed_range={MIXED_RANGE}): '
+        f'{counts[key]} {key} launches; state buffers {ks.a.dtype} '
+        f'{state_bytes} B each ({state_bytes / nodes:.0f} B per node); '
+        f'MLUPS per {chunk}-step chunk '
+        f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f} '
+        f'MLUPS; {eff / 1e9:.1f} GB/s effective ({MIXED_BYTES[grid]} '
+        f'B/node), {eff / copy_bw:.3f} of the copy bandwidth; mean wet '
+        f'rho {mean_rho:.8f} against {fp32["mean_rho"]:.8f} on the fp32 '
+        f'path ({drift:+.2e}; tol {MASS_TOL:g}), max |vx| {vmax:.5f}')
+    a, b = ks.a, ks.b
+    a.copy_(ks.mixed.quant(r.f))
+    one = torch.empty_like(a)
+    ks.step_into(a, one, steps)
+    wet_t = torch.as_tensor(wet, device=DEVICE)
+    d1, share = code_distance(one, ks.reference(a), wet_t)
+    say(f'compare main path {path}: one launch from the state after '
+        f'{steps} steps, wet max|dq| = {d1} ({share:.2e} of codes differ; '
+        f'tol {MIXED_ONE_STEP})')
+    assert d1 <= MIXED_ONE_STEP, d1
+    del one, wet_t
+    ms = util.cuda_time_ms(lambda: ks.step_into(a, b), 50, warmup=5)
+    plain_ms = util.cuda_time_ms(lambda: ks.reference(a), 5)
+    convert_ms = util.cuda_time_ms(lambda: ks.run(r.f, 0), 5, warmup=1)
+    # the fp32 kernel on the same maps, in turns
+    from sailfish_tpu_torch.ops.step import StepBuilder
+    k32 = ls.KernelStep(StepBuilder(r.sim.grid, r.maps, tau=r.builder.tau,
+                                    device=DEVICE))
+    assert k32.name == f'lbm_step_{grid.lower()}' and torch.equal(
+        k32.mask, ks.mask)
+    k32.a.copy_(r.f)
+    turns = {'mixed': [], 'fp32': []}
+    for which in ('mixed', 'fp32', 'fp32', 'mixed'):
+        if which == 'mixed':
+            turns[which].append(util.cuda_time_ms(
+                lambda: ks.step_into(a, b), 100, warmup=20))
+        else:
+            turns[which].append(util.cuda_time_ms(
+                lambda: k32.step_into(k32.a, k32.b), 100, warmup=20))
+    t = {k: statistics.mean(v) for k, v in turns.items()}
+    chunk_ms = chunk * ms
+    say(f'kernel {key} at {"x".join(map(str, size))}: {ms:.4f} ms per '
+        f'launch; step_reference {plain_ms:.3f} ms; in turns mixed '
+        f'{t["mixed"]:.4f} {turns["mixed"]} / fp32 {t["fp32"]:.4f} '
+        f'{turns["fp32"]} ms: fp32 over mixed {t["fp32"] / t["mixed"]:.4f}; '
+        f'the chunk\'s conversions of the whole state {convert_ms:.3f} ms, '
+        f'{convert_ms / (chunk_ms + convert_ms):.4f} of a {chunk}-step '
+        f'chunk')
+    result = dict(launches=counts[key], mlups=mlups, ms=ms,
+                  plain_ms=plain_ms, err=0.0, fp32_ms=t['fp32'],
+                  mixed_over_fp32=t['mixed'] / t['fp32'],
+                  convert_ms=convert_ms)
+    del r, ks, a, b, k32
+    torch.cuda.empty_cache()
+    return key, result
+
+
 def copy_bandwidth():
     """Device-to-device copy bandwidth on a 1 GiB tensor, bytes/s
     (read + write)."""
@@ -1258,7 +1565,7 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4,
     say(f'kernel {ks.name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
         f'launch; step_reference {plain_ms:.3f} ms')
     result = dict(launches=launches, mlups=mlups, ms=ms,
-                  plain_ms=plain_ms, err=err)
+                  plain_ms=plain_ms, err=err, mean_rho=mean_rho)
     if timed == 'force':
         result['models_ms'] = force_models_ms(sim_cls, cfg, ks)
     elif timed == 'collision':
@@ -2062,7 +2369,9 @@ def main():
     say(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)}')
 
-    sources = list(ls.LIBRARIES.values()) + ['sc_multi', 'fe_step']
+    lbm_libraries = list(ls.LIBRARIES.values()) \
+        + list(ls.MIXED_LIBRARIES.values())
+    sources = lbm_libraries + ['sc_multi', 'fe_step']
     kinds, sc_kinds = set(), set()
     for name, lib in build.load_all(sources).items():
         say(f'build {name}: {lib.path.name} in {lib.seconds:.1f} s '
@@ -2071,7 +2380,7 @@ def main():
             if 'entry function' in line or 'registers' in line \
                     or 'spill' in line:
                 say('  ptxas:', line.strip())
-        if name in ls.LIBRARIES.values():
+        if name in lbm_libraries:
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
                 inst = ls.instantiation(fn)
                 if inst is None:
@@ -2080,7 +2389,8 @@ def main():
                 say(f'lbm_step d{inst["dim"]}q{inst["q"]} force '
                     f'{inst["force"]}, walls {int(inst["walls"])}, model '
                     f'{inst["model"]}, equilibrium {inst["equilibrium"]}, '
-                    f'sc {int(inst["sc"])}: {use["registers"]} '
+                    f'sc {int(inst["sc"])}, storage {inst["storage"]}: '
+                    f'{use["registers"]} '
                     f'registers, stack frame {use["stack_frame"]} B, spill '
                     f'{use["spill_stores"]} / {use["spill_loads"]} B')
                 # the BC chain, the walls and the collision models run in
@@ -2089,7 +2399,10 @@ def main():
                     == use['spill_loads'] == 0, (fn, use)
                 assert use['registers'] <= 128, (fn, use)
                 # each library holds its collision model's instantiations
-                assert ls.LIBRARIES[ls.MODEL_CODES[inst['model']]] == name
+                # of its storage
+                libs = ls.LIBRARIES if inst['storage'] == 'fp32' \
+                    else ls.MIXED_LIBRARIES
+                assert libs[ls.MODEL_CODES[inst['model']]] == name
 
         if name == 'sc_multi':
             for fn, use in sorted(build.ptxas_usage(lib.log).items()):
@@ -2114,11 +2427,11 @@ def main():
                         f' spill stores {use.get("spill_stores")} B, spill '
                         f'loads {use.get("spill_loads")} B')
     # two lattices x (no force + three force models) x wall rows or not x
-    # three collision models x two equilibria; the shallow-water
-    # equilibrium (D2Q9 BGK, three force models, wall rows or not) and the
-    # Shan-Chen mode (two lattices, no force or Guo)
-    assert len(kinds) == 2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2 + 6 + 4, \
-        len(kinds)
+    # three collision models x two equilibria, in fp32 and in int16; the
+    # shallow-water equilibrium (D2Q9 BGK, three force models, wall rows or
+    # not) and the Shan-Chen mode (two lattices, no force or Guo) in fp32
+    assert len(kinds) == 2 * (2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2) \
+        + 6 + 4, len(kinds)
     # two lattices x K = 2, 3 x forced or not
     assert len(sc_kinds) == 2 * 2 * 2, sc_kinds
     for name, tile in (('fe_step_d3q19', fe.TILE_3D),
@@ -2319,7 +2632,17 @@ def main():
         if rho_name:
             note(rho_name, rho_err)
     single_mode_refusals()
-    phase_done('kernel comparisons')
+    # --precision=mixed: the int16 kernel against its plain version in
+    # codes, 200 steps; every code through its conversions; the shear wave;
+    # what the mode refuses
+    phase_done('kernel comparisons (fp32 and mixtures)')
+    for name, sim_cls, cfg, it0 in MIXED_CASES:
+        key, err = mixed_compare(name, sim_cls, it0, **cfg)
+        note(key, err)
+    mixed_round_trip()
+    mixed_shear_wave()
+    mixed_refusals()
+    phase_done('kernel comparisons (mixed)')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
             ('fe_separation_2d', 'fe_separation_2d',
@@ -2434,6 +2757,15 @@ def main():
                          for a in ('x_', ''))
         say(f'x-normal over {"z" if dim == 3 else "y"}-normal step, '
             f'{dim}D: {along:.4f} / {across:.4f} ms = {along / across:.4f}')
+    phase_done('single-fluid main paths (fp32)')
+    for path, (scene, size) in MIXED_MAIN.items():
+        grid = 'd3q19' if len(size) == 3 else 'd2q9'
+        fp32 = results[f'lbm_step_{grid}']
+        key, res = mixed_main_path(path, scene, size, copy_bw, fp32)
+        results[key] = res
+        say(f'{path}: {res["mlups"]:.1f} MLUPS against {fp32["mlups"]:.1f} '
+            f'on the fp32 main path of the same size: '
+            f'{res["mlups"] / fp32["mlups"]:.4f} of it')
     phase_done('single-fluid main paths')
     for scene, (sim_cls, size, name, demix) in SC_MAIN.items():
         merge_rows(results, sc_main_path(scene, sim_cls, size, copy_bw,
@@ -2483,7 +2815,8 @@ def main():
                             plain_ms=res['plain_ms'], bound_ms=bound,
                             bound_by=bound_by, library_ms=None))
         for key in ('x_normal_ms', 'models_ms', 'collision_ms', 'step_ms',
-                    'dynamic_share', 'unforced_ms', 'mlups'):
+                    'dynamic_share', 'unforced_ms', 'mlups', 'fp32_ms',
+                    'mixed_over_fp32', 'convert_ms'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:

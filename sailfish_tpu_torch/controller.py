@@ -66,9 +66,13 @@ class LBSimulationController:
         group.add_argument('--precision', type=str, default='single',
                            choices=['single', 'double', 'mixed'],
                            help='fp32 (single) or fp64 (double) '
-                           'distributions; mixed is not ported yet')
+                           'distributions, or mixed: int16 fixed-point '
+                           'storage with fp32 math (single-fluid scenes; '
+                           'ops/mixed.py)')
         group.add_argument('--mixed_range', type=float, default=0.5,
-                           help='--precision=mixed range (not ported yet)')
+                           help='--precision=mixed: largest normalized '
+                           'deviation |f/w - 1| the int16 codes hold '
+                           '(each doubling costs one bit)')
         group.add_argument('--seed', type=int, default=0)
         group.add_argument('--grid', type=str, default='',
                            help='lattice type (D2Q9, D3Q19, ...)')

@@ -136,6 +136,7 @@ class LBFluidSim(LBSim):
         kwargs = self.step_builder_kwargs()
         if cfg.precision == 'mixed':
             kwargs.setdefault('storage', 'int16')
+            kwargs.setdefault('mixed_range', cfg.mixed_range)
         if getattr(cfg, 'entropic_equilibrium', False):
             kwargs.setdefault('equilibrium', 'elbm')
         return StepBuilder(

@@ -13,8 +13,12 @@
 // LES rate, the incompressible He-Luo equilibrium: pallas_step.py:_feq_i,
 // mrt_pair_rates, _collide_prepass, _mrt_corr, _collide_pair), in the
 // shallow-water equilibrium (the D2Q9 branch of _feq_i, pallas_step.py
-// :289-294) and in the single-component Shan-Chen mode (sc:
-// _sc_shift_moments :714-785, the 2D kernel's sc argument), and with them
+// :289-294), in the single-component Shan-Chen mode (sc:
+// _sc_shift_moments :714-785, the 2D kernel's sc argument) and in the mixed
+// mode (int16 state, fp32 math: the int16 sdtype of pallas_step.py:961-978
+// with dequant_i / quant_i :1574-1768, pallas_step2d.py:128-132 and
+// :455-622, and the patch kernels' :2220-2271 / pallas_step2d.py:921-979),
+// and with them
 //   sailfish_tpu/ops/pallas_step.py   make_bc_patch_kernel_3d
 //   sailfish_tpu/ops/pallas_step2d.py make_bc_patch_kernel_2d
 // which recompute the z-planes / y-blocks that hold a native BC whose
@@ -64,7 +68,7 @@
 //
 // Bound: device-memory bandwidth. Each node reads Q floats, writes Q floats
 // and reads a 1-byte mask per step: 2*19*4 + 1 = 153 B for D3Q19, 73 B for
-// D2Q9, against ~1.1 flop per byte; a node of a varying BC reads 4 * (1 +
+// D2Q9 (half with int16 codes, below), against ~1.1 flop per byte; a node of a varying BC reads 4 * (1 +
 // DIM) B more, a half-way or TMS node 4 B of tags and 4 B per tagged link
 // (a TMS node reads its Q stores back). One thread per node, x fastest, blocks of 128 nodes of one
 // x-row, so the c_x = 0 loads and every store coalesce. A pull step reads
@@ -127,6 +131,21 @@
 //   The Pallas kernel emits next step's densities itself (emit_rho), which
 //   relies on the TPU grid running in order; here the pre-pass runs before
 //   every step, as the mixtures' does.
+// - The storage type T is the last template parameter: float, or int16_t
+//   under --precision=mixed (LBMMixed in lbm_common.cuh), whose
+//   instantiations are built by lbm_step_mixed.cu, lbm_step_mixed_mrt.cu
+//   and lbm_step_mixed_les.cu (LBM_MIXED; 32 each: every force model, wall
+//   rows or not, the compressible or the incompressible equilibrium; no
+//   shallow water, no Shan-Chen mode, as in JAX) behind the entries
+//   lbm_step_mixed_d2q9 / _d3q19, whose LBMMixed block is a kernel
+//   parameter of its own (the fp32 kernels get an empty one). A node then
+//   moves 2 * Q * 2 + 1 = 77 B (D3Q19) / 37 B (D2Q9). Each pulled code is
+//   dequantized in registers and each stored value quantized (decode / put:
+//   the multiply and the add rounded apart, one saturating round-to-even
+//   conversion out), at fluid and BC nodes only: reflect, keep and slip
+//   nodes store the pulled codes untouched (w_i = w_opp(i), and the slip
+//   mirror keeps the weight), as the Pallas kernel selects the raw codes
+//   at dry and keep nodes (pallas_step.py:967-968).
 // Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
 // an in-place (AA-pattern) step would halve the footprint.
 
@@ -136,14 +155,16 @@
 #define LBM_MODEL MODEL_BGK
 #endif
 
-template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, int EQ, bool SC>
+template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, int EQ, bool SC,
+          typename T>
 __global__ void __launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)
-lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
+lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
                 const uint8_t* __restrict__ mask,
                 const __grid_constant__ LBMParams p,
                 const float* __restrict__ bcp,
                 const int* __restrict__ tags,
-                const float* __restrict__ rho_pre) {
+                const float* __restrict__ rho_pre,
+                const __grid_constant__ typename ScalesOf<T>::type sc) {
     using L = typename LatticeOf<DIM>::type;
     using P = Physics<FORCE, MODEL, EQ>;
     static_assert(L::Q == Q && L::DIM == DIM, "lattice of the dimension");
@@ -173,21 +194,24 @@ lbm_step_kernel(const float* __restrict__ a, float* __restrict__ b,
     const size_t node = s.zs[1] + (s.ys[1] + x);
 
     const int m = mask[node];
-    float fs[Q];
-    pull_node<L>(a, n, s, fs);
+    T raw[Q];
+    pull_node<L>(a, n, s, raw);
     if (m == 0) {
+        float fs[Q];
+        decode_node<L>(raw, fs, sc);
         if constexpr (SC)
             sc_collide_node<L, P>(fs, p, rho_pre, s, b, n, node);
         else
-            collide_node<L, P>(fs, p.tau_inv, p.force, p.coll, b, n, node);
+            collide_node<L, P>(fs, p.tau_inv, p.force, p.coll, b, n, node,
+                               sc);
     } else if (m == 1) {
-        reflect_node<L>(fs, b, n, node);
+        reflect_node<L>(raw, b, n, node);
     } else if (m == 2) {
-        keep_node<L>(fs, b, n, node);
+        keep_node<L>(raw, b, n, node);
     } else if constexpr (!SC) {
         // (the Shan-Chen mode has no BC row: its entries refuse a table)
-        bc_node<L, P, WALLS>(p, m - 3, bcp, tags, a, x, y, z, fs, b, n,
-                             node);
+        bc_node<L, P, WALLS>(p, m - 3, bcp, tags, a, x, y, z, raw, b, n,
+                             node, sc);
     }
 }
 
@@ -202,38 +226,39 @@ static bool has_kind(const LBMParams* p, int lo, int hi) {
 }
 
 template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, int EQ,
-          bool SC = false>
-static int launch_kernel(const float* a, float* b, const uint8_t* mask,
+          bool SC = false, typename T, typename S>
+static int launch_kernel(const T* a, T* b, const uint8_t* mask,
                          const float* bcp, const int* tags,
-                         const LBMParams* p, void* stream,
+                         const LBMParams* p, const S& sc, void* stream,
                          const float* rho_pre = nullptr) {
     const dim3 grid((p->nx + LBM_BLOCK - 1) / LBM_BLOCK, p->ny, p->nz);
-    lbm_step_kernel<DIM, Q, FORCE, WALLS, MODEL, EQ, SC>
+    lbm_step_kernel<DIM, Q, FORCE, WALLS, MODEL, EQ, SC, T>
         <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p, bcp,
-                                                       tags, rho_pre);
+                                                       tags, rho_pre, sc);
     return (int)cudaGetLastError();
 }
 
 // The instantiation of the block's equilibrium; a block of another
 // collision model than this library's is refused, and so is the
-// shallow-water equilibrium outside D2Q9 BGK or under EDM.
-template <int DIM, int Q, int FORCE, bool WALLS>
-static int launch_coll(const float* a, float* b, const uint8_t* mask,
+// shallow-water equilibrium outside fp32 D2Q9 BGK or under EDM.
+template <int DIM, int Q, int FORCE, bool WALLS, typename T, typename S>
+static int launch_coll(const T* a, T* b, const uint8_t* mask,
                        const float* bcp, const int* tags, const LBMParams* p,
-                       void* stream) {
+                       const S& sc, void* stream) {
     if (p->coll.model != LBM_MODEL) return (int)cudaErrorInvalidValue;
     switch (p->coll.equilibrium) {
     case EQ_BGK:
         return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, EQ_BGK>(
-            a, b, mask, bcp, tags, p, stream);
+            a, b, mask, bcp, tags, p, sc, stream);
     case EQ_INCOMP:
         return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, EQ_INCOMP>(
-            a, b, mask, bcp, tags, p, stream);
+            a, b, mask, bcp, tags, p, sc, stream);
     case EQ_SHALLOW:
         if constexpr (DIM == 2 && LBM_MODEL == MODEL_BGK
-                      && FORCE != FORCE_EDM)
+                      && FORCE != FORCE_EDM
+                      && std::is_same<T, float>::value)
             return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL,
-                                 EQ_SHALLOW>(a, b, mask, bcp, tags, p,
+                                 EQ_SHALLOW>(a, b, mask, bcp, tags, p, sc,
                                              stream);
         break;
     }
@@ -241,37 +266,39 @@ static int launch_coll(const float* a, float* b, const uint8_t* mask,
 }
 
 // The instantiation of the table's wall rows (with or without).
-template <int DIM, int Q, int FORCE>
-static int launch_model(const float* a, float* b, const uint8_t* mask,
+template <int DIM, int Q, int FORCE, typename T, typename S>
+static int launch_model(const T* a, T* b, const uint8_t* mask,
                         const float* bcp, const int* tags,
-                        const LBMParams* p, void* stream) {
+                        const LBMParams* p, const S& sc, void* stream) {
     if (!has_kind(p, BC_HALFBB, BC_SLIP))
         return launch_coll<DIM, Q, FORCE, false>(a, b, mask, bcp, tags, p,
-                                                 stream);
+                                                 sc, stream);
     if (tags == nullptr && has_kind(p, BC_HALFBB, BC_TMS))
         return (int)cudaErrorInvalidValue;
-    return launch_coll<DIM, Q, FORCE, true>(a, b, mask, bcp, tags, p,
+    return launch_coll<DIM, Q, FORCE, true>(a, b, mask, bcp, tags, p, sc,
                                             stream);
 }
 
-// The instantiation of the block's force model.
-template <int DIM, int Q>
-static int launch(const float* a, float* b, const uint8_t* mask,
+// The instantiation of the block's force model, with the storage T (float,
+// or int16_t with its LBMMixed constants sc).
+template <int DIM, int Q, typename T, typename S>
+static int launch(const T* a, T* b, const uint8_t* mask,
                   const float* bcp, const int* tags, const LBMParams* p,
-                  void* stream) {
+                  const S& sc, void* stream) {
     switch (p->force.model) {
     case FORCE_NONE:
         return launch_model<DIM, Q, FORCE_NONE>(a, b, mask, bcp, tags, p,
-                                                stream);
+                                                sc, stream);
     case FORCE_GUO:
-        return launch_model<DIM, Q, FORCE_GUO>(a, b, mask, bcp, tags, p,
+        return launch_model<DIM, Q, FORCE_GUO>(a, b, mask, bcp, tags, p, sc,
                                                stream);
     case FORCE_EDM:
-        return launch_model<DIM, Q, FORCE_EDM>(a, b, mask, bcp, tags, p,
+        return launch_model<DIM, Q, FORCE_EDM>(a, b, mask, bcp, tags, p, sc,
                                                stream);
     case FORCE_VELOCITY_SHIFT:
         return launch_model<DIM, Q, FORCE_VELOCITY_SHIFT>(a, b, mask, bcp,
-                                                          tags, p, stream);
+                                                          tags, p, sc,
+                                                          stream);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -290,11 +317,13 @@ static int launch_sc(const float* a, const float* rho_pre, float* b,
         if (p->force.model == FORCE_NONE)
             return launch_kernel<DIM, Q, FORCE_NONE, false, MODEL_BGK,
                                  EQ_BGK, true>(a, b, mask, nullptr, nullptr,
-                                               p, stream, rho_pre);
+                                               p, LBMNoScales(), stream,
+                                               rho_pre);
         if (p->force.model == FORCE_GUO)
             return launch_kernel<DIM, Q, FORCE_GUO, false, MODEL_BGK,
                                  EQ_BGK, true>(a, b, mask, nullptr, nullptr,
-                                               p, stream, rho_pre);
+                                               p, LBMNoScales(), stream,
+                                               rho_pre);
         return (int)cudaErrorInvalidValue;
     }
 }
@@ -316,19 +345,20 @@ static void copy_tables(LBMTables* out) {
 
 extern "C" {
 
+#ifndef LBM_MIXED
 // bcp: the per-node parameter array (never read when no row varies);
 // tags: the int32 link-tag map, one word per node (read only by the nodes of
 // half-way and TMS rows; may be null when there is none).
 int lbm_step_d2q9(const float* a, float* b, const uint8_t* mask,
                   const float* bcp, const int* tags, const LBMParams* p,
                   void* stream) {
-    return launch<2, 9>(a, b, mask, bcp, tags, p, stream);
+    return launch<2, 9>(a, b, mask, bcp, tags, p, LBMNoScales(), stream);
 }
 
 int lbm_step_d3q19(const float* a, float* b, const uint8_t* mask,
                    const float* bcp, const int* tags, const LBMParams* p,
                    void* stream) {
-    return launch<3, 19>(a, b, mask, bcp, tags, p, stream);
+    return launch<3, 19>(a, b, mask, bcp, tags, p, LBMNoScales(), stream);
 }
 
 // The Shan-Chen mode: rho_pre holds the post-stream density of every node
@@ -343,6 +373,26 @@ int lbm_step_sc_d3q19(const float* a, const float* rho_pre, float* b,
                       void* stream) {
     return launch_sc<3, 19>(a, rho_pre, b, mask, p, stream);
 }
+#else
+// --precision=mixed: a and b hold int16 codes, mx the constants of their
+// grid; the rest as lbm_step_<grid> (every force model, wall rows or not,
+// the compressible or the incompressible equilibrium of this library's
+// collision model; no shallow water, no Shan-Chen mode).
+int lbm_step_mixed_d2q9(const int16_t* a, int16_t* b, const uint8_t* mask,
+                        const float* bcp, const int* tags, const LBMParams* p,
+                        const LBMMixed* mx, void* stream) {
+    return launch<2, 9>(a, b, mask, bcp, tags, p, *mx, stream);
+}
+
+int lbm_step_mixed_d3q19(const int16_t* a, int16_t* b, const uint8_t* mask,
+                         const float* bcp, const int* tags,
+                         const LBMParams* p, const LBMMixed* mx,
+                         void* stream) {
+    return launch<3, 19>(a, b, mask, bcp, tags, p, *mx, stream);
+}
+#endif
+
+int lbm_mixed_size(void) { return (int)sizeof(LBMMixed); }
 
 int lbm_params_size(void) { return (int)sizeof(LBMParams); }
 

@@ -3,16 +3,21 @@ step, with native BCs of static, varying or time-dependent parameters, the
 local walls (half-way bounce-back, Tamm-Mott-Smith, slip), a constant or
 time-dependent uniform body force, and the collision models BGK, MRT/TRT
 and Smagorinsky LES with the compressible or the incompressible
-equilibrium; the D2Q9 shallow-water equilibrium; and the single-component
+equilibrium; the D2Q9 shallow-water equilibrium; the single-component
 Shan-Chen mode, two launches per step: the post-stream density pre-pass
-``rho_poststream`` of ``csrc/sc_multi.cu`` (at nk = 1), then the step.
+``rho_poststream`` of ``csrc/sc_multi.cu`` (at nk = 1), then the step; and
+int16 state buffers under ``--precision=mixed`` (``ops/mixed.py``: the
+kernel dequantizes each pulled code in registers and quantizes each stored
+value, the math fp32; entries ``lbm_step_mixed_<grid>``).
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
 (``PallasStep2D``, ``make_kernel_2d``) in their mask + in-kernel native-BC
-(``kbc``) modes with and without forcing (Guo, exact-difference and
-velocity-shift, ``pallas_step.py:246-341``; a time-only force is the
-runtime ``rt_force`` mode, :185-232) and collision-model modes
+(``kbc``) modes, fp32 or ``mixed`` (int16 codes: ``pallas_step.py:961-978``,
+``pallas_step2d.py:128-132``), with and without forcing (Guo,
+exact-difference and velocity-shift, ``pallas_step.py:246-341``; a
+time-only force is the runtime ``rt_force`` mode, :185-232) and
+collision-model modes
 (``_feq_i`` :281, ``mrt_pair_rates`` :344, ``_collide_prepass`` :372,
 ``_mrt_corr`` :452, ``_collide_pair`` :472), shallow-water (the
 ``_feq_i`` branch :289-294) and ``sc`` modes (``_sc_shift_moments``
@@ -78,9 +83,11 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: work of the JAX package's patch kernels) and ``lbm_step_<grid>`` (BGK,
 #: compressible, no force, every BC row uniform); one C entry,
 #: ``lbm_step_<grid>``, serves all but the Shan-Chen mode. The Shan-Chen
-#: mode's pre-pass counts as ``rho_poststream_nk1_<grid>``.
+#: mode's pre-pass counts as ``rho_poststream_nk1_<grid>``. Every launch on
+#: int16 buffers (``--precision=mixed``, any of the above that the mode
+#: takes) counts as ``lbm_step_mixed_<grid>``, its C entry's name.
 LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'sw_',
-                'sc_', 'wall_', 'dyn_')
+                'sc_', 'wall_', 'dyn_', 'mixed_')
 LAUNCHES = dict.fromkeys(
     [f'lbm_step_{v}{g.lower()}' for v in LAUNCH_KINDS
      for g in KERNEL_GRIDS]
@@ -104,6 +111,10 @@ SC_POTENTIALS = {'linear': 0, 'classic': 1}
 #: (each builds lbm_step.cu with one collision model, so the three compile
 #: in parallel)
 LIBRARIES = {0: 'lbm_step', 1: 'lbm_step_mrt', 2: 'lbm_step_les'}
+#: the same for the int16 state of --precision=mixed (each source builds
+#: lbm_step.cu with LBM_MIXED and one collision model)
+MIXED_LIBRARIES = {0: 'lbm_step_mixed', 1: 'lbm_step_mixed_mrt',
+                   2: 'lbm_step_mixed_les'}
 
 
 def reset_launch_counts():
@@ -264,6 +275,25 @@ def kernel_ineligibility(builder, nodes=None):
     if not why:
         reasons += bc_patch.instance_boxes(builder.maps, instances)[1]
     reasons += _mode_reasons(builder, instances)
+    reasons += _mixed_reasons(builder)
+    return reasons
+
+
+def _mixed_reasons(builder):
+    """The refusals of int16 storage: what the ``StepBuilder`` refuses
+    under it (``sailfish_tpu/ops/step.py:128-144``), named again here for
+    a builder made otherwise; JAX's mixed Pallas path takes every other
+    single-fluid BGK / MRT / LES scene."""
+    if getattr(builder, 'mixed', None) is None:
+        return []
+    reasons = []
+    if builder.dtype != torch.float32:
+        reasons.append('mixed 16-bit storage requires fp32 compute')
+    if builder.sc_coupling != 0.0:
+        reasons.append('mixed 16-bit storage does not cover Shan-Chen')
+    if builder.equilibrium != 'bgk':
+        reasons.append('mixed 16-bit storage covers the standard '
+                       f'equilibrium only (got {builder.equilibrium})')
     return reasons
 
 
@@ -339,7 +369,7 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
                    force_model='guo', tags=None, rates=None,
                    smagorinsky=0.0, incompressible=False, equilibrium='bgk',
                    gravity=0.0, sc_coupling=0.0, sc_potential='linear',
-                   sc_rho=None):
+                   sc_rho=None, mixed=None):
     """Plain PyTorch version of the kernel: one step
     of state ``f`` (Q, *S) under uint8 mask codes ``mask`` (*S) and BC
     table ``table`` (list of ``BCRow``), with relaxation rate ``tau_inv``.
@@ -355,8 +385,15 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
     ``incompressible``, or with ``equilibrium`` 'shallow_water' the D2Q9
     shallow-water one at ``gravity``. With ``sc_coupling`` G != 0 (the
     Shan-Chen mode) the neighbours' psi comes from ``sc_rho``, the density
-    the pre-pass wrote (default: ``sc_multi.rho_reference`` of ``f``). The
+    the pre-pass wrote (default: ``sc_multi.rho_reference`` of ``f``). With
+    ``mixed`` (an ``ops/mixed.MixedScales``) ``f`` holds int16 codes: they
+    are dequantized, stepped and the result quantized, int16 out. The
     phases are the torch engine's (``step.step_phases``)."""
+    if mixed is not None:
+        return mixed.quant(step_reference(
+            mixed.dequant(f), mask, table, grid, tau_inv, bcp, force,
+            force_model, tags, rates, smagorinsky, incompressible,
+            equilibrium, gravity, sc_coupling, sc_potential, sc_rho))
     ones = (1,) * (f.dim() - 1)
     instances, slip = [], []
     tagged = tms = None
@@ -427,6 +464,22 @@ class _Collide(ctypes.Structure):
 class _ShanChen(ctypes.Structure):
     _fields_ = [('potential', ctypes.c_int), ('g', ctypes.c_float),
                 ('tau', ctypes.c_float)]
+
+
+class _Mixed(ctypes.Structure):
+    _fields_ = [('ws', ctypes.c_float * MAX_Q),
+                ('inv_ws', ctypes.c_float * MAX_Q)]
+
+
+def mixed_params(mixed):
+    """The int16 grid's constants ``ws`` and ``inv_ws`` of the
+    ``MixedScales`` ``mixed`` for the mixed entries (``csrc/lbm_common.cuh``
+    LBMMixed); the weights are the kernel's compile-time ones."""
+    m = _Mixed()
+    for i, (ws, inv) in enumerate(zip(mixed.ws, mixed.inv_ws)):
+        m.ws[i] = ws
+        m.inv_ws[i] = inv
+    return m
 
 
 class _Params(ctypes.Structure):
@@ -614,24 +667,28 @@ def kernel_params(grid, shape, table, tau_inv, force=None,
     return p
 
 
-#: names of the template parameters of ``lbm_step_kernel``, in order
+#: names of the template parameters of ``lbm_step_kernel``, in order (the
+#: last, the storage type, is read from its mangled letter)
 INSTANCE_PARAMS = ('dim', 'q', 'force', 'walls', 'model', 'equilibrium',
-                   'sc')
+                   'sc', 'storage')
 
 
 def instantiation(fn):
     """The template arguments of the ``lbm_step_kernel`` instantiation
     whose mangled name is ``fn``, as {name of ``INSTANCE_PARAMS``: value}
     (``force``, ``model`` and ``equilibrium`` by their names, ``walls`` and
-    ``sc`` as bools), or None for another function. A name with fewer
-    arguments (an older build's) gets the ones it has; an older build's
-    sixth argument, the bool ``incompressible``, keeps that name."""
-    m = re.search(r'lbm_step_kernelI((?:L[ib]n?\d+E)+)E', fn)
+    ``sc`` as bools, ``storage`` 'fp32' or 'int16'), or None for another
+    function. A name with fewer arguments (an older build's, without the
+    storage type: fp32) gets the ones it has; an older build's sixth
+    argument, the bool ``incompressible``, keeps that name."""
+    m = re.search(r'lbm_step_kernelI((?:L[ib]n?\d+E)+)([fs]?)E', fn)
     if not m:
         return None
     args = re.findall(r'L([ib])(n?)(\d+)E', m.group(1))
     vals = [(-1 if sign else 1) * int(num) for _kind, sign, num in args]
     out = dict(zip(INSTANCE_PARAMS, vals))
+    if m.group(2):
+        out['storage'] = 'int16' if m.group(2) == 's' else 'fp32'
     out['force'] = (('none',) + st.FORCE_MODELS)[out['force']]
     for key in ('walls', 'sc'):
         if key in out:
@@ -647,16 +704,23 @@ def instantiation(fn):
 
 
 def kernel_function(lib, name):
-    """The C entry ``name`` (``lbm_step_<grid>`` or, the Shan-Chen mode,
-    ``lbm_step_sc_<grid>``; grid ``d2q9`` / ``d3q19``) of a
-    loaded ``csrc/lbm_step.cu`` library, typed for ``ctypes``, after
-    checking that the library's parameter block matches ``_Params`` and
-    that the compile-time tables of the entry's lattice match
+    """The C entry ``name`` (``lbm_step_<grid>``, the Shan-Chen mode's
+    ``lbm_step_sc_<grid>`` or the int16 state's ``lbm_step_mixed_<grid>``;
+    grid ``d2q9`` / ``d3q19``) of a loaded ``csrc/lbm_step.cu`` library,
+    typed for ``ctypes``, after checking that the library's parameter
+    blocks match ``_Params`` (and, for a mixed entry, ``_Mixed``) and that
+    the compile-time tables of the entry's lattice match
     ``sailfish_tpu_torch.lattice`` (``check_tables``)."""
     lib.lbm_params_size.restype = ctypes.c_int
     if lib.lbm_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError('LBMParams layout differs between '
                            'csrc/lbm_common.cuh and ops/lbm_step.py')
+    mixed = name.startswith('lbm_step_mixed_')
+    if mixed:
+        lib.lbm_mixed_size.restype = ctypes.c_int
+        if lib.lbm_mixed_size() != ctypes.sizeof(_Mixed):
+            raise RuntimeError('LBMMixed layout differs between '
+                               'csrc/lbm_common.cuh and ops/lbm_step.py')
     lib.lbm_tables_size.restype = ctypes.c_int
     if lib.lbm_tables_size() != ctypes.sizeof(_Tables):
         raise RuntimeError('LBMTables layout differs between '
@@ -671,10 +735,13 @@ def kernel_function(lib, name):
     check_tables(tables, grid)
     fn = getattr(lib, name)
     # lbm_step_<grid>: (a, b, mask, bcp, tags, params, stream);
-    # lbm_step_sc_<grid>: (a, rho_pre, b, mask, params, stream)
+    # lbm_step_sc_<grid>: (a, rho_pre, b, mask, params, stream);
+    # lbm_step_mixed_<grid>: (a, b, mask, bcp, tags, params, mixed, stream)
     n_ptr = 4 if name.startswith('lbm_step_sc_') else 5
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.POINTER(_Params),
-                                                ctypes.c_void_p]
+    blocks = [ctypes.POINTER(_Params)]
+    if mixed:
+        blocks.append(ctypes.POINTER(_Mixed))
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + blocks + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -701,7 +768,15 @@ class KernelStep:
     ``lbm_step_sc_<grid>``), ``name`` (the key of ``LAUNCHES`` its step
     launches count under) and ``launches``, the number of step launches
     this object has made: one per step (and as many pre-pass launches,
-    ``prepass_launches``, in the Shan-Chen mode)."""
+    ``prepass_launches``, in the Shan-Chen mode).
+
+    Under ``--precision=mixed`` (the StepBuilder's ``mixed``, an
+    ``ops/mixed.MixedScales``, kept as ``mixed``) A and B hold int16 codes,
+    the library is that of ``MIXED_LIBRARIES``, the entry and the name
+    ``lbm_step_mixed_<grid>``; ``run`` quantizes the fp32 state it is given
+    into A once and returns the dequantized result in ``out``, an fp32
+    buffer of its own (``quant(dequant(q)) == q``, so the round trip is
+    exact); ``run_codes`` steps codes."""
 
     def __init__(self, builder):
         maps = builder.maps
@@ -730,8 +805,15 @@ class KernelStep:
         self.dynamic = bc_patch.dynamic_rows(maps, instances, boxes,
                                              self.bcp)
         full = (self.grid.Q,) + self.shape
-        self.a = torch.empty(full, dtype=torch.float32, device=self.device)
+        self.mixed = builder.mixed
+        #: the state buffers' dtype: int16 codes under --precision=mixed
+        self.dtype = torch.float32 if self.mixed is None else torch.int16
+        self.a = torch.empty(full, dtype=self.dtype, device=self.device)
         self.b = torch.empty_like(self.a)
+        self.out = None if self.mixed is None else torch.empty(
+            full, dtype=torch.float32, device=self.device)
+        self.mixed_params = None if self.mixed is None else \
+            mixed_params(self.mixed)
         self.force_model = builder.force_model
         self.force_expr = builder.force_expr
         self.rates = builder.mrt_rates
@@ -754,10 +836,13 @@ class KernelStep:
             self.force_model, self.rates, self.smagorinsky,
             self.incompressible, self.equilibrium, self.gravity,
             self.sc_coupling, self.sc_potential)
-        self.library = LIBRARIES[self.params.coll.model]
+        self.library = (LIBRARIES if self.mixed is None
+                        else MIXED_LIBRARIES)[self.params.coll.model]
         g = self.grid.name.lower()
-        self.entry = f'lbm_step_{"sc_" if self.sc else ""}{g}'
-        kind = 'dyn_' if self.dynamic or self.force_expr is not None else \
+        self.entry = f'lbm_step_{"sc_" if self.sc else ""}' \
+            f'{"" if self.mixed is None else "mixed_"}{g}'
+        kind = 'mixed_' if self.mixed is not None else \
+            'dyn_' if self.dynamic or self.force_expr is not None else \
             'wall_' if self.walls else \
             'sc_' if self.sc else \
             'sw_' if self.equilibrium == 'shallow_water' else \
@@ -813,15 +898,16 @@ class KernelStep:
                       self.tau_inv)
 
     def step_into(self, src, dst, it=0):
-        """Step ``it`` from ``src`` into ``dst`` (distinct (Q, *S) fp32
-        buffers on the mask's device). On a CUDA tensor this launches the
-        kernel once (in the Shan-Chen mode after the pre-pass into
-        ``rho``); on a CPU tensor it runs ``step_reference`` (in the
-        Shan-Chen mode with ``density_into``'s densities)."""
+        """Step ``it`` from ``src`` into ``dst`` (distinct (Q, *S)
+        buffers of ``dtype``, fp32 or the int16 codes of --precision=mixed,
+        on the mask's device). On a CUDA tensor this launches the kernel
+        once (in the Shan-Chen mode after the pre-pass into ``rho``); on a
+        CPU tensor it runs ``step_reference`` (in the Shan-Chen mode with
+        ``density_into``'s densities)."""
         full = (self.grid.Q,) + self.shape
         for t in (src, dst):
-            if t.dtype != torch.float32 or tuple(t.shape) != full:
-                raise ValueError(f'expected float32 {full}, got '
+            if t.dtype != self.dtype or tuple(t.shape) != full:
+                raise ValueError(f'expected {self.dtype} {full}, got '
                                  f'{t.dtype} {tuple(t.shape)}')
             if not t.is_contiguous():
                 raise ValueError('state buffers must be contiguous')
@@ -842,13 +928,14 @@ class KernelStep:
         """``step_reference`` of this scene on the state ``f``, with the
         values of the last ``set_iteration``; in the Shan-Chen mode with
         the pre-pass densities ``rho`` (default ``sc_multi.rho_reference``
-        of ``f``)."""
+        of ``f``); under --precision=mixed on int16 codes."""
         return step_reference(f, self.mask, self.table, self.grid,
                               self.tau_inv, self.bcp, self.force,
                               self.force_model, self.tags, self.rates,
                               self.smagorinsky, self.incompressible,
                               self.equilibrium, self.gravity,
-                              self.sc_coupling, self.sc_potential, rho)
+                              self.sc_coupling, self.sc_potential, rho,
+                              self.mixed)
 
     def _stream(self, t):
         return torch.cuda.current_stream(t.device).cuda_stream
@@ -898,9 +985,12 @@ class KernelStep:
                           ctypes.byref(self.params), self._stream(src))
         else:
             tags = None if self.tags is None else self.tags.data_ptr()
+            blocks = [ctypes.byref(self.params)]
+            if self.mixed is not None:
+                blocks.append(ctypes.byref(self.mixed_params))
             rc = self._fn(src.data_ptr(), dst.data_ptr(),
                           self.mask.data_ptr(), self.bcp.data_ptr(), tags,
-                          ctypes.byref(self.params), self._stream(src))
+                          *blocks, self._stream(src))
         if rc != 0:
             raise RuntimeError(f'{self.name} launch failed: CUDA error {rc}')
         self.launches += 1
@@ -909,7 +999,20 @@ class KernelStep:
     def run(self, f, n, it0=0):
         """``n`` steps from state ``f``, the first computing iteration
         ``it0``; returns the buffer (A or B) that holds the result. A state
-        that is not one of the two buffers is copied into A first."""
+        that is not one of the two buffers is copied into A first. Under
+        --precision=mixed the fp32 ``f`` is quantized into A and the result
+        returned dequantized in ``out`` (``run_codes`` steps the codes)."""
+        if self.mixed is None:
+            return self.run_codes(f, n, it0)
+        if f is not self.a and f is not self.b:
+            self.a.copy_(self.mixed.quant(f))
+            f = self.a
+        return self.out.copy_(self.mixed.dequant(self.run_codes(f, n, it0)))
+
+    def run_codes(self, f, n, it0=0):
+        """``n`` steps from the state ``f`` of ``dtype`` (fp32, or int16
+        codes under --precision=mixed), as ``run`` without the mixed
+        conversions; returns the buffer (A or B) that holds the result."""
         if f is not self.a and f is not self.b:
             self.a.copy_(f)
             f = self.a

@@ -13,7 +13,9 @@ Smagorinsky subgrid tau field, the second-order equilibrium (compressible
 or the incompressible He-Luo form) or the D2Q9 shallow-water one, a body
 force (Guo, exact-difference or velocity-shift forcing) that is constant,
 per-node or a ``DynamicValue`` of time and space, the single-component
-Shan-Chen velocity shift, fp32 or fp64 storage, and the node types
+Shan-Chen velocity shift, fp32 or fp64 storage or int16 fixed-point
+storage with fp32 math (``storage='int16'``, ``--precision=mixed``,
+``ops/mixed.py``), and the node types
 fluid, the excluded / propagation-only "keep" types, the local walls
 (``NTFullBBWall``, ``NTHalfBBWall``, ``NTWallTMS``, ``NTSlip``) and the six
 elementwise ("native") BC types, whose parameters may be
@@ -46,6 +48,7 @@ from sailfish_tpu_torch import equilibrium as eq
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.equilibrium import signed_sum
 from sailfish_tpu_torch.ops import collide as co
+from sailfish_tpu_torch.ops.mixed import DEFAULT_RANGE, MixedScales
 
 #: Elementwise BC families (macro solve -> reconstruction -> collide, no
 #: neighbour sampling); ``sailfish_tpu/ops/pallas_step.py:57``.
@@ -385,13 +388,16 @@ class StepBuilder:
     ``smagorinsky`` > 0 is the LES constant; ``sc_coupling`` G != 0 (with
     ``sc_potential``) the single-component Shan-Chen force;
     ``equilibrium`` 'shallow_water' the D2Q9 shallow-water equilibrium at
-    ``gravity`` (rho is the water height)."""
+    ``gravity`` (rho is the water height). ``storage`` 'int16' keeps the
+    state on the int16 grid of ``ops/mixed.MixedScales`` at ``mixed_range``
+    (default ``DEFAULT_RANGE``)."""
 
     def __init__(self, grid, maps, *, model='bgk', visc=None, tau=None,
                  incompressible=False, smagorinsky=0.0, body_force=None,
                  force_model='guo', sc_coupling=0.0, sc_potential='linear',
                  equilibrium='bgk', gravity=0.0, dtype=torch.float32,
-                 device='cpu', storage='fp', time_unit=1.0):
+                 device='cpu', storage='fp', mixed_range=None,
+                 time_unit=1.0):
         if force_model not in FORCE_MODELS:
             raise ValueError(
                 f'force_model must be guo, edm or velocity_shift; '
@@ -406,11 +412,12 @@ class StepBuilder:
             unported.append(f'model={model}')
         if equilibrium not in EQUILIBRIA:
             unported.append(f'equilibrium={equilibrium}')
-        if storage != 'fp':
-            unported.append(f'{storage} storage (--precision=mixed)')
         if unported:
             raise NotImplementedError(
                 'not ported to the torch engine yet: ' + ', '.join(unported))
+        if storage not in ('fp', 'int16'):
+            raise ValueError(f"storage must be 'fp' or 'int16'; got "
+                             f'{storage!r}')
         if equilibrium == 'shallow_water' and grid.name != 'D2Q9':
             raise NotImplementedError(
                 'the shallow-water equilibrium is defined on D2Q9 only; '
@@ -434,6 +441,29 @@ class StepBuilder:
         self.dtype = dtype
         self.device = torch.device(device)
         self.time_unit = float(time_unit)
+        # 16-bit fixed-point distribution storage (--precision=mixed;
+        # ops/mixed.py): the math stays fp32 and the step passes its
+        # result through the int16 grid (``build``); the refusals and
+        # their reasons are the JAX engine's
+        # (sailfish_tpu/ops/step.py:128-144)
+        self.storage = storage
+        #: the ``MixedScales`` of int16 storage, else None
+        self.mixed = None
+        if storage == 'int16':
+            if dtype != torch.float32:
+                raise NotImplementedError(
+                    'mixed 16-bit storage requires fp32 compute')
+            if self.sc_coupling != 0.0:
+                raise NotImplementedError(
+                    'mixed 16-bit storage does not cover Shan-Chen '
+                    '(phase separation drives O(1) density deviations '
+                    'past any useful fixed-point range)')
+            if equilibrium != 'bgk':
+                raise NotImplementedError(
+                    'mixed 16-bit storage covers the standard '
+                    f'equilibrium only (got {equilibrium})')
+            self.mixed = MixedScales(
+                grid, DEFAULT_RANGE if mixed_range is None else mixed_range)
         #: the body force as given (an acceleration: a (dim,) vector, a
         #: (dim, *S) field or a DynamicValue) and either ``force``, the
         #: same baked for the device ((dim, 1, ..., 1) or (dim, *S)), or
@@ -644,9 +674,20 @@ class StepBuilder:
 
     def build(self):
         """step(f, it=0) -> f_next on post-collision states; ``it`` is the
-        iteration the step computes (time-dependent values see it)."""
+        iteration the step computes (time-dependent values see it). With
+        int16 storage the result passes through the int16 grid every step,
+        ``dequant(quant(.))`` (``sailfish_tpu/ops/step.py:845-863``):
+        ``quant(dequant(q)) == q``, so the fp32 state is equivalent to an
+        int16 one."""
 
         def step(f, it=0):
             return self.phases(self.gather(f), f, it)
 
-        return step
+        if self.mixed is None:
+            return step
+        mx = self.mixed
+
+        def step_mixed(f, it=0):
+            return mx.snap(step(f, it))
+
+        return step_mixed

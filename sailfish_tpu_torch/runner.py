@@ -92,7 +92,17 @@ class SubdomainRunner:
         dtype = cfg.dtype
         self.builder = self.sim.make_step_builder(self.maps, dtype,
                                                   self.device)
-        self.f = self.sim.make_initial_state(self.builder, dtype)
+        if cfg.precision == 'mixed' \
+                and getattr(self.builder, 'mixed', None) is None:
+            raise NotImplementedError(
+                '--precision=mixed covers single-fluid scenes only: '
+                'the minority component of a mixture lives at near-'
+                'vacuum density where the int16 step is comparable to '
+                'the distribution value itself -- measured unusable at '
+                'every --mixed_range (8.5-21% surface-tension error, '
+                '>10% mass drift; regtest/mixed_multiphase_probe.py). '
+                'Use --precision=single')
+        self.f = self._snap(self.sim.make_initial_state(self.builder, dtype))
         self.engine = self._select_engine()
         if self.engine == 'kernel':
             self.kernel = self._kernel_engine()
@@ -108,6 +118,13 @@ class SubdomainRunner:
                 return f
 
             self._run_steps = run_steps
+
+    def _snap(self, f):
+        """``f`` on the int16 grid under --precision=mixed (once, so that
+        both engines and any restart step from the same codes:
+        ``sailfish_tpu/runner.py:79-83``, :541-546); else ``f``."""
+        mixed = getattr(self.builder, 'mixed', None)
+        return f if mixed is None else mixed.snap(f)
 
     def _kernel_engine(self):
         """The kernel engine of the builder's model; it raises, naming
@@ -185,6 +202,9 @@ class SubdomainRunner:
         self.f = st.from_leaves(self.f, [
             st.state_from_numpy(cpoint[f'dist{i}a'], self.device,
                                 self.config.dtype) for i in range(n)])
+        # a mixed checkpoint is on the grid already (the identity); an
+        # fp32 one restored into a mixed run is snapped once
+        self.f = self._snap(self.f)
 
     # -- main loop -----------------------------------------------------------
 

@@ -107,6 +107,19 @@ moved the state; the four twins run through the controller on the kernel
 engine against the torch engine, one (or pre-pass + step) launch per step;
 the scenes the kernel refuses raise by name; ptxas reports 0 B frame, no
 spills and at most 128 registers for all 106 instantiations.
+
+Under ``--precision=mixed`` (int16 A/B buffers, ``lbm_step_mixed_<grid>``)
+the kernel is held against ``step_reference`` in codes
+(``torch_scenes.mixed_errors``, ``MIXED_CASES``: the cavities, each force
+model, MRT at tau != 1, LES, the incompressible equilibrium, half-way, TMS
+and slip walls, varying inlets along z and x, time-only rows, shapes that
+are no multiple of the block): one launch within one code of the plain
+version, and after 50 steps within 2 codes of the fp64 plain version, or
+within 2 times the fp32 plain version's distance to it; every one of the
+65,536 codes of every direction comes back unchanged through the kernel's
+own conversions; the controller runs the mode on int16 buffers, one
+launch per step under the mixed key; ptxas reports 0 B frame, no spills
+and at most 128 registers for its 96 instantiations.
 """
 
 import ctypes
@@ -127,7 +140,9 @@ from torch_scenes import (ACCEL, BC_PAIRS, BINARY_SCENES, FE_SCENES,
                           binary_twin, box_cfg, box_sim, channel_sim,
                           channel_sim_2d, forced, forced_channel_sim,
                           forced_channel_sim_2d, forced_mixture,
-                          halfbb_beside_parabolic_inlet, random_binary_state,
+                          halfbb_beside_parabolic_inlet, mixed_errors,
+                          all_codes, periodic_box, random_binary_state,
+                          shear_wave_viscosity,
                           random_fe_state, random_feq, run, shallow_water,
                           slip_sim, ternary_separation, ternary_twin,
                           time_series_density_sim, twin, unforced, walled,
@@ -737,10 +752,12 @@ def test_every_lbm_step_instantiation_runs_in_registers(cuda):
             if inst:
                 assert ls.MODEL_CODES[inst['model']] == code, (name, fn)
                 usage[fn] = use
-    kinds = {tuple(ls.instantiation(fn).values()) for fn in usage}
+    insts = [ls.instantiation(fn) for fn in usage]
+    kinds = {tuple(inst.values()) for inst in insts}
     assert len(usage) == len(kinds) == 2 * 4 * 2 * 3 * 2 + 6 + 4
-    assert sum(k[-1] for k in kinds) == 4
-    assert sum(k[5] == 'shallow_water' for k in kinds) == 6
+    assert sum(inst['sc'] for inst in insts) == 4
+    assert sum(inst['equilibrium'] == 'shallow_water' for inst in insts) == 6
+    assert {inst['storage'] for inst in insts} == {'fp32'}
     for fn, use in usage.items():
         assert use['stack_frame'] == use['spill_stores'] \
             == use['spill_loads'] == 0, (fn, use)
@@ -1324,5 +1341,153 @@ def test_single_mode_twins_on_the_kernel_engine(cuda, scene):
 def test_single_mode_refusals_on_the_default_engine(cuda, flags, match):
     sim = forced(SC_2D, (1e-3, 0.0)) if 'force_implementation' in flags \
         else SC_2D
+    with pytest.raises(NotImplementedError, match=match):
+        run(sim, max_iters=0, lat_nx=64, lat_ny=64, **flags)
+
+
+#: --precision=mixed, kernel against plain version: name -> (sim class,
+#: flags, first iteration)
+MIXED_CUBE = dict(lat_nx=48, lat_ny=40, lat_nz=32)
+MIXED_CASES = {
+    'ldc_3d': (with_keep_block(twin('ldc_3d')), MIXED_CUBE, 0),
+    'ldc_2d': (with_keep_block(twin('ldc_2d')),
+               dict(lat_nx=300, lat_ny=200), 0),
+    'ldc_3d_ragged': (with_keep_block(twin('ldc_3d')),
+                      dict(lat_nx=37, lat_ny=23, lat_nz=11), 0),
+    'sphere_3d_guo': (with_keep_block(twin('sphere_3d')), MIXED_CUBE, 0),
+    'sphere_3d_velocity_shift': (twin('sphere_3d'), dict(
+        MIXED_CUBE, force_implementation='velocity_shift'), 0),
+    'cylinder_edm': (twin('cylinder'), dict(
+        lat_nx=300, lat_ny=200, force_implementation='edm'), 0),
+    'halfbb_box_3d_guo': (box_sim(WALLS['halfbb'], 3, (0, 1, 2), ACCEL),
+                          box_cfg(3, (0, 1, 2)), 0),
+    'tms_box_2d': (box_sim(WALLS['tms'], 2, (0, 1)), box_cfg(2, (0, 1)), 0),
+    'slip_3d_y': (slip_sim(3, 1), dict(MIXED_CUBE, periodic_x=True,
+                                        periodic_z=True), 0),
+    'parabolic_z': (with_keep_block(channel_sim(
+        'regularized', 'z', profile='parabolic')), dict(
+            lat_nx=40, lat_ny=24, lat_nz=32, periodic_x=True), 0),
+    'parabolic_x_zouhe': (channel_sim('zouhe', 'x', profile='parabolic'),
+                          dict(lat_nx=40, lat_ny=24, lat_nz=32,
+                               periodic_z=True), 0),
+    'ldc_3d_mrt': (twin('ldc_3d'), dict(MIXED_CUBE, model='mrt',
+                                        visc=0.05), 0),
+    'sphere_3d_les': (twin('sphere_3d'), dict(
+        MIXED_CUBE, subgrid='les-smagorinsky', smagorinsky_const=0.2), 0),
+    'ldc_2d_incompressible': (twin('ldc_2d'), dict(
+        lat_nx=300, lat_ny=200, incompressible=True), 0),
+    'womersley': (twin('womersley'), dict(lat_nx=32, lat_ny=32,
+                                          lat_nz=32), 3000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(MIXED_CASES))
+def test_mixed_kernel_matches_step_reference_in_codes(cuda, case):
+    sim_cls, cfg, it0 = MIXED_CASES[case]
+    r = run(sim_cls, platform='cuda', engine='kernel', max_iters=0,
+            precision='mixed', **cfg)
+    ks = r.kernel
+    assert ks.name == ks.entry == f'lbm_step_mixed_{ks.grid.name.lower()}'
+    assert ks.a.dtype == ks.b.dtype == torch.int16
+    q0 = ks.mixed.quant(random_feq(ks.grid, ks.shape, seed=3,
+                                   device='cuda'))
+    errs = mixed_errors(ks, q0, 50, it0)
+    torch.cuda.synchronize()
+    assert ks.launches == 51, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dim,size', [
+    (2, dict(lat_nx=256, lat_ny=256)),
+    (3, dict(lat_nx=64, lat_ny=32, lat_nz=32))])
+def test_mixed_kernel_round_trips_every_code(cuda, dim, size):
+    """Every int16 code of every direction through the kernel's own
+    dequantize and quantize: a periodic fluid box at 1/tau = 0 stores
+    f + 0 (feq - f) = f, so each code must come back, streamed."""
+    from sailfish_tpu_torch.ops.step import pull
+    r = run(periodic_box(dim), platform='cuda', engine='kernel',
+            max_iters=0, precision='mixed', periodic_x=True,
+            periodic_y=True, periodic_z=True, **size)
+    ks = r.kernel
+    assert ks.table == [] and int(ks.mask.max()) == 0
+    ks.tau_inv = ks.params.tau_inv = 0.0
+    q = all_codes(ks.grid, ks.shape, 'cuda')
+    out = torch.empty_like(q)
+    ks.step_into(q, out)
+    torch.cuda.synchronize()
+    want = torch.stack([pull(q[i], ks.grid.basis[i])
+                        for i in range(ks.grid.Q)])
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(SIZES))
+def test_mixed_controller_path_runs_int16_buffers(cuda, scene):
+    """--precision=mixed through the controller: the kernel engine on
+    int16 A/B buffers, one launch per step under the mixed key, the fp32
+    state on the int16 grid, and within 3e-5 of the torch engine in rho
+    and u (two code steps of the heaviest distribution)."""
+    ls.reset_launch_counts()
+    cfg = dict(SIZES[scene], max_iters=30, every=10, precision='mixed')
+    r = run(twin(scene), **cfg)
+    ks = r.kernel
+    g = ks.grid.name.lower()
+    assert r.engine == 'kernel' and ks.name == f'lbm_step_mixed_{g}'
+    assert ks.a.dtype == ks.b.dtype == torch.int16
+    assert ks.a.element_size() * ks.a.numel() == 2 * ks.grid.Q * int(
+        np.prod(ks.shape))
+    assert ls.LAUNCHES[ks.name] == sum(ls.LAUNCHES.values()) == 30
+    assert torch.equal(ks.mixed.snap(r.f), r.f)
+    ref = run(twin(scene), engine='torch', **cfg)
+    rho_k, u_k = r.builder.macro_fields(r.f)
+    rho_t, u_t = ref.builder.macro_fields(ref.f)
+    assert float((rho_k - rho_t).abs().max()) <= 3e-5
+    assert float((u_k - u_t).abs().max()) <= 3e-5
+
+
+@pytest.mark.cuda
+def test_every_mixed_instantiation_runs_in_registers(cuda):
+    """ptxas: the 96 int16 instantiations (2 lattices x 4 force models x
+    wall rows or not x 3 collision models x 2 equilibria), each collision
+    model's in its own library, with 0 B stack frame, no spills and at most
+    128 registers."""
+    insts = []
+    for code, name in ls.MIXED_LIBRARIES.items():
+        for fn, use in build.ptxas_usage(build.load(name).log).items():
+            inst = ls.instantiation(fn)
+            if inst:
+                assert ls.MODEL_CODES[inst['model']] == code, (name, fn)
+                assert inst['storage'] == 'int16' and not inst['sc'], fn
+                insts.append(tuple(inst.values()))
+                assert use['stack_frame'] == use['spill_stores'] \
+                    == use['spill_loads'] == 0, (fn, use)
+                assert use['registers'] <= 128, (fn, use)
+    assert len(insts) == len(set(insts)) == 2 * 4 * 2 * 3 * 2
+
+
+@pytest.mark.cuda
+def test_mixed_shear_wave_viscosity(cuda):
+    """Shear-wave decay on the mixed kernel (tests/test_mixed.py:141-176):
+    the viscosity measured from the decay of the first Fourier mode within
+    1.5 % of the configured one."""
+    n, visc, steps = 64, 0.02, 400
+    r = run(periodic_box(3), platform='cuda', engine='kernel', max_iters=0,
+            precision='mixed', periodic_x=True, periodic_y=True,
+            periodic_z=True, lat_nx=n, lat_ny=8, lat_nz=8, visc=visc)
+    ks = r.kernel
+    assert ks.a.dtype == torch.int16
+    nu = shear_wave_viscosity(ks, r.builder, n, visc, steps=steps)
+    assert ks.launches == 2 * steps
+    assert abs(nu - visc) / visc < 0.015, nu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('flags,match', [
+    (dict(precision='mixed', G=-1.6), 'does not cover Shan-Chen'),
+    (dict(precision='mixed', gravity=0.01), 'standard equilibrium only'),
+])
+def test_mixed_refusals_on_the_default_engine(cuda, flags, match):
+    sim = SC_2D if 'G' in flags else twin('fs_gaussian')
     with pytest.raises(NotImplementedError, match=match):
         run(sim, max_iters=0, lat_nx=64, lat_ny=64, **flags)

@@ -288,7 +288,8 @@ def test_kernel_function_checks_the_params_size():
     assert fn.argtypes[:4] == [ctypes.c_void_p] * 4
     assert fn.argtypes[4] == ctypes.POINTER(ls._Params)
     # launches are counted apart by what they compute; one entry serves
-    # all but the Shan-Chen mode, whose pre-pass counts apart too
+    # all but the Shan-Chen mode, whose pre-pass counts apart too, and the
+    # int16 state's mode
     assert sorted(ls.LAUNCHES) == ['lbm_step_d2q9', 'lbm_step_d3q19',
                                    'lbm_step_dyn_d2q9',
                                    'lbm_step_dyn_d3q19',
@@ -298,6 +299,8 @@ def test_kernel_function_checks_the_params_size():
                                    'lbm_step_incomp_d3q19',
                                    'lbm_step_les_d2q9',
                                    'lbm_step_les_d3q19',
+                                   'lbm_step_mixed_d2q9',
+                                   'lbm_step_mixed_d3q19',
                                    'lbm_step_mrt_d2q9',
                                    'lbm_step_mrt_d3q19',
                                    'lbm_step_sc_d2q9',

@@ -78,9 +78,15 @@ def test_step_matches_jax_xla_engine(scene):
     (dict(model='mrt', equilibrium='elbm'), 'equilibrium=elbm'),
     (dict(equilibrium='shallow_water'), 'shallow-water equilibrium is '
      'defined on D2Q9 only; got D3Q19'),
-    (dict(sc_coupling=-5.0, storage='int16'), 'int16 storage'),
+    # int16 storage is ported; what it cannot hold is refused with the
+    # JAX engine's reasons (the ids are the cases' former ones)
+    pytest.param(dict(sc_coupling=-5.0, storage='int16'),
+                 'mixed 16-bit storage does not cover Shan-Chen',
+                 id='kwargs4-int16 storage'),
     (dict(equilibrium='elbm'), 'equilibrium=elbm'),
-    (dict(storage='int16'), 'storage'),
+    pytest.param(dict(storage='int16', dtype=torch.float64),
+                 'mixed 16-bit storage requires fp32 compute',
+                 id='kwargs6-storage'),
 ])
 def test_unported_options_raise(kwargs, match):
     r = cpu_runner(twin('ldc_3d'), lat_nx=8, lat_ny=8,

@@ -697,3 +697,123 @@ def wet_map(maps):
     """Nodes of the scene that collide (fluid and wet BC nodes)."""
     return np.isin(maps.type_map, [t for t in maps.present_types
                                    if nt.get_node_type(t).wet_node])
+
+
+#: --precision=mixed, kernel against plain version (``mixed_errors``): one
+#: launch from the same codes may differ by one code (the two fp32
+#: arithmetics differ by ulps, and an ulp can cross a rounding boundary).
+#: Over many steps each such flip is a kick of one code that the flow
+#: carries on, so two correct fp32 arithmetics drift apart in codes as far
+#: as the scene lets them: the fp32 and the fp64 plain versions of
+#: sphere_3d (nu = 0.01) end 6 codes apart after 200 steps, those of
+#: ldc_3d 2. So the steps are held to the plain version in fp64
+#: arithmetic (quantized each step like the others): the kernel's distance
+#: to it within ``MIXED_FP64_FACTOR`` times the fp32 plain version's, or
+#: within ``MIXED_CODE_FLOOR`` codes
+MIXED_ONE_STEP = 1
+MIXED_CODE_FLOOR = 2
+MIXED_FP64_FACTOR = 2.0
+
+
+def code_distance(q, r, wet):
+    """(max |q - r|, share of codes that differ) of two int16 states over
+    the wet nodes ``wet`` (a bool node map)."""
+    d = (q.to(torch.int32) - r.to(torch.int32))[:, wet]
+    return int(d.abs().max()), float((d != 0).float().mean())
+
+
+def mixed_reference64(ks, q):
+    """One step of the ``ops/lbm_step.KernelStep`` ``ks``'s plain version
+    on the int16 codes ``q`` in fp64 arithmetic: dequantized, widened,
+    stepped and quantized (in fp64) with the values of its last
+    ``set_iteration``."""
+    from sailfish_tpu_torch.ops import lbm_step as ls
+    f = ks.mixed.dequant(q).double()
+    return ks.mixed.quant(ls.step_reference(
+        f, ks.mask, ks.table, ks.grid, ks.tau_inv, ks.bcp, ks.force,
+        ks.force_model, ks.tags, ks.rates, ks.smagorinsky,
+        ks.incompressible))
+
+
+def mixed_errors(ks, q0, steps, it0=0):
+    """The mixed ``KernelStep`` ``ks`` against its plain version from the
+    int16 state ``q0``, from iteration ``it0``: one launch, then ``steps``
+    steps of the kernel, of the fp32 plain version and of the fp64 one.
+    Asserts the criteria above and returns {'one': max |dq| of the launch,
+    'p32': (max, share) kernel to fp32 plain, 'k64': kernel to fp64 plain,
+    'p64': fp32 plain to fp64 plain} (codes, wet nodes) and 'df', the
+    largest wet |df| of the kernel to the fp32 plain version."""
+    wet = (ks.mask == 0) | (ks.mask >= 3)
+    one = torch.empty_like(q0)
+    ks.step_into(q0, one, it0)
+    d1 = code_distance(one, ks.reference(q0), wet)[0]
+    del one
+    qk = ks.run_codes(q0, steps, it0).clone()
+    q32 = q64 = q0
+    for i in range(steps):
+        ks.set_iteration(it0 + i)
+        q32 = ks.reference(q32)
+        q64 = mixed_reference64(ks, q64)
+    out = dict(one=d1, p32=code_distance(qk, q32, wet),
+               k64=code_distance(qk, q64, wet),
+               p64=code_distance(q32, q64, wet),
+               df=float((ks.mixed.dequant(qk) - ks.mixed.dequant(q32))[
+                   :, wet].abs().max()))
+    assert d1 <= MIXED_ONE_STEP, out
+    assert out['k64'][0] <= max(MIXED_CODE_FLOOR,
+                                MIXED_FP64_FACTOR * out['p64'][0]), out
+    return out
+
+
+def all_codes(grid, shape, device):
+    """int16 state (Q, *S) of ``shape`` (65,536 nodes) in which every
+    direction holds each of the 65,536 codes once, direction i's rolled by
+    997 i."""
+    n = int(np.prod(shape))
+    assert n == 65536, shape
+    codes = torch.arange(-32768, 32768, dtype=torch.int32)
+    return torch.stack([torch.roll(codes, 997 * i).reshape(shape)
+                        for i in range(grid.Q)]).to(
+                            torch.int16).to(device).contiguous()
+
+
+def periodic_box(dim):
+    """A fluid box with no boundary node (run it with every
+    ``periodic_<axis>`` flag): rho = 1 at rest."""
+
+    class Box(Subdomain3D if dim == 3 else Subdomain2D):
+        def boundary_conditions(self, *h):
+            pass
+
+        def initial_conditions(self, sim, *h):
+            sim.rho[:] = 1.0
+
+    class Sim(LBFluidSim):
+        subdomain = Box
+
+    return Sim
+
+
+def shear_wave_viscosity(ks, builder, n, visc, u0=0.01, steps=400):
+    """The viscosity a shear wave u_y = u0 sin(2 pi x / n) measures on the
+    D3Q19 engine ``ks`` (a ``KernelStep``, or anything with ``run(f,
+    steps)``) of the periodic n x 8 x 8 box of ``builder``: from the decay
+    of the first Fourier mode of u_y along x between ``steps`` and 2
+    ``steps`` (tests/test_mixed.py:141-176)."""
+    grid = builder.grid
+    dev = builder.device
+    k = 2 * np.pi / n
+    uy = torch.tensor(np.tile(u0 * np.sin(k * np.arange(n)), (8, 8, 1)),
+                      dtype=torch.float32, device=dev)
+    u = torch.stack([torch.zeros_like(uy), uy, torch.zeros_like(uy)])
+    f = teq.bgk_equilibrium(grid, torch.ones_like(uy), u)
+
+    def amp(f):
+        _, uo = teq.macroscopic(grid, builder.streamed(f))
+        return float(np.abs(np.fft.rfft(uo[1][4, 4].cpu().numpy())[1])) / n
+
+    f = ks.run(f, steps).clone()
+    a1 = amp(f)
+    f = ks.run(f, steps).clone()
+    a2 = amp(f)
+    return -np.log(a2 / a1) / (k * k * steps)

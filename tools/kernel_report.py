@@ -111,7 +111,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--sources', nargs='+',
                     default=['fe_step', 'sc_multi', 'lbm_step',
-                             'lbm_step_mrt', 'lbm_step_les'])
+                             'lbm_step_mrt', 'lbm_step_les',
+                             'lbm_step_mixed', 'lbm_step_mixed_mrt',
+                             'lbm_step_mixed_les'])
     ap.add_argument('--match', nargs='*', default=[])
     ap.add_argument('--baseline', default=None)
     args = ap.parse_args()
@@ -146,7 +148,7 @@ def main():
 
 
 def _lbm_key(fn):
-    """(lattice, force model, walls, incompressible) of a BGK
+    """(lattice, force model, walls, incompressible) of a BGK fp32
     ``lbm_step_kernel`` instantiation with the compressible or the
     incompressible equilibrium and without the Shan-Chen mode (an older
     build's, whose sixth template argument was the bool
@@ -155,7 +157,8 @@ def _lbm_key(fn):
     inst = ls.instantiation(fn)
     if inst is None or inst.get('model', 'bgk') != 'bgk' \
             or inst.get('sc', False) \
-            or inst.get('equilibrium') == 'shallow_water':
+            or inst.get('equilibrium') == 'shallow_water' \
+            or inst.get('storage') == 'int16':
         return None
     incomp = inst.get('incompressible',
                       inst.get('equilibrium') == 'incompressible')

@@ -19,7 +19,9 @@ Shan-Chen separations, the forced Rayleigh-Taylor mixture, the ternary
 drops and the ternary 3D separation, the single-component Shan-Chen
 separations (``sc_phase_separation_3d`` / ``sc_phase_separation``: the
 pre-pass and the stream-and-collide kernel's Shan-Chen mode), the
-shallow-water hump (``fs_gaussian``), and the binary free-energy
+shallow-water hump (``fs_gaussian``), the cavities under
+``--precision=mixed`` (``ldc_3d_mixed`` / ``ldc_2d_mixed``: int16 state
+buffers), and the binary free-energy
 separations of ``examples/torch`` at the benchmark sizes (D3Q19 256^3,
 D2Q9 4096^2) it
 runs the controller
@@ -104,6 +106,12 @@ SCENES = {
     'sc_phase_separation_3d': (twin, (256, 256, 256), {}),
     'sc_phase_separation': (twin, (4096, 4096), {}),
     'fs_gaussian': (twin, (4096, 4096), {}),
+    # --precision=mixed: the cavities on int16 buffers (the chunk's
+    # whole-state conversions are PyTorch kernels: "other kernels")
+    'ldc_3d_mixed': (lambda s: twin('ldc_3d'), (256, 256, 256),
+                     {'precision': 'mixed'}),
+    'ldc_2d_mixed': (lambda s: twin('ldc_2d'), (4096, 4096),
+                     {'precision': 'mixed'}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
