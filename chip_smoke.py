@@ -72,7 +72,7 @@ version on the card from seeded random states:
   ``rho_poststream_nk1_<grid>``) and its shallow-water equilibrium
   (``lbm_step_sw_d2q9``) against ``step_reference`` from each scene's own
   seeded start, 20 steps (``SINGLE_MODE_CASES``; the shallow-water mode
-  also against the fp64 plain version, ``SW_FP64_FACTOR``): the spinodal
+  also against the fp64 plain version, ``FP64_FACTOR``): the spinodal
   scenes at
   1024^2 / 128^3 under the classic potential, the linear potential, Guo
   forces and full bounce-back boxes with excluded nodes on 1000 x 600 /
@@ -91,7 +91,21 @@ version on the card from seeded random states:
   space-and-time rows, shapes that are no multiple of the block; 200
   steps, the criterion of ``torch_scenes.mixed_errors``), every one of the
   65,536 codes of every direction through the kernel's own conversions,
-  the shear-wave viscosity on it, and the scenes the mode refuses.
+  the shear-wave viscosity on it, and the scenes the mode refuses;
+* the same kernel's ELBM mode (``--model=elbm``: launches counted as
+  ``lbm_step_elbm_<grid>``, on int16 state as ``lbm_step_mixed_<grid>``)
+  against ``step_reference`` with the entropic collision
+  (``ELBM_CASES``, ``ELBM_MIXED_CASES``): launches with the alpha
+  solve's diagnostics, the branch counts (tiny / series / Newton) of
+  kernel and plain version and the same Newton nodes in both; smooth
+  states (alpha 2 - 1e-3) 200 steps within ``TOL``; a state pushed into
+  the Newton branch one launch, also under each force model and with
+  each kind of wall row, within ``TOL`` or ``FP64_FACTOR`` times the fp32
+  plain version's distance to the fp64 plain version; the cavities' own
+  start 50 steps by the same rule; each force model and the wall rows 50
+  steps from the smooth state, the mean distance to the fp64 plain
+  version within ``ELBM_MEAN_FACTOR`` times the fp32 plain version's;
+  int16 in codes.
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
@@ -115,7 +129,11 @@ of a step that the per-step values cost, the two cavities under
 ``--precision=mixed`` (``ldc_3d_mixed`` 256^3, ``ldc_2d_mixed`` 4096^2:
 one ``lbm_step_mixed`` launch per step on int16 buffers, the mean density
 against the fp32 path's, timed in turns against the fp32 kernel, and the
-cost of the chunk's whole-state conversions), the binary Shan-Chen
+cost of the chunk's whole-state conversions), the three ELBM paths
+(``ELBM_MAIN``: the entropic cavity ``ldc_2d_entropic`` 4096^2 in fp32 and
+int16 and ``bench.py``'s cavity under ``--model=elbm`` 256^3; one launch
+per step, the Newton share of one launch from the last state, timed in
+turns against the BGK kernel of the same storage), the binary Shan-Chen
 separations
 and the free-energy separations (each D3Q19 256^3, D2Q9 4096^2), the
 forced Rayleigh-Taylor mixture (``sc_rayleigh_taylor_2d`` 4096^2), the
@@ -179,9 +197,11 @@ from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           tms_channel_sim, twin, unforced, walled,
                           walls_moved, wet_map, with_keep_block,
                           with_patch_row_mix, MIXED_CODE_FLOOR,
-                          MIXED_FP64_FACTOR, MIXED_ONE_STEP, all_codes,
+                          FP64_FACTOR, MIXED_ONE_STEP, all_codes,
                           code_distance, mixed_errors, periodic_box,
-                          shear_wave_viscosity)
+                          shear_wave_viscosity, ELBM_MEAN_FACTOR,
+                          elbm_branches, elbm_errors, fp64_distances,
+                          newton_state, smooth_feq)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
@@ -392,18 +412,92 @@ MIXED_CASES = [
      dict(lat_nx=1024, lat_ny=1024, velocity='spatial_array'), 2500),
 ]
 
+#: the ELBM mode (``--model=elbm``): the main paths, name -> (sim class,
+#: size, flags, the JSON row): the example's cavity (lid 0.01, nu = 1e-4;
+#: model_zoo d2q9_elbm_ldc_1024, at the port's 2D extent), the same under
+#: --precision=mixed (model_zoo d2q9_elbm_ldc_1024_mixed16) and bench.py's
+#: 3D cavity under --model=elbm
+ELBM_2D = twin('ldc_2d_entropic')
+ELBM_MAIN = {
+    'ldc_2d_entropic': (ELBM_2D, (4096, 4096), {}, 'lbm_step_elbm_d2q9'),
+    'ldc_2d_entropic_mixed': (ELBM_2D, (4096, 4096), dict(
+        precision='mixed', mixed_range=MIXED_RANGE),
+        'lbm_step_mixed_elbm_d2q9'),
+    'ldc_3d_elbm': (LDC_3D, (256, 256, 256), dict(model='elbm'),
+                    'lbm_step_elbm_d3q19'),
+}
+#: the ELBM mode's kernel-vs-plain cases: name -> (sim class, flags,
+#: state: 'smooth' (``smooth_feq`` at ``ELBM_AMP``: every node on the
+#: series branch, alpha 2 - 1e-3; 200 steps within TOL), 'newton'
+#: (``newton_state``: one launch, the same branch at every node), 'own'
+#: (the scene's start; 50 steps within ELBM_CAVITY_TOL or ``FP64_FACTOR``
+#: times the fp32 plain version's distance to the fp64 plain version) or
+#: 'forced' (under a force or with wall rows: one launch from
+#: ``smooth_feq`` at ``ELBM_AMP`` and one from ``newton_state``, each
+#: within TOL or by ``FP64_FACTOR``; then 50 steps from the first, in
+#: which the walls push nodes into the Newton branch: the mean distance to
+#: the fp64 plain version within ``ELBM_MEAN_FACTOR`` times the fp32 plain
+#: version's))
+ELBM_BOX_2D = dict(lat_nx=1024, lat_ny=1024, periodic_x=True,
+                   periodic_y=True)
+ELBM_BOX_3D = dict(lat_nx=128, lat_ny=128, lat_nz=64, periodic_x=True,
+                   periodic_y=True, periodic_z=True)
+ELBM_CASES = [
+    ('box_2d_smooth', periodic_box(2), ELBM_BOX_2D, 'smooth'),
+    ('box_3d_smooth', periodic_box(3), ELBM_BOX_3D, 'smooth'),
+    ('ldc_2d_newton', LDC_2D, dict(lat_nx=1024, lat_ny=1024), 'newton'),
+    ('ldc_3d_newton', LDC_3D, dict(lat_nx=128, lat_ny=128, lat_nz=128),
+     'newton'),
+    ('ldc_2d_entropic_1024', ELBM_2D, dict(lat_nx=1024, lat_ny=1024),
+     'own'),
+    ('ldc_3d_128', LDC_3D, dict(lat_nx=128, lat_ny=128, lat_nz=128), 'own'),
+] + [(f'{scene}_{model}', twin(scene), dict(
+    size, force_implementation=model), 'forced')
+    for scene, size in (('sphere_3d', dict(lat_nx=128, lat_ny=64,
+                                           lat_nz=64)),
+                        ('cylinder', dict(lat_nx=1024, lat_ny=512)))
+    for model in FORCE_MODELS] + [
+    ('halfbb_box_3d_guo', box_sim(WALLS['halfbb'], 3, (0, 1, 2), ACCEL),
+     dict(box_cfg(3, (0, 1, 2)), lat_nx=64, lat_ny=64, lat_nz=64),
+     'forced'),
+    ('tms_channel_2d_guo', tms_channel_sim(2), dict(
+        lat_nx=1024, lat_ny=1024, periodic_x=True), 'forced'),
+    ('slip_3d_y_guo', slip_sim(3, 1), dict(
+        lat_nx=64, lat_ny=64, lat_nz=64, periodic_x=True, periodic_z=True),
+     'forced'),
+    ('channel_x_zouhe', channel_sim('zouhe', 'x'), dict(
+        lat_nx=128, lat_ny=64, lat_nz=64, periodic_z=True), 'forced'),
+]
+#: the ELBM mode on int16 state: (name, sim class, flags), 200 steps in
+#: codes from ``smooth_feq`` (``mixed_errors``; the one launch by
+#: ``elbm_branches``)
+ELBM_MIXED_CASES = [
+    ('ldc_2d_entropic', ELBM_2D, dict(lat_nx=1024, lat_ny=512)),
+    ('ldc_3d', LDC_3D, MIXED_CUBE),
+    ('sphere_3d_edm', twin('sphere_3d'),
+     dict(MIXED_CUBE, force_implementation='edm')),
+    ('tms_box_2d', box_sim(WALLS['tms'], 2, (0, 1)),
+     dict(box_cfg(2, (0, 1)), lat_nx=1024, lat_ny=1024, visc=0.05)),
+    ('halfbb_box_3d_guo', box_sim(WALLS['halfbb'], 3, (0, 1, 2), ACCEL),
+     dict(box_cfg(3, (0, 1, 2)), **MIXED_CUBE)),
+]
+#: the cavity's own start under ELBM, 50 steps: the bound of the JAX
+#: package's ELBM engines (regtest/engine_equivalence.py:100-104)
+ELBM_CAVITY_TOL = 2e-5
+#: the amplitude of the ELBM cases' smooth states: alpha departs from 2 by
+#: up to 1e-3 (at 1e-3 by 1e-5, where the entropic collision is BGK's
+#: within rounding)
+ELBM_AMP = 1e-2
+
 #: kernel-vs-plain tolerance: wet-node max |df| after 200 steps (fp32,
 #: FMA contraction and summation order differ between the two)
 TOL = 1e-5
-#: the shallow-water mode is held to the fp64 plain version instead: the
-#: examples' tau = 0.515 (relaxation rate 1.94) damps each step's fp32
-#: rounding by only 6 % a step, so two correct fp32 steps drift apart
-#: (the torch and the JAX XLA engines on the CPU: 4.6e-6 / 7.8e-6 from
-#: the fp64 torch engine after 20 steps of fs_gaussian at 256^2 /
-#: 1024^2, 2.9e-6 from each other at 1024^2). The kernel's distance to
-#: the fp64 plain version must stay within this many times the fp32
-#: plain version's (or within TOL)
-SW_FP64_FACTOR = 2.0
+#: the shallow-water mode is held to the fp64 plain version instead
+#: (``sw_fp64_check``): the examples' tau = 0.515 (relaxation rate 1.94)
+#: damps each step's fp32 rounding by only 6 % a step, so two correct fp32
+#: steps drift apart (the torch and the JAX XLA engines on the CPU: 4.6e-6
+#: / 7.8e-6 from the fp64 torch engine after 20 steps of fs_gaussian at
+#: 256^2 / 1024^2, 2.9e-6 from each other at 1024^2)
 #: density pre-pass vs rho_reference, max |d rho| (fp32 summation order)
 RHO_TOL = 1e-6
 #: relative drift of a component's total mass over a binary main path.
@@ -501,6 +595,10 @@ NODE_BYTES = {
     # --precision=mixed: int16 codes in and out
     'lbm_step_mixed_d3q19': MIXED_BYTES['D3Q19'],
     'lbm_step_mixed_d2q9': MIXED_BYTES['D2Q9'],
+    # the ELBM mode: the step's bytes (beta and the stops are in the block)
+    'lbm_step_elbm_d3q19': BYTES['D3Q19'],
+    'lbm_step_elbm_d2q9': BYTES['D2Q9'],
+    'lbm_step_mixed_elbm_d2q9': MIXED_BYTES['D2Q9'],
 }
 #: fp32 operations per node, an upper estimate read off each kernel's
 #: source (BGK: ~23 per direction for the moments, feq and relaxation,
@@ -550,6 +648,16 @@ NODE_OPS = {
     # float-to-int conversion), each conversion counted as one operation
     'lbm_step_mixed_d3q19': (23 + 6) * 19,
     'lbm_step_mixed_d2q9': (23 + 6) * 9,
+    # ELBM on the series branch: BGK's moments (~2 per direction), then per
+    # direction the product-form feq rebuilt three times (~3 multiplies
+    # and a subtract each), dev (an abs, two max and a division), one
+    # reciprocal and the four power sums (~9), and the relaxation (~2);
+    # per node the per-axis prefactor, B and 1/B (~10 per axis with a sqrt
+    # and two divisions) and the alpha formula (~25)
+    'lbm_step_elbm_d3q19': (2 + 12 + 4 + 10 + 2) * 19 + 3 * 10 + 25,
+    'lbm_step_elbm_d2q9': (2 + 12 + 4 + 10 + 2) * 9 + 2 * 10 + 25,
+    'lbm_step_mixed_elbm_d2q9': (2 + 12 + 4 + 10 + 2 + 6) * 9 + 2 * 10
+    + 25,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
@@ -624,6 +732,13 @@ KERNELS = {
                              'sailfish_tpu/ops/pallas_step.py:812'),
     'lbm_step_mixed_d2q9': ('lbm_step_mixed.cu',
                             'sailfish_tpu/ops/pallas_step2d.py:36'),
+    # the ELBM mode of make_kernel_3d / make_kernel_2d (fp32 and int16)
+    'lbm_step_elbm_d3q19': ('lbm_step_elbm.cu',
+                            'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_elbm_d2q9': ('lbm_step_elbm.cu',
+                           'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'lbm_step_mixed_elbm_d2q9': ('lbm_step_mixed_elbm.cu',
+                                 'sailfish_tpu/ops/pallas_step2d.py:36'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -675,6 +790,17 @@ MODES = {
     'lbm_step_mixed_d2q9': 'make_kernel_2d, mixed mode (pallas_step2d.py'
                            ':128-132, :455-622), with the lid rows of '
                            'make_bc_patch_kernel_2d (:921-979)',
+    'lbm_step_elbm_d3q19': 'make_kernel_3d, ELBM mode (_collide_elbm '
+                           ':529-555, called at :691-693 and :1668-1687), '
+                           'with the lid rows of make_bc_patch_kernel_3d '
+                           '(_bc_patch_compute :2172-2174)',
+    'lbm_step_elbm_d2q9': 'make_kernel_2d, ELBM mode (pallas_step2d.py'
+                          ':543-565), with the lid rows of '
+                          'make_bc_patch_kernel_2d',
+    'lbm_step_mixed_elbm_d2q9': 'make_kernel_2d, ELBM mode on int16 state '
+                                '(quant_i after _collide_elbm, '
+                                'pallas_step2d.py:563); launches counted '
+                                'as lbm_step_mixed_d2q9',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -1048,22 +1174,16 @@ def sc_refusals():
         raise AssertionError(f'a mixture with {what} was not refused')
 
 
-def fp64_check(ks, f0, fk, fr, steps, it0=0):
-    """The shallow-water mode's criterion (``SW_FP64_FACTOR``): ``steps``
-    steps of the fp64 plain version from ``f0``, and (kernel ``fk`` to it,
-    fp32 plain ``fr`` to it), wet-node max |df|; asserts the first within
-    the factor times the second, or within ``TOL``."""
-    f64 = f0.double()
-    for it in range(steps):
-        ks.set_iteration(it0 + it)
-        f64 = ks.reference(f64)
-    wet = wet_mask(ks)
-    k64 = float((fk.double() - f64)[:, wet].abs().max())
-    p64 = float((fr.double() - f64)[:, wet].abs().max())
-    del f64
-    assert np.isfinite(k64) and k64 <= max(TOL, SW_FP64_FACTOR * p64), \
-        (k64, p64)
-    return k64, p64
+def sw_fp64_check(ks, f0, fk, fr, steps, it0=0):
+    """The shallow-water mode's criterion: the kernel's ``fk`` within TOL
+    or within ``FP64_FACTOR`` times the fp32 plain version's ``fr``
+    distance to the fp64 plain version after ``steps`` from ``f0``
+    (``torch_scenes.fp64_distances``). Returns (k64, p64) and the text."""
+    d = fp64_distances(ks, f0, fk, fr, steps, it0)
+    k64, p64 = d['k64'], d['p64']
+    assert np.isfinite(k64) and k64 <= max(TOL, FP64_FACTOR * p64), d
+    return (f'; against the fp64 plain version kernel {k64:.3e}, fp32 '
+            f'plain {p64:.3e} (tol {FP64_FACTOR:g}x that, or {TOL:g})')
 
 
 def single_mode_compare(name, sim_cls, steps=20, **cfg):
@@ -1110,10 +1230,7 @@ def single_mode_compare(name, sim_cls, steps=20, **cfg):
         held = f' (tol {TOL:g})'
         assert np.isfinite(err) and err <= TOL, err
     else:
-        k64, p64 = fp64_check(ks, f0, fk, fr, steps)
-        held = (f'; against the fp64 plain version kernel {k64:.3e}, fp32 '
-                f'plain {p64:.3e} (tol {SW_FP64_FACTOR:g}x that, or '
-                f'{TOL:g})')
+        held = sw_fp64_check(ks, f0, fk, fr, steps)
     say(f'compare {name}: {ks.grid.name} {ks.shape} {steps} steps of '
         f'{ks.name} ({mode}, force {ks.force_model if ks.force else None}, '
         f'tau {1.0 / ks.tau_inv:g}), mask codes {codes}: {pre}wet max|df| '
@@ -1257,7 +1374,7 @@ def mixed_compare(name, sim_cls, it0=0, steps=MIXED_STEPS, **cfg):
     on the card in codes from one random state quantized, from iteration
     ``it0`` (``torch_scenes.mixed_errors``: one launch within
     ``MIXED_ONE_STEP`` code of the plain version; after ``steps`` steps
-    the kernel within ``MIXED_FP64_FACTOR`` times the fp32 plain version's
+    the kernel within ``FP64_FACTOR`` times the fp32 plain version's
     distance to the fp64 plain version, or within ``MIXED_CODE_FLOOR``
     codes of it). Returns (launch key, wet max |df| of the kernel to the
     fp32 plain version after ``steps``)."""
@@ -1286,7 +1403,7 @@ def mixed_compare(name, sim_cls, it0=0, steps=MIXED_STEPS, **cfg):
         f'max|df| {e["df"]:.3e}), kernel to fp64 plain {e["k64"][0]} '
         f'({e["k64"][1]:.4f}), fp32 plain to fp64 plain {e["p64"][0]} '
         f'({e["p64"][1]:.4f}) (tol max({MIXED_CODE_FLOOR}, '
-        f'{MIXED_FP64_FACTOR:g} x {e["p64"][0]}))')
+        f'{FP64_FACTOR:g} x {e["p64"][0]}))')
     key = ks.name
     del r, ks, q0
     torch.cuda.empty_cache()
@@ -1467,6 +1584,262 @@ def mixed_main_path(path, scene, size, copy_bw, fp32, chunk=500, chunks=4):
     del r, ks, a, b, k32
     torch.cuda.empty_cache()
     return key, result
+
+
+def branch_line(b):
+    """The branch counts of ``elbm_branches``' result ``b`` as text."""
+    return (f'branches tiny / series / Newton: kernel {b["kernel"]}, plain '
+            f'{b["plain"]} (nodes on another branch: {b["flips"]}; the same '
+            f'Newton nodes: {b["newton_same"]}), at most {b["iters"]} '
+            f'Newton steps at a node')
+
+
+def elbm_launch(ks, f0, tol=TOL):
+    """One launch of the ELBM kernel with the alpha solve's diagnostics
+    against its plain version from ``f0`` (``elbm_branches``): the same
+    Newton nodes in both, f within ``tol`` or within ``FP64_FACTOR`` times
+    the fp32 plain version's distance to the fp64 plain version. Returns
+    (the ``elbm_branches`` dict, its text)."""
+    b = elbm_branches(ks, f0, tol=tol)
+    assert b['newton_same'], b
+    text = f'{branch_line(b)}; one launch wet max|df| = {b["err"]:.3e}'
+    if b['k64'] is not None:
+        text += (f' (to the fp64 plain version kernel {b["k64"]:.3e}, fp32 '
+                 f'plain {b["p64"]:.3e}, factor {FP64_FACTOR:g})')
+        assert b['k64'] <= FP64_FACTOR * b['p64'], b
+    return b, text
+
+
+def elbm_compare(name, sim_cls, cfg, state):
+    """The ELBM mode (``lbm_step_elbm_<grid>``, or the wall rows' key) vs
+    ``step_reference`` on the card from ``state`` (see ``ELBM_CASES``):
+    launches with the alpha solve's diagnostics (``elbm_launch``), then
+    the case's steps (``torch_scenes.elbm_errors``). Returns (JSON row, the
+    largest wet max |df|)."""
+    r = run(with_keep_block(sim_cls), platform=DEVICE, engine='kernel',
+            max_iters=0, model='elbm', seed=1234, **cfg)
+    ks = r.kernel
+    g = ks.grid.name.lower()
+    assert ks.params.coll.model == ls.MODEL_CODES['elbm'], ks.params
+    assert ks.library == 'lbm_step_elbm'
+    assert ks.name in (f'lbm_step_elbm_{g}', f'lbm_step_wall_{g}'), ks.name
+    codes = sorted(torch.unique(ks.mask).tolist())
+    if state == 'own':
+        f0 = r.f.clone()
+    elif state == 'newton':
+        f0 = newton_state(ks.grid, ks.shape, 1234, DEVICE)
+    else:
+        f0 = smooth_feq(ks.grid, ks.shape, 1234, DEVICE, amp=ELBM_AMP)
+    b, text = elbm_launch(ks, f0)
+    errs = [b['err']]
+    if state == 'smooth':
+        assert b['kernel'][2] == b['plain'][2] == 0 < b['kernel'][1], b
+    if state in ('newton', 'forced'):
+        bn, more = elbm_launch(ks, newton_state(ks.grid, ks.shape, 1234,
+                                                DEVICE)) \
+            if state == 'forced' else (b, '')
+        # from the Newton state the same branch at every node (elsewhere a
+        # node within rounding of dev = 1e-6 may take the tiny branch in
+        # one and the series in the other)
+        assert bn['same'] and bn['kernel'][2] > 0.9 * sum(bn['kernel']), bn
+        errs.append(bn['err'])
+        if more:
+            text += f'; from the Newton state: {more}'
+    if state != 'newton':
+        steps, tol = {'smooth': (200, TOL), 'own': (50, ELBM_CAVITY_TOL),
+                      'forced': (50, TOL)}[state]
+        e = elbm_errors(ks, f0, steps, tol, newton=state == 'forced')
+        errs.append(e['err'])
+        held = (f'mean {e["k64_mean"]:.3e} / {e["p64_mean"]:.3e}, factor '
+                f'{ELBM_MEAN_FACTOR:g}' if state == 'forced' else
+                f'factor {FP64_FACTOR:g}')
+        text += (f'; {steps} steps wet max|df| = {e["err"]:.3e} (tol {tol:g};'
+                 f' to the fp64 plain version kernel {e["k64"]:.3e}, fp32 '
+                 f'plain {e["p64"]:.3e}; {held})')
+        if state == 'smooth':
+            assert e['err'] <= TOL, e
+    force = ks.force_model if ks.force else None
+    say(f'compare elbm {name}: {ks.grid.name} {ks.shape} {ks.name}, force '
+        f'{force}, tau {1.0 / ks.tau_inv:g}, mask codes {codes}, state '
+        f'{state}: {text}')
+    key = f'lbm_step_elbm_{g}'
+    del r, ks, f0
+    torch.cuda.empty_cache()
+    return key, max(errs)
+
+
+def elbm_mixed_compare(name, sim_cls, cfg, steps=MIXED_STEPS):
+    """The ELBM mode on int16 state (``lbm_step_mixed_<grid>`` of the
+    ``lbm_step_mixed_elbm`` library) vs ``step_reference`` in codes from
+    states quantized: one launch each from ``smooth_feq`` at ``ELBM_AMP``
+    and from ``newton_state`` with the diagnostics (``elbm_launch``: the
+    same Newton nodes; within one code of the heaviest direction, or the
+    fp64 criterion), then ``mixed_errors`` over ``steps`` steps from
+    ``smooth_feq``. Returns (JSON row, wet max |df| to the fp32 plain
+    version)."""
+    r = run(sim_cls, platform=DEVICE, engine='kernel', max_iters=0,
+            model='elbm', precision='mixed', mixed_range=MIXED_RANGE, **cfg)
+    ks = r.kernel
+    g = ks.grid.name.lower()
+    assert ks.name == ks.entry == f'lbm_step_mixed_{g}', ks.name
+    assert ks.library == 'lbm_step_mixed_elbm'
+    text = '; '.join(
+        f'from the {label} state: ' + elbm_launch(
+            ks, ks.mixed.quant(f0), tol=float(max(ks.mixed.ws)))[1]
+        for label, f0 in (
+            ('smooth', smooth_feq(ks.grid, ks.shape, 1234, DEVICE,
+                                  amp=ELBM_AMP)),
+            ('Newton', newton_state(ks.grid, ks.shape, 1234, DEVICE))))
+    q0 = ks.mixed.quant(smooth_feq(ks.grid, ks.shape, 1234, DEVICE))
+    e = mixed_errors(ks, q0, steps, one_launch=False)
+    say(f'compare mixed elbm {name}: {ks.grid.name} {ks.shape} {ks.name} '
+        f'({ks.library}, force {ks.force_model if ks.force else None}): '
+        f'{text}; after {steps} steps: kernel to '
+        f'fp32 plain max|dq| {e["p32"][0]}, kernel to fp64 plain '
+        f'{e["k64"][0]}, fp32 plain to fp64 plain {e["p64"][0]} (tol '
+        f'max({MIXED_CODE_FLOOR}, {FP64_FACTOR:g} x {e["p64"][0]}))')
+    del r, ks, q0
+    torch.cuda.empty_cache()
+    return f'lbm_step_mixed_elbm_{g}', e['df']
+
+
+def elbm_main_path(path, copy_bw, chunk=500, chunks=4):
+    """An ELBM main path (``ELBM_MAIN``) through the controller with the
+    default engine, the launch counts zeroed just before and read just
+    after: one launch per step under ``lbm_step_elbm_<grid>`` (int16:
+    ``lbm_step_mixed_<grid>``), MLUPS the median of the chunks after the
+    first. Checks the fields (finite, no node faster than the lid, the
+    mean wet density near 1), one launch from the final state with the
+    diagnostics (the same branch at every node as the plain version; its
+    Newton share), and times the kernel, its plain version and, in turns
+    on the same maps and buffers, the BGK kernel of the same storage: from
+    the final state and from one state per branch (``elbm_turns``)."""
+    sim_cls, size, flags, row = ELBM_MAIN[path]
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    steps = chunk * chunks
+    ls.reset_launch_counts()
+    r = run(sim_cls, max_iters=steps, every=chunk, **cfg, **flags)
+    counts = dict(ls.LAUNCHES)
+    ks = r.kernel
+    grid = r.sim.grid.name
+    mixed = ks.mixed is not None
+    key = f'lbm_step_{"mixed" if mixed else "elbm"}_{grid.lower()}'
+    assert r.engine == 'kernel' and ks.name == key, ks.name
+    assert r.config.model == 'elbm' and ks.elbm is not None
+    assert counts[key] == steps == r.sim.iteration == ks.launches, counts
+    assert sum(counts.values()) == steps, counts
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    for name in ('rho', 'vx') + (('alpha',) if hasattr(r.sim, 'alpha')
+                                 else ()):
+        arr = getattr(r.sim, name)
+        assert arr.shape == shape and np.all(np.isfinite(arr)), name
+    mask = ks.mask.cpu().numpy()
+    wet = (mask == 0) | (mask >= 3)
+    mean_rho = float(np.mean(r.sim.rho[wet], dtype=np.float64))
+    vmax = float(np.abs(r.sim.vx[wet]).max())
+    lid = sim_cls.subdomain.max_v
+    assert vmax <= 1.01 * lid and abs(mean_rho - 1.0) < 0.01, \
+        (vmax, mean_rho)
+    alpha = ''
+    if hasattr(r.sim, 'alpha'):
+        a = r.sim.alpha[wet]
+        alpha = (f', alpha field (the diagnostic of the state) {a.min():.6f}'
+                 f'-{a.max():.6f}, mean {a.mean():.6f}')
+    mlups = statistics.median(r.mlups_history[1:])
+    nbytes = MIXED_BYTES[grid] if mixed else BYTES[grid]
+    eff = mlups * 1e6 * nbytes
+    say(f'main path {path} {"x".join(map(str, size))} ({grid}, engine '
+        f'{r.engine}, --model=elbm{", --precision=mixed" if mixed else ""}, '
+        f'lid {lid}, visc {r.config.visc:g}): {counts[key]} {key} launches; '
+        f'MLUPS per {chunk}-step chunk '
+        f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f} '
+        f'MLUPS; {eff / 1e9:.1f} GB/s effective ({nbytes} B/node), '
+        f'{eff / copy_bw:.3f} of the copy bandwidth; mean wet rho '
+        f'{mean_rho:.8f}, max |vx| {vmax:.5f}{alpha}')
+    a, b = ks.a, ks.b
+    state = a.copy_(ks.mixed.quant(r.f)) if mixed else r.f.clone()
+    tol = float(max(ks.mixed.ws)) if mixed else TOL
+    d = elbm_branches(ks, state, steps, tol=tol)
+    newton = d['kernel'][2] / max(1, sum(d['kernel']))
+    fp64 = '' if d['k64'] is None else \
+        (f' (to the fp64 plain version kernel {d["k64"]:.3e}, fp32 plain '
+         f'{d["p64"]:.3e})')
+    say(f'compare main path {path}: one launch from the state after '
+        f'{steps} steps: {branch_line(d)}; Newton share of the colliding '
+        f'nodes {newton:.6f}; wet max|df| = {d["err"]:.3e} (tol {tol:.3g})'
+        f'{fp64}')
+    assert d['newton_same'], d
+    assert d['k64'] is None or d['k64'] <= FP64_FACTOR * d['p64'], d
+    if not mixed:
+        a.copy_(state)
+    del state
+    ms = util.cuda_time_ms(lambda: ks.step_into(a, b), 50, warmup=5)
+    plain_ms = util.cuda_time_ms(lambda: ks.reference(a), 3)
+    # the BGK kernel of the same storage on the same maps, in turns
+    from sailfish_tpu_torch.ops.step import StepBuilder
+    bgk = ls.KernelStep(StepBuilder(
+        r.sim.grid, r.maps, tau=r.builder.tau, device=DEVICE,
+        storage='int16' if mixed else 'fp'))
+    assert bgk.name == f'lbm_step_{"mixed_" if mixed else ""}' \
+        f'{grid.lower()}' and torch.equal(bgk.mask, ks.mask)
+    t, turns = elbm_turns(ks, bgk, a)
+    say(f'kernel {row} ({key}) at {"x".join(map(str, size))}: {ms:.4f} ms '
+        f'per launch; step_reference {plain_ms:.3f} ms; in turns ELBM '
+        f'{t["elbm"]:.4f} {turns["elbm"]} / BGK {t["bgk"]:.4f} '
+        f'{turns["bgk"]} ms: ELBM over BGK {t["elbm"] / t["bgk"]:.4f}')
+    grid_obj = ks.grid
+    rest = eq.bgk_equilibrium(
+        grid_obj, torch.ones(ks.shape, device=DEVICE),
+        torch.zeros((grid_obj.dim,) + ks.shape, device=DEVICE))
+    per_branch = {}
+    for label, f0 in (
+            ('rest', rest),
+            ('smooth', smooth_feq(grid_obj, ks.shape, 5, DEVICE,
+                                  amp=ELBM_AMP)),
+            ('newton', newton_state(grid_obj, ks.shape, 5, DEVICE))):
+        a.copy_(ks.mixed.quant(f0) if mixed else f0)
+        del f0
+        diag = torch.full((2,) + ks.shape, -1.0, device=DEVICE)
+        ks.diagnostics_into(a, b, diag)
+        coll = diag[1] >= 0
+        counts_b = [int((diag[1].clamp(max=2)[coll] == v).sum())
+                    for v in (0, 1, 2)]
+        iters = int(diag[1].max()) - 2 if counts_b[2] else 0
+        del diag, coll
+        tb, _ = elbm_turns(ks, bgk, a)
+        per_branch[label] = dict(branches=counts_b, newton_iters=iters,
+                                 elbm_ms=tb['elbm'], bgk_ms=tb['bgk'],
+                                 ratio=tb['elbm'] / tb['bgk'])
+        say(f'kernel {row} at {"x".join(map(str, size))} from the {label} '
+            f'state: branches tiny / series / Newton {counts_b} (at most '
+            f'{iters} Newton steps at a node); in turns ELBM '
+            f'{tb["elbm"]:.4f} / BGK {tb["bgk"]:.4f} ms: ELBM over BGK '
+            f'{tb["elbm"] / tb["bgk"]:.4f}')
+    del rest
+    result = dict(launches=counts[key], mlups=mlups, ms=ms,
+                  plain_ms=plain_ms, err=d['err'], bgk_ms=t['bgk'],
+                  elbm_over_bgk=t['elbm'] / t['bgk'], newton_share=newton,
+                  per_branch=per_branch)
+    del r, ks, a, b, bgk
+    torch.cuda.empty_cache()
+    return row, result
+
+
+def elbm_turns(ks, bgk, state, launches=100):
+    """The ELBM ``KernelStep`` ``ks`` and the BGK one ``bgk`` of the same
+    maps and storage, each stepping from ``state`` (copied into its A
+    buffer) into its B buffer, timed with CUDA events in turns (ELBM, BGK,
+    BGK, ELBM). Returns ({'elbm' / 'bgk': mean ms}, the turns)."""
+    turns = {'elbm': [], 'bgk': []}
+    for k in (ks, bgk):
+        if k.a is not state:
+            k.a.copy_(state)
+    for which in ('elbm', 'bgk', 'bgk', 'elbm'):
+        k = ks if which == 'elbm' else bgk
+        turns[which].append(util.cuda_time_ms(
+            lambda: k.step_into(k.a, k.b), launches, warmup=20))
+    return {k: statistics.mean(v) for k, v in turns.items()}, turns
 
 
 def copy_bandwidth():
@@ -2127,10 +2500,7 @@ def single_mode_main_path(scene, size, name, copy_bw, chunk=500,
         held = f' (tol {TOL:g})'
         assert np.isfinite(err) and err <= TOL, err
     else:
-        k64, p64 = fp64_check(ks, f0, fk, fr, 20, it0=steps)
-        held = (f'; against the fp64 plain version kernel {k64:.3e}, fp32 '
-                f'plain {p64:.3e} (tol {SW_FP64_FACTOR:g}x that, or '
-                f'{TOL:g})')
+        held = sw_fp64_check(ks, f0, fk, fr, 20, it0=steps)
     del f0, fk, fr
     say(f'compare main path {scene}: '
         + ('' if rho_err is None else
@@ -2427,11 +2797,12 @@ def main():
                         f' spill stores {use.get("spill_stores")} B, spill '
                         f'loads {use.get("spill_loads")} B')
     # two lattices x (no force + three force models) x wall rows or not x
-    # three collision models x two equilibria, in fp32 and in int16; the
+    # three collision models x two equilibria, in fp32 and in int16; ELBM
+    # with the compressible equilibrium in both; the
     # shallow-water equilibrium (D2Q9 BGK, three force models, wall rows or
     # not) and the Shan-Chen mode (two lattices, no force or Guo) in fp32
     assert len(kinds) == 2 * (2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2) \
-        + 6 + 4, len(kinds)
+        + 2 * (2 * (1 + len(FORCE_MODELS)) * 2) + 6 + 4, len(kinds)
     # two lattices x K = 2, 3 x forced or not
     assert len(sc_kinds) == 2 * 2 * 2, sc_kinds
     for name, tile in (('fe_step_d3q19', fe.TILE_3D),
@@ -2643,6 +3014,15 @@ def main():
     mixed_shear_wave()
     mixed_refusals()
     phase_done('kernel comparisons (mixed)')
+    # the ELBM mode: smooth states, the Newton branch, the cavities' own
+    # start, each force model and the wall rows; then on int16 state
+    for name, sim_cls, cfg, state in ELBM_CASES:
+        key, err = elbm_compare(name, sim_cls, cfg, state)
+        note(key, err)
+    for name, sim_cls, cfg in ELBM_MIXED_CASES:
+        key, err = elbm_mixed_compare(name, sim_cls, cfg)
+        note(key, err)
+    phase_done('kernel comparisons (ELBM)')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
             ('fe_separation_2d', 'fe_separation_2d',
@@ -2766,6 +3146,10 @@ def main():
         say(f'{path}: {res["mlups"]:.1f} MLUPS against {fp32["mlups"]:.1f} '
             f'on the fp32 main path of the same size: '
             f'{res["mlups"] / fp32["mlups"]:.4f} of it')
+    for path in ELBM_MAIN:
+        row, res = elbm_main_path(path, copy_bw)
+        results[row] = res
+        note(row, res['err'])
     phase_done('single-fluid main paths')
     for scene, (sim_cls, size, name, demix) in SC_MAIN.items():
         merge_rows(results, sc_main_path(scene, sim_cls, size, copy_bw,
@@ -2816,7 +3200,8 @@ def main():
                             bound_by=bound_by, library_ms=None))
         for key in ('x_normal_ms', 'models_ms', 'collision_ms', 'step_ms',
                     'dynamic_share', 'unforced_ms', 'mlups', 'fp32_ms',
-                    'mixed_over_fp32', 'convert_ms'):
+                    'mixed_over_fp32', 'convert_ms', 'bgk_ms',
+                    'elbm_over_bgk', 'newton_share'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:

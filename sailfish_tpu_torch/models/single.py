@@ -4,10 +4,11 @@ The host-side code of the JAX package's ``LBFluidSim``
 (``sailfish_tpu/models/single.py:17-153``: options, fields, host field
 plumbing) merged with the three methods that touch device arrays: the
 initial state, the device -> host field copy and the step builder; the
-shallow-water model ``LBFreeSurface`` and the single-component Shan-Chen
-model ``LBSingleFluidShanChen`` (:217-233, :299-317), which only add
-options and step-builder arguments. The entropic and IBM sim classes are
-still to be ported.
+entropic model ``LBEntropicFluidSim`` (:160-215: ``--model=elbm`` with the
+diagnostic field ``alpha``); the shallow-water model ``LBFreeSurface`` and
+the single-component Shan-Chen model ``LBSingleFluidShanChen`` (:217-233,
+:299-317), which only add options and step-builder arguments. The IBM sim
+class is still to be ported.
 """
 
 from __future__ import annotations
@@ -139,6 +140,10 @@ class LBFluidSim(LBSim):
             kwargs.setdefault('mixed_range', cfg.mixed_range)
         if getattr(cfg, 'entropic_equilibrium', False):
             kwargs.setdefault('equilibrium', 'elbm')
+        kwargs.setdefault('entropy_tolerance',
+                          getattr(cfg, 'entropy_tolerance', 0.0))
+        kwargs.setdefault('alpha_tolerance',
+                          getattr(cfg, 'alpha_tolerance', 1e-10))
         return StepBuilder(
             self.grid, maps,
             model=cfg.model,
@@ -151,6 +156,63 @@ class LBFluidSim(LBSim):
             device=device,
             time_unit=getattr(cfg, 'dt_per_lattice_time_unit', 1.0),
             **kwargs)
+
+
+class LBEntropicFluidSim(LBFluidSim):
+    """Entropic LBM with alpha tracking (reference lb_single.py:200-217).
+
+    alpha == 2 where the flow is fully resolved; < 2 indicates smoothing,
+    > 2 enhancement of perturbations. The field is a diagnostic of the
+    current state, computed when the fields are copied to the host (the
+    plain ``entropic_alpha`` on the streamed distributions, whichever
+    engine steps), not by the step."""
+
+    alpha_output = True
+
+    @classmethod
+    def modify_config(cls, config):
+        config.model = 'elbm'
+
+    @classmethod
+    def fields(cls):
+        return [ScalarField('rho'), VectorField('v'),
+                ScalarField('alpha', init=2.0)]
+
+    def init_fields(self, shape):
+        super().init_fields(shape)
+        self.alpha = np.full(shape, 2.0, dtype=np.float64)
+
+    def host_fields(self):
+        out = super().host_fields()
+        out['alpha'] = self.alpha
+        return out
+
+    def update_host_fields(self, macro):
+        super().update_host_fields(macro)
+        runner = getattr(self, '_runner', None)
+        if runner is not None:
+            self.alpha[...] = self.alpha_of(runner.builder, runner.f) \
+                .cpu().numpy().astype(np.float64)
+
+    def before_main_loop(self, runner):
+        self._runner = runner
+
+    @staticmethod
+    def alpha_of(builder, f):
+        """The entropic alpha of the state ``f``: of its streamed
+        distributions against the product form at their own rho and u,
+        with the builder's Newton stops (reference entropic.mako:176-183,
+        ``alpha_out``)."""
+        from sailfish_tpu_torch import equilibrium as eq
+        from sailfish_tpu_torch.ops import entropic
+        with torch.no_grad():
+            fs = builder.streamed(f)
+            rho, u = eq.macroscopic(builder.grid, fs)
+            feq = entropic.elbm_equilibrium(builder.grid, rho, u)
+            return entropic.entropic_alpha(
+                builder.grid, fs, feq - fs,
+                entropy_tol=builder.entropy_tolerance,
+                alpha_tol=builder.alpha_tolerance)
 
 
 class LBFreeSurface(LBFluidSim):

@@ -2,7 +2,7 @@
 ``sailfish_tpu/ops/collide.py``): BGK, multiple-relaxation-time (MRT; TRT
 is MRT with the same rate vector), the Smagorinsky subgrid tau field, the
 Guo and exact-difference forcing terms and the Shan-Chen pseudopotential
-force. The entropic (ELBM) collision is still to be ported."""
+force. The entropic (ELBM) collision is in ``ops/entropic.py``."""
 
 from __future__ import annotations
 

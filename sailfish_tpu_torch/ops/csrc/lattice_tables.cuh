@@ -43,6 +43,13 @@ struct D3Q19 {
         return n2(i) == 0 ? (float)(1.0 / 3.0)
              : n2(i) == 1 ? (float)(1.0 / 18.0) : (float)(1.0 / 36.0);
     }
+    // ln w_i: the float64 logarithm of the float64 weight, rounded to
+    // float32 (the entropy of the entropic collision)
+    __host__ __device__ static constexpr float logw(int i) {
+        return n2(i) == 0 ? (float)-1.0986122886681098
+             : n2(i) == 1 ? (float)-2.890371757896165
+                          : (float)-3.58351893845611;
+    }
     // free-energy weights (ops/multigrid.py fe_weights)
     __host__ __device__ static constexpr float wi(int i) {
         return n2(i) == 0 ? 0.0f
@@ -80,6 +87,12 @@ struct D2Q9 {
     __host__ __device__ static constexpr float w(int i) {
         return n2(i) == 0 ? (float)(4.0 / 9.0)
              : n2(i) == 1 ? (float)(1.0 / 9.0) : (float)(1.0 / 36.0);
+    }
+    // ln w_i, as D3Q19::logw
+    __host__ __device__ static constexpr float logw(int i) {
+        return n2(i) == 0 ? (float)-0.8109302162163288
+             : n2(i) == 1 ? (float)-2.1972245773362196
+                          : (float)-3.58351893845611;
     }
 };
 

@@ -104,12 +104,13 @@
 //   non-equilibrium stress over the node's distributions, which are in
 //   registers already. The rates, tau and 36 C^2 are in the parameter
 //   block: a step of any model moves the same bytes. This file builds the
-//   collision model LBM_MODEL (default BGK); lbm_step_mrt.cu and
-//   lbm_step_les.cu define it and include this file, so the 106
-//   instantiations compile as three libraries (32 each for MRT and LES,
-//   42 with the shallow-water and Shan-Chen ones for BGK), one nvcc each,
-//   in parallel (one library of 96 took 154.5 s), and the host loads the
-//   library of its model (ops/lbm_step.py LIBRARIES).
+//   collision model LBM_MODEL (default BGK); lbm_step_mrt.cu,
+//   lbm_step_les.cu and lbm_step_elbm.cu define it and include this file,
+//   so the 122 fp32 instantiations compile as four libraries (32 each for
+//   MRT and LES, 16 for ELBM, 42 with the shallow-water and Shan-Chen ones
+//   for BGK), one nvcc each, in parallel (one library of 96 took 154.5 s),
+//   and the host loads the library of its model (ops/lbm_step.py
+//   LIBRARIES).
 // - The force model is a template parameter: four instantiations per lattice,
 //   picked on the host from LBMParams::force.model, so the unforced kernel
 //   carries no force code and no branch. The force itself (acceleration,
@@ -137,8 +138,9 @@
 //   and lbm_step_mixed_les.cu (LBM_MIXED; 32 each: every force model, wall
 //   rows or not, the compressible or the incompressible equilibrium; no
 //   shallow water, no Shan-Chen mode, as in JAX) behind the entries
-//   lbm_step_mixed_d2q9 / _d3q19, whose LBMMixed block is a kernel
-//   parameter of its own (the fp32 kernels get an empty one). A node then
+//   lbm_step_mixed_d2q9 / _d3q19 (and lbm_step_mixed_elbm.cu, 16), whose
+//   LBMMixed block is a kernel parameter of its own (the fp32 kernels get
+//   an empty one). A node then
 //   moves 2 * Q * 2 + 1 = 77 B (D3Q19) / 37 B (D2Q9). Each pulled code is
 //   dequantized in registers and each stored value quantized (decode / put:
 //   the multiply and the add rounded apart, one saturating round-to-even
@@ -146,6 +148,20 @@
 //   nodes store the pulled codes untouched (w_i = w_opp(i), and the slip
 //   mirror keeps the weight), as the Pallas kernel selects the raw codes
 //   at dry and keep nodes (pallas_step.py:967-968).
+// - The entropic collision (ELBM, MODEL_ELBM: pallas_step.py:_collide_elbm
+//   :529-555, called at :691-693, :1668-1694, :2172-2174 and
+//   pallas_step2d.py:543-565) is a fourth collision model, built by
+//   lbm_step_elbm.cu and lbm_step_mixed_elbm.cu (16 instantiations each:
+//   every force model, wall rows or not, the compressible equilibrium; the
+//   JAX runner keeps the product-form equilibrium off its kernels,
+//   sailfish_tpu/runner.py:375-376, and so does this one). One thread per
+//   node as before: each solves its own node's alpha (a Newton loop of its
+//   own, 20 steps at most, that only Newton nodes enter; dry and keep nodes
+//   never do), where the TPU block iterates all its lanes in lockstep until
+//   all converged. Only f[Q] stays live: the product-form feq_i is rebuilt
+//   from three per-axis factors wherever it is needed (ProductEq in
+//   lbm_common.cuh). Its beta and Newton stops are LBMParams::elbm, at the
+//   end of the block. A step still moves the BGK bytes.
 // Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
 // an in-place (AA-pattern) step would halve the footprint.
 
@@ -202,8 +218,8 @@ lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
         if constexpr (SC)
             sc_collide_node<L, P>(fs, p, rho_pre, s, b, n, node);
         else
-            collide_node<L, P>(fs, p.tau_inv, p.force, p.coll, b, n, node,
-                               sc);
+            collide_node<L, P>(fs, p.tau_inv, p.force, p.coll, p.elbm, b, n,
+                               node, sc);
     } else if (m == 1) {
         reflect_node<L>(raw, b, n, node);
     } else if (m == 2) {
@@ -239,8 +255,9 @@ static int launch_kernel(const T* a, T* b, const uint8_t* mask,
 }
 
 // The instantiation of the block's equilibrium; a block of another
-// collision model than this library's is refused, and so is the
-// shallow-water equilibrium outside fp32 D2Q9 BGK or under EDM.
+// collision model than this library's is refused, and so are the
+// shallow-water equilibrium outside fp32 D2Q9 BGK or under EDM and the
+// incompressible one under ELBM.
 template <int DIM, int Q, int FORCE, bool WALLS, typename T, typename S>
 static int launch_coll(const T* a, T* b, const uint8_t* mask,
                        const float* bcp, const int* tags, const LBMParams* p,
@@ -251,8 +268,12 @@ static int launch_coll(const T* a, T* b, const uint8_t* mask,
         return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, EQ_BGK>(
             a, b, mask, bcp, tags, p, sc, stream);
     case EQ_INCOMP:
-        return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, EQ_INCOMP>(
-            a, b, mask, bcp, tags, p, sc, stream);
+        // the entropic collision is built with the compressible
+        // equilibrium only (its BC rows reconstruct with it)
+        if constexpr (LBM_MODEL != MODEL_ELBM)
+            return launch_kernel<DIM, Q, FORCE, WALLS, LBM_MODEL, EQ_INCOMP>(
+                a, b, mask, bcp, tags, p, sc, stream);
+        break;
     case EQ_SHALLOW:
         if constexpr (DIM == 2 && LBM_MODEL == MODEL_BGK
                       && FORCE != FORCE_EDM
@@ -340,6 +361,7 @@ static void copy_tables(LBMTables* out) {
         for (int d = 0; d < L::DIM; ++d) out->slip[d][i] = slip_of<L>(i, d);
         for (int k = 0; k <= L::DIM; ++k)
             out->minv[i][k] = mrt_minv_cons<L>(i, k);
+        out->logw[i] = L::logw(i);
     }
 }
 
@@ -391,6 +413,16 @@ int lbm_step_mixed_d3q19(const int16_t* a, int16_t* b, const uint8_t* mask,
     return launch<3, 19>(a, b, mask, bcp, tags, p, *mx, stream);
 }
 #endif
+
+// Where the ELBM instantiations of this library write each colliding
+// node's alpha and branch (lbm_elbm_diag in lbm_common.cuh): out, a (2, n)
+// fp32 buffer, or null for none; set on the stream before the launches it
+// is for. The other instantiations never read it.
+int lbm_elbm_diagnostics(float* out, void* stream) {
+    return (int)cudaMemcpyToSymbolAsync(lbm_elbm_diag, &out, sizeof(out), 0,
+                                        cudaMemcpyHostToDevice,
+                                        (cudaStream_t)stream);
+}
 
 int lbm_mixed_size(void) { return (int)sizeof(LBMMixed); }
 

@@ -1,9 +1,10 @@
 """The kernel engine: one fused stream-and-collide CUDA kernel launch per
 step, with native BCs of static, varying or time-dependent parameters, the
 local walls (half-way bounce-back, Tamm-Mott-Smith, slip), a constant or
-time-dependent uniform body force, and the collision models BGK, MRT/TRT
-and Smagorinsky LES with the compressible or the incompressible
-equilibrium; the D2Q9 shallow-water equilibrium; the single-component
+time-dependent uniform body force, and the collision models BGK, MRT/TRT,
+Smagorinsky LES (with the compressible or the incompressible equilibrium)
+and the entropic ELBM (``--model=elbm``, the compressible equilibrium at
+its BC rows); the D2Q9 shallow-water equilibrium; the single-component
 Shan-Chen mode, two launches per step: the post-stream density pre-pass
 ``rho_poststream`` of ``csrc/sc_multi.cu`` (at nk = 1), then the step; and
 int16 state buffers under ``--precision=mixed`` (``ops/mixed.py``: the
@@ -44,6 +45,7 @@ card; the main path never calls it on a CUDA tensor.
 from __future__ import annotations
 
 import ctypes
+import math
 import re
 from collections import namedtuple
 
@@ -74,7 +76,8 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: of the JAX patch kernels), ``lbm_step_mrt_<grid>`` (the MRT/TRT
 #: relaxation), ``lbm_step_les_<grid>`` (BGK at the Smagorinsky rate),
 #: ``lbm_step_incomp_<grid>`` (the incompressible equilibrium; these three
-#: the collision-model mode of the JAX package's kernels), after
+#: the collision-model mode of the JAX package's kernels), below
+#: ``lbm_step_elbm_<grid>`` (the entropic collision, its ELBM mode), after
 #: ``lbm_step_sc_<grid>`` (the Shan-Chen mode; its C entry is
 #: ``lbm_step_sc_<grid>``) and ``lbm_step_sw_<grid>`` (the shallow-water
 #: equilibrium), which rank below the wall rows and above the models,
@@ -86,8 +89,8 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: mode's pre-pass counts as ``rho_poststream_nk1_<grid>``. Every launch on
 #: int16 buffers (``--precision=mixed``, any of the above that the mode
 #: takes) counts as ``lbm_step_mixed_<grid>``, its C entry's name.
-LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'sw_',
-                'sc_', 'wall_', 'dyn_', 'mixed_')
+LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'elbm_',
+                'sw_', 'sc_', 'wall_', 'dyn_', 'mixed_')
 LAUNCHES = dict.fromkeys(
     [f'lbm_step_{v}{g.lower()}' for v in LAUNCH_KINDS
      for g in KERNEL_GRIDS]
@@ -101,20 +104,21 @@ BCP_REWRITES = dict.fromkeys((f'bcp_{g.lower()}' for g in KERNEL_GRIDS), 0)
 FORCE_CODES = {name: 1 + i for i, name in enumerate(st.FORCE_MODELS)}
 #: collision model -> its code in the parameter block (csrc/lbm_common.cuh
 #: MODEL_*): TRT is MRT with the same rate vector
-MODEL_CODES = {'bgk': 0, 'mrt': 1, 'trt': 1, 'les': 2}
+MODEL_CODES = {'bgk': 0, 'mrt': 1, 'trt': 1, 'les': 2, 'elbm': 3}
 #: equilibrium -> its code in the parameter block (csrc/lbm_common.cuh
 #: EQ_*)
 EQ_CODES = {'bgk': 0, 'incompressible': 1, 'shallow_water': 2}
 #: Shan-Chen potential -> its code (csrc/lbm_common.cuh SC_*)
 SC_POTENTIALS = {'linear': 0, 'classic': 1}
 #: model code -> the csrc source whose library holds its instantiations
-#: (each builds lbm_step.cu with one collision model, so the three compile
+#: (each builds lbm_step.cu with one collision model, so the four compile
 #: in parallel)
-LIBRARIES = {0: 'lbm_step', 1: 'lbm_step_mrt', 2: 'lbm_step_les'}
+LIBRARIES = {0: 'lbm_step', 1: 'lbm_step_mrt', 2: 'lbm_step_les',
+             3: 'lbm_step_elbm'}
 #: the same for the int16 state of --precision=mixed (each source builds
 #: lbm_step.cu with LBM_MIXED and one collision model)
 MIXED_LIBRARIES = {0: 'lbm_step_mixed', 1: 'lbm_step_mixed_mrt',
-                   2: 'lbm_step_mixed_les'}
+                   2: 'lbm_step_mixed_les', 3: 'lbm_step_mixed_elbm'}
 
 
 def reset_launch_counts():
@@ -223,12 +227,16 @@ def bc_table(maps, instances, boxes=None):
 def kernel_ineligibility(builder, nodes=None):
     """Reasons the kernel cannot run ``builder``'s scene (empty when it
     can); ``nodes`` is ``classify_nodes`` of its maps when the caller has
-    it. The torch ``StepBuilder`` already refuses ELBM, Shan-Chen and the
-    node types it lacks (the outflow family, ``NTGuoDensity``,
-    ``NTExtendedCopy``); an MRT rate vector that does not split into one
-    even and one odd rate (``mrt_pair_rates``) is refused here, and ELBM
-    by name. A body force that varies from node to node, constant or a
-    DynamicValue of space, runs on the torch engine only (the JAX runner
+    it. The torch ``StepBuilder`` already refuses the node types it lacks
+    (the outflow family, ``NTGuoDensity``, ``NTExtendedCopy``); an MRT
+    rate vector that does not split into one even and one odd rate
+    (``mrt_pair_rates``) is refused here, and so are, by name, the
+    product-form equilibrium (``--entropic_equilibrium``: the JAX runner
+    keeps it off its kernels too, ``sailfish_tpu/runner.py:375-376``) and
+    ELBM with the incompressible equilibrium at its BC rows (the kernel's
+    ELBM mode is built with the compressible one). A body force that
+    varies from node to node, constant or a DynamicValue of space, runs on
+    the torch engine only (the JAX runner
     keeps it off its kernels too, ``sailfish_tpu/runner.py:386-395``,
     ``pallas_step.py:2608-2612``). So do what the JAX runner keeps off its
     Shan-Chen and shallow-water kernels (``sailfish_tpu/runner.py:355-385``,
@@ -254,9 +262,13 @@ def kernel_ineligibility(builder, nodes=None):
                        f'for {", ".join(KERNEL_GRIDS)})')
     if builder.dtype != torch.float32:
         reasons.append(f'{builder.dtype} (the kernel is fp32 only)')
-    if builder.model == 'elbm':
-        reasons.append('model=elbm (the entropic ELBM collision is not in '
-                       'the kernel)')
+    if builder.equilibrium == 'elbm':
+        reasons.append('equilibrium=elbm (the product-form equilibrium of '
+                       '--entropic_equilibrium; --engine=torch runs it)')
+    if builder.model == 'elbm' and builder.incompressible:
+        reasons.append('model=elbm with --incompressible (the kernel\'s '
+                       'ELBM mode reconstructs its BC rows with the '
+                       'compressible equilibrium; --engine=torch runs it)')
     if builder.mrt_rates is not None:
         try:
             mrt_pair_rates(builder.grid, builder.mrt_rates)
@@ -369,7 +381,7 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
                    force_model='guo', tags=None, rates=None,
                    smagorinsky=0.0, incompressible=False, equilibrium='bgk',
                    gravity=0.0, sc_coupling=0.0, sc_potential='linear',
-                   sc_rho=None, mixed=None):
+                   sc_rho=None, mixed=None, elbm=None):
     """Plain PyTorch version of the kernel: one step
     of state ``f`` (Q, *S) under uint8 mask codes ``mask`` (*S) and BC
     table ``table`` (list of ``BCRow``), with relaxation rate ``tau_inv``.
@@ -383,7 +395,9 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
     when it is given, else BGK, at the local Smagorinsky rate when
     ``smagorinsky`` > 0, with the incompressible equilibrium when
     ``incompressible``, or with ``equilibrium`` 'shallow_water' the D2Q9
-    shallow-water one at ``gravity``. With ``sc_coupling`` G != 0 (the
+    shallow-water one at ``gravity``, or with ``elbm`` (a
+    ``step.Entropic``: tau and the Newton stops) the entropic collision.
+    With ``sc_coupling`` G != 0 (the
     Shan-Chen mode) the neighbours' psi comes from ``sc_rho``, the density
     the pre-pass wrote (default: ``sc_multi.rho_reference`` of ``f``). With
     ``mixed`` (an ``ops/mixed.MixedScales``) ``f`` holds int16 codes: they
@@ -393,7 +407,8 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
         return mixed.quant(step_reference(
             mixed.dequant(f), mask, table, grid, tau_inv, bcp, force,
             force_model, tags, rates, smagorinsky, incompressible,
-            equilibrium, gravity, sc_coupling, sc_potential, sc_rho))
+            equilibrium, gravity, sc_coupling, sc_potential, sc_rho,
+            elbm=elbm))
     ones = (1,) * (f.dim() - 1)
     instances, slip = [], []
     tagged = tms = None
@@ -435,7 +450,8 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
         force_model=force_model, incompressible=incompressible, rates=rates,
         smagorinsky=smagorinsky,
         feq=st.equilibrium_fn(grid, incompressible, equilibrium, gravity),
-        sc_coupling=sc_coupling, sc_potential=sc_potential, sc_rho=sc_rho)
+        sc_coupling=sc_coupling, sc_potential=sc_potential, sc_rho=sc_rho,
+        elbm=elbm)
 
 
 class _BC(ctypes.Structure):
@@ -466,6 +482,11 @@ class _ShanChen(ctypes.Structure):
                 ('tau', ctypes.c_float)]
 
 
+class _Entropic(ctypes.Structure):
+    _fields_ = [('beta', ctypes.c_float), ('entropy_tol', ctypes.c_float),
+                ('alpha_tol', ctypes.c_float)]
+
+
 class _Mixed(ctypes.Structure):
     _fields_ = [('ws', ctypes.c_float * MAX_Q),
                 ('inv_ws', ctypes.c_float * MAX_Q)]
@@ -487,7 +508,8 @@ class _Params(ctypes.Structure):
                 ('nz', ctypes.c_int), ('nbc', ctypes.c_int),
                 ('tau_inv', ctypes.c_float),
                 ('bc', _BC * MAX_BC), ('vary', _Vary * MAX_BC),
-                ('force', _Force), ('coll', _Collide), ('sc', _ShanChen)]
+                ('force', _Force), ('coll', _Collide), ('sc', _ShanChen),
+                ('elbm', _Entropic)]
 
 
 class _Tables(ctypes.Structure):
@@ -496,7 +518,8 @@ class _Tables(ctypes.Structure):
                 ('w', ctypes.c_float * MAX_Q),
                 ('opp', ctypes.c_int * MAX_Q),
                 ('slip', (ctypes.c_int * MAX_Q) * 3),
-                ('minv', (ctypes.c_float * 4) * MAX_Q)]
+                ('minv', (ctypes.c_float * 4) * MAX_Q),
+                ('logw', ctypes.c_float * MAX_Q)]
 
 
 def mrt_conserved_columns(grid):
@@ -521,7 +544,8 @@ def lattice_tables(grid):
     """``_Tables`` filled from ``sailfish_tpu_torch.lattice``: what the
     kernel's ``lbm_lattice_tables`` must copy out for ``grid`` (entries
     beyond Q, the z component in 2D, the slip permutation of the z axis in
-    2D and the M^-1 column of the z momentum in 2D are 0)."""
+    2D and the M^-1 column of the z momentum in 2D are 0); ``logw`` is the
+    float64 ln w_i rounded to float32, as ``ops/entropic.py`` rounds it."""
     t = _Tables()
     t.q, t.dim = grid.Q, grid.dim
     minv = mrt_conserved_columns(grid)
@@ -530,6 +554,7 @@ def lattice_tables(grid):
             t.c[i][a] = int(grid.basis[i][a])
         t.w[i] = float(grid.weights[i])
         t.opp[i] = int(grid.opposite[i])
+        t.logw[i] = math.log(float(grid.weights[i]))
         for k in range(1 + grid.dim):
             t.minv[i][k] = float(minv[i, k])
     for a in range(grid.dim):
@@ -592,13 +617,17 @@ def mrt_pair_rates(grid, rates):
 
 
 def set_collision(p, grid, tau_inv, rates=None, smagorinsky=0.0,
-                  incompressible=False, equilibrium='bgk', gravity=0.0):
-    """Write the collision model into the block ``p``: MRT (code 1, its
-    even and odd rates from ``mrt_pair_rates``) when ``rates`` is given,
-    else LES (code 2: tau, tau^2 and 36 C^2, computed in fp64) when
-    ``smagorinsky`` > 0, else BGK (code 0); and the equilibrium
-    (``EQ_CODES``: 'shallow_water' with its ``gravity``, else the
-    compressible or the incompressible one)."""
+                  incompressible=False, equilibrium='bgk', gravity=0.0,
+                  elbm=None):
+    """Write the collision model into the block ``p``: ELBM (code 3, and
+    in ``p.elbm`` beta = 1 / (2 tau) and the Newton stops of ``elbm``, a
+    ``step.Entropic``, beta computed in fp64; the Smagorinsky constant is
+    ignored, as the JAX engine ignores it) when ``elbm`` is given, else MRT
+    (code 1, its even and odd rates from ``mrt_pair_rates``) when
+    ``rates`` is given, else LES (code 2: tau, tau^2 and 36 C^2, computed
+    in fp64) when ``smagorinsky`` > 0, else BGK (code 0); and the
+    equilibrium (``EQ_CODES``: 'shallow_water' with its ``gravity``, else
+    the compressible or the incompressible one)."""
     c = p.coll
     if equilibrium == 'shallow_water':
         c.equilibrium = EQ_CODES['shallow_water']
@@ -606,7 +635,12 @@ def set_collision(p, grid, tau_inv, rates=None, smagorinsky=0.0,
     else:
         c.equilibrium = EQ_CODES['incompressible' if incompressible
                                  else 'bgk']
-    if rates is not None:
+    if elbm is not None:
+        c.model = MODEL_CODES['elbm']
+        p.elbm.beta = 1.0 / (2.0 * elbm.tau)
+        p.elbm.entropy_tol = elbm.entropy_tol
+        p.elbm.alpha_tol = elbm.alpha_tol
+    elif rates is not None:
         c.model = MODEL_CODES['mrt']
         c.s_e, c.s_o = mrt_pair_rates(grid, rates)
     elif smagorinsky > 0.0:
@@ -629,7 +663,7 @@ def set_row(p, j, rho, u):
 def kernel_params(grid, shape, table, tau_inv, force=None,
                   force_model='guo', rates=None, smagorinsky=0.0,
                   incompressible=False, equilibrium='bgk', gravity=0.0,
-                  sc_coupling=0.0, sc_potential='linear'):
+                  sc_coupling=0.0, sc_potential='linear', elbm=None):
     """The kernel's by-value parameter block: domain extents, relaxation
     rate, the BC table, behind it where each varying row's per-node
     parameters lie, the body force (``set_force``; None: model code 0,
@@ -660,7 +694,7 @@ def kernel_params(grid, shape, table, tau_inv, force=None,
     if force is not None:
         set_force(p, grid, force, force_model, tau_inv)
     set_collision(p, grid, tau_inv, rates, smagorinsky, incompressible,
-                  equilibrium, gravity)
+                  equilibrium, gravity, elbm)
     p.sc.potential = SC_POTENTIALS[sc_potential]
     p.sc.g = sc_coupling
     p.sc.tau = 1.0 / tau_inv
@@ -694,7 +728,7 @@ def instantiation(fn):
         if key in out:
             out[key] = bool(out[key])
     if 'model' in out:
-        out['model'] = ('bgk', 'mrt', 'les')[out['model']]
+        out['model'] = ('bgk', 'mrt', 'les', 'elbm')[out['model']]
     if 'equilibrium' in out:
         if args[5][0] == 'b':
             out['incompressible'] = bool(out.pop('equilibrium'))
@@ -759,6 +793,7 @@ class KernelStep:
     DynamicValue force, else None), the collision model (``rates``: the
     MRT rate vector or None, ``smagorinsky``: the LES constant, 0 without,
     ``incompressible``, ``equilibrium`` and ``gravity``), ``sc_coupling``
+    ``elbm`` (the entropic collision's ``step.Entropic``, or None),
     and ``sc_potential`` (the Shan-Chen mode when the coupling is not 0:
     ``rho``, the (*S) buffer of the pre-pass densities, and ``rho_name``,
     the pre-pass's key of ``LAUNCHES``), ``library`` (the csrc source of its
@@ -821,6 +856,7 @@ class KernelStep:
         self.incompressible = builder.incompressible
         self.equilibrium = builder.equilibrium
         self.gravity = builder.gravity
+        self.elbm = builder.elbm
         self.sc_coupling = builder.sc_coupling
         self.sc_potential = builder.sc_potential
         self.sc = self.sc_coupling != 0.0
@@ -835,7 +871,7 @@ class KernelStep:
             self.grid, self.shape, self.table, self.tau_inv, self.force,
             self.force_model, self.rates, self.smagorinsky,
             self.incompressible, self.equilibrium, self.gravity,
-            self.sc_coupling, self.sc_potential)
+            self.sc_coupling, self.sc_potential, self.elbm)
         self.library = (LIBRARIES if self.mixed is None
                         else MIXED_LIBRARIES)[self.params.coll.model]
         g = self.grid.name.lower()
@@ -846,6 +882,7 @@ class KernelStep:
             'wall_' if self.walls else \
             'sc_' if self.sc else \
             'sw_' if self.equilibrium == 'shallow_water' else \
+            'elbm_' if self.elbm is not None else \
             'mrt_' if self.rates is not None else \
             'les_' if self.smagorinsky > 0.0 else \
             'incomp_' if self.incompressible else \
@@ -935,7 +972,7 @@ class KernelStep:
                               self.smagorinsky, self.incompressible,
                               self.equilibrium, self.gravity,
                               self.sc_coupling, self.sc_potential, rho,
-                              self.mixed)
+                              self.mixed, self.elbm)
 
     def _stream(self, t):
         return torch.cuda.current_stream(t.device).cuda_stream
@@ -995,6 +1032,57 @@ class KernelStep:
             raise RuntimeError(f'{self.name} launch failed: CUDA error {rc}')
         self.launches += 1
         LAUNCHES[self.name] += 1
+
+    def diagnostics_into(self, src, dst, diag, it=0, plain=False):
+        """Step ``it`` from ``src`` into ``dst`` as ``step_into`` does
+        (with ``plain``, by the plain version on any device), and write what
+        the alpha solve of each colliding node did into ``diag``, a (2, *S)
+        fp32 buffer: alpha in ``diag[0]``, the branch in ``diag[1]`` (0 tiny
+        deviation, 1 series, 2 Newton; from the kernel, 2 + k after k Newton
+        steps). Nodes that do not collide keep what ``diag`` held. Under the
+        ELBM collision only."""
+        if self.elbm is None:
+            raise ValueError('diagnostics of the alpha solve need the ELBM '
+                             'collision')
+        want = (2,) + self.shape
+        if tuple(diag.shape) != want or diag.dtype != torch.float32 \
+                or not diag.is_contiguous() or diag.device != src.device:
+            raise ValueError(f'expected a contiguous float32 {want} buffer '
+                             f'on {src.device}')
+        if plain or src.device.type == 'cpu':
+            self.set_iteration(it)
+            self.elbm.record_branches = True
+            try:
+                dst.copy_(self.reference(src))
+            finally:
+                self.elbm.record_branches = False
+            collides = (self.mask == 0) | (self.mask >= 3)
+            for j, row in enumerate(self.table):
+                if nt.get_node_type(row.type_id) is nt.NTSlip:
+                    collides &= self.mask != 3 + j
+            diag[0] = torch.where(collides, self.elbm.last_alpha, diag[0])
+            diag[1] = torch.where(collides, self.elbm.last_branch.float(),
+                                  diag[1])
+            return
+        from sailfish_tpu_torch.ops import build
+        set_diag = build.load(self.library).lib.lbm_elbm_diagnostics
+        set_diag.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        set_diag.restype = ctypes.c_int
+        stream = self._stream(src)
+
+        def point(ptr):
+            rc = set_diag(ptr, stream)
+            if rc != 0:
+                raise RuntimeError(f'lbm_elbm_diagnostics failed: CUDA error '
+                                   f'{rc}')
+
+        point(diag.data_ptr())
+        try:
+            self.step_into(src, dst, it)
+        finally:
+            # a step_into that refuses its buffers must not leave the
+            # library writing into ``diag`` at its next launch
+            point(None)
 
     def run(self, f, n, it0=0):
         """``n`` steps from state ``f``, the first computing iteration

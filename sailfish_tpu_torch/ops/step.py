@@ -9,8 +9,10 @@ dry-node handling, exactly the JAX phase sequence.
 
 The subset: BGK, MRT or TRT collision (TRT is MRT with the same rate
 vector, ``sailfish_tpu/ops/step.py:271-272``), optionally with the
-Smagorinsky subgrid tau field, the second-order equilibrium (compressible
-or the incompressible He-Luo form) or the D2Q9 shallow-water one, a body
+Smagorinsky subgrid tau field, or the entropic ELBM collision
+(``ops/entropic.py``, ``sailfish_tpu/ops/step.py:726-745``); the
+second-order equilibrium (compressible or the incompressible He-Luo form),
+the product-form (entropic) one or the D2Q9 shallow-water one, a body
 force (Guo, exact-difference or velocity-shift forcing) that is constant,
 per-node or a ``DynamicValue`` of time and space, the single-component
 Shan-Chen velocity shift, fp32 or fp64 storage or int16 fixed-point
@@ -48,6 +50,7 @@ from sailfish_tpu_torch import equilibrium as eq
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.equilibrium import signed_sum
 from sailfish_tpu_torch.ops import collide as co
+from sailfish_tpu_torch.ops import entropic as ent
 from sailfish_tpu_torch.ops.mixed import DEFAULT_RANGE, MixedScales
 
 #: Elementwise BC families (macro solve -> reconstruction -> collide, no
@@ -129,8 +132,12 @@ def equilibrium_fn(grid, incompressible=False, equilibrium='bgk',
                    gravity=0.0):
     """The model's equilibrium as a function feq(rho, u) -> (Q, *S)
     (``StepBuilder.feq`` of ``sailfish_tpu/ops/step.py:352-364``): the
-    second-order one (incompressible or not), or with ``equilibrium``
-    'shallow_water' the D2Q9 shallow-water one at ``gravity``."""
+    second-order one (incompressible or not), with ``equilibrium``
+    'elbm' the product form (``entropic.elbm_equilibrium``, which has no
+    incompressible variant), or with 'shallow_water' the D2Q9
+    shallow-water one at ``gravity``."""
+    if equilibrium == 'elbm':
+        return functools.partial(ent.elbm_equilibrium, grid)
     if equilibrium == 'shallow_water':
         return functools.partial(eq.shallow_water_equilibrium, grid,
                                  gravity=gravity)
@@ -279,6 +286,24 @@ def select_dry(grid, fs, fpost, wet, fullbb, slip=()):
 FORCE_MODELS = ('guo', 'edm', 'velocity_shift')
 
 
+class Entropic:
+    """The entropic collision's settings: the base relaxation time ``tau``
+    (beta = 1 / (2 tau)), the Newton stops ``entropy_tol`` and
+    ``alpha_tol``; ``last_alpha`` holds the alpha field of the last
+    collision made with them (``sailfish_tpu/ops/step.py:726-735``)."""
+
+    def __init__(self, tau, entropy_tol=1e-6, alpha_tol=1e-10):
+        self.tau = float(tau)
+        self.entropy_tol = float(entropy_tol)
+        self.alpha_tol = float(alpha_tol)
+        self.last_alpha = None
+        #: with ``record_branches`` set, ``last_branch`` holds the dispatch
+        #: branch of each node of the last collision
+        #: (``entropic.branches``)
+        self.record_branches = False
+        self.last_branch = None
+
+
 def is_dynamic_force(body_force):
     """Whether ``body_force`` holds time or space callables (a
     ``DynamicValue``, or a sequence with a callable component)."""
@@ -289,7 +314,7 @@ def is_dynamic_force(body_force):
 def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
                    u_eq=None, incompressible=False, rates=None,
                    smagorinsky=0.0, feq=None, sc_coupling=0.0,
-                   sc_potential='linear', sc_rho=None):
+                   sc_potential='linear', sc_rho=None, elbm=None, skip=None):
     """The collision under the body force ``force`` (an acceleration,
     (dim, *S) or broadcastable; None: no force), ``_collide`` of
     ``sailfish_tpu/ops/step.py:690-751``. ``guo`` relaxes towards
@@ -311,10 +336,18 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
     with ``smagorinsky`` > 0 at the local Smagorinsky rate, whose strain
     comes from feq(rho, u) at the unshifted velocity. The LES field sets
     only the BGK relaxation: the Guo prefactor and the velocity shift keep
-    the base tau, and MRT ignores the field, as in the JAX engine."""
+    the base tau, and MRT ignores the field, as in the JAX engine.
+
+    With ``elbm`` (an ``Entropic``) the relaxation is the entropic one,
+    ``entropic.elbm_collide`` towards the product form at u_eq with the
+    base tau, whatever ``feq``, ``incompressible`` and ``smagorinsky``
+    say; the force's term follows as under BGK, and the alpha field goes
+    to ``elbm.last_alpha``. ``skip``: the nodes whose result the caller
+    discards (dry nodes), kept out of the Newton solve's convergence
+    test."""
     feq = feq or equilibrium_fn(grid, incompressible)
     tau_eff = tau_inv
-    if smagorinsky > 0.0 and rates is None:
+    if smagorinsky > 0.0 and rates is None and elbm is None:
         tau_eff = co.smagorinsky_tau_inv(grid, fs, feq(rho, u), rho,
                                          1.0 / tau_inv, smagorinsky)[None]
     if u_eq is None:
@@ -331,6 +364,13 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
     if rates is not None:
         fpost = co.mrt_collide(grid, fs, rho, u_eq, rates,
                                incompressible=incompressible)
+    elif elbm is not None:
+        fpost, elbm.last_alpha = ent.elbm_collide(
+            grid, fs, rho, u_eq, elbm.tau, skip=skip,
+            entropy_tol=elbm.entropy_tol, alpha_tol=elbm.alpha_tol)
+        if elbm.record_branches:
+            elbm.last_branch = ent.branches(
+                grid, fs, ent.elbm_equilibrium(grid, rho, u_eq) - fs)
     else:
         fpost = fs + tau_eff * (feq(rho, u_eq) - fs)
     if force is not None:
@@ -347,13 +387,14 @@ def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
                 fullbb=None, slip=(), tags=None, tms=None, force=None,
                 force_model='guo', incompressible=False, rates=None,
                 smagorinsky=0.0, feq=None, sc_coupling=0.0,
-                sc_potential='linear', sc_rho=None):
+                sc_potential='linear', sc_rho=None, elbm=None):
     """One step after the gather, in the JAX order
     (``sailfish_tpu/ops/step.py:809-825``): fix missing -> macro -> BC
     solves -> pre-collision BC -> ``forced_collide`` on every node (BC
     nodes with their solved rho and u; the collision model of ``rates``
-    and ``smagorinsky``, the equilibrium ``feq`` and the Shan-Chen shift of
-    ``sc_coupling``) -> dry select and dry walls -> the TMS shift.
+    and ``smagorinsky`` or the entropic one of ``elbm``, the equilibrium
+    ``feq`` and the Shan-Chen shift of ``sc_coupling``) -> dry select and
+    dry walls -> the TMS shift.
     ``fs``: the gathered distributions; ``f``: the state they were pulled
     from; ``instances``: (cls, orientation, mask, rho_bc, vel_bc) with the
     parameters of this step."""
@@ -366,17 +407,16 @@ def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
                            incompressible=incompressible, rates=rates,
                            smagorinsky=smagorinsky, feq=feq,
                            sc_coupling=sc_coupling,
-                           sc_potential=sc_potential, sc_rho=sc_rho)
+                           sc_potential=sc_potential, sc_rho=sc_rho,
+                           elbm=elbm, skip=None if wet is None else ~wet)
     fpost = select_dry(grid, fs2, fpost, wet, fullbb, slip)
     return apply_tms(grid, fpost, rho, u, tms, target, feq)
 
 
-#: collision models of the torch engine (``--model``); 'elbm' is not
-#: ported yet
-MODELS = ('bgk', 'mrt', 'trt')
-#: equilibria of the torch engine; 'elbm' (the product form) is not ported
-#: yet
-EQUILIBRIA = ('bgk', 'shallow_water')
+#: collision models of the torch engine (``--model``)
+MODELS = ('bgk', 'mrt', 'trt', 'elbm')
+#: equilibria of the torch engine ('elbm': the product form)
+EQUILIBRIA = ('bgk', 'elbm', 'shallow_water')
 
 
 class StepBuilder:
@@ -388,7 +428,12 @@ class StepBuilder:
     ``smagorinsky`` > 0 is the LES constant; ``sc_coupling`` G != 0 (with
     ``sc_potential``) the single-component Shan-Chen force;
     ``equilibrium`` 'shallow_water' the D2Q9 shallow-water equilibrium at
-    ``gravity`` (rho is the water height). ``storage`` 'int16' keeps the
+    ``gravity`` (rho is the water height), 'elbm' the product form.
+    ``model`` 'elbm' is the entropic collision (``elbm``, an ``Entropic``)
+    with the Newton stops ``entropy_tolerance`` (0.0: 1e-6 in fp32, 1e-10
+    in fp64) and ``alpha_tolerance``; it ignores ``smagorinsky`` and, in
+    its relaxation, ``incompressible`` and ``equilibrium``, as the JAX
+    engine does. ``storage`` 'int16' keeps the
     state on the int16 grid of ``ops/mixed.MixedScales`` at ``mixed_range``
     (default ``DEFAULT_RANGE``)."""
 
@@ -397,6 +442,7 @@ class StepBuilder:
                  force_model='guo', sc_coupling=0.0, sc_potential='linear',
                  equilibrium='bgk', gravity=0.0, dtype=torch.float32,
                  device='cpu', storage='fp', mixed_range=None,
+                 entropy_tolerance=0.0, alpha_tolerance=1e-10,
                  time_unit=1.0):
         if force_model not in FORCE_MODELS:
             raise ValueError(
@@ -406,9 +452,7 @@ class StepBuilder:
             raise ValueError(f'sc_potential must be linear or classic; '
                              f'got {sc_potential!r}')
         unported = []
-        if model == 'elbm':
-            unported.append('model=elbm (the entropic ELBM collision)')
-        elif model not in MODELS:
+        if model not in MODELS:
             unported.append(f'model={model}')
         if equilibrium not in EQUILIBRIA:
             unported.append(f'equilibrium={equilibrium}')
@@ -435,6 +479,17 @@ class StepBuilder:
         self.mrt_rates = (grid.mrt_relaxation_rates(self.tau)
                           if model in ('mrt', 'trt') else None)
         self.smagorinsky = float(smagorinsky)
+        # the ELBM Newton stops (--entropy_tolerance, --alpha_tolerance;
+        # 0.0 selects the precision's default, sailfish_tpu/ops/step.py
+        # :93-98)
+        self.entropy_tolerance = float(entropy_tolerance) \
+            if entropy_tolerance > 0.0 else \
+            (1e-6 if dtype == torch.float32 else 1e-10)
+        self.alpha_tolerance = float(alpha_tolerance)
+        #: the entropic collision's settings under model 'elbm', else None
+        self.elbm = (Entropic(self.tau, self.entropy_tolerance,
+                              self.alpha_tolerance)
+                     if model == 'elbm' else None)
         self.incompressible = incompressible
         self._feq = equilibrium_fn(grid, incompressible, equilibrium,
                                    self.gravity)
@@ -619,7 +674,14 @@ class StepBuilder:
             force_model=self.force_model,
             incompressible=self.incompressible, rates=self.mrt_rates,
             smagorinsky=self.smagorinsky, feq=self._feq,
-            sc_coupling=self.sc_coupling, sc_potential=self.sc_potential)
+            sc_coupling=self.sc_coupling, sc_potential=self.sc_potential,
+            elbm=self.elbm)
+
+    @property
+    def last_alpha(self):
+        """The alpha field of the last entropic collision (None before
+        one, or under another model)."""
+        return None if self.elbm is None else self.elbm.last_alpha
 
     # -- per-phase pieces for the multi-component builders -----------------
     # (the names and semantics of ``sailfish_tpu/ops/step.py:584-770``)
@@ -649,7 +711,8 @@ class StepBuilder:
                               rates=self.mrt_rates,
                               smagorinsky=self.smagorinsky, feq=self._feq,
                               sc_coupling=self.sc_coupling,
-                              sc_potential=self.sc_potential)
+                              sc_potential=self.sc_potential, elbm=self.elbm,
+                              skip=None if self.wet is None else ~self.wet)
 
     def _post_collision(self, fs, fpost):
         return bounce_back(self.grid, fs, fpost, self.fullbb, self.slip)

@@ -22,8 +22,9 @@ in the kernel engine's plain version, against the JAX package.
   each model moving the fields from BGK's by more than that.
 * The shear-wave viscosity within 2 % for bgk/mrt/trt, and LES more
   dissipative than BGK (after tests/test_models.py:37-48).
-* trt bit-identical to mrt on both engines; ``--model=elbm`` raises and
-  names ELBM.
+* trt bit-identical to mrt on both engines; ``--model=elbm`` runs on
+  both (tests/test_torch_entropic.py holds it against JAX), and the kernel
+  names the product-form equilibrium it refuses.
 """
 
 import ctypes
@@ -442,17 +443,25 @@ def test_trt_is_bit_identical_to_mrt():
     assert ctypes.sizeof(ls._Params) == len(blocks[0])
 
 
-def test_elbm_raises_by_name():
-    """ELBM is not ported: the torch StepBuilder names it on either engine
-    (the kernel engine's builder is the same), and the kernel engine's
-    eligibility check names it too."""
-    for engine in ('torch', 'kernel'):
-        with pytest.raises(NotImplementedError, match='ELBM'):
-            cpu_runner(twin('ldc_2d'), lat_nx=8, lat_ny=8, model='elbm',
-                       engine=engine)
-    r = cpu_runner(unforced(twin('cylinder')), lat_nx=16, lat_ny=8)
-    r.builder.model = 'elbm'
-    assert any('ELBM' in why for why in ls.kernel_ineligibility(r.builder))
+def test_elbm_runs_on_both_engines():
+    """ELBM is ported: the torch engine and the kernel engine (its plain
+    version on the CPU; the kernel on the card, tests/test_torch_cuda.py)
+    step it, bit for bit alike here, under its launch key;
+    the kernel engine refuses by name the product-form equilibrium, which
+    the torch engine runs."""
+    r = cpu_runner(unforced(twin('cylinder')), lat_nx=16, lat_ny=8,
+                   model='elbm')
+    assert r.engine == 'torch' and r.builder.elbm is not None
+    ks = ls.KernelStep(r.builder)
+    assert ks.name == 'lbm_step_elbm_d2q9'
+    f = r.builder.build()(r.f)
+    assert torch.equal(ks.run(r.f, 1), f)
+    assert torch.all(r.builder.last_alpha != 0)
+    r = cpu_runner(unforced(twin('cylinder')), lat_nx=16, lat_ny=8,
+                   entropic_equilibrium=True)
+    assert r.builder.equilibrium == 'elbm'
+    assert any('equilibrium=elbm' in why
+               for why in ls.kernel_ineligibility(r.builder))
 
 
 def test_instantiation_reads_the_template_arguments():

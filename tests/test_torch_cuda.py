@@ -81,7 +81,7 @@ cylinder, on half-way and TMS boxes, and on native-BC faces normal to each
 axis (50 / 200 steps, <= 1e-5; one launch <= 1e-6, and the model moves one
 step from a random state away from BGK by more than 1e-4); the models run
 through the controller against the torch engine, and ptxas reports 0 B
-frame, no spills and at most 128 registers for all 106 ``lbm_step``
+frame, no spills and at most 128 registers for all 122 ``lbm_step``
 instantiations.
 
 The free-energy kernels (``ops/fe_step``: the ``rho_poststream`` pre-pass on
@@ -106,7 +106,7 @@ launch (<= 1e-6) and 20 steps (wet-node max |df| <= 1e-5), and the mode
 moved the state; the four twins run through the controller on the kernel
 engine against the torch engine, one (or pre-pass + step) launch per step;
 the scenes the kernel refuses raise by name; ptxas reports 0 B frame, no
-spills and at most 128 registers for all 106 instantiations.
+spills and at most 128 registers for all 122 instantiations.
 
 Under ``--precision=mixed`` (int16 A/B buffers, ``lbm_step_mixed_<grid>``)
 the kernel is held against ``step_reference`` in codes
@@ -119,7 +119,23 @@ within 2 times the fp32 plain version's distance to it; every one of the
 65,536 codes of every direction comes back unchanged through the kernel's
 own conversions; the controller runs the mode on int16 buffers, one
 launch per step under the mixed key; ptxas reports 0 B frame, no spills
-and at most 128 registers for its 96 instantiations.
+and at most 128 registers for its 112 instantiations.
+
+The ELBM mode (``lbm_step_elbm_<grid>``, int16 ``lbm_step_mixed_<grid>``)
+is held against ``step_reference`` with the entropic collision
+(``ELBM_CASES``): from smooth states of amplitude 1e-2 (every node on the
+series branch, alpha 2 - 1e-3) 200 steps within 1e-5; from a state pushed
+into the Newton branch one launch with the same branch at every node,
+within 1e-5 or within ``FP64_FACTOR`` times the fp32 plain version's
+distance to the fp64 plain version (``torch_scenes.elbm_branches``); under
+each force model and with wall rows one launch from each state by that
+rule, then 20 steps from the smooth one, in which the walls push nodes
+into the Newton branch, with the mean distance to the fp64 plain version
+within ``ELBM_MEAN_FACTOR`` times the fp32 plain version's
+(``torch_scenes.elbm_errors``); int16 in codes (``mixed_errors``); a
+refused diagnostics launch leaves the library's diagnostics pointer
+unset; the default engine runs it under its key and refuses the
+product-form equilibrium and ELBM with --incompressible by name.
 """
 
 import ctypes
@@ -141,6 +157,8 @@ from torch_scenes import (ACCEL, BC_PAIRS, BINARY_SCENES, FE_SCENES,
                           channel_sim_2d, forced, forced_channel_sim,
                           forced_channel_sim_2d, forced_mixture,
                           halfbb_beside_parabolic_inlet, mixed_errors,
+                          elbm_branches, elbm_errors, newton_state,
+                          smooth_feq, FP64_FACTOR,
                           all_codes, periodic_box, random_binary_state,
                           shear_wave_viscosity,
                           random_fe_state, random_feq, run, shallow_water,
@@ -738,8 +756,9 @@ def test_default_engine_on_cuda_runs_the_collision_model(cuda, model):
 
 @pytest.mark.cuda
 def test_every_lbm_step_instantiation_runs_in_registers(cuda):
-    """ptxas: all 106 instantiations (2 lattices x 4 force models x wall
-    rows or not x 3 collision models x 2 equilibria; the shallow-water
+    """ptxas: all 122 instantiations (2 lattices x 4 force models x wall
+    rows or not x 3 collision models x 2 equilibria; the ELBM collision
+    with the compressible equilibrium, 16; the shallow-water
     equilibrium of D2Q9 BGK under no force, Guo or the velocity shift, with
     wall rows or not; the Shan-Chen mode of both lattices, unforced or
     Guo), each collision model's in its own library, with 0 B stack frame,
@@ -754,7 +773,8 @@ def test_every_lbm_step_instantiation_runs_in_registers(cuda):
                 usage[fn] = use
     insts = [ls.instantiation(fn) for fn in usage]
     kinds = {tuple(inst.values()) for inst in insts}
-    assert len(usage) == len(kinds) == 2 * 4 * 2 * 3 * 2 + 6 + 4
+    assert len(usage) == len(kinds) == 2 * 4 * 2 * 3 * 2 + 16 + 6 + 4
+    assert sum(inst['model'] == 'elbm' for inst in insts) == 16
     assert sum(inst['sc'] for inst in insts) == 4
     assert sum(inst['equilibrium'] == 'shallow_water' for inst in insts) == 6
     assert {inst['storage'] for inst in insts} == {'fp32'}
@@ -1448,10 +1468,11 @@ def test_mixed_controller_path_runs_int16_buffers(cuda, scene):
 
 @pytest.mark.cuda
 def test_every_mixed_instantiation_runs_in_registers(cuda):
-    """ptxas: the 96 int16 instantiations (2 lattices x 4 force models x
-    wall rows or not x 3 collision models x 2 equilibria), each collision
-    model's in its own library, with 0 B stack frame, no spills and at most
-    128 registers."""
+    """ptxas: the 112 int16 instantiations (2 lattices x 4 force models x
+    wall rows or not x 3 collision models x 2 equilibria, and the ELBM
+    collision's 16 with the compressible one), each collision model's in
+    its own library, with 0 B stack frame, no spills and at most 128
+    registers."""
     insts = []
     for code, name in ls.MIXED_LIBRARIES.items():
         for fn, use in build.ptxas_usage(build.load(name).log).items():
@@ -1463,7 +1484,7 @@ def test_every_mixed_instantiation_runs_in_registers(cuda):
                 assert use['stack_frame'] == use['spill_stores'] \
                     == use['spill_loads'] == 0, (fn, use)
                 assert use['registers'] <= 128, (fn, use)
-    assert len(insts) == len(set(insts)) == 2 * 4 * 2 * 3 * 2
+    assert len(insts) == len(set(insts)) == 2 * 4 * 2 * 3 * 2 + 16
 
 
 @pytest.mark.cuda
@@ -1491,3 +1512,153 @@ def test_mixed_refusals_on_the_default_engine(cuda, flags, match):
     sim = SC_2D if 'G' in flags else twin('fs_gaussian')
     with pytest.raises(NotImplementedError, match=match):
         run(sim, max_iters=0, lat_nx=64, lat_ny=64, **flags)
+
+
+#: the ELBM mode against its plain version: name -> (sim class, flags)
+ELBM_SMOOTH = {
+    'box_2d': (periodic_box(2), dict(lat_nx=300, lat_ny=200,
+                                     periodic_x=True, periodic_y=True)),
+    'box_3d': (periodic_box(3), dict(lat_nx=40, lat_ny=36, lat_nz=24,
+                                     periodic_x=True, periodic_y=True,
+                                     periodic_z=True)),
+}
+#: name -> (sim class under an acceleration or none, flags)
+ELBM_CASES = {
+    'ldc_2d': (lambda a: forced(twin('ldc_2d'), a[:2]) if a
+               else twin('ldc_2d'), SIZES['ldc_2d']),
+    'ldc_3d': (lambda a: forced(twin('ldc_3d'), a) if a else twin('ldc_3d'),
+               SIZES['ldc_3d']),
+    'halfbb_box_3d': (lambda a: box_sim(WALLS['halfbb'], 3, (0, 1, 2), a),
+                      box_cfg(3, (0, 1, 2))),
+    'tms_box_2d': (lambda a: box_sim(WALLS['tms'], 2, (0, 1),
+                                     a and a[:2]), box_cfg(2, (0, 1))),
+    'slip_3d_y': (lambda a: slip_sim(3, 1, a) if a
+                  else unforced(slip_sim(3, 1)),
+                  dict(lat_nx=40, lat_ny=24, lat_nz=16, periodic_x=True,
+                       periodic_z=True)),
+    'channel_z_regularized': (
+        lambda a: forced(channel_sim('regularized', 'z'), a) if a
+        else channel_sim('regularized', 'z'), CHANNEL),
+}
+
+
+def _elbm(sim, cfg, **extra):
+    r = run(with_keep_block(sim), platform='cuda', engine='kernel',
+            max_iters=0, model='elbm', visc=0.01, **dict(cfg, **extra))
+    ks = r.kernel
+    assert ks.params.coll.model == ls.MODEL_CODES['elbm']
+    assert ks.library == (ls.LIBRARIES if ks.mixed is None
+                          else ls.MIXED_LIBRARIES)[ls.MODEL_CODES['elbm']]
+    return ks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(ELBM_SMOOTH))
+def test_elbm_kernel_matches_step_reference_on_smooth_flow(cuda, scene):
+    sim, cfg = ELBM_SMOOTH[scene]
+    ks = _elbm(sim, cfg)
+    assert ks.name == f'lbm_step_elbm_{ks.grid.name.lower()}'
+    f0 = smooth_feq(ks.grid, ks.shape, 5, 'cuda', amp=1e-2)
+    b = elbm_branches(ks, f0)
+    assert b['kernel'][2] == b['plain'][2] == 0 < b['kernel'][1], b
+    assert b['err'] <= 1e-6, b
+    e = elbm_errors(ks, f0, 200, 1e-5)
+    assert e['err'] <= 1e-5, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['ldc_2d', 'ldc_3d'])
+def test_elbm_kernel_newton_branch(cuda, scene):
+    """One launch from a state pushed into the Newton branch: the same
+    branch at every node, and f within 1e-5 of the plain version or within
+    ``FP64_FACTOR`` times its distance to the fp64 plain version (the
+    Newton solve stops on an entropy residual of 1e-6, which fixes alpha
+    only to 1e-6 / |dH/dalpha|: up to 1e-2 where fneq is small)."""
+    make, cfg = ELBM_CASES[scene]
+    ks = _elbm(make(None), cfg)
+    b = elbm_branches(ks, newton_state(ks.grid, ks.shape, 7, 'cuda'),
+                      tol=1e-5)
+    assert b['same'] and b['kernel'][2] > 0.9 * sum(b['kernel']), b
+    assert 1 <= b['iters'] <= 20, b
+    assert b['err'] <= 1e-5 or b['k64'] <= FP64_FACTOR * b['p64'], b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('force', (None,) + FORCE_MODELS)
+@pytest.mark.parametrize('case', sorted(ELBM_CASES))
+def test_elbm_kernel_matches_step_reference(cuda, case, force):
+    make, cfg = ELBM_CASES[case]
+    if force:
+        cfg = dict(cfg, force_implementation=force)
+    ks = _elbm(make(ACCEL if force else None), cfg)
+    assert (ks.force is not None) == bool(force)
+    f0 = smooth_feq(ks.grid, ks.shape, 6, 'cuda', amp=1e-2)
+    for f in (f0, newton_state(ks.grid, ks.shape, 6, 'cuda')):
+        b = elbm_branches(ks, f, tol=1e-5)
+        assert b['newton_same'], b
+        assert b['k64'] is None or b['k64'] <= FP64_FACTOR * b['p64'], b
+    elbm_errors(ks, f0, 20, 1e-5, newton=True)
+    assert ks.launches == 22, ks.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['ldc_2d', 'ldc_3d', 'tms_box_2d',
+                                  'halfbb_box_3d'])
+def test_mixed_elbm_kernel_matches_step_reference_in_codes(cuda, case):
+    make, cfg = ELBM_CASES[case]
+    ks = _elbm(make(None), cfg, precision='mixed')
+    assert ks.name == ks.entry == f'lbm_step_mixed_{ks.grid.name.lower()}'
+    q0 = ks.mixed.quant(smooth_feq(ks.grid, ks.shape, 8, 'cuda'))
+    # one launch: within a code of the heaviest direction, or (Newton
+    # nodes of a lid) by the fp64 criterion
+    b = elbm_branches(ks, q0, tol=float(max(ks.mixed.ws)))
+    assert b['newton_same'], b
+    assert b['k64'] is None or b['k64'] <= FP64_FACTOR * b['p64'], b
+    mixed_errors(ks, q0, 50, one_launch=False)
+
+
+@pytest.mark.cuda
+def test_refused_diagnostics_launch_unsets_the_pointer(cuda):
+    """``diagnostics_into`` points the library at its buffer only for its
+    own launch: when ``step_into`` refuses the buffers, a later launch
+    writes nothing there."""
+    make, cfg = ELBM_CASES['ldc_2d']
+    ks = _elbm(make(None), cfg)
+    f0 = smooth_feq(ks.grid, ks.shape, 5, 'cuda', amp=1e-2)
+    diag = torch.full((2,) + ks.shape, -1.0, device='cuda')
+    with pytest.raises(ValueError):
+        ks.diagnostics_into(f0, torch.empty_like(f0, dtype=torch.float64),
+                            diag)
+    ks.step_into(f0, torch.empty_like(f0))
+    torch.cuda.synchronize()
+    assert bool((diag == -1.0).all())
+    ks.diagnostics_into(f0, torch.empty_like(f0), diag)
+    assert bool((diag[1] >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(SIZES))
+def test_default_engine_on_cuda_runs_elbm(cuda, scene):
+    """--model=elbm through the controller: the ELBM kernel, one launch per
+    step under its key, within 2e-5 of the torch engine on the card."""
+    ls.reset_launch_counts()
+    cfg = dict(SIZES[scene], max_iters=20, every=10, model='elbm')
+    r = run(twin(scene), **cfg)
+    key = f'lbm_step_elbm_{r.sim.grid.name.lower()}'
+    assert r.engine == 'kernel' and r.kernel.name == key
+    assert ls.LAUNCHES[key] == sum(ls.LAUNCHES.values()) == 20
+    ref = run(twin(scene), engine='torch', **cfg)
+    wet = _wet(r.kernel)
+    assert float((r.f - ref.f)[:, wet].abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('flags,match', [
+    (dict(model='elbm', entropic_equilibrium=True), 'equilibrium=elbm'),
+    (dict(entropic_equilibrium=True), 'equilibrium=elbm'),
+    (dict(model='elbm', incompressible=True), 'model=elbm with '
+     '--incompressible'),
+])
+def test_elbm_refusals_on_the_default_engine(cuda, flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        run(twin('ldc_2d'), max_iters=0, lat_nx=64, lat_ny=64, **flags)

@@ -100,14 +100,16 @@ def test_port_modules_are_packaged():
             'sailfish_tpu_torch.models.ternary',
             'sailfish_tpu_torch.ops.bc_patch', 'sailfish_tpu_torch.lattice',
             'sailfish_tpu_torch.geo', 'sailfish_tpu_torch.profile',
-            'sailfish_tpu_torch.ops.mixed'} <= names
+            'sailfish_tpu_torch.ops.mixed',
+            'sailfish_tpu_torch.ops.entropic'} <= names
     csrc = os.path.join(os.path.dirname(sailfish_tpu_torch.__file__), 'ops',
                         'csrc')
     # every source, and no other: a source without a wrapper would be
     # dead code (the patch kernel went when lbm_step took over its work)
     assert sorted(os.listdir(csrc)) == [
         'fe_step.cu', 'lattice_tables.cuh', 'lbm_common.cuh', 'lbm_step.cu',
-        'lbm_step_les.cu', 'lbm_step_mixed.cu', 'lbm_step_mixed_les.cu',
+        'lbm_step_elbm.cu', 'lbm_step_les.cu', 'lbm_step_mixed.cu',
+        'lbm_step_mixed_elbm.cu', 'lbm_step_mixed_les.cu',
         'lbm_step_mixed_mrt.cu', 'lbm_step_mrt.cu', 'sc_multi.cu']
 
 
@@ -128,7 +130,7 @@ def test_package_data_carries_every_file_a_build_hashes():
     patterns = data['sailfish_tpu_torch']
     root = os.path.dirname(sailfish_tpu_torch.__file__)
     sources = sorted(build.CSRC.glob('*.cu'))
-    assert len(sources) == 8
+    assert len(sources) == 10
     files = {f for src in sources for f in build.hashed_files(src)}
     # a source that builds lbm_step.cu with another collision model hashes
     # it too

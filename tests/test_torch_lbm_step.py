@@ -187,7 +187,8 @@ def test_params_layout_matches_the_c_struct():
     # varies, lo[3], ext[3], offset: 32 B a row; then LBMForce = int model,
     # float a[3], shift[3], pref: 32 B; then LBMCollide = int model,
     # equilibrium, float s_e, s_o, tau, tau2, les_c, gravity: 32 B; then
-    # LBMShanChen = int potential, float g, tau: 12 B. No lattice
+    # LBMShanChen = int potential, float g, tau: 12 B; then, at the end,
+    # LBMEntropic = float beta, entropy_tol, alpha_tol: 12 B. No lattice
     # table (the
     # kernel's are compile-time: 540 B less than with c, w and opp), and
     # no member is wider than 4 bytes (an 8-byte one changes the block's
@@ -202,9 +203,11 @@ def test_params_layout_matches_the_c_struct():
     assert ctypes.sizeof(ls._Collide) == 32
     assert ls._Params.sc.offset == 1012 + 32 == 1044
     assert ctypes.sizeof(ls._ShanChen) == 12
-    assert ctypes.sizeof(ls._Params) == 1044 + 12 == 1056
+    assert ls._Params.elbm.offset == 1044 + 12 == 1056
+    assert ctypes.sizeof(ls._Entropic) == 12
+    assert ctypes.sizeof(ls._Params) == 1056 + 12 == 1068
     for struct in (ls._BC, ls._Vary, ls._Force, ls._Collide, ls._ShanChen,
-                   ls._Params):
+                   ls._Entropic, ls._Params):
         assert ctypes.alignment(struct) == 4
 
 
@@ -232,9 +235,9 @@ def test_kernel_params_carry_the_force(model, shift):
         assert bytes(bare.force) == bytes(ctypes.sizeof(ls._Force))
     assert ls.FORCE_CODES == {'guo': 1, 'edm': 2, 'velocity_shift': 3}
     # LBMTables: int q, dim; int c[27][3]; float w[27]; int opp[27];
-    # int slip[3][27]; float minv[27][4]
+    # int slip[3][27]; float minv[27][4]; float logw[27]
     assert ctypes.sizeof(ls._Tables) == 4 * (2 + 27 * 3 + 27 + 27 + 3 * 27
-                                             + 27 * 4)
+                                             + 27 * 4 + 27)
 
 
 class _FakeLib:
@@ -293,6 +296,8 @@ def test_kernel_function_checks_the_params_size():
     assert sorted(ls.LAUNCHES) == ['lbm_step_d2q9', 'lbm_step_d3q19',
                                    'lbm_step_dyn_d2q9',
                                    'lbm_step_dyn_d3q19',
+                                   'lbm_step_elbm_d2q9',
+                                   'lbm_step_elbm_d3q19',
                                    'lbm_step_force_d2q9',
                                    'lbm_step_force_d3q19',
                                    'lbm_step_incomp_d2q9',
@@ -524,3 +529,36 @@ def test_plane_beyond_32_bit_offsets_is_refused(monkeypatch):
         'indexes at most 47)']
     with pytest.raises(NotImplementedError, match='one .y, x. plane'):
         ls.KernelStep(r.builder)
+
+
+def test_kernel_takes_elbm_and_names_what_it_refuses():
+    """``kernel_ineligibility`` takes ``--model=elbm`` (fp32 and int16, any
+    force model, wall rows), with its code and block: beta = 1 / (2 tau),
+    the Newton stops, the Smagorinsky constant ignored; it names the
+    product-form equilibrium (under BGK, MRT or ELBM), ELBM with the
+    incompressible equilibrium and Shan-Chen under ELBM."""
+    from sailfish_tpu_torch.ops.step import StepBuilder
+    for extra in ({}, dict(precision='mixed'),
+                  dict(subgrid='les-smagorinsky', smagorinsky_const=0.1)):
+        r = cpu_runner(twin('ldc_3d'), lat_nx=8, lat_ny=8, lat_nz=8,
+                       model='elbm', visc=0.05, **extra)
+        assert ls.kernel_ineligibility(r.builder) == []
+        ks = ls.KernelStep(r.builder)
+        assert ks.params.coll.model == ls.MODEL_CODES['elbm']
+        assert ks.params.elbm.beta == np.float32(1.0 / (2.0 * r.builder.tau))
+        assert ks.library == ('lbm_step_mixed_elbm' if extra.get('precision')
+                              else 'lbm_step_elbm')
+        assert ks.name == ('lbm_step_mixed_d3q19' if extra.get('precision')
+                           else 'lbm_step_elbm_d3q19')
+    r = cpu_runner(twin('ldc_2d'), lat_nx=8, lat_ny=8)
+    cases = [(dict(model='elbm', equilibrium='elbm'), 'equilibrium=elbm'),
+             (dict(equilibrium='elbm'), 'equilibrium=elbm'),
+             (dict(model='mrt', equilibrium='elbm'), 'equilibrium=elbm'),
+             (dict(model='elbm', incompressible=True),
+              'model=elbm with --incompressible'),
+             (dict(model='elbm', sc_coupling=-1.6),
+              'Shan-Chen with model=elbm')]
+    for kwargs, match in cases:
+        b = StepBuilder(r.sim.grid, r.maps, visc=0.1, **kwargs)
+        assert any(match in why for why in ls.kernel_ineligibility(b)), \
+            kwargs

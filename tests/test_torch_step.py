@@ -73,26 +73,49 @@ def test_step_matches_jax_xla_engine(scene):
 
 
 @pytest.mark.parametrize('kwargs,match', [
-    (dict(model='elbm'), 'model=elbm \\(the entropic ELBM collision\\)'),
-    (dict(model='elbm', smagorinsky=0.03), 'ELBM'),
-    (dict(model='mrt', equilibrium='elbm'), 'equilibrium=elbm'),
-    (dict(equilibrium='shallow_water'), 'shallow-water equilibrium is '
-     'defined on D2Q9 only; got D3Q19'),
+    # ELBM and the product-form equilibrium are ported
+    # (test_elbm_and_the_product_form_build); what stays is refused, the
+    # ids are the cases' former ones
+    pytest.param(dict(equilibrium='shallow_water'), 'shallow-water '
+                 'equilibrium is defined on D2Q9 only; got D3Q19',
+                 id='kwargs3-shallow-water equilibrium is defined on D2Q9 '
+                 'only; got D3Q19'),
     # int16 storage is ported; what it cannot hold is refused with the
-    # JAX engine's reasons (the ids are the cases' former ones)
+    # JAX engine's reasons
     pytest.param(dict(sc_coupling=-5.0, storage='int16'),
                  'mixed 16-bit storage does not cover Shan-Chen',
                  id='kwargs4-int16 storage'),
-    (dict(equilibrium='elbm'), 'equilibrium=elbm'),
     pytest.param(dict(storage='int16', dtype=torch.float64),
                  'mixed 16-bit storage requires fp32 compute',
                  id='kwargs6-storage'),
+    pytest.param(dict(storage='int16', equilibrium='elbm'),
+                 'mixed 16-bit storage covers the standard equilibrium '
+                 'only', id='int16-product-form'),
 ])
 def test_unported_options_raise(kwargs, match):
     r = cpu_runner(twin('ldc_3d'), lat_nx=8, lat_ny=8,
                     lat_nz=8)
     with pytest.raises(NotImplementedError, match=match):
         StepBuilder(r.sim.grid, r.maps, visc=0.1, **kwargs)
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(model='elbm'), dict(model='elbm', smagorinsky=0.03),
+    dict(model='mrt', equilibrium='elbm'), dict(equilibrium='elbm'),
+    dict(model='elbm', storage='int16')])
+def test_elbm_and_the_product_form_build(kwargs):
+    """The four ELBM cases that used to raise build and step; the entropic
+    collision keeps its settings in ``elbm`` and its alpha field, the
+    product form is the builder's equilibrium."""
+    r = cpu_runner(twin('ldc_3d'), lat_nx=8, lat_ny=8, lat_nz=8)
+    b = StepBuilder(r.sim.grid, r.maps, visc=0.1, **kwargs)
+    f = b.build()(b.feq(torch.ones(8, 8, 8), torch.zeros(3, 8, 8, 8)))
+    assert torch.all(torch.isfinite(f))
+    assert (b.elbm is not None) == (kwargs.get('model') == 'elbm')
+    if b.elbm is not None:
+        assert b.last_alpha.shape == (8, 8, 8)
+        assert b.elbm.tau == b.tau and b.elbm.entropy_tol == 1e-6
+    assert b.equilibrium == kwargs.get('equilibrium', 'bgk')
 
 
 def test_per_node_force_raises_on_the_kernel_engine():

@@ -20,12 +20,13 @@ and for every kernel function whose mangled name contains one of the
 * whether ``ncu`` is on the PATH or under the toolkit.
 
 With ``--baseline DIR`` (another checkout, for example ``git archive
-<commit> | tar -x -C build/parent``) it also builds DIR's ``lbm_step.cu``
-and ``sc_multi.cu``, those of them in ``--sources``. It sets each of
-DIR's ``lbm_step_kernel`` instantiations beside this tree's of the same
-lattice, force model, wall switch and equilibrium (compressible or
-incompressible) with BGK (the template arguments
-``ops/lbm_step.instantiation`` reads from the mangled names), DIR's
+<commit> | tar -x -C build/parent``) it also builds, in parallel, DIR's
+sources of ``--sources`` among the ``lbm_step`` libraries and
+``sc_multi.cu``. It sets each of DIR's ``lbm_step_kernel`` instantiations
+beside this tree's of the same template arguments (lattice, force model,
+wall switch, collision model, equilibrium, Shan-Chen mode and storage, as
+``ops/lbm_step.instantiation`` reads them from the mangled names; an
+older build's bool ``incompressible`` read as its equilibrium), DIR's
 density pre-pass beside this tree's, and
 each of DIR's Shan-Chen step instantiations beside this tree's of the
 same lattice, component count and force switch (``ops/sc_multi.
@@ -111,9 +112,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--sources', nargs='+',
                     default=['fe_step', 'sc_multi', 'lbm_step',
-                             'lbm_step_mrt', 'lbm_step_les',
+                             'lbm_step_mrt', 'lbm_step_les', 'lbm_step_elbm',
                              'lbm_step_mixed', 'lbm_step_mixed_mrt',
-                             'lbm_step_mixed_les'])
+                             'lbm_step_mixed_les', 'lbm_step_mixed_elbm'])
     ap.add_argument('--match', nargs='*', default=[])
     ap.add_argument('--baseline', default=None)
     args = ap.parse_args()
@@ -141,28 +142,48 @@ def main():
                   f'SASS {mix}', flush=True)
     out = {'ncu': ncu, 'kernels': report}
     if args.baseline:
+        csrc = Path(args.baseline) / 'sailfish_tpu_torch' / 'ops' / 'csrc'
+        theirs = [src for src in args.sources
+                  if (src.startswith('lbm_step') or src == 'sc_multi')
+                  and (csrc / f'{src}.cu').is_file()]
+        libs = build.build_libraries([csrc / f'{src}.cu' for src in theirs])
         out['baseline'] = {
-            src: baseline_report(args.baseline, report, cuobjdump, src)
-            for src in ('lbm_step', 'sc_multi') if src in args.sources}
+            src: baseline_report(lib, report, cuobjdump, src)
+            for src, lib in zip(theirs, libs)}
+        lbm = [v for k, v in out['baseline'].items()
+               if k.startswith('lbm_step')]
+        kept = sum(not r['redesigned'] for v in lbm
+                   for r in v['instantiations'])
+        same = sum(r['same'] for v in lbm for r in v['instantiations'])
+        print(f'baseline lbm_step_kernel: {same} of {kept} instantiations '
+              'the same as this tree\'s, class by class', flush=True)
+    new = {fn: row for fn, row in report.items()
+           if (_lbm_key(fn) or ('',) * 4)[3] == 'elbm'}
+    if new:
+        def most(field):
+            return max(r.get(field, 0) for r in new.values())
+        print(f'lbm_step_kernel ELBM: {len(new)} instantiations, registers '
+              f'{min(r.get("registers", 0) for r in new.values())}-'
+              f'{most("registers")}, stack frame at most '
+              f'{most("stack_frame")} B, spills at most '
+              f'{most("spill_stores")} B', flush=True)
     print(json.dumps(out))
 
 
 def _lbm_key(fn):
-    """(lattice, force model, walls, incompressible) of a BGK fp32
-    ``lbm_step_kernel`` instantiation with the compressible or the
-    incompressible equilibrium and without the Shan-Chen mode (an older
-    build's, whose sixth template argument was the bool
+    """(lattice, force model, walls, collision model, equilibrium,
+    Shan-Chen mode, storage) of an ``lbm_step_kernel`` instantiation (an
+    older build's, whose sixth template argument was the bool
     ``incompressible``, or this one's), else None."""
     from sailfish_tpu_torch.ops import lbm_step as ls
     inst = ls.instantiation(fn)
-    if inst is None or inst.get('model', 'bgk') != 'bgk' \
-            or inst.get('sc', False) \
-            or inst.get('equilibrium') == 'shallow_water' \
-            or inst.get('storage') == 'int16':
+    if inst is None:
         return None
-    incomp = inst.get('incompressible',
-                      inst.get('equilibrium') == 'incompressible')
-    return inst['dim'], inst['force'], inst['walls'], incomp
+    eqm = inst.get('equilibrium', 'incompressible'
+                   if inst.get('incompressible') else 'bgk')
+    return (inst['dim'], inst['force'], inst['walls'],
+            inst.get('model', 'bgk'), eqm, inst.get('sc', False),
+            inst.get('storage', 'fp32'))
 
 
 def _function_name(fn):
@@ -187,16 +208,17 @@ def _sc_key(fn):
 def _describe(key):
     if isinstance(key, str):
         return 'pre-pass'
-    if len(key) == 4:
-        return (f'd{key[0]}, force {key[1]}, walls {int(key[2])}, '
-                f'incompressible {int(key[3])}')
+    if len(key) == 7:
+        return (f'd{key[0]}, force {key[1]}, walls {int(key[2])}, model '
+                f'{key[3]}, equilibrium {key[4]}, sc {int(key[5])}, '
+                f'{key[6]}')
     return f'd{key[0]}, K = {key[1]}, forced {int(key[2])}'
 
 
-def baseline_report(tree, report, cuobjdump, source='lbm_step'):
-    """Each kernel instantiation of ``tree``'s ``source`` beside this
-    tree's of the same key (``_lbm_key``: lattice, force model and wall
-    switch and equilibrium of ``lbm_step_kernel`` with BGK; ``_sc_key``:
+def baseline_report(lib, report, cuobjdump, source='lbm_step'):
+    """Each kernel instantiation of ``lib`` (a baseline tree's build of
+    ``source``) beside this tree's of the same key (``_lbm_key``: the
+    template arguments of ``lbm_step_kernel``; ``_sc_key``:
     the pre-pass, and lattice, K and forced of the Shan-Chen step). Where
     both trees have the same function (the same identifier; the template
     arguments and kernel parameters may be spelled otherwise, as after a
@@ -205,9 +227,7 @@ def baseline_report(tree, report, cuobjdump, source='lbm_step'):
     ``sc3_kernel``) is a redesign, shown side by side. Prints one line each and returns
     {'instantiations': [...], 'all_same': bool} (over the unrenamed
     ones)."""
-    key = _lbm_key if source == 'lbm_step' else _sc_key
-    src = Path(tree) / 'sailfish_tpu_torch' / 'ops' / 'csrc' / f'{source}.cu'
-    lib = build.build_library(src)
+    key = _lbm_key if source.startswith('lbm_step') else _sc_key
     usage = build.ptxas_usage(lib.log)
     sass = sass_counts(lib.path, cuobjdump) if cuobjdump else {}
 

@@ -21,7 +21,8 @@ separations (``sc_phase_separation_3d`` / ``sc_phase_separation``: the
 pre-pass and the stream-and-collide kernel's Shan-Chen mode), the
 shallow-water hump (``fs_gaussian``), the cavities under
 ``--precision=mixed`` (``ldc_3d_mixed`` / ``ldc_2d_mixed``: int16 state
-buffers), and the binary free-energy
+buffers), the entropic cavities (``ldc_2d_entropic``, also
+``_mixed``, and ``ldc_3d_elbm``: the ELBM mode), and the binary free-energy
 separations of ``examples/torch`` at the benchmark sizes (D3Q19 256^3,
 D2Q9 4096^2) it
 runs the controller
@@ -112,6 +113,13 @@ SCENES = {
                      {'precision': 'mixed'}),
     'ldc_2d_mixed': (lambda s: twin('ldc_2d'), (4096, 4096),
                      {'precision': 'mixed'}),
+    # the entropic collision: the example's cavity (lid 0.01, nu = 1e-4),
+    # also on int16 buffers, and bench.py's cavity under --model=elbm
+    'ldc_2d_entropic': (twin, (4096, 4096), {}),
+    'ldc_2d_entropic_mixed': (lambda s: twin('ldc_2d_entropic'),
+                              (4096, 4096), {'precision': 'mixed'}),
+    'ldc_3d_elbm': (lambda s: twin('ldc_3d'), (256, 256, 256),
+                    {'model': 'elbm'}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
