@@ -80,7 +80,8 @@
 //   19 KB) per SM. With the tables compile-time the index arithmetic and
 //   the int-to-float conversions fold away, and
 //   __launch_bounds__(128, 4) holds D3Q19 to 128 registers: four blocks, 16
-//   warps, 38 KB in flight. D2Q9 needs far fewer registers and gets no cap.
+//   warps, 38 KB in flight. D2Q9 needs far fewer registers and gets no cap,
+//   but for ELBM (below).
 // - Addressing. The y and z wraps are computed once per block (they are
 //   uniform), the x wrap is a select that only the end lanes of a row take,
 //   and each load is a uniform 64-bit base plus a 32-bit in-plane offset
@@ -161,7 +162,15 @@
 //   all converged. Only f[Q] stays live: the product-form feq_i is rebuilt
 //   from three per-axis factors wherever it is needed (ProductEq in
 //   lbm_common.cuh). Its beta and Newton stops are LBMParams::elbm, at the
-//   end of the block. A step still moves the BGK bytes.
+//   end of the block. A step still moves the BGK bytes, but the node's
+//   work, not its bytes, bounds it on int16 state (1.87 times the int16
+//   BGK step with two guarded reciprocals per direction): the alpha's
+//   first pass takes one reciprocal per direction, without its guard
+//   where the node proves it exact (entropic_alpha), and the D2Q9 ELBM
+//   instantiations are held to 64 registers, __launch_bounds__(128, 8):
+//   eight blocks, 32 warps, where they took 69-90 registers and got five
+//   to seven (on the H100: 0.95 of the uncapped int16 step at 4096^2,
+//   PERF.md).
 // Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
 // an in-place (AA-pattern) step would halve the footprint.
 
@@ -173,7 +182,8 @@
 
 template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, int EQ, bool SC,
           typename T>
-__global__ void __launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)
+__global__ void __launch_bounds__(LBM_BLOCK,
+                                  DIM == 3 ? 4 : MODEL == MODEL_ELBM ? 8 : 1)
 lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
                 const uint8_t* __restrict__ mask,
                 const __grid_constant__ LBMParams p,

@@ -299,9 +299,11 @@ class Entropic:
         self.last_alpha = None
         #: with ``record_branches`` set, ``last_branch`` holds the dispatch
         #: branch of each node of the last collision
-        #: (``entropic.branches``)
+        #: (``entropic.branches``) and ``last_dev`` the deviation it was
+        #: taken on (``entropic.deviation``)
         self.record_branches = False
         self.last_branch = None
+        self.last_dev = None
 
 
 def is_dynamic_force(body_force):
@@ -369,8 +371,9 @@ def forced_collide(grid, fs, rho, u, tau_inv, force=None, force_model='guo',
             grid, fs, rho, u_eq, elbm.tau, skip=skip,
             entropy_tol=elbm.entropy_tol, alpha_tol=elbm.alpha_tol)
         if elbm.record_branches:
-            elbm.last_branch = ent.branches(
-                grid, fs, ent.elbm_equilibrium(grid, rho, u_eq) - fs)
+            fneq = ent.elbm_equilibrium(grid, rho, u_eq) - fs
+            elbm.last_dev = ent.deviation(grid, fs, fneq)
+            elbm.last_branch = ent.branches(grid, fs, fneq)
     else:
         fpost = fs + tau_eff * (feq(rho, u_eq) - fs)
     if force is not None:

@@ -1617,6 +1617,66 @@ def test_mixed_elbm_kernel_matches_step_reference_in_codes(cuda, case):
     mixed_errors(ks, q0, 50, one_launch=False)
 
 
+def _patch(ks, k):
+    """Node index of the k-th 4 x 6 patch of the last two axes (every z
+    in 3D): rows 4 + 10 (k // 3) on, columns 4 + 12 (k % 3) on."""
+    a, b = 4 + 10 * (k // 3), 4 + 12 * (k % 3)
+    return (Ellipsis, slice(a, a + 4), slice(b, b + 6))
+
+
+#: the edges of dev = max_i |fneq_i| / max(f_i, 1e-12) in fp32, one patch
+#: each: (direction or None for every one, value; None: the rest weights).
+#: 1e-30 and 2e-37 lie on either side of 2^-120, where the reciprocal of
+#: f_i leaves the range a node can prove its fast path exact in; no value
+#: is subnormal (the CPU's plain version may flush one to zero)
+ELBM_DEV_EDGES = [(1, 0.0), (2, 5e-13), (3, 1e-12), (4, -1e-3),
+                  (None, None), (1, 1e-30), (2, 2e-37), (3, 1.0)]
+#: on int16 state at --mixed_range=1: direction -> code (-32768 decodes to
+#: a negative f, -32767 to f = 0 within an ulp of w; None: all codes 0,
+#: the rest weights)
+ELBM_CODE_EDGES = [(1, -32768), (2, -32767), (None, 0), (3, 32767)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(ELBM_SMOOTH))
+def test_elbm_kernel_at_the_edges_of_dev(cuda, scene):
+    """One launch and 20 steps from a smooth flow whose patches stream
+    values at the edges of the deviation dev into the nodes: a zero, a
+    negative, a subnormal f_i, f_i below, at and far above the 1e-12 floor
+    of its divisor, and nodes at rest (zero fneq). The same branch at
+    every node as the plain version, and the ``elbm_errors`` rule (the
+    edges make Newton nodes whose alpha the entropy stop fixes loosely)."""
+    sim, cfg = ELBM_SMOOTH[scene]
+    ks = _elbm(sim, cfg)
+    f0 = smooth_feq(ks.grid, ks.shape, 5, 'cuda', amp=1e-2)
+    for k, (i, v) in enumerate(ELBM_DEV_EDGES):
+        if i is None:
+            for j, w in enumerate(ks.grid.weights):
+                f0[j][_patch(ks, k)] = w
+        else:
+            f0[i][_patch(ks, k)] = v
+    b = elbm_branches(ks, f0)
+    assert b['same'] and min(b['kernel']) > 0, b
+    elbm_errors(ks, f0, 20, 1e-5, newton=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(ELBM_SMOOTH))
+def test_mixed_elbm_kernel_at_the_edges_of_dev(cuda, scene):
+    """The int16 state's edges of dev: the most negative code (a negative
+    f_i), the code of f_i = 0, the largest code and nodes at rest, in
+    patches of a quantized smooth flow: one launch with the same branch at
+    every node as the plain version, then the ``mixed_errors`` rule."""
+    sim, cfg = ELBM_SMOOTH[scene]
+    ks = _elbm(sim, cfg, precision='mixed', mixed_range=1.0)
+    q0 = ks.mixed.quant(smooth_feq(ks.grid, ks.shape, 8, 'cuda', amp=1e-2))
+    for k, (i, code) in enumerate(ELBM_CODE_EDGES):
+        q0[slice(None) if i is None else i][_patch(ks, k)] = code
+    b = elbm_branches(ks, q0)
+    assert b['same'] and min(b['kernel']) > 0, b
+    mixed_errors(ks, q0, 50, one_launch=False)
+
+
 @pytest.mark.cuda
 def test_refused_diagnostics_launch_unsets_the_pointer(cuda):
     """``diagnostics_into`` points the library at its buffer only for its

@@ -921,6 +921,14 @@ def elbm_errors(ks, f0, steps, tol, it0=0, newton=False):
     return out
 
 
+#: how close to the series / Newton threshold of dev (0.01) the plain
+#: version's dev may lie at a node that takes the other branch in the kernel:
+#: fneq = feq - f cancels to about dev f, so the few ulps of feq by which two
+#: fp32 versions' product-form equilibria differ are up to ~3e-5 of dev
+#: there (relative)
+ELBM_DEV_BAND = 1e-4
+
+
 def elbm_branches(ks, f0, it=0, tol=None):
     """One launch of the ELBM ``KernelStep`` ``ks`` and one step of its
     plain version from ``f0``, each with the alpha solve's diagnostics
@@ -930,7 +938,11 @@ def elbm_branches(ks, f0, it=0, tol=None):
     both, 'flips': at how many it did not (a node whose dev lies within
     rounding of 1e-6 may take the tiny branch in one and the series in the
     other: alpha is 2 on either side within ~dev), 'newton_same': whether
-    the same nodes took the Newton branch in both, 'iters': the kernel's
+    the same nodes took the Newton branch in both, 'newton_flips': at how
+    many colliding nodes they did not, 'newton_at_threshold': whether at
+    each of those the plain version's dev lies within ``ELBM_DEV_BAND``
+    (relative) of the Newton threshold 0.01, where two fp32 versions may
+    each be right (True with no such node), 'iters': the kernel's
     most Newton steps at a node (0 without a
     Newton node), 'alpha': the largest |d alpha|, 'k64' / 'p64': wet max
     |df| of the kernel / of the fp32 plain version to the fp64 plain
@@ -947,6 +959,8 @@ def elbm_branches(ks, f0, it=0, tol=None):
     ks.diagnostics_into(f0, ref, dp, it, plain=True)
     coll = dp[1] >= 0
     kb = dk[1].clamp(max=2)
+    moved = coll & ((kb == 2) != (dp[1] == 2))
+    near = (ks.elbm.last_dev / 0.01 - 1.0).abs() <= ELBM_DEV_BAND
 
     def counts(b):
         return [int((b[coll] == v).sum()) for v in (0, 1, 2)]
@@ -969,5 +983,7 @@ def elbm_branches(ks, f0, it=0, tol=None):
                 flips=int((kb[coll] != dp[1][coll]).sum()),
                 newton_same=bool(torch.equal(kb[coll] == 2,
                                              dp[1][coll] == 2)),
+                newton_flips=int(moved.sum()),
+                newton_at_threshold=bool(near[moved].all()),
                 iters=int(newton.max()) - 2 if newton.numel() else 0,
                 alpha=float((dk[0] - dp[0])[coll].abs().max()))

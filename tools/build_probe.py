@@ -3,10 +3,13 @@
 
     python3 tools/build_probe.py [--out DIR]
 
-The 106 ``lbm_step_kernel`` instantiations are built as the three libraries
-of ``ops/lbm_step.LIBRARIES`` (one ``nvcc`` per collision model, all
-started together, as ``ops/build.load_all`` builds them), then as one
-library of all 106 (``lbm_step.cu`` with the MRT and LES instantiations
+The 234 ``lbm_step_kernel`` instantiations are built as the eight
+libraries of ``ops/lbm_step.LIBRARIES`` and ``MIXED_LIBRARIES`` (one
+``nvcc`` per collision model and storage, all started together, as
+``ops/build.load_all`` builds them: 122 fp32 instantiations, 42 of them
+BGK, 32 MRT, 32 LES and 16 ELBM, and 112 on int16 state, 32 each for BGK,
+MRT and LES and 16 for ELBM), then as one library of all 234
+(``lbm_step.cu``, the fp32 BGK library, with every other instantiation
 taken by address), with the shipped flags and with nvcc's
 ``--split-compile=0`` (the optimizer's passes in parallel on every core),
 also handed to ptxas. The variants run one after the other, so each has
@@ -14,7 +17,7 @@ the machine's cores to itself. A variant that nvcc refuses is reported
 with its first error line.
 
 For each variant: its wall seconds, and whether every instantiation gets
-the registers, stack frame, spills and SASS instruction count of the three
+the registers, stack frame, spills and SASS instruction count of the eight
 libraries. Needs ``nvcc`` (and ``cuobjdump`` for SASS); no GPU. Builds
 under DIR (default ``build/build_probe``, emptied first). Ends with one JSON
 line.
@@ -46,17 +49,23 @@ VARIANTS = {
 
 
 def one_source(out):
-    """Write ``out/lbm_step_all.cu``: ``lbm_step.cu`` (the BGK library)
-    plus the address of every MRT and LES instantiation, which makes nvcc
-    compile them into the same library."""
+    """Write ``out/lbm_step_all.cu``: ``lbm_step.cu`` (the fp32 BGK
+    library) plus the address of every other library's instantiation (fp32
+    MRT, LES and ELBM; BGK, MRT, LES and ELBM on int16 state), which makes
+    nvcc compile them into the same library. ELBM is built with the
+    compressible equilibrium only."""
     rows = []
-    for (dim, q), force, walls, model, eq in itertools.product(
-            ((2, 9), (3, 19)),
+    for storage, (dim, q), force, walls, model, eq in itertools.product(
+            ('float', 'int16_t'), ((2, 9), (3, 19)),
             ('FORCE_NONE', 'FORCE_GUO', 'FORCE_EDM', 'FORCE_VELOCITY_SHIFT'),
-            ('false', 'true'), ('MODEL_MRT', 'MODEL_LES'),
+            ('false', 'true'),
+            ('MODEL_BGK', 'MODEL_MRT', 'MODEL_LES', 'MODEL_ELBM'),
             ('EQ_BGK', 'EQ_INCOMP')):
+        if (storage == 'float' and model == 'MODEL_BGK') \
+                or (model == 'MODEL_ELBM' and eq != 'EQ_BGK'):
+            continue
         rows.append(f'    (void*)lbm_step_kernel<{dim}, {q}, {force}, '
-                    f'{walls}, {model}, {eq}, false>,')
+                    f'{walls}, {model}, {eq}, false, {storage}>,')
     src = out / 'lbm_step_all.cu'
     src.write_text('#include "lbm_step.cu"\n\nvoid* lbm_probe_kernels[] = {\n'
                    + '\n'.join(rows) + '\n};\n')
@@ -111,7 +120,7 @@ def main():
     cuobjdump = find_tool('cuobjdump')
     result = {}
 
-    names = list(ls.LIBRARIES.values())
+    names = list(ls.LIBRARIES.values()) + list(ls.MIXED_LIBRARIES.values())
     t0 = time.perf_counter()
     procs = [nvcc(build.CSRC / f'{n}.cu', out / f'lib{n}.so', ())
              for n in names]
@@ -119,8 +128,8 @@ def main():
     if error:
         raise SystemExit(f'the shipped libraries do not build: {error}')
     ref = profile(log, [out / f'lib{n}.so' for n in names], cuobjdump)
-    result['three'] = dict(seconds=round(seconds, 2), kernels=len(ref))
-    print(f'three libraries in parallel: {seconds:.2f} s, {len(ref)} '
+    result['libraries'] = dict(seconds=round(seconds, 2), kernels=len(ref))
+    print(f'{len(names)} libraries in parallel: {seconds:.2f} s, {len(ref)} '
           'instantiations', flush=True)
 
     src = one_source(out)
@@ -141,7 +150,7 @@ def main():
                                  for fn in differ[:4]})
             print(f'{name} ({row["flags"] or "shipped flags"}): '
                   f'{seconds:.2f} s, {len(got)} instantiations, '
-                  f'{len(differ)} differ from the three libraries '
+                  f'{len(differ)} differ from the {len(names)} libraries '
                   '(registers, frame, spills, SASS)', flush=True)
         result[name] = row
     print(json.dumps(result))

@@ -10,8 +10,9 @@ resident 128-thread blocks per SM, which caps the registers per thread
 (65536 / (128 * blocks), at most 255). The shipped kernel is not changed.
 
 * ``base``: the source as it is, ``__launch_bounds__(LBM_BLOCK, DIM == 3 ?
-  4 : 1)``: at least four blocks (at most 128 registers) on D3Q19, no cap
-  on D2Q9 (ptxas takes 72 and 48 registers);
+  4 : MODEL == MODEL_ELBM ? 8 : 1)``: at least four blocks (at most 128
+  registers) on D3Q19, no cap on D2Q9 but for ELBM (ptxas takes 72 and 48
+  registers);
 * ``nocap``: ``(LBM_BLOCK)`` on both instantiations;
 * ``min8_3d``: 8 blocks (64 registers) on D3Q19;
 * ``min4`` / ``min12_2d``: D3Q19 as shipped, 4 / 12 blocks (128 / 40
@@ -45,7 +46,9 @@ from sailfish_tpu_torch.ops import build  # noqa: E402
 from sailfish_tpu_torch.ops import lbm_step as ls  # noqa: E402
 from torch_scenes import channel_sim, channel_sim_2d, run, twin  # noqa: E402
 
-BOUNDS = '__launch_bounds__(LBM_BLOCK, DIM == 3 ? 4 : 1)'
+BOUNDS = ('__launch_bounds__(LBM_BLOCK,\n'
+          '                                  DIM == 3 ? 4 : MODEL == '
+          'MODEL_ELBM ? 8 : 1)')
 VARIANTS = {
     'base': BOUNDS,
     'nocap': '__launch_bounds__(LBM_BLOCK)',
@@ -74,7 +77,7 @@ def build_variants(out_dir):
     """{variant: KernelLibrary}; the sources are written to ``out_dir``."""
     src = (build.CSRC / 'lbm_step.cu').read_text()
     if src.count(BOUNDS) != 1:
-        raise RuntimeError(f'expected one {BOUNDS} in lbm_step.cu')
+        raise RuntimeError(f'expected one {BOUNDS!r} in lbm_step.cu')
     os.makedirs(out_dir, exist_ok=True)
     libs = {}
     for name, bounds in VARIANTS.items():

@@ -26,6 +26,13 @@ after 5 warm-up steps, and counts the kernel launches of one step:
   (``--incompressible``): ``ldc_3d_mrt``, ``ldc_3d_les``,
   ``ldc_3d_incomp``, ``ldc_2d_mrt``, ``sphere_3d_les`` and
   ``cylinder_mrt``. A tree without the mode refuses them;
+* the ELBM mode (``--model=elbm``), in fp32 and on int16 state
+  (``--precision=mixed``, ``--mixed_range=0.5``): the entropic cavity
+  ``ldc_2d_entropic`` / ``ldc_2d_entropic_mixed`` and ``bench.py``'s cavity
+  ``ldc_3d_elbm`` / ``ldc_3d_elbm_mixed``, from ``smooth_feq`` at
+  amplitude 1e-2 (every colliding node starts on the series branch of the
+  entropic alpha, as all but 0.03-1 % of the main paths' nodes are). They
+  are not in the default list: pass them with ``--scenes`` (``ELBM``);
 * the Shan-Chen mixtures (``SCMultiStep``: the density pre-pass and the
   step, two launches a step), timed from a seeded near-uniform K-component
   state: the binary separations ``sc_separation_3d`` / ``sc_separation_2d``
@@ -74,6 +81,15 @@ FORCED = {'sphere_3d': 3, 'cylinder': 2}
 #: the Shan-Chen scenes (``--scenes`` only)
 MIXTURES = ('sc_separation_3d', 'sc_separation_2d', 'ternary_separation_3d',
             'sc_separation_3d_forced', 'ternary_separation_3d_forced')
+#: the ELBM scenes (``--scenes`` only) -> (twin, flags)
+ELBM = {'ldc_2d_entropic': ('ldc_2d_entropic', {}),
+        'ldc_2d_entropic_mixed': ('ldc_2d_entropic', dict(
+            precision='mixed', mixed_range=0.5)),
+        'ldc_3d_elbm': ('ldc_3d', dict(model='elbm')),
+        'ldc_3d_elbm_mixed': ('ldc_3d', dict(
+            model='elbm', precision='mixed', mixed_range=0.5))}
+#: the amplitude of the ELBM scenes' smooth start (``smooth_feq``)
+ELBM_AMP = 1e-2
 SIZES = {3: (256, 256, 256), 2: (4096, 4096)}
 
 
@@ -89,6 +105,9 @@ def scene_setup(scene, ts):
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), SIZES[dim]))
     if scene in MIXTURES:
         return mixture(ts, scene), cfg
+    if scene in ELBM:
+        base, flags = ELBM[scene]
+        return ts.twin(base), dict(cfg, **flags)
     if base in FORCED:
         sim_cls = ts.twin(base)
         return (sim_cls if base == scene else ts.unforced(sim_cls)), cfg
@@ -122,12 +141,16 @@ def mixture(ts, scene):
 
 def seeded_state(ts, scene, ks, seed):
     """A seeded start for ``scene``'s kernel engine ``ks``: a random
-    equilibrium (single fluid) or a near-uniform K-component state, in
-    ``ks.a``; returns what ``ks.run`` takes."""
+    equilibrium (single fluid), a near-uniform K-component state or, for
+    an ELBM scene, ``smooth_feq`` (quantized on int16 state), in ``ks.a``;
+    returns what ``ks.run`` takes."""
     if scene in MIXTURES:
         ks.a.copy_(ts.random_binary_state(ks.grid, ks.shape, seed, 'cuda',
                                           K=ks.K))
         return tuple(ks.a.unbind(0))
+    if scene in ELBM:
+        f = ts.smooth_feq(ks.grid, ks.shape, seed, 'cuda', amp=ELBM_AMP)
+        return ks.a.copy_(f if ks.mixed is None else ks.mixed.quant(f))
     return ks.a.copy_(ts.random_feq(ks.grid, ks.shape, seed, 'cuda'))
 
 
