@@ -105,7 +105,15 @@ version on the card from seeded random states:
   start 50 steps by the same rule; each force model and the wall rows 50
   steps from the smooth state, the mean distance to the fp64 plain
   version within ``ELBM_MEAN_FACTOR`` times the fp32 plain version's;
-  int16 in codes.
+  int16 in codes;
+* the same kernel on the D3Q15 and D3Q27 lattices (``csrc/
+  lbm_step_lattices.cu``: BGK with either equilibrium, each force model,
+  wall rows or not; ``lattice_compare``) against ``step_reference`` on the
+  same lattice, every instantiation class at 64^3 for 200 steps on the lid
+  cavity and on a half-way or TMS box; and the runner's device hooks: an
+  int16 cavity whose final state a strided hook leaves bitwise unchanged
+  (``mixed_hook_bitwise``), a checkpoint with the Reynolds hook's state
+  continued to the unbroken run's bits (``checkpoint_continues``).
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
@@ -148,7 +156,14 @@ physics (``sc_phase_separation_3d`` 256^3 and ``sc_phase_separation``
 one ``lbm_step_sc`` launch per step, the phases separating, mass within
 ``MASS_TOL``; ``fs_gaussian`` 4096^2: one ``lbm_step_sw`` launch per step,
 the hump's top falling, the mass drift the shallow-water equilibrium's
-own bounded), checks the results, times
+own bounded), the paths of the other lattices and of the device hooks
+for 1,000 steps (``kida_vortex_256``: the Kida vortex on D3Q15 256^3 at
+the scene's defaults with its KE / enstrophy hook every 20 steps;
+``ldc_3d_d3q27``: ``bench.py``'s cavity on D3Q27; ``channel_flow``: the
+turbulent channel at its published settings, 240 x 82 x 80, with its
+Reynolds statistics hook every 20 steps from 0; one launch per step each,
+the hooks' samples checked and their share of a chunk timed in turns),
+checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
 demixing to its end, times every kernel against its plain version and its
@@ -187,6 +202,7 @@ from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           SC_MORE_GOLDEN_FLAGS, SC_MORE_SCENES,
                           SC_SINGLE_SCENES, SHALLOW_WATER_SCENES,
                           SINGLE_GOLDEN_FLAGS, TERNARY_GOLDEN_FLAGS,
+                          TURBULENCE_GOLDEN_FLAGS, FE_HALFWAY_GOLDEN_FLAGS,
                           WALL_DYNAMIC_SCENES, WALLS, binary_twin, box_cfg,
                           box_sim, channel_sim, channel_sim_2d, forced,
                           forced_channel_sim, forced_mixture,
@@ -194,7 +210,8 @@ from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           random_binary_state, random_fe_state, random_feq,
                           run, shallow_water, slip_sim, ternary_separation,
                           ternary_twin, time_series_density_sim,
-                          tms_channel_sim, twin, unforced, walled,
+                          tms_channel_sim, turbulence_twin, twin, unforced,
+                          walled,
                           walls_moved, wet_map, with_keep_block,
                           with_patch_row_mix, MIXED_CODE_FLOOR,
                           FP64_FACTOR, MIXED_ONE_STEP, all_codes,
@@ -519,7 +536,8 @@ MASS_TOL = 1e-4
 FE_RHO_TOL = 1e-6
 FE_PHI_TOL = 1e-9
 #: bytes moved per node per step: Q floats read + Q written + 1 mask byte
-BYTES = {'D3Q19': 2 * 19 * 4 + 1, 'D2Q9': 2 * 9 * 4 + 1}
+BYTES = {'D3Q19': 2 * 19 * 4 + 1, 'D2Q9': 2 * 9 * 4 + 1,
+         'D3Q15': 2 * 15 * 4 + 1, 'D3Q27': 2 * 27 * 4 + 1}
 #: bytes moved per node by one K-component Shan-Chen pre-pass (K*Q floats
 #: read, K written) and by one step (K*Q floats read and written, K
 #: densities and the mask byte read); Q by lattice
@@ -603,6 +621,10 @@ NODE_BYTES = {
     'lbm_step_elbm_d2q9': BYTES['D2Q9'],
     'lbm_step_mixed_elbm_d3q19': MIXED_BYTES['D3Q19'],
     'lbm_step_mixed_elbm_d2q9': MIXED_BYTES['D2Q9'],
+    # the other lattices: Q floats in and out and the mask byte (121 B for
+    # D3Q15, 217 B for D3Q27)
+    'lbm_step_d3q15': BYTES['D3Q15'],
+    'lbm_step_d3q27': BYTES['D3Q27'],
 }
 #: fp32 operations per direction of an ELBM node on the series branch
 #: (``NODE_OPS``)
@@ -667,6 +689,8 @@ NODE_OPS = {
     'lbm_step_elbm_d2q9': ELBM_OPS * 9 + 2 * 10 + 25,
     'lbm_step_mixed_elbm_d3q19': (ELBM_OPS + 6) * 19 + 3 * 10 + 25,
     'lbm_step_mixed_elbm_d2q9': (ELBM_OPS + 6) * 9 + 2 * 10 + 25,
+    # BGK on the other lattices: ~23 per direction
+    'lbm_step_d3q15': 23 * 15, 'lbm_step_d3q27': 23 * 27,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
@@ -750,6 +774,11 @@ KERNELS = {
                                   'sailfish_tpu/ops/pallas_step.py:812'),
     'lbm_step_mixed_elbm_d2q9': ('lbm_step_mixed_elbm.cu',
                                  'sailfish_tpu/ops/pallas_step2d.py:36'),
+    # make_kernel_3d on the D3Q15 and D3Q27 lattices (builder.grid)
+    'lbm_step_d3q15': ('lbm_step_lattices.cu',
+                       'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_d3q27': ('lbm_step_lattices.cu',
+                       'sailfish_tpu/ops/pallas_step.py:812'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -816,6 +845,11 @@ MODES = {
                                 '(quant_i after _collide_elbm, '
                                 'pallas_step2d.py:563); launches counted '
                                 'as lbm_step_mixed_d2q9',
+    'lbm_step_d3q15': 'make_kernel_3d on the D3Q15 lattice (builder.grid; '
+                      'cz_groups :147, pick_slab_k), the Kida vortex with '
+                      'its KE/enstrophy hook',
+    'lbm_step_d3q27': 'make_kernel_3d on the D3Q27 lattice, with the lid '
+                      'rows of make_bc_patch_kernel_3d',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -1045,11 +1079,13 @@ def model_compare(name, sim_cls, coll, force_model=None, it0=0, steps=200,
     return key, err
 
 
-def golden(scene, sim_cls, golden_name=None, engine='kernel', **cfg):
+def golden(scene, sim_cls, golden_name=None, engine='kernel', atol=None,
+           **cfg):
     """The default engine on the card (the kernel engine; ``engine='torch'``
     for a scene the kernels refuse by name) on the golden harness's small
     scene (20 steps, seed 1234) against tests/goldens at the harness
-    tolerance."""
+    tolerance; ``atol`` maps a field to another absolute tolerance (as
+    ``torch_scenes.golden_run``)."""
     golden_name = golden_name or scene
     if engine != 'kernel':
         cfg['engine'] = engine
@@ -1068,10 +1104,11 @@ def golden(scene, sim_cls, golden_name=None, engine='kernel', **cfg):
         worst = 0.0
         for k in ref.files:
             np.testing.assert_allclose(data[k], ref[k], rtol=1e-5,
-                                       atol=5e-7, err_msg=f'{scene}:{k}')
+                                       atol=(atol or {}).get(k, 5e-7),
+                                       err_msg=f'{scene}:{k}')
             worst = max(worst, float(np.max(np.abs(data[k] - ref[k]))))
     say(f'golden {golden_name}: {engine} engine matches tests/goldens '
-        f'(max |d| = {worst:.3e}; rtol 1e-5, atol 5e-7)')
+        f'(max |d| = {worst:.3e}; rtol 1e-5, atol {atol or 5e-7})')
 
 
 def sc_reference_step(ks, grid, fs):
@@ -2747,6 +2784,291 @@ def plain_path(scene, sim_cls, size, chunk, chunks=3):
     return mlups
 
 
+#: the lattices of the D3Q15 / D3Q27 library and their comparison scenes
+#: at 64^3, 200 steps: the lid cavity carries every class without wall rows
+#: (each force model, the compressible and the incompressible
+#: equilibrium), a half-way box closed on every axis (a TMS box for the
+#: incompressible equilibrium) every class with them
+LATTICE_STEPS = 200
+LATTICE_CUBE = dict(lat_nx=64, lat_ny=64, lat_nz=64)
+#: the turbulence main paths: Kida's vortex at the scene's defaults on
+#: D3Q15 256^3 with its KE/enstrophy hook every 20 steps, and the channel
+#: at its published settings (H = 40, Re_tau = 180, full bounce-back walls:
+#: 240 x 82 x 80, D3Q19, Guo) with the Reynolds statistics hook every 20
+#: steps from iteration 0
+KIDA = turbulence_twin('kida_vortex')
+CHANNEL_FLOW = turbulence_twin('channel_flow')
+STATS_EVERY = 20
+
+
+def lattice_compare(grid_name, wall, force_model, incompressible):
+    """One instantiation class of the D3Q15 / D3Q27 library against
+    ``step_reference`` on the same lattice: ``wall`` None for the lid
+    cavity, else a box of that wall (half-way or TMS) closed on every
+    axis, both with a block of excluded nodes; under ``force_model`` (or
+    none) and the compressible or the incompressible equilibrium."""
+    accel = ACCEL if force_model else None
+    if wall is None:
+        sim = LDC_3D if accel is None else forced(LDC_3D, accel)
+        cfg = dict(LATTICE_CUBE)
+    else:
+        sim = box_sim(WALLS[wall], 3, (0, 1, 2), accel)
+        cfg = dict(box_cfg(3, (0, 1, 2)), **LATTICE_CUBE)
+    if force_model:
+        cfg['force_implementation'] = force_model
+    r = run(with_keep_block(sim), platform=DEVICE, engine='kernel',
+            max_iters=0, grid=grid_name, incompressible=incompressible,
+            visc=0.05, **cfg)
+    ks = r.kernel
+    g = grid_name.lower()
+    assert ks.library == ls.LATTICES_LIBRARY and ks.walls == bool(wall)
+    assert ks.params.force.model == ls.FORCE_CODES.get(force_model, 0)
+    steps = LATTICE_STEPS
+    f0 = random_feq(r.sim.grid, ks.shape, seed=1234, device=DEVICE)
+    fk = ks.run(f0, steps)
+    fr = f0
+    for _ in range(steps):
+        fr = ks.reference(fr)
+    util.synchronize(DEVICE)
+    assert ks.launches == steps
+    err = float((fk - fr)[:, wet_mask(ks)].abs().max())
+    moved = float((fk - f0).abs().max())
+    say(f'compare lattice {g} {wall or "cavity"} force {force_model} '
+        f'{"incompressible" if incompressible else "compressible"}: '
+        f'{steps} steps of {ks.name}, wet max|df| = {err:.3e} (tol '
+        f'{TOL:g}); the state moved by {moved:.3e}')
+    assert np.isfinite(err) and err <= TOL, err
+    assert moved > 100 * TOL, moved
+    del r, ks, f0, fk, fr
+    torch.cuda.empty_cache()
+    return f'lbm_step_{g}', err
+
+
+def chunk_ms(r, run_steps, chunk, it):
+    """Host milliseconds of one ``chunk``-step call of ``run_steps`` on the
+    runner's state from iteration ``it``, between device synchronizations
+    (as the runner times a chunk)."""
+    util.synchronize(DEVICE)
+    t0 = time.perf_counter()
+    r.f = run_steps(r.f, chunk, it)
+    util.synchronize(DEVICE)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def hook_share(r, chunk):
+    """The hooks' share of a chunk: two chunks with the runner's hooks and
+    two of the engine alone (``KernelStep.run``), in turns, continuing the
+    run; returns (median hooked ms, median plain ms, share)."""
+    it = r.sim.iteration
+    hooked, plain = [], []
+    for _ in range(2):
+        hooked.append(chunk_ms(r, r._run_steps, chunk, it))
+        plain.append(chunk_ms(r, r.kernel.run, chunk, it + chunk))
+        it += 2 * chunk
+    h, p = statistics.median(hooked), statistics.median(plain)
+    return h, p, (h - p) / h
+
+
+def hooked_main_path(path, sim_cls, cfg, name, copy_bw, check, chunk=500,
+                     chunks=2):
+    """A scene whose statistics run through a device hook, through the
+    controller with the default engine (launch counts zeroed just before,
+    read just after): MLUPS per chunk, ``check(runner)`` on the run's
+    result (it returns a line to print), the kernel against its plain
+    version from the final state, ms per launch, and the hooks' share of a
+    chunk (``hook_share``). Returns the result row."""
+    steps = chunk * chunks
+    ls.reset_launch_counts()
+    r = run(sim_cls, max_iters=steps, every=chunk, **cfg)
+    counts = dict(ls.LAUNCHES)
+    ks = r.kernel
+    assert r.engine == 'kernel' and ks.name == name, (r.engine, ks.name)
+    assert counts[name] == steps == r.sim.iteration == ks.launches, counts
+    assert sum(counts.values()) == steps, counts
+    assert len(r.device_hook_state) == 1
+    assert st.is_finite(r.f)
+    grid = r.sim.grid.name
+    mlups = statistics.median(r.mlups_history[1:])
+    eff = mlups * 1e6 * BYTES[grid]
+    shape = 'x'.join(str(n) for n in reversed(ks.shape))
+    say(f'main path {path} {shape} ({grid}, engine {r.engine}): {steps} '
+        f'{name} launches, one per step; MLUPS per {chunk}-step chunk '
+        f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f} '
+        f'MLUPS; {eff / 1e9:.1f} GB/s effective ({BYTES[grid]} B/node), '
+        f'{eff / copy_bw:.3f} of the copy bandwidth')
+    say(f'{path}: {check(r)}')
+    # the kernel against its plain version on the main path's own state
+    # and shapes (10 steps), then each timed alone on the same tensors,
+    # then the hook's share of a chunk from where that leaves the state
+    f0 = r.f.clone()
+    fk = ks.run(f0, 10)
+    fr = f0
+    for _ in range(10):
+        fr = ks.reference(fr)
+    err = float((fk - fr)[:, wet_mask(ks)].abs().max())
+    say(f'compare main path {path}: 10 steps from the state after {steps}, '
+        f'wet max|df| = {err:.3e} (tol {TOL:g})')
+    assert np.isfinite(err) and err <= TOL, err
+    r.f = fk
+    del f0, fr
+    a, b = ks.a, ks.b
+    ms = util.cuda_time_ms(lambda: ks.step_into(a, b), 50, warmup=5)
+    plain_ms = util.cuda_time_ms(lambda: ks.reference(a), 5)
+    nodes = int(np.prod(ks.shape))
+    bound = nodes * BYTES[grid] / PEAK_BYTES * 1e3
+    say(f'kernel {name} at {shape}: {ms:.4f} ms per launch (CUDA events); '
+        f'step_reference {plain_ms:.3f} ms; bound {bound:.4f} ms '
+        f'({BYTES[grid]} B per node at {PEAK_BYTES / 1e12:.2f} TB/s): '
+        f'{bound / ms:.3f} of it')
+    r.f = b
+    h, p, share = hook_share(r, chunk)
+    say(f'{path}: a {chunk}-step chunk with the hook {h:.2f} ms, without '
+        f'{p:.2f} ms, in turns: the hook takes {share:.4f} of it')
+    assert st.is_finite(r.f)
+    del r, ks, a, b
+    torch.cuda.empty_cache()
+    return dict(launches=steps, mlups=mlups, ms=ms, plain_ms=plain_ms,
+                err=err, hooked_ms=h, unhooked_ms=p, hook_share=share)
+
+
+def kida_main_path(copy_bw, chunk=500, chunks=2):
+    """``kida_vortex`` at the scene's defaults (D3Q15, visc 0.001375,
+    max_v 0.05) at 256^3 with its KE/enstrophy hook every
+    ``STATS_EVERY`` steps: one ``lbm_step_d3q15`` launch per step, the
+    samples at 20, 40, ..., the last one equal to the mixin's kinetic
+    energy and enstrophy of the final state, the mass kept, and the hook's
+    share of a chunk."""
+    steps = chunk * chunks
+
+    def check(r):
+        series = r.sim.ke_enstrophy_series()
+        assert series[:, 0].tolist() == list(range(
+            STATS_EVERY, steps + 1, STATS_EVERY)), series[:, 0]
+        assert np.all(np.isfinite(series)) and np.all(series[:, 1:] > 0)
+        # a periodic box keeps its mass (fp32 drift, MASS_TOL) and the
+        # flow stays well below the lattice's speed of sound
+        r._fields_to_host()
+        mean_rho = float(np.mean(r.sim.rho, dtype=np.float64))
+        vmax = float(np.sqrt(r.sim.vx ** 2 + r.sim.vy ** 2
+                             + r.sim.vz ** 2).max())
+        assert abs(mean_rho - 1.0) <= MASS_TOL and vmax < 0.3, \
+            (mean_rho, vmax)
+        ke, ens = r.sim.compute_ke_enstrophy(r)
+        np.testing.assert_allclose(series[-1, 1:], [ke, ens], rtol=1e-5)
+        return (f'KE {series[0, 1]:.6e} at {int(series[0, 0])} -> '
+                f'{series[-1, 1]:.6e} at {int(series[-1, 0])}, enstrophy '
+                f'{series[0, 2]:.6e} -> {series[-1, 2]:.6e} ({len(series)} '
+                f'samples of the hook; the last the mixin\'s values of the '
+                f'final state), mean rho - 1 = {mean_rho - 1.0:+.2e}, max '
+                f'|u| {vmax:.4f}')
+
+    return hooked_main_path(
+        'kida_vortex_256', KIDA, dict(lat_nx=256, lat_ny=256, lat_nz=256,
+                                      stats_every=STATS_EVERY),
+        'lbm_step_d3q15', copy_bw, check, chunk, chunks)
+
+
+def channel_flow_stats(from_iter=0):
+    """``channel_flow`` with its Reynolds statistics sampled every
+    ``STATS_EVERY`` steps from ``from_iter`` (the scene starts after two
+    flow-through times)."""
+
+    class Sim(CHANNEL_FLOW):
+        def before_main_loop(self, runner):
+            self.prepare_reynolds_stats(runner, axis='y', every=STATS_EVERY,
+                                        from_iter=from_iter)
+
+    return Sim
+
+
+def channel_flow_main_path(copy_bw, chunk=500, chunks=2):
+    """``channel_flow`` at its published settings (H = 40, Re_tau = 180,
+    --wall=hbb: 240 x 82 x 80, D3Q19, Guo) with the Reynolds statistics
+    hook every ``STATS_EVERY`` steps from iteration 0: one
+    ``lbm_step_force_d3q19`` launch per step, a sample at 20, 40, ...,
+    finite profiles with the mean streamwise velocity positive inside the
+    channel, and the hook's share of a chunk."""
+    steps = chunk * chunks
+
+    def check(r):
+        assert tuple(r.kernel.shape) == (80, 82, 240), r.kernel.shape
+        cnt, _acc = r.device_hook_state[0]
+        assert int(cnt) == steps // STATS_EVERY, int(cnt)
+        stats = r.sim.reynolds_stats()
+        assert all(np.all(np.isfinite(v)) for v in stats.values())
+        u_mean = stats['u'][0]
+        assert np.all(u_mean[1:-1] > 0) and u_mean.max() < 0.1, u_mean
+        return (f'{int(cnt)} Reynolds samples (every {STATS_EVERY} steps '
+                f'from 0), mean u at the centre '
+                f'{u_mean[len(u_mean) // 2]:.5f}, at the first fluid row '
+                f'{u_mean[1]:.5f}')
+
+    return hooked_main_path(
+        'channel_flow', channel_flow_stats(),
+        dict(H=40, Re_tau=180, wall='hbb'), 'lbm_step_force_d3q19', copy_bw,
+        check, chunk, chunks)
+
+
+def mixed_hook_bitwise():
+    """``--precision=mixed`` on the kernel engine: the cavity at 64^3 with
+    a hook every 7 steps ends 100 steps in the same bits as without it (the
+    hook sees a dequantized copy; the int16 buffers are stepped across the
+    splits)."""
+    steps, every = 100, 7
+
+    class Hooked(LDC_3D):
+        def before_main_loop(self, runner):
+            def hook(f, acc, it):
+                if it % every == 0:
+                    rho, _ = runner.builder.macro_fields(f)
+                    acc = acc + rho.sum(dtype=torch.float64)
+                return acc
+            self.add_device_hook(torch.zeros((), dtype=torch.float64), hook,
+                                 every=every)
+
+    finals = []
+    for sim in (LDC_3D, Hooked):
+        r = run(sim, max_iters=steps, every=50, precision='mixed',
+                **LATTICE_CUBE)
+        assert r.engine == 'kernel' and r.kernel.mixed is not None
+        finals.append(r.f.clone())
+    (acc,) = r.device_hook_state
+    assert float(acc) > 0
+    same = torch.equal(*finals)
+    say(f'mixed cavity 64^3, {steps} steps, hook every {every}: the final '
+        f'state with the hook is bitwise the state without it: {same}')
+    assert same
+
+
+def checkpoint_continues(tmp):
+    """A checkpoint with the Reynolds hook's state written at step 40 and
+    restored: the restored run's accumulators at step 60 are the unbroken
+    run's (the channel at H = 8 on the kernel engine)."""
+    steps, half = 60, 40
+    flags = dict(H=8, Re_tau=60, wall='tms')
+    base = os.path.join(tmp, 'cp')
+    run(channel_flow_stats(), max_iters=half, every=half,
+        checkpoint_file=base, final_checkpoint=True, **flags)
+    cpoint = [n for n in os.listdir(tmp) if n.endswith('.cpoint.npz')]
+    assert len(cpoint) == 1, cpoint
+    with np.load(os.path.join(tmp, cpoint[0])) as cp:
+        n_hook = sum(k.startswith('hook') for k in cp.files)
+        assert int(cp['hook0']) == half // STATS_EVERY
+    restored = run(channel_flow_stats(), max_iters=steps, every=steps,
+                   restore_from=os.path.join(tmp, cpoint[0]), **flags)
+    whole = run(channel_flow_stats(), max_iters=steps, every=steps,
+                **flags)
+    assert restored.engine == whole.engine == 'kernel'
+    a, b = restored.sim.reynolds_stats(), whole.sim.reynolds_stats()
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+    cnt = int(restored.device_hook_state[0][0])
+    say(f'checkpoint with hook state ({n_hook} hook leaves) written at '
+        f'{half}, restored and run to {steps}: {cnt} Reynolds samples, the '
+        f'accumulators the unbroken run\'s bits: {same}')
+    assert same and cnt == steps // STATS_EVERY
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: torch sees no CUDA device')
@@ -2759,7 +3081,7 @@ def main():
         f'{torch.cuda.get_device_name(0)}')
 
     lbm_libraries = list(ls.LIBRARIES.values()) \
-        + list(ls.MIXED_LIBRARIES.values())
+        + list(ls.MIXED_LIBRARIES.values()) + [ls.LATTICES_LIBRARY]
     sources = lbm_libraries + ['sc_multi', 'fe_step']
     kinds, sc_kinds = set(), set()
     for name, lib in build.load_all(sources).items():
@@ -2788,7 +3110,10 @@ def main():
                     == use['spill_loads'] == 0, (fn, use)
                 assert use['registers'] <= 128, (fn, use)
                 # each library holds its collision model's instantiations
-                # of its storage
+                # of its storage; the other lattices have one of their own
+                if inst['q'] in (15, 27):
+                    assert name == ls.LATTICES_LIBRARY, (name, fn)
+                    continue
                 libs = ls.LIBRARIES if inst['storage'] == 'fp32' \
                     else ls.MIXED_LIBRARIES
                 assert libs[ls.MODEL_CODES[inst['model']]] == name
@@ -2819,9 +3144,12 @@ def main():
     # three collision models x two equilibria, in fp32 and in int16; ELBM
     # with the compressible equilibrium in both; the
     # shallow-water equilibrium (D2Q9 BGK, three force models, wall rows or
-    # not) and the Shan-Chen mode (two lattices, no force or Guo) in fp32
+    # not) and the Shan-Chen mode (two lattices, no force or Guo) in fp32;
+    # BGK on D3Q15 and D3Q27 (every force model, wall rows or not, two
+    # equilibria) in fp32
     assert len(kinds) == 2 * (2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2) \
-        + 2 * (2 * (1 + len(FORCE_MODELS)) * 2) + 6 + 4, len(kinds)
+        + 2 * (2 * (1 + len(FORCE_MODELS)) * 2) + 6 + 4 \
+        + 2 * (1 + len(FORCE_MODELS)) * 2 * 2, len(kinds)
     # two lattices x K = 2, 3 x forced or not
     assert len(sc_kinds) == 2 * 2 * 2, sc_kinds
     for name, tile in (('fe_step_d3q19', fe.TILE_3D),
@@ -3042,6 +3370,21 @@ def main():
         key, err = elbm_mixed_compare(name, sim_cls, cfg)
         note(key, err)
     phase_done('kernel comparisons (ELBM)')
+    # the D3Q15 / D3Q27 library: every instantiation class, 200 steps at
+    # 64^3, on the lid cavity (no wall rows) and on a half-way or TMS box
+    for grid_name in ls.OTHER_LATTICES:
+        for incompressible in (False, True):
+            for force_model in (None,) + FORCE_MODELS:
+                for wall in (None, 'tms' if incompressible else 'halfbb'):
+                    key, err = lattice_compare(grid_name, wall, force_model,
+                                               incompressible)
+                    note(key, err)
+    # device hooks: the int16 state across the splits; hook state through
+    # a checkpoint
+    mixed_hook_bitwise()
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint_continues(tmp)
+    phase_done('kernel comparisons (D3Q15 / D3Q27, hooks)')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
             ('fe_separation_2d', 'fe_separation_2d',
@@ -3092,6 +3435,25 @@ def main():
     # single-component Shan-Chen (pre-pass + the sc mode) and shallow water
     for scene in SC_SINGLE_SCENES + SHALLOW_WATER_SCENES:
         golden(scene, twin(scene), **SINGLE_GOLDEN_FLAGS[scene])
+    # the scenes with device hooks: the Kida vortex (D3Q15), the channel
+    # (TMS walls) and the MRT cavity on the kernel engine; the channel
+    # around a cube (a composite step) and the free-energy capillary wave
+    # (half-way walls) on the torch engine, which the kernels refuse by name
+    for scene in ('kida_vortex', 'channel_flow'):
+        golden(scene, turbulence_twin(scene), f'turbulence_{scene}',
+               **TURBULENCE_GOLDEN_FLAGS[scene])
+    # at tau = 0.5005 two correct fp32 engines carry their ulps up to 1e-6
+    # apart in the velocity within 20 steps (9.5e-7 in vz on the CPU,
+    # tests/test_torch_stats.py; 5.9e-7 in vx on the card)
+    golden('channel_cube', turbulence_twin('channel_cube'),
+           'turbulence_channel_cube', engine='torch',
+           atol=dict.fromkeys(('vx', 'vy', 'vz'), 1e-6),
+           **TURBULENCE_GOLDEN_FLAGS['channel_cube'])
+    golden('ldc_2d_unorm', twin('ldc_2d_unorm'),
+           **SINGLE_GOLDEN_FLAGS['ldc_2d_unorm'])
+    golden('fe_capillary_wave_2d', binary_twin('fe_capillary_wave_2d'),
+           'binary_fluid_fe_capillary_wave_2d', engine='torch',
+           **FE_HALFWAY_GOLDEN_FLAGS['fe_capillary_wave_2d'])
 
     phase_done('goldens')
     copy_bw = copy_bandwidth()
@@ -3170,6 +3532,19 @@ def main():
         results[row] = res
         note(row, res['err'])
     phase_done('single-fluid main paths')
+    # D3Q15 and D3Q27: the Kida vortex with its hook, bench.py's cavity on
+    # D3Q27; the channel's Reynolds statistics on the D3Q19 forced kernel
+    results['lbm_step_d3q15'] = kida_main_path(copy_bw)
+    _grid, results['lbm_step_d3q27'] = main_path(
+        'ldc_3d_d3q27', LDC_3D, (256, 256, 256), copy_bw, chunks=2,
+        flags=dict(grid='D3Q27'))
+    for name in ('lbm_step_d3q15', 'lbm_step_d3q27'):
+        res, bgk = results[name], results['lbm_step_d3q19']
+        say(f'{name}: {res["mlups"]:.1f} MLUPS, {res["ms"]:.4f} ms per '
+            f'launch against D3Q19\'s {bgk["mlups"]:.1f} MLUPS, '
+            f'{bgk["ms"]:.4f} ms on the cavity of the same size')
+    channel = channel_flow_main_path(copy_bw)
+    phase_done('D3Q15 / D3Q27 and hooked main paths')
     for scene, (sim_cls, size, name, demix) in SC_MAIN.items():
         merge_rows(results, sc_main_path(scene, sim_cls, size, copy_bw,
                                          name, demix))
@@ -3209,7 +3584,7 @@ def main():
         res = results[name]
         assert res['launches'] > 0, name
         note(name, res['err'])
-        nodes = 256 ** 3 if 'd3q19' in name else 4096 ** 2
+        nodes = 4096 ** 2 if 'd2q9' in name else 256 ** 3
         bound, bound_by = bound_ms(name, nodes, res.get('extra_bytes', 0))
         say(f'kernel {name}: {res["ms"]:.4f} ms against a bound of '
             f'{bound:.4f} ms ({bound_by}): {bound / res["ms"]:.3f} of it')
@@ -3221,11 +3596,15 @@ def main():
         for key in ('x_normal_ms', 'models_ms', 'collision_ms', 'step_ms',
                     'dynamic_share', 'unforced_ms', 'mlups', 'fp32_ms',
                     'mixed_over_fp32', 'convert_ms', 'bgk_ms',
-                    'elbm_over_bgk', 'newton_share'):
+                    'elbm_over_bgk', 'newton_share', 'hooked_ms',
+                    'unhooked_ms', 'hook_share'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:
             kernels[-1]['mode'] = MODES[name]
+    say(f'channel_flow (lbm_step_force_d3q19, 240x82x80): '
+        f'{channel["mlups"]:.1f} MLUPS, {channel["ms"]:.4f} ms per launch, '
+        f'hook share {channel["hook_share"]:.4f}')
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -69,13 +69,14 @@ class LBSim:
         return []
 
     #: Host-side ``after_step`` cadence contract. The runner executes many
-    #: iterations per jitted chunk (cfg.every); hooks therefore fire once
-    #: per CHUNK, not per iteration (unlike the reference's per-step call,
+    #: iterations per chunk (cfg.every); hooks therefore fire once per
+    #: CHUNK, not per iteration (unlike the reference's per-step call,
     #: subdomain_runner.py:1738-1743). A sim that genuinely needs
     #: every-k-iterations host hooks sets after_step_interval = k and the
     #: runner caps chunks to k-boundaries (logging the perf impact).
     #: Per-iteration *sampling* should instead use add_device_hook(),
-    #: which runs inside the jitted loop at zero host-sync cost.
+    #: which runs on the device state inside the chunk, with no host
+    #: round trip.
     after_step_interval = None
 
     def __init__(self, config):
@@ -95,21 +96,23 @@ class LBSim:
                 self._mixin_before_main_loop.append(klass.before_main_loop)
 
     def add_device_hook(self, init_state, fn, every=None, from_iter=0):
-        """Register a per-iteration DEVICE hook: ``fn(f, state, it) ->
-        state`` is traced into the jitted main loop and runs after every
-        single step, with ``state`` a device pytree initialized to
-        ``init_state``. This is the device-side replacement for
-        per-iteration after_step sampling (e.g. Reynolds statistics): no
-        host sync, no chunking distortion. Current states are available
-        as runner.device_hook_state (tuple, one entry per hook).
+        """Register a DEVICE hook: ``fn(f, state, it) -> state`` runs on the
+        device state after a step, with ``it`` the iteration count after
+        that step and ``state`` a nested tuple / list / dict of tensors
+        that starts as ``init_state`` (tensors, arrays or numbers, moved to
+        the device). ``fn`` reads ``f`` and never writes it; it returns
+        the new state (it may update its own state's tensors in place).
+        The current states are ``runner.device_hook_state`` (a tuple, one
+        entry per hook), written to checkpoints and restored with them.
 
         ``every``/``from_iter`` (optional) DECLARE the hook's sampling
-        stride so the runner can hoist shared per-iteration work --
-        notably the fused engines' kernel-layout -> standard-layout
-        crop, a full-state permute -- behind one lax.cond (when every
-        registered hook declares a stride). The hook must still gate
-        itself (it may be invoked off-stride when another hook's
-        predicate fires)."""
+        stride. When every registered hook declares one, the runner splits
+        its chunks only where ``it >= from_iter and it % every == 0``
+        holds for at least one hook and runs the hooks there; the engine
+        runs unchanged between the splits. When any hook declares none,
+        every hook runs after every step. Either way a hook may be called
+        off its own stride, so it gates itself with a Python ``if`` on
+        ``it``."""
         self._device_hooks.append((init_state, fn, every, from_iter))
         return len(self._device_hooks) - 1
 

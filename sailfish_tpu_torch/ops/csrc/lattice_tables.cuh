@@ -96,10 +96,81 @@ struct D2Q9 {
     }
 };
 
-// The lattice of a dimension: LatticeOf<2>::type is D2Q9, <3> D3Q19.
-template <int DIM> struct LatticeOf;
-template <> struct LatticeOf<2> { using type = D2Q9; };
-template <> struct LatticeOf<3> { using type = D3Q19; };
+struct D3Q15 {
+    static constexpr int DIM = 3;
+    static constexpr int Q = 15;
+    __host__ __device__ static constexpr int c(int i, int d) {
+        constexpr int t[15][3] = {
+            {0, 0, 0}, {-1, 0, 0}, {0, -1, 0}, {0, 0, -1}, {0, 0, 1},
+            {0, 1, 0}, {1, 0, 0}, {-1, -1, -1}, {-1, -1, 1}, {-1, 1, -1},
+            {-1, 1, 1}, {1, -1, -1}, {1, -1, 1}, {1, 1, -1}, {1, 1, 1}};
+        return t[i][d];
+    }
+    __host__ __device__ static constexpr int opp(int i) {
+        constexpr int t[15] = {0, 6, 5, 4, 3, 2, 1, 14, 13, 12, 11, 10, 9,
+                               8, 7};
+        return t[i];
+    }
+    __host__ __device__ static constexpr int n2(int i) {
+        return c(i, 0) * c(i, 0) + c(i, 1) * c(i, 1) + c(i, 2) * c(i, 2);
+    }
+    // lattice weights
+    __host__ __device__ static constexpr float w(int i) {
+        return n2(i) == 0 ? (float)(2.0 / 9.0)
+             : n2(i) == 1 ? (float)(1.0 / 9.0) : (float)(1.0 / 72.0);
+    }
+    // ln w_i, as D3Q19::logw
+    __host__ __device__ static constexpr float logw(int i) {
+        return n2(i) == 0 ? (float)-1.5040773967762742
+             : n2(i) == 1 ? (float)-2.1972245773362196
+                          : (float)-4.276666119016055;
+    }
+};
+
+struct D3Q27 {
+    static constexpr int DIM = 3;
+    static constexpr int Q = 27;
+    __host__ __device__ static constexpr int c(int i, int d) {
+        constexpr int t[27][3] = {
+            {0, 0, 0}, {-1, 0, 0}, {0, -1, 0}, {0, 0, -1}, {0, 0, 1},
+            {0, 1, 0}, {1, 0, 0}, {-1, -1, 0}, {-1, 0, -1}, {-1, 0, 1},
+            {-1, 1, 0}, {0, -1, -1}, {0, -1, 1}, {0, 1, -1}, {0, 1, 1},
+            {1, -1, 0}, {1, 0, -1}, {1, 0, 1}, {1, 1, 0}, {-1, -1, -1},
+            {-1, -1, 1}, {-1, 1, -1}, {-1, 1, 1}, {1, -1, -1}, {1, -1, 1},
+            {1, 1, -1}, {1, 1, 1}};
+        return t[i][d];
+    }
+    __host__ __device__ static constexpr int opp(int i) {
+        constexpr int t[27] = {0, 6, 5, 4, 3, 2, 1, 18, 17, 16, 15, 14, 13,
+                               12, 11, 10, 9, 8, 7, 26, 25, 24, 23, 22, 21,
+                               20, 19};
+        return t[i];
+    }
+    __host__ __device__ static constexpr int n2(int i) {
+        return c(i, 0) * c(i, 0) + c(i, 1) * c(i, 1) + c(i, 2) * c(i, 2);
+    }
+    // lattice weights
+    __host__ __device__ static constexpr float w(int i) {
+        return n2(i) == 0 ? (float)(8.0 / 27.0)
+             : n2(i) == 1 ? (float)(2.0 / 27.0)
+             : n2(i) == 2 ? (float)(1.0 / 54.0) : (float)(1.0 / 216.0);
+    }
+    // ln w_i, as D3Q19::logw
+    __host__ __device__ static constexpr float logw(int i) {
+        return n2(i) == 0 ? (float)-1.2163953243244932
+             : n2(i) == 1 ? (float)-2.6026896854443837
+             : n2(i) == 2 ? (float)-3.9889840465642745
+                          : (float)-5.375278407684165;
+    }
+};
+
+// The lattice of a dimension and a direction count: LatticeOf<2, 9>::type
+// is D2Q9, <3, 15> D3Q15, <3, 19> D3Q19, <3, 27> D3Q27.
+template <int DIM, int Q> struct LatticeOf;
+template <> struct LatticeOf<2, 9> { using type = D2Q9; };
+template <> struct LatticeOf<3, 15> { using type = D3Q15; };
+template <> struct LatticeOf<3, 19> { using type = D3Q19; };
+template <> struct LatticeOf<3, 27> { using type = D3Q27; };
 
 // The direction of L whose velocity is c_i with its component along axis
 // reversed: the slip (specular) reflection of a wall normal to that axis

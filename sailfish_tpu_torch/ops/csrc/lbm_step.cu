@@ -171,6 +171,14 @@
 //   eight blocks, 32 warps, where they took 69-90 registers and got five
 //   to seven (on the H100: 0.95 of the uncapped int16 step at 4096^2,
 //   PERF.md).
+// - The D3Q15 and D3Q27 lattices (the JAX kernel is generic over the
+//   lattice: make_kernel_3d takes builder.grid) are built by
+//   lbm_step_lattices.cu (LBM_LATTICES): BGK with either equilibrium, every
+//   force model, wall rows or not, fp32 (16 instantiations per lattice),
+//   behind the entries lbm_step_d3q15 / _d3q27, so the D2Q9 and D3Q19
+//   libraries build nothing new. A node moves 2 * 15 * 4 + 1 = 121 B and
+//   2 * 27 * 4 + 1 = 217 B; the lattice is the pair (DIM, Q) of LatticeOf,
+//   and every direction loop is over its compile-time indices as for D3Q19.
 // Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
 // an in-place (AA-pattern) step would halve the footprint.
 
@@ -191,7 +199,7 @@ lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
                 const int* __restrict__ tags,
                 const float* __restrict__ rho_pre,
                 const __grid_constant__ typename ScalesOf<T>::type sc) {
-    using L = typename LatticeOf<DIM>::type;
+    using L = typename LatticeOf<DIM, Q>::type;
     using P = Physics<FORCE, MODEL, EQ>;
     static_assert(L::Q == Q && L::DIM == DIM, "lattice of the dimension");
     const int nx = p.nx, ny = p.ny;
@@ -377,7 +385,22 @@ static void copy_tables(LBMTables* out) {
 
 extern "C" {
 
-#ifndef LBM_MIXED
+#if defined(LBM_LATTICES)
+// The D3Q15 and D3Q27 lattices (lbm_step_lattices.cu): BGK with the
+// compressible or the incompressible equilibrium, every force model, wall
+// rows or not, fp32; the arguments as lbm_step_d3q19.
+int lbm_step_d3q15(const float* a, float* b, const uint8_t* mask,
+                   const float* bcp, const int* tags, const LBMParams* p,
+                   void* stream) {
+    return launch<3, 15>(a, b, mask, bcp, tags, p, LBMNoScales(), stream);
+}
+
+int lbm_step_d3q27(const float* a, float* b, const uint8_t* mask,
+                   const float* bcp, const int* tags, const LBMParams* p,
+                   void* stream) {
+    return launch<3, 27>(a, b, mask, bcp, tags, p, LBMNoScales(), stream);
+}
+#elif !defined(LBM_MIXED)
 // bcp: the per-node parameter array (never read when no row varies);
 // tags: the int32 link-tag map, one word per node (read only by the nodes of
 // half-way and TMS rows; may be null when there is none).
@@ -440,12 +463,13 @@ int lbm_params_size(void) { return (int)sizeof(LBMParams); }
 
 int lbm_tables_size(void) { return (int)sizeof(LBMTables); }
 
-// The compile-time tables of the dim-dimensional kernel's lattice, for the
-// check at load; entries beyond Q are 0. Returns 0, or 1 for a dimension
-// without a kernel.
-int lbm_lattice_tables(int dim, LBMTables* out) {
-    if (dim == 2) copy_tables<D2Q9>(out);
-    else if (dim == 3) copy_tables<D3Q19>(out);
+// The compile-time tables of the lattice DdimQq, for the check at load;
+// entries beyond Q are 0. Returns 0, or 1 for a lattice without tables.
+int lbm_lattice_tables(int dim, int q, LBMTables* out) {
+    if (dim == 2 && q == 9) copy_tables<D2Q9>(out);
+    else if (dim == 3 && q == 15) copy_tables<D3Q15>(out);
+    else if (dim == 3 && q == 19) copy_tables<D3Q19>(out);
+    else if (dim == 3 && q == 27) copy_tables<D3Q27>(out);
     else return 1;
     return 0;
 }

@@ -9,7 +9,11 @@ Shan-Chen mode, two launches per step: the post-stream density pre-pass
 ``rho_poststream`` of ``csrc/sc_multi.cu`` (at nk = 1), then the step; and
 int16 state buffers under ``--precision=mixed`` (``ops/mixed.py``: the
 kernel dequantizes each pulled code in registers and quantizes each stored
-value, the math fp32; entries ``lbm_step_mixed_<grid>``).
+value, the math fp32; entries ``lbm_step_mixed_<grid>``). All of that on
+D2Q9 and D3Q19; on D3Q15 and D3Q27 the kernel runs BGK (the compressible
+or the incompressible equilibrium, every force model, every BC and wall
+row) in fp32, built from a library of their own
+(``csrc/lbm_step_lattices.cu``), and refuses the other modes by name.
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
@@ -66,7 +70,13 @@ MAX_GRID_YZ = 65535
 #: the kernel addresses a node inside its (y, x) plane with a 32-bit int
 MAX_PLANE_FLOATS = 2 ** 31 - 1
 #: lattices the kernel is instantiated for
-KERNEL_GRIDS = ('D2Q9', 'D3Q19')
+KERNEL_GRIDS = ('D2Q9', 'D3Q15', 'D3Q19', 'D3Q27')
+#: the lattices whose instantiations are in ``csrc/lbm_step_lattices.cu``
+#: (BGK, either equilibrium, every force model, wall rows or not, fp32); a
+#: mode they lack is refused by name (``_lattice_reasons``)
+OTHER_LATTICES = ('D3Q15', 'D3Q27')
+#: the library of the other lattices' instantiations
+LATTICES_LIBRARY = 'lbm_step_lattices'
 #: kernel launches over all ``KernelStep`` objects, counted apart by what
 #: the launch computes, the first that applies: ``lbm_step_dyn_<grid>``
 #: (a BC row or the body force takes values that change from step to step,
@@ -91,10 +101,14 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: takes) counts as ``lbm_step_mixed_<grid>``, its C entry's name.
 LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'elbm_',
                 'sw_', 'sc_', 'wall_', 'dyn_', 'mixed_')
+#: the kinds a launch on one of ``OTHER_LATTICES`` can be (BGK only, fp32)
+OTHER_LATTICE_KINDS = ('', 'vary_', 'force_', 'incomp_', 'wall_', 'dyn_')
 LAUNCHES = dict.fromkeys(
     [f'lbm_step_{v}{g.lower()}' for v in LAUNCH_KINDS
-     for g in KERNEL_GRIDS]
-    + [f'rho_poststream_nk1_{g.lower()}' for g in KERNEL_GRIDS], 0)
+     for g in ('D2Q9', 'D3Q19')]
+    + [f'rho_poststream_nk1_{g}' for g in ('d2q9', 'd3q19')]
+    + [f'lbm_step_{v}{g.lower()}' for v in OTHER_LATTICE_KINDS
+       for g in OTHER_LATTICES], 0)
 #: rewrites of a block of the per-node parameter array before a launch (a
 #: space- and time-dependent BC row), over all ``KernelStep`` objects, per
 #: lattice: each is a few small PyTorch launches on the kernel's stream
@@ -288,6 +302,34 @@ def kernel_ineligibility(builder, nodes=None):
         reasons += bc_patch.instance_boxes(builder.maps, instances)[1]
     reasons += _mode_reasons(builder, instances)
     reasons += _mixed_reasons(builder)
+    reasons += _lattice_reasons(builder)
+    return reasons
+
+
+def _lattice_reasons(builder):
+    """The modes of the kernel that are built for D2Q9 and D3Q19 only: on
+    the ``OTHER_LATTICES`` the kernel runs BGK (either equilibrium, every
+    force model, wall rows or not) in fp32, and refuses the rest by name
+    (the JAX kernel takes them on any lattice; ROADMAP.md lists them as
+    still to port)."""
+    name = builder.grid.name
+    if name not in OTHER_LATTICES:
+        return []
+    why = 'is built for D2Q9 and D3Q19 only; --engine=torch runs it'
+    reasons = []
+    if builder.model in ('mrt', 'trt', 'elbm'):
+        reasons.append(f'model={builder.model} on {name} (the kernel\'s '
+                       f'{builder.model.upper()} mode {why})')
+    elif builder.smagorinsky > 0.0:
+        reasons.append(f'the Smagorinsky LES model on {name} (the kernel\'s '
+                       f'LES mode {why})')
+    if builder.sc_coupling != 0.0:
+        reasons.append(f'Shan-Chen on {name} (the kernel\'s SC mode {why})')
+    if builder.equilibrium == 'shallow_water':
+        reasons.append(f'shallow water on {name} (D2Q9 only)')
+    if getattr(builder, 'mixed', None) is not None:
+        reasons.append(f'--precision=mixed on {name} (the kernel\'s int16 '
+                       f'mode {why})')
     return reasons
 
 
@@ -740,7 +782,8 @@ def instantiation(fn):
 def kernel_function(lib, name):
     """The C entry ``name`` (``lbm_step_<grid>``, the Shan-Chen mode's
     ``lbm_step_sc_<grid>`` or the int16 state's ``lbm_step_mixed_<grid>``;
-    grid ``d2q9`` / ``d3q19``) of a loaded ``csrc/lbm_step.cu`` library,
+    grid ``d2q9`` / ``d3q19``, or ``d3q15`` / ``d3q27`` of
+    ``csrc/lbm_step_lattices.cu``) of a loaded ``csrc/lbm_step.cu`` library,
     typed for ``ctypes``, after checking that the library's parameter
     blocks match ``_Params`` (and, for a mixed entry, ``_Mixed``) and that
     the compile-time tables of the entry's lattice match
@@ -761,11 +804,11 @@ def kernel_function(lib, name):
                            'csrc/lbm_common.cuh and ops/lbm_step.py')
     grid = lattice.get_grid(name.rsplit('_', 1)[1].upper())
     tables = _Tables()
-    lib.lbm_lattice_tables.argtypes = [ctypes.c_int,
+    lib.lbm_lattice_tables.argtypes = [ctypes.c_int, ctypes.c_int,
                                        ctypes.POINTER(_Tables)]
     lib.lbm_lattice_tables.restype = ctypes.c_int
-    if lib.lbm_lattice_tables(grid.dim, ctypes.byref(tables)) != 0:
-        raise RuntimeError(f'csrc/lbm_step.cu has no {grid.dim}D lattice')
+    if lib.lbm_lattice_tables(grid.dim, grid.Q, ctypes.byref(tables)) != 0:
+        raise RuntimeError(f'csrc/lattice_tables.cuh has no {grid.name}')
     check_tables(tables, grid)
     fn = getattr(lib, name)
     # lbm_step_<grid>: (a, b, mask, bcp, tags, params, stream);
@@ -872,8 +915,10 @@ class KernelStep:
             self.force_model, self.rates, self.smagorinsky,
             self.incompressible, self.equilibrium, self.gravity,
             self.sc_coupling, self.sc_potential, self.elbm)
-        self.library = (LIBRARIES if self.mixed is None
-                        else MIXED_LIBRARIES)[self.params.coll.model]
+        self.library = LATTICES_LIBRARY \
+            if self.grid.name in OTHER_LATTICES else \
+            (LIBRARIES if self.mixed is None
+             else MIXED_LIBRARIES)[self.params.coll.model]
         g = self.grid.name.lower()
         self.entry = f'lbm_step_{"sc_" if self.sc else ""}' \
             f'{"" if self.mixed is None else "mixed_"}{g}'
@@ -1092,10 +1137,20 @@ class KernelStep:
         returned dequantized in ``out`` (``run_codes`` steps the codes)."""
         if self.mixed is None:
             return self.run_codes(f, n, it0)
-        if f is not self.a and f is not self.b:
-            self.a.copy_(self.mixed.quant(f))
-            f = self.a
-        return self.out.copy_(self.mixed.dequant(self.run_codes(f, n, it0)))
+        return self.state_of(self.run_codes(self.codes_of(f), n, it0))
+
+    def codes_of(self, f):
+        """Under --precision=mixed, the buffer of int16 codes to step from
+        for the fp32 state ``f``: ``f`` quantized into A (A or B itself
+        when ``f`` is one of them)."""
+        if f is self.a or f is self.b:
+            return f
+        return self.a.copy_(self.mixed.quant(f))
+
+    def state_of(self, codes):
+        """Under --precision=mixed, the fp32 state of the int16 ``codes``:
+        dequantized into ``out``."""
+        return self.out.copy_(self.mixed.dequant(codes))
 
     def run_codes(self, f, n, it0=0):
         """``n`` steps from the state ``f`` of ``dtype`` (fp32, or int16

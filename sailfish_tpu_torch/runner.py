@@ -16,8 +16,15 @@ kernels: ``ops/lbm_step.KernelStep`` for a single fluid,
 ``ops/fe_step.FEStep`` for the binary free-energy model). There is no
 silent fallback between them: a requested or defaulted kernel engine that
 cannot run a scene raises with the reasons.
-Device hooks, force objects, ``--init_iters``, meshes and
-``--profile_trace`` are not ported yet and raise ``NotImplementedError``.
+
+Device hooks (``sim.add_device_hook``) run on both engines: each chunk is
+split at the iterations where a declared stride fires (after every step
+when a hook declares none), the engine runs unchanged between the splits,
+and the hooks are called there on the device state; their states are
+``device_hook_state`` and travel in checkpoints as ``hook{i}``, as the JAX
+runner writes them (``sailfish_tpu/runner.py:191-261``, :503-521).
+Force objects, ``--init_iters``, meshes and ``--profile_trace`` are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -104,6 +111,8 @@ class SubdomainRunner:
                 'Use --precision=single')
         self.f = self._snap(self.sim.make_initial_state(self.builder, dtype))
         self.engine = self._select_engine()
+        self.device_hook_state = ()
+        self._pending_hook_leaves = None
         if self.engine == 'kernel':
             self.kernel = self._kernel_engine()
             self._run_steps = self.kernel.run
@@ -128,15 +137,24 @@ class SubdomainRunner:
 
     def _kernel_engine(self):
         """The kernel engine of the builder's model; it raises, naming
-        the reasons, when its kernel cannot run the scene."""
+        the reasons, when its kernel cannot run the scene (also when the
+        builder is none of the port's step builders, as a scene's own
+        composite step is)."""
         from sailfish_tpu_torch.ops.multigrid import (
             FreeEnergyStepBuilder, ShanChenMultiStepBuilder)
+        from sailfish_tpu_torch.ops.step import StepBuilder
         if isinstance(self.builder, ShanChenMultiStepBuilder):
             from sailfish_tpu_torch.ops.sc_multi import SCMultiStep
             return SCMultiStep(self.builder)
         if isinstance(self.builder, FreeEnergyStepBuilder):
             from sailfish_tpu_torch.ops.fe_step import FEStep
             return FEStep(self.builder)
+        if not isinstance(self.builder, StepBuilder):
+            raise NotImplementedError(
+                'the CUDA kernels cannot run this scene: its step builder '
+                f'{type(self.builder).__name__} is not a StepBuilder, '
+                'ShanChenMultiStepBuilder or FreeEnergyStepBuilder (a '
+                'composite step); --engine=torch runs it')
         from sailfish_tpu_torch.ops.lbm_step import KernelStep
         return KernelStep(self.builder)
 
@@ -170,7 +188,8 @@ class SubdomainRunner:
 
     def save_checkpoint(self):
         """Distributions (``dist{i}a``, one per state component) +
-        pickled sim state, in the JAX package's npz layout
+        pickled sim state + the device-hook states' leaves (``hook{i}``,
+        in ``state.tree_leaves`` order), in the JAX package's npz layout
         (``sailfish_tpu/runner.py:503-521``)."""
         fname = sio.checkpoint_filename(
             self.config.checkpoint_file,
@@ -178,11 +197,15 @@ class SubdomainRunner:
             self.sim.iteration)
         dists = {f'dist{i}a': st.state_to_numpy(f)
                  for i, f in enumerate(st.leaves(self.f))}
+        hooks = {f'hook{i}': np.asarray(st.state_to_numpy(leaf)
+                                        if torch.is_tensor(leaf) else leaf)
+                 for i, leaf in enumerate(
+                     st.tree_leaves(self.device_hook_state))}
         np.savez(fname,
                  state=np.array([self.sim.iteration], dtype=np.int64),
                  sim_state=np.frombuffer(pickle.dumps(self.sim.get_state()),
                                          dtype=np.uint8),
-                 **dists)
+                 **dists, **hooks)
 
     def restore_checkpoint(self, fname):
         """Restore a checkpoint written by either package. ``sim_state``
@@ -194,9 +217,12 @@ class SubdomainRunner:
             self.sim.iteration = int(cpoint['state'][0])
         if not getattr(self.config, 'restore_time', True):
             self.sim.iteration = 0
-        if any(k.startswith('hook') for k in cpoint.files):
-            raise NotImplementedError(
-                'checkpoints with device-hook state are not ported yet')
+        # the hooks are registered in before_main_loop, after the restore:
+        # their leaves are laid over the hooks' states then (_init_hooks)
+        self._pending_hook_leaves = [
+            cpoint[k] for k in sorted(
+                (k for k in cpoint.files if k.startswith('hook')),
+                key=lambda k: int(k[4:]))]
         n = sum(1 for k in cpoint.files
                 if k.startswith('dist') and k.endswith('a'))
         self.f = st.from_leaves(self.f, [
@@ -222,11 +248,103 @@ class SubdomainRunner:
         self.sim.before_main_loop(self)
         for hook in self.sim._mixin_before_main_loop:
             hook(self.sim, self)
-        if self.sim._device_hooks:
-            raise NotImplementedError(
-                'device hooks (sim.add_device_hook) are not ported yet')
+        self._init_hooks()
         with torch.no_grad():
             return self.main()
+
+    # -- device hooks --------------------------------------------------------
+
+    def _hook_leaf(self, x):
+        """A leaf of a hook's initial state as a tensor of its own on the
+        device: a tensor keeps its dtype; a numpy array or a Python number
+        takes the dtype JAX gives it (64-bit only under
+        ``--precision=double``, where the JAX package runs with x64 on)."""
+        if torch.is_tensor(x):
+            return x.detach().to(self.device).clone()
+        a = np.asarray(x)
+        if self.config.dtype != torch.float64:
+            a = a.astype({np.dtype(np.float64): np.float32,
+                          np.dtype(np.int64): np.int32}.get(a.dtype, a.dtype))
+        elif a.dtype.kind == 'i':
+            a = a.astype(np.int64)
+        return torch.as_tensor(a, device=self.device).clone()
+
+    def _init_hooks(self):
+        """Give the hooks registered by ``before_main_loop`` their initial
+        states (with a restored checkpoint's ``hook{i}`` leaves laid over
+        them) and split the main loop's chunks for them."""
+        hooks = self.sim._device_hooks
+        pending = self._pending_hook_leaves or []
+        self._pending_hook_leaves = None
+        if not hooks:
+            if pending:
+                raise ValueError(
+                    f'the checkpoint holds {len(pending)} device-hook '
+                    'leaves and this scene registers no device hook')
+            return
+        state = tuple(st.tree_map(self._hook_leaf, init)
+                      for init, _fn, _e, _f in hooks)
+        if pending:
+            leaves = st.tree_leaves(state)
+            if len(pending) != len(leaves) or any(
+                    tuple(p.shape) != tuple(leaf.shape)
+                    for p, leaf in zip(pending, leaves)):
+                raise ValueError(
+                    'the checkpoint\'s device-hook state does not match the '
+                    'registered hooks: leaves of shapes '
+                    f'{[tuple(p.shape) for p in pending]} for '
+                    f'{[tuple(leaf.shape) for leaf in leaves]}')
+            state = st.tree_unflatten(state, [
+                torch.as_tensor(p, dtype=leaf.dtype, device=leaf.device)
+                for p, leaf in zip(pending, leaves)])
+        self.device_hook_state = state
+        self._run_steps = self._hooked_run(self._run_steps)
+
+    def hook_iterations(self, it0, n):
+        """The iterations of the chunk of ``n`` steps after ``it0`` (the
+        count after each step, it0 + 1 ... it0 + n) after which the hooks
+        run: those where ``it >= from_iter and it % every == 0`` holds for
+        at least one hook when every hook declares ``every``, else all of
+        them (``sailfish_tpu/runner.py:238-251``)."""
+        hooks = self.sim._device_hooks
+        if any(every is None for _i, _fn, every, _f in hooks):
+            return list(range(it0 + 1, it0 + n + 1))
+        fire = set()
+        for _i, _fn, every, from_iter in hooks:
+            lo = max(it0 + 1, from_iter)
+            fire.update(range(-(-lo // every) * every, it0 + n + 1, every))
+        return sorted(fire)
+
+    def _hooked_run(self, run):
+        """``run`` (the engine's ``run(f, n, it0)``) split at the hooks'
+        iterations, the hooks called there as ``fn(f, state, it)`` with
+        ``it`` the iteration count after the step; each returns its new
+        state and must not write ``f``. On the kernel engine under
+        --precision=mixed the int16 buffers are stepped across the splits
+        (``KernelStep.run_codes``: no quantize round trip is added) and the
+        hooks see their dequantized copy."""
+        fns = [fn for _i, fn, _e, _f in self.sim._device_hooks]
+        codes = None   # the KernelStep stepping int16 codes
+        if getattr(self.kernel, 'mixed', None) is not None:
+            codes = self.kernel
+            run = codes.run_codes
+
+        def run_steps(f, n, it0=0):
+            if codes is not None:
+                f = codes.codes_of(f)
+            pos = it0
+            for it in self.hook_iterations(it0, n):
+                f = run(f, it - pos, pos)
+                pos = it
+                view = f if codes is None else codes.mixed.dequant(f)
+                self.device_hook_state = tuple(
+                    fn(view, s, it)
+                    for fn, s in zip(fns, self.device_hook_state))
+            if pos < it0 + n:
+                f = run(f, it0 + n - pos, pos)
+            return f if codes is None else codes.state_of(f)
+
+        return run_steps
 
     def _install_sighup_checkpoint(self):
         """SIGHUP forces an on-demand checkpoint."""

@@ -48,3 +48,49 @@ def from_leaves(like, tensors):
 def is_finite(state):
     """True when every distribution value of the state is finite."""
     return all(bool(torch.isfinite(f).all()) for f in leaves(state))
+
+
+def tree_leaves(tree):
+    """The tensors (or arrays) of a nested structure of tuples, lists and
+    dicts, in the order of ``jax.tree.leaves``: dict keys sorted, tuple
+    and list items in order; None holds no leaf. This is the order in
+    which checkpoints store device-hook states (``hook0`` ...), so the
+    two packages read each other's."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for item in tree for x in tree_leaves(item)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A structure of ``like``'s shape holding ``leaves`` (in
+    ``tree_leaves`` order); raises ValueError when their number differs
+    from ``like``'s."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(item) for item in node)
+        try:
+            return next(it)
+        except StopIteration:
+            raise ValueError('fewer leaves than the structure holds') \
+                from None
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError('more leaves than the structure holds')
+    return out
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of ``tree``, the structure kept."""
+    return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])

@@ -466,16 +466,19 @@ def test_per_node_force_raises_on_the_default_engine(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('grid_name', ['D2Q9', 'D3Q19'])
+@pytest.mark.parametrize('grid_name', ls.KERNEL_GRIDS)
 def test_lbm_tables_equal_the_lattice(cuda, grid_name):
     from sailfish_tpu_torch import lattice
     grid = lattice.get_grid(grid_name)
     ref = ls.lattice_tables(grid)
-    for library in ls.LIBRARIES.values():
+    libraries = [ls.LATTICES_LIBRARY] if grid_name in ls.OTHER_LATTICES \
+        else ls.LIBRARIES.values()
+    for library in libraries:
         lib = build.load(library).lib
         ls.kernel_function(lib, f'lbm_step_{grid_name.lower()}')  # raises
         tables = ls._Tables()
-        assert lib.lbm_lattice_tables(grid.dim, ctypes.byref(tables)) == 0
+        assert lib.lbm_lattice_tables(grid.dim, grid.Q,
+                                      ctypes.byref(tables)) == 0
         for name, _ in ls._Tables._fields_[2:]:
             assert bytes(getattr(tables, name)) == \
                 bytes(getattr(ref, name)), (library, name)
@@ -1722,3 +1725,76 @@ def test_default_engine_on_cuda_runs_elbm(cuda, scene):
 def test_elbm_refusals_on_the_default_engine(cuda, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         run(twin('ldc_2d'), max_iters=0, lat_nx=64, lat_ny=64, **flags)
+
+
+#: the instantiation classes of the D3Q15 / D3Q27 library (BGK with either
+#: equilibrium, each force model, wall rows or not) on a cavity, a forced
+#: native-BC channel and half-way / TMS boxes: name -> (sim, size, flags)
+LATTICE_CASES = {
+    'ldc': (lambda: twin('ldc_3d'), dict(lat_nx=40, lat_ny=24, lat_nz=20),
+            {}),
+    'ldc_incompressible': (lambda: twin('ldc_3d'),
+                           dict(lat_nx=40, lat_ny=24, lat_nz=20),
+                           dict(incompressible=True)),
+}
+for _model in FORCE_MODELS:
+    _i = FORCE_MODELS.index(_model)
+    LATTICE_CASES[f'channel_{_model}'] = (
+        lambda a='xyz'[_i]: forced_channel_sim('zouhe', a),
+        dict(lat_nx=40, lat_ny=24, lat_nz=20,
+             **{'periodic_z' if _i == 0 else 'periodic_x': True}),
+        dict(force_implementation=_model))
+    for _w in ('halfbb', 'tms'):
+        LATTICE_CASES[f'{_w}_{_model}'] = (
+            lambda w=_w: box_sim(WALLS[w], 3, (0, 1, 2), ACCEL),
+            dict(box_cfg(3, (0, 1, 2)), lat_nx=40, lat_ny=24, lat_nz=20),
+            dict(force_implementation=_model, incompressible=_i == 1))
+LATTICE_CASES['halfbb_unforced'] = (
+    lambda: box_sim(WALLS['halfbb'], 3, (0, 1, 2)),
+    dict(box_cfg(3, (0, 1, 2)), lat_nx=40, lat_ny=24, lat_nz=20), {})
+LATTICE_CASES['slip_x'] = (lambda: slip_sim(3, 0),
+                           dict(lat_nx=40, lat_ny=24, lat_nz=20,
+                                periodic_y=True, periodic_z=True), {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(LATTICE_CASES))
+@pytest.mark.parametrize('grid_name', ls.OTHER_LATTICES)
+def test_other_lattice_kernel_matches_step_reference(cuda, grid_name, case):
+    """The D3Q15 / D3Q27 instantiations against ``step_reference`` on the
+    same lattice: 100 steps, wet-node max |df| <= 1e-5."""
+    make_sim, size, flags = LATTICE_CASES[case]
+    r = run(with_keep_block(make_sim()), platform='cuda', engine='kernel',
+            max_iters=0, grid=grid_name, **size, **flags)
+    ks = r.kernel
+    assert ks.library == ls.LATTICES_LIBRARY
+    assert ks.entry == f'lbm_step_{grid_name.lower()}'
+    f0 = random_feq(r.sim.grid, ks.shape, seed=5, device='cuda')
+    fk = ks.run(f0, 100)
+    fr = f0
+    for _ in range(100):
+        fr = ks.reference(fr)
+    torch.cuda.synchronize()
+    assert ks.launches == 100
+    wet = (ks.mask == 0) | (ks.mask >= 3)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_other_lattice_instantiations(cuda):
+    """ptxas: the library of the other lattices holds 2 lattices x 4 force
+    models x wall rows or not x 2 equilibria, BGK, fp32, without a stack
+    frame or spills."""
+    lib = build.load(ls.LATTICES_LIBRARY)
+    insts = {}
+    for fn, use in build.ptxas_usage(lib.log).items():
+        inst = ls.instantiation(fn)
+        if inst:
+            insts[fn] = inst
+            assert use['stack_frame'] == use['spill_stores'] \
+                == use['spill_loads'] == 0, (fn, use)
+    kinds = {tuple(i.values()) for i in insts.values()}
+    assert len(kinds) == 2 * 4 * 2 * 2
+    assert {i['q'] for i in insts.values()} == {15, 27}
+    assert {i['model'] for i in insts.values()} == {'bgk'}
+    assert {i['storage'] for i in insts.values()} == {'fp32'}

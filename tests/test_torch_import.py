@@ -101,14 +101,16 @@ def test_port_modules_are_packaged():
             'sailfish_tpu_torch.ops.bc_patch', 'sailfish_tpu_torch.lattice',
             'sailfish_tpu_torch.geo', 'sailfish_tpu_torch.profile',
             'sailfish_tpu_torch.ops.mixed',
-            'sailfish_tpu_torch.ops.entropic'} <= names
+            'sailfish_tpu_torch.ops.entropic', 'sailfish_tpu_torch.stats',
+            'sailfish_tpu_torch.data_processing'} <= names
     csrc = os.path.join(os.path.dirname(sailfish_tpu_torch.__file__), 'ops',
                         'csrc')
     # every source, and no other: a source without a wrapper would be
     # dead code (the patch kernel went when lbm_step took over its work)
     assert sorted(os.listdir(csrc)) == [
         'fe_step.cu', 'lattice_tables.cuh', 'lbm_common.cuh', 'lbm_step.cu',
-        'lbm_step_elbm.cu', 'lbm_step_les.cu', 'lbm_step_mixed.cu',
+        'lbm_step_elbm.cu', 'lbm_step_lattices.cu', 'lbm_step_les.cu',
+        'lbm_step_mixed.cu',
         'lbm_step_mixed_elbm.cu', 'lbm_step_mixed_les.cu',
         'lbm_step_mixed_mrt.cu', 'lbm_step_mrt.cu', 'sc_multi.cu']
 
@@ -130,7 +132,7 @@ def test_package_data_carries_every_file_a_build_hashes():
     patterns = data['sailfish_tpu_torch']
     root = os.path.dirname(sailfish_tpu_torch.__file__)
     sources = sorted(build.CSRC.glob('*.cu'))
-    assert len(sources) == 10
+    assert len(sources) == 11
     files = {f for src in sources for f in build.hashed_files(src)}
     # a source that builds lbm_step.cu with another collision model hashes
     # it too
@@ -153,7 +155,11 @@ def test_binary_twins_are_checked():
                      'fe_viscous_fingering.py', 'binary_microchannel.py',
                      'sc_drop_2d.py', 'sc_laplace_2d.py',
                      'sc_rayleigh_taylor_2d.py', 'sc_capillary.py',
-                     'sc_poiseuille_2d.py', 'sc_capillary_wave_2d.py'}
+                     'sc_poiseuille_2d.py', 'sc_capillary_wave_2d.py',
+                     'fe_capillary_wave_2d.py'}
+    from torch_scenes import FE_HALFWAY_SCENES, binary_twin
+    for scene, name in FE_HALFWAY_SCENES.items():
+        assert binary_twin(scene).__name__ == name
 
 
 def test_ternary_twins_are_checked():
@@ -177,6 +183,18 @@ def test_single_fluid_twins_are_checked():
     assert twins == set(SINGLE_SCENES) == set(SINGLE_GOLDEN_FLAGS)
     for scene in SINGLE_SCENES:
         assert twin(scene).__name__ == SINGLE_SCENES[scene]
+
+
+def test_turbulence_twins_are_checked():
+    """Every turbulence twin is registered with its sim class and the
+    golden harness's flags (``torch_scenes.TURBULENCE_SCENES``)."""
+    from torch_scenes import (TURBULENCE_GOLDEN_FLAGS, TURBULENCE_SCENES,
+                              turbulence_twin)
+    top = os.path.join(REPO, 'examples', 'torch', 'turbulence')
+    twins = {n[:-3] for n in os.listdir(top) if n.endswith('.py')}
+    assert twins == set(TURBULENCE_SCENES) == set(TURBULENCE_GOLDEN_FLAGS)
+    for scene in TURBULENCE_SCENES:
+        assert turbulence_twin(scene).__name__ == TURBULENCE_SCENES[scene]
 
 
 def test_node_type_ids_match_the_jax_package():

@@ -257,12 +257,14 @@ class _FakeLib:
         self.lbm_step_d3q19 = self.Entry()
         self.lbm_step_sc_d2q9 = self.Entry()
         self.lbm_step_sc_d3q19 = self.Entry()
+        self.lbm_step_d3q15 = self.Entry()
+        self.lbm_step_d3q27 = self.Entry()
 
-        def copy_out(dim, ref):
-            if dim not in (2, 3):
+        def copy_out(dim, q, ref):
+            name = f'D{dim}Q{q}'
+            if name not in ls.KERNEL_GRIDS:
                 return 1
-            t = ls.lattice_tables({2: lattice_torch.D2Q9,
-                                   3: lattice_torch.D3Q19}[dim])
+            t = ls.lattice_tables(lattice_torch.get_grid(name))
             if spoil:
                 spoil(t)
             ctypes.memmove(ref, ctypes.byref(t), ctypes.sizeof(t))
@@ -293,7 +295,7 @@ def test_kernel_function_checks_the_params_size():
     # launches are counted apart by what they compute; one entry serves
     # all but the Shan-Chen mode, whose pre-pass counts apart too, and the
     # int16 state's mode
-    assert sorted(ls.LAUNCHES) == ['lbm_step_d2q9', 'lbm_step_d3q19',
+    assert sorted(ls.LAUNCHES) == sorted(['lbm_step_d2q9', 'lbm_step_d3q19',
                                    'lbm_step_dyn_d2q9',
                                    'lbm_step_dyn_d3q19',
                                    'lbm_step_elbm_d2q9',
@@ -317,7 +319,9 @@ def test_kernel_function_checks_the_params_size():
                                    'lbm_step_wall_d2q9',
                                    'lbm_step_wall_d3q19',
                                    'rho_poststream_nk1_d2q9',
-                                   'rho_poststream_nk1_d3q19']
+                                   'rho_poststream_nk1_d3q19'] + [
+        f'lbm_step_{kind}{g}' for g in ('d3q15', 'd3q27')
+        for kind in ('', 'dyn_', 'force_', 'incomp_', 'vary_', 'wall_')])
 
 
 def _many_instances_sim():
@@ -475,7 +479,7 @@ def test_cuda_source_tables_equal_the_lattice(name):
                                   grid.weights.astype(np.float32))
 
 
-@pytest.mark.parametrize('name', ['D2Q9', 'D3Q19'])
+@pytest.mark.parametrize('name', ls.KERNEL_GRIDS)
 def test_check_tables_accepts_the_lattice(name):
     grid = lattice_torch.get_grid(name)
     t = ls.lattice_tables(grid)
@@ -492,7 +496,7 @@ def test_check_tables_accepts_the_lattice(name):
 
 
 @pytest.mark.parametrize('field', [f for f, _ in ls._Tables._fields_])
-@pytest.mark.parametrize('name', ['D2Q9', 'D3Q19'])
+@pytest.mark.parametrize('name', ls.KERNEL_GRIDS)
 def test_check_tables_raises_on_a_perturbed_copy(name, field):
     grid = lattice_torch.get_grid(name)
 

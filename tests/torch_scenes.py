@@ -61,6 +61,7 @@ SINGLE_SCENES = {
     'sc_phase_separation': 'SCSim',
     'sc_phase_separation_3d': 'SCSim3D',
     'fs_gaussian': 'FSSim',
+    'ldc_2d_unorm': 'LDCSimUnorm',
 }
 #: the golden harness's flags for the single-fluid scenes
 #: (tests/examples_harness.py:26-94)
@@ -86,6 +87,7 @@ SINGLE_GOLDEN_FLAGS = {
     'sc_phase_separation': dict(lat_nx=32, lat_ny=32),
     'sc_phase_separation_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
     'fs_gaussian': dict(lat_nx=32, lat_ny=32),
+    'ldc_2d_unorm': dict(lat_nx=32, lat_ny=32, unorm_every=7),
 }
 #: the single-component Shan-Chen twins (the kernel engine's ``sc`` mode,
 #: after the density pre-pass) and the shallow-water twin (its
@@ -169,11 +171,45 @@ FE_GOLDEN_FLAGS = {
 }
 
 
+#: the free-energy twin between half-way walls (its device hook samples
+#: the interface height): the free-energy kernel refuses half-way walls by
+#: name, so it runs on the torch engine on a card too
+FE_HALFWAY_SCENES = {'fe_capillary_wave_2d': 'CapillaryWaveSim'}
+#: the golden harness's flags for it (tests/examples_harness.py:67)
+FE_HALFWAY_GOLDEN_FLAGS = {'fe_capillary_wave_2d': dict(lat_nx=64,
+                                                        lat_ny=66)}
+
+
 def binary_twin(scene):
     """The sim class of ``examples/torch/binary_fluid/<scene>.py``."""
     mod = load_example(f'torch/binary_fluid/{scene}.py', f'torch_{scene}')
     return getattr(mod, {**BINARY_SCENES, **SC_MORE_SCENES,
-                         **FE_SCENES}[scene])
+                         **FE_SCENES, **FE_HALFWAY_SCENES}[scene])
+
+
+#: turbulence twins (examples/torch/turbulence) -> sim class name; their
+#: statistics run through device hooks (``sailfish_tpu_torch.stats`` and
+#: kida_vortex's own)
+TURBULENCE_SCENES = {
+    'kida_vortex': 'KidaSim',
+    'channel_flow': 'ChannelSim',
+    'channel_cube': 'CubeChannelSim',
+}
+#: the golden harness's flags for them (tests/examples_harness.py:49-91)
+TURBULENCE_GOLDEN_FLAGS = {
+    'kida_vortex': dict(lat_nx=16, lat_ny=16, lat_nz=16, visc=0.01,
+                        stats_every=5),
+    'channel_flow': dict(H=8, Re_tau=60, wall='tms', stats_every=5),
+    'channel_cube': dict(H=6, Re_tau=60, buf_az=3, main_az=5, ay=2.5,
+                         stats_every=5),
+}
+
+
+def turbulence_twin(scene):
+    """The sim class of ``examples/torch/turbulence/<scene>.py``."""
+    mod = load_example(f'torch/turbulence/{scene}.py',
+                       f'torch_turbulence_{scene}')
+    return getattr(mod, TURBULENCE_SCENES[scene])
 
 
 def ternary_twin(scene):

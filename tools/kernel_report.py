@@ -114,7 +114,8 @@ def main():
                     default=['fe_step', 'sc_multi', 'lbm_step',
                              'lbm_step_mrt', 'lbm_step_les', 'lbm_step_elbm',
                              'lbm_step_mixed', 'lbm_step_mixed_mrt',
-                             'lbm_step_mixed_les', 'lbm_step_mixed_elbm'])
+                             'lbm_step_mixed_les', 'lbm_step_mixed_elbm',
+                             'lbm_step_lattices'])
     ap.add_argument('--match', nargs='*', default=[])
     ap.add_argument('--baseline', default=None)
     args = ap.parse_args()
@@ -181,7 +182,8 @@ def _lbm_key(fn):
         return None
     eqm = inst.get('equilibrium', 'incompressible'
                    if inst.get('incompressible') else 'bgk')
-    return (inst['dim'], inst['force'], inst['walls'],
+    lat = f'{inst["dim"]}q{inst["q"]}' if 'q' in inst else inst['dim']
+    return (lat, inst['force'], inst['walls'],
             inst.get('model', 'bgk'), eqm, inst.get('sc', False),
             inst.get('storage', 'fp32'))
 

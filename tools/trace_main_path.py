@@ -24,7 +24,11 @@ shallow-water hump (``fs_gaussian``), the cavities under
 buffers), the entropic cavities (``ldc_2d_entropic``, also
 ``_mixed``, and ``ldc_3d_elbm``: the ELBM mode), and the binary free-energy
 separations of ``examples/torch`` at the benchmark sizes (D3Q19 256^3,
-D2Q9 4096^2) it
+D2Q9 4096^2), the Kida vortex (D3Q15 256^3, its KE / enstrophy device
+hook every 20 steps: the hook's kernels count as other kernels),
+``bench.py``'s cavity on D3Q27 (``ldc_3d_d3q27``) and the turbulent
+channel at its published settings (``channel_flow``, its Reynolds
+statistics hook every 20 steps from iteration 250) it
 runs the controller
 with the default (kernel) engine for one chunk (kernel build, warm-up),
 then traces one more chunk of ``SubdomainRunner.main`` with
@@ -60,7 +64,7 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, 'tests'))
 from torch_scenes import (binary_twin, channel_sim,  # noqa: E402
                           channel_sim_2d, run, ternary_separation,
-                          ternary_twin, twin)
+                          ternary_twin, turbulence_twin, twin)
 
 
 def channel(scene):
@@ -120,6 +124,15 @@ SCENES = {
                               (4096, 4096), {'precision': 'mixed'}),
     'ldc_3d_elbm': (lambda s: twin('ldc_3d'), (256, 256, 256),
                     {'model': 'elbm'}),
+    # D3Q15 with a device hook (KE and enstrophy every 20 steps), D3Q27,
+    # and the channel at its published settings (240 x 82 x 80) with its
+    # Reynolds statistics hook every 20 steps
+    'kida_vortex_256': (lambda s: turbulence_twin('kida_vortex'),
+                        (256, 256, 256), {'stats_every': 20}),
+    'ldc_3d_d3q27': (lambda s: twin('ldc_3d'), (256, 256, 256),
+                     {'grid': 'D3Q27'}),
+    'channel_flow': (turbulence_twin, (240, 82, 80),
+                     {'H': 40, 'Re_tau': 180, 'wall': 'hbb'}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
