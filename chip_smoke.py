@@ -113,7 +113,17 @@ version on the card from seeded random states:
   cavity and on a half-way or TMS box; and the runner's device hooks: an
   int16 cavity whose final state a strided hook leaves bitwise unchanged
   (``mixed_hook_bitwise``), a checkpoint with the Reynolds hook's state
-  continued to the unbroken run's bits (``checkpoint_continues``).
+  continued to the unbroken run's bits (``checkpoint_continues``);
+* the same kernel's outflow rows (the patch-plane / patch-block mode of
+  the JAX kernels: ``csrc/lbm_step_outflow.cu``, launches counted as
+  ``lbm_step_outflow_<grid>``; a laminarize row after the plane-mean
+  pre-pass ``laminarize_mean_<grid>``) against ``step_reference``
+  (``outflow_compare``): each kernel-borne type of the family on the
+  inflow/outflow channel of ``torch_scenes.outflow_channel`` at D3Q19 64^3
+  and D2Q9 1024x512, the outlet normal to x or to z / y and the force
+  models in turns, one launch and 200 steps (the pre-pass against its
+  plain version); and the outflow scenes the kernels refuse
+  (``outflow_refusals``) raise on the default engine, naming the reason.
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
@@ -163,7 +173,15 @@ the scene's defaults with its KE / enstrophy hook every 20 steps;
 turbulent channel at its published settings, 240 x 82 x 80, with its
 Reynolds statistics hook every 20 steps from 0; one launch per step each,
 the hooks' samples checked and their share of a chunk timed in turns),
-checks the results, times
+the outflow family's paths (``OPEN_MAIN``: ``open_sphere_3d``, a
+regularized inlet and a Yu outlet past a sphere, D3Q19 512x256x256, and
+``open_cylinder_2d``, a Zou-He inlet and a copy outlet past a cylinder,
+D2Q9 8192x2048, each with a force object whose drag is sampled after every
+250-step chunk, its mean along +x positive, one ``lbm_step_outflow``
+launch per step, the idle share of one more chunk traced with
+``torch.profiler`` and the cost of a drag sample; and
+``laminarize_channel_2d`` 8192x2048, one pre-pass and one step launch per
+step), checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
 demixing to its end, times every kernel against its plain version and its
@@ -197,6 +215,8 @@ from sailfish_tpu_torch.ops.step import FORCE_MODELS
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, 'tests'))
+sys.path.insert(0, os.path.join(REPO, 'tools'))
+from trace_main_path import trace_runner_chunk  # noqa: E402
 from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           FORCED_SCENES, MIX_ACCELS, SC_HALFWAY_SCENES,
                           SC_MORE_GOLDEN_FLAGS, SC_MORE_SCENES,
@@ -218,7 +238,8 @@ from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           code_distance, mixed_errors, periodic_box,
                           shear_wave_viscosity, ELBM_DEV_BAND,
                           ELBM_MEAN_FACTOR, elbm_branches, elbm_errors, fp64_distances,
-                          newton_state, smooth_feq)
+                          newton_state, smooth_feq, KERNEL_OUTFLOW_KINDS,
+                          guo_beside_halfbb, open_channel, outflow_channel)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
@@ -625,6 +646,13 @@ NODE_BYTES = {
     # D3Q15, 217 B for D3Q27)
     'lbm_step_d3q15': BYTES['D3Q15'],
     'lbm_step_d3q27': BYTES['D3Q27'],
+    # the outflow rows: the step's bytes (a face node's extra loads along
+    # the normal read the same state, which counts once)
+    'lbm_step_outflow_d3q19': BYTES['D3Q19'],
+    'lbm_step_outflow_d2q9': BYTES['D2Q9'],
+    # the laminarize pre-pass, per laminarize node: its Q pulled values and
+    # its 8-byte index (the entries' means and offsets added per run)
+    'laminarize_mean_d2q9': 9 * 4 + 8,
 }
 #: fp32 operations per direction of an ELBM node on the series branch
 #: (``NODE_OPS``)
@@ -691,6 +719,10 @@ NODE_OPS = {
     'lbm_step_mixed_elbm_d2q9': (ELBM_OPS + 6) * 9 + 2 * 10 + 25,
     # BGK on the other lattices: ~23 per direction
     'lbm_step_d3q15': 23 * 15, 'lbm_step_d3q27': 23 * 27,
+    # the open channels: BGK (the face nodes' few sums are a small share);
+    # the laminarize pre-pass: one add per direction and node
+    'lbm_step_outflow_d3q19': 23 * 19, 'lbm_step_outflow_d2q9': 23 * 9,
+    'laminarize_mean_d2q9': 9,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
@@ -779,6 +811,15 @@ KERNELS = {
                        'sailfish_tpu/ops/pallas_step.py:812'),
     'lbm_step_d3q27': ('lbm_step_lattices.cu',
                        'sailfish_tpu/ops/pallas_step.py:812'),
+    # the patch-plane / patch-block mode of make_kernel_3d / make_kernel_2d
+    # (the outflow family), and the laminarize plane means of the XLA
+    # prologue that feeds it
+    'lbm_step_outflow_d3q19': ('lbm_step_outflow.cu',
+                               'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_outflow_d2q9': ('lbm_step_outflow.cu',
+                              'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'laminarize_mean_d2q9': ('lbm_step_outflow.cu',
+                             'sailfish_tpu/ops/pallas_step2d.py:36'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -850,6 +891,17 @@ MODES = {
                       'its KE/enstrophy hook',
     'lbm_step_d3q27': 'make_kernel_3d on the D3Q27 lattice, with the lid '
                       'rows of make_bc_patch_kernel_3d',
+    'lbm_step_outflow_d3q19': 'make_kernel_3d, patch-plane mode (patch_rows '
+                              ':834-843, prologue compute_patch_plane '
+                              ':2306): a regularized inlet and a Yu outlet '
+                              'past a sphere',
+    'lbm_step_outflow_d2q9': 'make_kernel_2d, patch-block mode '
+                             '(patch_blocks, pallas_step2d.py:57, :138): a '
+                             'Zou-He inlet and a copy outlet past a cylinder',
+    'laminarize_mean_d2q9': 'make_kernel_2d, patch-block mode: the '
+                            'NTLaminarize plane means its XLA prologue '
+                            'computes (sailfish_tpu/ops/step.py:543-561), '
+                            'a pre-pass of its own',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -1538,7 +1590,7 @@ def mixed_refusals():
         raise AssertionError(f'{what} was not refused under mixed')
 
 
-def mixed_main_path(path, scene, size, copy_bw, fp32, chunk=500, chunks=4):
+def mixed_main_path(path, scene, size, copy_bw, fp32, chunk=250, chunks=4):
     """bench.py's cavity ``scene`` through the controller with the default
     engine under --precision=mixed: the int16 kernel, one launch per step
     under ``lbm_step_mixed_<grid>``, on int16 A/B buffers. The launch
@@ -1757,7 +1809,7 @@ def elbm_mixed_compare(name, sim_cls, cfg, steps=MIXED_STEPS):
     return f'lbm_step_mixed_elbm_{g}', e['df']
 
 
-def elbm_main_path(path, copy_bw, chunk=500, chunks=4):
+def elbm_main_path(path, copy_bw, chunk=250, chunks=4):
     """An ELBM main path (``ELBM_MAIN``) through the controller with the
     default engine, the launch counts zeroed just before and read just
     after: one launch per step under ``lbm_step_elbm_<grid>`` (int16:
@@ -1908,7 +1960,7 @@ def copy_bandwidth():
     return 2 * n * 4 / (ms / 1e3)
 
 
-def main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4,
+def main_path(scene, sim_cls, size, copy_bw, chunk=250, chunks=4,
               accel=None, flags=None, kind=None, timed=None):
     """The scene through the controller with the default engine: the
     main path. The kernels' launch counts are zeroed just before the
@@ -2072,7 +2124,7 @@ def collision_models_ms(sim_cls, cfg, ks):
     return ms
 
 
-def channel_main_path(scene, copy_bw, chunk=500, chunks=4):
+def channel_main_path(scene, copy_bw, chunk=250, chunks=4):
     """A parabolic-inlet channel of ``CHANNELS`` through the controller
     with the default engine: a main path of the varying BC rows,
     ONE launch per step. The launch counts are zeroed just before the
@@ -2171,7 +2223,7 @@ SLICE_MAIN = {
     'womersley': ((256, 256, 256), {}),
     'poiseuille_sa': ((4096, 4096), dict(velocity='spatial_array')),
 }
-#: duct_flow: largest |vz - analytic| over the peak velocity after 2000
+#: duct_flow: largest |vz - analytic| over the peak velocity after 1000
 #: steps from the analytic start (the half-way walls hold the series
 #: solution; its discrete steady state differs by the BGK wall slip)
 DUCT_TOL = 0.05
@@ -2229,7 +2281,7 @@ def slice_checks(scene, r, ks, steps):
     return line
 
 
-def slice_main_path(scene, copy_bw, chunk=500, chunks=4):
+def slice_main_path(scene, copy_bw, chunk=250, chunks=4):
     """A scene of the wall rows or the per-step values through the
     controller with the default engine: ONE launch per step (plus, for a
     space- and time-dependent row, a counted rewrite of its block of the
@@ -2768,7 +2820,7 @@ def fe_demix(size=512, steps=2500):
     torch.cuda.empty_cache()
 
 
-def plain_path(scene, sim_cls, size, chunk, chunks=3):
+def plain_path(scene, sim_cls, size, chunk, chunks=2):
     """The same scene on the plain torch engine on the card."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
     r = run(sim_cls, engine='torch', max_iters=chunk * chunks,
@@ -3069,6 +3121,294 @@ def checkpoint_continues(tmp):
     assert same and cnt == steps // STATS_EVERY
 
 
+#: the outflow family's kernel comparisons (``outflow_compare``): each
+#: kernel-borne type on D3Q19 64^3 and D2Q9 1024x512, the outlet normal to
+#: x, or to z / y, in turns, unforced and under each force model in turns,
+#: 200 steps from a random state. The compressible equilibrium only: from a
+#: random state several of these channels diverge under the incompressible
+#: one on every engine (``torch_scenes.INCOMPRESSIBLE_UNSTABLE``; at
+#: 1024x512 the Grad channel too); tests/test_torch_cuda.py holds the
+#: incompressible instantiations on smaller channels
+OUTFLOW_STEPS = 200
+OUTFLOW_SIZE = {3: dict(lat_nx=64, lat_ny=64, lat_nz=64),
+                2: dict(lat_nx=1024, lat_ny=512)}
+OUTFLOW_ACCEL = (1e-5, -4e-6, 2.5e-6)
+#: the outflow family's main paths: open-channel flow past a sphere and a
+#: cylinder, drag read by a force object after every chunk (``torch_scenes.
+#: open_channel``); and the 2D laminarize channel, the laminarize
+#: pre-pass's path (``torch_scenes.outflow_channel``)
+OPEN_MAIN = {'open_sphere_3d': (3, (512, 256, 256)),
+             'open_cylinder_2d': (2, (8192, 2048))}
+LAMINARIZE_MAIN = (8192, 2048)
+
+
+def outflow_compare(kind, dim, axis, force_model):
+    """The outflow rows of ``kind`` against ``step_reference`` on the
+    card from one random state: the inflow/outflow channel of
+    ``torch_scenes.outflow_channel`` (a block of excluded nodes added)
+    under ``force_model`` (or none); the laminarize pre-pass against its
+    plain version (``RHO_TOL``), one launch within ``TOL``, and
+    ``OUTFLOW_STEPS`` steps within ``TOL`` or, where the fp32 arithmetics
+    part, ``sw_fp64_check``'s rule (Yu's extrapolation 2 f(x + n) - f(x +
+    2n) feeds each step's rounding back at the outlet: on the 2D channel
+    the fp32 and the fp64 plain versions part by 1.6e-5 in 200 steps).
+    ``NTGradFreeflow`` nodes collide as fluid nodes (mask code 0): its
+    channel runs the plain instantiation."""
+    sim = outflow_channel(kind, dim, axis)
+    flags = {}
+    if force_model:
+        sim = forced(sim, OUTFLOW_ACCEL[:dim])
+        flags = dict(force_implementation=force_model)
+    r = run(with_keep_block(sim), platform=DEVICE, engine='kernel',
+            max_iters=0, **OUTFLOW_SIZE[dim], **flags)
+    ks = r.kernel
+    assert ks.outflow == (kind != 'NTGradFreeflow'), ks.name
+    f0 = random_feq(ks.grid, ks.shape, seed=1234, device=DEVICE)
+    wet = wet_mask(ks)
+    lam_err = None
+    if ks.lam is not None:
+        mean = torch.empty_like(ks.lam.mean)
+        ks.mean_into(f0, mean)
+        lam_err = float((mean - ks.laminarize_mean_reference(f0))
+                        .abs().max())
+        assert lam_err <= RHO_TOL, lam_err
+    one = float((ks.run(f0, 1) - ks.reference(f0))[:, wet].abs().max())
+    fk = ks.run(f0, OUTFLOW_STEPS)
+    fr = f0
+    for _ in range(OUTFLOW_STEPS):
+        fr = ks.reference(fr)
+    util.synchronize(DEVICE)
+    err = float((fk - fr)[:, wet].abs().max())
+    moved = float((fk - f0)[:, wet].abs().max())
+    assert ks.launches == 1 + OUTFLOW_STEPS
+    assert ks.prepass_launches == (ks.launches + 1 if ks.lam is not None
+                                   else 0)
+    assert np.isfinite(one) and one <= TOL, one
+    fp64 = '' if err <= TOL else \
+        sw_fp64_check(ks, f0, fk, fr, OUTFLOW_STEPS)
+    say(f'compare outflow {kind} {ks.grid.name} {ks.shape} outlet normal '
+        f'to {axis}, force {force_model}: '
+        f'{ks.name}, one launch wet max|df| = {one:.3e}, '
+        f'{OUTFLOW_STEPS} steps {err:.3e} (tol {TOL:g}){fp64}; the state '
+        f'moved by {moved:.3e}'
+        + ('' if lam_err is None else
+           f'; {ks.lam_name} plane means max|d| = {lam_err:.3e} (tol '
+           f'{RHO_TOL:g})'))
+    assert moved > 100 * TOL, moved
+    name = ks.name
+    del r, ks, f0, fk, fr
+    torch.cuda.empty_cache()
+    return name, max(one, err), lam_err
+
+
+def with_outlet(sim_cls, kind='NTCopy'):
+    """``sim_cls`` with an outflow row of ``kind`` on its x = X - 1 face
+    (inward normal -x)."""
+    block = sim_cls.subdomain
+
+    class Outlet(block):
+        def boundary_conditions(self, *h):
+            super().boundary_conditions(*h)
+            self.set_node(h[0] == self.shape[-1] - 1, getattr(nt, kind)())
+
+    class Sim(sim_cls):
+        subdomain = Outlet
+
+    return Sim
+
+
+def outflow_refusals():
+    """On the card, the default engine refuses by name the scenes with
+    outflow rows that the kernels leave out, and changes no engine: MRT,
+    LES, ELBM, int16 state, the D3Q15 / D3Q27 lattices, the extended copy,
+    Guo's density BC beside a half-way wall, the Shan-Chen modes (single
+    component and mixture) and the free-energy kernel."""
+    cube = dict(lat_nx=32, lat_ny=16, lat_nz=16)
+    sq = dict(lat_nx=64, lat_ny=32)
+    cases = [
+        ('MRT', outflow_channel('NTYuOutflow', 3, 'x'),
+         dict(cube, model='mrt'), 'outflow rows (NTYuOutflow) with model=mrt'),
+        ('LES', outflow_channel('NTCopy', 2, 'x'),
+         dict(sq, subgrid='les-smagorinsky'),
+         'outflow rows (NTCopy) with the Smagorinsky LES model'),
+        ('ELBM', outflow_channel('NTDoNothing', 2, 'y'),
+         dict(sq, model='elbm'), 'outflow rows (NTDoNothing) with model=elbm'),
+        ('int16 state', outflow_channel('NTNeumann', 2, 'x'),
+         dict(sq, precision='mixed'),
+         'outflow rows (NTNeumann) under --precision=mixed'),
+        ('D3Q15', outflow_channel('NTLaminarize', 3, 'z'),
+         dict(cube, grid='D3Q15'), 'outflow rows (NTLaminarize) on D3Q15'),
+        ('D3Q27', outflow_channel('NTGuoDensity', 3, 'x'),
+         dict(cube, grid='D3Q27'), 'outflow rows (NTGuoDensity) on D3Q27'),
+        ('the extended copy', outflow_channel('NTExtendedCopy', 2, 'x'), sq,
+         'node type NTExtendedCopy'),
+        ('Guo beside a half-way wall', guo_beside_halfbb(), sq,
+         'NTGuoDensity (orientation 1) beside'),
+        ('single-component Shan-Chen', with_outlet(twin('sc_drop')), sq,
+         'Shan-Chen with BC rows (NTCopy'),
+        ('a Shan-Chen mixture', with_outlet(SEP_2D), sq,
+         'boundary conditions NTCopy (the Shan-Chen kernel'),
+        ('a free-energy mixture', with_outlet(FE['fe_separation_2d']), sq,
+         'boundary conditions NTCopy (the free-energy kernel'),
+    ]
+    for what, sim_cls, cfg, reason in cases:
+        try:
+            run(sim_cls, max_iters=0, **cfg)
+        except NotImplementedError as exc:
+            assert reason in str(exc), (what, str(exc))
+            say(f'refused on the default engine: outflow rows with {what} '
+                f'({reason!r} in: {str(exc)[:160]})')
+            continue
+        raise AssertionError(f'outflow rows with {what} were not refused')
+
+
+def open_main_path(path, dim, size, copy_bw, chunk=250, chunks=8):
+    """``open_channel`` at full width through the controller with the
+    default engine, the launch counts zeroed just before and read just
+    after: one ``lbm_step_outflow_<grid>`` launch per step and no other,
+    finite fields, the drag of the force object sampled after every chunk
+    and positive along +x on average over the samples (the impulsive start
+    sends pressure waves between the inlet and the body, and a sample of
+    the 2D channel's first 2,000 steps can be negative); then the kernel
+    against its plain version for
+    2 steps from the final state, ms per launch (CUDA events) against the
+    bound and the plain version, ms per step of the chunks, the device's
+    idle share of one more chunk traced with ``torch.profiler``
+    (``tools/trace_main_path.trace_runner_chunk``; the trace is written
+    under ``chiprun_out/traces``) and the host ms of one
+    ``update_force_objects`` sample."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    steps = chunk * chunks
+    ls.reset_launch_counts()
+    r = run(open_channel(dim), max_iters=steps, every=chunk, **cfg)
+    counts = {k: v for k, v in ls.LAUNCHES.items() if v}
+    assert r.engine == 'kernel', r.engine
+    name = f'lbm_step_outflow_{r.sim.grid.name.lower()}'
+    assert r.kernel.name == name, r.kernel.name
+    launches = counts.get(name, 0)
+    assert launches == steps == r.sim.iteration == r.kernel.launches, \
+        (counts, steps)
+    assert counts == {name: launches}, counts
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    fields = [r.sim.rho, r.sim.vx, r.sim.vy] + ([r.sim.vz] if dim == 3
+                                                else [])
+    for arr in fields:
+        assert arr.shape == shape and np.all(np.isfinite(arr))
+    ks = r.kernel
+    wet = wet_mask(ks)
+    wet_np = wet.cpu().numpy()
+    vmax = float(np.sqrt(sum(v[wet_np] ** 2 for v in fields[1:])).max())
+    mean_rho = float(np.mean(r.sim.rho[wet_np], dtype=np.float64))
+    drag = [(it, tuple(F)) for it, F in r.sim.drag]
+    assert [it for it, _F in drag] == list(range(chunk, steps + 1, chunk))
+    assert np.all(np.isfinite([F for _it, F in drag])), drag
+    mean_drag = float(np.mean([F[0] for _it, F in drag]))
+    assert mean_drag > 0, drag
+    # no wet node beyond the lattice's speed of sound
+    assert vmax < 0.3, vmax
+    grid = r.sim.grid.name
+    nodes = int(np.prod(size))
+    mlups = statistics.median(r.mlups_history[1:])
+    history = list(r.mlups_history)
+    step_ms = 1e3 * nodes / (mlups * 1e6)
+    trace_dir = os.path.join(REPO, 'chiprun_out', 'traces')
+    os.makedirs(trace_dir, exist_ok=True)
+    traced = trace_runner_chunk(r, path, chunk, trace_dir)
+    idle = traced['idle_share']
+    f0 = r.f.clone()
+    fk = ks.run(f0, 2)
+    fr = ks.reference(ks.reference(f0))
+    err = float((fk - fr)[:, wet].abs().max())
+    assert np.isfinite(err) and err <= TOL, err
+    del f0, fk, fr
+    a, b = ks.a, ks.b
+    ms = util.cuda_time_ms(lambda: ks.step_into(a, b), 50, warmup=5)
+    plain_ms = util.cuda_time_ms(lambda: ks.reference(a), 3)
+    fo_ms = []
+    for _ in range(5):
+        util.synchronize(DEVICE)
+        t0 = time.perf_counter()
+        r.update_force_objects()
+        fo_ms.append(1e3 * (time.perf_counter() - t0))
+    bound, bound_by = bound_ms(name, nodes)
+    say(f'main path {path} {"x".join(map(str, size))} ({grid}, engine '
+        f'{r.engine}): lbm_step.LAUNCHES {counts}; MLUPS per {chunk}-step '
+        f'chunk {[round(m, 1) for m in history]}; median '
+        f'{mlups:.1f} MLUPS, {step_ms:.4f} ms per step; {name} {ms:.4f} ms '
+        f'per launch against a bound of {bound:.4f} ms ({bound_by}): '
+        f'{bound / ms:.3f} of it; device idle share of a traced chunk '
+        f'{idle:.5f} (busy {traced["busy_us"]:.1f} of '
+        f'{traced["window_us"]:.1f} us, gaps {traced["gaps_us"]:.1f} us, '
+        f'{traced["other_kernels_per_step"]:.2f} other kernels per step); '
+        f'step_reference {plain_ms:.3f} ms; kernel vs plain '
+        f'version 2 steps from the final state wet max|df| = {err:.3e} '
+        f'(tol {TOL:g}); mean wet rho - 1 = {mean_rho - 1.0:+.3e}, max '
+        f'|u| {vmax:.4f}; drag (iteration, force) {drag}, mean along x '
+        f'{mean_drag:.6f}; '
+        f'update_force_objects {statistics.median(fo_ms):.3f} ms per '
+        f'sample (host, synchronized; median of 5)')
+    result = dict(launches=launches, mlups=mlups, ms=ms, plain_ms=plain_ms,
+                  err=err, nodes=nodes, step_ms=step_ms, idle_share=idle,
+                  drag=mean_drag,
+                  force_object_ms=statistics.median(fo_ms))
+    del r, ks, a, b
+    torch.cuda.empty_cache()
+    return name, result
+
+
+def laminarize_main_path(size=LAMINARIZE_MAIN, chunk=500, chunks=2):
+    """The 2D laminarize channel (``outflow_channel('NTLaminarize', 2,
+    'x')``: an equilibrium-velocity inlet, a laminarize outlet whose alpha
+    rises across the channel) at full width through the controller with
+    the default engine: per step one ``laminarize_mean_d2q9`` pre-pass and
+    one ``lbm_step_outflow_d2q9`` launch and no other, finite fields; then
+    the pre-pass against its plain version on the final state and its ms
+    per launch (CUDA events) against its bound (its laminarize nodes' Q
+    pulled values and indices, the means and offsets written / read)."""
+    cfg = dict(lat_nx=size[0], lat_ny=size[1])
+    steps = chunk * chunks
+    ls.reset_launch_counts()
+    r = run(outflow_channel('NTLaminarize', 2, 'x'), max_iters=steps,
+            every=chunk, **cfg)
+    counts = {k: v for k, v in ls.LAUNCHES.items() if v}
+    ks = r.kernel
+    assert r.engine == 'kernel' and ks.lam is not None
+    assert counts == {'lbm_step_outflow_d2q9': steps,
+                      'laminarize_mean_d2q9': steps}, counts
+    r._fields_to_host()
+    for arr in (r.sim.rho, r.sim.vx, r.sim.vy):
+        assert np.all(np.isfinite(arr))
+    mean = torch.empty_like(ks.lam.mean)
+    ks.mean_into(r.f, mean)
+    err = float((mean - ks.laminarize_mean_reference(r.f)).abs().max())
+    assert err <= RHO_TOL, err
+    ms = util.cuda_time_ms(lambda: ks.mean_into(ks.a, mean), 200,
+                           warmup=10)
+    plain_ms = util.cuda_time_ms(
+        lambda: ks.laminarize_mean_reference(ks.a), 5)
+    step_ms = util.cuda_time_ms(lambda: ks.step_into(ks.a, ks.b), 20,
+                                warmup=3)
+    lam_nodes = int(ks.lam.nodes.numel())
+    entries = int(ks.lam.mean.shape[0])
+    extra = entries * ks.grid.Q * 4 + (entries + 1) * 4
+    bound, bound_by = bound_ms('laminarize_mean_d2q9', lam_nodes, extra)
+    mlups = statistics.median(r.mlups_history[1:])
+    say(f'main path laminarize_channel_2d {size[0]}x{size[1]} (D2Q9, engine '
+        f'{r.engine}): lbm_step.LAUNCHES {counts}; median {mlups:.1f} '
+        f'MLUPS; laminarize_mean_d2q9 over {lam_nodes} nodes in {entries} '
+        f'plane(s): {ms:.5f} ms per launch against a bound of {bound:.6f} '
+        f'ms ({bound_by}): {bound / ms:.4f} of it; plain version '
+        f'{plain_ms:.3f} ms; max|d| against it {err:.3e} (tol '
+        f'{RHO_TOL:g}); the step with the pre-pass {step_ms:.4f} ms')
+    result = dict(launches=steps, ms=ms, plain_ms=plain_ms, err=err,
+                  nodes=lam_nodes, extra_bytes=extra,
+                  step_with_prepass_ms=step_ms, mlups=mlups)
+    del r, ks, mean
+    torch.cuda.empty_cache()
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: torch sees no CUDA device')
@@ -3081,7 +3421,8 @@ def main():
         f'{torch.cuda.get_device_name(0)}')
 
     lbm_libraries = list(ls.LIBRARIES.values()) \
-        + list(ls.MIXED_LIBRARIES.values()) + [ls.LATTICES_LIBRARY]
+        + list(ls.MIXED_LIBRARIES.values()) + [ls.LATTICES_LIBRARY,
+                                                ls.OUTFLOW_LIBRARY]
     sources = lbm_libraries + ['sc_multi', 'fe_step']
     kinds, sc_kinds = set(), set()
     for name, lib in build.load_all(sources).items():
@@ -3100,7 +3441,8 @@ def main():
                 say(f'lbm_step d{inst["dim"]}q{inst["q"]} force '
                     f'{inst["force"]}, walls {int(inst["walls"])}, model '
                     f'{inst["model"]}, equilibrium {inst["equilibrium"]}, '
-                    f'sc {int(inst["sc"])}, storage {inst["storage"]}: '
+                    f'sc {int(inst["sc"])}, storage {inst["storage"]}, '
+                    f'outflow {int(inst["outflow"])}: '
                     f'{use["registers"]} '
                     f'registers, stack frame {use["stack_frame"]} B, spill '
                     f'{use["spill_stores"]} / {use["spill_loads"]} B')
@@ -3113,6 +3455,9 @@ def main():
                 # of its storage; the other lattices have one of their own
                 if inst['q'] in (15, 27):
                     assert name == ls.LATTICES_LIBRARY, (name, fn)
+                    continue
+                if inst['outflow']:
+                    assert name == ls.OUTFLOW_LIBRARY, (name, fn)
                     continue
                 libs = ls.LIBRARIES if inst['storage'] == 'fp32' \
                     else ls.MIXED_LIBRARIES
@@ -3146,10 +3491,12 @@ def main():
     # shallow-water equilibrium (D2Q9 BGK, three force models, wall rows or
     # not) and the Shan-Chen mode (two lattices, no force or Guo) in fp32;
     # BGK on D3Q15 and D3Q27 (every force model, wall rows or not, two
-    # equilibria) in fp32
+    # equilibria) in fp32; the outflow rows (two lattices, every force
+    # model, two equilibria; BGK with wall rows, fp32)
     assert len(kinds) == 2 * (2 * (1 + len(FORCE_MODELS)) * 2 * 3 * 2) \
         + 2 * (2 * (1 + len(FORCE_MODELS)) * 2) + 6 + 4 \
-        + 2 * (1 + len(FORCE_MODELS)) * 2 * 2, len(kinds)
+        + 2 * (1 + len(FORCE_MODELS)) * 2 * 2 \
+        + 2 * (1 + len(FORCE_MODELS)) * 2, len(kinds)
     # two lattices x K = 2, 3 x forced or not
     assert len(sc_kinds) == 2 * 2 * 2, sc_kinds
     for name, tile in (('fe_step_d3q19', fe.TILE_3D),
@@ -3385,6 +3732,19 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         checkpoint_continues(tmp)
     phase_done('kernel comparisons (D3Q15 / D3Q27, hooks)')
+    # the outflow rows: each kernel-borne type in 3D and 2D, the outlet
+    # normal to x or to z / y and the force models in turns; the refusals
+    for k, kind in enumerate(KERNEL_OUTFLOW_KINDS):
+        for dim in (3, 2):
+            axis = ('x', 'z' if dim == 3 else 'y')[k % 2]
+            force_model = ((None,) + FORCE_MODELS)[(k + dim) % 4]
+            key, err, lam_err = outflow_compare(kind, dim, axis,
+                                                force_model)
+            note(key, err)
+            if lam_err is not None:
+                note(f'laminarize_mean_{key.rsplit("_", 1)[1]}', lam_err)
+    outflow_refusals()
+    phase_done('kernel comparisons (outflow)')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
             ('fe_separation_2d', 'fe_separation_2d',
@@ -3545,6 +3905,11 @@ def main():
             f'{bgk["ms"]:.4f} ms on the cavity of the same size')
     channel = channel_flow_main_path(copy_bw)
     phase_done('D3Q15 / D3Q27 and hooked main paths')
+    for path, (dim, size) in OPEN_MAIN.items():
+        name, res = open_main_path(path, dim, size, copy_bw)
+        results[name] = res
+    results['laminarize_mean_d2q9'] = laminarize_main_path()
+    phase_done('outflow main paths')
     for scene, (sim_cls, size, name, demix) in SC_MAIN.items():
         merge_rows(results, sc_main_path(scene, sim_cls, size, copy_bw,
                                          name, demix))
@@ -3584,7 +3949,7 @@ def main():
         res = results[name]
         assert res['launches'] > 0, name
         note(name, res['err'])
-        nodes = 4096 ** 2 if 'd2q9' in name else 256 ** 3
+        nodes = res.get('nodes', 4096 ** 2 if 'd2q9' in name else 256 ** 3)
         bound, bound_by = bound_ms(name, nodes, res.get('extra_bytes', 0))
         say(f'kernel {name}: {res["ms"]:.4f} ms against a bound of '
             f'{bound:.4f} ms ({bound_by}): {bound / res["ms"]:.3f} of it')
@@ -3597,7 +3962,8 @@ def main():
                     'dynamic_share', 'unforced_ms', 'mlups', 'fp32_ms',
                     'mixed_over_fp32', 'convert_ms', 'bgk_ms',
                     'elbm_over_bgk', 'newton_share', 'hooked_ms',
-                    'unhooked_ms', 'hook_share'):
+                    'unhooked_ms', 'hook_share', 'idle_share', 'drag',
+                    'force_object_ms', 'step_with_prepass_ms'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:

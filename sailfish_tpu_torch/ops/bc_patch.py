@@ -24,6 +24,11 @@ the instance's bounding box (x fastest), and the ``Box`` (offset, origin,
 extents) that locates each block. A planar face costs 1 + dim planes of
 its own size; memory is proportional to the BC nodes, never to the domain.
 
+The outflow family's rows use the same array: Guo's density BC as a
+density BC, and the Neumann gradient and the laminarization alpha (static:
+the JAX engines read ``param_scalar`` alone) in rho's place when they vary
+from node to node.
+
 A native BC whose parameter is a ``DynamicValue`` (``maps.dynamic``) is a
 row whose values ``ops/lbm_step.KernelStep`` writes before every launch:
 a time-only value covering the whole instance is a pair of scalars of the
@@ -60,12 +65,13 @@ Box = namedtuple('Box', ('offset', 'lo', 'ext'))
 
 
 def param_name(tid):
-    """The parameter a native BC type prescribes: 'velocity' or
-    'density' (None for a type without parameters)."""
+    """The parameter a native BC type (or Guo's density BC) prescribes:
+    'velocity' or 'density' (None for a type without them)."""
     names = nt.get_node_type(tid).param_names
-    if not names:
-        return None
-    return 'velocity' if 'velocity' in names else 'density'
+    for name in ('velocity', 'density'):
+        if name in names:
+            return name
+    return None
 
 
 def dynamic_entries(maps, tid, sel):
@@ -117,9 +123,16 @@ def instance_boxes(maps, instances):
     dim = maps.type_map.ndim
     boxes, reasons, offset = [], [], 0
     for tid, k, sel in instances:
-        kind = dynamic_kind(maps, tid, sel) if param_name(tid) else 'time'
-        if kind == 'time' or (kind is None
-                              and not varying_params(maps, tid, sel)):
+        if nt.get_node_type(tid) in st.SCALAR_TYPES:
+            # the Neumann gradient, the laminarization alpha: static (the
+            # JAX engines read param_scalar alone), varying or not
+            varies = np.unique(maps.param_scalar[sel]).size > 1
+        else:
+            kind = dynamic_kind(maps, tid, sel) if param_name(tid) \
+                else 'time'
+            varies = kind == 'space' or (
+                kind is None and bool(varying_params(maps, tid, sel)))
+        if not varies:
             boxes.append(None)
             continue
         idx = np.nonzero(sel)
@@ -148,20 +161,25 @@ def box_slices(box, dim):
                  for a in reversed(range(dim)))
 
 
-def param_array(maps, boxes):
+def param_array(maps, boxes, instances=None):
     """The fp32 parameter array of ``instance_boxes``' ``boxes``: per
     varying instance, at its offset, [rho, u_x, u_y(, u_z)] over its box
-    in C order (component, (z, )y, x). One zero when nothing varies, so
+    in C order (component, (z, )y, x); an instance of
+    ``step.SCALAR_TYPES`` among ``instances`` (the list the boxes are of)
+    holds its scalar in rho's place. One zero when nothing varies, so
     the array always has an address."""
     dim = maps.type_map.ndim
     blocks = []
-    for box in boxes:
+    tids = [tid for tid, _k, _sel in instances] if instances \
+        else [None] * len(boxes)
+    for box, tid in zip(boxes, tids):
         if box is None:
             continue
         sl = box_slices(box, dim)
+        first = maps.param_scalar if tid is not None and \
+            nt.get_node_type(tid) in st.SCALAR_TYPES else maps.param_rho
         blocks.append(np.stack(
-            [maps.param_rho[sl]] + [maps.param_vel[a][sl]
-                                    for a in range(dim)]
+            [first[sl]] + [maps.param_vel[a][sl] for a in range(dim)]
         ).astype(np.float32).ravel())
     if not blocks:
         return np.zeros(1, dtype=np.float32)

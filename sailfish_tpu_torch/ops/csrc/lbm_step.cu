@@ -179,6 +179,28 @@
 //   libraries build nothing new. A node moves 2 * 15 * 4 + 1 = 121 B and
 //   2 * 27 * 4 + 1 = 217 B; the lattice is the pair (DIM, Q) of LatticeOf,
 //   and every direction loop is over its compile-time indices as for D3Q19.
+// - The outflow family (pallas_step.py make_kernel_3d patch_rows :812,
+//   :834-843, with its XLA prologue compute_patch_plane :2306;
+//   pallas_step2d.py make_kernel_2d patch_blocks :57, :138) is the last
+//   template parameter, OUTFLOW, built by lbm_step_outflow.cu
+//   (LBM_OUTFLOW): BGK with either equilibrium, every force model, wall
+//   rows on (2 lattices x 4 force models x 2 equilibria = 16
+//   instantiations, fp32), behind the entries lbm_step_outflow_d2q9 /
+//   _d3q19. On the TPU an XLA prologue recomputes the z-planes (y-blocks)
+//   that hold such nodes and the kernel overlays them, because the kernel
+//   writes in place and its grid runs in order. Here the source buffer is
+//   read-only during a launch, so a node of an outflow row (outflow_face in
+//   lbm_common.cuh) reads its neighbours along the normal -- x + n - c_i,
+//   x + 2n - c_i, x + c_i, x + 2n -- from it in the same launch as every
+//   other node, on a face normal to any axis; the planes, y-blocks and the
+//   patch-fraction limit of the JAX routing are tiling artefacts with no
+//   counterpart. Each such node reads up to 2 Q values more than a fluid
+//   node; the faces are a small share of the nodes. NTLaminarize blends a
+//   node towards the mean of its plane, a reduction over other threads'
+//   nodes: the pre-pass laminarize_mean_kernel writes the plane means (one
+//   block per plane of each laminarize row) before the step, into the
+//   buffer the step reads through its aux argument (the Shan-Chen mode's
+//   density pointer, which the outflow instantiations do not use).
 // Not done: the x-shifted (+-1 element) loads straddle 32-byte sectors, and
 // an in-place (AA-pattern) step would halve the footprint.
 
@@ -188,8 +210,10 @@
 #define LBM_MODEL MODEL_BGK
 #endif
 
+// aux: the Shan-Chen mode's pre-pass densities (SC), or the laminarize
+// pre-pass's plane means (OUTFLOW); null otherwise.
 template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, int EQ, bool SC,
-          typename T>
+          typename T, bool OUTFLOW = false>
 __global__ void __launch_bounds__(LBM_BLOCK,
                                   DIM == 3 ? 4 : MODEL == MODEL_ELBM ? 8 : 1)
 lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
@@ -197,7 +221,7 @@ lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
                 const __grid_constant__ LBMParams p,
                 const float* __restrict__ bcp,
                 const int* __restrict__ tags,
-                const float* __restrict__ rho_pre,
+                const float* __restrict__ aux,
                 const __grid_constant__ typename ScalesOf<T>::type sc) {
     using L = typename LatticeOf<DIM, Q>::type;
     using P = Physics<FORCE, MODEL, EQ>;
@@ -234,7 +258,7 @@ lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
         float fs[Q];
         decode_node<L>(raw, fs, sc);
         if constexpr (SC)
-            sc_collide_node<L, P>(fs, p, rho_pre, s, b, n, node);
+            sc_collide_node<L, P>(fs, p, aux, s, b, n, node);
         else
             collide_node<L, P>(fs, p.tau_inv, p.force, p.coll, p.elbm, b, n,
                                node, sc);
@@ -244,8 +268,62 @@ lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
         keep_node<L>(raw, b, n, node);
     } else if constexpr (!SC) {
         // (the Shan-Chen mode has no BC row: its entries refuse a table)
-        bc_node<L, P, WALLS>(p, m - 3, bcp, tags, a, x, y, z, raw, b, n,
-                             node, sc);
+        bc_node<L, P, WALLS, OUTFLOW>(p, m - 3, bcp, tags, a, x, y, z, raw,
+                                      b, n, node, sc, aux);
+    }
+}
+
+#define LAM_BLOCK 128
+
+// The laminarize pre-pass: for each entry e (a plane normal to a
+// laminarize row's normal, one per coordinate along it that its nodes
+// span; ops/lbm_step.py lists the entries' nodes), the mean over its nodes
+// of the post-stream
+// values fs_i = a[i, x - c_i], sum / max(count, 1), into mean[e * Q + i]
+// (sailfish_tpu/ops/step.py:543-561, a reduction the JAX package leaves to
+// its XLA prologue). One block per entry: each thread sums a strided share
+// of the entry's nodes, then the warps' shuffles and shared memory sum the
+// block. Bound: the Q loads of each laminarize node and its 8-byte index;
+// a laminarize face is a small share of the domain.
+template <int DIM, int Q>
+__global__ void __launch_bounds__(LAM_BLOCK)
+laminarize_mean_kernel(const float* __restrict__ a,
+                       const long long* __restrict__ nodes,
+                       const int* __restrict__ start,
+                       float* __restrict__ mean,
+                       const __grid_constant__ LBMParams p) {
+    using L = typename LatticeOf<DIM, Q>::type;
+    const int e = blockIdx.x;
+    const int lo = start[e], hi = start[e + 1];
+    const size_t n = (size_t)p.nx * p.ny * p.nz;
+    float s[Q];
+    static_for<Q>([&](auto I) { s[decltype(I)::value] = 0.0f; });
+    for (int k = lo + (int)threadIdx.x; k < hi; k += LAM_BLOCK) {
+        const long long node = nodes[k];
+        const int x = (int)(node % p.nx);
+        const long long row = node / p.nx;
+        const int y = (int)(row % p.ny);
+        const int z = (int)(row / p.ny);
+        static_for<Q>([&](auto I) {
+            constexpr int i = decltype(I)::value;
+            s[i] += value_at<L, i, -L::c(i, 0), -L::c(i, 1), -L::c(i, 2)>(
+                a, n, p, x, y, z, LBMNoScales());
+        });
+    }
+    __shared__ float part[LAM_BLOCK / 32][Q];
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    static_for<Q>([&](auto I) {
+        constexpr int i = decltype(I)::value;
+        float v = s[i];
+        for (int off = 16; off > 0; off /= 2)
+            v += __shfl_down_sync(0xffffffffu, v, off);
+        if (lane == 0) part[warp][i] = v;
+    });
+    __syncthreads();
+    if (threadIdx.x < Q) {
+        float t = 0.0f;
+        for (int w = 0; w < LAM_BLOCK / 32; ++w) t += part[w][threadIdx.x];
+        mean[(size_t)e * Q + threadIdx.x] = t / fmaxf((float)(hi - lo), 1.0f);
     }
 }
 
@@ -260,15 +338,15 @@ static bool has_kind(const LBMParams* p, int lo, int hi) {
 }
 
 template <int DIM, int Q, int FORCE, bool WALLS, int MODEL, int EQ,
-          bool SC = false, typename T, typename S>
+          bool SC = false, bool OUTFLOW = false, typename T, typename S>
 static int launch_kernel(const T* a, T* b, const uint8_t* mask,
                          const float* bcp, const int* tags,
                          const LBMParams* p, const S& sc, void* stream,
-                         const float* rho_pre = nullptr) {
+                         const float* aux = nullptr) {
     const dim3 grid((p->nx + LBM_BLOCK - 1) / LBM_BLOCK, p->ny, p->nz);
-    lbm_step_kernel<DIM, Q, FORCE, WALLS, MODEL, EQ, SC, T>
+    lbm_step_kernel<DIM, Q, FORCE, WALLS, MODEL, EQ, SC, T, OUTFLOW>
         <<<grid, LBM_BLOCK, 0, (cudaStream_t)stream>>>(a, b, mask, *p, bcp,
-                                                       tags, rho_pre, sc);
+                                                       tags, aux, sc);
     return (int)cudaGetLastError();
 }
 
@@ -367,6 +445,60 @@ static int launch_sc(const float* a, const float* rho_pre, float* b,
     }
 }
 
+// The outflow instantiations (BGK, wall rows on, fp32) of the block's
+// equilibrium, compressible or incompressible.
+template <int DIM, int Q, int FORCE>
+static int launch_outflow_eq(const float* a, float* b, const uint8_t* mask,
+                             const float* bcp, const int* tags,
+                             const float* lam, const LBMParams* p,
+                             void* stream) {
+    if (p->coll.equilibrium == EQ_BGK)
+        return launch_kernel<DIM, Q, FORCE, true, MODEL_BGK, EQ_BGK, false,
+                             true>(a, b, mask, bcp, tags, p, LBMNoScales(),
+                                   stream, lam);
+    if (p->coll.equilibrium == EQ_INCOMP)
+        return launch_kernel<DIM, Q, FORCE, true, MODEL_BGK, EQ_INCOMP,
+                             false, true>(a, b, mask, bcp, tags, p,
+                                          LBMNoScales(), stream, lam);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The outflow instantiation of the block's force model; another collision
+// model than BGK is refused.
+template <int DIM, int Q>
+static int launch_outflow(const float* a, float* b, const uint8_t* mask,
+                          const float* bcp, const int* tags,
+                          const float* lam, const LBMParams* p,
+                          void* stream) {
+    if (p->coll.model != MODEL_BGK) return (int)cudaErrorInvalidValue;
+    switch (p->force.model) {
+    case FORCE_NONE:
+        return launch_outflow_eq<DIM, Q, FORCE_NONE>(a, b, mask, bcp, tags,
+                                                     lam, p, stream);
+    case FORCE_GUO:
+        return launch_outflow_eq<DIM, Q, FORCE_GUO>(a, b, mask, bcp, tags,
+                                                    lam, p, stream);
+    case FORCE_EDM:
+        return launch_outflow_eq<DIM, Q, FORCE_EDM>(a, b, mask, bcp, tags,
+                                                    lam, p, stream);
+    case FORCE_VELOCITY_SHIFT:
+        return launch_outflow_eq<DIM, Q, FORCE_VELOCITY_SHIFT>(
+            a, b, mask, bcp, tags, lam, p, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+template <int DIM, int Q>
+static int launch_laminarize(const float* a, const long long* nodes,
+                             const int* start, int entries, float* mean,
+                             const LBMParams* p, void* stream) {
+    if (entries <= 0) return (int)cudaErrorInvalidValue;
+    laminarize_mean_kernel<DIM, Q>
+        <<<entries, LAM_BLOCK, 0, (cudaStream_t)stream>>>(a, nodes, start,
+                                                          mean, *p);
+    return (int)cudaGetLastError();
+}
+
 template <typename L>
 static void copy_tables(LBMTables* out) {
     *out = LBMTables();
@@ -385,7 +517,43 @@ static void copy_tables(LBMTables* out) {
 
 extern "C" {
 
-#if defined(LBM_LATTICES)
+#if defined(LBM_OUTFLOW)
+// The outflow family (lbm_step_outflow.cu): BGK with the compressible or
+// the incompressible equilibrium, every force model, wall rows on, fp32;
+// the arguments as lbm_step_d3q19, and lam, the plane means that
+// laminarize_mean_<grid> wrote (read by laminarize rows only; may be null
+// when there is none).
+int lbm_step_outflow_d2q9(const float* a, float* b, const uint8_t* mask,
+                          const float* bcp, const int* tags,
+                          const float* lam, const LBMParams* p,
+                          void* stream) {
+    return launch_outflow<2, 9>(a, b, mask, bcp, tags, lam, p, stream);
+}
+
+int lbm_step_outflow_d3q19(const float* a, float* b, const uint8_t* mask,
+                           const float* bcp, const int* tags,
+                           const float* lam, const LBMParams* p,
+                           void* stream) {
+    return launch_outflow<3, 19>(a, b, mask, bcp, tags, lam, p, stream);
+}
+
+// The laminarize pre-pass on the state a: nodes, the flat indices of the
+// laminarize rows' nodes, entry by entry; start[e] .. start[e + 1] the
+// nodes of entry e (entries + 1 ints); mean, entries * Q floats.
+int laminarize_mean_d2q9(const float* a, const long long* nodes,
+                         const int* start, int entries, float* mean,
+                         const LBMParams* p, void* stream) {
+    return launch_laminarize<2, 9>(a, nodes, start, entries, mean, p,
+                                   stream);
+}
+
+int laminarize_mean_d3q19(const float* a, const long long* nodes,
+                          const int* start, int entries, float* mean,
+                          const LBMParams* p, void* stream) {
+    return launch_laminarize<3, 19>(a, nodes, start, entries, mean, p,
+                                    stream);
+}
+#elif defined(LBM_LATTICES)
 // The D3Q15 and D3Q27 lattices (lbm_step_lattices.cu): BGK with the
 // compressible or the incompressible equilibrium, every force model, wall
 // rows or not, fp32; the arguments as lbm_step_d3q19.

@@ -13,12 +13,21 @@ value, the math fp32; entries ``lbm_step_mixed_<grid>``). All of that on
 D2Q9 and D3Q19; on D3Q15 and D3Q27 the kernel runs BGK (the compressible
 or the incompressible equilibrium, every force model, every BC and wall
 row) in fp32, built from a library of their own
-(``csrc/lbm_step_lattices.cu``), and refuses the other modes by name.
+(``csrc/lbm_step_lattices.cu``), and refuses the other modes by name. The
+outflow family's rows (``NTDoNothing``, ``NTCopy``, ``NTYuOutflow``,
+``NTNeumann``, ``NTLaminarize``, ``NTGuoDensity``: ``OUTFLOW_TYPES``) run
+in instantiations of their own (``csrc/lbm_step_outflow.cu``: BGK, either
+equilibrium, every force model, fp32, D2Q9 and D3Q19; entries
+``lbm_step_outflow_<grid>``), a laminarize row after a plane-mean pre-pass
+of its own (``laminarize_mean_<grid>``, ``mean_into``).
 
 Counterpart of ``sailfish_tpu/ops/pallas_step.py`` (``PallasStep3D``,
 ``make_kernel_3d``) and ``sailfish_tpu/ops/pallas_step2d.py``
 (``PallasStep2D``, ``make_kernel_2d``) in their mask + in-kernel native-BC
-(``kbc``) modes, fp32 or ``mixed`` (int16 codes: ``pallas_step.py:961-978``,
+(``kbc``) modes and their patch-plane / patch-block mode of the outflow
+family (``patch_rows`` :812, :834-843, prologue ``compute_patch_plane``
+:2306; ``pallas_step2d.py`` ``patch_blocks`` :57, :138), fp32 or
+``mixed`` (int16 codes: ``pallas_step.py:961-978``,
 ``pallas_step2d.py:128-132``), with and without forcing (Guo,
 exact-difference and velocity-shift, ``pallas_step.py:246-341``; a
 time-only force is the runtime ``rt_force`` mode, :185-232) and
@@ -77,6 +86,10 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q15', 'D3Q19', 'D3Q27')
 OTHER_LATTICES = ('D3Q15', 'D3Q27')
 #: the library of the other lattices' instantiations
 LATTICES_LIBRARY = 'lbm_step_lattices'
+#: the library of the outflow family's instantiations (BGK, either
+#: equilibrium, every force model, wall rows on, fp32, D2Q9 and D3Q19) and
+#: of the laminarize pre-pass
+OUTFLOW_LIBRARY = 'lbm_step_outflow'
 #: kernel launches over all ``KernelStep`` objects, counted apart by what
 #: the launch computes, the first that applies: ``lbm_step_dyn_<grid>``
 #: (a BC row or the body force takes values that change from step to step,
@@ -98,15 +111,20 @@ LATTICES_LIBRARY = 'lbm_step_lattices'
 #: ``lbm_step_<grid>``, serves all but the Shan-Chen mode. The Shan-Chen
 #: mode's pre-pass counts as ``rho_poststream_nk1_<grid>``. Every launch on
 #: int16 buffers (``--precision=mixed``, any of the above that the mode
-#: takes) counts as ``lbm_step_mixed_<grid>``, its C entry's name.
+#: takes) counts as ``lbm_step_mixed_<grid>``, its C entry's name, and
+#: every launch of a scene with an outflow row (``OUTFLOW_TYPES``) as
+#: ``lbm_step_outflow_<grid>``, its C entry's name; that scene's
+#: laminarize pre-pass, when it has a laminarize row, as
+#: ``laminarize_mean_<grid>``.
 LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'elbm_',
-                'sw_', 'sc_', 'wall_', 'dyn_', 'mixed_')
+                'sw_', 'sc_', 'wall_', 'dyn_', 'mixed_', 'outflow_')
 #: the kinds a launch on one of ``OTHER_LATTICES`` can be (BGK only, fp32)
 OTHER_LATTICE_KINDS = ('', 'vary_', 'force_', 'incomp_', 'wall_', 'dyn_')
 LAUNCHES = dict.fromkeys(
     [f'lbm_step_{v}{g.lower()}' for v in LAUNCH_KINDS
      for g in ('D2Q9', 'D3Q19')]
     + [f'rho_poststream_nk1_{g}' for g in ('d2q9', 'd3q19')]
+    + [f'laminarize_mean_{g}' for g in ('d2q9', 'd3q19')]
     + [f'lbm_step_{v}{g.lower()}' for v in OTHER_LATTICE_KINDS
        for g in OTHER_LATTICES], 0)
 #: rewrites of a block of the per-node parameter array before a launch (a
@@ -150,10 +168,17 @@ BC_KINDS = {
     nt.NTZouHeVelocity: 2, nt.NTZouHeDensity: 3,
     nt.NTRegularizedVelocity: 4, nt.NTRegularizedDensity: 5,
     nt.NTHalfBBWall: 6, nt.NTWallTMS: 7, nt.NTSlip: 8,
+    nt.NTDoNothing: 9, nt.NTCopy: 10, nt.NTYuOutflow: 11, nt.NTNeumann: 12,
+    nt.NTLaminarize: 13, nt.NTGuoDensity: 14,
 }
 #: the wall kinds: rows that read the link-tag map (half-way, TMS) or
 #: store a slip reflection, served by the kernel instantiation with walls
 WALL_TYPES = st.LINK_TAG_TYPES + (nt.NTSlip,)
+#: the outflow family's rows, served by the outflow instantiations
+#: (``OUTFLOW_LIBRARY``); ``NTGradFreeflow`` nodes collide as fluid nodes
+#: (mask code 0) and ``NTExtendedCopy`` is refused
+#: (``step.OUTFLOW_TYPES``)
+OUTFLOW_TYPES = st.FIX_TYPES + (nt.NTGuoDensity,)
 
 #: one BC-table row: node type id, orientation code (1-based, into
 #: grid.orientation_vectors; 0 for the half-way and TMS rows, whose
@@ -171,12 +196,14 @@ def classify_nodes(maps):
     """Mask codes for the kernel (``pallas_step.py:62-119``).
 
     Returns (mask, instances, reasons): ``mask`` is uint8 (*S) with
-    0 = collide, 1 = reflect (``NTFullBBWall``), 2 = keep (excluded and
-    propagation-only nodes), 3+j = row j of the BC table; ``instances`` is
-    the list of (type_id, orientation, node selection) in code order: one
-    per native-BC (type, orientation), one per half-way / TMS wall type
+    0 = collide (fluid, and ``NTGradFreeflow``, which collides as a fluid
+    node in both JAX engines: ``step.OUTFLOW_TYPES``), 1 = reflect
+    (``NTFullBBWall``), 2 = keep (excluded and propagation-only nodes),
+    3+j = row j of the BC table; ``instances`` is the list of (type_id,
+    orientation, node selection) in code order: one per native-BC or
+    outflow (type, orientation), one per half-way / TMS wall type
     (orientation 0) and one per slip normal axis; ``reasons`` names every
-    node class the kernel cannot take."""
+    node class the kernel cannot take (``NTExtendedCopy``)."""
     tm = maps.type_map
     mask = np.zeros(tm.shape, dtype=np.uint8)
     instances = []
@@ -184,7 +211,13 @@ def classify_nodes(maps):
     for tid in maps.present_types:
         cls = nt.get_node_type(tid)
         sel = tm == tid
-        if tid == nt._NTFluid.id:
+        if tid == nt._NTFluid.id or cls is nt.NTGradFreeflow:
+            continue
+        if cls is nt.NTExtendedCopy:
+            reasons.append('node type NTExtendedCopy (its gathers read the '
+                           'whole domain; the JAX runner keeps it off its '
+                           'kernels too, sailfish_tpu/runner.py:346-349; '
+                           '--engine=torch runs it)')
             continue
         if cls is nt.NTFullBBWall:
             mask[sel] = 1
@@ -220,19 +253,20 @@ def classify_nodes(maps):
 
 def bc_table(maps, instances, boxes=None):
     """One ``BCRow`` per instance, holding its prescribed parameters at its
-    first node (the parameters of a uniform instance) and its entry of
-    ``boxes`` (``bc_patch.instance_boxes``; default: all uniform)."""
+    first node (the parameters of a uniform instance; the scalar of a
+    Neumann or laminarize row in rho's place) and its entry of ``boxes``
+    (``bc_patch.instance_boxes``; default: all uniform)."""
     rows = []
     boxes = boxes or [None] * len(instances)
     for (tid, k, sel), box in zip(instances, boxes):
         cls = nt.get_node_type(tid)
         rho, vel = 1.0, [0.0, 0.0, 0.0]
-        if cls in WALL_TYPES:
-            pass
+        if cls in st.SCALAR_TYPES:
+            rho = float(maps.param_scalar[sel][0])
         elif 'velocity' in cls.param_names:
             for a in range(maps.param_vel.shape[0]):
                 vel[a] = float(maps.param_vel[a][sel][0])
-        else:
+        elif 'density' in cls.param_names:
             rho = float(maps.param_rho[sel][0])
         rows.append(BCRow(tid, k, rho, tuple(vel), box))
     return rows
@@ -241,8 +275,8 @@ def bc_table(maps, instances, boxes=None):
 def kernel_ineligibility(builder, nodes=None):
     """Reasons the kernel cannot run ``builder``'s scene (empty when it
     can); ``nodes`` is ``classify_nodes`` of its maps when the caller has
-    it. The torch ``StepBuilder`` already refuses the node types it lacks
-    (the outflow family, ``NTGuoDensity``, ``NTExtendedCopy``); an MRT
+    it (which refuses ``NTExtendedCopy``; the outflow rows' own refusals
+    are ``_outflow_reasons``); an MRT
     rate vector that does not split into one even and one odd rate
     (``mrt_pair_rates``) is refused here, and so are, by name, the
     product-form equilibrium (``--entropic_equilibrium``: the JAX runner
@@ -303,6 +337,54 @@ def kernel_ineligibility(builder, nodes=None):
     reasons += _mode_reasons(builder, instances)
     reasons += _mixed_reasons(builder)
     reasons += _lattice_reasons(builder)
+    reasons += _outflow_reasons(builder, instances)
+    return reasons
+
+
+def _outflow_reasons(builder, instances):
+    """The refusals of the outflow rows: the kernel's outflow
+    instantiations are BGK (either equilibrium, every force model) in
+    fp32 on D2Q9 and D3Q19; the rest is refused by name (the JAX kernels
+    take MRT, LES, ELBM and int16 state in their patch-plane mode, and
+    ROADMAP.md lists them as still to port; the Shan-Chen mode refuses
+    every BC row in ``_mode_reasons``). An ``NTGuoDensity`` node reads the
+    post-stream values of x + n as pulled: a neighbour there whose values
+    ``fix_missing`` replaces (a half-way, TMS or outflow node) is refused
+    too."""
+    kinds = sorted({nt.get_node_type(tid).__name__
+                    for tid, _k, _sel in instances
+                    if nt.get_node_type(tid) in OUTFLOW_TYPES})
+    if not kinds:
+        return []
+    rows = f'outflow rows ({", ".join(kinds)})'
+    why = '; --engine=torch runs it)'
+    reasons = []
+    if builder.model != 'bgk' or builder.smagorinsky > 0.0:
+        reasons.append(f'{rows} with {_model_name(builder)} (the kernel\'s '
+                       f'outflow instantiations are BGK only{why}')
+    if getattr(builder, 'mixed', None) is not None:
+        reasons.append(f'{rows} under --precision=mixed (the kernel\'s '
+                       f'outflow instantiations are fp32 only{why}')
+    if builder.grid.name in OTHER_LATTICES:
+        reasons.append(f'{rows} on {builder.grid.name} (the kernel\'s '
+                       f'outflow instantiations are built for D2Q9 and '
+                       f'D3Q19 only{why}')
+    if builder.equilibrium == 'shallow_water':
+        reasons.append(f'{rows} with the shallow-water equilibrium (the '
+                       f'kernel\'s outflow instantiations take the '
+                       f'second-order equilibria only{why}')
+    tm = builder.maps.type_map
+    fixed = np.isin(tm, [c.id for c in st.FIX_TYPES + st.LINK_TAG_TYPES
+                         + (nt.NTExtendedCopy,)])
+    for tid, k, sel in instances:
+        if nt.get_node_type(tid) is not nt.NTGuoDensity:
+            continue
+        n = builder.grid.orientation_vectors[k - 1]
+        if (st.sample(torch.as_tensor(fixed), n).numpy() & sel).any():
+            reasons.append(f'NTGuoDensity (orientation {k}) beside a node '
+                           'whose missing distributions are replaced (a '
+                           'half-way, TMS or outflow node at x + n; '
+                           '--engine=torch runs it)')
     return reasons
 
 
@@ -545,13 +627,18 @@ def mixed_params(mixed):
     return m
 
 
+class _Outflow(ctypes.Structure):
+    _fields_ = [('lam_entry', ctypes.c_int * MAX_BC),
+                ('lam_lo', ctypes.c_int * MAX_BC)]
+
+
 class _Params(ctypes.Structure):
     _fields_ = [('nx', ctypes.c_int), ('ny', ctypes.c_int),
                 ('nz', ctypes.c_int), ('nbc', ctypes.c_int),
                 ('tau_inv', ctypes.c_float),
                 ('bc', _BC * MAX_BC), ('vary', _Vary * MAX_BC),
                 ('force', _Force), ('coll', _Collide), ('sc', _ShanChen),
-                ('elbm', _Entropic)]
+                ('elbm', _Entropic), ('out', _Outflow)]
 
 
 class _Tables(ctypes.Structure):
@@ -744,20 +831,23 @@ def kernel_params(grid, shape, table, tau_inv, force=None,
 
 
 #: names of the template parameters of ``lbm_step_kernel``, in order (the
-#: last, the storage type, is read from its mangled letter)
+#: storage type is read from its mangled letter; ``outflow`` is False in an
+#: older build's names, which lack it)
 INSTANCE_PARAMS = ('dim', 'q', 'force', 'walls', 'model', 'equilibrium',
-                   'sc', 'storage')
+                   'sc', 'storage', 'outflow')
 
 
 def instantiation(fn):
     """The template arguments of the ``lbm_step_kernel`` instantiation
     whose mangled name is ``fn``, as {name of ``INSTANCE_PARAMS``: value}
-    (``force``, ``model`` and ``equilibrium`` by their names, ``walls`` and
-    ``sc`` as bools, ``storage`` 'fp32' or 'int16'), or None for another
-    function. A name with fewer arguments (an older build's, without the
-    storage type: fp32) gets the ones it has; an older build's sixth
-    argument, the bool ``incompressible``, keeps that name."""
-    m = re.search(r'lbm_step_kernelI((?:L[ib]n?\d+E)+)([fs]?)E', fn)
+    (``force``, ``model`` and ``equilibrium`` by their names, ``walls``,
+    ``sc`` and ``outflow`` as bools, ``storage`` 'fp32' or 'int16'), or
+    None for another function. A name with fewer arguments (an older
+    build's, without the outflow switch or the storage type: fp32) gets
+    the ones it has; an older build's sixth argument, the bool
+    ``incompressible``, keeps that name."""
+    m = re.search(r'lbm_step_kernelI((?:L[ib]n?\d+E)+)([fs]?)(Lb[01]E)?E',
+                  fn)
     if not m:
         return None
     args = re.findall(r'L([ib])(n?)(\d+)E', m.group(1))
@@ -765,6 +855,8 @@ def instantiation(fn):
     out = dict(zip(INSTANCE_PARAMS, vals))
     if m.group(2):
         out['storage'] = 'int16' if m.group(2) == 's' else 'fp32'
+    if m.group(3):
+        out['outflow'] = m.group(3) == 'Lb1E'
     out['force'] = (('none',) + st.FORCE_MODELS)[out['force']]
     for key in ('walls', 'sc'):
         if key in out:
@@ -813,14 +905,69 @@ def kernel_function(lib, name):
     fn = getattr(lib, name)
     # lbm_step_<grid>: (a, b, mask, bcp, tags, params, stream);
     # lbm_step_sc_<grid>: (a, rho_pre, b, mask, params, stream);
-    # lbm_step_mixed_<grid>: (a, b, mask, bcp, tags, params, mixed, stream)
-    n_ptr = 4 if name.startswith('lbm_step_sc_') else 5
+    # lbm_step_mixed_<grid>: (a, b, mask, bcp, tags, params, mixed, stream);
+    # lbm_step_outflow_<grid>: (a, b, mask, bcp, tags, lam, params, stream)
+    n_ptr = 4 if name.startswith('lbm_step_sc_') else \
+        6 if name.startswith('lbm_step_outflow_') else 5
     blocks = [ctypes.POINTER(_Params)]
     if mixed:
         blocks.append(ctypes.POINTER(_Mixed))
     fn.argtypes = [ctypes.c_void_p] * n_ptr + blocks + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def laminarize_function(lib, grid_name):
+    """The laminarize pre-pass ``laminarize_mean_<grid>`` of the outflow
+    library, typed for ``ctypes``: (a, nodes, start, entries, mean,
+    params, stream)."""
+    fn = getattr(lib, f'laminarize_mean_{grid_name.lower()}')
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.POINTER(_Params),
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+#: the laminarize rows' entries: ``nodes`` (int64 flat indices of their
+#: nodes, entry by entry), ``start`` (int32, entries + 1 offsets into
+#: nodes), ``mean`` (the (entries, Q) fp32 buffer of the plane means) and
+#: ``spans`` ((row, lowest coordinate along its normal, entries) per
+#: laminarize row, in row order)
+LamEntries = namedtuple('LamEntries', ('nodes', 'start', 'mean', 'spans'))
+
+
+def laminarize_entries(grid, table, mask, params):
+    """The entries of the laminarize pre-pass for the BC table ``table``
+    on the uint8 mask codes ``mask``: one per coordinate along each
+    laminarize row's normal, from the lowest that holds a node of the row
+    to the highest, in row order, each listing the row's nodes in that
+    plane. Writes each row's first entry and lowest coordinate into
+    ``params.out``. Returns ``LamEntries`` on the mask's device, or None
+    without a laminarize row."""
+    codes = mask.cpu().numpy()
+    nodes, start, spans = [], [0], []
+    for j, row in enumerate(table):
+        if nt.get_node_type(row.type_id) is not nt.NTLaminarize:
+            continue
+        arr_axis = codes.ndim - 1 - (row.orientation - 1) // 2
+        flat = np.flatnonzero(codes == 3 + j)
+        coord = np.unravel_index(flat, codes.shape)[arr_axis]
+        lo, hi = int(coord.min()), int(coord.max())
+        params.out.lam_entry[j] = len(start) - 1
+        params.out.lam_lo[j] = lo
+        spans.append((j, lo, hi - lo + 1))
+        for c in range(lo, hi + 1):
+            nodes.append(flat[coord == c])
+            start.append(start[-1] + nodes[-1].size)
+    if not nodes:
+        return None
+    dev = mask.device
+    return LamEntries(
+        torch.as_tensor(np.concatenate(nodes).astype(np.int64), device=dev),
+        torch.as_tensor(np.asarray(start, dtype=np.int32), device=dev),
+        torch.zeros((len(start) - 1, grid.Q), dtype=torch.float32,
+                    device=dev), tuple(spans))
 
 
 class KernelStep:
@@ -843,10 +990,13 @@ class KernelStep:
     collision model, ``LIBRARIES``), ``entry`` (the C entry,
     ``lbm_step_<grid>``, which picks the kernel instantiation of the
     block's force model and equilibrium and of whether it has wall rows, or
-    ``lbm_step_sc_<grid>``), ``name`` (the key of ``LAUNCHES`` its step
-    launches count under) and ``launches``, the number of step launches
-    this object has made: one per step (and as many pre-pass launches,
-    ``prepass_launches``, in the Shan-Chen mode).
+    ``lbm_step_sc_<grid>``, or with an outflow row (``outflow``)
+    ``lbm_step_outflow_<grid>``, its laminarize rows' pre-pass entries
+    ``lam``, a ``LamEntries`` or None), ``name`` (the key of ``LAUNCHES``
+    its step launches count under) and ``launches``, the number of step
+    launches this object has made: one per step (and as many pre-pass
+    launches, ``prepass_launches``, in the Shan-Chen mode and with a
+    laminarize row).
 
     Under ``--precision=mixed`` (the StepBuilder's ``mixed``, an
     ``ops/mixed.MixedScales``, kept as ``mixed``) A and B hold int16 codes,
@@ -874,8 +1024,8 @@ class KernelStep:
         self.shape = mask_np.shape
         self.device = builder.device
         self.mask = torch.as_tensor(mask_np, device=self.device)
-        self.bcp = torch.as_tensor(bc_patch.param_array(maps, boxes),
-                                   device=self.device)
+        self.bcp = torch.as_tensor(
+            bc_patch.param_array(maps, boxes, instances), device=self.device)
         types = {nt.get_node_type(row.type_id) for row in self.table}
         self.walls = bool(types & set(WALL_TYPES))
         self.tags = (torch.as_tensor(maps.link_tags, device=self.device)
@@ -915,14 +1065,22 @@ class KernelStep:
             self.force_model, self.rates, self.smagorinsky,
             self.incompressible, self.equilibrium, self.gravity,
             self.sc_coupling, self.sc_potential, self.elbm)
+        #: whether a row of the outflow family exists (the outflow
+        #: instantiations, ``OUTFLOW_LIBRARY``)
+        self.outflow = bool(types & set(OUTFLOW_TYPES))
+        self.lam = laminarize_entries(self.grid, self.table, self.mask,
+                                      self.params)
         self.library = LATTICES_LIBRARY \
             if self.grid.name in OTHER_LATTICES else \
+            OUTFLOW_LIBRARY if self.outflow else \
             (LIBRARIES if self.mixed is None
              else MIXED_LIBRARIES)[self.params.coll.model]
         g = self.grid.name.lower()
         self.entry = f'lbm_step_{"sc_" if self.sc else ""}' \
-            f'{"" if self.mixed is None else "mixed_"}{g}'
+            f'{"" if self.mixed is None else "mixed_"}' \
+            f'{"outflow_" if self.outflow else ""}{g}'
         kind = 'mixed_' if self.mixed is not None else \
+            'outflow_' if self.outflow else \
             'dyn_' if self.dynamic or self.force_expr is not None else \
             'wall_' if self.walls else \
             'sc_' if self.sc else \
@@ -935,11 +1093,13 @@ class KernelStep:
             'vary_' if self.vary else ''
         self.name = f'lbm_step_{kind}{g}'
         self.rho_name = f'rho_poststream_nk1_{g}'
+        self.lam_name = f'laminarize_mean_{g}'
         self.launches = 0
         self.prepass_launches = 0
         self._fn = None
         self._rho_fn = None
         self._rho_params = None
+        self._lam_fn = None
 
     def _time(self, it):
         """t of iteration ``it``: a 0-d fp32 CPU tensor, so evaluating a
@@ -983,8 +1143,9 @@ class KernelStep:
         """Step ``it`` from ``src`` into ``dst`` (distinct (Q, *S)
         buffers of ``dtype``, fp32 or the int16 codes of --precision=mixed,
         on the mask's device). On a CUDA tensor this launches the kernel
-        once (in the Shan-Chen mode after the pre-pass into ``rho``); on a
-        CPU tensor it runs ``step_reference`` (in the Shan-Chen mode with
+        once (in the Shan-Chen mode after the pre-pass into ``rho``, with a
+        laminarize row after the pre-pass ``mean_into``); on a CPU tensor
+        it runs ``step_reference`` (in the Shan-Chen mode with
         ``density_into``'s densities)."""
         full = (self.grid.Q,) + self.shape
         for t in (src, dst):
@@ -1004,6 +1165,8 @@ class KernelStep:
         if src.device.type == 'cpu':
             dst.copy_(self.reference(src, self.rho))
         else:
+            if self.lam is not None:
+                self.mean_into(src, self.lam.mean)
             self._launch(src, dst)
 
     def reference(self, f, rho=None):
@@ -1052,9 +1215,55 @@ class KernelStep:
         self.prepass_launches += 1
         LAUNCHES[self.rho_name] += 1
 
+    def mean_into(self, src, mean):
+        """The laminarize rows' plane means of the post-stream state of
+        ``src`` into ``mean`` (an (entries, Q) fp32 buffer): the
+        ``laminarize_mean`` pre-pass on a CUDA tensor (counted as
+        ``lam_name``), ``laminarize_mean_reference`` on a CPU tensor."""
+        lam = self.lam
+        if lam is None:
+            raise ValueError('the scene has no laminarize row')
+        if tuple(mean.shape) != tuple(lam.mean.shape) \
+                or mean.dtype != torch.float32 or not mean.is_contiguous() \
+                or mean.device != src.device:
+            raise ValueError(f'expected a contiguous float32 '
+                             f'{tuple(lam.mean.shape)} buffer on '
+                             f'{src.device}')
+        if src.device.type == 'cpu':
+            mean.copy_(self.laminarize_mean_reference(src))
+            return
+        if src.device.type != 'cuda':
+            raise ValueError(f'no kernel for device {src.device}')
+        if self._lam_fn is None:
+            from sailfish_tpu_torch.ops import build
+            self._lam_fn = laminarize_function(
+                build.load(OUTFLOW_LIBRARY).lib, self.grid.name)
+        rc = self._lam_fn(src.data_ptr(), lam.nodes.data_ptr(),
+                          lam.start.data_ptr(), lam.mean.shape[0],
+                          mean.data_ptr(), ctypes.byref(self.params),
+                          self._stream(src))
+        if rc != 0:
+            raise RuntimeError(f'{self.lam_name} launch failed: CUDA error '
+                               f'{rc}')
+        self.prepass_launches += 1
+        LAUNCHES[self.lam_name] += 1
+
+    def laminarize_mean_reference(self, f):
+        """Plain version of the laminarize pre-pass: the (entries, Q)
+        plane means of the post-stream state of ``f``, each laminarize
+        row's entries in order of the coordinate along its normal, by the
+        torch engine's sums (``step.fix_outflow``)."""
+        fs = st.gather(self.grid, f)
+        return torch.cat([
+            st.plane_means(fs, self.mask == 3 + j,
+                           (self.table[j].orientation - 1) // 2)
+            .reshape(self.grid.Q, -1).T[lo:lo + count]
+            for j, lo, count in self.lam.spans])
+
     def _launch(self, src, dst):
         """The step kernel from ``src`` into ``dst``; in the Shan-Chen mode
-        it reads the densities in ``rho``."""
+        it reads the densities in ``rho``, with a laminarize row the plane
+        means in ``lam.mean``."""
         if src.device.type != 'cuda':
             raise ValueError(f'no kernel for device {src.device}')
         if self._fn is None:
@@ -1067,12 +1276,14 @@ class KernelStep:
                           ctypes.byref(self.params), self._stream(src))
         else:
             tags = None if self.tags is None else self.tags.data_ptr()
+            extra = [] if not self.outflow else \
+                [None if self.lam is None else self.lam.mean.data_ptr()]
             blocks = [ctypes.byref(self.params)]
             if self.mixed is not None:
                 blocks.append(ctypes.byref(self.mixed_params))
             rc = self._fn(src.data_ptr(), dst.data_ptr(),
                           self.mask.data_ptr(), self.bcp.data_ptr(), tags,
-                          *blocks, self._stream(src))
+                          *extra, *blocks, self._stream(src))
         if rc != 0:
             raise RuntimeError(f'{self.name} launch failed: CUDA error {rc}')
         self.launches += 1

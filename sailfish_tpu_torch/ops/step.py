@@ -19,9 +19,11 @@ Shan-Chen velocity shift, fp32 or fp64 storage or int16 fixed-point
 storage with fp32 math (``storage='int16'``, ``--precision=mixed``,
 ``ops/mixed.py``), and the node types
 fluid, the excluded / propagation-only "keep" types, the local walls
-(``NTFullBBWall``, ``NTHalfBBWall``, ``NTWallTMS``, ``NTSlip``) and the six
+(``NTFullBBWall``, ``NTHalfBBWall``, ``NTWallTMS``, ``NTSlip``), the six
 elementwise ("native") BC types, whose parameters may be
-``DynamicValue``s. Anything
+``DynamicValue``s, and the outflow family (``OUTFLOW_TYPES``: the BCs that
+sample neighbours along the normal or a plane mean, Guo's density
+extrapolation, the extended copy). Anything
 else raises ``NotImplementedError`` when the StepBuilder is made, the way the
 JAX engine's ``_IMPLEMENTED_TYPES`` does. The multi-component builders
 (``ops/multigrid.py``) run one ``StepBuilder`` per component through its
@@ -63,11 +65,34 @@ NATIVE_BC_TYPES = (nt.NTEquilibriumVelocity, nt.NTEquilibriumDensity,
 #: (``NodeMaps.link_tags``): half-way bounce-back and Tamm-Mott-Smith.
 LINK_TAG_TYPES = (nt.NTHalfBBWall, nt.NTWallTMS)
 
+#: The outflow family whose instances replace the unknown distributions
+#: in ``fix_missing`` (``sailfish_tpu/ops/step.py:466-561``): they sample
+#: the post-collision state at neighbours along the inward normal, or the
+#: node's own values, or a plane mean (``NTLaminarize``, which replaces all
+#: Q distributions).
+FIX_TYPES = (nt.NTDoNothing, nt.NTCopy, nt.NTYuOutflow, nt.NTNeumann,
+             nt.NTLaminarize)
+
+#: The outflow-family types of this engine: ``FIX_TYPES``, Guo's density
+#: BC (a post-collision overlay, ``guo_density_overlay``), the extended
+#: copy (static gathers, ``extended_copy_gathers``) and Grad's outflow.
+#: ``NTGradFreeflow`` has no ``needs_orientation``, so the JAX engine's
+#: instance list leaves it out (``sailfish_tpu/ops/step.py:165-168``) and
+#: its Grad branch (:503-527) is never reached: its nodes collide as fluid
+#: nodes, in both engines.
+OUTFLOW_TYPES = FIX_TYPES + (nt.NTGuoDensity, nt.NTExtendedCopy,
+                             nt.NTGradFreeflow)
+
+#: Node types whose prescribed scalar (``NodeMaps.param_scalar``) the BC
+#: reads: the Neumann gradient and the laminarization strength alpha.
+SCALAR_TYPES = (nt.NTNeumann, nt.NTLaminarize)
+
 #: Node types this engine implements; a present type outside the set
 #: raises at build time.
 _IMPLEMENTED_TYPES = (
     nt._NTFluid, nt._NTGhost, nt._NTUnused, nt._NTPropagationOnly,
-    nt.NTFullBBWall, nt.NTSlip) + LINK_TAG_TYPES + NATIVE_BC_TYPES
+    nt.NTFullBBWall, nt.NTSlip) + LINK_TAG_TYPES + NATIVE_BC_TYPES \
+    + OUTFLOW_TYPES
 
 
 def global_coords(shape, device=None):
@@ -145,25 +170,172 @@ def equilibrium_fn(grid, incompressible=False, equilibrium='bgk',
                              incompressible=incompressible)
 
 
-def fix_missing(grid, fs, f, tags=None, tms=None, feq=None):
+def fix_missing(grid, fs, f, tags=None, tms=None, feq=None, instances=(),
+                ext_gathers=()):
     """Replace the distributions whose pull source is not wet
-    (``sailfish_tpu/ops/step.py:436-456``). Tagged links (``tags``, the
+    (``sailfish_tpu/ops/step.py:436-561``). Tagged links (``tags``, the
     (Q, *S) planes of ``tag_planes``, or None) take f_opp, the node's own
     post-collision value: half-way bounce-back. At the TMS nodes (``tms``,
     a node mask, or None) the target macros are then taken from the
     bounce-filled distributions and the tagged links set to their
     equilibrium ``feq`` (``equilibrium_fn``; default the compressible
-    second-order one). Returns (fs, target): target is (rho, u) of the
-    TMS nodes, None without them."""
+    second-order one). Then the extended copies (``ext_gathers``, from
+    ``extended_copy_gathers``) and the instances of ``FIX_TYPES`` among
+    ``instances`` (``fix_outflow``). Returns (fs, target): target is (rho,
+    u) of the TMS nodes, None without them."""
+    target = None
     if tags is not None:
         opp = torch.as_tensor(grid.opposite, dtype=torch.long,
                               device=fs.device)
         fs = torch.where(tags, f[opp], fs)
-    if tms is None:
-        return fs, None
-    target = eq.macroscopic(grid, fs)
-    feq_tg = (feq or equilibrium_fn(grid))(*target)
-    return torch.where(tms[None] & tags, feq_tg, fs), target
+    if tms is not None:
+        target = eq.macroscopic(grid, fs)
+        feq_tg = (feq or equilibrium_fn(grid))(*target)
+        fs = torch.where(tms[None] & tags, feq_tg, fs)
+    if ext_gathers:
+        flat = fs.reshape(grid.Q, -1).clone()
+        f_flat = f.reshape(grid.Q, -1)
+        for d, d2, dst, src in ext_gathers:
+            flat[d, dst] = f_flat[d2, src]
+        fs = flat.reshape(fs.shape)
+    return fix_outflow(grid, fs, f, instances), target
+
+
+def fix_outflow(grid, fs, f, instances):
+    """The outflow BCs of ``FIX_TYPES`` among ``instances`` ((cls,
+    orientation, mask, scalar, vel_bc); ``scalar`` the (*S) field of the
+    Neumann gradient or the laminarization alpha), in their order
+    (``sailfish_tpu/ops/step.py:466-561``). Every sample reads the
+    post-collision state ``f`` at x + v, wrapping periodically; the unknown
+    directions i (c_i . n > 0, n the inward normal) take
+      NTDoNothing   f_i(x)
+      NTCopy        f_i(x + n - c_i)                  (fs_i(x + n))
+      NTYuOutflow   2 f_i(x + n - c_i) - f_i(x + 2n - c_i)
+      NTNeumann     f_opp(x + c_i) + 6 w_i c_i . phi,
+                    phi = u(f(x + 2n)) + 2 gradient n
+    and ``NTLaminarize`` blends all Q distributions towards their mean over
+    the instance's nodes in each plane normal to n, (1 - alpha) fs + alpha
+    mean (the count floored at 1)."""
+    for cls, k, mask, scalar, _vel in instances:
+        if cls not in FIX_TYPES:
+            continue
+        n = np.asarray(grid.orientation_vectors[k - 1])
+        unknown = grid.unknown_mask(n)
+        if cls is nt.NTLaminarize:
+            mean = plane_means(fs, mask, (k - 1) // 2)
+            blended = (1.0 - scalar) * fs + scalar * mean
+            fs = torch.where(mask[None], blended, fs)
+            continue
+        if cls is nt.NTNeumann:
+            f2n = torch.stack([sample(f[i], 2 * n) for i in range(grid.Q)])
+            _rho2, u2 = eq.macroscopic(grid, f2n)
+            phi = [u2[a] + 2.0 * scalar * int(n[a]) for a in range(grid.dim)]
+        upd = []
+        for i in range(grid.Q):
+            if not unknown[i]:
+                upd.append(fs[i])
+                continue
+            c = grid.basis[i]
+            if cls is nt.NTDoNothing:
+                val = f[i]
+            elif cls is nt.NTCopy:
+                val = sample(f[i], n - c)
+            elif cls is nt.NTYuOutflow:
+                val = 2.0 * sample(f[i], n - c) - sample(f[i], 2 * n - c)
+            else:
+                o = int(grid.opposite[i])
+                cphi = sum(float(c[a]) * phi[a] for a in range(grid.dim))
+                val = sample(f[o], c) + 6.0 * float(grid.weights[i]) * cphi
+            upd.append(torch.where(mask, val, fs[i]))
+        fs = torch.stack(upd)
+    return fs
+
+
+def plane_means(fs, mask, naxis):
+    """The mean of the distributions ``fs`` (Q, *S) over the nodes of
+    ``mask`` (*S) in each plane normal to the axis ``naxis`` (0 = x), the
+    count floored at 1 (``sailfish_tpu/ops/step.py:548-558``): (Q, *S)
+    with extent 1 along every other axis."""
+    arr_axis = fs.dim() - 1 - naxis
+    perp = tuple(a for a in range(1, fs.dim()) if a != arr_axis)
+    mask_f = mask.to(fs.dtype)
+    num = torch.sum(fs * mask_f[None], dim=perp, keepdim=True)
+    den = torch.sum(mask_f, dim=tuple(a - 1 for a in perp),
+                    keepdim=True)[None]
+    return num / torch.clamp(den, min=1.0)
+
+
+def extended_copy_gathers(grid, maps, device=None):
+    """The static gathers of every ``NTExtendedCopy`` instance
+    (``sailfish_tpu/ops/step.py:274-330``): (d, d2, dst, src), each missing
+    direction d of a node x read from f_{d2}(T x - c_{d2}), d2 the image of
+    d under the rotation part of the node's 4x4 affine map T, periodic wrap;
+    dst and src flat node indices (long tensors on ``device``)."""
+    shape = maps.type_map.shape
+    dim = grid.dim
+    coords = np.meshgrid(*[np.arange(s) for s in shape], indexing='ij')
+    coords = [coords[dim - 1 - a] for a in range(dim)]
+
+    def rotate_dist(i, rot):
+        c = np.zeros(3)
+        c[:dim] = grid.basis[i][:dim]
+        t = np.rint(rot @ c).astype(int)
+        for j in range(grid.Q):
+            cj = np.zeros(3, dtype=int)
+            cj[:dim] = grid.basis[j][:dim]
+            if np.array_equal(cj, t):
+                return j
+        raise ValueError(
+            'NTExtendedCopy transformation does not map lattice vector '
+            f'{grid.basis[i]} onto the lattice')
+
+    gathers = []
+    for mask, T in maps.extended:
+        T = np.asarray(T, dtype=np.float64)
+        sel_all = mask & (maps.type_map == nt.NTExtendedCopy.id)
+        for k in np.unique(maps.orientation[sel_all]):
+            if k == 0:
+                continue
+            sel = sel_all & (maps.orientation == int(k))
+            if not sel.any():
+                continue
+            unknown = grid.unknown_mask(grid.orientation_vectors[int(k) - 1])
+            idx = np.nonzero(sel)
+            dst = np.ravel_multi_index(idx, shape)
+            pos = np.zeros((4, dst.size))
+            for a in range(dim):
+                pos[a] = coords[a][idx]
+            pos[3] = 1.0
+            src_xyz = np.rint(T @ pos)[:dim].astype(np.int64)
+            for d in range(grid.Q):
+                if not unknown[d]:
+                    continue
+                d2 = rotate_dist(d, T[:3, :3])
+                src = [(src_xyz[a] - int(grid.basis[d2][a]))
+                       % shape[len(shape) - 1 - a] for a in range(dim)]
+                gathers.append((d, d2, torch.as_tensor(dst, device=device),
+                                torch.as_tensor(np.ravel_multi_index(
+                                    tuple(reversed(src)), shape),
+                                    device=device)))
+    return gathers
+
+
+def guo_density_overlay(grid, fs, fpost, instances, tau_inv, feq=None):
+    """Guo's extrapolation density BC (``sailfish_tpu/ops/step.py
+    :783-807``): each ``NTGuoDensity`` node x of ``instances`` stores
+    feq(rho_bc, u_B) + (1 - 1/tau)(fs(B) - feq(rho_B, u_B)) in place of its
+    relaxed values, B = x + n, with rho_B, u_B the moments of ``fs`` (the
+    fixed post-stream distributions) at B and ``feq`` the model's
+    equilibrium."""
+    feq = feq or equilibrium_fn(grid)
+    for cls, k, mask, rho_bc, _vel in instances:
+        if cls is not nt.NTGuoDensity:
+            continue
+        fs_b = sample(fs, grid.orientation_vectors[k - 1])
+        rho_b, u_b = eq.macroscopic(grid, fs_b)
+        val = feq(rho_bc, u_b) + (1.0 - tau_inv) * (fs_b - feq(rho_b, u_b))
+        fpost = torch.where(mask[None], val, fpost)
+    return fpost
 
 
 def apply_tms(grid, fpost, rho, u, tms, target, feq=None):
@@ -179,10 +351,19 @@ def apply_tms(grid, fpost, rho, u, tms, target, feq=None):
 
 def solve_macro_bc(grid, instances, fs, rho, u):
     """Per-instance macroscopic overrides (Zou & He solves;
-    ``sailfish_tpu/ops/step.py:584-617``). ``instances``: list of
-    (cls, orientation, mask, rho_bc, vel_bc) with disjoint masks."""
+    ``sailfish_tpu/ops/step.py:584-617``; a Guo density node's rho is its
+    prescribed one). ``instances``: list of (cls, orientation, mask, rho_bc,
+    vel_bc) with disjoint masks; ``rho_bc`` of ``SCALAR_TYPES`` is their
+    scalar."""
     fl = [fs[i] for i in range(grid.Q)]
     for cls, k, mask, rho_bc, vel_bc in instances:
+        if cls is nt.NTGuoDensity:
+            # no solve: the node's values are the post-collision overlay
+            # (guo_density_overlay); rho is pinned for output
+            rho = torch.where(mask, rho_bc, rho)
+            continue
+        if cls not in NATIVE_BC_TYPES:
+            continue
         n = grid.orientation_vectors[k - 1]
         cn = grid.basis @ n
         s0 = signed_sum((cn == 0).astype(int), fl)
@@ -223,6 +404,8 @@ def pre_collision_bc(grid, instances, fs, rho, u, incompressible=False,
     ``regularized_f`` does."""
     feq = feq or equilibrium_fn(grid, incompressible)
     for cls, k, mask, _rho_bc, _vel_bc in instances:
+        if cls not in NATIVE_BC_TYPES:
+            continue
         n = grid.orientation_vectors[k - 1]
         unknown = grid.unknown_mask(n)
         f_eq = feq(rho, u)
@@ -390,19 +573,23 @@ def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
                 fullbb=None, slip=(), tags=None, tms=None, force=None,
                 force_model='guo', incompressible=False, rates=None,
                 smagorinsky=0.0, feq=None, sc_coupling=0.0,
-                sc_potential='linear', sc_rho=None, elbm=None):
+                sc_potential='linear', sc_rho=None, elbm=None,
+                ext_gathers=()):
     """One step after the gather, in the JAX order
-    (``sailfish_tpu/ops/step.py:809-825``): fix missing -> macro -> BC
-    solves -> pre-collision BC -> ``forced_collide`` on every node (BC
+    (``sailfish_tpu/ops/step.py:809-825``): fix missing (with the outflow
+    family and the extended copies ``ext_gathers``) -> macro -> BC solves
+    -> pre-collision BC -> ``forced_collide`` on every node (BC
     nodes with their solved rho and u; the collision model of ``rates``
     and ``smagorinsky`` or the entropic one of ``elbm``, the equilibrium
     ``feq`` and the Shan-Chen shift of ``sc_coupling``) -> dry select and
-    dry walls -> the TMS shift.
+    dry walls -> the TMS shift -> the Guo density overlay.
     ``fs``: the gathered distributions; ``f``: the state they were pulled
     from; ``instances``: (cls, orientation, mask, rho_bc, vel_bc) with the
-    parameters of this step."""
+    parameters of this step (of ``SCALAR_TYPES``: the scalar in place of
+    rho_bc)."""
     feq = feq or equilibrium_fn(grid, incompressible)
-    fs, target = fix_missing(grid, fs, f, tags, tms, feq)
+    fs, target = fix_missing(grid, fs, f, tags, tms, feq, instances,
+                             ext_gathers)
     rho, u = eq.macroscopic(grid, fs)
     rho, u = solve_macro_bc(grid, instances, fs, rho, u)
     fs2 = pre_collision_bc(grid, instances, fs, rho, u, incompressible, feq)
@@ -413,7 +600,8 @@ def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
                            sc_potential=sc_potential, sc_rho=sc_rho,
                            elbm=elbm, skip=None if wet is None else ~wet)
     fpost = select_dry(grid, fs2, fpost, wet, fullbb, slip)
-    return apply_tms(grid, fpost, rho, u, tms, target, feq)
+    fpost = apply_tms(grid, fpost, rho, u, tms, target, feq)
+    return guo_density_overlay(grid, fs, fpost, instances, tau_inv, feq)
 
 
 #: collision models of the torch engine (``--model``)
@@ -585,12 +773,21 @@ class StepBuilder:
                     (axis, dev(sel & np.isin(m.orientation, ks))))
         self.rho_bc = dev(m.param_rho, self.dtype)
         self.vel_bc = dev(m.param_vel, self.dtype)
-        # (type, orientation, mask) instances; orientation 0 (undetected)
-        # nodes get no BC, as in the JAX engine
+        #: the scalar parameter field (the Neumann gradient, the
+        #: laminarization alpha) when such a node is present, else None
+        self.scalar = (dev(m.param_scalar, self.dtype)
+                       if any(nt.get_node_type(t) in SCALAR_TYPES
+                              for t in present) else None)
+        # (type, orientation, mask) instances of the native BCs and the
+        # outflow family, in the JAX engine's order (present types, then
+        # orientations; a type without needs_orientation -- NTGradFreeflow
+        # -- is left out, :160-170); orientation 0 (undetected) nodes get
+        # no BC, as in the JAX engine
         self.bc_instances = []
         for tid in present:
             cls = nt.get_node_type(tid)
-            if cls not in NATIVE_BC_TYPES:
+            if cls not in NATIVE_BC_TYPES + OUTFLOW_TYPES \
+                    or not cls.needs_orientation:
                 continue
             sel = tm == tid
             for k in np.unique(m.orientation[sel]):
@@ -598,6 +795,10 @@ class StepBuilder:
                     continue
                 mask = sel & (m.orientation == int(k))
                 self.bc_instances.append((cls, int(k), dev(mask)))
+        #: the static gathers of the NTExtendedCopy nodes (whole-domain
+        #: builders only, as in the JAX engine)
+        self.ext_gathers = extended_copy_gathers(self.grid, m, self.device) \
+            if getattr(m, 'extended', None) else []
         #: DynamicValue BC parameters: (node mask, parameter name, exprs)
         self.dynamic = [(dev(mask), name, exprs)
                         for mask, name, exprs in m.dynamic]
@@ -632,7 +833,8 @@ class StepBuilder:
     def instances_at(self, it=0):
         """The BC instances with their parameters at iteration ``it``."""
         rho_bc, vel_bc = self.bc_params(it)
-        return [(cls, k, mask, rho_bc, vel_bc)
+        return [(cls, k, mask,
+                 self.scalar if cls in SCALAR_TYPES else rho_bc, vel_bc)
                 for cls, k, mask in self.bc_instances]
 
     def force_at(self, it=0):
@@ -663,9 +865,14 @@ class StepBuilder:
 
     def fix_missing(self, fs, f):
         """Replace distributions whose pull source was not wet: half-way
-        bounce-back on tagged links, then the TMS target equilibrium."""
+        bounce-back on tagged links, the TMS target equilibrium, then the
+        extended copies and the outflow family (whose parameters are
+        static)."""
         return fix_missing(self.grid, fs, f, self.tags, self.tms,
-                           self._feq)[0]
+                           self._feq, [(cls, k, mask, self.scalar, None)
+                                       for cls, k, mask in self.bc_instances
+                                       if cls in FIX_TYPES],
+                           self.ext_gathers)[0]
 
     def phases(self, fs, f, it=0):
         """``step_phases`` with this builder's maps, and parameters and
@@ -678,7 +885,7 @@ class StepBuilder:
             incompressible=self.incompressible, rates=self.mrt_rates,
             smagorinsky=self.smagorinsky, feq=self._feq,
             sc_coupling=self.sc_coupling, sc_potential=self.sc_potential,
-            elbm=self.elbm)
+            elbm=self.elbm, ext_gathers=self.ext_gathers)
 
     @property
     def last_alpha(self):

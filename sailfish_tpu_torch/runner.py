@@ -23,12 +23,17 @@ when a hook declares none), the engine runs unchanged between the splits,
 and the hooks are called there on the device state; their states are
 ``device_hook_state`` and travel in checkpoints as ``hook{i}``, as the JAX
 runner writes them (``sailfish_tpu/runner.py:191-261``, :503-521).
-Force objects, ``--init_iters``, meshes and ``--profile_trace`` are not
-ported yet and raise ``NotImplementedError``.
+Momentum-exchange force objects (``update_force_objects``), the
+consistent initialization of ``--init_iters`` (on the scene's own engine)
+and ``--profile_trace`` (a ``torch.profiler`` Chrome trace) run on both
+engines, as ``sailfish_tpu/runner.py:423-493``, :556-607 and :643-649
+define them. Meshes (``--mesh``) are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 import signal
 import threading
@@ -78,19 +83,9 @@ class SubdomainRunner:
         self._subdomain.initial_conditions(self.sim, *args)
 
     def _check_unported(self):
-        cfg = self.config
-        unported = []
-        if getattr(cfg, 'mesh', ''):
-            unported.append('--mesh (sharded runs)')
-        if getattr(cfg, 'init_iters', 0) > 0:
-            unported.append('--init_iters')
-        if getattr(cfg, 'profile_trace', ''):
-            unported.append('--profile_trace')
-        if self.sim.force_objects:
-            unported.append('force objects')
-        if unported:
+        if getattr(self.config, 'mesh', ''):
             raise NotImplementedError(
-                'not ported to sailfish_tpu_torch yet: ' + ', '.join(unported))
+                'not ported to sailfish_tpu_torch yet: --mesh (sharded runs)')
 
     def _init_state(self):
         self._check_unported()
@@ -135,28 +130,145 @@ class SubdomainRunner:
         mixed = getattr(self.builder, 'mixed', None)
         return f if mixed is None else mixed.snap(f)
 
-    def _kernel_engine(self):
-        """The kernel engine of the builder's model; it raises, naming
-        the reasons, when its kernel cannot run the scene (also when the
-        builder is none of the port's step builders, as a scene's own
-        composite step is)."""
+    def _kernel_engine(self, builder=None):
+        """The kernel engine of ``builder``'s model (default the runner's
+        builder); it raises, naming the reasons, when its kernel cannot
+        run the scene (also when the builder is none of the port's step
+        builders, as a scene's own composite step is)."""
         from sailfish_tpu_torch.ops.multigrid import (
             FreeEnergyStepBuilder, ShanChenMultiStepBuilder)
         from sailfish_tpu_torch.ops.step import StepBuilder
-        if isinstance(self.builder, ShanChenMultiStepBuilder):
+        builder = builder or self.builder
+        if isinstance(builder, ShanChenMultiStepBuilder):
             from sailfish_tpu_torch.ops.sc_multi import SCMultiStep
-            return SCMultiStep(self.builder)
-        if isinstance(self.builder, FreeEnergyStepBuilder):
+            return SCMultiStep(builder)
+        if isinstance(builder, FreeEnergyStepBuilder):
             from sailfish_tpu_torch.ops.fe_step import FEStep
-            return FEStep(self.builder)
-        if not isinstance(self.builder, StepBuilder):
+            return FEStep(builder)
+        if not isinstance(builder, StepBuilder):
             raise NotImplementedError(
                 'the CUDA kernels cannot run this scene: its step builder '
-                f'{type(self.builder).__name__} is not a StepBuilder, '
+                f'{type(builder).__name__} is not a StepBuilder, '
                 'ShanChenMultiStepBuilder or FreeEnergyStepBuilder (a '
                 'composite step); --engine=torch runs it')
         from sailfish_tpu_torch.ops.lbm_step import KernelStep
-        return KernelStep(self.builder)
+        return KernelStep(builder)
+
+    def _consistent_init(self):
+        """--init_iters (``sailfish_tpu/runner.py:556-607``): N steps at
+        nu = 1/6 on the scene's own engine with the iteration pinned to 0
+        (time-dependent values see t = 0), so that the density relaxes to
+        a pressure field consistent with the initial velocity field; then
+        the state is rebuilt as feq(rho_relaxed, u_IC) with the model's
+        equilibrium, the velocity held at the user's initial conditions.
+        Single-fluid ``StepBuilder`` scenes only, and not under
+        --precision=mixed, with the JAX runner's reasons."""
+        n = int(getattr(self.config, 'init_iters', 0) or 0)
+        if n <= 0:
+            return
+        from sailfish_tpu_torch.ops.step import StepBuilder
+        if type(self.builder) is not StepBuilder:
+            raise NotImplementedError(
+                '--init_iters covers single-fluid scenes only '
+                f'(got {type(self.builder).__name__})')
+        if getattr(self.builder, 'mixed', None) is not None:
+            raise NotImplementedError(
+                '--init_iters does not combine with mixed int16 '
+                'storage; initialize at --precision=single')
+        log = util.get_logger(self.config)
+        log.info('Consistent initialization started (%d iterations at '
+                 'nu=1/6).', n)
+        visc = self.config.visc
+        self.config.visc = 1.0 / 6.0
+        try:
+            init_b = self.sim.make_step_builder(self.maps, self.config.dtype,
+                                                self.device)
+            f = self.f
+            if self.engine == 'kernel':
+                ks = self._kernel_engine(init_b)
+                for _ in range(n):
+                    f = ks.run(f, 1, 0)
+            else:
+                step = init_b.build()
+                for _ in range(n):
+                    f = step(f, 0)
+            rho, _u = init_b.macro_fields(f)
+            u_ic = torch.as_tensor(np.stack(self.sim.velocity_components()),
+                                   dtype=self.config.dtype,
+                                   device=self.device)
+            self.f = self.builder.feq(rho, u_ic)
+        finally:
+            self.config.visc = visc
+        log.info('Initialization phase complete.')
+
+    # -- force objects (momentum exchange) -----------------------------------
+
+    def _init_force_objects(self):
+        """The boundary links of each force object
+        (``sailfish_tpu/runner.py:423-483``): in the object's bounding box
+        widened by one node (cut at the domain), for each direction i the
+        (window-shaped) mask of the links from a wet node x_f to a dry
+        node x_f + c_i, as device tensors."""
+        self._force_specs = []
+        if not self.sim.force_objects:
+            return
+        from sailfish_tpu_torch import node_type as nt
+        g = self.sim.grid
+        m = self.maps
+        dim = self.sim.dim
+        solid = torch.as_tensor(~np.isin(
+            m.type_map, [t for t in m.present_types
+                         if nt.get_node_type(t).wet_node]))
+        shape = m.type_map.shape
+        for fo in self.sim.force_objects:
+            # the box in (x, y[, z]); the array axes are (.., z, y, x)
+            window = tuple(
+                slice(max(lo - 1, 0), min(hi + 2, n))
+                for lo, hi, n in zip(reversed(fo.start), reversed(fo.end),
+                                     shape))
+            links = []
+            for i in range(1, g.Q):
+                # solid at x + c_i, periodic, over the window only
+                neigh = window_shifted(solid, window, tuple(
+                    int(g.basis[i][dim - 1 - ax]) for ax in range(dim)))
+                link = ~solid[window] & neigh
+                if link.any():
+                    links.append((i, link.to(self.device)))
+            self._force_specs.append((window, links))
+
+    def update_force_objects(self):
+        """Each force object's momentum exchange on the post-collision
+        state f, F = sum over its links c_i [f_i(x_f) + f_opp(i)(x_f +
+        c_i)] (``sailfish_tpu/runner.py:485-493``; Ladd 1994): one sum per
+        link direction on the device, in fp32 as the JAX runner sums them,
+        the sums brought to the host together and F accumulated over the
+        directions in their order in fp32; the result is the object's
+        ``force()``. Nothing without force objects."""
+        if not getattr(self, '_force_specs', None):
+            return
+        g = self.sim.grid
+        dim = self.sim.dim
+        f = st.leaves(self.f)[0]
+        sums = []
+        for window, links in self._force_specs:
+            for i, link in links:
+                o = int(g.opposite[i])
+                f_in = window_shifted(f[o], window, tuple(
+                    int(g.basis[i][dim - 1 - ax]) for ax in range(dim)))
+                sums.append(torch.where(link, f[i][window] + f_in,
+                                        0.0).sum())
+        sums = torch.stack(sums).cpu().numpy() if sums else []
+        k = 0
+        for fo, (_window, links) in zip(self.sim.force_objects,
+                                         self._force_specs):
+            force = np.zeros(dim, dtype=np.float32)
+            for i, _link in links:
+                for a in range(dim):
+                    c = int(g.basis[i][a])
+                    if c:
+                        force[a] = force[a] + np.float32(c) * sums[k]
+                k += 1
+            fo._force = force
 
     def _select_engine(self):
         """'kernel' = the model's CUDA kernels; 'torch' = the plain
@@ -238,6 +350,10 @@ class SubdomainRunner:
         self._init_geometry()
         self._init_fields()
         self._init_state()
+        if not self.config.restore_from:
+            with torch.no_grad():
+                self._consistent_init()
+        self._init_force_objects()
         if self._output is not None:
             self._output.register_field(self.maps.type_map, 'node_type')
             if getattr(self.config, 'debug_dump_node_type_map', False):
@@ -249,8 +365,28 @@ class SubdomainRunner:
         for hook in self.sim._mixin_before_main_loop:
             hook(self.sim, self)
         self._init_hooks()
+        trace_dir = getattr(self.config, 'profile_trace', '')
         with torch.no_grad():
+            if trace_dir:
+                return self._traced_main(trace_dir)
             return self.main()
+
+    def _traced_main(self, trace_dir):
+        """``main`` under ``torch.profiler`` (CPU activity, and CUDA
+        activity on a CUDA device), the trace written into ``trace_dir``
+        as a Chrome trace (``lbm_<pid>_<time>.pt.trace.json``): the
+        counterpart of the JAX runner's ``jax.profiler.trace``
+        (``sailfish_tpu/runner.py:643-649``)."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            result = self.main()
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f'lbm_{os.getpid()}_{int(time.time())}.pt.trace.json'))
+        return result
 
     # -- device hooks --------------------------------------------------------
 
@@ -470,3 +606,23 @@ class SubdomainRunner:
                 / (time.perf_counter() - bench_t0) / 1e6)
         self.timing = result
         return result
+
+
+def window_shifted(plane, window, shift):
+    """``plane`` (array axes) over ``window`` (a slice per axis) displaced
+    by ``shift`` (per axis): plane[window + shift] with periodic wrap,
+    built from slices of the window's size
+    (``sailfish_tpu/ops/pallas_step.py:122-144`` with the shift negated)."""
+    out = plane
+    for ax, (w, s) in enumerate(zip(window, shift)):
+        n = plane.shape[ax]
+        lo, hi = w.start + s, w.stop + s
+        if 0 <= lo and hi <= n:
+            out = out.narrow(ax, lo, hi - lo)
+        elif lo < 0:
+            out = torch.cat([out.narrow(ax, n + lo, -lo),
+                             out.narrow(ax, 0, hi)], dim=ax)
+        else:
+            out = torch.cat([out.narrow(ax, lo, n - lo),
+                             out.narrow(ax, 0, hi - n)], dim=ax)
+    return out

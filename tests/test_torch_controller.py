@@ -195,6 +195,10 @@ def test_default_platform_without_cuda_is_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize('cfg,match', [
+    # --init_iters is ported for single-fluid scenes
+    # (tests/test_torch_runner_options.py); a mixture under it is refused
+    # with the JAX runner's reason ("--init_iters covers single-fluid
+    # scenes only"), the case's id unchanged
     (dict(init_iters=5), '--init_iters'),
     (dict(mesh='2'), '--mesh'),
     (dict(mode='visualization'), 'visualization'),
@@ -205,8 +209,8 @@ def test_default_platform_without_cuda_is_cpu(monkeypatch):
                  id='cfg3-storage'),
 ])
 def test_unported_flags_raise(cfg, match):
-    sim = binary_twin('sc_separation_2d') if 'precision' in cfg \
-        else twin('ldc_2d')
+    sim = binary_twin('sc_separation_2d') \
+        if 'precision' in cfg or 'init_iters' in cfg else twin('ldc_2d')
     ctrl = LBSimulationController(sim, default_config=dict(
         platform='cpu', max_iters=2, quiet=True, lat_nx=8, lat_ny=8,
         **cfg))

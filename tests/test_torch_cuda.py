@@ -136,6 +136,17 @@ within ``ELBM_MEAN_FACTOR`` times the fp32 plain version's
 refused diagnostics launch leaves the library's diagnostics pointer
 unset; the default engine runs it under its key and refuses the
 product-form equilibrium and ELBM with --incompressible by name.
+
+The outflow rows (``lbm_step_outflow_<grid>``, ``csrc/lbm_step_outflow.cu``;
+with a laminarize row after the pre-pass ``laminarize_mean_<grid>``) are
+held against ``step_reference`` on the inflow/outflow channels of each
+kernel-borne type (``torch_scenes.outflow_channel``), outlet normal to x
+and to y (2D) or z (3D), a block of excluded nodes added, unforced and
+under each force model: one launch within 1e-6 and 100 steps within 1e-5;
+the pre-pass's plane means against ``laminarize_mean_reference`` (1e-6);
+ptxas reports 16 instantiations without a stack frame; the open channels
+with their force objects and --init_iters run through the controller on
+the kernel engine against the torch engine on the card.
 """
 
 import ctypes
@@ -157,6 +168,8 @@ from torch_scenes import (ACCEL, BC_PAIRS, BINARY_SCENES, FE_SCENES,
                           channel_sim_2d, forced, forced_channel_sim,
                           forced_channel_sim_2d, forced_mixture,
                           halfbb_beside_parabolic_inlet, mixed_errors,
+                          INCOMPRESSIBLE_UNSTABLE, KERNEL_OUTFLOW_KINDS,
+                          open_channel, outflow_channel,
                           elbm_branches, elbm_errors, newton_state,
                           smooth_feq, FP64_FACTOR,
                           all_codes, periodic_box, random_binary_state,
@@ -1798,3 +1811,97 @@ def test_other_lattice_instantiations(cuda):
     assert {i['q'] for i in insts.values()} == {15, 27}
     assert {i['model'] for i in insts.values()} == {'bgk'}
     assert {i['storage'] for i in insts.values()} == {'fp32'}
+
+
+#: the outflow channels of the card tests: (dimension, outlet axis) -> size
+#: (x extents that are more than one block and no multiple of it); EDM runs
+#: with the incompressible equilibrium but on the Yu and Guo density rows,
+#: which diverge under it on every engine, the JAX package's too
+#: (``INCOMPRESSIBLE_UNSTABLE``)
+OUTFLOW_SIZES = {(2, 'x'): dict(lat_nx=300, lat_ny=40),
+                 (2, 'y'): dict(lat_nx=200, lat_ny=64),
+                 (3, 'x'): dict(lat_nx=150, lat_ny=24, lat_nz=20),
+                 (3, 'z'): dict(lat_nx=140, lat_ny=24, lat_nz=32)}
+OUTFLOW_ACCEL = (1e-5, -4e-6, 2.5e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('force', (None,) + FORCE_MODELS)
+@pytest.mark.parametrize('where', sorted(OUTFLOW_SIZES))
+@pytest.mark.parametrize('kind', [k for k in KERNEL_OUTFLOW_KINDS
+                                  if k != 'NTGradFreeflow'])
+def test_outflow_kernel_matches_step_reference(cuda, kind, where, force):
+    dim, axis = where
+    sim = outflow_channel(kind, dim, axis)
+    flags = {}
+    if force:
+        sim = forced(sim, OUTFLOW_ACCEL[:dim])
+        flags = dict(force_implementation=force,
+                     incompressible=force == 'edm'
+                     and kind not in INCOMPRESSIBLE_UNSTABLE)
+    r = run(with_keep_block(sim), platform='cuda', engine='kernel',
+            max_iters=0, **OUTFLOW_SIZES[where], **flags)
+    ks = r.kernel
+    assert ks.outflow and ks.library == ls.OUTFLOW_LIBRARY
+    assert ks.name == f'lbm_step_outflow_{r.sim.grid.name.lower()}'
+    f0 = random_feq(r.sim.grid, ks.shape, seed=3, device='cuda')
+    wet = (ks.mask == 0) | (ks.mask >= 3)
+    if ks.lam is not None:
+        mean = torch.empty_like(ks.lam.mean)
+        ks.mean_into(f0, mean)
+        ref = ks.laminarize_mean_reference(f0)
+        assert float((mean - ref).abs().max()) <= 1e-6
+    one = ks.run(f0, 1).clone()
+    assert float((one - ks.reference(f0))[:, wet].abs().max()) <= 1e-6
+    fk = ks.run(f0, 100)
+    fr = f0
+    for _ in range(100):
+        fr = ks.reference(fr)
+    torch.cuda.synchronize()
+    assert ks.launches == 101
+    # one launch per step, and the pre-pass's own above
+    assert ks.prepass_launches == (102 if ks.lam is not None else 0)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_outflow_instantiations(cuda):
+    """ptxas: the outflow library holds 2 lattices x 4 force models x 2
+    equilibria, BGK with wall rows, fp32, without a stack frame or
+    spills, and the laminarize pre-pass of each lattice."""
+    lib = build.load(ls.OUTFLOW_LIBRARY)
+    usage = build.ptxas_usage(lib.log)
+    insts = {fn: ls.instantiation(fn) for fn in usage
+             if ls.instantiation(fn)}
+    for fn in insts:
+        use = usage[fn]
+        assert use['stack_frame'] == use['spill_stores'] \
+            == use['spill_loads'] == 0, (fn, use)
+    assert len({tuple(i.values()) for i in insts.values()}) == 2 * 4 * 2
+    assert all(i['outflow'] and i['walls'] and i['model'] == 'bgk'
+               and i['storage'] == 'fp32' for i in insts.values())
+    assert sum('laminarize_mean_kernel' in fn for fn in usage) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dim', [3, 2])
+def test_open_channel_on_the_kernel_engine(cuda, dim):
+    """The open channel with its force object through the controller:
+    kernel engine (one launch per step) against the torch engine on the
+    card, 60 steps, drag sampled every 20; and --init_iters on both."""
+    size = dict(lat_nx=96, lat_ny=32, lat_nz=32) if dim == 3 else \
+        dict(lat_nx=384, lat_ny=96)
+    cfg = dict(platform='cuda', max_iters=60, every=20, init_iters=10,
+               **size)
+    ls.reset_launch_counts()
+    rk = run(open_channel(dim), engine='kernel', **cfg)
+    name = f'lbm_step_outflow_{rk.sim.grid.name.lower()}'
+    # the ten of the initialization by a KernelStep of their own
+    assert ls.LAUNCHES[name] == 70 and rk.kernel.launches == 60
+    rt = run(open_channel(dim), engine='torch', **cfg)
+    wet = (rk.kernel.mask == 0) | (rk.kernel.mask >= 3)
+    assert float((rk.f - rt.f)[:, wet].abs().max()) <= 1e-5
+    assert [it for it, _F in rk.sim.drag] == [20, 40, 60]
+    for (_i, fk), (_j, ft) in zip(rk.sim.drag, rt.sim.drag):
+        assert np.allclose(fk, ft, rtol=1e-3, atol=1e-4)
+    assert rk.sim.drag[-1][1][0] > 0

@@ -102,7 +102,8 @@ def test_port_modules_are_packaged():
             'sailfish_tpu_torch.geo', 'sailfish_tpu_torch.profile',
             'sailfish_tpu_torch.ops.mixed',
             'sailfish_tpu_torch.ops.entropic', 'sailfish_tpu_torch.stats',
-            'sailfish_tpu_torch.data_processing'} <= names
+            'sailfish_tpu_torch.data_processing',
+            'sailfish_tpu_torch.converter'} <= names
     csrc = os.path.join(os.path.dirname(sailfish_tpu_torch.__file__), 'ops',
                         'csrc')
     # every source, and no other: a source without a wrapper would be
@@ -112,7 +113,8 @@ def test_port_modules_are_packaged():
         'lbm_step_elbm.cu', 'lbm_step_lattices.cu', 'lbm_step_les.cu',
         'lbm_step_mixed.cu',
         'lbm_step_mixed_elbm.cu', 'lbm_step_mixed_les.cu',
-        'lbm_step_mixed_mrt.cu', 'lbm_step_mrt.cu', 'sc_multi.cu']
+        'lbm_step_mixed_mrt.cu', 'lbm_step_mrt.cu', 'lbm_step_outflow.cu',
+        'sc_multi.cu']
 
 
 def test_package_data_carries_every_file_a_build_hashes():
@@ -132,7 +134,7 @@ def test_package_data_carries_every_file_a_build_hashes():
     patterns = data['sailfish_tpu_torch']
     root = os.path.dirname(sailfish_tpu_torch.__file__)
     sources = sorted(build.CSRC.glob('*.cu'))
-    assert len(sources) == 11
+    assert len(sources) == 12
     files = {f for src in sources for f in build.hashed_files(src)}
     # a source that builds lbm_step.cu with another collision model hashes
     # it too
@@ -140,6 +142,8 @@ def test_package_data_carries_every_file_a_build_hashes():
         build.CSRC / 'lbm_step_mrt.cu')
     assert build.CSRC / 'lbm_step.cu' in build.hashed_files(
         build.CSRC / 'lbm_step_mixed_les.cu')
+    assert build.CSRC / 'lbm_step.cu' in build.hashed_files(
+        build.CSRC / 'lbm_step_outflow.cu')
     assert {f.suffix for f in files} == {'.cu', '.cuh'}
     for f in files:
         rel = os.path.relpath(f, root).replace(os.sep, '/')

@@ -187,9 +187,10 @@ def test_params_layout_matches_the_c_struct():
     # varies, lo[3], ext[3], offset: 32 B a row; then LBMForce = int model,
     # float a[3], shift[3], pref: 32 B; then LBMCollide = int model,
     # equilibrium, float s_e, s_o, tau, tau2, les_c, gravity: 32 B; then
-    # LBMShanChen = int potential, float g, tau: 12 B; then, at the end,
-    # LBMEntropic = float beta, entropy_tol, alpha_tol: 12 B. No lattice
-    # table (the
+    # LBMShanChen = int potential, float g, tau: 12 B; then LBMEntropic =
+    # float beta, entropy_tol, alpha_tol: 12 B; then, at the end,
+    # LBMOutflow = int lam_entry[16], lam_lo[16]: 128 B. No lattice table
+    # (the
     # kernel's are compile-time: 540 B less than with c, w and opp), and
     # no member is wider than 4 bytes (an 8-byte one changes the block's
     # alignment, which once slowed the kernel by 20 %)
@@ -205,9 +206,11 @@ def test_params_layout_matches_the_c_struct():
     assert ctypes.sizeof(ls._ShanChen) == 12
     assert ls._Params.elbm.offset == 1044 + 12 == 1056
     assert ctypes.sizeof(ls._Entropic) == 12
-    assert ctypes.sizeof(ls._Params) == 1056 + 12 == 1068
+    assert ls._Params.out.offset == 1056 + 12 == 1068
+    assert ctypes.sizeof(ls._Outflow) == 128
+    assert ctypes.sizeof(ls._Params) == 1068 + 128 == 1196
     for struct in (ls._BC, ls._Vary, ls._Force, ls._Collide, ls._ShanChen,
-                   ls._Entropic, ls._Params):
+                   ls._Entropic, ls._Outflow, ls._Params):
         assert ctypes.alignment(struct) == 4
 
 
@@ -259,6 +262,7 @@ class _FakeLib:
         self.lbm_step_sc_d3q19 = self.Entry()
         self.lbm_step_d3q15 = self.Entry()
         self.lbm_step_d3q27 = self.Entry()
+        self.lbm_step_outflow_d3q19 = self.Entry()
 
         def copy_out(dim, q, ref):
             name = f'D{dim}Q{q}'
@@ -292,9 +296,14 @@ def test_kernel_function_checks_the_params_size():
     fn = ls.kernel_function(_FakeLib(), 'lbm_step_sc_d3q19')
     assert fn.argtypes[:4] == [ctypes.c_void_p] * 4
     assert fn.argtypes[4] == ctypes.POINTER(ls._Params)
+    # the outflow entry: the plane means of the laminarize pre-pass sixth
+    fn = ls.kernel_function(_FakeLib(), 'lbm_step_outflow_d3q19')
+    assert fn.argtypes[:6] == [ctypes.c_void_p] * 6
+    assert fn.argtypes[6] == ctypes.POINTER(ls._Params)
     # launches are counted apart by what they compute; one entry serves
-    # all but the Shan-Chen mode, whose pre-pass counts apart too, and the
-    # int16 state's mode
+    # all but the Shan-Chen mode, whose pre-pass counts apart too, the
+    # int16 state's mode and the outflow rows, whose laminarize pre-pass
+    # counts apart too
     assert sorted(ls.LAUNCHES) == sorted(['lbm_step_d2q9', 'lbm_step_d3q19',
                                    'lbm_step_dyn_d2q9',
                                    'lbm_step_dyn_d3q19',
@@ -310,6 +319,10 @@ def test_kernel_function_checks_the_params_size():
                                    'lbm_step_mixed_d3q19',
                                    'lbm_step_mrt_d2q9',
                                    'lbm_step_mrt_d3q19',
+                                   'lbm_step_outflow_d2q9',
+                                   'lbm_step_outflow_d3q19',
+                                   'laminarize_mean_d2q9',
+                                   'laminarize_mean_d3q19',
                                    'lbm_step_sc_d2q9',
                                    'lbm_step_sc_d3q19',
                                    'lbm_step_sw_d2q9',

@@ -13,11 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from sailfish_tpu import node_type as nt
 from sailfish_tpu.ops.step import StepBuilder as JaxStepBuilder
-from sailfish_tpu.subdomain import Subdomain3D
 from sailfish_tpu_torch import node_type as tnt
-from sailfish_tpu_torch.models.single import LBFluidSim
 from sailfish_tpu_torch.ops.step import StepBuilder
 from sailfish_tpu_torch.state import state_to_numpy
 from torch_scenes import BC_PAIRS, channel_sim, cpu_runner, twin, wet_map
@@ -132,17 +129,23 @@ def test_per_node_force_raises_on_the_kernel_engine():
 
 
 def test_unported_node_type_raises():
-    """A node type of the outflow family is not ported yet: the torch
-    engine names it when the StepBuilder is made."""
-    class Outflow(Subdomain3D):
-        def boundary_conditions(self, hx, hy, hz):
-            self.set_node(hy == 0, nt.NTYuOutflow)
+    """The outflow family is ported (tests/test_torch_outflow.py); what
+    stays refused is Guo's density BC in a mixture, which the
+    multi-component builders name as the JAX package's do
+    (``sailfish_tpu/ops/multigrid.py:84``)."""
+    from torch_scenes import binary_twin
+    base = binary_twin('sc_separation_2d')
 
-    class Sim(LBFluidSim):
+    class Outflow(base.subdomain):
+        def boundary_conditions(self, hx, hy):
+            self.set_node(hy == 0, tnt.NTGuoDensity(1.0))
+
+    class Sim(base):
         subdomain = Outflow
 
-    with pytest.raises(NotImplementedError, match='NTYuOutflow'):
-        cpu_runner(Sim, lat_nx=8, lat_ny=8, lat_nz=8)
+    with pytest.raises(NotImplementedError, match='NTGuoDensity is not '
+                       'supported in multi-component models'):
+        cpu_runner(Sim, lat_nx=8, lat_ny=8)
 
 
 def test_dynamic_bc_parameters_raise():

@@ -587,6 +587,205 @@ def time_series_density_sim():
     return Sim
 
 
+#: the outflow family by class name, in the order of its tests; the kernel
+#: carries all but the extended copy (NTGradFreeflow as the fluid node it
+#: is in both engines: ``ops/step.OUTFLOW_TYPES``)
+OUTFLOW_KINDS = ('NTDoNothing', 'NTCopy', 'NTYuOutflow', 'NTNeumann',
+                 'NTGradFreeflow', 'NTLaminarize', 'NTGuoDensity',
+                 'NTExtendedCopy')
+KERNEL_OUTFLOW_KINDS = OUTFLOW_KINDS[:-1]
+#: the outflow types whose channels diverge under --incompressible on every
+#: engine, the JAX package's XLA engine too (64x32 from the scene's start:
+#: |u| beyond 80 within 1,000 steps; from a random state within 20), so the
+#: comparisons take the incompressible equilibrium with the others only
+INCOMPRESSIBLE_UNSTABLE = ('NTYuOutflow', 'NTGuoDensity')
+#: the inlet velocity of the outflow channels, the Neumann gradient, the
+#: Guo densities at the two ends
+OUTFLOW_U = 0.02
+NEUMANN_GRADIENT = 1e-3
+GUO_RHO = (1.02, 0.98)
+
+
+def outflow_channel(kind, dim, axis, nt_mod=None, subdomain_cls=None,
+                    model_cls=None):
+    """The inflow/outflow channel of tests/test_bc_catalog.py:13-49, in
+    ``dim`` dimensions along ``axis`` ('x', 'y' or 'z'), for the outflow
+    type named ``kind``: full bounce-back walls on both faces normal to
+    the cross axis (y, or in 2D x when flowing along y, in 3D z when
+    flowing along y), an ``NTEquilibriumVelocity`` inlet (``OUTFLOW_U``
+    along the axis) on the low face and the ``kind`` outlet on the high
+    face (both without the wall nodes), periodic along the third axis. The
+    outlet takes its parameters: the gradient ``NEUMANN_GRADIENT``, an
+    alpha rising from 0.3 to 0.7 across the channel (a varying scalar), a
+    translation by the inward normal (the extended copy, which then equals
+    ``NTCopy``: tests/test_bc_catalog.py:209); ``NTGuoDensity`` takes both
+    ends at the densities ``GUO_RHO``. Start: rho = 1 and 0.01 along the
+    axis; visc 0.05 (tau = 0.65: at tau = 1 Guo's BC keeps no
+    non-equilibrium part). ``nt_mod`` (a ``node_type`` module),
+    ``subdomain_cls`` and
+    ``model_cls`` (default the port's) let a test build the same scene
+    from the JAX package's classes."""
+    nt_mod = nt_mod or nt
+    if subdomain_cls is None:
+        subdomain_cls = Subdomain3D if dim == 3 else Subdomain2D
+    model_cls = model_cls or LBFluidSim
+    a = 'xyz'.index(axis)
+    wa = (1 - a) if dim == 2 else (2 if a == 1 else 1)
+    third = ({0, 1, 2} - {a, wa}).pop() if dim == 3 else None
+    out_cls = getattr(nt_mod, kind)
+
+    class Channel(subdomain_cls):
+        def boundary_conditions(self, *h):
+            ext = self.shape[::-1]
+            s, ns = h[wa], ext[wa]
+            walls = (s == 0) | (s == ns - 1)
+            self.set_node(walls, nt_mod.NTFullBBWall)
+            low = (h[a] == 0) & ~walls
+            high = (h[a] == ext[a] - 1) & ~walls
+            if kind == 'NTGuoDensity':
+                self.set_node(low, out_cls(GUO_RHO[0]))
+                self.set_node(high, out_cls(GUO_RHO[1]))
+                return
+            u_in = tuple(OUTFLOW_U if i == a else 0.0 for i in range(dim))
+            self.set_node(low, nt_mod.NTEquilibriumVelocity(u_in))
+            if kind == 'NTNeumann':
+                node = out_cls(gradient=NEUMANN_GRADIENT)
+            elif kind == 'NTLaminarize':
+                node = out_cls(0.3 + 0.4 * s / (ns - 1.0))
+            elif kind == 'NTExtendedCopy':
+                T = np.eye(4)
+                T[a, 3] = -1.0
+                node = out_cls(transformation=T)
+            else:
+                node = out_cls()
+            self.set_node(high, node)
+
+        def initial_conditions(self, sim, *h):
+            sim.rho[:] = 1.0
+            getattr(sim, f'v{axis}')[:] = 0.01
+
+    class Sim(model_cls):
+        subdomain = Channel
+
+        @classmethod
+        def update_defaults(cls, defaults):
+            super().update_defaults(defaults)
+            defaults['visc'] = 0.05
+
+        @classmethod
+        def modify_config(cls, config):
+            super().modify_config(config)
+            if third is not None:
+                setattr(config, f'periodic_{"xyz"[third]}', True)
+
+    return Sim
+
+
+def guo_beside_halfbb():
+    """The 2D Guo density channel along x with a half-way wall node at
+    x = 1, y = 5: the neighbour along the inward normal of an inlet node,
+    whose missing distributions ``fix_missing`` replaces (the kernel refuses
+    the scene by name)."""
+    base = outflow_channel('NTGuoDensity', 2, 'x')
+
+    class Scene(base.subdomain):
+        def boundary_conditions(self, hx, hy):
+            super().boundary_conditions(hx, hy)
+            self.set_node((hx == 1) & (hy == 5), nt.NTHalfBBWall)
+
+    class Sim(base):
+        subdomain = Scene
+
+    return Sim
+
+
+#: the open channels of the outflow family's main paths: inlet velocity,
+#: viscosity, the body's diameter over the channel's height (Y / 3 sphere,
+#: Y / 8 cylinder) and its centre, two diameters behind the inlet
+OPEN_U = 0.05
+OPEN_VISC = 0.05
+
+
+def open_channel(dim, nt_mod=None, subdomain_cls=None, model_cls=None,
+                 force_object_cls=None):
+    """Open-channel flow past a body with its drag read by a force object:
+    in 3D (``open_sphere_3d``) a square duct of ``NTFullBBWall`` on the y
+    and z faces, a uniform ``NTRegularizedVelocity`` inlet (``OPEN_U``, 0,
+    0) at x = 0, an ``NTYuOutflow`` outlet at x = X - 1 and a bounce-back
+    sphere of diameter Y / 3 two diameters behind the inlet (the geometry
+    of examples/sphere_3d.py, tests/test_force_objects.py:20-30); in 2D
+    (``open_cylinder_2d``) plates at y = 0, Y - 1, an ``NTZouHeVelocity``
+    inlet, an ``NTCopy`` outlet and a cylinder of diameter Y / 8. One
+    ``ForceObject`` bounds the body with a margin of two nodes; the sim
+    calls ``runner.update_force_objects()`` after every chunk and keeps
+    (iteration, force) in ``drag``. Start: rho = 1, u = (``OPEN_U``, 0[,
+    0]) everywhere; visc ``OPEN_VISC``. ``nt_mod``, ``subdomain_cls``,
+    ``model_cls`` and ``force_object_cls`` (default the port's) let a test
+    build the same scene from the JAX package's classes."""
+    nt_mod = nt_mod or nt
+    if subdomain_cls is None:
+        subdomain_cls = Subdomain3D if dim == 3 else Subdomain2D
+    model_cls = model_cls or LBFluidSim
+    if force_object_cls is None:
+        from sailfish_tpu_torch.models.base import ForceObject
+        force_object_cls = ForceObject
+
+    def body(ext):
+        """(diameter, centre (x, y[, z])) of the body in a domain of the
+        extents ``ext`` (x, y[, z])."""
+        diam = ext[1] / (3.0 if dim == 3 else 8.0)
+        return diam, (2.0 * diam,) + tuple(e / 2.0 for e in ext[1:])
+
+    class Open(subdomain_cls):
+        def boundary_conditions(self, *h):
+            ext = self.shape[::-1]
+            walls = np.zeros(h[0].shape, dtype=bool)
+            for a in range(1, dim):
+                walls |= (h[a] == 0) | (h[a] == ext[a] - 1)
+            self.set_node(walls, nt_mod.NTFullBBWall)
+            u_in = (OPEN_U,) + (0.0,) * (dim - 1)
+            inlet = nt_mod.NTRegularizedVelocity if dim == 3 \
+                else nt_mod.NTZouHeVelocity
+            self.set_node((h[0] == 0) & ~walls, inlet(u_in))
+            outlet = nt_mod.NTYuOutflow if dim == 3 else nt_mod.NTCopy
+            self.set_node((h[0] == ext[0] - 1) & ~walls, outlet)
+            diam, centre = body(ext)
+            r_sq = sum(np.square(hh - c) for hh, c in zip(h, centre))
+            self.set_node((r_sq <= np.square(diam / 2.0)) & ~walls,
+                          nt_mod.NTFullBBWall)
+
+        def initial_conditions(self, sim, *h):
+            sim.rho[:] = 1.0
+            sim.vx[:] = OPEN_U
+
+    class Sim(model_cls):
+        subdomain = Open
+
+        @classmethod
+        def update_defaults(cls, defaults):
+            super().update_defaults(defaults)
+            defaults.update({'visc': OPEN_VISC,
+                             'grid': 'D3Q19' if dim == 3 else 'D2Q9'})
+
+        def __init__(self, config):
+            super().__init__(config)
+            ext = (config.lat_nx, config.lat_ny, config.lat_nz)[:dim]
+            diam, centre = body(ext)
+            r = diam / 2.0 + 2
+            self.add_force_object(force_object_cls(
+                tuple(int(c - r) for c in centre),
+                tuple(int(c + r) for c in centre)))
+            self.drag = []
+
+        def after_step(self, runner):
+            super().after_step(runner)
+            runner.update_force_objects()
+            self.drag.append((self.iteration,
+                              self.force_objects[0].force()))
+
+    return Sim
+
+
 def shallow_water(sim_cls):
     """The 2D scene of ``sim_cls`` (its subdomain) on the shallow-water
     model ``LBFreeSurface`` (D2Q9, BGK, its equilibrium at

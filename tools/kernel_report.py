@@ -24,7 +24,8 @@ With ``--baseline DIR`` (another checkout, for example ``git archive
 sources of ``--sources`` among the ``lbm_step`` libraries and
 ``sc_multi.cu``. It sets each of DIR's ``lbm_step_kernel`` instantiations
 beside this tree's of the same template arguments (lattice, force model,
-wall switch, collision model, equilibrium, Shan-Chen mode and storage, as
+wall switch, collision model, equilibrium, Shan-Chen mode, storage and
+outflow switch (False for an older build, which has none), as
 ``ops/lbm_step.instantiation`` reads them from the mangled names; an
 older build's bool ``incompressible`` read as its equilibrium), DIR's
 density pre-pass beside this tree's, and
@@ -115,7 +116,7 @@ def main():
                              'lbm_step_mrt', 'lbm_step_les', 'lbm_step_elbm',
                              'lbm_step_mixed', 'lbm_step_mixed_mrt',
                              'lbm_step_mixed_les', 'lbm_step_mixed_elbm',
-                             'lbm_step_lattices'])
+                             'lbm_step_lattices', 'lbm_step_outflow'])
     ap.add_argument('--match', nargs='*', default=[])
     ap.add_argument('--baseline', default=None)
     args = ap.parse_args()
@@ -158,14 +159,18 @@ def main():
         same = sum(r['same'] for v in lbm for r in v['instantiations'])
         print(f'baseline lbm_step_kernel: {same} of {kept} instantiations '
               'the same as this tree\'s, class by class', flush=True)
-    new = {fn: row for fn, row in report.items()
-           if (_lbm_key(fn) or ('',) * 4)[3] == 'elbm'}
-    if new:
+    for label, pick in (('ELBM', lambda k: k[3] == 'elbm'),
+                        ('outflow', lambda k: k[7])):
+        new = {fn: row for fn, row in report.items()
+               if pick(_lbm_key(fn) or ('',) * 8)}
+        if not new:
+            continue
+
         def most(field):
             return max(r.get(field, 0) for r in new.values())
-        print(f'lbm_step_kernel ELBM: {len(new)} instantiations, registers '
-              f'{min(r.get("registers", 0) for r in new.values())}-'
-              f'{most("registers")}, stack frame at most '
+        print(f'lbm_step_kernel {label}: {len(new)} instantiations, '
+              f'registers {min(r.get("registers", 0) for r in new.values())}'
+              f'-{most("registers")}, stack frame at most '
               f'{most("stack_frame")} B, spills at most '
               f'{most("spill_stores")} B', flush=True)
     print(json.dumps(out))
@@ -173,9 +178,10 @@ def main():
 
 def _lbm_key(fn):
     """(lattice, force model, walls, collision model, equilibrium,
-    Shan-Chen mode, storage) of an ``lbm_step_kernel`` instantiation (an
-    older build's, whose sixth template argument was the bool
-    ``incompressible``, or this one's), else None."""
+    Shan-Chen mode, storage, outflow) of an ``lbm_step_kernel``
+    instantiation (an older build's, whose sixth template argument was the
+    bool ``incompressible`` or which has no outflow switch, or this
+    one's), else None."""
     from sailfish_tpu_torch.ops import lbm_step as ls
     inst = ls.instantiation(fn)
     if inst is None:
@@ -185,7 +191,7 @@ def _lbm_key(fn):
     lat = f'{inst["dim"]}q{inst["q"]}' if 'q' in inst else inst['dim']
     return (lat, inst['force'], inst['walls'],
             inst.get('model', 'bgk'), eqm, inst.get('sc', False),
-            inst.get('storage', 'fp32'))
+            inst.get('storage', 'fp32'), inst.get('outflow', False))
 
 
 def _function_name(fn):
@@ -210,10 +216,10 @@ def _sc_key(fn):
 def _describe(key):
     if isinstance(key, str):
         return 'pre-pass'
-    if len(key) == 7:
+    if len(key) == 8:
         return (f'd{key[0]}, force {key[1]}, walls {int(key[2])}, model '
                 f'{key[3]}, equilibrium {key[4]}, sc {int(key[5])}, '
-                f'{key[6]}')
+                f'{key[6]}, outflow {int(key[7])}')
     return f'd{key[0]}, K = {key[1]}, forced {int(key[2])}'
 
 

@@ -28,7 +28,11 @@ D2Q9 4096^2), the Kida vortex (D3Q15 256^3, its KE / enstrophy device
 hook every 20 steps: the hook's kernels count as other kernels),
 ``bench.py``'s cavity on D3Q27 (``ldc_3d_d3q27``) and the turbulent
 channel at its published settings (``channel_flow``, its Reynolds
-statistics hook every 20 steps from iteration 250) it
+statistics hook every 20 steps from iteration 250), and the outflow
+family's open channels (``open_sphere_3d`` 512x256x256, a Yu outlet;
+``open_cylinder_2d`` 8192x2048, a copy outlet; each with its force object
+sampled after the chunk) and laminarize channel (``laminarize_channel_2d``
+8192x2048: its plane-mean pre-pass and the step) it
 runs the controller
 with the default (kernel) engine for one chunk (kernel build, warm-up),
 then traces one more chunk of ``SubdomainRunner.main`` with
@@ -63,8 +67,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, 'tests'))
 from torch_scenes import (binary_twin, channel_sim,  # noqa: E402
-                          channel_sim_2d, run, ternary_separation,
-                          ternary_twin, turbulence_twin, twin)
+                          channel_sim_2d, open_channel, outflow_channel, run,
+                          ternary_separation, ternary_twin, turbulence_twin,
+                          twin)
 
 
 def channel(scene):
@@ -133,12 +138,18 @@ SCENES = {
                      {'grid': 'D3Q27'}),
     'channel_flow': (turbulence_twin, (240, 82, 80),
                      {'H': 40, 'Re_tau': 180, 'wall': 'hbb'}),
+    # the outflow family: open channels past a sphere and a cylinder with
+    # their force objects, and the laminarize channel
+    'open_sphere_3d': (lambda s: open_channel(3), (512, 256, 256), {}),
+    'open_cylinder_2d': (lambda s: open_channel(2), (8192, 2048), {}),
+    'laminarize_channel_2d': (
+        lambda s: outflow_channel('NTLaminarize', 2, 'x'), (8192, 2048), {}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
 PORT_KERNELS = ('lbm_step_kernel', 'rho_poststream_kernel',
                 'sc_multi_kernel', 'sc3_kernel', 'fe_step_kernel',
-                'fe3_kernel')
+                'fe3_kernel', 'laminarize_mean_kernel')
 
 
 def total_launches(kernel):
@@ -169,6 +180,17 @@ def trace_chunk(scene, chunk, out_dir):
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size), **extra)
     r = run(load(scene), max_iters=chunk, every=chunk, **cfg)
     assert r.engine == 'kernel', r.engine
+    res = trace_runner_chunk(r, scene, chunk, out_dir)
+    res.update(size=list(size))
+    del r
+    torch.cuda.empty_cache()
+    return res
+
+
+def trace_runner_chunk(r, scene, chunk, out_dir):
+    """One more ``chunk``-step chunk of the runner ``r``'s ``main`` (after
+    its run: kernels built and warm) under ``torch.profiler``, the Chrome
+    trace written into ``out_dir`` and read by ``read_trace``."""
     r.config.max_iters += chunk
     launches0 = total_launches(r.kernel)
     with torch.no_grad(), profile(
@@ -185,12 +207,10 @@ def trace_chunk(scene, chunk, out_dir):
     # the profiler may drop an event at an edge of its window
     assert abs(res['kernels'] - launched) <= 0.01 * launched, \
         (res['kernels'], launched)
-    res.update(size=list(size), chunk=chunk, launched=launched,
+    res.update(chunk=chunk, launched=launched,
                kernels_per_step=launched // chunk,
                other_kernels_per_step=res['other_kernels'] / chunk,
                host_s=host_s, trace=os.path.relpath(path, REPO))
-    del r
-    torch.cuda.empty_cache()
     return res
 
 
