@@ -191,6 +191,7 @@ CUDA device it exits non-zero before printing a result. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import ctypes
 import json
 import os
@@ -212,6 +213,8 @@ from sailfish_tpu_torch.ops import fe_step as fe
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import sc_multi as sm
 from sailfish_tpu_torch.ops.step import FORCE_MODELS
+from sailfish_tpu_torch.parallel import halo
+from sailfish_tpu_torch.parallel import mesh as pmesh
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, 'tests'))
@@ -653,6 +656,15 @@ NODE_BYTES = {
     # the laminarize pre-pass, per laminarize node: its Q pulled values and
     # its 8-byte index (the entries' means and offsets added per run)
     'laminarize_mean_d2q9': 9 * 4 + 8,
+    # the ghost-plane mode: the step's bytes per node of the domain (the
+    # ghost planes' own work is the mode's overhead, not its bound)
+    'lbm_step_ghost_d3q19': BYTES['D3Q19'],
+    'lbm_step_ghost_d2q9': BYTES['D2Q9'],
+    'lbm_step_ghost_wall_d3q19': BYTES['D3Q19'],
+    # the exchange, per node of a plane normal to the sharded axis: the
+    # crossing directions (5 / 3) of both ghost planes, read and written
+    'halo_exchange_d3q19': 2 * 5 * 2 * 4,
+    'halo_exchange_d2q9': 2 * 3 * 2 * 4,
 }
 #: fp32 operations per direction of an ELBM node on the series branch
 #: (``NODE_OPS``)
@@ -723,6 +735,11 @@ NODE_OPS = {
     # the laminarize pre-pass: one add per direction and node
     'lbm_step_outflow_d3q19': 23 * 19, 'lbm_step_outflow_d2q9': 23 * 9,
     'laminarize_mean_d2q9': 9,
+    # the ghost-plane mode: BGK; the exchange does no arithmetic (one
+    # counted per moved value, so that the table stays positive)
+    'lbm_step_ghost_d3q19': 23 * 19, 'lbm_step_ghost_d2q9': 23 * 9,
+    'lbm_step_ghost_wall_d3q19': 33 * 19,
+    'halo_exchange_d3q19': 2 * 5, 'halo_exchange_d2q9': 2 * 3,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
@@ -820,6 +837,17 @@ KERNELS = {
                               'sailfish_tpu/ops/pallas_step2d.py:36'),
     'laminarize_mean_d2q9': ('lbm_step_outflow.cu',
                              'sailfish_tpu/ops/pallas_step2d.py:36'),
+    # the sharded mode of make_kernel_3d / make_kernel_2d: the step on a
+    # shard's padded slab, and the exchange that fills its ghost inputs
+    'lbm_step_ghost_d3q19': ('lbm_step.cu',
+                             'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_ghost_d2q9': ('lbm_step.cu',
+                            'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'lbm_step_ghost_wall_d3q19': ('lbm_step.cu',
+                                  'sailfish_tpu/ops/pallas_step.py:812'),
+    'halo_exchange_d3q19': ('halo.cu', 'sailfish_tpu/ops/pallas_step.py:812'),
+    'halo_exchange_d2q9': ('halo.cu',
+                           'sailfish_tpu/ops/pallas_step2d.py:36'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -902,6 +930,29 @@ MODES = {
                             'NTLaminarize plane means its XLA prologue '
                             'computes (sailfish_tpu/ops/step.py:543-561), '
                             'a pre-pass of its own',
+    'lbm_step_ghost_d3q19': 'make_kernel_3d, sharded mode: z ghost planes '
+                            '(fused(f, ghost_lo, ghost_hi, ...), '
+                            'pallas_step.py:828-834; ShardedPallasStep3D, '
+                            'sailfish_tpu/parallel/halo.py:170), the step '
+                            'launched over the shard and its two ghost '
+                            'planes (BGK, uniform BC rows); ldc_3d on '
+                            '--mesh=1',
+    'lbm_step_ghost_wall_d3q19': 'make_kernel_3d, sharded mode with the '
+                                 'link-tagged wall rows of '
+                                 'make_bc_patch_kernel_3d (TMS walls, Guo '
+                                 'force; ShardedPallasStep3D, '
+                                 'sailfish_tpu/parallel/halo.py:170); '
+                                 'channel_flow on --mesh=1',
+    'lbm_step_ghost_d2q9': 'make_kernel_2d, sharded mode: y ghost rows '
+                           '(ShardedPallasStep2D, '
+                           'sailfish_tpu/parallel/halo.py:760); ldc_2d on '
+                           '--mesh=1',
+    'halo_exchange_d3q19': 'make_kernel_3d, sharded mode: the ghost planes '
+                           'its ghost inputs take, moved by the two '
+                           'jax.lax.ppermute of sailfish_tpu/parallel/'
+                           'halo.py:361-362 (no Pallas kernel of its own)',
+    'halo_exchange_d2q9': 'make_kernel_2d, sharded mode: its ghost rows, '
+                          'moved by ppermute (ShardedPallasStep2D)',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -923,12 +974,14 @@ T0 = time.perf_counter()
 
 
 def say(*parts):
-    print(*parts, flush=True)
+    """Print a line of the log, after the seconds since the script
+    started."""
+    print(f'[{time.perf_counter() - T0:.1f} s]', *parts, flush=True)
 
 
 def phase_done(what):
     """Print the seconds since the script started, after ``what``."""
-    say(f'[{time.perf_counter() - T0:.1f} s] {what} done')
+    say(f'{what} done')
 
 
 def compare(name, sim_cls, steps=200, force_model=None, bc=True, **cfg):
@@ -2048,32 +2101,49 @@ def main_path(scene, sim_cls, size, copy_bw, chunk=250, chunks=4,
     result = dict(launches=launches, mlups=mlups, ms=ms,
                   plain_ms=plain_ms, err=err, mean_rho=mean_rho)
     if timed == 'force':
-        result['models_ms'] = force_models_ms(sim_cls, cfg, ks)
+        result['models_ms'] = force_models_ms(sim_cls, r, ks)
     elif timed == 'collision':
-        result['collision_ms'] = collision_models_ms(sim_cls, cfg, ks)
+        result['collision_ms'] = collision_models_ms(sim_cls, r, ks)
     del r, ks, a, b
     torch.cuda.empty_cache()
     return grid, result
 
 
-def force_models_ms(sim_cls, cfg, ks):
+def variant_kernel(r, ks, maps=None, unforced=False, **flags):
+    """A ``KernelStep`` of the scene of the controller's runner ``r``,
+    built as the controller builds it (the scene's ``make_step_builder``)
+    with the command-line flags ``flags`` changed, on the runner's maps or
+    ``maps``, without the body force when ``unforced``; on the mask of the
+    main path's kernel ``ks`` and without buffers of its own: for timings
+    in turns on the main path's own geometry and buffers, without setting
+    the scene up again through the controller."""
+    sim = copy.copy(r.sim)
+    sim.config = copy.copy(r.config)
+    vars(sim.config).update(flags)
+    if unforced:
+        sim._forces = {}
+    k = ls.KernelStep(sim.make_step_builder(
+        r.maps if maps is None else maps, r.config.dtype, r.device))
+    assert torch.equal(k.mask, ks.mask)
+    k.a = k.b = None
+    k.mask = ks.mask
+    torch.cuda.empty_cache()
+    return k
+
+
+def force_models_ms(sim_cls, r, ks):
     """ms per launch of each force model's instantiation and of the
     unforced kernel on the geometry, mask and state buffers of the forced
-    main path's ``ks``, in turns (there and back): what the force costs a
-    step."""
+    main path's ``ks`` (of the runner ``r``), in turns (there and back):
+    what the force costs a step."""
     steppers = {}
     for model in FORCE_MODELS + (None,):
         if model == ks.force_model:
             steppers[model] = ks
             continue
-        cls = sim_cls if model else unforced(sim_cls)
-        extra = dict(force_implementation=model) if model else {}
-        k = run(cls, max_iters=0, **cfg, **extra).kernel
-        assert torch.equal(k.mask, ks.mask)
+        k = variant_kernel(r, ks, force_implementation=model) if model \
+            else variant_kernel(r, ks, unforced=True)
         assert k.params.force.model == ls.FORCE_CODES.get(model, 0)
-        k.a = k.b = None
-        k.mask = ks.mask
-        torch.cuda.empty_cache()
         steppers[model] = k
     a, b = ks.a, ks.b
     order = list(steppers)
@@ -2093,18 +2163,15 @@ def force_models_ms(sim_cls, cfg, ks):
     return ms
 
 
-def collision_models_ms(sim_cls, cfg, ks):
-    """ms per launch of the BGK kernel ``ks`` (a BGK main path's) and of
-    each collision model of ``COLLISION_TIMED`` on the same geometry, mask
-    and state buffers, in turns (there and back): what a model costs a
-    step."""
+def collision_models_ms(sim_cls, r, ks):
+    """ms per launch of the BGK kernel ``ks`` (the BGK main path's of the
+    runner ``r``) and of each collision model of ``COLLISION_TIMED`` (the
+    scene built with its flags) on the same geometry, mask and state
+    buffers, in turns (there and back): what a model costs a step."""
     steppers = {'bgk': ks}
     for model, flags in COLLISION_TIMED.items():
-        k = run(sim_cls, max_iters=0, **cfg, **flags).kernel
-        assert torch.equal(k.mask, ks.mask) and k.name != ks.name, k.name
-        k.a = k.b = None
-        k.mask = ks.mask
-        torch.cuda.empty_cache()
+        k = variant_kernel(r, ks, **flags)
+        assert k.name != ks.name, k.name
         steppers[model] = k
     a, b = ks.a, ks.b
     order = list(steppers)
@@ -2189,12 +2256,13 @@ def channel_main_path(scene, copy_bw, chunk=250, chunks=4):
         f'{steps}, wet max|df| = {err:.3e} (tol {TOL:g})')
     a, b = ks.a, ks.b
     plain_ms = util.cuda_time_ms(lambda: ks.reference(a), 5)
-    ru = run(channel(dim, axis, profile=None), max_iters=0, **cfg)
-    ku = ru.kernel
-    assert not ku.vary and torch.equal(ku.mask, ks.mask)
-    ku.a = ku.b = None
-    ku.mask = ks.mask
-    torch.cuda.empty_cache()
+    # the same maps with the inlet's velocity made uniform (its first
+    # node's): every BC row on its scalars
+    maps = copy.copy(r.maps)
+    maps.param_vel = r.maps.param_vel.copy()
+    maps.param_vel[:, inlet] = maps.param_vel[:, inlet][:, :1]
+    ku = variant_kernel(r, ks, maps=maps)
+    assert not ku.vary
     turns = {'varying': [], 'uniform': []}
     for which in ('varying', 'uniform', 'uniform', 'varying'):
         k = ks if which == 'varying' else ku
@@ -2211,7 +2279,7 @@ def channel_main_path(scene, copy_bw, chunk=250, chunks=4):
     result = dict(launches=counts[ks.name], ms=ms, plain_ms=plain_ms,
                   err=err, extra_bytes=4 * (1 + dim) * nodes, mlups=mlups,
                   uniform_ms=uniform_ms, share=share)
-    del r, ks, ru, ku, a, b
+    del r, ks, ku, a, b
     torch.cuda.empty_cache()
     return grid, result
 
@@ -2248,7 +2316,8 @@ def slice_checks(scene, r, ks, steps):
     h = np.indices(shape)[::-1]
     if scene == 'duct_flow':
         sub = r._subdomain
-        ana = sub.analytical(h[0], h[1])
+        # the profile depends on (x, y) only: one z-plane, broadcast
+        ana = sub.analytical(h[0][0], h[1][0])[None]
         err = float(np.abs(comps[2] - ana)[wet].max()) / sub.max_v
         assert err <= DUCT_TOL, err
         line += (f'; max |vz - analytic| / max_v = {err:.4e} (tol '
@@ -3409,25 +3478,377 @@ def laminarize_main_path(size=LAMINARIZE_MAIN, chunk=500, chunks=2):
     return result
 
 
-def main():
-    if not torch.cuda.is_available():
-        sys.exit('chip_smoke: torch sees no CUDA device')
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'],
-        capture_output=True, text=True, check=True, timeout=60)
-    say(smi.stdout.strip().splitlines()[0])
-    say(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
-        f'{torch.cuda.get_device_name(0)}')
 
-    lbm_libraries = list(ls.LIBRARIES.values()) \
-        + list(ls.MIXED_LIBRARIES.values()) + [ls.LATTICES_LIBRARY,
-                                                ls.OUTFLOW_LIBRARY]
-    sources = lbm_libraries + ['sc_multi', 'fe_step']
+# -- sharded runs (--mesh): the ghost-plane mode and its exchange -----------
+
+#: the one-axis mesh main paths at full size: path -> (scene, size)
+MESH_MAIN = {
+    'ldc_3d_zmesh1': (LDC_3D, (256, 256, 256)),
+    'ldc_2d_ymesh1': (LDC_2D, (4096, 4096)),
+}
+#: shard counts held bit for bit on the one card at full size (3D)
+MESH_SHARDS = (2, 4)
+#: one scene per mode class over 2 shards at 64^3 / 1024^2, bit for bit
+#: against the unsharded kernel run: name -> (sim class, flags)
+MESH_BITWISE = {
+    'ldc_3d_mrt': (LDC_3D, dict(lat_nx=64, lat_ny=64, lat_nz=64,
+                                model='mrt', visc=0.05)),
+    'sphere_3d_les_guo': (twin('sphere_3d'),
+                          dict(lat_nx=64, lat_ny=64, lat_nz=64, visc=0.05,
+                               subgrid='les-smagorinsky')),
+    'ldc_2d_entropic': (twin('ldc_2d_entropic'),
+                        dict(lat_nx=1024, lat_ny=1024)),
+    'ldc_3d_int16': (LDC_3D, dict(lat_nx=64, lat_ny=64, lat_nz=64,
+                                  precision='mixed')),
+    'duct_flow': (twin('duct_flow'), dict(lat_nx=64, lat_ny=64,
+                                          lat_nz=64)),
+    'womersley': (twin('womersley'), dict(lat_nx=64, lat_ny=64,
+                                          lat_nz=64)),
+    'poiseuille_sa': (twin('poiseuille_sa'),
+                      dict(lat_nx=1024, lat_ny=1024,
+                           velocity='spatial_array')),
+    'kida_vortex': (turbulence_twin('kida_vortex'),
+                    dict(lat_nx=64, lat_ny=64, lat_nz=64, stats_every=20)),
+    'inlet_x_across_shards': (
+        channel_sim('regularized', 'x', profile='parabolic'),
+        dict(lat_nx=64, lat_ny=64, lat_nz=64, periodic_z=True)),
+}
+
+
+def mesh_of(n, dim):
+    """A one-axis mesh of ``n`` shards, all on the one card."""
+    return pmesh.make_mesh((n,), dim, [DEVICE] * n)
+
+
+def mesh_bitwise(name, sim_cls, cfg, steps=100):
+    """The scene through the controller over 2 shards on the one card
+    against the unsharded kernel run: the same bits, one ghost-plane
+    launch per shard and step, one exchange per step."""
+    ref = run(sim_cls, max_iters=steps, every=steps // 2, **cfg)
+    ls.reset_launch_counts()
+    halo.reset_launch_counts()
+    with pmesh.devices_override([DEVICE] * 2):
+        r = run(sim_cls, max_iters=steps, every=steps // 2, mesh='2', **cfg)
+    g = r.sim.grid.name.lower()
+    assert r.engine == 'kernel' and r.kernel is r.stepper, r.engine
+    # each shard's launches under its own mode's ghost key
+    names = sorted({ks.name for ks in r.stepper.kernels})
+    assert all(n.startswith('lbm_step_ghost_') for n in names), names
+    assert sum(ls.LAUNCHES[n] for n in names) == 2 * steps \
+        == sum(ls.LAUNCHES.values()), dict(ls.LAUNCHES)
+    assert halo.LAUNCHES[f'halo_exchange_{g}'] == steps
+    assert st.is_finite(ref.f), name
+    same = torch.equal(r.f, ref.f)
+    diff = float((r.f - ref.f).abs().max())
+    say(f'mesh {name}: {r.sim.grid.name} {tuple(ref.f.shape[1:])}, '
+        f'{steps} steps over 2 shards on the card ({", ".join(names)}; '
+        f'{ref.kernel.name} unsharded): the same bits {same} (max |df| '
+        f'{diff:.3e})')
+    assert same, (name, diff)
+    del r, ref
+    torch.cuda.empty_cache()
+
+
+def ghost_mode_check(scene, sim_cls, size, steps=200):
+    """The ghost-plane mode over 2 shards against its plain version (the
+    torch engine's sharded step on the same padded slabs), ``steps`` steps
+    from a random state: wet max |df| <= TOL; and the exchange kernel
+    against its plain version on random buffers: the same bits. Returns
+    (ghost error, exchange error)."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    with pmesh.devices_override([DEVICE] * 2):
+        r = run(sim_cls, max_iters=0, mesh='2', **cfg)
+    stp = r.stepper
+    plain = halo.ShardedStep(r.builder, r._domain_shape(), r.mesh, 'torch')
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    parts = [torch.rand(ks.a.shape, generator=g, device=DEVICE)
+             for ks in stp.kernels]
+    ref = [p.clone() for p in parts]
+    stp.exchange(parts)
+    stp.exchange_reference(ref)
+    x_err = max(float((a - b).abs().max()) for a, b in zip(parts, ref))
+    f0 = random_feq(r.sim.grid, r._domain_shape(), seed=3, device=DEVICE)
+    fk = stp.gather(stp.run(f0, steps))
+    fr = plain.gather(plain.run(f0, steps))
+    wet = torch.cat([wet_mask(ks)[1:-1] for ks in stp.kernels], 0)
+    err = float((fk - fr)[:, wet].abs().max())
+    say(f'compare ghost-plane mode {scene} {"x".join(map(str, size))}: 2 '
+        f'shards, {steps} steps from a random state, kernel against the '
+        f'torch engine\'s sharded step, wet max|df| = {err:.3e} (tol '
+        f'{TOL:g}); {stp.name} against its plain version on random '
+        f'buffers: max |d| = {x_err:g}')
+    assert np.isfinite(err) and err <= TOL, err
+    assert x_err == 0.0, x_err
+    del r, stp, plain, parts, ref, f0, fk, fr
+    torch.cuda.empty_cache()
+    return err, x_err
+
+
+def exchange_kernel_ms(stp, parts, iters=2000):
+    """Device milliseconds per ``halo_exchange`` launch on ``parts``, the
+    C entry called back to back with its parameter block built once (CUDA
+    events around ``iters`` launches, as ``empty_launch_ms`` times the
+    empty kernel): the exchange's time in a stream of launches, without
+    the host's Python per ``ShardedStep.exchange`` call."""
+    stp.exchange(parts)
+    (_device, params, _peers), = stp._plan_for(parts)
+    params = ctypes.byref(params)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = stp._fn
+
+    def launch():
+        rc = fn(params, stream)
+        if rc != 0:
+            raise RuntimeError(f'{stp.name} launch failed: error {rc}')
+
+    return util.cuda_time_ms(launch, iters, warmup=10)
+
+
+def host_mlups(fn, nodes, steps):
+    """MLUPS of ``fn()`` (``steps`` steps on ``nodes`` nodes) between
+    device synchronizations, host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return nodes * steps / (time.perf_counter() - t0) / 1e6, out
+
+
+def mesh_main_path(path, sim_cls, size, copy_bw, chunk=250, chunks=4,
+                   turn_steps=100):
+    """The scene through the controller with ``--mesh=1`` on the kernel
+    engine: the main path of the ghost-plane mode (one ``lbm_step_ghost``
+    launch and one ``halo_exchange`` launch per step, counts zeroed just
+    before and read just after). Then, on the main path's own state: its
+    plain version for 10 steps; in turns against the unsharded kernel on
+    the same builder (MLUPS over ``turn_steps``, and the two states equal
+    bit for bit); ms per launch of the ghost-mode step and of the
+    unsharded one in turns; the exchange's ms per step; and in 3D the
+    state over ``MESH_SHARDS`` shards on the one card, 200 steps, the same
+    bits as the unsharded kernel. Returns (step row, exchange row)."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    steps = chunk * chunks
+    ls.reset_launch_counts()
+    halo.reset_launch_counts()
+    r = run(sim_cls, max_iters=steps, every=chunk, mesh='1', **cfg)
+    counts, xcounts = dict(ls.LAUNCHES), dict(halo.LAUNCHES)
+    stp = r.stepper
+    grid = r.sim.grid.name
+    g = grid.lower()
+    name, xname = f'lbm_step_ghost_{g}', f'halo_exchange_{g}'
+    assert r.engine == 'kernel' and r.kernel is stp and stp.mesh.size == 1
+    assert stp.kernels[0].name == name, stp.kernels[0].name
+    assert counts[name] == steps == r.sim.iteration \
+        == sum(counts.values()), counts
+    assert xcounts[xname] == steps == sum(xcounts.values()), xcounts
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    for field in ('rho', 'vx'):
+        arr = getattr(r.sim, field)
+        assert arr.shape == shape and np.all(np.isfinite(arr)), field
+    wet = wet_map(r.maps)
+    mean_rho = float(np.mean(r.sim.rho[wet], dtype=np.float64))
+    assert np.abs(r.sim.vx[wet]).max() <= 1.01 * sim_cls.subdomain.max_v
+    assert abs(mean_rho - 1.0) < 0.01
+    mlups = statistics.median(r.mlups_history[1:])
+    nodes = int(np.prod(size))
+    eff = mlups * 1e6 * BYTES[grid]
+    say(f'main path {path} {"x".join(map(str, size))} ({grid}, engine '
+        f'{r.engine}, --mesh=1): {steps} {name} and {steps} {xname} '
+        f'launches; MLUPS per {chunk}-step chunk '
+        f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f} '
+        f'MLUPS; {eff / 1e9:.1f} GB/s effective ({BYTES[grid]} B/node), '
+        f'{eff / copy_bw:.3f} of the copy bandwidth; mean wet rho '
+        f'{mean_rho:.8f}')
+    # its plain version on the main path's own state (10 steps)
+    f0 = r.f.clone()
+    wet_t = torch.as_tensor(wet, device=DEVICE)
+    fk = stp.gather(stp.run(f0, 10, steps))
+    s = stp.shard(f0)
+    for i in range(10):
+        s = stp.reference(s, steps + i)
+    err = float((fk - stp.gather(s))[:, wet_t].abs().max())
+    say(f'compare main path {path}: 10 steps from the state after {steps}, '
+        f'wet max|df| = {err:.3e} (tol {TOL:g})')
+    assert np.isfinite(err) and err <= TOL, err
+    del s, fk
+    # in turns against the unsharded kernel on the same builder
+    ks1 = ls.KernelStep(r.builder)
+    mesh_m, flat_m = [], []
+    fm = fu = f0
+    for _ in range(2):
+        m, sm_ = host_mlups(lambda: stp.run(fm, turn_steps), nodes,
+                            turn_steps)
+        u, fu = host_mlups(lambda: ks1.run(fu, turn_steps), nodes,
+                           turn_steps)
+        fm = stp.gather(sm_)
+        same = torch.equal(fm, fu)
+        assert same, float((fm - fu).abs().max())
+        fu = fu.clone()
+        mesh_m.append(m)
+        flat_m.append(u)
+    m_med, u_med = statistics.median(mesh_m), statistics.median(flat_m)
+    say(f'{path}: {turn_steps}-step runs in turns from the same state, '
+        f'--mesh=1 {[round(v, 1) for v in mesh_m]} against unsharded '
+        f'{[round(v, 1) for v in flat_m]} MLUPS: {m_med / u_med:.4f} of it; '
+        f'the two states equal bit for bit after each turn')
+    kg = stp.kernels[0]
+    ga, gb, ua, ub = kg.a, kg.b, ks1.a, ks1.b
+    ms_g, ms_u = [], []
+    for _ in range(2):
+        ms_g.append(util.cuda_time_ms(lambda: kg.step_into(ga, gb), 50,
+                                      warmup=5))
+        ms_u.append(util.cuda_time_ms(lambda: ks1.step_into(ua, ub), 50,
+                                      warmup=5))
+    ms, ms_flat = statistics.median(ms_g), statistics.median(ms_u)
+    parts = [ks.a for ks in stp.kernels]
+    x_call_ms = util.cuda_time_ms(lambda: stp.exchange(parts), 200,
+                                  warmup=5)
+    x_ms = exchange_kernel_ms(stp, parts)
+    x_plain = util.cuda_time_ms(lambda: stp.exchange_reference(parts), 20,
+                                warmup=2)
+    plain_ms = util.cuda_time_ms(lambda: kg.reference(ga), 5)
+    plane = int(np.prod(size[:-1]))
+    say(f'kernel {name} at {"x".join(map(str, size))} (one shard of '
+        f'{tuple(kg.shape)} with its two ghost planes): {ms:.4f} ms per '
+        f'launch against {ms_flat:.4f} unsharded, in turns '
+        f'({ms / ms_flat:.4f}); step_reference {plain_ms:.3f} ms; '
+        f'{xname} {x_ms:.5f} ms per launch from C ({plane} nodes per '
+        f'plane, {len(stp.lo)} + {len(stp.hi)} directions), '
+        f'{x_call_ms:.5f} ms per call of ShardedStep.exchange alone (the '
+        f'host\'s Python per call, hidden behind a step in a run), plain '
+        f'version {x_plain:.4f} ms')
+    row = dict(launches=steps, mlups=mlups, ms=ms, plain_ms=plain_ms,
+               err=err, unsharded_ms=ms_flat, mesh_mlups=m_med,
+               unsharded_mlups=u_med, mesh_over_unsharded=m_med / u_med,
+               exchange_ms=x_ms, exchange_call_ms=x_call_ms)
+    if len(size) == 3:
+        shards = {}
+        start = fu
+        ref = ks1.run(start, 200).clone()
+        for n in MESH_SHARDS:
+            sn = halo.ShardedStep(r.builder, r._domain_shape(),
+                                  mesh_of(n, 3), 'kernel')
+            mn, out = host_mlups(lambda: sn.run(start, 200), nodes, 200)
+            un, _ = host_mlups(lambda: ks1.run(start, 200), nodes, 200)
+            got = sn.gather(out)
+            same = torch.equal(got, ref)
+            pn = [ks.a for ks in sn.kernels]
+            sn.exchange(pn)
+            xn = exchange_kernel_ms(sn, pn)
+            say(f'{path} over {n} shards on the one card '
+                f'({tuple(sn.kernels[0].shape)} each): 200 steps equal to '
+                f'the unsharded kernel\'s bit for bit: {same}; {mn:.1f} '
+                f'MLUPS against {un:.1f} '
+                f'unsharded, in turns ({mn / un:.4f}); exchange {xn:.5f} ms '
+                f'per step')
+            assert same, float((got - ref).abs().max())
+            shards[n] = dict(mlups=mn, unsharded_mlups=un, exchange_ms=xn)
+            del sn, out, got, pn
+            torch.cuda.empty_cache()
+        row['shards'] = shards
+    xrow = dict(launches=steps, ms=x_ms, plain_ms=x_plain, err=0.0,
+                nodes=plane)
+    del r, stp, ks1, f0, fm, fu, parts, ga, gb, ua, ub, kg, wet_t
+    torch.cuda.empty_cache()
+    return row, xrow
+
+
+#: the zoo's d3q19_tms_channel_h63_zmesh1 (benchmark/model_zoo.py:136)
+#: without its mesh, and the (z, y, x) shape it gives
+CHANNEL_MESH = dict(H=63, wall='tms', streamwise=384)
+CHANNEL_MESH_SHAPE = (126, 128, 384)
+
+
+def channel_flow_mesh_path(copy_bw, chunk=500, chunks=2, cfg=CHANNEL_MESH,
+                           shape=CHANNEL_MESH_SHAPE):
+    """``channel_flow`` at the zoo's ``d3q19_tms_channel_h63_zmesh1``
+    (H = 63, TMS walls, streamwise 384: 384 x 128 x 126, D3Q19, Guo) with
+    the Reynolds statistics hook every ``STATS_EVERY`` steps, through the
+    controller with ``--mesh=1`` (counts zeroed just before, read just
+    after: one ghost-plane launch of the wall kind and one exchange per
+    step) and without: the same state bit for bit, the statistics within
+    rtol 1e-5, MLUPS of both; then 10 steps from the final state against
+    the plain version, and ms per launch of the ghost-plane step and of
+    its plain version. Returns the ``lbm_step_ghost_wall_d3q19`` row."""
+    steps = chunk * chunks
+    ref = run(channel_flow_stats(), max_iters=steps, every=chunk, **cfg)
+    ls.reset_launch_counts()
+    halo.reset_launch_counts()
+    r = run(channel_flow_stats(), max_iters=steps, every=chunk, mesh='1',
+            **cfg)
+    counts, xcounts = dict(ls.LAUNCHES), dict(halo.LAUNCHES)
+    stp = r.stepper
+    name = 'lbm_step_ghost_wall_d3q19'
+    assert r.engine == 'kernel' and r.kernel is stp
+    assert stp.kernels[0].name == name, stp.kernels[0].name
+    assert counts[name] == steps == sum(counts.values()), counts
+    assert xcounts['halo_exchange_d3q19'] == steps, xcounts
+    assert tuple(r.f.shape[1:]) == shape, tuple(r.f.shape)
+    cnt, _acc = r.device_hook_state[0]
+    assert int(cnt) == steps // STATS_EVERY, int(cnt)
+    mine, theirs = r.sim.reynolds_stats(), ref.sim.reynolds_stats()
+    for key in theirs:
+        np.testing.assert_allclose(mine[key], theirs[key], rtol=1e-5,
+                                   atol=0, err_msg=key)
+    same = torch.equal(r.f, ref.f)
+    assert same
+    m = statistics.median(r.mlups_history[1:])
+    u = statistics.median(ref.mlups_history[1:])
+    u_mean = mine['u'][0]
+    say(f'main path channel_flow_zmesh1 '
+        f'{"x".join(map(str, reversed(shape)))} (D3Q19, engine kernel, '
+        f'--mesh=1, TMS walls, Guo, Reynolds hook every {STATS_EVERY}): '
+        f'{steps} {name} and halo_exchange_d3q19 launches; '
+        f'MLUPS per {chunk}-step chunk '
+        f'{[round(v, 1) for v in r.mlups_history]}; median {m:.1f} against '
+        f'{u:.1f} unsharded ({m / u:.4f}); {int(cnt)} Reynolds samples equal '
+        f'to the unsharded run\'s (rtol 1e-5), mean u at the centre '
+        f'{u_mean[len(u_mean) // 2]:.5f}; the final state the same bits: '
+        f'{same}')
+    wet = torch.as_tensor(wet_map(r.maps), device=DEVICE)
+    f0 = r.f.clone()
+    fk = stp.gather(stp.run(f0, 10, steps))
+    fr = stp.shard(f0)
+    for i in range(10):
+        fr = stp.reference(fr, steps + i)
+    err = float((fk - stp.gather(fr))[:, wet].abs().max())
+    assert np.isfinite(err) and err <= TOL, err
+    kg = stp.kernels[0]
+    ga, gb = kg.a, kg.b
+    ms = util.cuda_time_ms(lambda: kg.step_into(ga, gb), 50, warmup=5)
+    plain_ms = util.cuda_time_ms(lambda: kg.reference(ga), 5)
+    say(f'compare main path channel_flow_zmesh1: 10 steps from the state '
+        f'after {steps}, wet max|df| = {err:.3e} (tol {TOL:g}); kernel '
+        f'{name}: {ms:.4f} ms per launch (one shard of {tuple(kg.shape)} '
+        f'with its two ghost planes), step_reference {plain_ms:.3f} ms')
+    del r, ref, stp, kg, ga, gb, f0, fk, fr, wet
+    torch.cuda.empty_cache()
+    return dict(launches=steps, mlups=m, unsharded_mlups=u, ms=ms,
+                plain_ms=plain_ms, err=err, nodes=int(np.prod(shape)),
+                mesh_over_unsharded=m / u)
+
+
+#: the lbm_step libraries and the other sources the smoke builds
+LBM_LIBRARIES = list(ls.LIBRARIES.values()) \
+    + list(ls.MIXED_LIBRARIES.values()) + [ls.LATTICES_LIBRARY,
+                                            ls.OUTFLOW_LIBRARY]
+SOURCES = LBM_LIBRARIES + ['sc_multi', 'fe_step', 'halo']
+#: the sources the first comparisons (fp32 and mixtures) use
+FIRST_SOURCES = [ls.LIBRARIES[0], ls.LIBRARIES[1], ls.LIBRARIES[2],
+                 'sc_multi']
+
+
+def build_report(sources=SOURCES, lbm_libraries=LBM_LIBRARIES):
+    """Wait for the builds of ``sources`` (started by ``build.start_all``)
+    and print what the compiler made of each: every ``lbm_step`` and
+    Shan-Chen instantiation's registers, stack frame and spills, asserted
+    in registers (0 B frame, <= 128 registers), each in its library, and
+    the number of instantiation classes."""
     kinds, sc_kinds = set(), set()
     for name, lib in build.load_all(sources).items():
-        say(f'build {name}: {lib.path.name} in {lib.seconds:.1f} s '
-            '(0 = cached)')
+        say(f'build {name}: {lib.path.name}, ready {lib.seconds:.1f} s '
+            'after its compiler started (0 = cached)')
         for line in lib.log.splitlines():
             if 'entry function' in line or 'registers' in line \
                     or 'spill' in line:
@@ -3504,7 +3925,23 @@ def main():
         say(f'{name} tile: {tile[0]}x{tile[1]} threads over (x, y), '
             f'{tile[2]} z-planes per block')
 
-    phase_done('builds')
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit('chip_smoke: torch sees no CUDA device')
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    say(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
+        f'{torch.cuda.get_device_name(0)}')
+
+    # the libraries of the first comparisons first, the others after them,
+    # all building while the first comparisons run
+    build.start_all(FIRST_SOURCES)
+    build.start_all(SOURCES)
+    phase_done('builds started')
     errs = {}
 
     def note(name, err):
@@ -3701,6 +4138,8 @@ def main():
     # codes, 200 steps; every code through its conversions; the shear wave;
     # what the mode refuses
     phase_done('kernel comparisons (fp32 and mixtures)')
+    build_report()
+    phase_done('builds')
     for name, sim_cls, cfg, it0 in MIXED_CASES:
         key, err = mixed_compare(name, sim_cls, it0, **cfg)
         note(key, err)
@@ -3745,6 +4184,17 @@ def main():
                 note(f'laminarize_mean_{key.rsplit("_", 1)[1]}', lam_err)
     outflow_refusals()
     phase_done('kernel comparisons (outflow)')
+    # the ghost-plane mode and its exchange against their plain versions;
+    # one scene per mode class over 2 shards, the unsharded run's bits
+    for name, scene, sim_cls, size in (
+            ('lbm_step_ghost_d3q19', 'ldc_3d', LDC_3D, (128, 128, 128)),
+            ('lbm_step_ghost_d2q9', 'ldc_2d', LDC_2D, (1024, 1024))):
+        err, x_err = ghost_mode_check(scene, sim_cls, size)
+        note(name, err)
+        note(name.replace('lbm_step_ghost', 'halo_exchange'), x_err)
+    for name, (sim_cls, cfg) in MESH_BITWISE.items():
+        mesh_bitwise(name, sim_cls, cfg)
+    phase_done('kernel comparisons (mesh)')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
             ('fe_separation_2d', 'fe_separation_2d',
@@ -3910,6 +4360,21 @@ def main():
         results[name] = res
     results['laminarize_mean_d2q9'] = laminarize_main_path()
     phase_done('outflow main paths')
+    for path, (sim_cls, size) in MESH_MAIN.items():
+        row, xrow = mesh_main_path(path, sim_cls, size, copy_bw)
+        g = 'd3q19' if len(size) == 3 else 'd2q9'
+        flat = results[f'lbm_step_{g}']
+        say(f'{path}: {row["mlups"]:.1f} MLUPS against {flat["mlups"]:.1f} '
+            f'on the unsharded main path ({row["mlups"] / flat["mlups"]:.4f}'
+            f'); in turns {row["mesh_over_unsharded"]:.4f}; exchange '
+            f'{row["exchange_ms"]:.5f} ms per step, '
+            f'{row["exchange_ms"] / row["ms"]:.4f} of a step')
+        results[f'lbm_step_ghost_{g}'] = row
+        results[f'halo_exchange_{g}'] = xrow
+    channel_mesh = channel_flow_mesh_path(copy_bw)
+    results['lbm_step_ghost_wall_d3q19'] = channel_mesh
+    results['halo_exchange_d3q19']['launches'] += channel_mesh['launches']
+    phase_done('mesh main paths')
     for scene, (sim_cls, size, name, demix) in SC_MAIN.items():
         merge_rows(results, sc_main_path(scene, sim_cls, size, copy_bw,
                                          name, demix))
@@ -3963,7 +4428,10 @@ def main():
                     'mixed_over_fp32', 'convert_ms', 'bgk_ms',
                     'elbm_over_bgk', 'newton_share', 'hooked_ms',
                     'unhooked_ms', 'hook_share', 'idle_share', 'drag',
-                    'force_object_ms', 'step_with_prepass_ms'):
+                    'force_object_ms', 'step_with_prepass_ms',
+                    'unsharded_ms', 'mesh_mlups', 'unsharded_mlups',
+                    'mesh_over_unsharded', 'exchange_ms',
+                    'exchange_call_ms', 'shards'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:
@@ -3971,8 +4439,8 @@ def main():
     say(f'channel_flow (lbm_step_force_d3q19, 240x82x80): '
         f'{channel["mlups"]:.1f} MLUPS, {channel["ms"]:.4f} ms per launch, '
         f'hook share {channel["hook_share"]:.4f}')
-    say(json.dumps({'kernels': kernels}))
-    say(json.dumps({'ok': True, 'device': {
+    print(json.dumps({'kernels': kernels}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
 

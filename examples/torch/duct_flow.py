@@ -30,7 +30,8 @@ class DuctSubdomain(Subdomain3D):
 
     def initial_conditions(self, sim, hx, hy, hz):
         sim.rho[:] = 1.0
-        sim.vz[:] = self.analytical(hx, hy)
+        # the profile depends on (x, y) only: one z-plane, broadcast
+        sim.vz[:] = self.analytical(hx[0], hy[0])
 
     @classmethod
     def width(cls, config):

@@ -97,7 +97,9 @@ class LBSimulationController:
         group.add_argument('--profile_trace', type=str, default='',
                            help='device trace directory (not ported yet)')
         group.add_argument('--mesh', type=str, default='',
-                           help='device mesh shape (not ported yet)')
+                           help='device mesh shape: N shards a '
+                           'single-fluid scene along z (3D) or y (2D) '
+                           'over N devices')
         group.add_argument('--vis_engine', type=str, default='mpl',
                            help='visualization engine (not ported yet)')
         group.add_argument('--engine', type=str, default='auto',

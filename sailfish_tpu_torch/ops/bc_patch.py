@@ -247,8 +247,7 @@ def dynamic_rows(maps, instances, boxes, bcp):
             rows.append(DynamicRow(j, name, entries, (), None, ()))
             continue
         if coords is None:
-            coords = [c.long() for c in st.global_coords(
-                maps.type_map.shape, bcp.device)]
+            coords = [c.long() for c in st.map_coords(maps, bcp.device)]
         sl = box_slices(box, dim)
         ext = tuple(reversed(box.ext[:dim]))
         n = (1 + dim) * int(np.prod(ext))

@@ -3,7 +3,8 @@
 Each ``ops/csrc/*.cu`` source has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
 first use, keyed by a hash of the source, its headers and the flags, and
-loaded with ``ctypes``; ``load_all`` compiles several sources in parallel.
+loaded with ``ctypes``; ``load_all`` compiles several sources in parallel,
+and ``start_all`` starts their compilers without waiting for them.
 Nothing CUDA-specific happens at import: a machine without ``nvcc``
 imports this module and fails only when a kernel is asked for.
 """
@@ -40,6 +41,8 @@ class KernelLibrary:
 
 
 _loaded = {}
+#: builds started by ``start_all`` and not finished yet: name -> pending
+_pending = {}
 
 
 def find_nvcc():
@@ -64,14 +67,23 @@ def load(name):
     return load_all([name])[name]
 
 
+def start_all(names):
+    """Start building ``csrc/<name>.cu`` for every name not loaded or
+    started yet, one ``nvcc`` each, all together, without waiting for
+    them; ``load`` and ``load_all`` finish a started build."""
+    for n in names:
+        if n not in _loaded and n not in _pending:
+            _pending[n] = _start_build(CSRC / f'{n}.cu')
+
+
 def load_all(names):
     """Build (if needed) and load ``csrc/<name>.cu`` for every name, with
     one ``nvcc`` per source, all started together; returns {name:
     KernelLibrary}. Cached per process."""
-    builds = {n: _start_build(CSRC / f'{n}.cu') for n in names
-              if n not in _loaded}
-    for n, pending in builds.items():
-        _loaded[n] = _finish_build(*pending)
+    start_all(names)
+    for n in names:
+        if n not in _loaded:
+            _loaded[n] = _finish_build(*_pending.pop(n))
     return {n: _loaded[n] for n in names}
 
 

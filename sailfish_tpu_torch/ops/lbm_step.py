@@ -115,7 +115,10 @@ OUTFLOW_LIBRARY = 'lbm_step_outflow'
 #: every launch of a scene with an outflow row (``OUTFLOW_TYPES``) as
 #: ``lbm_step_outflow_<grid>``, its C entry's name; that scene's
 #: laminarize pre-pass, when it has a laminarize row, as
-#: ``laminarize_mean_<grid>``.
+#: ``laminarize_mean_<grid>``. A launch on a shard's ghost-plane buffers
+#: (``parallel/halo.py``) counts under its key with ``ghost_`` after
+#: ``lbm_step_`` (``lbm_step_ghost_<kind><grid>``; the Shan-Chen and
+#: outflow kinds are refused on a mesh).
 LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'elbm_',
                 'sw_', 'sc_', 'wall_', 'dyn_', 'mixed_', 'outflow_')
 #: the kinds a launch on one of ``OTHER_LATTICES`` can be (BGK only, fp32)
@@ -126,6 +129,10 @@ LAUNCHES = dict.fromkeys(
     + [f'rho_poststream_nk1_{g}' for g in ('d2q9', 'd3q19')]
     + [f'laminarize_mean_{g}' for g in ('d2q9', 'd3q19')]
     + [f'lbm_step_{v}{g.lower()}' for v in OTHER_LATTICE_KINDS
+       for g in OTHER_LATTICES]
+    + [f'lbm_step_ghost_{v}{g.lower()}' for v in LAUNCH_KINDS
+       for g in ('D2Q9', 'D3Q19') if v not in ('sc_', 'outflow_')]
+    + [f'lbm_step_ghost_{v}{g.lower()}' for v in OTHER_LATTICE_KINDS
        for g in OTHER_LATTICES], 0)
 #: rewrites of a block of the per-node parameter array before a launch (a
 #: space- and time-dependent BC row), over all ``KernelStep`` objects, per

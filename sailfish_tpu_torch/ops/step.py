@@ -105,6 +105,22 @@ def global_coords(shape, device=None):
                  for a in range(len(shape)))
 
 
+def map_coords(maps, device=None):
+    """``global_coords`` of the nodes of ``maps``; for a shard's maps
+    (``parallel/halo.shard_maps``, which keeps ``rows``, the global index
+    of each plane along the outermost axis) the coordinate along that axis
+    is the global one."""
+    coords = global_coords(maps.type_map.shape, device)
+    rows = getattr(maps, 'rows', None)
+    if rows is None:
+        return coords
+    outer = torch.as_tensor(np.asarray(rows), dtype=torch.int32,
+                            device=device)
+    outer = outer.reshape((-1,) + (1,) * (len(coords) - 1))
+    return coords[:-1] + (torch.broadcast_to(outer, coords[-1].shape)
+                          .contiguous(),)
+
+
 def time_of(it, dtype, time_unit, device=None):
     """t = it * time_unit as a 0-d tensor of ``dtype``, rounded as the
     JAX engine's ``jnp.asarray(it, dtype) * time_unit``."""
@@ -803,7 +819,7 @@ class StepBuilder:
         self.dynamic = [(dev(mask), name, exprs)
                         for mask, name, exprs in m.dynamic]
         exprs = [e for _, _, ex in m.dynamic for e in ex]
-        self.coords = (global_coords(tm.shape, self.device)
+        self.coords = (map_coords(m, self.device)
                        if is_space_dependent(exprs + list(
                            self.force_expr or ())) else ())
 

@@ -1,0 +1,521 @@
+"""Sharded stepping of single-fluid scenes on one-axis meshes: ghost
+planes and their exchange.
+
+Port of the single-fluid part of ``sailfish_tpu/parallel/halo.py``
+(``ShardedPallasStep3D`` :170, ``ShardedPallasStep2D`` :760). The domain is
+split along its outermost axis (z in 3D, y in 2D) into equal slabs, one
+per shard of the mesh. Each shard holds its slab with one ghost plane on
+each side: a (Q, L + 2, ...) tensor whose planes 0 and L + 1 hold the
+ring neighbours' boundary planes. The ring wraps, so the global periodic
+streaming is the same as on one device (``halo.py:1-20``).
+
+A step is the one-device pull step run on each padded slab, then the
+exchange. The step of a slab is the scene's own (the torch engine's
+``StepBuilder`` step, or one launch of the ``lbm_step`` kernel through
+``ops/lbm_step.KernelStep``) on the slab's maps: the global node-type,
+orientation, link-tag and BC-parameter maps cut to the slab's planes and
+its ghost planes, so every BC face, varying box, dynamic row, wall and
+force stays local to its shard, whichever shard boundary crosses it. The
+step computes the ghost planes too, from wrapped neighbours: their output
+is thrown away (overwritten by the exchange where the next step reads it,
+and never read elsewhere). That is design (b) of the ghost-plane mode: no
+kernel changes, 2 / L more node work. The exchange then copies each
+shard's first and last interior planes into its ring neighbours' ghost
+planes, in the directions that cross the boundary (``crossing_directions``:
+5 of 19 in D3Q19, 3 of 9 in D2Q9). On the kernel engine that is the
+``halo_exchange`` kernel (``ops/csrc/halo.cu``): one launch per device,
+each filling the ghost planes of the shards on its device on that device's
+stream, reading a neighbour's plane on another GPU through peer access,
+after CUDA events that order it behind the steps of its neighbours'
+devices (``exchange_plan``). The torch engine, and the CPU, use the plain
+version (``ShardedStep.exchange_reference``: PyTorch index copies).
+
+What needs more than the nearest plane of a neighbour is refused by name
+on a mesh (``mesh_reasons``): the Shan-Chen couplings (their density
+edges, ``stream_rho_edges`` :51, and ``parallel/halo_multi.py``), the
+free-energy model, the outflow family (neighbour samples along the
+normal, plane means), force objects and composite steps, and meshes of
+two or three axes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import ctypes
+
+import numpy as np
+import torch
+
+from sailfish_tpu_torch.ops import step as st
+from sailfish_tpu_torch.parallel import mesh as pmesh
+from sailfish_tpu_torch.subdomain import NodeMaps
+
+#: the C struct's limits (csrc/halo.cu HALO_MAX_SHARDS, HALO_MAX_DIRS)
+MAX_SHARDS = 16
+MAX_DIRS = 9
+#: launches of the exchange kernel, per lattice (the state's Q)
+LAUNCHES = dict.fromkeys(
+    (f'halo_exchange_{g}' for g in ('d2q9', 'd3q15', 'd3q19', 'd3q27')), 0)
+
+
+def reset_launch_counts():
+    """Zero ``LAUNCHES``."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def crossing_directions(grid):
+    """(lo, hi): the directions whose pull step reads ghost plane 0 (c = +1
+    along the sharded axis: z in 3D, y in 2D) and ghost plane L + 1 (c =
+    -1)."""
+    comp = grid.dim - 1
+    lo = tuple(i for i in range(grid.Q) if int(grid.basis[i][comp]) > 0)
+    hi = tuple(i for i in range(grid.Q) if int(grid.basis[i][comp]) < 0)
+    return lo, hi
+
+
+def mesh_reasons(mesh_shape, dim, builder, sim=None):
+    """Why a run of ``builder``'s scene cannot be sharded over a mesh of
+    ``mesh_shape`` (empty when it can), each naming what JAX runs there.
+    ``sim``: the simulation, for its force objects."""
+    from sailfish_tpu_torch.ops.multigrid import (
+        FreeEnergyStepBuilder, ShanChenMultiStepBuilder)
+    reasons = []
+    if len(mesh_shape) == 3:
+        reasons.append(
+            '3-axis meshes (the JAX runner steps them on its GSPMD XLA '
+            'path, sailfish_tpu/parallel/mesh.py:60-65)')
+    elif len(mesh_shape) == 2 and dim == 3:
+        reasons.append(
+            "two-axis meshes ('z','y': the y ghost rows of make_kernel_3d, "
+            'y_ghosts, sailfish_tpu/ops/pallas_step.py:879-895)')
+    elif len(mesh_shape) == 2:
+        reasons.append(
+            "2D meshes over x ('y','x': the x ghost columns of "
+            'make_kernel_2d, x_ghosts, sailfish_tpu/ops/pallas_step2d.py'
+            ':44-53)')
+    if isinstance(builder, ShanChenMultiStepBuilder):
+        reasons.append(
+            'Shan-Chen mixtures (the density edges of '
+            'sailfish_tpu/parallel/halo_multi.py ShardedPallasSCMulti3D '
+            ':58 / ShardedPallasSCMulti2D :816)')
+    elif isinstance(builder, FreeEnergyStepBuilder):
+        reasons.append(
+            'the free-energy model (sailfish_tpu/parallel/halo_multi.py '
+            'ShardedPallasFE3D :339 / ShardedPallasFE2D :1230)')
+    elif not isinstance(builder, st.StepBuilder):
+        reasons.append(
+            f'a composite step ({type(builder).__name__}: the JAX runner '
+            'steps it on one device or on its XLA path)')
+    else:
+        if builder.sc_coupling != 0.0:
+            reasons.append(
+                'single-component Shan-Chen (the post-stream density edges '
+                'stream_rho_edges, sailfish_tpu/parallel/halo.py:51)')
+        outflow = sorted({cls.__name__ for cls, _k, _m in
+                          builder.bc_instances
+                          if cls in st.OUTFLOW_TYPES})
+        if builder.ext_gathers and 'NTExtendedCopy' not in outflow:
+            outflow.append('NTExtendedCopy')
+        if outflow:
+            reasons.append(
+                'the outflow family\'s rows (' + ', '.join(outflow) + ': '
+                'neighbour samples along the normal and plane means, the '
+                'patch planes of sailfish_tpu/parallel/halo.py:653)')
+    if sim is not None and getattr(sim, 'force_objects', None):
+        reasons.append(
+            'force objects (the momentum exchange of '
+            'sailfish_tpu/runner.py:423-493 over a sharded state)')
+    return reasons
+
+
+def shard_maps(maps, rows):
+    """``maps`` (a ``NodeMaps``) cut to the planes ``rows`` of its
+    outermost axis; ``rows`` is kept, so that coordinates stay global
+    (``step.map_coords``)."""
+    shape = (len(rows),) + maps.type_map.shape[1:]
+    out = NodeMaps(shape, maps.dim)
+    for name in ('type_map', 'orientation', 'link_tags', 'param_rho',
+                 'param_scalar'):
+        setattr(out, name, np.ascontiguousarray(getattr(maps, name)[rows]))
+    out.param_vel = np.ascontiguousarray(maps.param_vel[:, rows])
+    out.dynamic = [(mask[rows], name, exprs)
+                   for mask, name, exprs in maps.dynamic]
+    out.extended = []
+    out.rows = np.asarray(rows)
+    return out
+
+
+def shard_builder(builder, maps, device):
+    """A ``StepBuilder`` of ``builder``'s scene on the shard maps ``maps``
+    (``shard_maps``) on ``device``: the same settings, the static maps of
+    the shard, a per-node body force cut to its planes, an entropic
+    collision state of its own."""
+    b = copy.copy(builder)
+    b.maps = maps
+    b.device = torch.device(device)
+    if b.elbm is not None:
+        b.elbm = copy.copy(builder.elbm)
+    if builder.force is not None:
+        force = builder.force
+        if force.shape[1] != 1:
+            force = force[:, torch.as_tensor(maps.rows,
+                                             device=force.device)]
+        b.force = force.to(b.device)
+    if builder.force_expr is None and builder.body_force is not None \
+            and np.ndim(builder.body_force) > 1:
+        b.body_force = np.asarray(builder.body_force)[:, maps.rows]
+    b._prepare_static()
+    return b
+
+
+def on_device(device):
+    """A context in which CUDA work goes to ``device`` (a kernel launched
+    from C takes the current device's context); nothing for the CPU."""
+    if device.type == 'cuda':
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class Sharded:
+    """A state laid out over a mesh: ``parts``, one (Q, L + 2, ...) tensor
+    per shard in ring order, on the shard's device; planes 1 ... L are the
+    shard's slab, planes 0 and L + 1 its ghost planes."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+
+class _HaloParams(ctypes.Structure):
+    _fields_ = [('part', ctypes.c_ulonglong * MAX_SHARDS),
+                ('n_shards', ctypes.c_int), ('planes', ctypes.c_int),
+                ('units', ctypes.c_int), ('unit_bytes', ctypes.c_int),
+                ('n_lo', ctypes.c_int), ('n_hi', ctypes.c_int),
+                ('lo', ctypes.c_int * MAX_DIRS),
+                ('hi', ctypes.c_int * MAX_DIRS),
+                ('n_dst', ctypes.c_int),
+                ('dst', ctypes.c_int * MAX_SHARDS)]
+
+
+def exchange_functions(lib):
+    """(``halo_exchange``, ``halo_enable_peer``) of a loaded
+    ``csrc/halo.cu`` library, typed for ``ctypes``, after checking that its
+    parameter block matches ``_HaloParams``."""
+    lib.halo_params_size.restype = ctypes.c_int
+    if lib.halo_params_size() != ctypes.sizeof(_HaloParams):
+        raise RuntimeError('HaloParams layout differs between csrc/halo.cu '
+                           'and parallel/halo.py')
+    fn = lib.halo_exchange
+    fn.argtypes = [ctypes.POINTER(_HaloParams), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    peer = lib.halo_enable_peer
+    peer.argtypes = [ctypes.c_int, ctypes.c_int]
+    peer.restype = ctypes.c_int
+    return fn, peer
+
+
+def exchange_plan(devices):
+    """The launches of one exchange for shards on ``devices`` (ring
+    order): [(device, the shards whose ghost planes its launch fills, the
+    other devices whose shards it reads)], devices in order of first
+    appearance."""
+    n = len(devices)
+    plan = {}
+    for s, d in enumerate(devices):
+        dst, peers = plan.setdefault(d, ([], []))
+        dst.append(s)
+        for q in (devices[(s - 1) % n], devices[(s + 1) % n]):
+            if q != d and q not in peers:
+                peers.append(q)
+    return [(d, tuple(dst), tuple(peers)) for d, (dst, peers) in plan.items()]
+
+
+def exchange_params(ptrs, length, plane_bytes, lo, hi, dst):
+    """The ``halo_exchange`` parameter block of one launch: the shards'
+    buffers at the addresses ``ptrs`` (ring order), each (Q, ``length`` +
+    2, plane) with ``plane_bytes`` bytes per plane; the crossing
+    directions ``lo`` and ``hi`` (``crossing_directions``); ``dst``: the
+    shards whose ghost planes the launch fills."""
+    p = _HaloParams()
+    for s, ptr in enumerate(ptrs):
+        p.part[s] = ptr
+    p.n_shards = len(ptrs)
+    p.planes = length + 2
+    p.unit_bytes = next(u for u in (16, 4, 2) if plane_bytes % u == 0)
+    p.units = plane_bytes // p.unit_bytes
+    p.n_lo, p.n_hi = len(lo), len(hi)
+    for j, k in enumerate(lo):
+        p.lo[j] = k
+    for j, k in enumerate(hi):
+        p.hi[j] = k
+    p.n_dst = len(dst)
+    for j, s in enumerate(dst):
+        p.dst[j] = s
+    return p
+
+
+class ShardedStep:
+    """The sharded step of a single-fluid ``StepBuilder`` scene over a
+    one-axis mesh: z of a 3D domain, y of a 2D one (``axis_name``).
+
+    ``builder``: the scene's global builder; ``domain_shape``: its spatial
+    shape; ``mesh``: a ``parallel.mesh.Mesh``; ``engine``: 'torch' (each
+    slab stepped by its ``StepBuilder``, ``builders``) or 'kernel' (one
+    ``KernelStep`` per slab, ``kernels``; their launches count as
+    ``lbm_step_ghost_<kind><grid>``, the key of the same step unsharded
+    with ``ghost_`` after ``lbm_step_``). The state is a ``Sharded``;
+    ``run``, ``codes_of``, ``run_codes`` and ``state_of`` are those of
+    ``KernelStep`` over it (int16 codes under --precision=mixed on the
+    kernel engine), and take a global tensor too, which they shard first.
+    ``exchanges`` counts exchanges (the kernel's launches, one per device,
+    count in ``LAUNCHES`` under ``name``); ``launches`` counts the shards'
+    step launches."""
+
+    def __init__(self, builder, domain_shape, mesh, engine='torch'):
+        dim = len(domain_shape)
+        reasons = mesh_reasons(tuple(mesh.shape.values()), dim, builder)
+        if reasons:
+            raise NotImplementedError(
+                'not ported to sailfish_tpu_torch on a mesh (--mesh) yet: '
+                + '; '.join(reasons))
+        self.axis_name = 'z' if dim == 3 else 'y'
+        if list(mesh.axis_names) != [self.axis_name]:
+            raise ValueError(f'{type(self).__name__} shards the '
+                             f'{self.axis_name} axis of a {dim}D domain; '
+                             f'got mesh axes {list(mesh.axis_names)}')
+        pmesh.validate_divisible(domain_shape, mesh)
+        n = mesh.size
+        if n > MAX_SHARDS:
+            raise ValueError(f'at most {MAX_SHARDS} shards; got {n}')
+        self.builder = builder
+        self.grid = builder.grid
+        self.mesh = mesh
+        self.engine = engine
+        self.length = domain_shape[0] // n
+        self.builders = [
+            shard_builder(builder, shard_maps(
+                builder.maps, pmesh.slab_rows(domain_shape[0], n, s, 1)), d)
+            for s, d in enumerate(mesh.devices)]
+        self.lo, self.hi = crossing_directions(self.grid)
+        self.name = f'halo_exchange_{self.grid.name.lower()}'
+        self.exchanges = 0
+        self.kernels = None
+        self.steps = None
+        #: the int16 scales of the kernel engine's codes, else None
+        self.mixed = None
+        if engine == 'kernel':
+            from sailfish_tpu_torch.ops.lbm_step import KernelStep
+            self.kernels = [KernelStep(b) for b in self.builders]
+            for ks in self.kernels:
+                ks.name = ks.name.replace('lbm_step_', 'lbm_step_ghost_', 1)
+            self.mixed = builder.mixed
+        else:
+            self.steps = [b.build() for b in self.builders]
+        self._index = {}
+        self._fn = None
+        self._peer_fn = None
+        self._plan = None
+
+    # -- layout --------------------------------------------------------------
+
+    def shard(self, f):
+        """The ``Sharded`` state of the global (Q, *S) tensor ``f``, ghost
+        planes filled (as an exchange fills them, and more)."""
+        return Sharded(pmesh.split(f, self.mesh, ghost=1))
+
+    def gather(self, state, device=None):
+        """The global (Q, *S) tensor of a ``Sharded`` state (its slabs, the
+        ghost planes cropped), on ``device`` (default the first shard's)."""
+        return pmesh.gather(state.parts, device, ghost=1)
+
+    def as_sharded(self, f):
+        """``f`` if it is a ``Sharded`` state, else ``shard(f)``."""
+        return f if isinstance(f, Sharded) else self.shard(f)
+
+    def is_finite(self, state):
+        """Whether every value of the shards' slabs is finite."""
+        return all(bool(torch.isfinite(p.narrow(1, 1, self.length)).all())
+                   for p in state.parts)
+
+    # -- exchange ------------------------------------------------------------
+
+    def _indices(self, device):
+        key = str(device)
+        if key not in self._index:
+            self._index[key] = tuple(
+                torch.as_tensor(d, dtype=torch.long, device=device)
+                for d in (self.lo, self.hi))
+        return self._index[key]
+
+    def exchange_reference(self, parts):
+        """The exchange as PyTorch index copies (the plain version): ghost
+        plane 0 of shard s takes the ``lo`` directions of plane L of shard
+        s - 1, ghost plane L + 1 the ``hi`` directions of plane 1 of shard
+        s + 1."""
+        n = len(parts)
+        length = self.length
+        for s, dst in enumerate(parts):
+            lo, hi = self._indices(dst.device)
+            below, above = parts[(s - 1) % n], parts[(s + 1) % n]
+            blo, _ = self._indices(below.device)
+            _, ahi = self._indices(above.device)
+            dst.select(1, 0).index_copy_(
+                0, lo, below.select(1, length).index_select(0, blo)
+                .to(dst.device))
+            dst.select(1, length + 1).index_copy_(
+                0, hi, above.select(1, 1).index_select(0, ahi)
+                .to(dst.device))
+
+    def exchange(self, parts):
+        """Fill the ghost planes of the shards' buffers ``parts`` that the
+        next step reads: on the kernel engine with the shards on CUDA
+        devices, one ``halo_exchange`` launch per device (counted in
+        ``LAUNCHES``); on the torch engine, or on the CPU,
+        ``exchange_reference``."""
+        self.exchanges += 1
+        if self.kernels is None or all(p.device.type == 'cpu'
+                                       for p in parts):
+            self.exchange_reference(parts)
+            return
+        plan = self._plan_for(parts)
+        multi = len(plan) > 1
+        if multi:
+            # each launch reads planes its neighbours' devices just wrote
+            ready = {d: torch.cuda.current_stream(d).record_event()
+                     for d, _p, _q in plan}
+        for d, params, peers in plan:
+            stream = torch.cuda.current_stream(d)
+            for q in peers:
+                stream.wait_event(ready[q])
+            with torch.cuda.device(d):
+                rc = self._fn(ctypes.byref(params), stream.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f'{self.name} launch failed on {d}: '
+                                   f'error {rc}')
+            LAUNCHES[self.name] += 1
+        if multi:
+            # and the next step on a device overwrites planes that its
+            # neighbours' devices read: after their launches
+            done = {d: torch.cuda.current_stream(d).record_event()
+                    for d, _p, _q in plan}
+            for d, _p, peers in plan:
+                stream = torch.cuda.current_stream(d)
+                for q in peers:
+                    stream.wait_event(done[q])
+
+    @property
+    def launches(self):
+        """The step launches of the shards' kernels."""
+        return sum(ks.launches for ks in self.kernels or ())
+
+    def _plan_for(self, parts):
+        """The exchange kernel's launches for ``parts``: [(device, its
+        parameter block, the devices its shards' neighbours are on)] (kept
+        while the buffers stay the same; peer access enabled where a
+        launch reads another device)."""
+        ptrs = tuple(p.data_ptr() for p in parts)
+        if self._plan is not None and self._plan[0] == ptrs:
+            return self._plan[1]
+        first = parts[0]
+        for p in parts:
+            if p.device.type != 'cuda' or not p.is_contiguous() \
+                    or p.shape != first.shape or p.dtype != first.dtype:
+                raise ValueError(
+                    f'{self.name}: every shard buffer a contiguous CUDA '
+                    f'tensor of one shape and dtype; got {p.device} '
+                    f'{tuple(p.shape)} {p.dtype}')
+        if self._fn is None:
+            from sailfish_tpu_torch.ops import build
+            self._fn, self._peer_fn = exchange_functions(
+                build.load('halo').lib)
+        plane = first[0, 0].numel() * first.element_size()
+        plan = []
+        for d, dst, peers in exchange_plan([p.device for p in parts]):
+            for q in peers:
+                rc = self._peer_fn(d.index, q.index)
+                if rc != 0:
+                    raise RuntimeError(
+                        f'{self.name}: {d} cannot read {q} (peer access, '
+                        f'error {rc}): the exchange reads a neighbour\'s '
+                        'plane in place')
+            plan.append((d, exchange_params(ptrs, self.length, plane,
+                                            self.lo, self.hi, dst), peers))
+        self._plan = (ptrs, plan)
+        return plan
+
+    # -- stepping ------------------------------------------------------------
+
+    def run(self, f, n, it0=0):
+        """``n`` steps from the state ``f`` (``Sharded`` or global), the
+        first computing iteration ``it0``; returns the ``Sharded`` result.
+        On the kernel engine under --precision=mixed the fp32 state is
+        quantized into each shard's A buffer and the result returned
+        dequantized in its ``out`` buffer, as ``KernelStep.run`` does."""
+        if self.kernels is None:
+            parts = self.as_sharded(f).parts
+            for i in range(n):
+                parts = [step(p, it0 + i)
+                         for step, p in zip(self.steps, parts)]
+                self.exchange(parts)
+            return Sharded(parts)
+        if self.mixed is None:
+            return self.run_codes(f, n, it0)
+        return self.state_of(self.run_codes(self.codes_of(f), n, it0))
+
+    def codes_of(self, f):
+        """Under --precision=mixed on the kernel engine, the ``Sharded``
+        int16 codes to step from for the fp32 state ``f``: each part
+        quantized into its shard's A buffer (A or B itself when it is
+        one)."""
+        parts = self.as_sharded(f).parts
+        return Sharded(p if p is ks.a or p is ks.b
+                       else ks.a.copy_(self.mixed.quant(p))
+                       for ks, p in zip(self.kernels, parts))
+
+    def state_of(self, codes):
+        """Under --precision=mixed on the kernel engine, the fp32
+        ``Sharded`` state of the ``Sharded`` codes: dequantized into each
+        shard's ``out`` buffer."""
+        return Sharded(ks.out.copy_(self.mixed.dequant(p))
+                       for ks, p in zip(self.kernels, codes.parts))
+
+    def run_codes(self, f, n, it0=0):
+        """``n`` steps of the kernel engine from the state ``f`` of the
+        kernels' dtype (fp32, or int16 codes under --precision=mixed),
+        ``Sharded`` or global, without the mixed conversions; returns the
+        ``Sharded`` state in the shards' A or B buffers."""
+        cur = []
+        for ks, p in zip(self.kernels, self.as_sharded(f).parts):
+            if p is not ks.a and p is not ks.b:
+                p = ks.a.copy_(p)
+            cur.append(p)
+        for i in range(n):
+            nxt = [ks.b if p is ks.a else ks.a
+                   for ks, p in zip(self.kernels, cur)]
+            for ks, src, dst in zip(self.kernels, cur, nxt):
+                with on_device(src.device):
+                    ks.step_into(src, dst, it0 + i)
+            self.exchange(nxt)
+            cur = nxt
+        return Sharded(cur)
+
+    def reference(self, state, it=0):
+        """Step ``it`` of the kernel engine's plain version from ``state``
+        (``Sharded`` or global): each shard's ``KernelStep.reference``,
+        then ``exchange_reference``; returns a new ``Sharded`` state."""
+        parts = []
+        for ks, p in zip(self.kernels, self.as_sharded(state).parts):
+            ks.set_iteration(it)
+            parts.append(ks.reference(p))
+        self.exchange_reference(parts)
+        return Sharded(parts)
+
+    def macro_fields(self, state, it=0):
+        """(rho, u) of a ``Sharded`` state as the global builder's
+        ``macro_fields`` gives them, computed per shard on the device and
+        gathered on the first shard's device."""
+        rho, u = zip(*(b.macro_fields(p, it)
+                       for b, p in zip(self.builders, state.parts)))
+        return (pmesh.gather(rho, axis=0, ghost=1),
+                pmesh.gather(u, axis=1, ghost=1))

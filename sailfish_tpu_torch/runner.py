@@ -2,8 +2,9 @@
 main loop.
 
 Port of a subset of ``sailfish_tpu/runner.py`` (``SubdomainRunner``): one
-device, one whole-domain state (a tensor, or a K-tuple of tensors for the
-multi-component models), a chunked main loop with the same MLUPS /
+whole-domain state (a tensor, or a K-tuple of tensors for the
+multi-component models) on one device, or a single-fluid state sharded
+over a one-axis mesh (``--mesh``), a chunked main loop with the same MLUPS /
 ``TimingInfo`` accounting, npz output through the port's writers and
 checkpoints in the JAX package's npz layout (``dist0a`` ...
 ``dist{K-1}a``, ``state``, ``sim_state``), so a JAX checkpoint restores
@@ -27,8 +28,16 @@ Momentum-exchange force objects (``update_force_objects``), the
 consistent initialization of ``--init_iters`` (on the scene's own engine)
 and ``--profile_trace`` (a ``torch.profiler`` Chrome trace) run on both
 engines, as ``sailfish_tpu/runner.py:423-493``, :556-607 and :643-649
-define them. Meshes (``--mesh``) are not ported yet and raise
-``NotImplementedError``.
+define them.
+
+``--mesh=N`` (``sailfish_tpu/runner.py:84-93``, :150-160) shards a
+single-fluid ``StepBuilder`` scene along z (3D) or y (2D) over N devices
+on either engine (``parallel/halo.py``: each shard's slab with ghost
+planes, the scene's own step on it, the ghost-plane exchange); the state
+then lives in ``Sharded`` slabs, and ``f`` is their global gather
+(checkpoints, output, hooks and the scene's own hooks see the global
+state, in the layout of an unsharded run). What cannot be sharded is
+refused by name (``parallel/halo.mesh_reasons``).
 """
 
 from __future__ import annotations
@@ -59,6 +68,36 @@ class SubdomainRunner:
         self._quit_event = quit_event or util.SimpleEvent()
         self.profile = TimeProfile(self)
         self.kernel = None
+        #: the ``parallel/halo.ShardedStep`` of a run on a mesh, else None
+        self.stepper = None
+        self.mesh = None
+        self._f = None
+        self._sharded = None
+
+    # -- the state -----------------------------------------------------------
+
+    @property
+    def f(self):
+        """The state: on a mesh the global gather of the ``Sharded`` state
+        (kept until the next step). Set it to a global state, or on a mesh
+        to a ``Sharded`` one."""
+        if self.stepper is not None and self._f is None:
+            self._f = self.stepper.gather(self._sharded)
+        return self._f
+
+    @f.setter
+    def f(self, value):
+        if self.stepper is None:
+            self._f = value
+            return
+        self._sharded = self.stepper.as_sharded(value)
+        self._f = None
+
+    @property
+    def state(self):
+        """The state as the engine steps it: ``f``, or on a mesh the
+        ``Sharded`` state (no gather)."""
+        return self.f if self.stepper is None else self._sharded
 
     # -- initialization ------------------------------------------------------
 
@@ -82,13 +121,37 @@ class SubdomainRunner:
         args = self._subdomain._get_mgrid()
         self._subdomain.initial_conditions(self.sim, *args)
 
-    def _check_unported(self):
-        if getattr(self.config, 'mesh', ''):
+    def _init_mesh(self):
+        """The mesh of ``--mesh`` (None without one), after refusing by
+        name what cannot be sharded; on the CPU every shard is on the CPU
+        device."""
+        from sailfish_tpu_torch.parallel import halo
+        from sailfish_tpu_torch.parallel import mesh as pmesh
+        shape = pmesh.parse_mesh_shape(getattr(self.config, 'mesh', ''),
+                                       self.sim.dim)
+        if shape is None:
+            return None
+        reasons = halo.mesh_reasons(shape, self.sim.dim, self.builder,
+                                    self.sim)
+        if reasons:
             raise NotImplementedError(
-                'not ported to sailfish_tpu_torch yet: --mesh (sharded runs)')
+                'not ported to sailfish_tpu_torch on a mesh (--mesh) yet: '
+                + '; '.join(reasons))
+        devices = None
+        if self.device.type == 'cpu':
+            devices = [self.device] * int(np.prod(shape))
+        mesh = pmesh.make_mesh(shape, self.sim.dim, devices)
+        pmesh.validate_divisible(self._domain_shape(), mesh)
+        return mesh
+
+    def _sharded_engine(self, builder):
+        """The ``parallel/halo.ShardedStep`` of ``builder`` over the mesh
+        on the runner's engine."""
+        from sailfish_tpu_torch.parallel import halo
+        return halo.ShardedStep(builder, self._domain_shape(), self.mesh,
+                                self.engine)
 
     def _init_state(self):
-        self._check_unported()
         cfg = self.config
         self.device = cfg.device
         dtype = cfg.dtype
@@ -108,7 +171,15 @@ class SubdomainRunner:
         self.engine = self._select_engine()
         self.device_hook_state = ()
         self._pending_hook_leaves = None
-        if self.engine == 'kernel':
+        self.mesh = self._init_mesh()
+        if self.mesh is not None:
+            f = self.f
+            self.stepper = self._sharded_engine(self.builder)
+            if self.engine == 'kernel':
+                self.kernel = self.stepper
+            self._run_steps = self.stepper.run
+            self.f = f
+        elif self.engine == 'kernel':
             self.kernel = self._kernel_engine()
             self._run_steps = self.kernel.run
         else:
@@ -184,7 +255,13 @@ class SubdomainRunner:
             init_b = self.sim.make_step_builder(self.maps, self.config.dtype,
                                                 self.device)
             f = self.f
-            if self.engine == 'kernel':
+            if self.mesh is not None:
+                sharded = self._sharded_engine(init_b)
+                s = sharded.shard(f)
+                for _ in range(n):
+                    s = sharded.run(s, 1, 0)
+                f = sharded.gather(s)
+            elif self.engine == 'kernel':
                 ks = self._kernel_engine(init_b)
                 for _ in range(n):
                     f = ks.run(f, 1, 0)
@@ -290,7 +367,9 @@ class SubdomainRunner:
 
     def _fields_to_host(self):
         with torch.no_grad():
-            macro = self.builder.macro_fields(self.f, self.sim.iteration)
+            # on a mesh per shard, gathered: no global copy of the state
+            macro = (self.stepper or self.builder).macro_fields(
+                self.state, self.sim.iteration)
         self.sim.update_host_fields(macro)
 
     def _output_fields(self):
@@ -460,10 +539,11 @@ class SubdomainRunner:
         (``KernelStep.run_codes``: no quantize round trip is added) and the
         hooks see their dequantized copy."""
         fns = [fn for _i, fn, _e, _f in self.sim._device_hooks]
-        codes = None   # the KernelStep stepping int16 codes
+        codes = None   # the KernelStep (or ShardedStep) stepping int16 codes
         if getattr(self.kernel, 'mixed', None) is not None:
             codes = self.kernel
             run = codes.run_codes
+        stepper = self.stepper
 
         def run_steps(f, n, it0=0):
             if codes is not None:
@@ -472,7 +552,10 @@ class SubdomainRunner:
             for it in self.hook_iterations(it0, n):
                 f = run(f, it - pos, pos)
                 pos = it
-                view = f if codes is None else codes.mixed.dequant(f)
+                # on a mesh the hooks see the global state, gathered
+                view = f if stepper is None else stepper.gather(f)
+                if codes is not None:
+                    view = codes.mixed.dequant(view)
                 self.device_hook_state = tuple(
                     fn(view, s, it)
                     for fn, s in zip(fns, self.device_hook_state))
@@ -481,6 +564,13 @@ class SubdomainRunner:
             return f if codes is None else codes.state_of(f)
 
         return run_steps
+
+    def _synchronize(self):
+        """Wait for the device, or for every device of the mesh."""
+        devices = [self.device] if self.mesh is None else \
+            list(dict.fromkeys(self.mesh.devices))
+        for d in devices:
+            util.synchronize(d)
 
     def _install_sighup_checkpoint(self):
         """SIGHUP forces an on-demand checkpoint."""
@@ -532,10 +622,10 @@ class SubdomainRunner:
             if self._quit_event.is_set():
                 break
             chunk = self._next_chunk()
-            util.synchronize(self.device)
+            self._synchronize()
             t0 = time.perf_counter()
-            self.f = self._run_steps(self.f, chunk, sim.iteration)
-            util.synchronize(self.device)
+            self.f = self._run_steps(self.state, chunk, sim.iteration)
+            self._synchronize()
             t1 = time.perf_counter()
             self.profile.record(TimeProfile.COMP, t1 - t0)
             sim.iteration += chunk
@@ -549,7 +639,7 @@ class SubdomainRunner:
                 else:
                     bench_samples.append(mlups)
             if cfg.check_invalid_results_gpu and \
-                    not st.is_finite(self.f):
+                    not (self.stepper or st).is_finite(self.state):
                 log.error('invalid results (NaN/Inf) on device at '
                           'iteration %d; aborting', sim.iteration)
                 break

@@ -200,7 +200,10 @@ def test_default_platform_without_cuda_is_cpu(monkeypatch):
     # with the JAX runner's reason ("--init_iters covers single-fluid
     # scenes only"), the case's id unchanged
     (dict(init_iters=5), '--init_iters'),
-    (dict(mesh='2'), '--mesh'),
+    # --mesh is ported for single-fluid scenes (tests/test_torch_mesh.py);
+    # a mixture on a mesh is refused by name, the case's id unchanged
+    pytest.param(dict(mesh='2'), '--mesh.*Shan-Chen mixtures',
+                 id='cfg1---mesh'),
     (dict(mode='visualization'), 'visualization'),
     # --precision=mixed is ported for single-fluid scenes; a mixture under
     # it is refused with the JAX runner's reason (the id is the case's
@@ -210,7 +213,8 @@ def test_default_platform_without_cuda_is_cpu(monkeypatch):
 ])
 def test_unported_flags_raise(cfg, match):
     sim = binary_twin('sc_separation_2d') \
-        if 'precision' in cfg or 'init_iters' in cfg else twin('ldc_2d')
+        if {'precision', 'init_iters', 'mesh'} & set(cfg) \
+        else twin('ldc_2d')
     ctrl = LBSimulationController(sim, default_config=dict(
         platform='cpu', max_iters=2, quiet=True, lat_nx=8, lat_ny=8,
         **cfg))

@@ -147,6 +147,19 @@ the pre-pass's plane means against ``laminarize_mean_reference`` (1e-6);
 ptxas reports 16 instantiations without a stack frame; the open channels
 with their force objects and --init_iters run through the controller on
 the kernel engine against the torch engine on the card.
+
+On a mesh (``parallel/halo.py``, shards repeated on the one card through
+``parallel/mesh.devices_override``): the exchange kernel
+``halo_exchange`` (``csrc/halo.cu``) equals its plain version bit for bit
+on fp32 and int16 buffers of 1-4 shards, and with the shards on two or
+more GPUs (one launch per GPU, peer reads) where there are; the
+ghost-plane mode (each
+shard's ``lbm_step`` on its padded slab, then the exchange) stays within
+1e-5 of its plain version (the torch engine's sharded step) over 50 steps
+from a random state; and the controller's runs over 2 and 4 shards equal
+the unsharded kernel run bit for bit, one ``lbm_step_ghost_<kind><grid>``
+launch per shard and step and one exchange per step; so does one shard
+per GPU where there are two or more.
 """
 
 import ctypes
@@ -1905,3 +1918,133 @@ def test_open_channel_on_the_kernel_engine(cuda, dim):
     for (_i, fk), (_j, ft) in zip(rk.sim.drag, rt.sim.drag):
         assert np.allclose(fk, ft, rtol=1e-3, atol=1e-4)
     assert rk.sim.drag[-1][1][0] > 0
+
+
+MESH_SCENES = {
+    'ldc_3d': (lambda: twin('ldc_3d'), dict(lat_nx=48, lat_ny=40, lat_nz=32)),
+    'ldc_2d': (lambda: twin('ldc_2d'), dict(lat_nx=300, lat_ny=200)),
+    'ldc_3d_int16': (lambda: twin('ldc_3d'),
+                     dict(lat_nx=48, lat_ny=40, lat_nz=32,
+                          precision='mixed')),
+    'duct_flow': (lambda: twin('duct_flow'),
+                  dict(lat_nx=32, lat_ny=32, lat_nz=32)),
+}
+
+
+def _mesh_run(scene, mesh, **cfg):
+    from sailfish_tpu_torch.parallel import mesh as pmesh
+    make, size = MESH_SCENES[scene]
+    with pmesh.devices_override(['cuda'] * 4):
+        return run(make(), platform='cuda', mesh=mesh, **size, **cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mesh', ['1', '2', '4'])
+@pytest.mark.parametrize('scene', ['ldc_3d', 'ldc_2d', 'ldc_3d_int16'])
+def test_halo_exchange_kernel_equals_its_plain_version(cuda, scene, mesh):
+    from sailfish_tpu_torch.parallel import halo
+    r = _mesh_run(scene, mesh, max_iters=0)
+    stp = r.stepper
+    g = torch.Generator(device='cuda').manual_seed(5)
+    parts = [(torch.rand(ks.a.shape, generator=g, device='cuda') * 1e3)
+             .to(ks.a.dtype) for ks in stp.kernels]
+    ref = [p.clone() for p in parts]
+    halo.reset_launch_counts()
+    stp.exchange(parts)
+    stp.exchange_reference(ref)
+    torch.cuda.synchronize()
+    assert halo.LAUNCHES[stp.name] == 1
+    assert all(torch.equal(a, b) for a, b in zip(parts, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['duct_flow', 'ldc_2d', 'ldc_3d'])
+def test_ghost_mode_matches_its_plain_version(cuda, scene):
+    from sailfish_tpu_torch.parallel import halo
+    r = _mesh_run(scene, '2', max_iters=0)
+    stp = r.stepper
+    plain = halo.ShardedStep(r.builder, r._domain_shape(), r.mesh, 'torch')
+    f0 = random_feq(r.sim.grid, r._domain_shape(), seed=3, device='cuda')
+    fk = stp.gather(stp.run(f0, 50))
+    fr = plain.gather(plain.run(f0, 50))
+    torch.cuda.synchronize()
+    wet = torch.cat([((ks.mask == 0) | (ks.mask >= 3))[1:-1]
+                     for ks in stp.kernels], 0)
+    assert float((fk - fr)[:, wet].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mesh', ['2', '4'])
+@pytest.mark.parametrize('scene', sorted(MESH_SCENES))
+def test_shards_on_one_card_equal_the_unsharded_kernel(cuda, scene, mesh):
+    from sailfish_tpu_torch.parallel import halo
+    make, size = MESH_SCENES[scene]
+    ref = run(make(), platform='cuda', max_iters=40, every=20, **size)
+    ls.reset_launch_counts()
+    halo.reset_launch_counts()
+    r = _mesh_run(scene, mesh, max_iters=40, every=20)
+    torch.cuda.synchronize()
+    g = r.sim.grid.name.lower()
+    assert r.engine == 'kernel' and r.kernel is r.stepper
+    # each shard's launches under its mode's ghost key
+    names = {ks.name for ks in r.stepper.kernels}
+    assert names == {ref.kernel.name.replace('lbm_step_', 'lbm_step_ghost_')}
+    assert sum(ls.LAUNCHES[n] for n in names) == 40 * int(mesh)
+    assert sum(ls.LAUNCHES.values()) == 40 * int(mesh)
+    assert halo.LAUNCHES[f'halo_exchange_{g}'] == 40
+    assert torch.equal(r.f, ref.f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['ldc_3d', 'ldc_3d_int16'])
+def test_shards_on_several_gpus_equal_the_unsharded_kernel(cuda, scene):
+    """One shard per visible GPU (two or more): the exchange kernel runs
+    once per GPU and step, reading its neighbours' planes through peer
+    access, and the run equals the unsharded kernel run bit for bit."""
+    from sailfish_tpu_torch.parallel import halo
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip('needs two or more CUDA devices')
+    n = max(k for k in (2, 4, 8) if k <= n)
+    make, size = MESH_SCENES[scene]
+    ref = run(make(), platform='cuda', max_iters=40, every=20, **size)
+    halo.reset_launch_counts()
+    r = run(make(), platform='cuda', mesh=str(n), max_iters=40, every=20,
+            **size)
+    stp = r.stepper
+    assert [d.index for d in stp.mesh.devices] == list(range(n))
+    assert [ks.a.device.index for ks in stp.kernels] == list(range(n))
+    assert stp.exchanges == 40 and halo.LAUNCHES[stp.name] == 40 * n
+    assert torch.equal(r.f.to(ref.f.device), ref.f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['one_per_gpu', 'alternating'])
+def test_halo_exchange_across_gpus_equals_its_plain_version(cuda, layout):
+    """The exchange kernel with shards on two or more GPUs (one shard per
+    GPU, or four shards alternating over two): one launch per GPU, the
+    plain version's bits."""
+    from sailfish_tpu_torch.parallel import halo
+    from sailfish_tpu_torch.parallel import mesh as pmesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip('needs two or more CUDA devices')
+    devices = [f'cuda:{i}' for i in range(max(k for k in (2, 4, 8)
+                                               if k <= n))] \
+        if layout == 'one_per_gpu' else ['cuda:0', 'cuda:1'] * 2
+    make, size = MESH_SCENES['ldc_3d']
+    with pmesh.devices_override(devices):
+        r = run(make(), platform='cuda', mesh=str(len(devices)),
+                max_iters=0, **size)
+    stp = r.stepper
+    parts = [torch.rand(ks.a.shape, generator=torch.Generator(
+        device=ks.a.device).manual_seed(s), device=ks.a.device)
+        for s, ks in enumerate(stp.kernels)]
+    ref = [p.clone() for p in parts]
+    halo.reset_launch_counts()
+    stp.exchange(parts)
+    stp.exchange_reference(ref)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    assert halo.LAUNCHES[stp.name] == len(set(devices))
+    assert all(torch.equal(a, b) for a, b in zip(parts, ref))

@@ -103,13 +103,15 @@ def test_port_modules_are_packaged():
             'sailfish_tpu_torch.ops.mixed',
             'sailfish_tpu_torch.ops.entropic', 'sailfish_tpu_torch.stats',
             'sailfish_tpu_torch.data_processing',
-            'sailfish_tpu_torch.converter'} <= names
+            'sailfish_tpu_torch.converter',
+            'sailfish_tpu_torch.parallel.mesh',
+            'sailfish_tpu_torch.parallel.halo'} <= names
     csrc = os.path.join(os.path.dirname(sailfish_tpu_torch.__file__), 'ops',
                         'csrc')
     # every source, and no other: a source without a wrapper would be
     # dead code (the patch kernel went when lbm_step took over its work)
     assert sorted(os.listdir(csrc)) == [
-        'fe_step.cu', 'lattice_tables.cuh', 'lbm_common.cuh', 'lbm_step.cu',
+        'fe_step.cu', 'halo.cu', 'lattice_tables.cuh', 'lbm_common.cuh', 'lbm_step.cu',
         'lbm_step_elbm.cu', 'lbm_step_lattices.cu', 'lbm_step_les.cu',
         'lbm_step_mixed.cu',
         'lbm_step_mixed_elbm.cu', 'lbm_step_mixed_les.cu',
@@ -134,7 +136,7 @@ def test_package_data_carries_every_file_a_build_hashes():
     patterns = data['sailfish_tpu_torch']
     root = os.path.dirname(sailfish_tpu_torch.__file__)
     sources = sorted(build.CSRC.glob('*.cu'))
-    assert len(sources) == 12
+    assert len(sources) == 13
     files = {f for src in sources for f in build.hashed_files(src)}
     # a source that builds lbm_step.cu with another collision model hashes
     # it too
@@ -148,6 +150,29 @@ def test_package_data_carries_every_file_a_build_hashes():
     for f in files:
         rel = os.path.relpath(f, root).replace(os.sep, '/')
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
+
+
+def test_a_started_build_is_finished_once(monkeypatch):
+    """``build.start_all`` starts each source's compiler once; ``load`` then
+    waits for that build only, and a later ``load_all`` starts none
+    again."""
+    from sailfish_tpu_torch.ops import build
+    started, finished = [], []
+    monkeypatch.setattr(build, '_loaded', {})
+    monkeypatch.setattr(build, '_pending', {})
+    monkeypatch.setattr(build, '_start_build',
+                        lambda src: started.append(src.stem)
+                        or (src.stem,))
+    monkeypatch.setattr(build, '_finish_build',
+                        lambda name: finished.append(name) or name.upper())
+    build.start_all(['lbm_step', 'halo'])
+    build.start_all(['halo'])
+    assert started == ['lbm_step', 'halo'] and finished == []
+    assert build.load('halo') == 'HALO' and finished == ['halo']
+    assert build.load_all(['lbm_step', 'halo', 'fe_step']) == {
+        'lbm_step': 'LBM_STEP', 'halo': 'HALO', 'fe_step': 'FE_STEP'}
+    assert started == ['lbm_step', 'halo', 'fe_step']
+    assert finished == ['halo', 'lbm_step', 'fe_step']
 
 
 def test_binary_twins_are_checked():

@@ -32,7 +32,10 @@ statistics hook every 20 steps from iteration 250), and the outflow
 family's open channels (``open_sphere_3d`` 512x256x256, a Yu outlet;
 ``open_cylinder_2d`` 8192x2048, a copy outlet; each with its force object
 sampled after the chunk) and laminarize channel (``laminarize_channel_2d``
-8192x2048: its plane-mean pre-pass and the step) it
+8192x2048: its plane-mean pre-pass and the step), and the cavity sharded
+over a one-shard mesh (``ldc_3d_zmesh1``, ``--mesh=1``: each step the
+ghost-plane step and the ``halo_exchange`` launch, whose share of the
+chunk the kernel means show) it
 runs the controller
 with the default (kernel) engine for one chunk (kernel build, warm-up),
 then traces one more chunk of ``SubdomainRunner.main`` with
@@ -70,6 +73,7 @@ from torch_scenes import (binary_twin, channel_sim,  # noqa: E402
                           channel_sim_2d, open_channel, outflow_channel, run,
                           ternary_separation, ternary_twin, turbulence_twin,
                           twin)
+from sailfish_tpu_torch.parallel import halo  # noqa: E402
 
 
 def channel(scene):
@@ -144,20 +148,27 @@ SCENES = {
     'open_cylinder_2d': (lambda s: open_channel(2), (8192, 2048), {}),
     'laminarize_channel_2d': (
         lambda s: outflow_channel('NTLaminarize', 2, 'x'), (8192, 2048), {}),
+    # --mesh=1: the step over the shard and its ghost planes, then the
+    # ghost-plane exchange
+    'ldc_3d_zmesh1': (lambda s: twin('ldc_3d'), (256, 256, 256),
+                      {'mesh': '1'}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
 PORT_KERNELS = ('lbm_step_kernel', 'rho_poststream_kernel',
                 'sc_multi_kernel', 'sc3_kernel', 'fe_step_kernel',
-                'fe3_kernel', 'laminarize_mean_kernel')
+                'fe3_kernel', 'laminarize_mean_kernel',
+                'halo_exchange_kernel')
 
 
 def total_launches(kernel):
     """All launches of a kernel engine (an int, or a dict by name; a
-    single-fluid engine's pre-pass launches apart)."""
+    single-fluid engine's pre-pass launches apart), and of the ghost-plane
+    exchange (``halo.LAUNCHES``)."""
     n = kernel.launches
     n = sum(n.values()) if isinstance(n, dict) else n
-    return n + getattr(kernel, 'prepass_launches', 0)
+    return n + getattr(kernel, 'prepass_launches', 0) \
+        + sum(halo.LAUNCHES.values())
 
 
 def union_length(intervals):
