@@ -88,7 +88,7 @@ version on the card from seeded random states:
   against ``step_reference`` in codes (``MIXED_CASES``: the cavities, each
   force model, MRT at tau != 1, LES, the incompressible equilibrium,
   half-way, TMS and slip walls, varying inlets along z and x, time-only and
-  space-and-time rows, shapes that are no multiple of the block; 200
+  space-and-time rows, shapes that are no multiple of the block; 100
   steps, the criterion of ``torch_scenes.mixed_errors``), every one of the
   65,536 codes of every direction through the kernel's own conversions,
   the shear-wave viscosity on it, and the scenes the mode refuses;
@@ -109,7 +109,7 @@ version on the card from seeded random states:
 * the same kernel on the D3Q15 and D3Q27 lattices (``csrc/
   lbm_step_lattices.cu``: BGK with either equilibrium, each force model,
   wall rows or not; ``lattice_compare``) against ``step_reference`` on the
-  same lattice, every instantiation class at 64^3 for 200 steps on the lid
+  same lattice, every instantiation class at 64^3 for 100 steps on the lid
   cavity and on a half-way or TMS box; and the runner's device hooks: an
   int16 cavity whose final state a strided hook leaves bitwise unchanged
   (``mixed_hook_bitwise``), a checkpoint with the Reynolds hook's state
@@ -123,7 +123,16 @@ version on the card from seeded random states:
   and D2Q9 1024x512, the outlet normal to x or to z / y and the force
   models in turns, one launch and 200 steps (the pre-pass against its
   plain version); and the outflow scenes the kernels refuse
-  (``outflow_refusals``) raise on the default engine, naming the reason.
+  (``outflow_refusals``) raise on the default engine, naming the reason;
+* on a one-axis mesh with its shards on the card (``parallel/halo.py``,
+  ``parallel/halo_multi.py``): the ghost-plane mode and the
+  ``halo_exchange`` kernel against their plain versions, one scene per
+  mode class over 2 shards the unsharded run's bits (``mesh_bitwise``),
+  and the Shan-Chen and free-energy ghost modes (``MESH_MULTI_CASES``:
+  K = 3 forced with walls, walls, Rayleigh-Taylor, FE-MRT, wetting in 3D
+  and 2D, single-component Shan-Chen; 2 shards, 20 steps): both exchange
+  kernels against their plain versions on random buffers, the ghost-mode
+  pre-pass and step against theirs, the unsharded kernel's bits.
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
@@ -181,7 +190,17 @@ D2Q9 8192x2048, each with a force object whose drag is sampled after every
 launch per step, the idle share of one more chunk traced with
 ``torch.profiler`` and the cost of a drag sample; and
 ``laminarize_channel_2d`` 8192x2048, one pre-pass and one step launch per
-step), checks the results, times
+step), the mesh main paths with ``--mesh=1`` (``ldc_3d_zmesh1`` 256^3,
+``ldc_2d_ymesh1`` 4096^2, ``channel_flow_zmesh1``; ``MESH_MULTI_MAIN``:
+``sc_separation_3d_zmesh1``, ``fe_separation_3d_zmesh1`` and
+``sc_phase_separation_3d_zmesh1`` 256^3, ``sc_separation_2d_ymesh1``,
+``fe_separation_2d_ymesh1`` and ``sc_phase_separation_ymesh1`` 4096^2:
+one ghost-mode launch per step, after one ghost-mode pre-pass and one
+density exchange for the couplings, and one exchange; MLUPS in turns
+against the unsharded kernel with the same bits after each turn, ms per
+launch of the ghost-mode kernels and of each exchange; the 3D paths also
+over 2 and 4 shards on the card, 200 steps, the unsharded bits), checks
+the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
 demixing to its end, times every kernel against its plain version and its
@@ -409,10 +428,12 @@ COLLISION_TIMED = {'mrt': dict(model='mrt'),
 MIXED_MAIN = {'ldc_3d_mixed': ('ldc_3d', (256, 256, 256)),
               'ldc_2d_mixed': ('ldc_2d', (4096, 4096))}
 MIXED_RANGE = 0.5
-#: the mixed mode's kernel-vs-plain cases, 200 steps each (criterion:
-#: ``torch_scenes.mixed_errors``): (name, sim class, flags, first
-#: iteration); 100 x 60 x 40 and 1000 x 600 are no multiple of the block
-MIXED_STEPS = 200
+#: the mixed mode's kernel-vs-plain cases, 100 steps each (200 until the
+#: smoke's time was cut for the Shan-Chen and free-energy mesh paths;
+#: criterion: ``torch_scenes.mixed_errors``): (name, sim class, flags,
+#: first iteration); 100 x 60 x 40 and 1000 x 600 are no multiple of the
+#: block
+MIXED_STEPS = 100
 MIXED_CUBE = dict(lat_nx=64, lat_ny=64, lat_nz=64)
 MIXED_SQ = dict(lat_nx=1024, lat_ny=512)
 MIXED_CASES = [
@@ -665,6 +686,23 @@ NODE_BYTES = {
     # crossing directions (5 / 3) of both ghost planes, read and written
     'halo_exchange_d3q19': 2 * 5 * 2 * 4,
     'halo_exchange_d2q9': 2 * 3 * 2 * 4,
+    # the ghost modes of the Shan-Chen and free-energy paths: the
+    # unsharded kernels' bytes per node of the domain (K = 2 for the
+    # pre-pass, whose time the mixtures' path gives)
+    'rho_poststream_ghost_d3q19': sc_prepass_bytes('D3Q19', 2),
+    'rho_poststream_ghost_d2q9': sc_prepass_bytes('D2Q9', 2),
+    'sc_multi_ghost_d3q19': sc_step_bytes('D3Q19', 2),
+    'sc_multi_ghost_d2q9': sc_step_bytes('D2Q9', 2),
+    'fe_step_ghost_d3q19': 2 * 2 * 19 * 4 + 4 + 1,
+    'fe_step_ghost_d2q9': 2 * 2 * 9 * 4 + 4 + 1,
+    'lbm_step_ghost_sc_d3q19': BYTES['D3Q19'] + 4,
+    'lbm_step_ghost_sc_d2q9': BYTES['D2Q9'] + 4,
+    'rho_poststream_nk1_ghost_d3q19': sc_prepass_bytes('D3Q19', 1),
+    'rho_poststream_nk1_ghost_d2q9': sc_prepass_bytes('D2Q9', 1),
+    # the density exchange, per node of a plane: the K = 2 densities of
+    # both ghost planes, read and written
+    'halo_rho_exchange_d3q19': 2 * 2 * 2 * 4,
+    'halo_rho_exchange_d2q9': 2 * 2 * 2 * 4,
 }
 #: fp32 operations per direction of an ELBM node on the series branch
 #: (``NODE_OPS``)
@@ -740,6 +778,15 @@ NODE_OPS = {
     'lbm_step_ghost_d3q19': 23 * 19, 'lbm_step_ghost_d2q9': 23 * 9,
     'lbm_step_ghost_wall_d3q19': 33 * 19,
     'halo_exchange_d3q19': 2 * 5, 'halo_exchange_d2q9': 2 * 3,
+    'rho_poststream_ghost_d3q19': 2 * 19, 'rho_poststream_ghost_d2q9': 2 * 9,
+    'sc_multi_ghost_d3q19': 2 * (23 * 19 + 6 * 19),
+    'sc_multi_ghost_d2q9': 2 * (23 * 9 + 4 * 9),
+    'fe_step_ghost_d3q19': 2 * 40 * 19, 'fe_step_ghost_d2q9': 2 * 40 * 9,
+    'lbm_step_ghost_sc_d3q19': (23 + 14) * 19,
+    'lbm_step_ghost_sc_d2q9': (23 + 14) * 9,
+    'rho_poststream_nk1_ghost_d3q19': 19,
+    'rho_poststream_nk1_ghost_d2q9': 9,
+    'halo_rho_exchange_d3q19': 2 * 2, 'halo_rho_exchange_d2q9': 2 * 2,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
@@ -848,6 +895,33 @@ KERNELS = {
     'halo_exchange_d3q19': ('halo.cu', 'sailfish_tpu/ops/pallas_step.py:812'),
     'halo_exchange_d2q9': ('halo.cu',
                            'sailfish_tpu/ops/pallas_step2d.py:36'),
+    # the sharded (edge_io / emit_rho) modes of the pre-pass and the
+    # mixture and free-energy steps, the sc mode on a slab, and the
+    # density exchange that feeds their ghost planes
+    'rho_poststream_ghost_d3q19': ('sc_multi.cu',
+                                   'sailfish_tpu/ops/pallas_step.py:2409'),
+    'rho_poststream_ghost_d2q9': ('sc_multi.cu',
+                                  'sailfish_tpu/ops/pallas_step2d.py:1069'),
+    'sc_multi_ghost_d3q19': ('sc_multi.cu',
+                             'sailfish_tpu/ops/pallas_multi3d.py:57'),
+    'sc_multi_ghost_d2q9': ('sc_multi.cu',
+                            'sailfish_tpu/ops/pallas_multi2d.py:91'),
+    'fe_step_ghost_d3q19': ('fe_step.cu',
+                            'sailfish_tpu/ops/pallas_multi3d.py:820'),
+    'fe_step_ghost_d2q9': ('fe_step.cu',
+                           'sailfish_tpu/ops/pallas_multi2d.py:756'),
+    'lbm_step_ghost_sc_d3q19': ('lbm_step.cu',
+                                'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_ghost_sc_d2q9': ('lbm_step.cu',
+                               'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'rho_poststream_nk1_ghost_d3q19': (
+        'sc_multi.cu', 'sailfish_tpu/ops/pallas_step.py:2409'),
+    'rho_poststream_nk1_ghost_d2q9': (
+        'sc_multi.cu', 'sailfish_tpu/ops/pallas_step2d.py:1069'),
+    'halo_rho_exchange_d3q19': ('halo.cu',
+                                'sailfish_tpu/ops/pallas_multi3d.py:57'),
+    'halo_rho_exchange_d2q9': ('halo.cu',
+                               'sailfish_tpu/ops/pallas_multi2d.py:91'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -953,6 +1027,44 @@ MODES = {
                            'halo.py:361-362 (no Pallas kernel of its own)',
     'halo_exchange_d2q9': 'make_kernel_2d, sharded mode: its ghost rows, '
                           'moved by ppermute (ShardedPallasStep2D)',
+    'rho_poststream_ghost_d3q19': 'make_rho_kernel_3d on a z shard '
+                                  '(ShardedPallasSCMulti3D / ShardedPallasFE3D'
+                                  ', sailfish_tpu/parallel/halo_multi.py:58, '
+                                  ':339), K = 2 (nk = 1 for free energy)',
+    'rho_poststream_ghost_d2q9': 'make_rho_kernel_2d on a y shard '
+                                 '(ShardedPallasSCMulti2D / ShardedPallasFE2D'
+                                 ', halo_multi.py:816, :1230)',
+    'sc_multi_ghost_d3q19': 'make_kernel_3d_sc_multi, edge_io / emit_rho '
+                            'mode (pallas_multi3d.py:57-60): the step over '
+                            'a z shard and its ghost planes; '
+                            'sc_separation_3d on --mesh=1',
+    'sc_multi_ghost_d2q9': 'make_kernel_2d_sc_multi, edge_io mode '
+                           '(pallas_multi2d.py:91-94); sc_separation_2d '
+                           'on --mesh=1',
+    'fe_step_ghost_d3q19': 'make_kernel_3d_fe, edge_io / emit_phi mode '
+                           '(pallas_multi3d.py:820-829; two phi ghost planes '
+                           'under wetting); fe_separation_3d on --mesh=1',
+    'fe_step_ghost_d2q9': 'make_kernel_2d_fe, edge_io / emit_phi mode '
+                          '(pallas_multi2d.py:756-758); fe_separation_2d '
+                          'on --mesh=1',
+    'lbm_step_ghost_sc_d3q19': 'make_kernel_3d, sc mode on a z shard '
+                               '(edge_io, sailfish_tpu/parallel/halo.py'
+                               ':296-339); sc_phase_separation_3d on '
+                               '--mesh=1',
+    'lbm_step_ghost_sc_d2q9': 'make_kernel_2d, sc mode on a y shard '
+                              '(edge_io, halo.py:893-921); '
+                              'sc_phase_separation on --mesh=1',
+    'rho_poststream_nk1_ghost_d3q19': 'make_rho_kernel_3d, nk = 1 on a z '
+                                      'shard',
+    'rho_poststream_nk1_ghost_d2q9': 'make_rho_kernel_2d, nk = 1 on a y '
+                                     'shard',
+    'halo_rho_exchange_d3q19': 'the post-stream density edges of a z shard '
+                               '(stream_rho_edges, sailfish_tpu/parallel/'
+                               'halo.py:51-107, and the rglo / rghi '
+                               'ppermutes :476-477; no Pallas kernel of its '
+                               'own), K = 2',
+    'halo_rho_exchange_d2q9': 'the post-stream density edge rows of a y '
+                              'shard (ShardedPallasSCMulti2D), K = 2',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -2906,11 +3018,12 @@ def plain_path(scene, sim_cls, size, chunk, chunks=2):
 
 
 #: the lattices of the D3Q15 / D3Q27 library and their comparison scenes
-#: at 64^3, 200 steps: the lid cavity carries every class without wall rows
-#: (each force model, the compressible and the incompressible
-#: equilibrium), a half-way box closed on every axis (a TMS box for the
-#: incompressible equilibrium) every class with them
-LATTICE_STEPS = 200
+#: at 64^3, 100 steps (200 until the smoke's time was cut for the
+#: Shan-Chen and free-energy mesh paths): the lid cavity carries every
+#: class without wall rows (each force model, the compressible and the
+#: incompressible equilibrium), a half-way box closed on every axis (a TMS
+#: box for the incompressible equilibrium) every class with them
+LATTICE_STEPS = 100
 LATTICE_CUBE = dict(lat_nx=64, lat_ny=64, lat_nz=64)
 #: the turbulence main paths: Kida's vortex at the scene's defaults on
 #: D3Q15 256^3 with its KE/enstrophy hook every 20 steps, and the channel
@@ -3829,6 +3942,365 @@ def channel_flow_mesh_path(copy_bw, chunk=500, chunks=2, cfg=CHANNEL_MESH,
                 mesh_over_unsharded=m / u)
 
 
+#: the Shan-Chen and free-energy main paths on a one-axis mesh, through
+#: the controller with --mesh=1 on the kernel engine: path -> (sim class,
+#: size); the 3D ones also over 2 and 4 shards on the one card
+MESH_MULTI_MAIN = {
+    'sc_separation_3d_zmesh1': (SEP_3D, (256, 256, 256)),
+    'fe_separation_3d_zmesh1': (FE['fe_separation_3d'], (256, 256, 256)),
+    'sc_phase_separation_3d_zmesh1': (SC_3D, (256, 256, 256)),
+    'sc_separation_2d_ymesh1': (SEP_2D, (4096, 4096)),
+    'fe_separation_2d_ymesh1': (FE['fe_separation_2d'], (4096, 4096)),
+    'sc_phase_separation_ymesh1': (SC_2D, (4096, 4096)),
+}
+#: the ghost-mode kernels and both exchanges against their plain versions
+#: over 2 shards on the card, 20 steps, and the sharded run's bits against
+#: the unsharded kernel's: K = 3 with forces and walls, walls across the
+#: shard boundary, Guo forcing in 2D, FE-MRT, wetting in 3D (z cut from
+#: 37 to 36 to split evenly) and 2D, single-component Shan-Chen
+MESH_MULTI_CASES = {
+    'ternary_3d_walls_forced': (
+        forced_mixture(ternary_separation(3, walls=True)),
+        dict(lat_nx=128, lat_ny=128, lat_nz=128)),
+    'sc_separation_3d_walls': (SEP_3D_WALLS,
+                               dict(lat_nx=128, lat_ny=128, lat_nz=128)),
+    'sc_rayleigh_taylor_2d': (RT_2D, dict(lat_nx=1024, lat_ny=1024)),
+    'fe_separation_3d_mrt': (FE['fe_separation_3d'],
+                             dict(lat_nx=128, lat_ny=128, lat_nz=128,
+                                  model='mrt', tau_a=3.0, tau_b=0.8)),
+    'fe_viscous_fingering': (FE['fe_viscous_fingering'],
+                             dict(lat_nx=320, lat_ny=101, lat_nz=36)),
+    'fe_poiseuille_2d_wetting': (FE['fe_poiseuille_2d'],
+                                 dict(lat_nx=1024, lat_ny=512,
+                                      bc_wall_grad_phase=0.05)),
+    'sc_phase_separation_3d': (SC_3D,
+                               dict(lat_nx=128, lat_ny=128, lat_nz=128)),
+    'sc_phase_separation': (SC_2D, dict(lat_nx=1024, lat_ny=1024)),
+}
+
+
+def leaves(f):
+    """The components of a state: (f,) of a single fluid's tensor."""
+    return (f,) if torch.is_tensor(f) else tuple(f)
+
+
+def same_bits(a, b):
+    """(whether the states ``a`` and ``b`` are equal bit for bit, their
+    largest difference)."""
+    pairs = list(zip(leaves(a), leaves(b)))
+    return (all(torch.equal(x, y) for x, y in pairs),
+            max(float((x - y).abs().max()) for x, y in pairs))
+
+
+def reset_all_counts():
+    """Zero the launch counts of every kernel engine and of the
+    exchanges."""
+    for counts in (ls.LAUNCHES, sm.LAUNCHES, fe.LAUNCHES, halo.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def kernel_counts():
+    """The launch counts of every kernel engine, one dict."""
+    return {**ls.LAUNCHES, **sm.LAUNCHES, **fe.LAUNCHES}
+
+
+def density_of(stp, ks):
+    """A shard kernel's density buffer: phi of the free-energy model, the
+    (K, ...) densities of a mixture, a single fluid's rho."""
+    return ks.phi if getattr(stp, 'fe', False) else ks.rho
+
+
+def shard_prepass(stp, ks, src):
+    """The shard kernel's pre-pass from its buffer ``src``."""
+    if getattr(stp, 'fe', False):
+        ks.phi_into(src, ks.phi)
+    else:
+        ks.density_into(src, ks.rho)
+
+
+def shard_step(stp, ks, src, dst):
+    """The shard kernel's step from ``src`` into ``dst`` after its
+    pre-pass."""
+    if hasattr(stp, 'K'):
+        ks.collide_into(src, density_of(stp, ks), dst)
+    else:
+        ks.collide_into(src, dst)
+
+
+def shard_prepass_plain(stp, src):
+    """The plain pre-pass of a shard buffer ``src``."""
+    if getattr(stp, 'fe', False):
+        return sm.rho_reference(src[1], stp.grid)
+    if hasattr(stp, 'K'):
+        return torch.stack([sm.rho_reference(f, stp.grid) for f in src])
+    return sm.rho_reference(src, stp.grid)
+
+
+def shard_step_plain(stp, ks, src):
+    """The plain step of a shard buffer ``src`` from its kernel's density
+    buffer."""
+    rho = density_of(stp, ks)
+    if getattr(stp, 'fe', False):
+        return fe.fe_step_reference(src.unbind(0), rho, ks.mask, ks.orient,
+                                    ks.builder)
+    if hasattr(stp, 'K'):
+        return ks.reference(src.unbind(0), rho.unbind(0))
+    return ks.reference(src, rho)
+
+
+def exchanges_check(stp):
+    """Both exchange kernels of ``stp`` on random buffers of its shards'
+    shapes against their plain versions: (max |d| of the distributions'
+    exchange, of the density exchange)."""
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    bufs = [torch.rand(ks.a.shape, generator=g, device=DEVICE)
+            for ks in stp.kernels]
+    ref = [b.clone() for b in bufs]
+    if hasattr(stp, 'K'):
+        stp.exchange_buffers(bufs)
+        stp.exchange_reference([r.unbind(0) for r in ref])
+    else:
+        stp.exchange(bufs)
+        stp.exchange_reference(ref)
+    rhos = [torch.rand(density_of(stp, ks).shape, generator=g,
+                       device=DEVICE) for ks in stp.kernels]
+    rref = [r.clone() for r in rhos]
+    stp.density_exchange(rhos)
+    stp.density_exchange_reference(rref)
+    return (max(float((a - b).abs().max()) for a, b in zip(bufs, ref)),
+            max(float((a - b).abs().max()) for a, b in zip(rhos, rref)))
+
+
+def mesh_multi_compare(name, sim_cls, cfg, steps=20):
+    """The scene over 2 shards on the card: both exchange kernels against
+    their plain versions (the same bits), the ghost-mode pre-pass against
+    its plain version on the scene's start (<= ``RHO_TOL``), ``steps``
+    steps of the sharded kernel run against the plain version of the
+    sharded step (wet max |df| <= ``TOL``) and against the unsharded
+    kernel run (the same bits). Returns {kernel name: error}."""
+    with pmesh.devices_override([DEVICE] * 2):
+        r = run(sim_cls, max_iters=0, mesh='2', seed=1, **cfg)
+    stp = r.stepper
+    x_err, xr_err = exchanges_check(stp)
+    f0 = tuple(f.clone() for f in leaves(r.f))
+    f0 = f0[0] if torch.is_tensor(r.f) else f0
+    s0 = stp.run(f0, 0)
+    rho_err = 0.0
+    for ks, part in zip(stp.kernels, s0.parts):
+        src = part if torch.is_tensor(part) else ks._buffer_of(part)
+        shard_prepass(stp, ks, src)
+        g0 = stp.ghost
+        d = (density_of(stp, ks) - shard_prepass_plain(stp, src)).narrow(
+            -len(ks.shape), g0, stp.length)
+        rho_err = max(rho_err, float(d.abs().max()))
+    fk = stp.gather(stp.run(f0, steps))
+    sr = stp.shard(f0)
+    for i in range(steps):
+        sr = stp.reference(sr, i)
+    fr = stp.gather(sr)
+    wet = torch.as_tensor(wet_map(r.maps), device=DEVICE)
+    err = max(float((a - b)[:, wet].abs().max())
+              for a, b in zip(leaves(fk), leaves(fr)))
+    flat = r._kernel_engine(r.builder)
+    fu = flat.run(f0, steps)
+    same, diff = same_bits(fk, fu)
+    ks = stp.kernels[0]
+    say(f'compare mesh {name}: {r.sim.grid.name} {tuple(r._domain_shape())}'
+        f' over 2 shards (ghost {stp.ghost}; {ks.rho_name}, {ks.name}): '
+        f'{stp.name} and {stp.rho_name} against their plain versions on '
+        f'random buffers max |d| {x_err:g} / {xr_err:g}; pre-pass '
+        f'max|drho| = {rho_err:.3e} (tol {RHO_TOL:g}); {steps} steps against '
+        f'the plain version wet max|df| = {err:.3e} (tol {TOL:g}); the '
+        f'unsharded kernel\'s bits: {same} (max |df| {diff:.3e})')
+    assert x_err == 0.0 and xr_err == 0.0, (x_err, xr_err)
+    assert rho_err <= RHO_TOL, rho_err
+    assert np.isfinite(err) and err <= TOL, err
+    assert same, diff
+    out = {ks.name: err, ks.rho_name: rho_err, stp.name: x_err,
+           stp.rho_name: xr_err}
+    del r, stp, s0, fk, sr, fr, fu, flat, ks, f0
+    torch.cuda.empty_cache()
+    return out
+
+
+def plan_ms(stp, plan, iters=2000):
+    """Device milliseconds per launch of the exchange kernel with the one
+    parameter block of ``plan`` (shards on one card), called back to back
+    from C (CUDA events), as ``exchange_kernel_ms`` times it."""
+    (_device, params, _peers), = plan
+    params = ctypes.byref(params)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = stp._fn
+
+    def launch():
+        rc = fn(params, stream)
+        if rc != 0:
+            raise RuntimeError(f'{stp.name} launch failed: error {rc}')
+
+    return util.cuda_time_ms(launch, iters, warmup=10)
+
+
+def mesh_multi_main_path(path, sim_cls, size, copy_bw, chunk=250, chunks=2,
+                         turn_steps=100):
+    """A Shan-Chen or free-energy scene through the controller with
+    ``--mesh=1`` on the kernel engine: per step one ghost-mode pre-pass,
+    one ``halo_rho_exchange``, one ghost-mode step and one
+    ``halo_exchange`` launch, nothing else (counts zeroed just before and
+    read just after). Then, on the main path's own state: 10 steps against
+    the plain version of the sharded step; in turns against the unsharded
+    kernel on the same builder (MLUPS over ``turn_steps``, the same bits
+    after each turn); ms per launch of the ghost-mode pre-pass and step
+    against the unsharded ones in turns, of both exchanges from C, and
+    their plain versions; in 3D the state over ``MESH_SHARDS`` shards on
+    the one card, 200 steps, the unsharded kernel's bits. Returns {JSON
+    row: measurements}."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    steps = chunk * chunks
+    reset_all_counts()
+    r = run(sim_cls, max_iters=steps, every=chunk, mesh='1', seed=1, **cfg)
+    counts, xcounts = kernel_counts(), dict(halo.LAUNCHES)
+    stp = r.stepper
+    grid = r.sim.grid.name
+    g = grid.lower()
+    ks = stp.kernels[0]
+    assert r.engine == 'kernel' and r.kernel is stp and stp.mesh.size == 1
+    assert 'ghost_' in ks.name and 'ghost_' in ks.rho_name, ks.name
+    assert counts[ks.name] == counts[ks.rho_name] == steps \
+        == r.sim.iteration, counts
+    assert sum(counts.values()) == 2 * steps, counts
+    assert xcounts[stp.name] == xcounts[stp.rho_name] == steps \
+        == sum(xcounts.values()) // 2, xcounts
+    assert stp.is_finite(r.state)
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    for field in ('rho', 'vx') + (('phi',) if hasattr(stp, 'K') else ()):
+        arr = getattr(r.sim, field)
+        assert arr.shape == shape and np.all(np.isfinite(arr)), field
+    mlups = statistics.median(r.mlups_history[1:])
+    say(f'main path {path} {"x".join(map(str, size))} ({grid}, engine '
+        f'{r.engine}, --mesh=1, ghost {stp.ghost}): {steps} {ks.rho_name} + '
+        f'{steps} {stp.rho_name} + {steps} {ks.name} + {steps} {stp.name} '
+        f'launches; MLUPS per {chunk}-step chunk '
+        f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f}')
+    f0 = tuple(f.clone() for f in leaves(r.f))
+    f0 = f0[0] if torch.is_tensor(r.f) else f0
+    wet = torch.as_tensor(wet_map(r.maps), device=DEVICE)
+    fk = stp.gather(stp.run(f0, 10, steps))
+    s = stp.shard(f0)
+    for i in range(10):
+        s = stp.reference(s, steps + i)
+    err = max(float((a - b)[:, wet].abs().max())
+              for a, b in zip(leaves(fk), leaves(stp.gather(s))))
+    say(f'compare main path {path}: 10 steps from the state after {steps}, '
+        f'wet max|df| = {err:.3e} (tol {TOL:g})')
+    assert np.isfinite(err) and err <= TOL, err
+    del s, fk
+    flat = r._kernel_engine(r.builder)
+    nodes = int(np.prod(size))
+    mesh_m, flat_m = [], []
+    fm = fu = f0
+    for _ in range(2):
+        m, sm_ = host_mlups(lambda: stp.run(fm, turn_steps), nodes,
+                            turn_steps)
+        u, fu = host_mlups(lambda: flat.run(fu, turn_steps), nodes,
+                           turn_steps)
+        fm = stp.gather(sm_)
+        same, diff = same_bits(fm, fu)
+        assert same, diff
+        fu = tuple(f.clone() for f in leaves(fu))
+        fu = fu[0] if torch.is_tensor(r.f) else fu
+        mesh_m.append(m)
+        flat_m.append(u)
+    m_med, u_med = statistics.median(mesh_m), statistics.median(flat_m)
+    say(f'{path}: {turn_steps}-step runs in turns from the same state, '
+        f'--mesh=1 {[round(v, 1) for v in mesh_m]} against unsharded '
+        f'{[round(v, 1) for v in flat_m]} MLUPS: {m_med / u_med:.4f} of it; '
+        f'the two states equal bit for bit after each turn')
+    ga, gb = ks.a, ks.b
+    ua, ub = flat.a, flat.b
+    times = {k: [] for k in ('pre', 'step', 'upre', 'ustep')}
+    for _ in range(2):
+        times['pre'].append(util.cuda_time_ms(
+            lambda: shard_prepass(stp, ks, ga), 50, warmup=5))
+        times['step'].append(util.cuda_time_ms(
+            lambda: shard_step(stp, ks, ga, gb), 50, warmup=5))
+        times['upre'].append(util.cuda_time_ms(
+            lambda: shard_prepass(stp, flat, ua), 50, warmup=5))
+        times['ustep'].append(util.cuda_time_ms(
+            lambda: shard_step(stp, flat, ua, ub), 50, warmup=5))
+    pre_ms, ms, upre_ms, u_ms = (statistics.median(times[k]) for k in
+                                 ('pre', 'step', 'upre', 'ustep'))
+    plain_pre = util.cuda_time_ms(lambda: shard_prepass_plain(stp, ga), 5)
+    plain_ms = util.cuda_time_ms(lambda: shard_step_plain(stp, ks, ga), 3)
+    bufs = [ks.a]
+    if hasattr(stp, 'K'):
+        stp.exchange_buffers(bufs)
+        x_plain = util.cuda_time_ms(
+            lambda: stp.exchange_reference([b.unbind(0) for b in bufs]), 20,
+            warmup=2)
+    else:
+        stp.exchange(bufs)
+        x_plain = util.cuda_time_ms(lambda: stp.exchange_reference(bufs),
+                                    20, warmup=2)
+    rhos = [density_of(stp, ks)]
+    stp.density_exchange(rhos)
+    x_ms = plan_ms(stp, stp._plans['f'][1])
+    xr_ms = plan_ms(stp, stp._plans['rho'][1])
+    xr_plain = util.cuda_time_ms(
+        lambda: stp.density_exchange_reference(rhos), 20, warmup=2)
+    plane = int(np.prod(size[1:]))
+    say(f'kernel {ks.rho_name} at {"x".join(map(str, size))} (one shard of '
+        f'{tuple(ks.shape)}): {pre_ms:.4f} ms per launch against '
+        f'{upre_ms:.4f} unsharded, in turns ({pre_ms / upre_ms:.4f}); plain '
+        f'{plain_pre:.3f} ms')
+    say(f'kernel {ks.name} at {"x".join(map(str, size))}: {ms:.4f} ms per '
+        f'launch against {u_ms:.4f} unsharded, in turns ({ms / u_ms:.4f}); '
+        f'plain {plain_ms:.3f} ms')
+    say(f'{path}: {stp.name} {x_ms:.5f} ms and {stp.rho_name} {xr_ms:.5f} '
+        f'ms per launch from C ({plane} nodes per plane; plain versions '
+        f'{x_plain:.4f} / {xr_plain:.4f} ms); the two exchanges '
+        f'{(x_ms + xr_ms) / (pre_ms + ms):.4f} of a step')
+    rows = {
+        ks.name: dict(launches=steps, ms=ms, plain_ms=plain_ms, err=err,
+                      mlups=mlups, unsharded_ms=u_ms, mesh_mlups=m_med,
+                      unsharded_mlups=u_med,
+                      mesh_over_unsharded=m_med / u_med,
+                      exchange_ms=x_ms + xr_ms),
+        ks.rho_name: dict(launches=steps, ms=pre_ms, plain_ms=plain_pre,
+                          err=0.0, unsharded_ms=upre_ms),
+        stp.name: dict(launches=steps, ms=x_ms, plain_ms=x_plain, err=0.0,
+                       nodes=plane),
+        stp.rho_name: dict(launches=steps, ms=xr_ms, plain_ms=xr_plain,
+                           err=0.0, nodes=plane),
+    }
+    if len(size) == 3:
+        shards = {}
+        start = fu
+        ref = tuple(f.clone() for f in leaves(flat.run(start, 200)))
+        for n in MESH_SHARDS:
+            sn = type(stp)(r.builder, r._domain_shape(), mesh_of(n, 3),
+                           'kernel')
+            mn, out = host_mlups(lambda: sn.run(start, 200), nodes, 200)
+            un, _ = host_mlups(lambda: flat.run(start, 200), nodes, 200)
+            same, diff = same_bits(sn.gather(out), ref if len(ref) > 1
+                                   else ref[0])
+            say(f'{path} over {n} shards on the one card '
+                f'({tuple(sn.kernels[0].shape)} each): 200 steps equal to '
+                f'the unsharded kernel\'s bit for bit: {same}; {mn:.1f} '
+                f'MLUPS against {un:.1f} unsharded, in turns '
+                f'({mn / un:.4f})')
+            assert same, diff
+            shards[n] = dict(mlups=mn, unsharded_mlups=un)
+            del sn, out
+            torch.cuda.empty_cache()
+        rows[ks.name]['shards'] = shards
+        del ref, start
+    del r, stp, ks, flat, f0, fm, fu, ga, gb, ua, ub, bufs, rhos, wet
+    torch.cuda.empty_cache()
+    return rows
+
+
 #: the lbm_step libraries and the other sources the smoke builds
 LBM_LIBRARIES = list(ls.LIBRARIES.values()) \
     + list(ls.MIXED_LIBRARIES.values()) + [ls.LATTICES_LIBRARY,
@@ -4194,6 +4666,10 @@ def main():
         note(name.replace('lbm_step_ghost', 'halo_exchange'), x_err)
     for name, (sim_cls, cfg) in MESH_BITWISE.items():
         mesh_bitwise(name, sim_cls, cfg)
+    # the Shan-Chen and free-energy ghost modes and both exchanges
+    for name, (sim_cls, cfg) in MESH_MULTI_CASES.items():
+        for key, err in mesh_multi_compare(name, sim_cls, cfg).items():
+            note(key, err)
     phase_done('kernel comparisons (mesh)')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
@@ -4390,6 +4866,17 @@ def main():
         # Shan-Chen paths' K = 2 stays in the JSON line
         merge_rows(results, fe_main_path(scene, FE[scene], size, copy_bw))
     phase_done('main paths')
+    for path, (sim_cls, size) in MESH_MULTI_MAIN.items():
+        rows = mesh_multi_main_path(path, sim_cls, size, copy_bw)
+        step = next(k for k in rows if k.startswith(('sc_multi', 'fe_step',
+                                                      'lbm_step')))
+        flat = results[step.replace('ghost_', '', 1)]
+        say(f'{path}: {rows[step]["mlups"]:.1f} MLUPS against '
+            f'{flat["mlups"]:.1f} on the unsharded main path '
+            f'({rows[step]["mlups"] / flat["mlups"]:.4f}); in turns '
+            f'{rows[step]["mesh_over_unsharded"]:.4f}')
+        merge_rows(results, rows)
+    phase_done('Shan-Chen and free-energy mesh main paths')
     fe_mrt_time()
     fe_demix()
     # chunks of about a second of the plain engine each

@@ -48,8 +48,10 @@ KERNEL_GRIDS = ('D2Q9', 'D3Q19')
 #: ``sc_multi.tile_launch``
 TILE_3D = (128, 2, 8)
 #: step-kernel launches per kernel name over all ``FEStep`` objects (the
-#: pre-pass counts in ``sc_multi.LAUNCHES``, beside its Shan-Chen use)
-LAUNCHES = dict.fromkeys((f'fe_step_{g.lower()}' for g in KERNEL_GRIDS), 0)
+#: pre-pass counts in ``sc_multi.LAUNCHES``, beside its Shan-Chen use); on
+#: a shard's ghost-plane buffers ``fe_step_ghost_<grid>``
+LAUNCHES = dict.fromkeys((f'fe_step_{v}{g.lower()}' for v in ('', 'ghost_')
+                          for g in KERNEL_GRIDS), 0)
 
 
 def reset_launch_counts():

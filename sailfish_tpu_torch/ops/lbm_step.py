@@ -117,8 +117,9 @@ OUTFLOW_LIBRARY = 'lbm_step_outflow'
 #: laminarize pre-pass, when it has a laminarize row, as
 #: ``laminarize_mean_<grid>``. A launch on a shard's ghost-plane buffers
 #: (``parallel/halo.py``) counts under its key with ``ghost_`` after
-#: ``lbm_step_`` (``lbm_step_ghost_<kind><grid>``; the Shan-Chen and
-#: outflow kinds are refused on a mesh).
+#: ``lbm_step_`` (``lbm_step_ghost_<kind><grid>``; the outflow kind is
+#: refused on a mesh), the Shan-Chen pre-pass of a shard as
+#: ``rho_poststream_nk1_ghost_<grid>``.
 LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'elbm_',
                 'sw_', 'sc_', 'wall_', 'dyn_', 'mixed_', 'outflow_')
 #: the kinds a launch on one of ``OTHER_LATTICES`` can be (BGK only, fp32)
@@ -126,12 +127,13 @@ OTHER_LATTICE_KINDS = ('', 'vary_', 'force_', 'incomp_', 'wall_', 'dyn_')
 LAUNCHES = dict.fromkeys(
     [f'lbm_step_{v}{g.lower()}' for v in LAUNCH_KINDS
      for g in ('D2Q9', 'D3Q19')]
-    + [f'rho_poststream_nk1_{g}' for g in ('d2q9', 'd3q19')]
+    + [f'rho_poststream_nk1_{v}{g}' for v in ('', 'ghost_')
+       for g in ('d2q9', 'd3q19')]
     + [f'laminarize_mean_{g}' for g in ('d2q9', 'd3q19')]
     + [f'lbm_step_{v}{g.lower()}' for v in OTHER_LATTICE_KINDS
        for g in OTHER_LATTICES]
     + [f'lbm_step_ghost_{v}{g.lower()}' for v in LAUNCH_KINDS
-       for g in ('D2Q9', 'D3Q19') if v not in ('sc_', 'outflow_')]
+       for g in ('D2Q9', 'D3Q19') if v != 'outflow_']
     + [f'lbm_step_ghost_{v}{g.lower()}' for v in OTHER_LATTICE_KINDS
        for g in OTHER_LATTICES], 0)
 #: rewrites of a block of the per-node parameter array before a launch (a
@@ -1153,7 +1155,28 @@ class KernelStep:
         once (in the Shan-Chen mode after the pre-pass into ``rho``, with a
         laminarize row after the pre-pass ``mean_into``); on a CPU tensor
         it runs ``step_reference`` (in the Shan-Chen mode with
-        ``density_into``'s densities)."""
+        ``density_into``'s densities). In the Shan-Chen mode it is
+        ``density_into(src, rho)`` then ``collide_into``: a sharded step
+        calls the two with the density exchange between them."""
+        if self.sc:
+            self._check_buffers(src, dst)
+            self.density_into(src, self.rho)
+        self.collide_into(src, dst, it)
+
+    def collide_into(self, src, dst, it=0):
+        """Step ``it`` from ``src`` into ``dst`` as ``step_into`` makes it,
+        without the Shan-Chen pre-pass: that mode reads the densities
+        ``rho`` holds."""
+        self._check_buffers(src, dst)
+        self.set_iteration(it)
+        if src.device.type == 'cpu':
+            dst.copy_(self.reference(src, self.rho))
+        else:
+            if self.lam is not None:
+                self.mean_into(src, self.lam.mean)
+            self._launch(src, dst)
+
+    def _check_buffers(self, src, dst):
         full = (self.grid.Q,) + self.shape
         for t in (src, dst):
             if t.dtype != self.dtype or tuple(t.shape) != full:
@@ -1166,15 +1189,6 @@ class KernelStep:
                                  f'{self.mask.device}')
         if src.data_ptr() == dst.data_ptr():
             raise ValueError('the pull step cannot run in place')
-        self.set_iteration(it)
-        if self.sc:
-            self.density_into(src, self.rho)
-        if src.device.type == 'cpu':
-            dst.copy_(self.reference(src, self.rho))
-        else:
-            if self.lam is not None:
-                self.mean_into(src, self.lam.mean)
-            self._launch(src, dst)
 
     def reference(self, f, rho=None):
         """``step_reference`` of this scene on the state ``f``, with the

@@ -154,26 +154,39 @@ class MultigridStepBuilder:
         return [c.fix_missing(c.gather(f), f)
                 for c, f in zip(self.components, state)]
 
+    def stream_phase(self, state):
+        """The step's first phase on the K-tuple ``state``: (fss, rhos),
+        the components' post-stream distributions and densities (what the
+        couplings sample at the neighbours: a sharded step exchanges the
+        densities' ghost planes before ``collide_phase``)."""
+        fss = self._streamed_all(state)
+        return fss, [eq.density(self.grid, fs) for fs in fss]
+
+    def collide_phase(self, fss, rhos, it=0):
+        """The step's second phase from ``stream_phase``'s (fss, rhos) at
+        iteration ``it``: common velocity, BCs, the coupled collision;
+        returns the next K-tuple."""
+        u = self.common_velocity(fss, rhos)
+        # macroscopic BC overrides apply to the fluid component, with its
+        # parameters at this step's iteration
+        rho0, u = self.b0._solve_macro_bc(fss[0], rhos[0], u, it)
+        rhos = [rho0] + list(rhos[1:])
+        fss = [c._pre_collision_bc(fs, rho, u)
+               for c, fs, rho in zip(self.components, fss, rhos)]
+        fposts = self.collide_all(fss, rhos, u)
+        out = []
+        for c, fs, fpost in zip(self.components, fss, fposts):
+            if c.has_dry:
+                fpost = torch.where(c.wet[None], fpost, fs)
+            out.append(c._post_collision(fs, fpost))
+        return tuple(out)
+
     def build(self):
-        """step(state, it=0) -> next state, on K-tuples of (Q, *S)."""
+        """step(state, it=0) -> next state, on K-tuples of (Q, *S):
+        ``collide_phase`` of ``stream_phase``."""
 
         def step(state, it=0):
-            fss = self._streamed_all(state)
-            rhos = [eq.density(self.grid, fs) for fs in fss]
-            u = self.common_velocity(fss, rhos)
-            # macroscopic BC overrides apply to the fluid component, with
-            # its parameters at this step's iteration
-            rho0, u = self.b0._solve_macro_bc(fss[0], rhos[0], u, it)
-            rhos = [rho0] + rhos[1:]
-            fss = [c._pre_collision_bc(fs, rho, u)
-                   for c, fs, rho in zip(self.components, fss, rhos)]
-            fposts = self.collide_all(fss, rhos, u)
-            out = []
-            for c, fs, fpost in zip(self.components, fss, fposts):
-                if c.has_dry:
-                    fpost = torch.where(c.wet[None], fpost, fs)
-                out.append(c._post_collision(fs, fpost))
-            return tuple(out)
+            return self.collide_phase(*self.stream_phase(state), it)
 
         return step
 

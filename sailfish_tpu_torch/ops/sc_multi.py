@@ -65,10 +65,27 @@ MAX_TILE_NODES = 2 ** 31
 #: (K = 3); the pre-pass is ``rho_poststream_<grid>`` for every K
 STEP_MODES = ('sc_multi', 'sc_multi_force', 'sc_multi_k3',
               'sc_multi_k3_force')
-#: kernel launches per kernel name over all ``SCMultiStep`` objects
+#: kernel launches per kernel name over all ``SCMultiStep`` objects; a
+#: launch on a shard's ghost-plane buffers (``parallel/halo_multi.py``)
+#: counts under its key with ``ghost_`` after the kernel's prefix
+#: (``sc_multi_ghost_<grid>``, ``sc_multi_ghost_k3_force_<grid>``,
+#: ``rho_poststream_ghost_<grid>``; ``ghost_name``)
 LAUNCHES = dict.fromkeys(
-    (f'{kind}_{g.lower()}' for kind in ('rho_poststream',) + STEP_MODES
-     for g in KERNEL_GRIDS), 0)
+    (name for kind in ('rho_poststream',) + STEP_MODES
+     for g in KERNEL_GRIDS
+     for name in (f'{kind}_{g.lower()}', f'{kind}_{g.lower()}'
+                  .replace('rho_poststream_', 'rho_poststream_ghost_', 1)
+                  .replace('sc_multi_', 'sc_multi_ghost_', 1))), 0)
+
+
+def ghost_name(name):
+    """The launch key of the kernel ``name`` (``rho_poststream_<...>``,
+    ``sc_multi_<...>``, ``fe_step_<...>``) on a shard's ghost-plane
+    buffers: ``ghost_`` after the kernel's prefix."""
+    for prefix in ('rho_poststream_', 'sc_multi_', 'fe_step_'):
+        if name.startswith(prefix):
+            return prefix + 'ghost_' + name[len(prefix):]
+    raise ValueError(f'no ghost-plane key for {name!r}')
 
 
 def reset_launch_counts():

@@ -604,10 +604,39 @@ def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
     parameters of this step (of ``SCALAR_TYPES``: the scalar in place of
     rho_bc)."""
     feq = feq or equilibrium_fn(grid, incompressible)
+    streamed = stream_phase(grid, fs, f, instances, tags=tags, tms=tms,
+                            feq=feq, ext_gathers=ext_gathers)
+    return collide_phase(
+        grid, streamed, tau_inv, instances, wet=wet, fullbb=fullbb,
+        slip=slip, tms=tms, force=force, force_model=force_model,
+        incompressible=incompressible, rates=rates, smagorinsky=smagorinsky,
+        feq=feq, sc_coupling=sc_coupling, sc_potential=sc_potential,
+        sc_rho=sc_rho, elbm=elbm)
+
+
+def stream_phase(grid, fs, f, instances=(), *, tags=None, tms=None,
+                 feq=None, ext_gathers=()):
+    """The first phase of ``step_phases``: fix missing, then the macroscopic
+    fields and the BC solves. Returns (fs, target, rho, u): the fixed
+    post-stream distributions, the TMS target, and the post-stream density
+    and velocity, the density being what the Shan-Chen force samples at
+    the neighbours (a sharded step exchanges it before ``collide_phase``)."""
     fs, target = fix_missing(grid, fs, f, tags, tms, feq, instances,
                              ext_gathers)
     rho, u = eq.macroscopic(grid, fs)
     rho, u = solve_macro_bc(grid, instances, fs, rho, u)
+    return fs, target, rho, u
+
+
+def collide_phase(grid, streamed, tau_inv, instances=(), *, wet=None,
+                  fullbb=None, slip=(), tms=None, force=None,
+                  force_model='guo', incompressible=False, rates=None,
+                  smagorinsky=0.0, feq=None, sc_coupling=0.0,
+                  sc_potential='linear', sc_rho=None, elbm=None):
+    """The second phase of ``step_phases`` from ``stream_phase``'s result
+    ``streamed``: pre-collision BC, collision, dry select, TMS shift and
+    the Guo density overlay."""
+    fs, target, rho, u = streamed
     fs2 = pre_collision_bc(grid, instances, fs, rho, u, incompressible, feq)
     fpost = forced_collide(grid, fs2, rho, u, tau_inv, force, force_model,
                            incompressible=incompressible, rates=rates,
@@ -892,16 +921,36 @@ class StepBuilder:
 
     def phases(self, fs, f, it=0):
         """``step_phases`` with this builder's maps, and parameters and
-        force at iteration ``it``."""
-        return step_phases(
-            self.grid, fs, f, self.tau_inv, self.instances_at(it),
-            wet=self.wet, fullbb=self.fullbb, slip=self.slip,
-            tags=self.tags, tms=self.tms, force=self.force_at(it),
-            force_model=self.force_model,
+        force at iteration ``it``: ``collide_phase`` of ``stream_phase``."""
+        instances = self.instances_at(it)
+        return self.collide_phase(
+            self.stream_phase(f, it, fs, instances), it, instances=instances)
+
+    def stream_phase(self, f, it=0, fs=None, instances=None):
+        """The step's first phase on the state ``f`` at iteration ``it``
+        (``fs``: its gathered distributions, default gathered here;
+        ``instances``: ``instances_at(it)``, computed here by default):
+        ``step.stream_phase``'s (fs, target, rho, u)."""
+        return stream_phase(
+            self.grid, self.gather(f) if fs is None else fs, f,
+            self.instances_at(it) if instances is None else instances,
+            tags=self.tags, tms=self.tms, feq=self._feq,
+            ext_gathers=self.ext_gathers)
+
+    def collide_phase(self, streamed, it=0, sc_rho=None, instances=None):
+        """The step's second phase from ``stream_phase``'s ``streamed`` at
+        iteration ``it``; ``sc_rho``: the density the Shan-Chen force
+        samples at the neighbours (default ``streamed``'s own: a sharded
+        step passes it with its ghost planes exchanged)."""
+        return collide_phase(
+            self.grid, streamed, self.tau_inv,
+            self.instances_at(it) if instances is None else instances,
+            wet=self.wet, fullbb=self.fullbb, slip=self.slip, tms=self.tms,
+            force=self.force_at(it), force_model=self.force_model,
             incompressible=self.incompressible, rates=self.mrt_rates,
             smagorinsky=self.smagorinsky, feq=self._feq,
             sc_coupling=self.sc_coupling, sc_potential=self.sc_potential,
-            elbm=self.elbm, ext_gathers=self.ext_gathers)
+            sc_rho=sc_rho, elbm=self.elbm)
 
     @property
     def last_alpha(self):

@@ -1,5 +1,5 @@
 """Sharded stepping of single-fluid scenes on one-axis meshes: ghost
-planes and their exchange.
+planes and their exchanges.
 
 Port of the single-fluid part of ``sailfish_tpu/parallel/halo.py``
 (``ShardedPallasStep3D`` :170, ``ShardedPallasStep2D`` :760). The domain is
@@ -28,14 +28,22 @@ each filling the ghost planes of the shards on its device on that device's
 stream, reading a neighbour's plane on another GPU through peer access,
 after CUDA events that order it behind the steps of its neighbours'
 devices (``exchange_plan``). The torch engine, and the CPU, use the plain
-version (``ShardedStep.exchange_reference``: PyTorch index copies).
+version (``ShardedStep.exchange_reference``: PyTorch index copies,
+``ghost_copy``).
 
-What needs more than the nearest plane of a neighbour is refused by name
-on a mesh (``mesh_reasons``): the Shan-Chen couplings (their density
-edges, ``stream_rho_edges`` :51, and ``parallel/halo_multi.py``), the
-free-energy model, the outflow family (neighbour samples along the
-normal, plane means), force objects and composite steps, and meshes of
-two or three axes.
+Single-component Shan-Chen splits each shard's step in two (its
+post-stream density pre-pass, then the step that reads psi of the density
+one plane out): between them the density exchange copies the densities of
+each shard's first and last interior planes into its neighbours' ghost
+planes (``ShardedStep.density_exchange``; the same kernel on whole planes,
+counted as ``halo_rho_exchange_<grid>``), the counterpart of JAX's
+``stream_rho_edges`` (:51-107). The mixtures and the free-energy model
+shard the same way in ``parallel/halo_multi.py``.
+
+Refused by name on a mesh (``mesh_reasons``): meshes of two or three
+axes, Shan-Chen (single or mixture) with a BC row (JAX's Pallas engines
+refuse it, :297, :894), the outflow family (neighbour samples along the
+normal, plane means), force objects and composite steps.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import ctypes
 import numpy as np
 import torch
 
+from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import step as st
 from sailfish_tpu_torch.parallel import mesh as pmesh
 from sailfish_tpu_torch.subdomain import NodeMaps
@@ -54,9 +63,13 @@ from sailfish_tpu_torch.subdomain import NodeMaps
 #: the C struct's limits (csrc/halo.cu HALO_MAX_SHARDS, HALO_MAX_DIRS)
 MAX_SHARDS = 16
 MAX_DIRS = 9
-#: launches of the exchange kernel, per lattice (the state's Q)
+#: launches of the exchange kernel, per lattice (the state's Q): the
+#: distributions' exchange ``halo_exchange_<grid>`` and the density
+#: exchange of the Shan-Chen and free-energy steps
+#: ``halo_rho_exchange_<grid>``
 LAUNCHES = dict.fromkeys(
-    (f'halo_exchange_{g}' for g in ('d2q9', 'd3q15', 'd3q19', 'd3q27')), 0)
+    (f'halo_{kind}_{g}' for kind in ('exchange', 'rho_exchange')
+     for g in ('d2q9', 'd3q15', 'd3q19', 'd3q27')), 0)
 
 
 def reset_launch_counts():
@@ -95,34 +108,35 @@ def mesh_reasons(mesh_shape, dim, builder, sim=None):
             "2D meshes over x ('y','x': the x ghost columns of "
             'make_kernel_2d, x_ghosts, sailfish_tpu/ops/pallas_step2d.py'
             ':44-53)')
-    if isinstance(builder, ShanChenMultiStepBuilder):
-        reasons.append(
-            'Shan-Chen mixtures (the density edges of '
-            'sailfish_tpu/parallel/halo_multi.py ShardedPallasSCMulti3D '
-            ':58 / ShardedPallasSCMulti2D :816)')
-    elif isinstance(builder, FreeEnergyStepBuilder):
-        reasons.append(
-            'the free-energy model (sailfish_tpu/parallel/halo_multi.py '
-            'ShardedPallasFE3D :339 / ShardedPallasFE2D :1230)')
-    elif not isinstance(builder, st.StepBuilder):
+    sc = isinstance(builder, ShanChenMultiStepBuilder) or (
+        isinstance(builder, st.StepBuilder) and builder.sc_coupling != 0.0)
+    if not isinstance(builder, (st.StepBuilder, ShanChenMultiStepBuilder,
+                                FreeEnergyStepBuilder)):
         reasons.append(
             f'a composite step ({type(builder).__name__}: the JAX runner '
             'steps it on one device or on its XLA path)')
     else:
-        if builder.sc_coupling != 0.0:
-            reasons.append(
-                'single-component Shan-Chen (the post-stream density edges '
-                'stream_rho_edges, sailfish_tpu/parallel/halo.py:51)')
+        # a K-component model's BC rows are its components'
+        single = builder if isinstance(builder, st.StepBuilder) \
+            else builder.b0
         outflow = sorted({cls.__name__ for cls, _k, _m in
-                          builder.bc_instances
+                          single.bc_instances
                           if cls in st.OUTFLOW_TYPES})
-        if builder.ext_gathers and 'NTExtendedCopy' not in outflow:
+        if single.ext_gathers and 'NTExtendedCopy' not in outflow:
             outflow.append('NTExtendedCopy')
         if outflow:
             reasons.append(
                 'the outflow family\'s rows (' + ', '.join(outflow) + ': '
                 'neighbour samples along the normal and plane means, the '
                 'patch planes of sailfish_tpu/parallel/halo.py:653)')
+    if sc and (ls.classify_nodes(builder.maps)[1] or builder.maps.dynamic):
+        what = 'planes' if dim == 3 else 'blocks'
+        reasons.append(
+            f'Shan-Chen with complex-BC {what} needs global psi sampling '
+            'in the patch windows; use the XLA engine (the JAX package\'s '
+            'refusal, sailfish_tpu/parallel/halo.py:'
+            f'{297 if dim == 3 else 894}: a BC row beside a Shan-Chen '
+            'coupling)')
     if sim is not None and getattr(sim, 'force_objects', None):
         reasons.append(
             'force objects (the momentum exchange of '
@@ -195,7 +209,10 @@ class _HaloParams(ctypes.Structure):
                 ('lo', ctypes.c_int * MAX_DIRS),
                 ('hi', ctypes.c_int * MAX_DIRS),
                 ('n_dst', ctypes.c_int),
-                ('dst', ctypes.c_int * MAX_SHARDS)]
+                ('dst', ctypes.c_int * MAX_SHARDS),
+                ('ghost', ctypes.c_int), ('depth', ctypes.c_int),
+                ('n_comp', ctypes.c_int),
+                ('comp_units', ctypes.c_longlong)]
 
 
 def exchange_functions(lib):
@@ -231,18 +248,23 @@ def exchange_plan(devices):
     return [(d, tuple(dst), tuple(peers)) for d, (dst, peers) in plan.items()]
 
 
-def exchange_params(ptrs, length, plane_bytes, lo, hi, dst):
+def exchange_params(ptrs, length, plane_bytes, lo, hi, dst, ghost=1,
+                    depth=1, n_comp=1, comp_bytes=0):
     """The ``halo_exchange`` parameter block of one launch: the shards'
-    buffers at the addresses ``ptrs`` (ring order), each (Q, ``length`` +
-    2, plane) with ``plane_bytes`` bytes per plane; the crossing
-    directions ``lo`` and ``hi`` (``crossing_directions``); ``dst``: the
-    shards whose ghost planes the launch fills."""
+    buffers at the addresses ``ptrs`` (ring order), each (``n_comp``, C,
+    ``length`` + 2 ``ghost``, plane) with ``plane_bytes`` bytes per plane
+    and ``comp_bytes`` from one component to the next; the channels ``lo``
+    and ``hi`` of a component (the crossing directions,
+    ``crossing_directions``; (0,) for a density buffer, C = 1) copied,
+    ``depth`` planes per side; ``dst``: the shards whose ghost planes the
+    launch fills."""
     p = _HaloParams()
     for s, ptr in enumerate(ptrs):
         p.part[s] = ptr
     p.n_shards = len(ptrs)
-    p.planes = length + 2
-    p.unit_bytes = next(u for u in (16, 4, 2) if plane_bytes % u == 0)
+    p.planes = length + 2 * ghost
+    p.unit_bytes = next(u for u in (16, 4, 2)
+                        if plane_bytes % u == 0 and comp_bytes % u == 0)
     p.units = plane_bytes // p.unit_bytes
     p.n_lo, p.n_hi = len(lo), len(hi)
     for j, k in enumerate(lo):
@@ -252,7 +274,39 @@ def exchange_params(ptrs, length, plane_bytes, lo, hi, dst):
     p.n_dst = len(dst)
     for j, s in enumerate(dst):
         p.dst[j] = s
+    p.ghost, p.depth, p.n_comp = ghost, depth, n_comp
+    p.comp_units = comp_bytes // p.unit_bytes
     return p
+
+
+def ghost_copy(parts, length, ghost=1, depth=1, indices=None):
+    """The exchange as PyTorch copies (the plain version of
+    ``halo_exchange``): ``parts`` in ring order, each a list of one
+    shard's tensors (its components), each with ``length`` + 2 ``ghost``
+    planes along its axis 1 with ``indices`` (a distributions' tensor),
+    else along its axis 0 (a density). The
+    ``depth`` low ghost planes of shard s take the last ``depth`` interior
+    planes of shard s - 1, the ``depth`` high ghost planes the first
+    ``depth`` of shard s + 1: with ``indices`` (device -> the (lo, hi)
+    index tensors of the channels, along axis 0) only those channels, else
+    whole planes (a density)."""
+    axis = 0 if indices is None else 1
+    n = len(parts)
+    for s, dst in enumerate(parts):
+        below, above = parts[(s - 1) % n], parts[(s + 1) % n]
+        for k, d in enumerate(dst):
+            b, a = below[k], above[k]
+            pairs = ((d.narrow(axis, ghost - depth, depth),
+                      b.narrow(axis, length + ghost - depth, depth), 0, b),
+                     (d.narrow(axis, length + ghost, depth),
+                      a.narrow(axis, ghost, depth), 1, a))
+            for to, frm, side, src in pairs:
+                if indices is None:
+                    to.copy_(frm.to(d.device))
+                else:
+                    picked = frm.index_select(0, indices(src.device)[side])
+                    to.index_copy_(0, indices(d.device)[side],
+                                   picked.to(d.device))
 
 
 class ShardedStep:
@@ -270,9 +324,39 @@ class ShardedStep:
     kernel engine), and take a global tensor too, which they shard first.
     ``exchanges`` counts exchanges (the kernel's launches, one per device,
     count in ``LAUNCHES`` under ``name``); ``launches`` counts the shards'
-    step launches."""
+    step launches. Under single-component Shan-Chen (``sc``) each step is
+    the shards' density pre-passes, the density exchange
+    (``density_exchange``, counted in ``rho_exchanges`` and under
+    ``rho_name``), the shards' steps and the exchange."""
+
+    #: ghost planes on each side of a slab
+    ghost = 1
 
     def __init__(self, builder, domain_shape, mesh, engine='torch'):
+        self._setup(builder, domain_shape, mesh, engine)
+        self.builders = [
+            shard_builder(builder, shard_maps(builder.maps, rows), d)
+            for rows, d in zip(self.rows, mesh.devices)]
+        self.lo, self.hi = crossing_directions(self.grid)
+        self.sc = builder.sc_coupling != 0.0
+        self.kernels = None
+        self.steps = None
+        #: the int16 scales of the kernel engine's codes, else None
+        self.mixed = None
+        if engine == 'kernel':
+            from sailfish_tpu_torch.ops.lbm_step import KernelStep
+            self.kernels = [KernelStep(b) for b in self.builders]
+            for ks in self.kernels:
+                ks.name = ks.name.replace('lbm_step_', 'lbm_step_ghost_', 1)
+                ks.rho_name = ks.rho_name.replace('_nk1_', '_nk1_ghost_', 1)
+            self.mixed = builder.mixed
+        elif not self.sc:
+            self.steps = [b.build() for b in self.builders]
+
+    def _setup(self, builder, domain_shape, mesh, engine):
+        """The checks and the layout shared with the K-component step:
+        refusals, the mesh axis, ``length``, ``rows`` (each shard's planes
+        with its ghost planes), the exchanges' names and their state."""
         dim = len(domain_shape)
         reasons = mesh_reasons(tuple(mesh.shape.values()), dim, builder)
         if reasons:
@@ -293,29 +377,21 @@ class ShardedStep:
         self.mesh = mesh
         self.engine = engine
         self.length = domain_shape[0] // n
-        self.builders = [
-            shard_builder(builder, shard_maps(
-                builder.maps, pmesh.slab_rows(domain_shape[0], n, s, 1)), d)
-            for s, d in enumerate(mesh.devices)]
-        self.lo, self.hi = crossing_directions(self.grid)
-        self.name = f'halo_exchange_{self.grid.name.lower()}'
+        if self.length < self.ghost:
+            raise ValueError(f'{self.length} planes per shard; the slab '
+                             f'needs at least its {self.ghost} ghost '
+                             'planes\' worth')
+        self.rows = [pmesh.slab_rows(domain_shape[0], n, s, self.ghost)
+                     for s in range(n)]
+        g = self.grid.name.lower()
+        self.name = f'halo_exchange_{g}'
+        self.rho_name = f'halo_rho_exchange_{g}'
         self.exchanges = 0
-        self.kernels = None
-        self.steps = None
-        #: the int16 scales of the kernel engine's codes, else None
-        self.mixed = None
-        if engine == 'kernel':
-            from sailfish_tpu_torch.ops.lbm_step import KernelStep
-            self.kernels = [KernelStep(b) for b in self.builders]
-            for ks in self.kernels:
-                ks.name = ks.name.replace('lbm_step_', 'lbm_step_ghost_', 1)
-            self.mixed = builder.mixed
-        else:
-            self.steps = [b.build() for b in self.builders]
+        self.rho_exchanges = 0
         self._index = {}
         self._fn = None
         self._peer_fn = None
-        self._plan = None
+        self._plans = {}
 
     # -- layout --------------------------------------------------------------
 
@@ -353,19 +429,19 @@ class ShardedStep:
         plane 0 of shard s takes the ``lo`` directions of plane L of shard
         s - 1, ghost plane L + 1 the ``hi`` directions of plane 1 of shard
         s + 1."""
-        n = len(parts)
-        length = self.length
-        for s, dst in enumerate(parts):
-            lo, hi = self._indices(dst.device)
-            below, above = parts[(s - 1) % n], parts[(s + 1) % n]
-            blo, _ = self._indices(below.device)
-            _, ahi = self._indices(above.device)
-            dst.select(1, 0).index_copy_(
-                0, lo, below.select(1, length).index_select(0, blo)
-                .to(dst.device))
-            dst.select(1, length + 1).index_copy_(
-                0, hi, above.select(1, 1).index_select(0, ahi)
-                .to(dst.device))
+        ghost_copy([[p] for p in parts], self.length, indices=self._indices)
+
+    def density_exchange_reference(self, rhos):
+        """The density exchange as PyTorch copies (its plain version):
+        ghost plane 0 of shard s's density ``rhos[s]`` (L + 2, ...) takes
+        plane L of shard s - 1's, plane L + 1 plane 1 of shard s + 1's."""
+        ghost_copy([[r] for r in rhos], self.length)
+
+    def _on_kernels(self, tensors):
+        """Whether the exchanges of ``tensors`` run the kernel: on the
+        kernel engine, with a shard on a CUDA device."""
+        return self.kernels is not None and any(
+            t.device.type != 'cpu' for t in tensors)
 
     def exchange(self, parts):
         """Fill the ghost planes of the shards' buffers ``parts`` that the
@@ -374,11 +450,32 @@ class ShardedStep:
         ``LAUNCHES``); on the torch engine, or on the CPU,
         ``exchange_reference``."""
         self.exchanges += 1
-        if self.kernels is None or all(p.device.type == 'cpu'
-                                       for p in parts):
+        if not self._on_kernels(parts):
             self.exchange_reference(parts)
             return
-        plan = self._plan_for(parts)
+        self._launch(self._plan_for(parts), self.name)
+
+    def density_exchange(self, rhos):
+        """Fill the ghost planes of the shards' post-stream densities
+        ``rhos`` (each (L + 2, ...) fp32) that the Shan-Chen force reads:
+        one ``halo_exchange`` launch per device on whole planes (counted
+        under ``rho_name``) on the kernel engine, else
+        ``density_exchange_reference``."""
+        self.rho_exchanges += 1
+        if not self._on_kernels(rhos):
+            self.density_exchange_reference(rhos)
+            return
+        plane = rhos[0][0].numel() * rhos[0].element_size()
+        self._launch(self._plan('rho', rhos, (0,), (0,), plane),
+                     self.rho_name, wait_done=False)
+
+    def _launch(self, plan, name, wait_done=True):
+        """The exchange kernel's launches of ``plan`` (``_plan``), each on
+        its device's current stream after CUDA events that order it behind
+        the work its neighbours' devices queued; with ``wait_done`` the
+        next work of each device is ordered behind its neighbours'
+        launches too (it overwrites planes they read). Counted in
+        ``LAUNCHES[name]``."""
         multi = len(plan) > 1
         if multi:
             # each launch reads planes its neighbours' devices just wrote
@@ -391,10 +488,10 @@ class ShardedStep:
             with torch.cuda.device(d):
                 rc = self._fn(ctypes.byref(params), stream.cuda_stream)
             if rc != 0:
-                raise RuntimeError(f'{self.name} launch failed on {d}: '
+                raise RuntimeError(f'{name} launch failed on {d}: '
                                    f'error {rc}')
-            LAUNCHES[self.name] += 1
-        if multi:
+            LAUNCHES[name] += 1
+        if multi and wait_done:
             # and the next step on a device overwrites planes that its
             # neighbours' devices read: after their launches
             done = {d: torch.cuda.current_stream(d).record_event()
@@ -414,24 +511,35 @@ class ShardedStep:
         parameter block, the devices its shards' neighbours are on)] (kept
         while the buffers stay the same; peer access enabled where a
         launch reads another device)."""
-        ptrs = tuple(p.data_ptr() for p in parts)
-        if self._plan is not None and self._plan[0] == ptrs:
-            return self._plan[1]
-        first = parts[0]
-        for p in parts:
-            if p.device.type != 'cuda' or not p.is_contiguous() \
-                    or p.shape != first.shape or p.dtype != first.dtype:
+        plane = parts[0][0, 0].numel() * parts[0].element_size()
+        return self._plan('f', parts, self.lo, self.hi, plane)
+
+    def _plan(self, key, bufs, lo, hi, plane_bytes, depth=1, n_comp=1,
+              comp_bytes=0):
+        """The launches of the exchange ``key`` on the shards' buffers
+        ``bufs`` (each of ``n_comp`` components ``comp_bytes`` apart, with
+        ``plane_bytes`` per plane; ``exchange_params``): [(device, its
+        parameter block, the devices its shards' neighbours are on)], kept
+        while the buffers stay the same; peer access enabled where a
+        launch reads another device."""
+        ptrs = tuple(b.data_ptr() for b in bufs)
+        cached = self._plans.get(key)
+        if cached is not None and cached[0] == ptrs:
+            return cached[1]
+        first = bufs[0]
+        for b in bufs:
+            if b.device.type != 'cuda' or not b.is_contiguous() \
+                    or b.shape != first.shape or b.dtype != first.dtype:
                 raise ValueError(
                     f'{self.name}: every shard buffer a contiguous CUDA '
-                    f'tensor of one shape and dtype; got {p.device} '
-                    f'{tuple(p.shape)} {p.dtype}')
+                    f'tensor of one shape and dtype; got {b.device} '
+                    f'{tuple(b.shape)} {b.dtype}')
         if self._fn is None:
             from sailfish_tpu_torch.ops import build
             self._fn, self._peer_fn = exchange_functions(
                 build.load('halo').lib)
-        plane = first[0, 0].numel() * first.element_size()
         plan = []
-        for d, dst, peers in exchange_plan([p.device for p in parts]):
+        for d, dst, peers in exchange_plan([b.device for b in bufs]):
             for q in peers:
                 rc = self._peer_fn(d.index, q.index)
                 if rc != 0:
@@ -439,9 +547,10 @@ class ShardedStep:
                         f'{self.name}: {d} cannot read {q} (peer access, '
                         f'error {rc}): the exchange reads a neighbour\'s '
                         'plane in place')
-            plan.append((d, exchange_params(ptrs, self.length, plane,
-                                            self.lo, self.hi, dst), peers))
-        self._plan = (ptrs, plan)
+            plan.append((d, exchange_params(
+                ptrs, self.length, plane_bytes, lo, hi, dst, self.ghost,
+                depth, n_comp, comp_bytes), peers))
+        self._plans[key] = (ptrs, plan)
         return plan
 
     # -- stepping ------------------------------------------------------------
@@ -455,13 +564,25 @@ class ShardedStep:
         if self.kernels is None:
             parts = self.as_sharded(f).parts
             for i in range(n):
-                parts = [step(p, it0 + i)
-                         for step, p in zip(self.steps, parts)]
+                parts = self.torch_step(parts, it0 + i)
                 self.exchange(parts)
             return Sharded(parts)
         if self.mixed is None:
             return self.run_codes(f, n, it0)
         return self.state_of(self.run_codes(self.codes_of(f), n, it0))
+
+    def torch_step(self, parts, it=0):
+        """The torch engine's step of the shards ``parts`` at iteration
+        ``it``, before the exchange; under Shan-Chen its two phases with
+        the density exchange between them."""
+        if not self.sc:
+            return [step(p, it) for step, p in zip(self.steps, parts)]
+        streamed = [b.stream_phase(p, it)
+                    for b, p in zip(self.builders, parts)]
+        rhos = [s[2] for s in streamed]
+        self.density_exchange(rhos)
+        return [b.collide_phase(s, it, sc_rho=rho)
+                for b, s, rho in zip(self.builders, streamed, rhos)]
 
     def codes_of(self, f):
         """Under --precision=mixed on the kernel engine, the ``Sharded``
@@ -493,23 +614,35 @@ class ShardedStep:
         for i in range(n):
             nxt = [ks.b if p is ks.a else ks.a
                    for ks, p in zip(self.kernels, cur)]
+            if self.sc:
+                for ks, src in zip(self.kernels, cur):
+                    with on_device(src.device):
+                        ks.density_into(src, ks.rho)
+                self.density_exchange([ks.rho for ks in self.kernels])
             for ks, src, dst in zip(self.kernels, cur, nxt):
                 with on_device(src.device):
-                    ks.step_into(src, dst, it0 + i)
+                    ks.collide_into(src, dst, it0 + i)
             self.exchange(nxt)
             cur = nxt
         return Sharded(cur)
 
     def reference(self, state, it=0):
         """Step ``it`` of the kernel engine's plain version from ``state``
-        (``Sharded`` or global): each shard's ``KernelStep.reference``,
+        (``Sharded`` or global): each shard's ``KernelStep.reference``
+        (under Shan-Chen after the plain pre-pass and density exchange),
         then ``exchange_reference``; returns a new ``Sharded`` state."""
-        parts = []
-        for ks, p in zip(self.kernels, self.as_sharded(state).parts):
+        from sailfish_tpu_torch.ops import sc_multi
+        parts = self.as_sharded(state).parts
+        rhos = [None] * len(parts)
+        if self.sc:
+            rhos = [sc_multi.rho_reference(p, self.grid) for p in parts]
+            self.density_exchange_reference(rhos)
+        out = []
+        for ks, p, rho in zip(self.kernels, parts, rhos):
             ks.set_iteration(it)
-            parts.append(ks.reference(p))
-        self.exchange_reference(parts)
-        return Sharded(parts)
+            out.append(ks.reference(p, rho))
+        self.exchange_reference(out)
+        return Sharded(out)
 
     def macro_fields(self, state, it=0):
         """(rho, u) of a ``Sharded`` state as the global builder's

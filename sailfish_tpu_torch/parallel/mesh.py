@@ -6,8 +6,8 @@ inner over the spatial axes, (z, y, x) in 3D and (y, x) in 2D), its shape
 and one ``torch.device`` per shard, in shard order. The domain is split
 along the outermost sharded axis into equal slabs, one per shard, each
 with ``ghost`` planes of its ring neighbours on either side
-(``slab_rows``); ``split`` and ``gather`` move a (Q, *S) state between one
-global tensor and the per-shard tensors.
+(``slab_rows``); ``split`` and ``gather`` move a (Q, *S) state, or a
+K-tuple of them, between the global tensors and the per-shard ones.
 """
 
 from __future__ import annotations
@@ -113,7 +113,11 @@ def split(f, mesh, axis=1, ghost=0):
     """The per-shard slabs of the global tensor ``f`` along its ``axis``
     (default 1: the outermost spatial axis of a (Q, *S) state), each with
     ``ghost`` wrapped planes on either side, a contiguous tensor on its
-    shard's device."""
+    shard's device. A K-tuple of tensors (a K-component state) gives one
+    K-tuple of slabs per shard."""
+    if isinstance(f, (tuple, list)):
+        return [tuple(c) for c in zip(*(split(x, mesh, axis, ghost)
+                                        for x in f))]
     return [f.index_select(axis, torch.as_tensor(
         slab_rows(f.shape[axis], mesh.size, s, ghost), device=f.device))
         .to(d).contiguous() for s, d in enumerate(mesh.devices)]
@@ -122,7 +126,11 @@ def split(f, mesh, axis=1, ghost=0):
 def gather(parts, device=None, axis=1, ghost=0):
     """The global tensor of the per-shard slabs ``parts`` (in shard order,
     each with ``ghost`` planes on either side, cropped) along ``axis``, on
-    ``device`` (default the first slab's)."""
+    ``device`` (default the first slab's); of K-tuples of slabs, the
+    K-tuple of global tensors."""
+    if isinstance(parts[0], (tuple, list)):
+        return tuple(gather([p[k] for p in parts], device, axis, ghost)
+                     for k in range(len(parts[0])))
     device = parts[0].device if device is None else torch.device(device)
     return torch.cat([p.narrow(axis, ghost, p.shape[axis] - 2 * ghost)
                       .to(device) for p in parts], dim=axis)

@@ -3,8 +3,8 @@ main loop.
 
 Port of a subset of ``sailfish_tpu/runner.py`` (``SubdomainRunner``): one
 whole-domain state (a tensor, or a K-tuple of tensors for the
-multi-component models) on one device, or a single-fluid state sharded
-over a one-axis mesh (``--mesh``), a chunked main loop with the same MLUPS /
+multi-component models) on one device, or sharded over a one-axis mesh
+(``--mesh``), a chunked main loop with the same MLUPS /
 ``TimingInfo`` accounting, npz output through the port's writers and
 checkpoints in the JAX package's npz layout (``dist0a`` ...
 ``dist{K-1}a``, ``state``, ``sim_state``), so a JAX checkpoint restores
@@ -30,14 +30,19 @@ and ``--profile_trace`` (a ``torch.profiler`` Chrome trace) run on both
 engines, as ``sailfish_tpu/runner.py:423-493``, :556-607 and :643-649
 define them.
 
-``--mesh=N`` (``sailfish_tpu/runner.py:84-93``, :150-160) shards a
-single-fluid ``StepBuilder`` scene along z (3D) or y (2D) over N devices
-on either engine (``parallel/halo.py``: each shard's slab with ghost
-planes, the scene's own step on it, the ghost-plane exchange); the state
-then lives in ``Sharded`` slabs, and ``f`` is their global gather
-(checkpoints, output, hooks and the scene's own hooks see the global
-state, in the layout of an unsharded run). What cannot be sharded is
-refused by name (``parallel/halo.mesh_reasons``).
+``--mesh=N`` (``sailfish_tpu/runner.py:84-93``, :96-160) shards a scene
+along z (3D) or y (2D) over N devices on either engine: a single-fluid
+``StepBuilder`` scene, single-component Shan-Chen included, through
+``parallel/halo.ShardedStep``, a Shan-Chen mixture or the free-energy
+model through ``parallel/halo_multi.ShardedMultiStep`` (each shard's slab
+with ghost planes, the scene's own step on it, the ghost-plane exchange,
+and for the couplings the density exchange between the pre-pass and the
+step); the state then lives in ``Sharded`` slabs, and ``f`` is their
+global gather (checkpoints with every component, output, hooks and the
+scene's own hooks see the global state, in the layout of an unsharded
+run). What cannot be sharded is refused by name
+(``parallel/halo.mesh_reasons``: meshes of two or three axes, Shan-Chen
+with a BC row, the outflow family, force objects, composite steps).
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ class SubdomainRunner:
         self._quit_event = quit_event or util.SimpleEvent()
         self.profile = TimeProfile(self)
         self.kernel = None
-        #: the ``parallel/halo.ShardedStep`` of a run on a mesh, else None
+        #: the ``parallel/halo.ShardedStep`` (or ``halo_multi.
+        #: ShardedMultiStep``) of a run on a mesh, else None
         self.stepper = None
         self.mesh = None
         self._f = None
@@ -145,9 +151,19 @@ class SubdomainRunner:
         return mesh
 
     def _sharded_engine(self, builder):
-        """The ``parallel/halo.ShardedStep`` of ``builder`` over the mesh
-        on the runner's engine."""
+        """The sharded step of ``builder`` over the mesh on the runner's
+        engine: ``parallel/halo_multi.ShardedMultiStep`` for a Shan-Chen
+        mixture or the free-energy model (``sailfish_tpu/runner.py:96-146``),
+        else ``parallel/halo.ShardedStep``."""
+        from sailfish_tpu_torch.ops.multigrid import (
+            FreeEnergyStepBuilder, ShanChenMultiStepBuilder)
         from sailfish_tpu_torch.parallel import halo
+        if isinstance(builder, (ShanChenMultiStepBuilder,
+                                FreeEnergyStepBuilder)):
+            from sailfish_tpu_torch.parallel.halo_multi import \
+                ShardedMultiStep
+            return ShardedMultiStep(builder, self._domain_shape(), self.mesh,
+                                    self.engine)
         return halo.ShardedStep(builder, self._domain_shape(), self.mesh,
                                 self.engine)
 

@@ -200,9 +200,11 @@ def test_default_platform_without_cuda_is_cpu(monkeypatch):
     # with the JAX runner's reason ("--init_iters covers single-fluid
     # scenes only"), the case's id unchanged
     (dict(init_iters=5), '--init_iters'),
-    # --mesh is ported for single-fluid scenes (tests/test_torch_mesh.py);
-    # a mixture on a mesh is refused by name, the case's id unchanged
-    pytest.param(dict(mesh='2'), '--mesh.*Shan-Chen mixtures',
+    # --mesh is ported on one-axis meshes, mixtures included
+    # (tests/test_torch_mesh.py, tests/test_torch_mesh_multi.py); a
+    # mixture on a 2D mesh over x is refused by name, the case's id
+    # unchanged
+    pytest.param(dict(mesh='1x2'), '--mesh.*2D meshes over x',
                  id='cfg1---mesh'),
     (dict(mode='visualization'), 'visualization'),
     # --precision=mixed is ported for single-fluid scenes; a mixture under

@@ -160,6 +160,18 @@ from a random state; and the controller's runs over 2 and 4 shards equal
 the unsharded kernel run bit for bit, one ``lbm_step_ghost_<kind><grid>``
 launch per shard and step and one exchange per step; so does one shard
 per GPU where there are two or more.
+
+The Shan-Chen and free-energy steps on a mesh (``parallel/halo_multi.py``,
+and single-component Shan-Chen in ``parallel/halo.py``): the exchange
+kernel on the K-component buffers (K = 2, 3; one and two ghost planes) and
+on the density buffers (every rho_k of a mixture, phi over two ghost
+planes under wetting, a single fluid's rho) equals its plain version bit
+for bit over 1, 2 and 4 shards on the card and with shards on several
+GPUs where there are; the ghost-mode pre-pass and step stay within 1e-5
+of their plain versions over 20 steps; and the controller's runs over 2
+and 4 shards equal the unsharded kernel run bit for bit, one ghost-mode
+pre-pass and step launch per shard and step and one launch of each
+exchange per step.
 """
 
 import ctypes
@@ -190,7 +202,8 @@ from torch_scenes import (ACCEL, BC_PAIRS, BINARY_SCENES, FE_SCENES,
                           random_fe_state, random_feq, run, shallow_water,
                           slip_sim, ternary_separation, ternary_twin,
                           time_series_density_sim, twin, unforced, walled,
-                          walls_moved, with_keep_block, with_patch_row_mix)
+                          walls_moved, wet_map, with_keep_block,
+                          with_patch_row_mix)
 
 SIZES = {
     'ldc_3d': dict(lat_nx=48, lat_ny=40, lat_nz=32),
@@ -2048,3 +2061,165 @@ def test_halo_exchange_across_gpus_equals_its_plain_version(cuda, layout):
         torch.cuda.synchronize(d)
     assert halo.LAUNCHES[stp.name] == len(set(devices))
     assert all(torch.equal(a, b) for a, b in zip(parts, ref))
+
+
+#: the K-component and Shan-Chen scenes on a mesh: name -> (sim class
+#: factory, flags)
+MESH_MULTI_SCENES = {
+    'sc_separation_3d': (lambda: binary_twin('sc_separation_3d'),
+                         dict(lat_nx=48, lat_ny=40, lat_nz=32)),
+    'ternary_3d_forced': (lambda: forced_mixture(ternary_separation(3)),
+                          dict(lat_nx=48, lat_ny=40, lat_nz=32)),
+    'sc_separation_2d': (lambda: binary_twin('sc_separation_2d'),
+                         dict(lat_nx=300, lat_ny=200)),
+    'fe_mrt_3d': (lambda: binary_twin('fe_separation_3d'),
+                  dict(lat_nx=48, lat_ny=40, lat_nz=32, model='mrt')),
+    'fe_viscous_fingering': (lambda: binary_twin('fe_viscous_fingering'),
+                             dict(lat_nx=64, lat_ny=32, lat_nz=32)),
+    'fe_poiseuille_2d': (lambda: binary_twin('fe_poiseuille_2d'),
+                         dict(lat_nx=300, lat_ny=200,
+                              bc_wall_grad_phase=0.02)),
+    'sc_phase_separation_3d': (lambda: twin('sc_phase_separation_3d'),
+                               dict(lat_nx=48, lat_ny=40, lat_nz=32)),
+    'sc_phase_separation': (lambda: twin('sc_phase_separation'),
+                            dict(lat_nx=300, lat_ny=200)),
+}
+
+
+def _multi_run(scene, mesh, devices=None, **cfg):
+    from sailfish_tpu_torch.parallel import mesh as pmesh
+    make, size = MESH_MULTI_SCENES[scene]
+    with pmesh.devices_override(devices or ['cuda'] * 4):
+        return run(make(), platform='cuda', mesh=mesh, seed=1234, **size,
+                   **cfg)
+
+
+def _exchange_both(stp):
+    """Both exchanges of ``stp`` on random buffers of its kernels' shapes
+    against their plain versions; returns whether each gave the same
+    bits."""
+    gens = {}
+
+    def rand(t):
+        g = gens.setdefault(t.device, torch.Generator(
+            device=t.device).manual_seed(5))
+        return torch.rand(t.shape, generator=g, device=t.device)
+
+    multi = hasattr(stp, 'K')
+    if multi:
+        bufs = [rand(ks.a) for ks in stp.kernels]
+        ref = [b.clone() for b in bufs]
+        stp.exchange_buffers(bufs)
+        stp.exchange_reference([r.unbind(0) for r in ref])
+        rhos = [rand(ks.phi if stp.fe else ks.rho) for ks in stp.kernels]
+    else:
+        bufs = [rand(ks.a) for ks in stp.kernels]
+        ref = [b.clone() for b in bufs]
+        stp.exchange(bufs)
+        stp.exchange_reference(ref)
+        rhos = [rand(ks.rho) for ks in stp.kernels]
+    rref = [r.clone() for r in rhos]
+    stp.density_exchange(rhos)
+    stp.density_exchange_reference(rref)
+    for d in {b.device for b in bufs}:
+        torch.cuda.synchronize(d)
+    return (all(torch.equal(a, b) for a, b in zip(bufs, ref)),
+            all(torch.equal(a, b) for a, b in zip(rhos, rref)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mesh', ['1', '2', '4'])
+@pytest.mark.parametrize('scene', ['sc_separation_3d', 'ternary_3d_forced',
+                                   'fe_viscous_fingering', 'fe_poiseuille_2d',
+                                   'sc_phase_separation_3d'])
+def test_multi_exchange_kernels_equal_their_plain_versions(cuda, scene,
+                                                           mesh):
+    from sailfish_tpu_torch.parallel import halo
+    stp = _multi_run(scene, mesh, max_iters=0).stepper
+    halo.reset_launch_counts()
+    assert _exchange_both(stp) == (True, True)
+    assert halo.LAUNCHES[stp.name] == halo.LAUNCHES[stp.rho_name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(MESH_MULTI_SCENES))
+def test_multi_ghost_mode_matches_its_plain_version(cuda, scene):
+    """Each shard's ghost-mode pre-pass and step, with both exchanges,
+    against the plain version of the sharded step for 20 steps from the
+    scene's own start."""
+    r = _multi_run(scene, '2', max_iters=0)
+    stp = r.stepper
+    s0 = stp.as_sharded(r.f)
+    sk = stp.run(stp.gather(s0), 20)
+    sr = stp.shard(stp.gather(s0))
+    for i in range(20):
+        sr = stp.reference(sr, i)
+    torch.cuda.synchronize()
+    wet = torch.as_tensor(wet_map(r.maps), device='cuda')
+    leaves = (lambda f: (f,) if torch.is_tensor(f) else f)
+    err = max(float((a - b)[:, wet].abs().max())
+              for a, b in zip(leaves(stp.gather(sk)), leaves(stp.gather(sr))))
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mesh', ['2', '4'])
+@pytest.mark.parametrize('scene', sorted(MESH_MULTI_SCENES))
+def test_multi_shards_on_one_card_equal_the_unsharded_kernel(cuda, scene,
+                                                             mesh):
+    from sailfish_tpu_torch.parallel import halo
+    make, size = MESH_MULTI_SCENES[scene]
+    ref = run(make(), platform='cuda', max_iters=40, every=20, seed=1234,
+              **size)
+    for counts in (ls.LAUNCHES, sm.LAUNCHES, fe.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    halo.reset_launch_counts()
+    r = _multi_run(scene, mesh, max_iters=40, every=20)
+    torch.cuda.synchronize()
+    g = r.sim.grid.name.lower()
+    n = int(mesh)
+    stp = r.stepper
+    assert r.engine == 'kernel' and r.kernel is stp
+    names = {(ks.rho_name, ks.name) for ks in stp.kernels}
+    assert len(names) == 1
+    ((rho_name, name),) = names
+    assert 'ghost_' in rho_name and 'ghost_' in name
+    counts = {**ls.LAUNCHES, **sm.LAUNCHES, **fe.LAUNCHES}
+    assert counts[rho_name] == counts[name] == 40 * n
+    assert sum(counts.values()) == 80 * n
+    assert halo.LAUNCHES[f'halo_exchange_{g}'] == 40
+    assert halo.LAUNCHES[f'halo_rho_exchange_{g}'] == 40
+    leaves = (lambda f: (f,) if torch.is_tensor(f) else f)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(r.f),
+                                                 leaves(ref.f)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['sc_separation_3d', 'fe_viscous_fingering',
+                                   'sc_phase_separation_3d'])
+def test_multi_shards_on_several_gpus_equal_the_unsharded_kernel(cuda,
+                                                                 scene):
+    """One shard per visible GPU (two or more): both exchanges once per
+    GPU and step, each its plain version's bits on random buffers, and
+    the run equals the unsharded kernel run bit for bit."""
+    from sailfish_tpu_torch.parallel import halo
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip('needs two or more CUDA devices')
+    n = max(k for k in (2, 4, 8) if k <= n)
+    make, size = MESH_MULTI_SCENES[scene]
+    ref = run(make(), platform='cuda', max_iters=40, every=20, seed=1234,
+              **size)
+    halo.reset_launch_counts()
+    r = _multi_run(scene, str(n), [f'cuda:{i}' for i in range(n)],
+                   max_iters=40, every=20)
+    stp = r.stepper
+    assert [ks.a.device.index for ks in stp.kernels] == list(range(n))
+    g = r.sim.grid.name.lower()
+    assert halo.LAUNCHES[f'halo_exchange_{g}'] == 40 * n
+    assert halo.LAUNCHES[f'halo_rho_exchange_{g}'] == 40 * n
+    leaves = (lambda f: (f,) if torch.is_tensor(f) else f)
+    assert all(torch.equal(a.to(b.device), b)
+               for a, b in zip(leaves(r.f), leaves(ref.f)))
+    assert _exchange_both(stp) == (True, True)

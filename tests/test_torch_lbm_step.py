@@ -304,8 +304,9 @@ def test_kernel_function_checks_the_params_size():
     # all but the Shan-Chen mode, whose pre-pass counts apart too, the
     # int16 state's mode and the outflow rows, whose laminarize pre-pass
     # counts apart too; a launch on a shard's ghost-plane buffers counts
-    # under its kind with ghost_ after lbm_step_ (no Shan-Chen or outflow
-    # kind: both are refused on a mesh)
+    # under its kind with ghost_ after lbm_step_ (no outflow kind: it is
+    # refused on a mesh), the Shan-Chen pre-pass of a shard with ghost_
+    # after nk1_
     assert sorted(ls.LAUNCHES) == sorted(['lbm_step_d2q9', 'lbm_step_d3q19',
                                    'lbm_step_dyn_d2q9',
                                    'lbm_step_dyn_d3q19',
@@ -334,12 +335,14 @@ def test_kernel_function_checks_the_params_size():
                                    'lbm_step_wall_d2q9',
                                    'lbm_step_wall_d3q19',
                                    'rho_poststream_nk1_d2q9',
-                                   'rho_poststream_nk1_d3q19'] + [
+                                   'rho_poststream_nk1_d3q19',
+                                   'rho_poststream_nk1_ghost_d2q9',
+                                   'rho_poststream_nk1_ghost_d3q19'] + [
         f'lbm_step_{kind}{g}' for g in ('d3q15', 'd3q27')
         for kind in ('', 'dyn_', 'force_', 'incomp_', 'vary_', 'wall_')] + [
         f'lbm_step_ghost_{kind}{g}' for g in ('d2q9', 'd3q19')
         for kind in ('', 'dyn_', 'elbm_', 'force_', 'incomp_', 'les_',
-                     'mixed_', 'mrt_', 'sw_', 'vary_', 'wall_')] + [
+                     'mixed_', 'mrt_', 'sc_', 'sw_', 'vary_', 'wall_')] + [
         f'lbm_step_ghost_{kind}{g}' for g in ('d3q15', 'd3q27')
         for kind in ('', 'dyn_', 'force_', 'incomp_', 'vary_', 'wall_')])
 

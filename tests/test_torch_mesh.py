@@ -384,15 +384,16 @@ REFUSALS = {
     'three_axis': (lambda: twin('ldc_3d'),
                    dict(lat_nx=8, lat_ny=8, lat_nz=8, mesh='1x1x2'),
                    '3-axis meshes'),
-    'shan_chen_single': (lambda: twin('sc_drop'),
-                         dict(lat_nx=16, lat_ny=16, mesh='2'),
-                         'single-component Shan-Chen .*stream_rho_edges'),
-    'shan_chen_mixture': (lambda: binary_twin('sc_separation_3d'),
-                          dict(lat_nx=8, lat_ny=8, lat_nz=8, mesh='2'),
-                          'Shan-Chen mixtures .*halo_multi.py'),
-    'free_energy': (lambda: binary_twin('fe_separation_2d'),
-                    dict(lat_nx=16, lat_ny=16, mesh='2'),
-                    'the free-energy model'),
+    'mixture_two_axis': (lambda: binary_twin('sc_separation_3d'),
+                         dict(lat_nx=8, lat_ny=8, lat_nz=8, mesh='2x2'),
+                         r'two-axis meshes .*y_ghosts'),
+    'free_energy_x_2d': (lambda: binary_twin('fe_separation_2d'),
+                         dict(lat_nx=16, lat_ny=16, mesh='1x2'),
+                         r'2D meshes over x .*x_ghosts'),
+    'shan_chen_mixture_bc_row': (
+        lambda: binary_twin('sc_capillary_wave_2d'),
+        dict(lat_nx=16, lat_ny=18, mesh='2'),
+        'Shan-Chen with complex-BC blocks needs global psi sampling'),
     'outflow_and_force_object': (lambda: open_channel(2),
                                  dict(lat_nx=32, lat_ny=16, mesh='2'),
                                  r'outflow family.*NTCopy.*force objects'),

@@ -269,9 +269,16 @@ def test_refuses_half_way_walls_in_a_mixture():
 def test_step_modes_have_their_launch_names():
     assert [sm.step_mode(K, forced) for K in (2, 3)
             for forced in (False, True)] == list(sm.STEP_MODES)
+    # a launch on a shard's ghost-plane buffers counts with ghost_ after
+    # the kernel's prefix
     assert set(sm.LAUNCHES) == {
-        f'{kind}_{g}' for kind in ('rho_poststream',) + sm.STEP_MODES
-        for g in ('d2q9', 'd3q19')}
+        name for kind in ('rho_poststream',) + sm.STEP_MODES
+        for g in ('d2q9', 'd3q19')
+        for name in (f'{kind}_{g}', sm.ghost_name(f'{kind}_{g}'))}
+    assert sm.ghost_name('sc_multi_k3_force_d3q19') == \
+        'sc_multi_ghost_k3_force_d3q19'
+    assert sm.ghost_name('rho_poststream_d2q9') == \
+        'rho_poststream_ghost_d2q9'
 
 
 def test_kernel_params():

@@ -1,6 +1,9 @@
-"""The lid-driven cavity (``examples/torch/ldc_3d.py``, D3Q19 BGK) sharded
-along z over several GPUs of one host (``--mesh=N``, one shard per GPU),
-against the unsharded run on one GPU.
+"""A 3D scene sharded along z over several GPUs of one host (``--mesh=N``,
+one shard per GPU), against the unsharded run on one GPU: the lid-driven
+cavity (``examples/torch/ldc_3d.py``, D3Q19 BGK, ``--scene ldc_3d``, the
+default) or the binary Shan-Chen separation
+(``examples/torch/binary_fluid/sc_separation_3d.py``, D3Q19, K = 2,
+``--scene sc_separation_3d``).
 
 For N = 2, 4, ... up to the visible GPUs, through
 ``LBSimulationController.run()`` on the kernel engine:
@@ -8,13 +11,15 @@ For N = 2, 4, ... up to the visible GPUs, through
 * strong scaling at ``--size``³ (default 256³): MLUPS over the chunks
   after the first, the final state equal bit for bit to the unsharded
   run's, and the launches of the run (counts zeroed just before, read just
-  after): one ``lbm_step_ghost_d3q19`` launch per shard and step, one
-  ``halo_exchange_d3q19`` launch per GPU and step, nothing else;
-* then, on the run's own buffers: ms per exchange alone (``ShardedStep.
-  exchange``: each GPU's launch reading its neighbours' planes through
-  peer access, with the CUDA events that order it), and ms per step of the
-  shards' step launches alone (all GPUs at once, no exchange), both on the
-  host clock between synchronizations of every GPU;
+  after): one ghost-mode step launch per shard and step (after one
+  ghost-mode pre-pass for the mixture), one ``halo_exchange_d3q19`` launch
+  per GPU and step (and one ``halo_rho_exchange_d3q19`` for the mixture),
+  nothing else;
+* then, on the run's own buffers: ms per step of the exchanges alone
+  (each GPU's launch reading its neighbours' planes through peer access,
+  with the CUDA events that order it; the mixture's two), and ms per step
+  of the shards' launches alone (all GPUs at once, no exchange), both on
+  the host clock between synchronizations of every GPU;
 * weak scaling: ``--size``² × (N·``--size``) over N GPUs (one
   ``--size``³ slab each), MLUPS per GPU against the unsharded
   ``--size``³ run on one GPU.
@@ -22,11 +27,12 @@ For N = 2, 4, ... up to the visible GPUs, through
 Run it from the repository's root on a host with two or more CUDA
 devices::
 
-    python tools/mesh_gpus.py [--size 256] [--steps 300]
+    python tools/mesh_gpus.py [--scene sc_separation_3d] [--size 256]
+                              [--steps 300]
 
 It prints each GPU's name and power limit, a line per measurement, and as
 its last line a JSON object with the numbers (also written to
-``chiprun_out/mesh_gpus.json``).
+``chiprun_out/mesh_gpus[_<scene>].json``).
 """
 
 import argparse
@@ -43,10 +49,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, 'tests'))
 from sailfish_tpu_torch.ops import build  # noqa: E402
+from sailfish_tpu_torch.ops import fe_step as fe  # noqa: E402
 from sailfish_tpu_torch.ops import lbm_step as ls  # noqa: E402
+from sailfish_tpu_torch.ops import sc_multi as sm  # noqa: E402
 from sailfish_tpu_torch.parallel import halo  # noqa: E402
 from sailfish_tpu_torch.parallel import mesh as pmesh  # noqa: E402
-from torch_scenes import run, twin  # noqa: E402
+from torch_scenes import binary_twin, run, twin  # noqa: E402
+
+#: --scene -> (sim class factory, the csrc sources its kernels need)
+SCENES = {
+    'ldc_3d': (lambda: twin('ldc_3d'), ['lbm_step', 'halo']),
+    'sc_separation_3d': (lambda: binary_twin('sc_separation_3d'),
+                         ['sc_multi', 'halo']),
+}
 
 
 def synchronize(devices):
@@ -67,27 +82,36 @@ def host_ms(fn, iters, devices, warmup=5):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def cavity(n, size, z, steps, chunk):
-    """The cavity of ``size`` × ``size`` × ``z`` nodes through the
+def scene_run(scene, n, size, z, steps, chunk):
+    """``scene`` at ``size`` × ``size`` × ``z`` nodes through the
     controller, over a z mesh of the first ``n`` GPUs (``n`` = 0: no
-    mesh, on cuda:0); returns (runner, MLUPS, step and exchange launches
+    mesh, on cuda:0); returns (runner, MLUPS, kernel and exchange launches
     of the run)."""
     cfg = dict(lat_nx=size, lat_ny=size, lat_nz=z, max_iters=steps,
-               every=chunk)
-    ls.reset_launch_counts()
+               every=chunk, seed=1)
+    for counts in (ls.LAUNCHES, sm.LAUNCHES, fe.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     halo.reset_launch_counts()
+    make = SCENES[scene][0]
     if n == 0:
-        r = run(twin('ldc_3d'), **cfg)
+        r = run(make(), **cfg)
     else:
         with pmesh.devices_override([f'cuda:{i}' for i in range(n)]):
-            r = run(twin('ldc_3d'), mesh=str(n), **cfg)
+            r = run(make(), mesh=str(n), **cfg)
     synchronize([f'cuda:{i}' for i in range(max(n, 1))])
-    launches = (dict(ls.LAUNCHES), dict(halo.LAUNCHES))
+    launches = ({k: v for counts in (ls.LAUNCHES, sm.LAUNCHES, fe.LAUNCHES)
+                 for k, v in counts.items()}, dict(halo.LAUNCHES))
     return r, statistics.median(r.mlups_history[1:]), launches
+
+
+def leaves(f):
+    return (f,) if torch.is_tensor(f) else tuple(f)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--scene', choices=sorted(SCENES), default='ldc_3d')
     ap.add_argument('--size', type=int, default=256)
     ap.add_argument('--steps', type=int, default=300)
     ap.add_argument('--chunk', type=int, default=100)
@@ -102,62 +126,89 @@ def main():
     print(smi.stdout.strip(), flush=True)
     print(f'torch {torch.__version__}, CUDA {torch.version.cuda}, {count} '
           f'GPUs', flush=True)
-    build.load_all(['lbm_step', 'halo'])
+    scene = args.scene
+    build.load_all(SCENES[scene][1])
     size, steps, chunk = args.size, args.steps, args.chunk
     nodes = size ** 3
-    ref, ref_mlups, _ = cavity(0, size, size, steps, chunk)
-    ref_f = ref.f.clone()
+    ref, ref_mlups, _ = scene_run(scene, 0, size, size, steps, chunk)
+    ref_f = tuple(f.clone() for f in leaves(ref.f))
     del ref
     torch.cuda.empty_cache()
-    print(f'unsharded {size}^3 on cuda:0: {ref_mlups:.1f} MLUPS, '
+    print(f'{scene} unsharded {size}^3 on cuda:0: {ref_mlups:.1f} MLUPS, '
           f'{nodes / ref_mlups / 1e3:.4f} ms per step', flush=True)
-    out = dict(size=size, steps=steps, unsharded_mlups=ref_mlups,
+    out = dict(scene=scene, size=size, steps=steps,
+               unsharded_mlups=ref_mlups,
                gpus=smi.stdout.strip().splitlines(), strong={}, weak={})
     shard_counts = [k for k in (2, 4, 8) if k <= count]
     for n in shard_counts:
         devices = [f'cuda:{i}' for i in range(n)]
-        r, mlups, (counts, xcounts) = cavity(n, size, size, steps, chunk)
+        r, mlups, (counts, xcounts) = scene_run(scene, n, size, size, steps,
+                                                chunk)
         stp = r.stepper
-        same = torch.equal(r.f, ref_f)
+        multi = hasattr(stp, 'K')
+        same = all(torch.equal(a, b) for a, b in zip(leaves(r.f), ref_f))
         assert [ks.a.device.index for ks in stp.kernels] == list(range(n))
-        assert counts['lbm_step_ghost_d3q19'] == n * steps \
-            == sum(counts.values()), counts
-        assert xcounts['halo_exchange_d3q19'] == n * steps \
-            == sum(xcounts.values()), xcounts
-        parts = [ks.a for ks in stp.kernels]
-        x_ms = host_ms(lambda: stp.exchange(parts), 500, devices)
+        ks0 = stp.kernels[0]
+        names = [ks0.rho_name, ks0.name] if multi else [ks0.name]
+        for name in names:
+            assert counts[name] == n * steps, (name, counts)
+        assert sum(counts.values()) == len(names) * n * steps, counts
+        xnames = [stp.name] + ([stp.rho_name] if multi else [])
+        for name in xnames:
+            assert xcounts[name] == n * steps, (name, xcounts)
+        assert sum(xcounts.values()) == len(xnames) * n * steps, xcounts
+        bufs = [ks.a for ks in stp.kernels]
+        if multi:
+            rhos = [ks.rho for ks in stp.kernels]
 
-        def launches_only():
-            for ks in stp.kernels:
-                with torch.cuda.device(ks.a.device):
-                    ks.step_into(ks.a, ks.b)
+            def exchanges():
+                stp.density_exchange(rhos)
+                stp.exchange_buffers(bufs)
 
+            def launches_only():
+                for ks in stp.kernels:
+                    with torch.cuda.device(ks.a.device):
+                        ks.density_into(ks.a, ks.rho)
+                        ks.collide_into(ks.a, ks.rho, ks.b)
+        else:
+            def exchanges():
+                stp.exchange(bufs)
+
+            def launches_only():
+                for ks in stp.kernels:
+                    with torch.cuda.device(ks.a.device):
+                        ks.step_into(ks.a, ks.b)
+
+        x_ms = host_ms(exchanges, 500, devices)
         launch_ms = host_ms(launches_only, 100, devices)
         step_ms = nodes / mlups / 1e3
-        print(f'{size}^3 over {n} GPUs (a shard {tuple(stp.kernels[0].shape)}'
-              f' each): {mlups:.1f} MLUPS ({mlups / ref_mlups:.3f}x one GPU,'
-              f' {mlups / ref_mlups / n:.3f} parallel efficiency), '
+        print(f'{scene} {size}^3 over {n} GPUs (a shard '
+              f'{tuple(ks0.shape)} each): {mlups:.1f} MLUPS '
+              f'({mlups / ref_mlups:.3f}x one GPU, '
+              f'{mlups / ref_mlups / n:.3f} parallel efficiency), '
               f'{step_ms:.4f} ms per step; the final state equal to the '
-              f'unsharded run\'s bit for bit: {same}; {n * steps} '
-              f'lbm_step_ghost_d3q19 and {n * steps} halo_exchange_d3q19 '
-              f'launches; exchange alone {x_ms:.5f} ms, the shards\' step '
+              f'unsharded run\'s bit for bit: {same}; '
+              f'{", ".join(f"{n * steps} {x}" for x in names + xnames)} '
+              f'launches; the exchanges alone {x_ms:.5f} ms, the shards\' '
               f'launches alone {launch_ms:.4f} ms per step', flush=True)
-        assert same, float((r.f - ref_f).abs().max())
+        assert same
         out['strong'][n] = dict(mlups=mlups, step_ms=step_ms,
                                 exchange_ms=x_ms, launches_ms=launch_ms,
                                 bitwise=same)
-        del r, stp, parts
+        del r, stp, bufs, ks0
         torch.cuda.empty_cache()
-        r, mlups, _ = cavity(n, size, n * size, steps, chunk)
-        print(f'{size}^2 x {n * size} over {n} GPUs ({size}^3 each): '
-              f'{mlups:.1f} MLUPS, {mlups / n:.1f} per GPU '
+        r, mlups, _ = scene_run(scene, n, size, n * size, steps, chunk)
+        print(f'{scene} {size}^2 x {n * size} over {n} GPUs ({size}^3 '
+              f'each): {mlups:.1f} MLUPS, {mlups / n:.1f} per GPU '
               f'({mlups / n / ref_mlups:.3f} of one GPU\'s {size}^3)',
               flush=True)
         out['weak'][n] = dict(mlups=mlups, per_gpu=mlups / n)
         del r
         torch.cuda.empty_cache()
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
-    with open(os.path.join(REPO, 'chiprun_out', 'mesh_gpus.json'), 'w') as f:
+    tag = '' if scene == 'ldc_3d' else f'_{scene}'
+    with open(os.path.join(REPO, 'chiprun_out', f'mesh_gpus{tag}.json'),
+              'w') as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out), flush=True)
 
