@@ -132,7 +132,14 @@ version on the card from seeded random states:
   K = 3 forced with walls, walls, Rayleigh-Taylor, FE-MRT, wetting in 3D
   and 2D, single-component Shan-Chen; 2 shards, 20 steps): both exchange
   kernels against their plain versions on random buffers, the ghost-mode
-  pre-pass and step against theirs, the unsharded kernel's bits.
+  pre-pass and step against theirs, the unsharded kernel's bits;
+* on meshes of two axes (('z', 'y'), ('y', 'x')): the edge mode of both
+  exchanges (``halo_edge_exchange_<grid>``, ``halo_rho_edge_exchange_
+  <grid>``) against ``ghost_copy`` on random buffers, bit for bit
+  (``EDGE_CASES``: K = 1 in fp32 and int16, 2 and 3, one and two ghost
+  layers, on 2x2 and 1x4 in 3D, 2x2 and 1x2 in 2D), and every mode class
+  of ``MESH_BITWISE`` and ``MESH_MULTI_CASES`` over 2x2 shards on the card,
+  the unsharded run's bits.
 
 Then it runs each model's main path through the controller with the
 default engine and the launch counts zeroed just before: the lid-driven
@@ -199,8 +206,15 @@ one ghost-mode launch per step, after one ghost-mode pre-pass and one
 density exchange for the couplings, and one exchange; MLUPS in turns
 against the unsharded kernel with the same bits after each turn, ms per
 launch of the ghost-mode kernels and of each exchange; the 3D paths also
-over 2 and 4 shards on the card, 200 steps, the unsharded bits), checks
-the results, times
+over 2 and 4 shards on the card, 100 steps, the unsharded bits), the
+two-axis main paths with ``--mesh=1x1`` (``MESH2_MAIN``: ``ldc_3d_zymesh1``
+and ``sc_separation_3d_zymesh1`` 256^3, ``taylor_green_2d_yxmesh1`` and
+``fe_separation_2d_yxmesh1`` 4096^2: the ghost-mode launches and one edge
+exchange per step, the density edge exchange for the couplings; MLUPS of
+``--mesh=1x1``, ``--mesh=1`` and the unsharded kernel in turns with the
+same bits after each turn, the edge exchanges' ms from C against the
+one-axis ones, 2x2 shards on the card 100 steps with the unsharded bits),
+checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
 demixing to its end, times every kernel against its plain version and its
@@ -703,6 +717,16 @@ NODE_BYTES = {
     # both ghost planes, read and written
     'halo_rho_exchange_d3q19': 2 * 2 * 2 * 4,
     'halo_rho_exchange_d2q9': 2 * 2 * 2 * 4,
+    # the edge mode on --mesh=1x1, per node of a plane (3D) or a row (2D)
+    # normal to the outer axis: the crossing directions (5 / 3) of both
+    # ghost planes and both ghost rows, read and written; the edges' or
+    # corners' values come as ``edge_bytes``
+    'halo_edge_exchange_d3q19': 2 * 2 * 5 * 2 * 4,
+    'halo_edge_exchange_d2q9': 2 * 2 * 3 * 2 * 4,
+    # the density edge mode: both ghost planes and rows of the K = 2
+    # densities (3D) and of phi (2D)
+    'halo_rho_edge_exchange_d3q19': 2 * 2 * 2 * 2 * 4,
+    'halo_rho_edge_exchange_d2q9': 2 * 2 * 1 * 2 * 4,
 }
 #: fp32 operations per direction of an ELBM node on the series branch
 #: (``NODE_OPS``)
@@ -787,6 +811,10 @@ NODE_OPS = {
     'rho_poststream_nk1_ghost_d3q19': 19,
     'rho_poststream_nk1_ghost_d2q9': 9,
     'halo_rho_exchange_d3q19': 2 * 2, 'halo_rho_exchange_d2q9': 2 * 2,
+    'halo_edge_exchange_d3q19': 2 * 2 * 5,
+    'halo_edge_exchange_d2q9': 2 * 2 * 3,
+    'halo_rho_edge_exchange_d3q19': 2 * 2 * 2,
+    'halo_rho_edge_exchange_d2q9': 2 * 2,
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
@@ -922,6 +950,15 @@ KERNELS = {
                                 'sailfish_tpu/ops/pallas_multi3d.py:57'),
     'halo_rho_exchange_d2q9': ('halo.cu',
                                'sailfish_tpu/ops/pallas_multi2d.py:91'),
+    # the edge mode of both exchanges on two-axis meshes
+    'halo_edge_exchange_d3q19': ('halo.cu',
+                                 'sailfish_tpu/ops/pallas_step.py:812'),
+    'halo_edge_exchange_d2q9': ('halo.cu',
+                                'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'halo_rho_edge_exchange_d3q19': ('halo.cu',
+                                     'sailfish_tpu/ops/pallas_multi3d.py:57'),
+    'halo_rho_edge_exchange_d2q9': ('halo.cu',
+                                    'sailfish_tpu/ops/pallas_multi2d.py:756'),
 }
 #: what of the TPU kernel a row stands for, where one TPU kernel has two
 MODES = {
@@ -1065,6 +1102,26 @@ MODES = {
                                'own), K = 2',
     'halo_rho_exchange_d2q9': 'the post-stream density edge rows of a y '
                               'shard (ShardedPallasSCMulti2D), K = 2',
+    'halo_edge_exchange_d3q19': 'make_kernel_3d, y_ghosts mode (pallas_step'
+                                '.py:879-895): the y ghost rows and the z-y '
+                                'edges of a (z, y) shard, moved by ppermute '
+                                'in two hops (sailfish_tpu/parallel/halo.py'
+                                ':364-377), here one launch reading the '
+                                'diagonal shard; ldc_3d and sc_separation_3d '
+                                'on --mesh=1x1',
+    'halo_edge_exchange_d2q9': 'make_kernel_2d, x_ghosts mode (pallas_step2d'
+                               '.py:44-53): the x ghost columns and corners '
+                               'of a (y, x) shard (halo.py:763-771); '
+                               'taylor_green_2d and fe_separation_2d on '
+                               '--mesh=1x1',
+    'halo_rho_edge_exchange_d3q19': 'make_kernel_3d_sc_multi, y_ghosts '
+                                    '(pallas_multi3d.py:57-60): the K = 2 '
+                                    'densities\' y ghost rows and edges; '
+                                    'sc_separation_3d on --mesh=1x1',
+    'halo_rho_edge_exchange_d2q9': 'make_kernel_2d_fe, x_ghosts '
+                                   '(pallas_multi2d.py:756-758): phi\'s x '
+                                   'ghost columns and corners; '
+                                   'fe_separation_2d on --mesh=1x1',
 }
 #: the parabolic-inlet channels (regularized velocity inlet, density
 #: outlet), the main paths of the varying BC rows: scene -> (inlet
@@ -2582,7 +2639,7 @@ def bound_ms(name, nodes, extra_bytes=0):
 
 
 def sc_main_path(scene, sim_cls, size, copy_bw, name, demix=None,
-                 chunk=500, chunks=4):
+                 chunk=500, chunks=2):
     """A Shan-Chen scene through the controller with the default engine:
     a main path of the mixtures, whose step launches count under ``name``.
     The launch counts are zeroed just before the controller runs and read
@@ -2856,7 +2913,7 @@ def merge_rows(results, rows):
         results[name] = res
 
 
-def fe_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=4):
+def fe_main_path(scene, sim_cls, size, copy_bw, chunk=500, chunks=2):
     """A free-energy scene through the controller with the default engine:
     the main path of the model. The launch counts are zeroed just before
     the controller runs and read just after. Checks: finite fields, the
@@ -3599,8 +3656,10 @@ MESH_MAIN = {
     'ldc_3d_zmesh1': (LDC_3D, (256, 256, 256)),
     'ldc_2d_ymesh1': (LDC_2D, (4096, 4096)),
 }
-#: shard counts held bit for bit on the one card at full size (3D)
+#: shard counts held bit for bit on the one card at full size (3D), and
+#: the steps of those runs
 MESH_SHARDS = (2, 4)
+SHARD_STEPS = 100
 #: one scene per mode class over 2 shards at 64^3 / 1024^2, bit for bit
 #: against the unsharded kernel run: name -> (sim class, flags)
 MESH_BITWISE = {
@@ -3633,30 +3692,37 @@ def mesh_of(n, dim):
     return pmesh.make_mesh((n,), dim, [DEVICE] * n)
 
 
-def mesh_bitwise(name, sim_cls, cfg, steps=100):
-    """The scene through the controller over 2 shards on the one card
-    against the unsharded kernel run: the same bits, one ghost-plane
-    launch per shard and step, one exchange per step."""
+def mesh_size(mesh):
+    """The shards of a ``--mesh`` string ('2', '2x2', ...)."""
+    return int(np.prod([int(c) for c in mesh.split('x')]))
+
+
+def mesh_bitwise(name, sim_cls, cfg, steps=100, mesh='2'):
+    """The scene through the controller over the shards of ``mesh`` on
+    the one card against the unsharded kernel run: the same bits, one
+    ghost-plane launch per shard and step, one exchange per step (the
+    edge mode on two axes)."""
+    n = mesh_size(mesh)
     ref = run(sim_cls, max_iters=steps, every=steps // 2, **cfg)
     ls.reset_launch_counts()
     halo.reset_launch_counts()
-    with pmesh.devices_override([DEVICE] * 2):
-        r = run(sim_cls, max_iters=steps, every=steps // 2, mesh='2', **cfg)
-    g = r.sim.grid.name.lower()
+    with pmesh.devices_override([DEVICE] * n):
+        r = run(sim_cls, max_iters=steps, every=steps // 2, mesh=mesh, **cfg)
     assert r.engine == 'kernel' and r.kernel is r.stepper, r.engine
     # each shard's launches under its own mode's ghost key
     names = sorted({ks.name for ks in r.stepper.kernels})
     assert all(n.startswith('lbm_step_ghost_') for n in names), names
-    assert sum(ls.LAUNCHES[n] for n in names) == 2 * steps \
+    assert sum(ls.LAUNCHES[k] for k in names) == n * steps \
         == sum(ls.LAUNCHES.values()), dict(ls.LAUNCHES)
-    assert halo.LAUNCHES[f'halo_exchange_{g}'] == steps
+    assert halo.LAUNCHES[r.stepper.name] == steps \
+        == sum(halo.LAUNCHES.values()), dict(halo.LAUNCHES)
     assert st.is_finite(ref.f), name
     same = torch.equal(r.f, ref.f)
     diff = float((r.f - ref.f).abs().max())
     say(f'mesh {name}: {r.sim.grid.name} {tuple(ref.f.shape[1:])}, '
-        f'{steps} steps over 2 shards on the card ({", ".join(names)}; '
-        f'{ref.kernel.name} unsharded): the same bits {same} (max |df| '
-        f'{diff:.3e})')
+        f'{steps} steps over --mesh={mesh} on the card ({", ".join(names)}, '
+        f'{r.stepper.name}; {ref.kernel.name} unsharded): the same bits '
+        f'{same} (max |df| {diff:.3e})')
     assert same, (name, diff)
     del r, ref
     torch.cuda.empty_cache()
@@ -3737,7 +3803,8 @@ def mesh_main_path(path, sim_cls, size, copy_bw, chunk=250, chunks=4,
     the same builder (MLUPS over ``turn_steps``, and the two states equal
     bit for bit); ms per launch of the ghost-mode step and of the
     unsharded one in turns; the exchange's ms per step; and in 3D the
-    state over ``MESH_SHARDS`` shards on the one card, 200 steps, the same
+    state over ``MESH_SHARDS`` shards on the one card, ``SHARD_STEPS``
+    steps, the same
     bits as the unsharded kernel. Returns (step row, exchange row)."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
     steps = chunk * chunks
@@ -3838,19 +3905,22 @@ def mesh_main_path(path, sim_cls, size, copy_bw, chunk=250, chunks=4,
     if len(size) == 3:
         shards = {}
         start = fu
-        ref = ks1.run(start, 200).clone()
+        ref = ks1.run(start, SHARD_STEPS).clone()
         for n in MESH_SHARDS:
             sn = halo.ShardedStep(r.builder, r._domain_shape(),
                                   mesh_of(n, 3), 'kernel')
-            mn, out = host_mlups(lambda: sn.run(start, 200), nodes, 200)
-            un, _ = host_mlups(lambda: ks1.run(start, 200), nodes, 200)
+            mn, out = host_mlups(lambda: sn.run(start, SHARD_STEPS), nodes,
+                                 SHARD_STEPS)
+            un, _ = host_mlups(lambda: ks1.run(start, SHARD_STEPS), nodes,
+                               SHARD_STEPS)
             got = sn.gather(out)
             same = torch.equal(got, ref)
             pn = [ks.a for ks in sn.kernels]
             sn.exchange(pn)
             xn = exchange_kernel_ms(sn, pn)
             say(f'{path} over {n} shards on the one card '
-                f'({tuple(sn.kernels[0].shape)} each): 200 steps equal to '
+                f'({tuple(sn.kernels[0].shape)} each): {SHARD_STEPS} '
+                f'steps equal to '
                 f'the unsharded kernel\'s bit for bit: {same}; {mn:.1f} '
                 f'MLUPS against {un:.1f} '
                 f'unsharded, in turns ({mn / un:.4f}); exchange {xn:.5f} ms '
@@ -4072,15 +4142,16 @@ def exchanges_check(stp):
             max(float((a - b).abs().max()) for a, b in zip(rhos, rref)))
 
 
-def mesh_multi_compare(name, sim_cls, cfg, steps=20):
-    """The scene over 2 shards on the card: both exchange kernels against
-    their plain versions (the same bits), the ghost-mode pre-pass against
-    its plain version on the scene's start (<= ``RHO_TOL``), ``steps``
-    steps of the sharded kernel run against the plain version of the
-    sharded step (wet max |df| <= ``TOL``) and against the unsharded
-    kernel run (the same bits). Returns {kernel name: error}."""
-    with pmesh.devices_override([DEVICE] * 2):
-        r = run(sim_cls, max_iters=0, mesh='2', seed=1, **cfg)
+def mesh_multi_compare(name, sim_cls, cfg, steps=20, mesh='2'):
+    """The scene over the shards of ``mesh`` on the card: both exchange
+    kernels against their plain versions (the same bits), the ghost-mode
+    pre-pass against its plain version on the scene's start (<=
+    ``RHO_TOL``), ``steps`` steps of the sharded kernel run against the
+    plain version of the sharded step (wet max |df| <= ``TOL``) and
+    against the unsharded kernel run (the same bits). Returns {kernel
+    name: error}."""
+    with pmesh.devices_override([DEVICE] * mesh_size(mesh)):
+        r = run(sim_cls, max_iters=0, mesh=mesh, seed=1, **cfg)
     stp = r.stepper
     x_err, xr_err = exchanges_check(stp)
     f0 = tuple(f.clone() for f in leaves(r.f))
@@ -4090,9 +4161,8 @@ def mesh_multi_compare(name, sim_cls, cfg, steps=20):
     for ks, part in zip(stp.kernels, s0.parts):
         src = part if torch.is_tensor(part) else ks._buffer_of(part)
         shard_prepass(stp, ks, src)
-        g0 = stp.ghost
-        d = (density_of(stp, ks) - shard_prepass_plain(stp, src)).narrow(
-            -len(ks.shape), g0, stp.length)
+        d = density_of(stp, ks) - shard_prepass_plain(stp, src)
+        d = stp.interior(d, d.dim() - len(ks.shape))
         rho_err = max(rho_err, float(d.abs().max()))
     fk = stp.gather(stp.run(f0, steps))
     sr = stp.shard(f0)
@@ -4107,7 +4177,7 @@ def mesh_multi_compare(name, sim_cls, cfg, steps=20):
     same, diff = same_bits(fk, fu)
     ks = stp.kernels[0]
     say(f'compare mesh {name}: {r.sim.grid.name} {tuple(r._domain_shape())}'
-        f' over 2 shards (ghost {stp.ghost}; {ks.rho_name}, {ks.name}): '
+        f' over --mesh={mesh} (ghost {stp.ghost}; {ks.rho_name}, {ks.name}): '
         f'{stp.name} and {stp.rho_name} against their plain versions on '
         f'random buffers max |d| {x_err:g} / {xr_err:g}; pre-pass '
         f'max|drho| = {rho_err:.3e} (tol {RHO_TOL:g}); {steps} steps against '
@@ -4153,7 +4223,8 @@ def mesh_multi_main_path(path, sim_cls, size, copy_bw, chunk=250, chunks=2,
     after each turn); ms per launch of the ghost-mode pre-pass and step
     against the unsharded ones in turns, of both exchanges from C, and
     their plain versions; in 3D the state over ``MESH_SHARDS`` shards on
-    the one card, 200 steps, the unsharded kernel's bits. Returns {JSON
+    the one card, ``SHARD_STEPS`` steps, the unsharded kernel's bits.
+    Returns {JSON
     row: measurements}."""
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
     steps = chunk * chunks
@@ -4277,16 +4348,20 @@ def mesh_multi_main_path(path, sim_cls, size, copy_bw, chunk=250, chunks=2,
     if len(size) == 3:
         shards = {}
         start = fu
-        ref = tuple(f.clone() for f in leaves(flat.run(start, 200)))
+        ref = tuple(f.clone() for f in leaves(flat.run(start,
+                                                      SHARD_STEPS)))
         for n in MESH_SHARDS:
             sn = type(stp)(r.builder, r._domain_shape(), mesh_of(n, 3),
                            'kernel')
-            mn, out = host_mlups(lambda: sn.run(start, 200), nodes, 200)
-            un, _ = host_mlups(lambda: flat.run(start, 200), nodes, 200)
+            mn, out = host_mlups(lambda: sn.run(start, SHARD_STEPS), nodes,
+                                 SHARD_STEPS)
+            un, _ = host_mlups(lambda: flat.run(start, SHARD_STEPS), nodes,
+                               SHARD_STEPS)
             same, diff = same_bits(sn.gather(out), ref if len(ref) > 1
                                    else ref[0])
             say(f'{path} over {n} shards on the one card '
-                f'({tuple(sn.kernels[0].shape)} each): 200 steps equal to '
+                f'({tuple(sn.kernels[0].shape)} each): {SHARD_STEPS} '
+                f'steps equal to '
                 f'the unsharded kernel\'s bit for bit: {same}; {mn:.1f} '
                 f'MLUPS against {un:.1f} unsharded, in turns '
                 f'({mn / un:.4f})')
@@ -4299,6 +4374,259 @@ def mesh_multi_main_path(path, sim_cls, size, copy_bw, chunk=250, chunks=2,
     del r, stp, ks, flat, f0, fm, fu, ga, gb, ua, ub, bufs, rhos, wet
     torch.cuda.empty_cache()
     return rows
+
+
+# -- two-axis meshes: the edge mode of the exchanges ------------------------
+
+#: the edge mode against its plain version on random buffers: label ->
+#: (sim class, flags, meshes); K = 1 (fp32 and int16), 2 and 3, one and two
+#: ghost layers (free energy with walls), single-fluid densities
+EDGE_CASES = {
+    'ldc_3d': (LDC_3D, dict(lat_nx=64, lat_ny=64, lat_nz=64)),
+    'ldc_3d_int16': (LDC_3D, dict(lat_nx=64, lat_ny=64, lat_nz=64,
+                                  precision='mixed')),
+    'sc_phase_separation_3d': (SC_3D, dict(lat_nx=64, lat_ny=64,
+                                           lat_nz=64)),
+    'sc_separation_3d': (SEP_3D, dict(lat_nx=64, lat_ny=64, lat_nz=64)),
+    'ternary_separation_3d': (TERNARY_3D, dict(lat_nx=64, lat_ny=64,
+                                               lat_nz=64)),
+    'fe_viscous_fingering': (FE['fe_viscous_fingering'],
+                             dict(lat_nx=320, lat_ny=100, lat_nz=36)),
+    'ldc_2d': (LDC_2D, dict(lat_nx=1024, lat_ny=1024)),
+    'sc_phase_separation': (SC_2D, dict(lat_nx=1024, lat_ny=1024)),
+    'sc_separation_2d': (SEP_2D, dict(lat_nx=1024, lat_ny=1024)),
+    'ternary_sc_drop_2d': (DROP_3, dict(lat_nx=1024, lat_ny=1024)),
+    'fe_poiseuille_2d': (FE['fe_poiseuille_2d'],
+                         dict(lat_nx=1024, lat_ny=512,
+                              bc_wall_grad_phase=0.05)),
+}
+#: the two-axis meshes of the comparisons, per dimension
+EDGE_MESHES = {3: ('2x2', '1x4'), 2: ('2x2', '1x2')}
+#: the mesh of the mode classes' comparisons on two axes (``MESH_BITWISE``,
+#: ``MESH_MULTI_CASES``), and the sizes that differ there (y cut from 101
+#: to 100 to split evenly)
+MESH2 = '2x2'
+MESH2_SIZES = {'fe_viscous_fingering': dict(lat_nx=320, lat_ny=100,
+                                            lat_nz=36)}
+#: the two-axis main paths at full width, through the controller with
+#: --mesh=1x1 (the zoo's rows, benchmark/model_zoo.py:172, :184, :189,
+#: :200; the free-energy row at 4096^2): path -> (sim class, size, flags)
+MESH2_MAIN = {
+    'ldc_3d_zymesh1': (LDC_3D, (256, 256, 256), {}),
+    'sc_separation_3d_zymesh1': (SEP_3D, (256, 256, 256), {}),
+    'taylor_green_2d_yxmesh1': (twin('taylor_green_2d'), (4096, 4096),
+                                dict(visc=0.01)),
+    'fe_separation_2d_yxmesh1': (FE['fe_separation_2d'], (4096, 4096), {}),
+}
+
+
+def edge_exchange_check(label, sim_cls, cfg, mesh):
+    """Both exchanges of the scene's sharded step over ``mesh`` (two axes,
+    the shards on the one card) on random buffers of its shards' shapes
+    against their plain versions: the distributions' exchange on the
+    state's dtype (int16 codes too) and the density exchange on fp32
+    densities of the step's layout (K components, ``ghost`` layers).
+    Returns (exchange name, max |d|, density exchange name, max |d|)."""
+    with pmesh.devices_override([DEVICE] * mesh_size(mesh)):
+        r = run(sim_cls, max_iters=0, mesh=mesh, seed=1, **cfg)
+    stp = r.stepper
+    assert stp.inner is not None and 'edge_' in stp.name, stp.name
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def rand(shape, dtype):
+        x = torch.rand(shape, generator=g, device=DEVICE)
+        return x if dtype == torch.float32 else (x * 3e4).to(dtype)
+
+    bufs = [rand(ks.a.shape, ks.a.dtype) for ks in stp.kernels]
+    ref = [b.clone() for b in bufs]
+    halo.reset_launch_counts()
+    if hasattr(stp, 'K'):
+        stp.exchange_buffers(bufs)
+        stp.exchange_reference([x.unbind(0) for x in ref])
+        shape = density_of(stp, stp.kernels[0]).shape
+    else:
+        stp.exchange(bufs)
+        stp.exchange_reference(ref)
+        shape = stp.kernels[0].shape
+    rhos = [rand(shape, torch.float32) for _ in stp.kernels]
+    rref = [x.clone() for x in rhos]
+    stp.density_exchange(rhos)
+    stp.density_exchange_reference(rref)
+    assert halo.LAUNCHES[stp.name] == halo.LAUNCHES[stp.rho_name] == 1
+    f_err = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(bufs, ref))
+    r_err = max(float((a - b).abs().max()) for a, b in zip(rhos, rref))
+    k = getattr(stp, 'K', 1)
+    say(f'compare edge exchange {label} --mesh={mesh} (shards '
+        f'{tuple(stp.kernels[0].shape)}, K = {k}, ghost {stp.ghost}, '
+        f'{bufs[0].dtype}): {stp.name} and {stp.rho_name} against '
+        f'ghost_copy on random buffers, max |d| {f_err:g} / {r_err:g}')
+    assert f_err == 0.0 and r_err == 0.0, (f_err, r_err)
+    out = (stp.name, f_err, stp.rho_name, r_err)
+    del r, stp, bufs, ref, rhos, rref
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh2_main_path(path, sim_cls, size, flags, chunk=250, chunks=2,
+                    turn_steps=100, shard_steps=SHARD_STEPS):
+    """A scene through the controller with ``--mesh=1x1`` on the kernel
+    engine: per step the shard's ghost-mode launch (after its pre-pass and
+    the density edge exchange for the couplings) and one edge exchange,
+    nothing else (counts zeroed just before, read just after). Then, on
+    the main path's own state: 10 steps against the plain version of the
+    sharded step; ``turn_steps``-step runs in turns of ``--mesh=1x1``,
+    ``--mesh=1`` and the unsharded kernel on the same builder (MLUPS, host
+    clock; the same bits after each turn); ms per launch of the edge
+    exchanges from C against the one-axis exchanges; and 2x2 shards on
+    the card, ``shard_steps`` steps, the unsharded kernel's bits, MLUPS in
+    turns. Returns ({JSON row: measurements}, the path's summary)."""
+    dim = len(size)
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size), **flags)
+    steps = chunk * chunks
+    reset_all_counts()
+    r = run(sim_cls, max_iters=steps, every=chunk, mesh='1x1', seed=1, **cfg)
+    counts, xcounts = kernel_counts(), dict(halo.LAUNCHES)
+    stp = r.stepper
+    grid = r.sim.grid.name
+    ks = stp.kernels[0]
+    coupled = hasattr(stp, 'K') or stp.sc
+    names = [ks.rho_name, ks.name] if coupled else [ks.name]
+    xnames = [stp.rho_name, stp.name] if coupled else [stp.name]
+    assert r.engine == 'kernel' and r.kernel is stp and stp.mesh.size == 1
+    assert stp.inner == (1, size[-2]), stp.inner
+    assert all('ghost_' in n for n in names), names
+    assert all('edge_' in n for n in xnames), xnames
+    for n in names:
+        assert counts[n] == steps == r.sim.iteration, (n, counts)
+    assert sum(counts.values()) == len(names) * steps, counts
+    for n in xnames:
+        assert xcounts[n] == steps, (n, xcounts)
+    assert sum(xcounts.values()) == len(xnames) * steps, xcounts
+    assert stp.is_finite(r.state)
+    r._fields_to_host()
+    shape = tuple(reversed(size))
+    for field in ('rho', 'vx') + (('phi',) if hasattr(stp, 'K') else ()):
+        arr = getattr(r.sim, field)
+        assert arr.shape == shape and np.all(np.isfinite(arr)), field
+    mlups = statistics.median(r.mlups_history[1:])
+    say(f'main path {path} {"x".join(map(str, size))} ({grid}, engine '
+        f'{r.engine}, --mesh=1x1, a shard {tuple(ks.shape)}): '
+        f'{" + ".join(f"{steps} {n}" for n in names + xnames)} launches; '
+        f'MLUPS per {chunk}-step chunk '
+        f'{[round(m, 1) for m in r.mlups_history]}; median {mlups:.1f}')
+    f0 = tuple(f.clone() for f in leaves(r.f))
+    f0 = f0[0] if torch.is_tensor(r.f) else f0
+    wet = torch.as_tensor(wet_map(r.maps), device=DEVICE)
+    fk = stp.gather(stp.run(f0, 10, steps))
+    s = stp.shard(f0)
+    for i in range(10):
+        s = stp.reference(s, steps + i)
+    err = max(float((a - b)[:, wet].abs().max())
+              for a, b in zip(leaves(fk), leaves(stp.gather(s))))
+    say(f'compare main path {path}: 10 steps from the state after {steps}, '
+        f'wet max|df| = {err:.3e} (tol {TOL:g})')
+    assert np.isfinite(err) and err <= TOL, err
+    del s, fk
+    # in turns: --mesh=1x1, --mesh=1 and the unsharded kernel
+    one = type(stp)(r.builder, r._domain_shape(), mesh_of(1, dim), 'kernel')
+    flat = r._kernel_engine(r.builder)
+    nodes = int(np.prod(size))
+    variants = {'1x1': stp, '1': one, 'unsharded': flat}
+    state = dict.fromkeys(variants, f0)
+    mlups_of = {k: [] for k in variants}
+    for _ in range(2):
+        for key, eng in variants.items():
+            m, out = host_mlups(lambda: eng.run(state[key], turn_steps),
+                                nodes, turn_steps)
+            mlups_of[key].append(m)
+            out = out if key == 'unsharded' else eng.gather(out)
+            out = tuple(f.clone() for f in leaves(out))
+            state[key] = out[0] if torch.is_tensor(r.f) else out
+        for key in ('1x1', '1'):
+            same, diff = same_bits(state[key], state['unsharded'])
+            assert same, (key, diff)
+    med = {k: statistics.median(v) for k, v in mlups_of.items()}
+    say(f'{path}: {turn_steps}-step runs in turns from the same state, '
+        f'MLUPS --mesh=1x1 {[round(v, 1) for v in mlups_of["1x1"]]}, '
+        f'--mesh=1 {[round(v, 1) for v in mlups_of["1"]]}, unsharded '
+        f'{[round(v, 1) for v in mlups_of["unsharded"]]}: 1x1 over 1 '
+        f'{med["1x1"] / med["1"]:.4f}, 1x1 over unsharded '
+        f'{med["1x1"] / med["unsharded"]:.4f}, 1 over unsharded '
+        f'{med["1"] / med["unsharded"]:.4f}; the three states equal bit '
+        f'for bit after each turn')
+    # the exchanges from C, and their plain versions
+    x_ms = plan_ms(stp, stp._plan_for([ks.a for ks in stp.kernels]))
+    x1_ms = plan_ms(one, one._plan_for([k.a for k in one.kernels]))
+    if hasattr(stp, 'K'):
+        x_plain = util.cuda_time_ms(lambda: stp.exchange_reference(
+            [ks.a.unbind(0)]), 20, warmup=2)
+    else:
+        x_plain = util.cuda_time_ms(lambda: stp.exchange_reference(
+            [ks.a]), 20, warmup=2)
+    rows_x = {stp.name: dict(launches=steps, ms=x_ms, plain_ms=x_plain,
+                             err=0.0, nodes=int(np.prod(size[1:])),
+                             extra_bytes=edge_bytes(stp, size, 'f'),
+                             one_axis_ms=x1_ms)}
+    line = (f'{stp.name} {x_ms:.5f} ms per launch from C against the '
+            f'one-axis {one.name} {x1_ms:.5f} (plain {x_plain:.4f} ms)')
+    if coupled:
+        rhos = [density_of(stp, ks)]
+        stp.density_exchange(rhos)
+        xr_ms = plan_ms(stp, stp._plans['rho'][1])
+        one.density_exchange([density_of(one, one.kernels[0])])
+        xr1_ms = plan_ms(one, one._plans['rho'][1])
+        xr_plain = util.cuda_time_ms(
+            lambda: stp.density_exchange_reference(rhos), 20, warmup=2)
+        rows_x[stp.rho_name] = dict(
+            launches=steps, ms=xr_ms, plain_ms=xr_plain, err=0.0,
+            nodes=int(np.prod(size[1:])),
+            extra_bytes=edge_bytes(stp, size, 'rho'), one_axis_ms=xr1_ms)
+        line += (f'; {stp.rho_name} {xr_ms:.5f} against {one.rho_name} '
+                 f'{xr1_ms:.5f} (plain {xr_plain:.4f} ms)')
+    say(f'{path}: {line}')
+    # 2x2 shards on the card
+    start = state['unsharded']
+    sn = type(stp)(r.builder, r._domain_shape(),
+                   pmesh.make_mesh((2, 2), dim, [DEVICE] * 4), 'kernel')
+    mn, out = host_mlups(lambda: sn.run(start, shard_steps), nodes,
+                         shard_steps)
+    un, ref = host_mlups(lambda: flat.run(start, shard_steps), nodes,
+                         shard_steps)
+    same, diff = same_bits(sn.gather(out), ref)
+    xn = plan_ms(sn, sn._plan_for([k.a for k in sn.kernels]))
+    say(f'{path} over 2x2 shards on the one card '
+        f'({tuple(sn.kernels[0].shape)} each): {shard_steps} steps equal '
+        f'to the unsharded kernel\'s bit for bit: {same}; {mn:.1f} MLUPS '
+        f'against {un:.1f} unsharded, in turns ({mn / un:.4f}); '
+        f'{sn.name} {xn:.5f} ms per launch')
+    assert same, diff
+    summary = dict(mlups=mlups, err=err, mesh_1x1_mlups=med['1x1'],
+                   mesh_1_mlups=med['1'], unsharded_mlups=med['unsharded'],
+                   over_mesh_1=med['1x1'] / med['1'],
+                   over_unsharded=med['1x1'] / med['unsharded'],
+                   shards_2x2=dict(mlups=mn, unsharded_mlups=un,
+                                   exchange_ms=xn))
+    rows = {n: dict(launches=steps, err=err if n == ks.name else 0.0)
+            for n in names}
+    rows.update(rows_x)
+    del r, stp, one, flat, sn, out, ref, start, state, f0, ks, wet
+    torch.cuda.empty_cache()
+    return rows, summary
+
+
+def edge_bytes(stp, size, which):
+    """The bytes of an edge exchange on ``--mesh=1x1`` beyond its planes'
+    and rows' (``NODE_BYTES`` per node of a plane): the edges' (3D) or
+    corners' (2D) values, read and written."""
+    k = getattr(stp, 'K', 1)
+    if which == 'rho':
+        per = (1 if getattr(stp, 'fe', False) else k) * stp.ghost ** 2
+        dirs = 1
+    else:
+        per, dirs = k, len(stp.regions[(-1, -1)])
+    row = size[0] if len(size) == 3 else 1
+    return 4 * dirs * per * row * 2 * 4
 
 
 #: the lbm_step libraries and the other sources the smoke builds
@@ -4671,6 +4999,22 @@ def main():
         for key, err in mesh_multi_compare(name, sim_cls, cfg).items():
             note(key, err)
     phase_done('kernel comparisons (mesh)')
+    # two axes: the edge mode of both exchanges against its plain version;
+    # every mode class over 2x2 shards, the unsharded run's bits
+    for label, (sim_cls, cfg) in EDGE_CASES.items():
+        for mesh in EDGE_MESHES[3 if 'lat_nz' in cfg else 2]:
+            xname, x_err, rname, r_err = edge_exchange_check(
+                label, sim_cls, cfg, mesh)
+            note(xname, x_err)
+            note(rname, r_err)
+    for name, (sim_cls, cfg) in MESH_BITWISE.items():
+        mesh_bitwise(name, sim_cls, cfg, mesh=MESH2)
+    for name, (sim_cls, cfg) in MESH_MULTI_CASES.items():
+        for key, err in mesh_multi_compare(name, sim_cls,
+                                           MESH2_SIZES.get(name, cfg),
+                                           mesh=MESH2).items():
+            note(key, err)
+    phase_done('kernel comparisons (two-axis meshes)')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
             ('fe_separation_2d', 'fe_separation_2d',
@@ -4877,6 +5221,16 @@ def main():
             f'{rows[step]["mesh_over_unsharded"]:.4f}')
         merge_rows(results, rows)
     phase_done('Shan-Chen and free-energy mesh main paths')
+    for path, (sim_cls, size, flags) in MESH2_MAIN.items():
+        rows, summary = mesh2_main_path(path, sim_cls, size, flags)
+        merge_rows(results, rows)
+        step = next(n for n in rows if n.startswith(('sc_multi', 'fe_step',
+                                                     'lbm_step')))
+        results[step].setdefault('two_axis', {})[path] = summary
+        for name in rows:
+            if 'edge_' in name:
+                results[name].setdefault('paths', []).append(path)
+    phase_done('two-axis mesh main paths')
     fe_mrt_time()
     fe_demix()
     # chunks of about a second of the plain engine each
@@ -4918,7 +5272,8 @@ def main():
                     'force_object_ms', 'step_with_prepass_ms',
                     'unsharded_ms', 'mesh_mlups', 'unsharded_mlups',
                     'mesh_over_unsharded', 'exchange_ms',
-                    'exchange_call_ms', 'shards'):
+                    'exchange_call_ms', 'shards', 'two_axis', 'one_axis_ms',
+                    'paths'):
             if key in res:
                 kernels[-1][key] = res[key]
         if name in MODES:

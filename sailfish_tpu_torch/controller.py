@@ -98,8 +98,8 @@ class LBSimulationController:
                            help='device trace directory (not ported yet)')
         group.add_argument('--mesh', type=str, default='',
                            help='device mesh shape: N shards a '
-                           'single-fluid scene along z (3D) or y (2D) '
-                           'over N devices')
+                           'scene along z (3D) or y (2D) over N devices, '
+                           "AxB along ('z', 'y') or ('y', 'x') over A x B")
         group.add_argument('--vis_engine', type=str, default='mpl',
                            help='visualization engine (not ported yet)')
         group.add_argument('--engine', type=str, default='auto',

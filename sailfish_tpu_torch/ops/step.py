@@ -108,17 +108,23 @@ def global_coords(shape, device=None):
 def map_coords(maps, device=None):
     """``global_coords`` of the nodes of ``maps``; for a shard's maps
     (``parallel/halo.shard_maps``, which keeps ``rows``, the global index
-    of each plane along the outermost axis) the coordinate along that axis
-    is the global one."""
-    coords = global_coords(maps.type_map.shape, device)
-    rows = getattr(maps, 'rows', None)
-    if rows is None:
-        return coords
-    outer = torch.as_tensor(np.asarray(rows), dtype=torch.int32,
-                            device=device)
-    outer = outer.reshape((-1,) + (1,) * (len(coords) - 1))
-    return coords[:-1] + (torch.broadcast_to(outer, coords[-1].shape)
-                          .contiguous(),)
+    of each plane along the outermost axis, and on a mesh of two axes
+    ``cols``, along the next) the coordinates along those axes are the
+    global ones."""
+    coords = list(global_coords(maps.type_map.shape, device))
+    dim = len(coords)
+    for axis, index in enumerate((getattr(maps, 'rows', None),
+                                  getattr(maps, 'cols', None))):
+        if index is None:
+            continue
+        # coords run (x, y[, z]): spatial axis ``axis`` is coords[-1 - axis]
+        shape = [1] * dim
+        shape[axis] = -1
+        glob = torch.as_tensor(np.asarray(index), dtype=torch.int32,
+                               device=device).reshape(shape)
+        coords[dim - 1 - axis] = torch.broadcast_to(
+            glob, coords[dim - 1 - axis].shape).contiguous()
+    return tuple(coords)
 
 
 def time_of(it, dtype, time_unit, device=None):

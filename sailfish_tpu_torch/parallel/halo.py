@@ -1,5 +1,5 @@
-"""Sharded stepping of single-fluid scenes on one-axis meshes: ghost
-planes and their exchanges.
+"""Sharded stepping of single-fluid scenes: ghost planes and their
+exchanges.
 
 Port of the single-fluid part of ``sailfish_tpu/parallel/halo.py``
 (``ShardedPallasStep3D`` :170, ``ShardedPallasStep2D`` :760). The domain is
@@ -8,6 +8,17 @@ per shard of the mesh. Each shard holds its slab with one ghost plane on
 each side: a (Q, L + 2, ...) tensor whose planes 0 and L + 1 hold the
 ring neighbours' boundary planes. The ring wraps, so the global periodic
 streaming is the same as on one device (``halo.py:1-20``).
+
+On a mesh of two axes (('z', 'y') in 3D, ('y', 'x') in 2D, ``--mesh=AxB``)
+the slab is cut and padded along the next axis too: (Q, Lo + 2, Li + 2,
+...), the shards in mesh order (the outer axis slowest), each axis a ring
+of its own. The exchange then fills three kinds of region
+(``region_directions``): the outer axis's ghost planes over the inner
+axis's interior, the inner axis's ghost rows (3D) or columns (2D) over the
+outer axis's interior, and the edges (3D) or corners (2D) where the two
+cross, read directly from the diagonal neighbour (the JAX package forwards
+them in two hops, :364-377, :763-771): the ``halo_edge_exchange`` mode of
+the same kernel, one launch per device.
 
 A step is the one-device pull step run on each padded slab, then the
 exchange. The step of a slab is the scene's own (the torch engine's
@@ -19,7 +30,8 @@ force stays local to its shard, whichever shard boundary crosses it. The
 step computes the ghost planes too, from wrapped neighbours: their output
 is thrown away (overwritten by the exchange where the next step reads it,
 and never read elsewhere). That is design (b) of the ghost-plane mode: no
-kernel changes, 2 / L more node work. The exchange then copies each
+kernel changes, 2 / L more node work (2 / Lo + 2 / Li on two axes). The
+exchange then copies each
 shard's first and last interior planes into its ring neighbours' ghost
 planes, in the directions that cross the boundary (``crossing_directions``:
 5 of 19 in D3Q19, 3 of 9 in D2Q9). On the kernel engine that is the
@@ -36,14 +48,16 @@ post-stream density pre-pass, then the step that reads psi of the density
 one plane out): between them the density exchange copies the densities of
 each shard's first and last interior planes into its neighbours' ghost
 planes (``ShardedStep.density_exchange``; the same kernel on whole planes,
-counted as ``halo_rho_exchange_<grid>``), the counterpart of JAX's
+counted as ``halo_rho_exchange_<grid>``, ``halo_rho_edge_exchange_<grid>``
+on two axes), the counterpart of JAX's
 ``stream_rho_edges`` (:51-107). The mixtures and the free-energy model
 shard the same way in ``parallel/halo_multi.py``.
 
-Refused by name on a mesh (``mesh_reasons``): meshes of two or three
-axes, Shan-Chen (single or mixture) with a BC row (JAX's Pallas engines
-refuse it, :297, :894), the outflow family (neighbour samples along the
-normal, plane means), force objects and composite steps.
+Refused by name on a mesh (``mesh_reasons``): meshes of three axes,
+Shan-Chen (single or mixture) with a BC row (JAX's Pallas engines refuse
+it, :297, :894, and on an x-sharded 2D mesh :853-858), the outflow family
+(neighbour samples along the normal, plane means), force objects and
+composite steps.
 """
 
 from __future__ import annotations
@@ -60,16 +74,27 @@ from sailfish_tpu_torch.ops import step as st
 from sailfish_tpu_torch.parallel import mesh as pmesh
 from sailfish_tpu_torch.subdomain import NodeMaps
 
-#: the C struct's limits (csrc/halo.cu HALO_MAX_SHARDS, HALO_MAX_DIRS)
+#: the C struct's limits (csrc/halo.cu HALO_MAX_SHARDS, HALO_MAX_DIRS,
+#: HALO_MAX_EDGE_DIRS)
 MAX_SHARDS = 16
 MAX_DIRS = 9
+MAX_EDGE_DIRS = 3
 #: launches of the exchange kernel, per lattice (the state's Q): the
 #: distributions' exchange ``halo_exchange_<grid>`` and the density
 #: exchange of the Shan-Chen and free-energy steps
-#: ``halo_rho_exchange_<grid>``
+#: ``halo_rho_exchange_<grid>``; on a mesh of two axes their edge mode,
+#: ``halo_edge_exchange_<grid>`` and ``halo_rho_edge_exchange_<grid>``
 LAUNCHES = dict.fromkeys(
-    (f'halo_{kind}_{g}' for kind in ('exchange', 'rho_exchange')
+    (f'halo_{kind}_{g}'
+     for kind in ('exchange', 'rho_exchange', 'edge_exchange',
+                  'rho_edge_exchange')
      for g in ('d2q9', 'd3q15', 'd3q19', 'd3q27')), 0)
+#: the ghost regions of a slab, (outer side, inner side): -1 the low ghost
+#: planes, +1 the high ones, 0 the interior along that axis; a one-axis
+#: mesh has the first two, a two-axis one all eight (the last four the
+#: edges, in csrc/halo.cu's order)
+REGIONS = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1),
+           (1, 1))
 
 
 def reset_launch_counts():
@@ -78,14 +103,31 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-def crossing_directions(grid):
-    """(lo, hi): the directions whose pull step reads ghost plane 0 (c = +1
-    along the sharded axis: z in 3D, y in 2D) and ghost plane L + 1 (c =
+def crossing_directions(grid, axis=0):
+    """(lo, hi): the directions whose pull step reads the low ghost plane
+    (c = +1 along the sharded spatial axis ``axis``: 0 the outermost, z in
+    3D and y in 2D; 1 the next, y in 3D and x in 2D) and the high one (c =
     -1)."""
-    comp = grid.dim - 1
+    comp = grid.dim - 1 - axis
     lo = tuple(i for i in range(grid.Q) if int(grid.basis[i][comp]) > 0)
     hi = tuple(i for i in range(grid.Q) if int(grid.basis[i][comp]) < 0)
     return lo, hi
+
+
+def region_directions(grid, two_axis=False):
+    """{region: directions} (``REGIONS``; the first two only without
+    ``two_axis``): the directions whose pull step reads a ghost region, c
+    = -side along each axis where its side is not 0. On two axes the
+    regions (+-1, 0) and (0, +-1) are the crossing directions of each axis
+    and the four edges those that cross both."""
+    dim = grid.dim
+    out = {}
+    for so, si in REGIONS[:8 if two_axis else 2]:
+        out[(so, si)] = tuple(
+            i for i in range(grid.Q)
+            if (so == 0 or int(grid.basis[i][dim - 1]) == -so)
+            and (si == 0 or int(grid.basis[i][dim - 2]) == -si))
+    return out
 
 
 def mesh_reasons(mesh_shape, dim, builder, sim=None):
@@ -99,15 +141,6 @@ def mesh_reasons(mesh_shape, dim, builder, sim=None):
         reasons.append(
             '3-axis meshes (the JAX runner steps them on its GSPMD XLA '
             'path, sailfish_tpu/parallel/mesh.py:60-65)')
-    elif len(mesh_shape) == 2 and dim == 3:
-        reasons.append(
-            "two-axis meshes ('z','y': the y ghost rows of make_kernel_3d, "
-            'y_ghosts, sailfish_tpu/ops/pallas_step.py:879-895)')
-    elif len(mesh_shape) == 2:
-        reasons.append(
-            "2D meshes over x ('y','x': the x ghost columns of "
-            'make_kernel_2d, x_ghosts, sailfish_tpu/ops/pallas_step2d.py'
-            ':44-53)')
     sc = isinstance(builder, ShanChenMultiStepBuilder) or (
         isinstance(builder, st.StepBuilder) and builder.sc_coupling != 0.0)
     if not isinstance(builder, (st.StepBuilder, ShanChenMultiStepBuilder,
@@ -131,12 +164,14 @@ def mesh_reasons(mesh_shape, dim, builder, sim=None):
                 'patch planes of sailfish_tpu/parallel/halo.py:653)')
     if sc and (ls.classify_nodes(builder.maps)[1] or builder.maps.dynamic):
         what = 'planes' if dim == 3 else 'blocks'
+        where = '297' if dim == 3 else '894'
+        if dim == 2 and len(mesh_shape) == 2:
+            where += ', and :853-858 on a mesh over x'
         reasons.append(
             f'Shan-Chen with complex-BC {what} needs global psi sampling '
             'in the patch windows; use the XLA engine (the JAX package\'s '
-            'refusal, sailfish_tpu/parallel/halo.py:'
-            f'{297 if dim == 3 else 894}: a BC row beside a Shan-Chen '
-            'coupling)')
+            f'refusal, sailfish_tpu/parallel/halo.py:{where}: a BC row '
+            'beside a Shan-Chen coupling)')
     if sim is not None and getattr(sim, 'force_objects', None):
         reasons.append(
             'force objects (the momentum exchange of '
@@ -144,28 +179,48 @@ def mesh_reasons(mesh_shape, dim, builder, sim=None):
     return reasons
 
 
-def shard_maps(maps, rows):
+def take(a, rows, cols=None, axis=0):
+    """``a`` (a numpy array or a tensor) cut to the planes ``rows`` of its
+    axis ``axis`` and, unless ``cols`` is None, to the planes ``cols`` of
+    the next axis."""
+    if torch.is_tensor(a):
+        a = a.index_select(axis, torch.as_tensor(rows, device=a.device))
+        if cols is not None:
+            a = a.index_select(axis + 1,
+                               torch.as_tensor(cols, device=a.device))
+        return a
+    a = np.take(np.asarray(a), rows, axis)
+    if cols is not None:
+        a = np.take(a, cols, axis + 1)
+    return np.ascontiguousarray(a)
+
+
+def shard_maps(maps, rows, cols=None):
     """``maps`` (a ``NodeMaps``) cut to the planes ``rows`` of its
-    outermost axis; ``rows`` is kept, so that coordinates stay global
+    outermost axis and, on a mesh of two axes, ``cols`` of the next;
+    ``rows`` and ``cols`` are kept, so that coordinates stay global
     (``step.map_coords``)."""
     shape = (len(rows),) + maps.type_map.shape[1:]
+    if cols is not None:
+        shape = shape[:1] + (len(cols),) + shape[2:]
     out = NodeMaps(shape, maps.dim)
     for name in ('type_map', 'orientation', 'link_tags', 'param_rho',
                  'param_scalar'):
-        setattr(out, name, np.ascontiguousarray(getattr(maps, name)[rows]))
-    out.param_vel = np.ascontiguousarray(maps.param_vel[:, rows])
-    out.dynamic = [(mask[rows], name, exprs)
+        setattr(out, name, take(getattr(maps, name), rows, cols))
+    out.param_vel = take(maps.param_vel, rows, cols, axis=1)
+    out.dynamic = [(take(mask, rows, cols), name, exprs)
                    for mask, name, exprs in maps.dynamic]
     out.extended = []
     out.rows = np.asarray(rows)
+    out.cols = None if cols is None else np.asarray(cols)
     return out
 
 
 def shard_builder(builder, maps, device):
     """A ``StepBuilder`` of ``builder``'s scene on the shard maps ``maps``
     (``shard_maps``) on ``device``: the same settings, the static maps of
-    the shard, a per-node body force cut to its planes, an entropic
-    collision state of its own."""
+    the shard, a per-node body force cut to its planes (and rows), an
+    entropic collision state of its own."""
     b = copy.copy(builder)
     b.maps = maps
     b.device = torch.device(device)
@@ -174,12 +229,12 @@ def shard_builder(builder, maps, device):
     if builder.force is not None:
         force = builder.force
         if force.shape[1] != 1:
-            force = force[:, torch.as_tensor(maps.rows,
-                                             device=force.device)]
+            force = take(force, maps.rows, maps.cols, axis=1)
         b.force = force.to(b.device)
     if builder.force_expr is None and builder.body_force is not None \
             and np.ndim(builder.body_force) > 1:
-        b.body_force = np.asarray(builder.body_force)[:, maps.rows]
+        b.body_force = take(builder.body_force, maps.rows, maps.cols,
+                            axis=1)
     b._prepare_static()
     return b
 
@@ -194,8 +249,9 @@ def on_device(device):
 
 class Sharded:
     """A state laid out over a mesh: ``parts``, one (Q, L + 2, ...) tensor
-    per shard in ring order, on the shard's device; planes 1 ... L are the
-    shard's slab, planes 0 and L + 1 its ghost planes."""
+    per shard in mesh order, on the shard's device; planes 1 ... L are the
+    shard's slab, planes 0 and L + 1 its ghost planes (on two axes (Q, Lo
+    + 2, Li + 2, ...), padded along both)."""
 
     def __init__(self, parts):
         self.parts = list(parts)
@@ -212,7 +268,14 @@ class _HaloParams(ctypes.Structure):
                 ('dst', ctypes.c_int * MAX_SHARDS),
                 ('ghost', ctypes.c_int), ('depth', ctypes.c_int),
                 ('n_comp', ctypes.c_int),
-                ('comp_units', ctypes.c_longlong)]
+                ('comp_units', ctypes.c_longlong),
+                ('n_inner', ctypes.c_int), ('inner_planes', ctypes.c_int),
+                ('row_units', ctypes.c_int),
+                ('n_lo_in', ctypes.c_int), ('n_hi_in', ctypes.c_int),
+                ('lo_in', ctypes.c_int * MAX_DIRS),
+                ('hi_in', ctypes.c_int * MAX_DIRS),
+                ('n_edge', ctypes.c_int * 4),
+                ('edge', (ctypes.c_int * MAX_EDGE_DIRS) * 4)]
 
 
 def exchange_functions(lib):
@@ -232,39 +295,60 @@ def exchange_functions(lib):
     return fn, peer
 
 
-def exchange_plan(devices):
-    """The launches of one exchange for shards on ``devices`` (ring
-    order): [(device, the shards whose ghost planes its launch fills, the
-    other devices whose shards it reads)], devices in order of first
+def neighbour(s, region, counts):
+    """The shard whose planes fill ``region`` (``REGIONS``) of shard ``s``
+    on a mesh of ``counts`` shards per axis (one axis: the ring
+    neighbour; two: the outer, inner or diagonal one)."""
+    n_in = counts[1] if len(counts) == 2 else 1
+    n_out = counts[0]
+    io, ii = divmod(s, n_in)
+    so, si = region
+    return (io + so) % n_out * n_in + (ii + si) % n_in
+
+
+def exchange_plan(devices, counts=None):
+    """The launches of one exchange for shards on ``devices`` (mesh
+    order) of a mesh of ``counts`` shards per axis (default one axis):
+    [(device, the shards whose ghost planes its launch fills, the other
+    devices whose shards it reads)], devices in order of first
     appearance."""
-    n = len(devices)
+    counts = (len(devices),) if counts is None else tuple(counts)
+    regions = REGIONS[:8 if len(counts) == 2 else 2]
     plan = {}
     for s, d in enumerate(devices):
         dst, peers = plan.setdefault(d, ([], []))
         dst.append(s)
-        for q in (devices[(s - 1) % n], devices[(s + 1) % n]):
+        for region in regions:
+            q = devices[neighbour(s, region, counts)]
             if q != d and q not in peers:
                 peers.append(q)
     return [(d, tuple(dst), tuple(peers)) for d, (dst, peers) in plan.items()]
 
 
 def exchange_params(ptrs, length, plane_bytes, lo, hi, dst, ghost=1,
-                    depth=1, n_comp=1, comp_bytes=0):
+                    depth=1, n_comp=1, comp_bytes=0, inner=None):
     """The ``halo_exchange`` parameter block of one launch: the shards'
-    buffers at the addresses ``ptrs`` (ring order), each (``n_comp``, C,
+    buffers at the addresses ``ptrs`` (mesh order), each (``n_comp``, C,
     ``length`` + 2 ``ghost``, plane) with ``plane_bytes`` bytes per plane
     and ``comp_bytes`` from one component to the next; the channels ``lo``
     and ``hi`` of a component (the crossing directions,
     ``crossing_directions``; (0,) for a density buffer, C = 1) copied,
     ``depth`` planes per side; ``dst``: the shards whose ghost planes the
-    launch fills."""
+    launch fills. ``inner``: on a mesh of two axes (the edge mode), (the
+    shards along the inner axis, its slab length, the bytes of one row
+    along it, {region: channels} of the inner axis's ghost rows and of the
+    edges, ``region_directions``); a plane is then ``length`` + 2
+    ``ghost`` rows."""
     p = _HaloParams()
     for s, ptr in enumerate(ptrs):
         p.part[s] = ptr
     p.n_shards = len(ptrs)
     p.planes = length + 2 * ghost
+    # the copy unit divides a row (a plane on one axis) and the component
+    # stride
+    run = plane_bytes if inner is None else inner[2]
     p.unit_bytes = next(u for u in (16, 4, 2)
-                        if plane_bytes % u == 0 and comp_bytes % u == 0)
+                        if run % u == 0 and comp_bytes % u == 0)
     p.units = plane_bytes // p.unit_bytes
     p.n_lo, p.n_hi = len(lo), len(hi)
     for j, k in enumerate(lo):
@@ -276,42 +360,82 @@ def exchange_params(ptrs, length, plane_bytes, lo, hi, dst, ghost=1,
         p.dst[j] = s
     p.ghost, p.depth, p.n_comp = ghost, depth, n_comp
     p.comp_units = comp_bytes // p.unit_bytes
+    if inner is not None:
+        n_inner, inner_length, row_bytes, regions = inner
+        p.n_inner = n_inner
+        p.inner_planes = inner_length + 2 * ghost
+        p.row_units = row_bytes // p.unit_bytes
+        if p.units != p.inner_planes * p.row_units:
+            raise ValueError(f'a plane of {plane_bytes} B is not '
+                             f'{p.inner_planes} rows of {row_bytes} B')
+        p.n_lo_in, p.n_hi_in = len(regions[(0, -1)]), len(regions[(0, 1)])
+        for j, k in enumerate(regions[(0, -1)]):
+            p.lo_in[j] = k
+        for j, k in enumerate(regions[(0, 1)]):
+            p.hi_in[j] = k
+        for e, region in enumerate(REGIONS[4:]):
+            p.n_edge[e] = len(regions[region])
+            for j, k in enumerate(regions[region]):
+                p.edge[e][j] = k
     return p
 
 
-def ghost_copy(parts, length, ghost=1, depth=1, indices=None):
+def ghost_span(side, length, ghost, depth):
+    """(first destination plane, first source plane, planes) of the
+    region side ``side`` along an axis of ``length`` interior planes: -1
+    the ``depth`` low ghost planes from the last interior ones of the
+    neighbour below, +1 the high ones from the first of the neighbour
+    above, 0 the interior."""
+    if side < 0:
+        return ghost - depth, length + ghost - depth, depth
+    if side > 0:
+        return length + ghost, ghost, depth
+    return ghost, ghost, length
+
+
+def ghost_copy(parts, length, ghost=1, depth=1, indices=None, inner=None):
     """The exchange as PyTorch copies (the plain version of
-    ``halo_exchange``): ``parts`` in ring order, each a list of one
+    ``halo_exchange``): ``parts`` in mesh order, each a list of one
     shard's tensors (its components), each with ``length`` + 2 ``ghost``
     planes along its axis 1 with ``indices`` (a distributions' tensor),
     else along its axis 0 (a density). The
     ``depth`` low ghost planes of shard s take the last ``depth`` interior
     planes of shard s - 1, the ``depth`` high ghost planes the first
-    ``depth`` of shard s + 1: with ``indices`` (device -> the (lo, hi)
-    index tensors of the channels, along axis 0) only those channels, else
-    whole planes (a density)."""
+    ``depth`` of shard s + 1: with ``indices`` (device -> {region: the
+    index tensor of its channels, along axis 0}) only those channels, else
+    whole planes (a density). ``inner``: on a mesh of two axes, (the shards
+    along the inner axis, its slab length); the tensors are padded along
+    the next axis too, and every region of ``REGIONS`` is filled from its
+    neighbour (``neighbour``: the diagonal one for an edge)."""
     axis = 0 if indices is None else 1
-    n = len(parts)
+    counts = (len(parts),) if inner is None else \
+        (len(parts) // inner[0], inner[0])
+    regions = REGIONS[:2] if inner is None else REGIONS
     for s, dst in enumerate(parts):
-        below, above = parts[(s - 1) % n], parts[(s + 1) % n]
-        for k, d in enumerate(dst):
-            b, a = below[k], above[k]
-            pairs = ((d.narrow(axis, ghost - depth, depth),
-                      b.narrow(axis, length + ghost - depth, depth), 0, b),
-                     (d.narrow(axis, length + ghost, depth),
-                      a.narrow(axis, ghost, depth), 1, a))
-            for to, frm, side, src in pairs:
+        for region in regions:
+            src = parts[neighbour(s, region, counts)]
+            spans = [(axis, ghost_span(region[0], length, ghost, depth))]
+            if inner is not None:
+                spans.append((axis + 1, ghost_span(region[1], inner[1],
+                                                   ghost, depth)))
+            for d, b in zip(dst, src):
+                to, frm = d, b
+                for ax, (at, start, n) in spans:
+                    to = to.narrow(ax, at, n)
+                    frm = frm.narrow(ax, start, n)
                 if indices is None:
                     to.copy_(frm.to(d.device))
                 else:
-                    picked = frm.index_select(0, indices(src.device)[side])
-                    to.index_copy_(0, indices(d.device)[side],
+                    picked = frm.index_select(0, indices(b.device)[region])
+                    to.index_copy_(0, indices(d.device)[region],
                                    picked.to(d.device))
 
 
 class ShardedStep:
     """The sharded step of a single-fluid ``StepBuilder`` scene over a
-    one-axis mesh: z of a 3D domain, y of a 2D one (``axis_name``).
+    mesh of one axis (z of a 3D domain, y of a 2D one: ``axis_name``) or
+    of two (('z', 'y'), ('y', 'x'): ``axis_names``; ``inner`` = (the
+    shards along the inner axis, its slab length), else None).
 
     ``builder``: the scene's global builder; ``domain_shape``: its spatial
     shape; ``mesh``: a ``parallel.mesh.Mesh``; ``engine``: 'torch' (each
@@ -323,9 +447,10 @@ class ShardedStep:
     ``KernelStep`` over it (int16 codes under --precision=mixed on the
     kernel engine), and take a global tensor too, which they shard first.
     ``exchanges`` counts exchanges (the kernel's launches, one per device,
-    count in ``LAUNCHES`` under ``name``); ``launches`` counts the shards'
-    step launches. Under single-component Shan-Chen (``sc``) each step is
-    the shards' density pre-passes, the density exchange
+    count in ``LAUNCHES`` under ``name``, ``halo_edge_exchange_<grid>`` on
+    two axes); ``launches`` counts the shards' step launches. Under
+    single-component Shan-Chen (``sc``) each step is the shards' density
+    pre-passes, the density exchange
     (``density_exchange``, counted in ``rho_exchanges`` and under
     ``rho_name``), the shards' steps and the exchange."""
 
@@ -335,9 +460,8 @@ class ShardedStep:
     def __init__(self, builder, domain_shape, mesh, engine='torch'):
         self._setup(builder, domain_shape, mesh, engine)
         self.builders = [
-            shard_builder(builder, shard_maps(builder.maps, rows), d)
-            for rows, d in zip(self.rows, mesh.devices)]
-        self.lo, self.hi = crossing_directions(self.grid)
+            shard_builder(builder, shard_maps(builder.maps, rows, cols), d)
+            for rows, cols, d in zip(self.rows, self.cols, mesh.devices)]
         self.sc = builder.sc_coupling != 0.0
         self.kernels = None
         self.steps = None
@@ -355,8 +479,11 @@ class ShardedStep:
 
     def _setup(self, builder, domain_shape, mesh, engine):
         """The checks and the layout shared with the K-component step:
-        refusals, the mesh axis, ``length``, ``rows`` (each shard's planes
-        with its ghost planes), the exchanges' names and their state."""
+        refusals, the mesh axes, ``length`` (and ``inner``), ``rows`` (each
+        shard's planes with its ghost planes; ``cols`` along the inner
+        axis, None on one axis), the ghost regions' directions
+        (``regions``; ``lo`` and ``hi`` of the outer axis), the exchanges'
+        names and their state."""
         dim = len(domain_shape)
         reasons = mesh_reasons(tuple(mesh.shape.values()), dim, builder)
         if reasons:
@@ -364,10 +491,12 @@ class ShardedStep:
                 'not ported to sailfish_tpu_torch on a mesh (--mesh) yet: '
                 + '; '.join(reasons))
         self.axis_name = 'z' if dim == 3 else 'y'
-        if list(mesh.axis_names) != [self.axis_name]:
+        names = list(pmesh.axis_names(dim)[:2])
+        if list(mesh.axis_names) not in (names[:1], names):
             raise ValueError(f'{type(self).__name__} shards the '
-                             f'{self.axis_name} axis of a {dim}D domain; '
-                             f'got mesh axes {list(mesh.axis_names)}')
+                             f'{" or ".join(map(repr, names))} axes of a '
+                             f'{dim}D domain; got mesh axes '
+                             f'{list(mesh.axis_names)}')
         pmesh.validate_divisible(domain_shape, mesh)
         n = mesh.size
         if n > MAX_SHARDS:
@@ -376,16 +505,32 @@ class ShardedStep:
         self.grid = builder.grid
         self.mesh = mesh
         self.engine = engine
-        self.length = domain_shape[0] // n
-        if self.length < self.ghost:
-            raise ValueError(f'{self.length} planes per shard; the slab '
-                             f'needs at least its {self.ghost} ghost '
-                             'planes\' worth')
-        self.rows = [pmesh.slab_rows(domain_shape[0], n, s, self.ghost)
-                     for s in range(n)]
+        #: the shards per sharded axis, outer to inner
+        self.counts = pmesh.counts_of(mesh)
+        two_axis = len(self.counts) == 2
+        self.length = domain_shape[0] // self.counts[0]
+        self.inner = (self.counts[1], domain_shape[1] // self.counts[1]) \
+            if two_axis else None
+        for length in (self.length,) + (self.inner[1:] if two_axis else ()):
+            if length < self.ghost:
+                raise ValueError(f'{length} planes per shard; the slab '
+                                 f'needs at least its {self.ghost} ghost '
+                                 'planes\' worth')
+        rows = [pmesh.shard_rows(domain_shape, self.counts, s, self.ghost)
+                for s in range(n)]
+        self.rows = [r[0] for r in rows]
+        self.cols = [r[1] if two_axis else None for r in rows]
+        #: the nodes of a slab's plane (its ghost rows included) and of a
+        #: row along the inner axis (the axes below it)
+        self.row_nodes = int(np.prod(domain_shape[2:]))
+        self.plane_nodes = int(np.prod(domain_shape[1:])) if not two_axis \
+            else (self.inner[1] + 2 * self.ghost) * self.row_nodes
+        self.regions = region_directions(self.grid, two_axis)
+        self.lo, self.hi = self.regions[(-1, 0)], self.regions[(1, 0)]
         g = self.grid.name.lower()
-        self.name = f'halo_exchange_{g}'
-        self.rho_name = f'halo_rho_exchange_{g}'
+        edge = 'edge_' if two_axis else ''
+        self.name = f'halo_{edge}exchange_{g}'
+        self.rho_name = f'halo_rho_{edge}exchange_{g}'
         self.exchanges = 0
         self.rho_exchanges = 0
         self._index = {}
@@ -396,46 +541,64 @@ class ShardedStep:
     # -- layout --------------------------------------------------------------
 
     def shard(self, f):
-        """The ``Sharded`` state of the global (Q, *S) tensor ``f``, ghost
-        planes filled (as an exchange fills them, and more)."""
-        return Sharded(pmesh.split(f, self.mesh, ghost=1))
+        """The ``Sharded`` state of the global (Q, *S) tensor ``f`` (or
+        K-tuple of them), ghost planes filled (as an exchange fills them,
+        and more)."""
+        return Sharded(pmesh.split(f if torch.is_tensor(f) else tuple(f),
+                                   self.mesh, ghost=self.ghost))
 
     def gather(self, state, device=None):
-        """The global (Q, *S) tensor of a ``Sharded`` state (its slabs, the
-        ghost planes cropped), on ``device`` (default the first shard's)."""
-        return pmesh.gather(state.parts, device, ghost=1)
+        """The global (Q, *S) tensor (or K-tuple) of a ``Sharded`` state
+        (its slabs, the ghost planes cropped), on ``device`` (default the
+        first shard's)."""
+        return pmesh.gather(state.parts, device, ghost=self.ghost,
+                            counts=self.counts)
 
     def as_sharded(self, f):
         """``f`` if it is a ``Sharded`` state, else ``shard(f)``."""
         return f if isinstance(f, Sharded) else self.shard(f)
 
+    def interior(self, t, axis=1):
+        """The shard's own nodes of ``t``, a slab padded along its axes
+        ``axis`` (and ``axis`` + 1 on two axes): its ghost planes
+        cropped."""
+        t = t.narrow(axis, self.ghost, self.length)
+        if self.inner is not None:
+            t = t.narrow(axis + 1, self.ghost, self.inner[1])
+        return t
+
     def is_finite(self, state):
         """Whether every value of the shards' slabs is finite."""
-        return all(bool(torch.isfinite(p.narrow(1, 1, self.length)).all())
-                   for p in state.parts)
+        return all(bool(torch.isfinite(self.interior(f)).all())
+                   for part in state.parts
+                   for f in ((part,) if torch.is_tensor(part) else part))
 
     # -- exchange ------------------------------------------------------------
 
     def _indices(self, device):
+        """{region: the index tensor of its directions} on ``device``."""
         key = str(device)
         if key not in self._index:
-            self._index[key] = tuple(
-                torch.as_tensor(d, dtype=torch.long, device=device)
-                for d in (self.lo, self.hi))
+            self._index[key] = {
+                region: torch.as_tensor(d, dtype=torch.long, device=device)
+                for region, d in self.regions.items()}
         return self._index[key]
 
     def exchange_reference(self, parts):
         """The exchange as PyTorch index copies (the plain version): ghost
         plane 0 of shard s takes the ``lo`` directions of plane L of shard
         s - 1, ghost plane L + 1 the ``hi`` directions of plane 1 of shard
-        s + 1."""
-        ghost_copy([[p] for p in parts], self.length, indices=self._indices)
+        s + 1; on two axes the inner axis's ghost rows and the edges
+        likewise (``ghost_copy``)."""
+        ghost_copy([[p] for p in parts], self.length, indices=self._indices,
+                   inner=self.inner)
 
     def density_exchange_reference(self, rhos):
         """The density exchange as PyTorch copies (its plain version):
         ghost plane 0 of shard s's density ``rhos[s]`` (L + 2, ...) takes
-        plane L of shard s - 1's, plane L + 1 plane 1 of shard s + 1's."""
-        ghost_copy([[r] for r in rhos], self.length)
+        plane L of shard s - 1's, plane L + 1 plane 1 of shard s + 1's; on
+        two axes every ghost region likewise."""
+        ghost_copy([[r] for r in rhos], self.length, inner=self.inner)
 
     def _on_kernels(self, tensors):
         """Whether the exchanges of ``tensors`` run the kernel: on the
@@ -465,9 +628,12 @@ class ShardedStep:
         if not self._on_kernels(rhos):
             self.density_exchange_reference(rhos)
             return
-        plane = rhos[0][0].numel() * rhos[0].element_size()
-        self._launch(self._plan('rho', rhos, (0,), (0,), plane),
+        self._launch(self._plan('rho', rhos, self.whole_regions()),
                      self.rho_name, wait_done=False)
+
+    def whole_regions(self):
+        """{region: (0,)}: every ghost region of a density buffer, whole."""
+        return dict.fromkeys(self.regions, (0,))
 
     def _launch(self, plan, name, wait_done=True):
         """The exchange kernel's launches of ``plan`` (``_plan``), each on
@@ -511,17 +677,15 @@ class ShardedStep:
         parameter block, the devices its shards' neighbours are on)] (kept
         while the buffers stay the same; peer access enabled where a
         launch reads another device)."""
-        plane = parts[0][0, 0].numel() * parts[0].element_size()
-        return self._plan('f', parts, self.lo, self.hi, plane)
+        return self._plan('f', parts, self.regions)
 
-    def _plan(self, key, bufs, lo, hi, plane_bytes, depth=1, n_comp=1,
-              comp_bytes=0):
+    def _plan(self, key, bufs, regions, depth=1, n_comp=1, comp_bytes=0):
         """The launches of the exchange ``key`` on the shards' buffers
-        ``bufs`` (each of ``n_comp`` components ``comp_bytes`` apart, with
-        ``plane_bytes`` per plane; ``exchange_params``): [(device, its
-        parameter block, the devices its shards' neighbours are on)], kept
-        while the buffers stay the same; peer access enabled where a
-        launch reads another device."""
+        ``bufs`` (each of ``n_comp`` components ``comp_bytes`` apart;
+        ``exchange_params``), copying the directions ``regions`` gives for
+        each ghost region: [(device, its parameter block, the devices its
+        shards' neighbours are on)], kept while the buffers stay the same;
+        peer access enabled where a launch reads another device."""
         ptrs = tuple(b.data_ptr() for b in bufs)
         cached = self._plans.get(key)
         if cached is not None and cached[0] == ptrs:
@@ -538,8 +702,12 @@ class ShardedStep:
             from sailfish_tpu_torch.ops import build
             self._fn, self._peer_fn = exchange_functions(
                 build.load('halo').lib)
+        size = first.element_size()
+        inner = None if self.inner is None else \
+            self.inner + (self.row_nodes * size, regions)
         plan = []
-        for d, dst, peers in exchange_plan([b.device for b in bufs]):
+        for d, dst, peers in exchange_plan([b.device for b in bufs],
+                                           self.counts):
             for q in peers:
                 rc = self._peer_fn(d.index, q.index)
                 if rc != 0:
@@ -548,8 +716,9 @@ class ShardedStep:
                         f'error {rc}): the exchange reads a neighbour\'s '
                         'plane in place')
             plan.append((d, exchange_params(
-                ptrs, self.length, plane_bytes, lo, hi, dst, self.ghost,
-                depth, n_comp, comp_bytes), peers))
+                ptrs, self.length, self.plane_nodes * size, regions[(-1, 0)],
+                regions[(1, 0)], dst, self.ghost, depth, n_comp, comp_bytes,
+                inner), peers))
         self._plans[key] = (ptrs, plan)
         return plan
 
@@ -650,5 +819,5 @@ class ShardedStep:
         gathered on the first shard's device."""
         rho, u = zip(*(b.macro_fields(p, it)
                        for b, p in zip(self.builders, state.parts)))
-        return (pmesh.gather(rho, axis=0, ghost=1),
-                pmesh.gather(u, axis=1, ghost=1))
+        return (pmesh.gather(rho, axis=0, ghost=1, counts=self.counts),
+                pmesh.gather(u, axis=1, ghost=1, counts=self.counts))

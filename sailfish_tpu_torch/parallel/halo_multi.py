@@ -1,12 +1,15 @@
-"""Sharded stepping of the K-component models on one-axis meshes: the
-Shan-Chen mixtures (K = 2, 3) and the binary free-energy model.
+"""Sharded stepping of the K-component models: the Shan-Chen mixtures
+(K = 2, 3) and the binary free-energy model.
 
 Port of ``sailfish_tpu/parallel/halo_multi.py`` (``ShardedPallasSCMulti3D``
 :58, ``ShardedPallasFE3D`` :339, ``ShardedPallasSCMulti2D`` :816,
 ``ShardedPallasFE2D`` :1230) on the layout of ``parallel/halo.py``: the
 domain split along z (3D) or y (2D), each shard holding its slab of every
 component with ``ghost`` planes on each side, (Q, L + 2G, ...) per
-component (one (K, Q, L + 2G, ...) buffer per shard on the kernel engine).
+component (one (K, Q, L + 2G, ...) buffer per shard on the kernel engine);
+on a mesh of two axes (('z', 'y'), ('y', 'x')) split and padded along the
+next axis too, (Q, Lo + 2G, Li + 2G, ...), both exchanges filling the
+inner axis's ghost rows and the edges as well (their edge mode).
 
 A step has two phases with an exchange after each, the reference's
 "macro pre-exchange" (``halo_multi.py:1-16``):
@@ -55,9 +58,9 @@ def shard_multi_builder(builder, maps, device):
     ``maps`` (``halo.shard_maps``) on ``device``: the same settings, each
     component's ``StepBuilder`` on the shard (``halo.shard_builder``), a
     per-node body force and the free-energy model's dry-node orientations
-    cut to the shard's planes. Whether the wetting mirror runs stays the
-    global scene's (a shard without walls runs it as the unsharded step
-    does, on no node)."""
+    cut to the shard's planes (and rows). Whether the wetting mirror runs
+    stays the global scene's (a shard without walls runs it as the
+    unsharded step does, on no node)."""
     b = copy.copy(builder)
     b.maps = maps
     b.device = torch.device(device)
@@ -65,24 +68,26 @@ def shard_multi_builder(builder, maps, device):
                     for c in builder.components]
     b.b0 = b.components[0]
     b.body_forces = [bf if bf is None or np.ndim(bf) <= 1
-                     else np.asarray(bf)[:, maps.rows]
+                     else halo.take(bf, maps.rows, maps.cols, axis=1)
                      for bf in builder.body_forces]
     b.body_force = b.body_forces[0]
     if isinstance(builder, mg.FreeEnergyStepBuilder):
-        b._dry_orient = builder._dry_orient[torch.as_tensor(
-            maps.rows, device=builder._dry_orient.device)].to(b.device)
+        b._dry_orient = halo.take(builder._dry_orient, maps.rows,
+                                  maps.cols).to(b.device)
     return b
 
 
 class ShardedMultiStep(halo.ShardedStep):
     """The sharded step of a ``ShanChenMultiStepBuilder`` or
-    ``FreeEnergyStepBuilder`` scene over a one-axis mesh (z in 3D, y in
-    2D). ``engine`` 'torch' steps each slab with its shard's builder
-    (``builders``), 'kernel' with one ``SCMultiStep`` / ``FEStep`` per slab
-    (``kernels``). The state is a ``halo.Sharded`` whose parts are K-tuples
-    of (Q, L + 2 ``ghost``, ...) tensors; ``run``, ``reference``, ``shard``,
-    ``gather`` and ``macro_fields`` are those of ``halo.ShardedStep`` over
-    it. ``exchanges`` / ``rho_exchanges`` count the two exchanges."""
+    ``FreeEnergyStepBuilder`` scene over a mesh of one axis (z in 3D, y in
+    2D) or two (('z', 'y'), ('y', 'x')). ``engine`` 'torch' steps each
+    slab with its shard's builder (``builders``), 'kernel' with one
+    ``SCMultiStep`` / ``FEStep`` per slab (``kernels``). The state is a
+    ``halo.Sharded`` whose parts are K-tuples of (Q, L + 2 ``ghost``, ...)
+    tensors (padded along both axes on two); ``run``, ``reference``,
+    ``shard``, ``gather``, ``is_finite`` and ``macro_fields`` are those of
+    ``halo.ShardedStep`` over it. ``exchanges`` / ``rho_exchanges`` count
+    the two exchanges."""
 
     def __init__(self, builder, domain_shape, mesh, engine='torch'):
         self.fe = isinstance(builder, mg.FreeEnergyStepBuilder)
@@ -91,14 +96,13 @@ class ShardedMultiStep(halo.ShardedStep):
         self.ghost = 2 if self.fe and builder._has_dry_nodes else 1
         self._setup(builder, domain_shape, mesh, engine)
         self.K = len(builder.taus)
-        self.lo, self.hi = halo.crossing_directions(self.grid)
         self.sc = False
         self.mixed = None
         self.steps = None
         self.builders = [
-            shard_multi_builder(builder, halo.shard_maps(builder.maps, rows),
-                                d)
-            for rows, d in zip(self.rows, mesh.devices)]
+            shard_multi_builder(builder,
+                                halo.shard_maps(builder.maps, rows, cols), d)
+            for rows, cols, d in zip(self.rows, self.cols, mesh.devices)]
         self.kernels = None
         if engine == 'kernel':
             from sailfish_tpu_torch.ops import sc_multi as sm
@@ -112,32 +116,13 @@ class ShardedMultiStep(halo.ShardedStep):
                 ks.rho_name = sm.ghost_name(ks.rho_name)
                 ks.launches = {ks.rho_name: 0, ks.name: 0}
 
-    # -- layout --------------------------------------------------------------
-
-    def shard(self, f):
-        """The ``Sharded`` state of the global K-tuple ``f``: per shard a
-        K-tuple of slabs with their ghost planes filled."""
-        return halo.Sharded(pmesh.split(tuple(f), self.mesh,
-                                        ghost=self.ghost))
-
-    def gather(self, state, device=None):
-        """The global K-tuple of a ``Sharded`` state (the ghost planes
-        cropped), on ``device`` (default the first shard's)."""
-        return pmesh.gather(state.parts, device, ghost=self.ghost)
-
-    def is_finite(self, state):
-        """Whether every value of the shards' slabs is finite."""
-        return all(bool(torch.isfinite(f.narrow(1, self.ghost,
-                                                self.length)).all())
-                   for part in state.parts for f in part)
-
     # -- exchanges -----------------------------------------------------------
 
     def exchange_reference(self, parts):
         """The distributions' exchange as PyTorch index copies: the
         crossing directions of every component (``halo.ghost_copy``)."""
         halo.ghost_copy([list(p) for p in parts], self.length, self.ghost,
-                        indices=self._indices)
+                        indices=self._indices, inner=self.inner)
 
     def _density_lists(self, rhos):
         """Each shard's densities as a list of (L + 2G, ...) planes: a
@@ -152,7 +137,7 @@ class ShardedMultiStep(halo.ShardedStep):
         """The density exchange as PyTorch copies: ``ghost`` whole planes of
         each density per side."""
         halo.ghost_copy(self._density_lists(rhos), self.length, self.ghost,
-                        self.ghost)
+                        self.ghost, inner=self.inner)
 
     def density_exchange(self, rhos):
         """Fill the ghost planes of the shards' post-stream densities
@@ -165,14 +150,10 @@ class ShardedMultiStep(halo.ShardedStep):
                                  for r in rhos]):
             self.density_exchange_reference(rhos)
             return
-        size = rhos[0].element_size()
-        if self.fe:
-            plane, comps, comp = rhos[0][0].numel() * size, 1, 0
-        else:
-            plane = rhos[0][0, 0].numel() * size
-            comps, comp = self.K, rhos[0][0].numel() * size
-        self._launch(self._plan('rho', rhos, (0,), (0,), plane, self.ghost,
-                                comps, comp),
+        comps, comp = (1, 0) if self.fe else \
+            (self.K, rhos[0][0].numel() * rhos[0].element_size())
+        self._launch(self._plan('rho', rhos, self.whole_regions(),
+                                self.ghost, comps, comp),
                      self.rho_name, wait_done=False)
 
     def _buffers(self, parts):
@@ -209,8 +190,7 @@ class ShardedMultiStep(halo.ShardedStep):
         """The distributions' exchange launches for the kernels' buffers
         ``bufs`` (``halo.ShardedStep._plan``)."""
         first = bufs[0]
-        plane = first[0, 0, 0].numel() * first.element_size()
-        return self._plan('f', bufs, self.lo, self.hi, plane, 1, self.K,
+        return self._plan('f', bufs, self.regions, 1, self.K,
                           first[0].numel() * first.element_size())
 
     @property
@@ -293,6 +273,7 @@ class ShardedMultiStep(halo.ShardedStep):
         first shard's device."""
         rhos, u = zip(*(b.macro_fields(p, it)
                         for b, p in zip(self.builders, state.parts)))
-        return ([pmesh.gather([r[k] for r in rhos], axis=0, ghost=self.ghost)
+        return ([pmesh.gather([r[k] for r in rhos], axis=0, ghost=self.ghost,
+                              counts=self.counts)
                  for k in range(len(rhos[0]))],
-                pmesh.gather(u, axis=1, ghost=self.ghost))
+                pmesh.gather(u, axis=1, ghost=self.ghost, counts=self.counts))

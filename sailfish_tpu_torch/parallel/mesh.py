@@ -3,9 +3,10 @@
 Port of ``sailfish_tpu/parallel/mesh.py``: the same mesh strings, axis
 names and errors. A mesh here is a plain object: its axis names (outer to
 inner over the spatial axes, (z, y, x) in 3D and (y, x) in 2D), its shape
-and one ``torch.device`` per shard, in shard order. The domain is split
-along the outermost sharded axis into equal slabs, one per shard, each
-with ``ghost`` planes of its ring neighbours on either side
+and one ``torch.device`` per shard, in shard order (the outer axis
+slowest). The domain is split along the sharded axes, the outermost one or
+the outer two, into equal slabs, one per shard, each with ``ghost`` planes
+of its ring neighbours on either side along every sharded axis
 (``slab_rows``); ``split`` and ``gather`` move a (Q, *S) state, or a
 K-tuple of them, between the global tensors and the per-shard ones.
 """
@@ -101,36 +102,75 @@ def validate_divisible(shape_spatial, mesh):
 
 
 def slab_rows(n_global, n_shards, s, ghost=0):
-    """The global indices of shard ``s``'s planes along the sharded axis
-    of length ``n_global``: its slab and ``ghost`` planes on either side,
-    wrapping around the ring."""
+    """The global indices of shard ``s``'s planes along a sharded axis of
+    length ``n_global`` cut into ``n_shards``: its slab and ``ghost``
+    planes on either side, wrapping around the ring."""
     length = n_global // n_shards
     return np.arange(s * length - ghost, (s + 1) * length + ghost) \
         % n_global
 
 
+def shard_index(s, counts):
+    """The position of shard ``s`` along each sharded axis of a mesh of
+    ``counts`` shards per axis (outer to inner; the outer axis slowest)."""
+    return tuple(int(i) for i in np.unravel_index(s, tuple(counts)))
+
+
+def shard_rows(shape, counts, s, ghost=0):
+    """Per sharded axis (the first ``len(counts)`` of the spatial
+    ``shape``), the global indices of shard ``s``'s planes with ``ghost``
+    planes on either side (``slab_rows``)."""
+    return [slab_rows(n, c, i, ghost)
+            for n, c, i in zip(shape, counts, shard_index(s, counts))]
+
+
+def counts_of(mesh):
+    """The shards per sharded axis of ``mesh``, outer to inner."""
+    return tuple(mesh.shape[a] for a in mesh.axis_names)
+
+
 def split(f, mesh, axis=1, ghost=0):
-    """The per-shard slabs of the global tensor ``f`` along its ``axis``
-    (default 1: the outermost spatial axis of a (Q, *S) state), each with
-    ``ghost`` wrapped planes on either side, a contiguous tensor on its
-    shard's device. A K-tuple of tensors (a K-component state) gives one
-    K-tuple of slabs per shard."""
+    """The per-shard slabs of the global tensor ``f`` along its axes
+    ``axis``, ``axis`` + 1, ... (one per sharded axis of ``mesh``; default
+    1: the outermost spatial axis of a (Q, *S) state), each with ``ghost``
+    wrapped planes on either side of every sharded axis, a contiguous
+    tensor on its shard's device. A K-tuple of tensors (a K-component
+    state) gives one K-tuple of slabs per shard."""
     if isinstance(f, (tuple, list)):
         return [tuple(c) for c in zip(*(split(x, mesh, axis, ghost)
                                         for x in f))]
-    return [f.index_select(axis, torch.as_tensor(
-        slab_rows(f.shape[axis], mesh.size, s, ghost), device=f.device))
-        .to(d).contiguous() for s, d in enumerate(mesh.devices)]
+    counts = counts_of(mesh)
+    shape = f.shape[axis:axis + len(counts)]
+    parts = []
+    for s, d in enumerate(mesh.devices):
+        part = f
+        for a, rows in enumerate(shard_rows(shape, counts, s, ghost)):
+            part = part.index_select(axis + a, torch.as_tensor(
+                rows, device=f.device))
+        parts.append(part.to(d).contiguous())
+    return parts
 
 
-def gather(parts, device=None, axis=1, ghost=0):
+def gather(parts, device=None, axis=1, ghost=0, counts=None):
     """The global tensor of the per-shard slabs ``parts`` (in shard order,
-    each with ``ghost`` planes on either side, cropped) along ``axis``, on
-    ``device`` (default the first slab's); of K-tuples of slabs, the
-    K-tuple of global tensors."""
+    each with ``ghost`` planes on either side of every sharded axis,
+    cropped) along ``axis`` (and ``axis`` + 1 for a mesh of two axes:
+    ``counts``, the shards per axis, default one axis), on ``device``
+    (default the first slab's); of K-tuples of slabs, the K-tuple of
+    global tensors."""
     if isinstance(parts[0], (tuple, list)):
-        return tuple(gather([p[k] for p in parts], device, axis, ghost)
+        return tuple(gather([p[k] for p in parts], device, axis, ghost,
+                            counts)
                      for k in range(len(parts[0])))
     device = parts[0].device if device is None else torch.device(device)
-    return torch.cat([p.narrow(axis, ghost, p.shape[axis] - 2 * ghost)
-                      .to(device) for p in parts], dim=axis)
+    counts = (len(parts),) if counts is None else tuple(counts)
+    crops = []
+    for p in parts:
+        for a in range(len(counts)):
+            p = p.narrow(axis + a, ghost, p.shape[axis + a] - 2 * ghost)
+        crops.append(p.to(device))
+    inner = counts[-1]
+    if len(counts) == 2:
+        crops = [torch.cat(crops[i:i + inner], dim=axis + 1)
+                 for i in range(0, len(crops), inner)]
+    return torch.cat(crops, dim=axis)

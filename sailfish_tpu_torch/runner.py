@@ -3,8 +3,8 @@ main loop.
 
 Port of a subset of ``sailfish_tpu/runner.py`` (``SubdomainRunner``): one
 whole-domain state (a tensor, or a K-tuple of tensors for the
-multi-component models) on one device, or sharded over a one-axis mesh
-(``--mesh``), a chunked main loop with the same MLUPS /
+multi-component models) on one device, or sharded over a mesh of one or
+two axes (``--mesh``), a chunked main loop with the same MLUPS /
 ``TimingInfo`` accounting, npz output through the port's writers and
 checkpoints in the JAX package's npz layout (``dist0a`` ...
 ``dist{K-1}a``, ``state``, ``sim_state``), so a JAX checkpoint restores
@@ -31,7 +31,8 @@ engines, as ``sailfish_tpu/runner.py:423-493``, :556-607 and :643-649
 define them.
 
 ``--mesh=N`` (``sailfish_tpu/runner.py:84-93``, :96-160) shards a scene
-along z (3D) or y (2D) over N devices on either engine: a single-fluid
+along z (3D) or y (2D) over N devices on either engine, ``--mesh=AxB``
+along ('z', 'y') or ('y', 'x') over A x B devices: a single-fluid
 ``StepBuilder`` scene, single-component Shan-Chen included, through
 ``parallel/halo.ShardedStep``, a Shan-Chen mixture or the free-energy
 model through ``parallel/halo_multi.ShardedMultiStep`` (each shard's slab
@@ -41,8 +42,8 @@ step); the state then lives in ``Sharded`` slabs, and ``f`` is their
 global gather (checkpoints with every component, output, hooks and the
 scene's own hooks see the global state, in the layout of an unsharded
 run). What cannot be sharded is refused by name
-(``parallel/halo.mesh_reasons``: meshes of two or three axes, Shan-Chen
-with a BC row, the outflow family, force objects, composite steps).
+(``parallel/halo.mesh_reasons``: meshes of three axes, Shan-Chen with a
+BC row, the outflow family, force objects, composite steps).
 """
 
 from __future__ import annotations

@@ -200,11 +200,11 @@ def test_default_platform_without_cuda_is_cpu(monkeypatch):
     # with the JAX runner's reason ("--init_iters covers single-fluid
     # scenes only"), the case's id unchanged
     (dict(init_iters=5), '--init_iters'),
-    # --mesh is ported on one-axis meshes, mixtures included
-    # (tests/test_torch_mesh.py, tests/test_torch_mesh_multi.py); a
-    # mixture on a 2D mesh over x is refused by name, the case's id
-    # unchanged
-    pytest.param(dict(mesh='1x2'), '--mesh.*2D meshes over x',
+    # --mesh is ported on meshes of one and two axes, mixtures included
+    # (tests/test_torch_mesh.py, tests/test_torch_mesh_multi.py,
+    # tests/test_torch_mesh_2axis.py); a mixture on a 3-axis mesh is
+    # refused by name, the case's id unchanged
+    pytest.param(dict(mesh='1x1x2'), '--mesh.*3-axis meshes',
                  id='cfg1---mesh'),
     (dict(mode='visualization'), 'visualization'),
     # --precision=mixed is ported for single-fluid scenes; a mixture under
@@ -214,8 +214,9 @@ def test_default_platform_without_cuda_is_cpu(monkeypatch):
                  id='cfg3-storage'),
 ])
 def test_unported_flags_raise(cfg, match):
-    sim = binary_twin('sc_separation_2d') \
-        if {'precision', 'init_iters', 'mesh'} & set(cfg) \
+    sim = binary_twin('sc_separation_3d') if 'mesh' in cfg \
+        else binary_twin('sc_separation_2d') \
+        if {'precision', 'init_iters'} & set(cfg) \
         else twin('ldc_2d')
     ctrl = LBSimulationController(sim, default_config=dict(
         platform='cpu', max_iters=2, quiet=True, lat_nx=8, lat_ny=8,

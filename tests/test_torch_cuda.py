@@ -172,6 +172,15 @@ of their plain versions over 20 steps; and the controller's runs over 2
 and 4 shards equal the unsharded kernel run bit for bit, one ghost-mode
 pre-pass and step launch per shard and step and one launch of each
 exchange per step.
+
+On meshes of two axes (('z', 'y'), ('y', 'x')) the edge mode of both
+exchanges (``halo_edge_exchange_<grid>``, ``halo_rho_edge_exchange_
+<grid>``: ghost planes, ghost rows or columns, and the edges or corners
+from the diagonal shard) equals its plain version bit for bit on fp32 and
+int16 buffers, K = 1-3, one and two ghost layers, on 2x2 and 1x4 (3D),
+2x2 and 1x2 / 1x4 (2D); the controller's runs over 2x2 and 1x4 shards on
+the card equal the unsharded kernel run bit for bit; and over four GPUs
+as a 2x2 mesh (one shard per GPU, skipped below four) too.
 """
 
 import ctypes
@@ -1944,10 +1953,10 @@ MESH_SCENES = {
 }
 
 
-def _mesh_run(scene, mesh, **cfg):
+def _mesh_run(scene, mesh, devices=None, **cfg):
     from sailfish_tpu_torch.parallel import mesh as pmesh
     make, size = MESH_SCENES[scene]
-    with pmesh.devices_override(['cuda'] * 4):
+    with pmesh.devices_override(devices or ['cuda'] * 4):
         return run(make(), platform='cuda', mesh=mesh, **size, **cfg)
 
 
@@ -2223,3 +2232,147 @@ def test_multi_shards_on_several_gpus_equal_the_unsharded_kernel(cuda,
     assert all(torch.equal(a.to(b.device), b)
                for a, b in zip(leaves(r.f), leaves(ref.f)))
     assert _exchange_both(stp) == (True, True)
+
+
+# -- two-axis meshes: the edge mode ------------------------------------------
+
+def _edge_exchanges(stp, dtype=None):
+    """Both exchanges of ``stp`` (two axes) on random buffers of its
+    kernels' shapes against their plain versions: (the distributions'
+    bits equal, the densities' bits equal). ``dtype``: the state's
+    (int16 codes: random codes)."""
+    gens = {}
+
+    def rand(shape, device, dt=torch.float32):
+        g = gens.setdefault(device, torch.Generator(device=device)
+                            .manual_seed(5))
+        x = torch.rand(shape, generator=g, device=device)
+        return x if dt == torch.float32 else (x * 3e4).to(dt)
+
+    ks0 = stp.kernels[0]
+    bufs = [rand(ks.a.shape, ks.a.device, ks.a.dtype) for ks in stp.kernels]
+    ref = [b.clone() for b in bufs]
+    if hasattr(stp, 'K'):
+        stp.exchange_buffers(bufs)
+        stp.exchange_reference([r.unbind(0) for r in ref])
+        shape = (ks0.phi if stp.fe else ks0.rho).shape
+    else:
+        stp.exchange(bufs)
+        stp.exchange_reference(ref)
+        shape = ks0.shape
+    rhos = [rand(shape, ks.a.device) for ks in stp.kernels]
+    rref = [r.clone() for r in rhos]
+    stp.density_exchange(rhos)
+    stp.density_exchange_reference(rref)
+    for d in {b.device for b in bufs}:
+        torch.cuda.synchronize(d)
+    return (all(torch.equal(a, b) for a, b in zip(bufs, ref)),
+            all(torch.equal(a, b) for a, b in zip(rhos, rref)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mesh', ['2x2', '1x4'])
+@pytest.mark.parametrize('scene', ['ldc_3d', 'ldc_2d', 'ldc_3d_int16'])
+def test_edge_exchange_kernel_equals_its_plain_version(cuda, scene, mesh):
+    from sailfish_tpu_torch.parallel import halo
+    stp = _mesh_run(scene, mesh, max_iters=0).stepper
+    assert stp.inner is not None and stp.name.startswith('halo_edge_')
+    halo.reset_launch_counts()
+    assert _edge_exchanges(stp) == (True, True)
+    assert halo.LAUNCHES[stp.name] == halo.LAUNCHES[stp.rho_name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mesh', ['2x2', '1x4', '1x2'])
+@pytest.mark.parametrize('scene', ['sc_separation_3d', 'ternary_3d_forced',
+                                   'fe_viscous_fingering', 'fe_poiseuille_2d',
+                                   'sc_phase_separation_3d',
+                                   'sc_separation_2d'])
+def test_multi_edge_exchange_kernels_equal_their_plain_versions(cuda, scene,
+                                                                mesh):
+    from sailfish_tpu_torch.parallel import halo
+    stp = _multi_run(scene, mesh, max_iters=0).stepper
+    halo.reset_launch_counts()
+    assert _edge_exchanges(stp) == (True, True)
+    assert halo.LAUNCHES[stp.name] == halo.LAUNCHES[stp.rho_name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mesh', ['2x2', '1x4'])
+@pytest.mark.parametrize('scene', sorted(MESH_SCENES))
+def test_two_axis_shards_on_one_card_equal_the_unsharded_kernel(cuda, scene,
+                                                                mesh):
+    from sailfish_tpu_torch.parallel import halo
+    make, size = MESH_SCENES[scene]
+    ref = run(make(), platform='cuda', max_iters=40, every=20, **size)
+    ls.reset_launch_counts()
+    halo.reset_launch_counts()
+    r = _mesh_run(scene, mesh, max_iters=40, every=20)
+    torch.cuda.synchronize()
+    g = r.sim.grid.name.lower()
+    assert r.engine == 'kernel' and r.kernel is r.stepper
+    names = {ks.name for ks in r.stepper.kernels}
+    assert names == {ref.kernel.name.replace('lbm_step_', 'lbm_step_ghost_')}
+    assert sum(ls.LAUNCHES.values()) == 40 * 4
+    assert halo.LAUNCHES[f'halo_edge_exchange_{g}'] == 40 \
+        == sum(halo.LAUNCHES.values())
+    assert torch.equal(r.f, ref.f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', sorted(MESH_MULTI_SCENES))
+def test_multi_two_axis_shards_on_one_card_equal_the_unsharded_kernel(
+        cuda, scene):
+    from sailfish_tpu_torch.parallel import halo
+    make, size = MESH_MULTI_SCENES[scene]
+    ref = run(make(), platform='cuda', max_iters=40, every=20, seed=1234,
+              **size)
+    for counts in (ls.LAUNCHES, sm.LAUNCHES, fe.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    halo.reset_launch_counts()
+    r = _multi_run(scene, '2x2', max_iters=40, every=20)
+    torch.cuda.synchronize()
+    g = r.sim.grid.name.lower()
+    stp = r.stepper
+    assert r.engine == 'kernel' and r.kernel is stp
+    ((rho_name, name),) = {(ks.rho_name, ks.name) for ks in stp.kernels}
+    counts = {**ls.LAUNCHES, **sm.LAUNCHES, **fe.LAUNCHES}
+    assert counts[rho_name] == counts[name] == 40 * 4
+    assert sum(counts.values()) == 80 * 4
+    assert halo.LAUNCHES[f'halo_edge_exchange_{g}'] == 40
+    assert halo.LAUNCHES[f'halo_rho_edge_exchange_{g}'] == 40
+    leaves = (lambda f: (f,) if torch.is_tensor(f) else f)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(r.f),
+                                                 leaves(ref.f)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['ldc_3d', 'ldc_2d', 'ldc_3d_int16',
+                                   'sc_separation_3d', 'fe_viscous_fingering',
+                                   'sc_separation_2d'])
+def test_two_axis_shards_on_four_gpus_equal_the_unsharded_kernel(cuda,
+                                                                 scene):
+    """A 2x2 mesh with one shard per GPU: each GPU's edge exchange reads
+    its outer, inner and diagonal neighbours through peer access, once per
+    GPU and step; the run equals the unsharded kernel run bit for bit, and
+    both exchanges their plain versions on random buffers."""
+    from sailfish_tpu_torch.parallel import halo
+    if torch.cuda.device_count() < 4:
+        pytest.skip('needs four CUDA devices')
+    devices = [f'cuda:{i}' for i in range(4)]
+    multi = scene in MESH_MULTI_SCENES
+    make, size = (MESH_MULTI_SCENES if multi else MESH_SCENES)[scene]
+    extra = dict(seed=1234) if multi else {}
+    ref = run(make(), platform='cuda', max_iters=40, every=20, **size,
+              **extra)
+    halo.reset_launch_counts()
+    r = (_multi_run(scene, '2x2', devices, max_iters=40, every=20) if multi
+         else _mesh_run(scene, '2x2', devices, max_iters=40, every=20))
+    stp = r.stepper
+    assert [ks.a.device.index for ks in stp.kernels] == [0, 1, 2, 3]
+    assert halo.LAUNCHES[stp.name] == 40 * 4
+    leaves = (lambda f: (f,) if torch.is_tensor(f) else f)
+    assert all(torch.equal(a.to(b.device), b)
+               for a, b in zip(leaves(r.f), leaves(ref.f)))
+    assert _edge_exchanges(stp) == (True, True)

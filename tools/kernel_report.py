@@ -21,19 +21,21 @@ and for every kernel function whose mangled name contains one of the
 
 With ``--baseline DIR`` (another checkout, for example ``git archive
 <commit> | tar -x -C build/parent``) it also builds, in parallel, DIR's
-sources of ``--sources`` among the ``lbm_step`` libraries and
-``sc_multi.cu``. It sets each of DIR's ``lbm_step_kernel`` instantiations
-beside this tree's of the same template arguments (lattice, force model,
-wall switch, collision model, equilibrium, Shan-Chen mode, storage and
-outflow switch (False for an older build, which has none), as
-``ops/lbm_step.instantiation`` reads them from the mangled names; an
-older build's bool ``incompressible`` read as its equilibrium), DIR's
-density pre-pass beside this tree's, and
-each of DIR's Shan-Chen step instantiations beside this tree's of the
-same lattice, component count and force switch (``ops/sc_multi.
+sources of ``--sources`` among the ``lbm_step`` libraries,
+``sc_multi.cu`` and ``halo.cu`` (its exchange kernels set beside this
+tree's of the same name: the one-axis ``halo_exchange_kernel``
+instantiations). It sets each of DIR's ``lbm_step_kernel``
+instantiations beside this tree's of the same template arguments
+(lattice, force model, wall switch, collision model, equilibrium,
+Shan-Chen mode, storage and outflow switch (False for an older build, which
+has none), as ``ops/lbm_step.instantiation`` reads them from the mangled
+names; an older build's bool ``incompressible`` read as its
+equilibrium), DIR's density pre-pass beside this tree's, and each of
+DIR's Shan-Chen step instantiations beside this tree's of the same
+lattice, component count and force switch (``ops/sc_multi.
 instantiation``; the D3Q19 step is ``sc3_kernel`` here, a redesign shown
-side by side): registers, stack frame, spills and the SASS count of every
-class, and whether all those kept under their name are the same.
+side by side): registers, stack frame, spills and the SASS count of
+every class, and whether all those kept under their name are the same.
 
 Ends with one JSON line. Needs ``nvcc`` and ``cuobjdump`` (the CUDA
 toolkit), not a GPU.
@@ -146,7 +148,8 @@ def main():
     if args.baseline:
         csrc = Path(args.baseline) / 'sailfish_tpu_torch' / 'ops' / 'csrc'
         theirs = [src for src in args.sources
-                  if (src.startswith('lbm_step') or src == 'sc_multi')
+                  if (src.startswith('lbm_step')
+                      or src in ('sc_multi', 'halo'))
                   and (csrc / f'{src}.cu').is_file()]
         libs = build.build_libraries([csrc / f'{src}.cu' for src in theirs])
         out['baseline'] = {
@@ -213,9 +216,15 @@ def _sc_key(fn):
                                       inst['forced'])
 
 
+def _halo_key(fn):
+    """The mangled name of an exchange kernel of ``halo.cu``, else
+    None."""
+    return fn if 'exchange_kernel' in fn else None
+
+
 def _describe(key):
     if isinstance(key, str):
-        return 'pre-pass'
+        return 'exchange' if 'exchange_kernel' in key else 'pre-pass'
     if len(key) == 8:
         return (f'd{key[0]}, force {key[1]}, walls {int(key[2])}, model '
                 f'{key[3]}, equilibrium {key[4]}, sc {int(key[5])}, '
@@ -235,7 +244,8 @@ def baseline_report(lib, report, cuobjdump, source='lbm_step'):
     ``sc3_kernel``) is a redesign, shown side by side. Prints one line each and returns
     {'instantiations': [...], 'all_same': bool} (over the unrenamed
     ones)."""
-    key = _lbm_key if source.startswith('lbm_step') else _sc_key
+    key = _lbm_key if source.startswith('lbm_step') else \
+        _halo_key if source == 'halo' else _sc_key
     usage = build.ptxas_usage(lib.log)
     sass = sass_counts(lib.path, cuobjdump) if cuobjdump else {}
 

@@ -24,11 +24,17 @@ For N = 2, 4, ... up to the visible GPUs, through
   ``--size``³ slab each), MLUPS per GPU against the unsharded
   ``--size``³ run on one GPU.
 
+With ``--mesh AxB`` (for example ``2x2``) it runs that ('z', 'y') mesh
+over A·B GPUs instead of the z meshes: one shard per GPU, each GPU's edge
+exchange (``halo_edge_exchange_d3q19``, and ``halo_rho_edge_exchange_d3q19``
+for the mixture) reading its outer, inner and diagonal neighbours; weak
+scaling on (A·``--size``) × (B·``--size``) × ``--size``.
+
 Run it from the repository's root on a host with two or more CUDA
 devices::
 
     python tools/mesh_gpus.py [--scene sc_separation_3d] [--size 256]
-                              [--steps 300]
+                              [--steps 300] [--mesh 2x2]
 
 It prints each GPU's name and power limit, a line per measurement, and as
 its last line a JSON object with the numbers (also written to
@@ -82,12 +88,12 @@ def host_ms(fn, iters, devices, warmup=5):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def scene_run(scene, n, size, z, steps, chunk):
-    """``scene`` at ``size`` × ``size`` × ``z`` nodes through the
-    controller, over a z mesh of the first ``n`` GPUs (``n`` = 0: no
-    mesh, on cuda:0); returns (runner, MLUPS, kernel and exchange launches
-    of the run)."""
-    cfg = dict(lat_nx=size, lat_ny=size, lat_nz=z, max_iters=steps,
+def scene_run(scene, n, size, z, steps, chunk, mesh=None, y=None):
+    """``scene`` at ``size`` × ``y`` (default ``size``) × ``z`` nodes
+    through the controller, over a z mesh of the first ``n`` GPUs (or the
+    mesh ``mesh`` over them; ``n`` = 0: no mesh, on cuda:0); returns
+    (runner, MLUPS, kernel and exchange launches of the run)."""
+    cfg = dict(lat_nx=size, lat_ny=y or size, lat_nz=z, max_iters=steps,
                every=chunk, seed=1)
     for counts in (ls.LAUNCHES, sm.LAUNCHES, fe.LAUNCHES):
         for k in counts:
@@ -98,7 +104,7 @@ def scene_run(scene, n, size, z, steps, chunk):
         r = run(make(), **cfg)
     else:
         with pmesh.devices_override([f'cuda:{i}' for i in range(n)]):
-            r = run(make(), mesh=str(n), **cfg)
+            r = run(make(), mesh=mesh or str(n), **cfg)
     synchronize([f'cuda:{i}' for i in range(max(n, 1))])
     launches = ({k: v for counts in (ls.LAUNCHES, sm.LAUNCHES, fe.LAUNCHES)
                  for k, v in counts.items()}, dict(halo.LAUNCHES))
@@ -115,6 +121,8 @@ def main():
     ap.add_argument('--size', type=int, default=256)
     ap.add_argument('--steps', type=int, default=300)
     ap.add_argument('--chunk', type=int, default=100)
+    ap.add_argument('--mesh', default=None,
+                    help="a ('z', 'y') mesh, AxB, instead of the z meshes")
     args = ap.parse_args()
     count = torch.cuda.device_count()
     if count < 2:
@@ -136,14 +144,20 @@ def main():
     torch.cuda.empty_cache()
     print(f'{scene} unsharded {size}^3 on cuda:0: {ref_mlups:.1f} MLUPS, '
           f'{nodes / ref_mlups / 1e3:.4f} ms per step', flush=True)
-    out = dict(scene=scene, size=size, steps=steps,
+    out = dict(scene=scene, size=size, steps=steps, mesh=args.mesh,
                unsharded_mlups=ref_mlups,
                gpus=smi.stdout.strip().splitlines(), strong={}, weak={})
-    shard_counts = [k for k in (2, 4, 8) if k <= count]
-    for n in shard_counts:
+    if args.mesh:
+        a, b = (int(c) for c in args.mesh.split('x'))
+        layouts = [(a * b, args.mesh, a, b)]
+        if a * b > count:
+            sys.exit(f'mesh_gpus: --mesh {args.mesh} needs {a * b} GPUs')
+    else:
+        layouts = [(k, None, k, 1) for k in (2, 4, 8) if k <= count]
+    for n, mesh, za, yb in layouts:
         devices = [f'cuda:{i}' for i in range(n)]
         r, mlups, (counts, xcounts) = scene_run(scene, n, size, size, steps,
-                                                chunk)
+                                                chunk, mesh)
         stp = r.stepper
         multi = hasattr(stp, 'K')
         same = all(torch.equal(a, b) for a, b in zip(leaves(r.f), ref_f))
@@ -182,7 +196,7 @@ def main():
         x_ms = host_ms(exchanges, 500, devices)
         launch_ms = host_ms(launches_only, 100, devices)
         step_ms = nodes / mlups / 1e3
-        print(f'{scene} {size}^3 over {n} GPUs (a shard '
+        print(f'{scene} {size}^3 over {n} GPUs (mesh {mesh or n}, a shard '
               f'{tuple(ks0.shape)} each): {mlups:.1f} MLUPS '
               f'({mlups / ref_mlups:.3f}x one GPU, '
               f'{mlups / ref_mlups / n:.3f} parallel efficiency), '
@@ -192,21 +206,23 @@ def main():
               f'launches; the exchanges alone {x_ms:.5f} ms, the shards\' '
               f'launches alone {launch_ms:.4f} ms per step', flush=True)
         assert same
-        out['strong'][n] = dict(mlups=mlups, step_ms=step_ms,
-                                exchange_ms=x_ms, launches_ms=launch_ms,
-                                bitwise=same)
+        out['strong'][mesh or n] = dict(mlups=mlups, step_ms=step_ms,
+                                        exchange_ms=x_ms,
+                                        launches_ms=launch_ms, bitwise=same)
         del r, stp, bufs, ks0
         torch.cuda.empty_cache()
-        r, mlups, _ = scene_run(scene, n, size, n * size, steps, chunk)
-        print(f'{scene} {size}^2 x {n * size} over {n} GPUs ({size}^3 '
-              f'each): {mlups:.1f} MLUPS, {mlups / n:.1f} per GPU '
-              f'({mlups / n / ref_mlups:.3f} of one GPU\'s {size}^3)',
-              flush=True)
-        out['weak'][n] = dict(mlups=mlups, per_gpu=mlups / n)
+        r, mlups, _ = scene_run(scene, n, size, za * size, steps, chunk,
+                                mesh, yb * size)
+        print(f'{scene} {size} x {yb * size} x {za * size} over {n} GPUs '
+              f'(mesh {mesh or n}, {size}^3 each): {mlups:.1f} MLUPS, '
+              f'{mlups / n:.1f} per GPU ({mlups / n / ref_mlups:.3f} of one '
+              f'GPU\'s {size}^3)', flush=True)
+        out['weak'][mesh or n] = dict(mlups=mlups, per_gpu=mlups / n)
         del r
         torch.cuda.empty_cache()
     os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
-    tag = '' if scene == 'ldc_3d' else f'_{scene}'
+    tag = ('' if scene == 'ldc_3d' else f'_{scene}') + \
+        (f'_{args.mesh}' if args.mesh else '')
     with open(os.path.join(REPO, 'chiprun_out', f'mesh_gpus{tag}.json'),
               'w') as f:
         json.dump(out, f, indent=1)
