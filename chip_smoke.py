@@ -226,6 +226,7 @@ CUDA device it exits non-zero before printing a result. The last line is
 
 import copy
 import ctypes
+import gc
 import json
 import os
 import statistics
@@ -691,6 +692,14 @@ NODE_BYTES = {
     # the laminarize pre-pass, per laminarize node: its Q pulled values and
     # its 8-byte index (the entries' means and offsets added per run)
     'laminarize_mean_d2q9': 9 * 4 + 8,
+    # on a mesh: the same per node (its code in place of its index; the
+    # means written to every shard that reads the plane, the destinations'
+    # addresses and offsets added per run)
+    'laminarize_mean_ghost_d2q9': 9 * 4 + 8,
+    # the outflow rows on a shard's slab: the step's bytes per node of the
+    # domain, as the ghost-plane mode's
+    'lbm_step_ghost_outflow_d3q19': BYTES['D3Q19'],
+    'lbm_step_ghost_outflow_d2q9': BYTES['D2Q9'],
     # the ghost-plane mode: the step's bytes per node of the domain (the
     # ghost planes' own work is the mode's overhead, not its bound)
     'lbm_step_ghost_d3q19': BYTES['D3Q19'],
@@ -796,7 +805,9 @@ NODE_OPS = {
     # the open channels: BGK (the face nodes' few sums are a small share);
     # the laminarize pre-pass: one add per direction and node
     'lbm_step_outflow_d3q19': 23 * 19, 'lbm_step_outflow_d2q9': 23 * 9,
-    'laminarize_mean_d2q9': 9,
+    'laminarize_mean_d2q9': 9, 'laminarize_mean_ghost_d2q9': 9,
+    'lbm_step_ghost_outflow_d3q19': 23 * 19,
+    'lbm_step_ghost_outflow_d2q9': 23 * 9,
     # the ghost-plane mode: BGK; the exchange does no arithmetic (one
     # counted per moved value, so that the table stays positive)
     'lbm_step_ghost_d3q19': 23 * 19, 'lbm_step_ghost_d2q9': 23 * 9,
@@ -912,6 +923,14 @@ KERNELS = {
                               'sailfish_tpu/ops/pallas_step2d.py:36'),
     'laminarize_mean_d2q9': ('lbm_step_outflow.cu',
                              'sailfish_tpu/ops/pallas_step2d.py:36'),
+    # the sharded patch-plane / patch-block mode (dyn_patches on a shard)
+    # and the laminarize plane means over the mesh
+    'lbm_step_ghost_outflow_d3q19': ('lbm_step_outflow.cu',
+                                     'sailfish_tpu/ops/pallas_step.py:812'),
+    'lbm_step_ghost_outflow_d2q9': ('lbm_step_outflow.cu',
+                                    'sailfish_tpu/ops/pallas_step2d.py:36'),
+    'laminarize_mean_ghost_d2q9': ('lbm_step_outflow.cu',
+                                   'sailfish_tpu/ops/pallas_step2d.py:36'),
     # the sharded mode of make_kernel_3d / make_kernel_2d: the step on a
     # shard's padded slab, and the exchange that fills its ghost inputs
     'lbm_step_ghost_d3q19': ('lbm_step.cu',
@@ -1041,6 +1060,20 @@ MODES = {
                             'NTLaminarize plane means its XLA prologue '
                             'computes (sailfish_tpu/ops/step.py:543-561), '
                             'a pre-pass of its own',
+    'lbm_step_ghost_outflow_d3q19': 'make_kernel_3d, sharded patch-plane '
+                                    'mode (dyn_patches / max_patches, '
+                                    ':812-838; planes recomputed globally '
+                                    'by _compute_patches_padded, '
+                                    'parallel/halo.py:653): open_sphere_3d '
+                                    'on --mesh=1 and --mesh=1x1',
+    'lbm_step_ghost_outflow_d2q9': 'make_kernel_2d, sharded patch-block '
+                                   'mode (parallel/halo.py:823-887): '
+                                   'open_cylinder_2d on --mesh=1 and 1x1, '
+                                   'the laminarize channel on 1x1',
+    'laminarize_mean_ghost_d2q9': 'the NTLaminarize plane means of the '
+                                  'sharded patch blocks, over the whole '
+                                  'mesh in the unsharded order (one launch '
+                                  'per step, peer reads across GPUs)',
     'lbm_step_ghost_d3q19': 'make_kernel_3d, sharded mode: z ghost planes '
                             '(fused(f, ghost_lo, ghost_hi, ...), '
                             'pallas_step.py:828-834; ShardedPallasStep3D, '
@@ -3551,6 +3584,8 @@ def open_main_path(path, dim, size, copy_bw, chunk=250, chunks=8):
     mlups = statistics.median(r.mlups_history[1:])
     history = list(r.mlups_history)
     step_ms = 1e3 * nodes / (mlups * 1e6)
+    # the state and drag series the mesh paths are held to
+    final = r.f.clone()
     trace_dir = os.path.join(REPO, 'chiprun_out', 'traces')
     os.makedirs(trace_dir, exist_ok=True)
     traced = trace_runner_chunk(r, path, chunk, trace_dir)
@@ -3591,9 +3626,11 @@ def open_main_path(path, dim, size, copy_bw, chunk=250, chunks=8):
                   err=err, nodes=nodes, step_ms=step_ms, idle_share=idle,
                   drag=mean_drag,
                   force_object_ms=statistics.median(fo_ms))
+    flat = dict(final=final, drag=drag, chunk=chunk, chunks=chunks,
+                force_object_ms=result['force_object_ms'], ms=ms)
     del r, ks, a, b
-    torch.cuda.empty_cache()
-    return name, result
+    free_memory()
+    return name, result, flat
 
 
 def laminarize_main_path(size=LAMINARIZE_MAIN, chunk=500, chunks=2):
@@ -3647,6 +3684,375 @@ def laminarize_main_path(size=LAMINARIZE_MAIN, chunk=500, chunks=2):
     torch.cuda.empty_cache()
     return result
 
+
+
+# -- the outflow family, the laminarize plane mean and force objects on a
+# -- mesh
+
+#: the open channels' mesh paths, by their unsharded path
+OPEN_MESH_NAMES = {'open_sphere_3d': 'open_sphere_3d_zmesh1',
+                   'open_cylinder_2d': 'open_cylinder_2d_ymesh1'}
+#: the outflow comparisons on a mesh: each outflow type on its channel,
+#: flowing along the sharded outer axis (3D z, 2D y) and across it (3D x;
+#: 2D x, whose outlet is normal to the sharded x of ('y', 'x')): (dimension,
+#: flow axis) -> (size, meshes), from a random state
+OUTFLOW_MESH = {(3, 'z'): (dict(lat_nx=64, lat_ny=32, lat_nz=64),
+                           ('2', '2x2')),
+                (3, 'x'): (dict(lat_nx=64, lat_ny=32, lat_nz=32),
+                           ('2', '2x2')),
+                (2, 'y'): (dict(lat_nx=512, lat_ny=512), ('2', '2x2')),
+                (2, 'x'): (dict(lat_nx=1024, lat_ny=256), ('1x2', '2x2'))}
+OUTFLOW_MESH_STEPS = 50
+
+
+def free_memory():
+    """Collect the runners a phase dropped (a runner and its
+    ``TimeProfile`` refer to each other, so only the collector frees them
+    and the card memory their engines hold), then return the cached
+    blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_from(text, dim):
+    """The mesh of a ``--mesh`` string with all its shards on the card."""
+    shape = tuple(int(c) for c in text.split('x'))
+    return pmesh.make_mesh(shape, dim, [DEVICE] * int(np.prod(shape)))
+
+
+def outflow_mesh_compare(kind, where, force_model):
+    """The outflow channel of ``kind`` (``where``: dimension and flow axis)
+    under ``force_model`` (Guo, or none) over the meshes of
+    ``OUTFLOW_MESH``, the shards on the one card: ``OUTFLOW_MESH_STEPS``
+    steps from a random state equal the unsharded kernel's bit for bit,
+    with one ghost launch per shard and step (the outflow instantiation's
+    key where the shard holds an outflow row), the laminarize pre-pass over
+    the mesh once per step and one exchange per step."""
+    dim, axis = where
+    size, meshes = OUTFLOW_MESH[where]
+    sim = outflow_channel(kind, dim, axis)
+    flags = {}
+    if force_model:
+        sim = forced(sim, OUTFLOW_ACCEL[:dim])
+        flags = dict(force_implementation=force_model)
+    r = run(sim, platform=DEVICE, engine='kernel', max_iters=0, **size,
+            **flags)
+    shape = r._domain_shape()
+    f0 = random_feq(r.sim.grid, shape, seed=11, device=DEVICE)
+    ref = r.kernel.run(f0, OUTFLOW_MESH_STEPS).clone()
+    steps = OUTFLOW_MESH_STEPS
+    names = []
+    for mesh in meshes:
+        stp = halo.ShardedStep(r.builder, shape, mesh_from(mesh, dim),
+                               'kernel')
+        reset_all_counts()
+        got = stp.gather(stp.run(f0, steps))
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        n = stp.mesh.size
+        ghost = {k: v for k, v in counts.items()
+                 if k.startswith('lbm_step_ghost_')}
+        assert sum(ghost.values()) == n * steps, counts
+        assert counts.get(stp.lam_name, 0) == \
+            (steps if kind == 'NTLaminarize' else 0), counts
+        assert sum(counts.values()) == sum(ghost.values()) \
+            + counts.get(stp.lam_name, 0), counts
+        assert halo.LAUNCHES[stp.name] == steps \
+            == sum(halo.LAUNCHES.values()), dict(halo.LAUNCHES)
+        if kind != 'NTGradFreeflow':
+            assert any(k.startswith('lbm_step_ghost_outflow_')
+                       for k in ghost), ghost
+        same, diff = same_bits(got, ref)
+        assert same, (kind, where, mesh, diff)
+        names.append(f'--mesh={mesh} ({", ".join(sorted(ghost))}'
+                     + (f', {stp.lam_name}' if stp.lam is not None else '')
+                     + ')')
+        del stp, got
+    say(f'compare outflow on a mesh: {kind} {r.sim.grid.name} '
+        f'{tuple(reversed(shape))} flowing along {axis}, force '
+        f'{force_model}: {steps} steps from a random state over '
+        f'{"; ".join(names)} equal the unsharded '
+        f'{r.kernel.name} run bit for bit')
+    del r, f0, ref
+    free_memory()
+
+
+def state_gib(kernels):
+    """GiB of the A and B buffers of ``kernels``."""
+    return sum(ks.a.nbytes + ks.b.nbytes for ks in kernels) / 2 ** 30
+
+
+def drag_ms(r, samples=5):
+    """Host milliseconds of one ``update_force_objects`` sample, after a
+    synchronization (median of ``samples``)."""
+    out = []
+    for _ in range(samples):
+        r._synchronize()
+        t0 = time.perf_counter()
+        r.update_force_objects()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def open_mesh_main_path(path, dim, size, flat, turn_steps=100):
+    """``open_channel`` at full width through the controller with
+    ``--mesh=1`` and with ``--mesh=1x1`` on the kernel engine, as many
+    steps and chunks as the unsharded path (``flat``: its final state and
+    drag series), the counts zeroed just before and read just after each
+    run: per step one ``lbm_step_ghost_outflow_<grid>`` launch and one
+    exchange, nothing else (the drag's sums come at the chunk ends, as
+    PyTorch reductions); both drag series and final states the unsharded
+    run's bits. Then, on the final state: ``turn_steps``-step runs in turns
+    of --mesh=1x1, --mesh=1 and the unsharded kernel (MLUPS, host clock;
+    the same bits after each turn), ms per ghost launch against the
+    unsharded launch in turns (CUDA events), the host ms of one drag
+    sample on the mesh against the unsharded one, and 2x2 shards on the
+    card: ``SHARD_STEPS`` steps with the unsharded bits, MLUPS in turns,
+    the buffers' GiB. Returns (row name, row, {exchange: launches})."""
+    cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size))
+    chunk, chunks = flat['chunk'], flat['chunks']
+    steps = chunk * chunks
+    g = 'd3q19' if dim == 3 else 'd2q9'
+    name = f'lbm_step_ghost_outflow_{g}'
+    runs, xall, lines = {}, {}, []
+    for mesh in ('1', '1x1'):
+        reset_all_counts()
+        r = run(open_channel(dim), max_iters=steps, every=chunk, mesh=mesh,
+                **cfg)
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        xcounts = {k: v for k, v in halo.LAUNCHES.items() if v}
+        stp = r.stepper
+        assert r.engine == 'kernel' and r.kernel is stp, r.engine
+        assert stp.kernels[0].name == name, stp.kernels[0].name
+        assert counts == {name: steps}, counts
+        assert xcounts == {stp.name: steps}, xcounts
+        for k, v in xcounts.items():
+            xall[k] = xall.get(k, 0) + v
+        drag = [(it, tuple(F)) for it, F in r.sim.drag]
+        assert drag == flat['drag'], (mesh, drag, flat['drag'])
+        same, diff = same_bits(r.f, flat['final'])
+        assert same, (mesh, diff)
+        mlups = statistics.median(r.mlups_history[1:])
+        lines.append(f'--mesh={mesh}: {steps} {name} + {steps} {stp.name} '
+                     f'launches, nothing else; median {mlups:.1f} MLUPS; '
+                     f'{len(drag)} drag samples and the final state equal '
+                     f'the unsharded run\'s bit for bit')
+        runs[mesh] = (r, mlups)
+    say(f'main path {path} {"x".join(map(str, size))} (engine kernel): '
+        + '; '.join(lines) + f'; last drag {flat["drag"][-1]}')
+    r1, m1 = runs['1']
+    r2, m2 = runs['1x1']
+    stp, one = r2.stepper, r1.stepper
+    del flat['final']
+    free_memory()
+    # its plain version for 5 steps from the final state
+    f0 = r2.f.clone()
+    wet = torch.as_tensor(wet_map(r2.maps), device=DEVICE)
+    fk = stp.gather(stp.run(f0, 5, steps))
+    s = stp.shard(f0)
+    for i in range(5):
+        s = stp.reference(s, steps + i)
+    err = float((fk - stp.gather(s))[:, wet].abs().max())
+    assert np.isfinite(err) and err <= TOL, err
+    del s, fk
+    free_memory()
+    # in turns: --mesh=1x1, --mesh=1 and the unsharded kernel
+    ks1 = ls.KernelStep(r2.builder)
+    nodes = int(np.prod(size))
+    variants = {'1x1': stp, '1': one, 'unsharded': ks1}
+    state = dict.fromkeys(variants, f0)
+    mlups_of = {k: [] for k in variants}
+    for _ in range(2):
+        for key, eng in variants.items():
+            m, out = host_mlups(lambda: eng.run(state[key], turn_steps),
+                                nodes, turn_steps)
+            mlups_of[key].append(m)
+            state[key] = (out if key == 'unsharded'
+                          else eng.gather(out)).clone()
+        for key in ('1x1', '1'):
+            same, diff = same_bits(state[key], state['unsharded'])
+            assert same, (key, diff)
+    med = {k: statistics.median(v) for k, v in mlups_of.items()}
+    kg, kg1 = stp.kernels[0], one.kernels[0]
+    ms_g, ms_1, ms_u = [], [], []
+    for _ in range(2):
+        ms_g.append(util.cuda_time_ms(lambda: kg.step_into(kg.a, kg.b), 30,
+                                      warmup=3))
+        ms_1.append(util.cuda_time_ms(lambda: kg1.step_into(kg1.a, kg1.b),
+                                      30, warmup=3))
+        ms_u.append(util.cuda_time_ms(lambda: ks1.step_into(ks1.a, ks1.b),
+                                      30, warmup=3))
+    ms, ms1, ms_flat = (statistics.median(v) for v in (ms_g, ms_1, ms_u))
+    plain_ms = util.cuda_time_ms(lambda: kg.reference(kg.a), 3)
+    fo1, fo2 = drag_ms(r1), drag_ms(r2)
+    bound, bound_by = bound_ms(name, nodes)
+    say(f'{path}: {turn_steps}-step runs in turns from the final state, '
+        f'MLUPS --mesh=1x1 {[round(v, 1) for v in mlups_of["1x1"]]}, '
+        f'--mesh=1 {[round(v, 1) for v in mlups_of["1"]]}, unsharded '
+        f'{[round(v, 1) for v in mlups_of["unsharded"]]}: 1x1 over '
+        f'unsharded {med["1x1"] / med["unsharded"]:.4f}, 1 over unsharded '
+        f'{med["1"] / med["unsharded"]:.4f}; the states equal bit for bit '
+        f'after each turn; 5 steps against the plain version wet max|df| '
+        f'{err:.3e} (tol {TOL:g}); {name} {ms:.4f} ms per launch on 1x1 '
+        f'({tuple(kg.shape)}), {ms1:.4f} on 1 ({tuple(kg1.shape)}) against '
+        f'{ms_flat:.4f} unsharded, in turns ({ms / ms_flat:.4f}, '
+        f'{ms1 / ms_flat:.4f}); bound {bound:.4f} ms ({bound_by}): '
+        f'{bound / ms:.3f} of the 1x1 launch; step_reference {plain_ms:.3f} '
+        f'ms; one drag sample {fo2:.3f} ms on 1x1, {fo1:.3f} on 1 against '
+        f'{flat["force_object_ms"]:.3f} unsharded (host, synchronized; '
+        f'median of 5); A/B buffers {state_gib(stp.kernels):.3f} GiB on '
+        f'1x1 against {state_gib([ks1]):.3f} unsharded')
+    start = state['unsharded']
+    del state, variants, runs, r1
+    free_memory()
+    # 2x2 shards on the card
+    sn = halo.ShardedStep(r2.builder, r2._domain_shape(), mesh_from(
+        '2x2', dim), 'kernel')
+    mn, out = host_mlups(lambda: sn.run(start, SHARD_STEPS), nodes,
+                         SHARD_STEPS)
+    un, ref = host_mlups(lambda: ks1.run(start, SHARD_STEPS), nodes,
+                         SHARD_STEPS)
+    same, diff = same_bits(sn.gather(out), ref)
+    gib = state_gib(sn.kernels)
+    say(f'{path} over 2x2 shards on the one card '
+        f'({tuple(sn.kernels[0].shape)} each): {SHARD_STEPS} steps equal to '
+        f'the unsharded kernel\'s bit for bit: {same}; {mn:.1f} MLUPS '
+        f'against {un:.1f} unsharded, in turns ({mn / un:.4f}); A/B buffers '
+        f'{gib:.3f} GiB')
+    assert same, diff
+    row = dict(launches=2 * steps, mlups=m1, ms=ms, plain_ms=plain_ms,
+               err=err, nodes=nodes, unsharded_ms=ms_flat,
+               mesh_mlups=med['1'], unsharded_mlups=med['unsharded'],
+               mesh_over_unsharded=med['1'] / med['unsharded'],
+               two_axis={path.replace('mesh1', 'mesh1x1'): dict(
+                   mlups=m2, mesh_1x1_mlups=med['1x1'],
+                   over_unsharded=med['1x1'] / med['unsharded'],
+                   ms=ms, one_axis_ms=ms1)},
+               force_object_ms=fo1, drag=flat['drag'][-1][1][0],
+               shards={'2x2': dict(mlups=mn, unsharded_mlups=un,
+                                   gib=gib)})
+    del r2, stp, one, ks1, sn, out, ref, start, f0, kg, kg1, wet
+    free_memory()
+    return name, row, xall
+
+
+def laminarize_mesh_main_path(size=LAMINARIZE_MAIN, chunk=500, chunks=2,
+                              turn_steps=100):
+    """The 2D laminarize channel at full width through the controller with
+    ``--mesh=1x1``: per step one ``laminarize_mean_ghost_d2q9`` pre-pass
+    over the mesh, one ``lbm_step_ghost_outflow_d2q9`` launch and one edge
+    exchange, nothing else. Then the mesh pre-pass on the final state
+    against its plain version (``RHO_TOL``) and against the unsharded
+    ``laminarize_mean_d2q9`` (bit for bit) on 1x1 and 2x2, its ms per
+    launch (CUDA events) against its bound and the unsharded pre-pass's;
+    ``turn_steps``-step runs in turns of 1x1 and the unsharded kernel with
+    the same bits; 2x2 shards on the card, ``SHARD_STEPS`` steps, the
+    unsharded bits. Returns ({JSON row: measurements}, {exchange:
+    launches})."""
+    cfg = dict(lat_nx=size[0], lat_ny=size[1])
+    steps = chunk * chunks
+    reset_all_counts()
+    r = run(outflow_channel('NTLaminarize', 2, 'x'), max_iters=steps,
+            every=chunk, mesh='1x1', **cfg)
+    counts = {k: v for k, v in kernel_counts().items() if v}
+    xcounts = {k: v for k, v in halo.LAUNCHES.items() if v}
+    stp = r.stepper
+    name = 'lbm_step_ghost_outflow_d2q9'
+    assert r.engine == 'kernel' and stp.lam is not None
+    assert counts == {name: steps, stp.lam_name: steps}, counts
+    assert xcounts == {stp.name: steps}, xcounts
+    r._fields_to_host()
+    for arr in (r.sim.rho, r.sim.vx, r.sim.vy):
+        assert np.all(np.isfinite(arr))
+    mlups = statistics.median(r.mlups_history[1:])
+    f0 = r.f.clone()
+    ks1 = ls.KernelStep(r.builder)
+    flat_mean = torch.empty_like(ks1.lam.mean)
+    ks1.mean_into(f0, flat_mean)
+    padded = torch.cat([flat_mean, flat_mean.new_zeros((1, 9))])
+    rows, lines = {}, []
+    for mesh in ('1x1', '2x2'):
+        sx = stp if mesh == '1x1' else halo.ShardedStep(
+            r.builder, r._domain_shape(), mesh_from(mesh, 2), 'kernel')
+        parts = sx.shard(f0).parts
+        sx.lam_prepass(parts)
+        got = [None if ks.lam is None else ks.lam.mean.clone()
+               for ks in sx.kernels]
+        sx.lam.plain_into(parts, sx.kernels)
+        err, same = 0.0, True
+        for s_, (ks, m) in enumerate(zip(sx.kernels, got)):
+            if ks.lam is None:
+                continue
+            err = max(err, float((m - ks.lam.mean).abs().max()))
+            idx = sx.lam.shard_entries(s_, ks)
+            inside = torch.as_tensor(idx >= 0, device=DEVICE)
+            want = padded[torch.as_tensor(np.where(idx < 0, -1, idx),
+                                          device=DEVICE)]
+            same = same and torch.equal(m[inside], want[inside])
+        assert err <= RHO_TOL, err
+        assert same, mesh
+        ms = util.cuda_time_ms(lambda: sx.lam_prepass(parts), 200,
+                               warmup=10)
+        lines.append(f'--mesh={mesh}: {sx.lam_name} {ms:.5f} ms per launch, '
+                     f'max|d| against its plain version {err:.3e} (tol '
+                     f'{RHO_TOL:g}), the unsharded means bit for bit')
+        rows[mesh] = dict(ms=ms, err=err)
+        if mesh == '2x2':
+            mn, out = host_mlups(lambda: sx.run(f0, SHARD_STEPS),
+                                 int(np.prod(size)), SHARD_STEPS)
+            un, ref = host_mlups(lambda: ks1.run(f0, SHARD_STEPS),
+                                 int(np.prod(size)), SHARD_STEPS)
+            same2, diff = same_bits(sx.gather(out), ref)
+            assert same2, diff
+            lines.append(f'2x2 shards ({tuple(sx.kernels[0].shape)} each) '
+                         f'{SHARD_STEPS} steps equal the unsharded kernel\'s '
+                         f'bit for bit; {mn:.1f} against {un:.1f} MLUPS')
+            rows[mesh].update(mlups=mn, unsharded_mlups=un)
+            del sx, out, ref
+        del parts, got
+    flat_ms = util.cuda_time_ms(lambda: ks1.mean_into(ks1.a, flat_mean),
+                                200, warmup=10)
+    plain_ms = util.cuda_time_ms(
+        lambda: stp.lam.plain_into(stp.shard(f0).parts, stp.kernels), 5)
+    # in turns: 1x1 and the unsharded kernel
+    nodes = int(np.prod(size))
+    fm = fu = f0
+    mesh_m, flat_m = [], []
+    for _ in range(2):
+        m, sm_ = host_mlups(lambda: stp.run(fm, turn_steps), nodes,
+                            turn_steps)
+        u, fu = host_mlups(lambda: ks1.run(fu, turn_steps), nodes,
+                           turn_steps)
+        fm = stp.gather(sm_)
+        same, diff = same_bits(fm, fu)
+        assert same, diff
+        fu = fu.clone()
+        mesh_m.append(m)
+        flat_m.append(u)
+    lam_nodes = int(ks1.lam.nodes.numel())
+    entries = int(stp.lam.entries)
+    extra = entries * 9 * 4 * 2 + (entries + 1) * 4 * 2 + 8 * entries
+    bound, bound_by = bound_ms(stp.lam_name, lam_nodes, extra)
+    say(f'main path laminarize_channel_2d_yxmesh1 {size[0]}x{size[1]} (D2Q9, '
+        f'engine {r.engine}, --mesh=1x1): {steps} {stp.lam_name} + {steps} '
+        f'{name} + {steps} {stp.name} launches, nothing else; median '
+        f'{mlups:.1f} MLUPS; ' + '; '.join(lines) + f'; unsharded '
+        f'laminarize_mean_d2q9 {flat_ms:.5f} ms; bound {bound:.6f} ms '
+        f'({bound_by}) over {lam_nodes} nodes in {entries} plane(s): '
+        f'{bound / rows["1x1"]["ms"]:.4f} of the 1x1 launch; plain version '
+        f'{plain_ms:.3f} ms; {turn_steps}-step runs in turns 1x1 '
+        f'{[round(v, 1) for v in mesh_m]} against unsharded '
+        f'{[round(v, 1) for v in flat_m]} MLUPS, the same bits after each')
+    out = {
+        stp.lam_name: dict(launches=steps, ms=rows['1x1']['ms'],
+                           plain_ms=plain_ms,
+                           err=max(v['err'] for v in rows.values()),
+                           nodes=lam_nodes, extra_bytes=extra,
+                           unsharded_ms=flat_ms,
+                           shards={'2x2': rows['2x2']}),
+        name: dict(launches=steps, err=0.0)}
+    del r, stp, ks1, f0, fm, fu
+    free_memory()
+    return out, xcounts
 
 
 # -- sharded runs (--mesh): the ghost-plane mode and its exchange -----------
@@ -5015,6 +5421,13 @@ def main():
                                            mesh=MESH2).items():
             note(key, err)
     phase_done('kernel comparisons (two-axis meshes)')
+    # the outflow family on one- and two-axis meshes, with and without a
+    # Guo force: every type along a sharded and an unsharded axis
+    for kind in KERNEL_OUTFLOW_KINDS:
+        for where in sorted(OUTFLOW_MESH):
+            for force_model in (None, 'guo'):
+                outflow_mesh_compare(kind, where, force_model)
+    phase_done('kernel comparisons (outflow on meshes)')
     fe_cube = dict(lat_nx=128, lat_ny=128, lat_nz=128)
     for name, scene, cfg in (
             ('fe_separation_2d', 'fe_separation_2d',
@@ -5175,11 +5588,26 @@ def main():
             f'{bgk["ms"]:.4f} ms on the cavity of the same size')
     channel = channel_flow_main_path(copy_bw)
     phase_done('D3Q15 / D3Q27 and hooked main paths')
+    flat_open = {}
     for path, (dim, size) in OPEN_MAIN.items():
-        name, res = open_main_path(path, dim, size, copy_bw)
+        name, res, flat_open[path] = open_main_path(path, dim, size, copy_bw)
         results[name] = res
     results['laminarize_mean_d2q9'] = laminarize_main_path()
     phase_done('outflow main paths')
+    # the same paths on --mesh=1 and --mesh=1x1, 2x2 on the card; the
+    # laminarize channel on 1x1 and 2x2
+    mesh_exchanges = {}
+    for path, (dim, size) in OPEN_MAIN.items():
+        name, row, xcounts = open_mesh_main_path(
+            OPEN_MESH_NAMES[path], dim, size, flat_open.pop(path))
+        merge_rows(results, {name: row})
+        for k, v in xcounts.items():
+            mesh_exchanges[k] = mesh_exchanges.get(k, 0) + v
+    rows, xcounts = laminarize_mesh_main_path()
+    merge_rows(results, rows)
+    for k, v in xcounts.items():
+        mesh_exchanges[k] = mesh_exchanges.get(k, 0) + v
+    phase_done('outflow mesh main paths')
     for path, (sim_cls, size) in MESH_MAIN.items():
         row, xrow = mesh_main_path(path, sim_cls, size, copy_bw)
         g = 'd3q19' if len(size) == 3 else 'd2q9'
@@ -5246,6 +5674,9 @@ def main():
                chunk=20)
 
     phase_done('plain paths')
+    # the exchanges of the outflow mesh paths
+    for xname, launches in mesh_exchanges.items():
+        results[xname]['launches'] += launches
     empty_ms = empty_launch_ms()
     say(f'empty kernel launch: {empty_ms:.5f} ms per launch (2000 '
         'back-to-back launches of one empty block, CUDA events): no '

@@ -275,31 +275,34 @@ lbm_step_kernel(const T* __restrict__ a, T* __restrict__ b,
 
 #define LAM_BLOCK 128
 
-// The laminarize pre-pass: for each entry e (a plane normal to a
-// laminarize row's normal, one per coordinate along it that its nodes
-// span; ops/lbm_step.py lists the entries' nodes), the mean over its nodes
-// of the post-stream
-// values fs_i = a[i, x - c_i], sum / max(count, 1), into mean[e * Q + i]
-// (sailfish_tpu/ops/step.py:543-561, a reduction the JAX package leaves to
-// its XLA prologue). One block per entry: each thread sums a strided share
-// of the entry's nodes, then the warps' shuffles and shared memory sum the
-// block. Bound: the Q loads of each laminarize node and its 8-byte index;
-// a laminarize face is a small share of the domain.
-template <int DIM, int Q>
-__global__ void __launch_bounds__(LAM_BLOCK)
-laminarize_mean_kernel(const float* __restrict__ a,
-                       const long long* __restrict__ nodes,
-                       const int* __restrict__ start,
-                       float* __restrict__ mean,
-                       const __grid_constant__ LBMParams p) {
-    using L = typename LatticeOf<DIM, Q>::type;
-    const int e = blockIdx.x;
-    const int lo = start[e], hi = start[e + 1];
+// The mean of one laminarize entry (a plane normal to a laminarize row's
+// normal, one per coordinate along it that its nodes span; ops/lbm_step.py
+// lists the entries' nodes) over its nodes lo .. hi - 1 of the post-stream
+// values fs_i = a[i, x - c_i], sum / max(count, 1), returned to the
+// threads i < Q of the block (sailfish_tpu/ops/step.py:543-561, a
+// reduction the JAX package leaves to its XLA prologue). node_of(k) names
+// node k's buffer and its flat index there, whose extents p gives (a
+// LamNode). Each thread sums a strided share of the nodes, then the
+// warps' shuffles and shared memory sum the block: the order of the adds
+// depends on the node list alone, so a list gathered from the shards of a
+// mesh in the unsharded order gives the unsharded bits.
+struct LamNode {
+    const float* a;
+    long long node;
+};
+
+template <typename L, typename Node>
+__device__ __forceinline__ float laminarize_block_mean(int lo, int hi,
+                                                       const LBMParams& p,
+                                                       Node node_of) {
+    constexpr int Q = L::Q;
     const size_t n = (size_t)p.nx * p.ny * p.nz;
     float s[Q];
     static_for<Q>([&](auto I) { s[decltype(I)::value] = 0.0f; });
     for (int k = lo + (int)threadIdx.x; k < hi; k += LAM_BLOCK) {
-        const long long node = nodes[k];
+        const LamNode at = node_of(k);
+        const float* a = at.a;
+        const long long node = at.node;
         const int x = (int)(node % p.nx);
         const long long row = node / p.nx;
         const int y = (int)(row % p.ny);
@@ -320,11 +323,63 @@ laminarize_mean_kernel(const float* __restrict__ a,
         if (lane == 0) part[warp][i] = v;
     });
     __syncthreads();
+    float t = 0.0f;
     if (threadIdx.x < Q) {
-        float t = 0.0f;
         for (int w = 0; w < LAM_BLOCK / 32; ++w) t += part[w][threadIdx.x];
-        mean[(size_t)e * Q + threadIdx.x] = t / fmaxf((float)(hi - lo), 1.0f);
+        t = t / fmaxf((float)(hi - lo), 1.0f);
     }
+    return t;
+}
+
+// The laminarize pre-pass: for each entry e, its nodes start[e] ..
+// start[e + 1] - 1 (flat indices into a), the Q means into mean[e * Q + i].
+// One block per entry. Bound: the Q loads of each laminarize node and its
+// 8-byte index; a laminarize face is a small share of the domain.
+template <int DIM, int Q>
+__global__ void __launch_bounds__(LAM_BLOCK)
+laminarize_mean_kernel(const float* __restrict__ a,
+                       const long long* __restrict__ nodes,
+                       const int* __restrict__ start,
+                       float* __restrict__ mean,
+                       const __grid_constant__ LBMParams p) {
+    using L = typename LatticeOf<DIM, Q>::type;
+    const int e = blockIdx.x;
+    const float t = laminarize_block_mean<L>(
+        start[e], start[e + 1], p,
+        [=](int k) { return LamNode{a, nodes[k]}; });
+    if (threadIdx.x < Q) mean[(size_t)e * Q + threadIdx.x] = t;
+}
+
+// The laminarize pre-pass over a mesh (parallel/halo.py MeshLaminarize):
+// the shards' padded slabs parts[s], each of p's extents; an entry is a
+// plane of a laminarize row of the whole domain, its nodes in the
+// unsharded order, each coded as s * (nodes of a slab) + its flat index
+// in shard s's slab (an interior node: its pulls stay in the slab). One
+// block per entry, as laminarize_mean_kernel, so each mean has the
+// unsharded bits; the block then writes it to the entries of every shard
+// that read this plane: dst[d] for d in dst_start[e] .. dst_start[e + 1]
+// - 1 (Q floats each). The slabs and the destinations of shards on other
+// GPUs are read and written through peer access.
+template <int DIM, int Q>
+__global__ void __launch_bounds__(LAM_BLOCK)
+laminarize_mean_ghost_kernel(const float* const* __restrict__ parts,
+                             const long long* __restrict__ nodes,
+                             const int* __restrict__ start,
+                             float* const* __restrict__ dst,
+                             const int* __restrict__ dst_start,
+                             const __grid_constant__ LBMParams p) {
+    using L = typename LatticeOf<DIM, Q>::type;
+    const int e = blockIdx.x;
+    const long long slab = (long long)p.nx * p.ny * p.nz;
+    const float t = laminarize_block_mean<L>(
+        start[e], start[e + 1], p,
+        [=](int k) {
+            const long long code = nodes[k];
+            return LamNode{parts[code / slab], code % slab};
+        });
+    if (threadIdx.x < Q)
+        for (int d = dst_start[e]; d < dst_start[e + 1]; ++d)
+            dst[d][threadIdx.x] = t;
 }
 
 __global__ void lbm_empty_kernel() {}
@@ -499,6 +554,19 @@ static int launch_laminarize(const float* a, const long long* nodes,
     return (int)cudaGetLastError();
 }
 
+template <int DIM, int Q>
+static int launch_laminarize_ghost(const float* const* parts,
+                                   const long long* nodes, const int* start,
+                                   int entries, float* const* dst,
+                                   const int* dst_start, const LBMParams* p,
+                                   void* stream) {
+    if (entries <= 0) return (int)cudaErrorInvalidValue;
+    laminarize_mean_ghost_kernel<DIM, Q>
+        <<<entries, LAM_BLOCK, 0, (cudaStream_t)stream>>>(
+            parts, nodes, start, dst, dst_start, *p);
+    return (int)cudaGetLastError();
+}
+
 template <typename L>
 static void copy_tables(LBMTables* out) {
     *out = LBMTables();
@@ -552,6 +620,30 @@ int laminarize_mean_d3q19(const float* a, const long long* nodes,
                           const LBMParams* p, void* stream) {
     return launch_laminarize<3, 19>(a, nodes, start, entries, mean, p,
                                     stream);
+}
+
+// The laminarize pre-pass over a mesh: parts, the shards' slabs (a device
+// array of pointers); nodes, coded shard * (slab nodes) + flat index,
+// entry by entry; start[e] .. start[e + 1] the nodes of entry e; dst, the
+// device array of the destinations' addresses (Q floats each: a shard's
+// entry of the plane), dst_start[e] .. dst_start[e + 1] entry e's; p holds
+// a slab's extents. Launched on the device that holds the arrays.
+int laminarize_mean_ghost_d2q9(const float* const* parts,
+                               const long long* nodes, const int* start,
+                               int entries, float* const* dst,
+                               const int* dst_start, const LBMParams* p,
+                               void* stream) {
+    return launch_laminarize_ghost<2, 9>(parts, nodes, start, entries, dst,
+                                         dst_start, p, stream);
+}
+
+int laminarize_mean_ghost_d3q19(const float* const* parts,
+                                const long long* nodes, const int* start,
+                                int entries, float* const* dst,
+                                const int* dst_start, const LBMParams* p,
+                                void* stream) {
+    return launch_laminarize_ghost<3, 19>(parts, nodes, start, entries,
+                                          dst, dst_start, p, stream);
 }
 #elif defined(LBM_LATTICES)
 // The D3Q15 and D3Q27 lattices (lbm_step_lattices.cu): BGK with the

@@ -117,9 +117,11 @@ OUTFLOW_LIBRARY = 'lbm_step_outflow'
 #: laminarize pre-pass, when it has a laminarize row, as
 #: ``laminarize_mean_<grid>``. A launch on a shard's ghost-plane buffers
 #: (``parallel/halo.py``) counts under its key with ``ghost_`` after
-#: ``lbm_step_`` (``lbm_step_ghost_<kind><grid>``; the outflow kind is
-#: refused on a mesh), the Shan-Chen pre-pass of a shard as
-#: ``rho_poststream_nk1_ghost_<grid>``.
+#: ``lbm_step_`` (``lbm_step_ghost_<kind><grid>``), the Shan-Chen pre-pass
+#: of a shard as ``rho_poststream_nk1_ghost_<grid>``, and the laminarize
+#: pre-pass over the whole mesh (``parallel/halo.MeshLaminarize``: one
+#: launch per step, whatever the shards) as
+#: ``laminarize_mean_ghost_<grid>``.
 LAUNCH_KINDS = ('', 'vary_', 'force_', 'incomp_', 'les_', 'mrt_', 'elbm_',
                 'sw_', 'sc_', 'wall_', 'dyn_', 'mixed_', 'outflow_')
 #: the kinds a launch on one of ``OTHER_LATTICES`` can be (BGK only, fp32)
@@ -129,11 +131,12 @@ LAUNCHES = dict.fromkeys(
      for g in ('D2Q9', 'D3Q19')]
     + [f'rho_poststream_nk1_{v}{g}' for v in ('', 'ghost_')
        for g in ('d2q9', 'd3q19')]
-    + [f'laminarize_mean_{g}' for g in ('d2q9', 'd3q19')]
+    + [f'laminarize_mean_{v}{g}' for v in ('', 'ghost_')
+       for g in ('d2q9', 'd3q19')]
     + [f'lbm_step_{v}{g.lower()}' for v in OTHER_LATTICE_KINDS
        for g in OTHER_LATTICES]
     + [f'lbm_step_ghost_{v}{g.lower()}' for v in LAUNCH_KINDS
-       for g in ('D2Q9', 'D3Q19') if v != 'outflow_']
+       for g in ('D2Q9', 'D3Q19')]
     + [f'lbm_step_ghost_{v}{g.lower()}' for v in OTHER_LATTICE_KINDS
        for g in OTHER_LATTICES], 0)
 #: rewrites of a block of the per-node parameter array before a launch (a
@@ -514,7 +517,7 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
                    force_model='guo', tags=None, rates=None,
                    smagorinsky=0.0, incompressible=False, equilibrium='bgk',
                    gravity=0.0, sc_coupling=0.0, sc_potential='linear',
-                   sc_rho=None, mixed=None, elbm=None):
+                   sc_rho=None, mixed=None, elbm=None, lam_means=None):
     """Plain PyTorch version of the kernel: one step
     of state ``f`` (Q, *S) under uint8 mask codes ``mask`` (*S) and BC
     table ``table`` (list of ``BCRow``), with relaxation rate ``tau_inv``.
@@ -534,8 +537,11 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
     Shan-Chen mode) the neighbours' psi comes from ``sc_rho``, the density
     the pre-pass wrote (default: ``sc_multi.rho_reference`` of ``f``). With
     ``mixed`` (an ``ops/mixed.MixedScales``) ``f`` holds int16 codes: they
-    are dequantized, stepped and the result quantized, int16 out. The
-    phases are the torch engine's (``step.step_phases``)."""
+    are dequantized, stepped and the result quantized, int16 out.
+    ``lam_means``: the laminarize rows' plane means ({orientation: (Q,
+    ...) tensor}, ``KernelStep.lam_spread``) when a mesh pre-pass computed
+    them, else they are computed here. The phases are the torch engine's
+    (``step.step_phases``)."""
     if mixed is not None:
         return mixed.quant(step_reference(
             mixed.dequant(f), mask, table, grid, tau_inv, bcp, force,
@@ -584,7 +590,7 @@ def step_reference(f, mask, table, grid, tau_inv, bcp=None, force=None,
         smagorinsky=smagorinsky,
         feq=st.equilibrium_fn(grid, incompressible, equilibrium, gravity),
         sc_coupling=sc_coupling, sc_potential=sc_potential, sc_rho=sc_rho,
-        elbm=elbm)
+        elbm=elbm, lam_means=lam_means)
 
 
 class _BC(ctypes.Structure):
@@ -938,6 +944,17 @@ def laminarize_function(lib, grid_name):
     return fn
 
 
+def laminarize_ghost_function(lib, grid_name):
+    """The laminarize pre-pass over a mesh ``laminarize_mean_ghost_<grid>``
+    of the outflow library, typed for ``ctypes``: (parts, nodes, start,
+    entries, dst, dst_start, params, stream)."""
+    fn = getattr(lib, f'laminarize_mean_ghost_{grid_name.lower()}')
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
+        + [ctypes.c_void_p] * 2 + [ctypes.POINTER(_Params), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 #: the laminarize rows' entries: ``nodes`` (int64 flat indices of their
 #: nodes, entry by entry), ``start`` (int32, entries + 1 offsets into
 #: nodes), ``mean`` (the (entries, Q) fp32 buffer of the plane means) and
@@ -959,16 +976,14 @@ def laminarize_entries(grid, table, mask, params):
     for j, row in enumerate(table):
         if nt.get_node_type(row.type_id) is not nt.NTLaminarize:
             continue
-        arr_axis = codes.ndim - 1 - (row.orientation - 1) // 2
-        flat = np.flatnonzero(codes == 3 + j)
-        coord = np.unravel_index(flat, codes.shape)[arr_axis]
-        lo, hi = int(coord.min()), int(coord.max())
+        lo, counts, flat = st.plane_entries(codes == 3 + j,
+                                            (row.orientation - 1) // 2)
         params.out.lam_entry[j] = len(start) - 1
         params.out.lam_lo[j] = lo
-        spans.append((j, lo, hi - lo + 1))
-        for c in range(lo, hi + 1):
-            nodes.append(flat[coord == c])
-            start.append(start[-1] + nodes[-1].size)
+        spans.append((j, lo, len(counts)))
+        nodes.append(flat)
+        for count in counts:
+            start.append(start[-1] + count)
     if not nodes:
         return None
     dev = mask.device
@@ -1103,6 +1118,10 @@ class KernelStep:
         self.name = f'lbm_step_{kind}{g}'
         self.rho_name = f'rho_poststream_nk1_{g}'
         self.lam_name = f'laminarize_mean_{g}'
+        #: whether a mesh pre-pass writes the plane means into ``lam.mean``
+        #: (``parallel/halo.MeshLaminarize``): the step then runs no
+        #: pre-pass of its own, and its plain version reads them there
+        self.mesh_means = False
         self.launches = 0
         self.prepass_launches = 0
         self._fn = None
@@ -1172,7 +1191,7 @@ class KernelStep:
         if src.device.type == 'cpu':
             dst.copy_(self.reference(src, self.rho))
         else:
-            if self.lam is not None:
+            if self.lam is not None and not self.mesh_means:
                 self.mean_into(src, self.lam.mean)
             self._launch(src, dst)
 
@@ -1194,14 +1213,31 @@ class KernelStep:
         """``step_reference`` of this scene on the state ``f``, with the
         values of the last ``set_iteration``; in the Shan-Chen mode with
         the pre-pass densities ``rho`` (default ``sc_multi.rho_reference``
-        of ``f``); under --precision=mixed on int16 codes."""
+        of ``f``); under --precision=mixed on int16 codes; with
+        ``mesh_means`` with the plane means in ``lam.mean``."""
         return step_reference(f, self.mask, self.table, self.grid,
                               self.tau_inv, self.bcp, self.force,
                               self.force_model, self.tags, self.rates,
                               self.smagorinsky, self.incompressible,
                               self.equilibrium, self.gravity,
                               self.sc_coupling, self.sc_potential, rho,
-                              self.mixed, self.elbm)
+                              self.mixed, self.elbm,
+                              self.lam_spread() if self.mesh_means
+                              and self.lam is not None else None)
+
+    def lam_spread(self, mean=None):
+        """The plane means ``mean`` (default ``lam.mean``; (entries, Q))
+        as the torch engine lays them out ({orientation: (Q, ...) tensor},
+        ``step.spread_means``) for ``step_reference``'s ``lam_means``."""
+        mean = self.lam.mean if mean is None else mean
+        out = {}
+        for j, lo, count in self.lam.spans:
+            row = self.table[j]
+            e = self.params.out.lam_entry[j]
+            out[row.orientation] = st.spread_means(
+                mean[e:e + count], lo, self.shape,
+                (row.orientation - 1) // 2)
+        return out
 
     def _stream(self, t):
         return torch.cuda.current_stream(t.device).cuda_stream
@@ -1273,7 +1309,7 @@ class KernelStep:
         """Plain version of the laminarize pre-pass: the (entries, Q)
         plane means of the post-stream state of ``f``, each laminarize
         row's entries in order of the coordinate along its normal, by the
-        torch engine's sums (``step.fix_outflow``)."""
+        torch engine's sums (``step.plane_means``)."""
         fs = st.gather(self.grid, f)
         return torch.cat([
             st.plane_means(fs, self.mask == 3 + j,

@@ -193,7 +193,7 @@ def equilibrium_fn(grid, incompressible=False, equilibrium='bgk',
 
 
 def fix_missing(grid, fs, f, tags=None, tms=None, feq=None, instances=(),
-                ext_gathers=()):
+                ext_gathers=(), lam_means=None):
     """Replace the distributions whose pull source is not wet
     (``sailfish_tpu/ops/step.py:436-561``). Tagged links (``tags``, the
     (Q, *S) planes of ``tag_planes``, or None) take f_opp, the node's own
@@ -203,8 +203,8 @@ def fix_missing(grid, fs, f, tags=None, tms=None, feq=None, instances=(),
     equilibrium ``feq`` (``equilibrium_fn``; default the compressible
     second-order one). Then the extended copies (``ext_gathers``, from
     ``extended_copy_gathers``) and the instances of ``FIX_TYPES`` among
-    ``instances`` (``fix_outflow``). Returns (fs, target): target is (rho,
-    u) of the TMS nodes, None without them."""
+    ``instances`` (``fix_outflow``, with ``lam_means``). Returns (fs,
+    target): target is (rho, u) of the TMS nodes, None without them."""
     target = None
     if tags is not None:
         opp = torch.as_tensor(grid.opposite, dtype=torch.long,
@@ -220,10 +220,10 @@ def fix_missing(grid, fs, f, tags=None, tms=None, feq=None, instances=(),
         for d, d2, dst, src in ext_gathers:
             flat[d, dst] = f_flat[d2, src]
         fs = flat.reshape(fs.shape)
-    return fix_outflow(grid, fs, f, instances), target
+    return fix_outflow(grid, fs, f, instances, lam_means), target
 
 
-def fix_outflow(grid, fs, f, instances):
+def fix_outflow(grid, fs, f, instances, lam_means=None):
     """The outflow BCs of ``FIX_TYPES`` among ``instances`` ((cls,
     orientation, mask, scalar, vel_bc); ``scalar`` the (*S) field of the
     Neumann gradient or the laminarization alpha), in their order
@@ -237,14 +237,18 @@ def fix_outflow(grid, fs, f, instances):
                     phi = u(f(x + 2n)) + 2 gradient n
     and ``NTLaminarize`` blends all Q distributions towards their mean over
     the instance's nodes in each plane normal to n, (1 - alpha) fs + alpha
-    mean (the count floored at 1)."""
+    mean (the count floored at 1; ``plane_means``, or ``lam_means[k]`` for
+    the instance of orientation k when given: the means a sharded step
+    computed over the whole mesh, laid out as ``plane_means`` lays
+    them)."""
     for cls, k, mask, scalar, _vel in instances:
         if cls not in FIX_TYPES:
             continue
         n = np.asarray(grid.orientation_vectors[k - 1])
         unknown = grid.unknown_mask(n)
         if cls is nt.NTLaminarize:
-            mean = plane_means(fs, mask, (k - 1) // 2)
+            mean = lam_means[k] if lam_means and k in lam_means \
+                else plane_means(fs, mask, (k - 1) // 2)
             blended = (1.0 - scalar) * fs + scalar * mean
             fs = torch.where(mask[None], blended, fs)
             continue
@@ -273,18 +277,64 @@ def fix_outflow(grid, fs, f, instances):
     return fs
 
 
+def plane_entries(mask, naxis):
+    """The planes normal to the axis ``naxis`` (0 = x) of the nodes of
+    ``mask`` (*S, a bool array or tensor): (lo, counts, nodes) with ``lo``
+    the lowest coordinate along the axis that holds a node, ``counts`` the
+    nodes in each plane from ``lo`` to the highest, and ``nodes`` their
+    flat indices (int64 numpy), plane by plane, ascending within a plane;
+    (0, [], empty) without a node."""
+    m = mask.cpu().numpy() if torch.is_tensor(mask) else np.asarray(mask)
+    flat = np.flatnonzero(m)
+    if flat.size == 0:
+        return 0, [], flat.astype(np.int64)
+    coord = np.unravel_index(flat, m.shape)[m.ndim - 1 - naxis]
+    lo, hi = int(coord.min()), int(coord.max())
+    order = np.argsort(coord, kind='stable')
+    counts = np.bincount(coord - lo, minlength=hi - lo + 1)
+    return lo, [int(c) for c in counts], flat[order].astype(np.int64)
+
+
+def entry_means(vals, counts):
+    """(entries, Q) means of the (Q, sum(counts)) values ``vals`` of the
+    entries' nodes, entry by entry: each entry's (Q, count) block summed
+    by ``torch.sum`` over a contiguous copy, divided by the count floored
+    at 1. The same values in the same order give the same bits, so a
+    sharded step that gathers them from its shards
+    (``parallel/halo.MeshLaminarize``) gets the unsharded means."""
+    out, pos = [], 0
+    for count in counts:
+        block = vals[:, pos:pos + count].contiguous()
+        out.append(torch.sum(block, dim=1) / float(max(count, 1)))
+        pos += count
+    return torch.stack(out) if out else vals.new_zeros((0, vals.shape[0]))
+
+
+def spread_means(means, lo, shape, naxis):
+    """The (entries, Q) ``means`` of the planes ``lo``, ``lo`` + 1, ...
+    normal to the axis ``naxis`` as a (Q, *S)-broadcastable tensor over a
+    domain of the spatial ``shape``: extent ``shape`` along that axis, 1
+    along the others, 0 at the planes without an entry."""
+    arr_axis = len(shape) - 1 - naxis
+    out_shape = [means.shape[1]] + [1] * len(shape)
+    out_shape[1 + arr_axis] = shape[arr_axis]
+    out = means.new_zeros((shape[arr_axis], means.shape[1]))
+    out[lo:lo + means.shape[0]] = means
+    return out.T.reshape(out_shape)
+
+
 def plane_means(fs, mask, naxis):
     """The mean of the distributions ``fs`` (Q, *S) over the nodes of
     ``mask`` (*S) in each plane normal to the axis ``naxis`` (0 = x), the
     count floored at 1 (``sailfish_tpu/ops/step.py:548-558``): (Q, *S)
-    with extent 1 along every other axis."""
-    arr_axis = fs.dim() - 1 - naxis
-    perp = tuple(a for a in range(1, fs.dim()) if a != arr_axis)
-    mask_f = mask.to(fs.dtype)
-    num = torch.sum(fs * mask_f[None], dim=perp, keepdim=True)
-    den = torch.sum(mask_f, dim=tuple(a - 1 for a in perp),
-                    keepdim=True)[None]
-    return num / torch.clamp(den, min=1.0)
+    with extent 1 along every other axis (``spread_means``). Each plane's
+    sum runs over its nodes' values gathered in flat order
+    (``plane_entries``, ``entry_means``), so it does not depend on the
+    extent of the domain around them."""
+    lo, counts, nodes = plane_entries(mask, naxis)
+    q = fs.shape[0]
+    vals = fs.reshape(q, -1)[:, torch.as_tensor(nodes, device=fs.device)]
+    return spread_means(entry_means(vals, counts), lo, fs.shape[1:], naxis)
 
 
 def extended_copy_gathers(grid, maps, device=None):
@@ -596,7 +646,7 @@ def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
                 force_model='guo', incompressible=False, rates=None,
                 smagorinsky=0.0, feq=None, sc_coupling=0.0,
                 sc_potential='linear', sc_rho=None, elbm=None,
-                ext_gathers=()):
+                ext_gathers=(), lam_means=None):
     """One step after the gather, in the JAX order
     (``sailfish_tpu/ops/step.py:809-825``): fix missing (with the outflow
     family and the extended copies ``ext_gathers``) -> macro -> BC solves
@@ -608,10 +658,12 @@ def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
     ``fs``: the gathered distributions; ``f``: the state they were pulled
     from; ``instances``: (cls, orientation, mask, rho_bc, vel_bc) with the
     parameters of this step (of ``SCALAR_TYPES``: the scalar in place of
-    rho_bc)."""
+    rho_bc); ``lam_means``: the laminarize plane means of a sharded step
+    (``fix_outflow``), None to compute them here."""
     feq = feq or equilibrium_fn(grid, incompressible)
     streamed = stream_phase(grid, fs, f, instances, tags=tags, tms=tms,
-                            feq=feq, ext_gathers=ext_gathers)
+                            feq=feq, ext_gathers=ext_gathers,
+                            lam_means=lam_means)
     return collide_phase(
         grid, streamed, tau_inv, instances, wet=wet, fullbb=fullbb,
         slip=slip, tms=tms, force=force, force_model=force_model,
@@ -621,14 +673,14 @@ def step_phases(grid, fs, f, tau_inv, instances=(), *, wet=None,
 
 
 def stream_phase(grid, fs, f, instances=(), *, tags=None, tms=None,
-                 feq=None, ext_gathers=()):
+                 feq=None, ext_gathers=(), lam_means=None):
     """The first phase of ``step_phases``: fix missing, then the macroscopic
     fields and the BC solves. Returns (fs, target, rho, u): the fixed
     post-stream distributions, the TMS target, and the post-stream density
     and velocity, the density being what the Shan-Chen force samples at
     the neighbours (a sharded step exchanges it before ``collide_phase``)."""
     fs, target = fix_missing(grid, fs, f, tags, tms, feq, instances,
-                             ext_gathers)
+                             ext_gathers, lam_means)
     rho, u = eq.macroscopic(grid, fs)
     rho, u = solve_macro_bc(grid, instances, fs, rho, u)
     return fs, target, rho, u
@@ -738,6 +790,11 @@ class StepBuilder:
         self.dtype = dtype
         self.device = torch.device(device)
         self.time_unit = float(time_unit)
+        #: the laminarize rows' plane means that a sharded step computed
+        #: over the whole mesh ({orientation: (Q, ...) tensor}, as
+        #: ``plane_means`` lays them out over this builder's maps), read by
+        #: its next phases in their place; None: computed from the maps
+        self.lam_means = None
         # 16-bit fixed-point distribution storage (--precision=mixed;
         # ops/mixed.py): the math stays fp32 and the step passes its
         # result through the int16 grid (``build``); the refusals and
@@ -923,7 +980,7 @@ class StepBuilder:
                            self._feq, [(cls, k, mask, self.scalar, None)
                                        for cls, k, mask in self.bc_instances
                                        if cls in FIX_TYPES],
-                           self.ext_gathers)[0]
+                           self.ext_gathers, self.lam_means)[0]
 
     def phases(self, fs, f, it=0):
         """``step_phases`` with this builder's maps, and parameters and
@@ -941,7 +998,7 @@ class StepBuilder:
             self.grid, self.gather(f) if fs is None else fs, f,
             self.instances_at(it) if instances is None else instances,
             tags=self.tags, tms=self.tms, feq=self._feq,
-            ext_gathers=self.ext_gathers)
+            ext_gathers=self.ext_gathers, lam_means=self.lam_means)
 
     def collide_phase(self, streamed, it=0, sc_rho=None, instances=None):
         """The step's second phase from ``stream_phase``'s ``streamed`` at

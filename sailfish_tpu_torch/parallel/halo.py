@@ -53,11 +53,31 @@ on two axes), the counterpart of JAX's
 ``stream_rho_edges`` (:51-107). The mixtures and the free-energy model
 shard the same way in ``parallel/halo_multi.py``.
 
+The outflow family (``ops/step.OUTFLOW_TYPES``) runs on the slab like any
+other BC row, on both engines (the JAX package's patch planes and blocks,
+``_compute_patch_padded`` :653, :823-887): a node of an outflow row reads
+its neighbours along its inward normal from the state it pulls from, and
+those reads stay in its slab's interior, or read across a sharded axis
+only the directions the ghost planes carry (a tangential read x - c_i of
+direction i, as the pull's). A row whose samples along the normal reach
+past the slab's interior (a face inside the domain at a shard boundary, or
+shards thinner than the reach: 1 plane for ``NTYuOutflow``, 2 for
+``NTNeumann`` and ``NTGuoDensity``) is refused by name
+(``outflow_reach_reasons``). The ghost planes' copies of outflow rows
+sample through the slab's wrap, and their output is thrown away with the
+rest of the ghost planes'; on a ring of one shard they are fluid nodes
+(``shard_maps``' ``unwrap``). The laminarize plane mean is a reduction over a
+plane that crosses shards: ``MeshLaminarize`` gathers the plane's pulled
+values from the shards' interiors in the unsharded order and reduces them
+as the unsharded step does (the same bits), before the shards' steps.
+Force objects read their windows from the shards' interiors
+(``ShardedStep.gather_box``).
+
 Refused by name on a mesh (``mesh_reasons``): meshes of three axes,
 Shan-Chen (single or mixture) with a BC row (JAX's Pallas engines refuse
-it, :297, :894, and on an x-sharded 2D mesh :853-858), the outflow family
-(neighbour samples along the normal, plane means), force objects and
-composite steps.
+it, :297, :894, and on an x-sharded 2D mesh :853-858), ``NTExtendedCopy``
+(its gathers read the whole domain), an outflow row whose samples reach
+past a shard's interior, and composite steps.
 """
 
 from __future__ import annotations
@@ -69,6 +89,7 @@ import ctypes
 import numpy as np
 import torch
 
+from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import step as st
 from sailfish_tpu_torch.parallel import mesh as pmesh
@@ -130,10 +151,50 @@ def region_directions(grid, two_axis=False):
     return out
 
 
-def mesh_reasons(mesh_shape, dim, builder, sim=None):
+#: how many planes along its inward normal n an outflow row's node reads
+#: beyond its own (``ops/step.fix_outflow``, ``guo_density_overlay``):
+#: ``NTYuOutflow`` f_i(x + 2n - c_i) with c_i . n = 1, ``NTNeumann`` f(x +
+#: 2n), ``NTGuoDensity`` f_i(x + n - c_i) with c_i . n = -1; the other rows
+#: read their own plane or their pull sources only
+OUTFLOW_REACH = {'NTYuOutflow': 1, 'NTNeumann': 2, 'NTGuoDensity': 2}
+
+
+def outflow_reach_reasons(mesh_shape, builder):
+    """The outflow rows of ``builder``'s scene whose samples along their
+    inward normal, an axis that a mesh of ``mesh_shape`` shards, reach
+    past a shard's interior planes (into a ghost plane, which holds only
+    the directions that cross it): one reason per row, naming it."""
+    shape = builder.maps.type_map.shape
+    dim = len(shape)
+    reasons = []
+    for cls, k, mask in builder.bc_instances:
+        reach = OUTFLOW_REACH.get(cls.__name__, 0)
+        naxis = (k - 1) // 2
+        arr_axis = dim - 1 - naxis
+        if not reach or arr_axis >= min(len(mesh_shape), 2):
+            continue
+        length = shape[arr_axis] // mesh_shape[arr_axis]
+        if length * mesh_shape[arr_axis] != shape[arr_axis]:
+            continue        # validate_divisible names it
+        sign = int(builder.grid.orientation_vectors[k - 1][naxis])
+        m = mask.cpu().numpy() if torch.is_tensor(mask) else mask
+        local = np.nonzero(m)[arr_axis] % length + reach * sign
+        if np.any((local < 0) | (local >= length)):
+            name = pmesh.axis_names(dim)[arr_axis]
+            reasons.append(
+                f'{cls.__name__} (orientation {k}) samples {reach} '
+                f'plane(s) along its inward normal, past the interior of a '
+                f'{length}-plane shard along {name} (its ghost planes hold '
+                'only the directions that cross them; the JAX package '
+                'recomputes such patch planes over the whole domain, '
+                'sailfish_tpu/parallel/halo.py:653; thicker shards, or a '
+                'face normal to an unsharded axis, run)')
+    return reasons
+
+
+def mesh_reasons(mesh_shape, dim, builder):
     """Why a run of ``builder``'s scene cannot be sharded over a mesh of
-    ``mesh_shape`` (empty when it can), each naming what JAX runs there.
-    ``sim``: the simulation, for its force objects."""
+    ``mesh_shape`` (empty when it can), each naming what JAX runs there."""
     from sailfish_tpu_torch.ops.multigrid import (
         FreeEnergyStepBuilder, ShanChenMultiStepBuilder)
     reasons = []
@@ -152,16 +213,22 @@ def mesh_reasons(mesh_shape, dim, builder, sim=None):
         # a K-component model's BC rows are its components'
         single = builder if isinstance(builder, st.StepBuilder) \
             else builder.b0
-        outflow = sorted({cls.__name__ for cls, _k, _m in
-                          single.bc_instances
-                          if cls in st.OUTFLOW_TYPES})
-        if single.ext_gathers and 'NTExtendedCopy' not in outflow:
-            outflow.append('NTExtendedCopy')
-        if outflow:
+        if single.ext_gathers or any(cls is nt.NTExtendedCopy for cls, _k,
+                                     _m in single.bc_instances):
             reasons.append(
-                'the outflow family\'s rows (' + ', '.join(outflow) + ': '
-                'neighbour samples along the normal and plane means, the '
-                'patch planes of sailfish_tpu/parallel/halo.py:653)')
+                'NTExtendedCopy rows (their gathers read the whole domain; '
+                'the JAX runner keeps them off its fused kernels, '
+                'sailfish_tpu/runner.py:346-349)')
+        reasons += outflow_reach_reasons(mesh_shape, single)
+        outflow = sorted({cls.__name__ for cls, _k, _m in
+                          single.bc_instances if cls in st.OUTFLOW_TYPES
+                          and cls is not nt.NTExtendedCopy})
+        if single is not builder and outflow:
+            reasons.append(
+                'the outflow family\'s rows (' + ', '.join(outflow) + ') in '
+                f'a K-component model ({type(builder).__name__}: its sharded '
+                'step, parallel/halo_multi.py, carries no mesh-wide plane '
+                'mean; single-fluid scenes run them on a mesh)')
     if sc and (ls.classify_nodes(builder.maps)[1] or builder.maps.dynamic):
         what = 'planes' if dim == 3 else 'blocks'
         where = '297' if dim == 3 else '894'
@@ -172,10 +239,6 @@ def mesh_reasons(mesh_shape, dim, builder, sim=None):
             'in the patch windows; use the XLA engine (the JAX package\'s '
             f'refusal, sailfish_tpu/parallel/halo.py:{where}: a BC row '
             'beside a Shan-Chen coupling)')
-    if sim is not None and getattr(sim, 'force_objects', None):
-        reasons.append(
-            'force objects (the momentum exchange of '
-            'sailfish_tpu/runner.py:423-493 over a sharded state)')
     return reasons
 
 
@@ -195,11 +258,16 @@ def take(a, rows, cols=None, axis=0):
     return np.ascontiguousarray(a)
 
 
-def shard_maps(maps, rows, cols=None):
+def shard_maps(maps, rows, cols=None, unwrap=(), ghost=1):
     """``maps`` (a ``NodeMaps``) cut to the planes ``rows`` of its
     outermost axis and, on a mesh of two axes, ``cols`` of the next;
     ``rows`` and ``cols`` are kept, so that coordinates stay global
-    (``step.map_coords``)."""
+    (``step.map_coords``). ``unwrap``: the array axes along which the mesh
+    is a ring of one shard, whose ``ghost`` planes on either side hold the
+    slab's own far planes: there the nodes of outflow-family rows become
+    fluid nodes, so that such a row stands once in the slab (its ghost
+    copies' output is thrown away in any case, and a varying row's
+    parameter box then spans its own planes only)."""
     shape = (len(rows),) + maps.type_map.shape[1:]
     if cols is not None:
         shape = shape[:1] + (len(cols),) + shape[2:]
@@ -213,6 +281,17 @@ def shard_maps(maps, rows, cols=None):
     out.extended = []
     out.rows = np.asarray(rows)
     out.cols = None if cols is None else np.asarray(cols)
+    if unwrap:
+        outflow = np.isin(out.type_map, [c.id for c in st.OUTFLOW_TYPES])
+        wrapped = np.zeros(shape, dtype=bool)
+        for a in unwrap:
+            index = [slice(None)] * len(shape)
+            for side in (slice(0, ghost), slice(shape[a] - ghost, None)):
+                index[a] = side
+                wrapped[tuple(index)] = True
+        sel = outflow & wrapped
+        out.type_map[sel] = nt._NTFluid.id
+        out.orientation[sel] = 0
     return out
 
 
@@ -431,6 +510,278 @@ def ghost_copy(parts, length, ghost=1, depth=1, indices=None, inner=None):
                                    picked.to(d.device))
 
 
+def runs(dst, src):
+    """The maximal runs over which the positions ``dst`` and the indices
+    ``src`` (equal-length int arrays) both step by one: [(dst start, src
+    start, length)]."""
+    out = []
+    for j in range(len(dst)):
+        if out and dst[j] == dst[j - 1] + 1 and src[j] == src[j - 1] + 1:
+            out[-1][2] += 1
+        else:
+            out.append([int(dst[j]), int(src[j]), 1])
+    return [tuple(r) for r in out]
+
+
+def copy_box(out, src, axis_maps):
+    """Copy into ``out`` (C, *B) from ``src`` (C, *S) along the spatial
+    axes: ``axis_maps`` per axis (positions in ``out``, indices in
+    ``src``), copied run by run (``runs``), across devices where they
+    differ."""
+    per_axis = [runs(d, s_) for d, s_ in axis_maps]
+    for combo in np.ndindex(*[len(r) for r in per_axis]):
+        to, frm = out, src
+        for a, j in enumerate(combo):
+            d0, s0, n = per_axis[a][j]
+            to = to.narrow(1 + a, d0, n)
+            frm = frm.narrow(1 + a, s0, n)
+        to.copy_(frm)
+
+
+class MeshLaminarize:
+    """The laminarize pre-pass of a sharded step (``ShardedStep.lam``):
+    the plane means of every ``NTLaminarize`` row of the whole domain, from
+    the pulled values of the shards' interior nodes, reduced in the
+    unsharded step's order so that they have its bits, then handed to each
+    shard's step.
+
+    ``rows``: per laminarize instance of the global builder (orientation
+    k), (k, normal axis, lowest coordinate, nodes per plane, the nodes'
+    global flat indices plane by plane: ``step.plane_entries``). Per shard
+    and row, ``pos`` (the places of the shard's interior nodes in the row's
+    node list) and ``pull`` (the flat slab indices of each node's Q pull
+    sources, (Q, nodes)). The plain version (``means``: gather the pulled
+    values in the unsharded order onto the first shard's device, then
+    ``step.entry_means``, the unsharded torch step's reduction) feeds the
+    torch engine (``spread``) and, on CPU tensors, the kernel engine's plain
+    version (``plain_into``: each shard kernel's ``lam.mean``). On CUDA
+    the kernel engine runs ``laminarize_mean_ghost_<grid>``
+    (``csrc/lbm_step.cu``): one launch per step on the first shard's
+    device, one block per plane reading the shards' slabs (peer reads
+    across GPUs) in the unsharded order, as ``laminarize_mean_<grid>``
+    does on one device, and writing each mean into the entries of every
+    shard that reads the plane."""
+
+    def __init__(self, stepper):
+        self.stepper = stepper
+        builder = stepper.builder
+        self.grid = grid = builder.grid
+        shape = builder.maps.type_map.shape
+        self.dim = dim = len(shape)
+        self.rows = []
+        for cls, k, mask in builder.bc_instances:
+            if cls is nt.NTLaminarize:
+                self.rows.append((k, (k - 1) // 2)
+                                 + st.plane_entries(mask, (k - 1) // 2))
+        g = stepper.ghost
+        n_sharded = len(stepper.counts)
+        self.devices = list(stepper.mesh.devices)
+        self.dev0 = torch.device(self.devices[0])
+        lens = [stepper.length] + \
+            ([stepper.inner[1]] if n_sharded == 2 else [])
+        #: a slab's spatial shape, ghost planes included (every shard's)
+        self.slab_shape = slab = tuple(n + 2 * g for n in lens) \
+            + tuple(shape[n_sharded:])
+        #: per shard, per row: the places of its interior nodes in the
+        #: row's node list (on the first shard's device), their flat slab
+        #: indices, and their Q pull sources there (on the shard's device)
+        self.pos, self.local, self.pull = [], [], []
+        for s in range(stepper.mesh.size):
+            offs = [stepper.rows[s][g]] + \
+                ([stepper.cols[s][g]] if n_sharded == 2 else [])
+            pos_s, local_s, pull_s = [], [], []
+            for _k, _ax, _lo, _counts, nodes in self.rows:
+                coords = list(np.unravel_index(nodes, shape))
+                inside = np.ones(nodes.size, dtype=bool)
+                for a in range(n_sharded):
+                    inside &= (coords[a] >= offs[a]) \
+                        & (coords[a] < offs[a] + lens[a])
+                lc = [c[inside] for c in coords]
+                for a in range(n_sharded):
+                    lc[a] = lc[a] - offs[a] + g
+                local = np.ravel_multi_index(lc, slab) if lc[0].size \
+                    else np.zeros(0, dtype=np.int64)
+                pull = np.stack([np.ravel_multi_index(
+                    [(lc[a] - int(grid.basis[i][dim - 1 - a])) % slab[a]
+                     for a in range(dim)], slab) if lc[0].size
+                    else np.zeros(0, dtype=np.int64)
+                    for i in range(grid.Q)])
+                dev = self.devices[s]
+                pos_s.append(torch.as_tensor(np.flatnonzero(inside),
+                                             device=self.dev0))
+                local_s.append(local.astype(np.int64))
+                pull_s.append(torch.as_tensor(pull.astype(np.int64),
+                                              device=dev))
+            self.pos.append(pos_s)
+            self.local.append(local_s)
+            self.pull.append(pull_s)
+        #: the global entries: the rows' planes in row order, and each
+        #: row's first entry
+        self.first = np.cumsum([0] + [len(r[3]) for r in self.rows])
+        self.entries = int(self.first[-1])
+        self._kernel = None
+
+    # -- the plain version -----------------------------------------------
+
+    def means(self, parts):
+        """The (entries, Q) plane means of every row, row after row, from
+        the shards' slabs ``parts``, on the first shard's device: the
+        pulled values of each row's nodes gathered in the unsharded order,
+        then ``step.entry_means``."""
+        q = self.grid.Q
+        out = []
+        for r, (_k, _ax, _lo, counts, nodes) in enumerate(self.rows):
+            vals = torch.zeros((q, nodes.size), dtype=parts[0].dtype,
+                               device=self.dev0)
+            for s, part in enumerate(parts):
+                if self.pos[s][r].numel():
+                    v = torch.gather(part.reshape(q, -1), 1, self.pull[s][r])
+                    vals.index_copy_(1, self.pos[s][r], v.to(self.dev0))
+            out.append(st.entry_means(vals, counts))
+        return torch.cat(out)
+
+    def _index(self, s, k, coords):
+        """The global entries of the planes at the slab coordinates
+        ``coords`` of shard ``s`` along row ``k``'s normal (-1 where the
+        row has no plane there)."""
+        r = next(j for j, row in enumerate(self.rows) if row[0] == k)
+        _k, naxis, lo, counts, _nodes = self.rows[r]
+        arr_axis = self.dim - 1 - naxis
+        stp = self.stepper
+        glob = np.asarray(coords)
+        if arr_axis == 0:
+            glob = stp.rows[s][glob]
+        elif arr_axis == 1 and stp.inner is not None:
+            glob = stp.cols[s][glob]
+        rel = glob - lo
+        return np.where((rel >= 0) & (rel < len(counts)),
+                        self.first[r] + rel, -1)
+
+    def spread(self, s, builder, means):
+        """The torch engine's ``lam_means`` of shard ``s`` (its
+        ``builder``) from the global ``means``: {orientation: (Q, ...)
+        tensor over the slab}, 0 at the planes the row lacks."""
+        out = {}
+        padded = torch.cat([means, means.new_zeros((1, means.shape[1]))])
+        shape = builder.maps.type_map.shape
+        for cls, k, _mask in builder.bc_instances:
+            if cls is not nt.NTLaminarize:
+                continue
+            naxis = (k - 1) // 2
+            arr_axis = self.dim - 1 - naxis
+            idx = self._index(s, k, np.arange(shape[arr_axis]))
+            sel = torch.as_tensor(np.where(idx < 0, self.entries, idx),
+                                  device=means.device)
+            out[k] = st.spread_means(padded.index_select(0, sel), 0, shape,
+                                     naxis).to(builder.device)
+        return out
+
+    def shard_entries(self, s, ks):
+        """The global entry of each entry of shard ``s``'s kernel ``ks``
+        (its ``lam`` spans; -1 where the row has no plane there)."""
+        out = np.full(ks.lam.mean.shape[0], -1, dtype=np.int64)
+        for j, lo, count in ks.lam.spans:
+            e = ks.params.out.lam_entry[j]
+            out[e:e + count] = self._index(
+                s, ks.table[j].orientation, np.arange(lo, lo + count))
+        return out
+
+    def plain_into(self, parts, kernels):
+        """The plain version of the mesh pre-pass: ``means`` of ``parts``
+        written into each shard kernel's ``lam.mean`` (0 where its plane
+        has no global entry: a ghost copy's)."""
+        means = self.means(parts)
+        padded = torch.cat([means, means.new_zeros((1, means.shape[1]))])
+        for s, ks in enumerate(kernels):
+            if ks.lam is None:
+                continue        # the shard holds no laminarize node
+            idx = self.shard_entries(s, ks)
+            sel = torch.as_tensor(np.where(idx < 0, self.entries, idx),
+                                  device=means.device)
+            ks.lam.mean.copy_(padded.index_select(0, sel))
+
+    # -- the kernel ------------------------------------------------------
+
+    def _kernel_arrays(self, kernels):
+        """The launch's device arrays on the first shard's device: the
+        nodes coded shard * (slab nodes) + flat index, entry by entry, and
+        their offsets; the destinations (each shard entry's address in its
+        ``lam.mean``) per global entry, and their offsets."""
+        q = self.grid.Q
+        slab_n = int(np.prod(self.slab_shape))
+        codes, start = [], [0]
+        for r, (_k, _ax, _lo, counts, nodes) in enumerate(self.rows):
+            code = np.zeros(nodes.size, dtype=np.int64)
+            for s in range(len(kernels)):
+                pos = self.pos[s][r].cpu().numpy()
+                code[pos] = s * slab_n + self.local[s][r]
+            codes.append(code)
+            for c in counts:
+                start.append(start[-1] + c)
+        dst = [[] for _ in range(self.entries)]
+        for s, ks in enumerate(kernels):
+            if ks.lam is None:
+                continue
+            base = ks.lam.mean.data_ptr()
+            for e, g in enumerate(self.shard_entries(s, ks)):
+                if g >= 0:
+                    dst[g].append(base + 4 * q * e)
+        dst_start = np.cumsum([0] + [len(d) for d in dst])
+        flat = [a for d in dst for a in d]
+
+        def dev(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype=dtype),
+                                   device=self.dev0)
+
+        return (dev(np.concatenate(codes), np.int64), dev(start, np.int32),
+                dev(np.asarray(flat or [0], dtype=np.uint64).view(np.int64),
+                    np.int64), dev(dst_start, np.int32))
+
+    def launch(self, parts, kernels, name):
+        """``laminarize_mean_ghost_<grid>`` on the first shard's device
+        over the shards' buffers ``parts`` (CUDA), after the work the
+        other devices queued; the shards' next steps wait for it. Counted
+        in ``lbm_step.LAUNCHES[name]``."""
+        stp = self.stepper
+        if self._kernel is None:
+            from sailfish_tpu_torch.ops import build
+            fn = ls.laminarize_ghost_function(
+                build.load(ls.OUTFLOW_LIBRARY).lib, self.grid.name)
+            stp._load_exchange()
+            for d in dict.fromkeys(self.devices):
+                if d != self.dev0:
+                    for a, b in ((self.dev0, d), (d, self.dev0)):
+                        rc = stp._peer_fn(a.index, b.index)
+                        if rc != 0:
+                            raise RuntimeError(
+                                f'{name}: {a} cannot reach {b} (peer '
+                                f'access, error {rc})')
+            self._kernel = (fn, self._kernel_arrays(kernels), {})
+        fn, (codes, start, dst, dst_start), ptr_cache = self._kernel
+        key = tuple(p.data_ptr() for p in parts)
+        if key not in ptr_cache:
+            ptr_cache.clear()
+            ptr_cache[key] = torch.as_tensor(
+                np.asarray(key, dtype=np.uint64).view(np.int64),
+                device=self.dev0)
+        others = [d for d in dict.fromkeys(self.devices) if d != self.dev0]
+        stream = torch.cuda.current_stream(self.dev0)
+        for d in others:
+            stream.wait_event(torch.cuda.current_stream(d).record_event())
+        with torch.cuda.device(self.dev0):
+            rc = fn(ptr_cache[key].data_ptr(), codes.data_ptr(),
+                    start.data_ptr(), self.entries, dst.data_ptr(),
+                    dst_start.data_ptr(), ctypes.byref(kernels[0].params),
+                    stream.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
+        if others:
+            done = stream.record_event()
+            for d in others:
+                torch.cuda.current_stream(d).wait_event(done)
+        ls.LAUNCHES[name] += 1
+
+
 class ShardedStep:
     """The sharded step of a single-fluid ``StepBuilder`` scene over a
     mesh of one axis (z of a 3D domain, y of a 2D one: ``axis_name``) or
@@ -452,15 +803,18 @@ class ShardedStep:
     single-component Shan-Chen (``sc``) each step is the shards' density
     pre-passes, the density exchange
     (``density_exchange``, counted in ``rho_exchanges`` and under
-    ``rho_name``), the shards' steps and the exchange."""
+    ``rho_name``), the shards' steps and the exchange; with a laminarize
+    row the mesh pre-pass (``lam``, ``lam_prepass``) comes first."""
 
     #: ghost planes on each side of a slab
     ghost = 1
 
     def __init__(self, builder, domain_shape, mesh, engine='torch'):
         self._setup(builder, domain_shape, mesh, engine)
+        unwrap = [a for a, c in enumerate(self.counts) if c == 1]
         self.builders = [
-            shard_builder(builder, shard_maps(builder.maps, rows, cols), d)
+            shard_builder(builder, shard_maps(builder.maps, rows, cols,
+                                              unwrap, self.ghost), d)
             for rows, cols, d in zip(self.rows, self.cols, mesh.devices)]
         self.sc = builder.sc_coupling != 0.0
         self.kernels = None
@@ -476,6 +830,11 @@ class ShardedStep:
             self.mixed = builder.mixed
         elif not self.sc:
             self.steps = [b.build() for b in self.builders]
+        if any(cls is nt.NTLaminarize for cls, _k, _m in
+               builder.bc_instances):
+            self.lam = MeshLaminarize(self)
+            for ks in self.kernels or ():
+                ks.mesh_means = True
 
     def _setup(self, builder, domain_shape, mesh, engine):
         """The checks and the layout shared with the K-component step:
@@ -533,6 +892,11 @@ class ShardedStep:
         self.rho_name = f'halo_rho_{edge}exchange_{g}'
         self.exchanges = 0
         self.rho_exchanges = 0
+        #: the laminarize pre-pass over the mesh (``MeshLaminarize``), or
+        #: None without a laminarize row; its launches count as
+        #: ``lam_name`` in ``lbm_step.LAUNCHES``
+        self.lam = None
+        self.lam_name = f'laminarize_mean_ghost_{g}'
         self._index = {}
         self._fn = None
         self._peer_fn = None
@@ -567,6 +931,36 @@ class ShardedStep:
             t = t.narrow(axis + 1, self.ghost, self.inner[1])
         return t
 
+    def gather_box(self, state, idx, component=0):
+        """The block of the global state at the global coordinates ``idx``
+        (one int array per spatial axis, outer to inner; periodic indices
+        may wrap), a (Q, *lengths) tensor on the first shard's device,
+        copied from the shards' interiors: no global copy of the state
+        (the windows of force objects). A K-tuple state gives its
+        ``component``."""
+        parts = [p if torch.is_tensor(p) else p[component]
+                 for p in state.parts]
+        first = parts[0]
+        out = torch.empty((first.shape[0],) + tuple(len(i) for i in idx),
+                          dtype=first.dtype, device=first.device)
+        g = self.ghost
+        n_sharded = len(self.counts)
+        for s, part in enumerate(parts):
+            maps = []
+            for a, glob in enumerate(idx):
+                glob = np.asarray(glob)
+                pos = np.arange(glob.size)
+                if a < n_sharded:
+                    rows = self.rows[s] if a == 0 else self.cols[s]
+                    length = self.length if a == 0 else self.inner[1]
+                    off = int(rows[g])
+                    keep = (glob >= off) & (glob < off + length)
+                    pos, glob = pos[keep], glob[keep] - off + g
+                maps.append((pos, glob))
+            if all(m[0].size for m in maps):
+                copy_box(out, part, maps)
+        return out
+
     def is_finite(self, state):
         """Whether every value of the shards' slabs is finite."""
         return all(bool(torch.isfinite(self.interior(f)).all())
@@ -583,6 +977,14 @@ class ShardedStep:
                 region: torch.as_tensor(d, dtype=torch.long, device=device)
                 for region, d in self.regions.items()}
         return self._index[key]
+
+    def _load_exchange(self):
+        """Bind ``halo_exchange`` and ``halo_enable_peer`` (``_fn``,
+        ``_peer_fn``) of the built ``csrc/halo.cu``."""
+        if self._fn is None:
+            from sailfish_tpu_torch.ops import build
+            self._fn, self._peer_fn = exchange_functions(
+                build.load('halo').lib)
 
     def exchange_reference(self, parts):
         """The exchange as PyTorch index copies (the plain version): ghost
@@ -698,10 +1100,7 @@ class ShardedStep:
                     f'{self.name}: every shard buffer a contiguous CUDA '
                     f'tensor of one shape and dtype; got {b.device} '
                     f'{tuple(b.shape)} {b.dtype}')
-        if self._fn is None:
-            from sailfish_tpu_torch.ops import build
-            self._fn, self._peer_fn = exchange_functions(
-                build.load('halo').lib)
+        self._load_exchange()
         size = first.element_size()
         inner = None if self.inner is None else \
             self.inner + (self.row_nodes * size, regions)
@@ -744,6 +1143,10 @@ class ShardedStep:
         """The torch engine's step of the shards ``parts`` at iteration
         ``it``, before the exchange; under Shan-Chen its two phases with
         the density exchange between them."""
+        if self.lam is not None:
+            means = self.lam.means(parts)
+            for s, b in enumerate(self.builders):
+                b.lam_means = self.lam.spread(s, b, means)
         if not self.sc:
             return [step(p, it) for step, p in zip(self.steps, parts)]
         streamed = [b.stream_phase(p, it)
@@ -788,12 +1191,25 @@ class ShardedStep:
                     with on_device(src.device):
                         ks.density_into(src, ks.rho)
                 self.density_exchange([ks.rho for ks in self.kernels])
+            if self.lam is not None:
+                self.lam_prepass(cur)
             for ks, src, dst in zip(self.kernels, cur, nxt):
                 with on_device(src.device):
                     ks.collide_into(src, dst, it0 + i)
             self.exchange(nxt)
             cur = nxt
         return Sharded(cur)
+
+    def lam_prepass(self, parts):
+        """The laminarize plane means over the mesh from the shards' states
+        ``parts`` into the shard kernels' ``lam.mean``: one
+        ``laminarize_mean_ghost_<grid>`` launch (counted as ``lam_name``)
+        on CUDA shards, its plain version (``MeshLaminarize.plain_into``)
+        on the CPU."""
+        if self._on_kernels(parts):
+            self.lam.launch(parts, self.kernels, self.lam_name)
+        else:
+            self.lam.plain_into(parts, self.kernels)
 
     def reference(self, state, it=0):
         """Step ``it`` of the kernel engine's plain version from ``state``
@@ -802,6 +1218,8 @@ class ShardedStep:
         then ``exchange_reference``; returns a new ``Sharded`` state."""
         from sailfish_tpu_torch.ops import sc_multi
         parts = self.as_sharded(state).parts
+        if self.lam is not None:
+            self.lam.plain_into(parts, self.kernels)
         rhos = [None] * len(parts)
         if self.sc:
             rhos = [sc_multi.rho_reference(p, self.grid) for p in parts]
@@ -816,7 +1234,12 @@ class ShardedStep:
     def macro_fields(self, state, it=0):
         """(rho, u) of a ``Sharded`` state as the global builder's
         ``macro_fields`` gives them, computed per shard on the device and
-        gathered on the first shard's device."""
+        gathered on the first shard's device (with a laminarize row after
+        the mesh's plane means)."""
+        if self.lam is not None:
+            means = self.lam.means(state.parts)
+            for s, b in enumerate(self.builders):
+                b.lam_means = self.lam.spread(s, b, means)
         rho, u = zip(*(b.macro_fields(p, it)
                        for b, p in zip(self.builders, state.parts)))
         return (pmesh.gather(rho, axis=0, ghost=1, counts=self.counts),

@@ -41,9 +41,13 @@ and for the couplings the density exchange between the pre-pass and the
 step); the state then lives in ``Sharded`` slabs, and ``f`` is their
 global gather (checkpoints with every component, output, hooks and the
 scene's own hooks see the global state, in the layout of an unsharded
-run). What cannot be sharded is refused by name
+run). The outflow family runs on a mesh (its laminarize plane means
+over the whole mesh, ``parallel/halo.MeshLaminarize``), and force objects
+read their windows from the shards (``ShardedStep.gather_box``), both with
+the unsharded run's bits. What cannot be sharded is refused by name
 (``parallel/halo.mesh_reasons``: meshes of three axes, Shan-Chen with a
-BC row, the outflow family, force objects, composite steps).
+BC row, ``NTExtendedCopy``, an outflow row whose samples reach past a
+shard's interior, composite steps).
 """
 
 from __future__ import annotations
@@ -138,8 +142,7 @@ class SubdomainRunner:
                                        self.sim.dim)
         if shape is None:
             return None
-        reasons = halo.mesh_reasons(shape, self.sim.dim, self.builder,
-                                    self.sim)
+        reasons = halo.mesh_reasons(shape, self.sim.dim, self.builder)
         if reasons:
             raise NotImplementedError(
                 'not ported to sailfish_tpu_torch on a mesh (--mesh) yet: '
@@ -302,17 +305,20 @@ class SubdomainRunner:
         (``sailfish_tpu/runner.py:423-483``): in the object's bounding box
         widened by one node (cut at the domain), for each direction i the
         (window-shaped) mask of the links from a wet node x_f to a dry
-        node x_f + c_i, as device tensors."""
+        node x_f + c_i, as device tensors (``_force_specs``: (window,
+        links) per object); and the global coordinates of the window
+        widened by one more node on every side (periodic), the block
+        ``update_force_objects`` reads (``_force_boxes``)."""
         self._force_specs = []
+        self._force_boxes = []
         if not self.sim.force_objects:
             return
         from sailfish_tpu_torch import node_type as nt
         g = self.sim.grid
         m = self.maps
         dim = self.sim.dim
-        solid = torch.as_tensor(~np.isin(
-            m.type_map, [t for t in m.present_types
-                         if nt.get_node_type(t).wet_node]))
+        wet_types = [t for t in m.present_types
+                     if nt.get_node_type(t).wet_node]
         shape = m.type_map.shape
         for fo in self.sim.force_objects:
             # the box in (x, y[, z]); the array axes are (.., z, y, x)
@@ -320,15 +326,36 @@ class SubdomainRunner:
                 slice(max(lo - 1, 0), min(hi + 2, n))
                 for lo, hi, n in zip(reversed(fo.start), reversed(fo.end),
                                      shape))
+            idx = [np.arange(w.start - 1, w.stop + 1) % n
+                   for w, n in zip(window, shape)]
+            # dry nodes over the window widened by one node (periodic):
+            # the window's nodes and their neighbours x + c_i
+            solid = torch.as_tensor(~np.isin(m.type_map[np.ix_(*idx)],
+                                             wet_types))
+            inner = tuple(slice(1, len(i) - 1) for i in idx)
             links = []
             for i in range(1, g.Q):
-                # solid at x + c_i, periodic, over the window only
-                neigh = window_shifted(solid, window, tuple(
-                    int(g.basis[i][dim - 1 - ax]) for ax in range(dim)))
-                link = ~solid[window] & neigh
+                c = [int(g.basis[i][dim - 1 - ax]) for ax in range(dim)]
+                neigh = solid[tuple(slice(1 + ca, len(ia) - 1 + ca)
+                                    for ca, ia in zip(c, idx))]
+                link = ~solid[inner] & neigh
                 if link.any():
                     links.append((i, link.to(self.device)))
             self._force_specs.append((window, links))
+            self._force_boxes.append(idx)
+
+    def _force_block(self, idx):
+        """The state over the global coordinates ``idx`` (one array per
+        axis), (Q, *lengths): on a mesh copied from the shards' interiors
+        (``ShardedStep.gather_box``: no global gather), else from ``f``."""
+        if self.stepper is not None:
+            return self.stepper.gather_box(self._sharded, idx)
+        from sailfish_tpu_torch.parallel.halo import copy_box
+        f = st.leaves(self.f)[0]
+        out = torch.empty((f.shape[0],) + tuple(len(i) for i in idx),
+                          dtype=f.dtype, device=f.device)
+        copy_box(out, f, [(np.arange(len(i)), i) for i in idx])
+        return out
 
     def update_force_objects(self):
         """Each force object's momentum exchange on the post-collision
@@ -337,19 +364,25 @@ class SubdomainRunner:
         link direction on the device, in fp32 as the JAX runner sums them,
         the sums brought to the host together and F accumulated over the
         directions in their order in fp32; the result is the object's
-        ``force()``. Nothing without force objects."""
+        ``force()``. Each object reads only the block of its window widened
+        by one node (``_force_block``), on a mesh too, so a sharded run's
+        forces have the unsharded run's bits. Nothing without force
+        objects."""
         if not getattr(self, '_force_specs', None):
             return
         g = self.sim.grid
         dim = self.sim.dim
-        f = st.leaves(self.f)[0]
         sums = []
-        for window, links in self._force_specs:
+        for (_window, links), idx in zip(self._force_specs,
+                                         self._force_boxes):
+            block = self._force_block(idx)
+            inner = tuple(slice(1, len(i) - 1) for i in idx)
             for i, link in links:
                 o = int(g.opposite[i])
-                f_in = window_shifted(f[o], window, tuple(
-                    int(g.basis[i][dim - 1 - ax]) for ax in range(dim)))
-                sums.append(torch.where(link, f[i][window] + f_in,
+                c = [int(g.basis[i][dim - 1 - ax]) for ax in range(dim)]
+                f_in = block[o][tuple(slice(1 + ca, len(ia) - 1 + ca)
+                                      for ca, ia in zip(c, idx))]
+                sums.append(torch.where(link, block[i][inner] + f_in,
                                         0.0).sum())
         sums = torch.stack(sums).cpu().numpy() if sums else []
         k = 0

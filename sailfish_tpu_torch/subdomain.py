@@ -169,12 +169,16 @@ class Subdomain:
         return self.shape[-3]
 
     def _get_mgrid(self):
-        """Global coordinate arrays, ordered (hx, hy[, hz]) for the user."""
-        if self.dim == 2:
-            hy, hx = np.mgrid[0:self.gy, 0:self.gx]
-            return hx, hy
-        hz, hy, hx = np.mgrid[0:self.gz, 0:self.gy, 0:self.gx]
-        return hx, hy, hz
+        """Global coordinate arrays, ordered (hx, hy[, hz]) for the user:
+        the values of ``np.mgrid`` over the domain, as read-only
+        broadcast views of one coordinate vector each (no copy of the
+        domain's size is made; a scene computes from them as from the
+        full arrays)."""
+        shape = self.shape
+        return tuple(np.broadcast_to(
+            np.arange(n).reshape([-1 if a == axis else 1
+                                  for a in range(len(shape))]), shape)
+            for axis, n in reversed(list(enumerate(shape))))
 
     # -- node setting (reference subdomain.py:532-592) ----------------------
 

@@ -181,6 +181,17 @@ int16 buffers, K = 1-3, one and two ghost layers, on 2x2 and 1x4 (3D),
 2x2 and 1x2 / 1x4 (2D); the controller's runs over 2x2 and 1x4 shards on
 the card equal the unsharded kernel run bit for bit; and over four GPUs
 as a 2x2 mesh (one shard per GPU, skipped below four) too.
+
+The outflow family on a mesh: each kernel-borne outflow type on its
+channel, flowing along a sharded axis and across it, over 2 / 1x2 and 2x2
+shards on the card: the shards' ``lbm_step_ghost_outflow_<grid>``
+launches (after the laminarize pre-pass over the mesh,
+``laminarize_mean_ghost_<grid>``) within 1e-6 of the sharded step's plain
+version for one step and 1e-5 for 50, and the controller's run the
+unsharded kernel run's bits; the mesh pre-pass within 1e-6 of its plain
+version and equal to the unsharded ``laminarize_mean_<grid>`` bit for bit;
+the open channels' state and drag series over 2 and 2x2 shards the
+unsharded run's bits; with shards on two or four GPUs too where there are.
 """
 
 import ctypes
@@ -2376,3 +2387,151 @@ def test_two_axis_shards_on_four_gpus_equal_the_unsharded_kernel(cuda,
     assert all(torch.equal(a.to(b.device), b)
                for a, b in zip(leaves(r.f), leaves(ref.f)))
     assert _edge_exchanges(stp) == (True, True)
+
+
+# -- the outflow family, the laminarize plane mean and force objects on a
+# -- mesh (the ghost-plane outflow mode; laminarize_mean_ghost_<grid>)
+
+#: the meshes of the outflow card tests per (dimension, flow axis): along
+#: the sharded axis and across it, one axis and two
+OUTFLOW_MESHES = {(3, 'z'): ('2', '2x2'), (3, 'x'): ('2', '2x2'),
+                  (2, 'y'): ('2', '2x2'), (2, 'x'): ('1x2', '2x2')}
+
+
+def _outflow_mesh_run(kind, where, mesh, devices=None, **cfg):
+    from sailfish_tpu_torch.parallel import mesh as pmesh
+    dim, axis = where
+    with pmesh.devices_override(devices or ['cuda'] * 4):
+        return run(outflow_channel(kind, dim, axis), platform='cuda',
+                   mesh=mesh, **OUTFLOW_SIZES[where], **cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('where,mesh', [(w, m) for w in sorted(OUTFLOW_MESHES)
+                                        for m in OUTFLOW_MESHES[w]])
+@pytest.mark.parametrize('kind', [k for k in KERNEL_OUTFLOW_KINDS
+                                  if k != 'NTGradFreeflow'])
+def test_ghost_outflow_mode_matches_its_plain_version(cuda, kind, where,
+                                                      mesh):
+    """The shards' ``lbm_step_ghost_outflow_<grid>`` launches (after the
+    mesh pre-pass with a laminarize row) from a random state against the
+    sharded step's plain version: one step within 1e-6, 50 within 1e-5 on
+    the wet nodes; then 40 steps through the controller, the unsharded
+    kernel run's bits, one ghost launch per shard holding an outflow row
+    and step, and one exchange per step."""
+    from sailfish_tpu_torch.parallel import halo
+    r = _outflow_mesh_run(kind, where, mesh, max_iters=0)
+    stp = r.stepper
+    g = r.sim.grid.name.lower()
+    f0 = random_feq(r.sim.grid, r._domain_shape(), seed=3, device='cuda')
+    wet = torch.as_tensor(wet_map(r.maps), device='cuda')
+    one = stp.gather(stp.run(f0, 1))
+    ref = stp.gather(stp.reference(f0))
+    assert float((one - ref)[:, wet].abs().max()) <= 1e-6
+    fk = stp.gather(stp.run(f0, 50))
+    s = stp.shard(f0)
+    for _ in range(50):
+        s = stp.reference(s)
+    torch.cuda.synchronize()
+    assert float((fk - stp.gather(s))[:, wet].abs().max()) <= 1e-5
+    ref = run(outflow_channel(kind, *where), platform='cuda', max_iters=40,
+              every=20, **OUTFLOW_SIZES[where])
+    ls.reset_launch_counts()
+    halo.reset_launch_counts()
+    r = _outflow_mesh_run(kind, where, mesh, max_iters=40, every=20)
+    torch.cuda.synchronize()
+    stp = r.stepper
+    outflow = [ks for ks in stp.kernels if ks.outflow]
+    assert outflow and all(ks.name == f'lbm_step_ghost_outflow_{g}'
+                           for ks in outflow)
+    assert ls.LAUNCHES[f'lbm_step_ghost_outflow_{g}'] == 40 * len(outflow)
+    assert ls.LAUNCHES[stp.lam_name] == (40 if kind == 'NTLaminarize'
+                                         else 0)
+    assert sum(halo.LAUNCHES.values()) == 40 == stp.exchanges
+    assert torch.equal(r.f, ref.f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('where,mesh', [((2, 'y'), '2'), ((2, 'x'), '2x2'),
+                                        ((3, 'z'), '2'), ((3, 'x'), '2x2')])
+def test_laminarize_mesh_prepass_matches_its_plain_version(cuda, where,
+                                                          mesh):
+    """``laminarize_mean_ghost_<grid>``: one launch writes every shard
+    kernel's plane means; they equal the plain version's within 1e-6 and
+    the unsharded ``laminarize_mean_<grid>``'s bit for bit."""
+    r = _outflow_mesh_run('NTLaminarize', where, mesh, max_iters=0)
+    stp = r.stepper
+    f0 = random_feq(r.sim.grid, r._domain_shape(), seed=5, device='cuda')
+    parts = stp.shard(f0).parts
+    ls.reset_launch_counts()
+    stp.lam_prepass(parts)
+    torch.cuda.synchronize()
+    assert ls.LAUNCHES[stp.lam_name] == 1 == sum(ls.LAUNCHES.values())
+    got = [ks.lam.mean.clone() if ks.lam is not None else None
+           for ks in stp.kernels]
+    stp.lam.plain_into(parts, stp.kernels)
+    flat = run(outflow_channel('NTLaminarize', *where), platform='cuda',
+               max_iters=0, **OUTFLOW_SIZES[where]).kernel
+    mean = torch.empty_like(flat.lam.mean)
+    flat.mean_into(f0, mean)
+    padded = torch.cat([mean, mean.new_zeros((1, mean.shape[1]))])
+    for s, (ks, m) in enumerate(zip(stp.kernels, got)):
+        if ks.lam is None:
+            continue
+        assert float((m - ks.lam.mean).abs().max()) <= 1e-6
+        idx = stp.lam.shard_entries(s, ks)
+        inside = torch.as_tensor(idx >= 0, device='cuda')
+        want = padded[torch.as_tensor(np.where(idx < 0, -1, idx),
+                                      device='cuda')]
+        assert torch.equal(m[inside], want[inside])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mesh', ['2', '2x2'])
+@pytest.mark.parametrize('dim', [3, 2])
+def test_open_channel_shards_on_one_card(cuda, dim, mesh):
+    """The open channel with its force object over the mesh on one card:
+    the unsharded kernel run's state and drag series, bit for bit."""
+    from sailfish_tpu_torch.parallel import mesh as pmesh
+    size = dict(lat_nx=96, lat_ny=32, lat_nz=32) if dim == 3 else \
+        dict(lat_nx=384, lat_ny=96)
+    cfg = dict(platform='cuda', max_iters=60, every=20, **size)
+    ref = run(open_channel(dim), **cfg)
+    with pmesh.devices_override(['cuda'] * 4):
+        r = run(open_channel(dim), mesh=mesh, **cfg)
+    assert r.kernel is r.stepper
+    assert torch.equal(r.f, ref.f)
+    assert [(it, tuple(F)) for it, F in r.sim.drag] == \
+        [(it, tuple(F)) for it, F in ref.sim.drag]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['open_sphere_3d', 'laminarize_2d'])
+def test_outflow_shards_on_several_gpus(cuda, scene):
+    """One shard per visible GPU (two or four), then 2x2 on four: the
+    unsharded kernel run's state (and drag series) bit for bit, the
+    laminarize pre-pass reading its planes across GPUs."""
+    from sailfish_tpu_torch.parallel import mesh as pmesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip('needs two or more CUDA devices')
+    if scene == 'open_sphere_3d':
+        make = (lambda: open_channel(3))
+        size = dict(lat_nx=96, lat_ny=32, lat_nz=32)
+    else:
+        make = (lambda: outflow_channel('NTLaminarize', 2, 'x'))
+        size = dict(lat_nx=384, lat_ny=96)
+    cfg = dict(platform='cuda', max_iters=40, every=20, **size)
+    ref = run(make(), **cfg)
+    meshes = [str(max(k for k in (2, 4) if k <= n))] + \
+        (['2x2'] if n >= 4 else [])
+    for mesh in meshes:
+        k = int(np.prod([int(c) for c in mesh.split('x')]))
+        with pmesh.devices_override([f'cuda:{i}' for i in range(k)]):
+            r = run(make(), mesh=mesh, **cfg)
+        assert [ks.a.device.index for ks in r.stepper.kernels] == \
+            list(range(k))
+        assert torch.equal(r.f.to(ref.f.device), ref.f), mesh
+        if hasattr(ref.sim, 'drag'):
+            assert [tuple(F) for _i, F in r.sim.drag] == \
+                [tuple(F) for _i, F in ref.sim.drag]

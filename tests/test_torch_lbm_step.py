@@ -304,9 +304,9 @@ def test_kernel_function_checks_the_params_size():
     # all but the Shan-Chen mode, whose pre-pass counts apart too, the
     # int16 state's mode and the outflow rows, whose laminarize pre-pass
     # counts apart too; a launch on a shard's ghost-plane buffers counts
-    # under its kind with ghost_ after lbm_step_ (no outflow kind: it is
-    # refused on a mesh), the Shan-Chen pre-pass of a shard with ghost_
-    # after nk1_
+    # under its kind with ghost_ after lbm_step_, the Shan-Chen pre-pass of
+    # a shard with ghost_ after nk1_, the laminarize pre-pass over a mesh
+    # with ghost_ after mean_
     assert sorted(ls.LAUNCHES) == sorted(['lbm_step_d2q9', 'lbm_step_d3q19',
                                    'lbm_step_dyn_d2q9',
                                    'lbm_step_dyn_d3q19',
@@ -326,6 +326,8 @@ def test_kernel_function_checks_the_params_size():
                                    'lbm_step_outflow_d3q19',
                                    'laminarize_mean_d2q9',
                                    'laminarize_mean_d3q19',
+                                   'laminarize_mean_ghost_d2q9',
+                                   'laminarize_mean_ghost_d3q19',
                                    'lbm_step_sc_d2q9',
                                    'lbm_step_sc_d3q19',
                                    'lbm_step_sw_d2q9',
@@ -342,7 +344,8 @@ def test_kernel_function_checks_the_params_size():
         for kind in ('', 'dyn_', 'force_', 'incomp_', 'vary_', 'wall_')] + [
         f'lbm_step_ghost_{kind}{g}' for g in ('d2q9', 'd3q19')
         for kind in ('', 'dyn_', 'elbm_', 'force_', 'incomp_', 'les_',
-                     'mixed_', 'mrt_', 'sc_', 'sw_', 'vary_', 'wall_')] + [
+                     'mixed_', 'mrt_', 'outflow_', 'sc_', 'sw_', 'vary_',
+                     'wall_')] + [
         f'lbm_step_ghost_{kind}{g}' for g in ('d3q15', 'd3q27')
         for kind in ('', 'dyn_', 'force_', 'incomp_', 'vary_', 'wall_')])
 

@@ -42,7 +42,8 @@ from sailfish_tpu_torch.parallel import halo
 from sailfish_tpu_torch.parallel import mesh as pmesh
 from sailfish_tpu_torch.runner import SubdomainRunner
 from torch_scenes import (REPO, binary_twin, channel_sim, load_example,
-                          open_channel, run, turbulence_twin, twin, wet_map)
+                          outflow_channel, run, turbulence_twin, twin,
+                          wet_map)
 
 torch.set_num_threads(1)
 
@@ -377,16 +378,21 @@ def test_mesh_checkpoint_continues_in_the_jax_package(tmp_path,
 # -- refusals ----------------------------------------------------------------
 
 REFUSALS = {
-    # meshes of two axes run (tests/test_torch_mesh_2axis.py); the four
-    # cases that refused them keep their ids and hold what a two-axis or
-    # x mesh still refuses: the outflow family and force objects on
-    # ('z','y'), an outflow row on ('y','x'), a mixture on three axes,
-    # Shan-Chen with a BC row on a mesh over x (the JAX package's line)
-    'two_axis': (lambda: open_channel(3),
-                 dict(lat_nx=32, lat_ny=16, lat_nz=16, mesh='2x2'),
-                 r'outflow family.*NTYuOutflow.*force objects'),
-    'x_2d': (lambda: open_channel(2), dict(lat_nx=32, lat_ny=16, mesh='1x2'),
-             r'outflow family.*NTCopy'),
+    # meshes of two axes run (tests/test_torch_mesh_2axis.py), and so do
+    # the outflow family and force objects (tests/test_torch_mesh_outflow.
+    # py); the four cases that refused them keep their ids and hold what a
+    # two-axis or x mesh still refuses: an outflow row whose samples reach
+    # past a shard's interior along the inner axis of ('z','y') and along x
+    # of ('y','x'), a mixture on three axes, Shan-Chen with a BC row on a
+    # mesh over x (the JAX package's line)
+    'two_axis': (lambda: outflow_channel('NTNeumann', 3, 'y'),
+                 dict(lat_nx=16, lat_ny=16, lat_nz=16, mesh='2x8'),
+                 r'NTNeumann \(orientation \d\) samples 2 plane\(s\).*'
+                 r'2-plane shard along y'),
+    'x_2d': (lambda: outflow_channel('NTGuoDensity', 2, 'x'),
+             dict(lat_nx=32, lat_ny=16, mesh='1x16'),
+             r'NTGuoDensity \(orientation \d\) samples 2 plane\(s\).*'
+             r'2-plane shard along x'),
     'mixture_two_axis': (lambda: binary_twin('sc_separation_3d'),
                          dict(lat_nx=8, lat_ny=8, lat_nz=8, mesh='2x1x2'),
                          '3-axis meshes'),
@@ -402,9 +408,17 @@ REFUSALS = {
         lambda: binary_twin('sc_capillary_wave_2d'),
         dict(lat_nx=16, lat_ny=18, mesh='2'),
         'Shan-Chen with complex-BC blocks needs global psi sampling'),
-    'outflow_and_force_object': (lambda: open_channel(2),
-                                 dict(lat_nx=32, lat_ny=16, mesh='2'),
-                                 r'outflow family.*NTCopy.*force objects'),
+    # the outflow family and force objects run on a mesh; what of it is
+    # still refused: the extended copy, and a face whose samples reach
+    # past a thin shard
+    'extended_copy': (lambda: outflow_channel('NTExtendedCopy', 2, 'x'),
+                      dict(lat_nx=32, lat_ny=16, mesh='2'),
+                      r'NTExtendedCopy rows.*sailfish_tpu/runner.py:346-349'),
+    'outflow_thin_shards': (
+        lambda: outflow_channel('NTYuOutflow', 2, 'y'),
+        dict(lat_nx=16, lat_ny=16, mesh='16'),
+        r'NTYuOutflow \(orientation \d\) samples 1 plane\(s\).*'
+        r'1-plane shard along y'),
     'composite_step': (lambda: turbulence_twin('channel_cube'),
                        dict(H=6, Re_tau=60, buf_az=3, main_az=5, ay=2.5,
                             mesh='2'),

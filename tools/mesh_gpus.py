@@ -1,9 +1,13 @@
 """A 3D scene sharded along z over several GPUs of one host (``--mesh=N``,
 one shard per GPU), against the unsharded run on one GPU: the lid-driven
 cavity (``examples/torch/ldc_3d.py``, D3Q19 BGK, ``--scene ldc_3d``, the
-default) or the binary Shan-Chen separation
+default), the binary Shan-Chen separation
 (``examples/torch/binary_fluid/sc_separation_3d.py``, D3Q19, K = 2,
-``--scene sc_separation_3d``).
+``--scene sc_separation_3d``) or the open channel past a sphere
+(``tests/torch_scenes.open_channel(3)``: a regularized inlet, a Yu outlet,
+a force object on the sphere; ``--scene open_sphere_3d``, 2 ``--size`` x
+``--size``² nodes), whose drag series must equal the unsharded run's bit
+for bit too.
 
 For N = 2, 4, ... up to the visible GPUs, through
 ``LBSimulationController.run()`` on the kernel engine:
@@ -22,7 +26,8 @@ For N = 2, 4, ... up to the visible GPUs, through
   the host clock between synchronizations of every GPU;
 * weak scaling: ``--size``² × (N·``--size``) over N GPUs (one
   ``--size``³ slab each), MLUPS per GPU against the unsharded
-  ``--size``³ run on one GPU.
+  ``--size``³ run on one GPU (not for the open channel, whose body grows
+  with the domain).
 
 With ``--mesh AxB`` (for example ``2x2``) it runs that ('z', 'y') mesh
 over A·B GPUs instead of the z meshes: one shard per GPU, each GPU's edge
@@ -60,13 +65,16 @@ from sailfish_tpu_torch.ops import lbm_step as ls  # noqa: E402
 from sailfish_tpu_torch.ops import sc_multi as sm  # noqa: E402
 from sailfish_tpu_torch.parallel import halo  # noqa: E402
 from sailfish_tpu_torch.parallel import mesh as pmesh  # noqa: E402
-from torch_scenes import binary_twin, run, twin  # noqa: E402
+from torch_scenes import binary_twin, open_channel, run, twin  # noqa: E402
 
-#: --scene -> (sim class factory, the csrc sources its kernels need)
+#: --scene -> (sim class factory, the csrc sources its kernels need, the
+#: domain's x extent in units of --size)
 SCENES = {
-    'ldc_3d': (lambda: twin('ldc_3d'), ['lbm_step', 'halo']),
+    'ldc_3d': (lambda: twin('ldc_3d'), ['lbm_step', 'halo'], 1),
     'sc_separation_3d': (lambda: binary_twin('sc_separation_3d'),
-                         ['sc_multi', 'halo']),
+                         ['sc_multi', 'halo'], 1),
+    'open_sphere_3d': (lambda: open_channel(3),
+                       [ls.OUTFLOW_LIBRARY, 'halo'], 2),
 }
 
 
@@ -93,8 +101,8 @@ def scene_run(scene, n, size, z, steps, chunk, mesh=None, y=None):
     through the controller, over a z mesh of the first ``n`` GPUs (or the
     mesh ``mesh`` over them; ``n`` = 0: no mesh, on cuda:0); returns
     (runner, MLUPS, kernel and exchange launches of the run)."""
-    cfg = dict(lat_nx=size, lat_ny=y or size, lat_nz=z, max_iters=steps,
-               every=chunk, seed=1)
+    cfg = dict(lat_nx=SCENES[scene][2] * size, lat_ny=y or size, lat_nz=z,
+               max_iters=steps, every=chunk, seed=1)
     for counts in (ls.LAUNCHES, sm.LAUNCHES, fe.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -137,13 +145,16 @@ def main():
     scene = args.scene
     build.load_all(SCENES[scene][1])
     size, steps, chunk = args.size, args.steps, args.chunk
-    nodes = size ** 3
+    nx = SCENES[scene][2] * size
+    nodes = nx * size ** 2
     ref, ref_mlups, _ = scene_run(scene, 0, size, size, steps, chunk)
     ref_f = tuple(f.clone() for f in leaves(ref.f))
+    ref_drag = [(it, tuple(F)) for it, F in getattr(ref.sim, 'drag', [])]
     del ref
     torch.cuda.empty_cache()
-    print(f'{scene} unsharded {size}^3 on cuda:0: {ref_mlups:.1f} MLUPS, '
-          f'{nodes / ref_mlups / 1e3:.4f} ms per step', flush=True)
+    print(f'{scene} unsharded {nx}x{size}x{size} on cuda:0: '
+          f'{ref_mlups:.1f} MLUPS, {nodes / ref_mlups / 1e3:.4f} ms per '
+          f'step' + (f'; drag {ref_drag}' if ref_drag else ''), flush=True)
     out = dict(scene=scene, size=size, steps=steps, mesh=args.mesh,
                unsharded_mlups=ref_mlups,
                gpus=smi.stdout.strip().splitlines(), strong={}, weak={})
@@ -161,6 +172,8 @@ def main():
         stp = r.stepper
         multi = hasattr(stp, 'K')
         same = all(torch.equal(a, b) for a, b in zip(leaves(r.f), ref_f))
+        drag = [(it, tuple(F)) for it, F in getattr(r.sim, 'drag', [])]
+        same_drag = drag == ref_drag
         assert [ks.a.device.index for ks in stp.kernels] == list(range(n))
         ks0 = stp.kernels[0]
         names = [ks0.rho_name, ks0.name] if multi else [ks0.name]
@@ -196,21 +209,25 @@ def main():
         x_ms = host_ms(exchanges, 500, devices)
         launch_ms = host_ms(launches_only, 100, devices)
         step_ms = nodes / mlups / 1e3
-        print(f'{scene} {size}^3 over {n} GPUs (mesh {mesh or n}, a shard '
-              f'{tuple(ks0.shape)} each): {mlups:.1f} MLUPS '
-              f'({mlups / ref_mlups:.3f}x one GPU, '
+        print(f'{scene} {nx}x{size}x{size} over {n} GPUs (mesh '
+              f'{mesh or n}, a shard {tuple(ks0.shape)} each): '
+              f'{mlups:.1f} MLUPS ({mlups / ref_mlups:.3f}x one GPU, '
               f'{mlups / ref_mlups / n:.3f} parallel efficiency), '
               f'{step_ms:.4f} ms per step; the final state equal to the '
-              f'unsharded run\'s bit for bit: {same}; '
-              f'{", ".join(f"{n * steps} {x}" for x in names + xnames)} '
-              f'launches; the exchanges alone {x_ms:.5f} ms, the shards\' '
+              f'unsharded run\'s bit for bit: {same}'
+              + (f'; the drag series too: {same_drag}' if ref_drag else '')
+              + f'; {", ".join(f"{n * steps} {x}" for x in names + xnames)}'
+              f' launches; the exchanges alone {x_ms:.5f} ms, the shards\' '
               f'launches alone {launch_ms:.4f} ms per step', flush=True)
-        assert same
+        assert same and same_drag
         out['strong'][mesh or n] = dict(mlups=mlups, step_ms=step_ms,
                                         exchange_ms=x_ms,
-                                        launches_ms=launch_ms, bitwise=same)
+                                        launches_ms=launch_ms, bitwise=same,
+                                        drag_bitwise=same_drag)
         del r, stp, bufs, ks0
         torch.cuda.empty_cache()
+        if SCENES[scene][2] != 1:
+            continue
         r, mlups, _ = scene_run(scene, n, size, za * size, steps, chunk,
                                 mesh, yb * size)
         print(f'{scene} {size} x {yb * size} x {za * size} over {n} GPUs '
