@@ -214,6 +214,17 @@ exchange per step, the density edge exchange for the couplings; MLUPS of
 ``--mesh=1x1``, ``--mesh=1`` and the unsharded kernel in turns with the
 same bits after each turn, the edge exchanges' ms from C against the
 one-axis ones, 2x2 shards on the card 100 steps with the unsharded bits),
+the immersed-boundary paths on the torch engine, which the kernels refuse
+by name (``ibm_cylinder`` at 48x24, 200 steps, against the CPU's torch
+engine and twice on the card for the same bits; at 4096x2048 with 1,600
+markers 1.005 nodes apart, ``IBM_MAIN``: ms per step, the spreading and
+interpolation alone, PyTorch kernels per step, the markers' displacement),
+the tracers and the visualization on the kernel's main path (``ldc_3d``
+256^3: 100,000 tracers updated every 100 of 1,000 steps, the card's
+advection against the CPU's bit for bit; ``--mode=visualization`` with
+two frames; a slice server with a subscriber on 127.0.0.1, the slice
+received against the host field's bit for bit; a phase whose host
+package, matplotlib or pyzmq, is not installed says so and does not run),
 checks the results, times
 the 3D free-energy kernel's FE-MRT instantiation at 256^3 beside the main
 path's BGK one (with its tile and ptxas registers), runs a free-energy
@@ -276,7 +287,8 @@ from torch_scenes import (ACCEL, BC_PAIRS, FE_GOLDEN_FLAGS,  # noqa: E402
                           shear_wave_viscosity, ELBM_DEV_BAND,
                           ELBM_MEAN_FACTOR, elbm_branches, elbm_errors, fp64_distances,
                           newton_state, smooth_feq, KERNEL_OUTFLOW_KINDS,
-                          guo_beside_halfbb, open_channel, outflow_channel)
+                          guo_beside_halfbb, open_channel, outflow_channel,
+                          with_slice_subscriber, with_tracers)
 
 LDC_3D = twin('ldc_3d')
 LDC_2D = twin('ldc_2d')
@@ -5035,6 +5047,262 @@ def edge_bytes(stp, size, which):
     return 4 * dirs * per * row * 2 * 4
 
 
+#: ibm_cylinder at a full width: the marker spacing 2 pi 256 / 1600 =
+#: 1.005 nodes, the spacing the IBM method needs
+IBM_MAIN = dict(lat_nx=4096, lat_ny=2048, radius=256, n_markers=1600)
+IBM_STEPS = 500
+IBM_CHUNK = 100
+#: the card against the CPU: the golden harness's size, 200 steps
+IBM_COMPARE_STEPS = 200
+#: tracers on the kernel's main path: ldc_3d 256^3, updated every
+#: TRACER_EVERY of TRACER_STEPS steps
+TRACERS = 100_000
+TRACER_STEPS = 1000
+TRACER_EVERY = 100
+CUBE_256 = dict(lat_nx=256, lat_ny=256, lat_nz=256)
+
+
+def ibm_card_against_cpu():
+    """``ibm_cylinder`` at the golden harness's 48x24 for 200 steps on the
+    card's torch engine against the CPU's: f within ``TOL`` on wet nodes,
+    the positions within ``FP64_FACTOR`` times the CPU fp32 run's
+    distance to the CPU fp64 run; two card runs give the same bits (the
+    spreading sums each node's contributions in a fixed order, no
+    atomics)."""
+    cfg = dict(SINGLE_GOLDEN_FLAGS['ibm_cylinder'], engine='torch',
+               max_iters=IBM_COMPARE_STEPS, every=IBM_COMPARE_STEPS)
+    sim_cls = twin('ibm_cylinder')
+    card = [run(sim_cls, platform=DEVICE, **cfg) for _ in range(2)]
+    assert all(r.engine == 'torch' and r.device.type == DEVICE
+               for r in card)
+    same = all(torch.equal(a, b) for a, b in zip(card[0].f, card[1].f))
+    cpu = run(sim_cls, platform='cpu', **cfg)
+    cpu64 = run(sim_cls, platform='cpu', precision='double', **cfg)
+    wet = wet_map(cpu.maps)
+    f, pos = (x.cpu().numpy() for x in card[0].f)
+    f32, pos32 = (x.numpy() for x in cpu.f)
+    pos64 = cpu64.f[1].numpy()
+    f_err = float(np.abs(f - f32)[:, wet].max())
+    p_err = float(np.abs(pos - pos64).max())
+    p_ref = float(np.abs(pos32 - pos64).max())
+    say(f'ibm_cylinder 48x24, {IBM_COMPARE_STEPS} steps, card torch engine '
+        f'against the CPU\'s: wet max|df| = {f_err:.3e} (tol {TOL:g}); '
+        f'positions {p_err:.3e} from the CPU fp64 run, the CPU fp32 run '
+        f'{p_ref:.3e} from it (factor {FP64_FACTOR:g}), card against CPU '
+        f'fp32 {float(np.abs(pos - pos32).max()):.3e}; two card runs the '
+        f'same bits: {same}')
+    assert np.isfinite(f_err) and f_err <= TOL, f_err
+    assert p_err <= FP64_FACTOR * max(p_ref, float(np.spacing(
+        np.float32(1.0)))), (p_err, p_ref)
+    assert same
+    del card, cpu, cpu64
+    free_memory()
+
+
+def ibm_main_path():
+    """``ibm_cylinder`` at ``IBM_MAIN`` through the controller on the
+    torch engine (the kernels refuse it by name), ``IBM_STEPS`` steps in
+    ``IBM_CHUNK``-step chunks: ms per step (median of the chunks after the
+    first), the ms of ``spread_forces`` + ``interpolate_velocity`` alone
+    on the final positions and velocity (CUDA events; the spreading holds
+    one host sync), the PyTorch kernels per step and the device's idle
+    share of one more traced chunk (``tools/trace_main_path``), and the
+    markers' displacement: finite, and downstream (+x) on average."""
+    from sailfish_tpu_torch.ops import ibm
+    ls.reset_launch_counts()
+    r = run(twin('ibm_cylinder'), engine='torch', max_iters=IBM_STEPS,
+            every=IBM_CHUNK, **IBM_MAIN)
+    assert r.engine == 'torch' and r.kernel is None, r.engine
+    assert not any(ls.LAUNCHES.values()), dict(ls.LAUNCHES)
+    nodes = IBM_MAIN['lat_nx'] * IBM_MAIN['lat_ny']
+    history = list(r.mlups_history)
+    mlups = statistics.median(history[1:])
+    step_ms = 1e3 * nodes / (mlups * 1e6)
+    b = r.builder
+    f, pos = r.f
+    disp = (pos - b.ref_pos).cpu().numpy()
+    assert np.all(np.isfinite(disp)), disp
+    mean_dx = float(disp[0].mean())
+    largest = float(np.abs(disp).max())
+    assert mean_dx > 0.0, mean_dx
+    r._fields_to_host()
+    assert np.all(np.isfinite(r.sim.vx)) and np.all(np.isfinite(r.sim.rho))
+    _rho, u = b.macro_fields(r.f)
+    shape = b.maps.type_map.shape
+    ibm_ms = util.cuda_time_ms(
+        lambda: (ibm.spread_forces(pos, b.ref_pos, b.stiffness, shape,
+                                   b.dtype),
+                 ibm.interpolate_velocity(u, pos)), 20, warmup=2)
+    trace_dir = os.path.join(REPO, 'chiprun_out', 'traces')
+    os.makedirs(trace_dir, exist_ok=True)
+    traced = trace_runner_chunk(r, 'ibm_cylinder', 20, trace_dir)
+    say(f'main path ibm_cylinder {IBM_MAIN["lat_nx"]}x{IBM_MAIN["lat_ny"]} '
+        f'({IBM_MAIN["n_markers"]} markers, radius {IBM_MAIN["radius"]}; '
+        f'engine {r.engine}): MLUPS per {IBM_CHUNK}-step chunk '
+        f'{[round(m, 1) for m in history]}; median {mlups:.1f} '
+        f'MLUPS, {step_ms:.4f} ms per step; spread_forces + '
+        f'interpolate_velocity {ibm_ms:.4f} ms ({ibm_ms / step_ms:.4f} of '
+        f'a step); {traced["other_kernels_per_step"]:.1f} PyTorch kernels '
+        f'per step, device idle share of a traced 20-step chunk '
+        f'{traced["idle_share"]:.5f}; markers displaced by {largest:.5f} '
+        f'at most, {mean_dx:.6f} along +x on average')
+    del r, b, f, pos, u
+    free_memory()
+    return dict(step_ms=step_ms, ibm_ms=ibm_ms,
+                kernels_per_step=traced['other_kernels_per_step'],
+                idle_share=traced['idle_share'], largest=largest)
+
+
+def tracer_main_path():
+    """``ldc_3d`` 256^3 on the kernel engine carrying ``TRACERS`` tracers
+    (``torch_scenes.with_tracers``) updated every ``TRACER_EVERY`` of
+    ``TRACER_STEPS`` steps, the launch counts zeroed just before and read
+    just after: one ``lbm_step_d3q19`` launch per step; the host ms per
+    update (synchronized; the velocity read from the kernel's state
+    through ``runner.macro_fields``); every tracer in the domain; and on
+    one velocity field from the kernel's state the card's advection equals
+    the CPU's bit for bit. Returns the launches."""
+    from sailfish_tpu_torch.tracers import TracerParticles
+    shape = tuple(CUBE_256[k] for k in ('lat_nz', 'lat_ny', 'lat_nx'))
+    sizes = np.array(tuple(reversed(shape)), dtype=np.float32)[:, None]
+    pos = np.random.default_rng(5).uniform(0.0, 1.0, (3, TRACERS)) * sizes
+
+    class Sim(with_tracers(LDC_3D, pos, TRACER_EVERY)):
+        update_ms = []
+
+        def after_step(self, runner):
+            util.synchronize(DEVICE)
+            t0 = time.perf_counter()
+            super().after_step(runner)
+            util.synchronize(DEVICE)
+            Sim.update_ms.append(1e3 * (time.perf_counter() - t0))
+
+    ls.reset_launch_counts()
+    r = run(Sim, max_iters=TRACER_STEPS, **CUBE_256)
+    counts = {k: v for k, v in ls.LAUNCHES.items() if v}
+    assert r.engine == 'kernel', r.engine
+    assert counts == {'lbm_step_d3q19': TRACER_STEPS}, counts
+    tp = r.sim.tp
+    assert tp.positions.device.type == DEVICE
+    assert len(Sim.update_ms) == TRACER_STEPS // TRACER_EVERY
+    now = tp.to_numpy()
+    inside = bool(np.all((now >= 0.0) & (now < sizes)))
+    # the displacement, a wrap across the domain taken out
+    d = now - pos.astype(np.float32)
+    moved = float(np.abs(d - np.round(d / sizes) * sizes).max())
+    _rho, u = r.macro_fields()
+    on_card = tp.advect(u).cpu().numpy()
+    on_cpu = TracerParticles(now, shape).advect(u.cpu()).numpy()
+    same = np.array_equal(on_card, on_cpu)
+    say(f'tracers: {TRACERS} on ldc_3d 256^3 (kernel engine, '
+        f'lbm_step.LAUNCHES {counts}), updated every {TRACER_EVERY} of '
+        f'{TRACER_STEPS} steps: {statistics.median(Sim.update_ms):.3f} ms '
+        f'per update (host, synchronized; median of '
+        f'{len(Sim.update_ms)}: {[round(m, 3) for m in Sim.update_ms]}); '
+        f'all in the domain: {inside}; moved by {moved:.4f} at most; one '
+        f'advection on the card equals the CPU\'s bit for bit: {same}')
+    assert inside and moved > 0.0 and same
+    del r, tp, u
+    free_memory()
+    return counts['lbm_step_d3q19'], statistics.median(Sim.update_ms)
+
+
+def missing(module):
+    """True, saying so, when ``module`` is not installed: the phase that
+    needs it does not run (a host package, no fault of the port)."""
+    try:
+        __import__(module)
+    except ImportError:
+        say(f'{module} is not installed on this machine: the phase that '
+            'needs it did not run')
+        return True
+    return False
+
+
+def visualization_main_path():
+    """``ldc_3d`` 256^3 on the kernel engine under ``--mode=visualization``
+    (the matplotlib engine), 200 steps with output every 100: one frame
+    per output event, named as the JAX package names them, and the host
+    ms per frame. Returns the launches (0 when matplotlib is missing)."""
+    if missing('matplotlib'):
+        return 0, None
+    from sailfish_tpu_torch.vis_mpl import MatplotlibVis
+    frame_ms = []
+    update = MatplotlibVis.update
+
+    def timed(self, iteration):
+        t0 = time.perf_counter()
+        out = update(self, iteration)
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        # without --output the frames go to vis_frames in the working
+        # directory (no 256^3 npz output is written)
+        os.chdir(tmp)
+        MatplotlibVis.update = timed
+        try:
+            ls.reset_launch_counts()
+            r = run(LDC_3D, max_iters=200, every=100, mode='visualization',
+                    **CUBE_256)
+            counts = {k: v for k, v in ls.LAUNCHES.items() if v}
+            frames = sorted(os.listdir('vis_frames'))
+            sizes = [os.path.getsize(os.path.join('vis_frames', n))
+                     for n in frames]
+        finally:
+            MatplotlibVis.update = update
+            os.chdir(here)
+    assert r.engine == 'kernel' and isinstance(r.vis, MatplotlibVis)
+    assert counts == {'lbm_step_d3q19': 200}, counts
+    assert frames == ['frame_0000100.png', 'frame_0000200.png'], frames
+    assert min(sizes) > 1000, sizes
+    say(f'--mode=visualization on ldc_3d 256^3 (kernel engine, '
+        f'lbm_step.LAUNCHES {counts}): frames {frames} ({sizes} B), '
+        f'{frame_ms[-1]:.1f} ms per frame (host, the mid-plane of the '
+        f'256^3 fields; the first frame, with matplotlib\'s set-up, '
+        f'{frame_ms[0]:.1f} ms)')
+    del r
+    free_memory()
+    return counts['lbm_step_d3q19'], frame_ms[-1]
+
+
+def slice_server_main_path():
+    """``ldc_3d`` 256^3 on the kernel engine serving slices
+    (``Vis2DSliceMixIn``) to a subscriber on 127.0.0.1
+    (``torch_scenes.with_slice_subscriber``; every receive times out after
+    ``SLICE_TIMEOUT_MS``), 300 steps with a slice every 100: three slices,
+    the last equal to the host field's slice bit for bit. Returns the
+    launches (0 when pyzmq is missing)."""
+    if missing('zmq'):
+        return 0
+    ls.reset_launch_counts()
+    r = run(with_slice_subscriber(LDC_3D), max_iters=300, every=100,
+            **CUBE_256)
+    counts = {k: v for k, v in ls.LAUNCHES.items() if v}
+    sim = r.sim
+    try:
+        got = [next(sim.subscriber) for _ in range(3)]
+    finally:
+        sim.subscriber.close()
+        sim.close_slice_server()
+    assert r.engine == 'kernel'
+    assert counts == {'lbm_step_d3q19': 300}, counts
+    meta = [(m['iteration'], m['field'], m['axis'], m['position'])
+            for m, _a in got]
+    assert meta == [(it, 'rho', 0, 0) for it in (100, 200, 300)], meta
+    # axis 0 is x: the array's last axis
+    expect = np.ascontiguousarray(sim.rho[:, :, 0], dtype=np.float32)
+    same = np.array_equal(got[-1][1], expect)
+    say(f'slice server on ldc_3d 256^3 (kernel engine, lbm_step.LAUNCHES '
+        f'{counts}): received {meta} on 127.0.0.1; the last slice equals '
+        f'the host field\'s bit for bit: {same}')
+    assert same
+    del r, sim
+    free_memory()
+    return counts['lbm_step_d3q19']
+
+
 #: the lbm_step libraries and the other sources the smoke builds
 LBM_LIBRARIES = list(ls.LIBRARIES.values()) \
     + list(ls.MIXED_LIBRARIES.values()) + [ls.LATTICES_LIBRARY,
@@ -5462,6 +5730,10 @@ def main():
         golden(scene, twin(scene), **SINGLE_GOLDEN_FLAGS[scene])
     golden('four_rolls_mill', twin('four_rolls_mill'), engine='torch',
            **SINGLE_GOLDEN_FLAGS['four_rolls_mill'])
+    # the immersed-boundary step runs on the torch engine: the kernels
+    # refuse it by name, as the JAX runner keeps it off its fused kernels
+    golden('ibm_cylinder', twin('ibm_cylinder'), engine='torch',
+           **SINGLE_GOLDEN_FLAGS['ibm_cylinder'])
     # half-way walls, time-only densities and forces, a space- and
     # time-dependent inlet: all on the kernel engine
     for scene in WALL_DYNAMIC_SCENES:
@@ -5659,6 +5931,17 @@ def main():
             if 'edge_' in name:
                 results[name].setdefault('paths', []).append(path)
     phase_done('two-axis mesh main paths')
+    ibm_card_against_cpu()
+    ibm_main_path()
+    phase_done('IBM main path')
+    # the tracers and the visualization on the kernel's main path: their
+    # lbm_step launches join the cavity's row
+    tracer_launches, _tracer_ms = tracer_main_path()
+    vis_launches, _frame_ms = visualization_main_path()
+    slice_launches = slice_server_main_path()
+    results['lbm_step_d3q19']['launches'] += \
+        tracer_launches + vis_launches + slice_launches
+    phase_done('tracer and visualization main paths')
     fe_mrt_time()
     fe_demix()
     # chunks of about a second of the plain engine each

@@ -6,8 +6,10 @@ same override order (rc files -> class ``update_defaults`` -> script
 and ``--platform`` cpu|cuda (empty: CUDA; without a visible CUDA device
 that raises and names ``--platform=cpu``). The
 JAX-specific set-up (jax config, x64, compile cache, ``--cluster``
-bootstrap) has no counterpart; ``--cluster`` and ``--mode=visualization``
-raise until they are ported.
+bootstrap) has no counterpart; ``--cluster`` raises until it is ported.
+``--mode=visualization`` builds the engine of ``--vis_engine``
+(``vis.engine_by_name``; 'mpl' writes PNG frames) and the runner updates
+it after each output event, as ``sailfish_tpu/controller.py:255-258``.
 """
 
 from __future__ import annotations
@@ -101,7 +103,9 @@ class LBSimulationController:
                            'scene along z (3D) or y (2D) over N devices, '
                            "AxB along ('z', 'y') or ('y', 'x') over A x B")
         group.add_argument('--vis_engine', type=str, default='mpl',
-                           help='visualization engine (not ported yet)')
+                           help='visualization engine of '
+                           '--mode=visualization (mpl: headless PNG '
+                           'frames of every output event)')
         group.add_argument('--engine', type=str, default='auto',
                            choices=['auto', 'torch', 'kernel'],
                            help='step engine: kernel = the CUDA '
@@ -181,9 +185,6 @@ class LBSimulationController:
                 config.checkpoint_file = config.base_name
         if config.cluster:
             raise NotImplementedError('--cluster is not ported yet')
-        if config.mode == 'visualization':
-            raise NotImplementedError(
-                '--mode=visualization is not ported yet')
         if config.seed:
             np.random.seed(config.seed)
         util.reset_logger()
@@ -211,6 +212,10 @@ class LBSimulationController:
         runner = SubdomainRunner(sim, geo, output=output)
         if output is not None:
             self._register_output_fields(sim, output)
+        if config.mode == 'visualization':
+            from sailfish_tpu_torch.vis import engine_by_name
+            engine_cls = engine_by_name(config.vis_engine)
+            runner.vis = engine_cls(config, lambda: sim.host_fields())
         self._runner = runner
         timing = runner.run()
         if config.mode == 'benchmark' and timing is not None:

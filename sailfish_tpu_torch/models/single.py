@@ -7,8 +7,9 @@ initial state, the device -> host field copy and the step builder; the
 entropic model ``LBEntropicFluidSim`` (:160-215: ``--model=elbm`` with the
 diagnostic field ``alpha``); the shallow-water model ``LBFreeSurface`` and
 the single-component Shan-Chen model ``LBSingleFluidShanChen`` (:217-233,
-:299-317), which only add options and step-builder arguments. The IBM sim
-class is still to be ported.
+:299-317), which only add options and step-builder arguments; and the
+immersed-boundary model ``LBIBMFluidSim`` with its ``Particle`` (:236-293;
+state (f, positions), ``ops/ibm.IBMStepBuilder`` on the torch engine).
 """
 
 from __future__ import annotations
@@ -232,6 +233,69 @@ class LBFreeSurface(LBFluidSim):
     def step_builder_kwargs(self):
         return {'equilibrium': 'shallow_water',
                 'gravity': self.config.gravity}
+
+
+class Particle:
+    """IBM particle tethered to a reference position by a spring
+    (reference lb_single.py:406-411)."""
+
+    def __init__(self, position, mass=1.0, stiffness=1.0,
+                 ref_position=None):
+        self.position = tuple(position)
+        self.mass = mass
+        self.ref_position = tuple(ref_position if ref_position is not None
+                                  else position)
+        self.stiffness = stiffness
+
+
+class LBIBMFluidSim(LBFluidSim, LBForcedSim):
+    """Single-phase fluid with immersed-boundary particles
+    (reference lb_single.py:350-405). The state is (f, positions); BGK
+    with Guo forcing whatever ``--model`` says, as in the JAX package. The
+    kernel engine and meshes refuse it by name (``runner``,
+    ``parallel/halo.mesh_reasons``): ``--engine=torch`` on the card."""
+
+    @classmethod
+    def fields(cls):
+        return LBFluidSim.fields() + [VectorField('force')]
+
+    def __init__(self, config):
+        super().__init__(config)
+        self._particles = []
+
+    @property
+    def num_particles(self):
+        return len(self._particles)
+
+    def add_particle(self, particle):
+        assert isinstance(particle, Particle)
+        self._particles.append(particle)
+
+    def make_step_builder(self, maps, dtype, device):
+        from sailfish_tpu_torch.ops.ibm import IBMStepBuilder
+        cfg = self.config
+        if not self._particles:
+            raise ValueError('add_particle() before running')
+        pos = np.array([p.position for p in self._particles]).T
+        ref = np.array([p.ref_position for p in self._particles]).T
+        stiff = np.array([p.stiffness for p in self._particles])
+        self._initial_positions = pos
+        return IBMStepBuilder(
+            self.grid, maps,
+            ref_positions=ref, stiffness=stiff,
+            model='bgk', visc=cfg.visc,
+            incompressible=cfg.incompressible,
+            body_force=self.body_force(0), dtype=dtype, device=device,
+            time_unit=getattr(cfg, 'dt_per_lattice_time_unit', 1.0))
+
+    def make_initial_state(self, builder, dtype):
+        f = super().make_initial_state(builder, dtype)
+        return (f, torch.as_tensor(self._initial_positions, dtype=dtype,
+                                   device=builder.device))
+
+    def particle_positions(self, runner):
+        """(dim, Np) numpy particle positions from the device state."""
+        return runner.f[1].detach().cpu().numpy()
 
 
 class LBSingleFluidShanChen(LBFluidSim, LBForcedSim):

@@ -77,7 +77,8 @@ Refused by name on a mesh (``mesh_reasons``): meshes of three axes,
 Shan-Chen (single or mixture) with a BC row (JAX's Pallas engines refuse
 it, :297, :894, and on an x-sharded 2D mesh :853-858), ``NTExtendedCopy``
 (its gathers read the whole domain), an outflow row whose samples reach
-past a shard's interior, and composite steps.
+past a shard's interior, immersed-boundary scenes (the JAX runner cannot
+shard their particle positions) and composite steps.
 """
 
 from __future__ import annotations
@@ -92,6 +93,7 @@ import torch
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.ops import lbm_step as ls
 from sailfish_tpu_torch.ops import step as st
+from sailfish_tpu_torch.ops.ibm import IBMStepBuilder
 from sailfish_tpu_torch.parallel import mesh as pmesh
 from sailfish_tpu_torch.subdomain import NodeMaps
 
@@ -204,6 +206,13 @@ def mesh_reasons(mesh_shape, dim, builder):
             'path, sailfish_tpu/parallel/mesh.py:60-65)')
     sc = isinstance(builder, ShanChenMultiStepBuilder) or (
         isinstance(builder, st.StepBuilder) and builder.sc_coupling != 0.0)
+    if isinstance(builder, IBMStepBuilder):
+        reasons.append(
+            'an immersed-boundary scene (IBMStepBuilder: the JAX runner '
+            'cannot shard it either: it shards every leaf of the state, '
+            'the (dim, Np) particle positions included, and '
+            'jax.device_put raises on them, sailfish_tpu/runner.py:90-92; '
+            'run it unsharded)')
     if not isinstance(builder, (st.StepBuilder, ShanChenMultiStepBuilder,
                                 FreeEnergyStepBuilder)):
         reasons.append(

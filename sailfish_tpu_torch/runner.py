@@ -16,7 +16,12 @@ kernels: ``ops/lbm_step.KernelStep`` for a single fluid,
 ``ops/sc_multi.SCMultiStep`` for a Shan-Chen mixture,
 ``ops/fe_step.FEStep`` for the binary free-energy model). There is no
 silent fallback between them: a requested or defaulted kernel engine that
-cannot run a scene raises with the reasons.
+cannot run a scene raises with the reasons. The immersed-boundary model's
+state is the pair (f, positions) (``ops/ibm.IBMStepBuilder``, on the torch
+engine only); checkpoints store it as ``dist0a`` / ``dist1a``, the JAX
+runner's leaf order. Under ``--mode=visualization`` the controller gives
+the runner an engine (``vis``), updated after each output event
+(``sailfish_tpu/runner.py:768-769``).
 
 Device hooks (``sim.add_device_hook``) run on both engines: each chunk is
 split at the iterations where a declared stride fires (after every step
@@ -47,7 +52,7 @@ read their windows from the shards (``ShardedStep.gather_box``), both with
 the unsharded run's bits. What cannot be sharded is refused by name
 (``parallel/halo.mesh_reasons``: meshes of three axes, Shan-Chen with a
 BC row, ``NTExtendedCopy``, an outflow row whose samples reach past a
-shard's interior, composite steps).
+shard's interior, immersed-boundary scenes, composite steps).
 """
 
 from __future__ import annotations
@@ -84,6 +89,9 @@ class SubdomainRunner:
         self.mesh = None
         self._f = None
         self._sharded = None
+        #: the ``--mode=visualization`` engine (``vis.FluidVis``), updated
+        #: after each output event; None otherwise
+        self.vis = None
 
     # -- the state -----------------------------------------------------------
 
@@ -236,7 +244,17 @@ class SubdomainRunner:
         if isinstance(builder, FreeEnergyStepBuilder):
             from sailfish_tpu_torch.ops.fe_step import FEStep
             return FEStep(builder)
-        if not isinstance(builder, StepBuilder):
+        from sailfish_tpu_torch.ops.ibm import IBMStepBuilder
+        if isinstance(builder, IBMStepBuilder):
+            raise NotImplementedError(
+                'the CUDA kernels cannot run an immersed-boundary scene '
+                '(IBMStepBuilder: the particles\' spring force enters every '
+                'step, and the JAX runner keeps a StepBuilder subclass off '
+                'its fused kernels, sailfish_tpu/runner.py:328); '
+                '--engine=torch runs it')
+        # type-exact: a subclass of StepBuilder changes the step, and the
+        # kernel would run the plain fluid step without it
+        if type(builder) is not StepBuilder:
             raise NotImplementedError(
                 'the CUDA kernels cannot run this scene: its step builder '
                 f'{type(builder).__name__} is not a StepBuilder, '
@@ -415,12 +433,17 @@ class SubdomainRunner:
 
     # -- output & checkpoint -------------------------------------------------
 
-    def _fields_to_host(self):
+    def macro_fields(self):
+        """The output fields of the state at the current iteration, on the
+        device: the builder's ``macro_fields`` or, on a mesh, the sharded
+        step's (per shard, gathered: no global copy of the state). Output,
+        tracers and visualization read them, whichever engine steps."""
         with torch.no_grad():
-            # on a mesh per shard, gathered: no global copy of the state
-            macro = (self.stepper or self.builder).macro_fields(
+            return (self.stepper or self.builder).macro_fields(
                 self.state, self.sim.iteration)
-        self.sim.update_host_fields(macro)
+
+    def _fields_to_host(self):
+        self.sim.update_host_fields(self.macro_fields())
 
     def _output_fields(self):
         self._fields_to_host()
@@ -708,6 +731,8 @@ class SubdomainRunner:
                                 [st.state_to_numpy(f)
                                  for f in st.leaves(self.f)],
                                 sim.iteration)
+                if self.vis is not None:
+                    self.vis.update(sim.iteration)
                 if cfg.check_invalid_results_host and \
                         not np.all(np.isfinite(sim.rho)):
                     log.error('invalid results (NaN/Inf) detected; '

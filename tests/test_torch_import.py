@@ -105,7 +105,10 @@ def test_port_modules_are_packaged():
             'sailfish_tpu_torch.data_processing',
             'sailfish_tpu_torch.converter',
             'sailfish_tpu_torch.parallel.mesh',
-            'sailfish_tpu_torch.parallel.halo'} <= names
+            'sailfish_tpu_torch.parallel.halo',
+            'sailfish_tpu_torch.ops.ibm', 'sailfish_tpu_torch.tracers',
+            'sailfish_tpu_torch.vis', 'sailfish_tpu_torch.vis_mpl',
+            'sailfish_tpu_torch.vis_mixin'} <= names
     csrc = os.path.join(os.path.dirname(sailfish_tpu_torch.__file__), 'ops',
                         'csrc')
     # every source, and no other: a source without a wrapper would be

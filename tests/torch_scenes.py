@@ -17,8 +17,12 @@ from sailfish_tpu_torch import equilibrium as teq
 from sailfish_tpu_torch import node_type as nt
 from sailfish_tpu_torch.controller import LBSimulationController
 from sailfish_tpu_torch.models.base import LBForcedSim
-from sailfish_tpu_torch.models.single import LBFluidSim
+from sailfish_tpu_torch.models.single import (LBFluidSim, LBIBMFluidSim,
+                                              Particle)
 from sailfish_tpu_torch.subdomain import Subdomain2D, Subdomain3D
+from sailfish_tpu_torch.tracers import TracerParticles
+from sailfish_tpu_torch.vis_mixin import Vis2DSliceMixIn, \
+    connect_slice_client
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,6 +66,7 @@ SINGLE_SCENES = {
     'sc_phase_separation_3d': 'SCSim3D',
     'fs_gaussian': 'FSSim',
     'ldc_2d_unorm': 'LDCSimUnorm',
+    'ibm_cylinder': 'IBMSim',
 }
 #: the golden harness's flags for the single-fluid scenes
 #: (tests/examples_harness.py:26-94)
@@ -88,6 +93,7 @@ SINGLE_GOLDEN_FLAGS = {
     'sc_phase_separation_3d': dict(lat_nx=16, lat_ny=16, lat_nz=16),
     'fs_gaussian': dict(lat_nx=32, lat_ny=32),
     'ldc_2d_unorm': dict(lat_nx=32, lat_ny=32, unorm_every=7),
+    'ibm_cylinder': dict(lat_nx=48, lat_ny=24),
 }
 #: the single-component Shan-Chen twins (the kernel engine's ``sc`` mode,
 #: after the density pre-pass) and the shallow-water twin (its
@@ -1222,3 +1228,108 @@ def elbm_branches(ks, f0, it=0, tol=None):
                 newton_at_threshold=bool(near[moved].all()),
                 iters=int(newton.max()) - 2 if newton.numel() else 0,
                 alpha=float((dk[0] - dp[0])[coll].abs().max()))
+
+
+#: the 3D IBM ring of ``ibm_ring_3d``: markers, radius, the ring's tilt
+#: about x (rad), the spring stiffness and the driving acceleration
+IBM_RING = dict(n=24, radius=4.0, tilt=0.5, stiffness=0.03,
+                accel=(1e-4, 0.0, 0.0))
+
+
+def ibm_ring_3d(subdomain_cls=None, model_cls=None, particle_cls=None,
+                ring=IBM_RING):
+    """A ring of IBM markers (a 3D flexible body, 1.05 nodes apart, so
+    neighbours share corner nodes) tilted out of the x-y plane, in a
+    periodic box driven along x: default 16^3, nu = 0.05. Pass the JAX
+    package's ``Subdomain3D``, ``LBIBMFluidSim`` and ``Particle`` to build
+    its twin."""
+    sub = subdomain_cls or Subdomain3D
+    model = model_cls or LBIBMFluidSim
+    part = particle_cls or Particle
+
+    class Box(sub):
+        def boundary_conditions(self, hx, hy, hz):
+            pass
+
+        def initial_conditions(self, sim, hx, hy, hz):
+            sim.rho[:] = 1.0
+
+    class RingSim(model):
+        subdomain = Box
+
+        @classmethod
+        def update_defaults(cls, defaults):
+            defaults.update(lat_nx=16, lat_ny=16, lat_nz=16, visc=0.05,
+                            periodic_x=True, periodic_y=True,
+                            periodic_z=True)
+
+        def __init__(self, config):
+            super().__init__(config)
+            self.add_body_force(ring['accel'])
+            c = (config.lat_nx / 2.0 + 0.25, config.lat_ny / 2.0 + 0.125,
+                 config.lat_nz / 2.0 - 0.375)
+            r, t = ring['radius'], ring['tilt']
+            for k in range(ring['n']):
+                phi = 2.0 * np.pi * k / ring['n']
+                pos = (c[0] + r * np.cos(phi),
+                       c[1] + r * np.sin(phi) * np.cos(t),
+                       c[2] + r * np.sin(phi) * np.sin(t))
+                self.add_particle(part(pos, stiffness=ring['stiffness']))
+
+    return RingSim
+
+
+def with_tracers(sim_cls, positions, every, tracer_cls=None):
+    """``sim_cls`` carrying ``TracerParticles`` at ``positions`` (dim, N)
+    as ``sim.tp``, registered for checkpoints as 'tracers' and advanced
+    after every ``every``-th step (``after_step_interval``); pass the JAX
+    package's ``TracerParticles`` to build its twin."""
+    tracer_cls = tracer_cls or TracerParticles
+
+    class Sim(sim_cls):
+        after_step_interval = every
+
+        def before_main_loop(self, runner):
+            super().before_main_loop(runner)
+            if not hasattr(self, 'tp'):
+                self.tp = tracer_cls(positions, self.rho.shape)
+                self.register_checkpoint_object('tracers', self.tp)
+
+        def after_step(self, runner):
+            super().after_step(runner)
+            if self.iteration % every == 0:
+                self.tp.update(runner)
+
+    return Sim
+
+
+#: how long a slice-server client waits for a message, ms
+SLICE_TIMEOUT_MS = 5000
+
+
+def with_slice_subscriber(sim_cls, timeout_ms=SLICE_TIMEOUT_MS):
+    """``sim_cls`` serving slices (``Vis2DSliceMixIn``) with a subscriber
+    on 127.0.0.1: at the first ``after_step``, before the server's first
+    slice, ``sim.subscriber`` (``connect_slice_client`` with
+    ``timeout_ms``) connects and the subscription is awaited at the
+    server, so it receives every slice. Close ``sim.subscriber`` and call
+    ``sim.close_slice_server()`` after the run."""
+
+    class Sim(sim_cls, Vis2DSliceMixIn):
+        subscriber = None
+
+        def after_step(self, runner):
+            super().after_step(runner)
+            if self.subscriber is not None:
+                return
+            import zmq
+            self.subscriber = connect_slice_client(
+                self._port, timeout_ms=timeout_ms)
+            # the subscription arrives at the XPUB socket as a message
+            if not self._sock.poll(timeout_ms, zmq.POLLIN):
+                raise TimeoutError('the subscription did not reach the '
+                                   f'slice server within {timeout_ms} ms')
+            if self._sock.recv() != b'\x01':
+                raise RuntimeError('the slice server got no subscription')
+
+    return Sim

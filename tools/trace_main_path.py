@@ -35,7 +35,10 @@ sampled after the chunk) and laminarize channel (``laminarize_channel_2d``
 8192x2048: its plane-mean pre-pass and the step), and the cavity sharded
 over a one-shard mesh (``ldc_3d_zmesh1``, ``--mesh=1``: each step the
 ghost-plane step and the ``halo_exchange`` launch, whose share of the
-chunk the kernel means show) it
+chunk the kernel means show), and the immersed-boundary channel
+(``ibm_cylinder`` 4096x2048 with 1,600 markers on the torch engine, which
+the kernels refuse: every kernel is PyTorch's, counted as other kernels)
+it
 runs the controller
 with the default (kernel) engine for one chunk (kernel build, warm-up),
 then traces one more chunk of ``SubdomainRunner.main`` with
@@ -152,6 +155,10 @@ SCENES = {
     # ghost-plane exchange
     'ldc_3d_zmesh1': (lambda s: twin('ldc_3d'), (256, 256, 256),
                       {'mesh': '1'}),
+    # the immersed-boundary channel on the torch engine (the kernels
+    # refuse it): its PyTorch kernels per step
+    'ibm_cylinder': (twin, (4096, 2048),
+                     {'engine': 'torch', 'radius': 256, 'n_markers': 1600}),
 }
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: the port's kernels, by their CUDA function names
@@ -190,7 +197,7 @@ def trace_chunk(scene, chunk, out_dir):
     load, size, extra = SCENES[scene]
     cfg = dict(zip(('lat_nx', 'lat_ny', 'lat_nz'), size), **extra)
     r = run(load(scene), max_iters=chunk, every=chunk, **cfg)
-    assert r.engine == 'kernel', r.engine
+    assert r.engine == extra.get('engine', 'kernel'), r.engine
     res = trace_runner_chunk(r, scene, chunk, out_dir)
     res.update(size=list(size))
     del r
@@ -201,20 +208,23 @@ def trace_chunk(scene, chunk, out_dir):
 def trace_runner_chunk(r, scene, chunk, out_dir):
     """One more ``chunk``-step chunk of the runner ``r``'s ``main`` (after
     its run: kernels built and warm) under ``torch.profiler``, the Chrome
-    trace written into ``out_dir`` and read by ``read_trace``."""
+    trace written into ``out_dir`` and read by ``read_trace``. On the
+    torch engine (no ``r.kernel``) every kernel is PyTorch's: ``other
+    kernels`` per step is then the step's kernel count."""
     r.config.max_iters += chunk
-    launches0 = total_launches(r.kernel)
+    port = r.kernel is not None
+    launches0 = total_launches(r.kernel) if port else 0
     with torch.no_grad(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function('main_chunk'):
             t0 = time.perf_counter()
             r.main()
             host_s = time.perf_counter() - t0
-    launched = total_launches(r.kernel) - launches0
+    launched = total_launches(r.kernel) - launches0 if port else 0
     assert launched % chunk == 0, launched
     path = os.path.join(out_dir, f'{scene}_main_chunk.json')
     prof.export_chrome_trace(path)
-    res = read_trace(path, scene)
+    res = read_trace(path, scene, port)
     # the profiler may drop an event at an edge of its window
     assert abs(res['kernels'] - launched) <= 0.01 * launched, \
         (res['kernels'], launched)
@@ -225,9 +235,11 @@ def trace_runner_chunk(r, scene, chunk, out_dir):
     return res
 
 
-def read_trace(path, scene):
+def read_trace(path, scene, port=True):
     """Idle share, gaps and per-kernel mean durations (us) of the
-    ``main_chunk`` window of an exported Chrome trace."""
+    ``main_chunk`` window of an exported Chrome trace; with ``port``
+    False (the torch engine) the gaps are those between PyTorch's
+    kernels and no kernel of the port is looked for."""
     with open(path) as fh:
         events = json.load(fh)['traceEvents']
     wins = [e for e in events if e.get('name') == 'main_chunk'
@@ -245,21 +257,23 @@ def read_trace(path, scene):
     others = [e for e in events if e.get('cat') == 'kernel'
               and w0 <= e['ts'] < w1
               and not any(k in e.get('name', '') for k in PORT_KERNELS)]
-    if not kernels:
-        raise RuntimeError(f'{scene}: the trace holds none of the port\'s '
-                           'kernels')
     by_name = {}
     for e in kernels:
         name = next(k for k in PORT_KERNELS if k in e['name'])
         by_name.setdefault(name, []).append(e['dur'])
+    # the kernels whose gaps are measured
+    timed = kernels if port else others
+    if not timed:
+        raise RuntimeError(f'{scene}: the trace holds none of the port\'s '
+                           'kernels' if port else f'{scene}: no kernel')
     busy = union_length(dev)
-    k0 = min(e['ts'] for e in kernels)
-    k1 = max(e['ts'] + e['dur'] for e in kernels)
+    k0 = min(e['ts'] for e in timed)
+    k1 = max(e['ts'] + e['dur'] for e in timed)
     return dict(scene=scene, kernels=len(kernels), other_kernels=len(others),
                 window_us=win['dur'],
                 busy_us=busy, idle_share=1.0 - busy / win['dur'],
                 gaps_us=(k1 - k0) - union_length(
-                    [(e['ts'], e['ts'] + e['dur']) for e in kernels]),
+                    [(e['ts'], e['ts'] + e['dur']) for e in timed]),
                 kernel_mean_us={k: sum(v) / len(v)
                                 for k, v in by_name.items()})
 
